@@ -1,0 +1,131 @@
+"""Serving-tier health counters (a copy of ``mxnet_tpu/serving/health.py``).
+
+Every padded example, expired deadline, back-pressure drop and shed
+in-flight request is counted here, per engine/batcher/loop AND mirrored
+into the process-global ``SERVING_HEALTH`` aggregate, so an operator can
+tell "healthy" from "limping on deadline misses" without scraping logs.
+The counters the later serving slices (batcher, decode loop, fleet) fill
+are kept, so the report has the same keys in both packages.
+"""
+from __future__ import annotations
+
+import threading
+
+
+class ServingHealth(object):
+    """Thread-safe counters for inference-tier degradation."""
+
+    def __init__(self, parent=None):
+        self._lock = threading.Lock()
+        self._parent = parent
+        self.requests = 0          # accepted infer()/generate() submissions
+        self.batches = 0           # engine dispatches issued by the batcher
+        self.examples = 0          # real (unpadded) examples dispatched
+        self.padded = 0            # pad rows added to reach a shape bucket
+        self.expired = 0           # requests failed on a passed deadline
+        self.dropped = 0           # rejected at enqueue (back-pressure/fault)
+        self.shed = 0              # in-flight requests failed by a dying loop
+        self.errors = 0            # dispatch errors propagated to callers
+        self.decode_steps = 0      # continuous-batching decode iterations
+        self.joined = 0            # sequences that entered a decode slot
+        self.retired = 0           # sequences that left a decode slot
+        self.requeued = 0          # requests moved off a dead/draining
+        #                            replica back into the fleet queue
+        #                            (NOT failed — the no-silent-shed path)
+        self.prefix_hits = 0       # joins that implanted a cached prefix
+        self.prefix_prefills = 0   # prefixes prefilled + stored for reuse
+        self.spec_rounds = 0       # draft-K-then-verify rounds dispatched
+        self.spec_drafted = 0      # draft proposals the target ruled on
+        self.spec_accepted = 0     # draft tokens the target verified
+        self.last_error = None
+
+    def _bump(self, field, n=1, err=None):
+        with self._lock:
+            setattr(self, field, getattr(self, field) + n)
+            if err is not None:
+                self.last_error = str(err)
+        if self._parent is not None:
+            self._parent._bump(field, n, err)
+
+    def record_request(self):
+        self._bump("requests")
+
+    def record_batch(self, examples, padded):
+        with self._lock:
+            self.batches += 1
+            self.examples += int(examples)
+            self.padded += int(padded)
+        if self._parent is not None:
+            self._parent.record_batch(examples, padded)
+
+    def record_expired(self, err=None):
+        self._bump("expired", err=err)
+
+    def record_dropped(self, err=None):
+        self._bump("dropped", err=err)
+
+    def record_shed(self, n, err=None):
+        self._bump("shed", n=n, err=err)
+
+    def record_error(self, err=None):
+        self._bump("errors", err=err)
+
+    def record_decode_step(self):
+        self._bump("decode_steps")
+
+    def record_join(self):
+        self._bump("joined")
+
+    def record_retire(self):
+        self._bump("retired")
+
+    def record_requeued(self, n=1):
+        self._bump("requeued", n=n)
+
+    def record_prefix_hit(self):
+        self._bump("prefix_hits")
+
+    def record_prefix_prefill(self):
+        self._bump("prefix_prefills")
+
+    def record_spec_round(self, drafted, accepted):
+        with self._lock:
+            self.spec_rounds += 1
+            self.spec_drafted += int(drafted)
+            self.spec_accepted += int(accepted)
+        if self._parent is not None:
+            self._parent.record_spec_round(drafted, accepted)
+
+    def report(self):
+        with self._lock:
+            return {
+                "requests": self.requests, "batches": self.batches,
+                "examples": self.examples, "padded": self.padded,
+                "expired": self.expired, "dropped": self.dropped,
+                "shed": self.shed, "errors": self.errors,
+                "decode_steps": self.decode_steps, "joined": self.joined,
+                "retired": self.retired, "requeued": self.requeued,
+                "prefix_hits": self.prefix_hits,
+                "prefix_prefills": self.prefix_prefills,
+                "spec_rounds": self.spec_rounds,
+                "spec_drafted": self.spec_drafted,
+                "spec_accepted": self.spec_accepted,
+                "last_error": self.last_error,
+            }
+
+    def reset(self):
+        with self._lock:
+            self.requests = self.batches = self.examples = 0
+            self.padded = self.expired = self.dropped = 0
+            self.shed = self.errors = self.decode_steps = 0
+            self.joined = self.retired = self.requeued = 0
+            self.prefix_hits = self.prefix_prefills = 0
+            self.spec_rounds = self.spec_drafted = self.spec_accepted = 0
+            self.last_error = None
+
+    def __repr__(self):
+        return "ServingHealth(%r)" % (self.report(),)
+
+
+#: process-global aggregate every per-batcher/per-loop health mirrors into
+SERVING_HEALTH = ServingHealth()
