@@ -8,7 +8,11 @@ numpy only, never ``jax`` or ``mxnet_tpu``. Entry points run on the card
 
 Ported so far: the SSD detector served through
 :class:`serving.ServingEngine`, with the MultiBox NMS sweep as a
-hand-written CUDA kernel (``ops/multibox_nms.py``, ``csrc/``).
+hand-written CUDA kernel (``ops/multibox_nms.py``, ``csrc/``); and ResNet
+training through :class:`train_step.TrainStep` (SGD with momentum, f32
+masters with bf16 compute), with the Conv1x1->BatchNorm fusion's
+matmul-with-statistics as a hand-written CUDA kernel
+(``ops/matmul_stats.py``, ``csrc/``).
 """
 from .base import MXNetError, __version__
 from . import base
@@ -21,6 +25,12 @@ from . import symbol as sym
 from .symbol import Symbol, Variable, Group
 from .ndarray import NDArray
 from . import executor
+from . import random
+from . import initializer
+from . import lr_scheduler
+from . import optimizer
+from . import train_step
+from .train_step import TrainStep
 from . import predictor
 from . import serving
 from . import models

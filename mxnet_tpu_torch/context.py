@@ -56,9 +56,7 @@ class Context(object):
     __repr__ = __str__
 
     def __enter__(self):
-        if not hasattr(Context._default_ctx, "value"):
-            Context._default_ctx.value = Context("cpu", 0)
-        self._old_ctx = Context._default_ctx.value
+        self._old_ctx = current_context()
         Context._default_ctx.value = self
         return self
 
@@ -87,15 +85,27 @@ def cpu_pinned(device_id=0):
     return Context("cpu_pinned", device_id)
 
 
-def num_gpus():
-    """Number of CUDA devices visible."""
-    return torch.cuda.device_count() if torch.cuda.is_available() else 0
-
-
 def current_context():
-    """The thread-local default context (default: gpu(0) when CUDA is
-    available, else cpu(0))."""
+    """The thread-local default context: gpu(0) unless a ``with cpu():``
+    (or another context) block is open. There is no quiet CPU default
+    without CUDA: the CPU is used only where a caller asks for it."""
     if not hasattr(Context._default_ctx, "value"):
-        Context._default_ctx.value = (Context("gpu", 0) if num_gpus()
-                                      else Context("cpu", 0))
+        Context._default_ctx.value = Context("gpu", 0)
     return Context._default_ctx.value
+
+
+def resolve_device(device, who):
+    """An entry point's device: ``None`` -> ``cuda:0``; a Context,
+    ``torch.device`` or string as given. A CUDA device without CUDA raises
+    naming ``who``: entry points never fall back to the CPU."""
+    if isinstance(device, Context):
+        device = device.to_device()
+    dev = torch.device("cuda", 0) if device is None else torch.device(device)
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise MXNetError(
+                "%s: CUDA is not available, so %s cannot be used; pass "
+                "device='cpu' to run on the CPU" % (who, dev))
+        if dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
+    return dev

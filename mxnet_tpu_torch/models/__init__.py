@@ -1,4 +1,5 @@
 """Model zoo of the port (counterpart of ``mxnet_tpu/models``)."""
 from . import ssd
+from .resnet import get_symbol as resnet
 
-__all__ = ["ssd"]
+__all__ = ["resnet", "ssd"]

@@ -1,0 +1,104 @@
+"""ResNet v1.5/v2 (He et al. 2015/2016): the model `bench.py` trains.
+
+The port's copy of ``mxnet_tpu/models/resnet.py`` (ref:
+example/image-classification/symbols/resnet.py): built inside the same
+``NameManager`` state it gives the same symbol JSON and parameter names.
+
+Standard depth configs: 18/34 (basic block), 50/101/152 (bottleneck).
+``image_shape`` picks the ImageNet stem (7x7/s2 + maxpool) or the CIFAR stem
+(3x3/s1). BatchNorm everywhere, no bias on the convolutions feeding it.
+"""
+from .. import symbol as sym
+
+_DEPTH_CONFIGS = {
+    18: ("basic", (2, 2, 2, 2)),
+    34: ("basic", (3, 4, 6, 3)),
+    50: ("bottleneck", (3, 4, 6, 3)),
+    101: ("bottleneck", (3, 4, 23, 3)),
+    152: ("bottleneck", (3, 8, 36, 3)),
+}
+
+_BN_ARGS = dict(fix_gamma=False, eps=2e-5, momentum=0.9)
+
+
+def _conv_bn(data, num_filter, kernel, stride, pad, name, act=True,
+             layout="NCHW"):
+    c = sym.Convolution(data=data, num_filter=num_filter, kernel=kernel,
+                        stride=stride, pad=pad, no_bias=True,
+                        layout=layout, name=name + "_conv")
+    bn = sym.BatchNorm(data=c, name=name + "_bn",
+                       axis=3 if layout == "NHWC" else 1, **_BN_ARGS)
+    if act:
+        return sym.Activation(data=bn, act_type="relu")
+    return bn
+
+
+def _basic_block(data, num_filter, stride, dim_match, name, layout="NCHW"):
+    body = _conv_bn(data, num_filter, (3, 3), stride, (1, 1), name + "_1",
+                    layout=layout)
+    body = _conv_bn(body, num_filter, (3, 3), (1, 1), (1, 1), name + "_2",
+                    act=False, layout=layout)
+    if dim_match:
+        shortcut = data
+    else:
+        shortcut = _conv_bn(data, num_filter, (1, 1), stride, (0, 0),
+                            name + "_sc", act=False, layout=layout)
+    return sym.Activation(data=body + shortcut, act_type="relu")
+
+
+def _bottleneck_block(data, num_filter, stride, dim_match, name,
+                      layout="NCHW"):
+    body = _conv_bn(data, num_filter // 4, (1, 1), (1, 1), (0, 0),
+                    name + "_1", layout=layout)
+    body = _conv_bn(body, num_filter // 4, (3, 3), stride, (1, 1),
+                    name + "_2", layout=layout)
+    body = _conv_bn(body, num_filter, (1, 1), (1, 1), (0, 0), name + "_3",
+                    act=False, layout=layout)
+    if dim_match:
+        shortcut = data
+    else:
+        shortcut = _conv_bn(data, num_filter, (1, 1), stride, (0, 0),
+                            name + "_sc", act=False, layout=layout)
+    return sym.Activation(data=body + shortcut, act_type="relu")
+
+
+def get_symbol(num_classes=1000, num_layers=50, image_shape="3,224,224",
+               layout="NCHW", **kwargs):
+    """layout="NHWC" builds the channels-last variant (data fed as NHWC),
+    the layout in which the Conv1x1->BatchNorm fusion applies
+    (ops/matmul_stats.py). Weights are OIHW in both layouts, so checkpoints
+    transfer."""
+    if num_layers not in _DEPTH_CONFIGS:
+        raise ValueError("resnet depth must be one of %s"
+                         % sorted(_DEPTH_CONFIGS))
+    block_type, units = _DEPTH_CONFIGS[num_layers]
+    block = _basic_block if block_type == "basic" else _bottleneck_block
+    widths = ([64, 128, 256, 512] if block_type == "basic"
+              else [256, 512, 1024, 2048])
+    if isinstance(image_shape, str):
+        image_shape = tuple(int(x) for x in image_shape.split(","))
+    small_input = image_shape[-1] <= 64
+
+    data = sym.Variable("data")
+    if small_input:  # CIFAR stem
+        body = _conv_bn(data, 64, (3, 3), (1, 1), (1, 1), "stem",
+                        layout=layout)
+    else:            # ImageNet stem
+        body = _conv_bn(data, 64, (7, 7), (2, 2), (3, 3), "stem",
+                        layout=layout)
+        body = sym.Pooling(data=body, kernel=(3, 3), stride=(2, 2),
+                           pad=(1, 1), pool_type="max", layout=layout)
+
+    for stage, (n_units, width) in enumerate(zip(units, widths)):
+        for unit in range(n_units):
+            stride = (1, 1) if (stage == 0 or unit > 0) else (2, 2)
+            dim_match = unit > 0
+            body = block(body, width, stride, dim_match,
+                         "stage%d_unit%d" % (stage + 1, unit + 1),
+                         layout=layout)
+
+    pool = sym.Pooling(data=body, global_pool=True, kernel=(7, 7),
+                       pool_type="avg", layout=layout, name="global_pool")
+    flat = sym.Flatten(data=pool)
+    fc = sym.FullyConnected(data=flat, num_hidden=num_classes, name="fc1")
+    return sym.SoftmaxOutput(data=fc, name="softmax")

@@ -12,7 +12,7 @@ import numpy as np
 import torch
 
 from .base import MXNetError
-from .context import Context, current_context
+from .context import Context, current_context, resolve_device
 from . import dmlc_serial
 
 
@@ -46,7 +46,7 @@ class NDArray(object):
     def __init__(self, data, ctx=None):
         t = _to_tensor(data)
         if ctx is not None:
-            t = t.to(ctx.to_device())
+            t = t.to(resolve_device(ctx, "NDArray"))
         self._data = t
 
     @property

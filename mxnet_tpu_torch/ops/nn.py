@@ -1,21 +1,99 @@
-"""Neural-network layer operators of the SSD serving slice.
+"""Neural-network layer operators.
 
-Counterparts of ``mxnet_tpu/ops/nn.py``: Convolution, Activation,
-SoftmaxActivation, Pooling and Concat, NCHW as in the JAX package (NHWC is
-taken by permuting around the NCHW call). Convolution goes to
-``torch.nn.functional.conv2d``, as the JAX package leaves it to XLA outside
-any Pallas kernel. Weights are OIHW in every layout, so checkpoints
-transfer.
+Counterparts of ``mxnet_tpu/ops/nn.py``: FullyConnected, Convolution,
+BatchNorm, Activation, SoftmaxActivation, SoftmaxOutput, Pooling and
+Concat, NCHW as in the JAX package. NHWC is taken by permuting around the
+NCHW call: the permuted tensor is channels-last in memory, so cuDNN and
+the pooling ops keep it so and the NHWC result comes back contiguous.
+Convolution goes to ``torch.nn.functional.conv2d``, as the JAX package
+leaves it to XLA outside any Pallas kernel. Weights are OIHW in every
+layout, so checkpoints transfer.
+
+Loss layers keep the reference's contract: the backward produces the
+loss gradient and ignores the incoming one (``SoftmaxOutput`` is a
+``torch.autograd.Function``, as the JAX package's is a ``custom_vjp``).
 """
 from __future__ import annotations
 
+import contextlib
 import math
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..base import attr_bool, attr_int, attr_str, attr_tuple, MXNetError
+from ..base import (attr_bool, attr_float, attr_int, attr_str, attr_tuple,
+                    MXNetError)
 from .registry import OpDef, register, register_def
+
+
+#: whether float32 convolutions may run in TF32 on the card. cuDNN's default
+#: is TF32, which keeps about three decimal digits; the port's entry points
+#: are held against the JAX package's f32 results, so they run full FP32
+CONV_TF32 = False
+
+
+@contextlib.contextmanager
+def conv_precision(device):
+    """Set cuDNN's TF32 switch to :data:`CONV_TF32` while an entry point
+    runs on ``device``, and restore it after."""
+    if device.type != "cuda":
+        yield
+        return
+    prev = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = CONV_TF32
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32 = prev
+
+
+# ---------------------------------------------------------------------------
+# FullyConnected (ref: src/operator/fully_connected-inl.h:113-131)
+# ---------------------------------------------------------------------------
+
+def _fc_inputs(attrs):
+    if attr_bool(attrs.get("no_bias", False), False):
+        return ["data", "weight"]
+    return ["data", "weight", "bias"]
+
+
+def _fc_infer(attrs, in_shapes):
+    num_hidden = attr_int(attrs["num_hidden"])
+    no_bias = attr_bool(attrs.get("no_bias", False), False)
+    flatten = attr_bool(attrs.get("flatten", True), True)
+    data = in_shapes[0]
+    if data is None:
+        raise MXNetError("FullyConnected: data shape required")
+    if flatten:
+        in_units = int(np.prod(data[1:], dtype=np.int64))
+        out = (data[0], num_hidden)
+    else:
+        # contract the last dim only, keep the leading dims
+        in_units = data[-1]
+        out = tuple(data[:-1]) + (num_hidden,)
+    shapes = [tuple(data), (num_hidden, in_units)]
+    if not no_bias:
+        shapes.append((num_hidden,))
+    return shapes, [out], []
+
+
+def _fc(op_ctx, attrs, inputs, aux):
+    no_bias = attr_bool(attrs.get("no_bias", False), False)
+    flatten = attr_bool(attrs.get("flatten", True), True)
+    data = inputs[0]
+    x = data.reshape(data.shape[0], -1) if flatten else data
+    # product, then bias: rounded in two steps as the JAX package does
+    y = x @ inputs[1].t()
+    if not no_bias:
+        y = y + inputs[2]
+    return (y,)
+
+
+_FC = register_def(OpDef("FullyConnected", _fc,
+                         inputs=("data", "weight", "bias"),
+                         infer_shape=_fc_infer))
+_FC.list_inputs = _fc_inputs
 
 
 # ---------------------------------------------------------------------------
@@ -93,6 +171,87 @@ _CONV.list_inputs = _conv_inputs
 
 
 # ---------------------------------------------------------------------------
+# BatchNorm (ref: src/operator/batch_norm-inl.h:358). Returns the moving
+# statistics' updates, which the caller writes back; they and fix_gamma's
+# ones carry no gradient.
+# ---------------------------------------------------------------------------
+
+def _bn_infer(attrs, in_shapes):
+    data = in_shapes[0]
+    if data is None:
+        raise MXNetError("BatchNorm: data shape required")
+    axis = attr_int(attrs.get("axis", 1), 1)
+    c = data[axis] if len(data) > 1 else data[0]
+    out_mv = attr_bool(attrs.get("output_mean_var", False), False)
+    outs = [tuple(data)] + ([(c,), (c,)] if out_mv else [])
+    return [tuple(data), (c,), (c,)], outs, [(c,), (c,)]
+
+
+def _bn_outputs(attrs):
+    if attr_bool(attrs.get("output_mean_var", False), False):
+        return ["output", "mean", "var"]
+    return ["output"]
+
+
+def _moving(moving, batch_stat, momentum):
+    return momentum * moving + (1 - momentum) * batch_stat.detach().to(
+        moving.dtype)
+
+
+def _batch_norm(op_ctx, attrs, inputs, aux):
+    eps = attr_float(attrs.get("eps", 1e-3), 1e-3)
+    momentum = attr_float(attrs.get("momentum", 0.9), 0.9)
+    fix_gamma = attr_bool(attrs.get("fix_gamma", True), True)
+    use_global = attr_bool(attrs.get("use_global_stats", False), False)
+    out_mv = attr_bool(attrs.get("output_mean_var", False), False)
+    x, gamma, beta = inputs
+    moving_mean, moving_var = aux
+    axis = attr_int(attrs.get("axis", 1), 1) % x.dim()
+    red = tuple(i for i in range(x.dim()) if i != axis)
+    bshape = tuple(-1 if i == axis else 1 for i in range(x.dim()))
+    if fix_gamma:
+        gamma = torch.ones_like(gamma).detach()
+    fused = op_ctx.fused_stats
+    if op_ctx.is_train and not use_global:
+        if fused is not None:
+            # statistics from the fused producer (ops/matmul_stats.py): f32
+            # sum and sum of squares over the reduced axes, differentiable
+            # back into the producer
+            s1, s2, count = fused
+            mean32 = s1 / count
+            var32 = torch.clamp_min(s2 / count - mean32.square(), 0.0)
+            mean, var = mean32.to(x.dtype), var32.to(x.dtype)
+        elif x.dtype in (torch.bfloat16, torch.float16):
+            # one pass: f32 sum and sum of squares in a single read of x
+            n = float(np.prod([x.shape[i] for i in red]))
+            x32 = x.float()
+            mean32 = x32.sum(red) / n
+            var32 = torch.clamp_min(x32.square().sum(red) / n
+                                    - mean32.square(), 0.0)
+            mean, var = mean32.to(x.dtype), var32.to(x.dtype)
+        else:
+            # two passes, exact for ill-conditioned (|mean| >> std) data
+            mean = x.mean(red)
+            var = x.var(red, unbiased=False)
+            mean32, var32 = mean, var
+        aux_updates = (_moving(moving_mean, mean32, momentum),
+                       _moving(moving_var, var32, momentum))
+    else:
+        mean, var = moving_mean, moving_var
+        aux_updates = (moving_mean, moving_var)
+    inv = torch.rsqrt(var.reshape(bshape) + eps)
+    y = ((x - mean.reshape(bshape)) * inv * gamma.reshape(bshape)
+         + beta.reshape(bshape))
+    outs = (y, mean, var) if out_mv else (y,)
+    return outs, aux_updates
+
+
+register_def(OpDef("BatchNorm", _batch_norm, inputs=("data", "gamma", "beta"),
+                   aux=("moving_mean", "moving_var"), infer_shape=_bn_infer,
+                   var_outputs=_bn_outputs))
+
+
+# ---------------------------------------------------------------------------
 # Activation / softmax (ref: activation-inl.h, softmax_activation-inl.h)
 # ---------------------------------------------------------------------------
 
@@ -118,6 +277,92 @@ def _softmax_activation(op_ctx, attrs, inputs, aux):
     if mode == "channel":
         return (torch.softmax(x, dim=1),)
     return (torch.softmax(x.reshape(x.shape[0], -1), dim=-1).reshape(x.shape),)
+
+
+# ---------------------------------------------------------------------------
+# SoftmaxOutput (ref: src/operator/softmax_output-inl.h): forward is the
+# softmax; backward emits softmax - onehot(label), scaled, and ignores the
+# incoming gradient.
+# ---------------------------------------------------------------------------
+
+def _softmax_out_infer(attrs, in_shapes):
+    data = in_shapes[0]
+    if data is None:
+        raise MXNetError("SoftmaxOutput: data shape required")
+    multi = attr_bool(attrs.get("multi_output", False), False)
+    preserve = attr_bool(attrs.get("preserve_shape", False), False)
+    if preserve:
+        label = tuple(data[:-1])
+    elif multi:
+        label = (data[0],) + tuple(data[2:])
+    else:
+        label = (data[0],)
+    return [tuple(data), label], [tuple(data)], []
+
+
+def _onehot(lab, n, dim, dtype):
+    """One-hot of integer ``lab`` with the class axis inserted at ``dim``;
+    a label outside [0, n) gives a row of zeros, as ``jax.nn.one_hot``."""
+    shape = [1] * (lab.dim() + 1)
+    shape[dim] = n
+    classes = torch.arange(n, device=lab.device).reshape(shape)
+    return (lab.unsqueeze(dim) == classes).to(dtype)
+
+
+class _SoftmaxOutput(torch.autograd.Function):
+
+    @staticmethod
+    def forward(ctx, data, label, cfg):
+        grad_scale, ignore_label, use_ignore, multi, norm, preserve = cfg
+        if preserve:
+            out = torch.softmax(data, dim=-1)
+        elif multi:
+            out = torch.softmax(data, dim=1)
+        else:
+            out = torch.softmax(data.reshape(data.shape[0], -1),
+                                dim=-1).reshape(data.shape)
+        ctx.save_for_backward(out, label)
+        ctx.cfg = cfg
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        out, label = ctx.saved_tensors
+        grad_scale, ignore_label, use_ignore, multi, norm, preserve = ctx.cfg
+        if preserve:
+            lab = label.to(torch.int32)
+            grad = out - _onehot(lab, out.shape[-1], lab.dim(), out.dtype)
+            expand = (...,) + (None,)
+        elif multi:
+            lab = label.to(torch.int32)
+            grad = out - _onehot(lab, out.shape[1], 1, out.dtype)
+            expand = (slice(None), None)
+        else:
+            lab = label.reshape(label.shape[0]).to(torch.int32)
+            grad = out - _onehot(lab, out.shape[1], 1, out.dtype).reshape(
+                out.shape)
+            expand = (slice(None),) + (None,) * (out.dim() - 1)
+        valid = torch.ones(lab.shape, dtype=out.dtype, device=out.device)
+        if use_ignore:
+            valid = (lab != int(ignore_label)).to(out.dtype)
+            grad = grad * valid[expand]
+        if norm == "batch":
+            grad = grad / out.shape[0]
+        elif norm == "valid":
+            grad = grad / torch.clamp_min(valid.sum(), 1.0)
+        return grad * grad_scale, None, None
+
+
+@register("SoftmaxOutput", inputs=("data", "label"),
+          infer_shape=_softmax_out_infer, aliases=("Softmax",))
+def _softmax_output(op_ctx, attrs, inputs, aux):
+    cfg = (attr_float(attrs.get("grad_scale", 1.0), 1.0),
+           attr_float(attrs.get("ignore_label", -1.0), -1.0),
+           attr_bool(attrs.get("use_ignore", False), False),
+           attr_bool(attrs.get("multi_output", False), False),
+           attr_str(attrs.get("normalization", "null"), "null"),
+           attr_bool(attrs.get("preserve_shape", False), False))
+    return (_SoftmaxOutput.apply(inputs[0], inputs[1], cfg),)
 
 
 # ---------------------------------------------------------------------------

@@ -1,18 +1,72 @@
-"""Tensor operators of the SSD serving slice: Reshape, Flatten, transpose
-(counterparts of ``mxnet_tpu/ops/tensor.py``), and ``relu``, the
-elementwise op the repo's legacy symbol-JSON fixtures name.
+"""Tensor operators: Reshape, Flatten, transpose, ``relu`` and
+``negative``, and the elementwise binary families (same-shape, broadcast
+and scalar) that symbol arithmetic such as ResNet's ``body + shortcut``
+builds. Counterparts of ``mxnet_tpu/ops/tensor.py``.
 """
 from __future__ import annotations
 
 import torch
 
 from ..base import attr_bool, attr_tuple, MXNetError
-from .registry import register
+from .registry import (register, register_binary, register_binary_scalar,
+                       register_unary)
 
 
-@register("relu", inputs=("data",))
-def _relu(op_ctx, attrs, inputs, aux):
-    return (torch.relu(inputs[0]),)
+register_unary("relu", torch.relu)
+register_unary("negative", torch.neg)
+
+
+def _as_dtype_of(fn):
+    """A comparison returning 1/0 in the left operand's dtype."""
+    return lambda a, b: fn(a, b).to(a.dtype)
+
+
+# ---------------------------------------------------------------------------
+# binary: same-shape elemwise (ref: elemwise_binary_op.h), broadcast
+# (ref: elemwise_binary_broadcast_op.h), scalar (ref: *_scalar_op.h). ``mod``
+# takes the divisor's sign, as jnp.mod does.
+# ---------------------------------------------------------------------------
+_BINARY = {
+    "add": torch.add, "sub": torch.sub, "mul": torch.mul,
+    "div": torch.div, "power": torch.pow, "maximum": torch.maximum,
+    "minimum": torch.minimum, "hypot": torch.hypot, "mod": torch.remainder,
+    "equal": _as_dtype_of(torch.eq), "not_equal": _as_dtype_of(torch.ne),
+    "greater": _as_dtype_of(torch.gt), "greater_equal": _as_dtype_of(torch.ge),
+    "lesser": _as_dtype_of(torch.lt), "lesser_equal": _as_dtype_of(torch.le),
+}
+for _n, _f in _BINARY.items():
+    register_binary("_" + _n, _f, aliases=("elemwise_" + _n,))
+    register_binary("broadcast_" + _n, _f)
+
+register_binary("_plus", torch.add)
+register_binary("_minus", torch.sub)
+register_binary("broadcast_plus", torch.add)
+register_binary("broadcast_minus", torch.sub)
+register_binary("_grad_add", torch.add)
+register_binary("maximum", torch.maximum)
+register_binary("minimum", torch.minimum)
+
+
+def _full(x, s):
+    return torch.full_like(x, s)
+
+
+# scalar forms: the scalar arrives as a Python float and the result keeps
+# the tensor's dtype
+_BINARY_SCALAR = dict(_BINARY)
+_BINARY_SCALAR.update({
+    "maximum": torch.clamp_min, "minimum": torch.clamp_max,
+    "hypot": lambda x, s: torch.hypot(x, _full(x, s)),
+})
+for _n, _f in _BINARY_SCALAR.items():
+    register_binary_scalar("_%s_scalar" % _n, _f)
+register_binary_scalar("_plus_scalar", torch.add)
+register_binary_scalar("_minus_scalar", torch.sub)
+register_binary_scalar("_rminus_scalar", lambda x, s: s - x)
+register_binary_scalar("_rdiv_scalar", lambda x, s: s / x)
+register_binary_scalar("_rpower_scalar", lambda x, s: torch.pow(s, x))
+register_binary_scalar("_rmod_scalar",
+                       lambda x, s: torch.remainder(_full(x, s), x))
 
 
 def _reshape_target(shape_attr, src_shape):

@@ -13,9 +13,7 @@ device. Entry points run on the card: ``device=None`` means ``cuda:0``,
 and without CUDA the engine raises instead of falling back to the CPU
 (pass ``device="cpu"`` to serve on the CPU, as the tests do).
 
-Float32 convolutions run in full FP32 (:data:`CONV_TF32` is False): cuDNN's
-default TF32 keeps about three decimal digits, and the engine is held
-against the JAX package's f32 results.
+Float32 convolutions run in full FP32 (``ops.nn.CONV_TF32`` is False).
 
 Still to port from the JAX engine: tracecheck registration, the autotune
 bucket DB, ``quantize=``, ``contexts=``, ``executables=`` and
@@ -24,23 +22,19 @@ arguments that select them raise until they are ported.
 """
 from __future__ import annotations
 
-import contextlib
-
 import numpy as np
 import torch
 
 from ..base import MXNetError, env_str
-from ..context import Context
+from ..context import resolve_device
 from ..executor import _build_graph_runner
+from ..ops.nn import conv_precision
 from ..predictor import (_strip_loss_heads, load_symbol, load_param_dict,
                          pick_partial_outputs, check_missing_params)
 from .health import ServingHealth, SERVING_HEALTH
 
 #: default batch-size buckets (env: MXTPU_SERVE_BUCKETS="1,8,32")
 _DEFAULT_BUCKETS = (1, 8, 32)
-
-#: whether the engine lets cuDNN run float32 convolutions in TF32
-CONV_TF32 = False
 
 
 def default_buckets():
@@ -56,37 +50,6 @@ def default_buckets():
         raise MXNetError("MXTPU_SERVE_BUCKETS needs positive batch sizes, "
                          "got %r" % spec)
     return buckets
-
-
-def resolve_device(device, who="ServingEngine"):
-    """``None`` -> ``cuda:0``; a Context, ``torch.device`` or string as
-    given. A CUDA device without CUDA raises: entry points never fall
-    back to the CPU."""
-    if isinstance(device, Context):
-        device = device.to_device()
-    dev = torch.device("cuda", 0) if device is None else torch.device(device)
-    if dev.type == "cuda":
-        if not torch.cuda.is_available():
-            raise MXNetError(
-                "%s: CUDA is not available, so %s cannot be used; pass "
-                "device='cpu' to serve on the CPU" % (who, dev))
-        if dev.index is None:
-            dev = torch.device("cuda", torch.cuda.current_device())
-    return dev
-
-
-@contextlib.contextmanager
-def _conv_precision(device):
-    """Set cuDNN's TF32 switch to :data:`CONV_TF32` for the forward."""
-    if device.type != "cuda":
-        yield
-        return
-    prev = torch.backends.cudnn.allow_tf32
-    torch.backends.cudnn.allow_tf32 = CONV_TF32
-    try:
-        yield
-    finally:
-        torch.backends.cudnn.allow_tf32 = prev
 
 
 def _host_array(v):
@@ -125,7 +88,7 @@ class ServingEngine(object):
         if executables is not None:
             raise MXNetError("ServingEngine: executables= is not ported yet "
                              "(serialized compiled buckets)")
-        self.device = resolve_device(device)
+        self.device = resolve_device(device, "ServingEngine")
         self._symbol = _strip_loss_heads(load_symbol(symbol_json_or_file))
         if output_names:
             self._symbol = pick_partial_outputs(self._symbol, output_names)
@@ -237,11 +200,11 @@ class ServingEngine(object):
             host = {k: np.concatenate(
                 [v, np.zeros((b - n,) + v.shape[1:], v.dtype)])
                 for k, v in host.items()}
-        with torch.inference_mode(), _conv_precision(self.device):
+        with torch.inference_mode(), conv_precision(self.device):
             args = dict(self._params)
             args.update({k: torch.from_numpy(np.ascontiguousarray(v))
                          .to(self.device) for k, v in host.items()})
-            outs = self._run(args, self._aux)
+            outs, _ = self._run(args, self._aux)
             res = [(o[:n * f] if f else o).cpu().numpy()
                    for o, f in zip(outs, self._out_row_factor)]
         self.health.record_batch(n, b - n)

@@ -135,6 +135,31 @@ class Symbol(object):
             index = names.index(index)
         return Symbol([self._outputs[index]])
 
+    # -- arithmetic composition (ref: python/mxnet/symbol.py) -----------
+    def _binary(self, opname, other, reverse=False):
+        if isinstance(other, Symbol):
+            lhs, rhs = (other, self) if reverse else (self, other)
+            return _create("broadcast_" + opname, [lhs, rhs], {})
+        if np.isscalar(other):
+            if reverse and opname in ("sub", "div", "power", "mod"):
+                return _create({"sub": "_rminus_scalar", "div": "_rdiv_scalar",
+                                "power": "_rpower_scalar",
+                                "mod": "_rmod_scalar"}[opname],
+                               [self], {"scalar": other})
+            return _create("_%s_scalar" % opname, [self], {"scalar": other})
+        raise MXNetError("unsupported operand %r" % (other,))
+
+    def __add__(self, o): return self._binary("add", o)
+    def __radd__(self, o): return self._binary("add", o)
+    def __sub__(self, o): return self._binary("sub", o)
+    def __rsub__(self, o): return self._binary("sub", o, reverse=True)
+    def __mul__(self, o): return self._binary("mul", o)
+    def __rmul__(self, o): return self._binary("mul", o)
+    def __truediv__(self, o): return self._binary("div", o)
+    def __rtruediv__(self, o): return self._binary("div", o, reverse=True)
+    def __pow__(self, o): return self._binary("power", o)
+    def __neg__(self): return _create("negative", [self], {})
+
     # -- listing --------------------------------------------------------
     def _out_nodes(self):
         return [n for n, _ in self._outputs]

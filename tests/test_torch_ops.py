@@ -89,9 +89,9 @@ def test_op_matches_jax(case):
     want = getattr(mx.nd, op)(*[mx.nd.array(x) for x in xs], **attrs)
     want = want.asnumpy()
     opdef = treg.get(op)
-    got = opdef.apply(treg.OpContext(), attrs,
-                      [torch.from_numpy(x) for x in xs], [])
-    assert len(got) == 1
+    got, aux_updates = opdef.apply(treg.OpContext(), attrs,
+                                   [torch.from_numpy(x) for x in xs], [])
+    assert len(got) == 1 and aux_updates is None
     got = got[0].numpy()
     assert got.shape == want.shape
     assert got.dtype == want.dtype

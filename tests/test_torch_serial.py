@@ -10,7 +10,7 @@ import pytest
 import torch
 
 import mxnet_tpu as mx
-from mxnet_tpu_torch import convert, dmlc_serial
+from mxnet_tpu_torch import context as tctx, convert, dmlc_serial
 from mxnet_tpu_torch import ndarray as tnd
 from mxnet_tpu_torch.base import MXNetError
 
@@ -48,7 +48,7 @@ def test_jax_params_load_bitwise_in_port(tmp_path, dtype):
 def test_port_params_load_bitwise_in_jax(tmp_path, dtype):
     src = _arrays(dtype, 2)
     f = str(tmp_path / "t.params")
-    tnd.save(f, {k: tnd.array(v, ctx=None) for k, v in src.items()})
+    tnd.save(f, {k: tnd.array(v, ctx=tctx.cpu()) for k, v in src.items()})
     got = mx.nd.load(f)
     for k, v in src.items():
         assert _bits(got[k].asnumpy()) == _bits(v)
