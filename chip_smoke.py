@@ -38,6 +38,34 @@ non-zero):
    step times and images/s fused, unfused and run_steps, and a
    torch.profiler table of one fused step.
 
+7. rtc: the user-kernel wrappers (B3). The JAX package's two PallasKernel
+   test kernels, scale (o = 2x) and addmul (o = a*b + a), as user Triton
+   kernels through rtc.TritonKernel and as CUDA bodies through rtc.Rtc
+   (NVRTC), at (8, 128), at a ragged 1,000,003 and at 25,557,032 float32
+   values: scale equal to its plain version, addmul within one float32 ulp
+   of |a*b| + |a| (a compiler may contract it into one fused multiply-add).
+   Rtc writing into a first-axis slice changes exactly that slice of the
+   parent; a float16 array, a CPU array and a 2048-thread block raise.
+   Times at 25.5M beside the bound, torch.mul/torch.addcmul and the plain
+   version, and the host cost of each wrapper beside a direct launch.
+8. bind: ResNet-50 (NCHW, 224x224, batch 128, float32, TF32 off) through
+   simple_bind on gpu(0), weights from --seed (Xavier), random data and
+   labels made on the card. The main path is two hand-written steps:
+   forward(is_train=True), backward(), then the SGD-momentum update of all
+   161 parameter arrays as a user kernel: step 1 through Rtc (161 pushes),
+   step 2 through TritonKernel (161 launches). Each update is held
+   against nd.sgd_mom_update on the same tensors; the two steps against two
+   TrainStep(compute_dtype=None) steps from the same state and batches;
+   grad_req="add" over two backward passes against twice the gradient.
+   Times: the bind step and the TrainStep step (images/s), the update's
+   device time beside its bound, nd.sgd_mom_update and torch._fused_sgd_,
+   and peak device memory.
+9. imperative: nd arithmetic and reductions on the card against the CPU;
+   an autograd gradient of a two-layer network written with nd ops
+   against Executor.backward of the same symbol; a CustomOp whose forward
+   and backward push Rtc kernels, inside a bound symbol, against the same
+   network with nd's _mul_scalar.
+
 The line before the last is {"kernels": [...]} (per kernel: launches on
 its main path, max error against the plain version, times and bound);
 the last line is {"ok": true, "device": {...}}.
@@ -203,6 +231,19 @@ def no_tf32():
     finally:
         (torch.backends.cuda.matmul.allow_tf32,
          torch.backends.cudnn.allow_tf32) = prev
+
+
+@contextlib.contextmanager
+def deterministic_cudnn():
+    """cuDNN's deterministic algorithms (its default weight-gradient
+    algorithms may sum in another order on every call), restored after."""
+    import torch
+    prev = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = prev
 
 
 def b1_bound_ms(m, k, n, itemsize):
@@ -475,9 +516,34 @@ def time_steps(fn, n):
     return float(np.median(ts))
 
 
-def profile_step(fn, card):
+def _device_us(e):
+    return float(getattr(e, "self_device_time_total",
+                         getattr(e, "self_cuda_time_total", 0.0)))
+
+
+def kernel_ms(fn, reps=3):
+    """Milliseconds of device time per call of ``fn``, summed over its
+    kernels by torch.profiler (host gaps between launches excluded); None
+    when the profiler records no device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total = sum(_device_us(e) for e in prof.key_averages()
+                if str(getattr(e, "device_type", "")).endswith("CUDA"))
+    return total / 1e3 / reps if total > 0 else None
+
+
+def profile_step(fn, card, what="one fused step",
+                 share=("matmul_stats", ("mm_stats", "reduce_partials"))):
     """torch.profiler over one call of ``fn``: prints the ten CUDA kernels
-    with the most device time and matmul_stats's share of it."""
+    with the most device time and the share of the kernels named by
+    ``share`` (a label and substrings of their names)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -486,9 +552,7 @@ def profile_step(fn, card):
         fn()
         torch.cuda.synchronize()
 
-    def dev_us(e):
-        return float(getattr(e, "self_device_time_total",
-                             getattr(e, "self_cuda_time_total", 0.0)))
+    dev_us = _device_us
     kernels = [e for e in prof.key_averages()
                if str(getattr(e, "device_type", "")).endswith("CUDA")
                and dev_us(e) > 0]
@@ -496,11 +560,11 @@ def profile_step(fn, card):
     if total == 0:
         log("profile: torch.profiler recorded no device time")
         return
-    b1 = sum(dev_us(e) for e in kernels
-             if "mm_stats" in e.key or "reduce_partials" in e.key)
-    log("profile of one fused step: %d kernel names, %.3f ms of device "
-        "time; matmul_stats %.3f ms (%.1f%%) [%s]"
-        % (len(kernels), total / 1e3, b1 / 1e3, 100.0 * b1 / total, card))
+    part = sum(dev_us(e) for e in kernels
+               if any(k in e.key for k in share[1]))
+    log("profile of %s: %d kernel names, %.3f ms of device time; %s %.3f "
+        "ms (%.1f%%) [%s]" % (what, len(kernels), total / 1e3, share[0],
+                              part / 1e3, 100.0 * part / total, card))
     for e in sorted(kernels, key=dev_us, reverse=True)[:10]:
         log("  %8.3f ms %5.1f%% x%-5d %s" % (dev_us(e) / 1e3,
                                             100.0 * dev_us(e) / total,
@@ -626,6 +690,714 @@ def train_phase(seed, card):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# rtc phase (B3): user kernels through TritonKernel and Rtc
+# ---------------------------------------------------------------------------
+
+#: sizes phase 7 runs the user kernels at: the JAX package's test shape, a
+#: ragged size and ResNet-50's parameter count
+RTC_SIZES = ((8, 128), (1000003,), (25557032,))
+RTC_BLOCK = 256
+
+#: CUDA bodies for Rtc (decorated with the arrays' names and dims)
+_RTC_N = ("int i = blockIdx.x * blockDim.x + threadIdx.x;\n"
+          "int n = 1;\n"
+          "for (int d = 0; d < {x}_ndim; ++d) n *= {x}_dims[d];\n")
+RTC_SCALE = _RTC_N.format(x="x") + "if (i < n) y[i] = 2.0f * x[i];"
+RTC_ADDMUL = _RTC_N.format(x="a") + "if (i < n) o[i] = a[i] * b[i] + a[i];"
+#: MXNet's SGD with momentum, hp = [lr, momentum, wd, rescale_grad, size]:
+#: the size is data, so one kernel serves arrays of every shape
+RTC_SGD = ("int i = blockIdx.x * blockDim.x + threadIdx.x;\n"
+           "const int n = (int)hp[4];\n"
+           "if (i < n) {\n"
+           "  float m = hp[1] * mom[i] - hp[0] * (hp[3] * g[i] + hp[2] * w[i]);\n"
+           "  mom[i] = m;\n"
+           "  w[i] = w[i] + m;\n"
+           "}")
+
+#: the bind phase's update (MXNet's sgd_mom_update)
+SGD = dict(lr=0.1, momentum=0.9, wd=1e-4, rescale_grad=1.0 / RESNET_BATCH)
+#: two backward passes over the same state agree within this fraction of
+#: the array's largest gradient: with cuDNN's deterministic algorithms the
+#: max-pooling backward's atomic adds may still sum in another order
+GRAD_TOL = 1e-4
+
+_TRITON = {}
+
+
+def triton_kernels():
+    """The user Triton kernels, wrapped in rtc.TritonKernel (built once,
+    at the first call): scale(x, n) -> 2x, addmul(a, b, n) -> a*b + a,
+    sgd_mom(w, g, m, n, lr, momentum, wd, rescale) -> (w', m'); and the
+    raw scale kernel with its grid, for a direct launch."""
+    if _TRITON:
+        return _TRITON
+    import triton
+    import triton.language as tl
+    from mxnet_tpu_torch import rtc
+
+    @triton.jit
+    def scale(x_ptr, n, o_ptr, BLOCK: tl.constexpr):
+        offs = tl.program_id(0) * BLOCK + tl.arange(0, BLOCK)
+        m = offs < n
+        tl.store(o_ptr + offs, tl.load(x_ptr + offs, mask=m) * 2.0, mask=m)
+
+    @triton.jit
+    def addmul(a_ptr, b_ptr, n, o_ptr, BLOCK: tl.constexpr):
+        offs = tl.program_id(0) * BLOCK + tl.arange(0, BLOCK)
+        m = offs < n
+        a = tl.load(a_ptr + offs, mask=m)
+        b = tl.load(b_ptr + offs, mask=m)
+        tl.store(o_ptr + offs, a * b + a, mask=m)
+
+    @triton.jit
+    def sgd_mom(w_ptr, g_ptr, m_ptr, n, lr, momentum, wd, rescale,
+                w_out, m_out, BLOCK: tl.constexpr):
+        offs = tl.program_id(0) * BLOCK + tl.arange(0, BLOCK)
+        msk = offs < n
+        w = tl.load(w_ptr + offs, mask=msk)
+        g = tl.load(g_ptr + offs, mask=msk)
+        mom = tl.load(m_ptr + offs, mask=msk)
+        new = momentum * mom - lr * (rescale * g + wd * w)
+        tl.store(m_out + offs, new, mask=msk)
+        tl.store(w_out + offs, w + new, mask=msk)
+
+    def grid(meta):
+        return (triton.cdiv(meta["n"], meta["BLOCK"]),)
+
+    _TRITON.update(
+        scale=rtc.TritonKernel(scale, out_like=0, grid=grid, BLOCK=1024),
+        addmul=rtc.TritonKernel(addmul, out_like=0, grid=grid, BLOCK=1024),
+        sgd_mom=rtc.TritonKernel(sgd_mom, out_like=[0, 2], grid=grid,
+                                 BLOCK=1024),
+        raw_scale=scale, grid=grid)
+    return _TRITON
+
+
+def rtc_grid(n):
+    return ((n + RTC_BLOCK - 1) // RTC_BLOCK,), (RTC_BLOCK,)
+
+
+def addmul_excess(got, a, b):
+    """How far |got - (a*b + a)| exceeds one float32 ulp of |a*b| + |a|
+    (<= 0 within the tolerance): fma contraction rounds once where the
+    plain version rounds twice. Returns (excess, max |diff|)."""
+    import torch
+    diff = (got - (a * b + a)).abs()
+    allowed = 2.0 ** -23 * ((a * b).abs() + a.abs())
+    return float((diff - allowed).max()), float(diff.max())
+
+
+def must_raise(fn, what):
+    """``fn`` must raise MXNetError; prints its message."""
+    from mxnet_tpu_torch.base import MXNetError
+    try:
+        fn()
+    except MXNetError as e:
+        log("rtc: %s raises: %s" % (what, str(e).splitlines()[0][:160]))
+        return
+    raise SystemExit("rtc: %s did not raise" % what)
+
+
+def host_us(fn, n=2000):
+    """Host microseconds per call of ``fn`` (enqueue only: no synchronize
+    inside the loop), after a warm-up call."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(n):
+        fn()
+    dt = time.perf_counter() - t
+    torch.cuda.synchronize()
+    return 1e6 * dt / n
+
+
+def rtc_phase(seed, reps, card):
+    import ctypes
+    import torch
+    import mxnet_tpu_torch as mt
+    from mxnet_tpu_torch import rtc
+    nd = mt.nd
+    dev = mt.gpu(0).to_device()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed + 3)
+    tk = triton_kernels()
+    err = {"cuda": 0.0, "triton": 0.0}
+    t0 = time.perf_counter()
+    for shape in RTC_SIZES:
+        n = int(np.prod(shape))
+        x, a, b = (torch.randn(shape, generator=gen, device=dev)
+                   for _ in range(3))
+        X, A, B = nd.NDArray(x), nd.NDArray(a), nd.NDArray(b)
+        y = nd.zeros(shape, ctx=mt.gpu(0))
+        o = nd.zeros(shape, ctx=mt.gpu(0))
+        grid, block = rtc_grid(n)
+        rtc.Rtc("scale", [("x", X)], [("y", y)], RTC_SCALE).push(
+            [X], [y], grid, block)
+        rtc.Rtc("addmul", [("a", A), ("b", B)], [("o", o)],
+                RTC_ADDMUL).push([A, B], [o], grid, block)
+        ty = tk["scale"](X, n)
+        to = tk["addmul"](A, B, n)
+        torch.cuda.synchronize()
+        for route, ys, os_ in (("cuda", y, o), ("triton", ty, to)):
+            if not torch.equal(ys.data, x * 2.0):
+                raise SystemExit("rtc %s scale %s differs from 2x" % (route,
+                                                                      shape))
+            excess, diff = addmul_excess(os_.data, a, b)
+            if excess > 0:
+                raise SystemExit("rtc %s addmul %s: off by %g, past one ulp "
+                                 "of |a*b| + |a|" % (route, shape, diff))
+            err[route] = max(err[route], diff)
+            log("rtc %s %s: scale equal to 2x; addmul max |kernel - plain| "
+                "%g, within one ulp of |a*b| + |a|" % (route, shape, diff))
+    log("rtc: first calls (NVRTC and Triton builds included) %.2f s"
+        % (time.perf_counter() - t0))
+
+    # a write into a first-axis slice changes that slice of the parent only
+    parent = nd.NDArray(torch.randn((6, 1000), generator=gen, device=dev))
+    before = parent.data.clone()
+    src = nd.NDArray(torch.randn((2, 1000), generator=gen, device=dev))
+    view = parent[2:4]
+    grid, block = rtc_grid(2000)
+    rtc.Rtc("scale", [("x", src)], [("y", view)], RTC_SCALE).push(
+        [src], [view], grid, block)
+    torch.cuda.synchronize()
+    want = before.clone()
+    want[2:4] = 2.0 * src.data
+    if not torch.equal(parent.data, want):
+        raise SystemExit("rtc: a push into parent[2:4] did not change "
+                         "exactly rows 2:4 of the parent")
+    log("rtc: a push into parent[2:4] of a (6, 1000) array changed exactly "
+        "those rows")
+
+    x = nd.NDArray(torch.randn((8, 128), generator=gen, device=dev))
+    y = nd.zeros((8, 128), ctx=mt.gpu(0))
+    k = rtc.Rtc("scale", [("x", x)], [("y", y)], RTC_SCALE)
+    must_raise(lambda: k.push([x.astype("float16")], [y], (4,), (256,)),
+               "a float16 array")
+    must_raise(lambda: k.push([x.copyto(mt.cpu())], [y], (4,), (256,)),
+               "a CPU array")
+    must_raise(lambda: k.push([x], [y], (1,), (2048,)),
+               "a 2048-thread block")
+    must_raise(lambda: tk["scale"](x.copyto(mt.cpu()), 1024),
+               "TritonKernel on a CPU array without a reference")
+
+    # times at ResNet-50's parameter count, beside the bound
+    n = RTC_SIZES[-1][0]
+    x, a, b = (torch.randn((n,), generator=gen, device=dev)
+               for _ in range(3))
+    X, A, B = nd.NDArray(x), nd.NDArray(a), nd.NDArray(b)
+    Y, O = nd.zeros((n,), ctx=mt.gpu(0)), nd.zeros((n,), ctx=mt.gpu(0))
+    ks = rtc.Rtc("scale", [("x", X)], [("y", Y)], RTC_SCALE)
+    ka = rtc.Rtc("addmul", [("a", A), ("b", B)], [("o", O)], RTC_ADDMUL)
+    grid, block = rtc_grid(n)
+    for name, nbytes, cases in (
+            ("scale", 8 * n, (
+                ("Rtc", lambda: ks.push([X], [Y], grid, block)),
+                ("TritonKernel", lambda: tk["scale"](X, n)),
+                ("plain x * 2.0", lambda: x * 2.0),
+                ("torch.mul", lambda: torch.mul(x, 2.0)))),
+            ("addmul", 12 * n, (
+                ("Rtc", lambda: ka.push([A, B], [O], grid, block)),
+                ("TritonKernel", lambda: tk["addmul"](A, B, n)),
+                ("plain a * b + a", lambda: a * b + a),
+                ("torch.addcmul", lambda: torch.addcmul(a, a, b))))):
+        bound = 1e3 * nbytes / HBM_BYTES_PER_S
+        times = {what: cuda_time_ms(fn, reps) for what, fn in cases}
+        log("rtc %s at %d float32: %s; bound %.6f ms (bytes) [%s]"
+            % (name, n, ", ".join("%s %.6f ms" % kv for kv in times.items()),
+               bound, card))
+
+    # the wrappers' own host cost, beside direct launches, at (8, 128)
+    xs = nd.NDArray(torch.randn((8, 128), generator=gen, device=dev))
+    ys = nd.zeros((8, 128), ctx=mt.gpu(0))
+    os_ = torch.empty((8, 128), device=dev)
+    small = rtc.Rtc("scale", [("x", xs)], [("y", ys)], RTC_SCALE)
+    small.push([xs], [ys], (4,), (RTC_BLOCK,))
+    ctx, _mod, fn = small._function(dev)
+    drv = rtc._lib("driver")
+    ptrs = [ctypes.c_void_p(xs.data.data_ptr()),
+            ctypes.c_void_p(ys.data.data_ptr())]
+    params = (ctypes.c_void_p * 2)(*[ctypes.addressof(p) for p in ptrs])
+    stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
+
+    def direct_cu():
+        drv.cuLaunchKernel(fn, 4, 1, 1, RTC_BLOCK, 1, 1, 0, stream, params,
+                           None)
+
+    raw, grid_fn = tk["raw_scale"], tk["grid"]
+    host = {
+        "Rtc.push": host_us(lambda: small.push([xs], [ys], (4,),
+                                               (RTC_BLOCK,))),
+        "cuLaunchKernel through ctypes": host_us(direct_cu),
+        "TritonKernel.__call__": host_us(lambda: tk["scale"](xs, 1024)),
+        "direct Triton launch": host_us(
+            lambda: raw[grid_fn](xs.data, 1024, os_, BLOCK=1024)),
+    }
+    log("rtc host cost per call at (8, 128): %s [%s]" % (
+        ", ".join("%s %.2f us" % kv for kv in host.items()), card))
+    return err
+
+
+# ---------------------------------------------------------------------------
+# bind phase: ResNet-50 bound with simple_bind, trained by hand
+# ---------------------------------------------------------------------------
+
+def rtc_update(kernel, params, grads, moms, hps):
+    """The SGD-momentum update of every parameter through one Rtc kernel,
+    one push per array, in place."""
+    for n, w in params.items():
+        grid, block = rtc_grid(w.size)
+        kernel.push([grads[n], hps[n]], [w, moms[n]], grid, block)
+
+
+def triton_update(kernel, params, grads, moms):
+    """The same update through one TritonKernel, one launch per array; the
+    arrays are rebound to its outputs."""
+    for n, w in params.items():
+        new_w, new_m = kernel(w, grads[n], moms[n], w.size, SGD["lr"],
+                              SGD["momentum"], SGD["wd"],
+                              SGD["rescale_grad"])
+        w._set_data(new_w.data)
+        moms[n]._set_data(new_m.data)
+
+
+def plain_update(params, grads, moms):
+    """nd.sgd_mom_update over every array (the plain version)."""
+    import mxnet_tpu_torch as mt
+    for n, w in params.items():
+        mt.nd.sgd_mom_update(w, grads[n], moms[n], out=[w, moms[n]], **SGD)
+
+
+def update_excess(w, m, w0, g, m0):
+    """How far a kernel's (w, m) from (w0, g, m0) exceeds the stated bound
+    around nd.sgd_mom_update's result: the new momentum within 2 float32
+    ulps of |momentum*m0| + lr*(rescale*|g| + wd*|w0|) (fma contraction of
+    the two products skips up to two roundings), the weight within that
+    plus one ulp of |w0| + |m|. Returns (excess, max |diff|) over w and m."""
+    import torch
+    import mxnet_tpu_torch as mt
+    W, M = mt.nd.NDArray(w0.clone()), mt.nd.NDArray(m0.clone())
+    mt.nd.sgd_mom_update(W, mt.nd.NDArray(g), M, out=[W, M], **SGD)
+    ulp = 2.0 ** -23
+    mag = (SGD["momentum"] * m0.abs() + SGD["lr"] * (
+        SGD["rescale_grad"] * g.abs() + SGD["wd"] * w0.abs()))
+    dm = (m - M.data).abs()
+    dw = (w - W.data).abs()
+    excess = max(float((dm - 2 * ulp * mag).max()),
+                 float((dw - 2 * ulp * mag - ulp * (w0.abs() + m.abs()))
+                       .max()))
+    return excess, max(float(dm.max()), float(dw.max()))
+
+
+def scaled_excess(got, want, frac):
+    """max |got - want| over ``frac`` times the array's largest |want|
+    (a ratio <= 1 passes)."""
+    return float((got - want).abs().max()) / max(
+        frac * float(want.abs().max()), 1e-30)
+
+
+def bind_phase(seed, reps, card):
+    import torch
+    import mxnet_tpu_torch as mt
+    from mxnet_tpu_torch import initializer, models, rtc
+    from mxnet_tpu_torch.train_step import TrainStep
+    nd = mt.nd
+    dev = mt.gpu(0).to_device()
+    bsz, img = RESNET_BATCH, RESNET_IMAGE
+    dshape = (bsz, 3, img, img)
+    torch.cuda.reset_peak_memory_stats()
+    with mt.symbol.NameManager():
+        sym = models.resnet(num_classes=RESNET_CLASSES, num_layers=50,
+                            image_shape="3,%d,%d" % (img, img),
+                            layout="NCHW")
+    data_names = ("data", "softmax_label")
+    pnames = [n for n in sym.list_arguments() if n not in data_names]
+    req = {n: ("null" if n in data_names else "write")
+           for n in sym.list_arguments()}
+    problems = []
+    # the checks with cuDNN's deterministic algorithms, the times without
+    with no_tf32(), deterministic_cudnn():
+        t0 = time.perf_counter()
+        exe = sym.simple_bind(mt.gpu(0), grad_req=req, data=dshape,
+                              softmax_label=(bsz,))
+        attrs = sym.attr_dict()
+        saved = mt.random.get_state()
+        mt.random.seed(seed)
+        init = initializer.Xavier()
+        for n in pnames + exe.aux_names:
+            init(initializer.InitDesc(n, attrs.get(n, {})),
+                 exe.arg_dict[n] if n in exe.arg_dict else exe.aux_dict[n])
+        mt.random.set_state(saved)
+        params = {n: exe.arg_dict[n] for n in pnames}
+        grads = {n: exe.grad_dict[n] for n in pnames}
+        nparam = sum(w.size for w in params.values())
+        torch.cuda.synchronize()
+        log("bind: resnet-50 NCHW %dx%d b=%d float32 bound with simple_bind "
+            "on %s in %.2f s: %d parameter arrays (%d values), %d aux states"
+            % (img, img, bsz, exe._device, time.perf_counter() - t0,
+               len(pnames), nparam, len(exe.aux_names)))
+        if (len(pnames), nparam, len(exe.aux_names)) != (161, 25557032, 106):
+            raise SystemExit("bind: expected 161 arrays, 25,557,032 values "
+                             "and 106 aux states")
+        w0 = {n: w.data.clone() for n, w in params.items()}
+        aux0 = {n: a.data.clone() for n, a in exe.aux_dict.items()}
+        moms = {n: nd.zeros(w.shape, ctx=mt.gpu(0)) for n, w in
+                params.items()}
+        hps = {n: nd.array([SGD["lr"], SGD["momentum"], SGD["wd"],
+                            SGD["rescale_grad"], w.size], ctx=mt.gpu(0))
+               for n, w in params.items()}
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(seed + 4)
+        batches = [{"data": torch.randn(dshape, generator=gen, device=dev),
+                    "softmax_label": torch.randint(
+                        0, RESNET_CLASSES, (bsz,), generator=gen,
+                        device=dev).float()} for _ in range(2)]
+        first = pnames[0]
+        k_rtc = rtc.Rtc("sgd_mom", [("g", grads[first]), ("hp", hps[first])],
+                        [("w", params[first]), ("mom", moms[first])],
+                        RTC_SGD)
+        k_tri = triton_kernels()["sgd_mom"]
+
+        # grad_req="add": two backward passes give twice one
+        exe_add = sym.bind(
+            mt.gpu(0), exe.arg_dict,
+            args_grad={n: nd.zeros(params[n].shape, ctx=mt.gpu(0))
+                       for n in pnames},
+            grad_req={n: ("add" if n in pnames else "null")
+                      for n in sym.list_arguments()},
+            aux_states={n: nd.NDArray(a.clone()) for n, a in aux0.items()})
+        exe_add.forward(is_train=True, **batches[0])
+        exe_add.backward()
+        once = {n: g.data.clone() for n, g in exe_add.grad_dict.items()}
+        exe_add.backward()
+        worst_add = max(scaled_excess(exe_add.grad_dict[n].data, 2 * g,
+                                      GRAD_TOL) for n, g in once.items())
+        del exe_add
+        log("bind: grad_req='add' after two backward passes: max |g - 2 g1| "
+            "is %.3g of the tolerance (%g of the array's largest gradient)"
+            % (worst_add, GRAD_TOL))
+        if worst_add > 1:
+            problems.append("grad_req='add' over two passes is not twice "
+                            "the gradient")
+
+        # the main path: two steps, counts at 0 just before, read just after
+        rtc.RTC_LAUNCHES = 0
+        rtc.TRITON_LAUNCHES = 0
+        exe.forward(is_train=True, **batches[0])
+        exe.backward()
+        g1 = {n: g.data.clone() for n, g in grads.items()}
+        rtc_update(k_rtc, params, grads, moms, hps)
+        w1 = {n: w.data.clone() for n, w in params.items()}
+        m1 = {n: m.data.clone() for n, m in moms.items()}
+        aux1 = {n: a.data.clone() for n, a in exe.aux_dict.items()}
+        exe.forward(is_train=True, **batches[1])
+        exe.backward()
+        g2 = {n: g.data.clone() for n, g in grads.items()}
+        triton_update(k_tri, params, grads, moms)
+        torch.cuda.synchronize()
+        launches = {"cuda": rtc.RTC_LAUNCHES, "triton": rtc.TRITON_LAUNCHES}
+        log("bind: two steps launched the Rtc update %d times and the "
+            "TritonKernel update %d times" % (launches["cuda"],
+                                             launches["triton"]))
+        if launches != {"cuda": 161, "triton": 161}:
+            problems.append("expected 161 launches of each update")
+        for step, g in ((1, g1), (2, g2)):
+            bad = [n for n, v in g.items() if not bool(torch.isfinite(v)
+                                                       .all())]
+            if bad:
+                problems.append("step %d: non-finite gradients %s"
+                                % (step, bad[:3]))
+        worst_write = max(scaled_excess(g1[n], once[n], GRAD_TOL)
+                          for n in pnames)
+        log("bind: step-1 gradients against the grad_req='add' executor's "
+            "first pass: %.3g of the tolerance" % worst_write)
+        if worst_write > 1:
+            problems.append("write and add gradients differ")
+
+        # each update against nd.sgd_mom_update on the same tensors
+        err = {}
+        for route, (wa, ma, wb, gb, mb) in (
+                ("cuda", (w1, m1, w0, g1, None)),
+                ("triton", ({n: p.data for n, p in params.items()},
+                            {n: m.data for n, m in moms.items()},
+                            w1, g2, m1))):
+            ex, diff = 0.0, 0.0
+            for n in pnames:
+                e, d = update_excess(wa[n], ma[n], wb[n], gb[n],
+                                     torch.zeros_like(wb[n]) if mb is None
+                                     else mb[n])
+                ex, diff = max(ex, e), max(diff, d)
+            err[route] = diff
+            log("bind: %s update of step %d against nd.sgd_mom_update: max "
+                "|diff| %g, %s the stated ulp bound" % (
+                    "Rtc" if route == "cuda" else "TritonKernel",
+                    1 if route == "cuda" else 2, diff,
+                    "within" if ex <= 0 else "PAST"))
+            if ex > 0:
+                problems.append("%s update differs from nd.sgd_mom_update"
+                                % route)
+
+        # the same two steps through TrainStep from the same state
+        ts = TrainStep(sym, optimizer="sgd", learning_rate=SGD["lr"],
+                       momentum=SGD["momentum"], wd=SGD["wd"],
+                       compute_dtype=None)
+        st = ts.init({"data": dshape}, {"softmax_label": (bsz,)}, seed=seed)
+        finals = ({n: p.data for n, p in params.items()},
+                  {n: m.data for n, m in moms.items()},
+                  {n: a.data for n, a in exe.aux_dict.items()})
+        starts = ((w0, None, aux0), (w1, m1, aux1))
+        for step, (wb, mb, ab) in ((1, (w1, m1, aux1)), (2, finals)):
+            # each step from the state the bind step started from
+            sw, sm, sa = starts[step - 1]
+            for n in pnames:
+                st["params"][n].copy_(sw[n])
+                st["opt"][n].copy_(0 if sm is None else sm[n])
+            for n in exe.aux_names:
+                st["aux"][n].copy_(sa[n])
+            ts.step(st, batches[step - 1])
+            torch.cuda.synchronize()
+            # tolerances: weights and momenta within 1e-3 of the array's
+            # largest momentum (the step's size), as pooling's backward
+            # may still sum in another order and the user kernels contract
+            # into fmas; moving statistics within 1e-5 of the array's
+            # largest value
+            rw = max(float((wb[n] - st["params"][n]).abs().max())
+                     / max(1e-3 * float(st["opt"][n].abs().max()), 1e-30)
+                     for n in pnames)
+            rm = max(scaled_excess(mb[n], st["opt"][n], 1e-3) for n in pnames)
+            ra = max(scaled_excess(ab[n], st["aux"][n], 1e-5)
+                     for n in exe.aux_names)
+            log("bind: after step %d against TrainStep(compute_dtype=None): "
+                "weights %.3g, momenta %.3g (of 1e-3 of the largest "
+                "momentum), moving statistics %.3g (of 1e-5 of the largest)"
+                % (step, rw, rm, ra))
+            if max(rw, rm, ra) > 1:
+                problems.append("step %d differs from TrainStep" % step)
+
+    with no_tf32():
+        def bind_step():
+            exe.forward(is_train=True, **batches[0])
+            exe.backward()
+            rtc_update(k_rtc, params, grads, moms, hps)
+
+        t_bind = time_steps(bind_step, reps)
+        t_ts = time_steps(lambda: ts.step(st, batches[0]), reps)
+        for what, t in (("bind step (forward, backward, Rtc update)",
+                         t_bind), ("TrainStep float32 step", t_ts)):
+            log("bind: %s %.3f ms, %.1f images/s (host clock, median of "
+                "%d) [%s]" % (what, 1e3 * t, bsz / t, reps, card))
+        ws = {n: nd.NDArray(w.data.clone()) for n, w in params.items()}
+        ms_ = {n: nd.NDArray(m.data.clone()) for n, m in moms.items()}
+        upd = {
+            "Rtc": cuda_time_ms(
+                lambda: rtc_update(k_rtc, ws, grads, ms_, hps), 10),
+            "TritonKernel": cuda_time_ms(
+                lambda: triton_update(k_tri, ws, grads, ms_), 10),
+            "plain nd.sgd_mom_update": cuda_time_ms(
+                lambda: plain_update(ws, grads, ms_), 10),
+        }
+        lib = None
+        if hasattr(torch, "_fused_sgd_"):
+            wl = [w.data for w in ws.values()]
+            gl = [grads[n].data for n in ws]
+            ml = [m.data for m in ms_.values()]
+            lib = cuda_time_ms(lambda: torch._fused_sgd_(
+                wl, gl, ml, weight_decay=SGD["wd"],
+                momentum=SGD["momentum"], lr=SGD["lr"], dampening=0.0,
+                nesterov=False, maximize=False, is_first_step=False), 10)
+            upd["torch._fused_sgd_"] = lib
+        log("bind: torch._fused_sgd_ is one call over the 161 arrays; its "
+            "momentum buffer differs by a factor lr, so it is a yardstick "
+            "of time only")
+        host_upd = host_us(lambda: rtc_update(k_rtc, ws, grads, ms_, hps),
+                           20)
+        nbytes = 5 * 4 * nparam + 4 * 5 * len(pnames)
+        bound = 1e3 * nbytes / HBM_BYTES_PER_S
+        log("bind: update of 161 arrays, CUDA-event time (launches back to "
+            "back, host gaps included): %s; bound %.6f ms (%d bytes) [%s]"
+            % (", ".join("%s %.6f ms" % kv for kv in upd.items()), bound,
+               nbytes, card))
+        fns = {"Rtc": lambda: rtc_update(k_rtc, ws, grads, ms_, hps),
+               "TritonKernel": lambda: triton_update(k_tri, ws, grads, ms_),
+               "plain nd.sgd_mom_update": lambda: plain_update(ws, grads,
+                                                               ms_)}
+        if lib is not None:
+            fns["torch._fused_sgd_"] = lambda: torch._fused_sgd_(
+                wl, gl, ml, weight_decay=SGD["wd"],
+                momentum=SGD["momentum"], lr=SGD["lr"], dampening=0.0,
+                nesterov=False, maximize=False, is_first_step=False)
+        kern = {k: kernel_ms(f) for k, f in fns.items()}
+        log("bind: update of 161 arrays, kernel time summed by "
+            "torch.profiler: %s [%s]" % (", ".join(
+                "%s %s" % (k, "not recorded" if v is None else "%.6f ms" % v)
+                for k, v in kern.items()), card))
+        if all(v is not None for v in kern.values()):
+            upd = kern
+            lib = kern.get("torch._fused_sgd_")
+        else:
+            log("bind: the profiler recorded no device time: the kernels "
+                "line reports CUDA-event times")
+        log("bind: the Rtc update's host time %.1f us for 161 pushes [%s]"
+            % (host_upd, card))
+        log("bind: peak device memory %.2f GiB"
+            % (torch.cuda.max_memory_allocated() / 2 ** 30))
+        profile_step(bind_step, card, "one bind step",
+                     ("the Rtc update", ("sgd_mom",)))
+    if problems:
+        raise SystemExit("bind phase failed: " + "; ".join(problems))
+    return launches, err, upd, lib, bound
+
+
+# ---------------------------------------------------------------------------
+# imperative phase: nd, autograd and a CustomOp on the card
+# ---------------------------------------------------------------------------
+
+_RTC_OPS = {}
+
+
+def register_rtc_custom_op():
+    """A CustomOp (y = 2x) whose forward and backward push Rtc kernels."""
+    import mxnet_tpu_torch as mt
+    from mxnet_tpu_torch import rtc
+
+    def push_scale(src, dst):
+        k = _RTC_OPS.get(src.shape)
+        if k is None:
+            k = _RTC_OPS[src.shape] = rtc.Rtc("scale", [("x", src)],
+                                              [("y", dst)], RTC_SCALE)
+        grid, block = rtc_grid(src.size)
+        k.push([src], [dst], grid, block)
+
+    class RtcScale(mt.operator.CustomOp):
+        def forward(self, is_train, req, in_data, out_data, aux):
+            push_scale(in_data[0], out_data[0])
+
+        def backward(self, req, out_grad, in_data, out_data, in_grad, aux):
+            push_scale(out_grad[0], in_grad[0])
+
+    @mt.operator.register("chip_smoke_rtc_scale")
+    class RtcScaleProp(mt.operator.CustomOpProp):
+        def declare_backward_dependency(self, out_grad, in_data, out_data):
+            return list(out_grad)
+
+        def create_operator(self, ctx, shapes, dtypes):
+            return RtcScale()
+
+
+def imperative_phase(seed, card):
+    import torch
+    import mxnet_tpu_torch as mt
+    nd = mt.nd
+    rng = np.random.default_rng(seed + 5)
+    gpu, cpu = mt.gpu(0), mt.cpu()
+    problems = []
+    with no_tf32():
+        # nd on the card against the CPU, within 1e-5 of (1 + the result's
+        # largest |value|): the CUDA and CPU kernels sum reductions and dot
+        # products in other orders, so the error scales with the terms
+        worst, worst_op = 0.0, None
+        ops = {"arith": lambda x, y: (x + y) * 2 - y / 3,
+               "pow": lambda x, y: x ** 2, "rsub": lambda x, y: 1 - x,
+               "exp": lambda x, y: nd.exp(x) / (nd.abs(y) + 1),
+               "sum": lambda x, y: nd.sum(x, axis=1),
+               "max": lambda x, y: nd.max(y, axis=0),
+               "mean": lambda x, y: nd.mean(x),
+               "norm": lambda x, y: nd.norm(x),
+               "dot": lambda x, y: nd.dot(x, y, transpose_b=True),
+               "argmax": lambda x, y: nd.argmax(x, axis=1),
+               "topk": lambda x, y: nd.topk(y, k=2), "sort": lambda x, y:
+               nd.sort(x), "clip": lambda x, y: nd.clip(x, a_min=-0.5,
+                                                        a_max=0.5)}
+        for shape in ((3, 4), (17, 33), (64, 257)):
+            a = rng.standard_normal(shape).astype(np.float32)
+            b = rng.standard_normal(shape).astype(np.float32)
+            for name, op in ops.items():
+                g = op(nd.array(a, ctx=gpu), nd.array(b, ctx=gpu))
+                c = op(nd.array(a, ctx=cpu), nd.array(b, ctx=cpu)).asnumpy()
+                if g.context != gpu:
+                    problems.append("nd.%s's result left the card" % name)
+                r = float(np.abs(g.asnumpy() - c).max()) / (
+                    1e-5 * (1 + float(np.abs(c).max())))
+                if r > worst:
+                    worst, worst_op = r, "%s at %s" % (name, shape)
+        log("imperative: nd arithmetic and reductions at 3 shapes on the "
+            "card against the CPU: %.3g of the tolerance (closest: %s)"
+            % (worst, worst_op))
+        if worst > 1:
+            problems.append("nd on the card differs from the CPU")
+
+        # autograd of a two-layer network against Executor.backward
+        x = rng.standard_normal((8, 20)).astype(np.float32)
+        vals = {"fc1_weight": rng.standard_normal((32, 20)) * 0.2,
+                "fc1_bias": rng.standard_normal((32,)) * 0.1,
+                "fc2_weight": rng.standard_normal((10, 32)) * 0.2,
+                "fc2_bias": rng.standard_normal((10,)) * 0.1}
+        og = rng.standard_normal((8, 10)).astype(np.float32)
+        ps = [nd.array(vals[n], ctx=gpu) for n in sorted(vals)]
+        gs = [nd.zeros(p.shape, ctx=gpu) for p in ps]
+        mt.autograd.mark_variables(ps, gs)
+        fc1_b, fc1_w, fc2_b, fc2_w = ps
+        with mt.autograd.train_section():
+            h = nd.Activation(nd.FullyConnected(nd.array(x, ctx=gpu), fc1_w,
+                                                fc1_b, num_hidden=32),
+                              act_type="relu")
+            out = nd.FullyConnected(h, fc2_w, fc2_b, num_hidden=10)
+        mt.autograd.compute_gradient([out], [nd.array(og, ctx=gpu)])
+        with mt.symbol.NameManager():
+            s = mt.sym.FullyConnected(mt.sym.Variable("data"), num_hidden=32,
+                                      name="fc1")
+            s = mt.sym.Activation(s, act_type="relu")
+            s = mt.sym.FullyConnected(s, num_hidden=10, name="fc2")
+        args = {n: nd.array(v, ctx=gpu) for n, v in vals.items()}
+        args["data"] = nd.array(x, ctx=gpu)
+        eg = {n: nd.zeros(a.shape, ctx=gpu) for n, a in args.items()
+              if n != "data"}
+        ex = s.bind(gpu, args, args_grad=eg)
+        ex.forward(is_train=True)
+        ex.backward([nd.array(og, ctx=gpu)])
+        # the same cuBLAS products on the same tensors: rtol 1e-6
+        worst = max(float(np.abs(g.asnumpy() - eg[n].asnumpy()).max()
+                          / (1e-6 * np.abs(eg[n].asnumpy()).max()))
+                    for g, n in zip(gs, sorted(vals)))
+        log("imperative: autograd gradients of a two-layer network against "
+            "Executor.backward on the card: %.3g of the tolerance" % worst)
+        if worst > 1:
+            problems.append("autograd and Executor gradients differ")
+
+        # a CustomOp pushing Rtc kernels, against _mul_scalar
+        register_rtc_custom_op()
+        data = rng.standard_normal((8, 20)).astype(np.float32)
+        res = []
+        for use_rtc in (True, False):
+            with mt.symbol.NameManager():
+                s = mt.sym.FullyConnected(mt.sym.Variable("data"),
+                                          num_hidden=16, name="fc1")
+                s = (mt.sym.Custom(s, op_type="chip_smoke_rtc_scale")
+                     if use_rtc else mt.sym._mul_scalar(s, scalar=2.0))
+                s = mt.sym.FullyConnected(s, num_hidden=4, name="fc2")
+            ex = s.simple_bind(gpu, data=(8, 20))
+            for n, a in ex.arg_dict.items():
+                a[:] = data if n == "data" else np.full(a.shape, 0.1,
+                                                        np.float32)
+            before = mt.rtc.RTC_LAUNCHES
+            out = ex.forward(is_train=True)[0].asnumpy()
+            ex.backward([nd.ones((8, 4), ctx=gpu)])
+            res.append((out, {n: g.asnumpy() for n, g in ex.grad_dict.items()},
+                        mt.rtc.RTC_LAUNCHES - before))
+        (o1, g1, l1), (o2, g2, _) = res
+        same = np.array_equal(o1, o2) and all(np.array_equal(g1[n], g2[n])
+                                              for n in g2)
+        log("imperative: a CustomOp pushing Rtc kernels (%d pushes) inside a "
+            "bound symbol %s the same network with _mul_scalar"
+            % (l1, "equals" if same else "DIFFERS from"))
+        if not same or l1 != 2:
+            problems.append("the Rtc CustomOp differs from _mul_scalar")
+    if problems:
+        raise SystemExit("imperative phase failed: " + "; ".join(problems))
+
+
 def _nodes(sym):
     from mxnet_tpu_torch.symbol import _topo
     return _topo(sym._out_nodes())
@@ -670,9 +1442,21 @@ def main():
     b1 = b1_phase(args.seed, args.reps, card)
     nms["launches"] = serve_phase(args.seed, args.reps, card)
     b1["launches"] = train_phase(args.seed, card)
+    rtc_err = rtc_phase(args.seed, args.reps, card)
+    launches, upd_err, upd, lib, bound = bind_phase(args.seed, 3, card)
+    imperative_phase(args.seed, card)
+    b3 = [{"name": "rtc_%s" % route, "route": route,
+           "source": "mxnet_tpu_torch/rtc.py",
+           "replaces": "mxnet_tpu/rtc.py:83",
+           "launches": launches[route],
+           "max_abs_err": max(rtc_err[route], upd_err[route]),
+           "ms": upd["Rtc" if route == "cuda" else "TritonKernel"],
+           "plain_ms": upd["plain nd.sgd_mom_update"], "bound_ms": bound,
+           "bound_by": "bytes", "library_ms": lib}
+          for route in ("cuda", "triton")]
 
     log(card)
-    log(json.dumps({"kernels": [nms, b1]}))
+    log(json.dumps({"kernels": [nms, b1] + b3}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -8,11 +8,15 @@ numpy only, never ``jax`` or ``mxnet_tpu``. Entry points run on the card
 
 Ported so far: the SSD detector served through
 :class:`serving.ServingEngine`, with the MultiBox NMS sweep as a
-hand-written CUDA kernel (``ops/multibox_nms.py``, ``csrc/``); and ResNet
+hand-written CUDA kernel (``ops/multibox_nms.py``, ``csrc/``); ResNet
 training through :class:`train_step.TrainStep` (SGD with momentum, f32
 masters with bf16 compute), with the Conv1x1->BatchNorm fusion's
 matmul-with-statistics as a hand-written CUDA kernel
-(``ops/matmul_stats.py``, ``csrc/``).
+(``ops/matmul_stats.py``, ``csrc/``); and the imperative and bind API:
+``nd`` with every tensor and update op, ``autograd``, ``Symbol.bind``/
+``simple_bind`` and :class:`executor.Executor`, ``operator.CustomOp``,
+and ``rtc`` (user kernels: Triton through ``TritonKernel``, CUDA source
+through ``Rtc`` and NVRTC).
 """
 from .base import MXNetError, __version__
 from . import base
@@ -24,7 +28,9 @@ from . import symbol
 from . import symbol as sym
 from .symbol import Symbol, Variable, Group
 from .ndarray import NDArray
+from . import autograd
 from . import executor
+from .executor import Executor
 from . import random
 from . import initializer
 from . import lr_scheduler
@@ -35,3 +41,9 @@ from . import predictor
 from . import serving
 from . import models
 from . import convert
+from . import operator   # registers the Custom op type
+from . import rtc
+
+# refresh the op namespaces so late registrations (Custom) appear
+ndarray._init_ndarray_module()
+symbol._init_symbol_module()

@@ -8,6 +8,9 @@ from __future__ import annotations
 
 import os
 
+import numpy as np
+import torch
+
 __version__ = "0.1.0"
 
 
@@ -109,6 +112,39 @@ def env_str(name, default=""):
     if v is None or v.strip() == "":
         return default
     return v.strip()
+
+
+_BF16_NAMES = ("bfloat16",)
+
+
+def torch_dtype(dtype):
+    """A dtype given as a ``torch.dtype``, a name, a numpy dtype or a
+    numpy type -> the ``torch.dtype`` (``bfloat16`` by name, or as the
+    dmlc record dtype whose field is named so)."""
+    if isinstance(dtype, torch.dtype):
+        return dtype
+    if isinstance(dtype, str) and dtype in _BF16_NAMES:
+        return torch.bfloat16
+    try:
+        dt = np.dtype(dtype)
+    except TypeError:
+        raise MXNetError("unsupported dtype %r" % (dtype,))
+    if dt.name in _BF16_NAMES or (dt.names or ()) == _BF16_NAMES:
+        return torch.bfloat16
+    try:
+        return torch.from_numpy(np.empty(0, dt)).dtype
+    except TypeError:
+        raise MXNetError("unsupported dtype %r" % (dtype,))
+
+
+def numpy_dtype(dtype):
+    """The numpy dtype of a ``torch.dtype`` (bfloat16 has none: it maps to
+    :data:`dmlc_serial.BF16`, the raw-bits record the ``.params`` files
+    use)."""
+    if dtype == torch.bfloat16:
+        from .dmlc_serial import BF16
+        return BF16
+    return np.dtype(str(dtype).replace("torch.", ""))
 
 
 def shape_str(shape):

@@ -1,10 +1,13 @@
-"""Graph execution: lowers a Symbol DAG to a function on tensors.
+"""Graph execution: lowers a Symbol DAG to a function on tensors, and the
+``Executor`` that binds it to arrays.
 
-Counterpart of ``mxnet_tpu/executor.py:_build_graph_runner``. The JAX
-package traces the same walk into one XLA program; here each op runs
-eagerly on the tensors' device, and autograd records the training
-forward. The ``Executor`` class, placement (``ctx_group``) and the
-sharding hook come in a later slice; the arguments that select them raise.
+Counterpart of ``mxnet_tpu/executor.py`` (ref: src/executor/
+graph_executor.cc, python/mxnet/executor.py). The JAX package traces the
+walk into one XLA program and differentiates it with ``jax.vjp``; here
+each op runs eagerly on the tensors' device and torch's autograd records
+the training forward. Placement (``ctx_group``/``group2ctx``), the
+sharding hook and ``shared_exec`` across devices are not ported; the
+arguments that select them raise.
 
 The Conv1x1->BatchNorm fusion pass is the JAX package's, under the same
 knob: ``MXTPU_FUSE_CONV_BN`` ``"0"`` (the default) leaves the graph as it
@@ -20,10 +23,14 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .base import MXNetError, env_str
+from .base import MXNetError, env_str, torch_dtype
+from .context import Context, resolve_device
+from .ndarray import NDArray, _as_tensor
 from .ops import matmul_stats as _ms
+from .ops.nn import conv_precision
 from .ops.registry import OpContext
 from .symbol import _topo
+from . import random as _random
 
 #: MXTPU_FUSE_CONV_BN spellings: "0" off; "1" and "interpret" both fuse
 FUSE_MODES = ("0", "1", "interpret")
@@ -70,11 +77,13 @@ def node_generator(key, index, device):
 
 def _build_graph_runner(symbol, placement=None, node_constraint=None):
     """Lower the symbol DAG to ``run(arg_vals, aux_vals, rng=None,
-    is_train=False) -> (outputs, aux_updates)``. Nodes run in topological
-    order over an environment keyed by (node, output index); aux state is
-    looked up as ``"<node>_<aux>"`` and its updates come back under the
-    same names. ``rng`` is an integer key: ops that declared ``needs_rng``
-    get :func:`node_generator` of it and their node index. Returns
+    is_train=False, monitor=None) -> (outputs, aux_updates)``. Nodes run in
+    topological order over an environment keyed by (node, output index);
+    aux state is looked up as ``"<node>_<aux>"`` and its updates come back
+    under the same names. ``rng`` is an integer key: ops that declared
+    ``needs_rng`` get :func:`node_generator` of it and their node index.
+    ``monitor(name, tensor)`` sees every op output. Ops without array
+    inputs create theirs on the device of the first argument. Returns
     ``(run, nodes)``."""
     if placement is not None:
         raise MXNetError("_build_graph_runner: placement (ctx_group model "
@@ -86,8 +95,9 @@ def _build_graph_runner(symbol, placement=None, node_constraint=None):
     fused_convs, bn_stats_src = ({}, {}) if fuse_mode() == "0" \
         else fusion_pairs(nodes)
 
-    def run(arg_vals, aux_vals, rng=None, is_train=False):
+    def run(arg_vals, aux_vals, rng=None, is_train=False, monitor=None):
         use_fusion = bool(fused_convs) and is_train
+        device = next(iter(arg_vals.values())).device if arg_vals else None
         env = {}
         stats_env = {}
         aux_updates = {}
@@ -108,14 +118,18 @@ def _build_graph_runner(symbol, placement=None, node_constraint=None):
             else:
                 gen = None
                 if node.op.needs_rng and rng is not None:
-                    gen = node_generator(rng, k, ins[0].device)
+                    gen = node_generator(rng, k,
+                                         ins[0].device if ins else device)
                 fused_stats = (stats_env.get(bn_stats_src.get(id(node)))
                                if use_fusion else None)
                 op_ctx = OpContext(is_train=is_train, rng=gen,
-                                   fused_stats=fused_stats)
+                                   fused_stats=fused_stats, device=device)
                 outs, aux_up = node.op.apply(op_ctx, node.attrs, ins, aux_in)
             for i, o in enumerate(outs):
                 env[(id(node), i)] = o
+            if monitor is not None:
+                for oname, o in zip(node.output_names(), outs):
+                    monitor(oname, o)
             if aux_up is not None:
                 for a, u in zip(aux_names, aux_up):
                     aux_updates["%s_%s" % (node.name, a)] = u
@@ -123,3 +137,335 @@ def _build_graph_runner(symbol, placement=None, node_constraint=None):
         return outputs, aux_updates
 
     return run, nodes
+
+
+class Executor(object):
+    """A symbol bound to arrays on one device (ref:
+    python/mxnet/executor.py).
+
+    ``arg_dict``/``grad_dict``/``aux_dict`` are the bound NDArrays:
+    ``forward`` reads the arguments and aux states and writes the new aux
+    states (training only), ``backward`` writes the gradients into the
+    arrays given as ``args_grad``, by ``grad_req`` (``write``, ``add``,
+    ``null``). Arguments that share one gradient array receive the sum of
+    their gradients.
+
+    ``forward(is_train=True)`` keeps the autograd graph for the next
+    ``backward``, which frees it; a second ``backward`` after one forward
+    recomputes the graph from the values that forward read (without
+    updating the aux states again), so it gives the same gradients, as the
+    JAX package's re-running ``backward`` does. The next ``forward`` drops
+    an unused graph.
+    """
+
+    def __init__(self, symbol, ctx, args, args_grad=None, grad_req="write",
+                 aux_states=None, group2ctx=None, shared_exec=None):
+        if group2ctx:
+            raise MXNetError("Executor: group2ctx (ctx_group model "
+                             "parallelism) is not ported yet")
+        self._symbol = symbol
+        self._ctx = ctx if isinstance(ctx, Context) else Context(ctx)
+        self._device = resolve_device(self._ctx, "Executor")
+        self.arg_names = symbol.list_arguments()
+        self.aux_names = symbol.list_auxiliary_states()
+        self.output_names = symbol.list_outputs()
+
+        self.arg_dict = self._normalize(args, self.arg_names, "args")
+        self.arg_arrays = [self.arg_dict[n] for n in self.arg_names]
+        self.grad_dict = ({} if args_grad is None else self._normalize(
+            args_grad, self.arg_names, "args_grad", allow_missing=True))
+        self.grad_arrays = [self.grad_dict.get(n) for n in self.arg_names]
+        self.aux_dict = (self._normalize(aux_states, self.aux_names, "aux")
+                         if self.aux_names else {})
+        self.aux_arrays = [self.aux_dict[n] for n in self.aux_names]
+        for what, arrays in (("args", self.arg_dict),
+                             ("args_grad", self.grad_dict),
+                             ("aux_states", self.aux_dict)):
+            for n, a in arrays.items():
+                if a.data.device != self._device:
+                    raise MXNetError(
+                        "bind: %s[%r] is on %s, the executor on %s"
+                        % (what, n, a.data.device, self._device))
+
+        if isinstance(grad_req, str):
+            self._grad_req = {n: (grad_req if n in self.grad_dict else "null")
+                              for n in self.arg_names}
+        elif isinstance(grad_req, (list, tuple)):
+            self._grad_req = dict(zip(self.arg_names, grad_req))
+        else:
+            self._grad_req = {n: grad_req.get(n, "null")
+                              for n in self.arg_names}
+        for n in self.arg_names:
+            if (self._grad_req.get(n, "null") != "null"
+                    and n not in self.grad_dict):
+                if not self.arg_dict[n].data.is_floating_point():
+                    # integer inputs have no gradient (reference kNullOp)
+                    self._grad_req[n] = "null"
+                    continue
+                raise MXNetError("grad_req %r for %s but no grad array bound"
+                                 % (self._grad_req[n], n))
+
+        self._run, self._nodes = _build_graph_runner(symbol)
+        self._diff_args = [n for n in self.arg_names
+                           if self._grad_req.get(n, "null") != "null"]
+        # one entry per gradient buffer: the arguments writing into it
+        self._grad_groups = []
+        by_buf = {}
+        for n in self._diff_args:
+            buf = self.grad_dict[n]
+            if id(buf) in by_buf:
+                self._grad_groups[by_buf[id(buf)]][1].append(n)
+            else:
+                by_buf[id(buf)] = len(self._grad_groups)
+                self._grad_groups.append((buf, [n]))
+        self._needs_rng = any((not n.is_variable) and n.op.needs_rng
+                              for n in self._nodes)
+        self._base_key = None
+        self._step = 0
+        self._monitor_callback = None
+        self._pending = None    # (arg_vals, aux_vals, key, is_train)
+        self._graph = None      # (outputs, leaves) of forward(is_train=True)
+        self.outputs = []
+
+    def _normalize(self, arrays, names, what, allow_missing=False):
+        if arrays is None:
+            arrays = {}
+        if isinstance(arrays, (list, tuple)):
+            if len(arrays) != len(names):
+                raise MXNetError("%s: expected %d arrays, got %d"
+                                 % (what, len(names), len(arrays)))
+            return {n: a for n, a in zip(names, arrays) if a is not None}
+        out = {}
+        for n in names:
+            if n in arrays:
+                out[n] = arrays[n]
+            elif not allow_missing:
+                raise MXNetError("%s: missing array for %r" % (what, n))
+        return out
+
+    # ------------------------------------------------------------------
+    def _monitor(self):
+        cb = self._monitor_callback
+        if cb is None:
+            return None
+        return lambda name, t: cb(name, NDArray(t.detach()))
+
+    def _forward_graph(self, arg_vals, aux_vals, key):
+        """The training forward with the differentiated arguments as
+        leaves: ``(outputs, aux updates, leaves)``."""
+        leaves = {n: arg_vals[n].detach().requires_grad_()
+                  for n in self._diff_args}
+        vals = dict(arg_vals)
+        vals.update(leaves)
+        with torch.enable_grad(), conv_precision(self._device):
+            outs, aux_up = self._run(vals, aux_vals, key, True,
+                                     self._monitor())
+        return outs, aux_up, leaves
+
+    def forward(self, is_train=False, **kwargs):
+        """Run the graph on the bound arrays (after copying ``kwargs`` into
+        the named arguments); returns :attr:`outputs`."""
+        for k, v in kwargs.items():
+            if k not in self.arg_dict:
+                raise MXNetError("forward: unknown argument %r" % k)
+            dst = self.arg_dict[k]
+            if tuple(getattr(v, "shape", ())) != dst.shape:
+                raise MXNetError("forward: %r has shape %s, bound as %s"
+                                 % (k, tuple(getattr(v, "shape", ())),
+                                    dst.shape))
+            dst[:] = v
+        key = None
+        if self._needs_rng:
+            if self._base_key is None:
+                self._base_key = _random.randint63()
+            key = self._base_key + self._step
+            self._step += 1
+        arg_vals = {n: self.arg_dict[n].data for n in self.arg_names}
+        aux_vals = {n: self.aux_dict[n].data for n in self.aux_names}
+        self._pending = (arg_vals, aux_vals, key, bool(is_train))
+        self._graph = None
+        if is_train and self._diff_args:
+            outs, aux_up, leaves = self._forward_graph(arg_vals, aux_vals,
+                                                       key)
+            self._graph = (outs, leaves)
+        else:
+            with torch.no_grad(), conv_precision(self._device):
+                outs, aux_up = self._run(arg_vals, aux_vals, key,
+                                         bool(is_train), self._monitor())
+        self.outputs = [NDArray(o.detach()) for o in outs]
+        if is_train:
+            for n, u in aux_up.items():
+                self.aux_dict[n]._set_data(u)
+        return self.outputs
+
+    def backward(self, out_grads=None):
+        """Gradients of the outputs (with head gradients ``out_grads``,
+        default ones) into the bound gradient arrays by ``grad_req``."""
+        if self._pending is None:
+            raise MXNetError("call forward(is_train=True) before backward()")
+        arg_vals, aux_vals, key, is_train = self._pending
+        if not is_train:
+            raise MXNetError("backward called on forward(is_train=False)")
+        if not self._diff_args:
+            return
+        if self._graph is None:
+            outs, _aux_up, leaves = self._forward_graph(arg_vals, aux_vals,
+                                                        key)
+        else:
+            (outs, leaves), self._graph = self._graph, None
+        if out_grads is None:
+            cots = [torch.ones_like(o) for o in outs]
+        else:
+            if not isinstance(out_grads, (list, tuple)):
+                out_grads = [out_grads]
+            cots = [_as_tensor(g, o.device).to(device=o.device, dtype=o.dtype)
+                    for g, o in zip(out_grads, outs)]
+        pairs = [(o, c) for o, c in zip(outs, cots) if o.requires_grad]
+        names = list(leaves)
+        grads = [None] * len(names)
+        if pairs:
+            with conv_precision(self._device):
+                grads = torch.autograd.grad(
+                    [o for o, _ in pairs], [leaves[n] for n in names],
+                    [c for _, c in pairs], allow_unused=True)
+        by_name = {n: (torch.zeros_like(leaves[n]) if g is None else g)
+                   for n, g in zip(names, grads)}
+        for buf, group in self._grad_groups:
+            g = by_name[group[0]]
+            for n in group[1:]:
+                g = g + by_name[n]
+            if self._grad_req[group[0]] == "add":
+                g = buf.data + g
+            buf._set_data(g)
+
+    # ------------------------------------------------------------------
+    def set_monitor_callback(self, callback):
+        """``callback(name, NDArray)`` on every op output of each forward
+        (ref: GraphExecutor::SetMonitorCallback)."""
+        self._monitor_callback = callback
+
+    def copy_params_from(self, arg_params, aux_params=None,
+                         allow_extra_params=False):
+        """Copy values into the bound arguments and aux states."""
+        for params, dst, what in ((arg_params, self.arg_dict, "an argument"),
+                                  (aux_params or {}, self.aux_dict,
+                                   "an aux state")):
+            for name, array in params.items():
+                if name in dst:
+                    dst[name]._set_data(_as_tensor(array).clone())
+                elif not allow_extra_params:
+                    raise MXNetError("copy_params_from: %r is not %s"
+                                     % (name, what))
+
+    def reshape(self, partial_shaping=False, allow_up_sizing=False, **kwargs):
+        """A new executor bound to new input shapes, sharing the arrays
+        whose shapes stay (ref: executor.py reshape). Without
+        ``partial_shaping`` only the given inputs may change shape; without
+        ``allow_up_sizing`` no array may grow."""
+        new_shapes = {n: tuple(kwargs[n]) for n in self.arg_names
+                      if n in kwargs}
+
+        def zeros(sh, like):
+            return NDArray(torch.zeros(sh, dtype=like.data.dtype,
+                                       device=self._device))
+
+        def resize(name, cur, sh, explicit):
+            if not (explicit or partial_shaping):
+                raise MXNetError(
+                    "reshape: %r changes shape %s -> %s; pass "
+                    "partial_shaping=True to allow reshaping arguments "
+                    "beyond the given inputs" % (name, cur.shape, tuple(sh)))
+            new_size = int(np.prod(sh)) if sh else 1
+            if new_size > cur.size and not allow_up_sizing:
+                raise MXNetError(
+                    "reshape: %r grows %d -> %d elements; pass "
+                    "allow_up_sizing=True to allocate larger arrays"
+                    % (name, cur.size, new_size))
+            return zeros(sh, cur)
+
+        arg_shapes, _, aux_shapes = self._symbol.infer_shape_partial(
+            **new_shapes)
+        args, grads = {}, {}
+        for n, sh in zip(self.arg_names, arg_shapes):
+            cur = self.arg_dict[n]
+            if sh is None or cur.shape == tuple(sh):
+                args[n] = cur
+                if n in self.grad_dict:
+                    grads[n] = self.grad_dict[n]
+            else:
+                args[n] = resize(n, cur, sh, n in kwargs)
+                if n in self.grad_dict:
+                    grads[n] = zeros(sh, cur)
+        aux = {}
+        for n, sh in zip(self.aux_names, aux_shapes):
+            cur = self.aux_dict[n]
+            aux[n] = (cur if sh is None or cur.shape == tuple(sh)
+                      else resize(n, cur, sh, False))
+        return Executor(self._symbol, self._ctx, args, grads or None,
+                        self._grad_req, aux)
+
+    @property
+    def symbol(self):
+        return self._symbol
+
+    def debug_str(self):
+        lines = ["Symbol outputs: %s" % ", ".join(self.output_names)]
+        for node in self._nodes:
+            if node.is_variable:
+                lines.append("Variable:%s" % node.name)
+            else:
+                lines.append("Op:%s, Name=%s" % (node.op.name, node.name))
+        return "\n".join(lines)
+
+
+def simple_bind(symbol, ctx, grad_req="write", type_dict=None, group2ctx=None,
+                shared_exec=None, **kwargs):
+    """Allocate every array (zeros) on ``ctx`` from the shapes and dtypes
+    inferred from ``kwargs`` and ``type_dict``, then bind (ref:
+    python/mxnet/symbol.py simple_bind). With ``shared_exec``, arrays of
+    the same name, shape and dtype are that executor's."""
+    if group2ctx:
+        raise MXNetError("simple_bind: group2ctx (ctx_group model "
+                         "parallelism) is not ported yet")
+    ctx = ctx if isinstance(ctx, Context) else Context(ctx)
+    if shared_exec is not None and shared_exec._ctx != ctx:
+        raise MXNetError("simple_bind: shared_exec on %s cannot share "
+                         "arrays with an executor on %s (not ported)"
+                         % (shared_exec._ctx, ctx))
+    device = resolve_device(ctx, "simple_bind")
+    arg_shapes, _, aux_shapes = symbol.infer_shape(**kwargs)
+    arg_names = symbol.list_arguments()
+    aux_names = symbol.list_auxiliary_states()
+    # one typed input (bf16 data, int32 label) types the parameters, as
+    # the reference's InferType pass does
+    type_dict = dict(type_dict or {})
+    arg_types, _out_t, aux_types = symbol.infer_type_partial(**type_dict)
+    for n, t in zip(arg_names, arg_types):
+        if n not in type_dict and t is not None:
+            type_dict[n] = t
+    aux_type_of = dict(zip(aux_names, aux_types))
+
+    def alloc(pool, n, sh, dt):
+        shared = pool.get(n) if shared_exec is not None else None
+        if (shared is not None and shared.shape == tuple(sh)
+                and shared.dtype == dt):
+            return shared
+        return NDArray(torch.zeros(tuple(sh), dtype=torch_dtype(dt),
+                                   device=device))
+
+    args, grads = {}, {}
+    for n, sh in zip(arg_names, arg_shapes):
+        dt = np.dtype(type_dict.get(n, np.float32))
+        args[n] = alloc(shared_exec.arg_dict if shared_exec else {}, n, sh,
+                        dt)
+        req = grad_req if isinstance(grad_req, str) else (
+            grad_req[arg_names.index(n)] if isinstance(grad_req, (list, tuple))
+            else grad_req.get(n, "null"))
+        # integer inputs (labels, lookup ids) carry no gradient
+        if req != "null" and np.issubdtype(dt, np.floating):
+            grads[n] = alloc(shared_exec.grad_dict if shared_exec else {},
+                             n, sh, dt)
+    aux = {n: alloc(shared_exec.aux_dict if shared_exec else {}, n, sh,
+                    np.dtype(aux_type_of.get(n) or np.float32))
+           for n, sh in zip(aux_names, aux_shapes)}
+    return Executor(symbol, ctx, args, grads or None, grad_req, aux)

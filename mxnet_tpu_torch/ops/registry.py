@@ -2,8 +2,9 @@
 
 Counterpart of ``mxnet_tpu/ops/registry.py``: one ``OpDef`` per operator,
 holding a plain function on ``torch.Tensor`` plus declarative metadata.
-From one registration the port derives the symbolic constructor
-(``symbol._make_sym_func``) and shape inference. The default
+From one registration the port derives the imperative function
+(``ndarray._make_op_func``), the symbolic constructor
+(``symbol._make_sym_func``), and shape and dtype inference. The default
 ``infer_shape`` runs the op on ``torch.device("meta")`` tensors, which
 carry shapes and no data; ops with learnable inputs override it so weight
 shapes complete from the data shape.
@@ -21,22 +22,26 @@ class OpContext(object):
     ``torch.Generator`` for ops that declared ``needs_rng`` (ref:
     ResourceRequest::kRandom), and ``fused_stats``, the ``(s1, s2, count)``
     batch statistics a fused producer computed (``ops/matmul_stats.py``),
-    which BatchNorm's ``fused_stats`` branch consumes."""
+    which BatchNorm's ``fused_stats`` branch consumes; and ``device``, where
+    ops without array inputs (``_zeros``, ``_arange``) create their
+    output (None: the CPU)."""
 
-    __slots__ = ("is_train", "rng", "fused_stats")
+    __slots__ = ("is_train", "rng", "fused_stats", "device")
 
-    def __init__(self, is_train=False, rng=None, fused_stats=None):
+    def __init__(self, is_train=False, rng=None, fused_stats=None,
+                 device=None):
         self.is_train = is_train
         self.rng = rng
         self.fused_stats = fused_stats
+        self.device = device
 
 
 class OpDef(object):
     """A registered operator."""
 
     def __init__(self, name, fn, inputs=("data",), aux=(), outputs=("output",),
-                 infer_shape=None, needs_rng=False, var_inputs_attr=None,
-                 var_outputs=None):
+                 infer_shape=None, infer_type=None, needs_rng=False,
+                 var_inputs_attr=None, var_outputs=None):
         self.name = name
         # fn(op_ctx, attrs, inputs, aux) -> outputs tuple, or
         # (outputs tuple, aux updates tuple) for ops with aux state
@@ -45,6 +50,7 @@ class OpDef(object):
         self._aux = tuple(aux)
         self._outputs = tuple(outputs)
         self._infer_shape = infer_shape
+        self._infer_type = infer_type   # per-op rules: ops/dtype_rules.py
         self.needs_rng = needs_rng
         # e.g. "num_args" for Concat, whose inputs are arg0, arg1, ...
         self.var_inputs_attr = var_inputs_attr
@@ -103,6 +109,17 @@ class OpDef(object):
                              % (self.name, in_shapes, e))
         return list(in_shapes), [tuple(o.shape) for o in outs], []
 
+    def infer_type(self, attrs, in_dtypes):
+        """Complete numpy dtypes (ref: nnvm InferType). The default is the
+        reference's ElemwiseType rule: inputs, outputs and aux states share
+        one dtype; unknown inputs take the first known one."""
+        if self._infer_type is not None:
+            return self._infer_type(attrs, list(in_dtypes))
+        known = [d for d in in_dtypes if d is not None]
+        dt = known[0] if known else None
+        return ([d if d is not None else dt for d in in_dtypes],
+                [dt] * self.num_outputs(attrs), [dt] * len(self._aux))
+
 
 # ---------------------------------------------------------------------------
 # registry
@@ -149,11 +166,11 @@ def list_ops():
 # bulk registration of elementwise ops
 # ---------------------------------------------------------------------------
 
-def register_unary(name, tfn):
+def register_unary(name, tfn, aliases=()):
     """Elementwise unary op (ref: MXNET_OPERATOR_REGISTER_UNARY family)."""
     def fn(op_ctx, attrs, inputs, aux):
         return (tfn(inputs[0]),)
-    register_def(OpDef(name, fn, inputs=("data",)))
+    register_def(OpDef(name, fn, inputs=("data",)), aliases=aliases)
 
 
 def register_binary(name, tfn, aliases=()):

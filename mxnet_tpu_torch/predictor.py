@@ -8,6 +8,7 @@ class comes in a later slice.
 from __future__ import annotations
 
 from .base import MXNetError, attr_bool
+from .context import cpu
 from . import ndarray as nd
 from . import symbol as sym
 from .ops import registry as _reg
@@ -60,7 +61,7 @@ def load_param_dict(param_file_or_dict):
     """Split a saved-params file (or an already-loaded dict, with or without
     ``arg:``/``aux:`` prefixes) into (arg_params, aux_params)."""
     if isinstance(param_file_or_dict, str):
-        loaded = nd.load(param_file_or_dict)
+        loaded = nd.load(param_file_or_dict, ctx=cpu())
     else:
         loaded = param_file_or_dict
     arg_params = {}

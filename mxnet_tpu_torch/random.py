@@ -6,6 +6,11 @@ device, created at first use from the current seed. ``seed`` reseeds them
 all; ``get_state``/``set_state`` snapshot and restore them (scoped seeding,
 as ``TrainStep.init`` uses it). PyTorch's own global generators are never
 touched. The numbers differ from the JAX package's for the same seed.
+
+The samplers (``uniform``, ``normal``, ``gamma``, ``exponential``,
+``poisson``, ``negative_binomial``) run the ``_random_*`` ops through
+``nd``, on ``ctx`` or the current context, drawing from that device's
+generator.
 """
 from __future__ import annotations
 
@@ -78,3 +83,45 @@ def randint63():
     """One integer in [0, 2**62) from the CPU generator: the key of a run's
     per-node streams (``executor.node_generator``)."""
     return int(torch.randint(0, 2 ** 62, (), generator=generator("cpu")))
+
+
+# ---------------------------------------------------------------------------
+# sampling API (ref: python/mxnet/random.py): the _random_* ops of
+# ops/tensor.py; the tensor-parameter _sample_* family is nd._sample_*
+# ---------------------------------------------------------------------------
+
+def _sample(op_name, ctx=None, out=None, **attrs):
+    from . import ndarray as nd
+    from .ops import registry as _reg
+    if ctx is None and out is not None:
+        ctx = out.context
+    return nd.invoke(_reg.get(op_name), [], attrs, out=out, ctx=ctx)
+
+
+def uniform(low=0, high=1, shape=None, ctx=None, out=None):
+    return _sample("_random_uniform", ctx, out, low=low, high=high,
+                   shape=shape or (1,))
+
+
+def normal(loc=0, scale=1, shape=None, ctx=None, out=None):
+    return _sample("_random_normal", ctx, out, loc=loc, scale=scale,
+                   shape=shape or (1,))
+
+
+def gamma(alpha=1, beta=1, shape=None, ctx=None, out=None):
+    return _sample("_random_gamma", ctx, out, alpha=alpha, beta=beta,
+                   shape=shape or (1,))
+
+
+def exponential(lam=1, shape=None, ctx=None, out=None):
+    return _sample("_random_exponential", ctx, out, lam=lam,
+                   shape=shape or (1,))
+
+
+def poisson(lam=1, shape=None, ctx=None, out=None):
+    return _sample("_random_poisson", ctx, out, lam=lam, shape=shape or (1,))
+
+
+def negative_binomial(k=1, p=1, shape=None, ctx=None, out=None):
+    return _sample("_random_negative_binomial", ctx, out, k=k, p=p,
+                   shape=shape or (1,))

@@ -2,10 +2,12 @@
 
 Counterpart of ``mxnet_tpu/symbol.py`` (ref: python/mxnet/symbol.py, nnvm
 Symbol/Graph): a pure-Python DAG over registry ops with the reference's
-auto-naming (``NameManager``), ``Group``, ``get_internals``, shape
-inference and NNVM JSON save/load, including the upgrade of pre-0.9 legacy JSON. The same model
-built in either package gives the same JSON and the same parameter names.
-The graph runs through ``executor._build_graph_runner``.
+auto-naming (``NameManager``), ``Group``, ``get_internals``, shape and
+dtype inference, composition and NNVM JSON save/load, including the
+upgrade of pre-0.9 legacy JSON. The same model built in either package
+gives the same JSON and the same parameter names. The graph runs through
+``executor._build_graph_runner``; ``bind``/``simple_bind`` make an
+:class:`executor.Executor`.
 """
 from __future__ import annotations
 
@@ -135,6 +137,12 @@ class Symbol(object):
             index = names.index(index)
         return Symbol([self._outputs[index]])
 
+    def __copy__(self):
+        return Symbol(list(self._outputs))
+
+    def __deepcopy__(self, memo):
+        return load_json(self.tojson())
+
     # -- arithmetic composition (ref: python/mxnet/symbol.py) -----------
     def _binary(self, opname, other, reverse=False):
         if isinstance(other, Symbol):
@@ -185,7 +193,18 @@ class Symbol(object):
                 outs.append((node, i))
         return Symbol(outs)
 
+    def get_children(self):
+        kids = []
+        for node, _ in self._outputs:
+            kids.extend(node.inputs)
+        return Symbol(kids) if kids else None
+
     # -- attributes -----------------------------------------------------
+    def attr(self, key):
+        if len(self._outputs) == 1:
+            return self._outputs[0][0]._user_attr.get(key, None)
+        return None
+
     def attr_dict(self):
         out = {}
         for node in _topo(self._out_nodes()):
@@ -193,10 +212,74 @@ class Symbol(object):
                 out[node.name] = dict(node._user_attr)
         return out
 
+    def list_attr(self):
+        if len(self._outputs) == 1:
+            return dict(self._outputs[0][0]._user_attr)
+        return {}
+
+    def _set_attr(self, **kwargs):
+        for node, _ in self._outputs:
+            node._user_attr.update({k: str(v) for k, v in kwargs.items()})
+
+    # -- composition (ref: symbol.py __call__/_compose) ----------------
+    def __call__(self, *args, **kwargs):
+        s = self.__copy__()
+        s._compose(*args, **kwargs)
+        return s
+
+    def _compose(self, *args, **kwargs):
+        """Substitute symbols for arguments, by position or by name; the
+        graph above them is copied, the substituted subgraphs are shared."""
+        name = kwargs.pop("name", None)
+        if args and kwargs:
+            raise MXNetError("compose only accepts input Symbols "
+                             "either as positional or keyword arguments")
+        arg_names = self.list_arguments()
+        repl = {}
+        for n, a in zip(arg_names, args):
+            repl[n] = a._outputs[0]
+        for k, v in kwargs.items():
+            if k not in arg_names:
+                raise MXNetError("compose: %r is not an argument" % k)
+            repl[k] = v._outputs[0]
+        memo = {}
+
+        def rewrite(node):
+            # a replaced variable maps to a (node, idx) pair, any other node
+            # to a (possibly new) _Node
+            if id(node) in memo:
+                return memo[id(node)]
+            if node.is_variable and node.name in repl:
+                memo[id(node)] = repl[node.name]
+                return memo[id(node)]
+            fixed = []
+            for (n, i) in node.inputs:
+                r = rewrite(n)
+                fixed.append(r if isinstance(r, tuple) else (r, i))
+            new = _Node(node.op, node.name, node.attrs, fixed,
+                        node._user_attr)
+            memo[id(node)] = new
+            return new
+
+        new_outputs = []
+        for node, idx in self._outputs:
+            r = rewrite(node)
+            new_outputs.append(r if isinstance(r, tuple) else (r, idx))
+        self._outputs = new_outputs
+        if name and len(self._outputs) == 1:
+            self._outputs[0][0].name = name
+
     # -- inference ------------------------------------------------------
     def infer_shape(self, *args, **kwargs):
         """Shapes of (arguments, outputs, aux states) given input shapes
         by position or name; raises when an argument stays unknown."""
+        return self._infer_shape_impl(False, *args, **kwargs)
+
+    def infer_shape_partial(self, *args, **kwargs):
+        """As :meth:`infer_shape`, with None for what stays unknown."""
+        return self._infer_shape_impl(True, *args, **kwargs)
+
+    def _infer_shape_impl(self, partial, *args, **kwargs):
         arg_names = self.list_arguments()
         known = {}
         if args:
@@ -219,7 +302,15 @@ class Symbol(object):
                 continue
             in_shapes = [node_out_shapes.get((id(inp), idx))
                          for (inp, idx) in node.inputs]
-            full_in, outs, aux = node.op.infer_shape(node.attrs, in_shapes)
+            try:
+                full_in, outs, aux = node.op.infer_shape(node.attrs,
+                                                         in_shapes)
+            except MXNetError:
+                if not partial:
+                    raise
+                for i in range(node.num_outputs()):
+                    node_out_shapes[(id(node), i)] = None
+                continue
             for (inp, idx), sh in zip(node.inputs, full_in):
                 if inp.is_variable and sh is not None:
                     prev = var_shapes.get(inp.name)
@@ -236,13 +327,75 @@ class Symbol(object):
         arg_out = []
         for n in arg_names:
             sh = var_shapes.get(n)
-            if sh is None:
+            if sh is None and not partial:
                 raise MXNetError("cannot infer shape of argument %r "
                                  "(provide it to infer_shape)" % n)
             arg_out.append(sh)
         out_shapes = [node_out_shapes.get((id(n), i)) for n, i in self._outputs]
         aux_out = [aux_shapes.get(a) for a in self.list_auxiliary_states()]
         return arg_out, out_shapes, aux_out
+
+    def infer_type(self, *args, **kwargs):
+        """Forward dtype propagation over the DAG (ref: nnvm InferType;
+        per-op rules on ``OpDef.infer_type``). Unknown dtypes default to
+        float32 after propagation, so one typed input (bf16 data, int32
+        label) types the whole network. Dtypes are numpy dtypes."""
+        return self._infer_type_impl(False, *args, **kwargs)
+
+    def infer_type_partial(self, *args, **kwargs):
+        """As :meth:`infer_type`, with None for what stays unknown."""
+        return self._infer_type_impl(True, *args, **kwargs)
+
+    def _infer_type_impl(self, partial, *args, **kwargs):
+        arg_names = self.list_arguments()
+        var_types = {n: np.dtype(t) for n, t in zip(arg_names, args)
+                     if t is not None}
+        var_types.update({k: np.dtype(v) for k, v in kwargs.items()
+                          if v is not None})
+        node_out = {}       # (id(node), idx) -> dtype | None
+        aux_types = {}
+        # two sweeps: dtypes one layer settles (shared weights, data typed
+        # by a later op) reach layers visited earlier
+        for _sweep in range(2):
+            for node in _topo(self._out_nodes()):
+                if node.is_variable:
+                    dt = var_types.get(node.name)
+                    if dt is None and "__dtype__" in node._user_attr:
+                        dt = np.dtype(node._user_attr["__dtype__"])
+                        var_types[node.name] = dt
+                    node_out[(id(node), 0)] = dt
+                    continue
+                in_types = [node_out.get((id(inp), idx))
+                            for (inp, idx) in node.inputs]
+                try:
+                    full_in, outs, aux = node.op.infer_type(node.attrs,
+                                                            in_types)
+                except MXNetError:
+                    if not partial:
+                        raise
+                    for i in range(node.num_outputs()):
+                        node_out[(id(node), i)] = None
+                    continue
+                for (inp, idx), dt in zip(node.inputs, full_in):
+                    if inp.is_variable and dt is not None:
+                        prev = var_types.get(inp.name)
+                        if prev is not None and np.dtype(prev) != np.dtype(dt):
+                            raise MXNetError(
+                                "type mismatch for %s: %s vs %s"
+                                % (inp.name, prev, dt))
+                        var_types[inp.name] = np.dtype(dt)
+                        node_out[(id(inp), 0)] = np.dtype(dt)
+                for i, dt in enumerate(outs):
+                    node_out[(id(node), i)] = (np.dtype(dt)
+                                               if dt is not None else None)
+                for aname, adt in zip(node.op.list_aux(node.attrs), aux):
+                    aux_types["%s_%s" % (node.name, aname)] = (
+                        np.dtype(adt) if adt is not None else None)
+        dflt = None if partial else np.dtype(np.float32)
+        return ([var_types.get(n) or dflt for n in arg_names],
+                [node_out.get((id(n), i)) or dflt for n, i in self._outputs],
+                [aux_types.get(a) or dflt
+                 for a in self.list_auxiliary_states()])
 
     # -- serialization (ref: nnvm JSON save; legacy_json_util.cc) -------
     def tojson(self):
@@ -279,6 +432,28 @@ class Symbol(object):
     def save(self, fname):
         with open(fname, "w") as f:
             f.write(self.tojson())
+
+    # -- binding (executor.py) ------------------------------------------
+    def bind(self, ctx, args, args_grad=None, grad_req="write",
+             aux_states=None, group2ctx=None, shared_exec=None):
+        """An :class:`executor.Executor` over the given arrays."""
+        from .executor import Executor
+        return Executor(self, ctx, args, args_grad, grad_req, aux_states,
+                        group2ctx=group2ctx, shared_exec=shared_exec)
+
+    def simple_bind(self, ctx, grad_req="write", type_dict=None,
+                    group2ctx=None, shared_exec=None, **kwargs):
+        """Allocate every array from the inferred shapes and dtypes on
+        ``ctx``, then bind."""
+        from .executor import simple_bind as _sb
+        return _sb(self, ctx, grad_req=grad_req, type_dict=type_dict,
+                   group2ctx=group2ctx, shared_exec=shared_exec, **kwargs)
+
+    def eval(self, ctx=None, **kwargs):
+        """Forward on the given arrays; returns the outputs."""
+        from .context import current_context
+        ex = self.bind(ctx or current_context(), kwargs)
+        return ex.forward()
 
 
 # ---------------------------------------------------------------------------

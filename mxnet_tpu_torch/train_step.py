@@ -32,7 +32,7 @@ import logging
 import numpy as np
 import torch
 
-from .base import MXNetError, env_str
+from .base import MXNetError, env_str, torch_dtype
 from .context import resolve_device
 from .executor import _build_graph_runner
 from .initializer import Xavier, InitDesc
@@ -40,21 +40,6 @@ from .ops.nn import conv_precision
 from . import optimizer as _opt
 from .optimizer import Optimizer
 from . import random as _random
-
-_TORCH_DTYPES = {"float32": torch.float32, "float16": torch.float16,
-                 "bfloat16": torch.bfloat16, "float64": torch.float64}
-
-
-def torch_dtype(dtype):
-    """A dtype given as a ``torch.dtype``, a name or a numpy dtype -> the
-    ``torch.dtype``."""
-    if isinstance(dtype, torch.dtype):
-        return dtype
-    name = dtype if isinstance(dtype, str) else getattr(
-        np.dtype(dtype), "name", str(dtype))
-    if name not in _TORCH_DTYPES:
-        raise MXNetError("unsupported dtype %r" % (dtype,))
-    return _TORCH_DTYPES[name]
 
 
 class StepMetrics(object):

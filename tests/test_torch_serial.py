@@ -34,7 +34,7 @@ def test_jax_params_load_bitwise_in_port(tmp_path, dtype):
     src = _arrays(dtype, 1)
     f = str(tmp_path / "j.params")
     mx.nd.save(f, {k: mx.nd.array(v, dtype=v.dtype) for k, v in src.items()})
-    got = tnd.load(f)
+    got = tnd.load(f, ctx=tctx.cpu())
     assert list(got) == list(src)
     for k, v in src.items():
         assert _bits(got[k].asnumpy()) == _bits(v)
@@ -58,7 +58,7 @@ def test_bfloat16_maps_to_torch_bfloat16(tmp_path):
     f = str(tmp_path / "bf.params")
     x = np.array([1.5, -2.25, 3.0e-3], dtype="bfloat16")
     mx.nd.save(f, {"x": mx.nd.array(x, dtype=x.dtype)})
-    t = tnd.load(f)["x"]
+    t = tnd.load(f, ctx=tctx.cpu())["x"]
     assert t.data.dtype == torch.bfloat16
     np.testing.assert_array_equal(t.data.float().numpy(),
                                   x.astype(np.float32))
@@ -67,7 +67,7 @@ def test_bfloat16_maps_to_torch_bfloat16(tmp_path):
 def test_list_files_roundtrip_both_ways(tmp_path):
     f = str(tmp_path / "l.params")
     mx.nd.save(f, [mx.nd.ones((2, 2)), mx.nd.zeros((3,))])
-    got = tnd.load(f)
+    got = tnd.load(f, ctx=tctx.cpu())
     assert isinstance(got, list) and len(got) == 2
     np.testing.assert_array_equal(got[0].asnumpy(), np.ones((2, 2)))
     g = str(tmp_path / "m.params")
