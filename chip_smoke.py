@@ -16,11 +16,14 @@ non-zero):
    times both with CUDA events at the shapes the served path gives it.
 4. matmul_stats kernel: holds the matmul-with-BatchNorm-statistics kernel
    against its plain version (TF32 off) at the 12 shapes of ResNet-50's 33
-   fused Conv1x1->BatchNorm pairs (batch 128, 224x224, NHWC, bf16) and at
-   edge shapes in float32 and bfloat16; checks that the statistics are
-   bitwise reproducible; times kernel, plain version and torch.matmul (the
-   product alone, cuBLAS) per shape beside the bound, and sums one step's
-   33 launches.
+   fused Conv1x1->BatchNorm pairs (batch 128, 224x224, NHWC, bf16), all on
+   the wgmma route, at edge shapes in float32 and bfloat16, and at the
+   wgmma route's edge shapes; checks that the statistics are bitwise
+   reproducible; per shape, times the wgmma kernel, the wmma kernel (the
+   wrapper's route entry, same tensors), torch.matmul (the product alone,
+   cuBLAS) and the plain version, in turns, as device time summed by the
+   profiler and back to back on CUDA events, beside the bound, and sums one
+   step's 33 launches.
 5. serve: builds the SSD detector at its full width (models/ssd.py
    get_symbol() defaults, 3x300x300 input) with weights from --seed,
    writes symbol JSON and .params through the port, loads them in
@@ -32,9 +35,9 @@ non-zero):
    TrainStep on cuda:0, f32 master weights with bf16 compute,
    SGD(lr 0.1, momentum 0.9, wd 1e-4), weights from --seed, random data and
    labels made on the card. One step with MXTPU_FUSE_CONV_BN=1 must launch
-   matmul_stats 33 times with no layout copy, and agree with the same step
-   unfused (loss sum within 1%, every BatchNorm moving statistic within
-   rtol 2e-2, atol 1e-3). Then run_steps with K=4 (all losses finite),
+   matmul_stats 33 times, all on the wgmma route, with no layout copy, and
+   agree with the same step unfused (loss sum within 1%, every BatchNorm
+   moving statistic within rtol 2e-2, atol 1e-3). Then run_steps with K=4 (all losses finite),
    step times and images/s fused, unfused and run_steps, and a
    torch.profiler table of one fused step.
 
@@ -103,6 +106,11 @@ B1_STEP_SHAPES = {
     (25088, 1024, 512): 1, (6272, 512, 2048): 3, (6272, 2048, 512): 2}
 B1_EDGE_SHAPES = [(m, k, n) for m in (1, 17, 1000) for k in (1, 3, 64)
                   for n in (1, 64, 65)]
+#: bfloat16 shapes at the edges of the wgmma route: ragged M-tiles, fewer
+#: tiles than SMs and many tiles a block (M); one partial K box and a ragged
+#: last box (K); a ragged N-tile and a change of N-tile width (N)
+B1_WGMMA_EDGE_SHAPES = [(m, k, n) for m in (1, 17, 1000, 100003)
+                        for k in (8, 72) for n in (8, 264, 520)]
 
 SSD_INPUT = (3, 300, 300)
 BUCKETS = (1, 8, 32)
@@ -297,6 +305,22 @@ def b1_check(ms, x, w):
     return float(diff.max()), e1, e2
 
 
+def device_ms(fn, what):
+    """Device milliseconds per call of ``fn`` summed by torch.profiler
+    (kernel_ms); the profiler is asked up to three times. None, with a log
+    line, when it records no device time."""
+    for _ in range(3):
+        t = kernel_ms(fn, reps=5)
+        if t is not None:
+            return t
+    log("profile: no device time recorded for %s" % what)
+    return None
+
+
+def b1_routes_since(ms, before):
+    return {r: ms.LAUNCHES_BY_ROUTE[r] - before[r] for r in before}
+
+
 def b1_phase(seed, reps, card):
     import torch
     from mxnet_tpu_torch.ops import matmul_stats as ms
@@ -312,53 +336,98 @@ def b1_phase(seed, reps, card):
 
     max_err = 0.0
     with no_tf32():
-        for dtype in (torch.float32, torch.bfloat16):
+        edge_sets = [(torch.float32, B1_EDGE_SHAPES),
+                     (torch.bfloat16, B1_EDGE_SHAPES),
+                     (torch.bfloat16, B1_WGMMA_EDGE_SHAPES)]
+        for dtype, shapes in edge_sets:
             worst = (0.0, 0.0, 0.0)
-            for m, k, n in B1_EDGE_SHAPES:
+            before = dict(ms.LAUNCHES_BY_ROUTE)
+            for m, k, n in shapes:
                 errs = b1_check(ms, *operands(m, k, n, dtype))
                 worst = tuple(max(a, b) for a, b in zip(worst, errs))
+            routes = b1_routes_since(ms, before)
             max_err = max(max_err, worst[0])
-            log("matmul_stats edge shapes %s, M in (1, 17, 1000), K in "
-                "(1, 3, 64), N in (1, 64, 65): max |y - plain| %g, s1 %g, "
-                "s2 %g (of sum P, sum P^2), bitwise repeatable"
-                % (str(dtype).replace("torch.", ""), *worst))
-        step = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
+            log("matmul_stats edge shapes %s, M in %s, K in %s, N in %s: "
+                "max |y - plain| %g, s1 %g, s2 %g (of sum P, sum P^2), "
+                "bitwise repeatable; launches by route %s"
+                % (str(dtype).replace("torch.", ""),
+                   sorted({sh[0] for sh in shapes}),
+                   sorted({sh[1] for sh in shapes}),
+                   sorted({sh[2] for sh in shapes}), *worst, routes))
+            if shapes is B1_WGMMA_EDGE_SHAPES and routes["wgmma"] != 2 * len(
+                    shapes):
+                raise SystemExit("matmul_stats: wgmma edge shapes took "
+                                 "routes %s" % routes)
+        keys = ("wgmma", "wmma", "torch.matmul", "plain")
+        step = {"event": dict.fromkeys(keys, 0.0),
+                "device": dict.fromkeys(keys, 0.0),
                 "bound_ms": 0.0, "bytes_ms": 0.0}
         for (m, k, n), count in B1_STEP_SHAPES.items():
             x, w = operands(m, k, n, torch.bfloat16)
+            before = dict(ms.LAUNCHES_BY_ROUTE)
             err, e1, e2 = b1_check(ms, x, w)
+            if b1_routes_since(ms, before)["wgmma"] != 2:
+                raise SystemExit("matmul_stats (%d, %d, %d) did not take the "
+                                 "wgmma route" % (m, k, n))
             max_err = max(max_err, err)
-            t = cuda_time_ms(lambda: ms.matmul_stats(x, w), reps)
-            t_plain = cuda_time_ms(lambda: ms.matmul_stats_reference(x, w),
-                                   max(3, reps // 4))
-            t_lib = cuda_time_ms(lambda: torch.matmul(x, w.t()), reps)
+            fns = {"wgmma": lambda: ms.matmul_stats(x, w),
+                   "wmma": lambda: ms._launch(x, w, "wmma"),
+                   "torch.matmul": lambda: torch.matmul(x, w.t()),
+                   "plain": lambda: ms.matmul_stats_reference(x, w)}
+            # CUDA events around back-to-back calls, in turns (each kernel
+            # timed twice, in the order a b c d d c b a); then the device
+            # time the profiler sums over the calls' kernels
+            event = dict.fromkeys(keys, 0.0)
+            for name in keys + keys[::-1]:
+                event[name] += cuda_time_ms(
+                    fns[name], max(3, reps // 4) if name == "plain"
+                    else reps) / 2
+            device = {name: device_ms(fns[name], "%s at %s" % (
+                name, (m, k, n))) for name in keys}
+            for name in keys:
+                if device[name] is None:
+                    device[name] = event[name]
             bound, by = b1_bound_ms(m, k, n, 2)
             log("matmul_stats bf16 (M, K, N) = (%d, %d, %d) x%d: max |y - "
-                "plain| %g, s1 %.3g, s2 %.3g (of sum P, sum P^2); kernel "
-                "%.6f ms, plain %.6f ms, "
-                "torch.matmul alone %.6f ms, bound %.6f ms (%s), kernel/"
-                "bound %.1f [%s]" % (m, k, n, count, err, e1, e2, t, t_plain,
-                                     t_lib, bound, by, t / bound, card))
-            step["ms"] += count * t
-            step["plain_ms"] += count * t_plain
-            step["library_ms"] += count * t_lib
+                "plain| %g, s1 %.3g, s2 %.3g (of sum P, sum P^2); device ms "
+                "(profiler): wgmma %.6f, wmma %.6f, torch.matmul alone %.6f, "
+                "plain %.6f; back to back (CUDA events): wgmma %.6f, wmma "
+                "%.6f, torch.matmul %.6f, plain %.6f; bound %.6f ms (%s); "
+                "wgmma/bound %.2f, roofline share bound/wgmma %.3f, "
+                "wmma/bound %.2f [%s]"
+                % (m, k, n, count, err, e1, e2, device["wgmma"],
+                   device["wmma"], device["torch.matmul"], device["plain"],
+                   event["wgmma"], event["wmma"], event["torch.matmul"],
+                   event["plain"], bound, by, device["wgmma"] / bound,
+                   bound / device["wgmma"], device["wmma"] / bound, card))
+            for name in keys:
+                step["event"][name] += count * event[name]
+                step["device"][name] += count * device[name]
             step["bound_ms"] += count * bound
             if by == "bytes":
                 step["bytes_ms"] += count * bound
             del x, w
     launches = sum(B1_STEP_SHAPES.values())
-    log("matmul_stats per ResNet-50 step (%d launches): kernel %.6f ms, "
-        "plain %.6f ms, torch.matmul alone %.6f ms, bound %.6f ms [%s]"
-        % (launches, step["ms"], step["plain_ms"], step["library_ms"],
-           step["bound_ms"], card))
-    return {"name": "matmul_stats", "route": "cuda",
+    dv, ev = step["device"], step["event"]
+    log("matmul_stats per ResNet-50 step (%d launches), device ms: wgmma "
+        "%.6f, wmma %.6f, torch.matmul alone %.6f, plain %.6f; back to "
+        "back: wgmma %.6f, wmma %.6f, torch.matmul %.6f, plain %.6f; bound "
+        "%.6f ms, roofline share of the wgmma kernel %.3f [%s]"
+        % (launches, dv["wgmma"], dv["wmma"], dv["torch.matmul"],
+           dv["plain"], ev["wgmma"], ev["wmma"], ev["torch.matmul"],
+           ev["plain"], step["bound_ms"], step["bound_ms"] / dv["wgmma"],
+           card))
+    return {"name": "matmul_stats", "route": "cuda", "kernel_route": "wgmma",
             "source": "mxnet_tpu_torch/csrc/matmul_stats.cu",
             "replaces": "mxnet_tpu/ops/pallas_fused.py:49",
-            "launches": None, "max_abs_err": max_err, "ms": step["ms"],
-            "plain_ms": step["plain_ms"], "bound_ms": step["bound_ms"],
+            "launches": None, "max_abs_err": max_err, "ms": dv["wgmma"],
+            "plain_ms": dv["plain"], "bound_ms": step["bound_ms"],
             "bound_by": ("bytes" if 2 * step["bytes_ms"] >= step["bound_ms"]
                          else "operations"),
-            "library_ms": step["library_ms"]}
+            "library_ms": dv["torch.matmul"], "wmma_ms": dv["wmma"],
+            "event_ms": ev["wgmma"], "wmma_event_ms": ev["wmma"],
+            "library_event_ms": ev["torch.matmul"],
+            "plain_event_ms": ev["plain"]}
 
 
 # ---------------------------------------------------------------------------
@@ -623,17 +692,22 @@ def train_phase(seed, card):
     # the main path: counts at 0 just before, read just after
     ms.LAUNCHES = 0
     ms.LAYOUT_COPIES = 0
+    for r in ms.LAUNCHES_BY_ROUTE:
+        ms.LAUNCHES_BY_ROUTE[r] = 0
     state, outs_f = fused.step(state, b0)
     torch.cuda.synchronize()
     launches, copies = ms.LAUNCHES, ms.LAYOUT_COPIES
-    log("train: one fused step launched matmul_stats %d times, %d layout "
-        "copies" % (launches, copies))
+    routes = dict(ms.LAUNCHES_BY_ROUTE)
+    log("train: one fused step launched matmul_stats %d times (by route "
+        "%s), %d layout copies" % (launches, routes, copies))
     # checks are collected and raised at the end of the phase, so that a
     # failing run still prints its timings and profile
     problems = []
-    if launches != sum(B1_STEP_SHAPES.values()) or copies:
-        problems.append("fused step: %d launches (expected %d), %d copies"
-                        % (launches, sum(B1_STEP_SHAPES.values()), copies))
+    expected = sum(B1_STEP_SHAPES.values())
+    if launches != expected or copies or routes["wgmma"] != expected:
+        problems.append("fused step: %d launches, %d on the wgmma route "
+                        "(expected %d), %d copies"
+                        % (launches, routes["wgmma"], expected, copies))
     twin, outs_u = unfused.step(twin, b0)
     torch.cuda.synchronize()
     if ms.LAUNCHES != launches:

@@ -9,16 +9,18 @@ and the f32 column statistics ``s1 = sum(acc)``, ``s2 = sum(acc * acc)`` of
 the f32 accumulator ``acc``:
 
 - :func:`matmul_stats` launches ``csrc/matmul_stats.cu`` for CUDA tensors
-  (the kernel's design and bound are in that file's note) and takes the
-  plain version for CPU tensors. On the card it launches the kernel or
-  raises; it never falls back. It is differentiable: the backward is the
+  (the kernels' design and bounds are in that file's note) and takes the
+  plain version for CPU tensors. On the card it launches the kernel that
+  :func:`kernel_route` names for the shape or raises; it never falls
+  back. It is differentiable: the backward is the
   JAX package's ``_mm_bwd``, with the statistics' cotangents folded into
   the output's (``dy + ds1 + 2 y ds2``) and two ``torch.matmul`` products,
   as the JAX package leaves them to XLA outside its kernel.
 - :func:`matmul_stats_reference` is the plain version.
 
 :data:`LAUNCHES` counts the kernel launches of :func:`matmul_stats` (one per
-call on the card); :data:`LAYOUT_COPIES` counts the activations that
+call on the card) and :data:`LAUNCHES_BY_ROUTE` the same by route;
+:data:`LAYOUT_COPIES` counts the activations that
 :func:`apply_conv1x1_stats` had to copy because they were not
 NHWC-contiguous.
 """
@@ -33,13 +35,17 @@ from ..base import MXNetError, attr_bool, attr_int, attr_str, attr_tuple
 #: kernel launches by :func:`matmul_stats` (one per call that ran on the card)
 LAUNCHES = 0
 
+#: the same launches by route (see :func:`kernel_route`)
+LAUNCHES_BY_ROUTE = {"wgmma": 0, "wmma": 0, "f32": 0}
+
 #: activations :func:`apply_conv1x1_stats` copied to make them contiguous
 LAYOUT_COPIES = 0
 
-#: dtypes the kernel takes, by the code its C entry point uses
-_KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-
 _FN = None
+_SM_COUNT = {}
+
+#: rows of x per tile of the wgmma kernel (two warpgroups of 64)
+WGMMA_BM = 128
 
 
 def _acc_dtype(dt):
@@ -57,24 +63,73 @@ def matmul_stats_reference(x, w):
     return acc.to(x.dtype), acc.sum(0), (acc * acc).sum(0)
 
 
+def kernel_route(m, k, n, dtype, aligned):
+    """The kernel a CUDA call of :func:`matmul_stats` takes, by shape:
+
+    - ``"wgmma"``: bfloat16 with ``k % 8 == 0``, ``n % 8 == 0`` and x, w
+      16-byte aligned (``aligned``), the rows' byte strides TMA needs;
+    - ``"wmma"``: any other bfloat16 shape (a tile kernel on ``mma.sync``
+      through ``nvcuda::wmma``);
+    - ``"f32"``: float32 (FP32 FMA, no TF32).
+
+    Raises for another dtype. ``m`` does not decide the route: TMA clips
+    the ragged M edge."""
+    if dtype == torch.float32:
+        return "f32"
+    if dtype != torch.bfloat16:
+        raise MXNetError("matmul_stats: the kernel takes float32 and "
+                         "bfloat16, got %s" % dtype)
+    if k % 8 == 0 and n % 8 == 0 and aligned:
+        return "wgmma"
+    return "wmma"
+
+
+def wgmma_tile_n(m, n, sms):
+    """The wgmma kernel's N-tile width for ``m`` rows and ``n`` columns on
+    a card of ``sms`` streaming multiprocessors: 64 up to 64 columns, 128
+    up to 128; wider, 256 or 128, whichever gives the fewer tile-columns
+    per block of the persistent grid (rounds of ``sms`` tiles times the
+    width), 256 on a tie, so that x is read once where the rounds allow."""
+    if n <= 64:
+        return 64
+    if n <= 128:
+        return 128
+    tiles_m = -(-m // WGMMA_BM)
+
+    def cost(bn):
+        return -(-(tiles_m * -(-n // bn)) // sms) * bn
+    return 256 if cost(256) <= cost(128) else 128
+
+
 def _kernel():
     global _FN
     if _FN is None:
         from .. import cuda_build
         lib = cuda_build.load("matmul_stats")
-        fn = lib.matmul_stats
-        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [
-            ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        lib.matmul_stats_block_m.argtypes = [ctypes.c_int]
-        lib.matmul_stats_block_m.restype = ctypes.c_int
-        lib.matmul_stats_reduce_chunk.argtypes = []
-        lib.matmul_stats_reduce_chunk.restype = ctypes.c_int
+        lib.matmul_stats.argtypes = [ctypes.c_void_p] * 6 + [
+            ctypes.c_int] * 6 + [ctypes.c_void_p]
+        lib.matmul_stats.restype = ctypes.c_int
+        lib.matmul_stats_wgmma.argtypes = [ctypes.c_void_p] * 5 + [
+            ctypes.c_int] * 6 + [ctypes.c_void_p]
+        lib.matmul_stats_wgmma.restype = ctypes.c_int
+        for name, args in (("matmul_stats_block_m", [ctypes.c_int]),
+                           ("matmul_stats_reduce_chunk", []),
+                           ("matmul_stats_sm_count", [ctypes.c_int])):
+            getattr(lib, name).argtypes = args
+            getattr(lib, name).restype = ctypes.c_int
         lib.matmul_stats_error_string.argtypes = [ctypes.c_int]
         lib.matmul_stats_error_string.restype = ctypes.c_char_p
-        _FN = (fn, lib.matmul_stats_block_m, lib.matmul_stats_reduce_chunk(),
-               lib.matmul_stats_error_string)
+        _FN = lib
     return _FN
+
+
+def _sm_count(lib, index):
+    if index not in _SM_COUNT:
+        n = lib.matmul_stats_sm_count(index)
+        if n <= 0:
+            raise MXNetError("matmul_stats: no SM count for cuda:%d" % index)
+        _SM_COUNT[index] = n
+    return _SM_COUNT[index]
 
 
 def _check(x, w):
@@ -88,15 +143,14 @@ def _check(x, w):
         raise MXNetError("matmul_stats: x is %s, w is %s" % (x.dtype, w.dtype))
 
 
-def _launch(x, w):
-    """The kernel on CUDA tensors; returns ``(y, s1, s2)``."""
+def _launch(x, w, route=None):
+    """The kernel on CUDA tensors; returns ``(y, s1, s2)``. ``route`` forces
+    a kernel the shape qualifies for (``"wmma"`` takes every bfloat16
+    shape), for comparisons; None takes :func:`kernel_route`'s."""
     global LAUNCHES
     dev = x.device
     if w.device != dev:
         raise MXNetError("matmul_stats: w is on %s, x on %s" % (w.device, dev))
-    if x.dtype not in _KERNEL_DTYPES:
-        raise MXNetError("matmul_stats: the kernel takes float32 and "
-                         "bfloat16, got %s" % x.dtype)
     for name, t in (("x", x), ("w", w)):
         if not t.is_contiguous():
             raise MXNetError("matmul_stats: %s must be contiguous" % name)
@@ -108,25 +162,49 @@ def _launch(x, w):
     if max(m * k, n * k, m * n) >= 2 ** 31:
         raise MXNetError("matmul_stats: operands of %d x %d x %d exceed the "
                          "kernel's 32-bit element counts" % (m, k, n))
-    fn, block_m, chunk, err_str = _kernel()
-    dtype = _KERNEL_DTYPES[x.dtype]
-    tiles = -(-m // block_m(dtype))
-    y = torch.empty((m, n), dtype=x.dtype, device=dev)
-    part = torch.empty((tiles, 2, n), dtype=torch.float32, device=dev)
-    scratch = torch.empty((max(1, -(-tiles // chunk)), 2, n),
-                          dtype=torch.float32, device=dev)
-    stats = torch.empty((2, n), dtype=torch.float32, device=dev)
-    vec = int(dtype == 1 and k % 8 == 0 and x.data_ptr() % 16 == 0
-              and w.data_ptr() % 16 == 0)
+    aligned = x.data_ptr() % 16 == 0 and w.data_ptr() % 16 == 0
+    best = kernel_route(m, k, n, x.dtype, aligned)
+    if route is None:
+        route = best
+    elif route != best and not (route == "wmma" and best == "wgmma"):
+        raise MXNetError("matmul_stats: route %r does not take %s (M, K, N) "
+                         "= (%d, %d, %d)" % (route, x.dtype, m, k, n))
+    lib = _kernel()
+    index = dev.index or 0
     stream = torch.cuda.current_stream(dev).cuda_stream
-    err = fn(x.data_ptr(), w.data_ptr(), y.data_ptr(), part.data_ptr(),
-             scratch.data_ptr(), stats.data_ptr(), m, n, k, dtype, vec,
-             dev.index or 0, stream)
+    y = torch.empty((m, n), dtype=x.dtype, device=dev)
+    if route == "wgmma":
+        # a row (2, N) of partials for each block of the persistent grid
+        # (at most one a streaming multiprocessor), then the statistics
+        rows = _sm_count(lib, index)
+        part = torch.empty(((rows + 1) * 2 * n,), dtype=torch.float32,
+                           device=dev)
+        stats = part[rows * 2 * n:].view(2, n)
+        err = lib.matmul_stats_wgmma(
+            x.data_ptr(), w.data_ptr(), y.data_ptr(), part.data_ptr(),
+            stats.data_ptr(), m, n, k, wgmma_tile_n(m, n, rows), rows, index,
+            stream)
+    else:
+        stats = torch.empty((2, n), dtype=torch.float32, device=dev)
+        dtype = 1 if route == "wmma" else 0
+        tiles = -(-m // lib.matmul_stats_block_m(dtype))
+        chunk = lib.matmul_stats_reduce_chunk()
+        part = torch.empty((tiles, 2, n), dtype=torch.float32, device=dev)
+        scratch = torch.empty((max(1, -(-tiles // chunk)), 2, n),
+                              dtype=torch.float32, device=dev)
+        vec = int(dtype == 1 and k % 8 == 0 and aligned)
+        err = lib.matmul_stats(
+            x.data_ptr(), w.data_ptr(), y.data_ptr(), part.data_ptr(),
+            scratch.data_ptr(), stats.data_ptr(), m, n, k, dtype, vec, index,
+            stream)
     if err:
-        raise MXNetError("matmul_stats: kernel launch failed: %s "
-                         "(cudaError %d)" % (err_str(err).decode(), err))
+        raise MXNetError("matmul_stats: %s kernel launch failed: %s (error %d)"
+                         % (route, lib.matmul_stats_error_string(err).decode(),
+                            err))
     LAUNCHES += 1
-    return y, stats[0], stats[1]
+    LAUNCHES_BY_ROUTE[route] += 1
+    s1, s2 = stats.unbind(0)
+    return y, s1, s2
 
 
 def _forward(x, w):
@@ -173,9 +251,11 @@ def matmul_stats(x, w):
     accumulator. Differentiable in ``x`` and ``w``.
 
     CPU tensors take :func:`matmul_stats_reference`. CUDA tensors launch
-    the kernel, which takes float32 or bfloat16, contiguous, on one device;
-    anything else raises."""
-    return _MatmulStats.apply(x, w)
+    the kernel :func:`kernel_route` names for the shape; the kernels take
+    float32 or bfloat16, contiguous, on one device; anything else raises."""
+    if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
+        return _MatmulStats.apply(x, w)
+    return _forward(x, w)
 
 
 # ---------------------------------------------------------------------------
