@@ -109,3 +109,12 @@ def resolve_device(device, who):
         if dev.index is None:
             dev = torch.device("cuda", torch.cuda.current_device())
     return dev
+
+
+def raw_stream(index):
+    """PyTorch's current stream on CUDA device ``index`` as a raw
+    ``cudaStream_t`` (an int) for a kernel launch: the capture stream inside
+    ``torch.cuda.graph``. Read through ``torch.accelerator``, the cheapest
+    public way (``chip_smoke.py`` phase 7 times it beside
+    ``torch.cuda.current_stream(i).cuda_stream``)."""
+    return torch.accelerator.current_stream(index).native_handle

@@ -13,8 +13,16 @@ score-sorted boxes and return the float32 (B, k) survival mask, 1.0/0.0:
   Python loop over the k steps, as ``ops/contrib.py:238-247`` of the JAX
   package writes it.
 
-:data:`LAUNCHES` counts the kernel launches of :func:`nms_alive` (one per
-call on the card, each running the mask and the sweep kernel).
+The kernel has two routes, picked from k by :func:`kernel_route`: ``"smem"``
+(one launch of a thread-block cluster per image, the suppression mask in
+the leader block's shared memory) while the mask fits one block's shared
+memory (:func:`smem_bytes`, k <= :data:`SMEM_MAX_K`), ``"l2"`` (a mask
+kernel and a sweep kernel through a scratch in L2) beyond.
+:func:`cluster_size` gives the smem route's blocks per image.
+
+:data:`LAUNCHES` counts the calls of :func:`nms_alive` that launched on the
+card (one per call, whichever route) and :data:`LAUNCHES_BY_ROUTE` the same
+by route.
 """
 from __future__ import annotations
 
@@ -24,12 +32,58 @@ import numpy as np
 import torch
 
 from ..base import MXNetError
+from ..context import raw_stream
 
-#: kernel launches by :func:`nms_alive` (one per call that ran on the card)
+#: calls that launched the kernel on the card (one per call, either route)
 LAUNCHES = 0
 
-#: largest k the kernel takes (the mask grid's tile count is capped at 1024)
+#: the same by route
+LAUNCHES_BY_ROUTE = {"smem": 0, "l2": 0}
+
+#: largest k the kernel takes (the l2 route's mask grid has k/64 tiles a
+#: side, at most 1024)
 MAX_K = 65536
+
+#: shared memory one block may use on Hopper (227 KB)
+SMEM_LIMIT = 232448
+
+#: streaming multiprocessors of an H100 SXM
+H100_SMS = 132
+
+#: largest cluster the smem route launches (the portable cluster size)
+MAX_CLUSTER = 8
+
+
+def smem_bytes(k):
+    """Dynamic shared memory of the smem route's blocks at ``k`` boxes: the
+    image's boxes, areas and classes in k + 64 slots (24 bytes a slot), the
+    mask (ceil(k/64) words of each row, word-major, k rounded up to even
+    rows a word), the ceil(k/64) alive words and 64 words of slack, 8
+    bytes a word."""
+    nwords = (k + 63) // 64
+    return 24 * (k + 64) + 8 * (nwords * (k + (k & 1)) + nwords + 64)
+
+
+#: largest k whose smem route fits :data:`SMEM_LIMIT` (1250)
+SMEM_MAX_K = max(k for k in range(1, 2049) if smem_bytes(k) <= SMEM_LIMIT)
+
+
+def kernel_route(b, k):
+    """``"smem"`` for k up to :data:`SMEM_MAX_K`, else ``"l2"``. The route
+    depends on k alone (b images share it); both must be in the kernel's
+    range."""
+    if b < 0 or not 0 <= k <= MAX_K:
+        raise MXNetError("nms_alive: no kernel route for B=%d, k=%d (k at "
+                         "most %d)" % (b, k, MAX_K))
+    return "smem" if k <= SMEM_MAX_K else "l2"
+
+
+def cluster_size(b, sms=H100_SMS):
+    """Blocks per image on the smem route: as many as keep B times that
+    within the ``sms`` SMs (one block per SM, one wave), 1 to
+    :data:`MAX_CLUSTER`."""
+    return max(1, min(MAX_CLUSTER, sms // max(b, 1)))
+
 
 _FN = None
 
@@ -78,15 +132,29 @@ def _kernel():
     if _FN is None:
         from .. import cuda_build
         lib = cuda_build.load("multibox_nms")
-        fn = lib.multibox_nms_alive
-        fn.argtypes = [ctypes.c_void_p] * 5 + [
-            ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_int,
-            ctypes.c_int, ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        lib.multibox_nms_error_string.argtypes = [ctypes.c_int]
+        vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        smem = lib.multibox_nms_alive_smem
+        smem.argtypes = [vp] * 4 + [ci, ci, cf, ci, ci, ci, ci, vp]
+        l2 = lib.multibox_nms_alive_l2
+        l2.argtypes = [vp] * 5 + [ci, ci, cf, ci, ci, vp]
+        for fn in (smem, l2):
+            fn.restype = ci
+        lib.multibox_nms_error_string.argtypes = [ci]
         lib.multibox_nms_error_string.restype = ctypes.c_char_p
-        _FN = (fn, lib.multibox_nms_error_string)
+        _FN = {"smem": smem, "l2": l2,
+               "error": lib.multibox_nms_error_string}
     return _FN
+
+
+_SMS = {}
+
+
+def _sm_count(index):
+    n = _SMS.get(index)
+    if n is None:
+        n = _SMS[index] = torch.cuda.get_device_properties(
+            index).multi_processor_count
+    return n
 
 
 def _check(sboxes, sscore, scls):
@@ -106,14 +174,20 @@ def nms_alive(sboxes, sscore, scls, thresh, force=False):
     sorted by score -> float32 (B, k) mask, 1.0/0.0.
 
     CPU tensors take :func:`nms_alive_reference`. CUDA tensors launch the
-    kernel, which takes float32, contiguous tensors on one device with a
-    16-byte-aligned ``sboxes`` and k <= :data:`MAX_K`; anything else
-    raises."""
-    global LAUNCHES
+    kernel on :func:`kernel_route`'s route; it takes float32, contiguous
+    tensors on one device with a 16-byte-aligned ``sboxes`` and k <=
+    :data:`MAX_K`; anything else raises."""
     _check(sboxes, sscore, scls)
-    dev = sboxes.device
-    if dev.type == "cpu":
+    if sboxes.device.type == "cpu":
         return nms_alive_reference(sboxes, sscore, scls, thresh, force)
+    return _launch(sboxes, sscore, scls, thresh, force)
+
+
+def _launch(sboxes, sscore, scls, thresh, force, route=None):
+    """Launch the kernel on ``route`` (by default :func:`kernel_route`'s;
+    ``chip_smoke.py`` times both routes on the same tensors)."""
+    global LAUNCHES
+    dev = sboxes.device
     if dev.type != "cuda":
         raise MXNetError("nms_alive: no kernel for device %s" % dev)
     for name, t in (("sboxes", sboxes), ("sscore", sscore), ("scls", scls)):
@@ -131,18 +205,33 @@ def nms_alive(sboxes, sscore, scls, thresh, force=False):
     if k > MAX_K:
         raise MXNetError("nms_alive: k=%d exceeds the kernel's %d"
                          % (k, MAX_K))
-    out = torch.empty((b, k), dtype=torch.float32, device=dev)
+    route = route or kernel_route(b, k)
+    if route not in LAUNCHES_BY_ROUTE:
+        raise MXNetError("nms_alive: no route %r" % (route,))
+    if route == "smem" and k > SMEM_MAX_K:
+        raise MXNetError("nms_alive: k=%d needs %d bytes of shared memory "
+                         "on the smem route, past %d" % (
+                             k, smem_bytes(k), SMEM_LIMIT))
+    out = torch.empty_like(sscore)         # (B, k) float32, contiguous
     if b == 0 or k == 0:
         return out
-    nwords = (k + 63) // 64
-    scratch = torch.empty((b * k * nwords,), dtype=torch.int64, device=dev)
-    fn, err_str = _kernel()
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    err = fn(sboxes.data_ptr(), sscore.data_ptr(), scls.data_ptr(),
-             scratch.data_ptr(), out.data_ptr(), b, k,
-             _f32_thresh(thresh), int(bool(force)), dev.index or 0, stream)
+    fns = _kernel()
+    index = dev.index
+    stream = raw_stream(index)
+    ptrs = (sboxes.data_ptr(), sscore.data_ptr(), scls.data_ptr())
+    thresh, force = _f32_thresh(thresh), int(bool(force))
+    if route == "smem":
+        err = fns["smem"](*ptrs, out.data_ptr(), b, k, thresh, force,
+                          cluster_size(b, _sm_count(index)), smem_bytes(k),
+                          index, stream)
+    else:
+        scratch = torch.empty((b * k * ((k + 63) // 64),),
+                              dtype=torch.int64, device=dev)
+        err = fns["l2"](*ptrs, scratch.data_ptr(), out.data_ptr(), b, k,
+                        thresh, force, index, stream)
     if err:
-        raise MXNetError("nms_alive: kernel launch failed: %s (cudaError %d)"
-                         % (err_str(err).decode(), err))
+        raise MXNetError("nms_alive: %s route launch failed: %s (cudaError "
+                         "%d)" % (route, fns["error"](err).decode(), err))
     LAUNCHES += 1
+    LAUNCHES_BY_ROUTE[route] += 1
     return out

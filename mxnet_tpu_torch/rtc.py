@@ -42,6 +42,7 @@ import numpy as np
 import torch
 
 from .base import MXNetError, torch_dtype
+from .context import raw_stream
 from .ndarray import NDArray
 
 #: Triton kernel launches by :class:`TritonKernel` (one per call on the card)
@@ -108,45 +109,64 @@ class TritonKernel(object):
         self.kernel = kernel
         self.out_like = out_like
         self.grid = grid
+        self._grid = grid if grid is not None else (1,)
         self.reference = reference
         self.meta = meta
+        # out_like resolved once: an explicit spec to (shape, torch dtype),
+        # an input index kept to read that input's shape at each call
+        self._several = isinstance(out_like, (list, tuple)) and not _is_spec(
+            out_like)
+        self._specs = [s if isinstance(s, int) else _resolve_spec(s)
+                       for s in (out_like if self._several else [out_like])]
 
-    def _out_specs(self, vals):
-        """``([(shape, torch dtype), ...], several)`` from ``out_like``."""
-        def resolve(spec):
-            if isinstance(spec, int):
-                a = vals[spec]
+    def _mirrored(self, vals):
+        """This call's output specs: ``(shape, torch dtype)``, or the input
+        tensor an output mirrors."""
+        specs = []
+        for s in self._specs:
+            if isinstance(s, int):
+                a = vals[s]
                 if not isinstance(a, torch.Tensor):
                     raise MXNetError("TritonKernel: out_like=%d names a "
-                                     "scalar input" % spec)
-                return tuple(a.shape), a.dtype
-            if isinstance(spec, tuple) and len(spec) == 2:
-                return tuple(spec[0]), torch_dtype(spec[1])
-            return tuple(spec.shape), torch_dtype(spec.dtype)
-        if isinstance(self.out_like, (list, tuple)) and not _is_spec(
-                self.out_like):
-            return [resolve(s) for s in self.out_like], True
-        return [resolve(self.out_like)], False
+                                     "scalar input" % s)
+                s = a
+            specs.append(s)
+        return specs
 
     def __call__(self, *args):
         vals = []
-        for a in args:
+        dev = None
+        several = False
+        loose = None        # the first input that is not contiguous
+        for i, a in enumerate(args):
             if isinstance(a, NDArray):
-                a = a.data
+                a = a._data
             elif isinstance(a, np.ndarray):
                 a = torch.from_numpy(np.ascontiguousarray(a))
+            if isinstance(a, torch.Tensor):
+                if dev is None:
+                    dev = a.device
+                elif a.device != dev:
+                    several = True
+                if loose is None and not a.is_contiguous():
+                    loose = i
             vals.append(a)
-        tensors = [v for v in vals if isinstance(v, torch.Tensor)]
-        if not tensors:
+        if dev is None:
             raise MXNetError("TritonKernel: no array input")
-        devices = {t.device for t in tensors}
-        if len(devices) > 1:
+        if several:
             raise MXNetError("TritonKernel: inputs on several devices %s"
-                             % sorted(map(str, devices)))
-        dev = tensors[0].device
-        specs, several = self._out_specs(vals)
+                             % sorted({str(v.device) for v in vals
+                                       if isinstance(v, torch.Tensor)}))
+        specs = self._mirrored(vals)
         if dev.type == "cuda":
-            outs = [torch.empty(s, dtype=d, device=dev) for s, d in specs]
+            if loose is not None:
+                raise MXNetError("TritonKernel: input %d is not contiguous "
+                                 "(the kernel gets a pointer only)" % loose)
+            # an output mirroring a (contiguous) input: empty_like, the
+            # cheaper allocation
+            outs = [torch.empty_like(s) if isinstance(s, torch.Tensor)
+                    else torch.empty(s[0], dtype=s[1], device=dev)
+                    for s in specs]
             self._launch(vals, outs, dev)
         elif self.reference is None:
             raise MXNetError(
@@ -156,29 +176,51 @@ class TritonKernel(object):
         else:
             outs = self.reference(*vals)
             outs = list(outs) if isinstance(outs, (list, tuple)) else [outs]
+            specs = [(tuple(s.shape), s.dtype) if isinstance(s, torch.Tensor)
+                     else s for s in specs]
             got = [(tuple(o.shape), o.dtype) for o in outs]
             if got != specs:
                 raise MXNetError("TritonKernel: reference returned %s, "
                                  "out_like specifies %s" % (got, specs))
-        res = [NDArray(o) for o in outs]
-        return res if several else res[0]
+        if self._several:
+            return [NDArray(o) for o in outs]
+        return NDArray(outs[0])
 
     def _launch(self, vals, outs, dev):
         global TRITON_LAUNCHES
-        for i, v in enumerate(vals):
-            if isinstance(v, torch.Tensor) and not v.is_contiguous():
-                raise MXNetError("TritonKernel: input %d is not contiguous "
-                                 "(the kernel gets a pointer only)" % i)
-        try:
-            import triton  # noqa: F401  (the kernel's own package)
-        except ImportError:
-            raise MXNetError("TritonKernel: the triton package is not "
-                             "installed, so the kernel cannot run on %s"
-                             % dev)
-        grid = self.grid if self.grid is not None else (1,)
-        with torch.cuda.device(dev):
-            self.kernel[grid](*vals, *outs, **self.meta)
+        if not _TRITON:
+            _import_triton(dev)
+        # Triton launches on the current device's stream: switch devices
+        # only where the inputs lie elsewhere
+        if dev.index == torch.accelerator.current_device_index():
+            self.kernel[self._grid](*vals, *outs, **self.meta)
+        else:
+            with torch.cuda.device(dev):
+                self.kernel[self._grid](*vals, *outs, **self.meta)
         TRITON_LAUNCHES += 1
+
+
+def _resolve_spec(spec):
+    """An explicit output spec, ``(shape, dtype)`` or an object with
+    ``shape`` and ``dtype``, as ``(shape tuple, torch dtype)``."""
+    if isinstance(spec, tuple) and len(spec) == 2:
+        return tuple(spec[0]), torch_dtype(spec[1])
+    return tuple(spec.shape), torch_dtype(spec.dtype)
+
+
+#: triton, once imported by a launch
+_TRITON = []
+
+
+def _import_triton(dev):
+    """Import triton once (inside a launch: the CPU tests import this
+    module on hosts without it)."""
+    try:
+        import triton
+    except ImportError:
+        raise MXNetError("TritonKernel: the triton package is not "
+                         "installed, so the kernel cannot run on %s" % dev)
+    _TRITON.append(triton)
 
 
 # ---------------------------------------------------------------------------
@@ -271,6 +313,7 @@ def _load_driver():
             ("cuDeviceGet", [P(c_int), c_int]),
             ("cuDevicePrimaryCtxRetain", [P(vp), c_int]),
             ("cuCtxSetCurrent", [vp]),
+            ("cuCtxGetCurrent", [P(vp)]),
             ("cuModuleLoadData", [P(vp), vp]),
             ("cuModuleGetFunction", [P(vp), vp, cp]),
             ("cuLaunchKernel", [vp] + [c_uint] * 7 + [vp, P(vp), P(vp)]),
@@ -348,6 +391,109 @@ def _dims3(dims, what):
     return dims + (1,) * (3 - len(dims))
 
 
+def _make_dims(grid_dims, block_dims):
+    return (ctypes.c_uint * 6)(*_dims3(grid_dims, "grid_dims"),
+                               *_dims3(block_dims, "block_dims"))
+
+
+#: (grid_dims, block_dims) -> the launch shape as the C launcher takes it
+#: (grid x, y, z, block x, y, z), checked and made once per shape pushed
+_DIMS = {}
+
+
+def _launch_dims(grid_dims, block_dims):
+    try:
+        return _DIMS[grid_dims, block_dims]
+    except KeyError:
+        if len(_DIMS) >= 1024:
+            _DIMS.clear()
+        dims = _DIMS[grid_dims, block_dims] = _make_dims(grid_dims,
+                                                         block_dims)
+        return dims
+    except TypeError:       # lists: not hashable
+        return _make_dims(grid_dims, block_dims)
+
+
+class _Args(threading.local):
+    """One thread's ``kernelParams`` for a kernel of ``n`` arguments, made
+    once per thread: ``values`` holds the arguments (device pointers) and
+    ``params`` their addresses. Every push rewrites every value
+    (:func:`_pack`), so no pointer outlives the push it came from."""
+
+    def __init__(self, n):
+        self.values = (ctypes.c_void_p * n)()
+        base = ctypes.addressof(self.values)
+        size = ctypes.sizeof(ctypes.c_void_p)
+        self.params = (ctypes.c_void_p * n)(*[base + i * size
+                                              for i in range(n)])
+
+
+_F32 = torch.float32
+
+
+def _pack(values, arrays, name):
+    """Check a push's arrays in one pass (float32, contiguous, one device)
+    and write each one's current ``data_ptr()`` into ``values``. Returns
+    the arrays' device index (-1 on the CPU); raises with :func:`_reject`'s
+    message on anything else."""
+    dev = None
+    try:
+        for i, a in enumerate(arrays):
+            t = a._data if isinstance(a, NDArray) else a
+            if t.dtype is not _F32 or not t.is_contiguous():
+                _reject(arrays, name)
+            d = t.get_device()
+            if dev is None:
+                dev = d
+            elif d != dev:
+                _reject(arrays, name)
+            values[i] = t.data_ptr()
+    except AttributeError:      # not an array
+        _reject(arrays, name)
+    if dev is None:
+        raise MXNetError("Rtc.push: kernel %r has no arrays" % name)
+    return dev
+
+
+def _reject(arrays, name):
+    """Raise for the first array a push cannot take, array by array:
+    not an NDArray, not float32, not on the card, not contiguous; then
+    arrays on several devices."""
+    for i, a in enumerate(arrays):
+        t = a.data if isinstance(a, NDArray) else a
+        what = "array %d of kernel %r" % (i, name)
+        if not isinstance(t, torch.Tensor):
+            raise MXNetError("Rtc.push: %s is not an NDArray" % what)
+        if t.dtype != torch.float32:
+            raise MXNetError("Rtc.push: %s is %s; Rtc kernels take "
+                             "float32 only" % (what, t.dtype))
+        if not t.is_cuda:
+            raise MXNetError("Rtc.push: %s is on %s; Rtc kernels run on "
+                             "the card only" % (what, t.device))
+        if not t.is_contiguous():
+            raise MXNetError("Rtc.push: %s is not contiguous (the kernel "
+                             "gets a pointer only)" % what)
+    raise MXNetError("Rtc.push: arrays on several devices")
+
+
+_LAUNCH = []
+
+
+def _launcher():
+    """``[rtc_launch]`` of ``csrc/rtc_launch.cu`` (built at first use):
+    cuLaunchKernel behind five pointer arguments, which ctypes converts
+    faster than cuLaunchKernel's eleven; it makes the kernel's context
+    current in the calling thread first where another one is."""
+    with _LIB_LOCK:
+        if not _LAUNCH:
+            from . import cuda_build
+            fn = cuda_build.load("rtc_launch").rtc_launch
+            fn.argtypes = [ctypes.c_void_p] * 5
+            fn.restype = ctypes.c_int
+            _LAUNCH.append(fn)
+    return _LAUNCH
+
+
 class Rtc(object):
     """A CUDA kernel compiled at run time (ref: mx.rtc.Rtc).
 
@@ -364,7 +510,11 @@ class Rtc(object):
 
     The decorated source (:attr:`source`) is compiled with NVRTC at the
     first :meth:`push` on a device and loaded into that device's primary
-    context, the one PyTorch uses.
+    context, the one PyTorch uses. Later pushes reuse the function, the
+    calling thread's ``kernelParams`` arrays and the launch shape, so a
+    push costs little more than the launch itself, and pushes work inside
+    ``torch.cuda.graph`` capture once the kernel has been pushed on that
+    device before the capture.
     """
 
     def __init__(self, name, inputs, outputs, kernel):
@@ -378,16 +528,23 @@ class Rtc(object):
         self.source = decorate(name, inputs, outputs, kernel)
         self._funcs = {}    # device index -> (context, module, function)
         self._lock = threading.Lock()
+        self._args = _Args(self.num_inputs + self.num_outputs)
 
-    def _function(self, dev):
+    def _function(self, index):
         with self._lock:
-            got = self._funcs.get(dev.index)
+            got = self._funcs.get(index)
             if got is not None:
                 return got
+            if torch.cuda.is_current_stream_capturing():
+                raise MXNetError(
+                    "Rtc.push: kernel %r has not been pushed on cuda:%d "
+                    "before, and it cannot be compiled (NVRTC) and loaded "
+                    "while a CUDA graph is being captured; push it once "
+                    "before the capture" % (self.name, index))
             drv = _lib("driver")
             _check_cu(drv, drv.cuInit(0), "cuInit")
             cudev = ctypes.c_int()
-            _check_cu(drv, drv.cuDeviceGet(ctypes.byref(cudev), dev.index),
+            _check_cu(drv, drv.cuDeviceGet(ctypes.byref(cudev), index),
                       "cuDeviceGet")
             ctx = ctypes.c_void_p()
             # the device's primary context: the one PyTorch's runtime uses
@@ -395,7 +552,8 @@ class Rtc(object):
                                                         cudev),
                       "cuDevicePrimaryCtxRetain")
             _check_cu(drv, drv.cuCtxSetCurrent(ctx), "cuCtxSetCurrent")
-            cubin = compile_cubin(self.source, self.name, _arch(dev))
+            cubin = compile_cubin(self.source, self.name,
+                                  _arch(torch.device("cuda", index)))
             mod = ctypes.c_void_p()
             _check_cu(drv, drv.cuModuleLoadData(ctypes.byref(mod), cubin),
                       "cuModuleLoadData")
@@ -403,7 +561,7 @@ class Rtc(object):
             _check_cu(drv, drv.cuModuleGetFunction(ctypes.byref(fn), mod,
                                                    self.name.encode()),
                       "cuModuleGetFunction")
-            self._funcs[dev.index] = (ctx, mod, fn)
+            self._funcs[index] = (ctx, mod, fn)
             return ctx, mod, fn
 
     def push(self, inputs, outputs, grid_dims, block_dims):
@@ -417,41 +575,22 @@ class Rtc(object):
                              "outputs, got %d and %d"
                              % (self.name, self.num_inputs, self.num_outputs,
                                 len(inputs), len(outputs)))
-        tensors = []
-        for i, a in enumerate(list(inputs) + list(outputs)):
-            t = a.data if isinstance(a, NDArray) else a
-            what = "array %d of kernel %r" % (i, self.name)
-            if not isinstance(t, torch.Tensor):
-                raise MXNetError("Rtc.push: %s is not an NDArray" % what)
-            if t.dtype != torch.float32:
-                raise MXNetError("Rtc.push: %s is %s; Rtc kernels take "
-                                 "float32 only" % (what, t.dtype))
-            if not t.is_cuda:
-                raise MXNetError("Rtc.push: %s is on %s; Rtc kernels run on "
-                                 "the card only" % (what, t.device))
-            if not t.is_contiguous():
-                raise MXNetError("Rtc.push: %s is not contiguous (the kernel "
-                                 "gets a pointer only)" % what)
-            tensors.append(t)
-        dev = tensors[0].device
-        if any(t.device != dev for t in tensors):
-            raise MXNetError("Rtc.push: arrays on several devices")
-        grid = _dims3(grid_dims, "grid_dims")
-        block = _dims3(block_dims, "block_dims")
-        ctx, _mod, fn = self._function(dev)
-        drv = _lib("driver")
-        _check_cu(drv, drv.cuCtxSetCurrent(ctx), "cuCtxSetCurrent")
-        # kernelParams: an array of pointers to each argument's value, the
-        # values (device pointers) kept alive through the call
-        ptrs = [ctypes.c_void_p(t.data_ptr()) for t in tensors]
-        params = (ctypes.c_void_p * len(ptrs))(
-            *[ctypes.addressof(p) for p in ptrs])
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        # a refused launch (too many threads a block) never runs, and only
-        # this result reports it
-        _check_cu(drv, drv.cuLaunchKernel(
-            fn, grid[0], grid[1], grid[2], block[0], block[1], block[2], 0,
-            ctypes.c_void_p(stream), params, None),
-            "cuLaunchKernel of %r with grid %s, block %s"
-            % (self.name, grid, block))
+        arrays = (*inputs, *outputs)
+        args = self._args
+        index = _pack(args.values, arrays, self.name)
+        if index < 0:
+            _reject(arrays, self.name)
+        dims = _launch_dims(grid_dims, block_dims)
+        ctx, _mod, fn = self._funcs.get(index) or self._function(index)
+        # the launcher makes ctx current in this thread where another
+        # context is (every push: PyTorch or another library may have
+        # switched it since); a refused launch (too many threads a block)
+        # never runs, and only this result reports it
+        res = (_LAUNCH or _launcher())[0](fn, ctx, dims, raw_stream(index),
+                                          args.params)
+        if res:
+            _check_cu(_lib("driver"), res,
+                      "cuCtxSetCurrent or cuLaunchKernel of %r with grid "
+                      "%s, block %s" % (self.name, tuple(dims[:3]),
+                                        tuple(dims[3:])))
         RTC_LAUNCHES += 1

@@ -3,7 +3,8 @@ MultiBoxDetection against the JAX package.
 
 - The plain ``nms_alive_reference`` equals, exactly, both JAX forms of the
   greedy sweep: the Pallas kernel ``nms_alive`` run in interpret mode and
-  the ``fori_loop`` form of ``ops/contrib.py:238-247``.
+  the ``fori_loop`` form of ``ops/contrib.py:238-247``, also at the k on
+  either side of the CUDA kernel's route boundary (``SMEM_MAX_K``).
 - MultiBoxDetection on identical cls_prob/loc_pred/anchor inputs: class ids
   and row order exact, scores and boxes to ``atol=1e-6`` (``exp`` differs by
   about an ulp between XLA:CPU and PyTorch). The JAX op runs once with
@@ -60,7 +61,8 @@ def _jax_fori(sboxes, sscore, scls, force):
 
 
 @pytest.mark.parametrize("force", [False, True])
-@pytest.mark.parametrize("k", [1, 7, 64, 65, 400])
+@pytest.mark.parametrize("k", [1, 7, 64, 65, 400, tnms.SMEM_MAX_K - 1,
+                               tnms.SMEM_MAX_K, tnms.SMEM_MAX_K + 1])
 def test_nms_reference_equals_jax_forms(k, force):
     rng = np.random.default_rng(1000 * k + force)
     boxes, score, cls = _sorted_boxes(rng, 3, k)

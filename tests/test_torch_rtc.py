@@ -1,7 +1,9 @@
 """``rtc`` of the PyTorch port on the CPU: what can be checked without the
 card. ``Rtc``'s decorated source against the reference's ``MXRtc::decorate``
 layout, ``TritonKernel``'s ``out_like`` resolution and its plain
-``reference`` on CPU tensors, the precise errors of ``Rtc``,
+``reference`` on CPU tensors, ``Rtc.push``'s argument packing (each push
+writes its own arrays' pointers into per-thread kernelParams) and launch
+shape cache, the precise errors of ``Rtc``,
 ``TritonKernel`` and ``PallasKernel``, and the JAX package's ``PallasKernel``
 test kernels (interpret mode) against the port's plain versions of them.
 
@@ -13,6 +15,8 @@ present. Tolerances: ``scale`` exactly
 ``rtol=1e-6``: a compiler may contract ``a*b + a`` into one fused
 multiply-add, which rounds once instead of twice.
 """
+import ctypes
+import threading
 import zlib
 
 import numpy as np
@@ -174,3 +178,91 @@ def test_jax_pallas_test_kernels_against_port_plain_versions(which):
             _cpu(a), _cpu(b))
         np.testing.assert_allclose(t.asnumpy(), j.asnumpy(), rtol=1e-6,
                                    atol=0)
+
+
+def test_packing_carries_each_push_s_own_pointers():
+    """The per-thread kernelParams are made once, but every push writes its
+    own arrays' data_ptr()s into them: a pointer from an earlier push (whose
+    array may since have been freed) is never left in place."""
+    args = rtc._Args(3)
+    size = ctypes.sizeof(ctypes.c_void_p)
+    assert [args.params[i] for i in range(3)] == [
+        ctypes.addressof(args.values) + i * size for i in range(3)]
+    r = _rng("pack")
+    for step in range(4):
+        arrays = [_cpu(r.standard_normal((5, step + 1)).astype(np.float32))
+                  for _ in range(2)] + [torch.zeros(7)]
+        assert rtc._pack(args.values, arrays, "k") == -1    # the CPU
+        want = [a.data.data_ptr() if isinstance(a, mt.nd.NDArray)
+                else a.data_ptr() for a in arrays]
+        assert [args.values[i] for i in range(3)] == want
+        del arrays
+
+
+def test_packing_is_per_thread():
+    args = rtc._Args(2)
+    mine = ctypes.addressof(args.values)
+    seen = []
+    t = threading.Thread(target=lambda: seen.append(
+        (ctypes.addressof(args.values), args.params[0])))
+    t.start()
+    t.join(timeout=30)
+    assert not t.is_alive() and len(seen) == 1
+    theirs, their_param0 = seen[0]
+    assert theirs != mine and their_param0 == theirs
+
+
+def test_packing_rejects_what_a_push_cannot_take():
+    args = rtc._Args(2)
+    x = _cpu(np.ones((4,), np.float32))
+    # array by array, in the order push always checked them
+    with pytest.raises(MXNetError, match="array 0 .* float32 only"):
+        rtc._pack(args.values, [torch.ones(4, dtype=torch.float64), x], "k")
+    with pytest.raises(MXNetError, match="array 0 .* on cpu; Rtc kernels "
+                                         "run on the card only"):
+        rtc._pack(args.values, [x, torch.ones(4, dtype=torch.float64)], "k")
+    with pytest.raises(MXNetError, match="array 0 .* is not an NDArray"):
+        rtc._pack(args.values, [np.ones(4, np.float32), x], "k")
+    with pytest.raises(MXNetError, match="has no arrays"):
+        rtc._pack(args.values, [], "k")
+    k = rtc.Rtc("k", [], [], "")
+    with pytest.raises(MXNetError, match="has no arrays"):
+        k.push([], [], (1,), (1,))
+
+
+def test_launch_shape_is_checked_and_made_once():
+    d = rtc._launch_dims((4,), (256,))
+    assert list(d) == [4, 1, 1, 256, 1, 1]
+    assert rtc._launch_dims((4,), (256,)) is d       # a shape pushed again
+    assert list(rtc._launch_dims([2, 3], [32, 4, 2])) == [2, 3, 1, 32, 4, 2]
+    for grid, block in (((0,), (1,)), ((1, 1, 1, 1), (1,)), ((1,), ())):
+        with pytest.raises(MXNetError, match="must be 1 to 3 positive ints"):
+            rtc._launch_dims(grid, block)
+
+
+@pytest.mark.parametrize("out_like", [0, [0, ((5,), "float32")]])
+def test_out_specs_follow_the_inputs(out_like):
+    """Explicit specs are resolved once; a spec mirroring an input follows
+    that input's shape and dtype at every call."""
+    k = rtc.TritonKernel(
+        None, out_like=out_like,
+        reference=lambda a, n: (a * 2 if out_like == 0
+                                else (a * 2, torch.zeros(5))))
+    for shape, dtype in (((3, 4), np.float32), ((6,), np.float32),
+                         ((2, 2), np.float64)):
+        a = mt.nd.NDArray(torch.from_numpy(np.ones(shape, dtype)))
+        got = k(a, 1)
+        got = got if isinstance(got, list) else [got]
+        assert (got[0].shape, got[0].dtype) == (shape, dtype)
+        if out_like != 0:
+            assert (got[1].shape, got[1].dtype) == ((5,), np.float32)
+    with pytest.raises(MXNetError, match="out_like specifies"):
+        rtc.TritonKernel(None, out_like=((3,), "float32"),
+                         reference=lambda a: a)(_cpu(np.ones(4, np.float32)))
+
+
+def test_triton_kernel_several_devices_raise():
+    x = _cpu(np.ones((2,), np.float32))
+    with pytest.raises(MXNetError, match="several devices"):
+        rtc.TritonKernel(None, reference=_scale_ref)(
+            x, torch.ones(2, device="meta"))
