@@ -45,8 +45,11 @@ non-zero):
    matmul_stats 33 times, all on the wgmma route, with no layout copy, and
    agree with the same step unfused (loss sum within 1%, every BatchNorm
    moving statistic within rtol 2e-2, atol 1e-3). Then run_steps with K=4 (all losses finite),
-   step times and images/s fused, unfused and run_steps, and a
-   torch.profiler table of one fused step.
+   step times and images/s fused, unfused and run_steps, and
+   torch.profiler tables of one fused step and of one fused float32 step
+   (TF32 off, cuDNN deterministic; the step Module.fit runs in phase 10),
+   each printed only when two profiles in a row record the same kernel
+   counts (the profiler has been seen to drop kernel records).
 
 7. rtc: the user-kernel wrappers (B3). The JAX package's two PallasKernel
    test kernels, scale (o = 2x) and addmul (o = a*b + a), as user Triton
@@ -80,6 +83,27 @@ non-zero):
    against Executor.backward of the same symbol; a CustomOp whose forward
    and backward push Rtc kernels, inside a bound symbol, against the same
    network with nd's _mul_scalar.
+10. module: ResNet-50 (NHWC, 224x224, batch 128, float32, TF32 off,
+   cuDNN deterministic, MXTPU_FUSE_CONV_BN=1) trained through
+   Module(context=gpu(0)).fit, 2 epochs of 8 host batches from --seed, Xavier
+   arg_params from --seed, SGD(lr 0.1, momentum 0.9, wd 1e-4): (a) one
+   step a dispatch, (b) 4 steps a dispatch with dispatch_pipeline=1. Each
+   fit must launch matmul_stats 33 x 8 times, all on its f32 route. Checks:
+   the parameters and moving statistics after each fit against a
+   TrainStep driven by hand over the same batches (rtol 1e-4, atol 1e-5
+   elementwise, and finite); the metric, Accuracy and CrossEntropy, from
+   (a) (host) and (b) (device sums) against the sums of the hand-driven
+   step's outputs (correct to the count, cross-entropy within rtol 1e-5); a
+   checkpoint with its .states saved and loaded by Module on the card
+   scores as the trained module and carries its momentum; one f32 launch
+   at each of the 12 shapes against the plain version. Prints images/s of
+   each fit beside TrainStep.step alone, and on CUDA events the f32
+   route's time a step beside torch.matmul f32, the plain version and its
+   FP32 bound, and a fused step's time against unfused.
+11. resnet serve: ResNet-50 (NCHW, 3x224x224, 1000 classes, Xavier from
+   --seed) served through ServingEngine with buckets (1, 8, 32): finite
+   probabilities for requests of 1, 5, 8 and 32 images, p50 latency per
+   bucket.
 
 The line before the last is {"kernels": [...]} (per kernel: launches on
 its main path, max error against the plain version, times and bound);
@@ -192,22 +216,41 @@ def nms_bound_ms(b, k):
                                        else "operations")
 
 
-def device_ms_by_kernel(fn, reps=5):
-    """{kernel name: device ms per call of ``fn``} summed by
-    torch.profiler over ``reps`` calls (host gaps excluded); empty when
-    the profiler records no device time."""
+def profiled_kernels(fn, reps):
+    """torch.profiler over ``reps`` calls of ``fn``: the CUDA kernels with
+    device time, or None when the profiler lost records. Every call
+    launches the same kernels, so a kernel recorded a number of times that
+    ``reps`` does not divide was dropped from the trace (late in a long
+    run the profiler on the chip machine has been seen to keep 2 of 5
+    launches)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    return {e.key: _device_us(e) / 1e3 / reps for e in prof.key_averages()
-            if str(getattr(e, "device_type", "")).endswith("CUDA")
-            and _device_us(e) > 0}
+    kernels = [e for e in prof.key_averages()
+               if str(getattr(e, "device_type", "")).endswith("CUDA")
+               and _device_us(e) > 0]
+    lost = [e.key for e in kernels if e.count % reps
+            and not e.key.startswith(("Memset", "Memcpy"))]
+    if lost:
+        log("profile: kernel records lost over %d calls (%s); not used"
+            % (reps, ", ".join(_kernel_name(k) for k in lost[:3])))
+        return None
+    return kernels
+
+
+def device_ms_by_kernel(fn, reps=5):
+    """{kernel name: device ms per call of ``fn``} summed by
+    torch.profiler over ``reps`` calls (host gaps excluded); empty when
+    the profiler records no device time, or lost records
+    (:func:`profiled_kernels`)."""
+    fn()
+    kernels = profiled_kernels(fn, reps) or []
+    return {e.key: _device_us(e) / 1e3 / reps for e in kernels}
 
 
 def _kernel_name(key):
@@ -738,34 +781,44 @@ def kernel_ms(fn, reps=3):
 
 
 def profile_step(fn, card, what="one fused step",
-                 share=("matmul_stats", ("mm_stats", "reduce_partials"))):
+                 share=("matmul_stats", ("mm_stats", "reduce_partials")),
+                 tries=4):
     """torch.profiler over one call of ``fn``: prints the ten CUDA kernels
     with the most device time and the share of the kernels named by
-    ``share`` (a label and substrings of their names)."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-
-    dev_us = _device_us
-    kernels = [e for e in prof.key_averages()
-               if str(getattr(e, "device_type", "")).endswith("CUDA")
-               and dev_us(e) > 0]
-    total = sum(dev_us(e) for e in kernels)
+    ``share`` (a label and substrings of their names). A dropped kernel
+    record (:func:`profiled_kernels`) changes the counts, so the call is
+    profiled until two profiles in a row record every kernel the same
+    number of times, at most ``tries`` times, and else prints no
+    breakdown. (A profile of several calls cannot be held to the count
+    rule: a step's first calls launch a copy or a convolution kernel once
+    more or less than later ones.)"""
+    fn()
+    fn()
+    prev = None
+    for _ in range(tries):
+        kernels = profiled_kernels(fn, 1)
+        counts = {e.key: e.count for e in kernels}
+        if counts == prev:
+            break
+        prev = counts
+    else:
+        log("profile of %s: no two profiles in a row of %d recorded the "
+            "same kernel counts; no breakdown [%s]" % (what, tries, card))
+        return
+    total = sum(_device_us(e) for e in kernels)
     if total == 0:
         log("profile: torch.profiler recorded no device time")
         return
-    part = sum(dev_us(e) for e in kernels
+    part = sum(_device_us(e) for e in kernels
                if any(k in e.key for k in share[1]))
-    log("profile of %s: %d kernel names, %.3f ms of device time; %s %.3f "
-        "ms (%.1f%%) [%s]" % (what, len(kernels), total / 1e3, share[0],
-                              part / 1e3, 100.0 * part / total, card))
-    for e in sorted(kernels, key=dev_us, reverse=True)[:10]:
-        log("  %8.3f ms %5.1f%% x%-5d %s" % (dev_us(e) / 1e3,
-                                            100.0 * dev_us(e) / total,
+    log("profile of %s (the same %d kernel launches as the profile "
+        "before it): %d kernel names, %.3f ms of device time; %s %.3f ms "
+        "(%.1f%%) [%s]" % (what, sum(counts.values()), len(kernels),
+                           total / 1e3, share[0], part / 1e3,
+                           100.0 * part / total, card))
+    for e in sorted(kernels, key=_device_us, reverse=True)[:10]:
+        log("  %8.3f ms %5.1f%% x%-5d %s" % (_device_us(e) / 1e3,
+                                            100.0 * _device_us(e) / total,
                                             e.count, e.key[:100]))
 
 
@@ -888,6 +941,14 @@ def train_phase(seed, card):
     log("train: peak device memory %.2f GiB"
         % (torch.cuda.max_memory_allocated() / 2 ** 30))
     profile_step(lambda: fused.step(state, b1), card)
+    # the float32 step that Module.fit runs (phase 10), profiled here:
+    # after phase 8 the profiler has dropped kernel records
+    f32 = TrainStep(sym, optimizer="sgd", learning_rate=0.1, momentum=0.9,
+                    wd=1e-4)
+    st32 = f32.init({"data": dshape}, {"softmax_label": (bsz,)}, seed=seed)
+    with no_tf32(), deterministic_cudnn():
+        profile_step(lambda: f32.step(st32, b1), card,
+                     "one fused float32 step (TF32 off)")
     if problems:
         raise SystemExit("train phase failed: " + "; ".join(problems))
     return launches
@@ -1666,6 +1727,358 @@ def imperative_phase(seed, card):
         raise SystemExit("imperative phase failed: " + "; ".join(problems))
 
 
+# ---------------------------------------------------------------------------
+# module phase: ResNet-50 trained through Module.fit, and ResNet-50 served
+# ---------------------------------------------------------------------------
+
+#: batches and epochs of the module phase's fits, and the steps per
+#: dispatch in (b)
+MODULE_BATCHES = 8
+MODULE_EPOCHS = 2
+MODULE_K = 4
+#: the SGD hyper-parameters of the module phase
+MODULE_OPT = (("learning_rate", 0.1), ("momentum", 0.9), ("wd", 1e-4))
+#: trained parameters and moving statistics, fit against a TrainStep driven
+#: by hand: |a - b| <= MODULE_RTOL |b| + MODULE_ATOL elementwise
+MODULE_RTOL, MODULE_ATOL = 1e-4, 1e-5
+#: the fits' cross-entropy sums (float32 on the host and on the card)
+#: against the hand-driven step's, taken in float64
+METRIC_CE_RTOL = 1e-5
+
+
+def xavier_params(sym, dshape, seed):
+    """Xavier ``arg_params`` of ``sym`` on the host, from ``seed`` (the
+    port's initializer on CPU tensors; BatchNorm gamma 1, beta 0)."""
+    import mxnet_tpu_torch as mt
+    from mxnet_tpu_torch import initializer
+    shapes, _, _ = sym.infer_shape(data=dshape, softmax_label=(dshape[0],))
+    attrs = sym.attr_dict()
+    saved = mt.random.get_state()
+    mt.random.seed(seed)
+    init = initializer.Xavier()
+    params = {}
+    for n, shape in zip(sym.list_arguments(), shapes):
+        if n in ("data", "softmax_label"):
+            continue
+        params[n] = mt.nd.zeros(shape, ctx=mt.cpu())
+        init(initializer.InitDesc(n, attrs.get(n, {})), params[n])
+    mt.random.set_state(saved)
+    return params
+
+
+def max_excess(got, want):
+    """(largest relative difference max|a - b| / max|b| over the tensors,
+    largest excess over MODULE_RTOL |b| + MODULE_ATOL); both infinite when
+    either side holds a NaN or an infinity."""
+    import torch
+    rel = excess = 0.0
+    for n, b in want.items():
+        a = got[n].float()
+        b = b.float()
+        if not bool(torch.isfinite(a).all() and torch.isfinite(b).all()):
+            return float("inf"), float("inf")
+        d = (a - b).abs()
+        rel = max(rel, float(d.max()) / max(float(b.abs().max()), 1e-30))
+        excess = max(excess, float(
+            (d - MODULE_RTOL * b.abs() - MODULE_ATOL).max()))
+    return rel, excess
+
+
+def module_phase(seed, card):
+    import torch
+    import mxnet_tpu_torch as mt
+    from mxnet_tpu_torch import models
+    from mxnet_tpu_torch.callback import Speedometer
+    from mxnet_tpu_torch.model import BatchEndParam
+    from mxnet_tpu_torch.ops import matmul_stats as ms
+    from mxnet_tpu_torch.train_step import TrainStep
+    bsz, img, nb = RESNET_BATCH, RESNET_IMAGE, MODULE_BATCHES
+    dshape = (bsz, img, img, 3)
+    dev = mt.gpu(0).to_device()
+    os.environ["MXTPU_FUSE_CONV_BN"] = "1"
+    with mt.symbol.NameManager():
+        sym = models.resnet(num_classes=RESNET_CLASSES, num_layers=50,
+                            image_shape="3,%d,%d" % (img, img),
+                            layout="NHWC")
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(seed + 6)
+    images = rng.standard_normal((nb * bsz,) + dshape[1:], dtype=np.float32)
+    labels = rng.integers(0, RESNET_CLASSES, nb * bsz).astype(np.float32)
+    arg_params = xavier_params(sym, dshape, seed)
+    log("module: resnet-50 NHWC %dx%d b=%d float32, %d host batches and "
+        "Xavier arg_params from the seed in %.2f s"
+        % (img, img, bsz, nb, time.perf_counter() - t0))
+    problems = []
+    epochs = MODULE_EPOCHS
+    expected = sum(B1_STEP_SHAPES.values()) * nb * epochs
+    fits = {}
+    with no_tf32(), deterministic_cudnn():
+        for name, k in (("a", 1), ("b", MODULE_K)):
+            it = mt.io.NDArrayIter(images, labels, batch_size=bsz,
+                                   shuffle=False)
+            metric = mt.metric.CompositeEvalMetric(
+                [mt.metric.Accuracy(), mt.metric.CrossEntropy()])
+            mod = mt.mod.Module(sym, context=mt.gpu(0))
+            speedo = Speedometer(bsz, frequent=MODULE_K)
+            ends, accs = [], []
+
+            def on_batch(param, speedo=speedo):
+                # the speed line without resetting the metric under check
+                speedo(BatchEndParam(param.epoch, param.nbatch, None,
+                                     param.locals))
+
+            def on_epoch(epoch, *_, metric=metric, ends=ends, accs=accs):
+                torch.cuda.synchronize()
+                ends.append(time.perf_counter())
+                accs.append([(m.sum_metric, m.num_inst)
+                             for m in metric.metrics])
+            torch.cuda.synchronize()
+            # the main path: counts at 0 just before, read just after
+            ms.LAUNCHES = 0
+            for r in ms.LAUNCHES_BY_ROUTE:
+                ms.LAUNCHES_BY_ROUTE[r] = 0
+            t0 = time.perf_counter()
+            mod.fit(it, num_epoch=epochs, eval_metric=metric, optimizer="sgd",
+                    optimizer_params=MODULE_OPT, arg_params=arg_params,
+                    steps_per_dispatch=k, dispatch_pipeline=1,
+                    batch_end_callback=on_batch, epoch_end_callback=on_epoch)
+            torch.cuda.synchronize()
+            routes = dict(ms.LAUNCHES_BY_ROUTE)
+            first, steady = ends[0] - t0, ends[1] - ends[0]
+            spec = mod._fused_metric_spec
+            fits[name] = {"mod": mod, "accs": accs, "routes": routes,
+                          "step_ms": 1e3 * steady / nb,
+                          "device_sums": spec is not None and spec.tag}
+            log("module (%s) Module.fit steps_per_dispatch=%d, %d epochs of "
+                "%d batches: epoch 0 %.3f s, %.1f images/s (bind, init and "
+                "the first step included); epoch 1 %.3f s, %.1f images/s, "
+                "%.3f ms a step (host clock, each epoch ended by a "
+                "synchronize); metric device sums: %s; matmul_stats "
+                "launches by route %s [%s]"
+                % (name, k, epochs, nb, first, nb * bsz / first, steady,
+                   nb * bsz / steady, 1e3 * steady / nb,
+                   fits[name]["device_sums"], routes, card))
+            if routes != {"wgmma": 0, "wmma": 0, "f32": expected}:
+                problems.append("fit (%s): matmul_stats routes %s, expected "
+                                "%d f32" % (name, routes, expected))
+
+        # check 1: a TrainStep driven by hand over the same batches
+        opt = mt.optimizer.create(
+            "sgd", sym=sym, rescale_grad=1.0 / bsz,
+            param_idx2name=dict(enumerate(
+                fits["a"]["mod"]._exec_group.param_names)),
+            **dict(MODULE_OPT))
+        step = TrainStep(sym, optimizer=opt, device=dev)
+        state = step.init({"data": dshape}, {"softmax_label": (bsz,)},
+                          seed=seed)
+        for n, v in arg_params.items():
+            state["params"][n].copy_(v.data)
+        # the metric's sums by epoch from the hand-driven step's outputs:
+        # correct top-1 and the cross-entropy sum (float64, eps 1e-8)
+        lab = torch.from_numpy(labels).to(dev).long()
+        hand = torch.zeros((epochs, 2), dtype=torch.float64, device=dev)
+        t0 = None
+        for i in range(epochs * nb):
+            if i == nb:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+            j = i % nb
+            state, outs = step.step(state, {
+                "data": images[j * bsz:(j + 1) * bsz],
+                "softmax_label": labels[j * bsz:(j + 1) * bsz]})
+            p, y = outs[0].double(), lab[j * bsz:(j + 1) * bsz]
+            hand[i // nb, 0] += (p.argmax(1) == y).sum()
+            hand[i // nb, 1] -= torch.log(p.gather(1, y[:, None])
+                                          + 1e-8).sum()
+        torch.cuda.synchronize()
+        step_ms = 1e3 * (time.perf_counter() - t0) / ((epochs - 1) * nb)
+        log("module: the same batches through TrainStep.step alone (host "
+            "batches, as fit's k=1 path gets them): %.3f ms a step, %.1f "
+            "images/s after the first epoch; Module.fit's epoch 1 took "
+            "%+.3f ms a step more at k=1 and %+.3f at k=%d [%s]"
+            % (step_ms, 1e3 * bsz / step_ms, fits["a"]["step_ms"] - step_ms,
+               fits["b"]["step_ms"] - step_ms, MODULE_K, card))
+        want = dict(state["params"], **state["aux"])
+        for name in ("a", "b"):
+            arg, aux = fits[name]["mod"].get_params()
+            got = {n: v.data for n, v in dict(arg, **aux).items()}
+            rel, excess = max_excess(got, want)
+            log("module check 1 (%s): parameters and moving statistics after "
+                "fit against a TrainStep driven by hand over the same %d "
+                "steps: largest relative difference %g (tolerance rtol %g, "
+                "atol %g elementwise)" % (name, epochs * nb, rel,
+                                          MODULE_RTOL, MODULE_ATOL))
+            if excess > 0:
+                problems.append("fit (%s) differs from the hand-driven "
+                                "TrainStep beyond the tolerance, or is not "
+                                "finite" % name)
+        # check 2: the host metric (a) against the device sums (b), and
+        # both against the sums of the hand-driven step's outputs
+        ref = [(float(c), float(ce)) for c, ce in hand.tolist()]
+        for name in ("a", "b"):
+            got = fits[name]["accs"]
+            log("module check 2 (%s): (correct, count) and (cross-entropy "
+                "sum, count) by epoch %s; from the hand-driven TrainStep's "
+                "outputs (correct, cross-entropy sum) %s"
+                % (name, got, ref))
+            for (correct, n), (ce, n_ce), (rc, rce) in zip(
+                    [e[0] for e in got], [e[1] for e in got], ref):
+                if (n, n_ce) != (nb * bsz, nb * bsz) or correct != rc \
+                        or not abs(ce - rce) <= METRIC_CE_RTOL * abs(rce):
+                    problems.append(
+                        "fit (%s) metric sums %s differ from the "
+                        "hand-driven step's %s (correct to the count, "
+                        "cross-entropy within rtol %g)"
+                        % (name, got, ref, METRIC_CE_RTOL))
+                    break
+        if [e[0] for e in fits["a"]["accs"]] \
+                != [e[0] for e in fits["b"]["accs"]]:
+            problems.append("accuracy differs across k")
+        if fits["a"]["device_sums"] or fits["b"]["device_sums"] != "acc+ce":
+            problems.append("the metric took the device sums in (a) or "
+                            "not in (b): %s, %s"
+                            % (fits["a"]["device_sums"],
+                               fits["b"]["device_sums"]))
+
+        # check 4: a checkpoint round trip on the card
+        mod = fits["b"]["mod"]
+        it = mt.io.NDArrayIter(images, labels, batch_size=bsz)
+        with tempfile.TemporaryDirectory() as tmp:
+            prefix = os.path.join(tmp, "resnet50")
+            mod.save_checkpoint(prefix, 1, save_optimizer_states=True)
+            loaded = mt.mod.Module.load(prefix, 1, load_optimizer_states=True,
+                                        context=mt.gpu(0))
+            loaded.bind(it.provide_data, it.provide_label)
+            loaded.init_optimizer(optimizer="sgd",
+                                  optimizer_params=MODULE_OPT)
+        score = dict(mod.score(it, ["acc", "ce"]))
+        score_loaded = dict(loaded.score(it, ["acc", "ce"]))
+        mod._sync_fused_opt_states()
+        moms_equal = all(
+            torch.equal(loaded._updater.states[i].data.cpu(), st.data.cpu())
+            for i, st in mod._updater.states.items())
+        log("module check 4: save_checkpoint + Module.load on the card: "
+            "score %s, trained module's %s; momentum equal: %s"
+            % (score_loaded, score, moms_equal))
+        if score_loaded != score or not moms_equal:
+            problems.append("the loaded checkpoint scores %s, the trained "
+                            "module %s (momentum equal: %s)"
+                            % (score_loaded, score, moms_equal))
+        del loaded, fits
+
+        # check 3: one f32 launch at each shape against its plain version;
+        # the f32 route's time a step against torch.matmul and the bound
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(seed + 7)
+        keys = ("f32", "torch.matmul f32", "plain")
+        per_step = dict.fromkeys(keys, 0.0)
+        bound_step = 0.0
+        max_err = 0.0
+        for (m, kk, n), count in B1_STEP_SHAPES.items():
+            x = torch.randn((m, kk), generator=gen, device=dev)
+            w = torch.randn((n, kk), generator=gen, device=dev) / kk ** 0.5
+            before = dict(ms.LAUNCHES_BY_ROUTE)
+            err, e1, e2 = b1_check(ms, x, w)
+            if b1_routes_since(ms, before)["f32"] != 2:
+                problems.append("matmul_stats f32 %s did not take the f32 "
+                                "route" % ((m, kk, n),))
+            max_err = max(max_err, err)
+            fns = {"f32": lambda: ms.matmul_stats(x, w),
+                   "torch.matmul f32": lambda: torch.matmul(x, w.t()),
+                   "plain": lambda: ms.matmul_stats_reference(x, w)}
+            # CUDA events around back-to-back calls: at 0.1-1.3 ms a launch
+            # the wrapper's host time hides under the kernel. (The profiler
+            # loses kernel records after the bind phase: device_ms_by_kernel)
+            dev_ms = {key: cuda_time_ms(f, 5) for key, f in fns.items()}
+            bound, by = b1_bound_ms(m, kk, n, 4)
+            log("matmul_stats f32 (M, K, N) = (%d, %d, %d) x%d: max |y - "
+                "plain| %g, s1 %.3g, s2 %.3g; ms (CUDA events, back to "
+                "back): f32 kernel %.6f, torch.matmul f32 (TF32 off) %.6f, "
+                "plain %.6f; f32 bound %.6f ms (%s) [%s]"
+                % (m, kk, n, count, err, e1, e2, dev_ms["f32"],
+                   dev_ms["torch.matmul f32"], dev_ms["plain"], bound, by,
+                   card))
+            for key in keys:
+                per_step[key] += count * dev_ms[key]
+            bound_step += count * bound
+            del x, w
+        log("matmul_stats f32 route per ResNet-50 step (%d launches), ms "
+            "(CUDA events): f32 kernel %.6f, torch.matmul f32 %.6f, plain "
+            "%.6f; bound %.6f ms (FP32 %.0f TFLOP/s, HBM %.2f TB/s); "
+            "roofline share %.3f [%s]"
+            % (sum(B1_STEP_SHAPES.values()), per_step["f32"],
+               per_step["torch.matmul f32"], per_step["plain"],
+               bound_step, FP32_OPS_PER_S / 1e12,
+                           HBM_BYTES_PER_S / 1e12,
+                           bound_step / per_step["f32"], card))
+
+        # a step's device time, fused against unfused
+        os.environ["MXTPU_FUSE_CONV_BN"] = "0"
+        unfused = TrainStep(sym, optimizer=opt, device=dev)
+        os.environ["MXTPU_FUSE_CONV_BN"] = "1"
+        batch = {"data": torch.from_numpy(images[:bsz]).to(dev),
+                 "softmax_label": torch.from_numpy(labels[:bsz]).to(dev)}
+        twin = clone_state(state)
+        step_ms = {"fused": cuda_time_ms(lambda: step.step(state, batch), 3),
+                   "unfused": cuda_time_ms(lambda: unfused.step(twin, batch),
+                                           3)}
+        log("module: one float32 TrainStep step, CUDA events around 3 back "
+            "to back (the card sets their pace): fused (MXTPU_FUSE_CONV_BN=1) "
+            "%.3f ms, unfused %.3f ms [%s]"
+            % (step_ms["fused"], step_ms["unfused"], card))
+    if problems:
+        raise SystemExit("module phase failed: " + "; ".join(problems))
+    return {"launches": 2 * expected, "max_abs_err": max_err,
+            "ms": per_step["f32"], "plain_ms": per_step["plain"],
+            "library_ms": per_step["torch.matmul f32"],
+            "bound_ms": bound_step, "ms_source": "cuda_events"}
+
+
+def resnet_serve_phase(seed, reps, card):
+    """ResNet-50 (NCHW, 3x224x224, 1000 classes) served through
+    ServingEngine on the card, buckets (1, 8, 32): the outputs are finite
+    probabilities, and the p50 latency per bucket."""
+    import mxnet_tpu_torch as mt
+    from mxnet_tpu_torch import models
+    from mxnet_tpu_torch.serving import ServingEngine
+    shape = (3, RESNET_IMAGE, RESNET_IMAGE)
+    with mt.symbol.NameManager():
+        sym = models.resnet(num_classes=RESNET_CLASSES, num_layers=50,
+                            image_shape="3,%d,%d" % shape[1:])
+    params = xavier_params(sym, (1,) + shape, seed)
+    _, _, aux_shapes = sym.infer_shape(data=(1,) + shape)
+    aux = {n: (mt.nd.ones if n.endswith("_var") else mt.nd.zeros)(
+        sh, ctx=mt.cpu()) for n, sh in zip(sym.list_auxiliary_states(),
+                                           aux_shapes)}
+    rng = np.random.default_rng(seed + 8)
+    with tempfile.TemporaryDirectory() as tmp:
+        prefix = os.path.join(tmp, "resnet50")
+        mt.model.save_checkpoint(prefix, 0, sym, params, aux)
+        eng = ServingEngine(prefix + "-symbol.json", prefix + "-0000.params",
+                            {"data": shape}, buckets=BUCKETS)
+    for n in (1, 5, 8, 32):
+        out = eng.infer({"data": rng.random((n,) + shape,
+                                            dtype=np.float32)})[0]
+        sums = out.sum(axis=1)
+        if (out.shape != (n, RESNET_CLASSES) or not np.isfinite(out).all()
+                or np.abs(sums - 1).max() > 1e-4):
+            raise SystemExit("resnet-50 serve n=%d: output %s, finite %s, "
+                             "row sums off by %g" % (
+                                 n, out.shape, np.isfinite(out).all(),
+                                 np.abs(sums - 1).max()))
+    for b in BUCKETS:
+        x = {"data": rng.random((b,) + shape, dtype=np.float32)}
+        eng.infer(x)
+        ts = []
+        for _ in range(reps):
+            t = time.perf_counter()
+            eng.infer(x)
+            ts.append(time.perf_counter() - t)
+        log("resnet-50 serve bucket %d: p50 %.3f ms over %d requests (host "
+            "clock, input copy and output copy included) [%s]"
+            % (b, 1e3 * float(np.median(ts)), reps, card))
+
+
 def _nodes(sym):
     from mxnet_tpu_torch.symbol import _topo
     return _topo(sym._out_nodes())
@@ -1714,6 +2127,10 @@ def main():
     launches, upd_err, upd, event, bound = bind_phase(args.seed, 3, card)
     upd_source = "cuda_events" if upd is event else "profiler"
     imperative_phase(args.seed, card)
+    f32 = module_phase(args.seed, card)
+    resnet_serve_phase(args.seed, args.reps, card)
+    b1["launches"] += f32["launches"]
+    b1["f32_route"] = f32
     b3 = []
     for route, wrapper, call in (("cuda", "Rtc", "Rtc.push"),
                                  ("triton", "TritonKernel",

@@ -12,14 +12,19 @@ hand-written CUDA kernel (``ops/multibox_nms.py``, ``csrc/``); ResNet
 training through :class:`train_step.TrainStep` (SGD with momentum, f32
 masters with bf16 compute), with the Conv1x1->BatchNorm fusion's
 matmul-with-statistics as a hand-written CUDA kernel
-(``ops/matmul_stats.py``, ``csrc/``); and the imperative and bind API:
+(``ops/matmul_stats.py``, ``csrc/``); the imperative and bind API:
 ``nd`` with every tensor and update op, ``autograd``, ``Symbol.bind``/
 ``simple_bind`` and :class:`executor.Executor`, ``operator.CustomOp``,
-and ``rtc`` (user kernels: Triton through ``TritonKernel``, CUDA source
-through ``Rtc`` and NVRTC).
+``rtc`` (user kernels: Triton through ``TritonKernel``, CUDA source
+through ``Rtc`` and NVRTC); and the Module API: ``mod.Module`` with
+``fit`` (per-step and K-step dispatch through ``TrainStep``), ``score``,
+``predict`` and checkpoints, with ``io`` (``NDArrayIter``,
+``SuperBatchIter``), ``metric``, ``callback``, the ``local`` ``kv``store,
+``model`` and ``engine``.
 """
 from .base import MXNetError, __version__
 from . import base
+from . import engine
 from .context import Context, cpu, gpu, cpu_pinned, current_context
 from . import ndarray
 from . import ndarray as nd
@@ -35,6 +40,15 @@ from . import random
 from . import initializer
 from . import lr_scheduler
 from . import optimizer
+from . import metric
+from . import io
+from . import data
+from . import kvstore
+from . import kvstore as kv
+from . import callback
+from . import model
+from . import module
+from . import module as mod
 from . import train_step
 from .train_step import TrainStep
 from . import predictor

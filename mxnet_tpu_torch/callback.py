@@ -1,0 +1,153 @@
+"""Training callbacks (ref: python/mxnet/callback.py).
+
+Counterpart of ``mxnet_tpu/callback.py``: the epoch-end checkpoint
+callbacks, ``log_train_metric``, ``Speedometer`` and ``ProgressBar``.
+Under ``steps_per_dispatch=k`` a batch-end callback fires once per
+dispatch with ``nbatch`` advanced by K, so the periodic callbacks fire on
+crossing each period boundary. The ``Speedometer`` appends, from the
+``fit`` that calls it, the dispatch pipeline's depth and read-back stall
+and the input tier's data stall since its last line (its guard, dist and
+retrace suffixes wait for the ports of those layers).
+"""
+from __future__ import annotations
+
+import logging
+import math
+import time
+
+
+def module_checkpoint(mod, prefix, period=1, save_optimizer_states=False):
+    """Epoch-end checkpoint callback for a Module (ref: callback.py)."""
+    period = int(max(1, period))
+
+    def _callback(iter_no, sym=None, arg=None, aux=None):
+        if (iter_no + 1) % period == 0:
+            mod.save_checkpoint(prefix, iter_no + 1, save_optimizer_states)
+    return _callback
+
+
+def do_checkpoint(prefix, period=1):
+    """Epoch-end checkpoint via model.save_checkpoint (ref: callback.py)."""
+    from .model import save_checkpoint
+    period = int(max(1, period))
+
+    def _callback(iter_no, sym, arg, aux):
+        if (iter_no + 1) % period == 0:
+            save_checkpoint(prefix, iter_no + 1, sym, arg, aux)
+    return _callback
+
+
+def log_train_metric(period, auto_reset=False):
+    """Log the metric every ``period`` batches (ref: callback.py)."""
+    last = [-1]  # nbatch at the last fire; -1 keeps batch 0's fire
+
+    def _callback(param):
+        if param.nbatch < last[0]:
+            last[0] = -1  # epoch restarted
+        if param.nbatch // period > last[0] // period \
+                and param.eval_metric is not None:
+            last[0] = param.nbatch
+            for name, value in param.eval_metric.get_name_value():
+                logging.info("Iter[%d] Batch[%d] Train-%s=%f",
+                             param.epoch, param.nbatch, name, value)
+            if auto_reset:
+                param.eval_metric.reset()
+    return _callback
+
+
+def _local(param, name):
+    loc = getattr(param, "locals", None)
+    return loc.get(name) if isinstance(loc, dict) else None
+
+
+class Speedometer(object):
+    """Log samples/sec every ``frequent`` batches (ref: callback.py
+    Speedometer), resetting the metric it prints. The stall suffixes are
+    deltas since the previous line, each kept against the object it reads
+    (a reused Speedometer or another run's callbacks never mix them)."""
+
+    def __init__(self, batch_size, frequent=50):
+        self.batch_size = batch_size
+        self.frequent = frequent
+        self.init = False
+        self.tic = 0
+        self.last_count = 0
+        self._fired = 0
+        self._base = {}     # suffix -> (source object, last reading)
+
+    def _delta(self, name, source, reading):
+        """``reading`` less the last one taken from ``source`` for this
+        suffix (the first reading from a source is its baseline)."""
+        prev = self._base.get(name)
+        base = prev[1] if prev is not None and prev[0] is source else reading
+        self._base[name] = (source, reading)
+        return max(0.0, reading - base)
+
+    def _pipeline_suffix(self, param):
+        p = _local(param, "pipeline")
+        if p is None:
+            return ""
+        d = self._delta("pipeline", p, p.host_stall)
+        if p.depth <= 0:
+            return ""
+        return "\tPipeline: depth=%d host_stall=%.3fs" % (p.depth, d)
+
+    def _data_suffix(self, param):
+        st = _local(param, "data_stats")
+        if st is None:
+            return ""
+        d = self._delta("data", st, st.stage_seconds("stall"))
+        q = st.report().get("queue_depth_avg")
+        return ("\tData: stall=%.3fs q=%s"
+                % (d, "%.1f" % q if q is not None else "n/a"))
+
+    def __call__(self, param):
+        count = param.nbatch
+        if self.last_count > count:
+            self.init = False
+        self.last_count = count
+        if self.init:
+            # nbatch arrives in K-batch jumps under steps_per_dispatch:
+            # fire on crossing each `frequent` boundary, with the speed over
+            # the true batch delta since the last fire
+            if count // self.frequent > self._fired // self.frequent:
+                speed = ((count - self._fired) * self.batch_size
+                         / (time.time() - self.tic))
+                suffix = self._pipeline_suffix(param) \
+                    + self._data_suffix(param)
+                if param.eval_metric is not None:
+                    name_value = param.eval_metric.get_name_value()
+                    param.eval_metric.reset()
+                    for name, value in name_value:
+                        logging.info(
+                            "Epoch[%d] Batch [%d]\tSpeed: %.2f samples/sec"
+                            "\tTrain-%s=%f%s", param.epoch, count, speed,
+                            name, value, suffix)
+                else:
+                    logging.info(
+                        "Iter[%d] Batch [%d]\tSpeed: %.2f samples/sec%s",
+                        param.epoch, count, speed, suffix)
+                self._fired = count
+                self.tic = time.time()
+        else:
+            self.init = True
+            self._fired = count
+            self.tic = time.time()
+            # baseline the stall windows at the (re-)init
+            self._pipeline_suffix(param)
+            self._data_suffix(param)
+
+
+class ProgressBar(object):
+    """Text progress bar (ref: callback.py ProgressBar)."""
+
+    def __init__(self, total, length=80):
+        self.bar_len = length
+        self.total = total
+
+    def __call__(self, param):
+        count = param.nbatch
+        filled_len = int(round(self.bar_len * count / float(self.total)))
+        percents = math.ceil(100.0 * count / float(self.total))
+        prog_bar = "=" * filled_len + "-" * (self.bar_len - filled_len)
+        logging.info("[%s] %s%s\r", prog_bar, percents, "%")

@@ -1,0 +1,112 @@
+"""Engine facade: the control surface of the reference's dependency engine.
+
+Counterpart of ``mxnet_tpu/engine.py``. PyTorch queues CUDA work on a
+stream and returns, as XLA's async dispatch does, so what remains is the
+control surface ``Module.fit`` reads:
+
+- ``bulk(k)`` / ``set_bulk_size``: the default ``steps_per_dispatch`` of
+  ``fit`` (env ``MXTPU_BULK_STEPS``, default 1);
+- ``dispatch_pipeline``: the default depth of ``fit``'s deferred metric
+  readback (env ``MXTPU_DISPATCH_PIPELINE``, default 1);
+- ``wait_all``: ``torch.cuda.synchronize`` on the current device.
+
+``*_configured`` tell an explicit setting from the default, for the log
+line that names where each of ``fit``'s knobs came from. The HLO analyzer
+modes of the JAX package's engine are not ported. ``dp_devices`` reads
+``MXTPU_DP_DEVICES``; more than one device raises (multi-GPU data
+parallelism is not ported yet).
+"""
+from __future__ import annotations
+
+import contextlib
+import os
+
+import torch
+
+from .base import MXNetError, env_int
+
+_bulk_steps = max(1, env_int("MXTPU_BULK_STEPS", 1))
+# whether set_bulk_size was called: an explicit bulk(1) reads as "asked
+# for 1", not "unset"
+_bulk_explicit = False
+_pipeline_override = None
+
+
+def set_bulk_size(size):
+    """Set the default steps-per-dispatch of training loops; returns the
+    previous value."""
+    global _bulk_steps, _bulk_explicit
+    prev = _bulk_steps
+    _bulk_steps = max(1, int(size))
+    _bulk_explicit = True
+    return prev
+
+
+def bulk_size():
+    """The default steps-per-dispatch ``Module.fit`` uses."""
+    return _bulk_steps
+
+
+def bulk_configured():
+    """Whether the bulk size was set (``MXTPU_BULK_STEPS``, ``bulk`` or
+    ``set_bulk_size``, an explicit 1 included) rather than defaulted."""
+    if _bulk_explicit or _bulk_steps != 1:
+        return True
+    return bool(os.environ.get("MXTPU_BULK_STEPS", "").strip())
+
+
+@contextlib.contextmanager
+def bulk(size):
+    """Scoped bulking: ``with mt.engine.bulk(8): mod.fit(...)`` trains 8
+    steps per dispatch. Exit restores the previous size and whether it was
+    set."""
+    global _bulk_steps, _bulk_explicit
+    prev, prev_flag = _bulk_steps, _bulk_explicit
+    set_bulk_size(size)
+    try:
+        yield
+    finally:
+        _bulk_steps, _bulk_explicit = prev, prev_flag
+
+
+def dispatch_pipeline():
+    """Default deferred-readback depth of K-step dispatch: ``fit`` queues
+    dispatch N+depth before it reads dispatch N's metric sums back; 0 reads
+    each back at once. Env ``MXTPU_DISPATCH_PIPELINE`` (default 1)."""
+    if _pipeline_override is not None:
+        return _pipeline_override
+    return max(0, env_int("MXTPU_DISPATCH_PIPELINE", 1))
+
+
+def dispatch_pipeline_configured():
+    """Whether the pipeline depth was set (env or
+    :func:`set_dispatch_pipeline`) rather than defaulted."""
+    if _pipeline_override is not None:
+        return True
+    return bool(os.environ.get("MXTPU_DISPATCH_PIPELINE", "").strip())
+
+
+def set_dispatch_pipeline(depth):
+    """Override the default pipeline depth (None: back to env/default);
+    returns the previous effective value."""
+    global _pipeline_override
+    prev = dispatch_pipeline()
+    _pipeline_override = None if depth is None else max(0, int(depth))
+    return prev
+
+
+def dp_devices():
+    """``MXTPU_DP_DEVICES`` (0 when unset). More than one device raises:
+    data parallelism over several cards is not ported yet."""
+    n = max(0, env_int("MXTPU_DP_DEVICES", 0))
+    if n > 1:
+        raise MXNetError("MXTPU_DP_DEVICES=%d: data parallelism over more "
+                         "than one device is not ported yet" % n)
+    return n
+
+
+def wait_all():
+    """Block until the queued work of the current CUDA device is done (no-op
+    without CUDA)."""
+    if torch.cuda.is_available() and torch.cuda.is_initialized():
+        torch.cuda.synchronize()

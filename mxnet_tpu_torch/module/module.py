@@ -1,0 +1,660 @@
+"""Module: the standard computation module over one symbol
+(ref: python/mxnet/module/module.py).
+
+Counterpart of ``mxnet_tpu/module/module.py`` on one device (``cuda:0``
+unless ``context=mt.cpu()``): ``bind``, ``init_params``,
+``init_optimizer`` with the reference's kvstore rules, ``forward``/
+``backward``/``update`` through the executor and the per-index
+``Updater``, checkpoints in the JAX package's file layout, and the fused
+path that ``fit`` takes where the optimizer has a fused update: the port's
+:class:`~mxnet_tpu_torch.train_step.TrainStep` holds its own copy of the
+parameters, optimizer states and step count, which ``get_params``,
+``save_checkpoint``, ``forward`` and ``score`` write back to the executor
+first. Several contexts, ``work_load_list``, ``MXTPU_DP_DEVICES``,
+``mesh_axes``, ``param_shardings``, ``MXTPU_LM_MESH``, ``install_monitor``
+and ``MXNET_PROFILER_AUTOSTART`` raise naming themselves (not ported yet).
+"""
+from __future__ import annotations
+
+import logging
+
+import torch
+
+from ..base import MXNetError, env_bool, env_str
+from ..context import Context, current_context, resolve_device
+from ..initializer import Uniform, InitDesc
+from .. import engine as _engine
+from .. import metric as _metric
+from .. import optimizer as opt
+from ..ndarray import NDArray
+from ..optimizer import Optimizer
+from ..model import (_create_kvstore, _initialize_kvstore,
+                     _update_params, _update_params_on_kvstore,
+                     apply_optimizer_states, atomic_write_bytes,
+                     load_checkpoint)
+from ..tracecheck import RetraceError
+from .base_module import BaseModule
+from .executor_group import DataParallelExecutorGroup, _name_shape
+
+
+class Module(BaseModule):
+    def __init__(self, symbol, data_names=("data",),
+                 label_names=("softmax_label",), logger=logging,
+                 context=None, work_load_list=None, fixed_param_names=None,
+                 state_names=None, mesh_axes=None, param_shardings=None):
+        super().__init__(logger=logger)
+        if mesh_axes is not None or env_str("MXTPU_LM_MESH"):
+            raise MXNetError("Module: mesh_axes / MXTPU_LM_MESH (multi-axis "
+                             "mesh training) is not ported yet")
+        if param_shardings:
+            raise MXNetError("Module: param_shardings is not ported yet")
+        if work_load_list is not None:
+            raise MXNetError("Module: work_load_list (data parallelism over "
+                             "several devices) is not ported yet")
+        if context is None:
+            _engine.dp_devices()    # MXTPU_DP_DEVICES > 1 raises
+            context = current_context()
+        if isinstance(context, (list, tuple)):
+            if len(context) != 1:
+                raise MXNetError("Module: context=[...] with %d devices: "
+                                 "data parallelism over several devices is "
+                                 "not ported yet" % len(context))
+            context = context[0]
+        context = context if isinstance(context, Context) else Context(context)
+        self._context = [context]
+        self._device = resolve_device(context, "Module")
+        self._work_load_list = [1]
+
+        self._symbol = symbol
+        data_names = list(data_names) if data_names is not None else []
+        label_names = list(label_names) if label_names is not None else []
+        state_names = list(state_names) if state_names is not None else []
+        fixed_param_names = (list(fixed_param_names)
+                             if fixed_param_names is not None else [])
+        arg_names = symbol.list_arguments()
+        input_names = data_names + label_names + state_names
+        self._param_names = [x for x in arg_names if x not in input_names]
+        self._fixed_param_names = fixed_param_names
+        self._aux_names = symbol.list_auxiliary_states()
+        self._data_names = data_names
+        self._label_names = label_names
+        self._state_names = state_names
+        self._output_names = symbol.list_outputs()
+
+        self._arg_params = None
+        self._aux_params = None
+        self._params_dirty = False
+
+        self._optimizer = None
+        self._kvstore = None
+        self._update_on_kvstore = None
+        self._updater = None
+        self._preload_opt_states = None
+        self._exec_group = None
+        self._data_shapes = None
+        self._label_shapes = None
+
+        # the fused path: TrainStep and its state, which is ahead of the
+        # executor's arrays while _fused_dirty
+        self._fused = None
+        self._fused_state = None
+        self._fused_outputs = None
+        self._fused_ok = True
+        self._fused_dirty = False
+        self._fused_params_stale = False
+        self._fused_metrics_ok = False
+        # the eval metric's device-sum spec, resolved by _can_bulk_dispatch
+        self._fused_metric_spec = None
+
+    # -- checkpointing --------------------------------------------------
+    @staticmethod
+    def load(prefix, epoch, load_optimizer_states=False, **kwargs):
+        """A Module over ``prefix``'s symbol with the epoch's parameters
+        (and, with ``load_optimizer_states``, its ``.states`` applied at
+        ``init_optimizer``)."""
+        sym, args, auxs = load_checkpoint(prefix, epoch)
+        mod = Module(symbol=sym, **kwargs)
+        mod._arg_params = args
+        mod._aux_params = auxs
+        mod.params_initialized = True
+        if load_optimizer_states:
+            mod._preload_opt_states = "%s-%04d.states" % (prefix, epoch)
+        return mod
+
+    def save_checkpoint(self, prefix, epoch, save_optimizer_states=False):
+        atomic_write_bytes("%s-symbol.json" % prefix,
+                           self._symbol.tojson().encode())
+        param_name = "%s-%04d.params" % (prefix, epoch)
+        self.save_params(param_name)
+        logging.info("Saved checkpoint to \"%s\"", param_name)
+        if save_optimizer_states:
+            state_name = "%s-%04d.states" % (prefix, epoch)
+            self.save_optimizer_states(state_name)
+            logging.info("Saved optimizer state to \"%s\"", state_name)
+
+    def save_optimizer_states(self, fname):
+        """Write the optimizer states; returns the bytes written."""
+        assert self.optimizer_initialized
+        self._sync_fused_opt_states()
+        if self._update_on_kvstore:
+            return self._kvstore.save_optimizer_states(fname)
+        data = self._updater.get_states()
+        atomic_write_bytes(fname, data)
+        return data
+
+    def load_optimizer_states(self, fname):
+        assert self.optimizer_initialized
+        if self._update_on_kvstore:
+            self._kvstore.load_optimizer_states(fname)
+        else:
+            apply_optimizer_states(self._updater.set_states, fname)
+        # the fused state's optimizer states are re-seeded from these
+        self._fused_state = None
+
+    # -- properties -----------------------------------------------------
+    @property
+    def data_names(self):
+        return self._data_names
+
+    @property
+    def label_names(self):
+        return self._label_names
+
+    @property
+    def output_names(self):
+        return self._output_names
+
+    @property
+    def data_shapes(self):
+        assert self.binded
+        return self._data_shapes
+
+    @property
+    def label_shapes(self):
+        assert self.binded
+        return self._label_shapes
+
+    @property
+    def output_shapes(self):
+        assert self.binded
+        outs = [o.shape for o in self._exec_group.executor.outputs]
+        return list(zip(self._output_names, outs))
+
+    # -- params ---------------------------------------------------------
+    def get_params(self):
+        assert self.binded and self.params_initialized
+        if self._params_dirty:
+            self._sync_params_from_devices()
+        return (self._arg_params, self._aux_params)
+
+    def _sync_params_from_devices(self):
+        self._sync_fused_to_executor()
+        self._exec_group.get_params(self._arg_params, self._aux_params)
+        self._params_dirty = False
+
+    def init_params(self, initializer=None, arg_params=None, aux_params=None,
+                    allow_missing=False, force_init=False):
+        if self.params_initialized and not force_init:
+            return
+        assert self.binded, "call bind before initializing the parameters"
+        if initializer is None and not (arg_params or aux_params):
+            initializer = Uniform(0.01)
+        if self._arg_params is None:
+            self._arg_params = {
+                n: self._exec_group.executor.arg_dict[n]
+                for n in self._param_names}
+        if self._aux_params is None:
+            self._aux_params = {
+                n: self._exec_group.executor.aux_dict[n]
+                for n in self._aux_names}
+        attrs = self._symbol.attr_dict()
+
+        def _impl(name, arr, cache):
+            if cache is not None and name in cache:
+                cache_arr = cache[name]
+                if cache_arr is not arr:
+                    cache_arr.copyto(arr)
+            else:
+                if not allow_missing and initializer is None:
+                    raise MXNetError("%s is not presented" % name)
+                if initializer is not None:
+                    initializer(InitDesc(name, attrs.get(name, {})), arr)
+
+        for name in self._param_names:
+            _impl(name, self._arg_params[name], arg_params)
+        for name in self._aux_names:
+            _impl(name, self._aux_params[name], aux_params)
+        self.params_initialized = True
+        self._params_dirty = False
+        # the executor's arrays are authoritative now: the fused copy is
+        # re-seeded from them, never written back over them
+        self._fused_params_stale = True
+        self._fused_dirty = False
+
+    def set_params(self, arg_params, aux_params, allow_missing=False,
+                   force_init=True):
+        if not allow_missing:
+            self.init_params(initializer=None, arg_params=arg_params,
+                             aux_params=aux_params,
+                             allow_missing=allow_missing,
+                             force_init=force_init)
+            return
+        if self.params_initialized and not force_init:
+            return
+        self._exec_group.set_params(arg_params, aux_params)
+        self._params_dirty = True
+        self.params_initialized = True
+        self._fused_params_stale = True
+        self._fused_dirty = False
+
+    # -- bind -----------------------------------------------------------
+    def bind(self, data_shapes, label_shapes=None, for_training=True,
+             inputs_need_grad=False, force_rebind=False, shared_module=None,
+             grad_req="write"):
+        if force_rebind:
+            self._reset_bind()
+        if self.binded:
+            self.logger.warning("Already binded, ignoring bind()")
+            return
+        self.for_training = for_training
+        self.inputs_need_grad = inputs_need_grad
+        self.binded = True
+        if not for_training:
+            assert not inputs_need_grad
+        self._data_shapes = data_shapes
+        self._label_shapes = label_shapes
+        shared_group = None
+        if shared_module is not None:
+            assert shared_module.binded and shared_module.params_initialized
+            shared_group = shared_module._exec_group
+        self._exec_group = DataParallelExecutorGroup(
+            self._symbol, self._context, self._work_load_list, data_shapes,
+            label_shapes, self._param_names, for_training, inputs_need_grad,
+            shared_group, logger=self.logger,
+            fixed_param_names=self._fixed_param_names, grad_req=grad_req,
+            state_names=self._state_names)
+        if shared_module is not None:
+            # the parameter arrays are shared through simple_bind's pool
+            self.params_initialized = True
+            self._arg_params = shared_module._arg_params
+            self._aux_params = shared_module._aux_params
+        elif self.params_initialized:
+            self._exec_group.set_params(self._arg_params, self._aux_params)
+        if shared_module is not None and shared_module.optimizer_initialized:
+            self.borrow_optimizer(shared_module)
+
+    def _reset_bind(self):
+        self.binded = False
+        self._exec_group = None
+        self._data_shapes = None
+        self._label_shapes = None
+        self._fused = None
+        self._fused_state = None
+        self._fused_outputs = None
+
+    def reshape(self, data_shapes, label_shapes=None):
+        assert self.binded
+        # write the fused state back and drop it: it is shaped for the
+        # old batch
+        self._sync_fused_to_executor()
+        self._fused = None
+        self._fused_state = None
+        self._fused_outputs = None
+        self._data_shapes = data_shapes
+        self._label_shapes = label_shapes
+        shapes = dict(_name_shape(d) for d in data_shapes)
+        shapes.update(_name_shape(d) for d in (label_shapes or []))
+        self._exec_group.executor = self._exec_group.executor.reshape(
+            allow_up_sizing=True, **shapes)
+
+    # -- optimizer ------------------------------------------------------
+    def init_optimizer(self, kvstore="local", optimizer="sgd",
+                       optimizer_params=(("learning_rate", 0.01),),
+                       force_init=False):
+        assert self.binded and self.params_initialized
+        if self.optimizer_initialized and not force_init:
+            self.logger.warning("optimizer already initialized, "
+                                "ignoring init_optimizer")
+            return
+        # a dirty fused state holds the latest trained weights
+        self._sync_fused_to_executor()
+        (kvstore, update_on_kvstore) = _create_kvstore(
+            kvstore, len(self._context), self._arg_params)
+        rescale_grad = 1.0 / self._exec_group.batch_size
+        if isinstance(optimizer, str):
+            idx2name = dict(enumerate(self._exec_group.param_names))
+            optimizer_params = dict(optimizer_params)
+            if "rescale_grad" not in optimizer_params:
+                optimizer_params["rescale_grad"] = rescale_grad
+            optimizer = opt.create(optimizer, sym=self.symbol,
+                                   param_idx2name=idx2name,
+                                   **optimizer_params)
+        else:
+            assert isinstance(optimizer, Optimizer)
+            if optimizer.rescale_grad != rescale_grad:
+                self.logger.warning(
+                    "Optimizer created manually outside Module but "
+                    "rescale_grad is not normalized to 1.0/batch_size "
+                    "(%s vs. %s).", optimizer.rescale_grad, rescale_grad)
+        self._optimizer = optimizer
+        self._kvstore = kvstore
+        self._update_on_kvstore = update_on_kvstore
+        self._updater = None
+        if kvstore:
+            _initialize_kvstore(kvstore=kvstore,
+                                param_arrays=[self._arg_params[n] for n in
+                                              self._exec_group.param_names],
+                                arg_params=self._arg_params,
+                                param_names=self._exec_group.param_names,
+                                update_on_kvstore=update_on_kvstore)
+        if update_on_kvstore:
+            kvstore.set_optimizer(self._optimizer)
+        else:
+            self._updater = opt.get_updater(optimizer)
+        self.optimizer_initialized = True
+        self._fused = None
+        self._fused_state = None
+        self._fused_ok = True
+        if self._preload_opt_states is not None:
+            self.load_optimizer_states(self._preload_opt_states)
+            self._preload_opt_states = None
+
+    def _resolve_updater(self):
+        """The updater that applies updates: the kvstore's under
+        update_on_kvstore, else the local one."""
+        if self._update_on_kvstore and self._kvstore is not None:
+            return getattr(self._kvstore, "_updater", None)
+        return self._updater
+
+    def borrow_optimizer(self, shared_module):
+        assert shared_module.optimizer_initialized
+        self._optimizer = shared_module._optimizer
+        self._kvstore = shared_module._kvstore
+        self._update_on_kvstore = shared_module._update_on_kvstore
+        self._updater = shared_module._updater
+        self.optimizer_initialized = True
+        # modules sharing parameter storage keep the executor path
+        self._fused_ok = False
+        shared_module._fused_ok = False
+        shared_module._sync_fused_to_executor()
+
+    # -- fused fast path ------------------------------------------------
+    def _fused_eligible(self):
+        if not self._fused_ok:
+            return False
+        if self.inputs_need_grad or self._state_names:
+            return False
+        if not getattr(self._optimizer, "fused_supported", False):
+            return False
+        eg = self._exec_group
+        return all(eg.grad_req.get(n, "null") in ("write", "null")
+                   for n in eg.param_names)
+
+    def _build_fused(self):
+        from ..train_step import TrainStep
+        eg = self._exec_group
+        frozen = [n for n in eg.param_names
+                  if eg.grad_req.get(n, "null") == "null"]
+        self._fused = TrainStep(
+            self._symbol, data_names=eg.data_names,
+            label_names=eg.label_names, optimizer=self._optimizer,
+            frozen_param_names=frozen, device=self._device)
+        self._fused_state = self._seed_fused_state()
+        self._fused_params_stale = False
+        self._fused_metrics_ok = self._infer_fused_metrics_ok()
+
+    def _bound_shapes(self):
+        """(input-shape dict, label shapes, output shapes) of the bound
+        descriptors: what the metric's device-sum spec is resolved
+        against."""
+        shapes = dict(_name_shape(d) for d in (self._data_shapes or []))
+        lshapes = []
+        for d in (self._label_shapes or []):
+            name, shape = _name_shape(d)
+            shapes[name] = shape
+            lshapes.append(shape)
+        _, out_shapes, _ = self._symbol.infer_shape(**shapes)
+        return shapes, lshapes, out_shapes
+
+    def _infer_fused_metrics_ok(self):
+        """Whether the default device-sum layout (cross-entropy and top-1
+        of a single rank-2 output and rank-1 label) fits this module."""
+        _, lshapes, out_shapes = self._bound_shapes()
+        return (len(out_shapes) == 1 and len(lshapes) == 1
+                and len(out_shapes[0]) == 2 and len(lshapes[0]) == 1
+                and out_shapes[0][0] == lshapes[0][0])
+
+    def _can_bulk_dispatch(self, eval_metric=None):
+        """fit's precheck of the K-step path: ``(True, None)`` or ``(False,
+        why)``. With ``eval_metric`` its device-sum spec is resolved
+        against the bound shapes and kept for :meth:`_dispatch_fused_steps`."""
+        if not self._fused_eligible():
+            return (False, "module configuration needs the per-step "
+                    "executor path (grad_req/unfused optimizer/shared "
+                    "module)")
+        if eval_metric is None:
+            if not self._infer_fused_metrics_ok():
+                return (False, "the default device metric sums need a "
+                        "single (rank-2 output, rank-1 label) head")
+            return True, None
+        _, lshapes, out_shapes = self._bound_shapes()
+        spec = _metric.device_sum_spec(eval_metric, out_shapes, lshapes)
+        if spec is None:
+            return (False, "metric %r declares no device-sum layout for "
+                    "outputs %s / labels %s — it updates per-step on host"
+                    % (getattr(eval_metric, "name", eval_metric),
+                       [tuple(s) for s in out_shapes],
+                       [tuple(s) for s in lshapes]))
+        self._fused_metric_spec = spec
+        return True, None
+
+    def _seed_fused_state(self, prev=None):
+        """The fused state from the executor's current arrays (copies).
+        ``prev`` keeps the optimizer states and step count across a
+        parameter re-seed."""
+        ex = self._exec_group.executor
+        params = {n: ex.arg_dict[n].data.detach().clone()
+                  for n in self._fused.param_names}
+        aux = {n: ex.aux_dict[n].data.detach().clone()
+               for n in self._fused.aux_names}
+        if prev is not None:
+            opt_state, step = prev["opt"], prev["step"]
+        else:
+            opt_state = self._fused_opt_state(params)
+            step = torch.zeros((), dtype=torch.int32, device=self._device)
+        return {"params": params, "aux": aux, "opt": opt_state,
+                "step": step}
+
+    def _fused_opt_state(self, params):
+        """The fused optimizer states, seeded from the updater's states
+        where it has them (a load_optimizer_states round trip)."""
+        states = dict(getattr(self._resolve_updater(), "states", None) or {})
+        idx_of = {n: i for i, n in enumerate(self._exec_group.param_names)}
+
+        def leaf(x, like):
+            if x is None:
+                return None
+            if isinstance(x, tuple):
+                return tuple(leaf(i, like) for i in x)
+            t = x.data if isinstance(x, NDArray) else x
+            return t.detach().to(device=like.device, dtype=like.dtype,
+                                 copy=True)
+
+        out = {}
+        for n, v in params.items():
+            if n in self._fused.frozen_param_names:
+                continue
+            idx = idx_of.get(n)
+            if idx is not None and idx in states:
+                out[n] = leaf(states[idx], v)
+            else:
+                out[n] = self._optimizer.create_fused_state(v)
+        return out
+
+    def _refresh_fused_state(self):
+        if self._fused_state is None:
+            self._fused_state = self._seed_fused_state()
+            self._fused_params_stale = False
+        elif self._fused_params_stale:
+            self._fused_state = self._seed_fused_state(prev=self._fused_state)
+            self._fused_params_stale = False
+
+    def _fused_ready(self):
+        """Build the fused TrainStep where the module allows it; False
+        when the configuration needs the executor path."""
+        if not (self.binded and self.params_initialized
+                and self.optimizer_initialized):
+            return False
+        if env_bool("MXNET_PROFILER_AUTOSTART"):
+            raise MXNetError("MXNET_PROFILER_AUTOSTART (the profiler "
+                             "started on the first dispatch) is not ported "
+                             "yet")
+        if self._fused is None:
+            if not self._fused_eligible():
+                return False
+            self._build_fused()
+        self._refresh_fused_state()
+        return True
+
+    def _batch_dict(self, data_batch):
+        eg = self._exec_group
+        batch = {n: v.data if isinstance(v, NDArray) else v
+                 for n, v in zip(eg.data_names, data_batch.data)}
+        if eg.label_names and data_batch.label:
+            batch.update((n, v.data if isinstance(v, NDArray) else v)
+                         for n, v in zip(eg.label_names, data_batch.label))
+        return batch
+
+    def _adopt_retrace_result(self, e):
+        """A RetraceError raised after the dispatch ran carries its result:
+        adopt the new state before re-raising."""
+        if e.result is not None:
+            self._fused_state = e.result[0]
+            self._fused_outputs = None
+            self._fused_dirty = True
+            self._params_dirty = True
+
+    def _try_fused_fit_step(self, data_batch):
+        """fit's per-step fast path: one fused forward, backward and update
+        (``TrainStep.step``). False when the configuration needs the
+        executor path."""
+        if not self._fused_ready():
+            return False
+        try:
+            self._fused_state, outs = self._fused.step(
+                self._fused_state, self._batch_dict(data_batch))
+        except RetraceError as e:
+            self._adopt_retrace_result(e)
+            raise
+        self._fused_outputs = [NDArray(o) for o in outs]
+        self._fused_dirty = True
+        self._params_dirty = True
+        return True
+
+    def _dispatch_fused_steps(self, super_batch):
+        """fit's K-step fast path: one ``TrainStep.run_steps`` over a
+        stacked superbatch, returning the device-resident
+        :class:`~mxnet_tpu_torch.train_step.StepMetrics` without reading it
+        back (fit's pipeline retires it in dispatch order). None when the
+        configuration needs the per-step path."""
+        if not self._fused_ready():
+            return None
+        spec = self._fused_metric_spec
+        if spec is None and not self._fused_metrics_ok:
+            return None
+        try:
+            self._fused_state, sums = self._fused.run_steps(
+                self._fused_state, self._batch_dict(super_batch),
+                metric_spec=spec)
+        except RetraceError as e:
+            self._adopt_retrace_result(e)
+            raise
+        self._fused_outputs = None   # the outputs stay on the device
+        self._fused_dirty = True
+        self._params_dirty = True
+        return sums
+
+    def _sync_fused_to_executor(self):
+        """Write the fused parameters and aux states back into the
+        executor's arrays (copies)."""
+        if not self._fused_dirty or self._fused_state is None:
+            return
+        ex = self._exec_group.executor
+        for n in self._fused.param_names:
+            ex.arg_dict[n]._set_data(self._fused_state["params"][n].clone())
+        for n in self._fused.aux_names:
+            ex.aux_dict[n]._set_data(self._fused_state["aux"][n].clone())
+        self._fused_dirty = False
+
+    def _sync_fused_opt_states(self):
+        """Mirror the fused optimizer states into the updater's index-keyed
+        dict, so save_optimizer_states writes them."""
+        if self._fused_state is None:
+            return
+        updater = self._resolve_updater()
+        if updater is None:
+            return
+
+        def to_nd(x):
+            if x is None:
+                return None
+            if isinstance(x, tuple):
+                return tuple(to_nd(i) for i in x)
+            return NDArray(x.detach().clone())
+
+        idx_of = {n: i for i, n in enumerate(self._exec_group.param_names)}
+        for n, st in self._fused_state["opt"].items():
+            if n in idx_of:
+                updater.states[idx_of[n]] = to_nd(st)
+
+    # -- computation ----------------------------------------------------
+    def forward(self, data_batch, is_train=None):
+        assert self.binded and self.params_initialized
+        self._sync_fused_to_executor()
+        self._fused_outputs = None
+        self._exec_group.forward(data_batch, is_train)
+
+    def backward(self, out_grads=None):
+        assert self.binded and self.params_initialized
+        self._exec_group.backward(out_grads=out_grads)
+
+    def update(self):
+        """Apply the gradients through the per-index updater (or the
+        kvstore)."""
+        assert self.binded and self.params_initialized \
+            and self.optimizer_initialized
+        self._params_dirty = True
+        # the executor's weights change here: a live fused state is stale
+        self._fused_params_stale = True
+        param_names = self._exec_group.param_names
+        exec_ = self._exec_group.executor
+        param_arrays = [exec_.arg_dict[n] for n in param_names]
+        grad_arrays = [exec_.grad_dict.get(n) for n in param_names]
+        if self._update_on_kvstore:
+            _update_params_on_kvstore(param_arrays, grad_arrays,
+                                      self._kvstore)
+        else:
+            _update_params(param_arrays, grad_arrays, updater=self._updater,
+                           num_device=len(self._context),
+                           kvstore=self._kvstore)
+
+    def get_outputs(self, merge_multi_context=True):
+        assert self.binded and self.params_initialized
+        if self._fused_outputs is not None:
+            return list(self._fused_outputs)
+        return self._exec_group.get_outputs(merge_multi_context)
+
+    def get_input_grads(self, merge_multi_context=True):
+        assert self.binded and self.params_initialized \
+            and self.inputs_need_grad
+        return self._exec_group.get_input_grads(merge_multi_context)
+
+    def update_metric(self, eval_metric, labels):
+        if self._fused_outputs is not None:
+            eval_metric.update(labels, self._fused_outputs)
+        else:
+            self._exec_group.update_metric(eval_metric, labels)
+
+    def install_monitor(self, mon):
+        raise MXNetError("Module.install_monitor (the per-op output monitor) "
+                         "is not ported yet")

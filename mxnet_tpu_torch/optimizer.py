@@ -1,19 +1,30 @@
 """Optimizers (ref: python/mxnet/optimizer.py).
 
-Counterpart of ``mxnet_tpu/optimizer.py``, the fused path that
-``TrainStep`` drives: the registry and :func:`create`, the
-:class:`Optimizer` base (``rescale_grad``, ``clip_gradient``,
-``lr_mult``/``wd_mult`` resolved from symbol attrs, ``num_update``, an
-``lr_scheduler``), and :class:`SGD`. ``fused_update`` updates the weight
-and its state in place under ``torch.no_grad()``, where the JAX package
-returns new arrays; the arithmetic is the same. The imperative ``Updater``
-path and the other optimizers come in a later slice.
+Counterpart of ``mxnet_tpu/optimizer.py``: the registry and
+:func:`create`, the :class:`Optimizer` base (``rescale_grad``,
+``clip_gradient``, ``lr_mult``/``wd_mult`` resolved from symbol attrs,
+``num_update`` and the per-index update counts, an ``lr_scheduler``),
+:class:`SGD`, and the per-index :class:`Updater` that ``Module.update``
+and the kvstore drive.
+
+Two update paths, with the same arithmetic: ``fused_update`` (``TrainStep``)
+updates the weight and its state tensors in place under
+``torch.no_grad()``, where the JAX package returns new arrays; ``update``
+(the ``Updater``) takes NDArrays and runs the ``sgd_mom_update`` op, as the
+JAX package's does. ``Updater.get_states`` pickles ``{index: numpy array or
+tuple}`` exactly as the JAX package writes it, so a ``.states`` file opens
+in either package. The other optimizers come in a later slice.
 """
 from __future__ import annotations
 
+import pickle
+
+import numpy as np
 import torch
 
 from .base import MXNetError
+from . import ndarray as nd
+from .ndarray import NDArray
 
 _OPT_REGISTRY = {}
 
@@ -41,6 +52,7 @@ class Optimizer(object):
         self.wd = wd
         self.begin_num_update = begin_num_update
         self.num_update = begin_num_update
+        self._index_update_count = {}
         self.clip_gradient = clip_gradient
         self.idx2name = dict(param_idx2name or {})
         self.sym = sym
@@ -55,6 +67,11 @@ class Optimizer(object):
 
     def create_state(self, index, weight):
         return None
+
+    def update(self, index, weight, grad, state):
+        """Update the NDArray ``weight`` (and ``state``) from ``grad``, the
+        per-index path of :class:`Updater`."""
+        raise NotImplementedError()
 
     def create_fused_state(self, weight):
         """The state the fused update carries for ``weight`` (a tensor,
@@ -94,6 +111,34 @@ class Optimizer(object):
         self.wd_mult.update(args_wd_mult)
 
 
+    # -- per-index clock and hyper-parameters (ref: optimizer.py) --------
+    def _update_count(self, index):
+        if index not in self._index_update_count:
+            self._index_update_count[index] = self.begin_num_update
+        self._index_update_count[index] += 1
+        self.num_update = max(self._index_update_count[index],
+                              self.num_update)
+
+    def _get_lr(self, index):
+        if self.lr_scheduler is not None:
+            lr = self.lr_scheduler(self.num_update)
+        else:
+            lr = self.lr
+        if index in self.lr_mult:
+            lr *= self.lr_mult[index]
+        elif index in self.idx2name:
+            lr *= self.lr_mult.get(self.idx2name[index], 1.0)
+        return lr
+
+    def _get_wd(self, index):
+        wd = self.wd
+        if index in self.wd_mult:
+            wd *= self.wd_mult[index]
+        elif index in self.idx2name:
+            wd *= self.wd_mult.get(self.idx2name[index], 1.0)
+        return wd
+
+
 def create(name, **kwargs):
     """Create a registered optimizer by name (ref: mx.optimizer.create)."""
     return Optimizer.create_optimizer(name, **kwargs)
@@ -113,7 +158,21 @@ class SGD(Optimizer):
     def create_state(self, index, weight):
         if self.momentum == 0.0:
             return None
+        if isinstance(weight, NDArray):
+            return NDArray(torch.zeros_like(weight.data))
         return torch.zeros_like(weight)
+
+    def update(self, index, weight, grad, state):
+        self._update_count(index)
+        attrs = {"lr": self._get_lr(index), "wd": self._get_wd(index),
+                 "rescale_grad": self.rescale_grad}
+        if self.clip_gradient is not None:
+            attrs["clip_gradient"] = self.clip_gradient
+        if state is not None:
+            nd.sgd_mom_update(weight, grad, state, out=[weight, state],
+                              momentum=self.momentum, **attrs)
+        else:
+            nd.sgd_update(weight, grad, out=weight, **attrs)
 
     @torch.no_grad()
     def fused_update(self, name, weight, grad, state, lr, wd, t):
@@ -124,3 +183,62 @@ class SGD(Optimizer):
         state.mul_(self.momentum).sub_(lr * (g + wd * weight))
         weight.add_(state)
         return weight, state
+
+
+def _on_device(state, device):
+    """``state`` (an NDArray, a tuple of them or None) on ``device``."""
+    if isinstance(state, tuple):
+        return tuple(_on_device(s, device) for s in state)
+    if isinstance(state, NDArray) and state.data.device != device:
+        return NDArray(state.data.to(device))
+    return state
+
+
+class Updater(object):
+    """Stateful per-index weight updater (ref: optimizer.py Updater): the
+    object ``Module.update`` calls and the kvstore's ``set_optimizer``
+    builds."""
+
+    def __init__(self, optimizer):
+        self.optimizer = optimizer
+        self.states = {}
+
+    def __call__(self, index, grad, weight):
+        if index not in self.states:
+            self.states[index] = self.optimizer.create_state(index, weight)
+        else:
+            # loaded states land on the host: move them once, to the weight
+            self.states[index] = _on_device(self.states[index],
+                                            weight.data.device)
+        self.optimizer.update(index, weight, grad, self.states[index])
+
+    def set_states(self, states):
+        """Load pickled ``{index: numpy array or tuple}`` states (either
+        package's ``get_states``); arrays land on the host and move to the
+        weight's device at the next update."""
+        def dev(x):
+            if isinstance(x, np.ndarray):
+                return NDArray(torch.from_numpy(np.array(x)))
+            if isinstance(x, tuple):
+                return tuple(dev(i) for i in x)
+            return x
+        self.states = {k: dev(v) for k, v in pickle.loads(states).items()}
+
+    @staticmethod
+    def serialize_states(states):
+        """Pickle an ``{index: state}`` dict with the arrays as host numpy
+        arrays: the bytes the JAX package writes for the same states."""
+        def host(x):
+            if isinstance(x, NDArray):
+                return x.asnumpy()
+            if isinstance(x, tuple):
+                return tuple(host(i) for i in x)
+            return x
+        return pickle.dumps({k: host(v) for k, v in states.items()})
+
+    def get_states(self):
+        return self.serialize_states(self.states)
+
+
+def get_updater(optimizer):
+    return Updater(optimizer)

@@ -79,6 +79,13 @@ def set_state(state):
             gen.set_state(st)
 
 
+def np_rng():
+    """A numpy Generator seeded from the CPU generator (host-side draws:
+    ``io.NDArrayIter``'s shuffle)."""
+    import numpy as np
+    return np.random.default_rng(randint63())
+
+
 def randint63():
     """One integer in [0, 2**62) from the CPU generator: the key of a run's
     per-node streams (``executor.node_generator``)."""

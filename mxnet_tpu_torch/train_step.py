@@ -14,7 +14,9 @@ the card:
   JAX package's (``params``, ``aux``, ``opt``, ``step``);
 - ``run_steps`` runs K steps in a Python loop, keeps the metric sums on the
   device and reads them back once per dispatch through
-  :class:`StepMetrics`.
+  :class:`StepMetrics`: the legacy ``[loss, top-1, samples]`` layout, or a
+  metric's declared slots with ``metric_spec=`` (a
+  :class:`~mxnet_tpu_torch.metric.DeviceSumSpec`).
 
 One divergence from the JAX package: it casts every floating batch input
 to ``compute_dtype``, labels included, so bf16 rounds class 257 to 256 and
@@ -22,8 +24,8 @@ to ``compute_dtype``, labels included, so bf16 rounds class 257 to 256 and
 inputs that are not in ``label_names``.
 
 Not ported yet, and raising when asked for: ``mesh``,
-``param_shardings``, ``group2ctx``, ``remat``, ``guard=True``,
-``metric_spec`` and ``MXTPU_BF16_STATS``.
+``param_shardings``, ``group2ctx``, ``remat``, ``guard=True`` and
+``MXTPU_BF16_STATS``.
 """
 from __future__ import annotations
 
@@ -43,15 +45,20 @@ from . import random as _random
 
 
 class StepMetrics(object):
-    """Device-resident metric sums of one ``run_steps`` dispatch, in the
-    legacy layout ``[loss_sum, top1_correct, num_samples]``. The first
-    property access (or :meth:`fetch`) is the dispatch's one host
-    readback."""
+    """Device-resident metric sums of one ``run_steps`` dispatch. The first
+    property access (or :meth:`fetch`) is the dispatch's one host readback.
 
-    __slots__ = ("device", "_host")
+    Without a ``spec`` the layout is the legacy ``[loss_sum, top1_correct,
+    num_samples]``; with a :class:`~mxnet_tpu_torch.metric.DeviceSumSpec`
+    it is the spec's slots, read by name through :meth:`values`, and
+    ``loss_sum``/``num_samples`` read the spec's ``loss_slots`` pair (NaN
+    and 0 when it declares none)."""
 
-    def __init__(self, device_tensor):
+    __slots__ = ("device", "spec", "_host")
+
+    def __init__(self, device_tensor, spec=None):
         self.device = device_tensor
+        self.spec = spec
         self._host = None
 
     def _vals(self):
@@ -69,21 +76,37 @@ class StepMetrics(object):
         return self._host is not None
 
     def values(self):
+        """Slot name -> float of the dispatch's sums."""
         v = self._vals()
-        return {"loss_sum": float(v[0]), "top1_correct": float(v[1]),
-                "num_samples": float(v[2])}
+        if self.spec is None:
+            return {"loss_sum": float(v[0]), "top1_correct": float(v[1]),
+                    "num_samples": float(v[2])}
+        return {s: float(v[i]) for i, s in enumerate(self.spec.slots)}
+
+    def _loss_pair(self):
+        v = self._vals()
+        if self.spec is None:
+            return float(v[0]), float(v[2])
+        if self.spec.loss_slots is None:
+            return float("nan"), 0.0
+        idx = {s: i for i, s in enumerate(self.spec.slots)}
+        ls, ns = self.spec.loss_slots
+        return float(v[idx[ls]]), float(v[idx[ns]])
 
     @property
     def loss_sum(self):
-        return float(self._vals()[0])
+        return self._loss_pair()[0]
 
     @property
     def top1_correct(self):
+        """Top-1 correct count (legacy layout only; NaN under a spec)."""
+        if self.spec is not None:
+            return float("nan")
         return float(self._vals()[1])
 
     @property
     def num_samples(self):
-        return int(round(float(self._vals()[2])))
+        return int(round(self._loss_pair()[1]))
 
     @property
     def accuracy(self):
@@ -96,6 +119,8 @@ class StepMetrics(object):
         return self.loss_sum / n if n else float("nan")
 
     def __repr__(self):
+        if self.spec is not None:
+            return "StepMetrics(%s: %r)" % (self.spec.tag, self.values())
         return ("StepMetrics(loss_sum=%.6g, top1_correct=%g, num_samples=%d)"
                 % (self.loss_sum, self.top1_correct, self.num_samples))
 
@@ -303,14 +328,13 @@ class TrainStep(object):
                   metric_spec=None):
         """K training steps over a stacked ``(k, batch, ...)`` superbatch.
         Returns ``(state, metrics)``: the state updated in place and a
-        :class:`StepMetrics` of the K steps' loss, top-1 and sample sums,
-        held on the device until read."""
+        :class:`StepMetrics` of the K steps' sums, held on the device until
+        read: the loss, top-1 and sample sums, or with ``metric_spec`` (a
+        :class:`~mxnet_tpu_torch.metric.DeviceSumSpec`) the spec's slots,
+        each step's ``step_sums(outputs, labels)`` added up."""
         if guard:
             raise MXNetError("TrainStep.run_steps: guard=True is not ported "
                              "yet")
-        if metric_spec is not None:
-            raise MXNetError("TrainStep.run_steps: metric_spec (packed "
-                             "metric accumulators) is not ported yet")
         superbatch = self._to_device(superbatch)
         vals = list(superbatch.values())
         if not vals:
@@ -326,12 +350,22 @@ class TrainStep(object):
                              % {n: tuple(v.shape)
                                 for n, v in superbatch.items()})
         bs = vals[0].shape[1]
+        if metric_spec is None:
+            nslots = 3
+
+            def slot_sums(outs, labels):
+                return _default_slot_sums(outs, labels, bs)
+        else:
+            nslots = len(metric_spec.slots)
+            slot_sums = metric_spec.step_sums
         lrs = [self._next_lr() for _ in range(k)]
-        acc = torch.zeros(3, dtype=torch.float32, device=self.device)
+        acc = torch.zeros(nslots, dtype=torch.float32, device=self.device)
         for i in range(k):
             batch = {n: v[i] for n, v in superbatch.items()}
             outs = self._step(state, batch, lrs[i], bs)
             with torch.no_grad():
-                acc += torch.stack(_default_slot_sums(
-                    outs, [batch.get(n) for n in self.label_names], bs))
-        return state, StepMetrics(acc)
+                # the sums are tensors on the device (a spec fills its
+                # constants there): nothing here waits for the card
+                acc += torch.stack([v.float().reshape(()) for v in slot_sums(
+                    outs, [batch.get(n) for n in self.label_names])])
+        return state, StepMetrics(acc, metric_spec)
