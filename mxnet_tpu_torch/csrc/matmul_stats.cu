@@ -23,7 +23,12 @@
 // The TPU kernel's point was to keep the statistics pass from re-reading y
 // from device memory; here too they come out of the tile on chip.
 //
-// Three kernels, chosen per call by the wrapper (ops/matmul_stats.py
+// In float32 the same 33 launches are bound by 3xTF32 operations on the
+// tensor cores (below) at 495 TFLOP/s where K and N reach 256 or more, by
+// bytes (x and y in f32) elsewhere: 3.319 ms a step; the FP32 SIMT peak
+// (67 TFLOP/s) would bound them at 6.93 ms.
+//
+// Four kernels, chosen per call by the wrapper (ops/matmul_stats.py
 // kernel_route, a pure function of M, K, N, dtype and alignment):
 //
 // "wgmma" (bf16, K % 8 == 0, N % 8 == 0, x and w 16-byte aligned; all 33
@@ -99,6 +104,52 @@
 //     rewrites the staging tile, so the store drains under the next
 //     tile's main loop.
 //
+// "tf32x3" (float32, K % 4 == 0, N % 4 == 0, x and w 16-byte aligned; all
+// 33 ResNet-50 pairs): mm_stats_tf32x3_kernel, the wgmma kernel's
+// schedule (producer warp, mbarrier ring, two consumer warpgroups,
+// setmaxnreg 40 / 232, persistent grid, N-tiles of an M-tile adjacent)
+// and its statistics from registers, on the tensor cores in TF32.
+//   3xTF32: each operand a = big + small, big = cvt.rna.tf32(a), small =
+//     cvt.rna.tf32(a - big) (a - big is exact in f32); per K-step of 8,
+//     three wgmma.mma_async m64nBNk8 .tf32 into one f32 accumulator,
+//     x_small w_big + x_big w_small + x_big w_big. Each product is off by
+//     some 3 * 2^-22 of |x||w| (the dropped x_small w_small and the
+//     rounding of the small terms), against 2^-11 for one TF32 pass: the
+//     result agrees with a full FP32 product within 1e-5 of sum |x||w|,
+//     but is not its bitwise FP32 FMA result. torch's allow_tf32 does not
+//     switch it. Only rounded values reach the tensor cores.
+//   w (at most N K = 1M floats a step shape) is split by a pre-pass,
+//     split_tf32_kernel, into a (2, N, K) scratch; TMA loads the w_big and
+//     w_small tiles. x is read once, as TMA loads it: a K box is 32 floats,
+//     one 128-byte swizzled row. The consumers split it in registers and
+//     feed A from registers (tf32 takes no transpose; x and w are both
+//     K-major), reading the fragment from the swizzled stage by hand:
+//     ldmatrix is b16 only. Those reads are free of bank conflicts (the 8
+//     rows of a lane group are 8 swizzle chunks apart).
+//   A loop writes a stage's A fragment into the same registers on every
+//     K-step, so a warpgroup waits for its stage's wgmma group before the
+//     next (an in-flight wgmma reads its A registers until it completes;
+//     with one group left in flight, results came out wrong on the card);
+//     the other warpgroup's group keeps the tensor cores busy.
+//   What bounds it: not the tensor cores. Built with one TF32 product
+//     instead of three it is only a fifth faster (4.02 against 5.01 ms a
+//     step; python -m mxnet_tpu_torch.tools.b1_variants, NVIDIA H100 80GB
+//     HBM3 at 700 W), so the main loop waits on the stages, 48 KB of x,
+//     w_big and w_small from L2 for every 32-wide K step of a 128x128 tile
+//     (4x bf16's bytes per product). Tried there and left out: reading the
+//     next stage's A into a second register bank while the group runs
+//     (5.04), unfolded running sums (5.02), 64-wide N-tiles everywhere with
+//     5 stages (5.83).
+//   y leaves in f32: st.shared.v2 pairs into a 128-byte-swizzled staging
+//     tile (stmatrix is b16 only), one TMA store per 64x32 sub-tile, clipped
+//     at the edges. BN = 256 does not fit with a full f32 staging tile, so
+//     BN is 64 up to 64 columns, else 128 (ops/matmul_stats.py
+//     tf32x3_tile_n). Configurations (shared memory including 1 KB of
+//     alignment slack; registers, from ptxas: 168 at launch, no spills):
+//       tf32x3 BN  64: 5 f32 stages, 201936 bytes of shared memory, 32 accumulators
+//       tf32x3 BN 128: 3 f32 stages, 222512 bytes of shared memory, 64 accumulators
+//     At BN = 128 the running sums are folded once per tile (32 registers
+//     beside the 64 accumulators).
 // "wmma" (bf16 shapes the TMA route cannot take: K or N not a multiple of
 // 8, unaligned pointers): a tile kernel on mma.sync.
 //   128x128 output tile per block of 8 warps, each warp 64x32 as 4x2
@@ -109,8 +160,9 @@
 //   and the pointers are 16-byte aligned, else element by element; ragged
 //   edges are zero-filled, so any M, N, K works. y leaves in 16-byte stores
 //   when N % 8 == 0.
-// "f32": 64x64 tile, 256 threads with 4x4 outputs each, FP32 FMA (no TF32:
-//   the result must match a full-precision f32 product).
+// "f32" (float32 shapes the tf32x3 route cannot take: K or N not a
+//   multiple of 4, unaligned pointers): 64x64 tile, 256 threads with 4x4
+//   outputs each, FP32 FMA.
 //   Epilogue (wmma and f32): the f32 accumulator tile goes to shared
 //   memory; y is written from there, and each column's sum and sum of
 //   squares over the tile's rows are reduced in a fixed order into a
@@ -127,6 +179,8 @@
 #include <cuda_bf16.h>
 #include <mma.h>
 #include <stdint.h>
+
+#include <algorithm>
 
 namespace {
 
@@ -737,6 +791,98 @@ __device__ __forceinline__ void fold(float (&d)[R], int mask, bool up) {
   }
 }
 
+// The block's column sums of a BN-wide N-tile, taken from the wgmma
+// accumulators of the two consumer warpgroups (consumer thread ct, 0..255).
+// Each thread keeps its rows' sums in run (after F folds, for registers)
+// over the tiles of one N-tile, and flushes them (the remaining folds, the
+// 8 warps' combination in warp order, an add to the block's row of part)
+// when the N-tile changes and at the end. Column sum e = stat * BN + c goes
+// to part by the thread with e % 256 == ct, which zeroes its entries
+// first. red: 8 warps x 2 rows of kPitch floats in shared memory.
+template <int BN, int F> struct ColumnSums {
+  static constexpr int Q = BN / 2;                // accumulators a thread holds
+  static constexpr int E = (2 * BN + 255) / 256;  // column sums a thread owns
+  static constexpr int R = Q >> F;                // running sums a thread holds
+  static constexpr int kPitch = BN + BN / 32;     // one float skew a 32
+  float run[R];
+  float* red;
+  float* prow;
+  int N, ct, warp, lane, held_nt;
+
+  __device__ __forceinline__ ColumnSums(float* red_, float* prow_, int n,
+                                        int tiles_n, int ct_)
+      : red(red_), prow(prow_), N(n), ct(ct_), warp(ct_ / 32),
+        lane(ct_ % 32), held_nt(-1) {
+#pragma unroll
+    for (int k = 0; k < E; ++k) {
+      const int e = ct + 256 * k;
+      if (e >= 2 * BN) continue;
+      for (int nt = 0; nt < tiles_n; ++nt) {
+        const int c = nt * BN + e % BN;
+        if (c < N) prow[(e / BN) * N + c] = 0.0f;
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < R; ++i) run[i] = 0.0f;
+  }
+
+  __device__ __forceinline__ void flush(int nt) {
+    if constexpr (F < 1) fold<Q / 2>(run, 16, lane & 16);
+    if constexpr (F < 2) fold<Q / 4>(run, 8, lane & 8);
+    if constexpr (F < 3) fold<Q / 8>(run, 4, lane & 4);
+    // run[i] now holds register (lane / 4) * Q / 8 + i's sum
+#pragma unroll
+    for (int i = 0; i < Q / 8; ++i) {
+      const int p = (lane / 4) * (Q / 8) + i;
+      const int c = 8 * (p / 4) + 2 * (lane % 4) + (p & 1);
+      red[(warp * 2 + ((p >> 1) & 1)) * kPitch + c + c / 32] = run[i];
+    }
+#pragma unroll
+    for (int i = 0; i < R; ++i) run[i] = 0.0f;
+    named_sync(3, 256);
+#pragma unroll
+    for (int k = 0; k < E; ++k) {
+      const int e = ct + 256 * k;
+      if (e < 2 * BN) {
+        const int stat = e / BN, c = e % BN, n = nt * BN + c;
+        float v = 0.0f;
+#pragma unroll
+        for (int w8 = 0; w8 < 8; ++w8)
+          v += red[(w8 * 2 + stat) * kPitch + c + c / 32];
+        if (n < N) prow[stat * N + n] += v;
+      }
+    }
+    named_sync(3, 256);   // red is rewritten by the next flush
+  }
+
+  // a tile of N-tile nt: the thread's two rows, in place (d[4j + e] <- s1,
+  // d[4j + 2 + e] <- s2), folded F times, added to run
+  __device__ __forceinline__ void add(float (&d)[Q], int nt) {
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const float a = d[4 * j + e], b = d[4 * j + 2 + e];
+        d[4 * j + e] = a + b;
+        d[4 * j + 2 + e] = fmaf(a, a, b * b);
+      }
+    }
+    if constexpr (F >= 1) fold<Q / 2>(d, 16, lane & 16);
+    if constexpr (F >= 2) fold<Q / 4>(d, 8, lane & 8);
+    if constexpr (F >= 3) fold<Q / 8>(d, 4, lane & 4);
+    if (nt != held_nt) {
+      if (held_nt >= 0) flush(held_nt);
+      held_nt = nt;
+    }
+#pragma unroll
+    for (int i = 0; i < R; ++i) run[i] += d[i];
+  }
+
+  __device__ __forceinline__ void finish() {
+    if (held_nt >= 0) flush(held_nt);
+  }
+};
+
 // Persistent: block b takes tiles b, b + grid, ...; tile t is M-tile
 // t / tiles_n, N-tile t % tiles_n. part (grid, 2, N) receives the block's
 // column sums. Warpgroup 0 produces (one thread issues the TMA loads),
@@ -755,10 +901,7 @@ mm_stats_wgmma_kernel(const __grid_constant__ CUtensorMap tmx,
                       int tiles_n, int tiles) {
   using L = WgSmem<BN>;
   constexpr int S = L::kStages;
-  constexpr int Q = BN / 2;                   // accumulators a thread holds
-  constexpr int E = (2 * BN + 255) / 256;     // column sums a thread owns
-  constexpr int F = BN > 128 ? 2 : 0;         // folds before run, per tile
-  constexpr int R = Q >> F;                   // running sums a thread holds
+  using Sums = ColumnSums<BN, (BN > 128 ? 2 : 0)>;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem =
       smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
@@ -809,58 +952,10 @@ mm_stats_wgmma_kernel(const __grid_constant__ CUtensorMap tmx,
   // 8-15 of the warp's 16, of column block j or j + 1)
   const int srow = (warp % 4) * 16 + ((lane / 8) & 1) * 8 + lane % 8;
   const int scol = lane / 16;
-  float* red = reinterpret_cast<float*>(smem + L::kRed);
-  float* prow = part + (size_t)blockIdx.x * 2 * N;
+  Sums sums(reinterpret_cast<float*>(smem + L::kRed),
+            part + (size_t)blockIdx.x * 2 * N, N, tiles_n, ct);
 
-  // The block's column sums: each thread keeps its rows' sums in run
-  // (after the first fold at BN = 256, for registers) over the tiles of
-  // one N-tile, and flushes them (the remaining folds, the 8 warps'
-  // combination, an add to the block's row of part) when the N-tile
-  // changes and at the end. Column sum e = stat * BN + c goes to part by
-  // the thread with e % 256 == ct, which zeroes its entries here.
-#pragma unroll
-  for (int k = 0; k < E; ++k) {
-    const int e = ct + 256 * k;
-    if (e >= 2 * BN) continue;
-    for (int nt = 0; nt < tiles_n; ++nt) {
-      const int n = nt * BN + e % BN;
-      if (n < N) prow[(e / BN) * N + n] = 0.0f;
-    }
-  }
-  float run[R];
-#pragma unroll
-  for (int i = 0; i < R; ++i) run[i] = 0.0f;
-  int held_nt = -1;
-  auto flush = [&](int nt) {
-    if constexpr (F < 1) fold<Q / 2>(run, 16, lane & 16);
-    if constexpr (F < 2) fold<Q / 4>(run, 8, lane & 8);
-    if constexpr (F < 3) fold<Q / 8>(run, 4, lane & 4);
-    // run[i] now holds register (lane / 4) * Q / 8 + i's sum
-#pragma unroll
-    for (int i = 0; i < Q / 8; ++i) {
-      const int p = (lane / 4) * (Q / 8) + i;
-      const int c = 8 * (p / 4) + 2 * (lane % 4) + (p & 1);
-      red[(warp * 2 + ((p >> 1) & 1)) * L::kRedPitch + c + c / 32] = run[i];
-    }
-#pragma unroll
-    for (int i = 0; i < R; ++i) run[i] = 0.0f;
-    named_sync(3, 256);
-#pragma unroll
-    for (int k = 0; k < E; ++k) {
-      const int e = ct + 256 * k;
-      if (e < 2 * BN) {
-        const int stat = e / BN, c = e % BN, n = nt * BN + c;
-        float v = 0.0f;
-#pragma unroll
-        for (int w8 = 0; w8 < 8; ++w8)
-          v += red[(w8 * 2 + stat) * L::kRedPitch + c + c / 32];
-        if (n < N) prow[stat * N + n] += v;
-      }
-    }
-    named_sync(3, 256);   // red is rewritten by the next flush
-  };
-
-  float d[Q];
+  float d[Sums::Q];
   int it = 0;
   for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
     const int nt = tile % tiles_n;
@@ -914,31 +1009,295 @@ mm_stats_wgmma_kernel(const __grid_constant__ CUtensorMap tmx,
       }
       bulk_commit();
     }
+    sums.add(d, nt);
+  }
+  sums.finish();
+  if (leader) bulk_wait();   // the staging tile outlives its last store
+}
 
-    // statistics: the thread's two rows, in place (d[4j + e] <- s1,
-    // d[4j + 2 + e] <- s2), folded once over lane bit 4 at BN = 256, and
-    // added to run
-#pragma unroll
-    for (int j = 0; j < BN / 8; ++j) {
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const float a = d[4 * j + e], b = d[4 * j + 2 + e];
-        d[4 * j + e] = a + b;
-        d[4 * j + 2 + e] = fmaf(a, a, b * b);
+// ---------------------------------------------------------------------------
+// float32 on Hopper: 3xTF32 on wgmma, on the wgmma route's schedule
+// ---------------------------------------------------------------------------
+
+constexpr int kTfBK = 32;                      // 32 f32 = one 128-byte row
+constexpr int kTfXBytes = kWgBM * kTfBK * 4;   // the x tile of a stage
+
+template <int BN> struct Tf32Cfg;
+template <> struct Tf32Cfg<64> { static constexpr int kStages = 5; };
+template <> struct Tf32Cfg<128> { static constexpr int kStages = 3; };
+
+// Shared memory of one tf32x3 block, from a 1024-byte aligned base: the
+// ring's stages (x tile 128x32, then w_big and w_small tiles BNx32, f32),
+// the f32 y staging tile (per warpgroup BN / 32 swizzled 64x32 sub-tiles
+// of 8 KB), the 8 warps' column sums, the mbarriers.
+template <int BN> struct TfSmem {
+  static constexpr int kStages = Tf32Cfg<BN>::kStages;
+  static constexpr int kWBytes = BN * kTfBK * 4;
+  static constexpr int kStageBytes = kTfXBytes + 2 * kWBytes;
+  static constexpr int kStaging = kStages * kStageBytes;
+  static constexpr int kRed = kStaging + kWgBM * BN * 4;
+  static constexpr int kBar = kRed + 8 * 2 * (BN + BN / 32) * 4;
+  static constexpr int kBytes = kBar + 2 * kStages * 8 + 1024;
+  static_assert(kBytes <= kSmemMax, "shared memory over the H100's 227 KB");
+};
+
+// a rounded to TF32 (10 mantissa bits, the low 13 bits zero), nearest,
+// ties away from zero
+__device__ __forceinline__ uint32_t to_tf32(float a) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(a));
+  return r;
+}
+
+// a = big + small + O(2^-22 |a|): big = tf32(a); a - big is exact in f32
+__device__ __forceinline__ void split_tf32(float a, uint32_t& big,
+                                           uint32_t& small) {
+  big = to_tf32(a);
+  small = to_tf32(a - __uint_as_float(big));
+}
+
+template <int BN> struct WgmmaTf32;
+
+template <> struct WgmmaTf32<64> {
+  // d += A (64x8 tf32, registers) * B (8x64 tf32, smem), f32 accumulate
+  __device__ static __forceinline__ void mma(float (&d)[32],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31"
+        "}, {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+        :
+          "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
+          "r"(scale_d));
+  }
+};
+
+template <> struct WgmmaTf32<128> {
+  // d += A (64x8 tf32, registers) * B (8x128 tf32, smem), f32 accumulate
+  __device__ static __forceinline__ void mma(float (&d)[64],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, "
+        "%40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, "
+        "%56, %57, %58, %59, %60, %61, %62, %63"
+        "}, {%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
+        :
+          "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+          "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+          "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+          "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
+          "r"(scale_d));
+  }
+};
+
+// w (N, K) f32 -> its two TF32 terms, w_big then w_small (each N x K):
+// n4 float4s of w, grid-stride
+__global__ void split_tf32_kernel(const float4* __restrict__ w,
+                                  float4* __restrict__ big,
+                                  float4* __restrict__ small, int n4) {
+  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < n4;
+       i += gridDim.x * blockDim.x) {
+    const float4 v = w[i];
+    uint32_t b[4], s[4];
+    split_tf32(v.x, b[0], s[0]);
+    split_tf32(v.y, b[1], s[1]);
+    split_tf32(v.z, b[2], s[2]);
+    split_tf32(v.w, b[3], s[3]);
+    big[i] = make_float4(__uint_as_float(b[0]), __uint_as_float(b[1]),
+                         __uint_as_float(b[2]), __uint_as_float(b[3]));
+    small[i] = make_float4(__uint_as_float(s[0]), __uint_as_float(s[1]),
+                           __uint_as_float(s[2]), __uint_as_float(s[3]));
+  }
+}
+
+__device__ __forceinline__ float lds_f32(uint32_t addr) {
+  float v;
+  asm volatile("ld.shared.f32 %0, [%1];\n" : "=f"(v) : "r"(addr));
+  return v;
+}
+
+__device__ __forceinline__ void sts_v2(uint32_t addr, float a, float b) {
+  asm volatile("st.shared.v2.f32 [%0], {%1, %2};\n" ::"r"(addr), "f"(a),
+               "f"(b)
+               : "memory");
+}
+
+// The wgmma kernel's schedule and statistics on float32 x (M, K) and the
+// split weight: per K-step of 8, d += x_small w_big + x_big w_small +
+// x_big w_big, three wgmma.mma_async m64nBNk8 .tf32 into one f32
+// accumulator. x is split in registers: A comes from registers, in the
+// fragment layout of a 64x8 tf32 tile (lane l of warp w holds a0 at row
+// 16w + l/4, column l % 4; a1 eight rows below; a2, a3 four columns to the
+// right of a0, a1), read from the 128-byte-swizzled stage by hand (16-byte
+// chunk c of row r lies at chunk c ^ (r % 8): ldmatrix is b16 only). B,
+// w_big and w_small, comes from shared memory by descriptor, K-major.
+template <int BN>
+__global__ void __launch_bounds__(kWgThreads, 1)
+mm_stats_tf32x3_kernel(const __grid_constant__ CUtensorMap tmx,
+                       const __grid_constant__ CUtensorMap tmwb,
+                       const __grid_constant__ CUtensorMap tmws,
+                       const __grid_constant__ CUtensorMap tmy,
+                       float* __restrict__ part, int M, int N, int K,
+                       int tiles_n, int tiles) {
+  using L = TfSmem<BN>;
+  constexpr int S = L::kStages;
+  using Sums = ColumnSums<BN, (BN > 64 ? 1 : 0)>;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem =
+      smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  const uint32_t base = smem_u32(smem);
+  const uint32_t full0 = base + L::kBar, empty0 = full0 + 8 * S;
+  const int ktiles = (K + kTfBK - 1) / kTfBK;
+  const int wg = threadIdx.x / 128;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < S; ++s) {
+      mbar_init(full0 + 8 * s, 1);
+      mbar_init(empty0 + 8 * s, 2);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == 0) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (threadIdx.x == 0) {
+      int it = 0;
+      for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+        const int m0 = (tile / tiles_n) * kWgBM, n0 = (tile % tiles_n) * BN;
+        for (int kt = 0; kt < ktiles; ++kt, ++it) {
+          const int s = it % S;
+          mbar_wait(empty0 + 8 * s, ((it / S) & 1) ^ 1);
+          const uint32_t full = full0 + 8 * s;
+          const uint32_t xs = base + s * L::kStageBytes;
+          mbar_expect_tx(full, L::kStageBytes);
+          tma_load(xs, &tmx, full, kt * kTfBK, m0);
+          tma_load(xs + kTfXBytes, &tmwb, full, kt * kTfBK, n0);
+          tma_load(xs + kTfXBytes + L::kWBytes, &tmws, full, kt * kTfBK, n0);
+        }
       }
     }
-    if constexpr (F >= 1) fold<Q / 2>(d, 16, lane & 16);
-    if constexpr (F >= 2) fold<Q / 4>(d, 8, lane & 8);
-    if constexpr (F >= 3) fold<Q / 8>(d, 4, lane & 4);
-    if (nt != held_nt) {
-      if (held_nt >= 0) flush(held_nt);
-      held_nt = nt;
-    }
-#pragma unroll
-    for (int i = 0; i < R; ++i) run[i] += d[i];
+    return;
   }
-  if (held_nt >= 0) flush(held_nt);
-  if (leader) bulk_wait();   // the staging tile outlives its last store
+
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+  const int g = wg - 1;
+  const int ct = threadIdx.x - 128;
+  const int warp = ct / 32;
+  const int lane = threadIdx.x % 32;
+  const bool leader = (ct % 128) == 0;
+  const uint32_t staging = base + L::kStaging + g * (64 * BN * 4);
+  // the thread's rows of the warpgroup's 64: srow and srow + 8 (srow % 8
+  // is lane / 4, the swizzle of both); of the stage's x tile, 64g more
+  const int srow = (warp % 4) * 16 + lane / 4;
+  const uint32_t arow = (64 * g + srow) * 128 + 4 * (lane % 4);
+  const int sw = lane / 4;
+  Sums sums(reinterpret_cast<float*>(smem + L::kRed),
+            part + (size_t)blockIdx.x * 2 * N, N, tiles_n, ct);
+
+  float d[Sums::Q];
+  int it = 0;
+  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    const int nt = tile % tiles_n;
+    const int m0 = (tile / tiles_n) * kWgBM, n0 = nt * BN;
+    // main loop: a stage's group completes before the next stage's A is
+    // written (a loop writes the same registers on every K-step, and a
+    // wgmma reads its A registers until it completes); the other
+    // warpgroup's group keeps the tensor cores busy meanwhile
+    for (int kt = 0; kt < ktiles; ++kt, ++it) {
+      const int s = it % S;
+      mbar_wait(full0 + 8 * s, (it / S) & 1);
+      const uint32_t xs = base + s * L::kStageBytes;
+      // A of the stage's 4 K-steps: columns 8kk + l % 4 (chunk 2kk) and
+      // 8kk + 4 + l % 4 (chunk 2kk + 1), rows srow and srow + 8
+      uint32_t ab[kTfBK / 8][4], as[kTfBK / 8][4];
+#pragma unroll
+      for (int kk = 0; kk < kTfBK / 8; ++kk) {
+        const uint32_t p0 = xs + arow + (((2 * kk) ^ sw) << 4);
+        const uint32_t p1 = xs + arow + (((2 * kk + 1) ^ sw) << 4);
+        split_tf32(lds_f32(p0), ab[kk][0], as[kk][0]);
+        split_tf32(lds_f32(p0 + 1024), ab[kk][1], as[kk][1]);
+        split_tf32(lds_f32(p1), ab[kk][2], as[kk][2]);
+        split_tf32(lds_f32(p1 + 1024), ab[kk][3], as[kk][3]);
+      }
+      const uint64_t db = wg_desc(xs + kTfXBytes);
+      const uint64_t ds = wg_desc(xs + kTfXBytes + L::kWBytes);
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < kTfBK / 8; ++kk) {
+        WgmmaTf32<BN>::mma(d, as[kk], db + 2 * kk, (kt | kk) != 0);
+        WgmmaTf32<BN>::mma(d, ab[kk], ds + 2 * kk, 1);
+        WgmmaTf32<BN>::mma(d, ab[kk], db + 2 * kk, 1);
+      }
+      wg_commit();
+      wg_wait<0>();
+      if (leader) mbar_arrive(empty0 + 8 * s);
+    }
+    fence_regs(d);
+
+    // y: f32 pairs into the swizzled staging tile by st.shared.v2 (column
+    // 8j + 2(l % 4) is byte 32(j % 4) + 8(l % 4) of 32-column sub-tile
+    // j / 4), then one TMA store per sub-tile
+    if (leader) bulk_wait_read();
+    named_sync(1 + g, 128);
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j) {
+      const int chunk = 2 * (j % 4) + (lane % 4) / 2;
+      const uint32_t a = staging + (j / 4) * 8192 + srow * 128 +
+                         ((chunk ^ sw) << 4) + 8 * (lane % 2);
+      sts_v2(a, d[4 * j], d[4 * j + 1]);
+      sts_v2(a + 1024, d[4 * j + 2], d[4 * j + 3]);
+    }
+    fence_proxy_async();
+    named_sync(1 + g, 128);
+    if (leader) {
+      const int r0 = m0 + 64 * g;
+      if (r0 < M) {
+#pragma unroll
+        for (int st = 0; st < BN / 32; ++st)
+          if (n0 + 32 * st < N)
+            tma_store(&tmy, staging + st * 8192, n0 + 32 * st, r0);
+      }
+      bulk_commit();
+    }
+    sums.add(d, nt);
+  }
+  sums.finish();
+  if (leader) bulk_wait();
 }
 
 int ceil_div(long long a, long long b) { return (int)((a + b - 1) / b); }
@@ -968,19 +1327,21 @@ void* driver_fn(const char* name) {
   return (e == cudaSuccess && q == cudaDriverEntryPointSuccess) ? fn : nullptr;
 }
 
-// 2-D bf16 tensor map of a row-major (rows, inner) array, 128-byte swizzle,
-// box (box_rows, box_inner); out-of-bounds elements read as zero and are
-// not written
-int encode_map(CUtensorMap* map, const void* ptr, int inner, int rows,
-               int box_inner, int box_rows) {
+// 2-D tensor map of a row-major (rows, inner) array of bf16 (elem 2) or
+// f32 (elem 4), 128-byte swizzle, box (box_rows, box_inner); out-of-bounds
+// elements read as zero and are not written
+int encode_map(CUtensorMap* map, const void* ptr, int elem_bytes, int inner,
+               int rows, int box_inner, int box_rows) {
   static EncodeTiledFn fn = (EncodeTiledFn)driver_fn("cuTensorMapEncodeTiled");
   if (fn == nullptr) return kDriverErr + (int)CUDA_ERROR_NOT_FOUND;
   const cuuint64_t dims[2] = {(cuuint64_t)inner, (cuuint64_t)rows};
-  const cuuint64_t strides[1] = {(cuuint64_t)inner * 2};
+  const cuuint64_t strides[1] = {(cuuint64_t)inner * elem_bytes};
   const cuuint32_t box[2] = {(cuuint32_t)box_inner, (cuuint32_t)box_rows};
   const cuuint32_t elem[2] = {1, 1};
-  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
-                        const_cast<void*>(ptr), dims, strides, box, elem,
+  const CUresult r = fn(map,
+                        elem_bytes == 4 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+                                        : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+                        2, const_cast<void*>(ptr), dims, strides, box, elem,
                         CU_TENSOR_MAP_INTERLEAVE_NONE,
                         CU_TENSOR_MAP_SWIZZLE_128B,
                         CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
@@ -988,36 +1349,71 @@ int encode_map(CUtensorMap* map, const void* ptr, int inner, int rows,
   return r == CUDA_SUCCESS ? 0 : kDriverErr + (int)r;
 }
 
-template <int BN>
-int launch_wgmma(const void* x, const void* w, void* y, float* part,
-                 int part_rows, int M, int N, int K, int* grid,
-                 cudaStream_t s) {
-  CUtensorMap tmx, tmw, tmy;
-  int err = encode_map(&tmx, x, K, M, kWgBK, kWgBM);
-  if (!err) err = encode_map(&tmw, w, K, N, kWgBK, BN);
-  if (!err) err = encode_map(&tmy, y, N, M, 64, 64);
-  if (err) return err;
-  auto kernel = mm_stats_wgmma_kernel<BN>;
-  // the opt-in above 48 KB of dynamic shared memory holds per function and
-  // device: set once for each of the first 64 devices
-  static bool opted[64] = {};
+// The opt-in above 48 KB of dynamic shared memory holds per function and
+// device: set once for each of the first 64 devices (one `opted` per
+// kernel). Then the persistent grid: min(part_rows, tiles) blocks.
+template <typename Kernel>
+int persistent_grid(Kernel kernel, int smem_bytes, bool (&opted)[64],
+                    int tiles, int part_rows, int* grid) {
   int device = 0;
   cudaError_t e = cudaGetDevice(&device);
   if (e != cudaSuccess) return (int)e;
   if (device >= 64 || !opted[device]) {
     e = cudaFuncSetAttribute(kernel,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             WgSmem<BN>::kBytes);
+                             smem_bytes);
     if (e != cudaSuccess) return (int)e;
     if (device < 64) opted[device] = true;
   }
+  *grid = tiles < part_rows ? tiles : part_rows;
+  return *grid < 1 ? (int)cudaErrorInvalidValue : 0;
+}
+
+template <int BN>
+int launch_wgmma(const void* x, const void* w, void* y, float* part,
+                 int part_rows, int M, int N, int K, int* grid,
+                 cudaStream_t s) {
+  CUtensorMap tmx, tmw, tmy;
+  int err = encode_map(&tmx, x, 2, K, M, kWgBK, kWgBM);
+  if (!err) err = encode_map(&tmw, w, 2, K, N, kWgBK, BN);
+  if (!err) err = encode_map(&tmy, y, 2, N, M, 64, 64);
+  if (err) return err;
+  static bool opted[64] = {};
   const int tiles_n = (N + BN - 1) / BN;
   const int tiles = (M + kWgBM - 1) / kWgBM * tiles_n;
-  *grid = tiles < part_rows ? tiles : part_rows;
-  if (*grid < 1) return (int)cudaErrorInvalidValue;
-  kernel<<<*grid, kWgThreads, WgSmem<BN>::kBytes, s>>>(tmx, tmw, tmy, part,
-                                                        M, N, K, tiles_n,
-                                                        tiles);
+  err = persistent_grid(mm_stats_wgmma_kernel<BN>, WgSmem<BN>::kBytes, opted,
+                        tiles, part_rows, grid);
+  if (err) return err;
+  mm_stats_wgmma_kernel<BN><<<*grid, kWgThreads, WgSmem<BN>::kBytes, s>>>(
+      tmx, tmw, tmy, part, M, N, K, tiles_n, tiles);
+  return (int)cudaGetLastError();
+}
+
+// wsplit (2, N, K) receives w's TF32 terms, then the tf32x3 kernel
+template <int BN>
+int launch_tf32x3(const float* x, const float* w, float* wsplit, float* y,
+                  float* part, int part_rows, int M, int N, int K, int* grid,
+                  cudaStream_t s) {
+  const int n4 = (int)((long long)N * K / 4);
+  split_tf32_kernel<<<std::min(ceil_div(n4, 256), 1056), 256, 0, s>>>(
+      reinterpret_cast<const float4*>(w), reinterpret_cast<float4*>(wsplit),
+      reinterpret_cast<float4*>(wsplit + (size_t)N * K), n4);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  CUtensorMap tmx, tmwb, tmws, tmy;
+  int err = encode_map(&tmx, x, 4, K, M, kTfBK, kWgBM);
+  if (!err) err = encode_map(&tmwb, wsplit, 4, K, N, kTfBK, BN);
+  if (!err) err = encode_map(&tmws, wsplit + (size_t)N * K, 4, K, N, kTfBK, BN);
+  if (!err) err = encode_map(&tmy, y, 4, N, M, 32, 64);
+  if (err) return err;
+  static bool opted[64] = {};
+  const int tiles_n = (N + BN - 1) / BN;
+  const int tiles = (M + kWgBM - 1) / kWgBM * tiles_n;
+  err = persistent_grid(mm_stats_tf32x3_kernel<BN>, TfSmem<BN>::kBytes, opted,
+                        tiles, part_rows, grid);
+  if (err) return err;
+  mm_stats_tf32x3_kernel<BN><<<*grid, kWgThreads, TfSmem<BN>::kBytes, s>>>(
+      tmx, tmwb, tmws, tmy, part, M, N, K, tiles_n, tiles);
   return (int)cudaGetLastError();
 }
 
@@ -1118,6 +1514,35 @@ int matmul_stats_wgmma(const void* x, const void* w, void* y, float* part,
     err = launch_wgmma<128>(x, w, y, part, part_rows, M, N, K, &grid, s);
   else if (bn == 256)
     err = launch_wgmma<256>(x, w, y, part, part_rows, M, N, K, &grid, s);
+  else
+    err = (int)cudaErrorInvalidValue;
+  if (err) return err;
+  reduce_partials_kernel<<<dim3(ceil_div(N, 32), 1), dim3(32, kRedRows), 0,
+                           s>>>(part, stats, grid, N, grid);
+  return (int)cudaGetLastError();
+}
+
+// The tf32x3 route. x (M, K), w (N, K), y (M, N) float32, row-major,
+// 16-byte aligned, K % 4 == 0 and N % 4 == 0 (TMA's 16-byte strides);
+// wsplit (2, N, K) float32 scratch for w's TF32 terms; bn the N-tile width
+// (64 or 128); part and stats as for matmul_stats_wgmma. Returns 0, a
+// cudaError_t, or kDriverErr + CUresult.
+int matmul_stats_tf32x3(const void* x, const void* w, void* wsplit, void* y,
+                        float* part, float* stats, int M, int N, int K,
+                        int bn, int part_rows, int device, void* stream) {
+  cudaError_t e = cudaSetDevice(device);
+  if (e != cudaSuccess) return (int)e;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (M <= 0 || N <= 0 || K <= 0 || K % 4 || N % 4)
+    return (int)cudaErrorInvalidValue;
+  int err, grid = 0;
+  const float *xf = (const float*)x, *wf = (const float*)w;
+  if (bn == 64)
+    err = launch_tf32x3<64>(xf, wf, (float*)wsplit, (float*)y, part,
+                            part_rows, M, N, K, &grid, s);
+  else if (bn == 128)
+    err = launch_tf32x3<128>(xf, wf, (float*)wsplit, (float*)y, part,
+                             part_rows, M, N, K, &grid, s);
   else
     err = (int)cudaErrorInvalidValue;
   if (err) return err;

@@ -36,7 +36,7 @@ from ..base import MXNetError, attr_bool, attr_int, attr_str, attr_tuple
 LAUNCHES = 0
 
 #: the same launches by route (see :func:`kernel_route`)
-LAUNCHES_BY_ROUTE = {"wgmma": 0, "wmma": 0, "f32": 0}
+LAUNCHES_BY_ROUTE = {"wgmma": 0, "wmma": 0, "tf32x3": 0, "f32": 0}
 
 #: activations :func:`apply_conv1x1_stats` copied to make them contiguous
 LAYOUT_COPIES = 0
@@ -70,12 +70,17 @@ def kernel_route(m, k, n, dtype, aligned):
       16-byte aligned (``aligned``), the rows' byte strides TMA needs;
     - ``"wmma"``: any other bfloat16 shape (a tile kernel on ``mma.sync``
       through ``nvcuda::wmma``);
-    - ``"f32"``: float32 (FP32 FMA, no TF32).
+    - ``"tf32x3"``: float32 with ``k % 4 == 0``, ``n % 4 == 0`` and x, w
+      16-byte aligned: the wgmma kernel's schedule on the tensor cores,
+      each operand split into two TF32 terms and three products summed
+      (FP32-level agreement with the plain version, whatever
+      ``allow_tf32`` says);
+    - ``"f32"``: any other float32 shape (FP32 FMA).
 
     Raises for another dtype. ``m`` does not decide the route: TMA clips
     the ragged M edge."""
     if dtype == torch.float32:
-        return "f32"
+        return "tf32x3" if k % 4 == 0 and n % 4 == 0 and aligned else "f32"
     if dtype != torch.bfloat16:
         raise MXNetError("matmul_stats: the kernel takes float32 and "
                          "bfloat16, got %s" % dtype)
@@ -101,6 +106,13 @@ def wgmma_tile_n(m, n, sms):
     return 256 if cost(256) <= cost(128) else 128
 
 
+def tf32x3_tile_n(n):
+    """The tf32x3 kernel's N-tile width: 64 up to 64 columns, else 128
+    (f32 tiles are twice bf16's; a 256-wide tile and its f32 y staging do
+    not fit in a block's shared memory)."""
+    return 64 if n <= 64 else 128
+
+
 def _kernel():
     global _FN
     if _FN is None:
@@ -112,6 +124,9 @@ def _kernel():
         lib.matmul_stats_wgmma.argtypes = [ctypes.c_void_p] * 5 + [
             ctypes.c_int] * 6 + [ctypes.c_void_p]
         lib.matmul_stats_wgmma.restype = ctypes.c_int
+        lib.matmul_stats_tf32x3.argtypes = [ctypes.c_void_p] * 6 + [
+            ctypes.c_int] * 6 + [ctypes.c_void_p]
+        lib.matmul_stats_tf32x3.restype = ctypes.c_int
         for name, args in (("matmul_stats_block_m", [ctypes.c_int]),
                            ("matmul_stats_reduce_chunk", []),
                            ("matmul_stats_sm_count", [ctypes.c_int])):
@@ -146,7 +161,8 @@ def _check(x, w):
 def _launch(x, w, route=None):
     """The kernel on CUDA tensors; returns ``(y, s1, s2)``. ``route`` forces
     a kernel the shape qualifies for (``"wmma"`` takes every bfloat16
-    shape), for comparisons; None takes :func:`kernel_route`'s."""
+    shape, ``"f32"`` every float32 one), for comparisons; None takes
+    :func:`kernel_route`'s."""
     global LAUNCHES
     dev = x.device
     if w.device != dev:
@@ -166,24 +182,33 @@ def _launch(x, w, route=None):
     best = kernel_route(m, k, n, x.dtype, aligned)
     if route is None:
         route = best
-    elif route != best and not (route == "wmma" and best == "wgmma"):
+    elif route != best and (route, best) not in (("wmma", "wgmma"),
+                                                 ("f32", "tf32x3")):
         raise MXNetError("matmul_stats: route %r does not take %s (M, K, N) "
                          "= (%d, %d, %d)" % (route, x.dtype, m, k, n))
     lib = _kernel()
     index = dev.index or 0
     stream = torch.cuda.current_stream(dev).cuda_stream
     y = torch.empty((m, n), dtype=x.dtype, device=dev)
-    if route == "wgmma":
+    if route in ("wgmma", "tf32x3"):
         # a row (2, N) of partials for each block of the persistent grid
         # (at most one a streaming multiprocessor), then the statistics
         rows = _sm_count(lib, index)
         part = torch.empty(((rows + 1) * 2 * n,), dtype=torch.float32,
                            device=dev)
         stats = part[rows * 2 * n:].view(2, n)
-        err = lib.matmul_stats_wgmma(
-            x.data_ptr(), w.data_ptr(), y.data_ptr(), part.data_ptr(),
-            stats.data_ptr(), m, n, k, wgmma_tile_n(m, n, rows), rows, index,
-            stream)
+        if route == "wgmma":
+            err = lib.matmul_stats_wgmma(
+                x.data_ptr(), w.data_ptr(), y.data_ptr(), part.data_ptr(),
+                stats.data_ptr(), m, n, k, wgmma_tile_n(m, n, rows), rows,
+                index, stream)
+        else:
+            # w's two TF32 terms, (2, N, K), for the kernel's B tiles
+            wsplit = torch.empty((2, n, k), dtype=torch.float32, device=dev)
+            err = lib.matmul_stats_tf32x3(
+                x.data_ptr(), w.data_ptr(), wsplit.data_ptr(), y.data_ptr(),
+                part.data_ptr(), stats.data_ptr(), m, n, k,
+                tf32x3_tile_n(n), rows, index, stream)
     else:
         stats = torch.empty((2, n), dtype=torch.float32, device=dev)
         dtype = 1 if route == "wmma" else 0

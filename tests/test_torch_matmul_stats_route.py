@@ -1,6 +1,6 @@
 """Kernel B1's routing in the PyTorch port (``ops/matmul_stats.py``):
-which CUDA kernel a shape takes, and the wgmma kernel's tile configuration,
-against what ``csrc/matmul_stats.cu`` states. Pure functions of the shape:
+which CUDA kernel a shape takes, and the wgmma and tf32x3 kernels' tile
+configurations, against what ``csrc/matmul_stats.cu`` states. Pure functions of the shape:
 nothing here launches a kernel, so it runs on the CPU; the kernels
 themselves are held against the plain version on the card
 (``tests/test_torch_matmul_stats_card.py``, ``chip_smoke.py`` phase 4).
@@ -42,6 +42,27 @@ def test_step_shapes_take_wgmma(shape):
     assert ms.kernel_route(m, k, n, torch.bfloat16, True) == "wgmma"
 
 
+@pytest.mark.parametrize("shape", list(STEP_SHAPES), ids=str)
+def test_float32_step_shapes_take_tf32x3(shape):
+    m, k, n = shape
+    assert ms.kernel_route(m, k, n, torch.float32, True) == "tf32x3"
+
+
+@pytest.mark.parametrize("m,k,n,aligned,want", [
+    (1000, 3, 64, True, "f32"),          # K % 4
+    (1000, 6, 64, True, "f32"),
+    (1000, 64, 65, True, "f32"),         # N % 4
+    (1000, 64, 2, True, "f32"),
+    (1000, 64, 64, False, "f32"),        # misaligned pointer
+    (401408, 256, 64, False, "f32"),
+    (1, 4, 4, True, "tf32x3"),           # M does not decide
+    (100003, 36, 260, True, "tf32x3"),
+    (17, 4, 132, True, "tf32x3"),        # K % 8 and N % 8 need not hold
+])
+def test_float32_routes(m, k, n, aligned, want):
+    assert ms.kernel_route(m, k, n, torch.float32, aligned) == want
+
+
 @pytest.mark.parametrize("m,k,n,dtype,aligned,want", [
     (1000, 3, 64, torch.bfloat16, True, "wmma"),      # K % 8
     (1000, 1, 64, torch.bfloat16, True, "wmma"),
@@ -51,7 +72,7 @@ def test_step_shapes_take_wgmma(shape):
     (401408, 64, 64, torch.bfloat16, False, "wmma"),
     (1, 8, 8, torch.bfloat16, True, "wgmma"),         # M does not decide
     (100003, 72, 520, torch.bfloat16, True, "wgmma"),
-    (1000, 64, 64, torch.float32, True, "f32"),       # float32: no TF32
+    (1000, 64, 64, torch.float32, True, "tf32x3"),    # float32 on TMA
     (1000, 3, 65, torch.float32, False, "f32"),
 ])
 def test_other_shapes_take_their_routes(m, k, n, dtype, aligned, want):
@@ -88,6 +109,39 @@ def test_configurations_are_the_source_notes():
     assert all(smem <= 232448 for _, smem, _ in stated.values())
 
 
+def _tf32x3_smem_bytes(bn, stages):
+    """A tf32x3 block's shared memory as the kernel lays it out (TfSmem):
+    the ring's stages (x 128x32, w_big and w_small BNx32, f32), the f32 y
+    staging tile (128xBN), the 8 warps' two rows of column sums, the
+    mbarriers, 1 KB of alignment slack."""
+    return (stages * (128 * 32 * 4 + 2 * bn * 32 * 4) + 128 * bn * 4
+            + 8 * 2 * (bn + bn // 32) * 4 + 2 * stages * 8 + 1024)
+
+
+def test_tf32x3_configurations_are_the_source_notes():
+    note = _note()
+    stated = {int(bn): (int(st), int(smem), int(acc)) for bn, st, smem, acc
+              in re.findall(r"tf32x3 BN\s+(\d+): (\d+) f32 stages, (\d+) "
+                            r"bytes of shared memory, (\d+) accumulators",
+                            note)}
+    stages = {int(bn): int(st) for bn, st in re.findall(
+        r"struct Tf32Cfg<(\d+)> \{ static constexpr int kStages = (\d+); \}",
+        note)}
+    assert set(stages) == {64, 128}
+    assert stated == {bn: (st, _tf32x3_smem_bytes(bn, st), bn // 2)
+                      for bn, st in stages.items()}
+    # each ring is the deepest that fits beside its f32 y staging tile
+    for bn, st in stages.items():
+        assert _tf32x3_smem_bytes(bn, st) <= 232448
+        assert _tf32x3_smem_bytes(bn, st + 1) > 232448
+
+
+@pytest.mark.parametrize("n,want", [(4, 64), (64, 64), (68, 128),
+                                    (128, 128), (260, 128), (2048, 128)])
+def test_tf32x3_tile_width_rule(n, want):
+    assert ms.tf32x3_tile_n(n) == want
+
+
 def test_step_shape_tiles_are_the_source_notes():
     stated = {(int(m), int(k), int(n)): (int(bn), int(t)) for m, k, n, bn, t
               in re.findall(r"\((\d+), (\d+), (\d+)\) -> (\d+), (\d+)",
@@ -116,3 +170,10 @@ def test_wgmma_is_not_forced_on_what_it_does_not_take():
     w = torch.zeros(5, 3, dtype=torch.bfloat16, device="meta")
     with pytest.raises(MXNetError, match="route 'wgmma' does not take"):
         ms._launch(x, w, "wgmma")
+
+
+def test_tf32x3_is_not_forced_on_what_it_does_not_take():
+    x = torch.zeros(4, 3, dtype=torch.float32, device="meta")
+    w = torch.zeros(5, 3, dtype=torch.float32, device="meta")
+    with pytest.raises(MXNetError, match="route 'tf32x3' does not take"):
+        ms._launch(x, w, "tf32x3")
