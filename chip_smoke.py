@@ -50,7 +50,10 @@ non-zero):
    torch.profiler tables of one fused step and of one fused float32 step
    (TF32 off, cuDNN deterministic; the step Module.fit runs in phase 10),
    each printed only when two profiles in a row record the same kernel
-   counts (the profiler has been seen to drop kernel records).
+   counts (the profiler has been seen to drop kernel records). After it,
+   the SSD training step of phase 12 (TrainStep, Adam, b=32) is profiled
+   the same way, with the share of the NMS kernel and of the sort, scatter
+   and gather kernels (MultiBoxTarget's and MultiBoxDetection's).
 
 7. rtc: the user-kernel wrappers (B3). The JAX package's two PallasKernel
    test kernels, scale (o = 2x) and addmul (o = a*b + a), as user Triton
@@ -108,10 +111,31 @@ non-zero):
    --seed) served through ServingEngine with buckets (1, 8, 32): finite
    probabilities for requests of 1, 5, 8 and 32 images, p50 latency per
    bucket.
+12. ssd train: the SSD training net at its full width
+   (models/ssd.py get_symbol_train() defaults: 4 classes, width 32,
+   nms_topk 400; 3x300x300, batch 32, float32, TF32 off, cuDNN
+   deterministic) trained through Module(context=gpu(0)).fit with Adam
+   (lr 1e-3, rescale_grad 1, as example/ssd/train.py), Xavier arg_params
+   and synthetic scenes (example/ssd/train.py's synth_det_batch, copied)
+   from --seed, eval_metric MultiBoxMetric, 2 epochs of 4 batches: (a) one
+   step a dispatch, (b) 4 steps a dispatch with dispatch_pipeline=1. Each
+   fit must launch the NMS kernel once a training step (8), all on its
+   smem route, and its cross-entropy must be finite and fall from epoch 1
+   to epoch 2. Checks: the parameters after (a) equal a TrainStep driven
+   by hand over the same batches bit for bit ((b) within rtol 1e-4); the
+   MultiBoxMetric sums of (a) (host) and (b) (device sums) equal the host
+   metric over the hand-driven step's outputs within rtol 1e-5; the last
+   step's det_out equals MultiBoxDetection with the plain NMS on the same
+   cls_prob, loc_preds and anchors, exactly. Prints ms a step and
+   images/s of each fit and of TrainStep alone (host clock), a step on
+   CUDA events, the convolutions' operations (from the shapes) beside
+   cuDNN's time, and the NMS kernel's time in the step (phase 6's
+   profile) beside its bound.
 
 The line before the last is {"kernels": [...]} (per kernel: launches on
-its main path, max error against the plain version, times and bound);
-the last line is {"ok": true, "device": {...}}.
+its main path, max error against the plain version, times and bound; the
+NMS kernel's launches also by path, serving and training); the last line
+is {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
@@ -807,18 +831,19 @@ def kernel_ms(fn, reps=3):
 
 
 def profile_step(fn, card, what="one fused step",
-                 share=("matmul_stats", ("mm_stats", "reduce_partials",
-                                         "split_tf32")),
+                 shares=(("matmul_stats", ("mm_stats", "reduce_partials",
+                                           "split_tf32")),),
                  tries=4):
     """torch.profiler over one call of ``fn``: prints the ten CUDA kernels
-    with the most device time and the share of the kernels named by
-    ``share`` (a label and substrings of their names). A dropped kernel
+    with the most device time and the share of the kernels named by each
+    of ``shares`` (a label and substrings of their names). A dropped kernel
     record (:func:`profiled_kernels`) changes the counts, so the call is
     profiled until two profiles in a row record every kernel the same
     number of times, at most ``tries`` times, and else prints no
     breakdown. (A profile of several calls cannot be held to the count
     rule: a step's first calls launch a copy or a convolution kernel once
-    more or less than later ones.)"""
+    more or less than later ones.) Returns ``{"total": device ms, label:
+    ms, ...}``, or None without a breakdown."""
     fn()
     fn()
     prev = None
@@ -835,18 +860,20 @@ def profile_step(fn, card, what="one fused step",
     total = sum(_device_us(e) for e in kernels)
     if total == 0:
         log("profile: torch.profiler recorded no device time")
-        return
-    part = sum(_device_us(e) for e in kernels
-               if any(k in e.key for k in share[1]))
+        return None
+    parts = {label: sum(_device_us(e) for e in kernels
+                        if any(k in e.key for k in keys)) / 1e3
+             for label, keys in shares}
     log("profile of %s (the same %d kernel launches as the profile "
-        "before it): %d kernel names, %.3f ms of device time; %s %.3f ms "
-        "(%.1f%%) [%s]" % (what, sum(counts.values()), len(kernels),
-                           total / 1e3, share[0], part / 1e3,
-                           100.0 * part / total, card))
+        "before it): %d kernel names, %.3f ms of device time; %s [%s]"
+        % (what, sum(counts.values()), len(kernels), total / 1e3,
+           "; ".join("%s %.6f ms (%.2f%%)" % (label, ms, 1e5 * ms / total)
+                     for label, ms in parts.items()), card))
     for e in sorted(kernels, key=_device_us, reverse=True)[:10]:
         log("  %8.3f ms %5.1f%% x%-5d %s" % (_device_us(e) / 1e3,
                                             100.0 * _device_us(e) / total,
                                             e.count, e.key[:100]))
+    return dict(parts, total=total / 1e3)
 
 
 def train_phase(seed, card):
@@ -1600,7 +1627,7 @@ def bind_phase(seed, reps, card):
         log("bind: peak device memory %.2f GiB"
             % (torch.cuda.max_memory_allocated() / 2 ** 30))
         profile_step(bind_step, card, "one bind step",
-                     ("the Rtc update", ("sgd_mom",)))
+                     (("the Rtc update", ("sgd_mom",)),))
     if problems:
         raise SystemExit("bind phase failed: " + "; ".join(problems))
     return launches, err, upd, event, bound
@@ -1773,19 +1800,22 @@ MODULE_RTOL, MODULE_ATOL = 1e-4, 1e-5
 METRIC_CE_RTOL = 1e-5
 
 
-def xavier_params(sym, dshape, seed):
+def xavier_params(sym, dshape, seed, label_shapes=None):
     """Xavier ``arg_params`` of ``sym`` on the host, from ``seed`` (the
-    port's initializer on CPU tensors; BatchNorm gamma 1, beta 0)."""
+    port's initializer on CPU tensors; BatchNorm gamma 1, beta 0).
+    ``label_shapes``: the label inputs (default ``softmax_label``, one a
+    sample)."""
     import mxnet_tpu_torch as mt
     from mxnet_tpu_torch import initializer
-    shapes, _, _ = sym.infer_shape(data=dshape, softmax_label=(dshape[0],))
+    label_shapes = label_shapes or {"softmax_label": (dshape[0],)}
+    shapes, _, _ = sym.infer_shape(data=dshape, **label_shapes)
     attrs = sym.attr_dict()
     saved = mt.random.get_state()
     mt.random.seed(seed)
     init = initializer.Xavier()
     params = {}
     for n, shape in zip(sym.list_arguments(), shapes):
-        if n in ("data", "softmax_label"):
+        if n == "data" or n in label_shapes:
             continue
         params[n] = mt.nd.zeros(shape, ctx=mt.cpu())
         init(initializer.InitDesc(n, attrs.get(n, {})), params[n])
@@ -2136,6 +2166,333 @@ def resnet_serve_phase(seed, reps, card):
             % (b, 1e3 * float(np.median(ts)), reps, card))
 
 
+# ---------------------------------------------------------------------------
+# ssd train phase: the full-width SSD trained through Module.fit, with B2 in
+# every training step
+# ---------------------------------------------------------------------------
+
+#: phase 12: SSD (models/ssd.get_symbol_train defaults) at batch 32, host
+#: batches an epoch, epochs, steps a dispatch in (b), and the Adam settings
+#: of example/ssd/train.py
+SSD_TRAIN_CLASSES = 4
+SSD_TRAIN_BATCH = 32
+SSD_TRAIN_BATCHES = 4
+SSD_TRAIN_EPOCHS = 2
+SSD_TRAIN_K = 4
+SSD_TRAIN_OPT = {"learning_rate": 1e-3, "rescale_grad": 1.0}
+SSD_TRAIN_OBJECTS = 3
+#: the packed MultiBoxMetric device sums against the host metric over the
+#: same outputs
+SSD_METRIC_RTOL = 1e-5
+#: the kernels of an SSD training step whose share the profile reports
+SSD_STEP_SHARES = (("multibox_nms (B2)", ("nms_cluster", "nms_mask",
+                                          "nms_sweep")),
+                   ("sort, scatter and gather (MultiBoxTarget, "
+                    "MultiBoxDetection)", ("sort", "Sort", "scatter",
+                                           "gather")),
+                   ("convolution (cuDNN's GEMM, FFT and wgrad kernels)",
+                    ("cudnn", "xmma", "fft", "pointwise_mult_and_sum",
+                     "region_transform", "implicit_gemm", "convolve")))
+
+_COLORS = np.array([[220, 40, 40], [40, 220, 40], [40, 40, 220],
+                    [220, 220, 40]], np.float32)
+
+
+def synth_det_batch(rng, n, size, num_classes, max_obj=SSD_TRAIN_OBJECTS):
+    """Images of coloured rectangles on noise and their (class, x1, y1,
+    x2, y2) labels, -1 padded: example/ssd/train.py's synthetic scenes."""
+    imgs = np.full((n, 3, size, size), 110, np.float32)
+    imgs += rng.normal(0, 12, imgs.shape).astype(np.float32)
+    labels = -np.ones((n, max_obj, 5), np.float32)
+    for i in range(n):
+        for o in range(rng.integers(1, max_obj + 1)):
+            k = int(rng.integers(0, num_classes))
+            w = rng.uniform(0.25, 0.55)
+            h = rng.uniform(0.25, 0.55)
+            x1 = rng.uniform(0, 1 - w)
+            y1 = rng.uniform(0, 1 - h)
+            px1, py1 = int(x1 * size), int(y1 * size)
+            px2, py2 = int((x1 + w) * size), int((y1 + h) * size)
+            imgs[i, :, py1:py2, px1:px2] = _COLORS[k][:, None, None]
+            labels[i, o] = [k, x1, y1, x1 + w, y1 + h]
+    imgs = (imgs - 110.0) / 60.0
+    return imgs, labels
+
+
+def ssd_train_setup(seed, nbatch):
+    """The training symbol, ``nbatch`` host batches of synthetic scenes
+    and Xavier arg_params, all from ``seed``."""
+    import mxnet_tpu_torch as mt
+    from mxnet_tpu_torch.models import ssd
+    with mt.symbol.NameManager():
+        sym = ssd.get_symbol_train(num_classes=SSD_TRAIN_CLASSES)
+    bsz = SSD_TRAIN_BATCH
+    images, labels = synth_det_batch(np.random.default_rng(seed + 9),
+                                     nbatch * bsz, SSD_INPUT[1],
+                                     SSD_TRAIN_CLASSES)
+    params = xavier_params(sym, (bsz,) + SSD_INPUT, seed,
+                           {"label": (bsz, SSD_TRAIN_OBJECTS, 5)})
+    return sym, images, labels, params
+
+
+def conv_train_flops(sym, shapes):
+    """Operations (2 x multiply-adds) of the convolutions of one training
+    step of ``sym`` at input ``shapes``, from the shapes: the forward, the
+    weight gradient, and the data gradient of every convolution whose
+    input is not a graph input."""
+    from mxnet_tpu_torch.base import attr_int, attr_tuple
+    inter = sym.get_internals()
+    _, outs, _ = inter.infer_shape(**shapes)
+    shape_of = dict(zip(inter.list_outputs(), outs))
+    total = 0
+    for node in _nodes(sym):
+        if node.is_variable or node.op.name != "Convolution":
+            continue
+        src, idx = node.inputs[0]
+        cin = shape_of[src.output_names()[idx]][1]
+        n, cout, h, w = shape_of[node.output_names()[0]]
+        kh, kw = attr_tuple(node.attrs["kernel"], typ=int)
+        groups = attr_int(node.attrs.get("num_group", 1), 1)
+        fwd = 2 * n * cout * h * w * (cin // groups) * kh * kw
+        total += fwd * (2 if src.is_variable else 3)
+    return total
+
+
+def ssd_train_profile(seed, card):
+    """One SSD training step (TrainStep, Adam, b=32, float32, TF32 off)
+    profiled: run beside phase 6, before phase 8, after which the profiler
+    drops kernel records. Returns profile_step's numbers, or None."""
+    import torch
+    import mxnet_tpu_torch as mt
+    from mxnet_tpu_torch.train_step import TrainStep
+    sym, images, labels, params = ssd_train_setup(seed, 1)
+    step = TrainStep(sym, data_names=("data",), label_names=("label",),
+                     optimizer=mt.optimizer.create(
+                         "adam", sym=sym, **SSD_TRAIN_OPT))
+    state = step.init({"data": images.shape}, {"label": labels.shape},
+                      seed=seed)
+    for n, v in params.items():
+        state["params"][n].copy_(v.data)
+    batch = {"data": torch.from_numpy(images).to(step.device),
+             "label": torch.from_numpy(labels).to(step.device)}
+    with no_tf32(), deterministic_cudnn():
+        return profile_step(lambda: step.step(state, batch), card,
+                            "one SSD training step (b=32, 3x300x300, "
+                            "Adam, float32)", SSD_STEP_SHARES)
+
+
+def _multibox_sums(metric):
+    """(cross-entropy sum, smooth-L1 sum, valid count) of a
+    MultiBoxMetric, as Python floats."""
+    return (float(metric.sum_metric[0]), float(metric.sum_metric[1]),
+            float(metric.num_inst[0]))
+
+
+def ssd_train_phase(seed, card, profile):
+    import torch
+    import mxnet_tpu_torch as mt
+    from mxnet_tpu_torch.ops import contrib, multibox_nms as mnms
+    from mxnet_tpu_torch.train_step import TrainStep
+    bsz, nb, epochs = SSD_TRAIN_BATCH, SSD_TRAIN_BATCHES, SSD_TRAIN_EPOCHS
+    dev = mt.gpu(0).to_device()
+    t0 = time.perf_counter()
+    sym, images, labels, arg_params = ssd_train_setup(seed, nb)
+    dshape, lshape = (bsz,) + SSD_INPUT, (bsz, SSD_TRAIN_OBJECTS, 5)
+    nparam = sum(int(np.prod(v.shape)) for v in arg_params.values())
+    _, out_shapes, _ = sym.infer_shape(data=dshape, label=lshape)
+    anchors = out_shapes[2][1]
+    log("ssd train: get_symbol_train() defaults (%d classes, width 32, "
+        "nms_topk 400), %d parameters, %d anchors; %d host batches of %d "
+        "and Xavier arg_params from the seed in %.2f s"
+        % (SSD_TRAIN_CLASSES, nparam, anchors, nb, bsz,
+           time.perf_counter() - t0))
+    problems = []
+    steps = nb * epochs
+    fits = {}
+    with no_tf32(), deterministic_cudnn():
+        for name, k in (("a", 1), ("b", SSD_TRAIN_K)):
+            it = mt.io.NDArrayIter(images, labels, batch_size=bsz,
+                                   shuffle=False, label_name="label")
+            metric = mt.metric.MultiBoxMetric()
+            mod = mt.mod.Module(sym, data_names=("data",),
+                                label_names=("label",), context=mt.gpu(0))
+            ends, sums = [], []
+
+            def on_epoch(epoch, *_, metric=metric, ends=ends, sums=sums):
+                torch.cuda.synchronize()
+                ends.append(time.perf_counter())
+                sums.append(_multibox_sums(metric))
+            torch.cuda.synchronize()
+            # the main path: counts at 0 just before, read just after
+            mnms.LAUNCHES = 0
+            for r in mnms.LAUNCHES_BY_ROUTE:
+                mnms.LAUNCHES_BY_ROUTE[r] = 0
+            t0 = time.perf_counter()
+            mod.fit(it, num_epoch=epochs, eval_metric=metric,
+                    optimizer="adam", optimizer_params=dict(SSD_TRAIN_OPT),
+                    arg_params=arg_params, steps_per_dispatch=k,
+                    dispatch_pipeline=1, epoch_end_callback=on_epoch)
+            torch.cuda.synchronize()
+            launches, routes = mnms.LAUNCHES, dict(mnms.LAUNCHES_BY_ROUTE)
+            first, steady = ends[0] - t0, ends[1] - ends[0]
+            spec = mod._fused_metric_spec
+            fits[name] = {"mod": mod, "sums": sums, "launches": launches,
+                          "step_ms": 1e3 * steady / nb,
+                          "device_sums": spec is not None and spec.tag}
+            log("ssd train (%s) Module.fit(optimizer=\"adam\") "
+                "steps_per_dispatch=%d, %d epochs of %d batches: epoch 0 "
+                "%.3f s (bind, init and the first step included); epoch 1 "
+                "%.3f s, %.3f ms a step, %.1f images/s (host clock, each "
+                "epoch ended by a synchronize); metric device sums: %s; "
+                "(CE, smooth-L1, valid) by epoch %s; multibox_nms launches "
+                "%d (by route %s) [%s]"
+                % (name, k, epochs, nb, first, steady, 1e3 * steady / nb,
+                   nb * bsz / steady, fits[name]["device_sums"], sums,
+                   launches, routes, card))
+            if launches != steps or routes != {"smem": steps, "l2": 0}:
+                problems.append("fit (%s): multibox_nms ran %d times (by "
+                                "route %s) in %d steps; once a step on smem "
+                                "expected" % (name, launches, routes, steps))
+            ce = [s[0] / s[2] for s in sums]
+            if not (np.isfinite(ce).all() and ce[1] < ce[0]):
+                problems.append("fit (%s): cross-entropy by epoch %s is not "
+                                "finite and falling" % (name, ce))
+
+        # a TrainStep driven by hand over the same batches; its last step
+        # records what MultiBoxDetection got and gave
+        mod_a = fits["a"]["mod"]
+        opt = mt.optimizer.create(
+            "adam", sym=sym, param_idx2name=dict(enumerate(
+                mod_a._exec_group.param_names)), **SSD_TRAIN_OPT)
+        step = TrainStep(sym, data_names=("data",), label_names=("label",),
+                         optimizer=opt, device=dev)
+        state = step.init({"data": dshape}, {"label": lshape}, seed=seed)
+        for n, v in arg_params.items():
+            state["params"][n].copy_(v.data)
+        hand = [mt.metric.MultiBoxMetric() for _ in range(epochs)]
+        seen = {}
+        plain_detection = contrib.multibox_detection
+
+        def recording(*args, **kw):
+            seen["args"] = [a.detach().clone() for a in args]
+            seen["kw"] = kw
+            return plain_detection(*args, **kw)
+        t0 = None
+        step_outs = []
+        for i in range(steps):
+            if i == nb:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+            j = i % nb
+            batch = {"data": images[j * bsz:(j + 1) * bsz],
+                     "label": labels[j * bsz:(j + 1) * bsz]}
+            if i == steps - 1:
+                contrib.multibox_detection = recording
+            try:
+                state, outs = step.step(state, batch)
+            finally:
+                contrib.multibox_detection = plain_detection
+            # the outputs stay on the card; the host metric reads them
+            # after the timed loop
+            step_outs.append(outs)
+        torch.cuda.synchronize()
+        hand_ms = 1e3 * (time.perf_counter() - t0) / ((epochs - 1) * nb)
+        for i, o in enumerate(step_outs):
+            hand[i // nb].update([], [mt.nd.NDArray(t) for t in o])
+        del step_outs
+        log("ssd train: the same batches through TrainStep.step alone "
+            "(host batches, no metric): %.3f ms a step, %.1f images/s "
+            "after the first epoch; Module.fit's epoch 1 took %+.3f ms a "
+            "step more at k=1 (the host metric) and %+.3f at k=%d [%s]"
+            % (hand_ms, 1e3 * bsz / hand_ms, fits["a"]["step_ms"] - hand_ms,
+               fits["b"]["step_ms"] - hand_ms, SSD_TRAIN_K, card))
+
+        # check 1: fit at k=1 (and k=4) against the hand-driven steps
+        for name in ("a", "b"):
+            arg, _ = fits[name]["mod"].get_params()
+            same = [n for n, v in arg.items()
+                    if torch.equal(v.data.to(dev), state["params"][n])]
+            rel, _ = max_excess({n: v.data.to(dev) for n, v in arg.items()},
+                                state["params"])
+            log("ssd train check 1 (%s): parameters after fit against a "
+                "TrainStep driven by hand over the same %d steps: %d of %d "
+                "arrays bit for bit equal, largest relative difference %g"
+                % (name, steps, len(same), len(arg), rel))
+            if name == "a" and len(same) != len(arg):
+                problems.append("fit (a) is not bit for bit the "
+                                "hand-driven TrainStep")
+            if rel > MODULE_RTOL:
+                problems.append("fit (%s) differs from the hand-driven "
+                                "TrainStep by %g" % (name, rel))
+
+        # check 2: the metric sums, host (a) and device (b), against the
+        # host metric over the hand-driven step's outputs
+        ref = [_multibox_sums(m) for m in hand]
+        for name in ("a", "b"):
+            got = fits[name]["sums"]
+            worst = max(abs(g - r) / max(abs(r), 1e-30)
+                        for gs, rs in zip(got, ref) for g, r in zip(gs, rs))
+            log("ssd train check 2 (%s): MultiBoxMetric (CE, smooth-L1, "
+                "valid) by epoch %s; the host metric over the hand-driven "
+                "step's outputs %s; largest relative difference %g "
+                "(tolerance %g)" % (name, got, ref, worst, SSD_METRIC_RTOL))
+            if not worst <= SSD_METRIC_RTOL:
+                problems.append("fit (%s) metric sums differ from the "
+                                "host metric's" % name)
+        if fits["a"]["device_sums"] or fits["b"]["device_sums"] \
+                != "multibox":
+            problems.append("the metric took the device sums in (a) or not "
+                            "in (b): %s, %s" % (fits["a"]["device_sums"],
+                                                fits["b"]["device_sums"]))
+
+        # check 3: the last step's det_out against MultiBoxDetection with
+        # the plain NMS on the same cls_prob, loc_preds and anchors
+        with torch.no_grad():
+            plain = plain_detection(*seen["args"],
+                                    nms=mnms.nms_alive_reference,
+                                    **seen["kw"])
+        det = outs[3]
+        kept = int((det[:, :, 0] >= 0).sum())
+        log("ssd train check 3: the last step's det_out %s, %d rows kept, "
+            "equal to MultiBoxDetection with the plain NMS on the same "
+            "inputs: %s" % (tuple(det.shape), kept, torch.equal(det, plain)))
+        if not torch.equal(det, plain) or kept == 0:
+            problems.append("det_out differs from the plain NMS path, or "
+                            "keeps nothing")
+
+        # timings: a step on CUDA events, B2 in the step beside its bound
+        batch = {"data": torch.from_numpy(images[:bsz]).to(dev),
+                 "label": torch.from_numpy(labels[:bsz]).to(dev)}
+        event_ms = cuda_time_ms(lambda: step.step(state, batch), 5)
+        host_ms = 1e3 * time_steps(lambda: step.step(state, batch), 5)
+        bound_ms, bound_by = nms_bound_ms(bsz, 400)
+        flops = conv_train_flops(sym, {"data": dshape, "label": lshape})
+        conv_ms = profile and profile[SSD_STEP_SHARES[2][0]]
+        log("ssd train: the convolutions of a step do %.1f GFLOP (forward, "
+            "weight and data gradients, from the shapes): %.3f ms at the "
+            "FP32 peak of %.0f TFLOP/s; cuDNN's kernels took %s (phase 6's "
+            "profile) [%s]"
+            % (flops / 1e9, 1e3 * flops / FP32_OPS_PER_S,
+               FP32_OPS_PER_S / 1e12,
+               "%.3f ms, %.1f TFLOP/s" % (conv_ms, flops / conv_ms / 1e9)
+               if conv_ms else "not measured", card))
+        log("ssd train: one TrainStep step on device batches: %.3f ms back "
+            "to back (CUDA events around 5), %.3f ms with a synchronize "
+            "each (host clock, median of 5), %.1f images/s; device time of "
+            "one step (phase 6's profile) %s; multibox_nms in the step %s "
+            "(profiler), bound %.6f ms (%s) [%s]"
+            % (event_ms, host_ms, 1e3 * bsz / host_ms,
+               "%.3f ms" % profile["total"] if profile else "not measured",
+               "%.6f ms" % profile[SSD_STEP_SHARES[0][0]] if profile
+               else "not measured", bound_ms, bound_by, card))
+    if problems:
+        raise SystemExit("ssd train phase failed: " + "; ".join(problems))
+    return {"launches": fits["a"]["launches"] + fits["b"]["launches"],
+            "step_ms": event_ms,
+            "in_step_ms": profile[SSD_STEP_SHARES[0][0]] if profile
+            else None}
+
+
 def _nodes(sym):
     from mxnet_tpu_torch.symbol import _topo
     return _topo(sym._out_nodes())
@@ -2178,14 +2535,22 @@ def main():
     rng = np.random.default_rng(args.seed)
     nms = kernel_phase(rng, max(20, 10 * args.reps), card)
     b1 = b1_phase(args.seed, args.reps, card)
-    nms["launches"] = serve_phase(args.seed, args.reps, card)
+    serve_launches = serve_phase(args.seed, args.reps, card)
     b1["launches"] = train_phase(args.seed, card)
+    ssd_profile = ssd_train_profile(args.seed, card)
     rtc_err, rtc_host = rtc_phase(args.seed, args.reps, card)
     launches, upd_err, upd, event, bound = bind_phase(args.seed, 3, card)
     upd_source = "cuda_events" if upd is event else "profiler"
     imperative_phase(args.seed, card)
     b1_f32 = module_phase(args.seed, card)
     resnet_serve_phase(args.seed, args.reps, card)
+    ssd_train = ssd_train_phase(args.seed, card, ssd_profile)
+    # B2 runs on two main paths: serving (phase 5) and training (phase 12)
+    nms.update(launches=serve_launches + ssd_train["launches"],
+               launches_serve=serve_launches,
+               launches_train=ssd_train["launches"],
+               train_ms=ssd_train["in_step_ms"],
+               train_ms_source="profiler")
     b3 = []
     for route, wrapper, call in (("cuda", "Rtc", "Rtc.push"),
                                  ("triton", "TritonKernel",

@@ -6,14 +6,19 @@ routes by name suffix (``*weight`` to the method, ``*bias``, ``*beta`` and
 ``*moving_mean`` to zero, ``*gamma`` and ``*moving_var`` to one), with an
 ``__init__`` attr overriding it. It fills a tensor (or an NDArray's) in
 place, drawing from the tensor's device generator in ``random.py``; the
-values therefore differ from the JAX package's for the same seed, while
-their distribution is the same.
+values of the random initializers therefore differ from the JAX package's
+for the same seed, while their distribution is the same. ``Zero``,
+``One``, ``Constant``, ``Bilinear``, ``LSTMBias``, ``Load`` and ``Mixed``
+give the same values. ``FusedRNN`` needs the ``rnn`` package, which is
+not ported yet: it raises.
 """
 from __future__ import annotations
 
 import json
 import math
+import re
 
+import numpy as np
 import torch
 
 from .base import MXNetError
@@ -63,16 +68,28 @@ class Initializer(object):
         name = desc.lower()
         if name.endswith("weight"):
             self._init_weight(desc, t)
-        elif name.endswith("bias") or name.endswith("beta"):
-            t.zero_()
+        elif name.endswith("bias"):
+            self._init_bias(desc, t)
         elif name.endswith("gamma"):
-            t.fill_(1.0)
+            self._init_gamma(desc, t)
+        elif name.endswith("beta"):
+            self._init_beta(desc, t)
         elif name.endswith("moving_mean") or name.endswith("moving_avg"):
             t.zero_()
         elif name.endswith("moving_var") or name.endswith("moving_inv_var"):
             t.fill_(1.0)
         else:
             self._init_default(desc, t)
+
+    # -- leaf rules, which a subclass may override (LSTMBias) -------------
+    def _init_bias(self, _, t):
+        t.zero_()
+
+    def _init_gamma(self, _, t):
+        t.fill_(1.0)
+
+    def _init_beta(self, _, t):
+        t.zero_()
 
     def _init_weight(self, desc, t):
         raise NotImplementedError()
@@ -89,6 +106,14 @@ def _uniform_(t, low, high):
 def _normal_(t, std):
     with torch.no_grad():
         t.normal_(0.0, std, generator=_random.generator(t.device))
+
+
+def _fill_(t, values):
+    """Copy ``values`` (a tensor, or anything numpy takes) into ``t``."""
+    src = (values if isinstance(values, torch.Tensor)
+           else torch.from_numpy(np.array(values)))
+    with torch.no_grad():
+        t.copy_(src.reshape(t.shape))
 
 
 @register
@@ -109,6 +134,21 @@ class One(Initializer):
 
     def _init_weight(self, _, t):
         t.fill_(1.0)
+
+
+@register
+class Constant(Initializer):
+    """Every array, whatever its name, to ``value``."""
+
+    def __init__(self, value=0.0):
+        super().__init__(value=value)
+        self.value = value
+
+    def __call__(self, desc, arr):
+        _tensor(arr).fill_(self.value)
+
+    def _init_weight(self, _, t):
+        t.fill_(self.value)
 
 
 @register
@@ -162,3 +202,127 @@ class Xavier(Initializer):
             _normal_(t, scale)
         else:
             raise MXNetError("Xavier: bad rnd_type %r" % self.rnd_type)
+
+
+@register
+class MSRAPrelu(Xavier):
+    """Xavier gaussian with magnitude ``2 / (1 + slope^2)`` (He et al.,
+    for PReLU; ref: initializer.py MSRAPrelu)."""
+
+    def __init__(self, factor_type="avg", slope=0.25):
+        magnitude = 2.0 / (1 + slope ** 2)
+        super().__init__("gaussian", factor_type, magnitude)
+        self._kwargs = {"factor_type": factor_type, "slope": slope}
+
+
+@register
+class Orthogonal(Initializer):
+    """``scale`` times the orthonormal factor of an SVD of a random
+    (rows, rest) matrix, uniform in [-1, 1] or standard normal (ref:
+    initializer.py Orthogonal). Drawn and factored in float64 on the
+    CPU."""
+
+    def __init__(self, scale=1.414, rand_type="uniform"):
+        super().__init__(scale=scale, rand_type=rand_type)
+        self.scale = scale
+        self.rand_type = rand_type
+
+    def _init_weight(self, _, t):
+        nout = t.shape[0]
+        nin = int(math.prod(t.shape[1:]))
+        tmp = torch.empty((nout, nin), dtype=torch.float64)
+        gen = _random.generator("cpu")
+        if self.rand_type == "uniform":
+            tmp.uniform_(-1.0, 1.0, generator=gen)
+        else:
+            tmp.normal_(0.0, 1.0, generator=gen)
+        u, _s, v = torch.linalg.svd(tmp, full_matrices=False)
+        q = u if u.shape == tmp.shape else v
+        _fill_(t, (self.scale * q).to(t.dtype))
+
+
+@register
+class Bilinear(Initializer):
+    """A bilinear upsampling kernel over the last two axes (ref:
+    initializer.py Bilinear)."""
+
+    def _init_weight(self, _, t):
+        shape = t.shape
+        f = np.ceil(shape[3] / 2.0)
+        c = (2 * f - 1 - f % 2) / (2.0 * f)
+        i = np.arange(int(np.prod(shape)))
+        x = (i % shape[3]).astype(np.float64)
+        y = ((i // shape[3]) % shape[2]).astype(np.float64)
+        w = (1 - np.abs(x / f - c)) * (1 - np.abs(y / f - c))
+        _fill_(t, w.astype(np.float32))
+
+
+@register
+class LSTMBias(Initializer):
+    """The forget gate's bias to ``forget_bias``, the other gates' to 0
+    (ref: initializer.py LSTMBias; gate order i, f, c, o)."""
+
+    def __init__(self, forget_bias=1.0):
+        super().__init__(forget_bias=forget_bias)
+        self.forget_bias = forget_bias
+
+    def _init_weight(self, desc, t):
+        num_hidden = t.shape[0] // 4
+        with torch.no_grad():
+            t.zero_()
+            t[num_hidden:2 * num_hidden] = self.forget_bias
+
+    _init_bias = _init_weight
+    _init_default = _init_weight
+
+
+class Load(object):
+    """Initialize from a dict of arrays (numpy, tensors or either
+    package's NDArrays; ``arg:``/``aux:`` prefixes dropped), falling back
+    to ``default_init`` (ref: initializer.py Load)."""
+
+    def __init__(self, param, default_init=None, verbose=False):
+        self.param = {
+            (k[4:] if k.startswith("arg:") or k.startswith("aux:") else k): v
+            for k, v in param.items()}
+        self.default_init = default_init
+        self.verbose = verbose
+
+    def __call__(self, name, arr):
+        name = str(name)
+        if name in self.param:
+            src = self.param[name]
+            if tuple(src.shape) != tuple(_tensor(arr).shape):
+                raise MXNetError("Load: shape mismatch for %s" % name)
+            if hasattr(src, "asnumpy"):
+                src = src.asnumpy()
+            _fill_(_tensor(arr), src)
+        else:
+            if self.default_init is None:
+                raise MXNetError("Load: no init for %r" % name)
+            self.default_init(name, arr)
+
+
+class Mixed(object):
+    """The first initializer whose regex pattern matches the name (ref:
+    initializer.py Mixed)."""
+
+    def __init__(self, patterns, initializers):
+        self.map = list(zip([re.compile(p) for p in patterns], initializers))
+
+    def __call__(self, name, arr):
+        for prog, init in self.map:
+            if prog.match(str(name)):
+                init(name, arr)
+                return
+        raise MXNetError("Mixed: no matching pattern for %r" % str(name))
+
+
+@register
+class FusedRNN(Initializer):
+    """The packed parameters of a FusedRNNCell (ref: initializer.py
+    FusedRNN). It needs the ``rnn`` package, which is not ported yet."""
+
+    def __init__(self, *args, **kwargs):
+        raise MXNetError("initializer FusedRNN is not ported yet (it needs "
+                         "the rnn package)")

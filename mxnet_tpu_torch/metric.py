@@ -8,8 +8,7 @@ declares slots whose per-step sums ``TrainStep.run_steps(metric_spec=)``
 accumulates on the device (here the ``step_sums`` are torch expressions
 over the step's output and label tensors), and
 :func:`update_from_device_sums` folds one dispatch's sums back into the
-metric. ``MultiBoxMetric`` (SSD training), ``Torch`` and ``Caffe`` are not
-ported yet.
+metric. ``Torch`` and ``Caffe`` are not ported yet.
 """
 from __future__ import annotations
 
@@ -689,6 +688,71 @@ def np(numpy_feval, name=None, allow_extra_outputs=False):
     return CustomMetric(feval, name, allow_extra_outputs)
 
 
+class MultiBoxMetric(EvalMetric):
+    """SSD training metric (ref: example/ssd/train/metric.py
+    MultiBoxMetric): index 0 the softmax cross-entropy of the class head
+    over its valid anchors (``cls_prob`` (batch, classes, anchors) scored
+    against the net's own ``cls_target`` output), index 1 the smooth-L1
+    localization loss over the same count. Reads the SSD train symbol's
+    outputs ``[cls_prob, loc_loss, cls_target, ...]``; the ground truth
+    rides the graph through MultiBoxTarget, so the labels are unused."""
+
+    def __init__(self, eps=1e-8):
+        self.eps = eps
+        super().__init__("multibox", num=2)
+
+    def update(self, labels, preds):
+        cls_prob = _np(preds[0])
+        loc_loss = _np(preds[1])
+        cls_label = _np(preds[2])
+        num_classes = cls_prob.shape[1]
+        label = cls_label.flatten().astype("int64")
+        valid = label >= 0          # -1: a negative mined away
+        prob = cls_prob.transpose(0, 2, 1).reshape(-1, num_classes)
+        sel = prob[numpy.arange(label.shape[0]),
+                   numpy.clip(label, 0, num_classes - 1)]
+        ce = numpy.where(valid, -numpy.log(sel + self.eps), 0.0)
+        n_valid = float(valid.sum())
+        self.sum_metric[0] += ce.sum()
+        self.num_inst[0] += n_valid
+        self.sum_metric[1] += loc_loss.sum()
+        self.num_inst[1] += n_valid
+
+    def device_sum_spec(self, out_shapes, label_shapes):
+        """SSD's heads: a rank-3 ``cls_prob``, the smooth-L1 values and a
+        rank-2 ``cls_target``; the valid count is taken on the device from
+        the target, where hard negative mining sets it each step."""
+        if len(out_shapes) < 3:
+            return None
+        cp, cl = out_shapes[0], out_shapes[2]
+        if len(cp) != 3 or len(cl) != 2:
+            return None
+        if cp[0] != cl[0] or cp[2] != cl[1]:
+            return None
+        eps = float(self.eps)
+
+        def step_sums(outs, labels):
+            cls_prob, loc_loss, cls_label = outs[0], outs[1], outs[2]
+            num_classes = cls_prob.shape[1]
+            li = cls_label.reshape(-1).to(torch.int32)
+            valid = li >= 0
+            flat = cls_prob.transpose(1, 2).reshape(-1, num_classes)
+            sel = _gather_last(flat, torch.clamp(li, 0, num_classes - 1))
+            ce = torch.where(valid, -torch.log(sel + eps),
+                             torch.zeros_like(sel)).sum()
+            return (ce, loc_loss.float().sum(), valid.float().sum())
+
+        def fold(metric, values):
+            metric.sum_metric[0] += float(values["ce"])
+            metric.num_inst[0] += float(values["n"])
+            metric.sum_metric[1] += float(values["l1"])
+            metric.num_inst[1] += float(values["n"])
+
+        return DeviceSumSpec(("ce", "l1", "n"), step_sums, fold,
+                             ("multibox", eps), loss_slots=("ce", "n"),
+                             tag="multibox")
+
+
 # -- K-step dispatch aggregation (TrainStep.run_steps) ----------------------
 
 def supports_device_sums(metric, out_shapes=None, label_shapes=None):
@@ -770,6 +834,7 @@ def create(metric, **kwargs):
         "f1": F1, "mae": MAE, "mse": MSE, "rmse": RMSE,
         "top_k_accuracy": TopKAccuracy, "perplexity": Perplexity,
         "cross-entropy": CrossEntropy, "loss": Loss,
+        "multibox": MultiBoxMetric,
     }
     try:
         return metrics[str(metric).lower()](**kwargs)

@@ -1,14 +1,16 @@
-"""SSD: Single-Shot MultiBox Detector, inference net.
+"""SSD: Single-Shot MultiBox Detector, training and inference nets.
 
 Counterpart of ``mxnet_tpu/models/ssd.py`` (ref: example/ssd/symbol/
-common.py:110-190 multibox_layer, symbol_vgg16_ssd_300.py:157-190 eval
-head): a compact VGG-style backbone with taps at strides 8/16/32, per-tap
-loc/cls conv heads and MultiBoxPrior anchors, then softmax, decode and NMS
-in MultiBoxDetection. Built here, the symbol has the same JSON and the same
-parameter names as the JAX package's. The training net
-(``get_symbol_train``) comes in a later slice.
+common.py:110-190 multibox_layer, symbol_vgg16_ssd_300.py:124-190 train
+and eval heads): a compact VGG-style backbone with taps at strides 8/16/32,
+per-tap loc/cls conv heads and MultiBoxPrior anchors. The inference net
+ends in softmax, decode and NMS (MultiBoxDetection); the training net
+matches anchors and mines hard negatives (MultiBoxTarget), scores the
+classes with SoftmaxOutput (ignore label -1) and the boxes with a smooth-L1
+MakeLoss, and keeps the detections as a zero-gradient head. Built here,
+each symbol has the same JSON and the same parameter names as the JAX
+package's.
 """
-from ..base import MXNetError
 from .. import symbol as sym
 
 
@@ -46,8 +48,11 @@ def multibox_layer(from_layers, num_classes, sizes, ratios, clip=False,
         norm = (normalization[k] if isinstance(normalization, (list, tuple))
                 else normalization)
         if norm > 0:
-            raise MXNetError("multibox_layer: normalization > 0 needs "
-                             "L2Normalization, which is not ported yet")
+            # channel L2-norm with fixed scale (ref uses a learnable scale
+            # initialized to `norm`; the constant matches its init state)
+            from_layer = sym.L2Normalization(data=from_layer,
+                                             mode="channel",
+                                             name=name + "_norm") * norm
         size, ratio = sizes[k], ratios[k]
         na = len(size) + len(ratio) - 1
         loc = sym.Convolution(data=from_layer, num_filter=na * 4,
@@ -86,6 +91,38 @@ def _heads(num_classes, width, sizes, ratios):
     sizes = sizes or _DEFAULT_SIZES
     ratios = ratios or _DEFAULT_RATIOS
     return multibox_layer(taps, num_classes, sizes, ratios, clip=True)
+
+
+def get_symbol_train(num_classes=4, width=32, sizes=None, ratios=None,
+                     nms_thresh=0.5, nms_topk=400, **kwargs):
+    """Training net: losses wired exactly like the reference head
+    (symbol_vgg16_ssd_300.py:129-155). Outputs ``cls_prob_output``,
+    ``loc_loss_output``, ``cls_label_output`` and ``det_out_output``."""
+    loc_preds, cls_preds, anchors = _heads(num_classes, width, sizes, ratios)
+    label = sym.Variable("label")
+    tmp = sym.MultiBoxTarget(anchors, label, cls_preds,
+                             overlap_threshold=0.5, ignore_label=-1,
+                             negative_mining_ratio=3,
+                             negative_mining_thresh=0.5,
+                             variances="0.1,0.1,0.2,0.2",
+                             name="multibox_target")
+    loc_target, loc_target_mask, cls_target = tmp[0], tmp[1], tmp[2]
+    cls_prob = sym.SoftmaxOutput(data=cls_preds, label=cls_target,
+                                 ignore_label=-1, use_ignore=True,
+                                 multi_output=True, normalization="valid",
+                                 name="cls_prob")
+    loc_loss_ = sym.smooth_l1(data=loc_target_mask * (loc_preds - loc_target),
+                              scalar=1.0, name="loc_loss_")
+    loc_loss = sym.MakeLoss(loc_loss_, normalization="valid",
+                            name="loc_loss")
+    cls_label = sym.MakeLoss(data=cls_target, grad_scale=0.0,
+                             name="cls_label")
+    det = sym.MultiBoxDetection(cls_prob, loc_preds, anchors,
+                                nms_threshold=nms_thresh,
+                                variances="0.1,0.1,0.2,0.2",
+                                nms_topk=nms_topk, name="detection")
+    det = sym.MakeLoss(data=det, grad_scale=0.0, name="det_out")
+    return sym.Group([cls_prob, loc_loss, cls_label, det])
 
 
 def get_symbol(num_classes=4, width=32, sizes=None, ratios=None,

@@ -1,11 +1,15 @@
-"""SSD MultiBox operators of the serving slice: MultiBoxPrior and
+"""SSD MultiBox operators: MultiBoxPrior, MultiBoxTarget and
 MultiBoxDetection (counterparts of ``mxnet_tpu/ops/contrib.py``; ref:
-src/operator/contrib/multibox_prior.cc, multibox_detection.cc).
+src/operator/contrib/multibox_prior.cc, multibox_target.cc,
+multibox_detection.cc).
 
-MultiBoxDetection decodes, scores and sorts in plain PyTorch on the
-device, as the JAX package does outside Pallas, and always takes its
-greedy NMS step through :func:`multibox_nms.nms_alive`: on the card that
-is the hand-written kernel.
+MultiBoxTarget matches anchors to ground truth and mines hard negatives
+for the whole batch at once, in plain PyTorch as the JAX package writes it
+in ``jnp``; its outputs carry no gradient. MultiBoxDetection decodes,
+scores and sorts in plain PyTorch on the device, as the JAX package does
+outside Pallas, and always takes its greedy NMS step through
+:func:`multibox_nms.nms_alive` on detached inputs: on the card that is the
+hand-written kernel.
 """
 from __future__ import annotations
 
@@ -79,6 +83,107 @@ def _multibox_prior(op_ctx, attrs, inputs, aux):
 
 
 # ---------------------------------------------------------------------------
+# MultiBoxTarget (ref: contrib/multibox_target.cc)
+# ---------------------------------------------------------------------------
+
+def _mbt_infer(attrs, in_shapes):
+    anchors, labels, cls_preds = in_shapes
+    if anchors is None or labels is None:
+        raise MXNetError("MultiBoxTarget: anchor/label shapes required")
+    a = anchors[1]
+    n = labels[0]
+    return [tuple(anchors), tuple(labels), tuple(cls_preds)], \
+        [(n, a * 4), (n, a * 4), (n, a)], []
+
+
+@torch.no_grad()
+def multibox_target(anchors, labels, cls_preds, overlap_threshold=0.5,
+                    variances=(0.1, 0.1, 0.2, 0.2),
+                    negative_mining_ratio=-1.0):
+    """Anchor matching and target encoding for a batch: ``anchors`` (1, A,
+    4) corners, ``labels`` (B, O, 5) rows ``[class, x1, y1, x2, y2]`` (class
+    -1 pads), ``cls_preds`` (B, C, A) -> ``(loc_target (B, 4A), loc_mask
+    (B, 4A), cls_target (B, A))``. An anchor is positive at IoU >=
+    ``overlap_threshold`` with its best ground truth, or as the best anchor
+    of some ground truth; ``cls_target`` is its class + 1, 0 for
+    background and, with ``negative_mining_ratio`` > 0, -1 for the
+    negatives mined away (all but the ``ratio * positives`` hardest by
+    background probability, at least one). Same operations in the same
+    order as the JAX package's ``vmap`` over samples."""
+    anc = anchors[0]                                    # (A, 4)
+    A = anc.shape[0]
+    B = labels.shape[0]
+    dt = anc.dtype
+    valid = labels[..., 0] >= 0                          # (B, O)
+    gt = labels[..., 1:5]                                # (B, O, 4)
+    ious = multibox_nms._iou(anc[None], gt) * valid[:, None, :].to(dt)
+    # argmax takes the first maximum, as jnp.argmax
+    best_gt = torch.argmax(ious, dim=2)                  # (B, A)
+    best_iou = torch.amax(ious, dim=2)
+    best_anchor_per_gt = torch.argmax(ious, dim=1)       # (B, O)
+    # a max-scatter: padded labels all point at anchor 0, and a duplicate
+    # index must not overwrite a real ground truth's forced match
+    forced = torch.zeros((B, A), dtype=dt, device=anc.device).scatter_reduce(
+        1, best_anchor_per_gt, valid.to(dt), "amax") > 0
+    pos = (best_iou >= _f32(overlap_threshold)) | forced
+    matched_gt = torch.gather(gt, 1, best_gt[..., None].expand(B, A, 4))
+    matched_cls = torch.gather(labels[..., 0], 1, best_gt)
+    # encode offsets (center form, variance-scaled)
+    v = variances
+    aw = anc[:, 2] - anc[:, 0]
+    ah = anc[:, 3] - anc[:, 1]
+    acx = (anc[:, 0] + anc[:, 2]) / 2
+    acy = (anc[:, 1] + anc[:, 3]) / 2
+    gw = torch.clamp_min(matched_gt[..., 2] - matched_gt[..., 0], 1e-8)
+    gh = torch.clamp_min(matched_gt[..., 3] - matched_gt[..., 1], 1e-8)
+    gcx = (matched_gt[..., 0] + matched_gt[..., 2]) / 2
+    gcy = (matched_gt[..., 1] + matched_gt[..., 3]) / 2
+    tx = (gcx - acx) / torch.clamp_min(aw, 1e-8) / _f32(v[0])
+    ty = (gcy - acy) / torch.clamp_min(ah, 1e-8) / _f32(v[1])
+    tw = torch.log(gw / torch.clamp_min(aw, 1e-8)) / _f32(v[2])
+    th = torch.log(gh / torch.clamp_min(ah, 1e-8)) / _f32(v[3])
+    posf = pos.to(dt)
+    loc_t = torch.stack([tx, ty, tw, th], dim=2) * posf[..., None]
+    loc_m = posf[..., None].expand(B, A, 4)
+    cls_t = torch.where(pos, matched_cls + 1.0, torch.zeros_like(matched_cls))
+    if negative_mining_ratio > 0:
+        # hard negative mining: keep the ratio * npos negatives with the
+        # lowest background probability (softmax written out as jax.nn's)
+        cp = cls_preds.detach()
+        e = torch.exp(cp - torch.amax(cp, dim=1, keepdim=True))
+        bg = (e / torch.sum(e, dim=1, keepdim=True))[:, 0]    # (B, A)
+        neg_cand = ~pos
+        difficulty = torch.where(neg_cand, 1.0 - bg,
+                                 torch.full_like(bg, -math.inf))
+        # stable, as jnp.argsort: equal difficulties keep anchor order
+        order = torch.sort(-difficulty, dim=1, stable=True).indices
+        rank = torch.empty_like(order).scatter_(
+            1, order, torch.arange(A, device=anc.device).expand(B, A))
+        npos = pos.sum(dim=1, dtype=torch.int32)
+        keep_n = torch.clamp_min(
+            (_f32(negative_mining_ratio) * npos.to(torch.float32)).to(
+                torch.int32), 1)
+        keep_neg = neg_cand & (rank < keep_n[:, None])
+        cls_t = torch.where(pos, cls_t, torch.where(
+            keep_neg, torch.zeros_like(cls_t), torch.full_like(cls_t, -1.0)))
+    return loc_t.reshape(B, -1), loc_m.reshape(B, -1), cls_t
+
+
+@register("MultiBoxTarget", inputs=("anchor", "label", "cls_pred"),
+          outputs=("loc_target", "loc_mask", "cls_target"),
+          infer_shape=_mbt_infer, aliases=("_contrib_MultiBoxTarget",))
+def _multibox_target(op_ctx, attrs, inputs, aux):
+    return multibox_target(
+        *inputs,
+        overlap_threshold=attr_float(attrs.get("overlap_threshold", 0.5),
+                                     0.5),
+        variances=attr_tuple(attrs.get("variances", (0.1, 0.1, 0.2, 0.2)),
+                             (0.1, 0.1, 0.2, 0.2), typ=float),
+        negative_mining_ratio=attr_float(
+            attrs.get("negative_mining_ratio", -1.0), -1.0))
+
+
+# ---------------------------------------------------------------------------
 # MultiBoxDetection (ref: contrib/multibox_detection.cc)
 # ---------------------------------------------------------------------------
 
@@ -127,8 +232,10 @@ def multibox_detection(cls_prob, loc_pred, anchors, threshold=0.01,
     sboxes = torch.gather(boxes, 1, order[..., None].expand(B, k, 4))
     sscore = torch.gather(score, 1, order)
     scls = torch.gather(cls, 1, order).to(cls_prob.dtype)
-    alive = nms(sboxes.contiguous(), sscore.contiguous(), scls.contiguous(),
-                nms_threshold, force_suppress) > 0
+    # the mask has no gradient: the kernel gets detached inputs
+    alive = nms(sboxes.detach().contiguous(), sscore.detach().contiguous(),
+                scls.detach().contiguous(), nms_threshold,
+                force_suppress) > 0
     out_cls = torch.where(alive, scls, torch.full_like(scls, -1.0))
     out_score = torch.where(alive, sscore, torch.zeros_like(sscore))
     det = torch.cat([out_cls[..., None], out_score[..., None], sboxes],

@@ -1,17 +1,19 @@
 """Neural-network layer operators.
 
 Counterparts of ``mxnet_tpu/ops/nn.py``: FullyConnected, Convolution,
-BatchNorm, Activation, SoftmaxActivation, SoftmaxOutput, Pooling and
-Concat, NCHW as in the JAX package. NHWC is taken by permuting around the
-NCHW call: the permuted tensor is channels-last in memory, so cuDNN and
-the pooling ops keep it so and the NHWC result comes back contiguous.
+BatchNorm, Activation, SoftmaxActivation, SoftmaxOutput, Pooling, Concat,
+L2Normalization and MakeLoss, NCHW as in the JAX package. NHWC is taken
+by permuting around the NCHW call: the permuted tensor is channels-last
+in memory, so cuDNN and the pooling ops keep it so and the NHWC result
+comes back contiguous.
 Convolution goes to ``torch.nn.functional.conv2d``, as the JAX package
 leaves it to XLA outside any Pallas kernel. Weights are OIHW in every
 layout, so checkpoints transfer.
 
 Loss layers keep the reference's contract: the backward produces the
-loss gradient and ignores the incoming one (``SoftmaxOutput`` is a
-``torch.autograd.Function``, as the JAX package's is a ``custom_vjp``).
+loss gradient and ignores the incoming one (``SoftmaxOutput`` and
+``MakeLoss`` are ``torch.autograd.Function``s, as the JAX package's are
+``custom_vjp``s).
 """
 from __future__ import annotations
 
@@ -483,3 +485,57 @@ def _concat_infer(attrs, in_shapes):
 def _concat(op_ctx, attrs, inputs, aux):
     dim = attr_int(attrs.get("dim", 1), 1)
     return (torch.cat(inputs, dim=dim),)
+
+
+# ---------------------------------------------------------------------------
+# L2Normalization (ref: src/operator/l2_normalization-inl.h)
+# ---------------------------------------------------------------------------
+
+@register("L2Normalization", inputs=("data",))
+def _l2_normalization(op_ctx, attrs, inputs, aux):
+    eps = attr_float(attrs.get("eps", 1e-10), 1e-10)
+    mode = attr_str(attrs.get("mode", "instance"), "instance")
+    x = inputs[0]
+    if mode == "instance":
+        red = tuple(range(1, x.dim()))
+    elif mode == "channel":
+        red = (1,)
+    elif mode == "spatial":
+        red = tuple(range(2, x.dim()))
+    else:
+        raise MXNetError("L2Normalization: unknown mode %r" % mode)
+    n = torch.sqrt(torch.sum(torch.square(x), dim=red, keepdim=True) + eps)
+    return (x / n,)
+
+
+# ---------------------------------------------------------------------------
+# MakeLoss (ref: src/operator/make_loss-inl.h): forward is the identity;
+# backward emits grad_scale everywhere and ignores the head gradient's value
+# ---------------------------------------------------------------------------
+
+class _MakeLoss(torch.autograd.Function):
+
+    @staticmethod
+    def forward(ctx, data, grad_scale):
+        ctx.grad_scale = grad_scale
+        return data.view_as(data)
+
+    @staticmethod
+    def backward(ctx, g):
+        return torch.full_like(g, ctx.grad_scale), None
+
+
+@register("MakeLoss", inputs=("data",))
+def _make_loss(op_ctx, attrs, inputs, aux):
+    gs = attr_float(attrs.get("grad_scale", 1.0), 1.0)
+    # as the JAX package: "batch" divides by the batch, every other value
+    # ("valid" included) is taken as "null"
+    norm = attr_str(attrs.get("normalization", "null"), "null")
+    x = inputs[0]
+    if norm == "batch":
+        gs = gs / x.shape[0]
+    if gs == 0.0:
+        # a zero gradient everywhere: the head is a constant of its input,
+        # so autograd neither keeps its graph nor sends it a cotangent
+        return (x.detach(),)
+    return (_MakeLoss.apply(x, gs),)

@@ -8,7 +8,14 @@ the card:
 - the forward runs the symbol through ``executor._build_graph_runner`` with
   f32 master parameters cast to ``compute_dtype`` inside it, so autograd
   delivers f32 gradients; ``jax.vjp`` with all-ones cotangents becomes
-  ``torch.autograd.grad`` with all-ones output gradients;
+  ``torch.autograd.grad`` with all-ones output gradients over the outputs
+  that carry a gradient (a ``MakeLoss`` head of ``grad_scale`` 0, or of a
+  label, has none: its cotangent is zero in the JAX package);
+- an optimizer's ``clip_global_norm`` scales every rescaled gradient by
+  ``min(1, clip / global norm)`` before the per-parameter update, and an
+  optimizer that draws noise (``SGLD``) gets one generator per parameter
+  from the step's key, offset by :data:`_OPT_KEY_OFFSET` as the JAX
+  package folds its key;
 - buffer donation becomes an in-place update: ``step`` and ``run_steps``
   update the state's tensors and return the same dict, whose keys are the
   JAX package's (``params``, ``aux``, ``opt``, ``step``);
@@ -36,12 +43,16 @@ import torch
 
 from .base import MXNetError, env_str, torch_dtype
 from .context import resolve_device
-from .executor import _build_graph_runner
+from .executor import _build_graph_runner, node_generator
 from .initializer import Xavier, InitDesc
 from .ops.nn import conv_precision
 from . import optimizer as _opt
 from .optimizer import Optimizer
 from . import random as _random
+
+#: offset of the optimizer's noise streams (SGLD) among a step's node
+#: streams, so they never meet a graph node's (the JAX package's)
+_OPT_KEY_OFFSET = 1 << 20
 
 
 class StepMetrics(object):
@@ -198,7 +209,7 @@ class TrainStep(object):
         else:
             kwargs = {"learning_rate": learning_rate, "wd": wd,
                       "sym": symbol}
-            if optimizer.lower() == "sgd":
+            if optimizer.lower() in ("sgd", "nag", "ccsgd", "dcasgd"):
                 kwargs["momentum"] = momentum
             self._opt = _opt.create(optimizer, **kwargs)
         if not self._opt.fused_supported:
@@ -216,7 +227,8 @@ class TrainStep(object):
             self.compute_dtype = None
         self._run, self._nodes = _build_graph_runner(symbol)
         self._needs_rng = any((not n.is_variable) and n.op.needs_rng
-                              for n in self._nodes)
+                              for n in self._nodes) or getattr(
+                                  self._opt, "fused_needs_key", False)
         self._base_key = None
 
     # ------------------------------------------------------------------
@@ -267,7 +279,7 @@ class TrainStep(object):
     def _step_key(self, state):
         """The run's rng key: a base drawn once from the random module,
         offset by the state's own step counter (read from the device only
-        for graphs with a random op)."""
+        for graphs with a random op, or an optimizer that draws noise)."""
         if not self._needs_rng:
             return None
         if self._base_key is None:
@@ -294,20 +306,36 @@ class TrainStep(object):
             arg_vals.update({n: (v.to(cdt) if cdt is not None else v)
                              for n, v in leaves.items()})
             outs, aux_up = self._run(arg_vals, aux, key, True)
-            grads = torch.autograd.grad(
-                outs, [leaves[n] for n in updated],
-                grad_outputs=[torch.ones_like(o) for o in outs],
-                allow_unused=True)
+            # only outputs with a gradient take a cotangent (the others'
+            # is zero); autograd.grad raises on one without
+            heads = [o for o in outs if o.requires_grad]
+            grads = [None] * len(updated)
+            if heads and updated:
+                grads = torch.autograd.grad(
+                    heads, [leaves[n] for n in updated],
+                    grad_outputs=[torch.ones_like(o) for o in heads],
+                    allow_unused=True)
         with torch.no_grad():
             t = state["step"].float() + 1.0
             wd = self._opt.wd
-            for n, g in zip(updated, grads):
-                w = params[n]
-                g = (torch.zeros_like(w) if g is None else g.to(w.dtype)) \
-                    * rescale
+            gs = [(torch.zeros_like(params[n]) if g is None
+                   else g.to(params[n].dtype)) * rescale
+                  for n, g in zip(updated, grads)]
+            clip_norm = self._opt.clip_global_norm
+            if clip_norm is not None and gs:
+                gnorm = torch.sqrt(sum(torch.sum(torch.square(g.float()))
+                                       for g in gs))
+                scale = torch.clamp(
+                    clip_norm / torch.clamp_min(gnorm, 1e-12), max=1.0)
+                gs = [g * scale.to(g.dtype) for g in gs]
+            needs_key = getattr(self._opt, "fused_needs_key", False)
+            for i, (n, g) in enumerate(zip(updated, gs)):
+                gen = (node_generator(key, _OPT_KEY_OFFSET + i, self.device)
+                       if needs_key else None)
                 self._opt.fused_update(
-                    n, w, g, opt[n], lr * self._opt.lr_mult.get(n, 1.0),
-                    wd * self._opt.wd_mult.get(n, 1.0), t)
+                    n, params[n], g, opt[n],
+                    lr * self._opt.lr_mult.get(n, 1.0),
+                    wd * self._opt.wd_mult.get(n, 1.0), t, key=gen)
             for k, v in aux_up.items():
                 aux[k].copy_(v)
             state["step"].add_(1)
