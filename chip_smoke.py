@@ -130,12 +130,38 @@ non-zero):
    images/s of each fit and of TrainStep alone (host clock), a step on
    CUDA events, the convolutions' operations (from the shapes) beside
    cuDNN's time, and the NMS kernel's time in the step (phase 6's
-   profile) beside its bound.
+   profile) beside its bound. Fit (a)'s module is saved through
+   save_checkpoint for phase 13.
+13. serving tier (float32, TF32 off, cuDNN deterministic): the full-width
+   SSD (as phase 5, weights from --seed) and ResNet-50 NCHW (phase 11's).
+   (a) SSD engines quantized bf16 and int8: detections for 1, 5, 8 and 32
+   images equal, bit for bit, f32 engines loaded with the same weights
+   dequantized on the host; weight_bytes against f32 (bf16 <= 0.51, int8
+   <= 0.30). (b) ResNet-50 in none, bf16 and int8: weight_bytes, the
+   engine's peak device memory, quality_report over 64 images. (c) 400
+   one-image requests at 200/s from 4 clients (open_loop_run) through a
+   Batcher over the f32 SSD: all complete, none fails, every answer equals
+   the engine's own answer for that image at one of the buckets and
+   positions (the engine's answers for 32 pool images at every bucket and
+   position, and the most distinct answers one image gets across
+   positions, are computed first); B2 once a dispatch, all smem; p50,
+   p99, requests/s, images a dispatch, padded fraction, and constructor
+   to first answer against the warm p50. (d) 300 requests of 1-8 images
+   at 100/s, interactive and batch, through a FleetRouter of two
+   replicas; under the traffic one replica drains, a third joins and the
+   fleet hot-reloads phase 12's checkpoint (the serving symbol's 25
+   arguments are a subset of the training symbol's 26): no request
+   fails, each answer equals the old weights' answers or the new
+   weights', never a mix, and after the reload a fresh engine of the
+   checkpoint's, bit for bit; B2 once a dispatch (and once a bucket in
+   the joined engine's warm-up), all smem; p50 and p99 by class. (e) the
+   Predictor on gpu(0), reshaped over 1, 8 and 32 images, against
+   ServingEngine (absolute 1e-6), and its executor cache.
 
 The line before the last is {"kernels": [...]} (per kernel: launches on
 its main path, max error against the plain version, times and bound; the
-NMS kernel's launches also by path, serving and training); the last line
-is {"ok": true, "device": {...}}.
+NMS kernel's launches also by path: serving, training and the serving
+tier); the last line is {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
@@ -714,9 +740,7 @@ def serve_phase(seed, reps, card):
                     for n in REQUESTS}
 
         # the main path: counts at 0 just before, read just after
-        mnms.LAUNCHES = 0
-        for r in mnms.LAUNCHES_BY_ROUTE:
-            mnms.LAUNCHES_BY_ROUTE[r] = 0
+        mnms.reset_launches()
         batches0 = eng.health.batches
         served = {n: eng.infer({"data": x})[0] for n, x in requests.items()}
         launches = mnms.LAUNCHES
@@ -926,10 +950,7 @@ def train_phase(seed, card):
     b0 = batch()
     twin = clone_state(state)
     # the main path: counts at 0 just before, read just after
-    ms.LAUNCHES = 0
-    ms.LAYOUT_COPIES = 0
-    for r in ms.LAUNCHES_BY_ROUTE:
-        ms.LAUNCHES_BY_ROUTE[r] = 0
+    ms.reset_launches()
     state, outs_f = fused.step(state, b0)
     torch.cuda.synchronize()
     launches, copies = ms.LAUNCHES, ms.LAYOUT_COPIES
@@ -1891,9 +1912,7 @@ def module_phase(seed, card):
                              for m in metric.metrics])
             torch.cuda.synchronize()
             # the main path: counts at 0 just before, read just after
-            ms.LAUNCHES = 0
-            for r in ms.LAUNCHES_BY_ROUTE:
-                ms.LAUNCHES_BY_ROUTE[r] = 0
+            ms.reset_launches()
             t0 = time.perf_counter()
             mod.fit(it, num_epoch=epochs, eval_metric=metric, optimizer="sgd",
                     optimizer_params=MODULE_OPT, arg_params=arg_params,
@@ -2288,7 +2307,10 @@ def _multibox_sums(metric):
             float(metric.num_inst[0]))
 
 
-def ssd_train_phase(seed, card, profile):
+def ssd_train_phase(seed, card, profile, ckpt_prefix):
+    """Phase 12 (see the module docstring); fit (a)'s module is saved
+    through ``save_checkpoint(ckpt_prefix, 1)`` for phase 13's hot
+    reload."""
     import torch
     import mxnet_tpu_torch as mt
     from mxnet_tpu_torch.ops import contrib, multibox_nms as mnms
@@ -2324,9 +2346,7 @@ def ssd_train_phase(seed, card, profile):
                 sums.append(_multibox_sums(metric))
             torch.cuda.synchronize()
             # the main path: counts at 0 just before, read just after
-            mnms.LAUNCHES = 0
-            for r in mnms.LAUNCHES_BY_ROUTE:
-                mnms.LAUNCHES_BY_ROUTE[r] = 0
+            mnms.reset_launches()
             t0 = time.perf_counter()
             mod.fit(it, num_epoch=epochs, eval_metric=metric,
                     optimizer="adam", optimizer_params=dict(SSD_TRAIN_OPT),
@@ -2361,6 +2381,7 @@ def ssd_train_phase(seed, card, profile):
         # a TrainStep driven by hand over the same batches; its last step
         # records what MultiBoxDetection got and gave
         mod_a = fits["a"]["mod"]
+        mod_a.save_checkpoint(ckpt_prefix, 1)
         opt = mt.optimizer.create(
             "adam", sym=sym, param_idx2name=dict(enumerate(
                 mod_a._exec_group.param_names)), **SSD_TRAIN_OPT)
@@ -2488,9 +2509,351 @@ def ssd_train_phase(seed, card, profile):
     if problems:
         raise SystemExit("ssd train phase failed: " + "; ".join(problems))
     return {"launches": fits["a"]["launches"] + fits["b"]["launches"],
+            "checkpoint": ckpt_prefix + "-0001.params",
             "step_ms": event_ms,
             "in_step_ms": profile[SSD_STEP_SHARES[0][0]] if profile
             else None}
+
+
+# ---------------------------------------------------------------------------
+# serving tier phase: quantized engines, the Batcher under open-loop
+# traffic, a FleetRouter across drain, join and hot reload, the Predictor
+# ---------------------------------------------------------------------------
+
+#: open-loop run through a Batcher: requests, offered rate, client threads
+TIER_REQUESTS = 400
+TIER_QPS = 200.0
+TIER_CLIENTS = 4
+#: the same through a FleetRouter of two replicas, requests of 1-8 images
+FLEET_REQUESTS = 300
+FLEET_QPS = 100.0
+#: distinct images the requests draw from (each answer is held against the
+#: engine's answers for that image at every bucket and position)
+TIER_POOL = 32
+#: images of the quantized ResNet-50's quality probe
+QUALITY_PROBE = 64
+#: the Predictor against ServingEngine on the same images (both run the
+#: same ops with the same weights; cuDNN deterministic): absolute
+PREDICTOR_ATOL = 1e-6
+
+
+def _pct(xs, q):
+    return 1e3 * float(np.percentile(np.asarray(xs), q))
+
+
+def tier_refs(eng, pool):
+    """Each pool image's answers from ``eng`` at every bucket, in every
+    position of the batch: {image: set of row bytes}, and per bucket the
+    most distinct answers one image got across its positions."""
+    refs = [set() for _ in range(len(pool))]
+    spread = {}
+    for b in eng.buckets:
+        seen = [set() for _ in range(len(pool))]
+        for s in range(len(pool)):
+            idx = (np.arange(b) + s) % len(pool)
+            out = eng.infer({"data": pool[idx]})[0]
+            for p, j in enumerate(idx):
+                seen[j].add(out[p].tobytes())
+        for j, answers in enumerate(seen):
+            refs[j] |= answers
+        spread[b] = max(len(a) for a in seen)
+    return refs, spread
+
+
+def serving_tier_phase(seed, card, fit_params):
+    """Phase 13 (see the module docstring). ``fit_params``: the .params
+    file phase 12's Module.fit saved through save_checkpoint."""
+    import threading
+    import torch
+    import mxnet_tpu_torch as mt
+    from mxnet_tpu_torch import models
+    from mxnet_tpu_torch.autotune.harness import open_loop_run
+    from mxnet_tpu_torch.ops import multibox_nms as mnms
+    from mxnet_tpu_torch.serving import (Batcher, FleetRouter,
+                                         ServingEngine)
+    from mxnet_tpu_torch.serving import quantize as tq
+    problems = []
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(seed + 13)
+    pool = rng.random((TIER_POOL,) + SSD_INPUT, dtype=np.float32)
+    with no_tf32(), deterministic_cudnn(), \
+            tempfile.TemporaryDirectory() as tmp:
+        prefix = os.path.join(tmp, "ssd")
+        ssd_checkpoint(prefix, seed)
+        sym_file, par_file = prefix + "-symbol.json", prefix + "-0000.params"
+
+        def ssd_engine(params=par_file, **kw):
+            return ServingEngine(sym_file, params, {"data": SSD_INPUT},
+                                 buckets=BUCKETS, **kw)
+
+        # constructor to first answer, through a Batcher
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        f32 = ssd_engine()
+        t_built = time.perf_counter()
+        batcher = Batcher(f32)
+        batcher.infer({"data": pool[:1]})
+        cold = (t_built - t0, time.perf_counter() - t0)
+
+        # (a) the SSD quantized: bit for bit against f32 engines loaded
+        # with the weights dequantized on the host
+        arg = {k[4:]: v.data for k, v in
+               mt.nd.load(par_file, ctx=mt.cpu()).items()}
+        wbytes = {"none": f32.weight_bytes()}
+        for mode in ("bf16", "int8"):
+            eng = ssd_engine(quantize=mode)
+            host = {k: tq.dequant_leaf(tq.quantize_array(v, mode))
+                    for k, v in arg.items()}
+            deq = ssd_engine(host)
+            equal = [np.array_equal(eng.infer({"data": pool[:n]})[0],
+                                    deq.infer({"data": pool[:n]})[0])
+                     for n in (1, 5, 8, 32)]
+            wbytes[mode] = eng.weight_bytes()
+            ratio = wbytes[mode] / wbytes["none"]
+            limit = 0.51 if mode == "bf16" else 0.30
+            log("tier (a) ssd %s: detections for 1, 5, 8, 32 images equal "
+                "to an f32 engine of the host-dequantized weights: %s; "
+                "weight_bytes %d against f32 %d (%.4f, limit %.2f) [%s]"
+                % (mode, equal, wbytes[mode], wbytes["none"], ratio, limit,
+                   card))
+            if not all(equal):
+                problems.append("ssd %s detections differ from the "
+                                "host-dequantized f32 engine's" % mode)
+            if ratio > limit:
+                problems.append("ssd %s weight ratio %.4f over %.2f"
+                                % (mode, ratio, limit))
+            del eng, deq
+
+        # (b) ResNet-50 quantized: quality against f32, peak memory
+        rshape = (3, RESNET_IMAGE, RESNET_IMAGE)
+        with mt.symbol.NameManager():
+            rsym = models.resnet(num_classes=RESNET_CLASSES, num_layers=50,
+                                 image_shape="3,%d,%d" % rshape[1:])
+        rparams = xavier_params(rsym, (1,) + rshape, seed)
+        _, _, aux_shapes = rsym.infer_shape(data=(1,) + rshape)
+        raux = {n: (mt.nd.ones if n.endswith("_var") else mt.nd.zeros)(
+            sh, ctx=mt.cpu()) for n, sh in zip(rsym.list_auxiliary_states(),
+                                               aux_shapes)}
+        rprefix = os.path.join(tmp, "resnet50")
+        mt.model.save_checkpoint(rprefix, 0, rsym, rparams, raux)
+        rfiles = (rprefix + "-symbol.json", rprefix + "-0000.params")
+        probe = {"data": rng.random((QUALITY_PROBE,) + rshape,
+                                    dtype=np.float32)}
+        rengines = {}
+        for mode in ("none", "bf16", "int8"):
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            eng = ServingEngine(*rfiles, {"data": rshape}, buckets=BUCKETS,
+                                quantize=mode)
+            eng.infer(probe)
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated() - base
+            rengines[mode] = eng
+            report = ("" if mode == "none" else "; quality_report over %d "
+                      "images against f32: %s" % (
+                          QUALITY_PROBE,
+                          eng.quality_report(rengines["none"], probe)))
+            log("tier (b) resnet-50 %s: weight_bytes %d, peak device memory "
+                "of the engine (load, warm-up and the probe) %d bytes%s "
+                "[%s]" % (mode, eng.weight_bytes(), peak, report, card))
+
+        # (c) open-loop one-image requests through the Batcher on the f32
+        # SSD: each answer against the engine's own at every bucket and
+        # position
+        refs_old, spread = tier_refs(f32, pool)
+        log("tier (c) position probe: the most distinct answers one image "
+            "got across its positions, by bucket: %s (1 = independent of "
+            "the position); answers an image gets across the buckets: "
+            "%d at most" % (spread, max(len(r) for r in refs_old)))
+        reqs = [{"data": pool[i % TIER_POOL:i % TIER_POOL + 1]}
+                for i in range(TIER_REQUESTS)]
+        index = {id(r): i for i, r in enumerate(reqs)}
+        answers = {}
+
+        def serve_one(req):
+            answers[index[id(req)]] = batcher.infer(req)[0]
+
+        torch.cuda.synchronize()
+        h0 = f32.health.report()
+        mnms.reset_launches()
+        lat, errs, wall = open_loop_run(serve_one, lambda i: reqs[i],
+                                        TIER_QPS, TIER_REQUESTS,
+                                        nclients=TIER_CLIENTS)
+        torch.cuda.synchronize()
+        launches, routes = mnms.LAUNCHES, dict(mnms.LAUNCHES_BY_ROUTE)
+        h1 = f32.health.report()
+        batcher.close()
+        disp = h1["batches"] - h0["batches"]
+        examples = h1["examples"] - h0["examples"]
+        padded = h1["padded"] - h0["padded"]
+        wrong = [i for i, a in answers.items()
+                 if a[0].tobytes() not in refs_old[i % TIER_POOL]]
+        p50 = _pct(lat, 50)
+        log("tier (c) open loop, Batcher over the f32 SSD: %d requests of "
+            "one image at %.0f/s from %d clients: %d completed, %d failed, "
+            "%d answers equal to none of the engine's; p50 %.3f ms, p99 "
+            "%.3f ms, %.1f requests/s over %.3f s; %d dispatches, %.3f "
+            "images a dispatch, padded fraction %.4f; constructor to first "
+            "answer %.3f s (the constructor %.3f s) against the warm p50 "
+            "%.3f ms; multibox_nms launches %d (by route %s) [%s]"
+            % (TIER_REQUESTS, TIER_QPS, TIER_CLIENTS, len(lat), len(errs),
+               len(wrong), p50, _pct(lat, 99), TIER_REQUESTS / wall, wall,
+               disp, examples / max(1, disp),
+               padded / max(1, examples + padded), cold[1], cold[0], p50,
+               launches, routes, card))
+        if len(lat) != TIER_REQUESTS or errs or wrong:
+            problems.append("open loop: %d of %d completed, errors %s, "
+                            "answers off %s" % (len(lat), TIER_REQUESTS,
+                                                errs[:3], wrong[:5]))
+        if launches != disp or routes != {"smem": disp, "l2": 0}:
+            problems.append("open loop: multibox_nms ran %d times (by route "
+                            "%s) for %d dispatches" % (launches, routes,
+                                                       disp))
+        tier_launches = launches
+
+        # (d) the same traffic shape through a FleetRouter of two replicas,
+        # mixed classes, 1-8 images a request; drain one replica, join a
+        # third, then hot-reload phase 12's checkpoint, all under traffic
+        sizes = rng.integers(1, 9, FLEET_REQUESTS)
+        starts = [int(rng.integers(0, TIER_POOL - n + 1)) for n in sizes]
+        classes = ["batch" if i % 3 == 2 else "interactive"
+                   for i in range(FLEET_REQUESTS)]
+        freqs = [{"data": pool[s:s + n]} for s, n in zip(starts, sizes)]
+        findex = {id(r): i for i, r in enumerate(freqs)}
+        e1 = ssd_engine()
+        engines = [f32, e1]
+        router = FleetRouter({"r0": Batcher(f32), "r1": Batcher(e1)})
+        fanswers, flat = {}, {c: [] for c in ("interactive", "batch")}
+        done = [0]
+        lock = threading.Lock()
+        progress = threading.Condition(lock)
+
+        def serve_fleet(req):
+            i = findex[id(req)]
+            t = time.perf_counter()
+            out = router.infer(req, priority=classes[i])[0]
+            with progress:
+                fanswers[i] = out
+                flat[classes[i]].append(time.perf_counter() - t)
+                done[0] += 1
+                progress.notify_all()
+
+        def join_factory():
+            eng = ssd_engine()
+            engines.append(eng)
+            return Batcher(eng)
+
+        events = []
+
+        def control():
+            n = FLEET_REQUESTS
+            for at, what in ((n // 5, "drain r0"), (2 * n // 5, "join r2"),
+                             (2 * n // 3, "update_params")):
+                with progress:
+                    progress.wait_for(lambda: done[0] >= at, timeout=60.0)
+                t = time.perf_counter()
+                if what == "drain r0":
+                    router.drain("r0", timeout=60.0)
+                elif what == "join r2":
+                    router.join("r2", join_factory)
+                else:
+                    router.update_params(fit_params)
+                events.append("%s after %d answers (%.3f s)"
+                              % (what, done[0], time.perf_counter() - t))
+
+        torch.cuda.synchronize()
+        fh0 = [e.health.batches for e in engines]
+        mnms.reset_launches()
+        ctl = threading.Thread(target=control)
+        ctl.start()
+        lat_f, errs_f, wall_f = open_loop_run(
+            serve_fleet, lambda i: freqs[i], FLEET_QPS, FLEET_REQUESTS,
+            nclients=TIER_CLIENTS)
+        ctl.join(120.0)
+        torch.cuda.synchronize()
+        launches, routes = mnms.LAUNCHES, dict(mnms.LAUNCHES_BY_ROUTE)
+        disp = sum(e.health.batches - b
+                   for e, b in zip(engines, fh0 + [0]))
+        # the joined engine's load-time warm-up launches once a bucket and
+        # counts no dispatch
+        expect = disp + len(BUCKETS)
+        rep = router.report()
+        fresh = ssd_engine(fit_params)
+        refs_new, spread_new = tier_refs(fresh, pool)
+        versions = {"old": 0, "new": 0}
+        mixed = []
+        for i, a in fanswers.items():
+            rows = range(starts[i], starts[i] + sizes[i])
+            old = all(a[k].tobytes() in refs_old[j]
+                      for k, j in enumerate(rows))
+            new = all(a[k].tobytes() in refs_new[j]
+                      for k, j in enumerate(rows))
+            if old:
+                versions["old"] += 1
+            elif new:
+                versions["new"] += 1
+            else:
+                mixed.append(i)
+        after = [np.array_equal(router.infer({"data": pool[:n]})[0],
+                                fresh.infer({"data": pool[:n]})[0])
+                 for n in (1, 5, 8, 32)]
+        router.close()
+        log("tier (d) fleet of 2 replicas (r0, r1), %d requests of 1-8 "
+            "images (%d images) at %.0f/s, interactive and batch: %s; %d "
+            "completed, %d failed, fleet errors %d shed %d expired %d "
+            "requeued %d; answers from the old weights %d, the new %d, "
+            "neither %d; after the reload equal to a fresh engine of the "
+            "checkpoint (1, 5, 8, 32 images): %s; position probe of the "
+            "new weights %s; multibox_nms launches %d (by route %s) for %d "
+            "dispatches and %d warm-up launches of the joined engine [%s]"
+            % (FLEET_REQUESTS, int(sizes.sum()), FLEET_QPS, events,
+               len(lat_f), len(errs_f), rep["fleet"]["errors"],
+               rep["fleet"]["shed"], rep["fleet"]["expired"],
+               rep["fleet"]["requeued"], versions["old"], versions["new"],
+               len(mixed), after, spread_new, launches, routes, disp,
+               len(BUCKETS), card))
+        for c, xs in flat.items():
+            log("tier (d) fleet %s: %d requests, p50 %.3f ms, p99 %.3f ms "
+                "(host clock around FleetRouter.infer) [%s]"
+                % (c, len(xs), _pct(xs, 50), _pct(xs, 99), card))
+        if (len(lat_f) != FLEET_REQUESTS or errs_f or mixed
+                or not all(after) or len(events) != 3
+                or rep["fleet"]["errors"] or rep["fleet"]["shed"]
+                or rep["fleet"]["expired"] or versions["new"] == 0):
+            problems.append("fleet: %d of %d completed, errors %s, answers "
+                            "of neither weights %s, after reload %s, "
+                            "events %s" % (len(lat_f), FLEET_REQUESTS,
+                                           errs_f[:3], mixed[:5], after,
+                                           events))
+        if launches != expect or routes != {"smem": expect, "l2": 0}:
+            problems.append("fleet: multibox_nms ran %d times (by route %s) "
+                            "for %d expected" % (launches, routes, expect))
+        tier_launches += launches
+
+        # (e) the Predictor on gpu(0) against ServingEngine
+        pred = mt.Predictor(*rfiles, {"data": (1,) + rshape})
+        worst = 0.0
+        bitwise = []
+        for n in BUCKETS:
+            pred.reshape({"data": (n,) + rshape})
+            x = probe["data"][:n]
+            got = pred.forward(data=x).get_output(0).asnumpy()
+            want = rengines["none"].infer({"data": x})[0]
+            worst = max(worst, float(np.abs(got - want).max()))
+            bitwise.append(bool(np.array_equal(got, want)))
+        log("tier (e) Predictor(ResNet-50) on %s, reshape over %s: largest "
+            "|difference| from ServingEngine %g (tolerance %g), bit for bit "
+            "%s; executor cache %d [%s]"
+            % (pred._ctx, list(BUCKETS), worst, PREDICTOR_ATOL, bitwise,
+               len(pred._exec_cache), card))
+        if worst > PREDICTOR_ATOL or len(pred._exec_cache) != len(BUCKETS):
+            problems.append("Predictor differs from ServingEngine by %g, "
+                            "cache %d" % (worst, len(pred._exec_cache)))
+    log("tier: the phase took %.1f s" % (time.perf_counter() - t_phase))
+    if problems:
+        raise SystemExit("serving tier phase failed: " + "; ".join(problems))
+    return tier_launches
 
 
 def _nodes(sym):
@@ -2544,11 +2907,18 @@ def main():
     imperative_phase(args.seed, card)
     b1_f32 = module_phase(args.seed, card)
     resnet_serve_phase(args.seed, args.reps, card)
-    ssd_train = ssd_train_phase(args.seed, card, ssd_profile)
-    # B2 runs on two main paths: serving (phase 5) and training (phase 12)
-    nms.update(launches=serve_launches + ssd_train["launches"],
+    with tempfile.TemporaryDirectory() as tmp:
+        ssd_train = ssd_train_phase(args.seed, card, ssd_profile,
+                                    os.path.join(tmp, "ssd_fit"))
+        tier_launches = serving_tier_phase(args.seed, card,
+                                           ssd_train["checkpoint"])
+    # B2 runs on three main paths: serving (phase 5), training (phase 12)
+    # and the serving tier (phase 13)
+    nms.update(launches=(serve_launches + ssd_train["launches"]
+                         + tier_launches),
                launches_serve=serve_launches,
                launches_train=ssd_train["launches"],
+               launches_serving_tier=tier_launches,
                train_ms=ssd_train["in_step_ms"],
                train_ms_source="profiler")
     b3 = []

@@ -20,7 +20,10 @@ through ``Rtc`` and NVRTC); and the Module API: ``mod.Module`` with
 ``fit`` (per-step and K-step dispatch through ``TrainStep``), ``score``,
 ``predict`` and checkpoints, with ``io`` (``NDArrayIter``,
 ``SuperBatchIter``), ``metric``, ``callback``, the ``local`` ``kv``store,
-``model`` and ``engine``.
+``model`` and ``engine``; and the serving tier: ``serving.Batcher``,
+``serving.FleetRouter``, quantized weights and hot reload in
+``ServingEngine``, :class:`Predictor`, with ``faults``, ``obs``'s metrics
+registry and the tuning-DB knob resolution of ``autotune``.
 """
 from .base import MXNetError, __version__
 from . import base
@@ -52,6 +55,9 @@ from . import module as mod
 from . import train_step
 from .train_step import TrainStep
 from . import predictor
+from .predictor import Predictor
+from . import faults
+from . import autotune
 from . import serving
 from . import models
 from . import convert

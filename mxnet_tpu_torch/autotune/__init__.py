@@ -1,0 +1,192 @@
+"""``mxnet_tpu_torch.autotune``: the tuning-DB tier of knob resolution.
+
+Counterpart of ``mxnet_tpu/autotune`` (the resolution half). The JAX
+package's ``Module.fit`` and ``ServingEngine`` resolve unset knobs with
+the precedence **explicit arg > env > tuning DB > built-in default**,
+from a committed DB (:mod:`.db`, ``AUTOTUNE_db.json``) keyed ``(model,
+device_kind, global_batch, objective)``; the port resolves the same knobs
+from the same file, so a fit or an engine that names no knob dispatches
+alike in both packages on the same device kind. A DB hit is logged once
+and counted in the obs registry (``autotune.db_resolutions``); a
+device-kind mismatch is a note (``autotune.db_mismatches``).
+
+The device kind is the one the engine or module runs on (``"cpu"`` or the
+card's name, :func:`~.db.device_kind`), so on an H100 no committed entry
+applies and the built-in defaults do.
+
+Not ported: the tuner itself (the search, the knob spaces, the trial
+harnesses and their memcheck pruner, ``python -m ...autotune``) and
+``hotspot_report``, which read XLA programs; :func:`tune` and
+:func:`hotspot_report` raise. :mod:`.harness` holds the open-loop client
+(``open_loop_run``) the serving benchmarks drive the batcher with.
+"""
+from __future__ import annotations
+
+import logging
+
+from ..base import MXNetError, env_str
+from .db import (SCHEMA_VERSION, TuningDB, default_db_path, device_kind,
+                 device_platform, load_cached, param_signature,
+                 parse_buckets, symbol_signature)
+
+__all__ = [
+    "SCHEMA_VERSION", "TuningDB", "default_db_path", "symbol_signature",
+    "param_signature", "parse_buckets", "device_kind", "device_platform",
+    "load_cached", "enabled", "tune", "hotspot_report",
+    "resolve_train_knobs", "resolve_serve_knobs", "resolve_fit_knobs",
+    "note_db_resolution", "TRAIN_OBJECTIVES", "SERVE_OBJECTIVES",
+]
+
+TRAIN_OBJECTIVES = ("img_per_sec", "tokens_per_sec")
+SERVE_OBJECTIVES = ("serve_p99", "serve_p50")
+
+_NOT_PORTED = ("is not ported yet: the tuner (the search, knob spaces, "
+               "trial harnesses) and the HLO roofline wait for ROADMAP.md "
+               "A.12; the port resolves knobs from the committed tuning DB "
+               "only")
+
+
+def tune(*args, **kwargs):
+    """The autotuning sweep; not ported (raises)."""
+    raise MXNetError("autotune.tune " + _NOT_PORTED)
+
+
+def hotspot_report(*args, **kwargs):
+    """The roofline hotspot list of one XLA program; not ported
+    (raises)."""
+    raise MXNetError("autotune.hotspot_report " + _NOT_PORTED)
+
+
+def enabled():
+    """Whether tuning-DB knob resolution is armed (default ON;
+    ``MXTPU_AUTOTUNE=0`` disarms — explicit args and env knobs always
+    win regardless)."""
+    return env_str("MXTPU_AUTOTUNE").lower() \
+        not in ("0", "false", "off", "no")
+
+
+def note_db_resolution(logger, who, entry_key, applied):
+    """The once-per-run resolution log + obs-registry count: every run
+    that takes knob values from the tuning DB says so exactly once, with
+    the entry key."""
+    from ..obs import REGISTRY
+    REGISTRY.counter(
+        "autotune.db_resolutions",
+        "knob values resolved from the tuning DB").inc()
+    (logger or logging).info(
+        "autotune: %s resolved %s from tuning DB entry %s (%s)",
+        who, ", ".join("%s=%r" % kv for kv in sorted(applied.items())),
+        entry_key, default_db_path())
+
+
+def _note_mismatch(logger, note):
+    from ..obs import REGISTRY
+    REGISTRY.counter(
+        "autotune.db_mismatches",
+        "tuning-DB entries skipped for platform/device mismatch").inc()
+    (logger or logging).info("autotune: %s", note)
+
+
+def _resolve(kind, objectives, symbol, global_batch, device, logger, what):
+    """The first entry of ``kind`` for ``symbol`` at ``global_batch`` on
+    ``device``, trying ``objectives`` in their documented order. Returns
+    ``(entry_key, knobs)`` or ``(None, None)`` — a miss, a device mismatch
+    (noted) or a stale DB all resolve to None, never an error: resolution
+    must not be able to break the run it is configuring."""
+    if not enabled():
+        return None, None
+    try:
+        sig = symbol_signature(symbol)
+        tdb = load_cached(logger=logger)
+        note = None
+        for objective in objectives:
+            key, entry, obj_note = tdb.lookup(
+                kind, symbol_sig=sig, global_batch=int(global_batch),
+                objective=objective, device=device)
+            note = note or obj_note  # a mismatch seen for ANY objective
+            if entry is not None:
+                return key, dict(entry.get("knobs") or {})
+        if note:
+            _note_mismatch(logger, note)
+    except Exception as e:
+        (logger or logging).warning(
+            "autotune: tuning-DB resolution failed (%r) — %s fall back to "
+            "built-in defaults", e, what)
+    return None, None
+
+
+def resolve_train_knobs(symbol, global_batch, logger=None, device=None):
+    """Tuning-DB knobs for a training run over ``symbol`` at
+    ``global_batch`` on ``device`` (default ``cuda:0``): ``(entry_key,
+    knobs)`` or ``(None, None)``. With entries for more than one training
+    objective, img/s wins (documented order, not key sort order)."""
+    return _resolve("train", TRAIN_OBJECTIVES, symbol, global_batch,
+                    device, logger, "knobs")
+
+
+def resolve_serve_knobs(symbol, logger=None, device=None):
+    """Tuning-DB knobs for a ``ServingEngine`` over the (stripped)
+    ``symbol`` on ``device``; p99 entries win over p50 (the tail is what
+    the serving tier's deadlines gate on). Same never-raises contract as
+    :func:`resolve_train_knobs`."""
+    return _resolve("serve", SERVE_OBJECTIVES, symbol, 0, device, logger,
+                    "serving knobs")
+
+
+def resolve_fit_knobs(module, train_data, steps_per_dispatch,
+                      dispatch_pipeline, logger=None):
+    """``Module.fit``'s knob resolution: precedence **explicit arg > env >
+    tuning DB > built-in default**, applied per knob. Returns
+    ``(steps_per_dispatch, dispatch_pipeline, {knob: source})`` with
+    sources in ``{"arg", "env", "db", "default"}``; a DB hit is logged
+    once via the obs registry. The DB is matched on the module's symbol,
+    the batch of ``train_data`` and the module's device."""
+    from .. import engine as _engine
+    logger = logger or logging
+    src = {}
+    k = depth = None
+    if steps_per_dispatch is not None:
+        k = max(1, int(steps_per_dispatch))
+        src["steps_per_dispatch"] = "arg"
+    elif _engine.bulk_configured():
+        k = max(1, int(_engine.bulk_size()))
+        src["steps_per_dispatch"] = "env"
+    if dispatch_pipeline is not None:
+        depth = max(0, int(dispatch_pipeline))
+        src["dispatch_pipeline"] = "arg"
+    elif _engine.dispatch_pipeline_configured():
+        depth = max(0, int(_engine.dispatch_pipeline()))
+        src["dispatch_pipeline"] = "env"
+    if k is None or depth is None:
+        knobs = None
+        try:
+            symbol = module.symbol
+            first = (train_data.provide_data or [None])[0]
+            shape = (first.shape if hasattr(first, "shape") else first[1])
+            global_batch = int(shape[0])
+            device = module._device
+        except (AttributeError, IndexError, TypeError, ValueError):
+            symbol = None
+        if symbol is not None:
+            entry_key, knobs = resolve_train_knobs(
+                symbol, global_batch, logger=logger, device=device)
+        if knobs:
+            applied = {}
+            if k is None and "steps_per_dispatch" in knobs:
+                k = max(1, int(knobs["steps_per_dispatch"]))
+                src["steps_per_dispatch"] = "db"
+                applied["steps_per_dispatch"] = k
+            if depth is None and "dispatch_pipeline" in knobs:
+                depth = max(0, int(knobs["dispatch_pipeline"]))
+                src["dispatch_pipeline"] = "db"
+                applied["dispatch_pipeline"] = depth
+            if applied:
+                note_db_resolution(logger, "Module.fit", entry_key,
+                                   applied)
+    if k is None:
+        k = max(1, int(_engine.bulk_size()))
+        src["steps_per_dispatch"] = "default"
+    if depth is None:
+        depth = max(0, int(_engine.dispatch_pipeline()))
+        src["dispatch_pipeline"] = "default"
+    return k, depth, src

@@ -1,0 +1,278 @@
+"""Deterministic fault injection.
+
+The port's own copy of ``mxnet_tpu/faults.py`` (pure Python; the port
+imports nothing of the JAX package). A named call site counts its
+invocations and an armed rule fires on exactly the nth call, so every
+recovery path is tested without sleeps, races or flaky timing.
+
+Sites the port instruments (the static registry :data:`SITES`; the JAX
+package's other sites come with the modules that fire them: the data
+tier, checkpoints, the kvstore, the training guard, the decode loop):
+
+===========================  ==============================================
+site                         where it fires
+===========================  ==============================================
+``serve.enqueue_drop``       per ``serving.Batcher.submit`` — ``"drop"``
+                             rejects the request with
+                             ``ServingOverloadedError`` (back-pressure
+                             shed at the edge)
+``fleet.replica_die``        once per collected batch on every
+                             fleet-managed replica's batching thread —
+                             ``"die"`` (or any raising kind) kills that
+                             replica; the ``serving.FleetRouter`` detects
+                             the death and RE-QUEUES the replica's
+                             queued-but-undispatched requests onto the
+                             surviving replicas (no hang, no silent shed;
+                             only requests whose engine dispatch had
+                             already started fail)
+===========================  ==============================================
+
+Rule kinds:
+
+- ``"raise"``      raise :class:`InjectedFault`
+- ``"transient"``  raise :class:`InjectedTransientFault` (retry-eligible)
+- ``"delay"``      ``time.sleep(delay)`` then continue (timeout testing)
+- any other string is returned from :func:`fire` for the site to interpret
+  (``"drop"`` at ``serve.enqueue_drop``, ``"die"`` at
+  ``fleet.replica_die``)
+
+Arming is programmatic (``faults.inject(site, nth=3, kind="drop")``, the
+:func:`scoped` context manager, or :func:`arm` with a list of rule dicts
+checked against :data:`SITES`) or environment-driven for subprocess
+tests::
+
+    MXTPU_FAULTS="serve.enqueue_drop@3=drop*2,fleet.replica_die@1=die"
+
+meaning: calls 3 and 4 to ``serve.enqueue_drop`` drop their request, and
+the first batch collected on a fleet replica kills it. Everything is
+guarded by one lock, so threads count against the same clock.
+"""
+from __future__ import annotations
+
+import os
+import threading
+import time
+
+from .base import MXNetError
+
+
+class InjectedFault(MXNetError):
+    """A failure fired by the fault-injection registry."""
+
+    def __init__(self, site, attempt, kind="raise"):
+        self.site = site
+        self.attempt = attempt
+        self.kind = kind
+        super().__init__("injected %s fault at %s (call #%d)"
+                         % (kind, site, attempt))
+
+
+class InjectedTransientFault(InjectedFault):
+    """A retry-eligible injected failure (retry helpers treat this like a
+    transient IO/network error)."""
+
+    def __init__(self, site, attempt):
+        super().__init__(site, attempt, kind="transient")
+
+
+class _Rule(object):
+    __slots__ = ("site", "nth", "times", "kind", "exc", "delay")
+
+    def __init__(self, site, nth, times, kind, exc, delay):
+        self.site = site
+        self.nth = int(nth)
+        self.times = int(times)
+        self.kind = kind
+        self.exc = exc
+        self.delay = delay
+
+    def covers(self, call_no):
+        return self.nth <= call_no < self.nth + self.times
+
+
+_lock = threading.RLock()
+_rules = {}     # site -> [_Rule]
+_counts = {}    # site -> total fire() calls
+_fired = {}     # site -> calls where an armed rule actually matched
+_env_loaded = False
+
+
+class SiteInfo(object):
+    """Static metadata for one registered fault site. ``kinds`` are the
+    rule kinds that exercise a real recovery path at this site; ``flag``
+    marks data-poison sites (none in the port yet); ``scenarios`` names
+    the workloads that reach the site."""
+
+    __slots__ = ("name", "kinds", "flag", "scenarios", "doc")
+
+    def __init__(self, name, kinds, flag, scenarios, doc):
+        self.name = name
+        self.kinds = tuple(kinds)
+        self.flag = bool(flag)
+        self.scenarios = tuple(scenarios)
+        self.doc = doc
+
+
+SITES = {}
+
+
+def _register(name, kinds, scenarios, doc, flag=False):
+    SITES[name] = SiteInfo(name, kinds, flag, scenarios, doc)
+
+
+# The static site registry: keep it in lockstep with the instrumented call
+# sites of the port.
+_register("serve.enqueue_drop", ("drop",), ("serve",),
+          "per serving.Batcher.submit — back-pressure shed at the edge")
+_register("fleet.replica_die", ("die",), ("serve",),
+          "per collected batch on a fleet replica — kills that replica")
+
+
+def sites(scenario=None):
+    """The static site registry, optionally filtered to the sites a
+    scenario's workload reaches. Returns ``{name: SiteInfo}``."""
+    if scenario is None:
+        return dict(SITES)
+    return {n: s for n, s in SITES.items() if scenario in s.scenarios}
+
+
+def _load_env_locked():
+    """Parse MXTPU_FAULTS once (lazily, under _lock)."""
+    global _env_loaded
+    if _env_loaded:
+        return
+    _env_loaded = True
+    spec = os.environ.get("MXTPU_FAULTS", "").strip()
+    if not spec:
+        return
+    for part in spec.split(","):
+        part = part.strip()
+        if not part:
+            continue
+        try:
+            site_at, kind_times = part.split("=", 1)
+            site, nth = (site_at.split("@", 1) + ["1"])[:2] \
+                if "@" in site_at else (site_at, "1")
+            kind, times = (kind_times.split("*", 1) + ["1"])[:2] \
+                if "*" in kind_times else (kind_times, "1")
+            _rules.setdefault(site.strip(), []).append(
+                _Rule(site.strip(), int(nth), int(times), kind.strip(),
+                      None, 0.05))
+        except (ValueError, TypeError):
+            raise MXNetError(
+                "MXTPU_FAULTS: cannot parse %r (expected "
+                "'site@nth=kind*times', e.g. 'serve.enqueue_drop@3=drop*2')"
+                % part)
+
+
+def inject(site, nth=1, kind="raise", times=1, exc=None, delay=0.05):
+    """Arm a fault: calls ``nth .. nth+times-1`` to ``fire(site)`` trigger
+    ``kind``. ``nth`` counts from 1 relative to the site's current call
+    count (an already-hot site fires ``nth`` calls from *now*)."""
+    with _lock:
+        _load_env_locked()
+        base = _counts.get(site, 0)
+        _rules.setdefault(site, []).append(
+            _Rule(site, base + nth, times, kind, exc, delay))
+
+
+def clear(site=None):
+    """Disarm rules (one site, or all) and reset call counts."""
+    with _lock:
+        global _env_loaded
+        _env_loaded = True  # an explicit clear() also discards env rules
+        if site is None:
+            _rules.clear()
+            _counts.clear()
+            _fired.clear()
+        else:
+            _rules.pop(site, None)
+            _counts.pop(site, None)
+            _fired.pop(site, None)
+
+
+def count(site):
+    """Total ``fire`` calls seen at a site (for assertions in tests)."""
+    with _lock:
+        return _counts.get(site, 0)
+
+
+def fired(site):
+    """How many calls at ``site`` actually matched an armed rule (a rule
+    whose ``nth`` the workload never reached fired 0 times)."""
+    with _lock:
+        return _fired.get(site, 0)
+
+
+def arm(rules):
+    """Arm a plan: a list of rule dicts (``{"site", "kind", "nth",
+    "times", "delay"}``; ``times``/``delay`` optional). Unlike
+    :func:`inject` this validates every site against the static registry
+    — a plan naming an unregistered site is a bug in the plan, not a
+    latent no-op."""
+    for r in rules:
+        site = r["site"]
+        if site not in SITES:
+            raise MXNetError(
+                "fault plan names unregistered fault site %r (known: %s)"
+                % (site, ", ".join(sorted(SITES))))
+        inject(site, nth=int(r.get("nth", 1)), kind=r["kind"],
+               times=int(r.get("times", 1)),
+               delay=float(r.get("delay", 0.05)))
+
+
+def fire(site):
+    """Hook called at an instrumented site.
+
+    Returns ``None`` (no rule armed / not this call), or an action string
+    the site interprets; raises for ``raise``/``transient`` kinds; sleeps
+    for ``delay`` kind. Thread-safe; the sleep/raise happens outside the
+    lock.
+    """
+    with _lock:
+        _load_env_locked()
+        call_no = _counts.get(site, 0) + 1
+        _counts[site] = call_no
+        hit = None
+        for rule in _rules.get(site, ()):
+            if rule.covers(call_no):
+                hit = rule
+                _fired[site] = _fired.get(site, 0) + 1
+                break
+    if hit is None:
+        return None
+    if hit.kind == "raise":
+        if hit.exc is not None:
+            try:
+                raise hit.exc(site, call_no)
+            except TypeError:
+                raise hit.exc("injected fault at %s (call #%d)"
+                              % (site, call_no))
+        raise InjectedFault(site, call_no)
+    if hit.kind == "transient":
+        raise InjectedTransientFault(site, call_no)
+    if hit.kind == "delay":
+        time.sleep(hit.delay)
+        return "delay"
+    return hit.kind
+
+
+class scoped(object):
+    """Context manager: arm a fault for the duration of a block, then
+    disarm that site and reset its count. Usage::
+
+        with faults.scoped("serve.enqueue_drop", nth=2, kind="drop"):
+            ...
+    """
+
+    def __init__(self, site, **kwargs):
+        self.site = site
+        self.kwargs = kwargs
+
+    def __enter__(self):
+        inject(self.site, **self.kwargs)
+        return self
+
+    def __exit__(self, *exc):
+        clear(self.site)
+        return False

@@ -15,9 +15,10 @@ JAX package's dispatch structure:
   N's sums back only after dispatch N+D is queued. Metric folds and
   ``batch_end_callback`` run in dispatch order (``_consume``).
 
-Knobs resolve as explicit argument, then environment, then the built-in
-default; the log names each knob's source. The JAX package has a third
-tier, its autotune database, which is not ported yet. ``guard=``
+Knobs resolve as explicit argument, then environment, then the committed
+tuning DB (:func:`mxnet_tpu_torch.autotune.resolve_fit_knobs`, matched on
+the module's symbol, batch and device kind), then the built-in default, as
+in the JAX package; the log names each knob's source. ``guard=``
 (``MXTPU_GUARD``), ``resume=``, ``checkpoint_prefix=``,
 ``checkpoint_every_n_batches=``, ``checkpoint_async=`` and ``monitor=``
 raise naming themselves.
@@ -29,7 +30,7 @@ import time
 from collections import deque
 
 from ..base import MXNetError, env_bool
-from .. import engine as _engine
+from .. import autotune as _autotune
 from .. import metric as _metric
 from .. import ndarray as nd
 from ..model import BatchEndParam
@@ -94,33 +95,6 @@ class _DispatchPipeline(object):
         self.host_stall += dt
         self.retired += 1
         return sums, nsteps, nbatch, disp
-
-
-def resolve_fit_knobs(steps_per_dispatch, dispatch_pipeline, logger=None):
-    """``fit``'s knobs: explicit argument, then environment
-    (``MXTPU_BULK_STEPS``/``engine.bulk``, ``MXTPU_DISPATCH_PIPELINE``),
-    then the built-in default. Returns ``(k, depth)`` and logs each knob
-    with its source (``arg``, ``env`` or ``default``)."""
-    src = {}
-    if steps_per_dispatch is not None:
-        k = max(1, int(steps_per_dispatch))
-        src["steps_per_dispatch"] = "arg"
-    else:
-        k = max(1, int(_engine.bulk_size()))
-        src["steps_per_dispatch"] = ("env" if _engine.bulk_configured()
-                                     else "default")
-    if dispatch_pipeline is not None:
-        depth = max(0, int(dispatch_pipeline))
-        src["dispatch_pipeline"] = "arg"
-    else:
-        depth = max(0, int(_engine.dispatch_pipeline()))
-        src["dispatch_pipeline"] = ("env" if _engine
-                                    .dispatch_pipeline_configured()
-                                    else "default")
-    (logger or logging).info(
-        "Module.fit: steps_per_dispatch=%d (%s), dispatch_pipeline=%d (%s)",
-        k, src["steps_per_dispatch"], depth, src["dispatch_pipeline"])
-    return k, depth
 
 
 class BaseModule(object):
@@ -267,9 +241,13 @@ class BaseModule(object):
 
         fused_step = getattr(self, "_try_fused_fit_step", None)
         fused_dispatch = getattr(self, "_dispatch_fused_steps", None)
-        k, pl_depth = resolve_fit_knobs(steps_per_dispatch,
-                                        dispatch_pipeline,
-                                        logger=self.logger)
+        k, pl_depth, knob_src = _autotune.resolve_fit_knobs(
+            self, train_data, steps_per_dispatch, dispatch_pipeline,
+            logger=self.logger)
+        self.logger.info(
+            "Module.fit: steps_per_dispatch=%d (%s), dispatch_pipeline=%d "
+            "(%s)", k, knob_src["steps_per_dispatch"], pl_depth,
+            knob_src["dispatch_pipeline"])
         if k > 1:
             reason = None
             if fused_dispatch is None:

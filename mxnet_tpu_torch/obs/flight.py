@@ -4,22 +4,30 @@ marks.
 The port's own copy of the ring of ``mxnet_tpu/obs/flight.py``: every
 finished span of :mod:`.trace` and every :func:`note` (``fit`` notes each
 retired dispatch) lands in a bounded deque, so the last dispatches'
-timeline is in memory when a run dies. On by default, as in the JAX
-package (``MXTPU_FLIGHT_RECORDER``, set ``0`` to turn it off and make
-``obs.span`` a no-op when tracing is off too). The span ring holds the
-last 1024 events. The counter-registry delta of each mark and the
-post-mortem ``dump`` are not ported yet.
+timeline is in memory when a run dies, and :func:`dump` writes it, with
+the metrics registry's snapshot, as a post-mortem JSON (a serving
+batcher's thread death and a fleet replica's death dump). On by default,
+as in the JAX package (``MXTPU_FLIGHT_RECORDER``, set ``0`` to turn it off
+and make ``obs.span`` a no-op when tracing is off too);
+``MXTPU_FLIGHT_RECORDER_PATH`` names the dump (default
+``mxtpu_flight.json``). The span ring holds the last 1024 events. The
+counter-registry delta of each mark is not ported yet.
 """
 from __future__ import annotations
 
+import json
+import logging
 import os
 import threading
 import time
 from collections import deque
 
+from ..base import env_str
 from . import trace as _trace
+from .registry import REGISTRY
 
-__all__ = ["FlightRecorder", "FLIGHT", "note", "enabled", "set_enabled"]
+__all__ = ["FlightRecorder", "FLIGHT", "dump", "note", "enabled",
+           "set_enabled"]
 
 #: spans the ring keeps
 _SPAN_RING = 1024
@@ -32,6 +40,9 @@ class FlightRecorder(object):
         self._lock = threading.Lock()
         self._spans = deque(maxlen=_SPAN_RING)
         self._marks = deque(maxlen=256)
+        self.dumps = 0          # dumps written
+        self.last_dump_path = None
+        self.last_dump = None   # the last dump document
 
     def on_event(self, ev):
         """Trace-sink hook: every finished span or instant lands here."""
@@ -52,6 +63,43 @@ class FlightRecorder(object):
         with self._lock:
             return list(self._marks)
 
+    def dump(self, reason, path=None, extra=None):
+        """Write the post-mortem JSON (spans, marks, the registry's
+        snapshot, ``extra``); returns the path, or None when disabled or
+        the write failed (logged, never raised: this runs inside failure
+        paths)."""
+        if not enabled():
+            return None
+        try:
+            with self._lock:
+                spans = list(self._spans)
+                marks = list(self._marks)
+            doc = {"reason": str(reason), "time": time.time(),
+                   "pid": os.getpid(), "spans": spans, "marks": marks,
+                   "counters": REGISTRY.snapshot()}
+            if extra:
+                try:
+                    json.dumps(extra)
+                    doc["extra"] = extra
+                except (TypeError, ValueError):
+                    doc["extra"] = {"unserializable": repr(extra)}
+            from ..model import atomic_write_bytes
+            path = path or env_str("MXTPU_FLIGHT_RECORDER_PATH",
+                                   "mxtpu_flight.json")
+            atomic_write_bytes(path, json.dumps(doc).encode("utf-8"))
+            with self._lock:
+                self.dumps += 1
+                self.last_dump_path = path
+                self.last_dump = doc
+            logging.getLogger("mxnet_tpu_torch").warning(
+                "obs: flight recorder dumped %d span(s) to %s (%s)",
+                len(spans), path, reason)
+            return path
+        except Exception:
+            logging.getLogger("mxnet_tpu_torch").exception(
+                "obs: flight-recorder dump failed (continuing)")
+            return None
+
 
 #: the process flight recorder
 FLIGHT = FlightRecorder()
@@ -70,6 +118,11 @@ def set_enabled(on):
     global _enabled
     _enabled = bool(on)
     _trace.set_sink(FLIGHT.on_event if _enabled else None)
+
+
+def dump(reason, path=None, extra=None):
+    """Module-level shorthand: ``FLIGHT.dump(...)``."""
+    return FLIGHT.dump(reason, path=path, extra=extra)
 
 
 def note(marker, **ids):

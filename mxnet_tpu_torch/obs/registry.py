@@ -1,0 +1,231 @@
+"""One metrics registry for the process.
+
+The port's own copy of ``mxnet_tpu/obs/registry.py`` (pure Python; the
+port imports nothing of the JAX package):
+
+- **Typed instruments**: :class:`Counter` (monotonic), :class:`Gauge`
+  (set-to-latest), :class:`Histogram` (count/sum/min/max) created through
+  :meth:`Registry.counter` etc. The serving tier counts
+  ``serving.param_reloads`` here, the tuning-DB resolvers
+  ``autotune.db_resolutions`` and ``autotune.db_mismatches``.
+- **Views**: a named callable returning a flat ``{key: value}`` dict. Of
+  the JAX package's legacy process-global counter objects the port has
+  ``serving.SERVING_HEALTH``, registered as the ``serving_health`` view;
+  the others (data, training guard, pipeline, retrace and dist health)
+  come with the modules that own them.
+- **Snapshots**: :meth:`Registry.snapshot` flattens everything to
+  ``{"view.key": value}`` (the flight recorder's dump carries one).
+
+The JAX package's Prometheus export and windowed deltas (``Window``,
+behind Speedometer's suffixes) come with the modules that read them.
+"""
+from __future__ import annotations
+
+import threading
+
+from ..base import MXNetError
+
+__all__ = ["Counter", "Gauge", "Histogram", "Registry", "REGISTRY",
+           "register_default_views"]
+
+
+class _Instrument(object):
+    __slots__ = ("name", "help", "_lock")
+
+    def __init__(self, name, help=""):
+        self.name = name
+        self.help = help
+        self._lock = threading.Lock()
+
+
+class Counter(_Instrument):
+    """Monotonically increasing count (Prometheus ``counter``)."""
+
+    __slots__ = ("_value",)
+    kind = "counter"
+
+    def __init__(self, name, help=""):
+        super().__init__(name, help)
+        self._value = 0
+
+    def inc(self, n=1):
+        if n < 0:
+            raise MXNetError("Counter %r: inc() must be >= 0, got %r"
+                             % (self.name, n))
+        with self._lock:
+            self._value += n
+
+    @property
+    def value(self):
+        with self._lock:
+            return self._value
+
+    def values(self):
+        return {"": self.value}
+
+
+class Gauge(_Instrument):
+    """Set-to-latest value (Prometheus ``gauge``)."""
+
+    __slots__ = ("_value",)
+    kind = "gauge"
+
+    def __init__(self, name, help=""):
+        super().__init__(name, help)
+        self._value = 0.0
+
+    def set(self, v):
+        with self._lock:
+            self._value = float(v)
+
+    def inc(self, n=1):
+        with self._lock:
+            self._value += n
+
+    def dec(self, n=1):
+        with self._lock:
+            self._value -= n
+
+    @property
+    def value(self):
+        with self._lock:
+            return self._value
+
+    def values(self):
+        return {"": self.value}
+
+
+class Histogram(_Instrument):
+    """Aggregated distribution: count / sum / min / max (enough for
+    p-less latency accounting without per-sample storage; full quantiles
+    ride the trace file, where every span IS a sample)."""
+
+    __slots__ = ("_count", "_sum", "_min", "_max")
+    kind = "histogram"
+
+    def __init__(self, name, help=""):
+        super().__init__(name, help)
+        self._count = 0
+        self._sum = 0.0
+        self._min = None
+        self._max = None
+
+    def observe(self, v):
+        v = float(v)
+        with self._lock:
+            self._count += 1
+            self._sum += v
+            if self._min is None or v < self._min:
+                self._min = v
+            if self._max is None or v > self._max:
+                self._max = v
+
+    def values(self):
+        with self._lock:
+            return {"_count": self._count, "_sum": self._sum,
+                    "_min": self._min if self._min is not None else 0.0,
+                    "_max": self._max if self._max is not None else 0.0}
+
+
+class Registry(object):
+    """Instrument + view namespace with one flat snapshot.
+
+    Names are dot-separated (``serve.request_latency``); a snapshot key is
+    ``<name>`` for instruments and ``<view>.<key>`` for view entries.
+    Registering a taken name raises (a silent shadow would split counts
+    between two objects)."""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self._instruments = {}
+        self._views = {}
+
+    # -- instruments ---------------------------------------------------
+    def _add(self, cls, name, help):
+        with self._lock:
+            cur = self._instruments.get(name)
+            if cur is not None:
+                if type(cur) is not cls:
+                    raise MXNetError(
+                        "registry: %r already registered as %s"
+                        % (name, cur.kind))
+                return cur  # idempotent re-get (module reimport, tests)
+            if name in self._views:
+                raise MXNetError("registry: %r is a registered view" % name)
+            inst = cls(name, help)
+            self._instruments[name] = inst
+            return inst
+
+    def counter(self, name, help=""):
+        return self._add(Counter, name, help)
+
+    def gauge(self, name, help=""):
+        return self._add(Gauge, name, help)
+
+    def histogram(self, name, help=""):
+        return self._add(Histogram, name, help)
+
+    # -- views ---------------------------------------------------------
+    def register_view(self, name, fn):
+        """Register ``fn() -> {key: value}`` under ``name``. Re-registering
+        the same name replaces the callable (the legacy globals are
+        process singletons; a test reloading a module must not brick the
+        registry)."""
+        with self._lock:
+            if name in self._instruments:
+                raise MXNetError(
+                    "registry: %r is a registered instrument" % name)
+            self._views[name] = fn
+
+    def view_names(self):
+        with self._lock:
+            return sorted(self._views)
+
+    # -- reading -------------------------------------------------------
+    def snapshot(self):
+        """One flat dict over every instrument and view. View callables
+        that raise contribute an ``<name>.error`` marker instead of
+        breaking the snapshot (a snapshot is a diagnostic read — it must
+        never take down the path asking for it)."""
+        with self._lock:
+            instruments = list(self._instruments.values())
+            views = list(self._views.items())
+        out = {}
+        for inst in instruments:
+            for suffix, v in inst.values().items():
+                out[inst.name + suffix] = v
+        for name, fn in views:
+            try:
+                vals = fn()
+            except Exception as e:
+                out["%s.error" % name] = "%s: %s" % (type(e).__name__, e)
+                continue
+            for k, v in (vals or {}).items():
+                out["%s.%s" % (name, k)] = v
+        return out
+
+
+#: the process-global registry (the flight recorder's dump snapshots it)
+REGISTRY = Registry()
+
+_default_views_done = False
+
+
+def register_default_views(registry=None):
+    """Register the process-global counter objects the port has as views
+    (today ``serving_health``). Imports lazily (obs must stay importable
+    before the serving tier) and is idempotent. Called from the
+    ``mxnet_tpu_torch.obs`` import."""
+    global _default_views_done
+    reg = registry or REGISTRY
+    if registry is None and _default_views_done:
+        return reg
+
+    def serving_health():
+        from ..serving import health as _sh
+        return _sh.SERVING_HEALTH.report()
+
+    reg.register_view("serving_health", serving_health)
+    if registry is None:
+        _default_views_done = True
+    return reg

@@ -1,8 +1,7 @@
 """Host-span tracer: one Chrome-trace-event timeline across train/data/serve.
 
 The port's own copy of ``mxnet_tpu/obs/trace.py`` (pure Python; the port
-imports nothing of the JAX package), without ``async_complete`` and
-``nest_check``. The reference MXNet ships a Chrome-trace engine profiler
+imports nothing of the JAX package), without ``nest_check``. The reference MXNet ships a Chrome-trace engine profiler
 spanning compute/copy/IO (src/engine/profiler.{h,cc}); ``torch.profiler`` covers the
 DEVICE side of that story (CUPTI traces of the CUDA kernels) but says nothing
 about the host threads that feed it — the data producer's stack/H2D, the
@@ -27,6 +26,9 @@ Event model (Chrome trace-event format, the subset Perfetto renders):
   ids with ``M`` thread-name metadata records so Perfetto labels tracks.
 - ``ph="i"`` instant events (:func:`instant`) for point occurrences
   (divergence, rollback, replica death, request submit).
+- ``ph="b"``/``"e"`` async pairs (:func:`async_complete`) for a region
+  that begins on one thread and ends on another (a serving request's
+  queue wait).
 """
 from __future__ import annotations
 
@@ -39,7 +41,7 @@ import time
 from ..base import env_bool, env_str
 
 __all__ = [
-    "span", "instant", "complete", "enabled", "start",
+    "span", "instant", "complete", "async_complete", "enabled", "start",
     "stop", "save", "events", "clear", "trace_path", "set_sink",
 ]
 
@@ -214,6 +216,25 @@ def complete(name, dur_s, **args):
     _record({"ph": "X", "name": name, "cat": "host", "ts": now - dur,
              "dur": dur, "pid": os.getpid(),
              "tid": threading.get_ident(), "args": args})
+
+
+def async_complete(name, dur_s, id, **args):
+    """Record an ALREADY-measured ASYNC region (``ph="b"``/``"e"`` pair
+    keyed by ``id``) ending now. For lifecycles that span threads — a
+    serving request's queue wait begins on the caller thread and ends on
+    the batcher thread — where a same-track complete event would overlap
+    (not nest) the batcher's own spans. Perfetto renders each id as its
+    own async track."""
+    if not _ACTIVE:
+        return
+    now = _now_us()
+    dur = max(0, int(dur_s * 1e6))
+    pid = os.getpid()
+    tid = threading.get_ident()
+    _record({"ph": "b", "name": name, "cat": "async", "id": id,
+             "ts": now - dur, "pid": pid, "tid": tid, "args": args})
+    _record({"ph": "e", "name": name, "cat": "async", "id": id,
+             "ts": now, "pid": pid, "tid": tid, "args": {}})
 
 
 def instant(name, **args):

@@ -22,11 +22,13 @@ the f32 accumulator ``acc``:
 call on the card) and :data:`LAUNCHES_BY_ROUTE` the same by route;
 :data:`LAYOUT_COPIES` counts the activations that
 :func:`apply_conv1x1_stats` had to copy because they were not
-NHWC-contiguous.
+NHWC-contiguous. The counters move under one lock, since entry points run
+on several threads; :func:`reset_launches` sets them to 0.
 """
 from __future__ import annotations
 
 import ctypes
+import threading
 
 import torch
 
@@ -40,6 +42,8 @@ LAUNCHES_BY_ROUTE = {"wgmma": 0, "wmma": 0, "tf32x3": 0, "f32": 0}
 
 #: activations :func:`apply_conv1x1_stats` copied to make them contiguous
 LAYOUT_COPIES = 0
+
+_COUNT_LOCK = threading.Lock()
 
 _FN = None
 _SM_COUNT = {}
@@ -163,7 +167,6 @@ def _launch(x, w, route=None):
     a kernel the shape qualifies for (``"wmma"`` takes every bfloat16
     shape, ``"f32"`` every float32 one), for comparisons; None takes
     :func:`kernel_route`'s."""
-    global LAUNCHES
     dev = x.device
     if w.device != dev:
         raise MXNetError("matmul_stats: w is on %s, x on %s" % (w.device, dev))
@@ -226,10 +229,28 @@ def _launch(x, w, route=None):
         raise MXNetError("matmul_stats: %s kernel launch failed: %s (error %d)"
                          % (route, lib.matmul_stats_error_string(err).decode(),
                             err))
-    LAUNCHES += 1
-    LAUNCHES_BY_ROUTE[route] += 1
+    _count_launch(route)
     s1, s2 = stats.unbind(0)
     return y, s1, s2
+
+
+def _count_launch(route):
+    """Count one launch on ``route`` (a read-modify-write of two counters
+    that threads share, so under the lock)."""
+    global LAUNCHES
+    with _COUNT_LOCK:
+        LAUNCHES += 1
+        LAUNCHES_BY_ROUTE[route] += 1
+
+
+def reset_launches():
+    """Set :data:`LAUNCHES`, :data:`LAUNCHES_BY_ROUTE` and
+    :data:`LAYOUT_COPIES` to 0."""
+    global LAUNCHES, LAYOUT_COPIES
+    with _COUNT_LOCK:
+        LAUNCHES = LAYOUT_COPIES = 0
+        for route in LAUNCHES_BY_ROUTE:
+            LAUNCHES_BY_ROUTE[route] = 0
 
 
 def _forward(x, w):
@@ -326,7 +347,8 @@ def apply_conv1x1_stats(x, w):
     k = x.shape[-1]
     f = w.shape[0]
     if not x.is_contiguous():
-        LAYOUT_COPIES += 1
+        with _COUNT_LOCK:
+            LAYOUT_COPIES += 1
         x = x.contiguous()
     x2 = x.reshape(-1, k)
     y2, s1, s2 = matmul_stats(x2, w.reshape(f, k))

@@ -22,11 +22,13 @@ kernel and a sweep kernel through a scratch in L2) beyond.
 
 :data:`LAUNCHES` counts the calls of :func:`nms_alive` that launched on the
 card (one per call, whichever route) and :data:`LAUNCHES_BY_ROUTE` the same
-by route.
+by route. Both move together under one lock, since serving replicas launch
+from several threads; :func:`reset_launches` sets them to 0.
 """
 from __future__ import annotations
 
 import ctypes
+import threading
 
 import numpy as np
 import torch
@@ -39,6 +41,8 @@ LAUNCHES = 0
 
 #: the same by route
 LAUNCHES_BY_ROUTE = {"smem": 0, "l2": 0}
+
+_COUNT_LOCK = threading.Lock()
 
 #: largest k the kernel takes (the l2 route's mask grid has k/64 tiles a
 #: side, at most 1024)
@@ -186,7 +190,6 @@ def nms_alive(sboxes, sscore, scls, thresh, force=False):
 def _launch(sboxes, sscore, scls, thresh, force, route=None):
     """Launch the kernel on ``route`` (by default :func:`kernel_route`'s;
     ``chip_smoke.py`` times both routes on the same tensors)."""
-    global LAUNCHES
     dev = sboxes.device
     if dev.type != "cuda":
         raise MXNetError("nms_alive: no kernel for device %s" % dev)
@@ -232,6 +235,23 @@ def _launch(sboxes, sscore, scls, thresh, force, route=None):
     if err:
         raise MXNetError("nms_alive: %s route launch failed: %s (cudaError "
                          "%d)" % (route, fns["error"](err).decode(), err))
-    LAUNCHES += 1
-    LAUNCHES_BY_ROUTE[route] += 1
+    _count_launch(route)
     return out
+
+
+def _count_launch(route):
+    """Count one launch on ``route`` (a read-modify-write of two counters
+    that threads share, so under the lock)."""
+    global LAUNCHES
+    with _COUNT_LOCK:
+        LAUNCHES += 1
+        LAUNCHES_BY_ROUTE[route] += 1
+
+
+def reset_launches():
+    """Set :data:`LAUNCHES` and :data:`LAUNCHES_BY_ROUTE` to 0."""
+    global LAUNCHES
+    with _COUNT_LOCK:
+        LAUNCHES = 0
+        for route in LAUNCHES_BY_ROUTE:
+            LAUNCHES_BY_ROUTE[route] = 0

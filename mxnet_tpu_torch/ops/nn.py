@@ -19,6 +19,7 @@ from __future__ import annotations
 
 import contextlib
 import math
+import threading
 
 import numpy as np
 import torch
@@ -34,20 +35,45 @@ from .registry import OpDef, register, register_def
 #: are held against the JAX package's f32 results, so they run full FP32
 CONV_TF32 = False
 
+# the open conv_precision sections (all threads) and the caller's value of
+# cuDNN's switch, saved by the first of them
+_TF32_LOCK = threading.Lock()
+_tf32_depth = 0
+_tf32_saved = None
+
 
 @contextlib.contextmanager
 def conv_precision(device):
-    """Set cuDNN's TF32 switch to :data:`CONV_TF32` while an entry point
-    runs on ``device``, and restore it after."""
+    """Hold cuDNN's TF32 switch at :data:`CONV_TF32` while an entry point
+    runs on ``device``, and give the caller's value back after.
+
+    The switch is process-global, and entry points run on several threads
+    at once (each serving replica's batching thread calls
+    ``ServingEngine.infer``). A save, set and restore in each section let
+    one thread's restore turn TF32 back on while another was mid-forward.
+    So the sections are counted under a lock: the first to open saves the
+    caller's value and sets :data:`CONV_TF32`, the last to close restores
+    the saved value. While any entry point runs, the switch reads
+    :data:`CONV_TF32`; when none runs, it is the caller's again. Setting
+    it once at the first entry point was rejected because the caller's
+    value must come back: a caller that runs its own convolutions in TF32
+    would otherwise find them in FP32 after the port's first call."""
+    global _tf32_depth, _tf32_saved
     if device.type != "cuda":
         yield
         return
-    prev = torch.backends.cudnn.allow_tf32
-    torch.backends.cudnn.allow_tf32 = CONV_TF32
+    with _TF32_LOCK:
+        if _tf32_depth == 0:
+            _tf32_saved = torch.backends.cudnn.allow_tf32
+            torch.backends.cudnn.allow_tf32 = CONV_TF32
+        _tf32_depth += 1
     try:
         yield
     finally:
-        torch.backends.cudnn.allow_tf32 = prev
+        with _TF32_LOCK:
+            _tf32_depth -= 1
+            if _tf32_depth == 0:
+                torch.backends.cudnn.allow_tf32 = _tf32_saved
 
 
 # ---------------------------------------------------------------------------

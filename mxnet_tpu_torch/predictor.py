@@ -1,14 +1,18 @@
-"""Checkpoint helpers shared by the serving tier.
+"""The standalone predictor, and the checkpoint helpers the serving tier
+shares with it.
 
-Counterparts of the helpers in ``mxnet_tpu/predictor.py`` that the engine
-imports: loss-head stripping, symbol and param loading, partial-output
-picking and the missing-parameter check. The standalone ``Predictor``
-class comes in a later slice.
+Counterpart of ``mxnet_tpu/predictor.py`` (ref: the reference's
+``c_predict_api``): loss-head stripping, symbol and param loading,
+partial-output picking, the missing-parameter check, and
+:class:`Predictor`, which binds the stripped symbol through
+``Symbol.bind`` and serves variable batch sizes with ``reshape``.
 """
 from __future__ import annotations
 
+from collections import OrderedDict
+
 from .base import MXNetError, attr_bool
-from .context import cpu
+from .context import Context, cpu, gpu
 from . import ndarray as nd
 from . import symbol as sym
 from .ops import registry as _reg
@@ -110,3 +114,123 @@ def check_missing_params(symbol, input_names, arg_params, aux_params,
             "mismatched params file would serve garbage predictions "
             "(pass allow_missing=True to zero-fill deliberately)"
             % (who, sorted(missing)))
+
+
+class Predictor(object):
+    """Forward-only executor over a checkpoint (the reference's
+    ``MXPredCreate``/``MXPredReshape``/``MXPredForward``).
+
+    ``input_shapes`` maps input name -> FULL shape (batch included).
+    ``ctx`` is where it runs: ``gpu(0)`` by default. The JAX package's
+    default is ``current_context()``; the port's entry points run on the
+    card unless the caller asks for the CPU (``ctx=cpu()``).
+
+    The parameters move to ``ctx`` once. Executors are cached by the full
+    input-shape tuple, so :meth:`reshape` between a set of batch sizes
+    binds each shape once; the cache keeps the 16 most recently used.
+    """
+
+    #: executor-cache LRU bound (distinct input-shape tuples kept alive)
+    _EXEC_CACHE_CAP = 16
+
+    def __init__(self, symbol_json_or_file, param_file_or_dict, input_shapes,
+                 ctx=None, output_names=None, allow_missing=False):
+        ctx = gpu(0) if ctx is None else ctx
+        self._ctx = ctx if isinstance(ctx, Context) else Context(ctx)
+        self._symbol = _strip_loss_heads(load_symbol(symbol_json_or_file))
+        if output_names:
+            self._symbol = pick_partial_outputs(self._symbol, output_names)
+        arg_params, aux_params = load_param_dict(param_file_or_dict)
+        if not allow_missing:
+            check_missing_params(self._symbol, set(input_shapes),
+                                 arg_params, aux_params)
+        self._input_names = list(input_shapes.keys())
+        self._arg_params = {k: self._on_ctx(v) for k, v in arg_params.items()}
+        self._aux_params = {k: self._on_ctx(v) for k, v in aux_params.items()}
+        self._exec_cache = OrderedDict()
+        self._executor = self._bind(
+            {k: tuple(v) for k, v in input_shapes.items()})
+
+    def _on_ctx(self, v):
+        if isinstance(v, nd.NDArray):
+            return v.as_in_context(self._ctx)
+        if hasattr(v, "asnumpy"):            # an NDArray of another package
+            v = v.asnumpy()
+        return nd.array(v, ctx=self._ctx)
+
+    def _shape_key(self, input_shapes):
+        return tuple(sorted((n, tuple(s)) for n, s in input_shapes.items()))
+
+    def _bind(self, input_shapes):
+        key = self._shape_key(input_shapes)
+        cached = self._exec_cache.get(key)
+        if cached is not None:
+            self._exec_cache.move_to_end(key)
+            return cached
+        arg_shapes, _, aux_shapes = self._symbol.infer_shape(**input_shapes)
+        args = {}
+        for name, shape in zip(self._symbol.list_arguments(), arg_shapes):
+            if name in self._arg_params:
+                p = self._arg_params[name]
+                if tuple(p.shape) != tuple(shape):
+                    raise MXNetError(
+                        "bind changes parameter %s: %s -> %s (only input "
+                        "shapes may change)" % (name, tuple(p.shape),
+                                                tuple(shape)))
+                args[name] = p
+            else:
+                args[name] = nd.zeros(shape, ctx=self._ctx)
+        aux = {}
+        for name, shape in zip(self._symbol.list_auxiliary_states(),
+                               aux_shapes):
+            if name in self._aux_params:
+                a = self._aux_params[name]
+                if tuple(a.shape) != tuple(shape):
+                    raise MXNetError(
+                        "bind changes auxiliary state %s: %s -> %s (only "
+                        "input shapes may change)" % (name, tuple(a.shape),
+                                                      tuple(shape)))
+                aux[name] = a
+            else:
+                aux[name] = nd.zeros(shape, ctx=self._ctx)
+        executor = self._symbol.bind(self._ctx, args, aux_states=aux)
+        self._exec_cache[key] = executor
+        while len(self._exec_cache) > self._EXEC_CACHE_CAP:
+            self._exec_cache.popitem(last=False)
+        return executor
+
+    def reshape(self, input_shapes):
+        """Rebind for new input shapes, keeping the loaded parameters —
+        the ``MXPredReshape`` capability. Inputs not named keep their
+        current shapes. Returns self."""
+        full = {n: tuple(self._executor.arg_dict[n].shape)
+                for n in self._input_names}
+        unknown = set(input_shapes) - set(full)
+        if unknown:
+            raise MXNetError("reshape: unknown inputs %s (have %s)"
+                             % (sorted(unknown), self._input_names))
+        full.update({k: tuple(v) for k, v in input_shapes.items()})
+        try:
+            self._executor = self._bind(full)
+        except MXNetError as e:
+            raise MXNetError(str(e).replace("bind changes",
+                                            "reshape changes"))
+        self._input_names = list(full.keys())
+        return self
+
+    def forward(self, **inputs):
+        """Run the forward on the named inputs (numpy arrays, tensors or
+        NDArrays of the bound shapes); returns self."""
+        for k in inputs:
+            if k not in self._input_names:
+                raise MXNetError("unknown input %r (have %s)"
+                                 % (k, self._input_names))
+        self._executor.forward(is_train=False, **inputs)
+        return self
+
+    def get_output(self, index=0):
+        return self._executor.outputs[index]
+
+    @property
+    def outputs(self):
+        return self._executor.outputs

@@ -192,11 +192,39 @@ def test_no_cpu_fallback_without_cuda(ckpt, monkeypatch):
     (dict(contexts=2), "contexts"),
     (dict(executables="x.bin"), "executables"),
 ])
-def test_unported_options_raise(ckpt, kwargs, what):
-    prefix, _, _ = ckpt
-    with pytest.raises(MXNetError, match=what):
-        ServingEngine(*_files(prefix), {"data": SHAPE}, device="cpu",
-                      **kwargs)
+def test_unported_options_raise(ckpt, served, kwargs, what, caplog):
+    """``contexts=`` (several cards) still raises. ``quantize="int8"``
+    serves: its detections equal, bit for bit, an f32 engine loaded with
+    the int8 weights dequantized on the host, and its weights take under
+    0.3 of the f32 bytes. ``executables=`` warns naming the file and
+    serves, equal to the engine without it."""
+    prefix, _, images = ckpt
+    x = {"data": images[:3]}
+    if what == "contexts":
+        with pytest.raises(MXNetError, match=what):
+            ServingEngine(*_files(prefix), {"data": SHAPE}, device="cpu",
+                          **kwargs)
+        return
+    out, f32 = served
+    with caplog.at_level("WARNING"):
+        eng = ServingEngine(*_files(prefix), {"data": SHAPE},
+                            buckets=BUCKETS, device="cpu", **kwargs)
+    got = eng.infer(x)[0]
+    want = f32.infer(x)[0]
+    if what == "executables":
+        assert "x.bin" in caplog.text and "warming up afresh" in caplog.text
+        np.testing.assert_array_equal(got, want)
+        return
+    from mxnet_tpu_torch.serving import quantize as tq
+    assert eng.quant_mode == "int8"
+    assert eng.weight_bytes() < 0.3 * f32.weight_bytes()
+    _, params, _ = ckpt
+    host = {k: tq.dequant_leaf(tq.quantize_array(v, "int8")).numpy()
+            for k, v in params.items()}
+    deq = ServingEngine(_files(prefix)[0], host, {"data": SHAPE},
+                        buckets=BUCKETS, device="cpu")
+    assert got.shape == want.shape
+    np.testing.assert_array_equal(got, deq.infer(x)[0])
 
 
 def test_import_pulls_in_neither_jax_nor_mxnet_tpu():
