@@ -157,11 +157,37 @@ non-zero):
    the joined engine's warm-up), all smem; p50 and p99 by class. (e) the
    Predictor on gpu(0), reshaped over 1, 8 and 32 images, against
    ServingEngine (absolute 1e-6), and its executor cache.
+14. training API: the train phase's ResNet-50 (NHWC, 224x224, batch 128,
+   bf16 compute over float32 masters, MXTPU_FUSE_CONV_BN=1), TF32 off and
+   cuDNN deterministic, SGD(lr 0.1, momentum 0.9, wd 1e-4), Xavier
+   arg_params and 8 host batches from --seed. (a) Module(compute_dtype=
+   "bfloat16").fit, 2 epochs at 4 steps a dispatch, checkpoints every 4
+   batches, the guard on: uninterrupted with async saves (A), and stopped
+   by a callback after 6 batches then resumed with resume="auto", sync
+   saves (B); A and B must end with equal parameters and moving
+   statistics, bit for bit; each fit must launch matmul_stats 33 times a
+   step, all wgmma; prints the seconds a save takes on the training
+   thread, async against sync. (b) TrainStep.step(guard=True): a clean
+   guarded step must equal an unguarded one bit for bit, and with
+   guard.grad_nan armed must leave every tensor and the step counter as
+   they were and report skipped 1; prints both steps' times (CUDA
+   events). (c) two steps from one state at remat False, True and "conv":
+   the states must be equal bit for bit; prints matmul_stats launches a
+   step (33, 66, 66 expected and checked) and peak device memory. (d)
+   MXTPU_BF16_STATS=1 and =opt: bfloat16 aux (and optimizer states with
+   opt), finite losses over 4 steps, the step time, and a Module.fit
+   checkpoint whose arrays are all float32. (e) the zoo through
+   FeedForward.fit, NCHW float32 (TF32 off), Xavier, SGD, 8 steps each:
+   Inception-BN 3x224x224 at batch 64, AlexNet at 128, VGG-16 at 32:
+   finite cross-entropy and parameters, images/s; Dropout p=0.5 on a
+   4096x4096 tensor on the card keeps 0.5 +- 0.005 of it, and equal seeds
+   give equal masks.
 
 The line before the last is {"kernels": [...]} (per kernel: launches on
 its main path, max error against the plain version, times and bound; the
 NMS kernel's launches also by path: serving, training and the serving
-tier); the last line is {"ok": true, "device": {...}}.
+tier; the matmul_stats kernel's by path: the train phase and the training
+API); the last line is {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
@@ -1015,7 +1041,20 @@ def train_phase(seed, card):
             "[%s]" % (what, 1e3 * t, bsz / t, n, card))
     log("train: peak device memory %.2f GiB"
         % (torch.cuda.max_memory_allocated() / 2 ** 30))
-    profile_step(lambda: fused.step(state, b1), card)
+    profiles = {"unguarded": profile_step(lambda: fused.step(state, b1),
+                                          card)}
+    # phase 14's guarded and remat steps, profiled here for their device
+    # time: after phase 8 the profiler drops kernel records
+    profiles["guarded"] = profile_step(
+        lambda: fused.step(state, b1, guard=True), card,
+        "one guarded fused step")
+    for mode in (True, "conv"):
+        rs = TrainStep(sym, optimizer="sgd", learning_rate=0.1,
+                       momentum=0.9, wd=1e-4, compute_dtype="bfloat16",
+                       remat=mode)
+        profiles["remat %r" % (mode,)] = profile_step(
+            lambda: rs.step(state, b1), card,
+            "one fused step with remat=%r" % (mode,))
     # the float32 step that Module.fit runs (phase 10), profiled here:
     # after phase 8 the profiler has dropped kernel records
     f32 = TrainStep(sym, optimizer="sgd", learning_rate=0.1, momentum=0.9,
@@ -1026,7 +1065,7 @@ def train_phase(seed, card):
                      "one fused float32 step (TF32 off)")
     if problems:
         raise SystemExit("train phase failed: " + "; ".join(problems))
-    return launches
+    return launches, {k: v and v["total"] for k, v in profiles.items()}
 
 
 # ---------------------------------------------------------------------------
@@ -2856,6 +2895,387 @@ def serving_tier_phase(seed, card, fit_params):
     return tier_launches
 
 
+# ---------------------------------------------------------------------------
+# training API phase: resume, the guard, remat, bf16 statistics and the zoo
+# ---------------------------------------------------------------------------
+
+#: phase 14 (a): host batches a epoch, epochs, steps a dispatch, the
+#: checkpoint cadence in batches, and the batch after which run B stops
+API_BATCHES = 8
+API_EPOCHS = 2
+API_K = 4
+API_EVERY = 4
+API_STOP = 6
+#: phase 14 (e): the zoo through FeedForward.fit at 3x224x224, NCHW f32:
+#: (network, its kwargs, batch), ZOO_STEPS steps each
+ZOO = (("inception-bn", {}, 64), ("alexnet", {}, 128),
+       ("vgg", {"num_layers": 16}, 32))
+ZOO_STEPS = 8
+#: Dropout's kept fraction of a 4096x4096 tensor at p = 0.5 lies within
+#: 0.5 +- DROPOUT_TOL (16.7M draws: the standard deviation is 1.2e-4)
+DROPOUT_TOL = 0.005
+
+
+class _Stop(Exception):
+    """Raised from a batch callback to stop a fit, as a kill would."""
+
+
+def _equal_or_worst(a, b):
+    """(True, 0.0) when the two name -> tensor dicts are equal bit for bit,
+    else (False, the largest |a - b|, float64)."""
+    worst = 0.0
+    same = True
+    for n, v in a.items():
+        if not (v.dtype == b[n].dtype and bool((v == b[n]).all())):
+            same = False
+            worst = max(worst, float((v.double() - b[n].double()).abs()
+                                     .max()))
+    return same, worst
+
+
+def training_api_phase(seed, card, step_profiles):
+    """Phase 14; returns B1's launches in it (all on the wgmma route).
+    ``step_profiles``: the train phase's profiler device times (ms) of one
+    fused step unguarded, guarded and under each remat mode (None where
+    no two profiles agreed)."""
+    import torch
+    import mxnet_tpu_torch as mt
+    from mxnet_tpu_torch import faults, models
+    from mxnet_tpu_torch.executor import node_generator
+    from mxnet_tpu_torch.model import CheckpointManager
+    from mxnet_tpu_torch.ops import matmul_stats as ms
+    from mxnet_tpu_torch.ops import registry as treg
+    from mxnet_tpu_torch.train_step import TrainStep, _metric_step_sums
+
+    class CountingManager(CheckpointManager):
+        calls = 0
+
+        def save(self, *a, **kw):
+            self.calls += 1
+            return super().save(*a, **kw)
+
+    t_phase = time.perf_counter()
+    bsz, img, nb = RESNET_BATCH, RESNET_IMAGE, API_BATCHES
+    dshape = (bsz, img, img, 3)
+    per_step = sum(B1_STEP_SHAPES.values())
+    dev = mt.gpu(0).to_device()
+    os.environ["MXTPU_FUSE_CONV_BN"] = "1"
+    with mt.symbol.NameManager():
+        sym = models.resnet(num_classes=RESNET_CLASSES, num_layers=50,
+                            image_shape="3,%d,%d" % (img, img),
+                            layout="NHWC")
+    rng = np.random.default_rng(seed + 14)
+    images = rng.standard_normal((nb * bsz,) + dshape[1:], dtype=np.float32)
+    labels = rng.integers(0, RESNET_CLASSES, nb * bsz).astype(np.float32)
+    arg_params = xavier_params(sym, dshape, seed)
+    problems = []
+    launches = 0
+
+    def wgmma_only(what, want):
+        routes = dict(ms.LAUNCHES_BY_ROUTE)
+        if routes != {"wgmma": want, "wmma": 0, "tf32x3": 0, "f32": 0}:
+            problems.append("%s: matmul_stats routes %s, expected %d wgmma"
+                            % (what, routes, want))
+        return routes["wgmma"]
+
+    with no_tf32(), deterministic_cudnn(), \
+            tempfile.TemporaryDirectory() as tmp:
+        # (a) Module.fit with checkpoints and the guard, uninterrupted (A)
+        # against stopped after API_STOP batches and resumed (B)
+        def fit(prefix, stop=None, resume=None, asyn=True):
+            mgr = CountingManager(os.path.join(tmp, prefix), keep=3)
+            mod = mt.mod.Module(sym, context=mt.gpu(0),
+                                compute_dtype="bfloat16")
+
+            def cb(p):
+                if stop is not None and p.epoch * nb + p.nbatch + 1 >= stop:
+                    raise _Stop()
+            t0 = time.perf_counter()
+            try:
+                mod.fit(mt.io.NDArrayIter(images, labels, batch_size=bsz),
+                        num_epoch=API_EPOCHS, optimizer="sgd",
+                        optimizer_params=MODULE_OPT, arg_params=arg_params,
+                        steps_per_dispatch=API_K, dispatch_pipeline=1,
+                        batch_end_callback=cb, checkpoint_prefix=mgr,
+                        checkpoint_every_n_batches=API_EVERY,
+                        checkpoint_async=asyn, guard=True, resume=resume)
+            except _Stop:
+                pass
+            torch.cuda.synchronize()
+            return mod, mgr, time.perf_counter() - t0
+
+        runs = {}
+        for name, prefix, stop, resume, asyn in (
+                ("A", "a", None, None, True), ("B stopped", "b", API_STOP,
+                                               None, False),
+                ("B resumed", "b", None, "auto", False)):
+            # the main path: counts at 0 just before, read just after
+            ms.reset_launches()
+            mod, mgr, secs = fit(prefix, stop, resume, asyn)
+            steps = {"A": nb * API_EPOCHS, "B stopped": 2 * API_K,
+                     "B resumed": nb * API_EPOCHS - API_K}[name]
+            n = wgmma_only("fit " + name, steps * per_step)
+            launches += n
+            runs[name] = mod
+            log("training api (a) fit %s: %d steps in %.3f s (host clock, "
+                "bind and the first step included), %d checkpoint saves "
+                "%s, %.4f s a save on the training thread; matmul_stats "
+                "%d launches on the wgmma route; newest checkpoint %s [%s]"
+                % (name, steps, secs, mgr.calls,
+                   "async" if asyn else "sync", mgr.save_time / mgr.calls,
+                   n, mgr.load_latest().tag, card))
+        a, b = runs["A"].get_params(), runs["B resumed"].get_params()
+        for what, i in (("parameters", 0), ("aux states", 1)):
+            same, worst = _equal_or_worst({n: v.data for n, v in a[i].items()},
+                                          {n: v.data for n, v in b[i].items()})
+            log("training api (a) the resumed fit's %s against the "
+                "uninterrupted fit's: %s (largest difference %g)"
+                % (what, "equal bit for bit" if same else "DIFFER", worst))
+            if not same:
+                problems.append("resume: %s differ by up to %g" % (what,
+                                                                   worst))
+
+        # (b) the guard: a clean guarded step against an unguarded one, and
+        # a guarded step with guard.grad_nan armed
+        step = TrainStep(sym, optimizer="sgd", learning_rate=0.1,
+                         momentum=0.9, wd=1e-4, compute_dtype="bfloat16")
+        state0 = step.init({"data": dshape}, {"softmax_label": (bsz,)},
+                           seed=seed)
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(seed + 15)
+
+        def batch():
+            return {"data": torch.randn(dshape, generator=gen, device=dev),
+                    "softmax_label": torch.randint(
+                        0, RESNET_CLASSES, (bsz,), generator=gen,
+                        device=dev).float()}
+
+        b0, b1 = batch(), batch()
+        plain, guarded = clone_state(state0), clone_state(state0)
+        ms.reset_launches()
+        step.step(plain, b0)
+        _, _, packed = step.step(guarded, b0, guard=True)
+        torch.cuda.synchronize()
+        launches += wgmma_only("guard", 2 * per_step)
+        sent = packed.cpu().numpy()
+        for key in ("params", "aux", "opt"):
+            same, worst = _equal_or_worst(plain[key], guarded[key])
+            if not same:
+                problems.append("guard: a clean guarded step's %s differ "
+                                "from the unguarded step's by %g"
+                                % (key, worst))
+        before = clone_state(guarded)
+        faults.inject("guard.grad_nan", nth=1)
+        ms.reset_launches()
+        _, _, packed_nan = step.step(guarded, b1, guard=True)
+        torch.cuda.synchronize()
+        launches += wgmma_only("guard, grad_nan", per_step)
+        faults.clear()
+        nan_sent = packed_nan.cpu().numpy()
+        noop = all(_equal_or_worst(before[k], guarded[k])[0]
+                   for k in ("params", "aux", "opt"))
+        noop = noop and int(guarded["step"]) == int(before["step"])
+        if not noop or nan_sent[3] != 1:
+            problems.append("guard: the grad_nan step was not a no-op "
+                            "(skipped %g)" % nan_sent[3])
+        # in turns, plain and guarded, on one state (CUDA events: the
+        # eager step is host-bound, so these include the launch gaps)
+        timed = clone_state(state0)
+        turns = {"unguarded": [], "guarded": []}
+        for _ in range(2):
+            for what, guard in (("unguarded", False), ("guarded", True)):
+                turns[what].append(cuda_time_ms(
+                    lambda: step.step(timed, b0, guard=guard), 3, warmup=1))
+        prof = {k: step_profiles.get(k) for k in ("unguarded", "guarded")}
+        log("training api (b) guard: a clean guarded step equals the "
+            "unguarded one bit for bit: %s; sentinels [loss %.4f, correct "
+            "%g, samples %g, skipped %g, grad norm %.6g]; with guard.grad_nan "
+            "armed: every tensor and the step counter unchanged: %s, "
+            "skipped %g, grad norm %s; device time of a step (train "
+            "phase's profiles) %s ms guarded against %s unguarded; a step "
+            "on CUDA events, in turns, %s ms guarded against %s unguarded "
+            "[%s]"
+            % (not any(p.startswith("guard: a clean") for p in problems),
+               sent[0], sent[1], sent[2], sent[3], sent[4], noop,
+               nan_sent[3], nan_sent[4], prof["guarded"], prof["unguarded"],
+               ["%.3f" % t for t in turns["guarded"]],
+               ["%.3f" % t for t in turns["unguarded"]], card))
+
+        # (c) remat: two steps from one state in each mode
+        remat = {}
+        for mode in (False, True, "conv"):
+            rs = TrainStep(sym, optimizer="sgd", learning_rate=0.1,
+                           momentum=0.9, wd=1e-4, compute_dtype="bfloat16",
+                           remat=mode)
+            st = clone_state(state0)
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            ms.reset_launches()
+            for bt in (b0, b1):
+                rs.step(st, bt)
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated()
+            n = wgmma_only("remat %r" % (mode,),
+                           2 * per_step * (1 if mode is False else 2))
+            launches += n
+            t = cuda_time_ms(lambda: rs.step(clone_state(state0), b0), 3,
+                             warmup=1)
+            remat[mode] = st
+            dev_ms = step_profiles.get("unguarded" if mode is False
+                                       else "remat %r" % (mode,))
+            log("training api (c) remat=%r: matmul_stats %d launches a "
+                "step; peak device memory %.3f GiB over two steps (%.3f GiB "
+                "held before them); a step %.3f ms (CUDA events, 3 steps), "
+                "%s ms of device time (train phase's profile) [%s]"
+                % (mode, n // 2, peak / 2 ** 30, base / 2 ** 30, t, dev_ms,
+                   card))
+        for mode in (True, "conv"):
+            same, worst = _equal_or_worst(remat[False]["params"],
+                                          remat[mode]["params"])
+            same_aux, worst_aux = _equal_or_worst(remat[False]["aux"],
+                                                  remat[mode]["aux"])
+            log("training api (c) remat=%r against no remat after two "
+                "steps: parameters %s (largest difference %g), moving "
+                "statistics %s (%g)"
+                % (mode, "equal bit for bit" if same else "DIFFER", worst,
+                   "equal bit for bit" if same_aux else "DIFFER",
+                   worst_aux))
+            if not (same and same_aux):
+                problems.append("remat=%r: the state differs from no remat "
+                                "by up to %g" % (mode, max(worst,
+                                                           worst_aux)))
+
+        # (d) MXTPU_BF16_STATS: storage dtypes, finite losses, the step
+        # time, and a fit's checkpoint in float32
+        for mode in ("1", "opt"):
+            os.environ["MXTPU_BF16_STATS"] = mode
+            try:
+                bs = TrainStep(sym, optimizer="sgd", learning_rate=0.1,
+                               momentum=0.9, wd=1e-4,
+                               compute_dtype="bfloat16")
+                st = bs.init({"data": dshape}, {"softmax_label": (bsz,)},
+                             seed=seed)
+                dtypes = ({str(v.dtype) for v in st["aux"].values()},
+                          {str(v.dtype) for v in st["opt"].values()
+                           if v is not None})
+                want = ({"torch.bfloat16"}, {"torch.bfloat16"
+                                             if mode == "opt"
+                                             else "torch.float32"})
+                ms.reset_launches()
+                losses = []
+                for bt in (b0, b1, b0, b1):
+                    _, outs = bs.step(st, bt)
+                    zero = torch.zeros((), device=dev)
+                    losses.append(float(_metric_step_sums(
+                        outs, [bt["softmax_label"]], zero)[0]) / bsz)
+                torch.cuda.synchronize()
+                launches += wgmma_only("bf16 stats %s" % mode, 4 * per_step)
+                # in turns with the float32-statistics step of (b)
+                t = cuda_time_ms(lambda: bs.step(st, b0), 3, warmup=1)
+                t32 = cuda_time_ms(lambda: step.step(timed, b0), 3,
+                                   warmup=1)
+                mgr = CheckpointManager(os.path.join(tmp, "bf16" + mode))
+                mod = mt.mod.Module(sym, context=mt.gpu(0),
+                                    compute_dtype="bfloat16")
+                ms.reset_launches()
+                mod.fit(mt.io.NDArrayIter(images[:API_K * bsz],
+                                          labels[:API_K * bsz],
+                                          batch_size=bsz),
+                        num_epoch=1, optimizer="sgd",
+                        optimizer_params=MODULE_OPT, arg_params=arg_params,
+                        steps_per_dispatch=API_K, checkpoint_prefix=mgr)
+                torch.cuda.synchronize()
+                launches += wgmma_only("bf16 stats %s fit" % mode,
+                                       API_K * per_step)
+                ck = mgr.load_latest()
+                import pickle
+                with open(ck.opt_states_file, "rb") as f:
+                    opt_dtypes = {str(np.asarray(v).dtype)
+                                  for v in pickle.loads(f.read()).values()
+                                  if v is not None}
+                file_dtypes = ({str(v.dtype) for v in ck.arg_params.values()}
+                               | {str(v.dtype)
+                                  for v in ck.aux_params.values()}
+                               | opt_dtypes)
+                fused = {str(v.dtype)
+                         for v in mod._fused_state["aux"].values()}
+            finally:
+                del os.environ["MXTPU_BF16_STATS"]
+            log("training api (d) MXTPU_BF16_STATS=%s: aux %s, optimizer "
+                "states %s; losses %s; a step %.3f ms against %.3f with "
+                "float32 statistics, in turns (CUDA events, 3 steps each); "
+                "a fit's fused aux %s, its checkpoint's arrays %s [%s]"
+                % (mode, sorted(dtypes[0]), sorted(dtypes[1]),
+                   ["%.4f" % v for v in losses], t, t32, sorted(fused),
+                   sorted(file_dtypes), card))
+            if dtypes != want or fused != {"torch.bfloat16"}:
+                problems.append("bf16 stats %s: dtypes %s, fused aux %s"
+                                % (mode, dtypes, fused))
+            if not all(np.isfinite(losses)):
+                problems.append("bf16 stats %s: non-finite loss" % mode)
+            if file_dtypes != {"float32"}:
+                problems.append("bf16 stats %s: the checkpoint holds %s"
+                                % (mode, file_dtypes))
+
+    # (e) the zoo at full width through FeedForward.fit, NCHW float32
+    with no_tf32():
+        for name, kw, b in ZOO:
+            zrng = np.random.default_rng(seed + 16)
+            X = zrng.standard_normal((ZOO_STEPS * b, 3, img, img),
+                                     dtype=np.float32)
+            y = zrng.integers(0, RESNET_CLASSES, ZOO_STEPS * b).astype(
+                np.float32)
+            zsym = models.get_symbol(name, num_classes=RESNET_CLASSES, **kw)
+            stamps = []
+
+            def stamp(_):
+                torch.cuda.synchronize()
+                stamps.append(time.perf_counter())
+            metric = mt.metric.CrossEntropy()
+            mt.random.seed(seed)
+            model = mt.model.FeedForward(
+                zsym, ctx=mt.gpu(0), num_epoch=1, numpy_batch_size=b,
+                initializer=mt.initializer.Xavier(), learning_rate=0.01,
+                momentum=0.9, wd=1e-4)
+            model.fit(X, y, eval_metric=metric, batch_end_callback=stamp)
+            ce = metric.get()[1]
+            ips = (ZOO_STEPS - 1) * b / (stamps[-1] - stamps[0])
+            finite = all(np.isfinite(v.asnumpy()).all()
+                         for v in model.arg_params.values())
+            log("training api (e) %s%s b=%d NCHW float32 (TF32 off): %d "
+                "steps through FeedForward.fit, cross-entropy %.4f, params "
+                "finite %s, %.1f images/s over steps 2-%d (host clock, each "
+                "step ended by a synchronize) [%s]"
+                % (name, kw or "", b, len(stamps), ce, finite, ips,
+                   ZOO_STEPS, card))
+            if len(stamps) != ZOO_STEPS or not (np.isfinite(ce) and finite):
+                problems.append("zoo %s: %d steps, cross-entropy %g"
+                                % (name, len(stamps), ce))
+    x = torch.ones((4096, 4096), device=dev)
+
+    def drop(key):
+        return treg.get("Dropout").apply(
+            treg.OpContext(is_train=True, rng=node_generator(key, 0, dev)),
+            {"p": 0.5}, [x], [])[0][0]
+    d1 = drop(seed)
+    kept = float((d1 != 0).float().mean())
+    same = bool(torch.equal(d1, drop(seed)))
+    other = not bool(torch.equal(d1, drop(seed + 1)))
+    log("training api (e) Dropout p=0.5 on 4096x4096: kept %.6f (0.5 +- "
+        "%g), equal seeds give equal masks %s, another seed another %s"
+        % (kept, DROPOUT_TOL, same, other))
+    if abs(kept - 0.5) > DROPOUT_TOL or not (same and other):
+        problems.append("Dropout: kept %g, same seed same mask %s"
+                        % (kept, same))
+    log("training api: matmul_stats %d launches in the phase, all wgmma; "
+        "the phase took %.1f s" % (launches, time.perf_counter() - t_phase))
+    if problems:
+        raise SystemExit("training api phase failed: " + "; ".join(problems))
+    return launches
+
+
 def _nodes(sym):
     from mxnet_tpu_torch.symbol import _topo
     return _topo(sym._out_nodes())
@@ -2899,7 +3319,7 @@ def main():
     nms = kernel_phase(rng, max(20, 10 * args.reps), card)
     b1 = b1_phase(args.seed, args.reps, card)
     serve_launches = serve_phase(args.seed, args.reps, card)
-    b1["launches"] = train_phase(args.seed, card)
+    b1["launches"], step_profiles = train_phase(args.seed, card)
     ssd_profile = ssd_train_profile(args.seed, card)
     rtc_err, rtc_host = rtc_phase(args.seed, args.reps, card)
     launches, upd_err, upd, event, bound = bind_phase(args.seed, 3, card)
@@ -2912,6 +3332,11 @@ def main():
                                     os.path.join(tmp, "ssd_fit"))
         tier_launches = serving_tier_phase(args.seed, card,
                                            ssd_train["checkpoint"])
+    api_launches = training_api_phase(args.seed, card, step_profiles)
+    # B1 runs on two main paths: the train phase and the training API
+    b1.update(launches=b1["launches"] + api_launches,
+              launches_train=b1["launches"],
+              launches_training_api=api_launches)
     # B2 runs on three main paths: serving (phase 5), training (phase 12)
     # and the serving tier (phase 13)
     nms.update(launches=(serve_launches + ssd_train["launches"]

@@ -23,9 +23,14 @@ through ``Rtc`` and NVRTC); and the Module API: ``mod.Module`` with
 ``model`` and ``engine``; and the serving tier: ``serving.Batcher``,
 ``serving.FleetRouter``, quantized weights and hot reload in
 ``ServingEngine``, :class:`Predictor`, with ``faults``, ``obs``'s metrics
-registry and the tuning-DB knob resolution of ``autotune``.
+registry and the tuning-DB knob resolution of ``autotune``; and the rest
+of the training API: checkpoint and resume (``model.CheckpointManager``,
+``model.AsyncCheckpointWriter``, ``fit(resume=, checkpoint_*=)``), the
+training ``guard``, ``TrainStep``'s ``remat`` and ``MXTPU_BF16_STATS``,
+``model.FeedForward``, and the AlexNet, VGG and Inception-BN ``models``
+with ``Dropout`` and ``LRN``.
 """
-from .base import MXNetError, __version__
+from .base import MXNetError, TrainingPreemptedError, __version__
 from . import base
 from . import engine
 from .context import Context, cpu, gpu, cpu_pinned, current_context
@@ -57,6 +62,7 @@ from .train_step import TrainStep
 from . import predictor
 from .predictor import Predictor
 from . import faults
+from . import guard
 from . import autotune
 from . import serving
 from . import models

@@ -18,6 +18,20 @@ class MXNetError(Exception):
     """Error raised by mxnet_tpu_torch (parity: dmlc error -> Python)."""
 
 
+class TrainingPreemptedError(MXNetError):
+    """``Module.fit`` received SIGTERM (a scheduler's preemption notice)
+    and shut down gracefully: the dispatch pipeline drained, an emergency
+    checkpoint sealed with the async writer drained, within
+    ``MXTPU_SIGTERM_DEADLINE`` seconds. Re-launch with ``resume='auto'``
+    to continue from that checkpoint."""
+
+    def __init__(self, msg, epoch=None, batches_done=None, tag=None):
+        self.epoch = epoch
+        self.batches_done = batches_done
+        self.tag = tag
+        super().__init__(msg)
+
+
 _NULL = object()  # sentinel for "unset" attr values
 
 

@@ -6,8 +6,9 @@ Under ``steps_per_dispatch=k`` a batch-end callback fires once per
 dispatch with ``nbatch`` advanced by K, so the periodic callbacks fire on
 crossing each period boundary. The ``Speedometer`` appends, from the
 ``fit`` that calls it, the dispatch pipeline's depth and read-back stall
-and the input tier's data stall since its last line (its guard, dist and
-retrace suffixes wait for the ports of those layers).
+and the input tier's data stall since its last line, and a guarded run's
+training-health counters (its dist and retrace suffixes wait for the ports
+of those layers).
 """
 from __future__ import annotations
 
@@ -92,6 +93,23 @@ class Speedometer(object):
             return ""
         return "\tPipeline: depth=%d host_stall=%.3fs" % (p.depth, d)
 
+    @staticmethod
+    def _health_suffix(param):
+        """This run's TrainingHealth counters when it is guarded and has
+        something to report: the guard comes from ``fit``'s locals, never
+        the process-wide aggregate, so one run's counters never reach
+        another run's (or score()'s) lines."""
+        g = _local(param, "guard")
+        if g is None:
+            return ""
+        h = g.health.report()
+        if not (h["skipped"] or h["rollbacks"] or h["divergences"]):
+            return ""
+        gn = ("%.4g" % h["last_grad_norm"]
+              if h["last_grad_norm"] is not None else "n/a")
+        return ("\tGuard: skipped=%d rollbacks=%d grad_norm=%s"
+                % (h["skipped"], h["rollbacks"], gn))
+
     def _data_suffix(self, param):
         st = _local(param, "data_stats")
         if st is None:
@@ -114,7 +132,7 @@ class Speedometer(object):
                 speed = ((count - self._fired) * self.batch_size
                          / (time.time() - self.tic))
                 suffix = self._pipeline_suffix(param) \
-                    + self._data_suffix(param)
+                    + self._data_suffix(param) + self._health_suffix(param)
                 if param.eval_metric is not None:
                     name_value = param.eval_metric.get_name_value()
                     param.eval_metric.reset()

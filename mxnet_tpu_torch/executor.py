@@ -75,7 +75,33 @@ def node_generator(key, index, device):
     return gen
 
 
-def _build_graph_runner(symbol, placement=None, node_constraint=None):
+#: ``TrainStep(remat=...)`` settings: none, the whole forward recomputed,
+#: or only the Convolution and FullyConnected outputs kept
+REMAT_MODES = (False, True, "conv")
+
+#: the ops whose outputs ``remat="conv"`` keeps
+REMAT_ANCHORS = ("Convolution", "FullyConnected")
+
+
+def remat_segments(nodes):
+    """The op nodes of topologically ordered ``nodes`` (by index) cut into
+    runs that each end at a Convolution or FullyConnected node; the last
+    run ends at the graph's outputs."""
+    segs, cur = [], []
+    for k, node in enumerate(nodes):
+        if node.is_variable:
+            continue
+        cur.append(k)
+        if node.op.name in REMAT_ANCHORS:
+            segs.append(cur)
+            cur = []
+    if cur:
+        segs.append(cur)
+    return segs
+
+
+def _build_graph_runner(symbol, placement=None, node_constraint=None,
+                        remat=False):
     """Lower the symbol DAG to ``run(arg_vals, aux_vals, rng=None,
     is_train=False, monitor=None) -> (outputs, aux_updates)``. Nodes run in
     topological order over an environment keyed by (node, output index);
@@ -84,59 +110,142 @@ def _build_graph_runner(symbol, placement=None, node_constraint=None):
     ``needs_rng`` get :func:`node_generator` of it and their node index.
     ``monitor(name, tensor)`` sees every op output. Ops without array
     inputs create theirs on the device of the first argument. Returns
-    ``(run, nodes)``."""
+    ``(run, nodes)``.
+
+    ``remat`` (one of :data:`REMAT_MODES`) recomputes activations in the
+    backward instead of keeping them (ref: MXNET_BACKWARD_DO_MIRROR), through
+    ``torch.utils.checkpoint``: ``True`` checkpoints the whole forward;
+    ``"conv"`` checkpoints each segment of :func:`remat_segments`, so the
+    values that cross segments (the Convolution and FullyConnected
+    outputs, and the inputs a later segment reads, such as a residual
+    block's input) are kept and the elementwise chain in each segment, with
+    its convolution, runs again in the backward. The recompute draws the
+    same random numbers (a node's generator is made from the key and its
+    index) and returns aux updates that are dropped, so the moving
+    statistics move once a step."""
     if placement is not None:
         raise MXNetError("_build_graph_runner: placement (ctx_group model "
                          "parallelism) is not ported yet")
     if node_constraint is not None:
         raise MXNetError("_build_graph_runner: node_constraint (the "
                          "sharding hook) is not ported yet")
+    if remat not in REMAT_MODES:
+        raise MXNetError("remat must be one of %s, got %r"
+                         % (REMAT_MODES, remat))
     nodes = _topo(symbol._out_nodes())
     fused_convs, bn_stats_src = ({}, {}) if fuse_mode() == "0" \
         else fusion_pairs(nodes)
 
-    def run(arg_vals, aux_vals, rng=None, is_train=False, monitor=None):
-        use_fusion = bool(fused_convs) and is_train
-        device = next(iter(arg_vals.values())).device if arg_vals else None
+    def apply(k, env, stats_env, aux_updates, aux_vals, rng, is_train,
+              use_fusion, device, monitor):
+        node = nodes[k]
+        ins = [env[(id(n), i)] for n, i in node.inputs]
+        aux_names = node.op.list_aux(node.attrs)
+        aux_in = [aux_vals["%s_%s" % (node.name, a)] for a in aux_names]
+        if use_fusion and id(node) in fused_convs:
+            y, stats_env[id(node)] = _ms.apply_conv1x1_stats(ins[0], ins[1])
+            outs, aux_up = (y,), None
+        else:
+            gen = None
+            if node.op.needs_rng and rng is not None:
+                gen = node_generator(rng, k, ins[0].device if ins else device)
+            fused_stats = (stats_env.get(bn_stats_src.get(id(node)))
+                           if use_fusion else None)
+            op_ctx = OpContext(is_train=is_train, rng=gen,
+                               fused_stats=fused_stats, device=device)
+            outs, aux_up = node.op.apply(op_ctx, node.attrs, ins, aux_in)
+        for i, o in enumerate(outs):
+            env[(id(node), i)] = o
+        if monitor is not None:
+            for oname, o in zip(node.output_names(), outs):
+                monitor(oname, o)
+        if aux_up is not None:
+            for a, u in zip(aux_names, aux_up):
+                aux_updates["%s_%s" % (node.name, a)] = u
+
+    def bind_variables(arg_vals):
         env = {}
-        stats_env = {}
-        aux_updates = {}
-        for k, node in enumerate(nodes):
+        for node in nodes:
             if node.is_variable:
                 if node.name not in arg_vals:
                     raise MXNetError("graph runner: no value for %r"
                                      % node.name)
                 env[(id(node), 0)] = arg_vals[node.name]
-                continue
-            ins = [env[(id(n), i)] for n, i in node.inputs]
-            aux_names = node.op.list_aux(node.attrs)
-            aux_in = [aux_vals["%s_%s" % (node.name, a)] for a in aux_names]
-            if use_fusion and id(node) in fused_convs:
-                y, stats_env[id(node)] = _ms.apply_conv1x1_stats(ins[0],
-                                                                 ins[1])
-                outs, aux_up = (y,), None
-            else:
-                gen = None
-                if node.op.needs_rng and rng is not None:
-                    gen = node_generator(rng, k,
-                                         ins[0].device if ins else device)
-                fused_stats = (stats_env.get(bn_stats_src.get(id(node)))
-                               if use_fusion else None)
-                op_ctx = OpContext(is_train=is_train, rng=gen,
-                                   fused_stats=fused_stats, device=device)
-                outs, aux_up = node.op.apply(op_ctx, node.attrs, ins, aux_in)
-            for i, o in enumerate(outs):
-                env[(id(node), i)] = o
-            if monitor is not None:
-                for oname, o in zip(node.output_names(), outs):
-                    monitor(oname, o)
-            if aux_up is not None:
-                for a, u in zip(aux_names, aux_up):
-                    aux_updates["%s_%s" % (node.name, a)] = u
+        return env
+
+    def run(arg_vals, aux_vals, rng=None, is_train=False, monitor=None):
+        use_fusion = bool(fused_convs) and is_train
+        device = next(iter(arg_vals.values())).device if arg_vals else None
+        env = bind_variables(arg_vals)
+        stats_env = {}
+        aux_updates = {}
+        for k, node in enumerate(nodes):
+            if not node.is_variable:
+                apply(k, env, stats_env, aux_updates, aux_vals, rng,
+                      is_train, use_fusion, device, monitor)
         outputs = [env[(id(n), i)] for n, i in symbol._outputs]
         return outputs, aux_updates
 
-    return run, nodes
+    if not remat:
+        return run, nodes
+    from torch.utils.checkpoint import checkpoint
+
+    if remat is True:
+        def run_remat(arg_vals, aux_vals, rng=None, is_train=False,
+                      monitor=None):
+            return checkpoint(run, arg_vals, aux_vals, rng, is_train,
+                              monitor, use_reentrant=False)
+        return run_remat, nodes
+
+    segs = remat_segments(nodes)
+    seg_of = {id(nodes[k]): i for i, seg in enumerate(segs) for k in seg}
+    out_keys = {(id(n), i) for n, i in symbol._outputs}
+    # per segment: the environment entries it reads from outside itself,
+    # and those it writes that a later segment or the outputs read
+    reads = [[] for _ in segs]
+    needed = set(out_keys)
+    for i, seg in enumerate(segs):
+        for k in seg:
+            for src, idx in nodes[k].inputs:
+                key = (id(src), idx)
+                if seg_of.get(id(src)) != i and key not in reads[i]:
+                    reads[i].append(key)
+                    needed.add(key)
+    writes = [[(id(nodes[k]), o) for k in seg
+               for o in range(len(nodes[k].output_names()))
+               if (id(nodes[k]), o) in needed] for seg in segs]
+    # the fused producers whose statistics a later segment's BatchNorm reads
+    stats_out = [[id(nodes[k]) for k in seg if id(nodes[k]) in fused_convs]
+                 for seg in segs]
+
+    def run_segments(arg_vals, aux_vals, rng=None, is_train=False,
+                     monitor=None):
+        use_fusion = bool(fused_convs) and is_train
+        device = next(iter(arg_vals.values())).device if arg_vals else None
+        env = bind_variables(arg_vals)
+        stats_env = {}
+        aux_updates = {}
+        for i, seg in enumerate(segs):
+            def segment(vals, stats_in, i=i, seg=seg):
+                local = dict(zip(reads[i], vals))
+                local_stats = dict(stats_in)
+                local_aux = {}
+                for k in seg:
+                    apply(k, local, local_stats, local_aux, aux_vals, rng,
+                          is_train, use_fusion, device, monitor)
+                return ([local[key] for key in writes[i]],
+                        {c: local_stats[c] for c in stats_out[i]
+                         if c in local_stats}, local_aux)
+            outs, stats, aux_up = checkpoint(
+                segment, [env[key] for key in reads[i]], dict(stats_env),
+                use_reentrant=False)
+            env.update(zip(writes[i], outs))
+            stats_env.update(stats)
+            aux_updates.update(aux_up)
+        outputs = [env[(id(n), i)] for n, i in symbol._outputs]
+        return outputs, aux_updates
+
+    return run_segments, nodes
 
 
 class Executor(object):

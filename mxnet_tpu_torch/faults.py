@@ -7,11 +7,31 @@ recovery path is tested without sleeps, races or flaky timing.
 
 Sites the port instruments (the static registry :data:`SITES`; the JAX
 package's other sites come with the modules that fire them: the data
-tier, checkpoints, the kvstore, the training guard, the decode loop):
+tier, the kvstore, the decode loop):
 
 ===========================  ==============================================
 site                         where it fires
 ===========================  ==============================================
+``checkpoint.write``         before an atomic checkpoint file write
+                             (``model.atomic_write_bytes``); ``"truncate"``
+                             publishes half the payload (a torn write the
+                             manifest's checksum catches at load)
+``checkpoint.write.mid``     after half the payload is written
+``ckpt.disk_full``           inside ``model.atomic_write_bytes`` after half
+                             the payload — ENOSPC: the temp file is removed
+                             and an :class:`MXNetError` names the path
+``ckpt.async_write``         on the async checkpoint writer thread, before
+                             a save's first byte (the save is dropped and
+                             counted in the writer's ``errors``)
+``ckpt.async_die``           top of an async save — ``"die"`` kills the
+                             writer thread mid-job
+``guard.grad_nan``           per train step of a GUARDED fused dispatch —
+                             poisons the gradients with NaN on the device
+                             (fired through :func:`fire_flag`)
+``guard.loss_spike``         per guarded dispatch observation — inflates
+                             the loss the divergence watcher sees
+``guard.param_nan``          at checkpoint save — forces the manifest's
+                             known-good bit off
 ``serve.enqueue_drop``       per ``serving.Batcher.submit`` — ``"drop"``
                              rejects the request with
                              ``ServingOverloadedError`` (back-pressure
@@ -100,8 +120,8 @@ _env_loaded = False
 class SiteInfo(object):
     """Static metadata for one registered fault site. ``kinds`` are the
     rule kinds that exercise a real recovery path at this site; ``flag``
-    marks data-poison sites (none in the port yet); ``scenarios`` names
-    the workloads that reach the site."""
+    marks the :func:`fire_flag` data-poison sites; ``scenarios`` names the
+    workloads that reach the site."""
 
     __slots__ = ("name", "kinds", "flag", "scenarios", "doc")
 
@@ -122,6 +142,26 @@ def _register(name, kinds, scenarios, doc, flag=False):
 
 # The static site registry: keep it in lockstep with the instrumented call
 # sites of the port.
+_register("checkpoint.write", ("raise", "transient", "truncate"), ("train",),
+          "before an atomic checkpoint file write")
+_register("checkpoint.write.mid", ("raise",), ("train",),
+          "mid-stream, after half the checkpoint payload is written")
+_register("ckpt.disk_full", ("enospc",), ("train",),
+          "inside atomic_write_bytes — ENOSPC after half the payload; the "
+          "tmp file is cleaned up and an actionable MXNetError names the "
+          "path (the live file is untouched)")
+_register("ckpt.async_write", ("raise", "transient", "delay"), ("train",),
+          "async checkpoint writer thread, before a save's first byte")
+_register("ckpt.async_die", ("die",), ("train",),
+          "top of an async save — kills the writer thread mid-job")
+_register("guard.grad_nan", ("poison",), ("train",),
+          "per guarded train step — poisons gradients with NaN on device",
+          flag=True)
+_register("guard.loss_spike", ("poison",), ("train",),
+          "per guarded dispatch observation — inflates the watched loss",
+          flag=True)
+_register("guard.param_nan", ("poison",), ("train",),
+          "at checkpoint save — forces the known-good bit off", flag=True)
 _register("serve.enqueue_drop", ("drop",), ("serve",),
           "per serving.Batcher.submit — back-pressure shed at the edge")
 _register("fleet.replica_die", ("die",), ("serve",),
@@ -255,6 +295,26 @@ def fire(site):
         time.sleep(hit.delay)
         return "delay"
     return hit.kind
+
+
+def fire_flag(site):
+    """Hook for sites that take a fault as DATA POISON rather than a
+    control-flow exception: like :func:`fire` it counts the call and
+    matches rules, but it never raises or sleeps; it returns True when any
+    armed rule (of any kind) covers this call. The training guard's sites
+    use it: ``guard.grad_nan`` poisons the step's gradients,
+    ``guard.loss_spike`` inflates the observed loss, ``guard.param_nan``
+    forces the checkpoint's known-good bit off, so the plain
+    ``faults.inject(site, nth=N)`` arms each of them."""
+    with _lock:
+        _load_env_locked()
+        call_no = _counts.get(site, 0) + 1
+        _counts[site] = call_no
+        for rule in _rules.get(site, ()):
+            if rule.covers(call_no):
+                _fired[site] = _fired.get(site, 0) + 1
+                return True
+    return False
 
 
 class scoped(object):

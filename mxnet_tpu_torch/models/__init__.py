@@ -1,7 +1,44 @@
-"""Model zoo of the port (counterpart of ``mxnet_tpu/models``)."""
+"""Model zoo of the port (counterpart of ``mxnet_tpu/models``): symbol
+builders for the reference's flagship configurations, and
+:func:`get_symbol`, the factory by name."""
+from ..base import MXNetError
 from . import ssd
 from .lenet import get_symbol as lenet
 from .mlp import get_symbol as mlp
 from .resnet import get_symbol as resnet
+from .alexnet import get_symbol as alexnet
+from .vgg import get_symbol as vgg
+from .inception_bn import get_symbol as inception_bn
 
-__all__ = ["lenet", "mlp", "resnet", "ssd"]
+
+def transformer(**kwargs):
+    """The LM flagship's symbol: not ported yet (it needs
+    ``MultiHeadAttention``, ``LayerNorm`` and the transformer stack)."""
+    raise MXNetError("models.transformer is not ported yet (ROADMAP A.9, "
+                     "the LM flagship)")
+
+
+_FACTORIES = {
+    "transformer": transformer,
+    "lenet": lenet,
+    "mlp": mlp,
+    "resnet": resnet,
+    "alexnet": alexnet,
+    "vgg": vgg,
+    "inception-bn": inception_bn,
+    # the training symbol (MultiBoxTarget matching and the loss heads)
+    "ssd": ssd.get_symbol_train,
+}
+
+
+def get_symbol(network, **kwargs):
+    """Factory by name (ref: example/image-classification/train_*.py
+    --network flag)."""
+    if network not in _FACTORIES:
+        raise ValueError("unknown network %r; have %s"
+                         % (network, sorted(_FACTORIES)))
+    return _FACTORIES[network](**kwargs)
+
+
+__all__ = ["alexnet", "get_symbol", "inception_bn", "lenet", "mlp",
+           "resnet", "ssd", "transformer", "vgg"]

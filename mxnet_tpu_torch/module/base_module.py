@@ -13,23 +13,35 @@ JAX package's dispatch structure:
   ``TrainStep.run_steps`` a superbatch keeps the metric's declared sums
   on the device, and a :class:`_DispatchPipeline` of depth D reads dispatch
   N's sums back only after dispatch N+D is queued. Metric folds and
-  ``batch_end_callback`` run in dispatch order (``_consume``).
+  ``batch_end_callback`` run in dispatch order (``_consume``);
+- fault tolerance: ``checkpoint_prefix`` writes checkpoints through a
+  :class:`~mxnet_tpu_torch.model.CheckpointManager` at every epoch end and
+  every ``checkpoint_every_n_batches`` batches (on a dispatch boundary),
+  on a background writer with ``checkpoint_async``; ``resume="auto"``
+  restores the newest valid one and fast-forwards the iterator; SIGTERM
+  seals an emergency checkpoint and raises
+  :class:`~mxnet_tpu_torch.base.TrainingPreemptedError`;
+- the training guard (``guard=``, ``MXTPU_GUARD``): guarded steps skip
+  non-finite batches on the device, and a diverging loss rolls back to the
+  newest known-good checkpoint with the learning rate scaled down
+  (:mod:`~mxnet_tpu_torch.guard`).
 
 Knobs resolve as explicit argument, then environment, then the committed
 tuning DB (:func:`mxnet_tpu_torch.autotune.resolve_fit_knobs`, matched on
 the module's symbol, batch and device kind), then the built-in default, as
-in the JAX package; the log names each knob's source. ``guard=``
-(``MXTPU_GUARD``), ``resume=``, ``checkpoint_prefix=``,
-``checkpoint_every_n_batches=``, ``checkpoint_async=`` and ``monitor=``
-raise naming themselves.
+in the JAX package; the log names each knob's source. ``monitor=`` raises
+naming itself (not ported yet).
 """
 from __future__ import annotations
 
 import logging
+import os
+import signal
+import threading
 import time
 from collections import deque
 
-from ..base import MXNetError, env_bool
+from ..base import MXNetError, TrainingPreemptedError, env_bool, env_float
 from .. import autotune as _autotune
 from .. import metric as _metric
 from .. import ndarray as nd
@@ -85,6 +97,11 @@ class _DispatchPipeline(object):
         while self._pending:
             out.append(self._fetch_one())
         return out
+
+    def discard(self):
+        """Drop the dispatches in flight unread (a divergence rollback:
+        they cover the state being abandoned)."""
+        self._pending.clear()
 
     def _fetch_one(self):
         sums, nsteps, nbatch, disp = self._pending.popleft()
@@ -209,21 +226,68 @@ class BaseModule(object):
         ``dispatch_pipeline=d`` (env ``MXTPU_DISPATCH_PIPELINE``, default
         1) defers each dispatch's metric read-back until ``d`` more are
         queued; the folds and callbacks stay in dispatch order.
+
+        ``checkpoint_prefix`` (a path prefix or a
+        :class:`~mxnet_tpu_torch.model.CheckpointManager`) checkpoints at
+        each epoch end and every ``checkpoint_every_n_batches`` batches
+        (at a dispatch boundary), keeping the last ``checkpoint_keep``;
+        ``checkpoint_async=True`` (env ``MXTPU_ASYNC_CKPT``) writes them on
+        a background thread, the loop paying only for device copies and
+        waiting at epoch ends, rollbacks and teardown. ``resume="auto"``
+        restores the newest valid checkpoint (parameters, aux and optimizer
+        states, the update clock, the random state, the metric's partial
+        sums) and fast-forwards the iterator past the batches it holds, so
+        a killed run continues bit for bit. With a manager, SIGTERM (unless
+        ``MXTPU_SIGTERM_GRACEFUL_OFF``) seals an emergency checkpoint at
+        the next batch boundary and raises
+        :class:`~mxnet_tpu_torch.base.TrainingPreemptedError`, or exits
+        with 124 after ``MXTPU_SIGTERM_DEADLINE`` seconds (30).
+
+        ``guard=True``, a :class:`~mxnet_tpu_torch.guard.TrainingGuard`,
+        or ``MXTPU_GUARD=1`` trains through guarded steps: non-finite steps
+        are no-ops on the device and counted in ``guard.health``; on
+        divergence fit rolls back to the newest known-good checkpoint with
+        the lr scaled by ``guard.lr_factor``, and raises
+        :class:`~mxnet_tpu_torch.guard.TrainingDivergedError` once
+        ``guard.max_rollbacks`` is spent or there is nothing to roll back
+        to. It needs the fused path; otherwise fit warns and trains
+        unguarded.
         """
         if num_epoch is None:
             raise MXNetError("fit: please specify number of epochs")
-        for what, val in (("guard", guard), ("resume", resume),
-                          ("checkpoint_prefix", checkpoint_prefix),
-                          ("checkpoint_every_n_batches",
-                           checkpoint_every_n_batches),
-                          ("checkpoint_async", checkpoint_async),
-                          ("monitor", monitor)):
-            if val not in (None, False):
-                raise MXNetError("fit(%s=...) is not ported yet" % what)
-        if env_bool("MXTPU_GUARD"):
-            raise MXNetError("MXTPU_GUARD (fit's training-health guard) is "
-                             "not ported yet")
+        if monitor is not None:
+            raise MXNetError("fit(monitor=...) is not ported yet")
         from ..initializer import Uniform
+        from ..model import CheckpointManager
+        ckpt_mgr = None
+        resume_state = None
+        if checkpoint_prefix is not None:
+            if isinstance(checkpoint_prefix, CheckpointManager):
+                ckpt_mgr = checkpoint_prefix
+            else:
+                ckpt_mgr = CheckpointManager(checkpoint_prefix,
+                                             keep=checkpoint_keep,
+                                             logger=self.logger)
+        if resume in ("auto", True):
+            if ckpt_mgr is None:
+                raise MXNetError("fit(resume=%r) requires checkpoint_prefix"
+                                 % (resume,))
+            resume_state = ckpt_mgr.load_latest()
+            if resume_state is None:
+                self.logger.info("resume='auto': no valid checkpoint under "
+                                 "%r, starting fresh", checkpoint_prefix)
+            else:
+                self.logger.info(
+                    "resuming from checkpoint %s (epoch %d, %d batches "
+                    "done)", resume_state.tag, resume_state.epoch,
+                    resume_state.batches_done)
+                arg_params = resume_state.arg_params
+                aux_params = resume_state.aux_params
+                force_init = True
+                begin_epoch = resume_state.epoch
+        elif resume not in (None, False):
+            raise MXNetError("resume must be 'auto' or None, got %r"
+                             % (resume,))
         if initializer is None:
             initializer = Uniform(0.01)
         self.bind(data_shapes=train_data.provide_data,
@@ -234,10 +298,49 @@ class BaseModule(object):
                          force_init=force_init)
         self.init_optimizer(kvstore=kvstore, optimizer=optimizer,
                             optimizer_params=optimizer_params)
+        if resume_state is not None:
+            self._apply_resume_state(resume_state)
         if validation_metric is None:
             validation_metric = eval_metric
         if not isinstance(eval_metric, _metric.EvalMetric):
             eval_metric = _metric.create(eval_metric)
+
+        from ..guard import TrainingGuard, _DivergenceRollback
+        if guard is None and env_bool("MXTPU_GUARD"):
+            guard = True
+        if guard in (None, False):
+            guard = None
+        else:
+            if not isinstance(guard, TrainingGuard):
+                guard = TrainingGuard(logger=self.logger)
+            can = getattr(self, "_can_guard", None)
+            ok, why = (can() if can is not None
+                       else (False, "this module has no fused guard "
+                             "support"))
+            if not ok:
+                self.logger.warning(
+                    "guard: training-health guardrails unavailable (%s); "
+                    "training UNGUARDED", why)
+                guard = None
+            elif ckpt_mgr is None:
+                self.logger.warning(
+                    "guard: no checkpoint_prefix — divergence cannot roll "
+                    "back and will raise TrainingDivergedError")
+
+        # the async writer is made after the guard, so that shed saves count
+        # into this run's health
+        writer_owned = False
+        if ckpt_mgr is not None:
+            if checkpoint_async is None:
+                checkpoint_async = env_bool("MXTPU_ASYNC_CKPT")
+            if checkpoint_async and ckpt_mgr.async_writer is None:
+                from ..model import AsyncCheckpointWriter
+                from .. import guard as _guard_mod
+                ckpt_mgr.async_writer = AsyncCheckpointWriter(
+                    logger=self.logger,
+                    health=(guard.health if guard is not None
+                            else _guard_mod.TRAINING_HEALTH))
+                writer_owned = True
 
         fused_step = getattr(self, "_try_fused_fit_step", None)
         fused_dispatch = getattr(self, "_dispatch_fused_steps", None)
@@ -273,75 +376,201 @@ class BaseModule(object):
                                                 device=self._device)
         else:
             train_iter = train_data
+        # a resumed run re-derives the data order of its absolute epoch
         iter_set_epoch = getattr(train_iter, "set_epoch", None)
         if iter_set_epoch is not None:
             iter_set_epoch(begin_epoch)
         data_stats = getattr(train_iter, "stats", None)
+        note_retired = getattr(self, "_note_dispatch_retired", None)
 
         def _consume(entries, epoch):
             """Retire dispatches in dispatch order: fold each one's sums
-            into the metric, then fire its batch callback before the next
-            fold, so every callback sees the metric as the eager mode
-            would at the same nbatch."""
+            into the metric and the guard, then fire its batch callback
+            before the next fold, so every callback sees the metric as the
+            eager mode would at the same nbatch."""
             for sums, nsteps, nb, disp in entries:
                 _metric.update_from_device_sums(eval_metric, sums)
+                if guard is not None:
+                    guard.on_dispatch(loss_sum=sums.loss_sum,
+                                      nsamp=sums.num_samples,
+                                      skipped=sums.skipped,
+                                      grad_norm=sums.last_grad_norm,
+                                      nsteps=nsteps)
+                if note_retired is not None:
+                    note_retired(sums, nsteps)
                 _flight.note("dispatch_retired", dispatch=disp, nbatch=nb,
                              nsteps=nsteps)
                 if batch_end_callback is not None:
                     cb_params = BatchEndParam(
                         epoch=epoch, nbatch=nb, eval_metric=eval_metric,
-                        locals={"pipeline": pipeline,
+                        locals={"guard": guard, "pipeline": pipeline,
                                 "eval_metric": eval_metric, "self": self,
                                 "data_stats": data_stats})
                     for callback in _as_list(batch_end_callback):
                         callback(cb_params)
 
         _flight.note("fit_start", epoch=begin_epoch)
+        # graceful preemption: SIGTERM only sets a flag, checked once a loop
+        # iteration (never mid-dispatch), and starts a hard deadline after
+        # which the process exits; installed with a manager to seal the
+        # emergency checkpoint into, and only on the main thread
+        preempt = None
+        prev_sigterm = None
+        if (ckpt_mgr is not None
+                and not env_bool("MXTPU_SIGTERM_GRACEFUL_OFF")
+                and threading.current_thread() is threading.main_thread()):
+            preempt = {"flag": False, "timer": None}
+            deadline_s = env_float("MXTPU_SIGTERM_DEADLINE", 30.0)
+
+            def _on_sigterm(signum, frame, _p=preempt, _d=deadline_s):
+                if _p["flag"]:
+                    return
+                _p["flag"] = True
+                t = threading.Timer(_d, os._exit, args=(124,))
+                t.daemon = True
+                t.start()
+                _p["timer"] = t
+            prev_sigterm = signal.getsignal(signal.SIGTERM)
+            signal.signal(signal.SIGTERM, _on_sigterm)
         try:
-            for epoch in range(begin_epoch, num_epoch):
+            epoch = begin_epoch
+            while epoch < num_epoch:
                 tic = time.time()
                 eval_metric.reset()
                 nbatch = -1
-                for data_batch in train_iter:
-                    sums = None
-                    disp_id = getattr(data_batch, "sb_seq",
-                                      pipeline.dispatches)
-                    if (k > 1 and getattr(data_batch, "num_steps", 0) == k):
-                        # the span is the enqueue; the device runs on and
-                        # the read-back is the readback_stall span
-                        with _obs_trace.span("dispatch", dispatch=disp_id,
-                                             k=k, epoch=epoch):
-                            sums = fused_dispatch(data_batch)
-                    if sums is not None:
-                        nbatch += data_batch.num_steps
-                        _consume(pipeline.push(sums, data_batch.num_steps,
-                                               nbatch, disp=disp_id), epoch)
-                        continue
-                    # per-step path, also the epoch tail (num_steps < k):
-                    # eager, so whatever is in flight retires first
+                since_ckpt = 0
+                resume_skip = 0
+                if (resume_state is not None
+                        and epoch == resume_state.epoch
+                        and resume_state.batches_done > 0):
+                    # mid-epoch resume (or rollback): replay the metric's
+                    # partial sums and skip the batches already trained
+                    resume_skip = resume_state.batches_done
+                    self._restore_metric_state(eval_metric,
+                                               resume_state.metric_state)
+                    self.logger.info("resume: fast-forwarding %d batches "
+                                     "of epoch %d", resume_skip, epoch)
+                try:
+                    for data_batch in train_iter:
+                        tail_batches = None
+                        stepped_eager = False
+                        if resume_skip > 0:
+                            n = getattr(data_batch, "num_steps", 1)
+                            if n <= resume_skip:
+                                resume_skip -= n
+                                nbatch += n
+                                continue
+                            # the checkpoint cut a superbatch (k changed
+                            # between runs): train its tail step by step
+                            tail_batches = data_batch.unstack()[resume_skip:]
+                            nbatch += resume_skip
+                            resume_skip = 0
+                        sums = None
+                        disp_id = getattr(data_batch, "sb_seq",
+                                          pipeline.dispatches)
+                        if (tail_batches is None and k > 1
+                                and getattr(data_batch, "num_steps", 0) == k):
+                            # the span is the enqueue; the device runs on and
+                            # the read-back is the readback_stall span
+                            with _obs_trace.span("dispatch", dispatch=disp_id,
+                                                 k=k, epoch=epoch):
+                                sums = fused_dispatch(data_batch, guard)
+                        if sums is not None:
+                            nbatch += data_batch.num_steps
+                            since_ckpt += data_batch.num_steps
+                            _consume(pipeline.push(sums, data_batch.num_steps,
+                                                   nbatch, disp=disp_id),
+                                     epoch)
+                        else:
+                            # per-step path, also the epoch tail (num_steps
+                            # < k): eager, so whatever is in flight retires
+                            # first
+                            _consume(pipeline.drain(), epoch)
+                            if tail_batches is None:
+                                tail_batches = (data_batch.unstack()
+                                                if hasattr(data_batch,
+                                                           "unstack")
+                                                else [data_batch])
+                            for batch in tail_batches:
+                                nbatch += 1
+                                since_ckpt += 1
+                                if guard is not None:
+                                    guard.last_step_skipped = False
+                                if (fused_step is None
+                                        or not fused_step(batch, guard)):
+                                    self.forward_backward(batch)
+                                    self.update()
+                                # a skipped step adds nothing to the metric
+                                if (guard is None
+                                        or not guard.last_step_skipped):
+                                    self.update_metric(eval_metric,
+                                                       batch.label)
+                            stepped_eager = True
+                        if guard is not None and guard.diverged:
+                            # a diverged state is never sealed
+                            raise _DivergenceRollback()
+                        if (ckpt_mgr is not None
+                                and checkpoint_every_n_batches
+                                and since_ckpt >= checkpoint_every_n_batches):
+                            # sealing needs every sentinel of the state it
+                            # seals: drain, check again, then ask the guard
+                            _consume(pipeline.drain(), epoch)
+                            if guard is not None and guard.diverged:
+                                raise _DivergenceRollback()
+                            if guard is None or guard.ok_to_checkpoint():
+                                # a state inside a loss spike is deferred,
+                                # so the newest known-good one predates it
+                                with _obs_trace.span("checkpoint",
+                                                     dispatch=disp_id,
+                                                     epoch=epoch,
+                                                     nbatch=nbatch + 1):
+                                    ckpt_mgr.save(self, epoch, nbatch + 1,
+                                                  metric=eval_metric)
+                                since_ckpt = 0
+                        if preempt is not None and preempt["flag"]:
+                            _consume(pipeline.drain(), epoch)
+                            self._graceful_preempt(preempt, ckpt_mgr, guard,
+                                                   eval_metric, epoch, nbatch)
+                        if stepped_eager and batch_end_callback is not None:
+                            batch_end_params = BatchEndParam(
+                                epoch=epoch, nbatch=nbatch,
+                                eval_metric=eval_metric, locals=locals())
+                            for callback in _as_list(batch_end_callback):
+                                callback(batch_end_params)
+                    # epoch end: everything in flight retires before the
+                    # epoch is sealed, and a divergence in those last
+                    # sentinels still rolls back
                     _consume(pipeline.drain(), epoch)
-                    batches = (data_batch.unstack()
-                               if hasattr(data_batch, "unstack")
-                               else [data_batch])
-                    for batch in batches:
-                        nbatch += 1
-                        if fused_step is None or not fused_step(batch):
-                            self.forward_backward(batch)
-                            self.update()
-                        self.update_metric(eval_metric, batch.label)
-                    if batch_end_callback is not None:
-                        batch_end_params = BatchEndParam(
-                            epoch=epoch, nbatch=nbatch,
-                            eval_metric=eval_metric, locals=locals())
-                        for callback in _as_list(batch_end_callback):
-                            callback(batch_end_params)
-                _consume(pipeline.drain(), epoch)
+                    if guard is not None and guard.diverged:
+                        raise _DivergenceRollback()
+                except _DivergenceRollback:
+                    # restore the newest known-good checkpoint and re-enter
+                    # the epoch loop at its cursor, as a resume; dispatches
+                    # in flight cover the abandoned state and are dropped
+                    _obs_trace.instant("divergence", epoch=epoch,
+                                       nbatch=nbatch,
+                                       reason=guard.diverged_reason)
+                    pipeline.discard()
+                    resume_state = self._guard_rollback(guard, ckpt_mgr)
+                    epoch = resume_state.epoch
+                    train_iter.reset()
+                    if iter_set_epoch is not None:
+                        iter_set_epoch(epoch)
+                    continue
 
                 for name, val in eval_metric.get_name_value():
                     self.logger.info("Epoch[%d] Train-%s=%f", epoch, name,
                                      val)
                 self.logger.info("Epoch[%d] Time cost=%.3f", epoch,
                                  time.time() - tic)
+                if guard is not None:
+                    h = guard.health.report()
+                    if h["skipped"] or h["rollbacks"]:
+                        self.logger.info(
+                            "Epoch[%d] TrainingHealth: skipped=%d "
+                            "rollbacks=%d divergences=%d last_grad_norm=%s",
+                            epoch, h["skipped"], h["rollbacks"],
+                            h["divergences"], h["last_grad_norm"])
                 arg_params, aux_params = self.get_params()
                 self.set_params(arg_params, aux_params)
                 if epoch_end_callback is not None:
@@ -356,6 +585,17 @@ class BaseModule(object):
                     for name, val in res:
                         self.logger.info("Epoch[%d] Validation-%s=%f",
                                          epoch, name, val)
+                if ckpt_mgr is not None and (guard is None
+                                             or guard.ok_to_checkpoint()):
+                    # the epoch-end checkpoint points at the next epoch's
+                    # start; an in-flight cadence save lands first (so this
+                    # one is never shed), and it is on disk before the next
+                    # epoch starts
+                    ckpt_mgr.drain()
+                    with _obs_trace.span("checkpoint", epoch=epoch + 1,
+                                         nbatch=0):
+                        ckpt_mgr.save(self, epoch + 1, 0)
+                    ckpt_mgr.drain()
                 if train_iter is train_data or epoch < num_epoch - 1:
                     train_iter.reset()
                 else:
@@ -363,9 +603,161 @@ class BaseModule(object):
                     # and hand back a reset base iterator
                     train_iter.close()
                     train_data.reset()
+                epoch += 1
         finally:
+            if preempt is not None:
+                signal.signal(signal.SIGTERM, prev_sigterm)
+                if preempt["timer"] is not None:
+                    preempt["timer"].cancel()
+            if ckpt_mgr is not None and ckpt_mgr.async_writer is not None:
+                # the in-flight save lands before fit returns; a writer fit
+                # made is closed and detached (its counters stay on
+                # last_async_writer), a caller's is only drained
+                if writer_owned:
+                    w = ckpt_mgr.async_writer
+                    w.close()
+                    ckpt_mgr.async_writer = None
+                    ckpt_mgr.last_async_writer = w
+                else:
+                    ckpt_mgr.async_writer.drain()
             if train_iter is not train_data:
                 train_iter.close()
+
+    # -- fused-dispatch and fault-tolerance hooks -------------------------
+    def _note_dispatch_retired(self, sums, nsteps):
+        """Advance the fused step mirror of a guarded dispatch once its
+        sentinels are read (skipped steps do not count); an unguarded
+        dispatch advanced it when it was queued."""
+        if getattr(sums, "guarded", False):
+            self._fused_host_step += int(nsteps) - sums.skipped
+
+    def _feed_guard_sentinels(self, guard, sent):
+        """One guarded single step's host side: advance the step mirror
+        (a skip does not count), feed the ``[loss, correct, nsamp, skipped,
+        grad_norm]`` sentinels to the guard and tell fit whether the batch
+        was skipped."""
+        self._fused_host_step += 1 - int(sent[3] > 0)
+        guard.on_dispatch(loss_sum=float(sent[0]), nsamp=float(sent[2]),
+                          skipped=float(sent[3]),
+                          grad_norm=float(sent[4]), nsteps=1)
+        guard.last_step_skipped = bool(sent[3] > 0)
+
+    def _graceful_preempt(self, preempt, ckpt_mgr, guard, eval_metric,
+                          epoch, nbatch):
+        """Honour a SIGTERM (the pipeline already drained): seal an
+        emergency checkpoint with the async writer drained on both sides,
+        dump the flight recorder, cancel the deadline and raise
+        :class:`TrainingPreemptedError`. The checkpoint's cursor is
+        ``nbatch + 1``, newer than the last cadence save."""
+        tag = None
+        if ckpt_mgr is not None and (guard is None
+                                     or guard.ok_to_checkpoint()):
+            ckpt_mgr.drain()
+            with _obs_trace.span("checkpoint", epoch=epoch,
+                                 nbatch=nbatch + 1, preempt=True):
+                ckpt_mgr.save(self, epoch, nbatch + 1, metric=eval_metric)
+            ckpt_mgr.drain()
+            tag = "e%04d-b%08d" % (epoch, nbatch + 1)
+        self.logger.warning(
+            "SIGTERM: graceful preemption — emergency checkpoint %s sealed "
+            "at epoch %d batch %d; re-launch with resume='auto' to "
+            "continue", tag or "(none: guard mid-spike or no manager)",
+            epoch, nbatch + 1)
+        _flight.dump("TrainingPreemptedError: SIGTERM preemption",
+                     extra={"epoch": epoch, "nbatch": nbatch, "tag": tag})
+        if preempt["timer"] is not None:
+            preempt["timer"].cancel()
+        raise TrainingPreemptedError(
+            "training preempted by SIGTERM at epoch %d batch %d "
+            "(emergency checkpoint: %s) — resume='auto' continues from it"
+            % (epoch, nbatch + 1, tag), epoch=epoch,
+            batches_done=nbatch + 1, tag=tag)
+
+    def _guard_rollback(self, guard, ckpt_mgr):
+        """Divergence recovery: restore the newest known-good checkpoint,
+        its trainer clock and random state, scale the lr by
+        ``guard.lr_factor`` and return the restored cursor to fit's epoch
+        loop. Raises :class:`~mxnet_tpu_torch.guard.TrainingDivergedError`
+        when the rollback budget is spent or nothing safe exists."""
+        from ..guard import TrainingDivergedError
+
+        def _diverged(msg):
+            _flight.dump("TrainingDivergedError: %s" % msg,
+                         extra={"health": guard.health.report()})
+            return TrainingDivergedError(msg, health=guard.health)
+
+        if guard.health.rollbacks >= guard.max_rollbacks:
+            raise _diverged(
+                "training diverged again after %d rollback(s) "
+                "(max_rollbacks=%d): %s"
+                % (guard.health.rollbacks, guard.max_rollbacks,
+                   guard.diverged_reason))
+        if ckpt_mgr is None:
+            raise _diverged(
+                "training diverged (%s) and fit() has no checkpoint_prefix "
+                "to roll back to — configure checkpoints or lower the lr"
+                % (guard.diverged_reason,))
+        # the search must see the newest async save whole on disk
+        ckpt_mgr.drain()
+        st = ckpt_mgr.load_latest()
+        if st is None:
+            raise _diverged(
+                "training diverged (%s) and no known-good checkpoint "
+                "exists under %r" % (guard.diverged_reason,
+                                     ckpt_mgr.prefix))
+        self.logger.warning(
+            "TrainingGuard: rolling back to known-good checkpoint %s "
+            "(epoch %d, %d batches done), reducing lr by x%g",
+            st.tag, st.epoch, st.batches_done, guard.lr_factor)
+        self.init_params(initializer=None, arg_params=st.arg_params,
+                         aux_params=st.aux_params, allow_missing=False,
+                         force_init=True)
+        # the diverged fused state (its optimizer states poisoned) goes
+        # before the checkpoint's is restored
+        self._drop_fused_state()
+        self._apply_resume_state(st)
+        self._scale_lr(guard.lr_factor)
+        _flight.dump("guard rollback to %s (%s)"
+                     % (st.tag, guard.diverged_reason),
+                     extra={"health": guard.health.report(),
+                            "rollback_tag": st.tag,
+                            "rollback_epoch": st.epoch})
+        guard.note_rollback(st.tag)
+        return st
+
+    def _drop_fused_state(self):
+        """Hook: discard any fused device state unwritten, so the next
+        dispatch reseeds from the restored parameters."""
+
+    def _scale_lr(self, factor):
+        """Hook: scale the learning rate everywhere the next step reads
+        it."""
+
+    def _apply_resume_state(self, st):
+        """Restore the optimizer states, the update clock and the random
+        state from a validated checkpoint (the parameters came through
+        ``init_params``)."""
+        if st.opt_states_file and hasattr(self, "load_optimizer_states"):
+            self.load_optimizer_states(st.opt_states_file)
+        self._restore_trainer_clock(st.num_update, st.fused_step)
+        st.restore_rng()
+
+    def _restore_trainer_clock(self, num_update, fused_step=None):
+        """Hook: continue the optimizer's update clock and the fused step
+        counter from a checkpoint's."""
+
+    @staticmethod
+    def _restore_metric_state(eval_metric, state):
+        """Replay a checkpointed metric's partial sums into a freshly reset
+        metric (the plain pair only; composites skip)."""
+        if not state or not hasattr(eval_metric, "sum_metric"):
+            return
+        try:
+            s, n = state
+        except (TypeError, ValueError):
+            return
+        eval_metric.sum_metric = s
+        eval_metric.num_inst = n
 
     # -- symbol / params accessors -------------------------------------
     @property

@@ -10,7 +10,13 @@ path that ``fit`` takes where the optimizer has a fused update: the port's
 :class:`~mxnet_tpu_torch.train_step.TrainStep` holds its own copy of the
 parameters, optimizer states and step count, which ``get_params``,
 ``save_checkpoint``, ``forward`` and ``score`` write back to the executor
-first. Several contexts, ``work_load_list``, ``MXTPU_DP_DEVICES``,
+first. The fused path also carries ``fit``'s training guard (the guarded
+step, its sentinels fed to the guard), its checkpoints (a host-side mirror
+of the fused step counter, decoupled optimizer-state snapshots for the
+async writer) and resume (the optimizer clock and the fused step counter
+restored). ``compute_dtype`` (the port's own argument) sets the fused
+step's compute dtype over float32 masters. Several contexts,
+``work_load_list``, ``MXTPU_DP_DEVICES``,
 ``mesh_axes``, ``param_shardings``, ``MXTPU_LM_MESH``, ``install_monitor``
 and ``MXNET_PROFILER_AUTOSTART`` raise naming themselves (not ported yet).
 """
@@ -41,8 +47,14 @@ class Module(BaseModule):
     def __init__(self, symbol, data_names=("data",),
                  label_names=("softmax_label",), logger=logging,
                  context=None, work_load_list=None, fixed_param_names=None,
-                 state_names=None, mesh_axes=None, param_shardings=None):
+                 state_names=None, mesh_axes=None, param_shardings=None,
+                 compute_dtype=None):
         super().__init__(logger=logger)
+        # the fused step's compute dtype (float32 masters, e.g. bfloat16
+        # compute as bench.py main() trains); the JAX package's Module has
+        # no such argument and computes in the parameters' dtype, as the
+        # executor path here does
+        self._compute_dtype = compute_dtype
         if mesh_axes is not None or env_str("MXTPU_LM_MESH"):
             raise MXNetError("Module: mesh_axes / MXTPU_LM_MESH (multi-axis "
                              "mesh training) is not ported yet")
@@ -105,6 +117,12 @@ class Module(BaseModule):
         self._fused_metrics_ok = False
         # the eval metric's device-sum spec, resolved by _can_bulk_dispatch
         self._fused_metric_spec = None
+        # the step count a resumed run's fused state starts from
+        self._resume_step = 0
+        # host-side mirror of the fused state's step counter, advanced per
+        # dispatch (guarded ones when their sentinels are read), so
+        # checkpoint manifests never read the device
+        self._fused_host_step = 0
 
     # -- checkpointing --------------------------------------------------
     @staticmethod
@@ -199,14 +217,14 @@ class Module(BaseModule):
         assert self.binded, "call bind before initializing the parameters"
         if initializer is None and not (arg_params or aux_params):
             initializer = Uniform(0.01)
-        if self._arg_params is None:
-            self._arg_params = {
-                n: self._exec_group.executor.arg_dict[n]
-                for n in self._param_names}
-        if self._aux_params is None:
-            self._aux_params = {
-                n: self._exec_group.executor.aux_dict[n]
-                for n in self._aux_names}
+        # the values go into the executor's arrays, and the module's dicts
+        # name those arrays again: a get_params that synced the fused state
+        # left copies in the dicts, and writing into the copies (as the JAX
+        # package does) would leave the executor, and the fused state seeded
+        # from it, on the old values
+        ex = self._exec_group.executor
+        self._arg_params = {n: ex.arg_dict[n] for n in self._param_names}
+        self._aux_params = {n: ex.aux_dict[n] for n in self._aux_names}
         attrs = self._symbol.attr_dict()
 
         def _impl(name, arr, cache):
@@ -366,6 +384,63 @@ class Module(BaseModule):
             return getattr(self._kvstore, "_updater", None)
         return self._updater
 
+    def _drop_fused_state(self):
+        """Rollback hook: discard the fused state without writing it back
+        (it holds the diverged parameters and optimizer states); the next
+        fused step reseeds from the executor's arrays and the updater's
+        states the rollback restored."""
+        self._fused_state = None
+        self._fused_outputs = None
+        self._fused_dirty = False
+        self._fused_params_stale = False
+
+    def _scale_lr(self, factor):
+        """Rollback hook: scale the learning rate everywhere the next step
+        reads it (the optimizer, its scheduler's base_lr, and the kvstore
+        updater's copy of the optimizer)."""
+        def scale(opt_):
+            opt_.lr *= factor
+            if opt_.lr_scheduler is not None:
+                opt_.lr_scheduler.base_lr *= factor
+
+        if self._optimizer is not None:
+            scale(self._optimizer)
+        upd_opt = getattr(self._resolve_updater(), "optimizer", None)
+        if upd_opt is not None and upd_opt is not self._optimizer:
+            scale(upd_opt)
+
+    def _fused_step_count(self):
+        """The fused step counter for checkpoint manifests, from the host
+        mirror (never the device); it trails ``num_update`` by the guard's
+        skipped steps. None when no fused state is live."""
+        if self._fused_state is None:
+            return None
+        return int(self._fused_host_step)
+
+    def _restore_trainer_clock(self, num_update, fused_step=None):
+        """Resume hook: continue the optimizer's update clock (the lr
+        schedule) from ``num_update`` and the fused step counter (the noise
+        streams, Adam's t) from ``fused_step``; checkpoints without it
+        carry only ``num_update``."""
+        n = int(num_update or 0)
+        self._resume_step = n if fused_step is None else int(fused_step)
+
+        def wind(opt_):
+            opt_.num_update = n
+            opt_.begin_num_update = n
+            opt_._index_update_count = {}
+
+        if self._optimizer is not None:
+            wind(self._optimizer)
+        updater = self._resolve_updater()
+        if updater is not None and getattr(updater, "optimizer",
+                                           None) is not None:
+            wind(updater.optimizer)
+        if self._fused_state is not None:
+            self._fused_state["step"] = torch.full(
+                (), self._resume_step, dtype=torch.int32, device=self._device)
+            self._fused_host_step = self._resume_step
+
     def borrow_optimizer(self, shared_module):
         assert shared_module.optimizer_initialized
         self._optimizer = shared_module._optimizer
@@ -398,7 +473,8 @@ class Module(BaseModule):
         self._fused = TrainStep(
             self._symbol, data_names=eg.data_names,
             label_names=eg.label_names, optimizer=self._optimizer,
-            frozen_param_names=frozen, device=self._device)
+            frozen_param_names=frozen, device=self._device,
+            compute_dtype=self._compute_dtype)
         self._fused_state = self._seed_fused_state()
         self._fused_params_stale = False
         self._fused_metrics_ok = self._infer_fused_metrics_ok()
@@ -448,20 +524,30 @@ class Module(BaseModule):
         self._fused_metric_spec = spec
         return True, None
 
+    def _can_guard(self):
+        """fit's precheck of ``guard=``: the sentinels and the guard's loss
+        watch need the fused step and a single classification head, as the
+        K-step path does."""
+        return self._can_bulk_dispatch()
+
     def _seed_fused_state(self, prev=None):
-        """The fused state from the executor's current arrays (copies).
-        ``prev`` keeps the optimizer states and step count across a
-        parameter re-seed."""
+        """The fused state from the executor's current arrays (copies; the
+        aux states in bfloat16 under ``MXTPU_BF16_STATS``). ``prev`` keeps
+        the optimizer states and step count across a parameter re-seed;
+        without it the step count starts where a resumed run stopped."""
         ex = self._exec_group.executor
         params = {n: ex.arg_dict[n].data.detach().clone()
                   for n in self._fused.param_names}
-        aux = {n: ex.aux_dict[n].data.detach().clone()
-               for n in self._fused.aux_names}
+        aux = self._fused.cast_stats(
+            {n: ex.aux_dict[n].data.detach().clone()
+             for n in self._fused.aux_names})
         if prev is not None:
             opt_state, step = prev["opt"], prev["step"]
         else:
             opt_state = self._fused_opt_state(params)
-            step = torch.zeros((), dtype=torch.int32, device=self._device)
+            step = torch.full((), self._resume_step, dtype=torch.int32,
+                              device=self._device)
+            self._fused_host_step = self._resume_step
         return {"params": params, "aux": aux, "opt": opt_state,
                 "step": step}
 
@@ -489,7 +575,7 @@ class Module(BaseModule):
                 out[n] = leaf(states[idx], v)
             else:
                 out[n] = self._optimizer.create_fused_state(v)
-        return out
+        return self._fused.cast_opt_state(out)
 
     def _refresh_fused_state(self):
         if self._fused_state is None:
@@ -534,28 +620,45 @@ class Module(BaseModule):
             self._fused_dirty = True
             self._params_dirty = True
 
-    def _try_fused_fit_step(self, data_batch):
+    def _try_fused_fit_step(self, data_batch, guard=None):
         """fit's per-step fast path: one fused forward, backward and update
         (``TrainStep.step``). False when the configuration needs the
-        executor path."""
+        executor path. With a :class:`~mxnet_tpu_torch.guard.TrainingGuard`
+        the guarded step runs, its sentinels go to the guard (the per-step
+        path reads the outputs anyway, so this costs no extra wait) and
+        ``guard.last_step_skipped`` keeps a skipped batch out of the
+        metric."""
         if not self._fused_ready():
             return False
+        batch = self._batch_dict(data_batch)
         try:
-            self._fused_state, outs = self._fused.step(
-                self._fused_state, self._batch_dict(data_batch))
+            if guard is None:
+                self._fused_state, outs = self._fused.step(
+                    self._fused_state, batch)
+                self._fused_host_step += 1
+            else:
+                guard.last_step_skipped = False
+                self._fused_state, outs, packed = self._fused.step(
+                    self._fused_state, batch, guard=True)
         except RetraceError as e:
             self._adopt_retrace_result(e)
             raise
-        self._fused_outputs = [NDArray(o) for o in outs]
+        # outputs computed in a 16-bit compute_dtype reach the host metric
+        # and get_outputs as float32 (numpy has no bfloat16)
+        self._fused_outputs = [NDArray(o.float() if o.dtype in (
+            torch.bfloat16, torch.float16) else o) for o in outs]
         self._fused_dirty = True
         self._params_dirty = True
+        if guard is not None:
+            self._feed_guard_sentinels(guard, packed.cpu().numpy())
         return True
 
-    def _dispatch_fused_steps(self, super_batch):
+    def _dispatch_fused_steps(self, super_batch, guard=None):
         """fit's K-step fast path: one ``TrainStep.run_steps`` over a
         stacked superbatch, returning the device-resident
         :class:`~mxnet_tpu_torch.train_step.StepMetrics` without reading it
-        back (fit's pipeline retires it in dispatch order). None when the
+        back (fit's pipeline retires it in dispatch order, and advances the
+        step mirror of a guarded dispatch then). None when the
         configuration needs the per-step path."""
         if not self._fused_ready():
             return None
@@ -565,10 +668,12 @@ class Module(BaseModule):
         try:
             self._fused_state, sums = self._fused.run_steps(
                 self._fused_state, self._batch_dict(super_batch),
-                metric_spec=spec)
+                guard=guard is not None, metric_spec=spec)
         except RetraceError as e:
             self._adopt_retrace_result(e)
             raise
+        if guard is None:
+            self._fused_host_step += super_batch.num_steps
         self._fused_outputs = None   # the outputs stay on the device
         self._fused_dirty = True
         self._params_dirty = True
@@ -583,6 +688,8 @@ class Module(BaseModule):
         for n in self._fused.param_names:
             ex.arg_dict[n]._set_data(self._fused_state["params"][n].clone())
         for n in self._fused.aux_names:
+            # _set_data casts bfloat16 moving statistics (MXTPU_BF16_STATS)
+            # back to the executor's float32, exactly
             ex.aux_dict[n]._set_data(self._fused_state["aux"][n].clone())
         self._fused_dirty = False
 
@@ -600,12 +707,37 @@ class Module(BaseModule):
                 return None
             if isinstance(x, tuple):
                 return tuple(to_nd(i) for i in x)
+            # bfloat16 states (MXTPU_BF16_STATS=opt) are written as float32:
+            # the file format stays, and the round trip is exact
+            if x.dtype == torch.bfloat16:
+                return NDArray(x.detach().float())
             return NDArray(x.detach().clone())
 
         idx_of = {n: i for i, n in enumerate(self._exec_group.param_names)}
         for n, st in self._fused_state["opt"].items():
             if n in idx_of:
                 updater.states[idx_of[n]] = to_nd(st)
+
+    def _snapshot_opt_states(self):
+        """The optimizer states for the async checkpoint writer: device
+        copies taken now (later steps update the states in place), and a
+        callable that pickles them on the writer thread, the bytes
+        ``save_optimizer_states`` writes. None when the kvstore holds the
+        states (the manager then saves synchronously)."""
+        if not self.optimizer_initialized or self._update_on_kvstore:
+            return None
+        self._sync_fused_opt_states()
+        updater = self._resolve_updater()
+        if updater is None:
+            return None
+
+        def cp(x):
+            if isinstance(x, tuple):
+                return tuple(cp(i) for i in x)
+            return x.copy() if isinstance(x, NDArray) else x
+
+        states = {k: cp(v) for k, v in updater.states.items()}
+        return lambda: opt.Updater.serialize_states(states)
 
     # -- computation ----------------------------------------------------
     def forward(self, data_batch, is_train=None):

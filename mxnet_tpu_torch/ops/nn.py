@@ -222,8 +222,12 @@ def _bn_outputs(attrs):
 
 
 def _moving(moving, batch_stat, momentum):
-    return momentum * moving + (1 - momentum) * batch_stat.detach().to(
-        moving.dtype)
+    # the two factors take the moving statistic's dtype, as the JAX
+    # package's weak-typed Python floats do: in bfloat16 (MXTPU_BF16_STATS)
+    # 0.9 is 0.8984375, and the update rounds after each operation
+    m = float(torch.tensor(momentum, dtype=moving.dtype))
+    m1 = float(torch.tensor(1 - momentum, dtype=moving.dtype))
+    return m * moving + m1 * batch_stat.detach().to(moving.dtype)
 
 
 def _batch_norm(op_ctx, attrs, inputs, aux):
@@ -532,6 +536,52 @@ def _l2_normalization(op_ctx, attrs, inputs, aux):
         raise MXNetError("L2Normalization: unknown mode %r" % mode)
     n = torch.sqrt(torch.sum(torch.square(x), dim=red, keepdim=True) + eps)
     return (x / n,)
+
+
+# ---------------------------------------------------------------------------
+# LRN (ref: src/operator/lrn-inl.h): across-channel local response norm
+# ---------------------------------------------------------------------------
+
+@register("LRN", inputs=("data",))
+def _lrn(op_ctx, attrs, inputs, aux):
+    alpha = attr_float(attrs.get("alpha", 1e-4), 1e-4)
+    beta = attr_float(attrs.get("beta", 0.75), 0.75)
+    knorm = attr_float(attrs.get("knorm", 2.0), 2.0)
+    nsize = attr_int(attrs.get("nsize", 5), 5)
+    if nsize % 2 != 1:
+        # the window of nsize channels centred on each channel, zero-padded
+        # by nsize // 2 on each side, exists only for odd nsize (MXNet
+        # checks the same; the JAX package fails on the broadcast)
+        raise MXNetError("LRN: nsize must be odd, got %d" % nsize)
+    x = inputs[0]
+    half = nsize // 2
+    sq = F.pad(torch.square(x), (0, 0, 0, 0, half, half))
+    c = x.shape[1]
+    win = sq[:, 0:c]
+    for i in range(1, nsize):
+        win = win + sq[:, i:i + c]
+    return (x * torch.pow(knorm + (alpha / nsize) * win, -beta),)
+
+
+# ---------------------------------------------------------------------------
+# Dropout (ref: src/operator/dropout-inl.h): in training, each element is
+# kept with probability 1 - p and scaled by 1 / (1 - p); the mask is drawn
+# from the node's generator (executor.node_generator), so a recomputed
+# forward draws the same mask
+# ---------------------------------------------------------------------------
+
+@register("Dropout", inputs=("data",), needs_rng=True)
+def _dropout(op_ctx, attrs, inputs, aux):
+    p = attr_float(attrs.get("p", 0.5), 0.5)
+    x = inputs[0]
+    if not op_ctx.is_train or p <= 0.0:
+        return (x,)
+    if op_ctx.rng is None:
+        raise MXNetError("Dropout requires rng in training mode")
+    keep = 1.0 - p
+    mask = torch.rand(x.shape, generator=op_ctx.rng, device=x.device) < keep
+    return (torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype,
+                                                    device=x.device)),)
 
 
 # ---------------------------------------------------------------------------

@@ -25,14 +25,31 @@ the card:
   metric's declared slots with ``metric_spec=`` (a
   :class:`~mxnet_tpu_torch.metric.DeviceSumSpec`).
 
+- ``guard=True`` (``step``/``run_steps``) computes the training guard's
+  sentinels in the step: the global gradient norm (which
+  ``clip_global_norm`` reuses) and an all-finite flag over the outputs and
+  the gradients. A non-finite step keeps every piece of state unchanged,
+  the step counter included: each in-place update is followed by a
+  ``torch.where`` back to a copy of the old value, so nothing is read back
+  to the host inside the step. The fault site ``guard.grad_nan`` poisons a
+  step's gradients. The unguarded step is unchanged;
+- ``remat`` recomputes activations in the backward
+  (``executor._build_graph_runner``): ``True`` the whole forward,
+  ``"conv"`` keeps only the values that cross the segments ending at each
+  Convolution and FullyConnected node;
+- ``MXTPU_BF16_STATS`` stores the aux states (BatchNorm's moving
+  statistics) in bfloat16 (any truthy value), and with ``opt``, ``all`` or
+  ``full`` the optimizer states too: storage casts only, the update
+  computes in the promoted dtype and stores back, and checkpoints still
+  write float32.
+
 One divergence from the JAX package: it casts every floating batch input
 to ``compute_dtype``, labels included, so bf16 rounds class 257 to 256 and
 998 and 999 to 1000 (a class that does not exist). The port casts only the
 inputs that are not in ``label_names``.
 
 Not ported yet, and raising when asked for: ``mesh``,
-``param_shardings``, ``group2ctx``, ``remat``, ``guard=True`` and
-``MXTPU_BF16_STATS``.
+``param_shardings`` and ``group2ctx``.
 """
 from __future__ import annotations
 
@@ -42,6 +59,7 @@ import numpy as np
 import torch
 
 from .base import MXNetError, env_str, torch_dtype
+from . import faults as _faults
 from .context import resolve_device
 from .executor import _build_graph_runner, node_generator
 from .initializer import Xavier, InitDesc
@@ -63,12 +81,15 @@ class StepMetrics(object):
     num_samples]``; with a :class:`~mxnet_tpu_torch.metric.DeviceSumSpec`
     it is the spec's slots, read by name through :meth:`values`, and
     ``loss_sum``/``num_samples`` read the spec's ``loss_slots`` pair (NaN
-    and 0 when it declares none)."""
+    and 0 when it declares none). A guarded dispatch appends ``[skipped,
+    last_grad_norm]``; its skipped steps are already left out of every
+    sum."""
 
-    __slots__ = ("device", "spec", "_host")
+    __slots__ = ("device", "guarded", "spec", "_host")
 
-    def __init__(self, device_tensor, spec=None):
+    def __init__(self, device_tensor, spec=None, guarded=False):
         self.device = device_tensor
+        self.guarded = guarded
         self.spec = spec
         self._host = None
 
@@ -85,6 +106,10 @@ class StepMetrics(object):
     @property
     def fetched(self):
         return self._host is not None
+
+    @property
+    def _n_slots(self):
+        return 3 if self.spec is None else len(self.spec.slots)
 
     def values(self):
         """Slot name -> float of the dispatch's sums."""
@@ -129,11 +154,29 @@ class StepMetrics(object):
         n = self.num_samples
         return self.loss_sum / n if n else float("nan")
 
+    @property
+    def skipped(self):
+        """Non-finite steps the guard skipped (0 unguarded)."""
+        return int(self._vals()[self._n_slots]) if self.guarded else 0
+
+    @property
+    def last_grad_norm(self):
+        """The last step's global gradient norm (guarded only, else
+        None)."""
+        if not self.guarded:
+            return None
+        return float(self._vals()[self._n_slots + 1])
+
     def __repr__(self):
         if self.spec is not None:
-            return "StepMetrics(%s: %r)" % (self.spec.tag, self.values())
-        return ("StepMetrics(loss_sum=%.6g, top1_correct=%g, num_samples=%d)"
-                % (self.loss_sum, self.top1_correct, self.num_samples))
+            s = "StepMetrics(%s: %r" % (self.spec.tag, self.values())
+        else:
+            s = ("StepMetrics(loss_sum=%.6g, top1_correct=%g, num_samples=%d"
+                 % (self.loss_sum, self.top1_correct, self.num_samples))
+        if self.guarded:
+            s += ", skipped=%d, last_grad_norm=%g" % (self.skipped,
+                                                      self.last_grad_norm)
+        return s + ")"
 
 
 def _metric_step_sums(outs, labels, zero):
@@ -160,6 +203,69 @@ def _default_slot_sums(outs, labels, batch_size):
     return loss, correct, zero + float(batch_size)
 
 
+def _with_guard_loss(spec, batch_size):
+    """A spec that declares no watchable loss pair, with two hidden slots
+    appended: the cross-entropy and sample count the training guard's
+    divergence watch reads. The metric's own fold never sees them."""
+    from .metric import DeviceSumSpec
+    if spec is None or spec.loss_slots is not None:
+        return spec
+    base_slots, base_step, base_fold = spec.slots, spec.step_sums, spec.fold
+
+    def step_sums(outs, labels):
+        vals = tuple(base_step(outs, labels))
+        zero = torch.zeros((), dtype=torch.float32, device=outs[0].device)
+        loss, _ = _metric_step_sums(outs, labels, zero)
+        return vals + (loss, zero + float(batch_size))
+
+    def fold(metric, values):
+        base_fold(metric, {s: values[s] for s in base_slots})
+
+    sig = spec.signature if isinstance(spec.signature, tuple) \
+        else (spec.signature,)
+    return DeviceSumSpec(base_slots + ("__guard_loss", "__guard_n"),
+                         step_sums, fold, ("guardloss",) + sig,
+                         loss_slots=("__guard_loss", "__guard_n"),
+                         tag=spec.tag)
+
+
+def _map_state(fn, s):
+    """``fn`` over an optimizer state's tensors (None, a tensor or a
+    tuple)."""
+    if s is None:
+        return None
+    if isinstance(s, tuple):
+        return tuple(_map_state(fn, x) for x in s)
+    return fn(s)
+
+
+def _copy_state(dst, src):
+    """Copy an optimizer state's tensors into ``dst``'s, in place."""
+    if isinstance(dst, tuple):
+        for d, x in zip(dst, src):
+            _copy_state(d, x)
+    elif dst is not None:
+        dst.copy_(src)
+
+
+def _select_state(ok, new, old):
+    """``new`` where ``ok`` else ``old``, into ``new``'s tensors."""
+    if isinstance(new, tuple):
+        for n, o in zip(new, old):
+            _select_state(ok, n, o)
+    elif new is not None:
+        new.copy_(torch.where(ok, new, old))
+
+
+def bf16_stats_mode():
+    """``MXTPU_BF16_STATS`` as ``(aux in bf16, optimizer states in
+    bf16)``: any truthy value stores the aux states in bfloat16; ``opt``,
+    ``all`` or ``full`` the optimizer states too."""
+    v = env_str("MXTPU_BF16_STATS").lower()
+    stats = v not in ("", "0", "false", "off", "no")
+    return stats, v in ("opt", "all", "full")
+
+
 class TrainStep(object):
     """Training step over a symbol, on one device.
 
@@ -168,7 +274,8 @@ class TrainStep(object):
     name (created with ``learning_rate``/``momentum``/``wd``) or an
     :class:`~mxnet_tpu_torch.optimizer.Optimizer` with a fused update.
     ``device``: where it runs, ``cuda:0`` by default; without CUDA that
-    raises (pass ``device="cpu"`` to train on the CPU).
+    raises (pass ``device="cpu"`` to train on the CPU). ``remat``: one of
+    ``False``, ``True`` and ``"conv"`` (see the module's note).
     """
 
     def __init__(self, symbol, data_names=("data",),
@@ -178,13 +285,9 @@ class TrainStep(object):
                  compute_dtype=None, remat=False, frozen_param_names=None,
                  group2ctx=None, device=None):
         for name, val in (("mesh", mesh), ("param_shardings", param_shardings),
-                          ("group2ctx", group2ctx), ("remat", remat)):
+                          ("group2ctx", group2ctx)):
             if val:
                 raise MXNetError("TrainStep: %s= is not ported yet" % name)
-        if env_str("MXTPU_BF16_STATS").lower() not in ("", "0", "false",
-                                                        "off", "no"):
-            raise MXNetError("TrainStep: MXTPU_BF16_STATS (bf16 optimizer "
-                             "and BatchNorm statistics) is not ported yet")
         self.device = resolve_device(device, "TrainStep")
         self.symbol = symbol
         self.data_names = list(data_names)
@@ -218,6 +321,7 @@ class TrainStep(object):
         self.optimizer = optimizer
         self.rescale_grad = rescale_grad
         self.dtype = torch_dtype(dtype)
+        self.bf16_stats, self.bf16_opt = bf16_stats_mode()
         if compute_dtype is not None:
             self.compute_dtype = torch_dtype(compute_dtype)
         elif self.dtype != torch.float32:
@@ -225,7 +329,8 @@ class TrainStep(object):
             self.compute_dtype = self.dtype
         else:
             self.compute_dtype = None
-        self._run, self._nodes = _build_graph_runner(symbol)
+        self.remat = remat
+        self._run, self._nodes = _build_graph_runner(symbol, remat=remat)
         self._needs_rng = any((not n.is_variable) and n.op.needs_rng
                               for n in self._nodes) or getattr(
                                   self._opt, "fused_needs_key", False)
@@ -254,11 +359,29 @@ class TrainStep(object):
             aux = {n: make(n, aux_shape_of[n]) for n in self.aux_names}
         finally:
             _random.set_state(saved)
-        opt = {n: self._opt.create_fused_state(v) for n, v in params.items()
-               if n not in self.frozen_param_names}
-        return {"params": params, "aux": aux, "opt": opt,
+        opt = self.cast_opt_state(
+            {n: self._opt.create_fused_state(v) for n, v in params.items()
+             if n not in self.frozen_param_names})
+        return {"params": params, "aux": self.cast_stats(aux), "opt": opt,
                 "step": torch.zeros((), dtype=torch.int32,
                                     device=self.device)}
+
+    def cast_stats(self, aux):
+        """``MXTPU_BF16_STATS``: the aux states' storage cast (identity when
+        the knob is off)."""
+        if not self.bf16_stats:
+            return aux
+        return {n: (v.to(torch.bfloat16) if v.is_floating_point() else v)
+                for n, v in aux.items()}
+
+    def cast_opt_state(self, opt):
+        """``MXTPU_BF16_STATS=opt|all|full``: the optimizer states' storage
+        cast (identity when the knob is off)."""
+        if not self.bf16_opt:
+            return opt
+        return {n: _map_state(lambda v: (v.to(torch.bfloat16)
+                                         if v.is_floating_point() else v), s)
+                for n, s in opt.items()}
 
     # ------------------------------------------------------------------
     def _to_device(self, batch):
@@ -286,9 +409,11 @@ class TrainStep(object):
             self._base_key = _random.randint63()
         return self._base_key + int(state["step"])
 
-    def _step(self, state, batch, lr, batch_size):
-        """One forward, backward and in-place update; returns the outputs
-        (detached)."""
+    def _step(self, state, batch, lr, batch_size, guard=False):
+        """One forward, backward and in-place update. Returns ``(outputs,
+        sentinels)``: the outputs detached, and with ``guard`` ``(ok,
+        grad_norm)``, the step's all-finite flag and global gradient norm
+        as device scalars (else None)."""
         params, aux, opt = state["params"], state["aux"], state["opt"]
         updated = [n for n in self.param_names
                    if n not in self.frozen_param_names]
@@ -321,36 +446,72 @@ class TrainStep(object):
             gs = [(torch.zeros_like(params[n]) if g is None
                    else g.to(params[n].dtype)) * rescale
                   for n, g in zip(updated, grads)]
+            if guard and _faults.fire_flag("guard.grad_nan"):
+                gs = [g + float("nan") for g in gs]
             clip_norm = self._opt.clip_global_norm
-            if clip_norm is not None and gs:
+            gnorm = ok = None
+            if gs and (guard or clip_norm is not None):
                 gnorm = torch.sqrt(sum(torch.sum(torch.square(g.float()))
                                        for g in gs))
+            if clip_norm is not None and gs:
                 scale = torch.clamp(
                     clip_norm / torch.clamp_min(gnorm, 1e-12), max=1.0)
                 gs = [g * scale.to(g.dtype) for g in gs]
+            if guard:
+                if gnorm is None:
+                    gnorm = torch.zeros((), device=self.device)
+                # all-finite over the gradients and the outputs
+                ok = torch.stack([torch.isfinite(x).all()
+                                  for x in list(gs) + list(outs)]).all()
             needs_key = getattr(self._opt, "fused_needs_key", False)
             for i, (n, g) in enumerate(zip(updated, gs)):
                 gen = (node_generator(key, _OPT_KEY_OFFSET + i, self.device)
                        if needs_key else None)
+                w, s = params[n], opt[n]
+                if guard:
+                    old_w, old_s = w.clone(), _map_state(torch.clone, s)
+                # bf16 optimizer states: the update computes on a float32
+                # copy, and storage goes back to bfloat16
+                s_up = (_map_state(lambda v: v.to(w.dtype), s)
+                        if self.bf16_opt else s)
                 self._opt.fused_update(
-                    n, params[n], g, opt[n],
-                    lr * self._opt.lr_mult.get(n, 1.0),
+                    n, w, g, s_up, lr * self._opt.lr_mult.get(n, 1.0),
                     wd * self._opt.wd_mult.get(n, 1.0), t, key=gen)
+                if self.bf16_opt:
+                    _copy_state(s, s_up)
+                if guard:
+                    w.copy_(torch.where(ok, w, old_w))
+                    _select_state(ok, s, old_s)
             for k, v in aux_up.items():
-                aux[k].copy_(v)
-            state["step"].add_(1)
-        return [o.detach() for o in outs]
+                nv = v.to(aux[k].dtype)
+                aux[k].copy_(torch.where(ok, nv, aux[k]) if guard else nv)
+            # a skipped step is a full no-op: the step counter (and the
+            # noise streams keyed by it) does not advance either
+            state["step"].add_(ok.to(torch.int32) if guard else 1)
+        return [o.detach() for o in outs], ((ok, gnorm) if guard else None)
 
     def step(self, state, batch, guard=False):
         """One training step. ``batch``: dict name -> array or tensor.
         Returns ``(state, outputs)``; the state's tensors are updated in
-        place."""
-        if guard:
-            raise MXNetError("TrainStep.step: guard=True (the training-"
-                             "health sentinels) is not ported yet")
+        place. ``guard=True`` runs the guarded step and returns ``(state,
+        outputs, packed)``, ``packed`` the device tensor ``[loss, correct,
+        nsamp, skipped, grad_norm]`` (zeros but ``skipped`` for a skipped
+        step)."""
         batch = self._to_device(batch)
         bs = next(iter(batch.values())).shape[0]
-        return state, self._step(state, batch, self._next_lr(), bs)
+        outs, sentinels = self._step(state, batch, self._next_lr(), bs,
+                                     guard=guard)
+        if not guard:
+            return state, outs
+        ok, gnorm = sentinels
+        zero = torch.zeros((), dtype=torch.float32, device=self.device)
+        loss, correct = _metric_step_sums(
+            outs, [batch.get(n) for n in self.label_names], zero)
+        okf = ok.float()
+        packed = torch.stack([torch.where(ok, loss, zero),
+                              torch.where(ok, correct, zero),
+                              okf * float(bs), 1.0 - okf, gnorm.float()])
+        return state, outs, packed
 
     def run_steps(self, state, superbatch, k=None, guard=False,
                   metric_spec=None):
@@ -359,10 +520,10 @@ class TrainStep(object):
         :class:`StepMetrics` of the K steps' sums, held on the device until
         read: the loss, top-1 and sample sums, or with ``metric_spec`` (a
         :class:`~mxnet_tpu_torch.metric.DeviceSumSpec`) the spec's slots,
-        each step's ``step_sums(outputs, labels)`` added up."""
-        if guard:
-            raise MXNetError("TrainStep.run_steps: guard=True is not ported "
-                             "yet")
+        each step's ``step_sums(outputs, labels)`` added up. ``guard=True``
+        runs guarded steps: skipped steps stay out of every sum, and the
+        metrics carry ``skipped`` and ``last_grad_norm`` (a spec without a
+        loss pair gains the cross-entropy the guard watches)."""
         superbatch = self._to_device(superbatch)
         vals = list(superbatch.values())
         if not vals:
@@ -378,6 +539,8 @@ class TrainStep(object):
                              % {n: tuple(v.shape)
                                 for n, v in superbatch.items()})
         bs = vals[0].shape[1]
+        if guard:
+            metric_spec = _with_guard_loss(metric_spec, bs)
         if metric_spec is None:
             nslots = 3
 
@@ -388,12 +551,25 @@ class TrainStep(object):
             slot_sums = metric_spec.step_sums
         lrs = [self._next_lr() for _ in range(k)]
         acc = torch.zeros(nslots, dtype=torch.float32, device=self.device)
+        skipped = gnorm = None
         for i in range(k):
             batch = {n: v[i] for n, v in superbatch.items()}
-            outs = self._step(state, batch, lrs[i], bs)
+            outs, sentinels = self._step(state, batch, lrs[i], bs,
+                                         guard=guard)
+            labels = [batch.get(n) for n in self.label_names]
             with torch.no_grad():
                 # the sums are tensors on the device (a spec fills its
                 # constants there): nothing here waits for the card
-                acc += torch.stack([v.float().reshape(()) for v in slot_sums(
-                    outs, [batch.get(n) for n in self.label_names])])
-        return state, StepMetrics(acc, metric_spec)
+                step_vals = torch.stack([v.float().reshape(())
+                                         for v in slot_sums(outs, labels)])
+                if guard:
+                    ok, gnorm = sentinels
+                    acc += torch.where(ok, step_vals,
+                                       torch.zeros_like(step_vals))
+                    skip = 1.0 - ok.float()
+                    skipped = skip if skipped is None else skipped + skip
+                else:
+                    acc += step_vals
+        if guard:
+            acc = torch.cat([acc, torch.stack([skipped, gnorm.float()])])
+        return state, StepMetrics(acc, metric_spec, guarded=guard)

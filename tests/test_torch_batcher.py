@@ -104,7 +104,32 @@ def test_batcher_concurrent_callers_bitwise():
         t.join(10.0)
         assert not t.is_alive()
     assert not errs
+    # the callers may arrive more than the window apart, so a row rides
+    # bucket 4 or bucket 8, and torch's CPU matmul picks its kernel by the
+    # batch: each row must equal, bit for bit, the engine's answer for it
+    # at one of the two buckets (padding and co-riders never leak)
+    at4 = [eng.infer({"data": x[i:i + 1]})[0][0] for i in range(8)]
+    at8 = eng.infer({"data": x})[0]
+    for i, row in enumerate(results):
+        assert (np.array_equal(row[0], at4[i])
+                or np.array_equal(row[0], at8[i])), i
     got = np.concatenate(results)
+    np.testing.assert_allclose(got, _jax_forward(x), rtol=0, atol=ATOL)
+    b.close()
+
+
+def test_batcher_queued_callers_coalesce_into_bucket8_bitwise():
+    # the strict claim without timing: eight one-row requests queued before
+    # the batching thread starts ride one bucket-8 dispatch, and each row
+    # equals the engine's answer for all eight rows at once, bit for bit
+    eng = _engine(buckets=(4, 8))
+    b = serving.Batcher(eng, max_latency_ms=20.0, start=False)
+    x = _x(8)
+    reqs = [b.submit({"data": x[i:i + 1]}) for i in range(8)]
+    before = eng.health.batches
+    b.start()
+    got = np.concatenate([b.wait(r)[0] for r in reqs])
+    assert eng.health.batches == before + 1
     assert np.array_equal(got, eng.infer({"data": x})[0])
     np.testing.assert_allclose(got, _jax_forward(x), rtol=0, atol=ATOL)
     b.close()

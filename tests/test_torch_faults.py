@@ -91,9 +91,17 @@ def test_env_spec_malformed_raises(monkeypatch):
 
 
 def test_arm_validates_sites_and_delay_sleeps():
-    assert sorted(tfaults.sites()) == ["fleet.replica_die",
-                                       "serve.enqueue_drop"]
-    assert sorted(tfaults.sites("serve")) == sorted(tfaults.SITES)
+    train = ["checkpoint.write", "checkpoint.write.mid", "ckpt.async_die",
+             "ckpt.async_write", "ckpt.disk_full", "guard.grad_nan",
+             "guard.loss_spike", "guard.param_nan"]
+    serve = ["fleet.replica_die", "serve.enqueue_drop"]
+    assert sorted(tfaults.sites()) == sorted(train + serve)
+    assert sorted(tfaults.sites("serve")) == serve
+    assert sorted(tfaults.sites("train")) == train
+    # the port's sites are the JAX package's, with the same kinds and flags
+    for name, info in tfaults.SITES.items():
+        ref = jfaults.SITES[name]
+        assert (info.kinds, info.flag) == (ref.kinds, ref.flag), name
     with pytest.raises(MXNetError, match="unregistered fault site"):
         tfaults.arm([{"site": "io.record_read", "kind": "transient"}])
     tfaults.arm([{"site": "fleet.replica_die", "kind": "die", "nth": 2}])

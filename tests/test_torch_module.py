@@ -272,14 +272,6 @@ def test_fit_logs_each_knob_source(caplog, monkeypatch):
 
 
 @pytest.mark.parametrize("what,call", [
-    ("guard", lambda m, it: m.fit(it, num_epoch=1, guard=True)),
-    ("resume", lambda m, it: m.fit(it, num_epoch=1, resume="auto")),
-    ("checkpoint_prefix",
-     lambda m, it: m.fit(it, num_epoch=1, checkpoint_prefix="/nonexistent")),
-    ("checkpoint_every_n_batches",
-     lambda m, it: m.fit(it, num_epoch=1, checkpoint_every_n_batches=2)),
-    ("checkpoint_async",
-     lambda m, it: m.fit(it, num_epoch=1, checkpoint_async=True)),
     ("monitor", lambda m, it: m.fit(it, num_epoch=1, monitor=object())),
     ("install_monitor", lambda m, it: m.install_monitor(object())),
     ("dist_sync", lambda m, it: m.fit(it, num_epoch=1,
@@ -295,7 +287,6 @@ def test_options_not_ported_raise(what, call):
 
 
 @pytest.mark.parametrize("what,env,kw", [
-    ("MXTPU_GUARD", {"MXTPU_GUARD": "1"}, None),
     ("MXNET_PROFILER_AUTOSTART", {"MXNET_PROFILER_AUTOSTART": "1"}, None),
     ("MXTPU_DP_DEVICES", {"MXTPU_DP_DEVICES": "2"}, "noctx"),
     ("MXTPU_LM_MESH", {"MXTPU_LM_MESH": "data=2"}, None),
@@ -398,3 +389,45 @@ def test_fit_traces_its_dispatches(tmp_path):
     with open(path) as f:
         assert len(json.load(f)["traceEvents"]) >= len(evs)
     trace.clear()
+
+
+def test_set_params_after_a_synced_get_params_reaches_the_executor():
+    """After fused steps, get_params syncs the fused state into copies; a
+    set_params (a guard rollback's restore, an epoch end) must then reach
+    the executor's arrays and the fused state seeded from them. The JAX
+    package writes into the copies and keeps computing with the old
+    values; the oracle is a JAX module bound with the new values."""
+    jsym, tsym = _symbols("mlp")
+    x, y = _data("mlp", "setp")
+    mod = mt.mod.Module(tsym, context=mt.cpu())
+    it = mt.io.NDArrayIter(x, y, batch_size=BATCH)
+    mod.fit(it, num_epoch=1, optimizer_params={"learning_rate": 0.1})
+    it.reset()
+    assert mod._try_fused_fit_step(next(iter(it)))
+    arg, aux = mod.get_params()
+    new = _arg_params(jsym, x, "setp")
+    mod.set_params({n: mt.nd.array(v, ctx=mt.cpu()) for n, v in new.items()},
+                   aux)
+    jmod = mx.mod.Module(jsym, context=mx.cpu())
+    jmod.bind(data_shapes=[("data", (BATCH,) + x.shape[1:])],
+              label_shapes=[("softmax_label", (BATCH,))],
+              for_training=False)
+    jmod.set_params({n: mx.nd.array(v) for n, v in new.items()}, {})
+    batch = (x[:BATCH], y[:BATCH])
+    mod.forward(mt.io.DataBatch(data=[mt.nd.array(batch[0], ctx=mt.cpu())],
+                                label=[mt.nd.array(batch[1], ctx=mt.cpu())]),
+                is_train=False)
+    jmod.forward(mx.io.DataBatch(data=[mx.nd.array(batch[0])],
+                                 label=[mx.nd.array(batch[1])]),
+                 is_train=False)
+    np.testing.assert_allclose(mod.get_outputs()[0].asnumpy(),
+                               jmod.get_outputs()[0].asnumpy(),
+                               rtol=1e-5, atol=1e-6)
+    # and the next fused step starts from the new values: one step away
+    # from them, not from the trained ones
+    old = {n: v.asnumpy() for n, v in arg.items()}
+    it.reset()
+    assert mod._try_fused_fit_step(next(iter(it)))
+    for n, v in mod.get_params()[0].items():
+        p = v.asnumpy()
+        assert np.abs(p - new[n]).max() < np.abs(p - old[n]).max(), n

@@ -641,19 +641,219 @@ def test_entry_points_default_to_the_card():
 @pytest.mark.parametrize("kw,what", [
     (dict(mesh=object()), "mesh"), (dict(param_shardings={"a": 1}),
                                     "param_shardings"),
-    (dict(group2ctx={"g": 1}), "group2ctx"), (dict(remat=True), "remat")])
+    (dict(group2ctx={"g": 1}), "group2ctx"),
+    (dict(remat="everything"), "remat")])
 def test_unported_options_raise(kw, what):
+    # remat is ported: a mode it does not know raises, naming it
     with pytest.raises(MXNetError, match=what):
         TrainStep(_resnet(mt, tmodels, 18), device="cpu", **kw)
 
 
-def test_unported_step_options_raise(monkeypatch):
-    step = TrainStep(_tiny(mt), device="cpu")
-    st = step.init({"data": (2, 4, 4, 5)}, {"softmax_label": (2,)})
-    with pytest.raises(MXNetError, match="guard"):
-        step.step(st, {}, guard=True)
-    with pytest.raises(MXNetError, match="guard"):
-        step.run_steps(st, {}, guard=True)
-    monkeypatch.setenv("MXTPU_BF16_STATS", "1")
-    with pytest.raises(MXNetError, match="MXTPU_BF16_STATS"):
-        TrainStep(_tiny(mt), device="cpu")
+# ---------------------------------------------------------------------------
+# remat: the forward recomputed in the backward
+# ---------------------------------------------------------------------------
+
+def _remat_net(pkg, nhwc):
+    """Convolutions (a fused NHWC 1x1 one with nhwc), BatchNorm, a residual
+    add that crosses segments, max pooling and Dropout."""
+    kw = {"layout": "NHWC"} if nhwc else {}
+    axis = {"axis": 3} if nhwc else {}
+    with pkg.symbol.NameManager():
+        d = pkg.sym.Variable("data")
+        x = pkg.sym.Convolution(d, kernel=(3, 3), pad=(1, 1), num_filter=8,
+                                name="c1", **kw)
+        x = pkg.sym.BatchNorm(x, fix_gamma=False, name="bn1", **axis)
+        x = pkg.sym.Activation(x, act_type="relu")
+        y = pkg.sym.Convolution(x, kernel=(1, 1), num_filter=8, no_bias=True,
+                                name="c2", **kw)
+        y = pkg.sym.BatchNorm(y, fix_gamma=False, name="bn2", **axis)
+        x = pkg.sym.Activation(y + x, act_type="relu")
+        x = pkg.sym.Pooling(x, kernel=(2, 2), stride=(2, 2), pool_type="max",
+                            **kw)
+        x = pkg.sym.Dropout(pkg.sym.Flatten(x), p=0.3)
+        x = pkg.sym.FullyConnected(x, num_hidden=5, name="fc")
+        return pkg.sym.SoftmaxOutput(x, name="softmax")
+
+
+@pytest.mark.parametrize("remat", [True, "conv"])
+@pytest.mark.parametrize("nhwc", [False, True])
+def test_remat_equals_no_remat_bitwise(monkeypatch, remat, nhwc):
+    """Two steps with remat give the parameters, momentum and moving
+    statistics of two steps without it, bit for bit on the CPU: the
+    recompute runs the same ops on the same values, draws Dropout's mask
+    again from the node's generator (the same mask), and its aux updates
+    are dropped (the moving statistics move once a step). Under fusion the
+    matmul-with-statistics runs twice a step's forward."""
+    monkeypatch.setenv("MXTPU_FUSE_CONV_BN", "1" if nhwc else "0")
+    shape = (4, 8, 8, 3) if nhwc else (4, 3, 8, 8)
+    rng = _rng("remat%s" % nhwc)
+    xs = rng.standard_normal((2,) + shape).astype(np.float32)
+    ys = rng.integers(0, 5, (2, 4)).astype(np.float32)
+    calls = []
+    real = tms._forward
+    monkeypatch.setattr(tms, "_forward",
+                        lambda x, w: calls.append(1) or real(x, w))
+    states, counts = {}, {}
+    for mode in (False, remat):
+        trandom.seed(1)
+        step = TrainStep(_remat_net(mt, nhwc), optimizer="sgd",
+                         learning_rate=0.1, momentum=0.9, wd=1e-4,
+                         remat=mode, device="cpu")
+        st = step.init({"data": shape}, {"softmax_label": (4,)}, seed=0)
+        del calls[:]
+        for i in range(2):
+            st, _ = step.step(st, {"data": xs[i], "softmax_label": ys[i]})
+        states[mode], counts[mode] = st, len(calls)
+    for key in ("params", "aux", "opt"):
+        for n, v in states[False][key].items():
+            assert torch.equal(v, states[remat][key][n]), (key, n)
+    # the moving statistics moved once a step: not twice
+    assert not torch.equal(states[False]["aux"]["bn1_moving_mean"],
+                           torch.zeros(8))
+    assert counts[False] == (2 if nhwc else 0)
+    assert counts[remat] == 2 * counts[False]
+
+
+def test_remat_dropout_mask_is_the_forwards():
+    """The gradient under remat is the gradient through the forward's own
+    Dropout mask: zero exactly where the forward dropped."""
+    with mt.symbol.NameManager():
+        d = mt.sym.Variable("data")
+        x = mt.sym.Dropout(mt.sym.FullyConnected(d, num_hidden=64,
+                                                 name="fc1"), p=0.5)
+        out = mt.sym.MakeLoss(mt.sym.sum(x))
+    for mode in (False, True, "conv"):
+        trandom.seed(5)
+        step = TrainStep(out, label_names=(), optimizer="sgd",
+                         learning_rate=1.0, momentum=0.0, remat=mode,
+                         device="cpu", rescale_grad=1.0)
+        st = step.init({"data": (2, 3)}, seed=0)
+        b0 = st["params"]["fc1_bias"].clone()
+        step.step(st, {"data": np.ones((2, 3), np.float32)})
+        # d(sum)/d(bias) is the sum over the batch of mask / keep
+        g = (b0 - st["params"]["fc1_bias"]).numpy()
+        assert set(np.unique(g)) <= {0.0, 2.0, 4.0}, (mode, np.unique(g))
+        if mode is False:
+            want = g
+        np.testing.assert_array_equal(g, want, err_msg=str(mode))
+
+
+def test_remat_matches_jax(monkeypatch):
+    """remat=True and "conv" in the port against the JAX package's step
+    under the same remat (jax.checkpoint) from one state, ResNet-18 NHWC
+    with the fusion, no Dropout (its masks cannot match): the one-step
+    tolerance."""
+    batch = _batch(seed=4)
+    kw = dict(optimizer="sgd", learning_rate=0.01, momentum=0.9, wd=1e-4)
+    for mode in (True, "conv"):
+        monkeypatch.setenv("MXTPU_FUSE_CONV_BN", "interpret")
+        jstep = JTrainStep(_resnet(mx, jmodels, 18), remat=mode, **kw)
+        jst = jstep.init({"data": (B, H, H, 3)}, {"softmax_label": (B,)},
+                         seed=3)
+        tst = convert.from_reference_state(jst, "cpu")
+        monkeypatch.setenv("MXTPU_FUSE_CONV_BN", "1")
+        tstep = TrainStep(_resnet(mt, tmodels, 18), remat=mode,
+                          device="cpu", **kw)
+        monkeypatch.setenv("MXTPU_FUSE_CONV_BN", "interpret")
+        jst, _ = jstep.step(jst, batch)
+        tst, _ = tstep.step(tst, batch)
+        _assert_state_close(tst, jst, dict(rtol=1e-4, atol=1e-5))
+
+
+# ---------------------------------------------------------------------------
+# MXTPU_BF16_STATS: bfloat16 storage of the aux and optimizer states
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("mode", ["1", "opt"])
+@pytest.mark.parametrize("fuse", ["0", "1"])
+def test_bf16_stats_match_jax(monkeypatch, mode, fuse):
+    """The storage dtypes are the JAX package's, and after one step from a
+    shared state (moving statistics drawn away from their init) the
+    bfloat16 moving statistics equal the JAX package's bit for bit: the
+    momentum factors are rounded to bfloat16 as JAX's weak-typed Python
+    floats are, and the update rounds after each operation. The parameters
+    (float32 masters) and optimizer states hold the one-step tolerance."""
+    monkeypatch.setenv("MXTPU_BF16_STATS", mode)
+    kw = dict(optimizer="sgd", learning_rate=0.1, momentum=0.9, wd=1e-4)
+    monkeypatch.setenv("MXTPU_FUSE_CONV_BN",
+                       "interpret" if fuse == "1" else "0")
+    jstep = JTrainStep(_tiny(mx), **kw)
+    jst = jstep.init({"data": (4, 5, 5, 6)}, {"softmax_label": (4,)},
+                     seed=1)
+    monkeypatch.setenv("MXTPU_FUSE_CONV_BN", fuse)
+    tstep = TrainStep(_tiny(mt), device="cpu", **kw)
+    assert tstep.bf16_stats and tstep.bf16_opt == (mode == "opt")
+    tinit_st = tstep.init({"data": (4, 5, 5, 6)}, {"softmax_label": (4,)})
+    rng = _rng("bf16 stats " + mode + fuse)
+    jst["aux"] = {n: jnp.asarray(rng.uniform(0.5, 1.5, v.shape))
+                  .astype(jnp.bfloat16) for n, v in jst["aux"].items()}
+    tst = convert.from_reference_state(jst, "cpu")
+    for key in ("aux", "opt"):
+        for n, v in jst[key].items():
+            assert tst[key][n].dtype == tinit_st[key][n].dtype == \
+                getattr(torch, str(v.dtype)), (key, n)
+    assert all(v.dtype == torch.float32 for v in tst["params"].values())
+    batch = {"data": rng.standard_normal((4, 5, 5, 6)).astype(np.float32),
+             "softmax_label": rng.integers(0, 3, 4).astype(np.float32)}
+    monkeypatch.setenv("MXTPU_FUSE_CONV_BN",
+                       "interpret" if fuse == "1" else "0")
+    jst, _ = jstep.step(jst, batch)
+    tst, _ = tstep.step(tst, batch)
+    for n, v in jst["aux"].items():
+        assert tst["aux"][n].dtype == torch.bfloat16
+        np.testing.assert_array_equal(tst["aux"][n].float().numpy(),
+                                      _jnp(v), err_msg=n)
+    for key in ("params", "opt"):
+        for n, v in jst[key].items():
+            np.testing.assert_allclose(_np(tst[key][n]), _jnp(v), rtol=1e-4,
+                                       atol=1e-5, err_msg="%s %s" % (key, n))
+
+
+def test_bf16_stats_checkpoint_writes_float32(monkeypatch, tmp_path):
+    """Module.fit under MXTPU_BF16_STATS=opt: the fused state stores
+    bfloat16, the executor and the checkpoint float32, and a float32 -> bf16
+    -> float32 round trip is exact, so resume is bit for bit."""
+    monkeypatch.setenv("MXTPU_BF16_STATS", "opt")
+    monkeypatch.setenv("MXTPU_FUSE_CONV_BN", "1")
+    rng = _rng("bf16 fit")
+    X = rng.standard_normal((32, 5, 5, 6)).astype(np.float32)
+    y = rng.integers(0, 3, 32).astype(np.float32)
+
+    def run(prefix, stop=None, resume=None):
+        trandom.seed(0)
+        mod = mt.mod.Module(_tiny(mt), context=mt.cpu())
+
+        def cb(p):
+            if stop is not None and p.nbatch + 1 >= stop:
+                raise KeyboardInterrupt
+        try:
+            mod.fit(mt.io.NDArrayIter(X, y, batch_size=8), num_epoch=2,
+                    optimizer_params={"learning_rate": 0.1,
+                                      "momentum": 0.9},
+                    initializer=tinit.Xavier(), batch_end_callback=cb,
+                    checkpoint_prefix=prefix, checkpoint_every_n_batches=2,
+                    resume=resume)
+        except KeyboardInterrupt:
+            pass
+        return mod
+
+    mod = run(str(tmp_path / "ref"))
+    st = mod._fused_state
+    assert all(v.dtype == torch.bfloat16 for v in st["aux"].values())
+    assert all(v.dtype == torch.bfloat16 for v in st["opt"].values()
+               if v is not None)
+    arg, aux = mod.get_params()
+    assert all(v.dtype == np.float32 for v in aux.values())
+    ck = mt.model.CheckpointManager(str(tmp_path / "ref")).load_latest()
+    for n, v in ck.aux_params.items():
+        assert v.dtype == np.float32
+        np.testing.assert_array_equal(v.asnumpy(), st["aux"][n].float()
+                                      .numpy())
+    import pickle
+    states = pickle.loads(open(ck.opt_states_file, "rb").read())
+    assert all(np.asarray(s).dtype == np.float32 for s in states.values())
+    run(str(tmp_path / "vic"), stop=3)
+    got = run(str(tmp_path / "vic"), resume="auto")
+    for n, v in mod.get_params()[0].items():
+        np.testing.assert_array_equal(got.get_params()[0][n].asnumpy(),
+                                      v.asnumpy(), err_msg=n)
