@@ -182,12 +182,42 @@ non-zero):
    finite cross-entropy and parameters, images/s; Dropout p=0.5 on a
    4096x4096 tensor on the card keeps 0.5 +- 0.005 of it, and equal seeds
    give equal masks.
+15. data: the data tier from JPEG records. (a) a probe, printed on its
+   own line: Pillow, <jpeglib.h>, libjpeg in ldconfig, g++ and the cores;
+   the route follows it: "native" (libjpeg's header and library present:
+   the native library must build), "pillow" (no libjpeg: the native build
+   must fail with the compiler's message; decoding falls back to Pillow as
+   in the reference) or "none". (b) an indexed .rec of 4096 classification
+   JPEGs at 257x257 (quality 90, 8 classes; bench.py's realdata textures)
+   and one of 256 detection JPEGs at 300x300 with 1-4 boxes, written with
+   Pillow from --seed. (c) ResNet-50 NCHW, 8 classes, bf16 compute, b=128,
+   k=4 through Module.fit: 1 warm-up and 2 timed epochs from the records
+   through ImageRecordIter (native route) or ImageIter with the Python
+   augmenters (pillow route), with bench.py's augmentation (random crop
+   of 224 after a resize to 246, mirror, mean/std) on min(4, cores)
+   decode workers, against the same fit over a device-resident
+   NDArrayIter of the same shapes (images/s, their ratio, PipelineStats,
+   DataHealth), the workers decoding alone, and the NDArrayIter fit again
+   (half the images, 2 epochs) with the workers decoding beside it; the
+   first two superbatches that reached the card must equal a 1-worker
+   pass bit for bit. (d) drills: data.worker_die makes
+   next() raise naming the site within 5 s; io.record_read@3=transient*2
+   leaves DATA_HEALTH.retries at 2 and the clean pass's batches; the
+   registry carries data_health, pipeline_stats and training_health. (e)
+   the SSD training net (phase 12's settings: f32, TF32 off, cuDNN
+   deterministic, Adam) from the detection records through
+   ImageDetIter(b=32, rand_mirror, label_shape=(4, 5)) and Module.fit at
+   k=1, 8 steps: the NMS kernel once a step on smem, and the last step's
+   det_out equal to MultiBoxDetection with the plain NMS on its inputs;
+   images/s. Without Pillow and libjpeg only (d) runs, on the reader and
+   the decode pool.
 
 The line before the last is {"kernels": [...]} (per kernel: launches on
 its main path, max error against the plain version, times and bound; the
-NMS kernel's launches also by path: serving, training and the serving
-tier; the matmul_stats kernel's by path: the train phase and the training
-API); the last line is {"ok": true, "device": {...}}.
+NMS kernel's launches also by path: serving, training, the serving tier
+and training from JPEG records; the matmul_stats kernel's by path: the
+train phase and the training API); the last line is {"ok": true,
+"device": {...}}.
 """
 from __future__ import annotations
 
@@ -199,6 +229,7 @@ import re
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import numpy as np
@@ -3276,6 +3307,511 @@ def training_api_phase(seed, card, step_profiles):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# data phase: the data tier feeding ResNet-50 and SSD training from JPEG
+# records, and its drills
+# ---------------------------------------------------------------------------
+
+#: phase 15 (b): classification records as bench.py's realdata run packs
+#: them (int(224 * 1.15) px, quality 90, 8 classes), and detection records
+DATA_IMAGES = 4096
+DATA_SIZE = int(224 * 1.15)
+DATA_QUALITY = 90
+DATA_CLASSES = 8
+DET_IMAGES = 256
+DET_OBJECTS = 4
+#: phase 15 (c): ResNet-50 as bench.py's realdata run trains it
+DATA_IMAGE = 224
+DATA_BATCH = 128
+DATA_RESIZE = 246
+DATA_K = 4
+DATA_MEAN = (123.68, 116.28, 103.53)
+DATA_STD = (58.4, 57.1, 57.4)
+#: warm-up and timed epochs of each ResNet-50 fit
+DATA_EPOCHS = (1, 2)
+#: phase 15 (e): SSD at phase 12's batch over the detection records
+DET_BATCH = 32
+#: how long a dead decode worker may take to fail the consumer
+DRILL_POLL_S = 5.0
+
+
+def _cls_image(seed, i, size, ang, freq, base, gx, gy):
+    """Image ``i`` of the classification records: a class texture (an
+    oriented stripe pattern over a base colour) with noise."""
+    c = i % DATA_CLASSES
+    rng = np.random.default_rng([seed, i])
+    wave = np.sin(2 * np.pi * freq[c]
+                  * (gx * np.cos(ang[c]) + gy * np.sin(ang[c]))
+                  + rng.uniform(0, 2 * np.pi))
+    img = (base[c][:, None, None] + 0.22 * wave[None]
+           + rng.normal(0, 0.05, (3, size, size)))
+    return (np.clip(img, 0, 1) * 255).astype(np.uint8).transpose(1, 2, 0)
+
+
+def _det_image(seed, i, size):
+    """Image ``i`` of the detection records: 1-4 coloured rectangles on
+    noise, and its label row [2, 5, (class, x1, y1, x2, y2) * objects]."""
+    rng = np.random.default_rng([seed, 1 << 20, i])
+    img = np.clip(rng.normal(110, 12, (size, size, 3)), 0, 255)
+    rows = []
+    for _ in range(int(rng.integers(1, DET_OBJECTS + 1))):
+        k = int(rng.integers(0, SSD_TRAIN_CLASSES))
+        w, h = rng.uniform(0.25, 0.55, 2)
+        x1, y1 = rng.uniform(0, 1 - w), rng.uniform(0, 1 - h)
+        img[int(y1 * size):int((y1 + h) * size),
+            int(x1 * size):int((x1 + w) * size)] = _COLORS[k]
+        rows += [k, x1, y1, x1 + w, y1 + h]
+    return img.astype(np.uint8), np.array([2, 5] + rows, np.float32)
+
+
+def write_records(path, n, make, quality):
+    """An indexed .rec of ``n`` JPEGs: ``make(i)`` gives image ``i`` and
+    its label; images are made and encoded on 8 threads (numpy and
+    Pillow release the GIL), written in index order."""
+    import io as _bio
+    from concurrent.futures import ThreadPoolExecutor
+    from PIL import Image
+    from mxnet_tpu_torch import recordio
+
+    def encode(i):
+        img, label = make(i)
+        buf = _bio.BytesIO()
+        Image.fromarray(img).save(buf, format="JPEG", quality=quality)
+        return label, buf.getvalue()
+    rec = recordio.MXIndexedRecordIO(os.path.splitext(path)[0] + ".idx",
+                                     path, "w")
+    nbytes = 0
+    with ThreadPoolExecutor(8) as pool:
+        for i, (label, jpg) in enumerate(pool.map(encode, range(n))):
+            rec.write_idx(i, recordio.pack(
+                recordio.IRHeader(0, label, i, 0), jpg))
+            nbytes += len(jpg)
+    rec.close()
+    return nbytes
+
+
+def data_probe():
+    """Phase 15 (a): what the machine offers the data tier."""
+    from mxnet_tpu_torch import native_build
+    p = native_build.probe()
+    route = "native" if p["native"] else ("pillow" if p["pillow"]
+                                          else "none")
+    log("data probe: Pillow %s; <jpeglib.h> %s; ldconfig libjpeg %s; %s; "
+        "os.cpu_count() %s -> the JPEG route is %r"
+        % (p["pillow"] or "absent",
+           "found" if p["jpeglib_h"] else "absent",
+           p["libjpeg"] or "absent", p["cxx"] or "no C++ compiler",
+           p["cpu_count"], route))
+    return p, route
+
+
+def _cls_iter(route, rec, num_workers, seed, shape=None, batch=None,
+              resize=None):
+    """The classification iterator of ``route``: ImageRecordIter (the
+    native fused decode) where libjpeg is present, else ImageIter (Pillow
+    decode and the Python augmenters, the reference's fallback), with
+    bench.py's realdata augmentation."""
+    import mxnet_tpu_torch as mt
+    shape = shape or (3, DATA_IMAGE, DATA_IMAGE)
+    batch = batch or DATA_BATCH
+    resize = resize or DATA_RESIZE
+    if route == "native":
+        return mt.image.ImageRecordIter(
+            path_imgrec=rec, data_shape=shape, batch_size=batch,
+            shuffle=True, rand_crop=True, rand_mirror=True, resize=resize,
+            mean_r=DATA_MEAN[0], mean_g=DATA_MEAN[1], mean_b=DATA_MEAN[2],
+            std_r=DATA_STD[0], std_g=DATA_STD[1], std_b=DATA_STD[2],
+            num_workers=num_workers, seed=seed)
+    augs = mt.image.CreateAugmenter(
+        shape, resize=resize, rand_crop=True, rand_mirror=True,
+        mean=np.array(DATA_MEAN), std=np.array(DATA_STD))
+    return mt.image.ImageIter(batch, shape, path_imgrec=rec, shuffle=True,
+                              aug_list=augs, num_workers=num_workers,
+                              seed=seed)
+
+
+def _raw_pool_epoch(rec, num_workers, batch):
+    """The drills where no JPEG route exists: the reader and the decode
+    pool over the records' bytes (a batch is its records' lengths)."""
+    from mxnet_tpu_torch import data as tdata
+    reader = tdata.ShardedRecordReader(rec, shuffle=True, seed=1)
+    order = reader.epoch_order(0)
+    tasks = [(order[b * batch:(b + 1) * batch], b)
+             for b in range(len(order) // batch)]
+
+    def lengths(keys, _seed):
+        return np.array([len(reader.read(k)[1]) for k in keys])
+    pool = tdata.DecodeWorkerPool(lengths, tasks[:4], num_workers)
+    try:
+        return [pool.next_batch() for _ in range(min(4, len(tasks)))]
+    finally:
+        pool.close()
+        reader.close()
+
+
+def data_drills(route, rec, seed, problems):
+    """Phase 15 (d): a dead decode worker fails next() naming its site
+    within the poll bound; two transient read faults are retried into the
+    clean pass's batches; the registry carries the data views."""
+    import mxnet_tpu_torch as mt
+    from mxnet_tpu_torch import faults
+    from mxnet_tpu_torch.obs.registry import REGISTRY
+    shape, batch, resize = (3, 64, 64), 16, 72
+
+    def first_batches(nw):
+        if route == "none":
+            return _raw_pool_epoch(rec, nw, batch)
+        it = _cls_iter(route, rec, nw, seed, shape, batch, resize)
+        try:
+            return [it.next_host().data[0] for _ in range(4)]
+        finally:
+            it.close()
+
+    faults.clear()
+    faults.inject("data.worker_die", nth=2, kind="die")
+    t0 = time.perf_counter()
+    err = None
+    try:
+        first_batches(2)
+    except mt.MXNetError as e:
+        err = str(e)
+    dt = time.perf_counter() - t0
+    faults.clear()
+    log("data (d) drill data.worker_die: next() raised in %.3f s (bound "
+        "%.1f s): %s" % (dt, DRILL_POLL_S, err))
+    if err is None or "data.worker_die" not in err or dt > DRILL_POLL_S:
+        problems.append("data.worker_die: raised %r after %.1f s"
+                        % (err, dt))
+
+    clean = first_batches(2)
+    mt.io.DATA_HEALTH.reset()
+    faults.inject("io.record_read", nth=3, kind="transient", times=2)
+    got = first_batches(2)
+    faults.clear()
+    retries = mt.io.DATA_HEALTH.report()["retries"]
+    same = all(np.array_equal(a, b) for a, b in zip(got, clean))
+    log("data (d) drill io.record_read@3=transient*2: DATA_HEALTH.retries "
+        "%d, the 4 batches equal the clean pass's %s" % (retries, same))
+    if retries != 2 or not same:
+        problems.append("io.record_read drill: retries %d, same %s"
+                        % (retries, same))
+    views = sorted({k.split(".")[0] for k in REGISTRY.snapshot()})
+    log("data (d) registry views: %s; data_health %s" % (
+        views, mt.io.DATA_HEALTH.report()))
+    for v in ("data_health", "pipeline_stats", "training_health"):
+        if v not in views:
+            problems.append("the registry has no %s view" % v)
+
+
+def _drain(it):
+    """Batches of one epoch through ``it.next_host()``."""
+    n = 0
+    while True:
+        try:
+            it.next_host()
+        except StopIteration:
+            return n
+        n += 1
+
+
+def _resnet_fit(mt, sym, it, seed, epochs):
+    """Module(compute_dtype="bfloat16").fit over ``it`` at k=DATA_K; returns
+    (module, epoch end times, accuracy counts)."""
+    import torch
+    ends = []
+    metric = mt.metric.Accuracy()
+
+    def on_epoch(*_):
+        torch.cuda.synchronize()
+        ends.append(time.perf_counter())
+    mt.random.seed(seed)
+    mod = mt.mod.Module(sym, context=mt.gpu(0), compute_dtype="bfloat16")
+    torch.cuda.synchronize()
+    ends.append(time.perf_counter())
+    mod.fit(it, num_epoch=epochs, eval_metric=metric, optimizer="sgd",
+            optimizer_params=MODULE_OPT, initializer=mt.initializer.Xavier(),
+            steps_per_dispatch=DATA_K, epoch_end_callback=on_epoch)
+    return mod, ends, metric.num_inst
+
+
+def data_resnet(route, rec, seed, card, problems):
+    """Phase 15 (c): ResNet-50 NCHW bf16 from the JPEG records against a
+    device-resident NDArrayIter of the same shapes."""
+    import torch
+    import mxnet_tpu_torch as mt
+    from mxnet_tpu_torch import data as tdata, models
+    workers = min(4, os.cpu_count() or 1)
+    warm, timed = DATA_EPOCHS
+    n = DATA_IMAGES - DATA_IMAGES % DATA_BATCH
+    sym = models.resnet(num_layers=50, num_classes=DATA_CLASSES,
+                        image_shape="3,%d,%d" % (DATA_IMAGE, DATA_IMAGE))
+
+    # the first two superbatches that reach the card during the fit
+    landed = []
+    real_next = tdata.DevicePrefetcher.next
+
+    def recording(self):
+        sb = real_next(self)
+        if len(landed) < 2:
+            landed.append([a.data.clone() for a in sb.data + sb.label])
+        return sb
+    it = _cls_iter(route, rec, workers, seed)
+    tdata.DevicePrefetcher.next = recording
+    try:
+        mod, ends, count = _resnet_fit(mt, sym, it, seed, warm + timed)
+    finally:
+        tdata.DevicePrefetcher.next = real_next
+    stats, health = it.data_stats.report(), it.data_health.report()
+    it.close()
+    real_ips = timed * n / (ends[-1] - ends[warm])
+    finite = all(torch.isfinite(v.data).all()
+                 for v in mod.get_params()[0].values())
+
+    # the decode pool alone over one epoch, with no training beside it
+    it = _cls_iter(route, rec, workers, seed)
+    t0 = time.perf_counter()
+    nbatch = _drain(it)
+    alone_ips = nbatch * DATA_BATCH / (time.perf_counter() - t0)
+    it.close()
+
+    ref = _cls_iter(route, rec, 1, seed)
+    want = []
+    for _ in range(2):
+        parts = [ref.next_host() for _ in range(DATA_K)]
+        want.append([np.stack([p.data[0] for p in parts]),
+                     np.stack([p.label[0] for p in parts])])
+    ref.close()
+    dev = mt.gpu(0).to_device()
+    same = len(landed) == 2 and all(
+        a.device.type == dev.type and np.array_equal(a.cpu().numpy(), b)
+        for got, exp in zip(landed, want) for a, b in zip(got, exp))
+
+    gen = torch.Generator(dev).manual_seed(seed)
+    x = torch.randn((n, 3, DATA_IMAGE, DATA_IMAGE), generator=gen,
+                    device=dev)
+    y = torch.randint(0, DATA_CLASSES, (n,), generator=gen, device=dev)
+    synth = mt.io.NDArrayIter(mt.nd.NDArray(x), mt.nd.NDArray(y.float()),
+                              batch_size=DATA_BATCH)
+    _, sends, _ = _resnet_fit(mt, sym, synth, seed, warm + timed)
+    synth_ips = timed * n / (sends[-1] - sends[warm])
+    # the synthetic fit again, over half the images (one warm-up and one
+    # timed epoch), with the decode workers busy beside it (a thread
+    # draining the records epoch after epoch): what the workers' threads
+    # cost the training loop's own host time
+    half = n // 2
+    synth = mt.io.NDArrayIter(mt.nd.NDArray(x[:half]),
+                              mt.nd.NDArray(y[:half].float()),
+                              batch_size=DATA_BATCH)
+    busy = _cls_iter(route, rec, workers, seed)
+    stop = threading.Event()
+
+    def drain_forever():
+        while not stop.is_set():
+            try:
+                busy.next_host()
+            except StopIteration:
+                busy.reset()
+    drainer = threading.Thread(target=drain_forever, daemon=True)
+    drainer.start()
+    try:
+        _, bends, _ = _resnet_fit(mt, sym, synth, seed, 2)
+    finally:
+        stop.set()
+        drainer.join(timeout=60)
+        busy.close()
+    del x, y, synth
+    busy_ips = half / (bends[-1] - bends[-2])
+    log("data (c) ResNet-50 NCHW bf16 b=%d k=%d from %d JPEG records "
+        "through %s(num_workers=%d): %.1f images/s over %d timed epochs "
+        "(host clock, each epoch ended by a synchronize; warm-up epoch "
+        "%.2f s); over a device-resident NDArrayIter of the same shapes "
+        "%.1f images/s; real/synthetic %.3f; the last epoch's accuracy "
+        "over %d samples, parameters finite %s [%s]"
+        % (DATA_BATCH, DATA_K, n, "ImageRecordIter" if route == "native"
+           else "ImageIter", workers, real_ips, timed, ends[warm] - ends[0],
+           synth_ips, real_ips / synth_ips, count, finite, card))
+    per_core = (stats.get("decode_n", 0)
+                / max(stats.get("decode_s", 0.0), 1e-9))
+    log("data (c) PipelineStats %s; decode %.1f images/s a worker thread "
+        "(decode_n over decode_s); DataHealth %s" % (stats, per_core,
+                                                     health))
+    log("data (c) the same %d workers decoding one epoch with no training "
+        "beside them: %.1f images/s; the device-resident fit (%d images, "
+        "its second epoch timed) with those workers decoding beside it: "
+        "%.1f images/s, against %.1f without (host clock) [%s]"
+        % (workers, alone_ips, half, busy_ips, synth_ips, card))
+    log("data (c) the first 2 superbatches that reached the card equal a "
+        "1-worker pass bit for bit: %s" % same)
+    if not same:
+        problems.append("the first superbatches differ from a 1-worker "
+                        "pass")
+    if not finite or count != n:
+        problems.append("ResNet-50 from JPEG: finite %s, %d samples"
+                        % (finite, count))
+    return {"real_ips": real_ips, "synthetic_ips": synth_ips,
+            "decode_alone_ips": alone_ips, "synthetic_busy_ips": busy_ips,
+            "stall_frac": stats.get("stall_frac")}
+
+
+def data_ssd(rec, seed, card, problems):
+    """Phase 15 (e): SSD trained from the detection records through
+    ImageDetIter and Module.fit at phase 12's settings; B2 once a step,
+    held bit for bit against the plain NMS on the last step's inputs."""
+    import torch
+    import mxnet_tpu_torch as mt
+    from mxnet_tpu_torch.ops import contrib, multibox_nms as mnms
+    from mxnet_tpu_torch.models import ssd
+    with mt.symbol.NameManager():
+        sym = ssd.get_symbol_train(num_classes=SSD_TRAIN_CLASSES)
+    steps = DET_IMAGES // DET_BATCH
+    arg_params = xavier_params(sym, (DET_BATCH,) + SSD_INPUT, seed,
+                               {"label": (DET_BATCH, DET_OBJECTS, 5)})
+    it = mt.image.ImageDetIter(DET_BATCH, SSD_INPUT, rec, rand_mirror=True,
+                               label_shape=(DET_OBJECTS, 5), seed=seed,
+                               mean_pixels=(110, 110, 110),
+                               std_pixels=(60, 60, 60))
+    plain_detection = contrib.multibox_detection
+    seen = {}
+
+    def recording(*args, **kw):
+        out = plain_detection(*args, **kw)
+        seen.update(args=[a.detach().clone() for a in args], kw=kw,
+                    out=out.detach().clone())
+        return out
+    stamps = []
+
+    def stamp(_):
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+    metric = mt.metric.MultiBoxMetric()
+    mod = mt.mod.Module(sym, data_names=("data",), label_names=("label",),
+                        context=mt.gpu(0))
+    with no_tf32(), deterministic_cudnn():
+        torch.cuda.synchronize()
+        contrib.multibox_detection = recording
+        # the main path: counts at 0 just before, read just after
+        mnms.reset_launches()
+        try:
+            mod.fit(it, num_epoch=1, eval_metric=metric, optimizer="adam",
+                    optimizer_params=dict(SSD_TRAIN_OPT),
+                    arg_params=arg_params, steps_per_dispatch=1,
+                    batch_end_callback=stamp)
+            torch.cuda.synchronize()
+        finally:
+            contrib.multibox_detection = plain_detection
+        launches, routes = mnms.LAUNCHES, dict(mnms.LAUNCHES_BY_ROUTE)
+        with torch.no_grad():
+            plain = plain_detection(*seen["args"],
+                                    nms=mnms.nms_alive_reference,
+                                    **seen["kw"])
+    det = seen["out"]
+    kept = int((det[:, :, 0] >= 0).sum())
+    sums = _multibox_sums(metric)
+    ips = (len(stamps) - 1) * DET_BATCH / (stamps[-1] - stamps[0])
+    log("data (e) SSD (get_symbol_train() defaults, f32, Adam) from %d "
+        "JPEG records through ImageDetIter(b=%d, %s, rand_mirror, "
+        "label_shape=(%d, 5)) and Module.fit k=1: %d steps, %.1f images/s "
+        "over steps 2-%d (host clock, each step ended by a synchronize; "
+        "phase 12's NDArrayIter fit: see its line); MultiBoxMetric (CE, "
+        "smooth-L1, valid) %s; multibox_nms launches %d (by route %s); the "
+        "last step's det_out %s, %d rows kept, equal to the plain NMS on "
+        "its inputs: %s [%s]"
+        % (DET_IMAGES, DET_BATCH, "x".join(map(str, SSD_INPUT)),
+           DET_OBJECTS, len(stamps), ips, len(stamps), sums, launches,
+           routes, tuple(det.shape), kept, torch.equal(det, plain), card))
+    if launches != steps or routes != {"smem": steps, "l2": 0}:
+        problems.append("SSD from JPEG: multibox_nms ran %d times (%s) in "
+                        "%d steps" % (launches, routes, steps))
+    if not torch.equal(det, plain) or kept == 0:
+        problems.append("SSD from JPEG: det_out differs from the plain NMS "
+                        "path, or keeps nothing")
+    if not np.isfinite(sums[0] / max(sums[2], 1)):
+        problems.append("SSD from JPEG: cross-entropy %r" % (sums,))
+    return {"launches": launches, "ips": ips}
+
+
+def data_phase(seed, card):
+    """Phase 15 (see the module docstring). Returns the NMS kernel's
+    launches on this path."""
+    import tempfile as _tempfile
+    t_phase = time.perf_counter()
+    probe, route = data_probe()
+    problems = []
+    out = {"route": route, "launches": 0}
+    with _tempfile.TemporaryDirectory() as tmp:
+        cls_rec = os.path.join(tmp, "train.rec")
+        if route == "none":
+            from mxnet_tpu_torch import recordio
+            w = recordio.MXIndexedRecordIO(
+                os.path.join(tmp, "train.idx"), cls_rec, "w")
+            rng = np.random.default_rng(seed)
+            for i in range(256):
+                w.write_idx(i, recordio.pack(
+                    recordio.IRHeader(0, float(i % DATA_CLASSES), i, 0),
+                    rng.bytes(int(rng.integers(100, 4000)))))
+            w.close()
+            log("data: neither libjpeg nor Pillow on this machine: (b), (c) "
+                "and (e) cannot run here; the drills run on the reader and "
+                "the decode pool over raw records")
+        else:
+            rng = np.random.default_rng(seed + 15)
+            ang = rng.uniform(0, np.pi, DATA_CLASSES)
+            freq = rng.uniform(3, 9, DATA_CLASSES)
+            base = rng.uniform(0.25, 0.75, (DATA_CLASSES, 3))
+            xs = np.linspace(0, 1, DATA_SIZE)
+            gx, gy = np.meshgrid(xs, xs, indexing="ij")
+            t0 = time.perf_counter()
+            nb = write_records(cls_rec, DATA_IMAGES, lambda i: (
+                _cls_image(seed, i, DATA_SIZE, ang, freq, base, gx, gy),
+                float(i % DATA_CLASSES)), DATA_QUALITY)
+            det_rec = os.path.join(tmp, "det.rec")
+            nd_ = write_records(det_rec, DET_IMAGES, lambda i: _det_image(
+                seed, i, SSD_INPUT[1]), DATA_QUALITY)
+            log("data (b) records: %d classification JPEGs at %dx%d "
+                "(quality %d, %d classes, %.1f MB) and %d detection JPEGs "
+                "at %dx%d with 1-%d boxes (%.1f MB), written in %.2f s"
+                % (DATA_IMAGES, DATA_SIZE, DATA_SIZE, DATA_QUALITY,
+                   DATA_CLASSES, nb / 1e6, DET_IMAGES, SSD_INPUT[1],
+                   SSD_INPUT[2], DET_OBJECTS, nd_ / 1e6,
+                   time.perf_counter() - t0))
+        if route != "native":
+            from mxnet_tpu_torch import native_build
+            try:
+                native_build.load()
+                problems.append("the probe found no libjpeg, yet the native "
+                                "library built")
+            except Exception as e:
+                msg = str(e)
+                log("data: the native library does not build here, as the "
+                    "probe said: %s" % " ".join(msg.split())[:300])
+                if "g++ failed" not in msg and "compiler" not in msg:
+                    problems.append("the failed build's error does not "
+                                    "carry the compiler's message")
+            log("data: libjpeg's headers and library are absent on this "
+                "machine, so ImageRecordIter (the native fused decode) "
+                "cannot run here%s" % (
+                    "; (c) trains from the same records through ImageIter "
+                    "(Pillow decode, the reference's fallback) and (e)'s "
+                    "imdecode decodes with Pillow" if route == "pillow"
+                    else ""))
+        else:
+            from mxnet_tpu_torch import native_build
+            t0 = time.perf_counter()
+            native_build.load()
+            log("data: the native library built in %.2f s: %s"
+                % (time.perf_counter() - t0, native_build.build()))
+        if route != "none":
+            out.update(data_resnet(route, cls_rec, seed, card, problems))
+        data_drills(route, cls_rec, seed, problems)
+        if route != "none":
+            ssd_out = data_ssd(det_rec, seed, card, problems)
+            out.update(launches=ssd_out["launches"], ssd_ips=ssd_out["ips"])
+    log("data: the phase took %.1f s" % (time.perf_counter() - t_phase))
+    if problems:
+        raise SystemExit("data phase failed: " + "; ".join(problems))
+    return out
+
+
 def _nodes(sym):
     from mxnet_tpu_torch.symbol import _topo
     return _topo(sym._out_nodes())
@@ -3333,17 +3869,19 @@ def main():
         tier_launches = serving_tier_phase(args.seed, card,
                                            ssd_train["checkpoint"])
     api_launches = training_api_phase(args.seed, card, step_profiles)
+    data = data_phase(args.seed, card)
     # B1 runs on two main paths: the train phase and the training API
     b1.update(launches=b1["launches"] + api_launches,
               launches_train=b1["launches"],
               launches_training_api=api_launches)
-    # B2 runs on three main paths: serving (phase 5), training (phase 12)
-    # and the serving tier (phase 13)
+    # B2 runs on four main paths: serving (phase 5), training (phase 12),
+    # the serving tier (phase 13) and training from JPEG records (phase 15)
     nms.update(launches=(serve_launches + ssd_train["launches"]
-                         + tier_launches),
+                         + tier_launches + data["launches"]),
                launches_serve=serve_launches,
                launches_train=ssd_train["launches"],
                launches_serving_tier=tier_launches,
+               launches_data=data["launches"],
                train_ms=ssd_train["in_step_ms"],
                train_ms_source="profiler")
     b3 = []

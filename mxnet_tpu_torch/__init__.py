@@ -28,7 +28,11 @@ of the training API: checkpoint and resume (``model.CheckpointManager``,
 ``model.AsyncCheckpointWriter``, ``fit(resume=, checkpoint_*=)``), the
 training ``guard``, ``TrainStep``'s ``remat`` and ``MXTPU_BF16_STATS``,
 ``model.FeedForward``, and the AlexNet, VGG and Inception-BN ``models``
-with ``Dropout`` and ``LRN``.
+with ``Dropout`` and ``LRN``; and the data tier: ``recordio`` (with the
+native reader and JPEG decoder built from ``src/io`` by ``native_build``),
+``image`` (``ImageRecordIter``, ``ImageIter``, ``ImageDetIter``), ``data``'s
+sharded reader, decode worker pool and pipeline statistics, and ``io``'s
+``CSVIter``, ``MNISTIter``, ``DataHealth`` and retry policy.
 """
 from .base import MXNetError, TrainingPreemptedError, __version__
 from . import base
@@ -55,6 +59,7 @@ from . import kvstore
 from . import kvstore as kv
 from . import callback
 from . import model
+from .model import FeedForward
 from . import module
 from . import module as mod
 from . import train_step
@@ -63,9 +68,12 @@ from . import predictor
 from .predictor import Predictor
 from . import faults
 from . import guard
+from .guard import TrainingGuard, TrainingHealth, TrainingDivergedError
 from . import autotune
 from . import serving
 from . import models
+from . import recordio
+from . import image
 from . import convert
 from . import operator   # registers the Custom op type
 from . import rtc

@@ -5,56 +5,19 @@ Counterpart of ``mxnet_tpu/data/prefetch.py``. :class:`DevicePrefetcher`
 is :class:`~mxnet_tpu_torch.io.SuperBatchIter` with its queue sized to the
 dispatch pipeline (``depth`` D holds D+1 superbatches: one per dispatch in
 flight plus the one training) and per-stage timing in a
-:class:`PipelineStats`: stack and copy seconds on the producer thread, and
-the seconds the training loop waited for data (``stall``) with the queue's
-depth at each wait, which the ``Speedometer`` prints.
+:class:`~.stats.PipelineStats`: stack and copy seconds on the producer
+thread, and the seconds the training loop waited for data (``stall``) with
+the queue's depth at each wait, which the ``Speedometer`` prints. Over an
+image iterator it charges the iterator's own ``data_stats`` (where the
+decode workers charge read and decode), so one report covers the tier.
 """
 from __future__ import annotations
 
-import threading
 import time
 
 from .. import io as mxio
 from ..obs import trace as _obs
-
-
-class PipelineStats(object):
-    """Thread-safe seconds and counts by stage (``stack``, ``h2d``,
-    ``stall``) and queue-depth samples of one input pipeline (the fields of
-    the JAX package's ``data.stats.PipelineStats`` that ``fit`` reads)."""
-
-    def __init__(self):
-        self._lock = threading.Lock()
-        self._stages = {}       # name -> [seconds, count]
-        self._qdepth_sum = 0
-        self._qdepth_n = 0
-
-    def add(self, stage, seconds, n=1):
-        with self._lock:
-            acc = self._stages.setdefault(stage, [0.0, 0])
-            acc[0] += seconds
-            acc[1] += n
-
-    def note_queue_depth(self, depth):
-        with self._lock:
-            self._qdepth_sum += int(depth)
-            self._qdepth_n += 1
-
-    def stage_seconds(self, stage):
-        with self._lock:
-            return self._stages.get(stage, [0.0, 0])[0]
-
-    def report(self):
-        """``{"<stage>_s": seconds, "<stage>_n": count, ...,
-        "queue_depth_avg": mean depth}``."""
-        with self._lock:
-            out = {}
-            for name, (sec, cnt) in sorted(self._stages.items()):
-                out["%s_s" % name] = sec
-                out["%s_n" % name] = cnt
-            if self._qdepth_n:
-                out["queue_depth_avg"] = self._qdepth_sum / self._qdepth_n
-            return out
+from .stats import PipelineStats, PIPELINE_STATS
 
 
 class DevicePrefetcher(mxio.SuperBatchIter):
@@ -63,7 +26,12 @@ class DevicePrefetcher(mxio.SuperBatchIter):
     epoch-addressable order, such as NDArrayIter)."""
 
     def __init__(self, base, k, depth=None, stats=None, **kwargs):
-        self.stats = stats if stats is not None else PipelineStats()
+        # one stats object for the whole tier: the base iterator's where it
+        # has one, else a fresh one mirrored into PIPELINE_STATS
+        self.stats = (stats if stats is not None
+                      else getattr(base, "data_stats", None))
+        if self.stats is None:
+            self.stats = PipelineStats(parent=PIPELINE_STATS)
         if depth is not None and "queue_depth" not in kwargs:
             kwargs["queue_depth"] = max(2, int(depth) + 1)
         self._emitted = 0

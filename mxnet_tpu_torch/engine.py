@@ -8,7 +8,12 @@ control surface ``Module.fit`` reads:
   ``fit`` (env ``MXTPU_BULK_STEPS``, default 1);
 - ``dispatch_pipeline``: the default depth of ``fit``'s deferred metric
   readback (env ``MXTPU_DISPATCH_PIPELINE``, default 1);
-- ``wait_all``: ``torch.cuda.synchronize`` on the current device.
+- ``wait_all``: ``torch.cuda.synchronize`` on the current device;
+  ``wait_for_var(arr)`` for one array's device; ``push(fn)`` runs a host
+  callback after the queued work;
+- the synchronous debug mode ``MXNET_ENGINE_TYPE=NaiveEngine`` (or
+  ``set_engine_type("NaiveEngine")``): ``maybe_sync``, called after each
+  imperative op, waits for that op's device before it returns.
 
 ``*_configured`` tell an explicit setting from the default, for the log
 line that names where each of ``fit``'s knobs came from. The HLO analyzer
@@ -25,11 +30,24 @@ import torch
 
 from .base import MXNetError, env_int
 
+_naive = os.environ.get("MXNET_ENGINE_TYPE", "") == "NaiveEngine"
 _bulk_steps = max(1, env_int("MXTPU_BULK_STEPS", 1))
 # whether set_bulk_size was called: an explicit bulk(1) reads as "asked
 # for 1", not "unset"
 _bulk_explicit = False
 _pipeline_override = None
+
+
+def set_engine_type(name):
+    """``"NaiveEngine"``: wait for the device after every imperative op;
+    ``"ThreadedEngine"``/``"ThreadedEnginePerDevice"``: queue and return
+    (the default)."""
+    global _naive
+    _naive = (name == "NaiveEngine")
+
+
+def is_naive():
+    return _naive
 
 
 def set_bulk_size(size):
@@ -110,3 +128,25 @@ def wait_all():
     without CUDA)."""
     if torch.cuda.is_available() and torch.cuda.is_initialized():
         torch.cuda.synchronize()
+
+
+def maybe_sync(t):
+    """Called after each imperative op with its result tensor: in naive
+    mode a CUDA tensor's device is synchronized (a CPU tensor is already
+    done)."""
+    if _naive and t is not None and t.is_cuda:
+        torch.cuda.synchronize(t.device)
+    return t
+
+
+def wait_for_var(arr):
+    """Block until ``arr`` (an NDArray or a tensor) is computed."""
+    t = getattr(arr, "data", arr)
+    if t.is_cuda:
+        torch.cuda.synchronize(t.device)
+
+
+def push(fn):
+    """Run a host callback after all queued work."""
+    wait_all()
+    fn()

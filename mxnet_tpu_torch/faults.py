@@ -6,12 +6,27 @@ invocations and an armed rule fires on exactly the nth call, so every
 recovery path is tested without sleeps, races or flaky timing.
 
 Sites the port instruments (the static registry :data:`SITES`; the JAX
-package's other sites come with the modules that fire them: the data
-tier, the kvstore, the decode loop):
+package's other sites come with the modules that fire them: the kvstore,
+the distributed ring, the decode loop):
 
 ===========================  ==============================================
 site                         where it fires
 ===========================  ==============================================
+``io.record_read``           per record read (``data.ShardedRecordReader``,
+                             ``image.ImageIter``); transient failures are
+                             retried per the ``io.RetryPolicy``
+``io.batch_read``            per batch pull in ``io.SuperBatchIter``
+``io.h2d``                   per stacked superbatch slot's copy to the
+                             device
+``superbatch.producer``      top of the ``SuperBatchIter`` producer loop —
+                             ``"die"`` ends the thread without its end
+                             marker; the consumer raises naming the site
+``data.worker_die``          per claimed batch task in a
+                             ``data.DecodeWorkerPool`` worker — ``"die"``
+                             ends the worker holding its batch; the
+                             consumer raises naming the site
+``data.decode_delay``        per batch task before the decode — a slow
+                             worker (``"delay"``)
 ``checkpoint.write``         before an atomic checkpoint file write
                              (``model.atomic_write_bytes``); ``"truncate"``
                              publishes half the payload (a torn write the
@@ -142,6 +157,14 @@ def _register(name, kinds, scenarios, doc, flag=False):
 
 # The static site registry: keep it in lockstep with the instrumented call
 # sites of the port.
+_register("io.record_read", ("transient", "raise"), ("data",),
+          "per record read in image.ImageIter")
+_register("io.batch_read", ("transient", "raise"), ("train", "data"),
+          "per batch pull in io.SuperBatchIter")
+_register("io.h2d", ("transient", "raise"), ("train", "data"),
+          "per host->device superbatch slot transfer")
+_register("superbatch.producer", ("transient", "die"), ("train", "data"),
+          "top of the SuperBatchIter producer loop")
 _register("checkpoint.write", ("raise", "transient", "truncate"), ("train",),
           "before an atomic checkpoint file write")
 _register("checkpoint.write.mid", ("raise",), ("train",),
@@ -166,6 +189,10 @@ _register("serve.enqueue_drop", ("drop",), ("serve",),
           "per serving.Batcher.submit — back-pressure shed at the edge")
 _register("fleet.replica_die", ("die",), ("serve",),
           "per collected batch on a fleet replica — kills that replica")
+_register("data.worker_die", ("die", "raise"), ("data",),
+          "per claimed batch task in a data.DecodeWorkerPool worker")
+_register("data.decode_delay", ("delay",), ("data",),
+          "per batch task before the decode stage — a slow worker")
 
 
 def sites(scenario=None):

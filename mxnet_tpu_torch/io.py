@@ -10,12 +10,23 @@ Where batches live: ``NDArrayIter`` over numpy arrays yields host (CPU)
 NDArrays, and the module that trains on them copies each to its device;
 over NDArrays it slices them where they lie. ``SuperBatchIter`` stacks host
 batches into pinned memory on its producer thread and makes one
-``non_blocking`` copy to the card per superbatch (batches already on the
-card are stacked there). The data tier (``DataHealth``, ``RetryPolicy``,
-``CSVIter``, ``MNISTIter``, the RecordIO iterators) is not ported yet.
+``non_blocking`` copy to the card per array of the superbatch (batches
+already on the card are stacked there). Where the base iterator has
+``next_host()`` (the image iterators), its numpy batches are stacked on the
+host straight into that pinned buffer.
+
+The data plane's fault tolerance: :class:`RetryPolicy` and
+:func:`retry_call` (bounded backoff on transient read failures),
+:class:`CorruptRecordError` (a record that cannot be parsed: skipped or
+raised, never retried) and :class:`DataHealth` counting both, mirrored into
+the process-global :data:`DATA_HEALTH`. ``CSVIter`` and ``MNISTIter`` read
+their files on the host. The RecordIO image iterators live in
+:mod:`~mxnet_tpu_torch.image`.
 """
 from __future__ import annotations
 
+import hashlib
+import os
 import queue as _queue
 import threading
 import time
@@ -25,10 +36,150 @@ from collections import namedtuple
 import numpy as np
 import torch
 
-from .base import MXNetError
+from .base import MXNetError, torch_dtype
 from .context import cpu, resolve_device
 from .ndarray import NDArray, array
 from .obs import trace as _obs
+
+
+# ---------------------------------------------------------------------------
+# fault tolerance for the data plane: a bounded exponential-backoff retry
+# for transient read failures, a skip-with-counter path for corrupt
+# records, and a DataHealth stat surfacing both.
+# ---------------------------------------------------------------------------
+
+class CorruptRecordError(MXNetError):
+    """A record that decoded/parsed as garbage (NOT transient: retrying the
+    same bytes cannot help; iterators either skip it or raise)."""
+
+
+class DataHealth(object):
+    """Thread-safe counters for data-pipeline degradation.
+
+    Every retry, skipped corrupt record and hard failure is recorded here
+    (and mirrored into the process-global ``io.DATA_HEALTH`` aggregate), so
+    a training run can report "healthy" vs "limping on retries" instead of
+    silently eating IO errors.
+    """
+
+    def __init__(self, parent=None):
+        self._lock = threading.Lock()
+        self._parent = parent
+        self.retries = 0
+        self.skipped_records = 0
+        self.failures = 0
+        self.last_error = None
+
+    def record_retry(self, site, exc):
+        with self._lock:
+            self.retries += 1
+            self.last_error = "%s: %s" % (site, exc)
+        if self._parent is not None:
+            self._parent.record_retry(site, exc)
+
+    def record_skip(self, site, exc):
+        with self._lock:
+            self.skipped_records += 1
+            self.last_error = "%s: %s" % (site, exc)
+        if self._parent is not None:
+            self._parent.record_skip(site, exc)
+
+    def record_failure(self, site, exc):
+        with self._lock:
+            self.failures += 1
+            self.last_error = "%s: %s" % (site, exc)
+        if self._parent is not None:
+            self._parent.record_failure(site, exc)
+
+    def report(self):
+        with self._lock:
+            return {"retries": self.retries,
+                    "skipped_records": self.skipped_records,
+                    "failures": self.failures,
+                    "last_error": self.last_error}
+
+    def reset(self):
+        with self._lock:
+            self.retries = 0
+            self.skipped_records = 0
+            self.failures = 0
+            self.last_error = None
+
+    def __repr__(self):
+        return "DataHealth(%r)" % (self.report(),)
+
+
+#: process-global aggregate every per-iterator DataHealth mirrors into
+DATA_HEALTH = DataHealth()
+
+
+class RetryPolicy(object):
+    """Bounded exponential backoff with deterministic jitter.
+
+    ``delay(attempt, site)``: ``base_delay * 2**(attempt-1)`` capped at
+    ``max_delay``, plus up to ``jitter`` fraction derived from a hash of
+    (worker rank, site, attempt) — repeatable run-to-run for a given rank
+    layout, yet de-correlated across sites AND workers (N workers retrying
+    the same site don't thundering-herd a recovering filesystem).
+    """
+
+    def __init__(self, max_retries=3, base_delay=0.01, max_delay=0.5,
+                 jitter=0.5):
+        self.max_retries = int(max_retries)
+        self.base_delay = float(base_delay)
+        self.max_delay = float(max_delay)
+        self.jitter = float(jitter)
+        self._worker_salt = os.environ.get("MXTPU_RANK", "0")
+
+    def delay(self, attempt, site=""):
+        d = min(self.base_delay * (2.0 ** max(0, attempt - 1)),
+                self.max_delay)
+        if self.jitter and d > 0:
+            h = hashlib.sha256(("%s/%s#%d" % (self._worker_salt, site,
+                                              attempt)).encode())
+            frac = int.from_bytes(h.digest()[:4], "big") / float(1 << 32)
+            d *= 1.0 + self.jitter * frac
+        return d
+
+
+#: OSError subclasses that retrying cannot fix — surface them immediately
+#: with their real cause instead of burning the budget
+_PERMANENT_OSERRORS = (FileNotFoundError, PermissionError, IsADirectoryError,
+                       NotADirectoryError)
+
+
+def _transient_types():
+    from . import faults as _faults
+    return (_faults.InjectedTransientFault, OSError)
+
+
+def retry_call(fn, site, policy=None, health=None):
+    """Call ``fn`` with the policy's bounded retry on transient errors
+    (OSError and injected transient faults). Exhausting the budget raises
+    :class:`MXNetError` naming the site and attempt count; non-transient
+    errors — including permanent OSErrors like FileNotFoundError —
+    propagate untouched."""
+    policy = policy or RetryPolicy()
+    health = health or DATA_HEALTH
+    transient = _transient_types()
+    attempt = 0
+    while True:
+        try:
+            return fn()
+        except _PERMANENT_OSERRORS:
+            raise
+        except transient as e:
+            attempt += 1
+            if attempt > policy.max_retries:
+                health.record_failure(site, e)
+                raise MXNetError(
+                    "%s: giving up after %d attempts (retry budget %d "
+                    "exhausted): %s" % (site, attempt, policy.max_retries,
+                                        e)) from e
+            health.record_retry(site, e)
+            d = policy.delay(attempt, site)
+            if d > 0:
+                time.sleep(d)
 
 
 class DataDesc(namedtuple("DataDesc", ["name", "shape"])):
@@ -313,6 +464,11 @@ class SuperDataBatch(DataBatch):
         return out
 
 
+_NP_NARROW = {np.dtype(np.float64): np.dtype(np.float32),
+              np.dtype(np.int64): np.dtype(np.int32),
+              np.dtype(np.uint64): np.dtype(np.uint32)}
+
+
 def _tensor_of(x):
     if isinstance(x, NDArray):
         return x.data
@@ -328,8 +484,12 @@ class SuperBatchIter(DataIter):
 
     Host batches are stacked straight into pinned memory and land on
     ``device`` (``cuda:0`` by default; ``"cpu"`` stacks and stays) as one
-    ``non_blocking`` copy per array of the superbatch. Batches already on a
-    device are stacked there. The copy is queued on the producer thread's
+    ``non_blocking`` copy per array of the superbatch. Where ``base`` has
+    ``next_host()``, its numpy batches are stacked on the host with one
+    ``np.stack`` into that pinned buffer. Batches already on a device are
+    stacked there. A batch pull (fault site ``io.batch_read``) and a copy
+    (``io.h2d``) that fail transiently are retried per ``retry_policy``,
+    counted in ``data_health``. The copy is queued on the producer thread's
     current stream, so it is ordered after the work already queued there.
     The epoch tail (fewer than K batches) comes as a partial superbatch
     with ``num_steps < k``, or is dropped with
@@ -338,7 +498,8 @@ class SuperBatchIter(DataIter):
     """
 
     def __init__(self, base, k, prefetch=True, queue_depth=None,
-                 last_group_handle="partial", device=None):
+                 last_group_handle="partial", retry_policy=None,
+                 data_health=None, device=None):
         super().__init__(getattr(base, "batch_size", 0))
         if queue_depth is None:
             from . import engine as _engine
@@ -352,6 +513,9 @@ class SuperBatchIter(DataIter):
         self.k = int(k)
         self.device = resolve_device(device, "SuperBatchIter")
         self.last_group_handle = last_group_handle
+        self.retry_policy = retry_policy or RetryPolicy()
+        self.data_health = (data_health if data_health is not None
+                            else DataHealth(parent=DATA_HEALTH))
         self._prefetch = prefetch
         self._depth = max(1, int(queue_depth))
         self._queue = None
@@ -385,6 +549,20 @@ class SuperBatchIter(DataIter):
         return self._stacked_descs(self.base.provide_label)
 
     # -- assembly ------------------------------------------------------
+    def _pull_one(self):
+        """One batch of the base iterator (host numpy through
+        ``next_host()`` where it has one), with transient failures retried
+        per the policy (fault site ``io.batch_read``)."""
+        from . import faults as _faults
+        next_host = getattr(self.base, "next_host", None)
+
+        def pull():
+            _faults.fire("io.batch_read")
+            return next_host() if next_host is not None else self.base.next()
+
+        return retry_call(pull, "io.batch_read", self.retry_policy,
+                          self.data_health)
+
     def _pull_group(self):
         """Up to K consecutive batches, cut early where the bucket key
         changes (the first batch of the next run is held for the next
@@ -394,7 +572,7 @@ class SuperBatchIter(DataIter):
             self._held = None
             while len(group) < self.k:
                 try:
-                    b = self.base.next()
+                    b = self._pull_one()
                 except StopIteration:
                     break
                 if group and (getattr(b, "bucket_key", None)
@@ -415,25 +593,56 @@ class SuperBatchIter(DataIter):
         charges its PipelineStats here."""
 
     def _stack(self, parts):
-        """One stacked NDArray on :attr:`device` from the K parts."""
-        ts = [_tensor_of(p) for p in parts]
+        """One stacked NDArray on :attr:`device` from the K parts. Host
+        parts are stacked into one (pinned, for a CUDA device) buffer and
+        land with one copy, retried on transient failure (fault site
+        ``io.h2d``)."""
+        from . import faults as _faults
+        raw = [p.data if isinstance(p, NDArray) else p for p in parts]
         t0 = time.perf_counter()
-        if all(t.device.type == "cpu" for t in ts) \
-                and self.device.type == "cuda":
-            buf = torch.empty((len(ts),) + tuple(ts[0].shape),
-                              dtype=ts[0].dtype, pin_memory=True)
-            torch.stack(ts, out=buf)
-            dt = time.perf_counter() - t0
-            self._note_stage("stack", dt)
-            _obs.complete("stack", dt, dispatch=self._cur_sb)
-            t0 = time.perf_counter()
-            out = buf.to(self.device, non_blocking=True)
+        if all(isinstance(r, np.ndarray) for r in raw):
+            buf = self._host_buffer((len(raw),) + raw[0].shape, raw[0].dtype)
+            # numpy batches (next_host): one np.stack into the buffer,
+            # 64-bit narrowed to 32 as nd.array does
+            np.stack(raw, out=buf.numpy())
+        elif all(isinstance(r, torch.Tensor) and r.device.type == "cpu"
+                 for r in raw):
+            buf = self._host_buffer((len(raw),) + tuple(raw[0].shape),
+                                    raw[0].dtype)
+            torch.stack(raw, out=buf)
         else:
-            out = torch.stack([t.to(self.device) for t in ts])
+            out = torch.stack([_tensor_of(r).to(self.device) for r in raw])
+            dt = time.perf_counter() - t0
+            self._note_stage("h2d", dt, n=len(parts))
+            _obs.complete("h2d", dt, dispatch=self._cur_sb)
+            return NDArray(out)
         dt = time.perf_counter() - t0
-        self._note_stage("h2d", dt, n=len(parts))
-        _obs.complete("h2d", dt, dispatch=self._cur_sb)
-        return NDArray(out)
+        self._note_stage("stack", dt)
+        _obs.complete("stack", dt, dispatch=self._cur_sb)
+
+        def land():
+            _faults.fire("io.h2d")
+            if self.device.type == "cpu":
+                return buf
+            return buf.to(self.device, non_blocking=True)
+
+        t0 = time.perf_counter()
+        try:
+            return NDArray(retry_call(land, "io.h2d", self.retry_policy,
+                                      self.data_health))
+        finally:
+            dt = time.perf_counter() - t0
+            self._note_stage("h2d", dt, n=len(parts))
+            _obs.complete("h2d", dt, dispatch=self._cur_sb)
+
+    def _host_buffer(self, shape, dtype):
+        """An empty host tensor for a stacked slot: pinned when it lands on
+        a CUDA device; numpy dtypes take nd.array's 64-to-32-bit rule."""
+        if isinstance(dtype, np.dtype):
+            dtype = _NP_NARROW.get(dtype, dtype)
+            dtype = torch_dtype(dtype)
+        return torch.empty(shape, dtype=dtype,
+                           pin_memory=self.device.type == "cuda")
 
     def _assemble(self, group):
         self._cur_sb = self._sb_seq
@@ -470,7 +679,10 @@ class SuperBatchIter(DataIter):
         wr = weakref.ref(self)
 
         def produce(stop, q):
+            from . import faults as _faults
             while not stop.is_set():
+                if _faults.fire("superbatch.producer") == "die":
+                    return  # an abrupt thread death: no end marker
                 it = wr()
                 if it is None:
                     return
@@ -523,9 +735,10 @@ class SuperBatchIter(DataIter):
                 t = self._thread
                 if t is None or not t.is_alive():
                     self._done = True
-                    raise MXNetError("superbatch.producer: the prefetch "
-                                     "thread died without delivering a "
-                                     "batch")
+                    raise MXNetError(
+                        "superbatch.producer: the prefetch thread died "
+                        "without delivering a batch (DataHealth=%r)"
+                        % (self.data_health.report(),))
 
     # -- DataIter interface --------------------------------------------
     def reset(self):
@@ -699,3 +912,86 @@ def _batch_array(v):
     if isinstance(v, np.ndarray):
         return array(v, ctx=cpu())
     return NDArray(v.clone())
+
+
+class CSVIter(DataIter):
+    """CSV file iterator (ref: src/io/iter_csv.cc:213; host-side numpy here)."""
+
+    def __init__(self, data_csv, data_shape, label_csv=None, label_shape=(1,),
+                 batch_size=1, round_batch=True, **kwargs):
+        data = np.loadtxt(data_csv, delimiter=",", dtype=np.float32)
+        data = data.reshape((-1,) + tuple(data_shape))
+        label = None
+        if label_csv is not None:
+            label = np.loadtxt(label_csv, delimiter=",", dtype=np.float32)
+            label = label.reshape((-1,) + tuple(label_shape))
+            if label_shape == (1,):
+                label = label.reshape(-1)
+        self._inner = NDArrayIter(
+            data, label, batch_size=batch_size,
+            last_batch_handle="pad" if round_batch else "discard",
+            label_name="label")
+        super().__init__(batch_size)
+
+    @property
+    def provide_data(self):
+        return self._inner.provide_data
+
+    @property
+    def provide_label(self):
+        return self._inner.provide_label
+
+    def reset(self):
+        self._inner.reset()
+
+    def next(self):
+        return self._inner.next()
+
+
+class MNISTIter(DataIter):
+    """MNIST idx-format file iterator (ref: src/io/iter_mnist.cc:254)."""
+
+    def __init__(self, image, label, batch_size=128, shuffle=True, flat=False,
+                 seed=0, silent=False, num_parts=1, part_index=0, **kwargs):
+        import gzip
+        import struct
+
+        def read_idx(path):
+            opener = gzip.open if path.endswith(".gz") else open
+            with opener(path, "rb") as f:
+                magic = struct.unpack(">HBB", f.read(4))
+                ndim = magic[2]
+                dims = struct.unpack(">" + "I" * ndim, f.read(4 * ndim))
+                return np.frombuffer(f.read(), dtype=np.uint8).reshape(dims)
+
+        img = read_idx(image).astype(np.float32) / 255.0
+        lab = read_idx(label).astype(np.float32)
+        # distributed sharding (ref: part_index/num_parts in image_iter_common.h)
+        if num_parts > 1:
+            n = img.shape[0] // num_parts
+            img = img[part_index * n:(part_index + 1) * n]
+            lab = lab[part_index * n:(part_index + 1) * n]
+        if flat:
+            img = img.reshape(img.shape[0], -1)
+        else:
+            img = img.reshape(img.shape[0], 1, img.shape[1], img.shape[2])
+        self._inner = NDArrayIter(img, lab, batch_size=batch_size,
+                                  shuffle=shuffle)
+        super().__init__(batch_size)
+
+    @property
+    def provide_data(self):
+        return self._inner.provide_data
+
+    @property
+    def provide_label(self):
+        return self._inner.provide_label
+
+    def reset(self):
+        self._inner.reset()
+
+    def next(self):
+        return self._inner.next()
+
+    def iter_next(self):
+        return self._inner.iter_next()

@@ -380,7 +380,8 @@ class BaseModule(object):
         iter_set_epoch = getattr(train_iter, "set_epoch", None)
         if iter_set_epoch is not None:
             iter_set_epoch(begin_epoch)
-        data_stats = getattr(train_iter, "stats", None)
+        data_stats = (getattr(train_iter, "stats", None)
+                      or getattr(train_iter, "data_stats", None))
         note_retired = getattr(self, "_note_dispatch_retired", None)
 
         def _consume(entries, epoch):

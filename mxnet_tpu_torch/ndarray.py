@@ -32,6 +32,7 @@ import torch
 from .base import MXNetError, numpy_dtype, torch_dtype
 from .context import Context, current_context, resolve_device
 from . import dmlc_serial
+from . import engine as _engine
 from . import random as _random
 from .ops import registry as _reg
 
@@ -166,6 +167,7 @@ class NDArray(object):
         p = self._wb_parent
         if p is None:
             self._data = new
+            _engine.maybe_sync(new)
             return
         with torch.no_grad():
             whole = p._data.clone()
@@ -329,6 +331,8 @@ def invoke(opdef, nd_inputs, attrs, out=None, aux=(), is_train=None,
         results = list(out_list)
     else:
         results = [NDArray(v) for v in outs]
+        for r in results:
+            _engine.maybe_sync(r.data)
     if _ag.is_recording():
         _ag._record(opdef, dict(attrs), list(nd_inputs), in_vals, results,
                     aux_vals, (device, rng_state), is_train)
@@ -437,6 +441,13 @@ def add_n(*arrays, **kwargs):
 
 
 ElementWiseSum = add_n
+
+
+def imdecode(str_img, clip_rect=(0, 0, 0, 0), out=None, index=0, channels=3,
+             mean=None):
+    """The reference's ``nd.imdecode`` lives in :mod:`mxnet_tpu_torch.image`
+    (as in the JAX package)."""
+    raise MXNetError("imdecode lives in mxnet_tpu_torch.image")
 
 
 def onehot_encode(indices, out):

@@ -8,11 +8,13 @@ port imports nothing of the JAX package):
   :meth:`Registry.counter` etc. The serving tier counts
   ``serving.param_reloads`` here, the tuning-DB resolvers
   ``autotune.db_resolutions`` and ``autotune.db_mismatches``.
-- **Views**: a named callable returning a flat ``{key: value}`` dict. Of
-  the JAX package's legacy process-global counter objects the port has
-  ``serving.SERVING_HEALTH``, registered as the ``serving_health`` view;
-  the others (data, training guard, pipeline, retrace and dist health)
-  come with the modules that own them.
+- **Views**: a named callable returning a flat ``{key: value}`` dict. The
+  process-global counter objects are registered as views:
+  ``io.DATA_HEALTH`` (``data_health``), ``guard.TRAINING_HEALTH``
+  (``training_health``), ``serving.SERVING_HEALTH`` (``serving_health``)
+  and ``data.PIPELINE_STATS`` (``pipeline_stats``). The JAX package's
+  ``retrace_events`` and ``dist_health`` views come with the retrace watch
+  and the distributed ring, which the port does not have yet.
 - **Snapshots**: :meth:`Registry.snapshot` flattens everything to
   ``{"view.key": value}`` (the flight recorder's dump carries one).
 
@@ -212,20 +214,36 @@ _default_views_done = False
 
 
 def register_default_views(registry=None):
-    """Register the process-global counter objects the port has as views
-    (today ``serving_health``). Imports lazily (obs must stay importable
-    before the serving tier) and is idempotent. Called from the
-    ``mxnet_tpu_torch.obs`` import."""
+    """Register the process-global counter objects as views
+    (``data_health``, ``training_health``, ``serving_health``,
+    ``pipeline_stats``). Each view imports its owner when it is read (obs
+    must stay importable before io, the guard and the serving tier); the
+    call is idempotent. Called from the ``mxnet_tpu_torch.obs`` import."""
     global _default_views_done
     reg = registry or REGISTRY
     if registry is None and _default_views_done:
         return reg
 
+    def data_health():
+        from .. import io as _io
+        return _io.DATA_HEALTH.report()
+
+    def training_health():
+        from .. import guard as _guard
+        return _guard.TRAINING_HEALTH.report()
+
     def serving_health():
         from ..serving import health as _sh
         return _sh.SERVING_HEALTH.report()
 
+    def pipeline_stats():
+        from ..data import stats as _st
+        return _st.PIPELINE_STATS.report()
+
+    reg.register_view("data_health", data_health)
+    reg.register_view("training_health", training_health)
     reg.register_view("serving_health", serving_health)
+    reg.register_view("pipeline_stats", pipeline_stats)
     if registry is None:
         _default_views_done = True
     return reg

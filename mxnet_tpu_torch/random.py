@@ -79,11 +79,43 @@ def set_state(state):
             gen.set_state(st)
 
 
+_tls = threading.local()
+
+
 def np_rng():
     """A numpy Generator seeded from the CPU generator (host-side draws:
-    ``io.NDArrayIter``'s shuffle)."""
+    ``io.NDArrayIter``'s shuffle, the image augmenters). Inside a
+    :class:`scoped_np_rng` block the scoped Generator is returned instead:
+    the data tier's decode workers pin each batch's augmentation draws to a
+    Generator made from (seed, epoch, batch index), so the stream does not
+    depend on which worker decodes a batch."""
+    ov = getattr(_tls, "np_rng", None)
+    if ov is not None:
+        return ov
     import numpy as np
     return np.random.default_rng(randint63())
+
+
+class scoped_np_rng(object):
+    """Thread-local override of :func:`np_rng` for the calling thread::
+
+        with random.scoped_np_rng(np.random.default_rng(s)):
+            ...   # every np_rng() here returns that Generator
+
+    Scopes nest; the override reaches neither other threads nor past the
+    block."""
+
+    def __init__(self, rng):
+        self._rng = rng
+
+    def __enter__(self):
+        self._prev = getattr(_tls, "np_rng", None)
+        _tls.np_rng = self._rng
+        return self._rng
+
+    def __exit__(self, *exc):
+        _tls.np_rng = self._prev
+        return False
 
 
 def randint63():

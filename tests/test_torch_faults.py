@@ -95,15 +95,18 @@ def test_arm_validates_sites_and_delay_sleeps():
              "ckpt.async_write", "ckpt.disk_full", "guard.grad_nan",
              "guard.loss_spike", "guard.param_nan"]
     serve = ["fleet.replica_die", "serve.enqueue_drop"]
-    assert sorted(tfaults.sites()) == sorted(train + serve)
+    both = ["io.batch_read", "io.h2d", "superbatch.producer"]
+    data = ["data.decode_delay", "data.worker_die", "io.record_read"]
+    assert sorted(tfaults.sites()) == sorted(train + serve + both + data)
     assert sorted(tfaults.sites("serve")) == serve
-    assert sorted(tfaults.sites("train")) == train
+    assert sorted(tfaults.sites("train")) == sorted(train + both)
+    assert sorted(tfaults.sites("data")) == sorted(both + data)
     # the port's sites are the JAX package's, with the same kinds and flags
     for name, info in tfaults.SITES.items():
         ref = jfaults.SITES[name]
         assert (info.kinds, info.flag) == (ref.kinds, ref.flag), name
     with pytest.raises(MXNetError, match="unregistered fault site"):
-        tfaults.arm([{"site": "io.record_read", "kind": "transient"}])
+        tfaults.arm([{"site": "kvstore.push", "kind": "transient"}])
     tfaults.arm([{"site": "fleet.replica_die", "kind": "die", "nth": 2}])
     assert [tfaults.fire("fleet.replica_die") for _ in range(3)] == \
         [None, "die", None]

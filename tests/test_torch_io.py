@@ -5,7 +5,9 @@
 ``SuperBatchIter`` stacking (with and without its producer thread, partial
 and discarded tails) read the same numpy arrays in both packages.
 Tolerance: exact, since nothing is computed (the same float32 values are
-sliced, padded and stacked).
+sliced, padded and stacked). ``CSVIter`` and ``MNISTIter`` read files the
+test writes (exact); ``RetryPolicy``'s backoff and ``retry_call``'s
+counting and give-up match the JAX package's (exact).
 """
 import zlib
 
@@ -206,3 +208,105 @@ def test_device_prefetcher_charges_its_stats():
     assert rep["queue_depth_avg"] >= 0
     it.set_epoch(0)     # NDArrayIter has no epoch-addressable order
     it.close()
+
+
+@pytest.mark.parametrize("round_batch", [True, False])
+@pytest.mark.parametrize("label_shape", [(1,), (2,)])
+def test_csv_iter_matches_reference(round_batch, label_shape, tmp_path):
+    rng = _rng("csv")
+    x = rng.standard_normal((11, 6)).astype(np.float32)
+    y = rng.integers(0, 5, (11,) + label_shape).astype(np.float32)
+    np.savetxt(str(tmp_path / "d.csv"), x, delimiter=",")
+    np.savetxt(str(tmp_path / "l.csv"), y.reshape(11, -1), delimiter=",")
+    out = {}
+    for pkg in (mx, mt):
+        it = pkg.io.CSVIter(data_csv=str(tmp_path / "d.csv"),
+                            data_shape=(2, 3),
+                            label_csv=str(tmp_path / "l.csv"),
+                            label_shape=label_shape, batch_size=4,
+                            round_batch=round_batch)
+        assert [tuple(d) for d in it.provide_data] == [("data", (4, 2, 3))]
+        out[pkg] = _epoch(it) + (it.reset() or _epoch(it))
+    assert len(out[mt]) == (6 if round_batch else 4)
+    for (td, tl, tp), (jd, jl, jp) in zip(out[mt], out[mx]):
+        assert tp == jp
+        for u, v in zip(td + tl, jd + jl):
+            np.testing.assert_array_equal(u, v)
+
+
+def _write_idx(path, arr):
+    import gzip
+    import struct
+    opener = gzip.open if path.endswith(".gz") else open
+    with opener(path, "wb") as f:
+        f.write(struct.pack(">HBB", 0, 8, arr.ndim))
+        f.write(struct.pack(">" + "I" * arr.ndim, *arr.shape))
+        f.write(arr.astype(np.uint8).tobytes())
+
+
+@pytest.mark.parametrize("gz", [True, False])
+@pytest.mark.parametrize("flat", [True, False])
+def test_mnist_iter_matches_reference(gz, flat, tmp_path):
+    rng = _rng("mnist")
+    imgs = rng.integers(0, 256, (20, 7, 5))
+    labs = rng.integers(0, 10, 20)
+    ext = ".gz" if gz else ""
+    ipath, lpath = (str(tmp_path / ("img" + ext)),
+                    str(tmp_path / ("lab" + ext)))
+    _write_idx(ipath, imgs)
+    _write_idx(lpath, labs)
+    out = {}
+    for pkg in (mx, mt):
+        it = pkg.io.MNISTIter(image=ipath, label=lpath, batch_size=6,
+                              shuffle=False, flat=flat, num_parts=2,
+                              part_index=1)
+        out[pkg] = _epoch(it)
+    want_x = imgs[10:20].astype(np.float32) / 255.0
+    got_x = np.concatenate([b[0][0] for b in out[mt]])[:10]
+    np.testing.assert_array_equal(
+        got_x, want_x.reshape(10, -1) if flat else want_x[:, None])
+    for (td, tl, tp), (jd, jl, jp) in zip(out[mt], out[mx]):
+        assert tp == jp
+        for u, v in zip(td + tl, jd + jl):
+            np.testing.assert_array_equal(u, v)
+    # shuffled: the same images, in the port's own order
+    it = mt.io.MNISTIter(image=ipath, label=lpath, batch_size=5, flat=True)
+    rows = np.concatenate([b[0][0] for b in _epoch(it)])
+    np.testing.assert_array_equal(
+        np.sort(rows, axis=0),
+        np.sort(imgs.reshape(20, -1).astype(np.float32) / 255.0, axis=0))
+
+
+def test_retry_policy_and_retry_call_match_reference(monkeypatch):
+    monkeypatch.setenv("MXTPU_RANK", "3")
+    for attempt in range(1, 6):
+        for site in ("io.record_read", "io.h2d"):
+            t = mt.io.RetryPolicy(base_delay=0.01, max_delay=0.05)
+            j = mx.io.RetryPolicy(base_delay=0.01, max_delay=0.05)
+            assert t.delay(attempt, site) == j.delay(attempt, site)
+    assert mt.io.RetryPolicy().delay(2, "x") != \
+        mt.io.RetryPolicy(jitter=0).delay(2, "x")
+    for pkg in (mx, mt):
+        health = pkg.io.DataHealth(parent=pkg.io.DataHealth())
+        policy = pkg.io.RetryPolicy(max_retries=2, base_delay=0.0)
+        calls = []
+
+        def flaky():
+            calls.append(1)
+            if len(calls) < 3:
+                raise OSError("flaky read")
+            return "ok"
+        assert pkg.io.retry_call(flaky, "io.record_read", policy,
+                                 health) == "ok"
+        assert health.report()["retries"] == 2
+        with pytest.raises(pkg.base.MXNetError, match="giving up after 3"):
+            pkg.io.retry_call(lambda: (_ for _ in ()).throw(OSError("x")),
+                              "io.record_read", policy, health)
+        with pytest.raises(FileNotFoundError):
+            pkg.io.retry_call(lambda: open("/nonexistent/file"), "s",
+                              policy, health)
+        rep = health.report()
+        assert (rep["retries"], rep["failures"]) == (4, 1)
+        assert health._parent.report()["failures"] == 1
+        health.reset()
+        assert health.report()["retries"] == 0
