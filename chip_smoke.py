@@ -211,9 +211,34 @@ non-zero):
    det_out equal to MultiBoxDetection with the plain NMS on its inputs;
    images/s. Without Pillow and libjpeg only (d) runs, on the reader and
    the decode pool.
+16. lstm: variable-length training, example/rnn/lstm_bucketing.py's
+   model at its published widths (a 2-layer, 200-unit FusedRNNCell LSTM
+   over a 200-wide embedding, vocabulary 10000, batch 32, buckets 10, 20,
+   30, 40 and 60, Adam at lr 0.01, Perplexity(ignore_label=0), float32)
+   on 3200 synthetic sentences from --seed (next token = token + 1). (a)
+   the RNN op (LSTM and GRU) at bucket 60 on the card against the same op
+   on the CPU, outputs within 2e-5 and gradients within 1e-4 of the
+   largest; its time beside torch._VF.lstm (cuDNN, TF32 off and on) on
+   the same unpacked weights, in turns. (b) BucketingModule.fit at K=1 and
+   K=4 for 2 epochs: the perplexity must fall, and K=4 must equal K=1 bit
+   for bit (or within 1e-3 of each parameter's norm where a fused step
+   repeated from one state does not repeat its bits). (c) the example's
+   own loop (forward, backward, update, update_metric a batch, switching
+   buckets) against fit's fused step over the first 4 batches from one
+   state (1e-3 of each parameter's norm), then over 2 epochs (its
+   perplexity must fall). (d) fit with Monitor(pattern=".*weight") on the
+   card and on the CPU port, the monitored batch's rows within 1e-4. (e) a
+   child process (chip_smoke.py --lstm-profile-child DIR) with
+   MXNET_PROFILER_AUTOSTART=1: the profile starts at the first dispatch
+   of a bucket-60 fit under a faults.plan_scope (fired_counts checked),
+   a profiler.Scope brackets 8 more steps, the Chrome trace must hold CUDA
+   kernel events and the Scope's span, and REGISTRY.to_prometheus() is
+   printed; a step's kernels by device time, and the card's idle share.
+   (f) tokens/s and the host and CUDA-event ms a step by bucket, and
+   tokens/s over a fit's second epoch. No kernel of B1-B3 may launch.
 
 The line before the last is {"kernels": [...]} (per kernel: launches on
-its main path, max error against the plain version, times and bound; the
+its main path (phase 16's LSTM path launches none), max error against the plain version, times and bound; the
 NMS kernel's launches also by path: serving, training, the serving tier
 and training from JPEG records; the matmul_stats kernel's by path: the
 train phase and the training API); the last line is {"ok": true,
@@ -3812,6 +3837,671 @@ def data_phase(seed, card):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 16: variable-length training (the LSTM language model)
+# ---------------------------------------------------------------------------
+
+#: example/rnn/lstm_bucketing.py at its published widths: a 2-layer,
+#: 200-unit FusedRNNCell LSTM over a 200-wide embedding, PTB's vocabulary,
+#: batch 32, buckets 10-60, Adam at lr 0.01, Perplexity(ignore_label=0)
+LSTM_VOCAB = 10000
+LSTM_HIDDEN = 200
+LSTM_EMBED = 200
+LSTM_LAYERS = 2
+LSTM_BATCH = 32
+LSTM_BUCKETS = (10, 20, 30, 40, 60)
+LSTM_SENTENCES = 3200
+LSTM_LR = 0.01
+LSTM_EPOCHS = 2
+LSTM_K = 4
+#: batches the monitor fit (d) and the child's profile (e) train
+LSTM_MONITOR_BATCHES = 3
+LSTM_PROFILE_STEPS = 8
+#: timed steps a bucket (f)
+LSTM_TIMED_STEPS = 5
+#: the card against the CPU port on the same weights and inputs: the RNN
+#: op's outputs (absolute) and gradients (relative to the largest
+#: gradient); float32 on both, summed in other orders, through 60 steps
+LSTM_OP_ATOL = 2e-5
+LSTM_OP_GRAD_RTOL = 1e-4
+#: the monitor's statistics, card against CPU (relative)
+LSTM_MONITOR_RTOL = 1e-4
+#: the example's loop against the fused step (fit's at K=1) over the first
+#: LSTM_LOOP_STEPS batches from one state: the relative norm of each
+#: parameter's difference after each step. The loop's Adam is the
+#: per-index updater, which rounds nearly every element of its update one
+#: ulp away from the fused update (folded float64 rate against a float32
+#: tensor one), and each step adds such differences (measured on the card:
+#: 1.8e-6 after one step, 9.7e-5 after four); over two epochs training
+#: amplifies them to different trajectories, so the whole runs are held
+#: by their perplexity falling, not against each other
+LSTM_LOOP_STEPS = 4
+LSTM_LOOP_RTOL = 1e-3
+#: fit at K=4 against K=1 when they are not bit for bit (only if the
+#: embedding's backward is not bitwise repeatable on this card)
+LSTM_K_RTOL = 1e-3
+#: where the phase runs (a CPU rehearsal sets "cpu")
+LSTM_CTX = "gpu"
+
+
+def _lstm_ctx():
+    import mxnet_tpu_torch as mt
+    return mt.gpu(0) if LSTM_CTX == "gpu" else mt.cpu()
+
+
+def lstm_sentences(seed):
+    """The example's learnable synthetic language (next token = token + 1,
+    ids 1..vocab-1; 0 is the padding label) from ``seed``, with lengths
+    spread over the buckets: each sentence picks a bucket, then a length
+    above the bucket below it."""
+    rng = np.random.default_rng([seed, 16])
+    vocab, buckets = LSTM_VOCAB, LSTM_BUCKETS
+    out = []
+    lo = (1,) + tuple(buckets[:-1])
+    for _ in range(LSTM_SENTENCES):
+        b = int(rng.integers(len(buckets)))
+        length = int(rng.integers(lo[b] + 1, buckets[b] + 1))
+        s0 = int(rng.integers(1, vocab))
+        out.append([(s0 + t - 1) % (vocab - 1) + 1 for t in range(length)])
+    return out
+
+
+def lstm_iter(seed, sentences, buckets=None, max_batches=None):
+    """BucketSentenceIter over ``sentences`` with the LSTM's zero begin
+    states appended to each batch (as the example's iterator does), its
+    order a function of ``seed`` and the number of resets (so every fit
+    sees the same batches in the same order)."""
+    import mxnet_tpu_torch as mt
+    from mxnet_tpu_torch import random as trandom
+    batch = LSTM_BATCH
+    state = (LSTM_LAYERS, batch, LSTM_HIDDEN)
+    with trandom.scoped_np_rng(np.random.default_rng([seed, 0])):
+        inner = mt.rnn.BucketSentenceIter(sentences, batch,
+                                          buckets=list(buckets
+                                                       or LSTM_BUCKETS),
+                                          invalid_label=0, layout="NT")
+
+    class StateIter(mt.io.DataIter):
+        def __init__(self):
+            super().__init__(batch)
+            self.default_bucket_key = inner.default_bucket_key
+            self.provide_data = list(inner.provide_data) + [
+                mt.io.DataDesc("lstm_begin_state_0", state),
+                mt.io.DataDesc("lstm_begin_state_1", state)]
+            self.provide_label = inner.provide_label
+            self.resets = 0
+            self.served = 0
+            self.zeros = np.zeros(state, np.float32)
+
+        def reset(self):
+            self.resets += 1
+            self.served = 0
+            with trandom.scoped_np_rng(
+                    np.random.default_rng([seed, self.resets])):
+                inner.reset()
+
+        def next_host(self):
+            if max_batches is not None and self.served == max_batches:
+                raise StopIteration
+            b = inner.next_host()
+            self.served += 1
+            b.data = list(b.data) + [self.zeros, self.zeros]
+            b.provide_data = list(b.provide_data) + self.provide_data[1:]
+            return b
+
+        def next(self):
+            b = self.next_host()
+            b.data = [mt.nd.array(v, ctx=mt.cpu()) for v in b.data]
+            b.label = [mt.nd.array(v, ctx=mt.cpu()) for v in b.label]
+            return b
+
+    return StateIter()
+
+
+def lstm_sym_gen():
+    """The example's sym_gen: embedding, FusedRNNCell LSTM (begin states
+    fed as data), a softmax over the vocabulary at every step."""
+    import mxnet_tpu_torch as mt
+    cell = mt.rnn.FusedRNNCell(LSTM_HIDDEN, num_layers=LSTM_LAYERS,
+                               mode="lstm", prefix="lstm_")
+
+    def sym_gen(seq_len):
+        data = mt.sym.Variable("data")
+        label = mt.sym.Variable("softmax_label")
+        embed = mt.sym.Embedding(data=data, input_dim=LSTM_VOCAB,
+                                 output_dim=LSTM_EMBED, name="embed")
+        outputs, _ = cell.unroll(seq_len, inputs=embed, layout="NTC",
+                                 merge_outputs=True)
+        pred = mt.sym.Reshape(data=outputs, shape=(-1, LSTM_HIDDEN))
+        pred = mt.sym.FullyConnected(data=pred, num_hidden=LSTM_VOCAB,
+                                     name="pred")
+        label_flat = mt.sym.Reshape(data=label, shape=(-1,))
+        pred = mt.sym.SoftmaxOutput(data=pred, label=label_flat,
+                                    name="softmax")
+        return pred, ("data", "lstm_begin_state_0",
+                      "lstm_begin_state_1"), ("softmax_label",)
+    return sym_gen
+
+
+def lstm_params(seed):
+    """The model's weights on the host from ``seed``: Xavier for the
+    embedding and the head, the FusedRNN initializer (Xavier a gate
+    block, forget bias 1) for the packed LSTM vector."""
+    import mxnet_tpu_torch as mt
+    from mxnet_tpu_torch import initializer as init
+    from mxnet_tpu_torch.ops.rnn_op import rnn_param_size
+    saved = mt.random.get_state()
+    mt.random.seed(seed)
+    shapes = {"embed_weight": (LSTM_VOCAB, LSTM_EMBED),
+              "lstm_parameters": (rnn_param_size(
+                  "lstm", LSTM_EMBED, LSTM_HIDDEN, LSTM_LAYERS, False),),
+              "pred_weight": (LSTM_VOCAB, LSTM_HIDDEN),
+              "pred_bias": (LSTM_VOCAB,)}
+    out = {}
+    for n, shape in shapes.items():
+        out[n] = mt.nd.zeros(shape, ctx=mt.cpu())
+        if n == "lstm_parameters":
+            init.FusedRNN(init.Xavier(), LSTM_HIDDEN, LSTM_LAYERS, "lstm")(
+                init.InitDesc(n), out[n])
+        else:
+            init.Xavier()(init.InitDesc(n), out[n])
+    mt.random.set_state(saved)
+    return out
+
+
+def lstm_module(it, ctx=None):
+    import mxnet_tpu_torch as mt
+    return mt.mod.BucketingModule(lstm_sym_gen(),
+                                  default_bucket_key=it.default_bucket_key,
+                                  context=ctx or _lstm_ctx())
+
+
+def _host_params(mod):
+    args, _ = mod.get_params()
+    return {n: v.asnumpy() for n, v in args.items()}
+
+
+def lstm_fit(seed, sentences, params, k, **kw):
+    """``BucketingModule.fit`` over the phase's batches: returns the
+    module, each epoch's perplexity and each epoch's seconds."""
+    import mxnet_tpu_torch as mt
+    it = lstm_iter(seed, sentences)
+    mod = lstm_module(it)
+    metric = mt.metric.Perplexity(ignore_label=0)
+    ppl, marks = [], [time.perf_counter()]
+
+    def epoch_end(*a):
+        ppl.append(metric.get()[1])
+        marks.append(time.perf_counter())
+    mod.fit(it, eval_metric=metric, num_epoch=LSTM_EPOCHS, arg_params=params,
+            optimizer="adam", optimizer_params={"learning_rate": LSTM_LR},
+            steps_per_dispatch=k, dispatch_pipeline=1,
+            epoch_end_callback=epoch_end, **kw)
+    return mod, ppl, [b - a for a, b in zip(marks, marks[1:])]
+
+
+def lstm_op_check(seed, card):
+    """(a): the RNN op on the card against the same op on the CPU (LSTM
+    and GRU, forward and gradients) on the same weights, at bucket 60;
+    then its time beside torch._VF.lstm on the same unpacked weights."""
+    import torch
+    from mxnet_tpu_torch.ops import rnn_op
+    from mxnet_tpu_torch.ops.registry import OpContext
+    dev = "cuda" if LSTM_CTX == "gpu" else "cpu"
+    T, N, C, H, L = max(LSTM_BUCKETS), LSTM_BATCH, LSTM_EMBED, \
+        LSTM_HIDDEN, LSTM_LAYERS
+    rng = np.random.default_rng([seed, 161])
+    for mode in ("lstm", "gru"):
+        size = rnn_op.rnn_param_size(mode, C, H, L, False)
+        ins = [rng.standard_normal((T, N, C)).astype(np.float32),
+               (rng.uniform(-1, 1, size) / np.sqrt(H)).astype(np.float32),
+               (0.5 * rng.standard_normal((L, N, H))).astype(np.float32)]
+        if mode == "lstm":
+            ins.append((0.5 * rng.standard_normal((L, N, H)))
+                       .astype(np.float32))
+        attrs = dict(state_size=H, num_layers=L, mode=mode,
+                     state_outputs=True)
+        cots = [rng.standard_normal(s).astype(np.float32)
+                for s in [(T, N, H)] + [(L, N, H)] * (len(ins) - 2)]
+        res = {}
+        for where in ("cpu", dev):
+            leaves = [torch.from_numpy(i).to(where).requires_grad_()
+                      for i in ins]
+            outs = rnn_op._rnn(OpContext(is_train=True), attrs, leaves, [])
+            grads = torch.autograd.grad(
+                outs, leaves, [torch.from_numpy(c).to(where) for c in cots])
+            res[where] = ([o.detach().cpu().numpy() for o in outs],
+                          [g.cpu().numpy() for g in grads])
+        fwd = max(float(np.abs(a - b).max())
+                  for a, b in zip(res[dev][0], res["cpu"][0]))
+        grad = max(float(np.abs(a - b).max() / np.abs(b).max())
+                   for a, b in zip(res[dev][1], res["cpu"][1]))
+        log("lstm (a) RNN op %s, T=%d N=%d C=%d H=%d L=%d: card against "
+            "CPU, outputs max |diff| %.3g (limit %g), gradients max |diff| "
+            "/ max |g| %.3g (limit %g)" % (mode, T, N, C, H, L, fwd,
+                                          LSTM_OP_ATOL, grad,
+                                          LSTM_OP_GRAD_RTOL))
+        if not (fwd <= LSTM_OP_ATOL and grad <= LSTM_OP_GRAD_RTOL):
+            raise SystemExit("lstm (a): the card's RNN op %s disagrees with "
+                             "the CPU's" % mode)
+    if dev != "cuda":
+        return
+    # the op against cuDNN's LSTM (torch._VF.lstm) on the same weights
+    size = rnn_op.rnn_param_size("lstm", C, H, L, False)
+    params = torch.from_numpy((rng.uniform(-1, 1, size) / np.sqrt(H))
+                              .astype(np.float32)).cuda()
+    x = torch.from_numpy(rng.standard_normal((T, N, C))
+                         .astype(np.float32)).cuda()
+    h0 = torch.zeros(L, N, H, device="cuda")
+    c0 = torch.zeros(L, N, H, device="cuda")
+    slices, _ = rnn_op._param_slices("lstm", C, H, L, False)
+    lstm = torch.nn.LSTM(C, H, L).cuda()
+    with torch.no_grad():
+        for layer in range(L):
+            wx, wh, bx, bh = (rnn_op._take(params, s)
+                              for s in slices[(layer, 0)])
+            getattr(lstm, "weight_ih_l%d" % layer).copy_(wx)
+            getattr(lstm, "weight_hh_l%d" % layer).copy_(wh)
+            getattr(lstm, "bias_ih_l%d" % layer).copy_(bx)
+            getattr(lstm, "bias_hh_l%d" % layer).copy_(bh)
+    lstm.flatten_parameters()
+    weights = lstm._flat_weights
+    attrs = dict(state_size=H, num_layers=L, mode="lstm")
+    leaves = [x.clone().requires_grad_(), params.clone().requires_grad_()]
+    wleaves = [x.clone().requires_grad_()]
+
+    def ours():
+        return rnn_op._rnn(OpContext(is_train=True), attrs,
+                           [leaves[0], leaves[1], h0, c0], [])[0]
+
+    def cudnn():
+        return torch._VF.lstm(wleaves[0], (h0, c0), weights, True, L, 0.0,
+                              True, False, False)[0]
+
+    def fwd_bwd(fn, ins):
+        def run():
+            out = fn()
+            torch.autograd.grad(out, ins, torch.ones_like(out))
+        return run
+
+    def no_grad(fn):
+        def run():
+            with torch.no_grad():
+                fn()
+        return run
+
+    with no_tf32():
+        with torch.no_grad():
+            diff = float((ours() - cudnn()).abs().max())
+        times = {}
+        for _ in range(2):   # in turns
+            for name, fn in (("RNN op forward", no_grad(ours)),
+                             ("torch._VF.lstm forward (cuDNN, TF32 off)",
+                              no_grad(cudnn)),
+                             ("RNN op forward+backward",
+                              fwd_bwd(ours, leaves)),
+                             ("torch._VF.lstm forward+backward (cuDNN, TF32 "
+                              "off)", fwd_bwd(cudnn, wleaves))):
+                times.setdefault(name, []).append(cuda_time_ms(fn, 5))
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        times["torch._VF.lstm forward+backward (cuDNN, TF32 on)"] = [
+            cuda_time_ms(fwd_bwd(cudnn, wleaves), 5)]
+    finally:
+        torch.backends.cudnn.allow_tf32 = False
+    # the forward's products: each layer's input projection and recurrence
+    flops = sum(2 * T * N * 4 * H * ((C if layer == 0 else H) + H)
+                for layer in range(L))
+    nbytes = (params.numel() + x.numel() + T * N * H + 4 * L * N * H) * 4
+    bound = max(flops / FP32_OPS_PER_S, nbytes / HBM_BYTES_PER_S) * 1e3
+    log("lstm (a) RNN op against torch._VF.lstm at bucket 60: outputs max "
+        "|diff| %.3g; %s" % (diff, card))
+    for name, ms in times.items():
+        log("  %-58s %s ms (CUDA events, %d calls a turn)"
+            % (name, " / ".join("%.3f" % t for t in ms), 5))
+    log("  forward bound %.4f ms (%.3g GFLOP at the FP32 peak)"
+        % (bound, flops / 1e9))
+
+
+def lstm_bucket_times(mod, seed, sentences, card):
+    """(f): each bucket's fused step on the shared state, timed on the host
+    clock and on CUDA events, and its tokens/s (padded)."""
+    import torch
+    it = lstm_iter(seed, sentences)
+    first = {}
+    for b in it:
+        first.setdefault(b.bucket_key, b)
+        if len(first) == len(LSTM_BUCKETS):
+            break
+    for key in LSTM_BUCKETS:
+        b = first[key]
+        assert mod._try_fused_fit_step(b)     # warm
+        sync = (torch.cuda.synchronize if LSTM_CTX == "gpu"
+                else (lambda: None))
+        sync()
+        host = []
+        ev = None
+        if LSTM_CTX == "gpu":
+            ev = (torch.cuda.Event(enable_timing=True),
+                  torch.cuda.Event(enable_timing=True))
+            ev[0].record()
+        for _ in range(LSTM_TIMED_STEPS):
+            t0 = time.perf_counter()
+            mod._try_fused_fit_step(b)
+            host.append((time.perf_counter() - t0) * 1e3)
+        if ev is not None:
+            ev[1].record()
+        sync()
+        ev_ms = (ev[0].elapsed_time(ev[1]) / LSTM_TIMED_STEPS
+                 if ev is not None else float("nan"))
+        tokens = LSTM_BATCH * key
+        step_ms = ev_ms if ev is not None else float(np.median(host))
+        log("lstm (f) bucket %2d: %5d tokens a step, host %.2f ms a step "
+            "(median of %d; the step returns before the card finishes), "
+            "CUDA events %.2f ms a step, %.0f tokens/s; %s"
+            % (key, tokens, float(np.median(host)), LSTM_TIMED_STEPS, ev_ms,
+               tokens / (step_ms / 1e3), card))
+
+
+def lstm_monitor_check(seed, sentences, params, card):
+    """(d): fit with a Monitor on the card and on the CPU port, same
+    weights and batches: the rows of the monitored batch must agree."""
+    import mxnet_tpu_torch as mt
+    rows = {}
+    for where, ctx in (("card", _lstm_ctx()), ("cpu", mt.cpu())):
+        class Rec(mt.Monitor):
+            got = []
+
+            def toc_print(self):
+                self.got.extend(self.toc())
+        mon = Rec(interval=LSTM_MONITOR_BATCHES, pattern=".*weight")
+        mon.got = []
+        it = lstm_iter(seed, sentences, max_batches=LSTM_MONITOR_BATCHES)
+        mod = lstm_module(it, ctx=ctx)
+        mod.fit(it, eval_metric=mt.metric.Perplexity(ignore_label=0),
+                num_epoch=1, arg_params=params, optimizer="adam",
+                optimizer_params={"learning_rate": LSTM_LR}, monitor=mon)
+        rows[where] = mon.got
+    for n, k, v in rows["card"]:
+        log("lstm (d) Monitor: Batch: %7d %30s %s" % (n, k, v))
+    if [r[:2] for r in rows["card"]] != [r[:2] for r in rows["cpu"]] \
+            or not rows["card"]:
+        raise SystemExit("lstm (d): the monitor's rows differ between the "
+                         "card and the CPU: %r / %r"
+                         % (rows["card"], rows["cpu"]))
+    worst = max(abs(float(a[2]) / float(b[2]) - 1.0)
+                for a, b in zip(rows["card"], rows["cpu"]))
+    log("lstm (d) Monitor(interval=%d, pattern='.*weight'): %d rows; card "
+        "against the CPU port, worst relative difference %.3g (limit %g)"
+        % (LSTM_MONITOR_BATCHES, len(rows["card"]), worst,
+           LSTM_MONITOR_RTOL))
+    if worst > LSTM_MONITOR_RTOL:
+        raise SystemExit("lstm (d): the card's monitor values disagree with "
+                         "the CPU's")
+
+
+def _clone_tree(x):
+    if isinstance(x, dict):
+        return {n: _clone_tree(v) for n, v in x.items()}
+    if isinstance(x, tuple):
+        return tuple(_clone_tree(v) for v in x)
+    return None if x is None else x.clone()
+
+
+def _embedding_repeatable(mod, seed, sentences):
+    """Whether two fused steps from one state on one batch give the same
+    bits (the embedding's backward accumulates through an index_put)."""
+    import torch
+    b = next(iter(lstm_iter(seed, sentences)))
+    ts = mod._get_bucket_step(b.bucket_key)
+    batch = {n: v.data for n, v in zip(ts.data_names, b.data)}
+    batch.update((n, v.data) for n, v in zip(ts.label_names, b.label))
+    outs = []
+    for _ in range(2):
+        st = _clone_tree(mod._fused_state)
+        ts.step(st, batch)
+        outs.append(st["params"])
+    return all(torch.equal(outs[0][n], outs[1][n]) for n in outs[0])
+
+
+def lstm_profile_child(out_dir, seed):
+    """(e), run in a fresh process with MXNET_PROFILER_AUTOSTART=1: the
+    profile starts at the first dispatch of a bucket-60 fit (K=4, under a
+    fault plan); then a Scope brackets LSTM_PROFILE_STEPS more steps of
+    that bucket, whose kernels give a step's breakdown; the trace is
+    written as Chrome JSON and the registry printed as Prometheus text.
+    The last line is one JSON object of what it saw."""
+    import torch
+    import mxnet_tpu_torch as mt
+    from mxnet_tpu_torch import faults, profiler
+    from mxnet_tpu_torch.obs import REGISTRY
+    assert profiler._autostart_pending, "MXNET_PROFILER_AUTOSTART unset"
+    path = os.path.join(out_dir, "lstm_profile.json")
+    profiler.profiler_set_config(filename=path)
+    sentences = [s for s in lstm_sentences(seed)
+                 if len(s) > LSTM_BUCKETS[-2]]
+    params = lstm_params(seed)
+    it = lstm_iter(seed, sentences, buckets=LSTM_BUCKETS[-1:],
+                   max_batches=2 * LSTM_K)
+    mod = lstm_module(it)
+    plan = [{"site": "io.batch_read", "kind": "transient", "nth": 2},
+            {"site": "checkpoint.write", "kind": "raise", "nth": 1}]
+    before = mt.io.DATA_HEALTH.report()["retries"]
+    with faults.plan_scope(plan):
+        pending = profiler._autostart_pending
+        mod.fit(it, eval_metric=mt.metric.Perplexity(ignore_label=0),
+                num_epoch=1, arg_params=params, optimizer="adam",
+                optimizer_params={"learning_rate": LSTM_LR},
+                steps_per_dispatch=LSTM_K)
+        fired = faults.fired_counts()
+    retries = mt.io.DATA_HEALTH.report()["retries"] - before
+    started = pending and profiler._state["running"]
+    it.reset()
+    b = it.next()
+    torch.cuda.synchronize()
+    with profiler.Scope("lstm_bucket60_steps", steps=LSTM_PROFILE_STEPS):
+        for _ in range(LSTM_PROFILE_STEPS):
+            mod._try_fused_fit_step(b)
+        torch.cuda.synchronize()
+    profiler.dump_profile()
+    doc = json.load(open(path))
+    events = doc["traceEvents"]
+    scope = [e for e in events if e.get("name") == "lstm_bucket60_steps"
+             and e.get("ph") == "X"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    window = [e for e in kernels if scope and scope[0]["ts"] <= e["ts"]
+              <= scope[0]["ts"] + scope[0]["dur"]]
+    by_name = {}
+    for e in window:
+        by_name[e["name"]] = by_name.get(e["name"], 0.0) + e.get("dur", 0.0)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
+    prom = REGISTRY.to_prometheus()
+    print(prom, end="")
+    print(json.dumps({
+        "started_at_dispatch": started, "events": len(events),
+        "kernel_events": len(kernels), "scope_events": len(scope),
+        "fired": fired, "io_retries": retries,
+        "steps": LSTM_PROFILE_STEPS,
+        "scope_ms": scope[0]["dur"] / 1e3 if scope else 0.0,
+        "kernel_ms": sum(by_name.values()) / 1e3,
+        "launches_a_step": len(window) / LSTM_PROFILE_STEPS,
+        "top_kernels_ms_a_step": [(n[:90], d / 1e3 / LSTM_PROFILE_STEPS)
+                                  for n, d in top]}), flush=True)
+    return 0
+
+
+def lstm_child_check(seed, card):
+    """(e): run the child, check what it saw."""
+    with tempfile.TemporaryDirectory() as tmp:
+        env = dict(os.environ, MXNET_PROFILER_AUTOSTART="1")
+        t0 = time.perf_counter()
+        r = subprocess.run([sys.executable, os.path.abspath(__file__),
+                            "--seed", str(seed), "--lstm-profile-child",
+                            tmp], capture_output=True, text=True, env=env,
+                           timeout=300)
+        took = time.perf_counter() - t0
+    if r.returncode != 0:
+        raise SystemExit("lstm (e): the profiler child failed (exit %d):\n"
+                         "%s\n%s" % (r.returncode, r.stdout[-4000:],
+                                     r.stderr[-4000:]))
+    lines = r.stdout.splitlines()
+    res = json.loads(lines[-1])
+    prom = lines[:-1]
+    log("lstm (e) child (MXNET_PROFILER_AUTOSTART=1, %.1f s): profile "
+        "started at the first dispatch: %s; Chrome trace %d events, %d CUDA "
+        "kernel events, the Scope's span %d; plan_scope fired %s, "
+        "io.batch_read retries %d; %d Prometheus lines, e.g.:"
+        % (took, res["started_at_dispatch"], res["events"],
+           res["kernel_events"], res["scope_events"], res["fired"],
+           res["io_retries"], len(prom)))
+    for line in [p for p in prom if p and not p.startswith("#")][:12]:
+        log("  " + line)
+    busy = res["kernel_ms"] / max(res["scope_ms"], 1e-9)
+    log("lstm (e) %d fused steps at bucket 60 under the profiler's Scope: "
+        "%.2f ms of kernels a step (%.0f launches) in %.2f ms a step of "
+        "wall time: the card busy %.1f%%, idle %.1f%%; %s"
+        % (res["steps"], res["kernel_ms"] / res["steps"],
+           res["launches_a_step"], res["scope_ms"] / res["steps"],
+           100 * busy, 100 * (1 - busy), card))
+    for name, ms in res["top_kernels_ms_a_step"]:
+        log("  %.3f ms a step  %s" % (ms, name))
+    problems = []
+    if not res["started_at_dispatch"]:
+        problems.append("the profile did not start at the first dispatch")
+    if res["kernel_events"] == 0:
+        problems.append("the trace holds no CUDA kernel events")
+    if res["scope_events"] == 0:
+        problems.append("the trace holds no Scope span")
+    if res["fired"] != {"io.batch_read": 1} or res["io_retries"] != 1:
+        problems.append("plan_scope: fired %r, retries %r"
+                        % (res["fired"], res["io_retries"]))
+    if not any(p.startswith("data_health_retries") for p in prom):
+        problems.append("to_prometheus lacks data_health_retries")
+    if problems:
+        raise SystemExit("lstm (e): " + "; ".join(problems))
+
+
+def rnn_phase(seed, card):
+    """Phase 16 (see the module docstring)."""
+    import mxnet_tpu_torch as mt
+    from mxnet_tpu_torch.ops import matmul_stats, multibox_nms
+    from mxnet_tpu_torch import rtc
+    t_phase = time.perf_counter()
+    multibox_nms.reset_launches()
+    matmul_stats.reset_launches()
+    rtc_before = (rtc.RTC_LAUNCHES, rtc.TRITON_LAUNCHES)
+    lstm_op_check(seed, card)
+    sentences = lstm_sentences(seed)
+    params = lstm_params(seed)
+    nparams = sum(int(np.prod(v.shape)) for v in params.values())
+    nbatch = sum(1 for _ in lstm_iter(seed, sentences))
+    log("lstm (b) model: %d-layer %d-unit FusedRNNCell LSTM, embedding %d, "
+        "vocabulary %d, batch %d, buckets %s: %d parameters; %d synthetic "
+        "sentences from --seed (next token = token + 1), %d batches an "
+        "epoch" % (LSTM_LAYERS, LSTM_HIDDEN, LSTM_EMBED, LSTM_VOCAB,
+                   LSTM_BATCH, list(LSTM_BUCKETS), nparams, len(sentences),
+                   nbatch))
+    fits = {}
+    for k in (1, LSTM_K):
+        mod, ppl, secs = lstm_fit(seed, sentences, params, k)
+        fits[k] = (mod, ppl, secs)
+        log("lstm (b) BucketingModule.fit K=%d: perplexity by epoch %s; "
+            "seconds by epoch %s; %d TrainSteps (one a bucket)"
+            % (k, ["%.2f" % p for p in ppl], ["%.2f" % s for s in secs],
+               len(mod._bucket_fused)))
+        if not (np.all(np.isfinite(ppl)) and ppl[1] < ppl[0]):
+            raise SystemExit("lstm (b): perplexity did not fall at K=%d: %r"
+                             % (k, ppl))
+    p1, p4 = _host_params(fits[1][0]), _host_params(fits[LSTM_K][0])
+    bitwise = all(np.array_equal(p1[n], p4[n]) for n in p1)
+    worst = max(float(np.linalg.norm(p4[n] - p1[n])
+                      / max(np.linalg.norm(p1[n]), 1e-30)) for n in p1)
+    repeatable = _embedding_repeatable(fits[1][0], seed, sentences)
+    log("lstm (b) K=%d against K=1: parameters %s (worst relative norm of "
+        "the difference %.3g); perplexity %s against %s; a fused step "
+        "repeated from one state %s"
+        % (LSTM_K, "bit for bit" if bitwise else "not bit for bit", worst,
+           fits[LSTM_K][1], fits[1][1],
+           "gives the same bits" if repeatable else
+           "does not give the same bits (the embedding's accumulating "
+           "index_put backward)"))
+    if not bitwise and (repeatable or worst > LSTM_K_RTOL):
+        raise SystemExit("lstm (b): K=%d and K=1 disagree" % LSTM_K)
+    # (c) the example's own loop over the same batches
+    def loop_module(it):
+        mod = lstm_module(it)
+        mod.bind(data_shapes=it.provide_data, label_shapes=it.provide_label)
+        mod.init_params(arg_params=params)
+        mod.init_optimizer(optimizer="adam",
+                           optimizer_params={"learning_rate": LSTM_LR})
+        return mod
+
+    it_l, it_f = lstm_iter(seed, sentences), lstm_iter(seed, sentences)
+    loop, fused = loop_module(it_l), loop_module(it_f)
+    steps = []
+    for _, b, bf in zip(range(LSTM_LOOP_STEPS), it_l, it_f):
+        loop.forward(b, is_train=True)
+        loop.backward()
+        loop.update()
+        assert fused._try_fused_fit_step(bf)
+        pl, pf = _host_params(loop), _host_params(fused)
+        steps.append(max(float(np.linalg.norm(pl[n] - pf[n])
+                               / np.linalg.norm(pf[n])) for n in pf))
+    log("lstm (c) the example's loop (forward/backward/update) against fit's "
+        "fused step over the first %d batches from one state: worst "
+        "relative norm of a parameter's difference after each step %s "
+        "(limit %g)" % (LSTM_LOOP_STEPS, ["%.3g" % d for d in steps],
+                        LSTM_LOOP_RTOL))
+    if max(steps) > LSTM_LOOP_RTOL:
+        raise SystemExit("lstm (c): the example's loop disagrees with the "
+                         "fused step")
+    it = lstm_iter(seed, sentences)
+    loop = loop_module(it)
+    metric = mt.metric.Perplexity(ignore_label=0)
+    lppl = []
+    t0 = time.perf_counter()
+    for epoch in range(LSTM_EPOCHS):
+        if epoch:
+            it.reset()
+        metric.reset()
+        for b in it:
+            loop.forward(b, is_train=True)
+            loop.backward()
+            loop.update()
+            loop.update_metric(metric, b.label)
+        lppl.append(metric.get()[1])
+    loop_s = time.perf_counter() - t0
+    pl = _host_params(loop)
+    lworst = max(float(np.linalg.norm(pl[n] - p1[n])
+                       / np.linalg.norm(p1[n])) for n in p1)
+    log("lstm (c) the example's loop over %d epochs (%d bucket executors): "
+        "perplexity by epoch %s against fit's %s, %.2f s; the parameters "
+        "end %.3g apart in relative norm (the per-step rounding above, "
+        "amplified by training)"
+        % (LSTM_EPOCHS, len(loop._buckets), ["%.2f" % p for p in lppl],
+           ["%.2f" % p for p in fits[1][1]], loop_s, lworst))
+    if not (np.all(np.isfinite(lppl)) and lppl[1] < lppl[0]):
+        raise SystemExit("lstm (c): the loop's perplexity did not fall")
+    lstm_monitor_check(seed, sentences, params, card)
+    lstm_child_check(seed, card)
+    lstm_bucket_times(fits[1][0], seed, sentences, card)
+    total_tokens = sum(LSTM_BATCH * k for k in
+                       [b.bucket_key for b in lstm_iter(seed, sentences)])
+    for k in (1, LSTM_K):
+        secs = fits[k][2][-1]
+        log("lstm (f) fit K=%d epoch 2: %d batches, %d tokens (padded) in "
+            "%.2f s: %.0f tokens/s overall; %s"
+            % (k, nbatch, total_tokens, secs, total_tokens / secs, card))
+    launches = (multibox_nms.LAUNCHES, matmul_stats.LAUNCHES,
+                rtc.RTC_LAUNCHES - rtc_before[0],
+                rtc.TRITON_LAUNCHES - rtc_before[1])
+    log("lstm: B2, B1, B3 (Rtc, Triton) launches in this phase: %s (the "
+        "LSTM path runs none of them)" % (launches,))
+    if any(launches):
+        raise SystemExit("lstm: the LSTM path launched a kernel of B1-B3")
+    log("lstm: the phase took %.1f s" % (time.perf_counter() - t_phase))
+
+
 def _nodes(sym):
     from mxnet_tpu_torch.symbol import _topo
     return _topo(sym._out_nodes())
@@ -3822,6 +4512,8 @@ def main():
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--reps", type=int, default=20,
                     help="timed repetitions per measurement")
+    ap.add_argument("--lstm-profile-child", metavar="DIR",
+                    help=argparse.SUPPRESS)
     args = ap.parse_args()
     try:
         import torch
@@ -3833,6 +4525,9 @@ def main():
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import mxnet_tpu_torch  # noqa: F401  (fails outside a checkout)
+    if args.lstm_profile_child:
+        # phase 16 (e) runs this in a fresh process
+        return lstm_profile_child(args.lstm_profile_child, args.seed)
     from mxnet_tpu_torch import cuda_build
     from mxnet_tpu_torch.ops import nn as _nn
 
@@ -3870,6 +4565,7 @@ def main():
                                            ssd_train["checkpoint"])
     api_launches = training_api_phase(args.seed, card, step_profiles)
     data = data_phase(args.seed, card)
+    rnn_phase(args.seed, card)
     # B1 runs on two main paths: the train phase and the training API
     b1.update(launches=b1["launches"] + api_launches,
               launches_train=b1["launches"],

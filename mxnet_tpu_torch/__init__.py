@@ -32,7 +32,12 @@ with ``Dropout`` and ``LRN``; and the data tier: ``recordio`` (with the
 native reader and JPEG decoder built from ``src/io`` by ``native_build``),
 ``image`` (``ImageRecordIter``, ``ImageIter``, ``ImageDetIter``), ``data``'s
 sharded reader, decode worker pool and pipeline statistics, and ``io``'s
-``CSVIter``, ``MNISTIter``, ``DataHealth`` and retry policy.
+``CSVIter``, ``MNISTIter``, ``DataHealth`` and retry policy; and variable
+length: the ``RNN`` op, ``rnn``'s cells, ``BucketSentenceIter`` and RNN
+checkpoints, ``mod.BucketingModule``, ``SequentialModule``,
+``PythonModule`` and ``PythonLossModule``; and the single-process
+observability: :class:`Monitor`, ``profiler`` (a Chrome trace from
+``torch.profiler``), ``obs``'s windowed deltas and Prometheus export.
 """
 from .base import MXNetError, TrainingPreemptedError, __version__
 from . import base
@@ -62,6 +67,10 @@ from . import model
 from .model import FeedForward
 from . import module
 from . import module as mod
+from . import monitor
+from .monitor import Monitor
+from . import rnn
+from . import profiler
 from . import train_step
 from .train_step import TrainStep
 from . import predictor

@@ -374,6 +374,9 @@ class Executor(object):
     def forward(self, is_train=False, **kwargs):
         """Run the graph on the bound arrays (after copying ``kwargs`` into
         the named arguments); returns :attr:`outputs`."""
+        # a deferred MXNET_PROFILER_AUTOSTART starts at the first dispatch
+        from . import profiler as _profiler
+        _profiler.maybe_autostart()
         for k, v in kwargs.items():
             if k not in self.arg_dict:
                 raise MXNetError("forward: unknown argument %r" % k)

@@ -73,8 +73,9 @@ Rule kinds:
 
 Arming is programmatic (``faults.inject(site, nth=3, kind="drop")``, the
 :func:`scoped` context manager, or :func:`arm` with a list of rule dicts
-checked against :data:`SITES`) or environment-driven for subprocess
-tests::
+checked against :data:`SITES`, which :class:`plan_scope` arms for a block
+and clears after it; :func:`fired_counts` tells which rules fired) or
+environment-driven for subprocess tests::
 
     MXTPU_FAULTS="serve.enqueue_drop@3=drop*2,fleet.replica_die@1=die"
 
@@ -146,6 +147,12 @@ class SiteInfo(object):
         self.flag = bool(flag)
         self.scenarios = tuple(scenarios)
         self.doc = doc
+
+    def describe(self):
+        """The site's metadata as a JSON-ready dict."""
+        return {"name": self.name, "kinds": list(self.kinds),
+                "flag": self.flag, "scenarios": list(self.scenarios),
+                "doc": self.doc}
 
 
 SITES = {}
@@ -271,6 +278,12 @@ def fired(site):
         return _fired.get(site, 0)
 
 
+def fired_counts():
+    """Every site's fired count, ``{site: n}`` for the sites that fired."""
+    with _lock:
+        return {s: n for s, n in _fired.items() if n}
+
+
 def arm(rules):
     """Arm a plan: a list of rule dicts (``{"site", "kind", "nth",
     "times", "delay"}``; ``times``/``delay`` optional). Unlike
@@ -286,6 +299,24 @@ def arm(rules):
         inject(site, nth=int(r.get("nth", 1)), kind=r["kind"],
                times=int(r.get("times", 1)),
                delay=float(r.get("delay", 0.05)))
+
+
+class plan_scope(object):
+    """Context manager: arm a whole plan (a list of rule dicts, see
+    :func:`arm`) for the duration of a block, then disarm and reset every
+    site the plan touched."""
+
+    def __init__(self, rules):
+        self.rules = list(rules)
+
+    def __enter__(self):
+        arm(self.rules)
+        return self
+
+    def __exit__(self, *exc):
+        for site in {r["site"] for r in self.rules}:
+            clear(site)
+        return False
 
 
 def fire(site):

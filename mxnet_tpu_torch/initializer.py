@@ -9,8 +9,7 @@ place, drawing from the tensor's device generator in ``random.py``; the
 values of the random initializers therefore differ from the JAX package's
 for the same seed, while their distribution is the same. ``Zero``,
 ``One``, ``Constant``, ``Bilinear``, ``LSTMBias``, ``Load`` and ``Mixed``
-give the same values. ``FusedRNN`` needs the ``rnn`` package, which is
-not ported yet: it raises.
+give the same values, and so does ``FusedRNN`` over one of them.
 """
 from __future__ import annotations
 
@@ -320,9 +319,48 @@ class Mixed(object):
 
 @register
 class FusedRNN(Initializer):
-    """The packed parameters of a FusedRNNCell (ref: initializer.py
-    FusedRNN). It needs the ``rnn`` package, which is not ported yet."""
+    """Initialize a FusedRNNCell's packed parameter vector (ref:
+    initializer.py FusedRNN): unpack it into each cell's i2h/h2h weights
+    and biases, apply ``init`` (or the global initializer) to each, set the
+    LSTM forget-gate bias slice to ``forget_bias``, and pack it back."""
 
-    def __init__(self, *args, **kwargs):
-        raise MXNetError("initializer FusedRNN is not ported yet (it needs "
-                         "the rnn package)")
+    def __init__(self, init, num_hidden, num_layers, mode,
+                 bidirectional=False, forget_bias=1.0):
+        if isinstance(init, str):
+            klass, kwargs = json.loads(init)
+            init = _INIT_REGISTRY[klass.lower()](**kwargs)
+        super().__init__(init=init.dumps() if init is not None else None,
+                         num_hidden=num_hidden, num_layers=num_layers,
+                         mode=mode, bidirectional=bidirectional,
+                         forget_bias=forget_bias)
+        self._init = init
+        self._num_hidden = num_hidden
+        self._num_layers = num_layers
+        self._mode = mode
+        self._bidirectional = bidirectional
+        self._forget_bias = forget_bias
+
+    def _init_weight(self, desc, t):
+        from .rnn import rnn_cell
+        from .ndarray import NDArray
+        cell = rnn_cell.FusedRNNCell(
+            self._num_hidden, self._num_layers, self._mode,
+            self._bidirectional, forget_bias=self._forget_bias, prefix="")
+        args = cell.unpack_weights({"parameters": NDArray(t.detach())})
+        h = self._num_hidden
+        for name, sub in args.items():
+            sub_desc = InitDesc(name, global_init=desc.global_init)
+            if self._init is None:
+                if desc.global_init is None:
+                    raise MXNetError(
+                        "FusedRNN: no init given and no global initializer")
+                desc.global_init(sub_desc, sub)
+            else:
+                self._init(sub_desc, sub)
+            if self._mode == "lstm" and name.endswith("_bias"):
+                # gate order i, f, c, o (ops/rnn_op.py): the forget slice
+                # gets the bias that keeps early memory open
+                with torch.no_grad():
+                    sub.data[h:2 * h] = self._forget_bias
+        with torch.no_grad():
+            t.copy_(cell.pack_weights(args)["parameters"].data)

@@ -29,8 +29,9 @@ JAX package's dispatch structure:
 Knobs resolve as explicit argument, then environment, then the committed
 tuning DB (:func:`mxnet_tpu_torch.autotune.resolve_fit_knobs`, matched on
 the module's symbol, batch and device kind), then the built-in default, as
-in the JAX package; the log names each knob's source. ``monitor=`` raises
-naming itself (not ported yet).
+in the JAX package; the log names each knob's source. ``monitor=``
+installs a :class:`~mxnet_tpu_torch.monitor.Monitor` and trains step by
+step through the executor, with ``tic``/``toc_print`` around each batch.
 """
 from __future__ import annotations
 
@@ -255,8 +256,6 @@ class BaseModule(object):
         """
         if num_epoch is None:
             raise MXNetError("fit: please specify number of epochs")
-        if monitor is not None:
-            raise MXNetError("fit(monitor=...) is not ported yet")
         from ..initializer import Uniform
         from ..model import CheckpointManager
         ckpt_mgr = None
@@ -293,6 +292,8 @@ class BaseModule(object):
         self.bind(data_shapes=train_data.provide_data,
                   label_shapes=train_data.provide_label, for_training=True,
                   force_rebind=force_rebind)
+        if monitor is not None:
+            self.install_monitor(monitor)
         self.init_params(initializer=initializer, arg_params=arg_params,
                          aux_params=aux_params, allow_missing=allow_missing,
                          force_init=force_init)
@@ -353,7 +354,9 @@ class BaseModule(object):
             knob_src["dispatch_pipeline"])
         if k > 1:
             reason = None
-            if fused_dispatch is None:
+            if monitor is not None:
+                reason = "a monitor needs per-step executor access"
+            elif fused_dispatch is None:
                 reason = "this module has no fused multi-step path"
             elif not hasattr(train_data, "superbatch"):
                 reason = "train_data is not a DataIter (no superbatch mode)"
@@ -466,6 +469,8 @@ class BaseModule(object):
                             tail_batches = data_batch.unstack()[resume_skip:]
                             nbatch += resume_skip
                             resume_skip = 0
+                        if monitor is not None:
+                            monitor.tic()
                         sums = None
                         disp_id = getattr(data_batch, "sb_seq",
                                           pipeline.dispatches)
@@ -497,7 +502,7 @@ class BaseModule(object):
                                 since_ckpt += 1
                                 if guard is not None:
                                     guard.last_step_skipped = False
-                                if (fused_step is None
+                                if (monitor is not None or fused_step is None
                                         or not fused_step(batch, guard)):
                                     self.forward_backward(batch)
                                     self.update()
@@ -507,6 +512,8 @@ class BaseModule(object):
                                     self.update_metric(eval_metric,
                                                        batch.label)
                             stepped_eager = True
+                        if monitor is not None:
+                            monitor.toc_print()
                         if guard is not None and guard.diverged:
                             # a diverged state is never sealed
                             raise _DivergenceRollback()

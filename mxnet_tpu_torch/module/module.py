@@ -15,10 +15,12 @@ step, its sentinels fed to the guard), its checkpoints (a host-side mirror
 of the fused step counter, decoupled optimizer-state snapshots for the
 async writer) and resume (the optimizer clock and the fused step counter
 restored). ``compute_dtype`` (the port's own argument) sets the fused
-step's compute dtype over float32 masters. Several contexts,
-``work_load_list``, ``MXTPU_DP_DEVICES``,
-``mesh_axes``, ``param_shardings``, ``MXTPU_LM_MESH``, ``install_monitor``
-and ``MXNET_PROFILER_AUTOSTART`` raise naming themselves (not ported yet).
+step's compute dtype over float32 masters. ``install_monitor`` takes the
+module off the fused path (the monitor reads the executor's op outputs),
+and the fused step starts a deferred ``MXNET_PROFILER_AUTOSTART``.
+Several contexts, ``work_load_list``, ``MXTPU_DP_DEVICES``, ``mesh_axes``,
+``param_shardings`` and ``MXTPU_LM_MESH`` raise naming themselves (not
+ported yet).
 """
 from __future__ import annotations
 
@@ -26,7 +28,7 @@ import logging
 
 import torch
 
-from ..base import MXNetError, env_bool, env_str
+from ..base import MXNetError, env_str
 from ..context import Context, current_context, resolve_device
 from ..initializer import Uniform, InitDesc
 from .. import engine as _engine
@@ -41,6 +43,35 @@ from ..model import (_create_kvstore, _initialize_kvstore,
 from ..tracecheck import RetraceError
 from .base_module import BaseModule
 from .executor_group import DataParallelExecutorGroup, _name_shape
+
+
+def _seed_opt_state(ts, params, optimizer, updater, exec_param_names):
+    """The optimizer states of a fused state over ``params`` for the
+    :class:`~mxnet_tpu_torch.train_step.TrainStep` ``ts``: the updater's
+    states where it has them (a load_optimizer_states round trip, or steps
+    through the executor), else fresh ones. One recipe for
+    ``Module`` and ``BucketingModule``."""
+    states = dict(getattr(updater, "states", None) or {})
+    idx_of = {n: i for i, n in enumerate(exec_param_names)}
+
+    def leaf(x, like):
+        if x is None:
+            return None
+        if isinstance(x, tuple):
+            return tuple(leaf(i, like) for i in x)
+        t = x.data if isinstance(x, NDArray) else x
+        return t.detach().to(device=like.device, dtype=like.dtype, copy=True)
+
+    out = {}
+    for n, v in params.items():
+        if n in ts.frozen_param_names:
+            continue
+        idx = idx_of.get(n)
+        if idx is not None and idx in states:
+            out[n] = leaf(states[idx], v)
+        else:
+            out[n] = optimizer.create_fused_state(v)
+    return ts.cast_opt_state(out)
 
 
 class Module(BaseModule):
@@ -112,6 +143,7 @@ class Module(BaseModule):
         self._fused_state = None
         self._fused_outputs = None
         self._fused_ok = True
+        self._monitor_installed = False
         self._fused_dirty = False
         self._fused_params_stale = False
         self._fused_metrics_ok = False
@@ -194,9 +226,11 @@ class Module(BaseModule):
 
     @property
     def output_shapes(self):
+        """The outputs' shapes, inferred from the bound shapes (the JAX
+        package reads them off the outputs, so before a forward it raises
+        and SequentialModule cannot bind)."""
         assert self.binded
-        outs = [o.shape for o in self._exec_group.executor.outputs]
-        return list(zip(self._output_names, outs))
+        return list(zip(self._output_names, self._bound_shapes()[2]))
 
     # -- params ---------------------------------------------------------
     def get_params(self):
@@ -455,7 +489,7 @@ class Module(BaseModule):
 
     # -- fused fast path ------------------------------------------------
     def _fused_eligible(self):
-        if not self._fused_ok:
+        if not self._fused_ok or self._monitor_installed:
             return False
         if self.inputs_need_grad or self._state_names:
             return False
@@ -506,8 +540,8 @@ class Module(BaseModule):
         against the bound shapes and kept for :meth:`_dispatch_fused_steps`."""
         if not self._fused_eligible():
             return (False, "module configuration needs the per-step "
-                    "executor path (grad_req/unfused optimizer/shared "
-                    "module)")
+                    "executor path (monitor/grad_req/unfused optimizer/"
+                    "shared module)")
         if eval_metric is None:
             if not self._infer_fused_metrics_ok():
                 return (False, "the default device metric sums need a "
@@ -554,28 +588,9 @@ class Module(BaseModule):
     def _fused_opt_state(self, params):
         """The fused optimizer states, seeded from the updater's states
         where it has them (a load_optimizer_states round trip)."""
-        states = dict(getattr(self._resolve_updater(), "states", None) or {})
-        idx_of = {n: i for i, n in enumerate(self._exec_group.param_names)}
-
-        def leaf(x, like):
-            if x is None:
-                return None
-            if isinstance(x, tuple):
-                return tuple(leaf(i, like) for i in x)
-            t = x.data if isinstance(x, NDArray) else x
-            return t.detach().to(device=like.device, dtype=like.dtype,
-                                 copy=True)
-
-        out = {}
-        for n, v in params.items():
-            if n in self._fused.frozen_param_names:
-                continue
-            idx = idx_of.get(n)
-            if idx is not None and idx in states:
-                out[n] = leaf(states[idx], v)
-            else:
-                out[n] = self._optimizer.create_fused_state(v)
-        return self._fused.cast_opt_state(out)
+        return _seed_opt_state(self._fused, params, self._optimizer,
+                               self._resolve_updater(),
+                               self._exec_group.param_names)
 
     def _refresh_fused_state(self):
         if self._fused_state is None:
@@ -591,10 +606,9 @@ class Module(BaseModule):
         if not (self.binded and self.params_initialized
                 and self.optimizer_initialized):
             return False
-        if env_bool("MXNET_PROFILER_AUTOSTART"):
-            raise MXNetError("MXNET_PROFILER_AUTOSTART (the profiler "
-                             "started on the first dispatch) is not ported "
-                             "yet")
+        # a deferred MXNET_PROFILER_AUTOSTART starts at the first dispatch
+        from .. import profiler as _profiler
+        _profiler.maybe_autostart()
         if self._fused is None:
             if not self._fused_eligible():
                 return False
@@ -788,5 +802,10 @@ class Module(BaseModule):
             self._exec_group.update_metric(eval_metric, labels)
 
     def install_monitor(self, mon):
-        raise MXNetError("Module.install_monitor (the per-op output monitor) "
-                         "is not ported yet")
+        """Install a :class:`~mxnet_tpu_torch.monitor.Monitor` on the
+        executor; the module then trains through the executor, which calls
+        the monitor on every op output (the fused step runs none)."""
+        assert self.binded
+        self._sync_fused_to_executor()
+        self._monitor_installed = True
+        mon.install(self._exec_group.executor)

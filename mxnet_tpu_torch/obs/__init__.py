@@ -12,13 +12,13 @@ from __future__ import annotations
 from . import flight, registry, trace
 from .flight import FLIGHT, FlightRecorder
 from .registry import (REGISTRY, Counter, Gauge, Histogram, Registry,
-                       register_default_views)
+                       Window, register_default_views)
 from .trace import (async_complete, complete, enabled, events, instant,
                     save, span, start, stop)
 
 __all__ = ["trace", "registry", "flight", "span", "instant", "complete",
            "async_complete", "enabled", "start", "stop", "save", "events",
-           "Registry", "REGISTRY", "Counter", "Gauge", "Histogram",
+           "Registry", "REGISTRY", "Counter", "Gauge", "Histogram", "Window",
            "register_default_views", "FlightRecorder", "FLIGHT"]
 
 # the process-global health objects become registry views at import,

@@ -1,17 +1,20 @@
-"""Flight recorder: a bounded ring of the recent host spans and dispatch
-marks.
+"""Flight recorder: a bounded ring of the recent host spans and a ring of
+per-dispatch counter deltas.
 
-The port's own copy of the ring of ``mxnet_tpu/obs/flight.py``: every
-finished span of :mod:`.trace` and every :func:`note` (``fit`` notes each
-retired dispatch) lands in a bounded deque, so the last dispatches'
-timeline is in memory when a run dies, and :func:`dump` writes it, with
-the metrics registry's snapshot, as a post-mortem JSON (a serving
-batcher's thread death and a fleet replica's death dump). On by default,
-as in the JAX package (``MXTPU_FLIGHT_RECORDER``, set ``0`` to turn it off
-and make ``obs.span`` a no-op when tracing is off too);
+The port's own copy of ``mxnet_tpu/obs/flight.py``: every finished span of
+:mod:`.trace` lands in a bounded deque, and every :func:`note` (``fit``
+notes each retired dispatch) appends a mark carrying the metrics
+registry's counter delta since the previous note (read through a
+:class:`~.registry.Window`, only the keys that moved), so the last
+dispatches' timeline and what each moved are in memory when a run dies.
+:func:`dump` writes them (``spans``, ``counter_deltas``) with the
+registry's snapshot as a post-mortem JSON (a serving batcher's thread
+death and a fleet replica's death dump). On by default, as in the JAX
+package (``MXTPU_FLIGHT_RECORDER``, set ``0`` to turn it off and make
+``obs.span`` a no-op when tracing is off too);
 ``MXTPU_FLIGHT_RECORDER_PATH`` names the dump (default
-``mxtpu_flight.json``). The span ring holds the last 1024 events. The
-counter-registry delta of each mark is not ported yet.
+``mxtpu_flight.json``). The span ring holds the last 1024 events, the
+mark ring the last 256.
 """
 from __future__ import annotations
 
@@ -34,12 +37,15 @@ _SPAN_RING = 1024
 
 
 class FlightRecorder(object):
-    """Bounded in-memory rings of spans and marks."""
+    """Bounded in-memory rings of spans and marks (``ring`` spans, at least
+    16) over ``registry`` (the process registry by default)."""
 
-    def __init__(self):
+    def __init__(self, ring=_SPAN_RING, registry=None):
         self._lock = threading.Lock()
-        self._spans = deque(maxlen=_SPAN_RING)
+        self._spans = deque(maxlen=max(16, int(ring)))
         self._marks = deque(maxlen=256)
+        self._registry = registry or REGISTRY
+        self._window = None     # the registry window the marks read
         self.dumps = 0          # dumps written
         self.last_dump_path = None
         self.last_dump = None   # the last dump document
@@ -50,10 +56,24 @@ class FlightRecorder(object):
             self._spans.append(ev)
 
     def note(self, marker, **ids):
-        """Append one mark (``fit`` notes each retired dispatch with
-        ``dispatch=i``)."""
-        with self._lock:
-            self._marks.append({"marker": marker, "t": time.time(), **ids})
+        """Append one mark with the registry's counter delta since the
+        previous note (``fit`` notes each retired dispatch with
+        ``dispatch=i``); the first note starts the window with an empty
+        delta. Never raises."""
+        try:
+            with self._lock:
+                if self._window is None:
+                    self._window = self._registry.window()
+                    delta = {}
+                else:
+                    delta = {k: v for k, v in self._window.delta().items()
+                             if isinstance(v, (int, float))
+                             and not isinstance(v, bool) and v}
+                self._marks.append({"marker": marker, "t": time.time(),
+                                    **ids, "delta": delta})
+        except Exception:
+            logging.getLogger("mxnet_tpu_torch").exception(
+                "obs: flight-recorder note failed (continuing)")
 
     def spans(self):
         with self._lock:
@@ -63,9 +83,19 @@ class FlightRecorder(object):
         with self._lock:
             return list(self._marks)
 
+    def clear(self):
+        """Empty both rings and restart the counter window."""
+        with self._lock:
+            self._spans.clear()
+            self._marks.clear()
+            self._window = None
+            self.dumps = 0
+            self.last_dump_path = None
+            self.last_dump = None
+
     def dump(self, reason, path=None, extra=None):
-        """Write the post-mortem JSON (spans, marks, the registry's
-        snapshot, ``extra``); returns the path, or None when disabled or
+        """Write the post-mortem JSON (spans, the marks as
+        ``counter_deltas``, the registry's snapshot, ``extra``); returns the path, or None when disabled or
         the write failed (logged, never raised: this runs inside failure
         paths)."""
         if not enabled():
@@ -75,8 +105,9 @@ class FlightRecorder(object):
                 spans = list(self._spans)
                 marks = list(self._marks)
             doc = {"reason": str(reason), "time": time.time(),
-                   "pid": os.getpid(), "spans": spans, "marks": marks,
-                   "counters": REGISTRY.snapshot()}
+                   "pid": os.getpid(), "spans": spans,
+                   "counter_deltas": marks,
+                   "counters": self._registry.snapshot()}
             if extra:
                 try:
                     json.dumps(extra)

@@ -16,10 +16,12 @@ port imports nothing of the JAX package):
   ``retrace_events`` and ``dist_health`` views come with the retrace watch
   and the distributed ring, which the port does not have yet.
 - **Snapshots**: :meth:`Registry.snapshot` flattens everything to
-  ``{"view.key": value}`` (the flight recorder's dump carries one).
-
-The JAX package's Prometheus export and windowed deltas (``Window``,
-behind Speedometer's suffixes) come with the modules that read them.
+  ``{"view.key": value}`` (the flight recorder's dump carries one);
+  :meth:`Registry.to_prometheus` renders the same snapshot as a
+  Prometheus textfile exposition.
+- **Windowed deltas**: :class:`Window` wraps any snapshot-shaped callable
+  (:meth:`Registry.window`) and gives per-window differences; the flight
+  recorder's per-dispatch counter deltas read one.
 """
 from __future__ import annotations
 
@@ -27,8 +29,8 @@ import threading
 
 from ..base import MXNetError
 
-__all__ = ["Counter", "Gauge", "Histogram", "Registry", "REGISTRY",
-           "register_default_views"]
+__all__ = ["Counter", "Gauge", "Histogram", "Registry", "Window",
+           "REGISTRY", "register_default_views"]
 
 
 class _Instrument(object):
@@ -204,6 +206,118 @@ class Registry(object):
                 continue
             for k, v in (vals or {}).items():
                 out["%s.%s" % (name, k)] = v
+        return out
+
+    def window(self, source=None):
+        """A :class:`Window` over this registry's snapshot (or any other
+        snapshot-shaped callable)."""
+        return Window(source if source is not None else self.snapshot)
+
+    def to_prometheus(self):
+        """Prometheus textfile exposition of :meth:`snapshot`. Non-numeric
+        values (last_error strings) are skipped, as Prometheus samples are
+        float64, and key characters outside ``[a-zA-Z0-9_:]`` become
+        ``_``. Instruments get a ``# TYPE`` line (a histogram's is
+        ``untyped``, its four keys being plain samples)."""
+        lines = []
+        with self._lock:
+            instruments = sorted(self._instruments.values(),
+                                 key=lambda i: i.name)
+        typed = {}
+        for inst in instruments:
+            typed[_prom_name(inst.name)] = inst.kind
+        snap = self.snapshot()
+        seen_types = set()
+        for key in sorted(snap):
+            v = snap[key]
+            if isinstance(v, bool) or not isinstance(v, (int, float)):
+                continue
+            name = _prom_name(key)
+            base = name
+            for suf in ("_count", "_sum", "_min", "_max"):
+                if base.endswith(suf):
+                    base = base[:-len(suf)]
+                    break
+            kind = typed.get(base)
+            if kind and base not in seen_types:
+                seen_types.add(base)
+                lines.append("# TYPE %s %s"
+                             % (base, "untyped" if kind == "histogram"
+                                else kind))
+            lines.append("%s %s" % (name, repr(float(v))
+                                    if isinstance(v, float) else v))
+        return "\n".join(lines) + "\n"
+
+
+def _prom_name(key):
+    out = []
+    for ch in key:
+        out.append(ch if (ch.isalnum() and ch.isascii()) or ch in "_:"
+                   else "_")
+    name = "".join(out)
+    if name and name[0].isdigit():
+        name = "_" + name
+    return name
+
+
+class Window(object):
+    """Windowed-delta reader over a snapshot-shaped callable.
+
+    ``delta()`` returns ``{key: current - baseline}`` for every numeric
+    key and advances the baseline; non-numeric values (a last_error
+    string) ride through as their current value. ``rebase()`` resets the
+    baseline to now without reporting, so a consumer reused for a second
+    run does not count the first run's accumulation in its first window.
+    A window made with ``key=`` folds ``delta(src)`` only when ``src`` is
+    that key, so an observation of another source (a ``score()`` in the
+    middle of a ``fit``) does not advance its baseline.
+    """
+
+    def __init__(self, source, key=None):
+        if not callable(source):
+            raise MXNetError("Window: source must be callable")
+        self._source = source
+        #: identity key: delta(src=...) only folds when src matches
+        self._key = key
+        self._base = dict(source() or {})
+
+    def rebase(self):
+        self._base = dict(self._source() or {})
+
+    def matches(self, src):
+        return self._key is None or src is self._key
+
+    def peek(self):
+        """Current minus baseline without advancing the baseline: the
+        cumulative reading since the window began, beside :meth:`delta`'s
+        per-window one."""
+        cur = dict(self._source() or {})
+        out = {}
+        for k, v in cur.items():
+            if isinstance(v, bool) or not isinstance(v, (int, float)):
+                out[k] = v
+                continue
+            b = self._base.get(k)
+            out[k] = v - b if isinstance(b, (int, float)) \
+                and not isinstance(b, bool) else v
+        return out
+
+    def delta(self, src=None):
+        """Current minus baseline for numeric keys; advances the baseline.
+        When the window is keyed and ``src`` does not match, returns None
+        and leaves the baseline as it is."""
+        if src is not None and not self.matches(src):
+            return None
+        cur = dict(self._source() or {})
+        out = {}
+        for k, v in cur.items():
+            if isinstance(v, bool) or not isinstance(v, (int, float)):
+                out[k] = v
+                continue
+            b = self._base.get(k)
+            out[k] = v - b if isinstance(b, (int, float)) \
+                and not isinstance(b, bool) else v
+        self._base = cur
         return out
 
 

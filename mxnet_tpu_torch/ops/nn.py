@@ -2,7 +2,9 @@
 
 Counterparts of ``mxnet_tpu/ops/nn.py``: FullyConnected, Convolution,
 BatchNorm, Activation, SoftmaxActivation, SoftmaxOutput, Pooling, Concat,
-L2Normalization and MakeLoss, NCHW as in the JAX package. NHWC is taken
+L2Normalization, LRN, Dropout, MakeLoss, SliceChannel (``split``) and the
+Sequence ops (SequenceLast, SequenceMask, SequenceReverse), NCHW as in the
+JAX package. NHWC is taken
 by permuting around the NCHW call: the permuted tensor is channels-last
 in memory, so cuDNN and the pooling ops keep it so and the NHWC result
 comes back contiguous.
@@ -615,3 +617,90 @@ def _make_loss(op_ctx, attrs, inputs, aux):
         # so autograd neither keeps its graph nor sends it a cotangent
         return (x.detach(),)
     return (_MakeLoss.apply(x, gs),)
+
+
+# ---------------------------------------------------------------------------
+# SliceChannel (ref: slice_channel-inl.h): ``num_outputs`` equal parts along
+# ``axis``, named output0, output1, ...; ``squeeze_axis`` drops the axis
+# ---------------------------------------------------------------------------
+
+def _slice_channel_outputs(attrs):
+    n = attr_int(attrs.get("num_outputs", 1), 1)
+    return ["output%d" % i for i in range(n)]
+
+
+@register("SliceChannel", inputs=("data",), var_outputs=_slice_channel_outputs,
+          aliases=("split",))
+def _slice_channel(op_ctx, attrs, inputs, aux):
+    n = attr_int(attrs.get("num_outputs", 1), 1)
+    ax = attr_int(attrs.get("axis", 1), 1)
+    squeeze = attr_bool(attrs.get("squeeze_axis", False), False)
+    x = inputs[0]
+    if x.shape[ax] % n:
+        raise MXNetError("SliceChannel: axis %d of size %d does not split "
+                         "into %d parts" % (ax, x.shape[ax], n))
+    parts = torch.split(x, x.shape[ax] // n, dim=ax)
+    if squeeze:
+        parts = [p.squeeze(ax) for p in parts]
+    return tuple(parts)
+
+
+# ---------------------------------------------------------------------------
+# Sequence ops (ref: sequence_last/mask/reverse-inl.h): sequence axis 0,
+# batch axis 1, as the JAX package's (T, N, ...) layout; with
+# ``use_sequence_length`` a second input gives each sequence's length
+# ---------------------------------------------------------------------------
+
+def _seq_inputs(attrs):
+    if attr_bool(attrs.get("use_sequence_length", False), False):
+        return ["data", "sequence_length"]
+    return ["data"]
+
+
+def _seq_op(name, fn):
+    od = register_def(OpDef(name, fn, inputs=("data",)))
+    od.list_inputs = _seq_inputs
+
+
+def _along_time(x, idx):
+    """``x`` gathered along axis 0 at ``idx`` of shape (T', N)."""
+    idx = idx.reshape(idx.shape + (1,) * (x.dim() - 2))
+    return torch.gather(x, 0, idx.expand(idx.shape[:2] + x.shape[2:]))
+
+
+def _sequence_last(op_ctx, attrs, inputs, aux):
+    x = inputs[0]
+    if len(inputs) == 2:
+        idx = (inputs[1].to(torch.int64) - 1).clamp(0, x.shape[0] - 1)
+        return (_along_time(x, idx.reshape(1, -1)).squeeze(0),)
+    return (x[-1],)
+
+
+def _sequence_mask(op_ctx, attrs, inputs, aux):
+    x = inputs[0]
+    val = attr_float(attrs.get("value", 0.0), 0.0)
+    if len(inputs) == 1:
+        return (x,)
+    t = torch.arange(x.shape[0], device=x.device).reshape(
+        (-1, 1) + (1,) * (x.dim() - 2))
+    mask = t < inputs[1].to(torch.int64).reshape(
+        (1, -1) + (1,) * (x.dim() - 2))
+    return (torch.where(mask, x, torch.full((), val, dtype=x.dtype,
+                                            device=x.device)),)
+
+
+def _sequence_reverse(op_ctx, attrs, inputs, aux):
+    x = inputs[0]
+    if len(inputs) == 1:
+        return (torch.flip(x, dims=(0,)),)
+    # a length past T reverses the whole sequence (the JAX package's gather
+    # reads NaN there)
+    seq_len = inputs[1].to(torch.int64).clamp(0, x.shape[0])[None, :]
+    t = torch.arange(x.shape[0], device=x.device)[:, None]
+    rev_idx = torch.where(t < seq_len, seq_len - 1 - t, t)
+    return (_along_time(x, rev_idx),)
+
+
+_seq_op("SequenceLast", _sequence_last)
+_seq_op("SequenceMask", _sequence_mask)
+_seq_op("SequenceReverse", _sequence_reverse)

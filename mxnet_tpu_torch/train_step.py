@@ -44,9 +44,10 @@ the card:
   write float32.
 
 One divergence from the JAX package: it casts every floating batch input
-to ``compute_dtype``, labels included, so bf16 rounds class 257 to 256 and
-998 and 999 to 1000 (a class that does not exist). The port casts only the
-inputs that are not in ``label_names``.
+to ``compute_dtype``, labels and token ids included, so bf16 rounds class
+257 to 256 and 998 and 999 to 1000 (a class that does not exist), and an
+``Embedding`` looks token 257 up in row 256. The port casts only the inputs
+that are neither in ``label_names`` nor an ``Embedding``'s indices.
 
 Not ported yet, and raising when asked for: ``mesh``,
 ``param_shardings`` and ``group2ctx``.
@@ -331,6 +332,12 @@ class TrainStep(object):
             self.compute_dtype = None
         self.remat = remat
         self._run, self._nodes = _build_graph_runner(symbol, remat=remat)
+        # the inputs that feed an Embedding's indices keep their dtype under
+        # compute_dtype, as the labels do
+        self._keep_dtype = set(self.label_names) | {
+            src.name for node in self._nodes
+            if not node.is_variable and node.op.name == "Embedding"
+            for src, _ in node.inputs[:1] if src.is_variable}
         self._needs_rng = any((not n.is_variable) and n.op.needs_rng
                               for n in self._nodes) or getattr(
                                   self._opt, "fused_needs_key", False)
@@ -426,7 +433,7 @@ class TrainStep(object):
         with torch.enable_grad(), conv_precision(self.device):
             arg_vals = {k: (v.to(cdt) if cdt is not None
                             and v.is_floating_point()
-                            and k not in self.label_names else v)
+                            and k not in self._keep_dtype else v)
                         for k, v in batch.items()}
             arg_vals.update({n: (v.to(cdt) if cdt is not None else v)
                              for n, v in leaves.items()})

@@ -8,7 +8,7 @@
 - ``MSRAPrelu`` is Xavier gaussian with magnitude ``2 / (1 + slope^2)``:
   the standard deviation of 400,000 draws within 1% of
   ``sqrt(magnitude / fan)``, the mean within 5 standard errors of 0.
-- ``FusedRNN`` raises, naming itself, until the ``rnn`` package is ported.
+- ``FusedRNN`` is held in ``tests/test_torch_rnn.py``.
 - The suffix dispatch is the JAX package's: ``*_bias``, ``*_beta`` zero,
   ``*_gamma`` one, an ``__init__`` attribute overrides it.
 """
@@ -123,11 +123,6 @@ def test_msra_prelu_scale():
     assert abs(float(v.mean())) < 5 * std / math.sqrt(v.numel())
     assert json.loads(init.dumps()) == json.loads(
         jinit.MSRAPrelu(factor_type="in", slope=0.5).dumps())
-
-
-def test_fused_rnn_raises():
-    with pytest.raises(MXNetError, match="FusedRNN"):
-        tinit.FusedRNN(tinit.Xavier(), 8, 1, "lstm")
 
 
 @pytest.mark.parametrize("name,want", [("fc_bias", 0.0), ("bn_beta", 0.0),

@@ -272,8 +272,6 @@ def test_fit_logs_each_knob_source(caplog, monkeypatch):
 
 
 @pytest.mark.parametrize("what,call", [
-    ("monitor", lambda m, it: m.fit(it, num_epoch=1, monitor=object())),
-    ("install_monitor", lambda m, it: m.install_monitor(object())),
     ("dist_sync", lambda m, it: m.fit(it, num_epoch=1,
                                       kvstore="dist_sync")),
     ("dist_async", lambda m, it: mt.kv.create("dist_async")),
@@ -287,7 +285,6 @@ def test_options_not_ported_raise(what, call):
 
 
 @pytest.mark.parametrize("what,env,kw", [
-    ("MXNET_PROFILER_AUTOSTART", {"MXNET_PROFILER_AUTOSTART": "1"}, None),
     ("MXTPU_DP_DEVICES", {"MXTPU_DP_DEVICES": "2"}, "noctx"),
     ("MXTPU_LM_MESH", {"MXTPU_LM_MESH": "data=2"}, None),
     ("context", {}, dict(context=[mt.cpu(0), mt.cpu(1)])),
