@@ -236,9 +236,44 @@ non-zero):
    printed; a step's kernels by device time, and the card's idle share.
    (f) tokens/s and the host and CUDA-event ms a step by bucket, and
    tokens/s over a fit's second epoch. No kernel of B1-B3 may launch.
+17. lm: the transformer LM at bench.py lm_main's widths (vocabulary 1024,
+   embed 256, 8 heads, 4 layers, seq 128, batch 32, bf16 compute, SGD lr
+   0.1, momentum 0.9, wd 1e-4, the gradient the mean over tokens) on a
+   synthetic next-token task from --seed (each row counts up from a
+   random start). Profiled right after phase 6 (before the profiler drops
+   records): one training step, one float32 decode step and one
+   speculative round (device ms and launches, the matrix products' and
+   the int64 elementwise kernels' shares, and CUDA-event ms back to
+   back), the threefry uniforms of one decode step alone, and the
+   attention core beside scaled_dot_product_attention.
+   (a) Module(compute_dtype="bfloat16").fit at K=1 and K=4 for 2 epochs
+   of 64 batches: the perplexity must fall, and K=4 must equal K=1 bit for
+   bit (or within 1e-3 of each parameter's norm); tokens/s and a step on
+   CUDA events; stack_layers=True over the trained weights stacked
+   against the per-layer build (float32, within 1e-5 of the largest
+   value); a one-layer draft trained the same way. (b) DecodeLoop over the
+   trained float32 weights, max_len 128, 8 slots, 32 requests of an
+   8-token shared prefix plus a 2-4 token tail, 96 new tokens each, each
+   leg warmed once and then timed: greedy (every token the argmax of the
+   full forward at its position, teacher-forced on the stream, but where
+   its two probabilities are within 1e-5; the loop built on other
+   weights and hot-reloaded, bit for bit), sampled (temperature 0.8, top_k
+   50, top_p 0.95), bf16 and int8 (reloaded bit for bit; their greedy
+   streams reproduce at least 0.98 of the float32 leg's tokens, each
+   stream counted to its first difference; int8's quality gate through a
+   ServingEngine pair), prefix (streams equal to the sampled leg's) and
+   spec_k 2 with the draft (token-identical to the sampled leg); 8
+   requests whose prompt plus new tokens fill max_len, speculative with
+   the target as a perfect draft (a window starting at max_len - 2,
+   past the positional table) and with the one-layer draft, greedy and
+   sampled, token-identical to target-only; serve.sample raising at the
+   3rd step sheds every
+   sequence with ServingClosedError; tokens/s, ms a decode step and the
+   weight bytes of each leg. (c) No kernel of B1-B3 may launch.
 
 The line before the last is {"kernels": [...]} (per kernel: launches on
-its main path (phase 16's LSTM path launches none), max error against the plain version, times and bound; the
+its main path (phase 16's LSTM path and phase 17's LM path launch none),
+max error against the plain version, times and bound; the
 NMS kernel's launches also by path: serving, training, the serving tier
 and training from JPEG records; the matmul_stats kernel's by path: the
 train phase and the training API); the last line is {"ok": true,
@@ -942,7 +977,8 @@ def profile_step(fn, card, what="one fused step",
                  tries=4):
     """torch.profiler over one call of ``fn``: prints the ten CUDA kernels
     with the most device time and the share of the kernels named by each
-    of ``shares`` (a label and substrings of their names). A dropped kernel
+    of ``shares`` (a label and substrings of their names, or a predicate
+    over a name). A dropped kernel
     record (:func:`profiled_kernels`) changes the counts, so the call is
     profiled until two profiles in a row record every kernel the same
     number of times, at most ``tries`` times, and else prints no
@@ -967,8 +1003,10 @@ def profile_step(fn, card, what="one fused step",
     if total == 0:
         log("profile: torch.profiler recorded no device time")
         return None
+    def named(key, keys):
+        return keys(key) if callable(keys) else any(k in key for k in keys)
     parts = {label: sum(_device_us(e) for e in kernels
-                        if any(k in e.key for k in keys)) / 1e3
+                        if named(e.key, keys)) / 1e3
              for label, keys in shares}
     log("profile of %s (the same %d kernel launches as the profile "
         "before it): %d kernel names, %.3f ms of device time; %s [%s]"
@@ -979,7 +1017,7 @@ def profile_step(fn, card, what="one fused step",
         log("  %8.3f ms %5.1f%% x%-5d %s" % (_device_us(e) / 1e3,
                                             100.0 * _device_us(e) / total,
                                             e.count, e.key[:100]))
-    return dict(parts, total=total / 1e3)
+    return dict(parts, total=total / 1e3, launches=sum(counts.values()))
 
 
 def train_phase(seed, card):
@@ -4502,6 +4540,626 @@ def rnn_phase(seed, card):
     log("lstm: the phase took %.1f s" % (time.perf_counter() - t_phase))
 
 
+# ---------------------------------------------------------------------------
+# phase 17: the transformer LM, trained through Module.fit and served
+# through DecodeLoop
+# ---------------------------------------------------------------------------
+
+#: bench.py lm_main's defaults (BENCH_LM_*): vocabulary, embed, heads,
+#: layers, sequence, batch, compute dtype, steps a dispatch
+LM_VOCAB = 1024
+LM_EMBED = 256
+LM_HEADS = 8
+LM_LAYERS = 4
+LM_SEQ = 128
+LM_BATCH = 32
+LM_DTYPE = "bfloat16"
+LM_K = 4
+#: batches an epoch and epochs of phase 17 (a)
+LM_BATCHES = 64
+LM_EPOCHS = 2
+#: bench.py's SGD (lr 0.1, momentum 0.9, wd 1e-4); the gradient is the
+#: mean over the batch's tokens (rescale 1 / (batch x seq)): at the
+#: default 1 / batch the flat head's sum over 128 positions makes lr 0.1
+#: diverge
+LM_OPT = {"learning_rate": 0.1, "momentum": 0.9, "wd": 1e-4,
+          "rescale_grad": 1.0 / (LM_BATCH * LM_SEQ)}
+#: K=4 against K=1 where not bit for bit (see phase 16), relative norm
+LM_K_RTOL = 1e-3
+#: the stacked build against the per-layer build, float32 on the card:
+#: elementwise within this fraction of the output's largest value
+LM_STACK_RTOL = 1e-5
+#: (b): bench.py decode_main's legs over the trained LM: cache rows,
+#: slots, requests (an 8-token shared prefix plus a 2-4 token tail each),
+#: new tokens a request, the speculative window's draft length
+DEC_MAXLEN = 128
+DEC_SLOTS = 8
+DEC_REQUESTS = 32
+DEC_NEW = 96
+DEC_SPEC_K = 2
+DEC_SAMPLED = {"temperature": 0.8, "top_k": 50, "top_p": 0.95}
+#: a greedy token may differ from the full forward's argmax only where
+#: the forward's two probabilities are closer than this (a rounding tie)
+DEC_ORACLE_TIE = 1e-5
+#: each quantized leg's greedy streams against the float32 leg's: the
+#: least share of the float32 tokens reproduced, each stream counted up
+#: to its first difference (the serving tier's int8 gate,
+#: MXTPU_SERVE_QUANT_MIN_AGREE's default)
+DEC_QUANT_AGREE = 0.98
+LM_CTX = "gpu"
+
+
+def _lm_ctx():
+    import mxnet_tpu_torch as mt
+    return mt.gpu(0) if LM_CTX == "gpu" else mt.cpu()
+
+
+def _lm_dev():
+    return "cuda:0" if LM_CTX == "gpu" else "cpu"
+
+
+def lm_symbol(layers=LM_LAYERS, **kw):
+    import mxnet_tpu_torch as mt
+    with mt.symbol.NameManager():
+        return mt.models.transformer(vocab_size=LM_VOCAB, embed=LM_EMBED,
+                                     num_heads=LM_HEADS, num_layers=layers,
+                                     seq_len=LM_SEQ, **kw)
+
+
+def lm_params(seed, layers=LM_LAYERS):
+    """The LM's weights on the host from ``seed``: gains 1, shifts and
+    biases 0, every matrix (the embeddings too) Xavier-uniform over its
+    two dims."""
+    sym = lm_symbol(layers)
+    shapes, _, _ = sym.infer_shape(data=(1, LM_SEQ),
+                                   softmax_label=(1, LM_SEQ))
+    rng = np.random.default_rng(seed)
+    out = {}
+    for n, shp in zip(sym.list_arguments(), shapes):
+        if n in ("data", "softmax_label"):
+            continue
+        if n.endswith("gamma"):
+            out[n] = np.ones(shp, np.float32)
+        elif n.endswith(("beta", "bias")):
+            out[n] = np.zeros(shp, np.float32)
+        else:
+            a = np.sqrt(6.0 / (shp[0] + shp[1]))
+            out[n] = rng.uniform(-a, a, shp).astype(np.float32)
+    return out
+
+
+def lm_tokens(seed, n=LM_BATCH * LM_BATCHES):
+    """The synthetic next-token task: each row counts up from a random
+    start (mod the vocabulary), the label is each token plus one."""
+    rng = np.random.default_rng(seed + 17)
+    x = (rng.integers(0, LM_VOCAB, (n, 1)) + np.arange(LM_SEQ)[None]) \
+        % LM_VOCAB
+    return x.astype(np.float32), ((x + 1) % LM_VOCAB).astype(np.float32)
+
+
+def lm_fit(seed, params, k, layers=LM_LAYERS, epochs=LM_EPOCHS):
+    """``Module(compute_dtype="bfloat16").fit`` over the task: returns the
+    module, each epoch's perplexity and each epoch's seconds."""
+    import mxnet_tpu_torch as mt
+    x, y = lm_tokens(seed)
+    it = mt.io.NDArrayIter(x, y, batch_size=LM_BATCH,
+                           label_name="softmax_label")
+    mod = mt.mod.Module(lm_symbol(layers), context=_lm_ctx(),
+                        compute_dtype=LM_DTYPE)
+    metric = mt.metric.Perplexity(ignore_label=None)
+    ppl, marks = [], [time.perf_counter()]
+
+    def epoch_end(*a):
+        ppl.append(metric.get()[1])
+        marks.append(time.perf_counter())
+    mod.fit(it, eval_metric=metric, num_epoch=epochs,
+            arg_params={n: mt.nd.array(v, ctx=mt.cpu())
+                        for n, v in params.items()},
+            optimizer="sgd", optimizer_params=dict(LM_OPT),
+            steps_per_dispatch=k, dispatch_pipeline=1,
+            epoch_end_callback=epoch_end)
+    return mod, ppl, [b - a for a, b in zip(marks, marks[1:])]
+
+
+def lm_decode_loop(params, layers=LM_LAYERS, **kw):
+    from mxnet_tpu_torch import serving
+    kw.setdefault("prefix_cache", False)
+    return serving.DecodeLoop(params, num_layers=layers, num_heads=LM_HEADS,
+                              max_len=DEC_MAXLEN, slots=DEC_SLOTS,
+                              device=_lm_dev(), **kw)
+
+
+def lm_profile(seed, card):
+    """Run beside phase 6, before phase 8 (after which the profiler drops
+    kernel records): one bf16 LM training step at bench.py lm_main's
+    widths (the TrainStep that Module.fit's fused path drives), one
+    float32 decode step and one speculative round (spec_k 2, a one-layer
+    draft) at phase 17's decode widths, each profiled (device ms and
+    kernel launches, the matrix products' share and the int64
+    elementwise kernels' share) and timed back to back on CUDA events;
+    the threefry uniforms of one decode step alone (``position_uniforms``
+    over the slots; a speculative round computes them six times); and the
+    attention core against scaled_dot_product_attention (cuDNN/flash,
+    bf16, causal) on the step's shapes. Random weights from ``seed``.
+    Returns {what: profile_step's numbers plus event_ms}."""
+    import torch
+    import torch.nn.functional as F
+    from mxnet_tpu_torch.ops.attention import blockwise_attention
+    from mxnet_tpu_torch.ops.nn import matmul_precision
+    from mxnet_tpu_torch.serving.sampling import position_uniforms
+    from mxnet_tpu_torch.train_step import TrainStep
+    dev = torch.device(_lm_dev())
+    out = {}
+    step = TrainStep(lm_symbol(), optimizer="sgd", compute_dtype=LM_DTYPE,
+                     device=dev, **LM_OPT)
+    state = step.init({"data": (LM_BATCH, LM_SEQ)},
+                      {"softmax_label": (LM_BATCH, LM_SEQ)}, seed=seed)
+    for n, v in lm_params(seed).items():
+        state["params"][n].copy_(torch.from_numpy(v))
+    x, y = lm_tokens(seed, LM_BATCH)
+    batch = {"data": torch.from_numpy(x).to(dev),
+             "softmax_label": torch.from_numpy(y).to(dev)}
+    shares = (("matrix products", ("gemm", "nvjet", "xmma", "cutlass")),
+              ("int64 elementwise (threefry, positions, indices)",
+               lambda k: "elementwise" in k and "long" in k))
+    prof = profile_step(lambda: step.step(state, batch), card,
+                        "one LM training step (%s, b=%d, seq %d, %dx%d, "
+                        "%d heads)" % (LM_DTYPE, LM_BATCH, LM_SEQ,
+                                       LM_LAYERS, LM_EMBED, LM_HEADS),
+                        shares)
+    out["train_step"] = dict(prof or {}, event_ms=cuda_time_ms(
+        lambda: step.step(state, batch), 10))
+    # the decode bodies, called on this thread over idle loops' state
+    params = lm_params(seed)
+    draft = lm_params(seed + 1, 1)
+    rng = np.random.default_rng(seed)
+    n = DEC_SLOTS
+    slot = {"tokens": torch.from_numpy(rng.integers(0, LM_VOCAB, n)),
+            "pos": torch.full((n,), DEC_MAXLEN // 2),
+            "temp": torch.full((n,), DEC_SAMPLED["temperature"]),
+            "top_k": torch.full((n,), DEC_SAMPLED["top_k"]),
+            "top_p": torch.full((n,), DEC_SAMPLED["top_p"]),
+            "fresh": torch.arange(n), "reseed": torch.zeros(n, dtype=bool)}
+    s = {k: v.to(dev) for k, v in slot.items()}
+    args = (s["temp"], s["top_k"], s["top_p"], s["fresh"], s["reseed"])
+    plain = lm_decode_loop(params)
+    spec = lm_decode_loop(params, spec_k=DEC_SPEC_K, draft_params=draft,
+                          draft_num_layers=1)
+    window = torch.stack([s["tokens"]] * (DEC_SPEC_K + 1), dim=1)
+
+    def decode_step():
+        plain._step_fn(plain._state, plain._params, s["tokens"], s["pos"],
+                       *args)
+
+    def spec_round():
+        for j in range(DEC_SPEC_K + 1):
+            spec._draft_fn(spec._draft_state, spec._draft_params,
+                           s["tokens"], s["pos"] + j, *args)
+        spec._verify_fn(spec._state, spec._params, window, s["pos"], *args)
+
+    try:
+        with torch.inference_mode(), matmul_precision(dev):
+            for what, fn, label in (
+                    ("decode_step", decode_step, "one float32 decode step "
+                     "(%d slots, %d cache rows, sampled)"
+                     % (DEC_SLOTS, DEC_MAXLEN + 1)),
+                    ("spec_round", spec_round, "one speculative round "
+                     "(%d one-layer draft passes, a %d-position verify)"
+                     % (DEC_SPEC_K + 1, DEC_SPEC_K + 1))):
+                prof = profile_step(fn, card, label, shares)
+                out[what] = dict(prof or {}, event_ms=cuda_time_ms(fn, 10))
+            seeds = s["fresh"] + 101
+
+            def uniforms():
+                position_uniforms(seeds, s["pos"])
+            prof = profile_step(uniforms, card, "the threefry uniforms of "
+                                "one decode step (%d slots)" % DEC_SLOTS,
+                                ())
+            out["uniforms"] = dict(prof or {},
+                                   event_ms=cuda_time_ms(uniforms, 10))
+    finally:
+        plain.close()
+        spec.close()
+    # the attention core beside SDPA (the library call; not used)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q, k, v = (torch.randn(LM_BATCH, LM_HEADS, LM_SEQ,
+                           LM_EMBED // LM_HEADS, device=dev, generator=g,
+                           dtype=torch.bfloat16) for _ in range(3))
+    core = blockwise_attention(q, k, v, causal=True)
+    lib = F.scaled_dot_product_attention(q, k, v, is_causal=True)
+    t_core = cuda_time_ms(lambda: blockwise_attention(q, k, v, causal=True),
+                          20)
+    t_lib = cuda_time_ms(lambda: F.scaled_dot_product_attention(
+        q, k, v, is_causal=True), 20)
+    err = float((core.float() - lib.float()).abs().max())
+    log("lm profile: attention core (blockwise_attention, bf16, causal, "
+        "%s) %.4f ms a call back to back, scaled_dot_product_attention "
+        "%.4f ms; max |difference| %.3g [%s]"
+        % (tuple(q.shape), t_core, t_lib, err, card))
+    out["attention"] = {"core_ms": t_core, "sdpa_ms": t_lib,
+                        "max_abs_diff": err}
+    for what in ("train_step", "decode_step", "spec_round", "uniforms"):
+        log("lm profile: %s: %s ms of device time in %s launches, %.3f ms "
+            "back to back on CUDA events [%s]"
+            % (what, "%.3f" % out[what]["total"] if "total" in out[what]
+               else "no", out[what].get("launches", "?"),
+               out[what]["event_ms"], card))
+    return out
+
+
+def _lm_host_params(mod):
+    args, _ = mod.get_params()
+    return {n: v.asnumpy() for n, v in args.items()}
+
+
+def _stack_params(params, layers=LM_LAYERS):
+    from mxnet_tpu_torch.ops.transformer_stack import STACK_INPUTS
+    per = {"qkv_weight": "attn_qkv_weight", "qkv_bias": "attn_qkv_bias",
+           "out_weight": "attn_out_weight", "out_bias": "attn_out_bias",
+           "fc1_weight": "ffn_fc1_weight", "fc1_bias": "ffn_fc1_bias",
+           "fc2_weight": "ffn_fc2_weight", "fc2_bias": "ffn_fc2_bias"}
+    out = {k: v for k, v in params.items() if not k.startswith("layer")}
+    for name in STACK_INPUTS[1:]:
+        out["stack_" + name] = np.stack(
+            [params["layer%d_%s" % (i, per.get(name, name))]
+             for i in range(layers)])
+    return out
+
+
+def lm_forward(sym, params, x):
+    """The symbol's float32 forward over token rows ``x`` (inference,
+    TF32 off): the (rows x seq, vocab) probabilities on the host."""
+    import mxnet_tpu_torch as mt
+    import torch
+    from mxnet_tpu_torch.ops.nn import matmul_precision
+    ctx = _lm_ctx()
+    ex = sym.simple_bind(ctx, grad_req="null", data=x.shape,
+                         softmax_label=x.shape)
+    ex.copy_params_from({n: mt.nd.array(v, ctx=ctx)
+                         for n, v in params.items()})
+    with matmul_precision(torch.device(_lm_dev())):
+        ex.forward(is_train=False, data=mt.nd.array(x, ctx=ctx))
+        return ex.outputs[0].asnumpy()
+
+
+def lm_train_check(seed, card):
+    """(a): returns the trained float32 parameters and a trained
+    one-layer draft."""
+    import torch
+    params = lm_params(seed)
+    nparams = sum(int(v.size) for v in params.values())
+    log("lm (a) model: bench.py lm_main's LM (vocabulary %d, embed %d, %d "
+        "heads, %d layers, seq %d, batch %d, %s compute, SGD lr %g "
+        "momentum %g wd %g, gradient the mean over tokens): %d parameters; "
+        "%d synthetic rows from --seed (next token = token + 1), %d "
+        "batches an epoch"
+        % (LM_VOCAB, LM_EMBED, LM_HEADS, LM_LAYERS, LM_SEQ, LM_BATCH,
+           LM_DTYPE, LM_OPT["learning_rate"], LM_OPT["momentum"],
+           LM_OPT["wd"], nparams, LM_BATCH * LM_BATCHES, LM_BATCHES))
+    fits = {}
+    tokens = LM_BATCH * LM_BATCHES * LM_SEQ
+    for k in (1, LM_K):
+        mod, ppl, secs = lm_fit(seed, params, k)
+        fits[k] = (mod, ppl, secs)
+        log("lm (a) Module.fit K=%d: perplexity by epoch %s; seconds by "
+            "epoch %s; epoch %d: %d tokens, %.0f tokens/s, %.2f ms a step "
+            "on the host clock [%s]"
+            % (k, ["%.2f" % p for p in ppl], ["%.3f" % s for s in secs],
+               LM_EPOCHS, tokens, tokens / secs[-1],
+               1e3 * secs[-1] / LM_BATCHES, card))
+        if not (np.all(np.isfinite(ppl)) and ppl[-1] < ppl[0]):
+            raise SystemExit("lm (a): perplexity did not fall at K=%d: %r"
+                             % (k, ppl))
+        if mod._fused is None:
+            raise SystemExit("lm (a): fit did not take the fused path")
+    p1, p4 = _lm_host_params(fits[1][0]), _lm_host_params(fits[LM_K][0])
+    bitwise = all(np.array_equal(p1[n], p4[n]) for n in p1)
+    worst = max(float(np.linalg.norm(p4[n] - p1[n])
+                      / max(np.linalg.norm(p1[n]), 1e-30)) for n in p1)
+    log("lm (a) K=%d against K=1: parameters %s (worst relative norm of "
+        "the difference %.3g)" % (LM_K, "bit for bit" if bitwise else
+                                  "not bit for bit", worst))
+    if not bitwise and worst > LM_K_RTOL:
+        raise SystemExit("lm (a): K=%d and K=1 disagree" % LM_K)
+    # a step's time on CUDA events, from a copy of the trained state
+    mod = fits[1][0]
+    ts = mod._fused
+    st = _clone_tree(mod._fused_state)
+    x, y = lm_tokens(seed, LM_BATCH)
+    batch = {"data": torch.from_numpy(x).to(ts.device),
+             "softmax_label": torch.from_numpy(y).to(ts.device)}
+    ev = cuda_time_ms(lambda: ts.step(st, batch), 10)
+    log("lm (a) a fused bf16 step back to back: %.3f ms on CUDA events "
+        "(%.0f tokens/s) [%s]" % (ev, LM_BATCH * LM_SEQ / (ev / 1e3), card))
+    # the stacked build against the per-layer build, float32
+    xs, _ = lm_tokens(seed + 1, 4)
+    per = lm_forward(lm_symbol(), p1, xs)
+    stk = lm_forward(lm_symbol(stack_layers=True), _stack_params(p1), xs)
+    err = float(np.abs(stk - per).max())
+    scale = float(np.abs(per).max())
+    log("lm (a) stack_layers=True against the per-layer build (trained "
+        "weights stacked, float32, 4 rows): max |difference| %.3g of the "
+        "largest value %.3g (limit %g of it)" % (err, scale, LM_STACK_RTOL))
+    if not err <= LM_STACK_RTOL * scale:
+        raise SystemExit("lm (a): the stacked build disagrees")
+    draft_mod, dppl, _ = lm_fit(seed, lm_params(seed + 1, 1), LM_K,
+                                layers=1)
+    log("lm (a) the one-layer draft (the same task and fit, K=%d): "
+        "perplexity by epoch %s" % (LM_K, ["%.2f" % p for p in dppl]))
+    return p1, _lm_host_params(draft_mod)
+
+
+def _dec_requests(seed):
+    """bench.py decode_main's traffic: an 8-token shared prefix plus a
+    2-4 token tail a request, seeds 101.."""
+    rs = np.random.RandomState(seed + 2)
+    shared = [int(t) for t in rs.randint(1, LM_VOCAB, 8)]
+    tails = [[int(t) for t in rs.randint(1, LM_VOCAB, 2 + i % 3)]
+             for i in range(DEC_REQUESTS)]
+    return shared, [shared + t for t in tails], \
+        [101 + i for i in range(DEC_REQUESTS)]
+
+
+def dec_streams(loop, prompts, seeds, gen, plen=0, new=None):
+    """Every request at once (``new`` new tokens each, a list or one
+    count, DEC_NEW by default); the streams in request order."""
+    new = new if isinstance(new, list) else [new or DEC_NEW] * len(prompts)
+    futs = [loop.generate(p, n, seed=s, prefix_len=plen, **gen)
+            for p, s, n in zip(prompts, seeds, new)]
+    return [f.result(timeout=600.0) for f in futs]
+
+
+def dec_run(loop, prompts, seeds, gen, plen=0):
+    """One warmed run of every request (the warm run primes the prefix
+    cache): tokens/s and ms a decode step on the host clock, and the
+    streams."""
+    dec_streams(loop, prompts, seeds, gen, plen)
+    steps0 = loop.health.decode_steps
+    t0 = time.perf_counter()
+    outs = dec_streams(loop, prompts, seeds, gen, plen)
+    dt = time.perf_counter() - t0
+    steps = loop.health.decode_steps - steps0
+    ntok = sum(len(o) for o in outs)
+    return {"tokens_per_s": ntok / dt, "ms_per_step": 1e3 * dt / steps,
+            "steps": steps, "tokens": ntok}, outs
+
+
+def greedy_oracle_check(params, prompts, outs):
+    """Every greedy token against the argmax of the full forward at its
+    position, teacher-forced on the stream itself. Returns (mismatches,
+    rounding ties)."""
+    x = np.zeros((len(prompts), LM_SEQ), np.float32)
+    for i, (p, o) in enumerate(zip(prompts, outs)):
+        x[i, :len(p) + len(o)] = p + o
+    probs = lm_forward(lm_symbol(), params, x).reshape(len(prompts),
+                                                       LM_SEQ, LM_VOCAB)
+    bad = ties = 0
+    for i, (p, o) in enumerate(zip(prompts, outs)):
+        for j, tok in enumerate(o):
+            row = probs[i, len(p) + j - 1]
+            top = int(np.argmax(row))
+            if top != tok:
+                if row[top] - row[tok] < DEC_ORACLE_TIE:
+                    ties += 1
+                else:
+                    bad += 1
+    return bad, ties
+
+
+def stream_agreement(ref, got):
+    """The share of ``ref``'s tokens that ``got`` reproduces, each stream
+    counted up to its first difference."""
+    same = 0
+    for r, g in zip(ref, got):
+        for a, b in zip(r, g):
+            if a != b:
+                break
+            same += 1
+    return same / max(1, sum(len(r) for r in ref))
+
+
+def spec_edge_check(params, draft, prompts, seeds):
+    """Speculative decoding to the end of the cache: one request a slot
+    whose prompt plus new tokens fill ``max_len`` (the positional table's
+    rows, LM_SEQ), spec_k 2 with a perfect draft (the target itself,
+    which advances 3 positions a round and so starts a window at
+    ``max_len`` - 2, reaching past the table) and with the one-layer
+    draft, greedy and sampled, each against target-only decoding.
+    Returns (problems, {leg: the last window start})."""
+    prompts, seeds = prompts[:DEC_SLOTS], seeds[:DEC_SLOTS]
+    new = [DEC_MAXLEN - len(p) for p in prompts]
+    problems, starts = [], {}
+    for name, gen in (("greedy", {}), ("sampled", DEC_SAMPLED)):
+        loop = lm_decode_loop(params)
+        target = dec_streams(loop, prompts, seeds, gen, new=new)
+        loop.close()
+        for dname, dparams, dlayers in (("perfect", params, LM_LAYERS),
+                                        ("one-layer", draft, 1)):
+            loop = lm_decode_loop(params, spec_k=DEC_SPEC_K,
+                                  draft_params=dparams,
+                                  draft_num_layers=dlayers)
+            seen = []
+            verify = loop._verify_fn
+
+            def recording(state, p, tokens_w, pos0, *a, verify=verify,
+                          seen=seen):
+                seen.append(int(pos0.max()))
+                return verify(state, p, tokens_w, pos0, *a)
+            loop._verify_fn = recording
+            try:
+                spec = dec_streams(loop, prompts, seeds, gen, new=new)
+            finally:
+                loop.close()
+            leg = "%s %s draft" % (name, dname)
+            starts[leg] = max(seen)
+            if spec != target:
+                problems.append("speculative to max_len (%s) differs from "
+                                "target-only" % leg)
+            if [len(o) for o in spec] != new:
+                problems.append("speculative to max_len (%s) ended short"
+                                % leg)
+    if starts["greedy perfect draft"] != DEC_MAXLEN - 2:
+        problems.append("no speculative window reached past the table")
+    return problems, starts
+
+
+def lm_decode_check(seed, card, params, draft):
+    """(b): the six legs over the trained weights."""
+    import torch
+    from mxnet_tpu_torch import faults, serving
+    from mxnet_tpu_torch.serving.quantize import (check_quality,
+                                                  quantize_array)
+    shared, prompts, seeds = _dec_requests(seed)
+    legs, problems = {}, []
+    cold = lm_params(seed + 3)
+    # greedy: a loop built on other weights, hot-reloaded to the trained
+    loop = lm_decode_loop(cold)
+    loop.update_params(params)
+    reload_ok = all(torch.equal(loop._params[n].cpu(),
+                                torch.from_numpy(v))
+                    for n, v in params.items())
+    legs["greedy"], greedy = dec_run(loop, prompts, seeds, {})
+    bytes_f32 = loop.weight_bytes()
+    loop.close()
+    bad, ties = greedy_oracle_check(params, prompts, greedy)
+    log("lm (b) greedy: %d of %d tokens differ from the full forward's "
+        "argmax (%d more within %g of a tie); update_params landed the "
+        "trained weights %s"
+        % (bad, legs["greedy"]["tokens"], ties, DEC_ORACLE_TIE,
+           "bit for bit" if reload_ok else "NOT bit for bit"))
+    if bad:
+        problems.append("greedy differs from the teacher-forced oracle")
+    if not reload_ok:
+        problems.append("update_params is not bitwise")
+    loop = lm_decode_loop(params)
+    legs["sampled"], sampled = dec_run(loop, prompts, seeds, DEC_SAMPLED)
+    loop.close()
+    agree = {}
+    for mode in ("bf16", "int8"):
+        loop = lm_decode_loop(cold, quantize=mode)
+        loop.update_params(params)
+        ok = True
+        for n, v in params.items():
+            want = quantize_array(torch.from_numpy(v), mode)
+            got = loop._params[n]
+            ok &= (all(torch.equal(got[i].cpu(), want[i]) for i in want)
+                   if isinstance(want, dict)
+                   else torch.equal(got.cpu(), want))
+        legs[mode], _ = dec_run(loop, prompts, seeds, DEC_SAMPLED)
+        legs[mode]["weight_bytes"] = loop.weight_bytes()
+        agree[mode] = stream_agreement(
+            greedy, dec_streams(loop, prompts, seeds, {}))
+        legs[mode]["greedy_agreement"] = agree[mode]
+        loop.close()
+        if agree[mode] < DEC_QUANT_AGREE:
+            problems.append("%s greedy streams agree with float32's on "
+                            "%.4f of the tokens (floor %g)"
+                            % (mode, agree[mode], DEC_QUANT_AGREE))
+        if not ok:
+            problems.append("update_params under %s is not bitwise" % mode)
+    sym_json = lm_symbol().tojson()
+    eng_params = {"arg:" + n: v for n, v in params.items()}
+    ref = serving.ServingEngine(sym_json, eng_params, {"data": (LM_SEQ,)},
+                                buckets=(4,), device=_lm_dev())
+    q8 = serving.ServingEngine(sym_json, eng_params, {"data": (LM_SEQ,)},
+                               buckets=(4,), device=_lm_dev(),
+                               quantize="int8")
+    probe = np.zeros((4, LM_SEQ), np.float32)
+    probe[:, :8] = np.asarray([shared] * 4, np.float32)
+    quality = q8.quality_report(ref, {"data": probe})
+    check_quality(quality, who="phase 17 int8")
+    legs["int8"]["top1_agreement"] = quality["top1_agreement"]
+    loop = lm_decode_loop(params, prefix_cache=True)
+    legs["prefix"], prefixed = dec_run(loop, prompts, seeds, DEC_SAMPLED,
+                                       plen=len(shared))
+    h = loop.health.report()
+    legs["prefix"].update(hits=h["prefix_hits"],
+                          prefills=h["prefix_prefills"])
+    loop.close()
+    if prefixed != sampled:
+        problems.append("prefix streams differ from cold ones")
+    loop = lm_decode_loop(params, spec_k=DEC_SPEC_K, draft_params=draft,
+                          draft_num_layers=1)
+    legs["spec_k%d" % DEC_SPEC_K], spec = dec_run(loop, prompts, seeds,
+                                                  DEC_SAMPLED)
+    h = loop.health.report()
+    legs["spec_k%d" % DEC_SPEC_K].update(
+        accept_rate=h["spec_accepted"] / max(1, h["spec_drafted"]),
+        weight_bytes=loop.weight_bytes())
+    loop.close()
+    if spec != sampled:
+        problems.append("speculative output differs from target-only")
+    edge_problems, edge_starts = spec_edge_check(params, draft, prompts,
+                                                 seeds)
+    problems += edge_problems
+    log("lm (b) speculative to max_len %d (%d requests, prompt plus new "
+        "tokens = max_len): last window start by leg %s; %s"
+        % (DEC_MAXLEN, DEC_SLOTS, json.dumps(edge_starts, sort_keys=True),
+           "; ".join(edge_problems) or "every leg token-identical to "
+           "target-only"))
+    # serve.sample kills the loop: every sequence is shed
+    loop = lm_decode_loop(params)
+    try:
+        faults.inject("serve.sample", nth=3, kind="raise")
+        futs = [loop.generate(p, 8, seed=s, **DEC_SAMPLED)
+                for p, s in zip(prompts[:3], seeds)]
+        shed = 0
+        for f in futs:
+            try:
+                f.result(timeout=60.0)
+            except serving.ServingClosedError:
+                shed += 1
+    finally:
+        faults.clear("serve.sample")
+        loop.close()
+    log("lm (b) serve.sample raised at the 3rd step: %d of 3 sequences "
+        "shed with ServingClosedError" % shed)
+    if shed != 3:
+        problems.append("serve.sample did not shed every sequence")
+    log("lm (b) weight bytes: f32 %d, bf16 %d, int8 %d (int8 top-1 "
+        "agreement %.4f through a ServingEngine pair); draft+target %d"
+        % (bytes_f32, legs["bf16"]["weight_bytes"],
+           legs["int8"]["weight_bytes"], quality["top1_agreement"],
+           legs["spec_k%d" % DEC_SPEC_K]["weight_bytes"]))
+    log("lm (b) greedy streams against float32's, the share of its %d "
+        "tokens reproduced up to each stream's first difference: bf16 "
+        "%.4f, int8 %.4f (floor %g)"
+        % (legs["greedy"]["tokens"], agree["bf16"], agree["int8"],
+           DEC_QUANT_AGREE))
+    for name, leg in legs.items():
+        log("lm (b) %-8s %8.1f tokens/s, %.3f ms a decode step (%d steps, "
+            "%d tokens)%s [%s]"
+            % (name, leg["tokens_per_s"], leg["ms_per_step"], leg["steps"],
+               leg["tokens"],
+               "; accept rate %.4f" % leg["accept_rate"]
+               if "accept_rate" in leg else "", card))
+    if problems:
+        raise SystemExit("lm (b): " + "; ".join(problems))
+    return legs
+
+
+def lm_phase(seed, card, profile):
+    """Phase 17 (see the module docstring)."""
+    from mxnet_tpu_torch.ops import matmul_stats, multibox_nms
+    from mxnet_tpu_torch import rtc
+    t_phase = time.perf_counter()
+    multibox_nms.reset_launches()
+    matmul_stats.reset_launches()
+    rtc_before = (rtc.RTC_LAUNCHES, rtc.TRITON_LAUNCHES)
+    params, draft = lm_train_check(seed, card)
+    legs = lm_decode_check(seed, card, params, draft)
+    launches = (multibox_nms.LAUNCHES, matmul_stats.LAUNCHES,
+                rtc.RTC_LAUNCHES - rtc_before[0],
+                rtc.TRITON_LAUNCHES - rtc_before[1])
+    log("lm: B2, B1, B3 (Rtc, Triton) launches in this phase: %s (the LM "
+        "path runs none of them)" % (launches,))
+    if any(launches):
+        raise SystemExit("lm: the LM path launched a kernel of B1-B3")
+    log("lm: %s" % json.dumps({"profile": profile, "decode": legs},
+                              sort_keys=True))
+    log("lm: the phase took %.1f s" % (time.perf_counter() - t_phase))
+
+
 def _nodes(sym):
     from mxnet_tpu_torch.symbol import _topo
     return _topo(sym._out_nodes())
@@ -4552,6 +5210,7 @@ def main():
     serve_launches = serve_phase(args.seed, args.reps, card)
     b1["launches"], step_profiles = train_phase(args.seed, card)
     ssd_profile = ssd_train_profile(args.seed, card)
+    lm_prof = lm_profile(args.seed, card)
     rtc_err, rtc_host = rtc_phase(args.seed, args.reps, card)
     launches, upd_err, upd, event, bound = bind_phase(args.seed, 3, card)
     upd_source = "cuda_events" if upd is event else "profiler"
@@ -4566,6 +5225,7 @@ def main():
     api_launches = training_api_phase(args.seed, card, step_profiles)
     data = data_phase(args.seed, card)
     rnn_phase(args.seed, card)
+    lm_phase(args.seed, card, lm_prof)
     # B1 runs on two main paths: the train phase and the training API
     b1.update(launches=b1["launches"] + api_launches,
               launches_train=b1["launches"],

@@ -35,10 +35,12 @@ __all__ = [
     "load_cached", "enabled", "tune", "hotspot_report",
     "resolve_train_knobs", "resolve_serve_knobs", "resolve_fit_knobs",
     "note_db_resolution", "TRAIN_OBJECTIVES", "SERVE_OBJECTIVES",
+    "DECODE_OBJECTIVES", "resolve_decode_knobs",
 ]
 
 TRAIN_OBJECTIVES = ("img_per_sec", "tokens_per_sec")
 SERVE_OBJECTIVES = ("serve_p99", "serve_p50")
+DECODE_OBJECTIVES = ("decode_tokens_per_sec",)
 
 _NOT_PORTED = ("is not ported yet: the tuner (the search, knob spaces, "
                "trial harnesses) and the HLO roofline wait for ROADMAP.md "
@@ -87,16 +89,18 @@ def _note_mismatch(logger, note):
     (logger or logging).info("autotune: %s", note)
 
 
-def _resolve(kind, objectives, symbol, global_batch, device, logger, what):
-    """The first entry of ``kind`` for ``symbol`` at ``global_batch`` on
-    ``device``, trying ``objectives`` in their documented order. Returns
+def _resolve(kind, objectives, signature, global_batch, device, logger,
+             what):
+    """The first entry of ``kind`` whose signature is ``signature()`` at
+    ``global_batch`` on ``device``, trying ``objectives`` in their
+    documented order. Returns
     ``(entry_key, knobs)`` or ``(None, None)`` — a miss, a device mismatch
     (noted) or a stale DB all resolve to None, never an error: resolution
     must not be able to break the run it is configuring."""
     if not enabled():
         return None, None
     try:
-        sig = symbol_signature(symbol)
+        sig = signature()
         tdb = load_cached(logger=logger)
         note = None
         for objective in objectives:
@@ -120,8 +124,9 @@ def resolve_train_knobs(symbol, global_batch, logger=None, device=None):
     ``global_batch`` on ``device`` (default ``cuda:0``): ``(entry_key,
     knobs)`` or ``(None, None)``. With entries for more than one training
     objective, img/s wins (documented order, not key sort order)."""
-    return _resolve("train", TRAIN_OBJECTIVES, symbol, global_batch,
-                    device, logger, "knobs")
+    return _resolve("train", TRAIN_OBJECTIVES,
+                    lambda: symbol_signature(symbol), global_batch, device,
+                    logger, "knobs")
 
 
 def resolve_serve_knobs(symbol, logger=None, device=None):
@@ -129,8 +134,23 @@ def resolve_serve_knobs(symbol, logger=None, device=None):
     ``symbol`` on ``device``; p99 entries win over p50 (the tail is what
     the serving tier's deadlines gate on). Same never-raises contract as
     :func:`resolve_train_knobs`."""
-    return _resolve("serve", SERVE_OBJECTIVES, symbol, 0, device, logger,
+    return _resolve("serve", SERVE_OBJECTIVES,
+                    lambda: symbol_signature(symbol), 0, device, logger,
                     "serving knobs")
+
+
+def resolve_decode_knobs(params, logger=None, device=None):
+    """Tuning-DB knobs for a :class:`~mxnet_tpu_torch.serving.DecodeLoop`
+    over ``params`` (a flat ``name -> array`` dict: the loop has no
+    Symbol, so entries match on :func:`param_signature`) on ``device``.
+    Returns the knobs dict or None, never raises, and logs a hit once (the
+    loop has applied its own arg and env precedence first)."""
+    key, knobs = _resolve("decode", DECODE_OBJECTIVES,
+                          lambda: param_signature(params), 0, device,
+                          logger, "decode knobs")
+    if knobs:
+        note_db_resolution(logger, "DecodeLoop", key, knobs)
+    return knobs
 
 
 def resolve_fit_knobs(module, train_data, steps_per_dispatch,

@@ -5,10 +5,10 @@ callbacks, ``log_train_metric``, ``Speedometer`` and ``ProgressBar``.
 Under ``steps_per_dispatch=k`` a batch-end callback fires once per
 dispatch with ``nbatch`` advanced by K, so the periodic callbacks fire on
 crossing each period boundary. The ``Speedometer`` appends, from the
-``fit`` that calls it, the dispatch pipeline's depth and read-back stall
-and the input tier's data stall since its last line, and a guarded run's
-training-health counters (its dist and retrace suffixes wait for the ports
-of those layers).
+``fit`` that calls it, a sequence model's tokens/sec, the dispatch
+pipeline's depth and read-back stall and the input tier's data stall since
+its last line, and a guarded run's training-health counters (its dist and
+retrace suffixes wait for the ports of those layers).
 """
 from __future__ import annotations
 
@@ -110,6 +110,17 @@ class Speedometer(object):
         return ("\tGuard: skipped=%d rollbacks=%d grad_norm=%s"
                 % (h["skipped"], h["rollbacks"], gn))
 
+    @staticmethod
+    def _tokens_per_sample(param):
+        """Label tokens per sample for the tokens/sec suffix, from the
+        training module in ``fit``'s locals
+        (``Module._speed_tokens_per_sample``: the label's sequence dim).
+        score() streams, foreign callback params and scalar-label models
+        give 1, so the suffix never reaches a vision run's lines."""
+        tps = getattr(_local(param, "self"), "_speed_tokens_per_sample",
+                      None)
+        return max(1, int(tps())) if callable(tps) else 1
+
     def _data_suffix(self, param):
         st = _local(param, "data_stats")
         if st is None:
@@ -131,6 +142,10 @@ class Speedometer(object):
             if count // self.frequent > self._fired // self.frequent:
                 speed = ((count - self._fired) * self.batch_size
                          / (time.time() - self.tic))
+                # a sequence model's line also carries tokens/sec
+                tps = self._tokens_per_sample(param)
+                tok = (" (%.1f tokens/sec)" % (speed * tps)
+                       if tps > 1 else "")
                 suffix = self._pipeline_suffix(param) \
                     + self._data_suffix(param) + self._health_suffix(param)
                 if param.eval_metric is not None:
@@ -139,12 +154,12 @@ class Speedometer(object):
                     for name, value in name_value:
                         logging.info(
                             "Epoch[%d] Batch [%d]\tSpeed: %.2f samples/sec"
-                            "\tTrain-%s=%f%s", param.epoch, count, speed,
-                            name, value, suffix)
+                            "%s\tTrain-%s=%f%s", param.epoch, count, speed,
+                            tok, name, value, suffix)
                 else:
                     logging.info(
-                        "Iter[%d] Batch [%d]\tSpeed: %.2f samples/sec%s",
-                        param.epoch, count, speed, suffix)
+                        "Iter[%d] Batch [%d]\tSpeed: %.2f samples/sec%s%s",
+                        param.epoch, count, speed, tok, suffix)
                 self._fired = count
                 self.tic = time.time()
         else:

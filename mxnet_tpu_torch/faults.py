@@ -6,8 +6,8 @@ invocations and an armed rule fires on exactly the nth call, so every
 recovery path is tested without sleeps, races or flaky timing.
 
 Sites the port instruments (the static registry :data:`SITES`; the JAX
-package's other sites come with the modules that fire them: the kvstore,
-the distributed ring, the decode loop):
+package's other sites come with the modules that fire them: the kvstore
+and the distributed ring):
 
 ===========================  ==============================================
 site                         where it fires
@@ -51,6 +51,16 @@ site                         where it fires
                              rejects the request with
                              ``ServingOverloadedError`` (back-pressure
                              shed at the edge)
+``serve.decode_die``         top of every ``serving.DecodeLoop`` iteration
+                             — ``"die"`` kills the loop
+``serve.sample``             per decode step, before the sampled-token
+                             dispatch
+``serve.spec_verify``        per speculative round, between the draft
+                             chain and the target's verify pass (no draft
+                             token is emitted unverified); at any of the
+                             three decode sites a raising kind kills the
+                             loop thread, which sheds every sequence in
+                             flight and queued with ``ServingClosedError``
 ``fleet.replica_die``        once per collected batch on every
                              fleet-managed replica's batching thread —
                              ``"die"`` (or any raising kind) kills that
@@ -194,6 +204,15 @@ _register("guard.param_nan", ("poison",), ("train",),
           "at checkpoint save — forces the known-good bit off", flag=True)
 _register("serve.enqueue_drop", ("drop",), ("serve",),
           "per serving.Batcher.submit — back-pressure shed at the edge")
+_register("serve.decode_die", ("die",), ("serve",),
+          "top of every serving.DecodeLoop iteration — kills the loop")
+_register("serve.sample", ("raise",), ("serve",),
+          "per decode step before the sampled-token dispatch — a raising "
+          "kind sheds every in-flight sequence (ServingClosedError)")
+_register("serve.spec_verify", ("raise",), ("serve",),
+          "between the draft chain and the batched target verify pass of "
+          "a speculative round — the loop dies mid-round; no draft token "
+          "may have been emitted without verification")
 _register("fleet.replica_die", ("die",), ("serve",),
           "per collected batch on a fleet replica — kills that replica")
 _register("data.worker_die", ("die", "raise"), ("data",),

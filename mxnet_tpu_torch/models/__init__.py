@@ -1,7 +1,6 @@
 """Model zoo of the port (counterpart of ``mxnet_tpu/models``): symbol
 builders for the reference's flagship configurations, and
 :func:`get_symbol`, the factory by name."""
-from ..base import MXNetError
 from . import ssd
 from .lenet import get_symbol as lenet
 from .mlp import get_symbol as mlp
@@ -9,13 +8,7 @@ from .resnet import get_symbol as resnet
 from .alexnet import get_symbol as alexnet
 from .vgg import get_symbol as vgg
 from .inception_bn import get_symbol as inception_bn
-
-
-def transformer(**kwargs):
-    """The LM flagship's symbol: not ported yet (it needs
-    ``MultiHeadAttention``, ``LayerNorm`` and the transformer stack)."""
-    raise MXNetError("models.transformer is not ported yet (ROADMAP A.9, "
-                     "the LM flagship)")
+from .transformer import get_symbol as transformer
 
 
 _FACTORIES = {

@@ -25,6 +25,7 @@ ported yet).
 from __future__ import annotations
 
 import logging
+import math
 
 import torch
 
@@ -88,7 +89,8 @@ class Module(BaseModule):
         self._compute_dtype = compute_dtype
         if mesh_axes is not None or env_str("MXTPU_LM_MESH"):
             raise MXNetError("Module: mesh_axes / MXTPU_LM_MESH (multi-axis "
-                             "mesh training) is not ported yet")
+                             "mesh training) is not ported yet (ROADMAP.md "
+                             "A.7)")
         if param_shardings:
             raise MXNetError("Module: param_shardings is not ported yet")
         if work_load_list is not None:
@@ -525,6 +527,17 @@ class Module(BaseModule):
             lshapes.append(shape)
         _, out_shapes, _ = self._symbol.infer_shape(**shapes)
         return shapes, lshapes, out_shapes
+
+    def _speed_tokens_per_sample(self):
+        """Tokens per sample for throughput reporting: the product of the
+        bound label's non-batch dims (an LM label is (batch, seq)
+        next-token ids, so seq tokens land per sample); 1 for rank-1
+        labels, so ``Speedometer`` appends a tokens/sec figure only to a
+        sequence model's lines."""
+        lshapes = [_name_shape(d)[1] for d in (self._label_shapes or [])]
+        if len(lshapes) == 1 and len(lshapes[0]) > 1:
+            return int(math.prod(lshapes[0][1:]))
+        return 1
 
     def _infer_fused_metrics_ok(self):
         """Whether the default device-sum layout (cross-entropy and top-1

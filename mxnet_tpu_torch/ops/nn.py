@@ -37,45 +37,74 @@ from .registry import OpDef, register, register_def
 #: are held against the JAX package's f32 results, so they run full FP32
 CONV_TF32 = False
 
-# the open conv_precision sections (all threads) and the caller's value of
-# cuDNN's switch, saved by the first of them
-_TF32_LOCK = threading.Lock()
-_tf32_depth = 0
-_tf32_saved = None
+class _HeldSwitch(object):
+    """A process-global backend switch held at one value while any
+    section on a CUDA device is open, and given back to the caller after.
+
+    Entry points run on several threads at once (each serving replica's
+    batching thread calls ``ServingEngine.infer``, a ``DecodeLoop`` runs
+    its own thread). A save, set and restore in each section let one
+    thread's restore turn the switch back while another was mid-forward.
+    So the sections are counted under a lock: the first to open saves the
+    caller's value and sets the held one, the last to close restores the
+    saved value. Setting it once at the first entry point was rejected
+    because the caller's value must come back."""
+
+    def __init__(self, read, write, held):
+        self._read, self._write, self._held = read, write, held
+        self._lock = threading.Lock()
+        self._depth = 0
+        self._saved = None
+
+    @contextlib.contextmanager
+    def hold(self, device):
+        if device.type != "cuda":
+            yield
+            return
+        with self._lock:
+            if self._depth == 0:
+                self._saved = self._read()
+                self._write(self._held())
+            self._depth += 1
+        try:
+            yield
+        finally:
+            with self._lock:
+                self._depth -= 1
+                if self._depth == 0:
+                    self._write(self._saved)
 
 
-@contextlib.contextmanager
+def _set_cudnn_tf32(value):
+    torch.backends.cudnn.allow_tf32 = value
+
+
+def _set_matmul_tf32(value):
+    torch.backends.cuda.matmul.allow_tf32 = value
+
+
+_CONV_SWITCH = _HeldSwitch(lambda: torch.backends.cudnn.allow_tf32,
+                           _set_cudnn_tf32, lambda: CONV_TF32)
+_MATMUL_SWITCH = _HeldSwitch(lambda: torch.backends.cuda.matmul.allow_tf32,
+                             _set_matmul_tf32, lambda: False)
+
+
 def conv_precision(device):
     """Hold cuDNN's TF32 switch at :data:`CONV_TF32` while an entry point
-    runs on ``device``, and give the caller's value back after.
+    runs on ``device``, and give the caller's value back after (see
+    :class:`_HeldSwitch`). While any entry point runs, the switch reads
+    :data:`CONV_TF32`; when none runs, it is the caller's again: a caller
+    that runs its own convolutions in TF32 finds them so after the port's
+    calls."""
+    return _CONV_SWITCH.hold(device)
 
-    The switch is process-global, and entry points run on several threads
-    at once (each serving replica's batching thread calls
-    ``ServingEngine.infer``). A save, set and restore in each section let
-    one thread's restore turn TF32 back on while another was mid-forward.
-    So the sections are counted under a lock: the first to open saves the
-    caller's value and sets :data:`CONV_TF32`, the last to close restores
-    the saved value. While any entry point runs, the switch reads
-    :data:`CONV_TF32`; when none runs, it is the caller's again. Setting
-    it once at the first entry point was rejected because the caller's
-    value must come back: a caller that runs its own convolutions in TF32
-    would otherwise find them in FP32 after the port's first call."""
-    global _tf32_depth, _tf32_saved
-    if device.type != "cuda":
-        yield
-        return
-    with _TF32_LOCK:
-        if _tf32_depth == 0:
-            _tf32_saved = torch.backends.cudnn.allow_tf32
-            torch.backends.cudnn.allow_tf32 = CONV_TF32
-        _tf32_depth += 1
-    try:
-        yield
-    finally:
-        with _TF32_LOCK:
-            _tf32_depth -= 1
-            if _tf32_depth == 0:
-                torch.backends.cudnn.allow_tf32 = _tf32_saved
+
+def matmul_precision(device):
+    """Hold cuBLAS's TF32 switch (``torch.backends.cuda.matmul.allow_tf32``)
+    off while a float32 entry point's products run on ``device`` (the
+    decode loop's), and give the caller's value back after, as
+    :func:`conv_precision` does for cuDNN's."""
+    return _MATMUL_SWITCH.hold(device)
 
 
 # ---------------------------------------------------------------------------

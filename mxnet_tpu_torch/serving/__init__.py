@@ -14,19 +14,24 @@ Three layers over the port's graph runner:
   death re-queue (``MXTPU_FLEET_*``).
 
 Degradation is counted in :class:`ServingHealth` (process-global aggregate
-``serving.SERVING_HEALTH``). The continuous-batching ``DecodeLoop`` and its
-``GenerateFuture`` wait for the transformer model.
+``serving.SERVING_HEALTH``).
+
+:class:`DecodeLoop` serves the transformer LM by continuous batching
+(in-graph sampling, int8/bf16 weights, the prefix cache, speculative
+decoding); ``generate`` returns a :class:`GenerateFuture`.
 """
 from .health import ServingHealth, SERVING_HEALTH
 from .engine import ServingEngine, default_buckets
 from .batcher import (Batcher, ServingError, ServingDeadlineError,
                       ServingOverloadedError, ServingClosedError)
 from .fleet import FleetRouter, FleetRequest, CLASSES as FLEET_CLASSES
+from .decode import DecodeLoop, GenerateFuture
 from .quantize import (QUANT_MODES, check_quality, quality_report,
                        quantize_tree, tree_bytes)
 
 __all__ = [
-    "ServingEngine", "Batcher", "FleetRouter", "FleetRequest",
+    "ServingEngine", "Batcher", "FleetRouter", "DecodeLoop",
+    "GenerateFuture", "FleetRequest",
     "FLEET_CLASSES", "ServingHealth", "SERVING_HEALTH", "default_buckets",
     "ServingError", "ServingDeadlineError", "ServingOverloadedError",
     "ServingClosedError",

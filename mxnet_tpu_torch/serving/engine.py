@@ -87,10 +87,10 @@ def _host_array(v):
     return torch.from_numpy(np.array(data))
 
 
-def _not_ported(what):
+def _not_ported(what, who="ServingEngine"):
     return MXNetError(
-        "ServingEngine.%s walks XLA programs and is not ported yet "
-        "(ROADMAP.md A.12)" % what)
+        "%s.%s walks XLA programs and is not ported yet "
+        "(ROADMAP.md A.12)" % (who, what))
 
 
 class ServingEngine(object):

@@ -1,7 +1,8 @@
 """Repairs for entry points that run on several threads at once (each
 serving replica's batching thread calls ``ServingEngine.infer``).
 
-- ``ops.nn.conv_precision``: cuDNN's TF32 switch is process-global. Two
+- ``ops.nn.conv_precision`` (and ``matmul_precision``, cuBLAS's switch,
+  by the same counted rule): cuDNN's TF32 switch is process-global. Two
   threads run through the section with their interleaving fixed by
   events (A enters, B enters, A leaves while B is still inside): B must
   still see the switch at ``CONV_TF32`` when it runs, and after both the
@@ -92,6 +93,47 @@ def test_conv_precision_nests_and_restores(caller_tf32):
     assert torch.backends.cudnn.allow_tf32 is True
     with tnn.conv_precision(torch.device("cpu")):     # the CPU: untouched
         assert torch.backends.cudnn.allow_tf32 is True
+
+
+def test_matmul_precision_holds_across_threads_and_restores():
+    """``ops.nn.matmul_precision`` (cuBLAS's TF32 switch, held off while a
+    decode loop steps) follows the same counted rule: a thread still
+    inside sees the switch off after another thread left, nested sections
+    keep it off, and the caller's value comes back after the last one;
+    the CPU leaves it alone."""
+    flag = torch.backends.cuda.matmul
+    prev = flag.allow_tf32
+    cudnn = torch.backends.cudnn.allow_tf32
+    flag.allow_tf32 = True
+    a_in, a_out = threading.Event(), threading.Event()
+    seen, errs = {}, []
+
+    def thread_a():
+        try:
+            with tnn.matmul_precision(CUDA):
+                a_in.set()
+                with tnn.matmul_precision(CUDA):     # nested
+                    seen["a"] = flag.allow_tf32
+            a_out.set()
+        except Exception as e:
+            errs.append(e)
+
+    try:
+        with tnn.matmul_precision(CUDA):
+            t = threading.Thread(target=thread_a)
+            t.start()
+            assert a_in.wait(5.0) and a_out.wait(5.0)
+            t.join(5.0)
+            assert not t.is_alive()
+            seen["main"] = flag.allow_tf32         # A has left
+        assert not errs, errs
+        assert seen == {"a": False, "main": False}
+        assert flag.allow_tf32 is True
+        with tnn.matmul_precision(torch.device("cpu")):
+            assert flag.allow_tf32 is True
+        assert torch.backends.cudnn.allow_tf32 == cudnn  # untouched
+    finally:
+        flag.allow_tf32 = prev
 
 
 @pytest.mark.parametrize("mod,route", [(multibox_nms, "smem"),

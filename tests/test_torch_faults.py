@@ -94,7 +94,8 @@ def test_arm_validates_sites_and_delay_sleeps():
     train = ["checkpoint.write", "checkpoint.write.mid", "ckpt.async_die",
              "ckpt.async_write", "ckpt.disk_full", "guard.grad_nan",
              "guard.loss_spike", "guard.param_nan"]
-    serve = ["fleet.replica_die", "serve.enqueue_drop"]
+    serve = ["fleet.replica_die", "serve.decode_die", "serve.enqueue_drop",
+             "serve.sample", "serve.spec_verify"]
     both = ["io.batch_read", "io.h2d", "superbatch.producer"]
     data = ["data.decode_delay", "data.worker_die", "io.record_read"]
     assert sorted(tfaults.sites()) == sorted(train + serve + both + data)

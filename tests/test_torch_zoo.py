@@ -114,8 +114,12 @@ def test_zoo_inference_forward_matches_jax(name, kw, size):
 
 def test_zoo_factory_names_and_transformer():
     assert sorted(mt.models._FACTORIES) == sorted(mx.models._FACTORIES)
-    with pytest.raises(MXNetError, match="A.9"):
-        mt.models.get_symbol("transformer")
+    # the LM builds by name, with the JAX package's JSON
+    with mt.symbol.NameManager():
+        tjs = mt.models.get_symbol("transformer", num_layers=1).tojson()
+    with mx.symbol.NameManager():
+        assert tjs == mx.models.get_symbol("transformer",
+                                           num_layers=1).tojson()
     with pytest.raises(ValueError, match="unknown network"):
         mt.models.get_symbol("lenet5")
     with pytest.raises(ValueError, match="vgg depth"):
