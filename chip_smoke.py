@@ -270,9 +270,40 @@ non-zero):
    3rd step sheds every
    sequence with ServingClosedError; tokens/s, ms a decode step and the
    weight bytes of each leg. (c) No kernel of B1-B3 may launch.
+18. mesh: data parallelism over a 2-replica 'data' mesh whose replicas
+   both lie on cuda:0 (the machine has one card), through TrainStep(mesh=),
+   shard_superbatch and run_steps at K=4. (a) bench.py main()'s ResNet-50
+   (NHWC, global batch 128, MXTPU_FUSE_CONV_BN=1, SGD lr 0.1, momentum
+   0.9, wd 1e-4) in float32 with TF32 off and deterministic cuDNN: B1 on
+   its tf32x3 route 66 times a step (33 pairs on each replica's shard),
+   no op run on the gathered batch, the replicas bit for bit; each of the
+   4 steps run on the mesh from the one-device state before it: the
+   moving statistics within 1e-3 |one device| + 1e-5 of the one-device
+   step's, the parameters' update within 5% of its norm (a step's f32
+   update on random labels is itself some 2% off its float64 value:
+   MESH_F32_UPDATE_RTOL); free-running, the steps amplify each other's
+   differences (printed, not held). B1 held against its plain version, in
+   float32 (tf32x3) and bf16 (wgmma), on every (M, K, N) the pairs give
+   one replica's shard. (b) The same model in bf16 compute: the replicas
+   bit for bit; each step from the one-device state before it: the moving
+   statistics within 0.5% of the norm of their one-device change, the
+   parameters' update within 100% of its norm (MESH_BF16_*: one bf16
+   step's update is mostly rounding here); for 1 and 2 replicas the ms a
+   step between CUDA events around a dispatch, the host ms until the
+   dispatch returned, B1's launches and the cross-replica sums a step. In
+   (a) and (b) a control step with BatchNorm's whole-batch rule taken away
+   (per-replica statistics) must fail the checks. (c) A guarded dispatch
+   with a NaN in the
+   last replica's half of one step: one skip on every replica; the mesh
+   state saved, resumed in a fresh TrainStep, bit for bit over 2 more
+   dispatches. (d) Phase 17's LM (bf16) 4 steps on the mesh against one
+   device (each parameter's difference within 5% of its one-device
+   update's norm), tokens/s for 1 and 2 replicas. Both replicas share
+   the card: no scaling figure.
 
 The line before the last is {"kernels": [...]} (per kernel: launches on
-its main path (phase 16's LSTM path and phase 17's LM path launch none),
+its main path (phase 16's LSTM path and phase 17's LM path launch none;
+B1's include phase 18's mesh dispatches, bf16 and f32),
 max error against the plain version, times and bound; the
 NMS kernel's launches also by path: serving, training, the serving tier
 and training from JPEG records; the matmul_stats kernel's by path: the
@@ -5160,6 +5191,426 @@ def lm_phase(seed, card, profile):
     log("lm: the phase took %.1f s" % (time.perf_counter() - t_phase))
 
 
+# ---------------------------------------------------------------------------
+# mesh phase: data parallelism over a 'data' mesh of replicas on one card
+# ---------------------------------------------------------------------------
+
+#: phase 18: replicas of the 'data' mesh (all on MESH_DEVICE: the machine
+#: has one card), steps a dispatch
+MESH_REPLICAS = 2
+MESH_DEVICE = "cuda:0"
+MESH_K = 4
+#: (a) float32 (TF32 off, deterministic cuDNN), each of MESH_K steps at lr
+#: 0.1 run on the mesh from the one-device state before it: the moving
+#: statistics (forward sums) within rtol |one device| + atol of the
+#: one-device step's; the parameters' update within MESH_F32_UPDATE_RTOL
+#: of its norm. The update is not held elementwise: on random labels one
+#: f32 step of this model is itself some 1.7% (in norm; up to 13% of a
+#: tensor's largest element) off its float64 value, on one device as on
+#: the mesh (``_precision_study(64, 16)`` of tests/test_torch_multichip.py,
+#: on the CPU), so the two f32 updates differ by as much.
+#: Steps in a row amplify that (after 4 free-running steps on the card
+#: the parameters 12% of their norm apart, the mean losses 0.13%)
+MESH_F32_TOL = (1e-3, 1e-5)
+MESH_F32_UPDATE_RTOL = 5e-2
+#: (b) bf16 compute, each step from the one-device state before it: the
+#: moving statistics within MESH_BF16_AUX_RTOL of the norm of their
+#: one-device change (0.001571 on an H100; per-replica statistics
+#: 0.01304), the parameters' update within MESH_BF16_UPDATE_RTOL of the
+#: one-device update's norm (0.7669; per-replica statistics 1.327). On
+#: random labels at initialisation one bf16 step's update is mostly
+#: rounding: the mesh's and one device's differ by 77% in norm and by a
+#: median 75% per tensor, so only a bound this wide holds it
+MESH_BF16_AUX_RTOL = 5e-3
+MESH_BF16_UPDATE_RTOL = 1.0
+#: (d) the LM (phase 17's widths), bf16, MESH_K steps: the mesh's update of
+#: each parameter within this fraction of the one-device update's norm
+MESH_LM_RTOL = 5e-2
+
+
+def _mesh_close(got, want, tol):
+    """(worst |a - b| / (rtol |b| + atol) over the tensors of ``want``, the
+    tensor it is in); infinite for a non-finite value."""
+    import torch
+    rtol, atol = tol
+    worst, where = 0.0, None
+    for n, b in want.items():
+        a, b = got[n].float(), b.float()
+        if not bool(torch.isfinite(a).all() and torch.isfinite(b).all()):
+            return float("inf"), n
+        r = float(((a - b).abs() / (rtol * b.abs() + atol)).max())
+        if r > worst:
+            worst, where = r, n
+    return worst, where
+
+
+def _replicas_identical(ts, state):
+    """Whether every replica's params, aux, optimizer states and step equal
+    replica 0's bit for bit."""
+    import torch
+    reps = ts.replica_states(state)
+
+    def leaves(rep):
+        out = list(rep["params"].values()) + list(rep["aux"].values())
+        for v in rep["opt"].values():
+            out += list(v) if isinstance(v, tuple) else [v]
+        return [t for t in out if t is not None] + [rep["step"]]
+    first = leaves(reps[0])
+    return all(len(first) == len(leaves(r))
+               and all(torch.equal(a, b) for a, b in zip(first, leaves(r)))
+               for r in reps[1:])
+
+
+def _timed_dispatch(ts, state, placed):
+    """One ``run_steps`` dispatch: (device ms by CUDA events, host ms until
+    the call returned, B1 launches, cross-replica sums), each a step."""
+    import torch
+    from mxnet_tpu_torch.ops import matmul_stats as ms
+    from mxnet_tpu_torch.parallel import mesh as pm
+    torch.cuda.synchronize()
+    ms.reset_launches()
+    pm.reset_counters()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    t = time.perf_counter()
+    state, m = ts.run_steps(state, placed)
+    host = (time.perf_counter() - t) * 1e3
+    end.record()
+    torch.cuda.synchronize()
+    return (start.elapsed_time(end) / MESH_K, host / MESH_K,
+            ms.LAUNCHES / MESH_K, pm.COUNTERS["all_reduce"] / MESH_K)
+
+
+def mesh_phase(seed, card):
+    """Phase 18 (see the module docstring). Returns the B1 launches of its
+    main paths: ``{"tf32x3": (a)'s, "wgmma": (b)'s}``."""
+    import pickle
+    import torch
+    import mxnet_tpu_torch as mt
+    from mxnet_tpu_torch import convert, faults
+    from mxnet_tpu_torch.ops import matmul_stats as ms, registry
+    from mxnet_tpu_torch.parallel import mesh as pm
+    from mxnet_tpu_torch.train_step import TrainStep
+    t_phase = time.perf_counter()
+    problems = []
+    dev = torch.device(MESH_DEVICE)
+    n_rep = MESH_REPLICAS
+    mesh = pm.make_mesh({"data": n_rep}, [dev] * n_rep)
+    bsz, img = RESNET_BATCH, RESNET_IMAGE
+    dshape = (bsz, img, img, 3)
+    os.environ["MXTPU_FUSE_CONV_BN"] = "1"
+    with mt.symbol.NameManager():
+        sym = mt.models.resnet(num_classes=RESNET_CLASSES, num_layers=50,
+                               image_shape="3,%d,%d" % (img, img),
+                               layout="NHWC")
+    npairs = sum(fused_shapes(sym, dshape).values())
+    opt = dict(optimizer="sgd", learning_rate=0.1, momentum=0.9, wd=1e-4)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed + 18)
+
+    def superbatch():
+        return {"data": torch.rand((MESH_K,) + dshape, generator=gen,
+                                   device=dev),
+                "softmax_label": torch.randint(
+                    0, RESNET_CLASSES, (MESH_K, bsz), generator=gen,
+                    device=dev).float()}
+
+    def pair(compute_dtype):
+        one = TrainStep(sym, device=dev, compute_dtype=compute_dtype, **opt)
+        two = TrainStep(sym, mesh=mesh, compute_dtype=compute_dtype, **opt)
+        st1 = one.init({"data": dshape}, {"softmax_label": (bsz,)},
+                       seed=seed)
+        return one, two, st1, two.replicate_state(clone_state(st1))
+
+    def stepwise(one, two, st1, sb, steps=MESH_K):
+        """The first ``steps`` steps of ``sb`` on one device, and each on
+        the mesh from a copy of the one-device state before it (the error
+        of one mesh step; steps in a row amplify each other's). Returns
+        st1 after and a dict: ``worst``, ``where``, the worst excess of the
+        moving statistics over MESH_F32_TOL and where; ``aux``, the worst
+        |mesh - one| / |one's change| of the moving statistics; ``upd``,
+        the worst |mesh update - one update| / |one update| over the
+        parameters; ``losses``, the two mean losses a step."""
+        out = dict(worst=0.0, where=None, aux=0.0, upd=0.0, losses=[])
+
+        def dist(got, want, before):
+            return sum(float(torch.sum((got[k].double() - want[k].double())
+                                       ** 2)) for k in before) ** 0.5
+        for i in range(steps):
+            step_sb = {n: v[i:i + 1] for n, v in sb.items()}
+            st2 = two.replicate_state(clone_state(st1))
+            before = {k: {n: v.clone() for n, v in st1[k].items()}
+                      for k in ("params", "aux")}
+            st1, m1 = one.run_steps(st1, step_sb)
+            st2, m2 = two.run_steps(st2, two.shard_superbatch(step_sb))
+            out["losses"].append((m1.loss_avg, m2.loss_avg))
+            w, n = _mesh_close(st2["aux"], st1["aux"], MESH_F32_TOL)
+            if w > out["worst"]:
+                out["worst"], out["where"] = w, "%s step %d" % (n, i)
+            for key, got, want, base in (
+                    ("aux", st2["aux"], st1["aux"], before["aux"]),
+                    ("upd", st2["params"], st1["params"], before["params"])):
+                out[key] = max(out[key], dist(got, want, base) / max(
+                    dist(want, base, base), 1e-300))
+        return st1, out
+
+    def control(dtype, st0, sb):
+        """The control: step 0 of ``sb`` on the mesh with BatchNorm's
+        whole-batch rule taken away (each replica normalises by its own
+        half: MXNet's per-device statistics), against one device from
+        ``st0``. Returns stepwise's measures."""
+        bn = registry.get("BatchNorm")
+        saved, bn.mesh_fn = bn.mesh_fn, None
+        try:
+            one, two = (TrainStep(sym, device=dev, compute_dtype=dtype, **opt),
+                        TrainStep(sym, mesh=mesh, compute_dtype=dtype, **opt))
+            return stepwise(one, two, st0, sb, steps=1)[1]
+        finally:
+            bn.mesh_fn = saved
+
+    def shard_b1(dtype, route):
+        """B1 against its plain version on every (M, K, N) the fused pairs
+        give one replica's shard (M = local batch x H x W): (worst errors,
+        the shapes); raises unless every launch took ``route``."""
+        shapes = sorted(fused_shapes(sym, (bsz // n_rep, img, img, 3)))
+        worst = (0.0, 0.0, 0.0)
+        before = dict(ms.LAUNCHES_BY_ROUTE)
+        for m, k, nn in shapes:
+            x = torch.randn((m, k), generator=gen, device=dev).to(dtype)
+            w = (torch.randn((nn, k), generator=gen, device=dev)
+                 / k ** 0.5).to(dtype)
+            errs = b1_check(ms, x, w)
+            worst = tuple(max(a, b) for a, b in zip(worst, errs))
+            del x, w
+        routes = b1_routes_since(ms, before)
+        if routes[route] != 2 * len(shapes):
+            raise SystemExit("mesh: B1 on the shard shapes took routes %s, "
+                             "want %s" % (routes, route))
+        return worst, shapes
+
+    launches = {}
+    # (a) float32: K steps on 2 replicas against one device
+    with no_tf32(), deterministic_cudnn():
+        one, two, st1, st2 = pair(None)
+        sb = superbatch()
+        placed = two.shard_superbatch(sb)
+        torch.cuda.synchronize()
+        ms.reset_launches()
+        pm.reset_counters()
+        st2, m2 = two.run_steps(st2, placed)
+        torch.cuda.synchronize()
+        routes = dict(ms.LAUNCHES_BY_ROUTE)
+        colls = dict(pm.COUNTERS)
+        launches["tf32x3"] = routes["tf32x3"]
+        want = n_rep * npairs * MESH_K
+        log("mesh (a): resnet-50 NHWC f32, global batch %d on a %d-replica "
+            "'data' mesh (every replica on %s), %d steps: B1 launches by "
+            "route %s (%d pairs x %d replicas x %d steps = %d), collectives "
+            "%s [%s]" % (bsz, n_rep, dev, MESH_K, routes, npairs, n_rep,
+                         MESH_K, want, colls, card))
+        if routes["tf32x3"] != want or sum(routes.values()) != want:
+            problems.append("f32 mesh: B1 launched %s, want %d on tf32x3"
+                            % (routes, want))
+        if colls["all_gather"]:
+            problems.append("f32 mesh: %d ops ran on the gathered batch"
+                            % colls["all_gather"])
+        if not _replicas_identical(two, st2):
+            problems.append("f32 mesh: replicas differ")
+        st0 = clone_state(st1)
+        st1, r = stepwise(one, two, st1, sb)
+        log("mesh (a): each of the %d steps on the mesh from the one-device "
+            "state before it: moving statistics worst |mesh - one| / (%g "
+            "|one| + %g) %.4g (%s), |mesh - one| / |one's change| %.4g; "
+            "parameters |mesh update - one update| / |one update| at most "
+            "%.4g; mean losses (one, mesh) %s"
+            % (MESH_K, MESH_F32_TOL[0], MESH_F32_TOL[1], r["worst"],
+               r["where"], r["aux"], r["upd"], r["losses"]))
+        if r["worst"] > 1.0:
+            problems.append("f32 mesh: %s off the one-device step"
+                            % r["where"])
+        if r["upd"] > MESH_F32_UPDATE_RTOL:
+            problems.append("f32 mesh: a step's update %.3g off one "
+                            "device's" % r["upd"])
+        c = control(None, st0, sb)
+        log("mesh (a) control, per-replica statistics: moving statistics "
+            "worst %.4g of the tolerance (%s), %.4g of their change; "
+            "parameters' update %.4g off one device's (the checks above "
+            "must refuse it)" % (c["worst"], c["where"], c["aux"], c["upd"]))
+        if c["worst"] <= 1.0 and c["upd"] <= MESH_F32_UPDATE_RTOL:
+            problems.append("f32 mesh: the checks pass per-replica "
+                            "statistics")
+        losses = r["losses"]
+        del st0
+        run = float(torch.sqrt(sum(torch.sum((st2["params"][n]
+                                              - st1["params"][n]) ** 2)
+                                   for n in st1["params"])))
+        ref = float(torch.sqrt(sum(torch.sum(v ** 2)
+                                   for v in st1["params"].values())))
+        log("mesh (a): the %d-step dispatch, free-running: mean loss one "
+            "device %.6f, mesh %.6f; |mesh - one| over the parameters %.4g "
+            "of their norm (lr 0.1 on random labels amplifies each step's "
+            "last-bit differences)" % (MESH_K, np.mean(
+                [a for a, _ in losses]), m2.loss_avg, run / ref))
+        del one, two, st1, st2, sb, placed
+        torch.cuda.empty_cache()
+        # B1 on every shard shape of the mesh path against its plain version
+        for dtype, route in ((torch.float32, "tf32x3"),
+                             (torch.bfloat16, "wgmma")):
+            (b1_err, e1, e2), shapes = shard_b1(dtype, route)
+            log("mesh (a): B1 %s on the %d (M, K, N) of one replica's shard "
+                "%s, route %s, against its plain version: max |y - y_plain| "
+                "%.3g, statistics %.3g, %.3g of their scales"
+                % (str(dtype).replace("torch.", ""), len(shapes), shapes,
+                   route, b1_err, e1, e2))
+
+    # (b) bf16 compute: replicas, each step against one device, costs
+    one, two, st1, st2 = pair("bfloat16")
+    sb = superbatch()
+    st2, _ = two.run_steps(st2, two.shard_superbatch(sb))
+    if not _replicas_identical(two, st2):
+        problems.append("bf16 mesh: replicas differ")
+    st0 = clone_state(st1)
+    st1, r = stepwise(one, two, st1, sb)
+    log("mesh (b): resnet-50 NHWC bf16, each of %d steps on the mesh from "
+        "the one-device state before it: moving statistics |mesh - one| / "
+        "|one's change| at most %.4g (bound %g); parameters |mesh update - "
+        "one update| / |one update| at most %.4g (bound %g); mean losses "
+        "(one, mesh) %s" % (MESH_K, r["aux"], MESH_BF16_AUX_RTOL, r["upd"],
+                            MESH_BF16_UPDATE_RTOL, r["losses"]))
+    if r["aux"] > MESH_BF16_AUX_RTOL:
+        problems.append("bf16 mesh: moving statistics %.3g off one "
+                        "device's" % r["aux"])
+    if r["upd"] > MESH_BF16_UPDATE_RTOL:
+        problems.append("bf16 mesh: a step's update %.3g off one device's"
+                        % r["upd"])
+    c = control("bfloat16", st0, sb)
+    log("mesh (b) control, per-replica statistics: moving statistics %.4g "
+        "of their change; parameters' update %.4g off one device's (the "
+        "checks above must refuse it)" % (c["aux"], c["upd"]))
+    if c["aux"] <= MESH_BF16_AUX_RTOL and c["upd"] <= MESH_BF16_UPDATE_RTOL:
+        problems.append("bf16 mesh: the checks pass per-replica statistics")
+    del st0
+    sb = superbatch()
+    # the mesh walk on a one-replica mesh beside the plain step: what the
+    # runner's MeshArray path costs the single-device step
+    ts1 = TrainStep(sym, mesh=pm.make_mesh({"data": 1}, [dev]),
+                    compute_dtype="bfloat16", **opt)
+    costs = {"1": _timed_dispatch(one, st1, sb),
+             "1 (one-replica mesh)": _timed_dispatch(
+                 ts1, ts1.replicate_state(clone_state(st1)),
+                 ts1.shard_superbatch(sb)),
+             str(n_rep): _timed_dispatch(two, st2, two.shard_superbatch(sb))}
+    del ts1
+    launches["wgmma"] = int(costs[str(n_rep)][2] * MESH_K)
+    for n, (dms, hms, b1n, red) in costs.items():
+        log("mesh (b): %s replica(s): %.3f ms a step between CUDA events "
+            "around a %d-step dispatch, %.3f ms of host time until the "
+            "dispatch returned, %g B1 launches and %g cross-replica sums a "
+            "step [%s]" % (n, dms, MESH_K, hms, b1n, red, card))
+    if costs[str(n_rep)][2] != n_rep * npairs:
+        problems.append("bf16 mesh: %g B1 launches a step, want %d"
+                        % (costs[str(n_rep)][2], n_rep * npairs))
+
+    # (c) the guard's one decision, and resume, on the mesh
+    sb = superbatch()
+    # a NaN in the last replica's half of step 1: every replica skips it
+    sb["data"][1, bsz - 1, 0, 0, 0] = float("nan")
+    steps_before = [int(r["step"]) for r in two.replica_states(st2)]
+    faults.clear()
+    st2, mg = two.run_steps(st2, two.shard_superbatch(sb), guard=True)
+    steps_after = [int(r["step"]) for r in two.replica_states(st2)]
+    finite = all(bool(torch.isfinite(v).all())
+                 for v in st2["params"].values())
+    log("mesh (c): guarded dispatch with a NaN in the last replica's half of "
+        "step "
+        "1: skipped %d, step counters %s -> %s, parameters finite %s, "
+        "replicas identical %s" % (mg.skipped, steps_before, steps_after,
+                                   finite, _replicas_identical(two, st2)))
+    if not (mg.skipped == 1 and finite
+            and steps_after == [s + MESH_K - 1 for s in steps_before]
+            and _replicas_identical(two, st2)):
+        problems.append("mesh guard: not one decision for every replica")
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "mesh_state.pkl")
+        with open(path, "wb") as f:
+            pickle.dump(convert.to_reference_state(st2), f)
+        sba, sbb = superbatch(), superbatch()
+        for b in (sba, sbb):
+            st2, _ = two.run_steps(st2, two.shard_superbatch(b))
+        fresh = TrainStep(sym, mesh=mesh, compute_dtype="bfloat16", **opt)
+        with open(path, "rb") as f:
+            st3 = fresh.replicate_state(convert.from_reference_state(
+                pickle.load(f), dev))
+        for b in (sba, sbb):
+            st3, _ = fresh.run_steps(st3, fresh.shard_superbatch(b))
+        same = all(torch.equal(a, b)
+                   for r2, r3 in zip(two.replica_states(st2),
+                                     fresh.replica_states(st3))
+                   for key in ("params", "aux")
+                   for a, b in zip(r2[key].values(), r3[key].values()))
+        log("mesh (c): a checkpoint of the mesh state, resumed in a fresh "
+            "TrainStep over 2 more dispatches: bit for bit %s" % same)
+        if not same:
+            problems.append("mesh resume: not bit for bit")
+    del one, two, st1, st2, st3, fresh
+    torch.cuda.empty_cache()
+
+    # (d) the LM of phase 17 on the mesh against one device
+    lsym = lm_symbol()
+    host = lm_params(seed)
+    x, y = lm_tokens(seed, MESH_K * LM_BATCH)
+    lsb = {"data": torch.from_numpy(x.reshape(MESH_K, LM_BATCH, LM_SEQ)),
+           "softmax_label": torch.from_numpy(
+               y.reshape(MESH_K, LM_BATCH, LM_SEQ))}
+    lopt = dict(optimizer="sgd", learning_rate=LM_OPT["learning_rate"],
+                momentum=LM_OPT["momentum"], wd=LM_OPT["wd"],
+                rescale_grad=LM_OPT["rescale_grad"], compute_dtype=LM_DTYPE)
+    res, tok_s = {}, {}
+    for n, kw in ((1, dict(device=dev)), (n_rep, dict(mesh=mesh))):
+        ts = TrainStep(lsym, **kw, **lopt)
+        st = ts.init({"data": (LM_BATCH, LM_SEQ)},
+                     {"softmax_label": (LM_BATCH, LM_SEQ)})
+        for k, v in host.items():
+            st["params"][k].copy_(torch.from_numpy(v))
+        st = ts.replicate_state(st)
+        feed = {k: v.to(dev) for k, v in lsb.items()}
+        feed = ts.shard_superbatch(feed) if n > 1 else feed
+        pm.reset_counters()
+        st, _ = ts.run_steps(st, feed)
+        torch.cuda.synchronize()
+        gathers = pm.COUNTERS["all_gather"]
+        res[n] = st
+        dms = _timed_dispatch(ts, clone_state(st) if n == 1 else
+                              ts.replicate_state(clone_state(st)), feed)[0]
+        tok_s[n] = LM_BATCH * LM_SEQ / (dms / 1e3)
+        if gathers:
+            problems.append("lm mesh: %d ops ran on the gathered batch"
+                            % gathers)
+    worst = 0.0
+    for k, v in host.items():
+        w0 = torch.from_numpy(v).to(dev)
+        upd = float(torch.linalg.norm(res[1]["params"][k] - w0))
+        diff = float(torch.linalg.norm(res[n_rep]["params"][k]
+                                       - res[1]["params"][k]))
+        worst = max(worst, diff / max(upd, 1e-30))
+    log("mesh (d): LM (embed %d, %d layers, seq %d, batch %d, bf16) %d "
+        "steps: worst |mesh - one| / |one's update| over the parameters "
+        "%.4g; %.0f tokens/s on one device, %.0f on %d replicas (CUDA "
+        "events around a %d-step dispatch) [%s]"
+        % (LM_EMBED, LM_LAYERS, LM_SEQ, LM_BATCH, MESH_K, worst, tok_s[1],
+           tok_s[n_rep], n_rep, MESH_K, card))
+    if worst > MESH_LM_RTOL:
+        problems.append("lm mesh: %.3g of the update off one device"
+                        % worst)
+    log("mesh: both replicas share %s, so these are the card's own costs "
+        "of the replicated step, not a scaling figure; the phase took %.1f s"
+        % (dev, time.perf_counter() - t_phase))
+    if problems:
+        raise SystemExit("mesh phase failed: " + "; ".join(problems))
+    return launches
+
+
 def _nodes(sym):
     from mxnet_tpu_torch.symbol import _topo
     return _topo(sym._out_nodes())
@@ -5226,10 +5677,16 @@ def main():
     data = data_phase(args.seed, card)
     rnn_phase(args.seed, card)
     lm_phase(args.seed, card, lm_prof)
-    # B1 runs on two main paths: the train phase and the training API
-    b1.update(launches=b1["launches"] + api_launches,
+    mesh_launches = mesh_phase(args.seed, card)
+    # B1 runs on three main paths: the train phase, the training API and
+    # the bf16 mesh; its float32 route on the module phase and the f32 mesh
+    b1.update(launches=b1["launches"] + api_launches + mesh_launches["wgmma"],
               launches_train=b1["launches"],
-              launches_training_api=api_launches)
+              launches_training_api=api_launches,
+              launches_mesh=mesh_launches["wgmma"])
+    b1_f32.update(launches=b1_f32["launches"] + mesh_launches["tf32x3"],
+                  launches_module=b1_f32["launches"],
+                  launches_mesh=mesh_launches["tf32x3"])
     # B2 runs on four main paths: serving (phase 5), training (phase 12),
     # the serving tier (phase 13) and training from JPEG records (phase 15)
     nms.update(launches=(serve_launches + ssd_train["launches"]

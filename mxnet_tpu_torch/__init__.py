@@ -52,7 +52,9 @@ from .symbol import Symbol, Variable, Group
 from .ndarray import NDArray
 from . import autograd
 from . import executor
+from . import parallel
 from .executor import Executor
+from . import executor_manager
 from . import random
 from . import initializer
 from . import lr_scheduler

@@ -111,6 +111,15 @@ class Speedometer(object):
                 % (h["skipped"], h["rollbacks"], gn))
 
     @staticmethod
+    def _speed_scale(param):
+        """The global-throughput factor of the training module in ``fit``'s
+        locals (``Module._global_batch_scale``: 1 in one process, where the
+        iterator yields the whole batch over every replica); score()
+        streams and foreign callback params scale by 1."""
+        scale = getattr(_local(param, "self"), "_global_batch_scale", None)
+        return float(scale()) if callable(scale) else 1.0
+
+    @staticmethod
     def _tokens_per_sample(param):
         """Label tokens per sample for the tokens/sec suffix, from the
         training module in ``fit``'s locals
@@ -141,6 +150,7 @@ class Speedometer(object):
             # the true batch delta since the last fire
             if count // self.frequent > self._fired // self.frequent:
                 speed = ((count - self._fired) * self.batch_size
+                         * self._speed_scale(param)
                          / (time.time() - self.tic))
                 # a sequence model's line also carries tokens/sec
                 tps = self._tokens_per_sample(param)

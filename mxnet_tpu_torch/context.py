@@ -6,6 +6,7 @@ the reference's way (``cpu(0)``, ``gpu(1)``) and resolves to a
 """
 from __future__ import annotations
 
+import os
 import threading
 
 import torch
@@ -83,6 +84,17 @@ def gpu(device_id=0):
 
 def cpu_pinned(device_id=0):
     return Context("cpu_pinned", device_id)
+
+
+def num_devices(device_type=None):
+    """Number of devices of ``device_type`` visible: CUDA cards for
+    ``"gpu"``; for ``"cpu"`` one per host core (CPU replicas share the host
+    device). By default the cards, or the CPU's count without CUDA."""
+    if device_type is None:
+        device_type = "gpu" if torch.cuda.is_available() else "cpu"
+    if device_type == "gpu":
+        return torch.cuda.device_count() if torch.cuda.is_available() else 0
+    return os.cpu_count() or 1
 
 
 def current_context():

@@ -18,8 +18,8 @@ control surface ``Module.fit`` reads:
 ``*_configured`` tell an explicit setting from the default, for the log
 line that names where each of ``fit``'s knobs came from. The HLO analyzer
 modes of the JAX package's engine are not ported. ``dp_devices`` reads
-``MXTPU_DP_DEVICES``; more than one device raises (multi-GPU data
-parallelism is not ported yet).
+``MXTPU_DP_DEVICES``, the replica count of a ``Module`` built without a
+context.
 """
 from __future__ import annotations
 
@@ -114,13 +114,17 @@ def set_dispatch_pipeline(depth):
 
 
 def dp_devices():
-    """``MXTPU_DP_DEVICES`` (0 when unset). More than one device raises:
-    data parallelism over several cards is not ported yet."""
-    n = max(0, env_int("MXTPU_DP_DEVICES", 0))
-    if n > 1:
-        raise MXNetError("MXTPU_DP_DEVICES=%d: data parallelism over more "
-                         "than one device is not ported yet" % n)
-    return n
+    """``MXTPU_DP_DEVICES=N`` (0 when unset): a ``Module`` built without a
+    ``context=`` spreads over the first N devices of the current context's
+    type, the environment's spelling of ``context=[gpu(i) for i in
+    range(N)]``."""
+    v = os.environ.get("MXTPU_DP_DEVICES")
+    if v is None or v.strip() == "":
+        return 0
+    try:
+        return max(0, int(v))
+    except ValueError:
+        raise MXNetError("MXTPU_DP_DEVICES must be an integer, got %r" % v)
 
 
 def wait_all():

@@ -5,9 +5,11 @@ Counterpart of ``mxnet_tpu/executor.py`` (ref: src/executor/
 graph_executor.cc, python/mxnet/executor.py). The JAX package traces the
 walk into one XLA program and differentiates it with ``jax.vjp``; here
 each op runs eagerly on the tensors' device and torch's autograd records
-the training forward. Placement (``ctx_group``/``group2ctx``), the
-sharding hook and ``shared_exec`` across devices are not ported; the
-arguments that select them raise.
+the training forward. Over a 'data' mesh of replicas (``mesh=``) one walk
+runs every replica's shard of the batch in lock step. Placement
+(``ctx_group``/``group2ctx``), the sharding hook and ``shared_exec``
+across devices are not ported (ROADMAP.md A.7b); the arguments that
+select them raise.
 
 The Conv1x1->BatchNorm fusion pass is the JAX package's, under the same
 knob: ``MXTPU_FUSE_CONV_BN`` ``"0"`` (the default) leaves the graph as it
@@ -100,8 +102,87 @@ def remat_segments(nodes):
     return segs
 
 
+#: ops whose axis attribute ``(name, default)`` picks the dimension they
+#: work along: over a 'data' mesh, one that works along the batch axis
+#: runs on the whole batch
+_AXIS_ATTRS = {"Concat": ("dim", 1), "SliceChannel": ("axis", 1),
+               "slice_axis": ("axis", None), "flip": ("axis", None),
+               "sort": ("axis", -1), "argsort": ("axis", -1),
+               "topk": ("axis", -1), "take": ("axis", 0)}
+
+#: ops that split a batch only where it is their outermost dimension
+_RESHAPES = ("Reshape", "Flatten")
+
+
+def _split_axis(gshape, lshape, n):
+    """The axis along which ``lshape`` is one of ``n`` equal shards of
+    ``gshape``, or None."""
+    if len(gshape) != len(lshape):
+        return None
+    diff = [i for i, (g, l) in enumerate(zip(gshape, lshape)) if g != l]
+    if len(diff) == 1 and gshape[diff[0]] == n * lshape[diff[0]]:
+        return diff[0]
+    return None
+
+
+def mesh_plan(node, ins, n):
+    """How node ``node`` runs over a 'data' mesh of ``n`` replicas, given
+    its inputs (:class:`~mxnet_tpu_torch.parallel.mesh.MeshArray`):
+    ``("replica", axes)`` runs the op on each replica's own parts, its
+    outputs split along ``axes`` (None: replicated, for an op without a
+    split input); ``("whole", axes)`` runs it on the whole batch, gathered
+    on every replica, and keeps each output's shard where it splits along
+    an axis (else the whole output on every replica). An op runs per
+    replica only where its result is its shards' results side by side: its
+    axis attribute misses the batch axis, a reshape splits the batch only
+    as its outermost dimension, it draws no random numbers, and the
+    output shapes it infers for the whole batch and for one shard differ
+    by a factor ``n`` in one axis. An op whose attributes fix the whole
+    batch's shape (a Reshape to a literal batch size) has no shapes at one
+    shard's: it runs on the whole batch. Shape inference that fails at the
+    whole batch's shapes raises, naming the node."""
+    split = [v for v in ins if v.axis is not None]
+    if not split:
+        return "replica", None
+    op, attrs = node.op, node.attrs
+    ax = split[0].axis
+    gin = [v.shape for v in ins]
+    lin = [tuple(v.parts[0].shape) for v in ins]
+    try:
+        _, gout, _ = op.infer_shape(attrs, gin)
+    except MXNetError as e:
+        raise MXNetError("mesh: node %r (op %s) infers no shapes at the "
+                         "whole batch's %s: %s" % (node.name, op.name, gin, e))
+    try:
+        _, lout, _ = op.infer_shape(attrs, lin)
+    except MXNetError:
+        return "whole", [None] * len(gout)
+    axes = [_split_axis(g, l, n) for g, l in zip(gout, lout)]
+    whole = op.needs_rng or op.name == "tile"
+    if op.name in _AXIS_ATTRS:
+        attr, default = _AXIS_ATTRS[op.name]
+        a = attrs.get(attr, default)
+        first = ins[0]
+        if a is None or str(a) == "None":
+            whole = True
+        elif first.axis is not None and int(a) % first.ndim == first.axis:
+            whole = True
+    if op.name in _RESHAPES and int(np.prod(gin[0][:ax])) > 1:
+        whole = True
+    if whole or any(a is None for a in axes):
+        return "whole", axes
+    return "replica", axes
+
+
+def _first_device(arg_vals):
+    if not arg_vals:
+        return None
+    v = next(iter(arg_vals.values()))
+    return v.parts[0].device if hasattr(v, "parts") else v.device
+
+
 def _build_graph_runner(symbol, placement=None, node_constraint=None,
-                        remat=False):
+                        remat=False, mesh=None):
     """Lower the symbol DAG to ``run(arg_vals, aux_vals, rng=None,
     is_train=False, monitor=None) -> (outputs, aux_updates)``. Nodes run in
     topological order over an environment keyed by (node, output index);
@@ -122,22 +203,111 @@ def _build_graph_runner(symbol, placement=None, node_constraint=None,
     its convolution, runs again in the backward. The recompute draws the
     same random numbers (a node's generator is made from the key and its
     index) and returns aux updates that are dropped, so the moving
-    statistics move once a step."""
+    statistics move once a step.
+
+    ``mesh`` (a :class:`~mxnet_tpu_torch.parallel.mesh.Mesh` with a 'data'
+    axis) runs every replica of the batch in one walk: the values are
+    :class:`~mxnet_tpu_torch.parallel.mesh.MeshArray`s (the arguments and
+    aux states too), and each node runs for every replica before the next
+    node starts, so an op that needs the whole batch (``OpDef.mesh_fn``:
+    BatchNorm's statistics, Dropout's mask, the losses' normalisation)
+    sees every replica's shard. The other ops follow :func:`mesh_plan`.
+    The fused Conv1x1 runs its kernel on each replica's shard, and its
+    statistics reach BatchNorm's ``mesh_fn`` per replica."""
     if placement is not None:
         raise MXNetError("_build_graph_runner: placement (ctx_group model "
-                         "parallelism) is not ported yet")
+                         "parallelism) is not ported yet (ROADMAP.md A.7b)")
     if node_constraint is not None:
         raise MXNetError("_build_graph_runner: node_constraint (the "
-                         "sharding hook) is not ported yet")
+                         "sharding hook) is not ported yet (ROADMAP.md A.7b)")
     if remat not in REMAT_MODES:
         raise MXNetError("remat must be one of %s, got %r"
                          % (REMAT_MODES, remat))
     nodes = _topo(symbol._out_nodes())
     fused_convs, bn_stats_src = ({}, {}) if fuse_mode() == "0" \
         else fusion_pairs(nodes)
+    if mesh is not None:
+        from .parallel import mesh as _mesh
+        _mesh.check_data_only(mesh, "graph runner")
+        replica_devs = mesh.replica_devices()
+        plans = {}
+
+    def apply_mesh(k, env, stats_env, aux_updates, aux_vals, rng, is_train,
+                   use_fusion, monitor):
+        node = nodes[k]
+        MeshArray = _mesh.MeshArray
+        ins = [env[(id(n), i)] for n, i in node.inputs]
+        aux_names = node.op.list_aux(node.attrs)
+        aux_in = [aux_vals["%s_%s" % (node.name, a)] for a in aux_names]
+        n = len(replica_devs)
+        if use_fusion and id(node) in fused_convs:
+            x, w = ins[0], ins[1]
+            res = [_ms.apply_conv1x1_stats(x.parts[r], w.parts[r])
+                   for r in range(n)]
+            stats_env[id(node)] = [st for _, st in res]
+            outs, aux_up = [MeshArray(mesh, [y for y, _ in res], x.axis)], None
+        else:
+            def gen(r):
+                if not node.op.needs_rng or rng is None:
+                    return None
+                return node_generator(rng, k, replica_devs[r])
+            result = None
+            if node.op.mesh_fn is not None:
+                fused = (stats_env.get(bn_stats_src.get(id(node)))
+                         if use_fusion else None)
+                op_ctx = OpContext(is_train=is_train, rng=gen(0),
+                                   fused_stats=fused, device=replica_devs[0])
+                result = node.op.mesh_fn(op_ctx, node.attrs, ins, aux_in,
+                                         replica_devs)
+            if result is not None:
+                outs, aux_up = result
+            else:
+                key = (k, is_train, tuple((tuple(v.parts[0].shape), v.axis)
+                                          for v in ins))
+                if key not in plans:
+                    plans[key] = mesh_plan(node, ins, n)
+                mode, axes = plans[key]
+                if mode == "whole":
+                    cols = [v.parts if v.axis is None else
+                            _mesh.all_gather(v.parts, v.axis, replica_devs)
+                            for v in ins]
+                else:
+                    cols = [v.parts for v in ins]
+                per, aux_per = [], []
+                for r in range(n):
+                    op_ctx = OpContext(is_train=is_train, rng=gen(r),
+                                       device=replica_devs[r])
+                    o, a = node.op.apply(op_ctx, node.attrs,
+                                         [c[r] for c in cols],
+                                         [v.parts[r] for v in aux_in])
+                    per.append(o)
+                    aux_per.append(a)
+                outs = []
+                for j in range(len(per[0])):
+                    parts = [o[j] for o in per]
+                    ax = None if axes is None else axes[j]
+                    if mode == "whole" and ax is not None:
+                        step = parts[0].shape[ax] // n
+                        parts = [t.narrow(ax, r * step, step)
+                                 for r, t in enumerate(parts)]
+                    outs.append(MeshArray(mesh, parts, ax))
+                aux_up = (None if aux_per[0] is None else
+                          [MeshArray(mesh, [a[j] for a in aux_per], None)
+                           for j in range(len(aux_per[0]))])
+        for i, o in enumerate(outs):
+            env[(id(node), i)] = o
+        if monitor is not None:
+            for oname, o in zip(node.output_names(), outs):
+                monitor(oname, o.gather())
+        if aux_up is not None:
+            for a, u in zip(aux_names, aux_up):
+                aux_updates["%s_%s" % (node.name, a)] = u
 
     def apply(k, env, stats_env, aux_updates, aux_vals, rng, is_train,
               use_fusion, device, monitor):
+        if mesh is not None:
+            return apply_mesh(k, env, stats_env, aux_updates, aux_vals, rng,
+                              is_train, use_fusion, monitor)
         node = nodes[k]
         ins = [env[(id(n), i)] for n, i in node.inputs]
         aux_names = node.op.list_aux(node.attrs)
@@ -175,7 +345,7 @@ def _build_graph_runner(symbol, placement=None, node_constraint=None,
 
     def run(arg_vals, aux_vals, rng=None, is_train=False, monitor=None):
         use_fusion = bool(fused_convs) and is_train
-        device = next(iter(arg_vals.values())).device if arg_vals else None
+        device = _first_device(arg_vals)
         env = bind_variables(arg_vals)
         stats_env = {}
         aux_updates = {}
@@ -221,7 +391,7 @@ def _build_graph_runner(symbol, placement=None, node_constraint=None,
     def run_segments(arg_vals, aux_vals, rng=None, is_train=False,
                      monitor=None):
         use_fusion = bool(fused_convs) and is_train
-        device = next(iter(arg_vals.values())).device if arg_vals else None
+        device = _first_device(arg_vals)
         env = bind_variables(arg_vals)
         stats_env = {}
         aux_updates = {}
@@ -248,6 +418,47 @@ def _build_graph_runner(symbol, placement=None, node_constraint=None,
     return run_segments, nodes
 
 
+def head_pairs(outs, cots=None):
+    """The (tensor, cotangent) pairs of the graph outputs ``outs`` that
+    carry a gradient (``cots``: one whole tensor per output, None for
+    ones). An output is a tensor, or a MeshArray over a mesh: each shard of
+    a split output with its slice of the cotangent, and of a replicated
+    output replica 0's copy only, as it is one value (each replica's copy
+    would add it once more)."""
+    pairs = []
+    for j, o in enumerate(outs):
+        if isinstance(o, torch.Tensor):
+            parts, axis = [o], None
+        else:
+            parts = o.parts if o.axis is not None else o.parts[:1]
+            axis = o.axis
+        for r, t in enumerate(parts):
+            if not t.requires_grad:
+                continue
+            if cots is None:
+                c = torch.ones_like(t)
+            elif axis is None:
+                c = cots[j].to(t.device)
+            else:
+                step = t.shape[axis]
+                c = cots[j].narrow(axis, r * step, step).to(t.device)
+            pairs.append((t, c))
+    return pairs
+
+
+def merge_replica_grads(parts, is_batch, device, shape):
+    """One argument's gradient from its replicas' on ``device``: a batch
+    input's shards side by side, a replicated argument's sum over the
+    replicas (summed in replica order)."""
+    from .parallel import mesh as _mesh
+    n = len(parts)
+    ax = _split_axis(tuple(shape), tuple(parts[0].shape), n) \
+        if is_batch else None
+    if ax is not None:
+        return torch.cat([p.to(device) for p in parts], ax)
+    return _mesh.all_reduce(parts, [device])[0]
+
+
 class Executor(object):
     """A symbol bound to arrays on one device (ref:
     python/mxnet/executor.py).
@@ -268,10 +479,12 @@ class Executor(object):
     """
 
     def __init__(self, symbol, ctx, args, args_grad=None, grad_req="write",
-                 aux_states=None, group2ctx=None, shared_exec=None):
+                 aux_states=None, group2ctx=None, shared_exec=None,
+                 mesh=None, batch_names=(), batch_axes=None):
         if group2ctx:
             raise MXNetError("Executor: group2ctx (ctx_group model "
-                             "parallelism) is not ported yet")
+                             "parallelism) is not ported yet (ROADMAP.md "
+                             "A.7b)")
         self._symbol = symbol
         self._ctx = ctx if isinstance(ctx, Context) else Context(ctx)
         self._device = resolve_device(self._ctx, "Executor")
@@ -314,7 +527,16 @@ class Executor(object):
                 raise MXNetError("grad_req %r for %s but no grad array bound"
                                  % (self._grad_req[n], n))
 
-        self._run, self._nodes = _build_graph_runner(symbol)
+        # over a 'data' mesh (an executor group of several contexts): the
+        # bound arrays hold the whole batch and one copy of the parameters;
+        # each forward splits ``batch_names`` across the replicas along
+        # their batch axes (``batch_axes``: name -> the 'N' of its layout,
+        # parallel.mesh.batch_axes), copies the rest to every replica, and
+        # merges the outputs and gradients
+        self._mesh = mesh
+        self._batch_names = list(batch_names)
+        self._batch_axes = dict(batch_axes or {})
+        self._run, self._nodes = _build_graph_runner(symbol, mesh=mesh)
         self._diff_args = [n for n in self.arg_names
                            if self._grad_req.get(n, "null") != "null"]
         # one entry per gradient buffer: the arguments writing into it
@@ -359,16 +581,53 @@ class Executor(object):
             return None
         return lambda name, t: cb(name, NDArray(t.detach()))
 
+    def _to_mesh(self, arg_vals, aux_vals):
+        """The bound values as MeshArrays: the batch inputs split along
+        their batch axis, the rest replicated."""
+        from .parallel import mesh as _mesh
+        m = self._mesh
+        _, axes = _mesh.batch_axes(
+            {n: tuple(arg_vals[n].shape) for n in self._batch_names},
+            self._batch_axes)
+        out = {}
+        for n, t in arg_vals.items():
+            ax = axes.get(n)
+            out[n] = (_mesh.split(t, m, ax) if ax is not None
+                      else _mesh.replicate(t, m))
+        return out, {n: _mesh.replicate(t, m) for n, t in aux_vals.items()}
+
+    def _run_graph(self, vals, aux_vals, key, is_train):
+        outs, aux_up = self._run(vals, aux_vals, key, is_train,
+                                 self._monitor())
+        if self._mesh is None:
+            return outs, aux_up
+        # merged: the outputs in batch order and replica 0's aux updates
+        # (every replica's are the same)
+        return ([o.gather(self._device) for o in outs],
+                {n: u.parts[0] for n, u in aux_up.items()})
+
     def _forward_graph(self, arg_vals, aux_vals, key):
         """The training forward with the differentiated arguments as
-        leaves: ``(outputs, aux updates, leaves)``."""
-        leaves = {n: arg_vals[n].detach().requires_grad_()
-                  for n in self._diff_args}
+        leaves: ``(outputs, aux updates, leaves)``; over a mesh the outputs
+        are MeshArrays and each leaf a list, one tensor per replica."""
         vals = dict(arg_vals)
-        vals.update(leaves)
+        if self._mesh is None:
+            leaves = {n: arg_vals[n].detach().requires_grad_()
+                      for n in self._diff_args}
+            vals.update(leaves)
+        else:
+            from .parallel.mesh import MeshArray
+            vals, aux_vals = self._to_mesh(vals, aux_vals)
+            leaves = {}
+            for n in self._diff_args:
+                v = vals[n]
+                leaves[n] = [p.detach().requires_grad_() for p in v.parts]
+                vals[n] = MeshArray(self._mesh, leaves[n], v.axis)
         with torch.enable_grad(), conv_precision(self._device):
             outs, aux_up = self._run(vals, aux_vals, key, True,
                                      self._monitor())
+        if self._mesh is not None:
+            aux_up = {n: u.parts[0] for n, u in aux_up.items()}
         return outs, aux_up, leaves
 
     def forward(self, is_train=False, **kwargs):
@@ -400,10 +659,14 @@ class Executor(object):
             outs, aux_up, leaves = self._forward_graph(arg_vals, aux_vals,
                                                        key)
             self._graph = (outs, leaves)
+            if self._mesh is not None:
+                outs = [o.gather(self._device) for o in outs]
         else:
             with torch.no_grad(), conv_precision(self._device):
-                outs, aux_up = self._run(arg_vals, aux_vals, key,
-                                         bool(is_train), self._monitor())
+                vals, avals = ((arg_vals, aux_vals) if self._mesh is None
+                               else self._to_mesh(arg_vals, aux_vals))
+                outs, aux_up = self._run_graph(vals, avals, key,
+                                               bool(is_train))
         self.outputs = [NDArray(o.detach()) for o in outs]
         if is_train:
             for n, u in aux_up.items():
@@ -426,22 +689,36 @@ class Executor(object):
         else:
             (outs, leaves), self._graph = self._graph, None
         if out_grads is None:
-            cots = [torch.ones_like(o) for o in outs]
+            cots = [torch.ones(o.shape, dtype=o.dtype, device=self._device)
+                    for o in outs]
         else:
             if not isinstance(out_grads, (list, tuple)):
                 out_grads = [out_grads]
-            cots = [_as_tensor(g, o.device).to(device=o.device, dtype=o.dtype)
+            cots = [_as_tensor(g, self._device).to(device=self._device,
+                                                   dtype=o.dtype)
                     for g, o in zip(out_grads, outs)]
-        pairs = [(o, c) for o, c in zip(outs, cots) if o.requires_grad]
+        pairs = head_pairs(outs, cots)
         names = list(leaves)
-        grads = [None] * len(names)
+        flat = [t for n in names for t in (leaves[n] if self._mesh is not None
+                                           else [leaves[n]])]
+        grads = [None] * len(flat)
         if pairs:
             with conv_precision(self._device):
                 grads = torch.autograd.grad(
-                    [o for o, _ in pairs], [leaves[n] for n in names],
+                    [o for o, _ in pairs], flat,
                     [c for _, c in pairs], allow_unused=True)
-        by_name = {n: (torch.zeros_like(leaves[n]) if g is None else g)
-                   for n, g in zip(names, grads)}
+        grads = [torch.zeros_like(t) if g is None else g
+                 for t, g in zip(flat, grads)]
+        if self._mesh is None:
+            by_name = dict(zip(names, grads))
+        else:
+            by_name, i = {}, 0
+            for n in names:
+                parts = grads[i:i + len(leaves[n])]
+                i += len(leaves[n])
+                by_name[n] = merge_replica_grads(
+                    parts, n in self._batch_names, self._device,
+                    self.arg_dict[n].shape)
         for buf, group in self._grad_groups:
             g = by_name[group[0]]
             for n in group[1:]:
@@ -514,7 +791,9 @@ class Executor(object):
             aux[n] = (cur if sh is None or cur.shape == tuple(sh)
                       else resize(n, cur, sh, False))
         return Executor(self._symbol, self._ctx, args, grads or None,
-                        self._grad_req, aux)
+                        self._grad_req, aux, mesh=self._mesh,
+                        batch_names=self._batch_names,
+                        batch_axes=self._batch_axes)
 
     @property
     def symbol(self):
@@ -531,14 +810,16 @@ class Executor(object):
 
 
 def simple_bind(symbol, ctx, grad_req="write", type_dict=None, group2ctx=None,
-                shared_exec=None, **kwargs):
+                shared_exec=None, mesh=None, batch_names=(), batch_axes=None,
+                **kwargs):
     """Allocate every array (zeros) on ``ctx`` from the shapes and dtypes
     inferred from ``kwargs`` and ``type_dict``, then bind (ref:
     python/mxnet/symbol.py simple_bind). With ``shared_exec``, arrays of
-    the same name, shape and dtype are that executor's."""
+    the same name, shape and dtype are that executor's. ``mesh``,
+    ``batch_names`` and ``batch_axes``: see :class:`Executor`."""
     if group2ctx:
         raise MXNetError("simple_bind: group2ctx (ctx_group model "
-                         "parallelism) is not ported yet")
+                         "parallelism) is not ported yet (ROADMAP.md A.7b)")
     ctx = ctx if isinstance(ctx, Context) else Context(ctx)
     if shared_exec is not None and shared_exec._ctx != ctx:
         raise MXNetError("simple_bind: shared_exec on %s cannot share "
@@ -580,4 +861,5 @@ def simple_bind(symbol, ctx, grad_req="write", type_dict=None, group2ctx=None,
     aux = {n: alloc(shared_exec.aux_dict if shared_exec else {}, n, sh,
                     np.dtype(aux_type_of.get(n) or np.float32))
            for n, sh in zip(aux_names, aux_shapes)}
-    return Executor(symbol, ctx, args, grads or None, grad_req, aux)
+    return Executor(symbol, ctx, args, grads or None, grad_req, aux,
+                    mesh=mesh, batch_names=batch_names, batch_axes=batch_axes)

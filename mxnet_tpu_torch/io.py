@@ -451,12 +451,17 @@ class SuperDataBatch(DataBatch):
         self.step_provide_label = step_provide_label
 
     def unstack(self):
-        """Per-step DataBatch views (slices along the step axis)."""
+        """Per-step DataBatch views (slices along the step axis); a
+        superbatch split over a mesh is gathered whole first."""
+        def whole(a):
+            return NDArray(a.gather()) if hasattr(a, "gather") else a
+        data = [whole(a) for a in self.data]
+        label = [whole(a) for a in (self.label or [])]
         out = []
         for i in range(self.num_steps):
             out.append(DataBatch(
-                data=[a[i] for a in self.data],
-                label=[a[i] for a in (self.label or [])],
+                data=[a[i] for a in data],
+                label=[a[i] for a in label],
                 pad=self.pads[i] if i < len(self.pads) else 0,
                 bucket_key=self.bucket_key,
                 provide_data=self.step_provide_data,
@@ -495,11 +500,17 @@ class SuperBatchIter(DataIter):
     with ``num_steps < k``, or is dropped with
     ``last_group_handle='discard'``; a change of ``bucket_key`` cuts a
     group early.
+
+    ``sharding`` (``parallel.mesh.superbatch_sharding(mesh)``) splits every
+    stacked array along its batch axis on the producer thread, one shard on
+    each replica's device (replica 0's device is where it lands), so the
+    slots come as :class:`~mxnet_tpu_torch.parallel.mesh.MeshArray`s the
+    step over that mesh takes as they are.
     """
 
     def __init__(self, base, k, prefetch=True, queue_depth=None,
                  last_group_handle="partial", retry_policy=None,
-                 data_health=None, device=None):
+                 data_health=None, device=None, sharding=None):
         super().__init__(getattr(base, "batch_size", 0))
         if queue_depth is None:
             from . import engine as _engine
@@ -511,6 +522,9 @@ class SuperBatchIter(DataIter):
                              "'partial' or 'discard'")
         self.base = base
         self.k = int(k)
+        self.sharding = sharding
+        if sharding is not None:
+            device = sharding.mesh.replica_devices()[0]
         self.device = resolve_device(device, "SuperBatchIter")
         self.last_group_handle = last_group_handle
         self.retry_policy = retry_policy or RetryPolicy()
@@ -635,6 +649,22 @@ class SuperBatchIter(DataIter):
             self._note_stage("h2d", dt, n=len(parts))
             _obs.complete("h2d", dt, dispatch=self._cur_sb)
 
+    def _split(self, stacked, desc):
+        """Under ``sharding``: the stacked ``(k, batch, ...)`` NDArray split
+        along its batch axis across the replicas (a view for a replica on
+        the landing device): the 'N' of ``desc``'s layout (a ``"TN"``
+        batch splits along dim 1), else the axis of the batch's size."""
+        if self.sharding is None:
+            return stacked
+        from .parallel import mesh as _mesh
+        t = stacked.data
+        axis = _mesh.layout_axes([desc]).get(desc[0]) if desc else None
+        ax = _mesh.batch_axis(tuple(t.shape[1:]),
+                              self.batch_size or t.shape[1], axis)
+        if ax is None:
+            return _mesh.replicate(t, self.sharding.mesh)
+        return _mesh.split(t, self.sharding.mesh, ax + 1)
+
     def _host_buffer(self, shape, dtype):
         """An empty host tensor for a stacked slot: pinned when it lands on
         a CUDA device; numpy dtypes take nd.array's 64-to-32-bit rule."""
@@ -649,14 +679,20 @@ class SuperBatchIter(DataIter):
         self._sb_seq += 1
         n_data = len(group[0].data)
         n_label = len(group[0].label or [])
-        with _obs.span("superbatch_assemble", dispatch=self._cur_sb,
-                       k=len(group)):
-            data = [self._stack([b.data[i] for b in group])
-                    for i in range(n_data)]
-            label = [self._stack([b.label[i] for b in group])
-                     for i in range(n_label)]
         step_pd = group[0].provide_data
         step_pl = group[0].provide_label
+        pd = list(step_pd if step_pd is not None
+                  else self.base.provide_data or [])
+        pl = list(step_pl if step_pl is not None
+                  else self.base.provide_label or [])
+        with _obs.span("superbatch_assemble", dispatch=self._cur_sb,
+                       k=len(group)):
+            data = [self._split(self._stack([b.data[i] for b in group]),
+                                pd[i] if i < len(pd) else None)
+                    for i in range(n_data)]
+            label = [self._split(self._stack([b.label[i] for b in group]),
+                                 pl[i] if i < len(pl) else None)
+                     for i in range(n_label)]
         sb = SuperDataBatch(
             data=data, label=label, pads=[b.pad or 0 for b in group],
             num_steps=len(group),

@@ -10,7 +10,7 @@ Pre-LN blocks: x + MHA(LN(x)); x + FFN(LN(x)); the loss is per-position
 softmax cross-entropy over the vocabulary. ``stack_layers=True`` builds
 the layer stack as one ``TransformerStack`` op over (num_layers, ...)
 stacked weights. ``seq_parallel`` builds, and the first forward raises
-(the port has no mesh yet, ROADMAP.md A.7).
+(the port has no mesh yet, ROADMAP.md A.7b).
 """
 from .. import symbol as sym
 from ..base import MXNetError

@@ -374,9 +374,11 @@ class BaseModule(object):
         pipeline = _DispatchPipeline(pl_depth)
         if k > 1:
             from .. import data as _data
-            train_iter = _data.DevicePrefetcher(train_data, k,
-                                                depth=pl_depth,
-                                                device=self._device)
+            # over a mesh, superbatches land split per replica
+            sharding = getattr(self, "_superbatch_sharding", None)
+            train_iter = _data.DevicePrefetcher(
+                train_data, k, depth=pl_depth, device=self._device,
+                sharding=sharding() if sharding is not None else None)
         else:
             train_iter = train_data
         # a resumed run re-derives the data order of its absolute epoch

@@ -19,7 +19,9 @@ through its bucket's single ``step`` (:meth:`_try_fused_fit_step`).
 state back to the default bucket's arrays (which every bucket's executor
 shares) first. An installed monitor, ``inputs_need_grad``, ``state_names``,
 a ``grad_req`` other than ``write``/``null`` or an optimizer without a
-fused update keep the executor path. ``check`` (the static analyzers)
+fused update keep the executor path. Over several contexts every bucket's
+module and TrainStep share the default bucket's 'data' mesh of replicas,
+and superbatches land split per replica. ``check`` (the static analyzers)
 raises: it is not ported yet.
 """
 from __future__ import annotations
@@ -274,7 +276,8 @@ class BucketingModule(BaseModule):
         ts = TrainStep(symbol, data_names=list(data_names),
                        label_names=list(label_names),
                        optimizer=base._optimizer,
-                       frozen_param_names=frozen, device=base._device)
+                       frozen_param_names=frozen, device=base._device,
+                       mesh=eg._mesh, batch_axes=eg.batch_axes)
         self._bucket_fused[bucket_key] = ts
         return ts
 
@@ -285,13 +288,18 @@ class BucketingModule(BaseModule):
             return self._bucket_specs[bucket_key]
         spec = None
         if self._fused_metric is not None:
-            shapes = {}
-            lshapes = []
-            for name, v in zip(ts.data_names, super_batch.data):
-                shapes[name] = tuple(v.shape[1:])
-            for name, v in zip(ts.label_names, super_batch.label or []):
-                shapes[name] = tuple(v.shape[1:])
-                lshapes.append(tuple(v.shape[1:]))
+            from ..parallel.mesh import batch_axes, shard_shape
+            # over a mesh each replica sums its own shard: one replica's
+            # shapes
+            shapes = {name: tuple(v.shape[1:]) for name, v in zip(
+                ts.data_names, super_batch.data)}
+            shapes.update((name, tuple(v.shape[1:])) for name, v in zip(
+                ts.label_names, super_batch.label or []))
+            if ts.mesh is not None:
+                _, axes = batch_axes(shapes, ts.batch_axes)
+                shapes = {n: shard_shape(s, ts.mesh, axes[n])
+                          for n, s in shapes.items()}
+            lshapes = [shapes[n] for n in ts.label_names if n in shapes]
             _, out_shapes, _ = ts.symbol.infer_shape(**shapes)
             spec = _metric.device_sum_spec(self._fused_metric, out_shapes,
                                            lshapes)
@@ -306,6 +314,14 @@ class BucketingModule(BaseModule):
             "bucketed dispatch: bucket %r falls back to per-step "
             "training (%s)", bucket_key, why)
 
+    def _superbatch_sharding(self):
+        """The default bucket's module's superbatch sharding (every bucket
+        shares its contexts)."""
+        return self._base_module._superbatch_sharding()
+
+    def _global_batch_scale(self):
+        return 1
+
     def _seed_fused_state(self, ts, prev=None):
         """The one shared state from the default bucket's executor arrays
         (copies). ``prev`` keeps its optimizer states and step counter
@@ -318,14 +334,17 @@ class BucketingModule(BaseModule):
         aux = ts.cast_stats({n: ex.aux_dict[n].data.detach().clone()
                              for n in ts.aux_names})
         if prev is not None:
-            return {"params": params, "aux": aux, "opt": prev["opt"],
-                    "step": prev["step"]}
+            return ts.replicate_state(
+                {"params": params, "aux": aux, "opt": prev["opt"],
+                 "step": prev["step"]})
         opt_state = _seed_opt_state(ts, params, base._optimizer,
                                     base._resolve_updater(),
                                     base._exec_group.param_names)
-        return {"params": params, "aux": aux, "opt": opt_state,
-                "step": torch.full((), self._fused_host_step,
-                                   dtype=torch.int32, device=base._device)}
+        # over a mesh: a copy for every other replica
+        return ts.replicate_state(
+            {"params": params, "aux": aux, "opt": opt_state,
+             "step": torch.full((), self._fused_host_step,
+                                dtype=torch.int32, device=base._device)})
 
     def _ensure_fused_state(self, ts):
         """Whether ``ts`` can train the shared state (its parameter set is
@@ -442,9 +461,8 @@ class BucketingModule(BaseModule):
         base._restore_trainer_clock(num_update, fused_step)
         self._fused_host_step = base._resume_step
         if self._fused_state is not None:
-            self._fused_state["step"] = torch.full(
-                (), self._fused_host_step, dtype=torch.int32,
-                device=base._device)
+            self._get_bucket_step(self._default_bucket_key).set_step(
+                self._fused_state, self._fused_host_step)
 
     def load_optimizer_states(self, fname):
         """Restore the updater states through the current module; the

@@ -1,21 +1,47 @@
-"""DataParallelExecutorGroup on one device
-(ref: python/mxnet/module/executor_group.py).
+"""DataParallelExecutorGroup (ref: python/mxnet/module/executor_group.py).
 
-Counterpart of ``mxnet_tpu/module/executor_group.py`` with one context:
-one executor built by the port's ``simple_bind``, the grad_req table the
-reference builds, and the batch fed into the bound arrays (copied to the
-executor's device). Several contexts (the JAX package's device mesh)
-raise: data parallelism over several cards is not ported yet.
+Counterpart of ``mxnet_tpu/module/executor_group.py``: one executor built
+by the port's ``simple_bind``, the grad_req table the reference builds,
+and the batch fed into the bound arrays. Several distinct contexts make a
+'data' mesh of replicas (:func:`_create_mesh`): the executor then splits
+each batch across the replicas at every forward, keeps one copy of the
+parameters (replicated to every replica by the forward), and merges the
+outputs in batch order and the gradients as their sum over the replicas.
+Contexts that repeat one another (``[gpu(0), gpu(0)]``) build no mesh, as
+the JAX package's duplicate devices do.
 """
 from __future__ import annotations
 
+import numpy as np
+import torch
+
 from ..base import MXNetError
-from ..context import Context
+from ..context import Context, resolve_device
 from ..executor import simple_bind
+from ..parallel.mesh import AXIS_DATA, Mesh, layout_axes
 
 
 def _name_shape(d):
     return (d.name, d.shape) if hasattr(d, "name") else (d[0], d[1])
+
+
+def _create_mesh(contexts):
+    """A one-axis 'data' mesh with a replica per context; None for one
+    context or contexts that repeat one another. A GPU context past the
+    visible cards raises: requested devices are never folded onto one."""
+    if len(contexts) < 2 or len(set(contexts)) != len(contexts):
+        return None
+    devices = []
+    for c in contexts:
+        dev = resolve_device(c, "DataParallelExecutorGroup")
+        if dev.type == "cuda" and dev.index >= torch.cuda.device_count():
+            raise MXNetError(
+                "context %s: only %d CUDA device(s) are visible"
+                % (c, torch.cuda.device_count()))
+        devices.append(dev)
+    grid = np.empty(len(devices), dtype=object)
+    grid[:] = devices
+    return Mesh(grid, (AXIS_DATA,))
 
 
 class DataParallelExecutorGroup(object):
@@ -25,11 +51,7 @@ class DataParallelExecutorGroup(object):
                  state_names=None):
         self.contexts = [c if isinstance(c, Context) else Context(c)
                          for c in contexts]
-        if len(self.contexts) != 1:
-            raise MXNetError(
-                "DataParallelExecutorGroup: %d contexts given; data "
-                "parallelism over several devices is not ported yet"
-                % len(self.contexts))
+        self._mesh = _create_mesh(self.contexts)
         self.symbol = symbol
         self.workload = workload
         self.param_names = list(param_names)
@@ -41,7 +63,11 @@ class DataParallelExecutorGroup(object):
         self.aux_names = symbol.list_auxiliary_states()
         self.data_names = [_name_shape(x)[0] for x in data_shapes]
         self.label_names = [_name_shape(x)[0] for x in (label_shapes or [])]
+        # dim 0 of the first input, as the JAX package's (Module's default
+        # rescale_grad); the split over a mesh follows each input's layout
         self.batch_size = _name_shape(data_shapes[0])[1][0]
+        self.batch_axes = layout_axes(list(data_shapes)
+                                      + list(label_shapes or []))
 
         # grad_req per argument (ref: executor_group.py)
         if self.for_training:
@@ -62,9 +88,11 @@ class DataParallelExecutorGroup(object):
         shapes = dict(_name_shape(d) for d in data_shapes)
         shapes.update(_name_shape(d) for d in (label_shapes or []))
         shared = shared_group.executor if shared_group is not None else None
-        self.executor = simple_bind(symbol, self.contexts[0],
-                                    grad_req=self.grad_req,
-                                    shared_exec=shared, **shapes)
+        self.executor = simple_bind(
+            symbol, self.contexts[0], grad_req=self.grad_req,
+            shared_exec=shared, mesh=self._mesh,
+            batch_names=self.data_names + self.label_names,
+            batch_axes=self.batch_axes, **shapes)
         self.data_shapes = data_shapes
         self.label_shapes = label_shapes
 

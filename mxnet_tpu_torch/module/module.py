@@ -18,9 +18,14 @@ restored). ``compute_dtype`` (the port's own argument) sets the fused
 step's compute dtype over float32 masters. ``install_monitor`` takes the
 module off the fused path (the monitor reads the executor's op outputs),
 and the fused step starts a deferred ``MXNET_PROFILER_AUTOSTART``.
-Several contexts, ``work_load_list``, ``MXTPU_DP_DEVICES``, ``mesh_axes``,
-``param_shardings`` and ``MXTPU_LM_MESH`` raise naming themselves (not
-ported yet).
+Several contexts (``context=[mt.cpu(i) for i in range(n)]``, or
+``MXTPU_DP_DEVICES=n`` without a context) train over a 'data' mesh of
+replicas: the executor group splits each batch across them, and the fused
+step is a :class:`~mxnet_tpu_torch.train_step.TrainStep` over the group's
+mesh, fed superbatches that ``SuperBatchIter`` lands split per replica.
+``work_load_list`` is kept and passed on, and the batch splits evenly, as
+in the JAX package. ``mesh_axes``, ``param_shardings`` and
+``MXTPU_LM_MESH`` raise naming themselves (ROADMAP.md A.7b).
 """
 from __future__ import annotations
 
@@ -90,25 +95,33 @@ class Module(BaseModule):
         if mesh_axes is not None or env_str("MXTPU_LM_MESH"):
             raise MXNetError("Module: mesh_axes / MXTPU_LM_MESH (multi-axis "
                              "mesh training) is not ported yet (ROADMAP.md "
-                             "A.7)")
+                             "A.7b)")
         if param_shardings:
-            raise MXNetError("Module: param_shardings is not ported yet")
-        if work_load_list is not None:
-            raise MXNetError("Module: work_load_list (data parallelism over "
-                             "several devices) is not ported yet")
+            raise MXNetError("Module: param_shardings (model parallelism) is "
+                             "not ported yet (ROADMAP.md A.7b)")
         if context is None:
-            _engine.dp_devices()    # MXTPU_DP_DEVICES > 1 raises
             context = current_context()
-        if isinstance(context, (list, tuple)):
-            if len(context) != 1:
-                raise MXNetError("Module: context=[...] with %d devices: "
-                                 "data parallelism over several devices is "
-                                 "not ported yet" % len(context))
-            context = context[0]
-        context = context if isinstance(context, Context) else Context(context)
-        self._context = [context]
-        self._device = resolve_device(context, "Module")
-        self._work_load_list = [1]
+            n_dp = _engine.dp_devices()
+            if n_dp > 1:
+                # MXTPU_DP_DEVICES=N: a replica on each of the first N
+                # devices of the current context's type; an over-ask raises
+                # rather than folding replicas onto fewer devices
+                from ..context import num_devices
+                avail = num_devices(context.device_type)
+                if n_dp > avail:
+                    raise MXNetError(
+                        "MXTPU_DP_DEVICES=%d but only %d %s device(s) are "
+                        "visible" % (n_dp, avail, context.device_type))
+                context = [Context(context.device_type, i)
+                           for i in range(n_dp)]
+        if not isinstance(context, (list, tuple)):
+            context = [context]
+        self._context = [c if isinstance(c, Context) else Context(c)
+                         for c in context]
+        self._device = resolve_device(self._context[0], "Module")
+        if work_load_list is None:
+            work_load_list = [1] * len(self._context)
+        self._work_load_list = work_load_list
 
         self._symbol = symbol
         data_names = list(data_names) if data_names is not None else []
@@ -473,8 +486,7 @@ class Module(BaseModule):
                                            None) is not None:
             wind(updater.optimizer)
         if self._fused_state is not None:
-            self._fused_state["step"] = torch.full(
-                (), self._resume_step, dtype=torch.int32, device=self._device)
+            self._fused.set_step(self._fused_state, self._resume_step)
             self._fused_host_step = self._resume_step
 
     def borrow_optimizer(self, shared_module):
@@ -510,23 +522,43 @@ class Module(BaseModule):
             self._symbol, data_names=eg.data_names,
             label_names=eg.label_names, optimizer=self._optimizer,
             frozen_param_names=frozen, device=self._device,
-            compute_dtype=self._compute_dtype)
+            compute_dtype=self._compute_dtype, mesh=eg._mesh,
+            batch_axes=eg.batch_axes)
         self._fused_state = self._seed_fused_state()
         self._fused_params_stale = False
         self._fused_metrics_ok = self._infer_fused_metrics_ok()
 
-    def _bound_shapes(self):
+    def _bound_shapes(self, mesh=None):
         """(input-shape dict, label shapes, output shapes) of the bound
         descriptors: what the metric's device-sum spec is resolved
-        against."""
-        shapes = dict(_name_shape(d) for d in (self._data_shapes or []))
-        lshapes = []
-        for d in (self._label_shapes or []):
-            name, shape = _name_shape(d)
-            shapes[name] = shape
-            lshapes.append(shape)
+        against; with ``mesh``, one replica's share of them."""
+        from ..parallel.mesh import batch_axes, shard_shape
+        descs = (list(self._data_shapes or [])
+                 + list(self._label_shapes or []))
+        shapes = dict(_name_shape(d) for d in descs)
+        if mesh is not None:
+            _, axes = batch_axes(shapes, self._exec_group.batch_axes)
+            shapes = {n: shard_shape(s, mesh, axes[n])
+                      for n, s in shapes.items()}
+        lshapes = [shapes[_name_shape(d)[0]]
+                   for d in (self._label_shapes or [])]
         _, out_shapes, _ = self._symbol.infer_shape(**shapes)
         return shapes, lshapes, out_shapes
+
+    def _superbatch_sharding(self):
+        """The sharding ``fit`` hands to ``SuperBatchIter`` so stacked
+        superbatches land split per replica (the step axis whole, the batch
+        axis over 'data'); None without a mesh."""
+        from ..parallel.mesh import superbatch_sharding
+        eg = self._exec_group
+        return superbatch_sharding(eg._mesh if eg is not None else None)
+
+    def _global_batch_scale(self):
+        """Factor from this process's samples a second to the global rate:
+        1, since the port's meshes live in one process whose iterator
+        yields the whole batch (multi-process data parallelism is
+        ROADMAP.md A.11b)."""
+        return 1
 
     def _speed_tokens_per_sample(self):
         """Tokens per sample for throughput reporting: the product of the
@@ -555,12 +587,27 @@ class Module(BaseModule):
             return (False, "module configuration needs the per-step "
                     "executor path (monitor/grad_req/unfused optimizer/"
                     "shared module)")
+        mesh = self._exec_group._mesh
+        if mesh is not None:
+            from ..parallel.mesh import (AXIS_DATA, batch_axes,
+                                         check_axis_divides)
+            shapes = self._bound_shapes()[0]
+            _, axes = batch_axes(shapes, self._exec_group.batch_axes)
+            try:
+                for name, shape in shapes.items():
+                    if axes[name] is not None:
+                        check_axis_divides(mesh, AXIS_DATA,
+                                           shape[axes[name]],
+                                           "bound input %r batch dim" % name)
+            except MXNetError as e:
+                return False, str(e)
         if eval_metric is None:
             if not self._infer_fused_metrics_ok():
                 return (False, "the default device metric sums need a "
                         "single (rank-2 output, rank-1 label) head")
             return True, None
-        _, lshapes, out_shapes = self._bound_shapes()
+        # over a mesh each replica sums its own shard: one replica's shapes
+        _, lshapes, out_shapes = self._bound_shapes(mesh)
         spec = _metric.device_sum_spec(eval_metric, out_shapes, lshapes)
         if spec is None:
             return (False, "metric %r declares no device-sum layout for "
@@ -595,8 +642,9 @@ class Module(BaseModule):
             step = torch.full((), self._resume_step, dtype=torch.int32,
                               device=self._device)
             self._fused_host_step = self._resume_step
-        return {"params": params, "aux": aux, "opt": opt_state,
-                "step": step}
+        # over a mesh: a copy for every other replica
+        return self._fused.replicate_state(
+            {"params": params, "aux": aux, "opt": opt_state, "step": step})
 
     def _fused_opt_state(self, params):
         """The fused optimizer states, seeded from the updater's states

@@ -12,7 +12,7 @@ differ.
 
 ``seq_parallel="ring"|"ulysses"`` shards the sequence over a mesh's 'seq'
 axis in the JAX package. The port has no mesh yet, so such a symbol builds
-and its first forward raises :class:`MXNetError` (ROADMAP.md A.7).
+and its first forward raises :class:`MXNetError` (ROADMAP.md A.7b).
 """
 from __future__ import annotations
 
@@ -136,7 +136,7 @@ def seq_parallel_error(seq_par):
     return MXNetError(
         "MultiHeadAttention(seq_parallel=%r) needs an ambient mesh with a "
         "'seq' axis (parallel.mesh.MeshScope / TrainStep mesh), which is "
-        "not ported yet (ROADMAP.md A.7)" % seq_par)
+        "not ported yet (ROADMAP.md A.7b)" % seq_par)
 
 
 def _attend(q, k, v, causal, block, seq_par):

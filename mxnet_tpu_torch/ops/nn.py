@@ -29,7 +29,7 @@ import torch.nn.functional as F
 
 from ..base import (attr_bool, attr_float, attr_int, attr_str, attr_tuple,
                     MXNetError)
-from .registry import OpDef, register, register_def
+from .registry import OpDef, get as get_op, register, register_def
 
 
 #: whether float32 convolutions may run in TF32 on the card. cuDNN's default
@@ -261,19 +261,29 @@ def _moving(moving, batch_stat, momentum):
     return m * moving + m1 * batch_stat.detach().to(moving.dtype)
 
 
+def _bn_attrs(attrs):
+    return (attr_float(attrs.get("eps", 1e-3), 1e-3),
+            attr_float(attrs.get("momentum", 0.9), 0.9),
+            attr_bool(attrs.get("fix_gamma", True), True),
+            attr_bool(attrs.get("use_global_stats", False), False),
+            attr_bool(attrs.get("output_mean_var", False), False))
+
+
+def _bn_normalize(x, gamma, beta, mean, var, eps, axis, fix_gamma):
+    bshape = tuple(-1 if i == axis else 1 for i in range(x.dim()))
+    if fix_gamma:
+        gamma = torch.ones_like(gamma).detach()
+    inv = torch.rsqrt(var.reshape(bshape) + eps)
+    return ((x - mean.reshape(bshape)) * inv * gamma.reshape(bshape)
+            + beta.reshape(bshape))
+
+
 def _batch_norm(op_ctx, attrs, inputs, aux):
-    eps = attr_float(attrs.get("eps", 1e-3), 1e-3)
-    momentum = attr_float(attrs.get("momentum", 0.9), 0.9)
-    fix_gamma = attr_bool(attrs.get("fix_gamma", True), True)
-    use_global = attr_bool(attrs.get("use_global_stats", False), False)
-    out_mv = attr_bool(attrs.get("output_mean_var", False), False)
+    eps, momentum, fix_gamma, use_global, out_mv = _bn_attrs(attrs)
     x, gamma, beta = inputs
     moving_mean, moving_var = aux
     axis = attr_int(attrs.get("axis", 1), 1) % x.dim()
     red = tuple(i for i in range(x.dim()) if i != axis)
-    bshape = tuple(-1 if i == axis else 1 for i in range(x.dim()))
-    if fix_gamma:
-        gamma = torch.ones_like(gamma).detach()
     fused = op_ctx.fused_stats
     if op_ctx.is_train and not use_global:
         if fused is not None:
@@ -302,16 +312,80 @@ def _batch_norm(op_ctx, attrs, inputs, aux):
     else:
         mean, var = moving_mean, moving_var
         aux_updates = (moving_mean, moving_var)
-    inv = torch.rsqrt(var.reshape(bshape) + eps)
-    y = ((x - mean.reshape(bshape)) * inv * gamma.reshape(bshape)
-         + beta.reshape(bshape))
+    y = _bn_normalize(x, gamma, beta, mean, var, eps, axis, fix_gamma)
     outs = (y, mean, var) if out_mv else (y,)
     return outs, aux_updates
 
 
+def _batch_norm_mesh(op_ctx, attrs, ins, aux, devices):
+    """Training BatchNorm over a 'data' mesh: every branch's statistics
+    over the whole batch. Each replica's partial sums are summed across
+    replicas (``parallel.mesh.all_reduce``) before any replica normalises:
+    the fused producer's ``(s1, s2)`` (their cotangents flow back into each
+    replica's kernel), the one-pass 16-bit sums, or the two-pass f32 mean
+    and then the sum of squared deviations from it. The moving statistics
+    move once, from the global values, the same on every replica. None
+    (the per-replica op) outside training or for a replicated input."""
+    from ..parallel.mesh import MeshArray, all_reduce
+    eps, momentum, fix_gamma, use_global, out_mv = _bn_attrs(attrs)
+    x, gamma, beta = ins
+    if not op_ctx.is_train or use_global or x.axis is None:
+        return None
+    nd = x.ndim
+    axis = attr_int(attrs.get("axis", 1), 1) % nd
+    if axis == x.axis:
+        raise MXNetError("BatchNorm: channel axis %d is the batch axis the "
+                         "'data' mesh splits" % axis)
+    red = tuple(i for i in range(nd) if i != axis)
+    bshape = tuple(-1 if i == axis else 1 for i in range(nd))
+    gshape = x.shape
+    n = float(np.prod([gshape[i] for i in red]))
+    parts = x.parts
+    dt = x.dtype
+    fused = op_ctx.fused_stats
+    if fused is not None:
+        s1 = all_reduce([f[0] for f in fused], devices)
+        s2 = all_reduce([f[1] for f in fused], devices)
+        count = float(sum(f[2] for f in fused))
+        mean32 = [a / count for a in s1]
+        var32 = [torch.clamp_min(b / count - m.square(), 0.0)
+                 for b, m in zip(s2, mean32)]
+        mean = [m.to(dt) for m in mean32]
+        var = [v.to(dt) for v in var32]
+    elif dt in (torch.bfloat16, torch.float16):
+        x32 = [p.float() for p in parts]
+        s1 = all_reduce([p.sum(red) for p in x32], devices)
+        s2 = all_reduce([p.square().sum(red) for p in x32], devices)
+        mean32 = [a / n for a in s1]
+        var32 = [torch.clamp_min(b / n - m.square(), 0.0)
+                 for b, m in zip(s2, mean32)]
+        mean = [m.to(dt) for m in mean32]
+        var = [v.to(dt) for v in var32]
+    else:
+        # two passes, two reductions: the global mean, then the global sum
+        # of squared deviations from it
+        mean = [a / n for a in all_reduce([p.sum(red) for p in parts],
+                                          devices)]
+        dev2 = all_reduce([(p - m.reshape(bshape)).square().sum(red)
+                           for p, m in zip(parts, mean)], devices)
+        var = [d / n for d in dev2]
+        mean32, var32 = mean, var
+    ys, mm, mv = [], [], []
+    for r, p in enumerate(parts):
+        ys.append(_bn_normalize(p, gamma.parts[r], beta.parts[r], mean[r],
+                                var[r], eps, axis, fix_gamma))
+        mm.append(_moving(aux[0].parts[r], mean32[r], momentum))
+        mv.append(_moving(aux[1].parts[r], var32[r], momentum))
+    mesh = x.mesh
+    outs = [MeshArray(mesh, ys, x.axis)]
+    if out_mv:
+        outs += [MeshArray(mesh, mean, None), MeshArray(mesh, var, None)]
+    return outs, [MeshArray(mesh, mm, None), MeshArray(mesh, mv, None)]
+
+
 register_def(OpDef("BatchNorm", _batch_norm, inputs=("data", "gamma", "beta"),
                    aux=("moving_mean", "moving_var"), infer_shape=_bn_infer,
-                   var_outputs=_bn_outputs))
+                   var_outputs=_bn_outputs)).mesh_fn = _batch_norm_mesh
 
 
 # ---------------------------------------------------------------------------
@@ -376,7 +450,7 @@ class _SoftmaxOutput(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, data, label, cfg):
-        grad_scale, ignore_label, use_ignore, multi, norm, preserve = cfg
+        _gs, _il, _ui, multi, _norm, preserve, _denom = cfg
         if preserve:
             out = torch.softmax(data, dim=-1)
         elif multi:
@@ -391,7 +465,8 @@ class _SoftmaxOutput(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         out, label = ctx.saved_tensors
-        grad_scale, ignore_label, use_ignore, multi, norm, preserve = ctx.cfg
+        (grad_scale, ignore_label, use_ignore, multi, norm, preserve,
+         denom) = ctx.cfg
         if preserve:
             lab = label.to(torch.int32)
             grad = out - _onehot(lab, out.shape[-1], lab.dim(), out.dtype)
@@ -409,23 +484,60 @@ class _SoftmaxOutput(torch.autograd.Function):
         if use_ignore:
             valid = (lab != int(ignore_label)).to(out.dtype)
             grad = grad * valid[expand]
-        if norm == "batch":
+        if denom is not None:
+            # over a 'data' mesh: the whole batch's normaliser
+            grad = grad / denom
+        elif norm == "batch":
             grad = grad / out.shape[0]
         elif norm == "valid":
             grad = grad / torch.clamp_min(valid.sum(), 1.0)
         return grad * grad_scale, None, None
 
 
+def _softmax_cfg(attrs, denom=None):
+    return (attr_float(attrs.get("grad_scale", 1.0), 1.0),
+            attr_float(attrs.get("ignore_label", -1.0), -1.0),
+            attr_bool(attrs.get("use_ignore", False), False),
+            attr_bool(attrs.get("multi_output", False), False),
+            attr_str(attrs.get("normalization", "null"), "null"),
+            attr_bool(attrs.get("preserve_shape", False), False), denom)
+
+
 @register("SoftmaxOutput", inputs=("data", "label"),
           infer_shape=_softmax_out_infer, aliases=("Softmax",))
 def _softmax_output(op_ctx, attrs, inputs, aux):
-    cfg = (attr_float(attrs.get("grad_scale", 1.0), 1.0),
-           attr_float(attrs.get("ignore_label", -1.0), -1.0),
-           attr_bool(attrs.get("use_ignore", False), False),
-           attr_bool(attrs.get("multi_output", False), False),
-           attr_str(attrs.get("normalization", "null"), "null"),
-           attr_bool(attrs.get("preserve_shape", False), False))
-    return (_SoftmaxOutput.apply(inputs[0], inputs[1], cfg),)
+    return (_SoftmaxOutput.apply(inputs[0], inputs[1], _softmax_cfg(attrs)),)
+
+
+def _softmax_output_mesh(op_ctx, attrs, ins, aux, devices):
+    """SoftmaxOutput over a 'data' mesh: each replica's shard with the
+    whole batch's normaliser, the global batch (``batch``) or the valid
+    labels summed across replicas (``valid``)."""
+    from ..parallel.mesh import MeshArray, all_reduce
+    data, label = ins
+    if data.axis is None:
+        return None
+    if label.axis is None:
+        raise MXNetError("SoftmaxOutput: the label of a batch split over a "
+                         "'data' mesh must be split too")
+    cfg = _softmax_cfg(attrs)
+    gs, ignore, use_ignore, multi, norm, preserve, _ = cfg
+    denoms = [None] * len(data.parts)
+    if norm == "batch":
+        denoms = [data.shape[0]] * len(data.parts)
+    elif norm == "valid":
+        with torch.no_grad():
+            counts = [((lab != ignore).sum() if use_ignore
+                       else torch.tensor(lab.numel(), device=lab.device)
+                       ).to(data.dtype) for lab in label.parts]
+            denoms = [torch.clamp_min(c, 1.0)
+                      for c in all_reduce(counts, devices)]
+    outs = [_SoftmaxOutput.apply(d, lab, cfg[:6] + (dn,))
+            for d, lab, dn in zip(data.parts, label.parts, denoms)]
+    return [MeshArray(data.mesh, outs, data.axis)], None
+
+
+get_op("SoftmaxOutput").mesh_fn = _softmax_output_mesh
 
 
 # ---------------------------------------------------------------------------
@@ -615,6 +727,28 @@ def _dropout(op_ctx, attrs, inputs, aux):
                                                     device=x.device)),)
 
 
+def _dropout_mesh(op_ctx, attrs, ins, aux, devices):
+    """Dropout over a 'data' mesh: the mask drawn once at the whole batch's
+    shape from the node's stream (as one device draws it) and sliced per
+    replica, so a mesh run masks as the single-device run does."""
+    from ..parallel.mesh import MeshArray
+    p = attr_float(attrs.get("p", 0.5), 0.5)
+    x = ins[0]
+    if not op_ctx.is_train or p <= 0.0 or x.axis is None:
+        return None
+    keep = 1.0 - p
+    mask = torch.rand(x.shape, generator=op_ctx.rng, device=devices[0]) < keep
+    step = x.parts[0].shape[x.axis]
+    outs = [torch.where(mask.narrow(x.axis, r * step, step).to(t.device),
+                        t / keep, torch.zeros((), dtype=t.dtype,
+                                              device=t.device))
+            for r, t in enumerate(x.parts)]
+    return [MeshArray(x.mesh, outs, x.axis)], None
+
+
+get_op("Dropout").mesh_fn = _dropout_mesh
+
+
 # ---------------------------------------------------------------------------
 # MakeLoss (ref: src/operator/make_loss-inl.h): forward is the identity;
 # backward emits grad_scale everywhere and ignores the head gradient's value
@@ -641,11 +775,32 @@ def _make_loss(op_ctx, attrs, inputs, aux):
     x = inputs[0]
     if norm == "batch":
         gs = gs / x.shape[0]
+    return (_make_loss_head(x, gs),)
+
+
+def _make_loss_head(x, gs):
     if gs == 0.0:
         # a zero gradient everywhere: the head is a constant of its input,
         # so autograd neither keeps its graph nor sends it a cotangent
-        return (x.detach(),)
-    return (_MakeLoss.apply(x, gs),)
+        return x.detach()
+    return _MakeLoss.apply(x, gs)
+
+
+def _make_loss_mesh(op_ctx, attrs, ins, aux, devices):
+    """MakeLoss over a 'data' mesh: ``batch`` normalisation divides by the
+    whole batch."""
+    from ..parallel.mesh import MeshArray
+    x = ins[0]
+    if x.axis is None:
+        return None
+    gs = attr_float(attrs.get("grad_scale", 1.0), 1.0)
+    if attr_str(attrs.get("normalization", "null"), "null") == "batch":
+        gs = gs / x.shape[0]
+    return [MeshArray(x.mesh, [_make_loss_head(t, gs) for t in x.parts],
+                      x.axis)], None
+
+
+get_op("MakeLoss").mesh_fn = _make_loss_mesh
 
 
 # ---------------------------------------------------------------------------

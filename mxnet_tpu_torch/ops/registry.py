@@ -37,7 +37,12 @@ class OpContext(object):
 
 
 class OpDef(object):
-    """A registered operator."""
+    """A registered operator. ``mesh_fn``, where an op sets it, runs the op
+    over every replica of a 'data' mesh at once (``executor``): the ops
+    whose result depends on the whole batch (BatchNorm's statistics,
+    Dropout's mask, the losses' normalisation)."""
+
+    mesh_fn = None
 
     def __init__(self, name, fn, inputs=("data",), aux=(), outputs=("output",),
                  infer_shape=None, infer_type=None, needs_rng=False,

@@ -12,7 +12,7 @@ through the indexing into each stack.
 
 The port cannot form a 'pipe' mesh: ``Module(mesh_axes=...)``,
 ``MXTPU_LM_MESH`` and ``TrainStep(mesh=...)`` raise :class:`MXNetError`
-(ROADMAP.md A.7), and ``num_microbatches`` is accepted and unused, as on
+(ROADMAP.md A.7b), and ``num_microbatches`` is accepted and unused, as on
 one device in the JAX package.
 """
 from __future__ import annotations

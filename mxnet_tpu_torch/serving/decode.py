@@ -60,7 +60,7 @@ the loop thread, which sheds every sequence in flight and queued with
 :class:`ServingClosedError`.
 
 Not ported: ``contexts=`` with more than one device (a model-parallel
-loop, ROADMAP.md A.7) and the static audits ``memory_report``,
+loop, ROADMAP.md A.7b) and the static audits ``memory_report``,
 ``comms_report`` and ``check`` (ROADMAP.md A.12); they raise.
 """
 from __future__ import annotations
@@ -309,7 +309,7 @@ class DecodeLoop(object):
         if ncontexts > 1:
             raise MXNetError("DecodeLoop: contexts= (a model-parallel loop "
                              "across cards) is not ported yet (ROADMAP.md "
-                             "A.7)")
+                             "A.7b)")
         self.device = resolve_device(device, "DecodeLoop")
         self.num_layers = int(num_layers)
         self.num_heads = int(num_heads)

@@ -121,7 +121,7 @@ class ServingEngine(object):
         if ncontexts > 1:
             raise MXNetError("ServingEngine: contexts= (a model-parallel "
                              "engine across cards) is not ported yet "
-                             "(ROADMAP.md A.7)")
+                             "(ROADMAP.md A.7b)")
         self.device = resolve_device(device, "ServingEngine")
         self._symbol = _strip_loss_heads(load_symbol(symbol_json_or_file))
         if output_names:

@@ -49,11 +49,24 @@ to ``compute_dtype``, labels and token ids included, so bf16 rounds class
 ``Embedding`` looks token 257 up in row 256. The port casts only the inputs
 that are neither in ``label_names`` nor an ``Embedding``'s indices.
 
-Not ported yet, and raising when asked for: ``mesh``,
-``param_shardings`` and ``group2ctx``.
+- ``mesh=`` (a one-axis 'data' mesh of :mod:`~mxnet_tpu_torch.parallel`)
+  trains every replica's shard of the batch in one process: the state
+  holds a copy of the parameters, aux and optimizer states per replica
+  (replica 0's at the usual keys, the others' under ``"replicas"``), the
+  graph runner walks the replicas in lock step (BatchNorm's statistics,
+  Dropout's mask and the losses' normalisation over the whole batch), the
+  gradients are summed across replicas, and every replica applies the same
+  update to its copy, so the copies stay bitwise identical. The metric
+  sums are summed across replicas once a dispatch, and the guard takes one
+  decision from the summed gradients. A mesh step equals the one-device
+  step at the same global batch.
+
+Not ported yet, and raising when asked for: ``param_shardings``,
+``group2ctx`` and meshes with a model, seq or pipe axis (ROADMAP.md A.7b).
 """
 from __future__ import annotations
 
+import functools
 import logging
 
 import numpy as np
@@ -230,6 +243,26 @@ def _with_guard_loss(spec, batch_size):
                          tag=spec.tag)
 
 
+def _parts(v):
+    """A value's tensor on each replica: a MeshArray's parts, or the one
+    tensor."""
+    return v.parts if hasattr(v, "parts") else [v]
+
+
+def _like(v, parts):
+    """``parts`` held as ``v`` holds its own: a MeshArray over ``v``'s mesh
+    and axis, or the one tensor."""
+    return type(v)(v.mesh, parts, v.axis) if hasattr(v, "parts") else parts[0]
+
+
+def _index(v, i):
+    """Step ``i`` of a stacked ``(k, batch, ...)`` superbatch value."""
+    if not hasattr(v, "parts"):
+        return v[i]
+    return type(v)(v.mesh, [p[i] for p in v.parts],
+                   None if v.axis is None else v.axis - 1)
+
+
 def _map_state(fn, s):
     """``fn`` over an optimizer state's tensors (None, a tensor or a
     tuple)."""
@@ -277,6 +310,10 @@ class TrainStep(object):
     ``device``: where it runs, ``cuda:0`` by default; without CUDA that
     raises (pass ``device="cpu"`` to train on the CPU). ``remat``: one of
     ``False``, ``True`` and ``"conv"`` (see the module's note).
+    ``batch_axes`` (over a mesh): input name -> its batch axis, the 'N' of
+    its layout (``parallel.mesh.layout_axes``; a ``"TN"`` input splits
+    along dim 1); an input without one splits along dim 0, or along the
+    axis of the batch's size (``parallel.mesh.batch_axis``).
     """
 
     def __init__(self, symbol, data_names=("data",),
@@ -284,13 +321,28 @@ class TrainStep(object):
                  learning_rate=0.01, momentum=0.9, wd=0.0, rescale_grad=None,
                  mesh=None, param_shardings=None, dtype=np.float32,
                  compute_dtype=None, remat=False, frozen_param_names=None,
-                 group2ctx=None, device=None):
-        for name, val in (("mesh", mesh), ("param_shardings", param_shardings),
+                 group2ctx=None, device=None, batch_axes=None):
+        for name, val in (("param_shardings", param_shardings),
                           ("group2ctx", group2ctx)):
             if val:
-                raise MXNetError("TrainStep: %s= is not ported yet" % name)
-        self.device = resolve_device(device, "TrainStep")
+                raise MXNetError("TrainStep: %s= (model parallelism) is not "
+                                 "ported yet (ROADMAP.md A.7b)" % name)
+        from .parallel import mesh as _mesh
+        _mesh.check_data_only(mesh, "TrainStep")
+        self.mesh = mesh
+        if mesh is None:
+            self.device = resolve_device(device, "TrainStep")
+            self.replica_devices = [self.device]
+        else:
+            self.replica_devices = [resolve_device(d, "TrainStep")
+                                    for d in mesh.replica_devices()]
+            self.device = self.replica_devices[0]
+            if (device is not None
+                    and resolve_device(device, "TrainStep") != self.device):
+                raise MXNetError("TrainStep: device=%s but the mesh's first "
+                                 "replica is on %s" % (device, self.device))
         self.symbol = symbol
+        self.batch_axes = dict(batch_axes or {})
         self.data_names = list(data_names)
         self.label_names = list(label_names)
         self.arg_names = symbol.list_arguments()
@@ -331,7 +383,8 @@ class TrainStep(object):
         else:
             self.compute_dtype = None
         self.remat = remat
-        self._run, self._nodes = _build_graph_runner(symbol, remat=remat)
+        self._run, self._nodes = _build_graph_runner(symbol, remat=remat,
+                                                     mesh=mesh)
         # the inputs that feed an Embedding's indices keep their dtype under
         # compute_dtype, as the labels do
         self._keep_dtype = set(self.label_names) | {
@@ -369,9 +422,39 @@ class TrainStep(object):
         opt = self.cast_opt_state(
             {n: self._opt.create_fused_state(v) for n, v in params.items()
              if n not in self.frozen_param_names})
-        return {"params": params, "aux": self.cast_stats(aux), "opt": opt,
-                "step": torch.zeros((), dtype=torch.int32,
-                                    device=self.device)}
+        return self.replicate_state(
+            {"params": params, "aux": self.cast_stats(aux), "opt": opt,
+             "step": torch.zeros((), dtype=torch.int32, device=self.device)})
+
+    # -- replicas of the state over a mesh -----------------------------
+    def replicate_state(self, state):
+        """Over a mesh, give ``state`` (replica 0's tensors at the usual
+        keys) a copy for every other replica under ``"replicas"``, on its
+        device; the same dict. Call it after replacing any of replica 0's
+        tensors. A no-op without a mesh."""
+        if self.mesh is None:
+            return state
+
+        def copy_to(dev):
+            def cp(v):
+                return _map_state(lambda t: t.detach().to(dev, copy=True), v)
+            return {"params": {n: cp(v) for n, v in state["params"].items()},
+                    "aux": {n: cp(v) for n, v in state["aux"].items()},
+                    "opt": {n: cp(v) for n, v in state["opt"].items()},
+                    "step": cp(state["step"])}
+        state["replicas"] = [copy_to(d) for d in self.replica_devices[1:]]
+        return state
+
+    @staticmethod
+    def replica_states(state):
+        """Every replica's state, replica 0 (``state`` itself) first."""
+        return [state] + list(state.get("replicas", ()))
+
+    def set_step(self, state, value):
+        """Set every replica's step counter to ``value``."""
+        for rep in self.replica_states(state):
+            rep["step"] = torch.full((), int(value), dtype=torch.int32,
+                                     device=rep["step"].device)
 
     def cast_stats(self, aux):
         """``MXTPU_BF16_STATS``: the aux states' storage cast (identity when
@@ -399,6 +482,66 @@ class TrainStep(object):
             out[k] = t.to(self.device)
         return out
 
+    def _placed(self, batch, lead):
+        """``batch`` split over the mesh along each input's batch axis
+        (``batch_axes``; ``lead`` 1 for a stacked superbatch, whose step
+        axis comes first): MeshArrays pass through."""
+        from .parallel import mesh as _mesh
+        n = len(self.replica_devices)
+        for k, v in batch.items():
+            if isinstance(v, _mesh.MeshArray):
+                if v.mesh.replica_devices() != self.mesh.replica_devices():
+                    raise MXNetError("TrainStep: %r lies on another mesh" % k)
+            elif len(v.shape) <= lead:
+                raise MXNetError("TrainStep: %r of shape %s has no batch "
+                                 "axis to split over the 'data' mesh"
+                                 % (k, tuple(v.shape)))
+        order = ([k for k in self.data_names if k in batch]
+                 + [k for k in batch if k not in self.data_names])
+        _, axes = _mesh.batch_axes(
+            {k: tuple(batch[k].shape)[lead:] for k in order},
+            self.batch_axes)
+        out = {}
+        for k, v in batch.items():
+            if isinstance(v, _mesh.MeshArray):
+                out[k] = v
+                continue
+            t = v if isinstance(v, torch.Tensor) else torch.from_numpy(
+                np.ascontiguousarray(v))
+            ax = axes[k]
+            if ax is None:
+                out[k] = _mesh.replicate(t.to(self.device), self.mesh)
+                continue
+            if t.shape[lead + ax] % n:
+                raise MXNetError(
+                    "%s: %r batch dim %d does not divide the %d-way 'data' "
+                    "mesh axis%s" % (
+                        "shard_superbatch" if lead else "shard_batch", k,
+                        t.shape[lead + ax], n, "" if lead else " — pad the "
+                        "batch or pick a divisible batch size"))
+            out[k] = _mesh.split(t, self.mesh, lead + ax)
+        return out
+
+    def shard_batch(self, batch):
+        """``batch`` (name -> array) split along its batch axis over the
+        'data' mesh, one MeshArray each (ref: the JAX package's
+        ``shard_batch``; the axis of ``batch_axes``, else dim 0, or where
+        an input's dim 0 is not the batch, as an RNN's begin state
+        ``(layers, batch, hidden)``, the axis of the batch's size). A batch
+        that does not divide the axis raises. Without a mesh: the batch on
+        the device."""
+        if self.mesh is None:
+            return self._to_device(batch)
+        return self._placed(batch, 0)
+
+    def shard_superbatch(self, superbatch):
+        """Stacked ``(k, batch, ...)`` arrays split along dim 1 over the
+        'data' mesh. MeshArrays (``SuperBatchIter(sharding=)`` lands them
+        split on its producer thread) pass through as they are."""
+        if self.mesh is None:
+            return self._to_device(superbatch)
+        return self._placed(superbatch, 1)
+
     def _next_lr(self):
         # the scheduler clock advances on the host, once per step
         self._opt.num_update += 1
@@ -417,85 +560,147 @@ class TrainStep(object):
         return self._base_key + int(state["step"])
 
     def _step(self, state, batch, lr, batch_size, guard=False):
-        """One forward, backward and in-place update. Returns ``(outputs,
-        sentinels)``: the outputs detached, and with ``guard`` ``(ok,
+        """One forward, backward and in-place update, on the device or on
+        every replica of the mesh at once (``batch`` then of MeshArrays):
+        each parameter's gradient is summed across the replicas and every
+        replica applies the one update to its copy (the clip factor and the
+        guard's decision are replica 0's, from the summed gradients and
+        every replica's outputs). Returns ``(outputs, sentinels)``: the
+        outputs detached (MeshArrays over a mesh), and with ``guard`` ``(ok,
         grad_norm)``, the step's all-finite flag and global gradient norm
         as device scalars (else None)."""
-        params, aux, opt = state["params"], state["aux"], state["opt"]
+        from .parallel import mesh as _mesh
+        from .executor import head_pairs
+        reps = self.replica_states(state)
+        devs = self.replica_devices
+        n_rep = len(reps)
         updated = [n for n in self.param_names
                    if n not in self.frozen_param_names]
-        rescale = (self.rescale_grad if self.rescale_grad is not None
-                   else 1.0 / batch_size)
         cdt = self.compute_dtype
         key = self._step_key(state)
-        leaves = {n: params[n].detach().requires_grad_(
-            n not in self.frozen_param_names) for n in self.param_names}
+        leaves = {n: [rep["params"][n].detach().requires_grad_(
+            n not in self.frozen_param_names) for rep in reps]
+            for n in self.param_names}
+
+        def over(parts):
+            # the replicas' copies of one value as the runner takes them
+            return (parts[0] if self.mesh is None
+                    else _mesh.MeshArray(self.mesh, parts, None))
         with torch.enable_grad(), conv_precision(self.device):
-            arg_vals = {k: (v.to(cdt) if cdt is not None
-                            and v.is_floating_point()
+            arg_vals = {k: (_like(v, [p.to(cdt) for p in _parts(v)])
+                            if cdt is not None and v.dtype.is_floating_point
                             and k not in self._keep_dtype else v)
                         for k, v in batch.items()}
-            arg_vals.update({n: (v.to(cdt) if cdt is not None else v)
-                             for n, v in leaves.items()})
-            outs, aux_up = self._run(arg_vals, aux, key, True)
+            arg_vals.update({n: over([t.to(cdt) if cdt is not None else t
+                                      for t in ls])
+                             for n, ls in leaves.items()})
+            aux_vals = {k: over([rep["aux"][k] for rep in reps])
+                        for k in self.aux_names}
+            outs, aux_up = self._run(arg_vals, aux_vals, key, True)
             # only outputs with a gradient take a cotangent (the others'
             # is zero); autograd.grad raises on one without
-            heads = [o for o in outs if o.requires_grad]
-            grads = [None] * len(updated)
-            if heads and updated:
+            pairs = head_pairs(outs)
+            flat = [t for n in updated for t in leaves[n]]
+            grads = [None] * len(flat)
+            if pairs and flat:
                 grads = torch.autograd.grad(
-                    heads, [leaves[n] for n in updated],
-                    grad_outputs=[torch.ones_like(o) for o in heads],
-                    allow_unused=True)
+                    [t for t, _ in pairs], flat,
+                    grad_outputs=[c for _, c in pairs], allow_unused=True)
         with torch.no_grad():
-            t = state["step"].float() + 1.0
-            wd = self._opt.wd
-            gs = [(torch.zeros_like(params[n]) if g is None
-                   else g.to(params[n].dtype)) * rescale
-                  for n, g in zip(updated, grads)]
-            if guard and _faults.fire_flag("guard.grad_nan"):
-                gs = [g + float("nan") for g in gs]
-            clip_norm = self._opt.clip_global_norm
-            gnorm = ok = None
-            if gs and (guard or clip_norm is not None):
-                gnorm = torch.sqrt(sum(torch.sum(torch.square(g.float()))
-                                       for g in gs))
-            if clip_norm is not None and gs:
+            summed = []
+            for i, n in enumerate(updated):
+                parts = grads[i * n_rep:(i + 1) * n_rep]
+                if n_rep > 1:
+                    parts = _mesh.all_reduce(
+                        [torch.zeros_like(t) if g is None else g
+                         for t, g in zip(leaves[n], parts)], devs)
+                summed.append(parts)
+            poison = guard and _faults.fire_flag("guard.grad_nan")
+            every_out = [p for o in outs for p in _parts(o)]
+            ok = gnorm = scale = None
+            for r, rep in enumerate(reps):
+                gs = self._scaled_grads(rep["params"], updated,
+                                        [g[r] for g in summed], batch_size,
+                                        poison)
+                if r == 0:
+                    gs, ok, gnorm, scale = self._sentinels(gs, every_out,
+                                                           guard)
+                else:
+                    gs = self._sentinels(gs, None, False, scale=scale)[0]
+                self._apply(rep, updated, gs,
+                            {k: _parts(u)[r] for k, u in aux_up.items()},
+                            lr, key, guard,
+                            None if ok is None else ok.to(devs[r]))
+        return ([_like(o, [p.detach() for p in _parts(o)]) for o in outs],
+                (ok, gnorm) if guard else None)
+
+    def _scaled_grads(self, params, updated, grads, batch_size, poison):
+        """The gradients in the parameters' dtype times ``rescale_grad``
+        (1/batch by default), NaN everywhere when ``poison``."""
+        rescale = (self.rescale_grad if self.rescale_grad is not None
+                   else 1.0 / batch_size)
+        gs = [(torch.zeros_like(params[n]) if g is None
+               else g.to(params[n].dtype)) * rescale
+              for n, g in zip(updated, grads)]
+        if poison:
+            gs = [g + float("nan") for g in gs]
+        return gs
+
+    def _sentinels(self, gs, outs, guard, scale=None):
+        """``clip_global_norm`` and the guard's sentinels: ``(gs clipped,
+        ok, grad norm, clip factor)``. ``scale`` (replica 0's clip factor)
+        is applied as it is instead of being computed."""
+        clip_norm = self._opt.clip_global_norm
+        gnorm = ok = None
+        if scale is None and gs and (guard or clip_norm is not None):
+            gnorm = torch.sqrt(sum(torch.sum(torch.square(g.float()))
+                                   for g in gs))
+        if clip_norm is not None and gs:
+            if scale is None:
                 scale = torch.clamp(
                     clip_norm / torch.clamp_min(gnorm, 1e-12), max=1.0)
-                gs = [g * scale.to(g.dtype) for g in gs]
+            gs = [g * scale.to(device=g.device, dtype=g.dtype) for g in gs]
+        if guard and outs is not None:
+            if gnorm is None:
+                gnorm = torch.zeros((), device=self.device)
+            # all-finite over the gradients and the outputs
+            ok = torch.stack([torch.isfinite(x).all()
+                              for x in list(gs) + list(outs)]).all()
+        return gs, ok, gnorm, scale
+
+    def _apply(self, state, updated, gs, aux_up, lr, key, guard, ok):
+        """The optimizer update of one replica's ``state`` in place, and its
+        aux states and step counter; under ``guard`` a step whose ``ok`` is
+        False leaves all of it as it was."""
+        params, aux, opt = state["params"], state["aux"], state["opt"]
+        device = state["step"].device
+        t = state["step"].float() + 1.0
+        wd = self._opt.wd
+        needs_key = getattr(self._opt, "fused_needs_key", False)
+        for i, (n, g) in enumerate(zip(updated, gs)):
+            gen = (node_generator(key, _OPT_KEY_OFFSET + i, device)
+                   if needs_key else None)
+            w, s = params[n], opt[n]
             if guard:
-                if gnorm is None:
-                    gnorm = torch.zeros((), device=self.device)
-                # all-finite over the gradients and the outputs
-                ok = torch.stack([torch.isfinite(x).all()
-                                  for x in list(gs) + list(outs)]).all()
-            needs_key = getattr(self._opt, "fused_needs_key", False)
-            for i, (n, g) in enumerate(zip(updated, gs)):
-                gen = (node_generator(key, _OPT_KEY_OFFSET + i, self.device)
-                       if needs_key else None)
-                w, s = params[n], opt[n]
-                if guard:
-                    old_w, old_s = w.clone(), _map_state(torch.clone, s)
-                # bf16 optimizer states: the update computes on a float32
-                # copy, and storage goes back to bfloat16
-                s_up = (_map_state(lambda v: v.to(w.dtype), s)
-                        if self.bf16_opt else s)
-                self._opt.fused_update(
-                    n, w, g, s_up, lr * self._opt.lr_mult.get(n, 1.0),
-                    wd * self._opt.wd_mult.get(n, 1.0), t, key=gen)
-                if self.bf16_opt:
-                    _copy_state(s, s_up)
-                if guard:
-                    w.copy_(torch.where(ok, w, old_w))
-                    _select_state(ok, s, old_s)
-            for k, v in aux_up.items():
-                nv = v.to(aux[k].dtype)
-                aux[k].copy_(torch.where(ok, nv, aux[k]) if guard else nv)
-            # a skipped step is a full no-op: the step counter (and the
-            # noise streams keyed by it) does not advance either
-            state["step"].add_(ok.to(torch.int32) if guard else 1)
-        return [o.detach() for o in outs], ((ok, gnorm) if guard else None)
+                old_w, old_s = w.clone(), _map_state(torch.clone, s)
+            # bf16 optimizer states: the update computes on a float32
+            # copy, and storage goes back to bfloat16
+            s_up = (_map_state(lambda v: v.to(w.dtype), s)
+                    if self.bf16_opt else s)
+            self._opt.fused_update(
+                n, w, g, s_up, lr * self._opt.lr_mult.get(n, 1.0),
+                wd * self._opt.wd_mult.get(n, 1.0), t, key=gen)
+            if self.bf16_opt:
+                _copy_state(s, s_up)
+            if guard:
+                w.copy_(torch.where(ok, w, old_w))
+                _select_state(ok, s, old_s)
+        for k, v in aux_up.items():
+            nv = v.to(aux[k].dtype)
+            aux[k].copy_(torch.where(ok, nv, aux[k]) if guard else nv)
+        # a skipped step is a full no-op: the step counter (and the
+        # noise streams keyed by it) does not advance either
+        state["step"].add_(ok.to(torch.int32) if guard else 1)
 
     def step(self, state, batch, guard=False):
         """One training step. ``batch``: dict name -> array or tensor.
@@ -504,16 +709,21 @@ class TrainStep(object):
         outputs, packed)``, ``packed`` the device tensor ``[loss, correct,
         nsamp, skipped, grad_norm]`` (zeros but ``skipped`` for a skipped
         step)."""
-        batch = self._to_device(batch)
+        batch = self.shard_batch(batch)
         bs = next(iter(batch.values())).shape[0]
         outs, sentinels = self._step(state, batch, self._next_lr(), bs,
                                      guard=guard)
+        labels = [batch.get(n) for n in self.label_names]
+        if self.mesh is not None:
+            # the outputs merged in batch order on replica 0's device
+            outs = [o.gather(self.device).detach() for o in outs]
+            labels = [None if v is None else v.gather(self.device)
+                      for v in labels]
         if not guard:
             return state, outs
         ok, gnorm = sentinels
         zero = torch.zeros((), dtype=torch.float32, device=self.device)
-        loss, correct = _metric_step_sums(
-            outs, [batch.get(n) for n in self.label_names], zero)
+        loss, correct = _metric_step_sums(outs, labels, zero)
         okf = ok.float()
         packed = torch.stack([torch.where(ok, loss, zero),
                               torch.where(ok, correct, zero),
@@ -531,7 +741,7 @@ class TrainStep(object):
         runs guarded steps: skipped steps stay out of every sum, and the
         metrics carry ``skipped`` and ``last_grad_norm`` (a spec without a
         loss pair gains the cross-entropy the guard watches)."""
-        superbatch = self._to_device(superbatch)
+        superbatch = self.shard_superbatch(superbatch)
         vals = list(superbatch.values())
         if not vals:
             raise MXNetError("run_steps: empty superbatch")
@@ -540,43 +750,68 @@ class TrainStep(object):
             raise MXNetError("run_steps: k=%d but superbatch is stacked %d "
                              "deep" % (k, lead))
         k = lead
-        if any(v.shape[0] != k or v.dim() < 2 for v in vals):
+        if any(v.shape[0] != k or len(v.shape) < 2 for v in vals):
             raise MXNetError("run_steps: superbatch arrays must share a "
                              "(k, batch, ...) leading shape, got %r"
                              % {n: tuple(v.shape)
                                 for n, v in superbatch.items()})
         bs = vals[0].shape[1]
+        devs = self.replica_devices
+        # over a mesh each replica sums its own outputs and labels (its
+        # shard), once across the replicas at the end of the dispatch; the
+        # sample counts the sums carry add up to the batch
+        counts = [bs // len(devs) + (r < bs % len(devs))
+                  for r in range(len(devs))]
         if guard:
-            metric_spec = _with_guard_loss(metric_spec, bs)
+            specs = [_with_guard_loss(metric_spec, c) for c in counts]
+        else:
+            specs = [metric_spec] * len(devs)
         if metric_spec is None:
             nslots = 3
-
-            def slot_sums(outs, labels):
-                return _default_slot_sums(outs, labels, bs)
+            sums = [functools.partial(_default_slot_sums, batch_size=c)
+                    for c in counts]
         else:
-            nslots = len(metric_spec.slots)
-            slot_sums = metric_spec.step_sums
+            nslots = len(specs[0].slots)
+            sums = [sp.step_sums for sp in specs]
         lrs = [self._next_lr() for _ in range(k)]
-        acc = torch.zeros(nslots, dtype=torch.float32, device=self.device)
+        accs = [torch.zeros(nslots, dtype=torch.float32, device=d)
+                for d in devs]
         skipped = gnorm = None
         for i in range(k):
-            batch = {n: v[i] for n, v in superbatch.items()}
+            batch = {n: _index(v, i) for n, v in superbatch.items()}
             outs, sentinels = self._step(state, batch, lrs[i], bs,
                                          guard=guard)
-            labels = [batch.get(n) for n in self.label_names]
             with torch.no_grad():
                 # the sums are tensors on the device (a spec fills its
                 # constants there): nothing here waits for the card
-                step_vals = torch.stack([v.float().reshape(())
-                                         for v in slot_sums(outs, labels)])
+                for r, acc in enumerate(accs):
+                    labels = [_parts(batch[n])[r] if n in batch else None
+                              for n in self.label_names]
+                    step_vals = torch.stack(
+                        [v.float().reshape(()) for v in
+                         sums[r]([_parts(o)[r] for o in outs], labels)])
+                    if guard:
+                        acc += torch.where(sentinels[0].to(devs[r]),
+                                           step_vals,
+                                           torch.zeros_like(step_vals))
+                    else:
+                        acc += step_vals
                 if guard:
                     ok, gnorm = sentinels
-                    acc += torch.where(ok, step_vals,
-                                       torch.zeros_like(step_vals))
                     skip = 1.0 - ok.float()
                     skipped = skip if skipped is None else skipped + skip
-                else:
-                    acc += step_vals
+        if len(devs) > 1:
+            from .parallel import mesh as _mesh
+            acc = _mesh.all_reduce(accs, [self.device])[0]
+        else:
+            acc = accs[0]
         if guard:
             acc = torch.cat([acc, torch.stack([skipped, gnorm.float()])])
-        return state, StepMetrics(acc, metric_spec, guarded=guard)
+        return state, StepMetrics(acc, specs[0], guarded=guard)
+
+
+def data_parallel_spec(mesh_shape, n_devices=None, devices=None):
+    """A mesh from a ``{'data': n}`` dict (ref: the JAX package's helper;
+    ``n_devices`` is accepted and unused, as there)."""
+    from .parallel.mesh import make_mesh
+    return make_mesh(mesh_shape, devices)

@@ -285,10 +285,7 @@ def test_options_not_ported_raise(what, call):
 
 
 @pytest.mark.parametrize("what,env,kw", [
-    ("MXTPU_DP_DEVICES", {"MXTPU_DP_DEVICES": "2"}, "noctx"),
     ("MXTPU_LM_MESH", {"MXTPU_LM_MESH": "data=2"}, None),
-    ("context", {}, dict(context=[mt.cpu(0), mt.cpu(1)])),
-    ("work_load_list", {}, dict(work_load_list=[1])),
     ("mesh_axes", {}, dict(mesh_axes="data=2")),
     ("param_shardings", {}, dict(param_shardings={"fc1_weight": None})),
 ])
@@ -299,11 +296,52 @@ def test_environment_and_constructor_options_raise(what, env, kw,
     for k, v in env.items():
         monkeypatch.setenv(k, v)
     with pytest.raises(MXNetError, match=what):
-        if kw == "noctx":
-            mt.mod.Module(tsym)
-            return
         mod = mt.mod.Module(tsym, **(kw or {"context": mt.cpu()}))
         mod.fit(mt.io.NDArrayIter(x, y, batch_size=BATCH), num_epoch=1)
+
+
+@pytest.mark.parametrize("what", ["MXTPU_DP_DEVICES", "context",
+                                  "work_load_list"])
+@pytest.mark.parametrize("k", [1, 4])
+def test_environment_and_constructor_options_match_jax(what, k,
+                                                       monkeypatch):
+    """The data-parallel options train over two replicas as the JAX
+    package's do over two of its devices: ``MXTPU_DP_DEVICES=2`` without a
+    context (the current context's type), ``context=[cpu(0), cpu(1)]``, and
+    with it ``work_load_list`` (kept, the batch split evenly, as the JAX
+    package does). Accuracy counts equal, parameters to the fit
+    tolerance."""
+    jsym, tsym = _symbols("mlp")
+    x, y = _data("mlp", "dp")
+    params = _arg_params(jsym, x, "dp")
+    res = {}
+    for pkg, sym in ((mx, jsym), (mt, tsym)):
+        kw = {}
+        if what == "MXTPU_DP_DEVICES":
+            monkeypatch.setenv("MXTPU_DP_DEVICES", "2")
+        else:
+            kw["context"] = [pkg.cpu(0), pkg.cpu(1)]
+        if what == "work_load_list":
+            kw["work_load_list"] = [1, 3]
+        with pkg.cpu():
+            mod = pkg.mod.Module(sym, **kw)
+        monkeypatch.delenv("MXTPU_DP_DEVICES", raising=False)
+        assert len(mod._context) == 2
+        metric = pkg.metric.Accuracy()
+        acc = []
+        mod.fit(pkg.io.NDArrayIter(x, y, batch_size=BATCH), num_epoch=2,
+                eval_metric=metric,
+                arg_params={n: pkg.nd.array(v, ctx=pkg.cpu())
+                            for n, v in params.items()},
+                optimizer="sgd", optimizer_params=OPT, steps_per_dispatch=k,
+                epoch_end_callback=lambda *a: acc.append(
+                    (int(round(metric.sum_metric)), metric.num_inst)))
+        res[pkg.__name__] = (acc, _host(mod.get_params()[0]))
+    (jacc, jp), (tacc, tp) = res["mxnet_tpu"], res["mxnet_tpu_torch"]
+    assert tacc == jacc
+    for n in jp:
+        np.testing.assert_allclose(tp[n], jp[n], rtol=1e-4, atol=1e-4,
+                                   err_msg=n)
 
 
 @pytest.mark.parametrize("updater", [False, True])
