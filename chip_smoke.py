@@ -300,6 +300,31 @@ non-zero):
    device (each parameter's difference within 5% of its one-device
    update's norm), tokens/s for 1 and 2 replicas. Both replicas share
    the card: no scaling figure.
+19. axes: the 'model', 'seq' and 'pipe' axes, every position on cuda:0,
+   through TrainStep(mesh=, param_shardings=, group2ctx=). (a) Phase 17's
+   LM (bf16, SGD as there) over seq=2 and data=2,seq=2 (ring attention,
+   preserve_shape, pos_embed_weight on P('seq', None)) and pipe=2
+   (stack_layers, the stacked weights on P('pipe'), 2 microbatches): 4
+   steps each from the one-device state before it, each parameter's
+   difference within 10% of its one-device update's norm
+   (AXES_LM_RTOL: twice phase 18's measured bf16 floor), the ring's
+   rotations and no gather, the pipeline's hops; ms a step (CUDA events)
+   and host ms a step against one device, the device launches of one
+   step against one device's (torch.profiler), B1-B3 launches and the
+   collectives by kind a step; a control step of seq=2 with the
+   gradients summed over 'data' only must fail the bound; then one
+   float32 step of seq=2 with TF32 off within 1% (AXES_F32_RTOL), a
+   float64 step on one device printed beside it as the floor, and as its
+   control the same mesh step in bf16 compute, which must fail that
+   bound (a TF32 mesh step printed beside it). (b)
+   example/model-parallel-lstm/lstm.py's LSTM at its defaults (seq 16, 4
+   layers, hidden 128, embed 64, vocab 64, batch 32) with every group on
+   a 2-position 'model' axis, 60 Adam steps at lr 0.01 from the
+   one-device start: the loss halves, the first 10 losses and the
+   parameters after them within the example's check bound (rtol 1e-4,
+   atol 1e-4) of the one-device run, the i2h weight held as shards; ms
+   a step. No kernel of B1-B3 may launch. The positions share the card:
+   no scaling figure.
 
 The line before the last is {"kernels": [...]} (per kernel: launches on
 its main path (phase 16's LSTM path and phase 17's LM path launch none;
@@ -5611,6 +5636,448 @@ def mesh_phase(seed, card):
     return launches
 
 
+#: phase 19: the model, seq and pipe axes, every position on MESH_DEVICE.
+#: (a) phase 17's LM over each mesh: its name, axes and kind ("ring":
+#: seq_parallel="ring" with pos_embed_weight on P('seq', None), as bench.py
+#: lm_main's rows; "pipe": stack_layers=True with the stacked weights on
+#: P('pipe') and AXES_MICRO microbatches), each of AXES_K steps run on the
+#: mesh from the one-device state before it
+AXES_LM_MESHES = (("seq=2", {"seq": 2}, "ring"),
+                  ("data=2,seq=2", {"data": 2, "seq": 2}, "ring"),
+                  ("pipe=2", {"pipe": 2}, "pipe"))
+AXES_K = 4
+AXES_MICRO = 2
+#: bf16 compute: each parameter's |mesh - one device| within this fraction
+#: of the norm of its one-device update. A bf16 step's update differs by
+#: its own rounding wherever sums run in another order: phase 18 measured
+#: 0.03446 for the 'data' mesh's LM (its batch sums split in two); the
+#: ring adds another order (the softmax statistics corrected across 2
+#: shards in bf16) and the pipeline another (microbatches of 16 rows), so
+#: the bound is twice that floor rounded up. A step that sums a replicated
+#: weight's gradient over 'data' only is off by half its update or more:
+#: the control step below must fail it
+AXES_LM_RTOL = 1e-1
+#: float32 (TF32 off): one step of the seq=2 mesh, the same measure, with
+#: a float64 step on one device beside it for the arithmetic's own floor.
+#: On the card (NVIDIA H100 80GB HBM3, 700 W) one device's f32 update lay
+#: 3.80e-4 of its norm off the float64 update and the mesh's 1.037e-3
+#: (the ring's two-pass softmax), the mesh 1.037e-3 off one device. The
+#: same mesh step in bf16 compute, held against the f32 one-device update,
+#: must fail the bound (its control); the step with TF32 matrix products
+#: is printed beside it. The bound lies between the sound reading and
+#: the control's
+AXES_F32_RTOL = 1e-2
+#: (b) example/model-parallel-lstm/lstm.py's defaults: sequence, layers,
+#: hidden, embed, vocabulary, batch; Adam at MP_LSTM_LR, MP_LSTM_STEPS
+#: steps, every group on a 'model' axis of MP_LSTM_POSITIONS positions
+MP_LSTM = dict(seq=16, layers=4, hidden=128, embed=64, vocab=64, batch=32)
+MP_LSTM_STEPS = 60
+MP_LSTM_LR = 0.01
+MP_LSTM_POSITIONS = 2
+#: the example's --check bound (rtol, atol) over the span it checks: the
+#: first MP_LSTM_SNAP losses, and the parameters after those steps (later,
+#: Adam's normalisation turns the last-bit differences of near-zero
+#: gradients into whole steps of size lr; the loss must halve over 60)
+MP_LSTM_SNAP = 10
+MP_LSTM_CHECK = (1e-4, 1e-4)
+
+
+def mp_lstm_symbol(mt, seq_len, num_layers, num_hidden, num_embed,
+                   vocab_size, batch_size):
+    """example/model-parallel-lstm/lstm.py's build_symbol from the port's
+    ``mt.rnn.LSTMCell`` and ``mt.AttrScope``: layer k in ctx_group
+    'layer%d', the embedding in 'embed', the decoder in 'decode'.
+    Returns (symbol, state names)."""
+    sym = mt.sym
+    with mt.symbol.NameManager():
+        data = sym.Variable("data")
+        label = sym.Variable("softmax_label")
+        with mt.AttrScope(ctx_group="embed"):
+            outputs = sym.Embedding(data, name="embed",
+                                    input_dim=vocab_size,
+                                    output_dim=num_embed)
+        state_names = []
+        for k in range(num_layers):
+            with mt.AttrScope(ctx_group="layer%d" % k):
+                cell = mt.rnn.LSTMCell(num_hidden, prefix="lstm%d_" % k)
+                begin = cell.begin_state(shape=(batch_size, num_hidden))
+                state_names += [s.name for s in begin]
+                outputs, _ = cell.unroll(seq_len, inputs=outputs,
+                                         begin_state=begin, layout="NTC",
+                                         merge_outputs=True)
+        with mt.AttrScope(ctx_group="decode"):
+            flat = sym.Reshape(outputs, shape=(-1, num_hidden))
+            pred = sym.FullyConnected(flat, name="pred",
+                                      num_hidden=vocab_size)
+            lab = sym.Reshape(label, shape=(-1,))
+            out = sym.SoftmaxOutput(pred, lab, name="softmax")
+    return out, state_names
+
+
+def _update_ratio(got, new, old):
+    """(worst |got - new| / |new - old| over the tensors, its name)."""
+    import torch
+    worst, where = 0.0, None
+    for k, v in new.items():
+        a = got[k].float()
+        if not bool(torch.isfinite(a).all()):
+            return float("inf"), k
+        upd = float(torch.linalg.norm(v.float() - old[k].float()))
+        r = float(torch.linalg.norm(a - v.float())) / max(upd, 1e-30)
+        if r > worst:
+            worst, where = r, k
+    return worst, where
+
+
+def _b123_launches():
+    """B1's, B2's and B3's launch counts summed."""
+    from mxnet_tpu_torch import rtc
+    from mxnet_tpu_torch.ops import matmul_stats as ms, multibox_nms as mb
+    return ms.LAUNCHES + mb.LAUNCHES + rtc.TRITON_LAUNCHES + rtc.RTC_LAUNCHES
+
+
+def step_launches(fn, tries=4):
+    """Device launches (kernels, copies and memsets) of one call of ``fn``
+    by torch.profiler, as phase 17 counts a step's: profiled until two
+    profiles in a row record the same counts (the profiler has been seen
+    to drop records), at most ``tries`` times; None if they never
+    agree."""
+    fn()
+    prev = None
+    for _ in range(tries):
+        kernels = profiled_kernels(fn, 1) or []
+        counts = {e.key: e.count for e in kernels}
+        if counts and counts == prev:
+            return sum(counts.values())
+        prev = counts
+    return None
+
+
+def _axes_dispatch(ts, state, feed, k):
+    """One ``run_steps`` dispatch of ``k`` steps: (device ms by CUDA events,
+    host ms until the call returned, collectives by kind, B1-B3 launches),
+    each a step."""
+    import torch
+    from mxnet_tpu_torch.parallel import mesh as pm
+    torch.cuda.synchronize()
+    pm.reset_counters()
+    b0 = _b123_launches()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    t = time.perf_counter()
+    ts.run_steps(state, feed)
+    host = (time.perf_counter() - t) * 1e3
+    end.record()
+    torch.cuda.synchronize()
+    return (start.elapsed_time(end) / k, host / k,
+            {c: v / k for c, v in pm.COUNTERS.items()},
+            (_b123_launches() - b0) / k)
+
+
+def _axes_lm(axes, kind, seed, dev, dtype, steps, f64=False,
+             mesh_dtype="same", mesh_tf32=False):
+    """Phase 19 (a) over one mesh: ``steps`` steps each from the
+    one-device state before it. Returns (the worst update ratio, its
+    parameter, the collectives of the first mesh step, and with
+    ``steps == AXES_K`` the timed dispatches of one device and the mesh
+    as ``_axes_dispatch`` gives them, each with the device launches of
+    one step (:func:`step_launches`) appended; with ``f64`` instead the
+    worst ratios of one device's and of the mesh's first step against a
+    float64 step on one device). ``mesh_dtype`` (the mesh's compute
+    dtype, ``dtype``'s by default) and ``mesh_tf32`` (its steps with
+    TF32 matrix products) make the mesh's arithmetic coarser than one
+    device's, for the float32 check's controls."""
+    import torch
+    from mxnet_tpu_torch.parallel import mesh as pm
+    from mxnet_tpu_torch.train_step import TrainStep
+    n = int(np.prod(list(axes.values())))
+    mesh = pm.make_mesh(axes, [dev] * n)
+    host = lm_params(seed)
+    if kind == "ring":
+        msym = lm_symbol(seq_parallel="ring", preserve_shape=True)
+        osym = lm_symbol(preserve_shape=True)
+        shard = {"pos_embed_weight": pm.P("seq", None)}
+    else:
+        msym = lm_symbol(stack_layers=True, num_microbatches=AXES_MICRO,
+                         preserve_shape=True)
+        osym = lm_symbol(stack_layers=True, preserve_shape=True)
+        host = _stack_params(host)
+        shard = {k: pm.P("pipe") for k in host if k.startswith("stack_")}
+    x, y = lm_tokens(seed, steps * LM_BATCH)
+    xs = torch.from_numpy(x.reshape(steps, LM_BATCH, LM_SEQ)).to(dev)
+    ys = torch.from_numpy(y.reshape(steps, LM_BATCH, LM_SEQ)).to(dev)
+    opt = dict(optimizer="sgd", learning_rate=LM_OPT["learning_rate"],
+               momentum=LM_OPT["momentum"], wd=LM_OPT["wd"],
+               rescale_grad=LM_OPT["rescale_grad"], compute_dtype=dtype)
+    one = TrainStep(osym, device=dev, **opt)
+    if mesh_dtype != "same":
+        opt = dict(opt, compute_dtype=mesh_dtype)
+    ts = TrainStep(msym, mesh=mesh, param_shardings=shard, **opt)
+    st = one.init({"data": (LM_BATCH, LM_SEQ)},
+                  {"softmax_label": (LM_BATCH, LM_SEQ)})
+    for k, v in host.items():
+        st["params"][k].copy_(torch.from_numpy(v))
+    worst, where, colls, floor = 0.0, None, None, None
+    for i in range(steps):
+        batch = {"data": xs[i], "softmax_label": ys[i]}
+        mst = ts.replicate_state(clone_state(st))
+        pm.reset_counters()
+        saved = torch.backends.cuda.matmul.allow_tf32
+        torch.backends.cuda.matmul.allow_tf32 = saved or mesh_tf32
+        try:
+            ts.step(mst, batch)
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = saved
+        if colls is None:
+            colls = dict(pm.COUNTERS)
+        old = clone_state(st)["params"]
+        if f64 and i == 0:
+            ref = TrainStep(osym, device=dev, dtype=np.float64, **opt)
+            st64 = ref.init({"data": (LM_BATCH, LM_SEQ)},
+                            {"softmax_label": (LM_BATCH, LM_SEQ)})
+            for k, v in st["params"].items():
+                st64["params"][k].copy_(v.double())
+            ref.step(st64, batch)
+        one.step(st, batch)
+        got = ts.whole_state(mst)["params"]
+        r, w = _update_ratio(got, st["params"], old)
+        if r > worst:
+            worst, where = r, w
+        if f64 and i == 0:
+            floor = (_update_ratio(st["params"], st64["params"], old),
+                     _update_ratio(got, st64["params"], old))
+    if steps < AXES_K:
+        return worst, where, colls, floor
+    feed = {"data": xs, "softmax_label": ys}
+    batch = {"data": xs[0], "softmax_label": ys[0]}
+    timing = {}
+    for tag, step, state, fd in (
+            ("one", one, clone_state(st), feed),
+            ("mesh", ts, ts.replicate_state(clone_state(st)),
+             ts.shard_superbatch(feed))):
+        _axes_dispatch(step, state, fd, steps)      # warm
+        timing[tag] = _axes_dispatch(step, state, fd, steps) + (
+            step_launches(lambda: step.step(state, batch)),)
+    return worst, where, colls, timing
+
+
+def axes_phase(seed, card):
+    """Phase 19 (see the module docstring)."""
+    import torch
+    import mxnet_tpu_torch as mt
+    from mxnet_tpu_torch import convert, rtc
+    from mxnet_tpu_torch.ops import matmul_stats as ms, multibox_nms as mb
+    from mxnet_tpu_torch.parallel import mesh as pm
+    from mxnet_tpu_torch.train_step import TrainStep
+    t_phase = time.perf_counter()
+    problems = []
+    dev = torch.device(MESH_DEVICE)
+    ms.reset_launches()
+    mb.reset_launches()
+    rtc0 = rtc.TRITON_LAUNCHES + rtc.RTC_LAUNCHES
+
+    # (a) the LM over seq=2, data=2,seq=2 and pipe=2
+    for name, axes, kind in AXES_LM_MESHES:
+        t = time.perf_counter()
+        worst, where, colls, timing = _axes_lm(axes, kind, seed, dev,
+                                               LM_DTYPE, AXES_K)
+        (d1, h1, _, _, l1), (dn, hn, cn, bn, ln) = (timing["one"],
+                                                    timing["mesh"])
+        log("axes (a) %s LM (embed %d, %d layers, seq %d, batch %d, bf16) "
+            "%d steps, each from the one-device state: worst |mesh - one| "
+            "/ |one's update| %.4g (%s; bound %g); ms a step %.3f against "
+            "%.3f on one device (CUDA events around a %d-step dispatch), "
+            "host ms a step %.3f against %.3f; device launches a step %s "
+            "against %s on one device (torch.profiler, one step); B1-B3 "
+            "launches a step %g; collectives a step %s; %.1f s [%s]"
+            % (name, LM_EMBED, LM_LAYERS, LM_SEQ, LM_BATCH, AXES_K, worst,
+               where, AXES_LM_RTOL, dn, d1, AXES_K, hn, h1, ln, l1, bn,
+               json.dumps({k: round(v, 2) for k, v in cn.items()}),
+               time.perf_counter() - t, card))
+        if bn:
+            problems.append("axes %s: %g B1-B3 launches a step" % (name, bn))
+        if worst > AXES_LM_RTOL:
+            problems.append("axes %s: %.3g of the update off one device"
+                            % (name, worst))
+        if kind == "ring" and (cn["ppermute"] == 0 or cn["all_gather"]):
+            problems.append("axes %s: ring rotations %g, gathers %g a step"
+                            % (name, cn["ppermute"], cn["all_gather"]))
+        if kind == "pipe" and cn["ppermute"] == 0:
+            problems.append("axes %s: no pipeline hop" % name)
+    # control: the replicated weights' gradients summed over 'data' only
+    # (as a 'data' mesh alone would): one seq=2 step must fail the bound
+    from mxnet_tpu_torch import train_step as _ts
+    real = _ts.shard_grad_sums
+
+    def data_only(grads, m, spec):
+        out = list(grads)
+        for grp in pm.axis_groups(m, pm.AXIS_DATA):
+            summed = pm.all_reduce([grads[r] for r in grp],
+                                   [m.replica_devices()[r] for r in grp])
+            for r, g in zip(grp, summed):
+                out[r] = g
+        return out
+    _ts.shard_grad_sums = data_only
+    try:
+        ctl, ctl_where, _, _ = _axes_lm({"seq": 2}, "ring", seed, dev,
+                                        LM_DTYPE, 1)
+    finally:
+        _ts.shard_grad_sums = real
+    log("axes (a) control, seq=2 with gradients summed over 'data' only: "
+        "worst %.4g (%s), which must exceed the bound %g"
+        % (ctl, ctl_where, AXES_LM_RTOL))
+    if not ctl > AXES_LM_RTOL:
+        problems.append("axes control: %.3g within the bound" % ctl)
+    # the tighter float32 check: one step of the seq=2 mesh, TF32 off
+    saved = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        worst, where, _, floor = _axes_lm({"seq": 2}, "ring", seed, dev,
+                                          None, 1, f64=True)
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = saved
+    (f1, w1), (fm, wm) = floor
+    log("axes (a) seq=2 LM float32 (TF32 off), one step from the same "
+        "state: worst |mesh - one| / |one's update| %.4g (%s; bound %g); "
+        "against a float64 step on one device: one device %.4g (%s), the "
+        "mesh %.4g (%s)" % (worst, where, AXES_F32_RTOL, f1, w1, fm, wm))
+    if worst > AXES_F32_RTOL:
+        problems.append("axes seq=2 f32: %.3g of the update off one device"
+                        % worst)
+    # its controls: the same mesh step with coarser matrix products, each
+    # against the f32 one-device update, must fail the bound
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        tf32, tf32_where, _, _ = _axes_lm({"seq": 2}, "ring", seed, dev,
+                                          None, 1, mesh_tf32=True)
+        bf16, bf16_where, _, _ = _axes_lm({"seq": 2}, "ring", seed, dev,
+                                          None, 1, mesh_dtype=LM_DTYPE)
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = saved
+    log("axes (a) float32 controls, the seq=2 mesh step against the f32 "
+        "one-device update: TF32 matrix products %.4g (%s), bf16 compute "
+        "%.4g (%s), which must exceed the bound %g"
+        % (tf32, tf32_where, bf16, bf16_where, AXES_F32_RTOL))
+    if not bf16 > AXES_F32_RTOL:
+        problems.append("axes f32 control: bf16 %.3g within the bound"
+                        % bf16)
+    torch.cuda.empty_cache()
+
+    # (b) the model-parallel LSTM of example/model-parallel-lstm
+    c = MP_LSTM
+    sym, names = mp_lstm_symbol(mt, c["seq"], c["layers"], c["hidden"],
+                                c["embed"], c["vocab"], c["batch"])
+    rng = np.random.default_rng(seed)
+    starts = rng.integers(1, c["vocab"] - 1, size=(c["batch"],))
+    seq = (starts[:, None] + np.arange(c["seq"] + 1)) % (c["vocab"] - 1) + 1
+    x = seq[:, :-1].astype(np.float32)
+    y = seq[:, 1:].astype(np.float32)
+    batch = {"data": torch.from_numpy(x).to(dev),
+             "softmax_label": torch.from_numpy(y).to(dev)}
+    batch.update({n: torch.zeros((c["batch"], c["hidden"]), device=dev)
+                  for n in names})
+    shapes = {"data": (c["batch"], c["seq"])}
+    shapes.update({n: (c["batch"], c["hidden"]) for n in names})
+    g2c = {"embed": "model", "decode": "model"}
+    g2c.update({"layer%d" % k: "model" for k in range(c["layers"])})
+    n_pos = MP_LSTM_POSITIONS
+    mesh = pm.make_mesh({"model": n_pos}, [dev] * n_pos)
+    yi = y.reshape(-1).astype(int)
+    runs = {}
+    saved = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        start = None
+        for tag, m, g in (("one", None, None), ("mesh", mesh, g2c)):
+            ts = TrainStep(sym, data_names=["data"] + names,
+                           optimizer="adam", learning_rate=MP_LSTM_LR,
+                           mesh=m, group2ctx=g,
+                           device=None if m is not None else dev)
+            if start is None:
+                st = ts.init(shapes, {"softmax_label": (c["batch"],
+                                                        c["seq"])}, seed=42)
+                start = convert.to_reference_state(st)
+            else:
+                ts.init(shapes, {"softmax_label": (c["batch"], c["seq"])})
+                st = ts.replicate_state(convert.from_reference_state(
+                    start, dev))
+            losses, snap = [], None
+            pm.reset_counters()
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            ev0 = torch.cuda.Event(enable_timing=True)
+            ev1 = torch.cuda.Event(enable_timing=True)
+            ev0.record()
+            probs = []
+            for i in range(MP_LSTM_STEPS):
+                st, outs = ts.step(st, batch)
+                probs.append(outs[0].detach().reshape(-1, c["vocab"])[
+                    torch.arange(len(yi), device=dev),
+                    torch.from_numpy(yi).to(dev)])
+                if i + 1 == MP_LSTM_SNAP:
+                    snap = {k: v.detach().clone() for k, v in
+                            ts.whole_state(st)["params"].items()}
+            ev1.record()
+            torch.cuda.synchronize()
+            host = (time.perf_counter() - t) * 1e3 / MP_LSTM_STEPS
+            colls = {k: v / MP_LSTM_STEPS for k, v in pm.COUNTERS.items()}
+            losses = [float(-torch.log(torch.clamp_min(p, 1e-8)).mean())
+                      for p in probs]
+            runs[tag] = (losses, snap, ev0.elapsed_time(ev1) / MP_LSTM_STEPS,
+                         host, colls, ts, st)
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = saved
+    losses, snap, dms, hms, colls, ts, st = runs["mesh"]
+    rl, rsnap, rdms, rhms = runs["one"][:4]
+    rtol, atol = MP_LSTM_CHECK
+    loss_err = max(abs(a - b) / (atol + rtol * abs(b))
+                   for a, b in zip(losses[:MP_LSTM_SNAP], rl[:MP_LSTM_SNAP]))
+    par_err, par_where = 0.0, None
+    for k, v in rsnap.items():
+        r = float(((snap[k] - v).abs() / (atol + rtol * v.abs())).max())
+        if r > par_err:
+            par_err, par_where = r, k
+    shard = tuple(st["params"]["lstm0_i2h_weight"].shape)
+    log("axes (b) model-parallel LSTM (seq %d, %d layers, hidden %d, "
+        "embed %d, vocab %d, batch %d, Adam lr %g) over model=%d: nll %.4f "
+        "-> %.4f in %d steps (one device %.4f -> %.4f); the first %d "
+        "losses at %.3g and the parameters after them at %.3g (%s) of the "
+        "bound rtol %g, atol %g; lstm0_i2h_weight shard %s; ms a step "
+        "%.3f against %.3f on one device (CUDA events), host ms a step "
+        "%.3f against %.3f; collectives a step %s [%s]"
+        % (c["seq"], c["layers"], c["hidden"], c["embed"], c["vocab"],
+           c["batch"], MP_LSTM_LR, n_pos, losses[0], losses[-1],
+           MP_LSTM_STEPS, rl[0], rl[-1], MP_LSTM_SNAP, loss_err, par_err,
+           par_where, rtol, atol, shard, dms, rdms, hms, rhms,
+           json.dumps({k: round(v, 2) for k, v in colls.items()}), card))
+    if not losses[-1] < 0.5 * losses[0]:
+        problems.append("mp lstm: loss %.4f -> %.4f did not halve"
+                        % (losses[0], losses[-1]))
+    if loss_err > 1.0 or par_err > 1.0:
+        problems.append("mp lstm: %.3g / %.3g of the check bound"
+                        % (loss_err, par_err))
+    if shard != (4 * c["hidden"] // n_pos, c["embed"]):
+        problems.append("mp lstm: i2h weight not sharded: %s" % (shard,))
+    launched = (ms.LAUNCHES, mb.LAUNCHES,
+                rtc.TRITON_LAUNCHES + rtc.RTC_LAUNCHES - rtc0)
+    if any(launched):
+        problems.append("axes: B1-B3 launched %s times" % (launched,))
+    log("axes: every position shares %s, so these are the card's own costs "
+        "of the sharded step, not a scaling figure; the phase took %.1f s"
+        % (dev, time.perf_counter() - t_phase))
+    if problems:
+        raise SystemExit("axes phase failed: " + "; ".join(problems))
+
+
 def _nodes(sym):
     from mxnet_tpu_torch.symbol import _topo
     return _topo(sym._out_nodes())
@@ -5678,6 +6145,7 @@ def main():
     rnn_phase(args.seed, card)
     lm_phase(args.seed, card, lm_prof)
     mesh_launches = mesh_phase(args.seed, card)
+    axes_phase(args.seed, card)
     # B1 runs on three main paths: the train phase, the training API and
     # the bf16 mesh; its float32 route on the module phase and the f32 mesh
     b1.update(launches=b1["launches"] + api_launches + mesh_launches["wgmma"],

@@ -48,7 +48,7 @@ from . import ndarray as nd
 from . import ops
 from . import symbol
 from . import symbol as sym
-from .symbol import Symbol, Variable, Group
+from .symbol import Symbol, Variable, Group, AttrScope
 from .ndarray import NDArray
 from . import autograd
 from . import executor

@@ -5,11 +5,14 @@ Counterpart of ``mxnet_tpu/executor.py`` (ref: src/executor/
 graph_executor.cc, python/mxnet/executor.py). The JAX package traces the
 walk into one XLA program and differentiates it with ``jax.vjp``; here
 each op runs eagerly on the tensors' device and torch's autograd records
-the training forward. Over a 'data' mesh of replicas (``mesh=``) one walk
-runs every replica's shard of the batch in lock step. Placement
-(``ctx_group``/``group2ctx``), the sharding hook and ``shared_exec``
-across devices are not ported (ROADMAP.md A.7b); the arguments that
-select them raise.
+the training forward. Over a mesh (``mesh=``) one walk runs every
+position's shard in lock step: over a 'data' mesh each replica's shard of
+the batch, over a mesh with a 'model', 'seq' or 'pipe' axis each value by
+its partition spec (``spec_plan``). Placement (``ctx_group`` and
+``group2ctx``, ``parallel.placement``) shards the grouped parameters over
+the mesh and re-lays the grouped nodes' outputs. The serving tier's
+sharding hook (``node_constraint``) and ``shared_exec`` across devices are
+not ported (ROADMAP.md A.7c); the arguments that select them raise.
 
 The Conv1x1->BatchNorm fusion pass is the JAX package's, under the same
 knob: ``MXTPU_FUSE_CONV_BN`` ``"0"`` (the default) leaves the graph as it
@@ -102,18 +105,6 @@ def remat_segments(nodes):
     return segs
 
 
-#: ops whose axis attribute ``(name, default)`` picks the dimension they
-#: work along: over a 'data' mesh, one that works along the batch axis
-#: runs on the whole batch
-_AXIS_ATTRS = {"Concat": ("dim", 1), "SliceChannel": ("axis", 1),
-               "slice_axis": ("axis", None), "flip": ("axis", None),
-               "sort": ("axis", -1), "argsort": ("axis", -1),
-               "topk": ("axis", -1), "take": ("axis", 0)}
-
-#: ops that split a batch only where it is their outermost dimension
-_RESHAPES = ("Reshape", "Flatten")
-
-
 def _split_axis(gshape, lshape, n):
     """The axis along which ``lshape`` is one of ``n`` equal shards of
     ``gshape``, or None."""
@@ -125,53 +116,164 @@ def _split_axis(gshape, lshape, n):
     return None
 
 
-def mesh_plan(node, ins, n):
-    """How node ``node`` runs over a 'data' mesh of ``n`` replicas, given
-    its inputs (:class:`~mxnet_tpu_torch.parallel.mesh.MeshArray`):
-    ``("replica", axes)`` runs the op on each replica's own parts, its
-    outputs split along ``axes`` (None: replicated, for an op without a
-    split input); ``("whole", axes)`` runs it on the whole batch, gathered
-    on every replica, and keeps each output's shard where it splits along
-    an axis (else the whole output on every replica). An op runs per
-    replica only where its result is its shards' results side by side: its
-    axis attribute misses the batch axis, a reshape splits the batch only
-    as its outermost dimension, it draws no random numbers, and the
-    output shapes it infers for the whole batch and for one shard differ
-    by a factor ``n`` in one axis. An op whose attributes fix the whole
-    batch's shape (a Reshape to a literal batch size) has no shapes at one
-    shard's: it runs on the whole batch. Shape inference that fails at the
-    whole batch's shapes raises, naming the node."""
-    split = [v for v in ins if v.axis is not None]
-    if not split:
-        return "replica", None
+def _local_shapes(ins, mesh, axis, keep=None):
+    """Each input's shape at one shard of ``axis`` (the dimension its spec
+    splits along ``axis`` divided); ``keep`` (indices) are taken whole
+    along it."""
+    out = []
+    for i, v in enumerate(ins):
+        sh = list(v.shape)
+        if (keep is None or i not in keep) and axis in v.spec:
+            d = v.spec.index(axis)
+            sh[d] //= mesh.size(axis)
+        out.append(tuple(sh))
+    return out
+
+
+def _axis_ok(node, ins, axis):
+    """The rules of an op along one mesh axis, beyond shape inference
+    (the ``OpDef`` mesh fields)."""
     op, attrs = node.op, node.attrs
-    ax = split[0].axis
-    gin = [v.shape for v in ins]
-    lin = [tuple(v.parts[0].shape) for v in ins]
+    if op.needs_rng or op.mesh_whole:
+        return False
+    first = ins[0] if ins else None
+    split0 = [d for d, a in enumerate(first.spec) if a == axis] \
+        if first is not None else []
+    if axis != "data":
+        if not op.mesh_split:
+            return False
+        if op.mesh_weight is not None:
+            # the weight (and bias) split along its output dimension only
+            split = [axis in v.spec for v in ins[1:]]
+            if any(split) and not all(
+                    s_ and v.spec.index(axis) == 0
+                    for s_, v in zip(split, ins[1:])):
+                return False
+        if any(axis in ins[i].spec for i in op.mesh_whole_inputs
+               if i < len(ins)):
+            return False
+    if op.mesh_axis is not None and first is not None:
+        attr, default = op.mesh_axis
+        a = attrs.get(attr, default)
+        if a is None or str(a) == "None":
+            return False
+        if int(a) % first.ndim in split0:
+            return False
+    if op.mesh_reshape and split0 and int(
+            np.prod(first.shape[:split0[0]])) > 1:
+        return False
+    return True
+
+
+def _splits_contraction(node, x, axis):
+    """Whether the data ``x`` of a weight op is split along ``axis`` in a
+    dimension the op contracts (or, for a convolution, slides over)."""
+    bad = range(1, x.ndim)
+    if node.op.name == "FullyConnected" and str(node.attrs.get(
+            "flatten", True)) in ("False", "0", "false"):
+        bad = [x.ndim - 1]
+    return any(a == axis and d in bad for d, a in enumerate(x.spec))
+
+
+def _infer_local(node, lin, ins, mesh, axis):
+    """Output shapes at one shard's input shapes ``lin``; a weight op
+    infers them with its output size at its weight's shard. None where
+    inference fails."""
+    attrs = node.attrs
+    if node.op.mesh_weight is not None and len(lin) > 1:
+        attrs = dict(attrs)
+        attrs[node.op.mesh_weight] = str(lin[1][0])
     try:
-        _, gout, _ = op.infer_shape(attrs, gin)
+        return node.op.infer_shape(attrs, lin)[1]
+    except (MXNetError, ValueError, IndexError, TypeError):
+        return None
+
+
+def spec_plan(node, ins, mesh):
+    """How node ``node`` runs over a mesh, given its inputs (:class:`~mxnet_tpu_torch.parallel.mesh.
+    MeshArray`s). Each mesh axis an input splits is decided on its own,
+    from the op's output shapes at one shard of that axis and its rules
+    (:func:`_axis_ok`): ``"split"`` runs the op per position on the shards
+    and its outputs split along the dimension the shapes show;
+    ``"gather0"`` (a weight op whose weight splits along its output
+    dimension, on data split along the axis) gathers the data along the
+    axis first and keeps the weight's shard; otherwise every input is
+    gathered along the axis and the op's output, whole along it, is split
+    again where the shapes show a dimension (else left whole). Returns
+    ``(gathers, out_specs, narrows)``: the axes to gather each input
+    along, each output's spec after the per-position run, and the
+    ``(output, axis, dim)`` splits to take after it."""
+    gin = [v.shape for v in ins]
+    try:
+        _, gout, _ = node.op.infer_shape(node.attrs, gin)
     except MXNetError as e:
         raise MXNetError("mesh: node %r (op %s) infers no shapes at the "
-                         "whole batch's %s: %s" % (node.name, op.name, gin, e))
-    try:
-        _, lout, _ = op.infer_shape(attrs, lin)
-    except MXNetError:
-        return "whole", [None] * len(gout)
-    axes = [_split_axis(g, l, n) for g, l in zip(gout, lout)]
-    whole = op.needs_rng or op.name == "tile"
-    if op.name in _AXIS_ATTRS:
-        attr, default = _AXIS_ATTRS[op.name]
-        a = attrs.get(attr, default)
-        first = ins[0]
-        if a is None or str(a) == "None":
-            whole = True
-        elif first.axis is not None and int(a) % first.ndim == first.axis:
-            whole = True
-    if op.name in _RESHAPES and int(np.prod(gin[0][:ax])) > 1:
-        whole = True
-    if whole or any(a is None for a in axes):
-        return "whole", axes
-    return "replica", axes
+                         "whole array's %s: %s" % (node.name, node.op.name,
+                                                   gin, e))
+    gathers = [[] for _ in ins]
+    out_specs = [[None] * len(g) for g in gout]
+    narrows = []
+    used = [a for a in mesh.axis_names
+            if any(a in v.spec for v in ins) and mesh.size(a) > 1]
+    for axis in used:
+        n = mesh.size(axis)
+
+        def dims_at(keep=None):
+            lout = _infer_local(node, _local_shapes(ins, mesh, axis, keep),
+                                ins, mesh, axis)
+            if lout is None or len(lout) != len(gout):
+                return None
+            return [_split_axis(tuple(g), tuple(l), n)
+                    for g, l in zip(gout, lout)]
+
+        def free(dims):
+            return all(d is not None and out_specs[j][d] is None
+                       for j, d in enumerate(dims))
+        ok = _axis_ok(node, ins, axis)
+        weight_op = node.op.mesh_weight is not None and axis != "data"
+        dims = dims_at() if ok and not (
+            weight_op and _splits_contraction(node, ins[0], axis)) else None
+        if dims is not None and free(dims):
+            for j, d in enumerate(dims):
+                out_specs[j][d] = axis
+            continue
+        if (ok and weight_op and axis in ins[0].spec
+                and any(axis in v.spec for v in ins[1:])):
+            dims = dims_at(keep={0})
+            if dims is not None and free(dims):
+                gathers[0].append(axis)
+                for j, d in enumerate(dims):
+                    out_specs[j][d] = axis
+                continue
+        for i, v in enumerate(ins):
+            if axis in v.spec:
+                gathers[i].append(axis)
+        dims = dims_at()
+        for j, d in enumerate(dims or [None] * len(gout)):
+            if d is not None and out_specs[j][d] is None:
+                narrows.append((j, axis, d))
+                out_specs[j][d] = axis
+    run_specs = [tuple(None if (j, a, d) in narrows else a
+                       for d, a in enumerate(sp))
+                 for j, sp in enumerate(out_specs)]
+    return gathers, run_specs, narrows
+
+
+def mesh_plan(node, ins, n):
+    """:func:`spec_plan` over a 'data' mesh of ``n`` replicas, in the
+    replica terms: ``("replica", axes)`` runs the op on each replica's own
+    parts, its outputs split along ``axes`` (None: replicated, for an op
+    without a split input); ``("whole", axes)`` runs it on the whole batch,
+    gathered on every replica, and keeps each output's shard where it
+    splits along an axis (else the whole output on every replica)."""
+    if all(v.axis is None for v in ins):
+        return "replica", None
+    gathers, run_specs, narrows = spec_plan(node, ins, ins[0].mesh)
+    specs = [list(sp) for sp in run_specs]
+    for j, a, d in narrows:
+        specs[j][d] = a
+    axes = [sp.index("data") if "data" in sp else None for sp in specs]
+    return ("whole" if any(gathers) else "replica"), axes
 
 
 def _first_device(arg_vals):
@@ -205,32 +307,110 @@ def _build_graph_runner(symbol, placement=None, node_constraint=None,
     index) and returns aux updates that are dropped, so the moving
     statistics move once a step.
 
-    ``mesh`` (a :class:`~mxnet_tpu_torch.parallel.mesh.Mesh` with a 'data'
-    axis) runs every replica of the batch in one walk: the values are
+    ``mesh`` (a :class:`~mxnet_tpu_torch.parallel.mesh.Mesh`) runs every
+    position in one walk: the values are
     :class:`~mxnet_tpu_torch.parallel.mesh.MeshArray`s (the arguments and
-    aux states too), and each node runs for every replica before the next
-    node starts, so an op that needs the whole batch (``OpDef.mesh_fn``:
-    BatchNorm's statistics, Dropout's mask, the losses' normalisation)
-    sees every replica's shard. The other ops follow :func:`mesh_plan`.
-    The fused Conv1x1 runs its kernel on each replica's shard, and its
-    statistics reach BatchNorm's ``mesh_fn`` per replica."""
-    if placement is not None:
-        raise MXNetError("_build_graph_runner: placement (ctx_group model "
-                         "parallelism) is not ported yet (ROADMAP.md A.7b)")
+    aux states too), each laid out by its spec, and each node runs for
+    every position before the next node starts, so an op that needs the
+    whole batch (``OpDef.mesh_fn``: BatchNorm's statistics, Dropout's
+    mask, the losses' normalisation) sees every position's shard. Its
+    inputs are gathered along the axes the function does not handle
+    (``OpDef.mesh_axes``) and it runs once for each index of those axes.
+    The other ops follow :func:`spec_plan`. ``placement`` (a resolved
+    :class:`~mxnet_tpu_torch.parallel.placement.GroupPlacement`) re-lays
+    each grouped node's outputs to its group's spec.
+
+    The fused Conv1x1 runs its kernel on each position's shard where its
+    weight is whole and its data splits along 'data' only, and its
+    statistics reach BatchNorm's ``mesh_fn`` per position; a pair whose
+    weight or data splits along another axis runs unfused, and so does
+    every pair under placement, as in the JAX package: the kernel never
+    runs on a weight's shard."""
     if node_constraint is not None:
         raise MXNetError("_build_graph_runner: node_constraint (the "
-                         "sharding hook) is not ported yet (ROADMAP.md A.7b)")
+                         "serving tier's sharding hook) is not ported yet "
+                         "(ROADMAP.md A.7c)")
     if remat not in REMAT_MODES:
         raise MXNetError("remat must be one of %s, got %r"
                          % (REMAT_MODES, remat))
     nodes = _topo(symbol._out_nodes())
-    fused_convs, bn_stats_src = ({}, {}) if fuse_mode() == "0" \
+    fused_convs, bn_stats_src = ({}, {}) if (
+        fuse_mode() == "0" or placement is not None) \
         else fusion_pairs(nodes)
+    node_groups = {}
+    if placement is not None:
+        from .parallel.placement import node_group
+        node_groups = {id(n): node_group(n) for n in nodes
+                       if not n.is_variable}
     if mesh is not None:
         from .parallel import mesh as _mesh
-        _mesh.check_data_only(mesh, "graph runner")
         replica_devs = mesh.replica_devices()
         plans = {}
+
+    def call_mesh_fn(k, node, ins, aux_in, rng, is_train, fused):
+        """``node``'s mesh_fn over the mesh: its inputs gathered along the
+        axes it does not handle, once for each index of those axes (each
+        call over the sub-mesh of the handled axes, with those positions'
+        ``fused`` statistics). Returns ``(result, the gathered inputs)``;
+        the result None where it gives way to the plan."""
+        other = [a for a in mesh.split_axes() if a not in node.op.mesh_axes]
+        for a in other:
+            ins = [_mesh.gather_axis(v, a) for v in ins]
+        gen = (node_generator(rng, k, replica_devs[0])
+               if node.op.needs_rng and rng is not None else None)
+        if not other:
+            op_ctx = OpContext(is_train=is_train, rng=gen,
+                               fused_stats=fused, device=replica_devs[0])
+            return node.op.mesh_fn(op_ctx, node.attrs, ins, aux_in,
+                                   replica_devs), ins
+        keep = [a for a in mesh.axis_names if a not in other]
+        groups = {}
+        for r in range(len(replica_devs)):
+            c = mesh.coords(r)
+            groups.setdefault(tuple(c[a] for a in other), []).append(r)
+        outs = aux_up = None
+        for grp in groups.values():
+            sub = _mesh.Mesh(np.array([replica_devs[r] for r in grp],
+                                      dtype=object).reshape(
+                                          [mesh.size(a) for a in keep]),
+                             keep)
+
+            def view(v, grp=grp, sub=sub):
+                return _mesh.MeshArray(sub, [v.parts[r] for r in grp],
+                                       spec=v.spec)
+            op_ctx = OpContext(
+                is_train=is_train, rng=gen, device=replica_devs[grp[0]],
+                fused_stats=None if fused is None else [fused[r]
+                                                        for r in grp])
+            res = node.op.mesh_fn(op_ctx, node.attrs, [view(v) for v in ins],
+                                  [view(v) for v in aux_in],
+                                  [replica_devs[r] for r in grp])
+            if res is None:
+                return None, ins
+            if outs is None:
+                outs = [[None] * len(replica_devs) for _ in res[0]]
+                specs = [o.spec for o in res[0]]
+                aux_up = (None if res[1] is None else
+                          [[None] * len(replica_devs) for _ in res[1]])
+            for j, o in enumerate(res[0]):
+                for i, r in enumerate(grp):
+                    outs[j][r] = o.parts[i]
+            for j, o in enumerate(res[1] or ()):
+                for i, r in enumerate(grp):
+                    aux_up[j][r] = o.parts[i]
+        return ([_mesh.MeshArray(mesh, p, spec=sp)
+                 for p, sp in zip(outs, specs)],
+                None if aux_up is None else
+                [_mesh.MeshArray(mesh, p, None) for p in aux_up]), ins
+
+    def fuses_here(ins):
+        # the kernel runs on each position's shard where the weight is
+        # whole and the data splits along 'data' only: each position's
+        # statistics are then its shard of the batch's, which BatchNorm's
+        # mesh function sums over 'data'
+        x, w = ins[0], ins[1]
+        return (all(a is None for a in w.spec)
+                and all(a in (None, _mesh.AXIS_DATA) for a in x.spec))
 
     def apply_mesh(k, env, stats_env, aux_updates, aux_vals, rng, is_train,
                    use_fusion, monitor):
@@ -239,61 +419,70 @@ def _build_graph_runner(symbol, placement=None, node_constraint=None,
         ins = [env[(id(n), i)] for n, i in node.inputs]
         aux_names = node.op.list_aux(node.attrs)
         aux_in = [aux_vals["%s_%s" % (node.name, a)] for a in aux_names]
-        n = len(replica_devs)
-        if use_fusion and id(node) in fused_convs:
+        result = None
+        if use_fusion and id(node) in fused_convs and fuses_here(ins):
             x, w = ins[0], ins[1]
             res = [_ms.apply_conv1x1_stats(x.parts[r], w.parts[r])
-                   for r in range(n)]
+                   for r in range(len(replica_devs))]
             stats_env[id(node)] = [st for _, st in res]
-            outs, aux_up = [MeshArray(mesh, [y for y, _ in res], x.axis)], None
+            result = [MeshArray(mesh, [y for y, _ in res], spec=x.spec)], None
+        elif node.op.mesh_fn is not None:
+            # where it gives way, the plan takes the inputs it gathered
+            fused = (stats_env.get(bn_stats_src.get(id(node)))
+                     if use_fusion else None)
+            result, ins = call_mesh_fn(k, node, ins, aux_in, rng, is_train,
+                                       fused)
+        if result is not None:
+            outs, aux_up = result
         else:
-            def gen(r):
-                if not node.op.needs_rng or rng is None:
-                    return None
-                return node_generator(rng, k, replica_devs[r])
-            result = None
-            if node.op.mesh_fn is not None:
-                fused = (stats_env.get(bn_stats_src.get(id(node)))
-                         if use_fusion else None)
-                op_ctx = OpContext(is_train=is_train, rng=gen(0),
-                                   fused_stats=fused, device=replica_devs[0])
-                result = node.op.mesh_fn(op_ctx, node.attrs, ins, aux_in,
-                                         replica_devs)
-            if result is not None:
-                outs, aux_up = result
-            else:
-                key = (k, is_train, tuple((tuple(v.parts[0].shape), v.axis)
-                                          for v in ins))
-                if key not in plans:
-                    plans[key] = mesh_plan(node, ins, n)
-                mode, axes = plans[key]
-                if mode == "whole":
-                    cols = [v.parts if v.axis is None else
-                            _mesh.all_gather(v.parts, v.axis, replica_devs)
-                            for v in ins]
-                else:
-                    cols = [v.parts for v in ins]
-                per, aux_per = [], []
-                for r in range(n):
-                    op_ctx = OpContext(is_train=is_train, rng=gen(r),
-                                       device=replica_devs[r])
-                    o, a = node.op.apply(op_ctx, node.attrs,
-                                         [c[r] for c in cols],
-                                         [v.parts[r] for v in aux_in])
-                    per.append(o)
-                    aux_per.append(a)
-                outs = []
-                for j in range(len(per[0])):
-                    parts = [o[j] for o in per]
-                    ax = None if axes is None else axes[j]
-                    if mode == "whole" and ax is not None:
-                        step = parts[0].shape[ax] // n
-                        parts = [t.narrow(ax, r * step, step)
-                                 for r, t in enumerate(parts)]
-                    outs.append(MeshArray(mesh, parts, ax))
-                aux_up = (None if aux_per[0] is None else
-                          [MeshArray(mesh, [a[j] for a in aux_per], None)
-                           for j in range(len(aux_per[0]))])
+            key = (k, is_train, tuple((v.shape, v.spec) for v in ins))
+            if key not in plans:
+                plans[key] = spec_plan(node, ins, mesh)
+            gathers, run_specs, narrows = plans[key]
+            cols = []
+            for v, axes in zip(ins, gathers):
+                for a in axes:
+                    v = _mesh.gather_axis(v, a)
+                cols.append(v)
+            per, aux_per = [], []
+            for r in range(len(replica_devs)):
+                gen = None
+                if node.op.needs_rng and rng is not None:
+                    gen = node_generator(rng, k, replica_devs[r])
+                op_ctx = OpContext(is_train=is_train, rng=gen,
+                                   device=replica_devs[r])
+                o, a = node.op.apply(op_ctx, node.attrs,
+                                     [c.parts[r] for c in cols],
+                                     [v.parts[r] for v in aux_in])
+                per.append(o)
+                aux_per.append(a)
+            outs = [MeshArray(mesh, [o[j] for o in per], spec=sp)
+                    for j, sp in enumerate(run_specs)]
+            if not node.op.loss_head:
+                for j, a, d in narrows:
+                    outs[j] = _mesh.narrow_axis(outs[j], a, d)
+            aux_up = (None if aux_per[0] is None else
+                      [MeshArray(mesh, [a[j] for a in aux_per], None)
+                       for j in range(len(aux_per[0]))])
+        g = node_groups.get(id(node))
+        if node.op.loss_head:
+            # a loss head's backward ignores its output's cotangent: only
+            # the first position of each distinct shard may send it back
+            # (a copy's would add the gradient once more), and it keeps
+            # its layout
+            g = None
+            outs = [MeshArray(mesh, [p if r in keep else p.detach()
+                                     for r, p in enumerate(o.parts)],
+                              spec=o.spec)
+                    for o in outs
+                    for keep in [set(_mesh.distinct_positions(mesh,
+                                                              o.spec))]]
+        if g is not None:
+            outs = list(outs)
+            for j, o in enumerate(outs):
+                spec = placement.output_spec(g, o.shape)
+                if spec is not None:
+                    outs[j] = _mesh.reshard(o, spec)
         for i, o in enumerate(outs):
             env[(id(node), i)] = o
         if monitor is not None:
@@ -421,42 +610,52 @@ def _build_graph_runner(symbol, placement=None, node_constraint=None,
 def head_pairs(outs, cots=None):
     """The (tensor, cotangent) pairs of the graph outputs ``outs`` that
     carry a gradient (``cots``: one whole tensor per output, None for
-    ones). An output is a tensor, or a MeshArray over a mesh: each shard of
-    a split output with its slice of the cotangent, and of a replicated
-    output replica 0's copy only, as it is one value (each replica's copy
-    would add it once more)."""
+    ones). An output is a tensor, or a MeshArray over a mesh: the first
+    position holding each distinct shard, with its slice of the cotangent
+    (a replicated output's position 0 only, as it is one value: each
+    copy would add it once more)."""
+    from .parallel import mesh as _mesh
     pairs = []
     for j, o in enumerate(outs):
         if isinstance(o, torch.Tensor):
-            parts, axis = [o], None
+            parts = [(o, None)]
         else:
-            parts = o.parts if o.axis is not None else o.parts[:1]
-            axis = o.axis
-        for r, t in enumerate(parts):
+            parts = [(o.parts[r], r)
+                     for r in _mesh.distinct_positions(o.mesh, o.spec)]
+        for t, r in parts:
             if not t.requires_grad:
                 continue
             if cots is None:
                 c = torch.ones_like(t)
-            elif axis is None:
+            elif r is None:
                 c = cots[j].to(t.device)
             else:
-                step = t.shape[axis]
-                c = cots[j].narrow(axis, r * step, step).to(t.device)
+                c = _mesh._narrow(cots[j], o.mesh, o.spec, r).to(t.device)
             pairs.append((t, c))
     return pairs
 
 
-def merge_replica_grads(parts, is_batch, device, shape):
-    """One argument's gradient from its replicas' on ``device``: a batch
-    input's shards side by side, a replicated argument's sum over the
-    replicas (summed in replica order)."""
+def shard_grad_sums(grads, mesh, spec, devices=None):
+    """A parameter's gradient over the mesh: each position's part
+    (``grads``) summed with the parts of every position holding the same
+    shard (in position order), on each position's device (or on
+    ``devices[r]``): the sum over every axis the parameter is whole
+    along."""
     from .parallel import mesh as _mesh
-    n = len(parts)
-    ax = _split_axis(tuple(shape), tuple(parts[0].shape), n) \
-        if is_batch else None
-    if ax is not None:
-        return torch.cat([p.to(device) for p in parts], ax)
-    return _mesh.all_reduce(parts, [device])[0]
+    devs = mesh.replica_devices() if devices is None else list(devices)
+    groups = {}
+    for r in range(len(devs)):
+        groups.setdefault(_mesh.shard_index(mesh, spec, r), []).append(r)
+    out = [None] * len(devs)
+    for grp in groups.values():
+        parts = [grads[r] for r in grp]
+        if len(grp) == 1:
+            out[grp[0]] = parts[0]
+            continue
+        summed = _mesh.all_reduce(parts, [devs[r] for r in grp])
+        for r, g in zip(grp, summed):
+            out[r] = g
+    return out
 
 
 class Executor(object):
@@ -481,10 +680,18 @@ class Executor(object):
     def __init__(self, symbol, ctx, args, args_grad=None, grad_req="write",
                  aux_states=None, group2ctx=None, shared_exec=None,
                  mesh=None, batch_names=(), batch_axes=None):
-        if group2ctx:
-            raise MXNetError("Executor: group2ctx (ctx_group model "
-                             "parallelism) is not ported yet (ROADMAP.md "
-                             "A.7b)")
+        # ctx_group model parallelism: the groups' specs over the mesh
+        # (parallel.placement); simple_bind passes a resolved placement
+        from .parallel import placement as _placement
+        self._placement = _placement.resolve(group2ctx, mesh)
+        self._group2ctx = (dict(self._placement.raw) if self._placement
+                           is not None else dict(group2ctx or {}))
+        if self._placement is not None:
+            if mesh is None:
+                mesh = self._placement.mesh
+            elif mesh is not self._placement.mesh:
+                raise MXNetError("Executor: group2ctx's mesh is not the "
+                                 "executor's mesh")
         self._symbol = symbol
         self._ctx = ctx if isinstance(ctx, Context) else Context(ctx)
         self._device = resolve_device(self._ctx, "Executor")
@@ -536,7 +743,17 @@ class Executor(object):
         self._mesh = mesh
         self._batch_names = list(batch_names)
         self._batch_axes = dict(batch_axes or {})
-        self._run, self._nodes = _build_graph_runner(symbol, mesh=mesh)
+        self._run, self._nodes = _build_graph_runner(
+            symbol, placement=self._placement, mesh=mesh)
+        # the grouped parameters' specs (the inputs stay unsharded)
+        self._param_specs = {}
+        if self._placement is not None:
+            for n, g in _placement.param_groups(self._nodes).items():
+                if n in self.arg_dict and n not in self._batch_names:
+                    spec = self._placement.param_spec(
+                        g, self.arg_dict[n].shape)
+                    if spec is not None:
+                        self._param_specs[n] = spec
         self._diff_args = [n for n in self.arg_names
                            if self._grad_req.get(n, "null") != "null"]
         # one entry per gradient buffer: the arguments writing into it
@@ -592,8 +809,11 @@ class Executor(object):
         out = {}
         for n, t in arg_vals.items():
             ax = axes.get(n)
-            out[n] = (_mesh.split(t, m, ax) if ax is not None
-                      else _mesh.replicate(t, m))
+            if n in self._param_specs:
+                out[n] = _mesh.split_spec(t, m, self._param_specs[n])
+            else:
+                out[n] = (_mesh.split(t, m, ax) if ax is not None
+                          else _mesh.replicate(t, m))
         return out, {n: _mesh.replicate(t, m) for n, t in aux_vals.items()}
 
     def _run_graph(self, vals, aux_vals, key, is_train):
@@ -622,7 +842,7 @@ class Executor(object):
             for n in self._diff_args:
                 v = vals[n]
                 leaves[n] = [p.detach().requires_grad_() for p in v.parts]
-                vals[n] = MeshArray(self._mesh, leaves[n], v.axis)
+                vals[n] = MeshArray(self._mesh, leaves[n], spec=v.spec)
         with torch.enable_grad(), conv_precision(self._device):
             outs, aux_up = self._run(vals, aux_vals, key, True,
                                      self._monitor())
@@ -716,9 +936,7 @@ class Executor(object):
             for n in names:
                 parts = grads[i:i + len(leaves[n])]
                 i += len(leaves[n])
-                by_name[n] = merge_replica_grads(
-                    parts, n in self._batch_names, self._device,
-                    self.arg_dict[n].shape)
+                by_name[n] = self._merge_grads(n, parts)
         for buf, group in self._grad_groups:
             g = by_name[group[0]]
             for n in group[1:]:
@@ -726,6 +944,27 @@ class Executor(object):
             if self._grad_req[group[0]] == "add":
                 g = buf.data + g
             buf._set_data(g)
+
+    def _merge_grads(self, name, parts):
+        """One argument's whole gradient on the executor's device from its
+        positions' parts: each shard's parts summed (in position order)
+        over the positions that hold it, the shards assembled. A batch
+        input's shards lie side by side; a replicated argument's parts
+        add up."""
+        from .parallel import mesh as _mesh
+        m = self._mesh
+        shape = self.arg_dict[name].shape
+        if name in self._param_specs:
+            spec = tuple(self._param_specs[name])
+            spec += (None,) * (len(shape) - len(spec))
+        else:
+            ax = (_split_axis(tuple(shape), tuple(parts[0].shape),
+                              m.size(_mesh.AXIS_DATA))
+                  if name in self._batch_names else None)
+            spec = _mesh._spec_from_axis(len(shape), ax)
+        summed = shard_grad_sums(parts, m, spec,
+                                 [self._device] * len(parts))
+        return _mesh.MeshArray(m, summed, spec=spec).gather(self._device)
 
     # ------------------------------------------------------------------
     def set_monitor_callback(self, callback):
@@ -793,7 +1032,8 @@ class Executor(object):
         return Executor(self._symbol, self._ctx, args, grads or None,
                         self._grad_req, aux, mesh=self._mesh,
                         batch_names=self._batch_names,
-                        batch_axes=self._batch_axes)
+                        batch_axes=self._batch_axes,
+                        group2ctx=self._placement)
 
     @property
     def symbol(self):
@@ -817,9 +1057,11 @@ def simple_bind(symbol, ctx, grad_req="write", type_dict=None, group2ctx=None,
     python/mxnet/symbol.py simple_bind). With ``shared_exec``, arrays of
     the same name, shape and dtype are that executor's. ``mesh``,
     ``batch_names`` and ``batch_axes``: see :class:`Executor`."""
-    if group2ctx:
-        raise MXNetError("simple_bind: group2ctx (ctx_group model "
-                         "parallelism) is not ported yet (ROADMAP.md A.7b)")
+    from .parallel import placement as _placement
+    gp = _placement.resolve(group2ctx, mesh)
+    if gp is not None and not batch_names:
+        # the inputs whose shapes are given stay unsharded
+        batch_names = list(kwargs)
     ctx = ctx if isinstance(ctx, Context) else Context(ctx)
     if shared_exec is not None and shared_exec._ctx != ctx:
         raise MXNetError("simple_bind: shared_exec on %s cannot share "
@@ -862,4 +1104,5 @@ def simple_bind(symbol, ctx, grad_req="write", type_dict=None, group2ctx=None,
                     np.dtype(aux_type_of.get(n) or np.float32))
            for n, sh in zip(aux_names, aux_shapes)}
     return Executor(symbol, ctx, args, grads or None, grad_req, aux,
+                    group2ctx=gp if gp is not None else group2ctx,
                     mesh=mesh, batch_names=batch_names, batch_axes=batch_axes)

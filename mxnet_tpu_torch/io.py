@@ -658,6 +658,10 @@ class SuperBatchIter(DataIter):
             return stacked
         from .parallel import mesh as _mesh
         t = stacked.data
+        spec = tuple(self.sharding.spec)
+        if any(a is not None for a in spec[2:]):
+            # a multi-axis spec (the token dimension along 'seq' too)
+            return _mesh.split_spec(t, self.sharding.mesh, spec)
         axis = _mesh.layout_axes([desc]).get(desc[0]) if desc else None
         ax = _mesh.batch_axis(tuple(t.shape[1:]),
                               self.batch_size or t.shape[1], axis)

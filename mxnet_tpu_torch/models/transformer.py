@@ -9,8 +9,11 @@ names (``tok_embed_weight``, ``pos_embed_weight``, ``layer{i}_ln1_gamma``,
 Pre-LN blocks: x + MHA(LN(x)); x + FFN(LN(x)); the loss is per-position
 softmax cross-entropy over the vocabulary. ``stack_layers=True`` builds
 the layer stack as one ``TransformerStack`` op over (num_layers, ...)
-stacked weights. ``seq_parallel`` builds, and the first forward raises
-(the port has no mesh yet, ROADMAP.md A.7b).
+stacked weights, which runs the GPipe schedule under a mesh with a 'pipe'
+axis. ``seq_parallel="ring"|"ulysses"`` shards each attention's sequence
+over the 'seq' axis of the ambient mesh (a ``TrainStep`` or
+``Module(mesh_axes=)`` mesh); outside one its forward raises, as in the
+JAX package, so score and serve through the plain symbol.
 """
 from .. import symbol as sym
 from ..base import MXNetError
@@ -96,9 +99,9 @@ def get_symbol(vocab_size=256, embed=128, num_heads=4, num_layers=2,
     positional-embedding table ``max_seq_len`` rows (serve-time decode
     may then run past ``seq_len``, up to the table). ``stack_layers=True``
     builds the layer stack as one ``TransformerStack`` op over stacked
-    weights (``num_microbatches`` is the pipeline's, unused on one
-    device). Token ids must lie in [0, vocab_size): ``DecodeLoop.generate``
-    rejects others at serve time."""
+    weights (``num_microbatches``: the pipeline's under a 'pipe' mesh, 0
+    for one per stage; unused on one device). Token ids must lie in [0,
+    vocab_size): ``DecodeLoop.generate`` rejects others at serve time."""
     ffn_hidden = ffn_hidden or 4 * embed
     _validate(vocab_size, embed, num_heads, num_layers, seq_len,
               ffn_hidden, max_seq_len, seq_parallel, block_size, dropout,

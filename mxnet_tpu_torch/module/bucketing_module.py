@@ -334,9 +334,11 @@ class BucketingModule(BaseModule):
         aux = ts.cast_stats({n: ex.aux_dict[n].data.detach().clone()
                              for n in ts.aux_names})
         if prev is not None:
+            # whole optimizer states: replicate_state cuts them again
+            whole = ts.whole_state(prev)
             return ts.replicate_state(
-                {"params": params, "aux": aux, "opt": prev["opt"],
-                 "step": prev["step"]})
+                {"params": params, "aux": aux, "opt": whole["opt"],
+                 "step": whole["step"]})
         opt_state = _seed_opt_state(ts, params, base._optimizer,
                                     base._resolve_updater(),
                                     base._exec_group.param_names)

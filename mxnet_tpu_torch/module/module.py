@@ -24,8 +24,14 @@ replicas: the executor group splits each batch across them, and the fused
 step is a :class:`~mxnet_tpu_torch.train_step.TrainStep` over the group's
 mesh, fed superbatches that ``SuperBatchIter`` lands split per replica.
 ``work_load_list`` is kept and passed on, and the batch splits evenly, as
-in the JAX package. ``mesh_axes``, ``param_shardings`` and
-``MXTPU_LM_MESH`` raise naming themselves (ROADMAP.md A.7b).
+in the JAX package. ``mesh_axes`` (``"data=2,seq=2"`` or a dict; also
+read from ``MXTPU_LM_MESH``, the argument winning) makes the fused step
+run over a multi-axis mesh instead of the contexts' 'data' mesh, built
+over the module's contexts where it has several (``[mt.gpu(0)] * 4``
+puts four positions on one card) and else over every visible device;
+``param_shardings`` maps parameter names to partition specs for it
+(e.g. the stacked layer weights onto ``P('pipe')``). A dist kvstore
+refuses it, as in the JAX package.
 """
 from __future__ import annotations
 
@@ -92,13 +98,16 @@ class Module(BaseModule):
         # no such argument and computes in the parameters' dtype, as the
         # executor path here does
         self._compute_dtype = compute_dtype
-        if mesh_axes is not None or env_str("MXTPU_LM_MESH"):
-            raise MXNetError("Module: mesh_axes / MXTPU_LM_MESH (multi-axis "
-                             "mesh training) is not ported yet (ROADMAP.md "
-                             "A.7b)")
-        if param_shardings:
-            raise MXNetError("Module: param_shardings (model parallelism) is "
-                             "not ported yet (ROADMAP.md A.7b)")
+        # multi-axis mesh training: the spec from the argument, else from
+        # MXTPU_LM_MESH; the mesh itself is built at the first fused step
+        if mesh_axes is None:
+            mesh_axes = env_str("MXTPU_LM_MESH") or None
+        if mesh_axes is not None:
+            from ..parallel.mesh import parse_mesh_axes
+            mesh_axes = parse_mesh_axes(mesh_axes)
+        self._mesh_axes = mesh_axes
+        self._param_shardings = dict(param_shardings or {})
+        self._override_mesh_cache = None
         if context is None:
             context = current_context()
             n_dp = _engine.dp_devices()
@@ -513,17 +522,58 @@ class Module(BaseModule):
         return all(eg.grad_req.get(n, "null") in ("write", "null")
                    for n in eg.param_names)
 
+    def _is_dist_kvstore(self):
+        return (self._kvstore is not None
+                and "dist" in getattr(self._kvstore, "type", "")
+                and getattr(self._kvstore, "num_workers", 1) > 1)
+
+    def _override_mesh(self):
+        """The multi-axis mesh ``mesh_axes``/``MXTPU_LM_MESH`` asks for,
+        built once over the module's contexts (where it has several) or
+        every visible device; None without a spec."""
+        if self._mesh_axes is None:
+            return None
+        if self._override_mesh_cache is None:
+            from ..parallel.mesh import mesh_from_spec
+            devs = None
+            if len(self._context) > 1:
+                devs = [resolve_device(c, "Module") for c in self._context]
+            self._override_mesh_cache = mesh_from_spec(self._mesh_axes,
+                                                       devs)
+        return self._override_mesh_cache
+
+    def _fused_mesh(self):
+        """The mesh the fused step runs over: the ``mesh_axes`` override,
+        else the executor group's 'data' mesh."""
+        om = self._override_mesh()
+        if om is not None:
+            return om
+        return (self._exec_group._mesh
+                if self._exec_group is not None else None)
+
     def _build_fused(self):
         from ..train_step import TrainStep
         eg = self._exec_group
         frozen = [n for n in eg.param_names
                   if eg.grad_req.get(n, "null") == "null"]
+        mesh = eg._mesh
+        om = self._override_mesh()
+        if om is not None:
+            if self._is_dist_kvstore():
+                raise MXNetError(
+                    "mesh_axes/MXTPU_LM_MESH cannot combine with a dist "
+                    "kvstore — the multi-axis mesh is single-controller; "
+                    "use the global 'data' mesh for dist workers")
+            mesh = om
         self._fused = TrainStep(
             self._symbol, data_names=eg.data_names,
             label_names=eg.label_names, optimizer=self._optimizer,
-            frozen_param_names=frozen, device=self._device,
-            compute_dtype=self._compute_dtype, mesh=eg._mesh,
-            batch_axes=eg.batch_axes)
+            frozen_param_names=frozen, device=mesh.replica_devices()[0]
+            if mesh is not None else self._device,
+            compute_dtype=self._compute_dtype, mesh=mesh,
+            batch_axes=eg.batch_axes,
+            param_shardings=(self._param_shardings or None)
+            if mesh is not None else None)
         self._fused_state = self._seed_fused_state()
         self._fused_params_stale = False
         self._fused_metrics_ok = self._infer_fused_metrics_ok()
@@ -549,9 +599,17 @@ class Module(BaseModule):
         """The sharding ``fit`` hands to ``SuperBatchIter`` so stacked
         superbatches land split per replica (the step axis whole, the batch
         axis over 'data'); None without a mesh."""
-        from ..parallel.mesh import superbatch_sharding
-        eg = self._exec_group
-        return superbatch_sharding(eg._mesh if eg is not None else None)
+        from ..parallel.mesh import AXIS_SEQ, superbatch_sharding
+        mesh = self._fused_mesh()
+        if mesh is not None and mesh.size(AXIS_SEQ) > 1:
+            # every slot a stacked (k, batch, seq) array: the token
+            # dimension splits along 'seq' too
+            if all(len(_name_shape(d)[1]) >= 2 for d in
+                   list(self._data_shapes or [])
+                   + list(self._label_shapes or [])):
+                return superbatch_sharding(mesh, seq=True)
+            return None
+        return superbatch_sharding(mesh)
 
     def _global_batch_scale(self):
         """Factor from this process's samples a second to the global rate:
@@ -587,8 +645,29 @@ class Module(BaseModule):
             return (False, "module configuration needs the per-step "
                     "executor path (monitor/grad_req/unfused optimizer/"
                     "shared module)")
-        mesh = self._exec_group._mesh
-        if mesh is not None:
+        mesh = self._fused_mesh()
+        if mesh is not None and self._override_mesh() is not None:
+            # the user asked for this mesh: a batch or sequence that does
+            # not divide it fails naming the axis, rather than falling
+            # back to another program
+            from ..parallel.mesh import AXIS_SEQ, data_axis_size
+            n = data_axis_size(mesh)
+            if self._exec_group.batch_size % n:
+                raise MXNetError(
+                    "Module(mesh_axes=...): global batch %d does not "
+                    "divide the %d-way 'data' mesh axis — the sharded scan "
+                    "needs equal per-chip shards"
+                    % (self._exec_group.batch_size, n))
+            sp = data_axis_size(mesh, AXIS_SEQ)
+            if sp > 1:
+                for name, shape in self._bound_shapes()[0].items():
+                    if len(shape) >= 2 and shape[1] % sp:
+                        raise MXNetError(
+                            "Module(mesh_axes=...): bound input %r "
+                            "sequence dim %d does not divide the %d-way "
+                            "'seq' mesh axis — pad the sequence or pick a "
+                            "divisible seq_len" % (name, shape[1], sp))
+        elif mesh is not None:
             from ..parallel.mesh import (AXIS_DATA, batch_axes,
                                          check_axis_divides)
             shapes = self._bound_shapes()[0]
@@ -606,8 +685,10 @@ class Module(BaseModule):
                 return (False, "the default device metric sums need a "
                         "single (rank-2 output, rank-1 label) head")
             return True, None
-        # over a mesh each replica sums its own shard: one replica's shapes
-        _, lshapes, out_shapes = self._bound_shapes(mesh)
+        # over a 'data' mesh each replica sums its own shard: one replica's
+        # shapes (over other meshes the step sums the whole outputs)
+        _, lshapes, out_shapes = self._bound_shapes(
+            mesh if mesh is not None and mesh.is_data_only() else None)
         spec = _metric.device_sum_spec(eval_metric, out_shapes, lshapes)
         if spec is None:
             return (False, "metric %r declares no device-sum layout for "
@@ -636,7 +717,8 @@ class Module(BaseModule):
             {n: ex.aux_dict[n].data.detach().clone()
              for n in self._fused.aux_names})
         if prev is not None:
-            opt_state, step = prev["opt"], prev["step"]
+            whole = self._fused.whole_state(prev)
+            opt_state, step = whole["opt"], whole["step"]
         else:
             opt_state = self._fused_opt_state(params)
             step = torch.full((), self._resume_step, dtype=torch.int32,
@@ -760,12 +842,16 @@ class Module(BaseModule):
         if not self._fused_dirty or self._fused_state is None:
             return
         ex = self._exec_group.executor
+        # over a sharded mesh: the parameters assembled from their shards
+        st = self._fused.whole_state(self._fused_state)
         for n in self._fused.param_names:
-            ex.arg_dict[n]._set_data(self._fused_state["params"][n].clone())
+            ex.arg_dict[n]._set_data(st["params"][n].to(
+                ex.arg_dict[n].data.device, copy=True))
         for n in self._fused.aux_names:
             # _set_data casts bfloat16 moving statistics (MXTPU_BF16_STATS)
             # back to the executor's float32, exactly
-            ex.aux_dict[n]._set_data(self._fused_state["aux"][n].clone())
+            ex.aux_dict[n]._set_data(st["aux"][n].to(
+                ex.aux_dict[n].data.device, copy=True))
         self._fused_dirty = False
 
     def _sync_fused_opt_states(self):
@@ -789,7 +875,8 @@ class Module(BaseModule):
             return NDArray(x.detach().clone())
 
         idx_of = {n: i for i, n in enumerate(self._exec_group.param_names)}
-        for n, st in self._fused_state["opt"].items():
+        for n, st in self._fused.whole_state(
+                self._fused_state)["opt"].items():
             if n in idx_of:
                 updater.states[idx_of[n]] = to_nd(st)
 

@@ -3,87 +3,28 @@
 Counterpart of ``mxnet_tpu/ops/attention.py``. The JAX package computes
 attention in plain JAX (no Pallas kernel): a blockwise (streaming-softmax)
 core, ``mxnet_tpu/parallel/ring.py:blockwise_attention``, which never
-materialises the full (seq, seq) score matrix. The port keeps its own copy
-of that core (:func:`blockwise_attention`, :func:`_block_attn`) and runs the
-same block loop in torch ops, in the same order of operations, so float32
-results agree with the JAX package's to rounding. It is not
-``torch.nn.functional.scaled_dot_product_attention``, whose numerics
-differ.
+materialises the full (seq, seq) score matrix. The port's copy of that
+core lives in ``parallel/ring.py`` (:func:`blockwise_attention`,
+:func:`_block_attn`) and runs the same block loop in torch ops, in the same
+order of operations, so float32 results agree with the JAX package's to
+rounding. It is not ``torch.nn.functional.scaled_dot_product_attention``,
+whose numerics differ.
 
-``seq_parallel="ring"|"ulysses"`` shards the sequence over a mesh's 'seq'
-axis in the JAX package. The port has no mesh yet, so such a symbol builds
-and its first forward raises :class:`MXNetError` (ROADMAP.md A.7b).
+``seq_parallel="ring"|"ulysses"`` shards the sequence over the 'seq' axis
+of the ambient mesh (``parallel.mesh.MeshScope``, or the ``TrainStep``'s
+mesh): under a graph walk over the mesh (``executor``) each position
+projects its own sequence shard and the shards meet in
+``parallel.ring.ring_attention`` or ``ulysses_attention``; a whole tensor
+under an ambient mesh is split over it for the call and gathered back.
+Without a 'seq' axis it raises, as in the JAX package.
 """
 from __future__ import annotations
 
 import torch
 
 from ..base import attr_bool, attr_int, attr_float, attr_str, MXNetError
+from ..parallel.ring import _block_attn, blockwise_attention  # noqa: F401
 from .registry import OpDef, register_def
-
-
-# ---------------------------------------------------------------------------
-# the single-device attention core (copy of mxnet_tpu/parallel/ring.py)
-# ---------------------------------------------------------------------------
-
-def _block_attn(q, k, v, m_prev, l_prev, acc, scale):
-    """One blockwise-softmax accumulation step (log-sum-exp streaming)."""
-    s = torch.einsum("bhqd,bhkd->bhqk", q, k) * scale
-    m_cur = s.amax(dim=-1)
-    m_new = torch.maximum(m_prev, m_cur)
-    p = torch.exp(s - m_new[..., None])
-    l_corr = l_prev * torch.exp(m_prev - m_new)
-    l_new = l_corr + p.sum(dim=-1)
-    acc = acc * torch.exp(m_prev - m_new)[..., None] + torch.einsum(
-        "bhqk,bhkd->bhqd", p, v)
-    return m_new, l_new, acc
-
-
-def blockwise_attention(q, k, v, block_size=None, causal=False):
-    """Memory-efficient attention via streaming softmax over K/V blocks.
-
-    q, k, v: (batch, heads, seq, dim). Equal to softmax(q k^T / sqrt(d)) v,
-    computed one K/V block at a time (``block_size``, default
-    ``min(512, seq_k)``); padding and causal positions are masked with
-    -inf, and the running maximum is made safe where a row has seen no key
-    yet, exactly as the JAX package's ``lax.scan`` body does."""
-    b, h, sq, d = q.shape
-    sk = k.shape[2]
-    scale = 1.0 / (d ** 0.5)
-    if block_size is None:
-        block_size = min(512, sk)
-    nblocks = (sk + block_size - 1) // block_size
-    pad = nblocks * block_size - sk
-    if pad:
-        k = torch.nn.functional.pad(k, (0, 0, 0, pad))
-        v = torch.nn.functional.pad(v, (0, 0, 0, pad))
-    dev = q.device
-    qpos = torch.arange(sq, device=dev)
-    neg_inf = torch.tensor(float("-inf"), dtype=q.dtype, device=dev)
-    zero = torch.zeros((), dtype=q.dtype, device=dev)
-    m = torch.full_like(q[..., 0], float("-inf"))
-    l = torch.zeros_like(q[..., 0])
-    acc = torch.zeros_like(q)
-    for i in range(nblocks):
-        lo = i * block_size
-        kblk = k[:, :, lo:lo + block_size]
-        vblk = v[:, :, lo:lo + block_size]
-        s = torch.einsum("bhqd,bhkd->bhqk", q, kblk) * scale
-        kpos = lo + torch.arange(block_size, device=dev)
-        mask = (kpos < sk)[None, None, None, :]
-        if causal:
-            mask = mask & (kpos[None, :] <= qpos[:, None])[None, None]
-        s = torch.where(mask, s, neg_inf)
-        m_cur = s.amax(dim=-1)
-        m_new = torch.maximum(m, m_cur)
-        m_safe = torch.where(torch.isneginf(m_new), zero, m_new)
-        p = torch.where(mask, torch.exp(s - m_safe[..., None]), zero)
-        corr = torch.where(torch.isneginf(m), zero, torch.exp(m - m_safe))
-        l = l * corr + p.sum(dim=-1)
-        acc = acc * corr[..., None] + torch.einsum("bhqk,bhkd->bhqd", p,
-                                                   vblk)
-        m = m_new
-    return acc / torch.clamp_min(l, 1e-20)[..., None]
 
 
 # ---------------------------------------------------------------------------
@@ -130,21 +71,67 @@ def _mha_infer(attrs, in_shapes):
     return shapes, [tuple(data)], []
 
 
-def seq_parallel_error(seq_par):
-    """The error of a sequence-parallel attention: it needs a mesh with a
-    'seq' axis, which the port cannot form yet."""
-    return MXNetError(
-        "MultiHeadAttention(seq_parallel=%r) needs an ambient mesh with a "
-        "'seq' axis (parallel.mesh.MeshScope / TrainStep mesh), which is "
-        "not ported yet (ROADMAP.md A.7b)" % seq_par)
+def _seq_mesh():
+    """The ambient mesh, where it carries a 'seq' axis."""
+    from ..parallel import mesh as _mesh
+    m = _mesh.current_mesh()
+    if m is not None and _mesh.AXIS_SEQ in m.axis_names:
+        return m
+    return None
+
+
+def _seq_checks(mesh, seq_par, b, h, s, block):
+    """The JAX package's prechecks of a sequence-parallel attention, each
+    naming the failing axis: the sequence over 'seq', the batch over
+    'data', the heads over 'seq' for Ulysses; ``block_size`` with ring
+    refuses."""
+    from ..parallel.mesh import check_axis_divides
+    check_axis_divides(mesh, "seq", s, "MultiHeadAttention: sequence dim")
+    check_axis_divides(mesh, "data", b, "MultiHeadAttention: batch dim")
+    if seq_par == "ulysses":
+        check_axis_divides(
+            mesh, "seq", h,
+            "MultiHeadAttention(seq_parallel='ulysses'): num_heads")
+    if seq_par == "ring" and block:
+        # ring shards K/V across positions; there is no intra-shard
+        # blocking to honour, so refuse rather than ignore the bound
+        raise MXNetError(
+            "MultiHeadAttention: block_size is not supported with "
+            "seq_parallel='ring' (K/V are already sharded per "
+            "device); unset block_size or use 'ulysses'")
+
+
+def _seq_attend(q, k, v, causal, block, seq_par):
+    """Ring or Ulysses attention over MeshArrays split along 'seq' at dim
+    2."""
+    from ..parallel import ring as _ring
+    if seq_par == "ring":
+        return _ring.ring_attention(q, k, v, "seq", causal=causal)
+    return _ring.ulysses_attention(
+        q, k, v, "seq", attn_fn=lambda a, b_, c: blockwise_attention(
+            a, b_, c, block_size=block or None, causal=causal))
 
 
 def _attend(q, k, v, causal, block, seq_par):
-    """(b, h, s, d) -> (b, h, s, d) on one device."""
-    if seq_par:
-        raise seq_parallel_error(seq_par)
-    return blockwise_attention(q, k, v, block_size=block or None,
-                               causal=causal)
+    """(b, h, s, d) -> (b, h, s, d): blockwise on one device, or split over
+    the ambient mesh's 'seq' axis (and its 'data' axis) for ``seq_par``."""
+    if not seq_par:
+        return blockwise_attention(q, k, v, block_size=block or None,
+                                   causal=causal)
+    mesh = _seq_mesh()
+    if mesh is None:
+        raise MXNetError(
+            "MultiHeadAttention(seq_parallel=%r) needs an ambient mesh "
+            "with a 'seq' axis (parallel.mesh.MeshScope / TrainStep "
+            "mesh)" % seq_par)
+    from ..parallel import mesh as _mesh
+    b, h, s, _ = q.shape
+    _seq_checks(mesh, seq_par, b, h, s, block)
+    bax = "data" if "data" in mesh.axis_names else None
+    spec = (bax, None, "seq", None)
+    out = _seq_attend(*[_mesh.split_spec(t, mesh, spec) for t in (q, k, v)],
+                      causal, block, seq_par)
+    return out.gather(q.device)
 
 
 def _mha(op_ctx, attrs, inputs, aux):
@@ -174,6 +161,53 @@ _MHA = register_def(OpDef(
     inputs=("data", "qkv_weight", "qkv_bias", "out_weight", "out_bias"),
     infer_shape=_mha_infer))
 _MHA.list_inputs = _mha_inputs
+
+
+def _mha_mesh(op_ctx, attrs, ins, aux, devices):
+    """A sequence-parallel MultiHeadAttention over a mesh with a 'seq'
+    axis: each position projects its own sequence shard (the data split
+    along 'seq' at dim 1 first, where it is not), the shards meet in ring
+    or Ulysses attention, and each position projects its output shard.
+    None (the plan's walk) for an attention that is not
+    sequence-parallel."""
+    from ..parallel import mesh as _mesh
+    num_heads, causal, no_bias, seq_par, block = _mha_attrs(attrs)
+    x = ins[0]
+    mesh = x.mesh
+    if not seq_par or _mesh.AXIS_SEQ not in mesh.axis_names:
+        return None
+    b, s, e = x.shape
+    _seq_checks(mesh, seq_par, b, num_heads, s, block)
+    x = _mesh.reshard(x, (x.spec[0] if x.spec[0] == "data" else None,
+                          "seq", None))
+    d = e // num_heads
+    qkv = []
+    for r, t in enumerate(x.parts):
+        w = [p.parts[r] for p in ins[1:]]
+        y = torch.einsum("bse,fe->bsf", t, w[0])
+        if not no_bias:
+            y = y + w[1]
+        bl, sl = t.shape[:2]
+        y = y.reshape(bl, sl, 3, num_heads, d)
+        qkv.append([y[:, :, i].permute(0, 2, 1, 3) for i in range(3)])
+    spec = (x.spec[0], None, "seq", None)
+    q, k, v = (_mesh.MeshArray(mesh, [t[i] for t in qkv], spec=spec)
+               for i in range(3))
+    o = _seq_attend(q, k, v, causal, block, seq_par)
+    outs = []
+    for r, t in enumerate(o.parts):
+        bl, _, sl, _ = t.shape
+        wout = ins[2 if no_bias else 3].parts[r]
+        y = torch.einsum("bse,fe->bsf",
+                         t.permute(0, 2, 1, 3).reshape(bl, sl, e), wout)
+        if not no_bias:
+            y = y + ins[4].parts[r]
+        outs.append(y)
+    return [_mesh.MeshArray(mesh, outs, spec=x.spec)], None
+
+
+_MHA.mesh_fn = _mha_mesh
+_MHA.mesh_axes = ("data", "seq")
 
 
 # ---------------------------------------------------------------------------
@@ -209,4 +243,5 @@ def _layer_norm(op_ctx, attrs, inputs, aux):
 
 register_def(OpDef("LayerNorm", _layer_norm,
                    inputs=("data", "gamma", "beta"),
-                   infer_shape=_ln_infer))
+                   infer_shape=_ln_infer, mesh_split=True,
+                   mesh_axis=("axis", -1)))

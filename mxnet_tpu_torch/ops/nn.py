@@ -151,7 +151,8 @@ def _fc(op_ctx, attrs, inputs, aux):
 
 _FC = register_def(OpDef("FullyConnected", _fc,
                          inputs=("data", "weight", "bias"),
-                         infer_shape=_fc_infer))
+                         infer_shape=_fc_infer, mesh_split=True,
+                         mesh_weight="num_hidden"))
 _FC.list_inputs = _fc_inputs
 
 
@@ -225,7 +226,8 @@ def _conv(op_ctx, attrs, inputs, aux):
 
 _CONV = register_def(OpDef("Convolution", _conv,
                            inputs=("data", "weight", "bias"),
-                           infer_shape=_conv_infer))
+                           infer_shape=_conv_infer, mesh_split=True,
+                           mesh_weight="num_filter"))
 _CONV.list_inputs = _conv_inputs
 
 
@@ -392,7 +394,7 @@ register_def(OpDef("BatchNorm", _batch_norm, inputs=("data", "gamma", "beta"),
 # Activation / softmax (ref: activation-inl.h, softmax_activation-inl.h)
 # ---------------------------------------------------------------------------
 
-@register("Activation", inputs=("data",))
+@register("Activation", inputs=("data",), mesh_split=True)
 def _activation(op_ctx, attrs, inputs, aux):
     act = attr_str(attrs.get("act_type", "relu"), "relu")
     x = inputs[0]
@@ -504,40 +506,58 @@ def _softmax_cfg(attrs, denom=None):
 
 
 @register("SoftmaxOutput", inputs=("data", "label"),
-          infer_shape=_softmax_out_infer, aliases=("Softmax",))
+          infer_shape=_softmax_out_infer, aliases=("Softmax",),
+          loss_head=True)
 def _softmax_output(op_ctx, attrs, inputs, aux):
     return (_SoftmaxOutput.apply(inputs[0], inputs[1], _softmax_cfg(attrs)),)
 
 
 def _softmax_output_mesh(op_ctx, attrs, ins, aux, devices):
-    """SoftmaxOutput over a 'data' mesh: each replica's shard with the
-    whole batch's normaliser, the global batch (``batch``) or the valid
-    labels summed across replicas (``valid``)."""
-    from ..parallel.mesh import MeshArray, all_reduce
+    """SoftmaxOutput over a mesh's 'data' and 'seq' axes: each position's
+    shard with the whole array's normaliser, the global batch (``batch``)
+    or the valid labels summed over the distinct label shards
+    (``valid``). The class axis is gathered first where it is split."""
+    from ..parallel import mesh as _mesh
     data, label = ins
-    if data.axis is None:
+    if not data.split_dims():
         return None
-    if label.axis is None:
+    if label.axis is None and data.axis is not None:
         raise MXNetError("SoftmaxOutput: the label of a batch split over a "
                          "'data' mesh must be split too")
     cfg = _softmax_cfg(attrs)
     gs, ignore, use_ignore, multi, norm, preserve, _ = cfg
+    nd = data.ndim
+    cls = {nd - 1} if preserve else ({1} if multi else set(range(1, nd)))
+    for dim, a in data.split_dims():
+        if dim in cls:
+            data = _mesh.gather_axis(data, a)
+    # the label laid out as the data's non-class dimensions
+    want = (data.spec[:-1] if preserve else
+            (data.spec[:1] + data.spec[2:]) if multi else data.spec[:1])
+    if tuple(label.spec[:len(want)]) != tuple(want):
+        label = _mesh.reshard(label, want)
+    if not data.split_dims():
+        return None
+    mesh = data.mesh
     denoms = [None] * len(data.parts)
     if norm == "batch":
         denoms = [data.shape[0]] * len(data.parts)
     elif norm == "valid":
         with torch.no_grad():
+            pos = _mesh.distinct_positions(mesh, label.spec)
             counts = [((lab != ignore).sum() if use_ignore
                        else torch.tensor(lab.numel(), device=lab.device)
-                       ).to(data.dtype) for lab in label.parts]
+                       ).to(data.dtype)
+                      for lab in (label.parts[r] for r in pos)]
             denoms = [torch.clamp_min(c, 1.0)
-                      for c in all_reduce(counts, devices)]
+                      for c in _mesh.all_reduce(counts, devices)]
     outs = [_SoftmaxOutput.apply(d, lab, cfg[:6] + (dn,))
             for d, lab, dn in zip(data.parts, label.parts, denoms)]
-    return [MeshArray(data.mesh, outs, data.axis)], None
+    return [_mesh.MeshArray(mesh, outs, spec=data.spec)], None
 
 
 get_op("SoftmaxOutput").mesh_fn = _softmax_output_mesh
+get_op("SoftmaxOutput").mesh_axes = ("data", "seq")
 
 
 # ---------------------------------------------------------------------------
@@ -654,7 +674,7 @@ def _concat_infer(attrs, in_shapes):
 
 
 @register("Concat", var_inputs_attr="num_args", infer_shape=_concat_infer,
-          aliases=("concat",))
+          aliases=("concat",), mesh_split=True, mesh_axis=("dim", 1))
 def _concat(op_ctx, attrs, inputs, aux):
     dim = attr_int(attrs.get("dim", 1), 1)
     return (torch.cat(inputs, dim=dim),)
@@ -728,25 +748,26 @@ def _dropout(op_ctx, attrs, inputs, aux):
 
 
 def _dropout_mesh(op_ctx, attrs, ins, aux, devices):
-    """Dropout over a 'data' mesh: the mask drawn once at the whole batch's
-    shape from the node's stream (as one device draws it) and sliced per
-    replica, so a mesh run masks as the single-device run does."""
-    from ..parallel.mesh import MeshArray
+    """Dropout over a mesh: the mask drawn once at the whole array's shape
+    from the node's stream (as one device draws it) and sliced per
+    position by the input's spec, so a mesh run masks as the
+    single-device run does."""
+    from ..parallel.mesh import MeshArray, _narrow
     p = attr_float(attrs.get("p", 0.5), 0.5)
     x = ins[0]
-    if not op_ctx.is_train or p <= 0.0 or x.axis is None:
+    if not op_ctx.is_train or p <= 0.0 or not x.split_dims():
         return None
     keep = 1.0 - p
     mask = torch.rand(x.shape, generator=op_ctx.rng, device=devices[0]) < keep
-    step = x.parts[0].shape[x.axis]
-    outs = [torch.where(mask.narrow(x.axis, r * step, step).to(t.device),
+    outs = [torch.where(_narrow(mask, x.mesh, x.spec, r).to(t.device),
                         t / keep, torch.zeros((), dtype=t.dtype,
                                               device=t.device))
             for r, t in enumerate(x.parts)]
-    return [MeshArray(x.mesh, outs, x.axis)], None
+    return [MeshArray(x.mesh, outs, spec=x.spec)], None
 
 
 get_op("Dropout").mesh_fn = _dropout_mesh
+get_op("Dropout").mesh_axes = ("data", "model", "pipe", "seq")
 
 
 # ---------------------------------------------------------------------------
@@ -766,7 +787,7 @@ class _MakeLoss(torch.autograd.Function):
         return torch.full_like(g, ctx.grad_scale), None
 
 
-@register("MakeLoss", inputs=("data",))
+@register("MakeLoss", inputs=("data",), loss_head=True)
 def _make_loss(op_ctx, attrs, inputs, aux):
     gs = attr_float(attrs.get("grad_scale", 1.0), 1.0)
     # as the JAX package: "batch" divides by the batch, every other value
@@ -787,20 +808,21 @@ def _make_loss_head(x, gs):
 
 
 def _make_loss_mesh(op_ctx, attrs, ins, aux, devices):
-    """MakeLoss over a 'data' mesh: ``batch`` normalisation divides by the
-    whole batch."""
+    """MakeLoss over a mesh: ``batch`` normalisation divides by the whole
+    batch."""
     from ..parallel.mesh import MeshArray
     x = ins[0]
-    if x.axis is None:
+    if not x.split_dims():
         return None
     gs = attr_float(attrs.get("grad_scale", 1.0), 1.0)
     if attr_str(attrs.get("normalization", "null"), "null") == "batch":
         gs = gs / x.shape[0]
     return [MeshArray(x.mesh, [_make_loss_head(t, gs) for t in x.parts],
-                      x.axis)], None
+                      spec=x.spec)], None
 
 
 get_op("MakeLoss").mesh_fn = _make_loss_mesh
+get_op("MakeLoss").mesh_axes = ("data", "model", "pipe", "seq")
 
 
 # ---------------------------------------------------------------------------
@@ -814,7 +836,7 @@ def _slice_channel_outputs(attrs):
 
 
 @register("SliceChannel", inputs=("data",), var_outputs=_slice_channel_outputs,
-          aliases=("split",))
+          aliases=("split",), mesh_split=True, mesh_axis=("axis", 1))
 def _slice_channel(op_ctx, attrs, inputs, aux):
     n = attr_int(attrs.get("num_outputs", 1), 1)
     ax = attr_int(attrs.get("axis", 1), 1)

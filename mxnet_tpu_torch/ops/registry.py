@@ -38,15 +38,39 @@ class OpContext(object):
 
 class OpDef(object):
     """A registered operator. ``mesh_fn``, where an op sets it, runs the op
-    over every replica of a 'data' mesh at once (``executor``): the ops
-    whose result depends on the whole batch (BatchNorm's statistics,
-    Dropout's mask, the losses' normalisation)."""
+    over every position of a mesh at once (``executor``): the ops whose
+    result depends on the whole batch (BatchNorm's statistics, Dropout's
+    mask, the losses' normalisation) or that exchange shards between
+    positions (sequence-parallel attention, the pipelined layer stack).
+
+    How the executor runs an op without a ``mesh_fn`` over a mesh
+    (``executor.spec_plan``) is set where the op is registered:
+    ``mesh_split`` lets it run per position along a 'model', 'seq' or
+    'pipe' axis where the output shapes at one shard show a split (an op
+    without it runs there on the value gathered along the axis; along
+    'data' the shapes decide for every op); ``mesh_axis`` ``(attribute,
+    default)`` names the dimension the op works along (a Concat's ``dim``,
+    a LayerNorm's ``axis``), which must not be split; ``mesh_weight`` names
+    a weight op's output-size attribute (its weight, input 1, split along
+    its output dimension runs per position on the shard);
+    ``mesh_whole_inputs`` are inputs that must be whole along a 'model',
+    'seq' or 'pipe' axis (an Embedding's table); ``mesh_whole`` ops (tile)
+    and ops drawing random numbers run on the whole value;
+    ``mesh_reshape`` ops split an axis only where it is their outermost
+    dimension; and a ``loss_head``'s backward ignores its output's
+    cotangent."""
 
     mesh_fn = None
+    #: the mesh axes ``mesh_fn`` handles: the executor gathers an input
+    #: split along any other axis first, and calls it once for each
+    #: index of the other axes
+    mesh_axes = ("data",)
 
     def __init__(self, name, fn, inputs=("data",), aux=(), outputs=("output",),
                  infer_shape=None, infer_type=None, needs_rng=False,
-                 var_inputs_attr=None, var_outputs=None):
+                 var_inputs_attr=None, var_outputs=None, mesh_split=False,
+                 mesh_axis=None, mesh_weight=None, mesh_whole_inputs=(),
+                 mesh_whole=False, mesh_reshape=False, loss_head=False):
         self.name = name
         # fn(op_ctx, attrs, inputs, aux) -> outputs tuple, or
         # (outputs tuple, aux updates tuple) for ops with aux state
@@ -60,6 +84,13 @@ class OpDef(object):
         # e.g. "num_args" for Concat, whose inputs are arg0, arg1, ...
         self.var_inputs_attr = var_inputs_attr
         self.var_outputs = var_outputs   # callable(attrs) -> names, or None
+        self.mesh_split = mesh_split
+        self.mesh_axis = mesh_axis
+        self.mesh_weight = mesh_weight
+        self.mesh_whole_inputs = tuple(mesh_whole_inputs)
+        self.mesh_whole = mesh_whole
+        self.mesh_reshape = mesh_reshape
+        self.loss_head = loss_head
 
     # -- arity ----------------------------------------------------------
     def list_inputs(self, attrs):
@@ -175,7 +206,8 @@ def register_unary(name, tfn, aliases=()):
     """Elementwise unary op (ref: MXNET_OPERATOR_REGISTER_UNARY family)."""
     def fn(op_ctx, attrs, inputs, aux):
         return (tfn(inputs[0]),)
-    register_def(OpDef(name, fn, inputs=("data",)), aliases=aliases)
+    register_def(OpDef(name, fn, inputs=("data",), mesh_split=True),
+                 aliases=aliases)
 
 
 def register_binary(name, tfn, aliases=()):
@@ -183,11 +215,12 @@ def register_binary(name, tfn, aliases=()):
     elemwise_binary_op.h, elemwise_binary_broadcast_op.h)."""
     def fn(op_ctx, attrs, inputs, aux):
         return (tfn(inputs[0], inputs[1]),)
-    register_def(OpDef(name, fn, inputs=("lhs", "rhs")), aliases=aliases)
+    register_def(OpDef(name, fn, inputs=("lhs", "rhs"), mesh_split=True),
+                 aliases=aliases)
 
 
 def register_binary_scalar(name, tfn):
     """``data`` op the ``scalar`` attr (ref: elemwise_binary_scalar_op.h)."""
     def fn(op_ctx, attrs, inputs, aux):
         return (tfn(inputs[0], float(attrs.get("scalar", 0.0))),)
-    register_def(OpDef(name, fn, inputs=("data",)))
+    register_def(OpDef(name, fn, inputs=("data",), mesh_split=True))

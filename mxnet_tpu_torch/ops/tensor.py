@@ -49,23 +49,24 @@ for _n, _f in _UNARY.items():
 register_unary("identity", torch.clone, aliases=("_copy",))
 
 
-@register("BlockGrad", inputs=("data",), aliases=("stop_gradient",))
+@register("BlockGrad", inputs=("data",), aliases=("stop_gradient",),
+          mesh_split=True)
 def _block_grad(op_ctx, attrs, inputs, aux):
     return (inputs[0].detach(),)
 
 
-@register("Cast", inputs=("data",), aliases=("cast",))
+@register("Cast", inputs=("data",), aliases=("cast",), mesh_split=True)
 def _cast(op_ctx, attrs, inputs, aux):
     return (inputs[0].to(torch_dtype(str(attrs["dtype"]))),)
 
 
-@register("clip", inputs=("data",))
+@register("clip", inputs=("data",), mesh_split=True)
 def _clip(op_ctx, attrs, inputs, aux):
     return (torch.clamp(inputs[0], attr_float(attrs.get("a_min")),
                         attr_float(attrs.get("a_max"))),)
 
 
-@register("smooth_l1", inputs=("data",))
+@register("smooth_l1", inputs=("data",), mesh_split=True)
 def _smooth_l1(op_ctx, attrs, inputs, aux):
     # ref: mshadow_op.h smooth_l1_loss: 0.5 (s x)^2 where |x| < 1/s^2,
     # else |x| - 0.5/s^2
@@ -161,7 +162,8 @@ def _reshape_target(shape_attr, src_shape):
     return tuple(out)
 
 
-@register("Reshape", inputs=("data",), aliases=("reshape",))
+@register("Reshape", inputs=("data",), aliases=("reshape",),
+          mesh_reshape=True)
 def _reshape(op_ctx, attrs, inputs, aux):
     x = inputs[0]
     if "shape" in attrs and attrs["shape"] not in (None, ""):
@@ -173,7 +175,8 @@ def _reshape(op_ctx, attrs, inputs, aux):
     return (torch.reshape(x, tgt),)
 
 
-@register("Flatten", inputs=("data",), aliases=("flatten",))
+@register("Flatten", inputs=("data",), aliases=("flatten",),
+          mesh_reshape=True)
 def _flatten(op_ctx, attrs, inputs, aux):
     x = inputs[0]
     return (torch.reshape(x, (x.shape[0], -1)),)
@@ -189,7 +192,7 @@ def _transpose(op_ctx, attrs, inputs, aux):
     return (x.permute(*axes),)
 
 
-@register("expand_dims", inputs=("data",))
+@register("expand_dims", inputs=("data",), mesh_split=True)
 def _expand_dims(op_ctx, attrs, inputs, aux):
     return (torch.unsqueeze(inputs[0], attr_int(attrs["axis"])),)
 
@@ -207,7 +210,8 @@ def _slice(op_ctx, attrs, inputs, aux):
     return (inputs[0][tuple(slice(b, e) for b, e in zip(begin, end))],)
 
 
-@register("slice_axis", inputs=("data",))
+@register("slice_axis", inputs=("data",), mesh_split=True,
+          mesh_axis=("axis", None))
 def _slice_axis(op_ctx, attrs, inputs, aux):
     x = inputs[0]
     ax = attr_int(attrs["axis"]) % x.dim()
@@ -221,7 +225,8 @@ def _slice_axis(op_ctx, attrs, inputs, aux):
     return (torch.narrow(x, ax, b, max(e - b, 0)),)
 
 
-@register("flip", inputs=("data",), aliases=("reverse",))
+@register("flip", inputs=("data",), aliases=("reverse",),
+          mesh_axis=("axis", None))
 def _flip(op_ctx, attrs, inputs, aux):
     return (torch.flip(inputs[0], attr_tuple(attrs["axis"])),)
 
@@ -234,7 +239,7 @@ def _repeat(op_ctx, attrs, inputs, aux):
                                     dim=ax),)
 
 
-@register("tile", inputs=("data",))
+@register("tile", inputs=("data",), mesh_whole=True)
 def _tile(op_ctx, attrs, inputs, aux):
     return (torch.tile(inputs[0], attr_tuple(attrs["reps"])),)
 
@@ -396,13 +401,14 @@ def _embedding_infer(attrs, in_shapes):
             [tuple(data) + (out_dim,)], [])
 
 
-@register("Embedding", inputs=("data", "weight"), infer_shape=_embedding_infer)
+@register("Embedding", inputs=("data", "weight"), infer_shape=_embedding_infer,
+          mesh_split=True, mesh_whole_inputs=(1,))
 def _embedding(op_ctx, attrs, inputs, aux):
     data, weight = inputs
     return (weight[data.long()],)
 
 
-@register("take", inputs=("a", "indices"))
+@register("take", inputs=("a", "indices"), mesh_axis=("axis", 0))
 def _take(op_ctx, attrs, inputs, aux):
     a, idx = inputs
     ax = attr_int(attrs.get("axis", 0), 0) % a.dim()
@@ -434,7 +440,7 @@ def _one_hot(op_ctx, attrs, inputs, aux):
     return ((oh * (on_v - off_v) + off_v).to(dt),)
 
 
-@register("where", inputs=("condition", "x", "y"))
+@register("where", inputs=("condition", "x", "y"), mesh_split=True)
 def _where(op_ctx, attrs, inputs, aux):
     cond, x, y = inputs
     if cond.dim() == 1 and x.dim() > 1:
@@ -451,7 +457,8 @@ def _topk_outputs(attrs):
     return ["output0", "output1"] if rt == "both" else ["output"]
 
 
-@register("topk", inputs=("data",), var_outputs=_topk_outputs)
+@register("topk", inputs=("data",), var_outputs=_topk_outputs,
+          mesh_axis=("axis", -1))
 def _topk(op_ctx, attrs, inputs, aux):
     x = inputs[0]
     ax = attr_int(attrs.get("axis", -1), -1) % x.dim()
@@ -470,7 +477,7 @@ def _topk(op_ctx, attrs, inputs, aux):
     return (idxs,)
 
 
-@register("sort", inputs=("data",))
+@register("sort", inputs=("data",), mesh_axis=("axis", -1))
 def _sort(op_ctx, attrs, inputs, aux):
     ax = attr_int(attrs.get("axis", -1), -1)
     r = torch.sort(inputs[0], dim=ax, stable=True).values
@@ -479,7 +486,7 @@ def _sort(op_ctx, attrs, inputs, aux):
     return (r,)
 
 
-@register("argsort", inputs=("data",))
+@register("argsort", inputs=("data",), mesh_axis=("axis", -1))
 def _argsort(op_ctx, attrs, inputs, aux):
     x = inputs[0]
     ax = attr_int(attrs.get("axis", -1), -1)
@@ -518,12 +525,12 @@ _register_filler("_ones", 1)
 _register_filler("_full", None)
 
 
-@register("zeros_like", inputs=("data",))
+@register("zeros_like", inputs=("data",), mesh_split=True)
 def _zeros_like(op_ctx, attrs, inputs, aux):
     return (torch.zeros_like(inputs[0]),)
 
 
-@register("ones_like", inputs=("data",))
+@register("ones_like", inputs=("data",), mesh_split=True)
 def _ones_like(op_ctx, attrs, inputs, aux):
     return (torch.ones_like(inputs[0]),)
 

@@ -10,17 +10,24 @@ symbol composition (LayerNorm + MultiHeadAttention + FullyConnected), so
 stacked and per-layer builds agree for equal weights. Autograd flows back
 through the indexing into each stack.
 
-The port cannot form a 'pipe' mesh: ``Module(mesh_axes=...)``,
-``MXTPU_LM_MESH`` and ``TrainStep(mesh=...)`` raise :class:`MXNetError`
-(ROADMAP.md A.7b), and ``num_microbatches`` is accepted and unused, as on
-one device in the JAX package.
+Under a mesh with a 'pipe' axis the stack runs the GPipe schedule of
+``parallel/pipeline.py``, as the JAX package's does: the (L, ...) stacks
+fold to (S, L/S, ...), one stage of L/S layers per 'pipe' position, and
+the batch splits into ``num_microbatches`` microbatches (0: one per
+stage). A graph walk over the mesh (``executor``) takes each stage's
+layers from its own position (the stage's shard where the stack is split
+along 'pipe' at dim 0, e.g. by ``param_shardings={...: P('pipe')}``, else
+its slice of the whole stack there), and each 'data' shard runs its own
+pipeline; a whole tensor under an ambient 'pipe' mesh runs
+``pipeline_apply``. On one device ``num_microbatches`` is unused.
 """
 from __future__ import annotations
 
 import torch
 
 from ..base import attr_bool, attr_int, MXNetError
-from .attention import blockwise_attention, layer_norm
+from ..parallel.ring import blockwise_attention
+from .attention import layer_norm
 from .registry import OpDef, register_def
 
 #: stacked-parameter input order (leading dim L on every non-data input)
@@ -81,14 +88,88 @@ def _one_layer(p, x, num_heads, causal, block):
     return x + f
 
 
+def _layers(num_heads, causal, block):
+    """A stage body: the layers of a (layers, ...) stack in turn."""
+    def run(stack, x):
+        for i in range(stack[0].shape[0]):
+            x = _one_layer(tuple(p[i] for p in stack), x, num_heads, causal,
+                           block)
+        return x
+    return run
+
+
+def _pipe_checks(mesh, L, b):
+    from ..parallel.mesh import (AXIS_DATA, AXIS_PIPE, check_axis_divides)
+    check_axis_divides(mesh, AXIS_PIPE, L, "TransformerStack: num_layers")
+    check_axis_divides(mesh, AXIS_DATA, b, "TransformerStack: batch dim")
+
+
 def _transformer_stack(op_ctx, attrs, inputs, aux):
-    L, num_heads, _, causal, block, _ = _stack_attrs(attrs)
+    L, num_heads, _, causal, block, micro = _stack_attrs(attrs)
     x, params = inputs[0], tuple(inputs[1:])
-    for i in range(L):
-        x = _one_layer(tuple(p[i] for p in params), x, num_heads, causal,
-                       block)
-    return (x,)
+    run = _layers(num_heads, causal, block)
+    from ..parallel import mesh as _mesh
+    mesh = _mesh.current_mesh()
+    if mesh is None or _mesh.AXIS_PIPE not in mesh.axis_names:
+        return (run(params, x),)
+    from ..parallel.pipeline import pipeline_apply
+    S = _mesh.data_axis_size(mesh, _mesh.AXIS_PIPE)
+    _pipe_checks(mesh, L, x.shape[0])
+    # fold the (L, ...) stacks onto stages: (S, L/S, ...)
+    staged = tuple(p.reshape((S, L // S) + tuple(p.shape[1:]))
+                   for p in params)
+    bax = _mesh.AXIS_DATA if _mesh.AXIS_DATA in mesh.axis_names else None
+    return (pipeline_apply(run, staged, x, mesh, axis_name=_mesh.AXIS_PIPE,
+                           num_microbatches=micro or None, batch_axis=bax),)
 
 
-register_def(OpDef("TransformerStack", _transformer_stack,
-                   inputs=STACK_INPUTS, infer_shape=_stack_infer))
+def _transformer_stack_mesh(op_ctx, attrs, ins, aux, devices):
+    """The stack over a mesh with a 'pipe' axis: per group of 'pipe'
+    positions (one a 'data' shard), the GPipe schedule with stage ``s``'s
+    layers from position ``s`` and the shard's microbatches; the last
+    stage's output is copied to every position of the group. None (the
+    plan's walk) without a 'pipe' axis."""
+    from ..parallel import mesh as _mesh
+    from ..parallel.pipeline import check_pipeline, pipeline_spmd
+    L, num_heads, _, causal, block, micro = _stack_attrs(attrs)
+    x = ins[0]
+    mesh = x.mesh
+    S = mesh.size(_mesh.AXIS_PIPE)
+    if S == 1:
+        return None
+    _pipe_checks(mesh, L, x.shape[0])
+    M = micro or S
+    x = _mesh.reshard(x, (x.spec[0] if x.spec[0] == _mesh.AXIS_DATA
+                          else None, None, None))
+    dp = mesh.size(_mesh.AXIS_DATA) if x.spec[0] else 1
+    check_pipeline(x.shape[0], M, S, _mesh.AXIS_PIPE, dp,
+                   _mesh.AXIS_DATA if dp > 1 else None)
+    per = L // S
+    run = _layers(num_heads, causal, block)
+
+    def stage(p, r, s):
+        t = p.parts[r]
+        if p.spec[0] == _mesh.AXIS_PIPE:
+            return t
+        return t[s * per:(s + 1) * per]
+    parts = list(x.parts)
+    for grp in _mesh.axis_groups(mesh, _mesh.AXIS_PIPE):
+        devs = [devices[r] for r in grp]
+        stages = [tuple(stage(p, r, s) for p in ins[1:])
+                  for s, r in enumerate(grp)]
+        xb = x.parts[grp[0]]
+        bl = xb.shape[0]
+        mbs = xb.reshape((M, bl // M) + tuple(xb.shape[1:]))
+        y = torch.cat(pipeline_spmd(run, stages, mbs, devs), 0)
+        done = {}
+        for r in grp:
+            if devices[r] not in done:
+                done[devices[r]] = y.to(devices[r])
+            parts[r] = done[devices[r]]
+    return [_mesh.MeshArray(mesh, parts, spec=x.spec)], None
+
+
+_STACK = register_def(OpDef("TransformerStack", _transformer_stack,
+                            inputs=STACK_INPUTS, infer_shape=_stack_infer))
+_STACK.mesh_fn = _transformer_stack_mesh
+_STACK.mesh_axes = ("data", "pipe")

@@ -1,23 +1,29 @@
-"""The mesh of replicas and its helpers.
+"""The mesh of positions and its helpers.
 
 Counterpart of ``mxnet_tpu/parallel/mesh.py``. The JAX package builds a
 ``jax.sharding.Mesh`` over devices and lets GSPMD place the collectives;
 the port is single-controller too, but explicit: a :class:`Mesh` names
-axes over a grid of ``torch.device``s, one replica per position, and
-replicas may share a physical device (two replicas on ``cuda:0``, eight
-on the host CPU). A logical array over the mesh is a :class:`MeshArray`:
-one tensor per replica, split along its batch ``axis`` or whole on every
-replica. Cross-replica sums (:func:`all_reduce`) and gathers
-(:func:`all_gather`) are ``.to(device)`` copies and sums, one code path
-whether two replicas share a card or not, and differentiable, so autograd
-carries the gradient reductions.
+axes ('data', 'model', 'pipe', 'seq') over a grid of ``torch.device``s,
+one position per grid cell, and positions may share a physical device
+(two on ``cuda:0``, eight on the host CPU). A logical array over the mesh
+is a :class:`MeshArray`: one tensor per position, laid out by a partition
+spec (one mesh axis, or None, per array dimension): a dimension that names
+an axis is split along it in the axis' order, and the array is whole
+(replicated) along every axis its spec does not name. The collectives
+between positions (:func:`all_reduce`, :func:`all_gather`,
+:func:`gather_axis`, :func:`ppermute`, :func:`all_to_all`) are
+``.to(device)`` copies, sums and concatenations, one code path whether two
+positions share a card or not, and differentiable, so autograd carries the
+gradient reductions. :data:`COUNTERS` counts each kind.
 
-Only the 'data' axis is ported. The model, seq and pipe axes
-(``model_parallel_mesh``, ``parse_mesh_axes``, ``mesh_from_spec``,
-``shard_map_compat``, ``axis_size``) raise, citing ROADMAP.md A.7b;
-``global_data_mesh``, ``host_to_global``, ``host_broadcast0`` and
-``local_view`` wait for multi-process training (A.11b), and
-``is_multiprocess`` is always False.
+``shard_map_compat`` and ``axis_size`` have no counterpart: they run a
+per-device function whose collectives are implicit in the mesh axis
+names, and the port's single controller holds every position's tensor
+itself. The port's ``ring.ring_attention``, ``ring.ulysses_attention`` and
+``pipeline.pipeline_apply`` take the mesh and the per-position tensors
+explicitly instead. ``global_data_mesh``, ``host_to_global``,
+``host_broadcast0`` and ``local_view`` wait for multi-process training
+(ROADMAP.md A.11b), and ``is_multiprocess`` is always False.
 """
 from __future__ import annotations
 
@@ -41,11 +47,15 @@ AXIS_EXPERT = "expert"
 #: every axis name a multi-axis training mesh may carry, in canonical order
 AXIS_NAMES = (AXIS_DATA, AXIS_MODEL, AXIS_PIPE, AXIS_SEQ, AXIS_EXPERT)
 
-#: cross-replica collectives run since the last :func:`reset_counters`:
+#: collectives between positions run since the last :func:`reset_counters`:
 #: ``all_reduce`` (sums: BatchNorm statistics, gradients, metric sums),
-#: ``all_gather`` (an op run on the whole batch, see ``executor``) and
-#: ``broadcast`` (a value copied to every replica)
-COUNTERS = {"all_reduce": 0, "all_gather": 0, "broadcast": 0}
+#: ``all_gather`` (an op run on the value gathered along an axis, see
+#: ``executor``), ``broadcast`` (a value copied to every position),
+#: ``ppermute`` (a rotation to the neighbour along an axis: ring
+#: attention's K/V, the pipeline's activations) and ``all_to_all`` (the
+#: sequence-to-head exchange of Ulysses attention)
+COUNTERS = {"all_reduce": 0, "all_gather": 0, "broadcast": 0,
+            "ppermute": 0, "all_to_all": 0}
 _COUNT_LOCK = threading.Lock()
 
 
@@ -73,9 +83,10 @@ class P(tuple):
 
 
 class Mesh(object):
-    """Named axes over a grid of ``torch.device``s, one replica per
-    position (ref: ``jax.sharding.Mesh``). Positions may name the same
-    device."""
+    """Named axes over a grid of ``torch.device``s, one position per grid
+    cell (ref: ``jax.sharding.Mesh``). Positions may name the same
+    device. Position ``r`` is the ``r``-th cell in row-major order, and
+    ``coords(r)`` its index along each axis."""
 
     def __init__(self, devices, axis_names):
         arr = np.empty(np.shape(devices), dtype=object)
@@ -87,15 +98,33 @@ class Mesh(object):
         if len(self.axis_names) != arr.ndim:
             raise MXNetError("Mesh: %d axis names for a %d-dimensional "
                              "device grid" % (len(self.axis_names), arr.ndim))
+        self._coords = [dict(zip(self.axis_names, c))
+                        for c in np.ndindex(*arr.shape)]
 
     @property
     def shape(self):
         return collections.OrderedDict(zip(self.axis_names,
                                            self.devices.shape))
 
+    def size(self, axis):
+        """The number of positions along ``axis`` (1 when absent)."""
+        return data_axis_size(self, axis)
+
+    def coords(self, r):
+        """Position ``r``'s index along each axis, ``{axis: index}``."""
+        return self._coords[r]
+
     def replica_devices(self):
-        """The device of each replica, in mesh order."""
+        """The device of each position, in mesh order."""
         return list(self.devices.flat)
+
+    def split_axes(self):
+        """The axes with more than one position."""
+        return [a for a, n in self.shape.items() if n > 1]
+
+    def is_data_only(self):
+        """Whether every axis but 'data' has one position."""
+        return all(a == AXIS_DATA for a in self.split_axes())
 
     def __repr__(self):
         return "Mesh(%s, %s)" % (dict(self.shape), self.replica_devices())
@@ -111,7 +140,7 @@ class NamedSharding(object):
 
 def devices():
     """The devices a mesh is built over by default: every visible CUDA
-    device, else the host CPU once per core (CPU replicas share the host
+    device, else the host CPU once per core (CPU positions share the host
     device, as the JAX package's virtual CPU devices share the host)."""
     if torch.cuda.is_available():
         return [torch.device("cuda", i)
@@ -157,39 +186,103 @@ def data_parallel_mesh(num=None, devices=None):
 
 
 def model_parallel_mesh(num=None, devices=None):
-    _not_ported("model_parallel_mesh (the 'model' axis)", "A.7b")
+    """A one-axis 'model' mesh over ``num`` of ``devices`` (all by
+    default)."""
+    if devices is None:
+        devices = globals()["devices"]()
+    devices = list(devices)
+    if num is not None:
+        if num > len(devices):
+            raise MXNetError(
+                "model_parallel_mesh: %d devices requested, %d visible "
+                "(pass devices= to place several positions on one device)"
+                % (num, len(devices)))
+        devices = devices[:num]
+    return make_mesh({AXIS_MODEL: len(devices)}, devices)
 
 
 def parse_mesh_axes(spec):
-    _not_ported("parse_mesh_axes (multi-axis meshes)", "A.7b")
+    """Parse a mesh-axes spec, ``"data=2,seq=4"`` or ``{"data": 2, "seq":
+    4}``, into an ordered ``{axis: size}`` dict (the order becomes the
+    mesh's axis order). Axis names come from :data:`AXIS_NAMES`; sizes are
+    positive integers. Raises :class:`MXNetError` naming the offending
+    token."""
+    if isinstance(spec, dict):
+        items = list(spec.items())
+    else:
+        items = []
+        for tok in str(spec).split(","):
+            tok = tok.strip()
+            if not tok:
+                continue
+            if "=" not in tok:
+                raise MXNetError(
+                    "mesh axes spec %r: token %r is not 'axis=N' "
+                    "(e.g. 'data=2,seq=4')" % (spec, tok))
+            name, _, num = tok.partition("=")
+            items.append((name.strip(), num.strip()))
+    axes = {}
+    for name, num in items:
+        if name not in AXIS_NAMES:
+            raise MXNetError(
+                "mesh axes spec %r: unknown axis %r (valid: %s)"
+                % (spec, name, ", ".join(AXIS_NAMES)))
+        try:
+            n = int(num)
+        except (TypeError, ValueError):
+            raise MXNetError("mesh axes spec %r: axis %r size %r is not "
+                             "an integer" % (spec, name, num))
+        if n < 1:
+            raise MXNetError("mesh axes spec %r: axis %r size must be "
+                             ">= 1, got %d" % (spec, name, n))
+        if name in axes:
+            raise MXNetError("mesh axes spec %r: axis %r given twice"
+                             % (spec, name))
+        axes[name] = n
+    if not axes:
+        raise MXNetError("mesh axes spec %r names no axes" % (spec,))
+    return axes
 
 
 def mesh_from_spec(spec, devices=None):
-    _not_ported("mesh_from_spec (multi-axis meshes)", "A.7b")
+    """A multi-axis Mesh from a spec (:func:`parse_mesh_axes`) over the
+    first ``prod(sizes)`` of ``devices`` (default :func:`devices`). A
+    shortfall names the devices seen and how to place several positions
+    on one device."""
+    axes = parse_mesh_axes(spec)
+    if devices is None:
+        devices = globals()["devices"]()
+    devices = list(devices)
+    need = int(np.prod(list(axes.values())))
+    if need > len(devices):
+        raise MXNetError(
+            "mesh %s needs %d devices but only %d are visible (%s) — pass "
+            "devices= with a device listed once per position (positions "
+            "may share a device, e.g. [\"cuda:0\"] * %d)"
+            % ("x".join("%s=%d" % kv for kv in axes.items()), need,
+               len(devices), ", ".join(sorted({str(d) for d in devices})),
+               need))
+    return make_mesh(axes, devices[:need])
+
+
+_NO_SHARD_MAP = (
+    "%s has no counterpart in the port and never will: it runs a "
+    "per-device function whose collectives are implicit in the mesh axis "
+    "names, while the port's single controller holds every position's "
+    "tensor itself. parallel.ring.ring_attention, ring.ulysses_attention "
+    "and pipeline.pipeline_apply take the mesh and the per-position "
+    "tensors explicitly (ROADMAP.md, 'Options that raise')")
 
 
 def shard_map_compat(f, mesh=None, in_specs=None, out_specs=None,
                      check_vma=None, **kw):
-    _not_ported("shard_map_compat (the seq and pipe axes)", "A.7b")
+    """Raises: see :data:`_NO_SHARD_MAP`."""
+    raise MXNetError(_NO_SHARD_MAP % "shard_map_compat")
 
 
 def axis_size(axis_name):
-    _not_ported("axis_size (the seq and pipe axes)", "A.7b")
-
-
-def check_data_only(mesh, who):
-    """Raise unless every axis of ``mesh`` but 'data' has size 1: only the
-    'data' axis is ported."""
-    if mesh is None:
-        return
-    if not isinstance(mesh, Mesh):
-        raise MXNetError("%s: mesh=%r is not a parallel.mesh.Mesh"
-                         % (who, mesh))
-    other = [a for a, n in mesh.shape.items() if a != AXIS_DATA and n > 1]
-    if other:
-        raise MXNetError("%s: the %s mesh axes (model, seq and pipe "
-                         "parallelism) are not ported yet (ROADMAP.md A.7b)"
-                         % (who, "/".join(repr(a) for a in other)))
+    """Raises: see :data:`_NO_SHARD_MAP`."""
+    raise MXNetError(_NO_SHARD_MAP % "axis_size")
 
 
 def check_axis_divides(mesh, axis, value, what):
@@ -225,7 +318,7 @@ def current_mesh():
 
 
 def data_axis_size(mesh, axis=AXIS_DATA):
-    """Number of shards along the mesh's data axis (1 when absent)."""
+    """Number of shards along the mesh's ``axis`` (1 when absent)."""
     if mesh is None or axis not in mesh.axis_names:
         return 1
     return int(mesh.shape[axis])
@@ -234,12 +327,14 @@ def data_axis_size(mesh, axis=AXIS_DATA):
 def superbatch_sharding(mesh, axis=AXIS_DATA, seq=False):
     """The sharding of stacked ``(k, batch, ...)`` superbatches: the step
     axis whole, the batch axis split along ``axis``. ``SuperBatchIter``
-    lands its copies with it, so each replica receives only its shard.
-    ``seq=True`` over a mesh with a 'seq' axis raises (A.7b)."""
+    lands its copies with it, so each position receives only its shard.
+    ``seq=True`` over a mesh with a 'seq' axis also splits dim 2 (the
+    token dim of a stacked ``(k, batch, seq)`` batch) along 'seq'."""
     if mesh is None:
         return None
     if seq and AXIS_SEQ in mesh.axis_names:
-        _not_ported("superbatch_sharding(seq=True) (the 'seq' axis)", "A.7b")
+        bax = axis if axis in mesh.axis_names else None
+        return NamedSharding(mesh, P(None, bax, AXIS_SEQ))
     if axis not in mesh.axis_names:
         return None
     return NamedSharding(mesh, P(None, axis))
@@ -267,28 +362,68 @@ def local_view(arr):
 
 
 # ---------------------------------------------------------------------------
-# arrays over a mesh and the collectives between replicas
+# arrays over a mesh and the collectives between positions
 # ---------------------------------------------------------------------------
 
+def _spec_from_axis(ndim, axis):
+    spec = [None] * ndim
+    if axis is not None:
+        spec[axis] = AXIS_DATA
+    return tuple(spec)
+
+
+def shard_index(mesh, spec, r):
+    """The index of position ``r``'s shard along each split dimension of
+    ``spec``: positions with equal indices hold the same values."""
+    c = mesh.coords(r)
+    return tuple(c[a] for a in spec if a is not None)
+
+
+def distinct_positions(mesh, spec):
+    """The first position holding each distinct shard of an array laid out
+    by ``spec``, in mesh order."""
+    seen, out = set(), []
+    for r in range(len(mesh.replica_devices())):
+        k = shard_index(mesh, spec, r)
+        if k not in seen:
+            seen.add(k)
+            out.append(r)
+    return out
+
+
+def local_shape(shape, mesh, spec):
+    """One position's shape of a ``shape`` laid out by ``spec``."""
+    return tuple(d // data_axis_size(mesh, a) if a is not None else d
+                 for d, a in zip(shape, spec))
+
+
 class MeshArray(object):
-    """One logical array over a mesh's replicas: ``parts[r]`` is replica
-    ``r``'s tensor, on its device. With ``axis`` an int the array is split
-    along that axis in replica order (each part a shard); with ``axis``
-    None every part holds the whole array (replicated)."""
+    """One logical array over a mesh's positions: ``parts[r]`` is position
+    ``r``'s tensor, on its device, laid out by ``spec`` (one mesh axis or
+    None per dimension; see the module's note). ``axis`` (an int, or None
+    for a replicated array) is the 'data'-only spelling: ``spec`` with
+    'data' at that dimension; :attr:`axis` reads the dimension 'data'
+    splits back."""
 
-    __slots__ = ("mesh", "parts", "axis")
+    __slots__ = ("mesh", "parts", "spec")
 
-    def __init__(self, mesh, parts, axis):
+    def __init__(self, mesh, parts, axis=None, spec=None):
         self.mesh = mesh
         self.parts = list(parts)
-        self.axis = axis
+        if spec is None:
+            spec = _spec_from_axis(self.parts[0].dim(), axis)
+        names = mesh.axis_names
+        self.spec = tuple(a if a in names else None for a in spec)
+
+    @property
+    def axis(self):
+        return (self.spec.index(AXIS_DATA) if AXIS_DATA in self.spec
+                else None)
 
     @property
     def shape(self):
-        s = list(self.parts[0].shape)
-        if self.axis is not None:
-            s[self.axis] *= len(self.parts)
-        return tuple(s)
+        return tuple(d * data_axis_size(self.mesh, a) if a is not None
+                     else d for d, a in zip(self.parts[0].shape, self.spec))
 
     @property
     def dtype(self):
@@ -300,17 +435,34 @@ class MeshArray(object):
 
     @property
     def sharding(self):
-        spec = []
-        if self.axis is not None:
-            spec = [None] * self.axis + [AXIS_DATA]
+        spec = list(self.spec)
+        while spec and spec[-1] is None:
+            spec.pop()
         return NamedSharding(self.mesh, P(*spec))
 
+    def split_dims(self):
+        """``[(dim, axis)]`` of the dimensions the spec splits."""
+        return [(i, a) for i, a in enumerate(self.spec) if a is not None]
+
     def gather(self, device=None):
-        """The whole array on ``device`` (replica 0's by default)."""
+        """The whole array on ``device`` (position 0's by default)."""
         device = self.parts[0].device if device is None else device
-        if self.axis is None:
+        split = self.split_dims()
+        if not split:
             return self.parts[0].to(device)
-        return torch.cat([p.to(device) for p in self.parts], self.axis)
+        if split == [(split[0][0], AXIS_DATA)] and self.mesh.is_data_only():
+            return torch.cat([p.to(device) for p in self.parts], split[0][0])
+        reps = {}
+        for r, p in enumerate(self.parts):
+            reps.setdefault(shard_index(self.mesh, self.spec, r), p)
+
+        def build(prefix, k):
+            if k == len(split):
+                return reps[prefix].to(device)
+            dim, a = split[k]
+            return torch.cat([build(prefix + (j,), k + 1)
+                              for j in range(self.mesh.size(a))], dim)
+        return build((), 0)
 
 
 def batch_axis(shape, batch_size, axis=None):
@@ -360,8 +512,8 @@ def batch_axes(shapes, axes=None):
 
 
 def shard_shape(shape, mesh, axis):
-    """One replica's shape of a ``shape`` whose batch ``axis`` (None: no
-    batch axis) the 'data' axis of ``mesh`` splits: what a per-replica
+    """One position's shape of a ``shape`` whose batch ``axis`` (None: no
+    batch axis) the 'data' axis of ``mesh`` splits: what a per-position
     computation, such as a metric's device sums, sees."""
     n = data_axis_size(mesh)
     if axis is None or n == 1:
@@ -370,8 +522,11 @@ def shard_shape(shape, mesh, axis):
 
 
 def split(t, mesh, axis):
-    """``t`` split along ``axis`` into a :class:`MeshArray`, each shard
-    copied to its replica's device (a view where it is already there)."""
+    """``t`` split along ``axis`` over the mesh's 'data' axis into a
+    :class:`MeshArray`, each shard copied to its position's device (a view
+    where it is already there)."""
+    if not mesh.is_data_only():
+        return split_spec(t, mesh, _spec_from_axis(t.dim(), axis))
     devs = mesh.replica_devices()
     n = len(devs)
     size = t.shape[axis]
@@ -383,9 +538,41 @@ def split(t, mesh, axis):
                             for r, d in enumerate(devs)], axis)
 
 
+def _narrow(t, mesh, spec, r):
+    """Position ``r``'s shard of the whole tensor ``t`` laid out by
+    ``spec``."""
+    c = mesh.coords(r)
+    for dim, a in enumerate(spec):
+        if a is not None:
+            n = mesh.size(a)
+            step = t.shape[dim] // n
+            t = t.narrow(dim, c[a] * step, step)
+    return t
+
+
+def split_spec(t, mesh, spec):
+    """The whole tensor ``t`` laid out by ``spec`` over ``mesh``: each
+    position's shard copied to its device (one copy for positions that
+    share a device and a shard; a view where it is already there)."""
+    spec = tuple(a if a in mesh.axis_names else None for a in spec)
+    spec += (None,) * (t.dim() - len(spec))
+    for dim, a in enumerate(spec):
+        if a is not None and t.shape[dim] % mesh.size(a):
+            raise MXNetError(
+                "split: dimension %d of size %d does not divide the %d-way "
+                "%r mesh axis" % (dim, t.shape[dim], mesh.size(a), a))
+    done, parts = {}, []
+    for r, d in enumerate(mesh.replica_devices()):
+        key = (d, shard_index(mesh, spec, r))
+        if key not in done:
+            done[key] = _narrow(t, mesh, spec, r).to(d)
+        parts.append(done[key])
+    return MeshArray(mesh, parts, spec=spec)
+
+
 def replicate(tree, mesh):
     """A tensor, or a dict of them, as replicated :class:`MeshArray`s:
-    replica 0's part the tensor on its device, every other replica's a
+    position 0's part the tensor on its device, every other position's a
     copy of its own."""
     if isinstance(tree, dict):
         return {k: replicate(v, mesh) for k, v in tree.items()}
@@ -402,13 +589,16 @@ def shard_batch(tree, mesh, axis=AXIS_DATA):
         return {k: shard_batch(v, mesh, axis) for k, v in tree.items()}
     if tree.dim() == 0:
         return replicate(tree, mesh)
-    return split(tree, mesh, 0)
+    if axis == AXIS_DATA and mesh.is_data_only():
+        return split(tree, mesh, 0)
+    return split_spec(tree, mesh, (axis,))
 
 
 def all_reduce(parts, devices):
-    """The sum of ``parts`` (one tensor per replica), summed in replica
-    order and placed on each replica's device: bitwise the same on every
-    replica. Replicas on one device share the one sum. Differentiable."""
+    """The sum of ``parts`` (one tensor per position), summed in position
+    order and placed on each position's device: bitwise the same
+    everywhere. Positions on one device share the one sum.
+    Differentiable."""
     _count("all_reduce")
     out, done = [], {}
     for d in devices:
@@ -422,8 +612,8 @@ def all_reduce(parts, devices):
 
 
 def all_gather(parts, axis, devices):
-    """The shards ``parts`` concatenated along ``axis`` on each replica's
-    device (shared where replicas share a device). Differentiable."""
+    """The shards ``parts`` concatenated along ``axis`` on each position's
+    device (shared where positions share a device). Differentiable."""
     _count("all_gather")
     out, done = [], {}
     for d in devices:
@@ -431,6 +621,92 @@ def all_gather(parts, axis, devices):
             done[d] = torch.cat([p.to(d) for p in parts], axis)
         out.append(done[d])
     return out
+
+
+def axis_groups(mesh, axis):
+    """The positions of ``mesh`` grouped along ``axis``: one list per
+    index of the other axes, each in ``axis`` order (one group of every
+    position for a mesh without ``axis``)."""
+    groups = collections.OrderedDict()
+    for r in range(len(mesh.replica_devices())):
+        c = mesh.coords(r)
+        key = tuple(v for a, v in c.items() if a != axis)
+        groups.setdefault(key, []).append(r)
+    return list(groups.values())
+
+
+def gather_axis(arr, axis):
+    """``arr`` gathered along the mesh ``axis``: the dimension its spec
+    splits along ``axis`` becomes whole on every position (the
+    concatenation of the positions along ``axis``, shared where they sit
+    on one device); an array not split along ``axis`` comes back as it
+    is. Differentiable."""
+    if axis not in arr.spec:
+        return arr
+    _count("all_gather")
+    dim = arr.spec.index(axis)
+    devs = arr.mesh.replica_devices()
+    parts = list(arr.parts)
+    for grp in axis_groups(arr.mesh, axis):
+        done = {}
+        for r in grp:
+            d = devs[r]
+            if d not in done:
+                done[d] = torch.cat([arr.parts[q].to(d) for q in grp], dim)
+            parts[r] = done[d]
+    spec = tuple(None if a == axis else a for a in arr.spec)
+    return MeshArray(arr.mesh, parts, spec=spec)
+
+
+def narrow_axis(arr, axis, dim):
+    """``arr``, whole along the mesh ``axis``, split along ``dim`` by it:
+    each position keeps its slice (no copy)."""
+    if axis in arr.spec or arr.mesh.size(axis) == 1:
+        return arr
+    n = arr.mesh.size(axis)
+    parts = []
+    for r, p in enumerate(arr.parts):
+        step = p.shape[dim] // n
+        parts.append(p.narrow(dim, arr.mesh.coords(r)[axis] * step, step))
+    spec = list(arr.spec)
+    spec[dim] = axis
+    return MeshArray(arr.mesh, parts, spec=spec)
+
+
+def reshard(arr, spec):
+    """``arr`` laid out by ``spec``: gathered along the axes whose
+    dimension changes, then split along the new ones."""
+    spec = tuple(spec) + (None,) * (arr.ndim - len(spec))
+    for dim, a in enumerate(arr.spec):
+        if a is not None and spec[dim] != a:
+            arr = gather_axis(arr, a)
+    for dim, a in enumerate(spec):
+        if a is not None and arr.spec[dim] != a:
+            arr = narrow_axis(arr, a, dim)
+    return arr
+
+
+def ppermute(parts, devices, shift=1):
+    """A rotation along one mesh axis: ``parts`` (one tensor per position
+    of the axis, in order) moved ``shift`` positions on, so position ``j``
+    receives position ``j - shift``'s tensor on its device (the JAX
+    package's ``ppermute`` with ``perm=[(j, j + shift)]``).
+    Differentiable."""
+    _count("ppermute")
+    n = len(parts)
+    return [parts[(j - shift) % n].to(devices[j]) for j in range(n)]
+
+
+def all_to_all(parts, devices, split_dim, concat_dim):
+    """The tiled all-to-all along one mesh axis: position ``j`` receives
+    chunk ``j`` (along ``split_dim``) of every position's tensor,
+    concatenated along ``concat_dim`` in position order (the JAX package's
+    ``lax.all_to_all(..., tiled=True)``). Differentiable."""
+    _count("all_to_all")
+    n = len(parts)
+    chunks = [torch.chunk(p, n, dim=split_dim) for p in parts]
+    return [torch.cat([chunks[i][j].to(devices[j]) for i in range(n)],
+                      concat_dim) for j in range(n)]
 
 
 def grad_sync(grads, axis_name=AXIS_DATA):

@@ -37,9 +37,9 @@ serialize), and ``executables=path`` does what the JAX engine does with a
 file it cannot import: it logs a warning naming the file and the reason,
 and warms up afresh.
 
-Not ported: ``contexts=`` (model-parallel engines over several cards) and
-the static audits (``memory_report``, ``comms_report``, ``check``), which
-walk XLA programs; they raise.
+Not ported: ``contexts=`` (model-parallel engines over several cards,
+ROADMAP.md A.7c) and the static audits (``memory_report``,
+``comms_report``, ``check``), which walk XLA programs; they raise.
 """
 from __future__ import annotations
 
@@ -121,7 +121,7 @@ class ServingEngine(object):
         if ncontexts > 1:
             raise MXNetError("ServingEngine: contexts= (a model-parallel "
                              "engine across cards) is not ported yet "
-                             "(ROADMAP.md A.7b)")
+                             "(ROADMAP.md A.7c)")
         self.device = resolve_device(device, "ServingEngine")
         self._symbol = _strip_loss_heads(load_symbol(symbol_json_or_file))
         if output_names:

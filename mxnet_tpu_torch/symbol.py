@@ -57,8 +57,52 @@ def _current_nm():
     return nm
 
 
+class Prefix(NameManager):
+    """A NameManager that prefixes every name it gives out (ref:
+    python/mxnet/name.py Prefix)."""
+
+    def __init__(self, prefix):
+        super().__init__()
+        self._prefix = prefix
+
+    def get(self, name, hint):
+        name = super().get(name, hint)
+        return self._prefix + name
+
+
+class AttrScope(object):
+    """``with AttrScope(ctx_group='dev1'):`` attaches attributes to the
+    symbols built inside it; nested scopes merge, the inner value winning
+    (ref: python/mxnet/attribute.py). ``ctx_group`` drives group2ctx model
+    parallelism (``parallel.placement``)."""
+    _current = threading.local()
+
+    def __init__(self, **kwargs):
+        self._attr = {str(k): str(v) for k, v in kwargs.items()}
+        self._old = None
+
+    def get(self, attr):
+        out = dict(self._attr)
+        if attr:
+            out.update(attr)
+        return out
+
+    def __enter__(self):
+        self._old = getattr(AttrScope._current, "value", None)
+        base = self._old._attr if self._old else {}
+        merged = dict(base)
+        merged.update(self._attr)
+        self._attr = merged
+        AttrScope._current.value = self
+        return self
+
+    def __exit__(self, *a):
+        AttrScope._current.value = self._old
+
+
 def _current_attrs(attr=None):
-    return dict(attr or {})
+    sc = getattr(AttrScope._current, "value", None)
+    return sc.get(attr) if sc else dict(attr or {})
 
 
 # ---------------------------------------------------------------------------

@@ -49,20 +49,32 @@ to ``compute_dtype``, labels and token ids included, so bf16 rounds class
 ``Embedding`` looks token 257 up in row 256. The port casts only the inputs
 that are neither in ``label_names`` nor an ``Embedding``'s indices.
 
-- ``mesh=`` (a one-axis 'data' mesh of :mod:`~mxnet_tpu_torch.parallel`)
-  trains every replica's shard of the batch in one process: the state
-  holds a copy of the parameters, aux and optimizer states per replica
-  (replica 0's at the usual keys, the others' under ``"replicas"``), the
-  graph runner walks the replicas in lock step (BatchNorm's statistics,
-  Dropout's mask and the losses' normalisation over the whole batch), the
-  gradients are summed across replicas, and every replica applies the same
-  update to its copy, so the copies stay bitwise identical. The metric
-  sums are summed across replicas once a dispatch, and the guard takes one
-  decision from the summed gradients. A mesh step equals the one-device
-  step at the same global batch.
-
-Not ported yet, and raising when asked for: ``param_shardings``,
-``group2ctx`` and meshes with a model, seq or pipe axis (ROADMAP.md A.7b).
+- ``mesh=`` (a :class:`~mxnet_tpu_torch.parallel.mesh.Mesh`) trains
+  every position in one process. Each parameter is held as one shard per
+  position, by its spec (:meth:`TrainStep.param_spec`): an explicit
+  ``param_shardings`` entry (a :class:`~mxnet_tpu_torch.parallel.mesh.P`),
+  else its ``group2ctx`` group's (``parallel.placement``: the first
+  dimension the axis divides), else whole on every position, as every
+  parameter is over a 'data' mesh. The optimizer states are sharded like
+  their parameter; the aux states are whole on every position. The inputs
+  split along 'data' at their batch axis and, over a 'seq' axis, along
+  'seq' at dim 1 (``shard_batch``). The graph runner walks the positions
+  in lock step by spec (``executor.spec_plan``; BatchNorm's statistics,
+  Dropout's mask and the losses' normalisation over the whole batch).
+  Each position's gradient of a parameter is summed over every position
+  that holds the same shard (the axes the parameter is whole along:
+  'data', and 'seq' or 'model' where it is replicated there), and each
+  position applies the update to its own shard, so copies stay bitwise
+  identical. The state keeps position 0's tensors at the usual keys and
+  the others' under ``"replicas"``; :meth:`~TrainStep.whole_state`
+  assembles whole arrays (for ``get_params`` and checkpoints), and
+  :meth:`~TrainStep.replicate_state` splits whole ones. The metric sums
+  are taken once for each shard of the batch along 'data' and summed
+  across the shards once a dispatch, and the guard takes one decision
+  from the summed gradients. The step runs under the mesh as the ambient
+  ``MeshScope``, so sequence-parallel attention and the pipelined layer
+  stack see it. A mesh step equals the one-device step at the same
+  global batch.
 """
 from __future__ import annotations
 
@@ -75,7 +87,7 @@ import torch
 from .base import MXNetError, env_str, torch_dtype
 from . import faults as _faults
 from .context import resolve_device
-from .executor import _build_graph_runner, node_generator
+from .executor import _build_graph_runner, node_generator, shard_grad_sums
 from .initializer import Xavier, InitDesc
 from .ops.nn import conv_precision
 from . import optimizer as _opt
@@ -251,16 +263,29 @@ def _parts(v):
 
 def _like(v, parts):
     """``parts`` held as ``v`` holds its own: a MeshArray over ``v``'s mesh
-    and axis, or the one tensor."""
-    return type(v)(v.mesh, parts, v.axis) if hasattr(v, "parts") else parts[0]
+    and spec, or the one tensor."""
+    return (type(v)(v.mesh, parts, spec=v.spec) if hasattr(v, "parts")
+            else parts[0])
+
+
+def _data_shard(v, r):
+    """Position ``r``'s part of ``v`` (a tensor, or a MeshArray), whole
+    along every axis but 'data': a read of the step's outputs, as
+    ``MeshArray.gather`` is, not a collective of the step."""
+    if isinstance(v, torch.Tensor):
+        return v
+    from .parallel import mesh as _mesh
+    data = tuple(a if a == _mesh.AXIS_DATA else None for a in v.spec)
+    if data == v.spec:
+        return v.parts[r]
+    return _mesh._narrow(v.gather(v.parts[r].device), v.mesh, data, r)
 
 
 def _index(v, i):
     """Step ``i`` of a stacked ``(k, batch, ...)`` superbatch value."""
     if not hasattr(v, "parts"):
         return v[i]
-    return type(v)(v.mesh, [p[i] for p in v.parts],
-                   None if v.axis is None else v.axis - 1)
+    return type(v)(v.mesh, [p[i] for p in v.parts], spec=v.spec[1:])
 
 
 def _map_state(fn, s):
@@ -322,13 +347,25 @@ class TrainStep(object):
                  mesh=None, param_shardings=None, dtype=np.float32,
                  compute_dtype=None, remat=False, frozen_param_names=None,
                  group2ctx=None, device=None, batch_axes=None):
-        for name, val in (("param_shardings", param_shardings),
-                          ("group2ctx", group2ctx)):
-            if val:
-                raise MXNetError("TrainStep: %s= (model parallelism) is not "
-                                 "ported yet (ROADMAP.md A.7b)" % name)
         from .parallel import mesh as _mesh
-        _mesh.check_data_only(mesh, "TrainStep")
+        from .parallel import placement as _placement
+        if mesh is not None and not isinstance(mesh, _mesh.Mesh):
+            raise MXNetError("TrainStep: mesh=%r is not a parallel.mesh.Mesh"
+                             % (mesh,))
+        self._placement = _placement.resolve(group2ctx, mesh)
+        if self._placement is not None and mesh is None:
+            mesh = self._placement.mesh
+        self.param_shardings = dict(param_shardings or {})
+        if self.param_shardings and mesh is None:
+            raise MXNetError("TrainStep: param_shardings needs a mesh "
+                             "(mesh= or group2ctx=)")
+        for n, spec in self.param_shardings.items():
+            for a in spec or ():
+                if a is not None and a not in mesh.axis_names:
+                    raise MXNetError(
+                        "TrainStep: param_shardings[%r] = %r names axis %r, "
+                        "not in mesh axes %r" % (n, spec, a,
+                                                 tuple(mesh.axis_names)))
         self.mesh = mesh
         if mesh is None:
             self.device = resolve_device(device, "TrainStep")
@@ -383,8 +420,11 @@ class TrainStep(object):
         else:
             self.compute_dtype = None
         self.remat = remat
-        self._run, self._nodes = _build_graph_runner(symbol, remat=remat,
-                                                     mesh=mesh)
+        self._run, self._nodes = _build_graph_runner(
+            symbol, placement=self._placement, remat=remat, mesh=mesh)
+        self._groups = ({} if self._placement is None else
+                        _placement.param_groups(self._nodes))
+        self._shapes = {}     # whole parameter shapes, from init
         # the inputs that feed an Embedding's indices keep their dtype under
         # compute_dtype, as the labels do
         self._keep_dtype = set(self.label_names) | {
@@ -416,6 +456,7 @@ class TrainStep(object):
                 initializer(InitDesc(name, attrs.get(name, {})), t)
                 return t
             params = {n: make(n, shape_of[n]) for n in self.param_names}
+            self._shapes = {n: tuple(shape_of[n]) for n in self.param_names}
             aux = {n: make(n, aux_shape_of[n]) for n in self.aux_names}
         finally:
             _random.set_state(saved)
@@ -427,23 +468,93 @@ class TrainStep(object):
              "step": torch.zeros((), dtype=torch.int32, device=self.device)})
 
     # -- replicas of the state over a mesh -----------------------------
+    def param_spec(self, name, ndim=None):
+        """The partition spec of parameter ``name`` over the mesh: its
+        ``param_shardings`` entry, else its group's, else whole (a tuple
+        of one entry per dimension: ``ndim``, else the parameter's
+        from ``init``)."""
+        spec = self.param_shardings.get(name)
+        if spec is None and name not in self.param_shardings:
+            g = self._groups.get(name)
+            if g is not None:
+                spec = self._placement.param_spec(g, self._shapes[name])
+        spec = tuple(spec or ())
+        if ndim is None:
+            ndim = len(self._shapes[name])
+        return spec + (None,) * (ndim - len(spec))
+
     def replicate_state(self, state):
-        """Over a mesh, give ``state`` (replica 0's tensors at the usual
-        keys) a copy for every other replica under ``"replicas"``, on its
-        device; the same dict. Call it after replacing any of replica 0's
-        tensors. A no-op without a mesh."""
+        """Over a mesh, lay ``state`` (whole tensors at the usual keys) out
+        over the positions: each parameter (and its optimizer states) cut
+        to every position's shard of it by :meth:`param_spec`, a copy on
+        its device for every other position under ``"replicas"``, and
+        position 0's at the usual keys (the tensors themselves where
+        nothing is split); the same dict. Call it after replacing tensors
+        at the usual keys. A no-op without a mesh."""
         if self.mesh is None:
             return state
+        from .parallel import mesh as _mesh
+        mesh = self.mesh
+        for n, v in state["params"].items():
+            self._shapes.setdefault(n, tuple(v.shape))
 
-        def copy_to(dev):
-            def cp(v):
-                return _map_state(lambda t: t.detach().to(dev, copy=True), v)
-            return {"params": {n: cp(v) for n, v in state["params"].items()},
-                    "aux": {n: cp(v) for n, v in state["aux"].items()},
-                    "opt": {n: cp(v) for n, v in state["opt"].items()},
-                    "step": cp(state["step"])}
-        state["replicas"] = [copy_to(d) for d in self.replica_devices[1:]]
+        def cut(t, n, spec, r, dev):
+            # a parameter's shard (an optimizer state of its shape too)
+            if any(spec) and tuple(t.shape) == self._shapes[n]:
+                return _mesh._narrow(t, mesh, spec, r).detach().to(
+                    dev, copy=True)
+            return t if r == 0 else t.detach().to(dev, copy=True)
+
+        def position(r, dev):
+            def p(n, v):
+                spec = self.param_spec(n)
+                return _map_state(lambda t: cut(t, n, spec, r, dev), v)
+
+            def whole(v):
+                return _map_state(lambda t: cut(t, None, (), r, dev), v)
+            return {"params": {n: p(n, v) for n, v in state["params"].items()},
+                    "aux": {n: whole(v) for n, v in state["aux"].items()},
+                    "opt": {n: p(n, v) for n, v in state["opt"].items()},
+                    "step": whole(state["step"])}
+        reps = [position(r, d) for r, d in enumerate(self.replica_devices)]
+        state.update(reps[0])
+        state["replicas"] = reps[1:]
         return state
+
+    def whole_state(self, state):
+        """``state`` with whole arrays at the usual keys (parameters and
+        optimizer states assembled from every position's shards, on
+        position 0's device; the aux states and step counter position
+        0's), without ``"replicas"``: what ``get_params`` and the
+        checkpoint helpers read. The state itself where nothing is
+        split."""
+        if self.mesh is None or not any(
+                any(self.param_spec(n, v.dim()))
+                for n, v in state["params"].items()):
+            return state
+        from .parallel import mesh as _mesh
+        reps = self.replica_states(state)
+
+        def whole(n, pick):
+            spec = self.param_spec(n)
+            leaves = [pick(rep) for rep in reps]
+
+            def join(*parts):
+                if parts[0] is None:
+                    return None
+                if isinstance(parts[0], tuple):
+                    return tuple(join(*xs) for xs in zip(*parts))
+                arr = _mesh.MeshArray(self.mesh, parts, spec=spec)
+                if arr.shape != self._shapes[n]:
+                    return parts[0]
+                return arr.gather(self.device)
+            return join(*leaves)
+        return {"params": {n: whole(n, lambda rep, n=n: rep["params"][n])
+                           for n in state["params"]},
+                "aux": dict(state["aux"]),
+                "opt": {n: whole(n, lambda rep, n=n: rep["opt"][n])
+                        for n in state["opt"]},
+                "step": state["step"]}
 
     @staticmethod
     def replica_states(state):
@@ -483,14 +594,19 @@ class TrainStep(object):
         return out
 
     def _placed(self, batch, lead):
-        """``batch`` split over the mesh along each input's batch axis
-        (``batch_axes``; ``lead`` 1 for a stacked superbatch, whose step
-        axis comes first): MeshArrays pass through."""
+        """``batch`` laid out over the mesh (``lead`` 1 for a stacked
+        superbatch, whose step axis comes first): each input split along
+        'data' at its batch axis (``batch_axes``) and, over a 'seq' axis,
+        along 'seq' at dim 1 where it has one (the token dimension of a
+        (batch, seq) input); an input with neither whole on every
+        position. MeshArrays pass through."""
         from .parallel import mesh as _mesh
-        n = len(self.replica_devices)
+        m = self.mesh
+        who = "shard_superbatch" if lead else "shard_batch"
+        hint = "" if lead else (" — pad the %s or pick a divisible %s")
         for k, v in batch.items():
             if isinstance(v, _mesh.MeshArray):
-                if v.mesh.replica_devices() != self.mesh.replica_devices():
+                if v.mesh.replica_devices() != m.replica_devices():
                     raise MXNetError("TrainStep: %r lies on another mesh" % k)
             elif len(v.shape) <= lead:
                 raise MXNetError("TrainStep: %r of shape %s has no batch "
@@ -501,6 +617,7 @@ class TrainStep(object):
         _, axes = _mesh.batch_axes(
             {k: tuple(batch[k].shape)[lead:] for k in order},
             self.batch_axes)
+        nd, ns = m.size(_mesh.AXIS_DATA), m.size(_mesh.AXIS_SEQ)
         out = {}
         for k, v in batch.items():
             if isinstance(v, _mesh.MeshArray):
@@ -508,23 +625,32 @@ class TrainStep(object):
                 continue
             t = v if isinstance(v, torch.Tensor) else torch.from_numpy(
                 np.ascontiguousarray(v))
+            spec = [None] * t.dim()
             ax = axes[k]
-            if ax is None:
-                out[k] = _mesh.replicate(t.to(self.device), self.mesh)
-                continue
-            if t.shape[lead + ax] % n:
-                raise MXNetError(
-                    "%s: %r batch dim %d does not divide the %d-way 'data' "
-                    "mesh axis%s" % (
-                        "shard_superbatch" if lead else "shard_batch", k,
-                        t.shape[lead + ax], n, "" if lead else " — pad the "
-                        "batch or pick a divisible batch size"))
-            out[k] = _mesh.split(t, self.mesh, lead + ax)
+            if ax is not None and _mesh.AXIS_DATA in m.axis_names:
+                if t.shape[lead + ax] % nd:
+                    raise MXNetError(
+                        "%s: %r batch dim %d does not divide the %d-way "
+                        "'data' mesh axis%s" % (
+                            who, k, t.shape[lead + ax], nd,
+                            hint and hint % ("batch", "batch size")))
+                spec[lead + ax] = _mesh.AXIS_DATA
+            if ns > 1 and t.dim() - lead >= 2 and ax != 1:
+                if t.shape[lead + 1] % ns:
+                    raise MXNetError(
+                        "%s: %r sequence dim %d does not divide the %d-way "
+                        "'seq' mesh axis%s" % (
+                            who, k, t.shape[lead + 1], ns,
+                            hint and hint % ("sequence", "seq_len")))
+                spec[lead + 1] = _mesh.AXIS_SEQ
+            out[k] = (_mesh.split_spec(t, m, spec) if any(spec) else
+                      _mesh.replicate(t.to(self.device), m))
         return out
 
     def shard_batch(self, batch):
         """``batch`` (name -> array) split along its batch axis over the
-        'data' mesh, one MeshArray each (ref: the JAX package's
+        mesh's 'data' axis (and along 'seq' at dim 1 over a 'seq' axis),
+        one MeshArray each (ref: the JAX package's
         ``shard_batch``; the axis of ``batch_axes``, else dim 0, or where
         an input's dim 0 is not the batch, as an RNN's begin state
         ``(layers, batch, hidden)``, the axis of the batch's size). A batch
@@ -581,18 +707,23 @@ class TrainStep(object):
         leaves = {n: [rep["params"][n].detach().requires_grad_(
             n not in self.frozen_param_names) for rep in reps]
             for n in self.param_names}
+        specs = ({} if self.mesh is None else
+                 {n: self.param_spec(n, ls[0].dim())
+                  for n, ls in leaves.items()})
 
-        def over(parts):
-            # the replicas' copies of one value as the runner takes them
-            return (parts[0] if self.mesh is None
-                    else _mesh.MeshArray(self.mesh, parts, None))
-        with torch.enable_grad(), conv_precision(self.device):
+        def over(parts, name=None):
+            # the positions' parts of one value as the runner takes them
+            if self.mesh is None:
+                return parts[0]
+            return _mesh.MeshArray(self.mesh, parts, spec=specs.get(name))
+        with torch.enable_grad(), conv_precision(self.device), \
+                self._ambient():
             arg_vals = {k: (_like(v, [p.to(cdt) for p in _parts(v)])
                             if cdt is not None and v.dtype.is_floating_point
                             and k not in self._keep_dtype else v)
                         for k, v in batch.items()}
             arg_vals.update({n: over([t.to(cdt) if cdt is not None else t
-                                      for t in ls])
+                                      for t in ls], n)
                              for n, ls in leaves.items()})
             aux_vals = {k: over([rep["aux"][k] for rep in reps])
                         for k in self.aux_names}
@@ -610,21 +741,29 @@ class TrainStep(object):
             summed = []
             for i, n in enumerate(updated):
                 parts = grads[i * n_rep:(i + 1) * n_rep]
-                if n_rep > 1:
-                    parts = _mesh.all_reduce(
+                if self.mesh is not None:
+                    # the sum over every position holding the same shard
+                    parts = shard_grad_sums(
                         [torch.zeros_like(t) if g is None else g
-                         for t, g in zip(leaves[n], parts)], devs)
+                         for t, g in zip(leaves[n], parts)], self.mesh,
+                        specs[n])
                 summed.append(parts)
             poison = guard and _faults.fire_flag("guard.grad_nan")
             every_out = [p for o in outs for p in _parts(o)]
             ok = gnorm = scale = None
+            scaled = [self._scaled_grads(rep["params"], updated,
+                                         [g[r] for g in summed], batch_size,
+                                         poison)
+                      for r, rep in enumerate(reps)]
+            if scaled[0] and (guard or self._opt.clip_global_norm
+                              is not None):
+                gnorm, others = self._global_norm(updated, scaled, specs)
+                every_out = every_out + others
             for r, rep in enumerate(reps):
-                gs = self._scaled_grads(rep["params"], updated,
-                                        [g[r] for g in summed], batch_size,
-                                        poison)
+                gs = scaled[r]
                 if r == 0:
-                    gs, ok, gnorm, scale = self._sentinels(gs, every_out,
-                                                           guard)
+                    gs, ok, gnorm, scale = self._sentinels(
+                        gs, every_out, guard, gnorm=gnorm)
                 else:
                     gs = self._sentinels(gs, None, False, scale=scale)[0]
                 self._apply(rep, updated, gs,
@@ -646,15 +785,43 @@ class TrainStep(object):
             gs = [g + float("nan") for g in gs]
         return gs
 
-    def _sentinels(self, gs, outs, guard, scale=None):
+    def _global_norm(self, updated, scaled, specs):
+        """The global norm of the scaled gradients (``scaled[r]``: position
+        ``r``'s; ``specs``: the parameters' specs): each parameter's sum of
+        squares over its distinct shards, on position 0's device. Also the
+        gradients the guard's finiteness check reads beyond position 0's:
+        the other distinct shards'."""
+        from .parallel import mesh as _mesh
+        total, others = None, []
+        for i, n in enumerate(updated):
+            pos = ([0] if self.mesh is None else
+                   _mesh.distinct_positions(self.mesh, specs[n]))
+            others += [scaled[r][i] for r in pos[1:]]
+            sq = None
+            for r in pos:
+                t = torch.sum(torch.square(scaled[r][i].float())).to(
+                    self.device)
+                sq = t if sq is None else sq + t
+            total = sq if total is None else total + sq
+        return torch.sqrt(total), others
+
+    def _ambient(self):
+        """The mesh as the ambient ``MeshScope`` for the step: the ops that
+        read it (sequence-parallel attention, the pipelined layer stack)
+        see this step's mesh."""
+        import contextlib
+        if self.mesh is None:
+            return contextlib.nullcontext()
+        from .parallel.mesh import MeshScope
+        return MeshScope(self.mesh)
+
+    def _sentinels(self, gs, outs, guard, scale=None, gnorm=None):
         """``clip_global_norm`` and the guard's sentinels: ``(gs clipped,
-        ok, grad norm, clip factor)``. ``scale`` (replica 0's clip factor)
-        is applied as it is instead of being computed."""
+        ok, grad norm, clip factor)``, from ``gnorm`` (the global norm,
+        :meth:`_global_norm`). ``scale`` (position 0's clip factor) is
+        applied as it is instead of being computed."""
         clip_norm = self._opt.clip_global_norm
-        gnorm = ok = None
-        if scale is None and gs and (guard or clip_norm is not None):
-            gnorm = torch.sqrt(sum(torch.sum(torch.square(g.float()))
-                                   for g in gs))
+        ok = None
         if clip_norm is not None and gs:
             if scale is None:
                 scale = torch.clamp(
@@ -756,10 +923,17 @@ class TrainStep(object):
                              % {n: tuple(v.shape)
                                 for n, v in superbatch.items()})
         bs = vals[0].shape[1]
-        devs = self.replica_devices
-        # over a mesh each replica sums its own outputs and labels (its
-        # shard), once across the replicas at the end of the dispatch; the
-        # sample counts the sums carry add up to the batch
+        # over a mesh the first position of each shard of the batch along
+        # 'data' sums its outputs and labels (whole along the other axes;
+        # positions holding copies would count twice), once across the
+        # shards at the end of the dispatch; the sample counts the sums
+        # carry add up to the batch
+        pos = [0]
+        if self.mesh is not None:
+            from .parallel import mesh as _mesh
+            pos = _mesh.distinct_positions(self.mesh, tuple(
+                a for a in (_mesh.AXIS_DATA,) if a in self.mesh.axis_names))
+        devs = [self.replica_devices[r] for r in pos]
         counts = [bs // len(devs) + (r < bs % len(devs))
                   for r in range(len(devs))]
         if guard:
@@ -785,11 +959,12 @@ class TrainStep(object):
                 # the sums are tensors on the device (a spec fills its
                 # constants there): nothing here waits for the card
                 for r, acc in enumerate(accs):
-                    labels = [_parts(batch[n])[r] if n in batch else None
-                              for n in self.label_names]
+                    labels = [_data_shard(batch[n], pos[r]) if n in batch
+                              else None for n in self.label_names]
+                    step_outs = [_data_shard(o, pos[r]) for o in outs]
                     step_vals = torch.stack(
                         [v.float().reshape(()) for v in
-                         sums[r]([_parts(o)[r] for o in outs], labels)])
+                         sums[r](step_outs, labels)])
                     if guard:
                         acc += torch.where(sentinels[0].to(devs[r]),
                                            step_vals,
@@ -801,7 +976,6 @@ class TrainStep(object):
                     skip = 1.0 - ok.float()
                     skipped = skip if skipped is None else skipped + skip
         if len(devs) > 1:
-            from .parallel import mesh as _mesh
             acc = _mesh.all_reduce(accs, [self.device])[0]
         else:
             acc = accs[0]

@@ -219,20 +219,39 @@ def test_infer_shape_errors_match_jax(op, attrs, shapes):
 @pytest.mark.parametrize("mode", ["ring", "ulysses"])
 def test_seq_parallel_builds_and_raises_at_forward(mode):
     """A sequence-parallel attention needs a mesh with a 'seq' axis: the
-    symbol builds and infers shapes as in the JAX package, and the first
-    forward raises naming the roadmap item."""
+    symbol builds and infers shapes as in the JAX package, a forward
+    outside one raises as the JAX package's does, and inside a
+    ``MeshScope`` with a 4-way 'seq' axis it equals the plain attention
+    (``rtol=1e-5``)."""
     data = mt.sym.Variable("data")
     net = mt.sym.MultiHeadAttention(data=data, num_heads=H,
                                     seq_parallel=mode, name="attn")
     arg_shapes, out_shapes, _ = net.infer_shape(data=(B, S, E))
     assert out_shapes == [(B, S, E)]
     ex = net.simple_bind(mt.cpu(), data=(B, S, E))
-    with pytest.raises(MXNetError, match="seq_parallel='%s'.*A.7" % mode):
+    with pytest.raises(MXNetError, match="seq_parallel='%s'.*needs an "
+                       "ambient mesh with a 'seq' axis" % mode):
         ex.forward(is_train=False)
+    rng = _rng("seqpar-%s" % mode)
+    vals = _mha_inputs(rng, False)
+    plain = net.simple_bind(mt.cpu(), data=(B, S, E))
+    for e in (ex, plain):
+        for n, v in zip(net.list_arguments(), vals):
+            e.arg_dict[n][:] = v
+    plain_net = mt.sym.MultiHeadAttention(data=data, num_heads=H,
+                                          name="attn")
+    ref = plain_net.simple_bind(mt.cpu(), data=(B, S, E))
+    for n, v in zip(plain_net.list_arguments(), vals):
+        ref.arg_dict[n][:] = v
+    want = ref.forward(is_train=False)[0].asnumpy()
+    from mxnet_tpu_torch.parallel import mesh as tmesh
+    with tmesh.MeshScope(tmesh.make_mesh({"seq": 4}, ["cpu"] * 4)):
+        got = ex.forward(is_train=False)[0].asnumpy()
+    _close(got, want)
     lm = mt.models.transformer(vocab_size=64, embed=E, num_heads=H,
                                num_layers=1, seq_len=S, seq_parallel=mode)
     ex = lm.simple_bind(mt.cpu(), data=(B, S), softmax_label=(B, S))
-    with pytest.raises(MXNetError, match="A.7"):
+    with pytest.raises(MXNetError, match="needs an ambient mesh"):
         ex.forward(is_train=True)
 
 

@@ -306,8 +306,13 @@ def test_errors_match_jax():
 
 def test_options_not_ported_raise():
     sym = _mlp(mt)
+    # a legacy Context group2ctx binds (recorded, computed on the bind
+    # device, as in the JAX package); misuse still raises
+    lex = sym.simple_bind(mt.cpu(), group2ctx={"g": mt.cpu(1)},
+                          **MLP_SHAPES)
+    assert lex._placement is None and lex._group2ctx == {"g": mt.cpu(1)}
     with pytest.raises(MXNetError, match="group2ctx"):
-        sym.simple_bind(mt.cpu(), group2ctx={"g": mt.cpu(1)}, **MLP_SHAPES)
+        sym.simple_bind(mt.cpu(), group2ctx={"g": 1}, **MLP_SHAPES)
     ex = sym.simple_bind(mt.cpu(), **MLP_SHAPES)
     with pytest.raises(MXNetError, match="shape"):
         ex.forward(data=np.zeros((2, 5), np.float32))

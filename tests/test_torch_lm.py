@@ -202,11 +202,44 @@ def test_validate_errors_match_jax(kw):
 
 
 def test_pipe_mesh_raises():
-    """The port cannot form a 'pipe' (or any) mesh for the stacked
-    build: Module's mesh_axes raises naming the roadmap item."""
-    with pytest.raises(MXNetError, match="mesh_axes.*A.7"):
-        mt.mod.Module(_sym(mt, stack_layers=True), context=mt.cpu(),
-                      mesh_axes="pipe=2")
+    """The stacked build trains over a 'pipe' mesh: ``Module(mesh_axes=
+    "pipe=2")`` over two CPU positions runs the GPipe schedule (each
+    stage's stacked weights sharded along 'pipe' by ``param_shardings``)
+    and its parameters equal the one-device fit's (``rtol=1e-4``); an
+    indivisible layer count still raises naming the axis."""
+    from mxnet_tpu_torch.parallel.mesh import P
+    rng = np.random.RandomState(5)
+    x = rng.randint(0, V, (2 * B, S)).astype(np.float32)
+    y = rng.randint(0, V, (2 * B, S)).astype(np.float32)
+
+    def fit(**kw):
+        sym = _sym(mt, stack_layers=True, num_microbatches=2)
+        mod = mt.mod.Module(sym, **kw)
+        mt.random.seed(11)
+        mod.fit(mt.io.NDArrayIter(x, y, batch_size=B,
+                                  label_name="softmax_label"),
+                num_epoch=1, optimizer="sgd",
+                optimizer_params={"learning_rate": 0.05},
+                initializer=mt.initializer.Xavier(),
+                eval_metric=mt.metric.Perplexity(None))
+        return mod
+    ref = fit(context=mt.cpu())
+    stacked = [n for n in ref.get_params()[0] if n.startswith("stack_")]
+    mod = fit(context=[mt.cpu(0), mt.cpu(1)], mesh_axes="pipe=2",
+              param_shardings={n: P("pipe") for n in stacked})
+    assert dict(mod._fused.mesh.shape) == {"pipe": 2}
+    assert mod._fused_state["params"][stacked[0]].shape[0] == L // 2
+    want = ref.get_params()[0]
+    for n, v in mod.get_params()[0].items():
+        np.testing.assert_allclose(v.asnumpy(), want[n].asnumpy(),
+                                   rtol=FIT_RTOL, atol=1e-6, err_msg=n)
+    bad = mt.mod.Module(_sym(mt, stack_layers=True, num_layers=3),
+                        context=[mt.cpu(0), mt.cpu(1)], mesh_axes="pipe=2")
+    with pytest.raises(MXNetError, match="num_layers"):
+        bad.fit(mt.io.NDArrayIter(x, y, batch_size=B,
+                                  label_name="softmax_label"),
+                num_epoch=1, initializer=mt.initializer.Xavier(),
+                eval_metric=mt.metric.Perplexity(None))
 
 
 @pytest.mark.parametrize("stacked", [False, True], ids=["layers", "stack"])

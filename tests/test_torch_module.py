@@ -291,13 +291,29 @@ def test_options_not_ported_raise(what, call):
 ])
 def test_environment_and_constructor_options_raise(what, env, kw,
                                                    monkeypatch):
+    """The multi-axis options are ported: ``MXTPU_LM_MESH`` and
+    ``mesh_axes`` fit over a 2-way 'data' mesh built over the module's two
+    contexts, ``param_shardings`` without a mesh leaves the fit as it is;
+    each fit's parameters equal the one-device fit's (``rtol=1e-5``)."""
     _, tsym = _symbols("mlp")
     x, y = _data("mlp", "opts")
+
+    def fit(ctx, **kw):
+        mt.random.seed(3)
+        mod = mt.mod.Module(tsym, context=ctx, **kw)
+        mod.fit(mt.io.NDArrayIter(x, y, batch_size=BATCH), num_epoch=1,
+                initializer=mt.initializer.Xavier(), steps_per_dispatch=2)
+        return mod
+    ref = fit(mt.cpu())
     for k, v in env.items():
         monkeypatch.setenv(k, v)
-    with pytest.raises(MXNetError, match=what):
-        mod = mt.mod.Module(tsym, **(kw or {"context": mt.cpu()}))
-        mod.fit(mt.io.NDArrayIter(x, y, batch_size=BATCH), num_epoch=1)
+    mod = fit([mt.cpu(0), mt.cpu(1)], **(kw or {}))
+    if what != "param_shardings":
+        assert dict(mod._fused.mesh.shape) == {"data": 2}
+    want = ref.get_params()[0]
+    for n, v in mod.get_params()[0].items():
+        np.testing.assert_allclose(v.asnumpy(), want[n].asnumpy(),
+                                   rtol=1e-5, atol=1e-6, err_msg=n)
 
 
 @pytest.mark.parametrize("what", ["MXTPU_DP_DEVICES", "context",

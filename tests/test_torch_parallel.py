@@ -131,35 +131,101 @@ def test_all_reduce_is_the_same_on_every_replica_and_differentiable():
 
 
 @pytest.mark.parametrize("what,call", [
-    ("A.7b", lambda: tmesh.model_parallel_mesh(2)),
-    ("A.7b", lambda: tmesh.parse_mesh_axes("data=2,seq=2")),
-    ("A.7b", lambda: tmesh.mesh_from_spec("data=2")),
-    ("A.7b", lambda: tmesh.shard_map_compat(None)),
-    ("A.7b", lambda: mt.TrainStep(mt.sym.Variable("x"), device="cpu",
-                                  mesh=tmesh.make_mesh({"data": 2,
-                                                        "model": 2}))),
-    ("A.7b", lambda: mt.TrainStep(mt.sym.Variable("x"), device="cpu",
-                                  param_shardings={"w": None})),
-    ("A.7b", lambda: tmesh.superbatch_sharding(
-        tmesh.make_mesh({"data": 2, "seq": 2}), seq=True)),
+    ("no counterpart", lambda: tmesh.shard_map_compat(None)),
+    ("no counterpart", lambda: tmesh.axis_size("seq")),
     ("A.11b", lambda: tmesh.global_data_mesh()),
     ("A.11b", lambda: tmesh.host_to_global(None, None, None)),
     ("A.11b", lambda: tmesh.host_broadcast0(None, None)),
     ("A.11b", lambda: tmesh.local_view(None)),
 ])
 def test_axes_still_to_port_raise_naming_their_item(what, call):
+    """Multi-process data parallelism still raises naming its roadmap item;
+    ``shard_map_compat`` and ``axis_size`` raise for good, naming the
+    explicit functions that replace them."""
     with pytest.raises(MXNetError, match=what):
         call()
 
 
+def _ported_case(case):
+    """One formerly-raising multi-axis surface, as the port runs it and as
+    the JAX package does: ``(port result, JAX result)``."""
+    if case == "model_parallel_mesh":
+        return ({k: v for k, v in tmesh.model_parallel_mesh(2).shape.items()},
+                {k: v for k, v in zip(
+                    jmesh.model_parallel_mesh(2).axis_names,
+                    jmesh.model_parallel_mesh(2).devices.shape)})
+    if case == "parse_mesh_axes":
+        return (tmesh.parse_mesh_axes("data=2,seq=2"),
+                jmesh.parse_mesh_axes("data=2,seq=2"))
+    if case == "mesh_from_spec":
+        t, j = tmesh.mesh_from_spec("data=2,pipe=4"), \
+            jmesh.mesh_from_spec("data=2,pipe=4")
+        return dict(t.shape), dict(zip(j.axis_names, j.devices.shape))
+    if case == "superbatch_seq":
+        t = tmesh.superbatch_sharding(tmesh.make_mesh({"data": 2, "seq": 2}),
+                                      seq=True)
+        j = jmesh.superbatch_sharding(jmesh.make_mesh({"data": 2, "seq": 2}),
+                                      seq=True)
+        return tuple(t.spec), tuple(j.spec)
+    # a TrainStep over a data x model mesh, with a parameter sharded over
+    # 'model' by param_shardings: its state holds the shards, and a step
+    # equals the one-device step
+    net = mt.models.mlp(num_classes=4, hidden=(8,))
+    kw = {}
+    if case == "param_shardings":
+        mesh = tmesh.make_mesh({"model": 2}, ["cpu"] * 2)
+        kw["param_shardings"] = {"fc1_weight": P("model")}
+    else:
+        mesh = tmesh.make_mesh({"data": 2, "model": 2}, ["cpu"] * 4)
+    ts = mt.TrainStep(net, device="cpu", mesh=mesh, learning_rate=0.1, **kw)
+    one = mt.TrainStep(net, device="cpu", learning_rate=0.1)
+    shapes = ({"data": (8, 6)}, {"softmax_label": (8,)})
+    st, ref = ts.init(*shapes, seed=1), one.init(*shapes, seed=1)
+    rng = np.random.RandomState(0)
+    batch = {"data": rng.randn(8, 6).astype(np.float32),
+             "softmax_label": rng.randint(0, 4, 8).astype(np.float32)}
+    ts.step(st, batch)
+    one.step(ref, batch)
+    whole = ts.whole_state(st)
+    shard = tuple(st["params"]["fc1_weight"].shape)
+    return ([shard] + [whole["params"][n].numpy() for n in ref["params"]],
+            [(4, 6) if kw else (8, 6)]
+            + [ref["params"][n].numpy() for n in ref["params"]])
+
+
+@pytest.mark.parametrize("case", [
+    "model_parallel_mesh", "parse_mesh_axes", "mesh_from_spec",
+    "data_model_trainstep", "param_shardings", "superbatch_seq"])
+def test_multi_axis_surfaces_are_ported(case):
+    """The surfaces that raised before the 'model', 'seq' and 'pipe' axes
+    were ported: each now gives the JAX package's result (a TrainStep over
+    a sharded mesh: the one-device step, ``rtol=1e-5``)."""
+    got, want = _ported_case(case)
+    if isinstance(got, list):
+        assert got[0] == want[0]
+        for g, w in zip(got[1:], want[1:]):
+            np.testing.assert_allclose(g, w, **TOL)
+    else:
+        assert got == want
+
+
 def test_module_model_axis_options_raise_citing_a7b(monkeypatch):
+    """``mesh_axes``, ``param_shardings`` and ``MXTPU_LM_MESH`` are
+    accepted as in the JAX package (the argument winning over the
+    environment); a malformed spec raises naming its token."""
     sym = mt.models.mlp(num_classes=4, hidden=(8,))
-    with pytest.raises(MXNetError, match="A.7b"):
-        mt.mod.Module(sym, context=mt.cpu(), mesh_axes="data=2")
-    with pytest.raises(MXNetError, match="A.7b"):
-        mt.mod.Module(sym, context=mt.cpu(), param_shardings={"w": None})
-    monkeypatch.setenv("MXTPU_LM_MESH", "data=2")
-    with pytest.raises(MXNetError, match="A.7b"):
+    mod = mt.mod.Module(sym, context=mt.cpu(), mesh_axes="data=2")
+    assert mod._mesh_axes == {"data": 2}
+    mod = mt.mod.Module(sym, context=mt.cpu(),
+                        param_shardings={"w": P("model")})
+    assert mod._param_shardings == {"w": P("model")}
+    monkeypatch.setenv("MXTPU_LM_MESH", "data=2,seq=2")
+    assert mt.mod.Module(sym, context=mt.cpu())._mesh_axes == {
+        "data": 2, "seq": 2}
+    assert mt.mod.Module(sym, context=mt.cpu(),
+                         mesh_axes="pipe=2")._mesh_axes == {"pipe": 2}
+    monkeypatch.setenv("MXTPU_LM_MESH", "data")
+    with pytest.raises(MXNetError, match="'data' is not 'axis=N'"):
         mt.mod.Module(sym, context=mt.cpu())
 
 

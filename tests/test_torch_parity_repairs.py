@@ -92,10 +92,11 @@ def test_training_health_view_matches_reference():
 
 @pytest.mark.parametrize("name", ["TrainingGuard", "TrainingHealth",
                                   "TrainingDivergedError", "FeedForward",
-                                  "image", "recordio"])
+                                  "AttrScope", "image", "recordio"])
 def test_top_level_names_resolve_in_both(name):
     owner = {"TrainingGuard": "guard", "TrainingHealth": "guard",
-             "TrainingDivergedError": "guard", "FeedForward": "model"}
+             "TrainingDivergedError": "guard", "FeedForward": "model",
+             "AttrScope": "symbol"}
     for pkg in (mx, mt):
         obj = getattr(pkg, name)
         if name in owner:
@@ -103,6 +104,17 @@ def test_top_level_names_resolve_in_both(name):
             assert obj.__module__.startswith(pkg.__name__ + ".")
         else:
             assert obj.__name__ == "%s.%s" % (pkg.__name__, name)
+
+
+def test_symbol_prefix_names_as_in_jax():
+    """``symbol.Prefix`` prefixes auto and given names in both packages."""
+    for pkg in (mx, mt):
+        with pkg.symbol.Prefix("mp_"):
+            net = pkg.sym.FullyConnected(pkg.sym.Variable("data"),
+                                         num_hidden=4)
+        assert pkg.symbol.Prefix.__module__ == pkg.__name__ + ".symbol"
+        assert net.list_arguments() == ["data", "mp_fullyconnected0_weight",
+                                        "mp_fullyconnected0_bias"]
 
 
 def test_naive_engine_syncs_every_op_and_matches_reference(monkeypatch):

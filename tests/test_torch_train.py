@@ -644,7 +644,9 @@ def test_entry_points_default_to_the_card():
     (dict(group2ctx={"g": 1}), "group2ctx"),
     (dict(remat="everything"), "remat")])
 def test_unported_options_raise(kw, what):
-    # remat is ported: a mode it does not know raises, naming it
+    # every option is ported: a value it cannot take raises, naming it (a
+    # mesh that is not a parallel.mesh.Mesh, param_shardings without a
+    # mesh, a group2ctx value of no known kind, an unknown remat mode)
     with pytest.raises(MXNetError, match=what):
         TrainStep(_resnet(mt, tmodels, 18), device="cpu", **kw)
 
