@@ -326,7 +326,40 @@ non-zero):
    a step. No kernel of B1-B3 may launch. The positions share the card:
    no scaling figure.
 
-The line before the last is {"kernels": [...]} (per kernel: launches on
+20. ops: the slice's 23 ops (ops/spatial.py and the rest of ops/nn.py
+   and ops/contrib.py) and the three examples that need them. (a) Each op
+   forward and backward on cuda:0 (float32, TF32 off) at a width its
+   users run, from --seed: Deconvolution + Crop as FCN-32s' head
+   ((1, 21, 22, 22), kernel 64, stride 32, cropped to 500x500 at (19,
+   19)); ROIPooling as Fast R-CNN on VGG-16 ((1, 512, 38, 63), 128 rois,
+   7x7, scale 1/16), whose peak extra memory must stay under 2 GiB;
+   Correlation as FlowNetC (two (8, 256, 48, 64), displacement 20,
+   stride2 2, pad 20: 441 channels); CTCLoss at T 300, batch 32, 29
+   symbols, labels of 20-100; SpatialTransformer, GridGenerator (affine
+   and warp) and BilinearSampler on (32, 3, 224, 224) to 224x224;
+   InstanceNorm (4, 32, 256, 256); Pad reflect, edge and constant around
+   (4, 3, 256, 256) by 40; LeakyReLU's four modes and UpSampling (nearest,
+   x2, two inputs) on (64, 128, 32, 32); fft, ifft and count_sketch at
+   (6272, 512) to 8192; log_softmax (32, 32000); SVMOutput (L1, L2) and
+   the three regression outputs on (128, 1000); quantize and dequantize
+   of a (1000, 2048) weight. Each result (output and gradients) stays on
+   the card and is held against the same op on the CPU in float64 from
+   the same inputs within its tolerance (OP_TOL_*; ROIPooling on 32 of
+   its channels, Correlation on its first sample, each of which depends
+   on its own inputs only; rrelu's card draws by their range and its
+   gradient, its inference against float64; quantize against the CPU in
+   float32, level for level). Prints each op's ms forward and backward
+   and forward alone (CUDA events), its launches (the kernel, copy and
+   memset nodes of one call captured into a CUDA graph) and peak extra
+   memory. (b) example/autograd/mnist_autograd.py,
+   example/nce-loss/nce_lm.py and example/recommenders/matrix_fact.py,
+   rebuilt on the port, on gpu(0) at their own sizes: each must pass its
+   own line (accuracy above 0.95; ranking accuracy at least 0.95; holdout
+   RMSE below 0.35 of the label spread).
+
+The line before the ops line is the card's name and power limit; then
+{"ops": [...], "examples": {...}} (phase 20's figures); then
+{"kernels": [...]} (per kernel: launches on
 its main path (phase 16's LSTM path and phase 17's LM path launch none;
 B1's include phase 18's mesh dispatches, bf16 and f32),
 max error against the plain version, times and bound; the
@@ -6078,6 +6111,576 @@ def axes_phase(seed, card):
         raise SystemExit("axes phase failed: " + "; ".join(problems))
 
 
+# ---------------------------------------------------------------------------
+# phase 20: the ops of ops/spatial.py and the rest of ops/nn.py and
+# ops/contrib.py at their users' widths, and the three examples they serve
+# ---------------------------------------------------------------------------
+
+#: the ops of this phase: each must run in at least one case below
+OPS_SLICE = (
+    "log_softmax", "LeakyReLU", "InstanceNorm", "Deconvolution", "Crop",
+    "Pad", "UpSampling", "LinearRegressionOutput",
+    "LogisticRegressionOutput", "MAERegressionOutput", "SVMOutput",
+    "IdentityAttachKLSparseReg", "CTCLoss", "fft", "ifft", "count_sketch",
+    "quantize", "dequantize", "GridGenerator", "BilinearSampler",
+    "SpatialTransformer", "ROIPooling", "Correlation")
+#: tolerances, as the largest error over the CPU float64 result's largest
+#: magnitude (outputs and gradients): elementwise ops and exact maxima keep
+#: float32's rounding; sums of tens to thousands of terms (a convolution,
+#: an instance's plane, 256 channels, a 512-point transform, a softmax over
+#: 32000 classes) 1e-4; the CTC recursion over 300 steps in log space, where
+#: each step's terms reach several hundred and float32 keeps about 3e-5 of
+#: each, 1e-3 (a CPU float32 run measured 3.7e-5); the affine grids' loc
+#: gradient 5e-3: per sample it sums 150528 products of cotangent and
+#: bilinear slope, which cancel, and a grid point within a rounding of a
+#: pixel edge takes the neighbouring cell's slope (a CPU float32 run
+#: measured 7.9e-4; the CPU tests hold edge points against the JAX
+#: package's float32 exactly)
+OP_TOL_ELEMENTWISE = 1e-5
+OP_TOL_SUM = 1e-4
+OP_TOL_RECURSION = 1e-3
+OP_TOL_GRID = 5e-3
+#: ROIPooling's bound on its peak extra device memory at Fast R-CNN's size
+ROI_PEAK_LIMIT = 2 * 1024 ** 3
+#: channels of ROIPooling and samples of Correlation the CPU float64 run
+#: takes (each output channel, and each sample, depends on its own inputs
+#: only, so the card's result for them is held whole)
+ROI_CPU_CHANNELS = 32
+CORR_CPU_SAMPLES = 1
+
+
+def _op(name, attrs, ins, train=True, gen=None):
+    from mxnet_tpu_torch.ops import registry as treg
+    outs, _ = treg.get(name).apply(
+        treg.OpContext(is_train=train, rng=gen, device=ins[0].device),
+        attrs, ins, [])
+    return outs[0]
+
+
+def _frac_away(rng, shape, lo, hi, margin=0.1):
+    """Values in [lo, hi) whose fractional parts keep ``margin`` from the
+    integers: sample points that both float32 and float64 place in the same
+    pixel cell."""
+    whole = rng.integers(lo, hi, shape)
+    return (whole + rng.uniform(margin, 1 - margin, shape)).astype(np.float32)
+
+
+def _smooth_images(rng, n, c, h, w):
+    """Images of a few low-frequency waves, as smooth as a photograph."""
+    y, x = np.meshgrid(np.linspace(0, 1, h), np.linspace(0, 1, w),
+                       indexing="ij")
+    out = np.zeros((n, c, h, w), np.float32)
+    for _ in range(4):
+        fy, fx, ph = rng.uniform(0.5, 4, (3, n, c, 1, 1))
+        out += np.sin(2 * np.pi * (fy * y + fx * x) + 6 * ph).astype(
+            np.float32)
+    return out
+
+
+def p20_cases(rng):
+    """Each case at its users' width: name, the ops it runs, numpy inputs,
+    the gradient inputs, ``fn(tensors, train, gen)``, the tolerance, and
+    optional slices of the inputs and output the CPU float64 run takes."""
+    n = lambda *s: rng.standard_normal(s).astype(np.float32)  # noqa: E731
+    cases = []
+
+    def case(name, ops, ins, wrt, fn, tol, cpu_in=None, cpu_out=None):
+        cases.append(dict(name=name, ops=ops, ins=ins, wrt=wrt, fn=fn,
+                          tol=tol, cpu_in=cpu_in, cpu_out=cpu_out))
+
+    # FCN-32s' head: the score map of a 500x500 image upsampled 32x, cropped
+    case("Deconvolution+Crop (FCN-32s head)", ["Deconvolution", "Crop"],
+         [n(1, 21, 22, 22), n(21, 21, 64, 64) * 0.05,
+          np.zeros((1, 3, 500, 500), np.float32)], [0, 1],
+         lambda t, tr, g: _op("Crop", dict(num_args=2, offset=(19, 19)), [
+             _op("Deconvolution", dict(kernel=(64, 64), stride=(32, 32),
+                                       num_filter=21, no_bias=True),
+                 t[:2]), t[2]]), OP_TOL_SUM)
+    # Fast R-CNN on VGG-16: conv5_3 of a 600x1000 image, 128 rois
+    x1 = rng.uniform(0, 900, 128)
+    y1 = rng.uniform(0, 520, 128)
+    rois = np.stack([np.zeros(128), x1, y1,
+                     np.minimum(x1 + rng.uniform(16, 500, 128), 999),
+                     np.minimum(y1 + rng.uniform(16, 400, 128), 599)],
+                    1).astype(np.float32)
+    roi_attrs = dict(pooled_size=(7, 7), spatial_scale=0.0625)
+    case("ROIPooling (Fast R-CNN, VGG-16)", ["ROIPooling"],
+         [n(1, 512, 38, 63), rois], [0],
+         lambda t, tr, g: _op("ROIPooling", roi_attrs, t), OP_TOL_ELEMENTWISE,
+         cpu_in=[(slice(None), slice(0, ROI_CPU_CHANNELS)), None],
+         cpu_out=(slice(None), slice(0, ROI_CPU_CHANNELS)))
+    corr_attrs = dict(kernel_size=1, max_displacement=20, stride1=1,
+                      stride2=2, pad_size=20)
+    case("Correlation (FlowNetC)", ["Correlation"],
+         [n(8, 256, 48, 64), n(8, 256, 48, 64)], [0, 1],
+         lambda t, tr, g: _op("Correlation", corr_attrs, t), OP_TOL_SUM,
+         cpu_in=[slice(0, CORR_CPU_SAMPLES)] * 2,
+         cpu_out=slice(0, CORR_CPU_SAMPLES))
+    # character-level speech: 300 frames, 28 characters and the blank
+    lens = rng.integers(20, 101, 32)
+    label = np.zeros((32, 100), np.float32)
+    for i, ln in enumerate(lens):
+        label[i, :ln] = rng.integers(1, 29, ln)
+    case("CTCLoss (T 300, batch 32, alphabet 29)", ["CTCLoss"],
+         [n(300, 32, 29), label], [0],
+         lambda t, tr, g: _op("CTCLoss", {}, t), OP_TOL_RECURSION)
+    imgs = _smooth_images(rng, 32, 3, 224, 224)
+    loc = (np.tile(np.array([0.9, 0.05, 0.02, -0.05, 0.9, -0.03], np.float32),
+                   (32, 1)) + 0.02 * n(32, 6)).astype(np.float32)
+    case("SpatialTransformer (32x3x224x224)", ["SpatialTransformer"],
+         [imgs, loc], [0, 1],
+         lambda t, tr, g: _op("SpatialTransformer", dict(
+             target_shape=(224, 224), transform_type="affine",
+             sampler_type="bilinear"), t), OP_TOL_GRID)
+    case("GridGenerator(affine)+BilinearSampler", ["GridGenerator",
+                                                   "BilinearSampler"],
+         [imgs, loc], [0, 1],
+         lambda t, tr, g: _op("BilinearSampler", {}, [t[0], _op(
+             "GridGenerator", dict(transform_type="affine",
+                                   target_shape=(224, 224)), [t[1]])]),
+         OP_TOL_GRID)
+    gx = _frac_away(rng, (32, 224, 224), -20, 240)
+    gy = _frac_away(rng, (32, 224, 224), -20, 240)
+    grid = np.stack([gx * 2 / 223 - 1, gy * 2 / 223 - 1], 1).astype(
+        np.float32)
+    case("BilinearSampler (grid off pixel edges)", ["BilinearSampler"],
+         [imgs, grid], [0, 1],
+         lambda t, tr, g: _op("BilinearSampler", {}, t), OP_TOL_SUM)
+    flow = np.stack([_frac_away(rng, (32, 224, 224), -8, 8),
+                     _frac_away(rng, (32, 224, 224), -8, 8)], 1)
+    case("GridGenerator(warp)+BilinearSampler", ["GridGenerator",
+                                                 "BilinearSampler"],
+         [imgs, flow], [0, 1],
+         lambda t, tr, g: _op("BilinearSampler", {}, [t[0], _op(
+             "GridGenerator", dict(transform_type="warp"), [t[1]])]),
+         OP_TOL_SUM)
+    # fast style transfer
+    case("InstanceNorm (4x32x256x256)", ["InstanceNorm"],
+         [n(4, 32, 256, 256) * 2 + 0.5, n(32), n(32)], [0, 1, 2],
+         lambda t, tr, g: _op("InstanceNorm", dict(eps=1e-5), t), OP_TOL_SUM)
+    for mode in ("reflect", "edge", "constant"):
+        case("Pad %s (4x3x256x256 by 40)" % mode, ["Pad"],
+             [n(4, 3, 256, 256)], [0],
+             lambda t, tr, g, m=mode: _op("Pad", dict(
+                 mode=m, pad_width=(0, 0, 0, 0, 40, 40, 40, 40)), t),
+             OP_TOL_ELEMENTWISE)
+    act = n(64, 128, 32, 32)
+    for mode in ("leaky", "elu", "prelu", "rrelu"):
+        ins = [act] + ([n(128) * 0.2] if mode == "prelu" else [])
+        attrs = dict(act_type=mode, slope=0.2)
+        case("LeakyReLU %s (64x128x32x32)" % mode, ["LeakyReLU"], ins,
+             list(range(len(ins))),
+             lambda t, tr, g, a=attrs: _op("LeakyReLU", a, t, tr, g),
+             OP_TOL_ELEMENTWISE)
+    case("UpSampling nearest x2, two inputs (64x128x32x32)", ["UpSampling"],
+         [act, n(64, 128, 32, 32)], [0, 1],
+         lambda t, tr, g: _op("UpSampling", dict(scale=2, num_args=2), t),
+         OP_TOL_ELEMENTWISE)
+    # compact bilinear pooling: a 14x14x512 map of 32 images, to 8192
+    feats = n(6272, 512)
+    case("fft (6272x512)", ["fft"], [feats], [0],
+         lambda t, tr, g: _op("fft", {}, t), OP_TOL_SUM)
+    case("ifft (6272x1024)", ["ifft"], [n(6272, 1024)], [0],
+         lambda t, tr, g: _op("ifft", {}, t), OP_TOL_SUM)
+    case("count_sketch (6272x512 to 8192)", ["count_sketch"],
+         [feats, rng.integers(0, 8192, 512).astype(np.float32),
+          rng.choice([-1.0, 1.0], 512).astype(np.float32)], [0],
+         lambda t, tr, g: _op("count_sketch", dict(out_dim=8192), t),
+         OP_TOL_SUM)
+    case("log_softmax (32x32000)", ["log_softmax"], [n(32, 32000)], [0],
+         lambda t, tr, g: _op("log_softmax", {}, t), OP_TOL_SUM)
+    scores = n(128, 1000)
+    cls = rng.integers(0, 1000, 128).astype(np.float32)
+    for head, lab, attrs in (
+            ("SVMOutput", cls, dict(margin=1.0)),
+            ("SVMOutput", cls, dict(use_linear=True)),
+            ("LinearRegressionOutput", n(128, 1000), {}),
+            ("LogisticRegressionOutput",
+             (rng.random((128, 1000)) > 0.5).astype(np.float32), {}),
+            ("MAERegressionOutput", n(128, 1000), dict(grad_scale=0.5))):
+        case("%s%s (128x1000)" % (head, " L1" if attrs.get("use_linear")
+                                  else ""), [head], [scores, lab], [0],
+             lambda t, tr, g, h=head, a=attrs: _op(h, a, t),
+             OP_TOL_ELEMENTWISE)
+    case("IdentityAttachKLSparseReg (128x1000)",
+         ["IdentityAttachKLSparseReg"], [scores], [0],
+         lambda t, tr, g: _op("IdentityAttachKLSparseReg", {}, t),
+         OP_TOL_ELEMENTWISE)
+    return cases
+
+
+def p20_launches(fn):
+    """Device launches (kernels, copies and memsets) of one call of ``fn``:
+    the call captured once into a CUDA graph (never replayed), its nodes
+    counted by type with libcuda's ``cuGraphGetNodes``. torch.profiler
+    drops kernel records on the GPU machine (three of four an op by
+    phase 20), so it cannot count them."""
+    import ctypes
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph):
+        fn()
+    cu = ctypes.CDLL("libcuda.so.1")
+    raw = ctypes.c_void_p(graph.raw_cuda_graph())
+    n = ctypes.c_size_t(0)
+    assert cu.cuGraphGetNodes(raw, None, ctypes.byref(n)) == 0
+    if not n.value:
+        # an identity whose gradient is its cotangent launches nothing
+        return 0
+    nodes = (ctypes.c_void_p * n.value)()
+    assert cu.cuGraphGetNodes(raw, nodes, ctypes.byref(n)) == 0
+    kind = ctypes.c_int()
+    launches = 0
+    for node in nodes:
+        assert cu.cuGraphNodeGetType(ctypes.c_void_p(node),
+                                     ctypes.byref(kind)) == 0
+        # CU_GRAPH_NODE_TYPE_KERNEL, _MEMCPY, _MEMSET
+        launches += kind.value in (0, 1, 2)
+    del graph
+    return launches
+
+
+def _sl(x, s):
+    return x if s is None else x[s]
+
+
+def _rel_err(got, want):
+    got = got.detach().double().cpu()
+    want = want.detach().double().cpu()
+    return float((got - want).abs().max() / want.abs().max().clamp_min(
+        1e-30))
+
+
+def p20_run(case, dev, dtype, seed, cot=None, slices=False):
+    """One forward and backward of ``case`` on ``dev`` in ``dtype`` (its
+    integer-valued inputs too): (output, gradients, the tensors)."""
+    import torch
+    ins = case["ins"]
+    if slices and case["cpu_in"]:
+        ins = [_sl(x, s) for x, s in zip(ins, case["cpu_in"])]
+    ts = [torch.tensor(x, dtype=dtype, device=dev,
+                       requires_grad=i in case["wrt"])
+          for i, x in enumerate(ins)]
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    out = case["fn"](ts, True, gen)
+    grads = []
+    if case["wrt"] and cot is not None:
+        grads = torch.autograd.grad(out, [ts[i] for i in case["wrt"]],
+                                    cot.to(out.dtype))
+    return out.detach(), [g.detach() for g in grads], ts
+
+
+def p20_rrelu_check(case, dev, problems):
+    """rrelu draws its slopes on the card: each in [lower, upper), the
+    gradient equal to it, and the inference forward (the mean slope)
+    against the CPU float64 run."""
+    import torch
+    x = torch.tensor(case["ins"][0], device=dev, requires_grad=True)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    out = _op("LeakyReLU", dict(act_type="rrelu"), [x], True, gen)
+    (g,) = torch.autograd.grad(out, [x], torch.ones_like(out))
+    neg = x.detach() < 0
+    slope = out.detach()[neg] / x.detach()[neg]
+    lo, hi = float(slope.min()), float(slope.max())
+    grad_err = float((g[neg] - slope).abs().max())
+    ok = 0.125 - 1e-6 <= lo and hi < 0.334 + 1e-6 and grad_err <= 1e-6 \
+        and bool((g[~neg] == 1).all())
+    inf = _op("LeakyReLU", dict(act_type="rrelu"), [x.detach()], False)
+    ref = _op("LeakyReLU", dict(act_type="rrelu"),
+              [torch.tensor(case["ins"][0], dtype=torch.float64)], False)
+    err = _rel_err(inf, ref)
+    log("ops: rrelu on the card: slopes in [%.6f, %.6f] of [0.125, 0.334), "
+        "the gradient within %.3g of its slope; inference against the CPU "
+        "float64 at %.3g" % (lo, hi, grad_err, err))
+    if not ok or err > OP_TOL_ELEMENTWISE:
+        problems.append("rrelu: slopes [%g, %g], gradient %g, inference %g"
+                        % (lo, hi, grad_err, err))
+    return err
+
+
+def p20_quantize(rng, dev, reps, card, problems):
+    """quantize and dequantize of a 1000x2048 weight: on the card against
+    the CPU in float32 (exact: the same rounding, half to even)."""
+    import torch
+    w = rng.standard_normal((1000, 2048)).astype(np.float32)
+    w[0, :8] = np.float32(-1.0) + np.arange(8, dtype=np.float32) * (
+        np.float32(2.0) / 255) * np.float32(0.5)
+    lo, hi = np.array([w.min()], np.float32), np.array([w.max()],
+                                                       np.float32)
+    rows = []
+    for place in (dev, torch.device("cpu")):
+        t = [torch.tensor(a, device=place) for a in (w, lo, hi)]
+        q = _op("quantize", {}, t)
+        deq = _op("dequantize", {}, [q, t[1], t[2]])
+        rows.append((q.cpu(), deq.cpu(), q.device, deq.device))
+    (qc, dc, qd, dd), (qh, dh, _, _) = rows
+    diff = int((qc != qh).sum())
+    derr = _rel_err(dc, dh)
+    if qd.type != "cuda" or dd.type != "cuda" or qc.dtype != torch.uint8:
+        problems.append("quantize: ran on %s/%s, %s" % (qd, dd, qc.dtype))
+    if diff or derr > OP_TOL_ELEMENTWISE:
+        problems.append("quantize: %d levels differ, dequantize %g"
+                        % (diff, derr))
+    t = [torch.tensor(a, device=dev) for a in (w, lo, hi)]
+    ms = cuda_time_ms(lambda: _op("dequantize", {}, [
+        _op("quantize", {}, t), t[1], t[2]]), reps, warmup=2)
+    launches = p20_launches(lambda: _op("dequantize", {}, [
+        _op("quantize", {}, t), t[1], t[2]]))
+    log("ops: quantize+dequantize (1000x2048): %d of %d levels differ from "
+        "the CPU's float32, dequantize at %.3g; %.4f ms a round trip (CUDA "
+        "events), %s launches [%s]" % (diff, w.size, derr, ms, launches,
+                                       card))
+    return dict(name="quantize+dequantize (1000x2048)",
+                ops=["quantize", "dequantize"], ms=ms, launches=launches,
+                max_rel_err=max(float(diff), derr), tol=0.0,
+                reference="cpu float32")
+
+
+def ops_phase(seed, reps, card, dev="cuda:0"):
+    """Phase 20 (a) (see the module docstring)."""
+    import torch
+    from mxnet_tpu_torch.ops import registry as treg
+    problems = []
+    dev = torch.device(dev)
+    rng = np.random.default_rng(seed + 20)
+    cases = p20_cases(rng)
+    covered = {o for c in cases for o in c["ops"]} | {"quantize",
+                                                      "dequantize"}
+    assert covered == set(OPS_SLICE) and all(
+        treg.exists(o) for o in OPS_SLICE), sorted(set(OPS_SLICE) - covered)
+    rows = []
+    with no_tf32():
+        for case in cases:
+            t0 = time.perf_counter()
+            out, _, _ = p20_run(case, dev, torch.float32, seed)
+            cot = torch.tensor(rng.standard_normal(tuple(out.shape)),
+                               dtype=torch.float32, device=dev)
+            # the card: output, gradients, peak memory, time, launches
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            out, grads, ts = p20_run(case, dev, torch.float32, seed, cot)
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated() - base
+            placed = [t.device.type for t in [out] + list(grads)]
+            if set(placed) != {dev.type}:
+                problems.append("%s: results on %s" % (case["name"], placed))
+
+            # rrelu draws from the card's default generator, which a
+            # CUDA graph's capture can take
+            gen = torch.cuda.default_generators[dev.index or 0] \
+                if dev.type == "cuda" else None
+
+            def step():
+                o = case["fn"](ts, True, gen)
+                if case["wrt"]:
+                    torch.autograd.grad(o, [ts[i] for i in case["wrt"]],
+                                        cot)
+            ms = cuda_time_ms(step, max(2, reps // 4), warmup=1)
+            fwd_ms = cuda_time_ms(lambda: case["fn"](ts, True, gen),
+                                  max(2, reps // 4), warmup=1)
+            launches = p20_launches(step)
+            # the CPU in float64 from the same inputs
+            if "rrelu" in case["name"]:
+                err = p20_rrelu_check(case, dev, problems)
+            else:
+                ccot = _sl(cot, case["cpu_out"]).double().cpu()
+                ref, rgrads, _ = p20_run(case, torch.device("cpu"),
+                                         torch.float64, seed, ccot,
+                                         slices=True)
+                errs = [_rel_err(_sl(out, case["cpu_out"]), ref)]
+                for i, g, r in zip(case["wrt"], grads, rgrads):
+                    s = case["cpu_in"][i] if case["cpu_in"] else None
+                    errs.append(_rel_err(_sl(g, s), r))
+                err = max(errs)
+                if not err <= case["tol"]:
+                    problems.append("%s: %.3g over its tolerance %g (%s)"
+                                    % (case["name"], err, case["tol"],
+                                       ", ".join("%.3g" % e for e in errs)))
+            shapes = "x".join(str(d) for d in out.shape)
+            log("ops: %s -> %s: %.4f ms forward and backward, %.4f forward "
+                "(CUDA events), %s launches, peak extra %.1f MiB; against "
+                "the CPU float64%s at %.3g (tol %g); %.1f s [%s]"
+                % (case["name"], shapes, ms, fwd_ms, launches,
+                   peak / 2 ** 20, " on its slice" if case["cpu_in"] else "",
+                   err, case["tol"], time.perf_counter() - t0, card))
+            rows.append(dict(name=case["name"], ops=case["ops"], ms=ms,
+                             fwd_ms=fwd_ms, launches=launches,
+                             peak_mib=round(peak / 2 ** 20, 1),
+                             max_rel_err=err, tol=case["tol"],
+                             reference="cpu float64"))
+            if case["ops"] == ["ROIPooling"] and peak >= ROI_PEAK_LIMIT:
+                problems.append("ROIPooling: peak extra memory %.2f GiB"
+                                % (peak / 2 ** 30))
+            del out, grads, ts
+        rows.append(p20_quantize(rng, dev, reps, card, problems))
+    if problems:
+        raise SystemExit("ops phase failed: " + "; ".join(problems))
+    return rows
+
+
+def example_mnist_autograd(mt, ctx):
+    """example/autograd/mnist_autograd.py on ``ctx``: its data, MLP and
+    loop; returns the last epoch's accuracy and the epochs' losses."""
+    nd, ag = mt.nd, mt.autograd
+    rng = np.random.default_rng(0)
+    temps = rng.standard_normal((4, 32)).astype(np.float32) * 2
+    X = np.concatenate([t + rng.standard_normal((128, 32)).astype(
+        np.float32) for t in temps])
+    Y = np.repeat(np.arange(4), 128)
+    perm = rng.permutation(len(X))
+    X, Y = X[perm], Y[perm].astype(np.int64)
+    params = {
+        "w1": nd.array(rng.standard_normal((32, 64)).astype(np.float32)
+                       * 0.1, ctx=ctx),
+        "b1": nd.zeros((64,), ctx=ctx),
+        "w2": nd.array(rng.standard_normal((64, 4)).astype(np.float32)
+                       * 0.1, ctx=ctx),
+        "b2": nd.zeros((4,), ctx=ctx)}
+    grads = {k: nd.zeros(v.shape, ctx=ctx) for k, v in params.items()}
+    ag.mark_variables(list(params.values()), list(grads.values()))
+    losses = []
+    for _ in range(10):
+        total, correct = 0.0, 0
+        for i in range(0, len(X), 64):
+            xb = nd.array(X[i:i + 64], ctx=ctx)
+            yb = Y[i:i + 64]
+            onehot = nd.array(np.eye(4, dtype=np.float32)[yb], ctx=ctx)
+            with ag.train_section():
+                h = nd.relu(nd.dot(xb, params["w1"]) + params["b1"])
+                logits = nd.dot(h, params["w2"]) + params["b2"]
+                loss = -nd.sum(nd.log_softmax(logits, axis=1) * onehot) \
+                    / len(yb)
+            ag.compute_gradient([loss])
+            for k in params:
+                params[k][:] = params[k].asnumpy() - 0.1 * grads[k].asnumpy()
+            total += float(loss.asnumpy())
+            correct += int((logits.asnumpy().argmax(1) == yb).sum())
+        losses.append(total / (len(X) // 64))
+    return correct / len(X), losses
+
+
+def example_nce_lm(mt, ctx):
+    """example/nce-loss/nce_lm.py's main on ``ctx``: returns its ranking
+    accuracy (true successor against a random token)."""
+    sym = mt.sym
+    rng = np.random.RandomState(0)
+    vocab, dim, k_noise, n = 50, 16, 8, 4096
+    centers = rng.randint(0, vocab, n)
+    cand = np.concatenate([((centers + 1) % vocab)[:, None],
+                           rng.randint(0, vocab, (n, k_noise))], axis=1)
+    labels = np.zeros((n, 1 + k_noise), np.float32)
+    labels[:, 0] = 1.0
+    it = mt.io.NDArrayIter({"data": centers.astype(np.float32),
+                            "cand": cand.astype(np.float32)},
+                           {"nce_label": labels}, batch_size=64,
+                           shuffle=True)
+    in_emb = sym.Embedding(sym.Variable("data"), input_dim=vocab,
+                           output_dim=dim, name="in_emb")
+    out_emb = sym.Embedding(sym.Variable("cand"), input_dim=vocab,
+                            output_dim=dim, name="out_emb")
+    scores = sym.sum(sym.broadcast_mul(
+        out_emb, sym.Reshape(in_emb, shape=(-1, 1, dim))), axis=2)
+    net = sym.LogisticRegressionOutput(data=scores,
+                                       label=sym.Variable("nce_label"),
+                                       name="nce")
+    mod = mt.mod.Module(net, data_names=("data", "cand"),
+                        label_names=("nce_label",), context=ctx)
+    mod.fit(it, num_epoch=12, optimizer="adam",
+            optimizer_params={"learning_rate": 0.02},
+            initializer=mt.initializer.Normal(0.1))
+    args, _ = mod.get_params()
+    w_in = args["in_emb_weight"].asnumpy()
+    w_out = args["out_emb_weight"].asnumpy()
+    test_c = rng.randint(0, vocab, 512)
+    pos = (test_c + 1) % vocab
+    neg = (test_c + 1 + rng.randint(1, vocab - 1, 512)) % vocab
+    return float(((w_in[test_c] * w_out[pos]).sum(1)
+                  > (w_in[test_c] * w_out[neg]).sum(1)).mean())
+
+
+def example_matrix_fact(mt, ctx):
+    """example/recommenders/matrix_fact.py's main on ``ctx``: returns the
+    holdout RMSE and the label spread."""
+    sym = mt.sym
+    rng = np.random.RandomState(0)
+    n_users, n_items, k = 60, 40, 6
+    U = rng.randn(n_users, k).astype(np.float32) * 0.8
+    V = rng.randn(n_items, k).astype(np.float32) * 0.8
+    users = rng.randint(0, n_users, 4000).astype(np.float32)
+    items = rng.randint(0, n_items, 4000).astype(np.float32)
+    ratings = ((U[users.astype(int)] * V[items.astype(int)]).sum(1)
+               + rng.randn(4000).astype(np.float32) * 0.1)
+    it = mt.io.NDArrayIter({"user": users[:3200], "item": items[:3200]},
+                           {"score_label": ratings[:3200]}, batch_size=64,
+                           shuffle=True)
+    val = mt.io.NDArrayIter({"user": users[3200:], "item": items[3200:]},
+                            {"score_label": ratings[3200:]}, batch_size=64)
+    u = sym.Embedding(sym.Variable("user"), input_dim=n_users, output_dim=k,
+                      name="user_emb")
+    v = sym.Embedding(sym.Variable("item"), input_dim=n_items, output_dim=k,
+                      name="item_emb")
+    net = sym.LinearRegressionOutput(data=sym.sum(u * v, axis=1),
+                                     label=sym.Variable("score_label"),
+                                     name="lro")
+    mod = mt.mod.Module(net, data_names=("user", "item"),
+                        label_names=("score_label",), context=ctx)
+    mod.fit(it, num_epoch=15, optimizer="adam",
+            optimizer_params={"learning_rate": 0.02},
+            initializer=mt.initializer.Normal(0.1), eval_metric="rmse")
+    rmse = float(mod.score(val, mt.metric.RMSE())[0][1])
+    return rmse, float(np.std(ratings[3200:]))
+
+
+def examples_phase(seed, card):
+    """Phase 20 (b) (see the module docstring)."""
+    import mxnet_tpu_torch as mt
+    mt.random.seed(seed)
+    ctx = mt.gpu(0)
+    problems = []
+    t0 = time.perf_counter()
+    acc, losses = example_mnist_autograd(mt, ctx)
+    log("examples: mnist_autograd on %s: loss %.4f -> %.4f over 10 epochs, "
+        "accuracy %.3f (must exceed 0.95); %.1f s [%s]"
+        % (ctx, losses[0], losses[-1], acc, time.perf_counter() - t0, card))
+    if not acc > 0.95:
+        problems.append("mnist_autograd: accuracy %.3f" % acc)
+    t0 = time.perf_counter()
+    rank = example_nce_lm(mt, ctx)
+    log("examples: nce_lm on %s: ranking accuracy %.3f (must be at least "
+        "0.95); %.1f s [%s]" % (ctx, rank, time.perf_counter() - t0, card))
+    if rank < 0.95:
+        problems.append("nce_lm: ranking accuracy %.3f" % rank)
+    t0 = time.perf_counter()
+    rmse, base = example_matrix_fact(mt, ctx)
+    log("examples: matrix_fact on %s: holdout RMSE %.4f against the label "
+        "spread %.4f (must be below 0.35 of it, %.4f); %.1f s [%s]"
+        % (ctx, rmse, base, 0.35 * base, time.perf_counter() - t0, card))
+    if not rmse < 0.35 * base:
+        problems.append("matrix_fact: RMSE %.4f, label spread %.4f"
+                        % (rmse, base))
+    if problems:
+        raise SystemExit("examples phase failed: " + "; ".join(problems))
+    return dict(mnist_autograd_accuracy=acc, nce_lm_ranking_accuracy=rank,
+                matrix_fact_rmse=rmse, matrix_fact_label_std=base)
+
+
+def slice_phase(seed, reps, card):
+    """Phase 20: (a) the ops, then (b) the examples."""
+    t0 = time.perf_counter()
+    rows = ops_phase(seed, reps, card)
+    ex = examples_phase(seed, card)
+    log("ops and examples: the phase took %.1f s" % (time.perf_counter() - t0))
+    return rows, ex
+
+
 def _nodes(sym):
     from mxnet_tpu_torch.symbol import _topo
     return _topo(sym._out_nodes())
@@ -6146,6 +6749,7 @@ def main():
     lm_phase(args.seed, card, lm_prof)
     mesh_launches = mesh_phase(args.seed, card)
     axes_phase(args.seed, card)
+    op_rows, examples = slice_phase(args.seed, args.reps, card)
     # B1 runs on three main paths: the train phase, the training API and
     # the bf16 mesh; its float32 route on the module phase and the f32 mesh
     b1.update(launches=b1["launches"] + api_launches + mesh_launches["wgmma"],
@@ -6182,6 +6786,7 @@ def main():
     b3[0]["graph_ms"] = event["Rtc captured, graph.replay()"]
 
     log(card)
+    log(json.dumps({"ops": op_rows, "examples": examples}))
     log(json.dumps({"kernels": [nms, b1, b1_f32] + b3}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

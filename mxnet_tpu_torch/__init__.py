@@ -37,12 +37,22 @@ length: the ``RNN`` op, ``rnn``'s cells, ``BucketSentenceIter`` and RNN
 checkpoints, ``mod.BucketingModule``, ``SequentialModule``,
 ``PythonModule`` and ``PythonLossModule``; and the single-process
 observability: :class:`Monitor`, ``profiler`` (a Chrome trace from
-``torch.profiler``), ``obs``'s windowed deltas and Prometheus export.
+``torch.profiler``), ``obs``'s windowed deltas and Prometheus export; and
+parallelism over a mesh's 'data', 'model', 'seq' and 'pipe' axes
+(``parallel``, ``TrainStep(mesh=)``, ``Module`` over contexts); and every
+operator of the JAX package's registry, the last of them ``ops/spatial.py``
+(ROIPooling, Correlation, the spatial transformer's samplers), CTCLoss,
+Deconvolution, InstanceNorm and the regression outputs; ``viz``,
+``test_utils``, ``metric.Torch``/``Caffe``, the crash dump of
+``initialize``, and ``tpu(i)``, the JAX package's accelerator name, which
+places on ``cuda:i`` as ``gpu(i)`` does.
 """
 from .base import MXNetError, TrainingPreemptedError, __version__
 from . import base
 from . import engine
-from .context import Context, cpu, gpu, cpu_pinned, current_context
+from . import initialize as _initialize  # the crash dump (initialize.cc)
+from .context import (Context, cpu, gpu, tpu, cpu_pinned, current_context,
+                      num_devices)
 from . import ndarray
 from . import ndarray as nd
 from . import ops
@@ -67,6 +77,8 @@ from . import kvstore as kv
 from . import callback
 from . import model
 from .model import FeedForward
+from . import visualization
+from . import visualization as viz
 from . import module
 from . import module as mod
 from . import monitor
@@ -86,6 +98,7 @@ from . import models
 from . import recordio
 from . import image
 from . import convert
+from . import test_utils
 from . import operator   # registers the Custom op type
 from . import rtc
 

@@ -35,6 +35,11 @@ class TrainingPreemptedError(MXNetError):
 _NULL = object()  # sentinel for "unset" attr values
 
 
+def string_types():
+    """The string types (parity: ``mxnet_tpu.base.string_types``)."""
+    return (str,)
+
+
 def attr_bool(v, default=None):
     if v is _NULL or v is None:
         return default

@@ -2,7 +2,9 @@
 
 Counterpart of ``mxnet_tpu/context.py``. A :class:`Context` names a device
 the reference's way (``cpu(0)``, ``gpu(1)``) and resolves to a
-``torch.device``: ``gpu(i)`` is ``cuda:i``.
+``torch.device``: ``gpu(i)`` is ``cuda:i``. ``tpu(i)``, the JAX package's
+name for its accelerator, is taken as an alias of it and is ``cuda:i`` too,
+so scripts written for the JAX package run unchanged.
 """
 from __future__ import annotations
 
@@ -19,13 +21,16 @@ class Context(object):
 
     Parameters
     ----------
-    device_type : {'cpu', 'gpu', 'cpu_pinned'} or Context
+    device_type : {'cpu', 'gpu', 'tpu', 'cpu_pinned'} or Context
+        'tpu' is an alias of the accelerator ('gpu'), as the JAX package
+        takes 'gpu' for its own.
     device_id : int
     """
 
-    # parity: base.h devtype ids (1 cpu, 2 gpu, 3 cpu_pinned)
-    devtype2str = {1: "cpu", 2: "gpu", 3: "cpu_pinned"}
-    devstr2type = {"cpu": 1, "gpu": 2, "cpu_pinned": 3}
+    # parity: base.h devtype ids (1 cpu, 2 gpu, 3 cpu_pinned); tpu gets 4,
+    # as in the JAX package
+    devtype2str = {1: "cpu", 2: "gpu", 3: "cpu_pinned", 4: "tpu"}
+    devstr2type = {"cpu": 1, "gpu": 2, "cpu_pinned": 3, "tpu": 4}
 
     _default_ctx = threading.local()
 
@@ -65,9 +70,9 @@ class Context(object):
         Context._default_ctx.value = self._old_ctx
 
     def to_device(self):
-        """The ``torch.device`` this context names (``gpu(i)`` ->
-        ``cuda:i``; CPU contexts share the one host device)."""
-        if self.device_type == "gpu":
+        """The ``torch.device`` this context names (``gpu(i)`` and
+        ``tpu(i)`` -> ``cuda:i``; CPU contexts share the one host device)."""
+        if self.device_type in ("gpu", "tpu"):
             return torch.device("cuda", self.device_id)
         return torch.device("cpu")
 
@@ -82,17 +87,23 @@ def gpu(device_id=0):
     return Context("gpu", device_id)
 
 
+def tpu(device_id=0):
+    """The JAX package's accelerator context, here ``cuda:device_id``."""
+    return Context("tpu", device_id)
+
+
 def cpu_pinned(device_id=0):
     return Context("cpu_pinned", device_id)
 
 
 def num_devices(device_type=None):
     """Number of devices of ``device_type`` visible: CUDA cards for
-    ``"gpu"``; for ``"cpu"`` one per host core (CPU replicas share the host
-    device). By default the cards, or the CPU's count without CUDA."""
+    ``"gpu"`` (and its alias ``"tpu"``); for ``"cpu"`` one per host core
+    (CPU replicas share the host device). By default the cards, or the
+    CPU's count without CUDA."""
     if device_type is None:
         device_type = "gpu" if torch.cuda.is_available() else "cpu"
-    if device_type == "gpu":
+    if device_type in ("gpu", "tpu"):
         return torch.cuda.device_count() if torch.cuda.is_available() else 0
     return os.cpu_count() or 1
 
@@ -104,6 +115,11 @@ def current_context():
     if not hasattr(Context._default_ctx, "value"):
         Context._default_ctx.value = Context("gpu", 0)
     return Context._default_ctx.value
+
+
+def default_context():
+    """The current context (parity: ``mxnet_tpu.context.default_context``)."""
+    return current_context()
 
 
 def resolve_device(device, who):

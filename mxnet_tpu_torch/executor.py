@@ -159,6 +159,10 @@ def _axis_ok(node, ins, axis):
             return False
         if int(a) % first.ndim in split0:
             return False
+    if op.mesh_unsplit is not None and any(
+            i < len(ins) and d < len(ins[i].spec) and ins[i].spec[d] == axis
+            for i, d in op.mesh_unsplit(attrs, [v.ndim for v in ins])):
+        return False
     if op.mesh_reshape and split0 and int(
             np.prod(first.shape[:split0[0]])) > 1:
         return False

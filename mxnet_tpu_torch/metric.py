@@ -8,7 +8,7 @@ declares slots whose per-step sums ``TrainStep.run_steps(metric_spec=)``
 accumulates on the device (here the ``step_sums`` are torch expressions
 over the step's output and label tensors), and
 :func:`update_from_device_sums` folds one dispatch's sums back into the
-metric. ``Torch`` and ``Caffe`` are not ported yet.
+metric.
 """
 from __future__ import annotations
 
@@ -627,6 +627,22 @@ class Loss(EvalMetric):
 
         return DeviceSumSpec(("sum", "n"), step_sums, fold, ("loss",),
                              tag="loss")
+
+
+class Torch(Loss):
+    """The average of the raw outputs of a Torch criterion, named
+    ``torch`` (ref: metric.py Torch)."""
+
+    def __init__(self):
+        super(Loss, self).__init__("torch")
+
+
+class Caffe(Loss):
+    """The average of the raw outputs of a Caffe loss, named ``caffe``
+    (ref: metric.py Caffe)."""
+
+    def __init__(self):
+        super(Loss, self).__init__("caffe")
 
 
 class CustomMetric(EvalMetric):

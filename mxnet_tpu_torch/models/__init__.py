@@ -9,6 +9,7 @@ from .alexnet import get_symbol as alexnet
 from .vgg import get_symbol as vgg
 from .inception_bn import get_symbol as inception_bn
 from .transformer import get_symbol as transformer
+from .ssd import get_symbol_train as ssd_train
 
 
 _FACTORIES = {
@@ -20,7 +21,7 @@ _FACTORIES = {
     "vgg": vgg,
     "inception-bn": inception_bn,
     # the training symbol (MultiBoxTarget matching and the loss heads)
-    "ssd": ssd.get_symbol_train,
+    "ssd": ssd_train,
 }
 
 
@@ -34,4 +35,4 @@ def get_symbol(network, **kwargs):
 
 
 __all__ = ["alexnet", "get_symbol", "inception_bn", "lenet", "mlp",
-           "resnet", "ssd", "transformer", "vgg"]
+           "resnet", "ssd", "ssd_train", "transformer", "vgg"]

@@ -4,7 +4,8 @@ from . import registry
 from . import tensor        # noqa: F401  (registers tensor ops)
 from . import nn            # noqa: F401  (registers nn layer ops)
 from . import optimizer_op  # noqa: F401  (registers the update ops)
-from . import contrib       # noqa: F401  (registers the MultiBox ops)
+from . import contrib       # noqa: F401  (MultiBox, CTCLoss, fft, quantize)
+from . import spatial       # noqa: F401  (ROIPooling, Correlation, samplers)
 from . import rnn_op        # noqa: F401  (registers the fused RNN op)
 from . import attention     # noqa: F401  (MultiHeadAttention, LayerNorm)
 from . import transformer_stack  # noqa: F401  (registers TransformerStack)

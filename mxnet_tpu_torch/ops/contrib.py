@@ -1,7 +1,9 @@
-"""SSD MultiBox operators: MultiBoxPrior, MultiBoxTarget and
-MultiBoxDetection (counterparts of ``mxnet_tpu/ops/contrib.py``; ref:
+"""Contrib operators (counterparts of ``mxnet_tpu/ops/contrib.py``): the
+SSD MultiBox ops MultiBoxPrior, MultiBoxTarget and MultiBoxDetection (ref:
 src/operator/contrib/multibox_prior.cc, multibox_target.cc,
-multibox_detection.cc).
+multibox_detection.cc), and CTCLoss, fft, ifft, count_sketch, quantize and
+dequantize (ref: contrib/ctc_loss*, fft*, count_sketch*, quantize*), each
+with its ``_contrib_`` alias.
 
 MultiBoxTarget matches anchors to ground truth and mines hard negatives
 for the whole batch at once, in plain PyTorch as the JAX package writes it
@@ -17,6 +19,7 @@ import math
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from ..base import attr_bool, attr_float, attr_int, attr_tuple, MXNetError
 from .registry import register
@@ -261,3 +264,146 @@ def _mbd_attrs(attrs):
           infer_shape=_mbd_infer, aliases=("_contrib_MultiBoxDetection",))
 def _multibox_detection(op_ctx, attrs, inputs, aux):
     return (multibox_detection(*inputs, **_mbd_attrs(attrs)),)
+
+
+# ---------------------------------------------------------------------------
+# CTCLoss (ref: contrib/ctc_loss*; warp-ctc semantics: blank 0, label 0 pads)
+# ---------------------------------------------------------------------------
+
+#: the log of an unreachable state, as the JAX package's
+_CTC_NEG = -1e9
+
+
+def _ctc_infer(attrs, in_shapes):
+    data, label = in_shapes
+    if data is None or label is None:
+        raise MXNetError("CTCLoss: data and label shapes required")
+    return [tuple(data), tuple(label)], [(data[1],)], []
+
+
+def _lse(a, b):
+    """log(exp(a) + exp(b)) with the gap clamped to [0, 60], as the JAX
+    package's: past 60 the smaller term has no gradient."""
+    d = torch.clamp(torch.abs(a - b), 0.0, 60.0)
+    return torch.maximum(a, b) + torch.log1p(torch.exp(-d))
+
+
+def ctc_loss(data, label):
+    """Negative log-likelihood of each label row under the activations
+    ``data`` (T, N, V): the forward (alpha) recursion over T in log space,
+    one step a time step, all on ``data``'s device. Rows of ``label``
+    (N, L) end at their first 0; an empty row scores the all-blank path."""
+    T, N, _ = data.shape
+    S = 2 * label.shape[1] + 1
+    logp = torch.log_softmax(data, dim=-1)
+    lab = label.to(torch.int64)
+    # the extended sequence: blank, l1, blank, l2, ..., blank
+    ext = torch.zeros((N, S), dtype=torch.int64, device=data.device)
+    ext[:, 1::2] = lab
+    lab_len = (lab > 0).sum(dim=1)
+    ext_len = 2 * lab_len + 1
+    # s may follow s - 2 where ext[s] is a label unlike ext[s - 2]
+    can_skip = (ext != 0) & (ext != F.pad(ext, (2, 0))[:, :S])
+    emit = torch.gather(logp, 2, ext[None].expand(T, N, S))   # (T, N, S)
+    neg = torch.full((N, S), _CTC_NEG, dtype=data.dtype, device=data.device)
+    alpha = torch.cat([emit[0, :, :1],
+                       torch.where(lab_len[:, None] > 0, emit[0, :, 1:2],
+                                   neg[:, :1]),
+                       neg[:, 2:]], dim=1)[:, :S]
+    for t in range(1, T):
+        prev1 = F.pad(alpha, (1, 0), value=_CTC_NEG)[:, :S]
+        prev2 = F.pad(alpha, (2, 0), value=_CTC_NEG)[:, :S]
+        a = _lse(alpha, prev1)
+        a = torch.where(can_skip, _lse(a, prev2), a)
+        alpha = a + emit[t]
+    last = torch.gather(alpha, 1, (ext_len - 1).clamp(0, S - 1)[:, None])[:, 0]
+    prev = torch.gather(alpha, 1, (ext_len - 2).clamp(0, S - 1)[:, None])[:, 0]
+    # an empty row has one final state: lse(last, last) would count the
+    # all-blank path twice
+    return -torch.where(ext_len >= 2, _lse(last, prev), last)
+
+
+@register("CTCLoss", inputs=("data", "label"), infer_shape=_ctc_infer,
+          aliases=("ctc_loss", "_contrib_CTCLoss"), mesh_split=True,
+          mesh_unsplit=lambda attrs, ndims: [(0, 0), (0, 2), (1, 1)])
+def _ctc_loss(op_ctx, attrs, inputs, aux):
+    return (ctc_loss(inputs[0], inputs[1]),)
+
+
+# ---------------------------------------------------------------------------
+# fft / ifft (ref: contrib/fft*): complex values as [re, im] pairs
+# interleaved along the last dimension, which doubles it; ifft unnormalised
+# ---------------------------------------------------------------------------
+
+def _complex_dtype(dtype):
+    return torch.complex128 if dtype == torch.float64 else torch.complex64
+
+
+def _last_dim(attrs, ndims):
+    return [(0, ndims[0] - 1)]
+
+
+@register("fft", inputs=("data",), aliases=("_contrib_fft",), mesh_split=True,
+          mesh_unsplit=_last_dim)
+def _fft(op_ctx, attrs, inputs, aux):
+    x = inputs[0]
+    y = torch.fft.fft(x.to(_complex_dtype(x.dtype)), dim=-1)
+    out = torch.stack([y.real, y.imag], dim=-1)
+    return (out.reshape(x.shape[:-1] + (2 * x.shape[-1],)).to(x.dtype),)
+
+
+@register("ifft", inputs=("data",), aliases=("_contrib_ifft",),
+          mesh_split=True, mesh_unsplit=_last_dim)
+def _ifft(op_ctx, attrs, inputs, aux):
+    x = inputs[0]
+    n = x.shape[-1] // 2
+    pairs = x.reshape(x.shape[:-1] + (n, 2))
+    z = torch.complex(pairs[..., 0], pairs[..., 1])
+    return ((torch.fft.ifft(z, dim=-1) * n).real.to(x.dtype),)
+
+
+# ---------------------------------------------------------------------------
+# count_sketch (ref: contrib/count_sketch*, compact bilinear pooling)
+# ---------------------------------------------------------------------------
+
+def _cs_infer(attrs, in_shapes):
+    data = in_shapes[0]
+    if data is None:
+        raise MXNetError("count_sketch: data shape required")
+    return ([tuple(data), (data[1],), (data[1],)],
+            [(data[0], attr_int(attrs["out_dim"]))], [])
+
+
+@register("count_sketch", inputs=("data", "h", "s"), infer_shape=_cs_infer,
+          aliases=("_contrib_count_sketch",), mesh_split=True,
+          mesh_unsplit=lambda attrs, ndims: [(0, 1), (1, 0), (2, 0)])
+def _count_sketch(op_ctx, attrs, inputs, aux):
+    data, h, s = inputs
+    out_dim = attr_int(attrs["out_dim"])
+    idx = h.to(torch.int64) % out_dim
+    out = torch.zeros((data.shape[0], out_dim), dtype=data.dtype,
+                      device=data.device)
+    return (out.index_add(1, idx, data * s[None, :]),)
+
+
+# ---------------------------------------------------------------------------
+# quantize / dequantize (ref: contrib/quantize*): uint8 over [min, max]
+# ---------------------------------------------------------------------------
+
+@register("quantize", inputs=("data", "min_range", "max_range"),
+          outputs=("output", "min_range", "max_range"),
+          aliases=("_contrib_quantize",), mesh_split=True)
+def _quantize(op_ctx, attrs, inputs, aux):
+    data, lo, hi = inputs
+    scale = 255.0 / torch.clamp_min(hi - lo, 1e-8)
+    # torch.round, as jnp.round, rounds half to even
+    q = torch.clamp(torch.round((data - lo) * scale), 0, 255).to(torch.uint8)
+    return (q, lo.clone(), hi.clone())
+
+
+@register("dequantize", inputs=("data", "min_range", "max_range"),
+          aliases=("_contrib_dequantize",), mesh_split=True)
+def _dequantize(op_ctx, attrs, inputs, aux):
+    data, lo, hi = inputs
+    scale = torch.clamp_min(hi - lo, 1e-8) / 255.0
+    return (data.to(torch.float32) * scale + lo,)

@@ -8,7 +8,11 @@ the exceptions once every op has registered (imported last by
 - one_hot and the samplers: the output dtype from the ``dtype`` attr
   (default float32), inputs keep their own.
 - Embedding: indices keep their dtype; weight and output share a float.
-- Loss heads (SoftmaxOutput family): the label keeps its own dtype.
+- Loss heads (SoftmaxOutput family) and CTCLoss: the label keeps its own
+  dtype.
+- count_sketch: the hash indices ``h`` keep their dtype.
+- quantize: the output is uint8 and the two ranges pass through;
+  dequantize: the output is float32, the uint8 data keeps its dtype.
 - where: the condition keeps its dtype; x, y and the output unify.
 """
 from __future__ import annotations
@@ -47,6 +51,31 @@ def _label_free_loss(attrs, ins):
         [data], []
 
 
+def _count_sketch_type(attrs, ins):
+    data, h, s = ins
+    return [data, h if h is not None else data,
+            s if s is not None else data], [data], []
+
+
+def _with_ranges(ins):
+    """``(data, min_range, max_range)`` with an unknown range taking the
+    other's dtype (float32 where neither is known)."""
+    data, lo, hi = ins
+    lo = next((d for d in (lo, hi) if d is not None), _F32)
+    return data, lo, hi if hi is not None else lo
+
+
+def _quantize_type(attrs, ins):
+    data, lo, hi = _with_ranges(ins)
+    return [data, lo, hi], [np.dtype(np.uint8), lo, hi], []
+
+
+def _dequantize_type(attrs, ins):
+    data, lo, hi = _with_ranges(ins)
+    return [data if data is not None else np.dtype(np.uint8), lo, hi], \
+        [_F32], []
+
+
 def _where_type(attrs, ins):
     known = [d for d in ins[1:] if d is not None]
     dt = known[0] if known else None
@@ -66,8 +95,11 @@ def install():
     _set("Embedding", _embedding_type)
     for loss in ("SoftmaxOutput", "LinearRegressionOutput",
                  "LogisticRegressionOutput", "MAERegressionOutput",
-                 "SVMOutput"):
+                 "SVMOutput", "CTCLoss"):
         _set(loss, _label_free_loss)
+    _set("count_sketch", _count_sketch_type)
+    _set("quantize", _quantize_type)
+    _set("dequantize", _dequantize_type)
     _set("where", _where_type)
 
 

@@ -910,3 +910,327 @@ def _sequence_reverse(op_ctx, attrs, inputs, aux):
 _seq_op("SequenceLast", _sequence_last)
 _seq_op("SequenceMask", _sequence_mask)
 _seq_op("SequenceReverse", _sequence_reverse)
+
+
+# ---------------------------------------------------------------------------
+# log_softmax and LeakyReLU (ref: leaky_relu-inl.h)
+# ---------------------------------------------------------------------------
+
+@register("log_softmax", inputs=("data",), mesh_split=True,
+          mesh_axis=("axis", -1))
+def _log_softmax(op_ctx, attrs, inputs, aux):
+    return (torch.log_softmax(inputs[0],
+                              dim=attr_int(attrs.get("axis", -1), -1)),)
+
+
+def _leaky_act(attrs):
+    return attr_str(attrs.get("act_type", "leaky"), "leaky")
+
+
+def _leaky_inputs(attrs):
+    return ["data", "gamma"] if _leaky_act(attrs) == "prelu" else ["data"]
+
+
+def _leaky_infer(attrs, in_shapes):
+    data = in_shapes[0]
+    if data is None:
+        raise MXNetError("LeakyReLU: data shape required")
+    if _leaky_act(attrs) == "prelu":
+        return [tuple(data), (data[1],)], [tuple(data)], []
+    return [tuple(data)], [tuple(data)], []
+
+
+def _leaky(op_ctx, attrs, inputs, aux):
+    act = _leaky_act(attrs)
+    x = inputs[0]
+    slope = attr_float(attrs.get("slope", 0.25), 0.25)
+    if act == "leaky":
+        return (torch.where(x > 0, x, slope * x),)
+    if act == "elu":
+        return (torch.where(x > 0, x, slope * torch.expm1(x)),)
+    if act == "prelu":
+        g = inputs[1].reshape((1, -1) + (1,) * (x.dim() - 2))
+        return (torch.where(x > 0, x, g * x),)
+    if act == "rrelu":
+        lo = attr_float(attrs.get("lower_bound", 0.125), 0.125)
+        up = attr_float(attrs.get("upper_bound", 0.334), 0.334)
+        if op_ctx.is_train and op_ctx.rng is not None:
+            # one slope an element, uniform in [lo, up), from the node's
+            # stream (the JAX package draws them from its key, so the two
+            # packages' slopes differ)
+            s = torch.rand(x.shape, generator=op_ctx.rng, device=x.device,
+                           dtype=x.dtype) * (up - lo) + lo
+        else:
+            s = (lo + up) / 2.0
+        return (torch.where(x > 0, x, s * x),)
+    raise MXNetError("LeakyReLU: unknown act_type %r" % act)
+
+
+_LRELU = register_def(OpDef("LeakyReLU", _leaky, inputs=("data",),
+                            needs_rng=True, infer_shape=_leaky_infer))
+_LRELU.list_inputs = _leaky_inputs
+
+
+# ---------------------------------------------------------------------------
+# InstanceNorm (ref: instance_norm-inl.h): each sample's channel normalised
+# over its spatial dimensions, then scaled and shifted per channel
+# ---------------------------------------------------------------------------
+
+@register("InstanceNorm", inputs=("data", "gamma", "beta"), mesh_split=True,
+          mesh_unsplit=lambda attrs, ndims: [(0, d)
+                                             for d in range(2, ndims[0])])
+def _instance_norm(op_ctx, attrs, inputs, aux):
+    eps = attr_float(attrs.get("eps", 1e-3), 1e-3)
+    x, gamma, beta = inputs
+    red = tuple(range(2, x.dim()))
+    mean = x.mean(red, keepdim=True)
+    var = x.var(red, unbiased=False, keepdim=True)
+    bshape = (1, -1) + (1,) * (x.dim() - 2)
+    y = (x - mean) * torch.rsqrt(var + eps)
+    return (y * gamma.reshape(bshape) + beta.reshape(bshape),)
+
+
+# ---------------------------------------------------------------------------
+# Deconvolution (ref: deconvolution-inl.h): the transpose of Convolution,
+# weight (C_in, num_filter / num_group, *kernel) as the JAX package lays it
+# out, ``adj`` as the extra rows and columns on the high side
+# ---------------------------------------------------------------------------
+
+def _deconv_adj(attrs, nd):
+    return attr_tuple(attrs.get("adj", (0,) * nd), (0,) * nd)
+
+
+def _deconv_infer(attrs, in_shapes):
+    kernel, stride, dilate, pad, nf, ng, no_bias = _conv_attrs(attrs)
+    adj = _deconv_adj(attrs, len(kernel))
+    data = in_shapes[0]
+    if data is None:
+        raise MXNetError("Deconvolution: data shape required")
+    wshape = (data[1], nf // ng) + kernel
+    out_sp = tuple(
+        (data[2 + i] - 1) * stride[i] - 2 * pad[i]
+        + dilate[i] * (kernel[i] - 1) + 1 + adj[i]
+        for i in range(len(kernel)))
+    shapes = [tuple(data), wshape] + ([] if no_bias else [(nf,)])
+    return shapes, [(data[0], nf) + out_sp], []
+
+
+_DECONV_FNS = {1: F.conv_transpose1d, 2: F.conv_transpose2d,
+               3: F.conv_transpose3d}
+
+
+def _deconv(op_ctx, attrs, inputs, aux):
+    kernel, stride, dilate, pad, nf, ng, no_bias = _conv_attrs(attrs)
+    nd = len(kernel)
+    return (_DECONV_FNS[nd](inputs[0], inputs[1],
+                            None if no_bias else inputs[2], stride=stride,
+                            padding=pad, output_padding=_deconv_adj(attrs, nd),
+                            groups=ng, dilation=dilate),)
+
+
+# the weight's dimension 0 is the input channels, so it has no mesh_weight:
+# along a 'model' axis it runs on the gathered value
+_DECONV = register_def(OpDef("Deconvolution", _deconv,
+                             inputs=("data", "weight", "bias"),
+                             infer_shape=_deconv_infer))
+_DECONV.list_inputs = _conv_inputs
+
+
+# ---------------------------------------------------------------------------
+# Pad / UpSampling / Crop (ref: pad.cc, upsampling-inl.h, crop-inl.h)
+# ---------------------------------------------------------------------------
+
+def _pad_pairs(attrs, ndim):
+    pw = attr_tuple(attrs["pad_width"])
+    return [(pw[2 * i], pw[2 * i + 1]) for i in range(ndim)]
+
+
+def _pad_index(n, lo, hi, mode, device):
+    """Source index of each padded position along one dimension: numpy's
+    ``edge`` and ``reflect`` (the edge not repeated), made on the device."""
+    i = torch.arange(-lo, n + hi, device=device)
+    if mode == "edge":
+        return i.clamp(0, n - 1)
+    if max(lo, hi) >= n:
+        raise MXNetError("Pad: reflect padding %d needs a dimension longer "
+                         "than it, got %d" % (max(lo, hi), n))
+    period = 2 * (n - 1)
+    if not period:
+        return torch.zeros_like(i)
+    i = torch.remainder(i.abs(), period)
+    return torch.where(i >= n, period - i, i)
+
+
+def _pad_unsplit(attrs, ndims):
+    return [(0, d) for d, p in enumerate(_pad_pairs(attrs, ndims[0]))
+            if p != (0, 0)]
+
+
+@register("Pad", inputs=("data",), aliases=("pad",), mesh_split=True,
+          mesh_unsplit=_pad_unsplit)
+def _pad(op_ctx, attrs, inputs, aux):
+    mode = attr_str(attrs.get("mode", "constant"), "constant")
+    x = inputs[0]
+    pairs = _pad_pairs(attrs, x.dim())
+    if mode == "constant":
+        flat = [p for pair in reversed(pairs) for p in pair]
+        return (F.pad(x, flat, value=attr_float(
+            attrs.get("constant_value", 0.0), 0.0)),)
+    if mode not in ("edge", "reflect"):
+        raise MXNetError("Pad: unknown mode %r" % mode)
+    for d, (lo, hi) in enumerate(pairs):
+        if lo or hi:
+            x = x.index_select(d, _pad_index(x.shape[d], lo, hi, mode,
+                                             x.device))
+    return (x,)
+
+
+def _upsampling_unsplit(attrs, ndims):
+    # several inputs are concatenated along the channels
+    return [(i, 1) for i in range(len(ndims))] if len(ndims) > 1 else []
+
+
+@register("UpSampling", var_inputs_attr="num_args", mesh_split=True,
+          mesh_unsplit=_upsampling_unsplit)
+def _upsampling(op_ctx, attrs, inputs, aux):
+    scale = attr_int(attrs["scale"])
+    stype = attr_str(attrs.get("sample_type", "nearest"), "nearest")
+    if stype != "nearest":
+        raise MXNetError("UpSampling: sample_type %r not yet supported"
+                         % stype)
+    outs = []
+    target = None
+    for x in inputs:
+        y = x.repeat_interleave(scale, dim=2).repeat_interleave(scale, dim=3)
+        if target is None:
+            target = y.shape[2:]
+        outs.append(y[:, :, :target[0], :target[1]])
+    return (torch.cat(outs, dim=1) if len(outs) > 1 else outs[0],)
+
+
+def _crop_inputs(attrs):
+    return (["data", "crop_like"] if attr_int(attrs.get("num_args", 1), 1) == 2
+            else ["data"])
+
+
+def _crop(op_ctx, attrs, inputs, aux):
+    x = inputs[0]
+    if len(inputs) == 2:
+        th, tw = inputs[1].shape[2], inputs[1].shape[3]
+    else:
+        th, tw = attr_tuple(attrs["h_w"])[:2]
+    if attr_bool(attrs.get("center_crop", False), False):
+        oy = (x.shape[2] - th) // 2
+        ox = (x.shape[3] - tw) // 2
+    else:
+        oy, ox = attr_tuple(attrs.get("offset", (0, 0)), (0, 0))[:2]
+    return (x[:, :, oy:oy + th, ox:ox + tw],)
+
+
+_CROP = register_def(OpDef("Crop", _crop, inputs=("data",), mesh_split=True,
+                           mesh_unsplit=lambda attrs, ndims: [
+                               (i, d) for i in range(len(ndims))
+                               for d in (2, 3)]))
+_CROP.list_inputs = _crop_inputs
+
+
+# ---------------------------------------------------------------------------
+# Regression outputs and SVMOutput (ref: regression_output-inl.h,
+# svm_output-inl.h): loss heads whose backward ignores the incoming
+# gradient, as SoftmaxOutput's
+# ---------------------------------------------------------------------------
+
+def _regression_infer(attrs, in_shapes):
+    data, label = in_shapes
+    if data is None:
+        raise MXNetError("regression output: data shape required")
+    if label is not None and (int(np.prod(label, dtype=np.int64))
+                              != int(np.prod(data, dtype=np.int64))):
+        raise MXNetError("regression output: label %s does not fit data %s"
+                         % (tuple(label), tuple(data)))
+    return [tuple(data), tuple(data)], [tuple(data)], []
+
+
+class _Regression(torch.autograd.Function):
+    """Forward ``data`` (``sigmoid(data)`` for ``logistic``); backward
+    ``(out - label) * grad_scale`` (its sign for ``mae``)."""
+
+    @staticmethod
+    def forward(ctx, data, label, kind, grad_scale):
+        out = torch.sigmoid(data) if kind == "logistic" else data.view_as(data)
+        ctx.save_for_backward(out, label)
+        ctx.kind, ctx.grad_scale = kind, grad_scale
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        out, label = ctx.saved_tensors
+        diff = out - label.reshape(out.shape).to(out.dtype)
+        if ctx.kind == "mae":
+            diff = torch.sign(diff)
+        glabel = (torch.zeros_like(label) if ctx.needs_input_grad[1]
+                  else None)
+        return diff * ctx.grad_scale, glabel, None, None
+
+
+def _reg_op(kind):
+    def op(op_ctx, attrs, inputs, aux):
+        gs = attr_float(attrs.get("grad_scale", 1.0), 1.0)
+        return (_Regression.apply(inputs[0], inputs[1], kind, gs),)
+    return op
+
+
+for _name, _kind in (("LinearRegressionOutput", "linear"),
+                     ("LogisticRegressionOutput", "logistic"),
+                     ("MAERegressionOutput", "mae")):
+    register_def(OpDef(_name, _reg_op(_kind), inputs=("data", "label"),
+                       infer_shape=_regression_infer, mesh_split=True,
+                       loss_head=True))
+
+
+class _SVMOutput(torch.autograd.Function):
+    """Forward the scores; backward the hinge's gradient (L1: ``use_linear``,
+    else the squared hinge's), which ignores the incoming gradient."""
+
+    @staticmethod
+    def forward(ctx, data, label, margin, reg_coef, use_linear):
+        ctx.save_for_backward(data, label)
+        ctx.cfg = (margin, reg_coef, use_linear)
+        return data.view_as(data)
+
+    @staticmethod
+    def backward(ctx, g):
+        data, label = ctx.saved_tensors
+        margin, reg_coef, use_linear = ctx.cfg
+        lab = label.reshape(label.shape[0]).to(torch.int64)
+        oh = _onehot(lab, data.shape[1], 1, data.dtype)
+        correct = torch.gather(data, 1, lab.clamp(0, data.shape[1] - 1)[:, None])
+        m = margin - (correct - data)
+        if use_linear:
+            viol = (m > 0).to(data.dtype) * (1 - oh)
+            grad = reg_coef * (viol - oh * viol.sum(1, keepdim=True))
+        else:
+            viol = torch.clamp_min(m, 0) * (1 - oh)
+            grad = 2 * reg_coef * (viol - oh * viol.sum(1, keepdim=True))
+        glabel = (torch.zeros_like(label) if ctx.needs_input_grad[1]
+                  else None)
+        return grad, glabel, None, None, None
+
+
+@register("SVMOutput", inputs=("data", "label"),
+          infer_shape=_softmax_out_infer, mesh_split=True,
+          mesh_unsplit=lambda attrs, ndims: [(0, 1)], loss_head=True)
+def _svm_output(op_ctx, attrs, inputs, aux):
+    return (_SVMOutput.apply(
+        inputs[0], inputs[1], attr_float(attrs.get("margin", 1.0), 1.0),
+        attr_float(attrs.get("regularization_coefficient", 1.0), 1.0),
+        attr_bool(attrs.get("use_linear", False), False)),)
+
+
+@register("IdentityAttachKLSparseReg", inputs=("data",), mesh_split=True)
+def _id_kl_sparse(op_ctx, attrs, inputs, aux):
+    """The identity, forward and backward. The reference attaches a KL
+    sparseness penalty on the mean activation to the gradient; the JAX
+    package attaches none (``mxnet_tpu/ops/nn.py``), so neither does the
+    port."""
+    return (inputs[0],)

@@ -57,8 +57,12 @@ class OpDef(object):
     'seq' or 'pipe' axis (an Embedding's table); ``mesh_whole`` ops (tile)
     and ops drawing random numbers run on the whole value;
     ``mesh_reshape`` ops split an axis only where it is their outermost
-    dimension; and a ``loss_head``'s backward ignores its output's
-    cotangent."""
+    dimension; ``mesh_unsplit(attrs, ndims)`` lists the ``(input,
+    dimension)`` pairs an op reduces over, shifts along or indexes into
+    (InstanceNorm's spatial dimensions, Correlation's channels and
+    displacements, the feature map ROIPooling indexes by batch), which
+    must be whole along every axis, 'data' included; and a
+    ``loss_head``'s backward ignores its output's cotangent."""
 
     mesh_fn = None
     #: the mesh axes ``mesh_fn`` handles: the executor gathers an input
@@ -70,7 +74,8 @@ class OpDef(object):
                  infer_shape=None, infer_type=None, needs_rng=False,
                  var_inputs_attr=None, var_outputs=None, mesh_split=False,
                  mesh_axis=None, mesh_weight=None, mesh_whole_inputs=(),
-                 mesh_whole=False, mesh_reshape=False, loss_head=False):
+                 mesh_whole=False, mesh_reshape=False, mesh_unsplit=None,
+                 loss_head=False):
         self.name = name
         # fn(op_ctx, attrs, inputs, aux) -> outputs tuple, or
         # (outputs tuple, aux updates tuple) for ops with aux state
@@ -90,6 +95,7 @@ class OpDef(object):
         self.mesh_whole_inputs = tuple(mesh_whole_inputs)
         self.mesh_whole = mesh_whole
         self.mesh_reshape = mesh_reshape
+        self.mesh_unsplit = mesh_unsplit
         self.loss_head = loss_head
 
     # -- arity ----------------------------------------------------------

@@ -7,8 +7,12 @@
   (exact; a NaN gradient norm equals a NaN). The JAX package's one more key,
   ``retraces``, counts its retrace watch, which the port does not have.
 - The top-level names ``TrainingGuard``, ``TrainingHealth``,
-  ``TrainingDivergedError``, ``FeedForward`` and the modules ``image`` and
-  ``recordio`` resolve in both packages, each to its own package's object.
+  ``TrainingDivergedError``, ``FeedForward``, ``num_devices``, ``tpu``, the
+  modules ``image``, ``recordio``, ``viz`` and ``test_utils``, and
+  ``mod.BatchEndParam``, ``models.ssd_train``, ``context.default_context``
+  and ``base.string_types`` resolve in both packages, each to its own
+  package's object of the same kind; ``mt.tpu(i)`` places on the card as
+  ``mt.gpu(i)`` does.
 - ``MXNET_ENGINE_TYPE=NaiveEngine`` and ``engine.set_engine_type``: naive
   mode in both packages, each imperative op passes its result through
   ``engine.maybe_sync``, and the values equal the JAX package's (exact:
@@ -92,18 +96,46 @@ def test_training_health_view_matches_reference():
 
 @pytest.mark.parametrize("name", ["TrainingGuard", "TrainingHealth",
                                   "TrainingDivergedError", "FeedForward",
-                                  "AttrScope", "image", "recordio"])
+                                  "AttrScope", "image", "recordio",
+                                  "num_devices", "tpu", "viz", "test_utils",
+                                  "mod.BatchEndParam", "models.ssd_train",
+                                  "context.default_context",
+                                  "base.string_types"])
 def test_top_level_names_resolve_in_both(name):
     owner = {"TrainingGuard": "guard", "TrainingHealth": "guard",
              "TrainingDivergedError": "guard", "FeedForward": "model",
-             "AttrScope": "symbol"}
+             "AttrScope": "symbol", "num_devices": "context",
+             "tpu": "context"}
+    module_name = {"viz": "visualization"}
+    objs = []
     for pkg in (mx, mt):
-        obj = getattr(pkg, name)
+        obj = pkg
+        for part in name.split("."):
+            obj = getattr(obj, part)
+        objs.append(obj)
         if name in owner:
             assert obj is getattr(getattr(pkg, owner[name]), name)
             assert obj.__module__.startswith(pkg.__name__ + ".")
+        elif "." in name:
+            assert obj.__module__.startswith(pkg.__name__ + ".")
         else:
-            assert obj.__name__ == "%s.%s" % (pkg.__name__, name)
+            assert obj.__name__ == "%s.%s" % (pkg.__name__,
+                                              module_name.get(name, name))
+    # the same kind of object in both: a module, a class or a function
+    assert type(objs[0]) is type(objs[1]) or (
+        isinstance(objs[0], type) and isinstance(objs[1], type))
+    if name == "num_devices":
+        assert mt.num_devices() == mt.context.num_devices()
+    if name == "tpu":
+        # the JAX package's accelerator name is the card in the port
+        assert mt.tpu(0).to_device() == mt.gpu(0).to_device()
+        assert mt.Context("tpu", 2).to_device() == mt.gpu(2).to_device()
+        for pkg in (mx, mt):
+            assert pkg.Context.devtype2str[4] == "tpu"
+            assert pkg.Context("tpu", 1).device_typeid == 4
+            assert str(pkg.tpu(1)) == "tpu(1)"
+    if name == "base.string_types":
+        assert mt.base.string_types() == mx.base.string_types()
 
 
 def test_symbol_prefix_names_as_in_jax():
