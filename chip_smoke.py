@@ -357,14 +357,48 @@ non-zero):
    own line (accuracy above 0.95; ranking accuracy at least 0.95; holdout
    RMSE below 0.35 of the label spread).
 
+21. model-parallel serving, every position of a 2-position 'model' mesh
+   on cuda:0 (float32, TF32 off, cuDNN deterministic; run after phase 19
+   and before phase 20, so its one-step profiles come before phase 20's
+   captures). (a) The full-width SSD of phase 5 (3x300x300, buckets 1, 8,
+   32, weights from --seed) through ServingEngine(contexts=2): at every
+   bucket each output of a detections engine and of a heads engine
+   (cls_prob, loc_pred, anchors) against the single-device engine's on
+   the same rows, as the largest |difference| over the largest |value|
+   (the heads within MP_SSD_TOL; the detections, which sorting and greedy
+   NMS make move where scores nearly tie, printed with the share of the
+   single engine's kept detections found among the sharded engine's),
+   and the detections equal to MultiBoxDetection with the plain
+   NMS on the sharded heads, bit for bit; B2 once a dispatch on its smem
+   route; p50 by bucket in turns with the single engine; gathers a
+   dispatch; each position's parameter bytes against the whole set's.
+   (b) Sharded bf16 and int8 engines against sharded f32 engines of the
+   host-dequantized weights, bit for bit, with each int8 scale's shard
+   shapes following its payload's. (c) Phase 17's trained LM through
+   DecodeLoop(contexts=2): greedy and sampled streams of phase 17's 32
+   requests against the single-device loop's (the share of streams
+   exactly equal, and the teacher-forced agreement: each reference stream
+   fed to the sharded loop as its prompt, at least MP_LM_AGREE of its
+   tokens picked again); the prefix-cache and spec_k 2 legs token for
+   token with the sharded target-only loop; the cache shard shape,
+   tokens/s, ms a step and device launches a step (torch.profiler) beside
+   the single-device loop's. (d) A FleetRouter over one single-device and
+   one sharded SSD replica, each behind its own Batcher: phase 13's 300
+   open-loop requests of 1-8 images at 100/s across a drain of the
+   sharded replica and the join of another; every answer equal, bit for
+   bit, to one of the two engines' answers for its image at some bucket
+   and position, nothing shed, report() naming each replica's
+   model_devices, B2 once a dispatch.
+
 The line before the ops line is the card's name and power limit; then
 {"ops": [...], "examples": {...}} (phase 20's figures); then
 {"kernels": [...]} (per kernel: launches on
 its main path (phase 16's LSTM path and phase 17's LM path launch none;
 B1's include phase 18's mesh dispatches, bf16 and f32),
 max error against the plain version, times and bound; the
-NMS kernel's launches also by path: serving, training, the serving tier
-and training from JPEG records; the matmul_stats kernel's by path: the
+NMS kernel's launches also by path: serving, training, the serving tier,
+training from JPEG records and model-parallel serving (phase 21); the
+matmul_stats kernel's by path: the
 train phase and the training API); the last line is {"ok": true,
 "device": {...}}.
 """
@@ -5247,6 +5281,439 @@ def lm_phase(seed, card, profile):
     log("lm: %s" % json.dumps({"profile": profile, "decode": legs},
                               sort_keys=True))
     log("lm: the phase took %.1f s" % (time.perf_counter() - t_phase))
+    return params, draft
+
+
+# ---------------------------------------------------------------------------
+# model-parallel serving phase: ServingEngine and DecodeLoop over a 'model'
+# mesh whose positions share the card
+# ---------------------------------------------------------------------------
+
+#: phase 21: positions of the 'model' mesh, all on MP_DEVICE (the machine
+#: has one card)
+MP_POSITIONS = 2
+MP_DEVICE = "cuda:0"
+#: (a): each sharded SSD head (cls_prob, loc_pred, anchors) against the
+#: single-device engine's, largest |difference| over largest |value| (a
+#: position's convolution has half the output channels, so cuDNN may take
+#: other algorithms)
+MP_SSD_TOL = 1e-5
+#: (c): the least share of the single-device loop's tokens the sharded
+#: loop picks again, teacher-forced
+MP_LM_AGREE = 0.99
+#: (a): timed requests a bucket and engine, in turns
+MP_TIMED = 10
+MP_HEADS = ["cls_prob", "multibox_loc_pred", "multibox_anchors"]
+
+
+def _mp_rel(got, want):
+    """Largest |difference| over largest |value| of two host arrays."""
+    scale = max(float(np.abs(want).max()), 1e-30)
+    return float(np.abs(got.astype(np.float64) - want).max()) / scale
+
+
+def kept_matched(got, want, tol=1e-5):
+    """Kept detections (class id >= 0) of ``want`` that ``got`` has too,
+    in any row of the same image, with the same class and score and box
+    within ``tol``: (matched, kept in ``want``, kept in ``got``)."""
+    matched = 0
+    for g, w in zip(got, want):
+        g, w = g[g[:, 0] >= 0], w[w[:, 0] >= 0]
+        if len(g) and len(w):
+            close = ((g[None, :, 0] == w[:, None, 0])
+                     & (np.abs(g[None, :, 1:] - w[:, None, 1:]).max(-1)
+                        <= tol))
+            matched += int(close.any(axis=1).sum())
+    return (matched, int((want[..., 0] >= 0).sum()),
+            int((got[..., 0] >= 0).sum()))
+
+
+def _first_part(v):
+    return v.parts[0] if hasattr(v, "parts") else v
+
+
+def mp_dec_run(loop, prompts, seeds, gen, plen=0):
+    """One timed run of every request (no warm run): tokens/s, ms a step
+    and the streams."""
+    steps0 = loop.health.decode_steps
+    t0 = time.perf_counter()
+    outs = dec_streams(loop, prompts, seeds, gen, plen)
+    dt = time.perf_counter() - t0
+    steps = loop.health.decode_steps - steps0
+    ntok = sum(len(o) for o in outs)
+    return {"tokens_per_s": ntok / dt, "ms_per_step": 1e3 * dt / steps,
+            "steps": steps, "tokens": ntok}, outs
+
+
+def teacher_forced(loop, prompts, refs, seeds, gen):
+    """The share of ``refs``' tokens ``loop`` picks again when each
+    reference stream is fed to it as its prompt: every position's token
+    from the decode body, recorded as the loop teacher-forces it."""
+    picks = {}
+    step = loop._step_fn
+
+    def recording(state, params, tokens, pos, *a):
+        toks = step(state, params, tokens, pos, *a)
+        p, t = _first_part(pos).cpu().numpy(), toks.cpu().numpy()
+        for i, slot in enumerate(loop._slots):
+            if slot is not None:
+                picks[slot.fut.rid, int(p[i])] = int(t[i])
+        return toks
+    loop._step_fn = recording
+    futs = [loop.generate(p + r[:-1], 1, seed=s, **gen)
+            for p, r, s in zip(prompts, refs, seeds)]
+    for f in futs:
+        f.result(timeout=600.0)
+    loop._step_fn = step
+    same = sum(picks.get((f.rid, len(p) - 1 + j)) == tok
+               for f, p, r in zip(futs, prompts, refs)
+               for j, tok in enumerate(r))
+    return same / max(1, sum(len(r) for r in refs))
+
+
+def dec_step_launches(loop):
+    """Device launches of one decode step of ``loop`` (closed first) at 8
+    slots, a prompt's worth into the cache, by torch.profiler
+    (:func:`step_launches`); None where two profiles never agree."""
+    import torch
+    from mxnet_tpu_torch.ops.nn import matmul_precision
+    loop.close()
+    n = loop.slots
+    d = loop._dev({"tokens": np.arange(n) + 1, "pos": np.full(n, 20),
+                   "temp": np.zeros(n), "top_k": np.zeros(n),
+                   "top_p": np.ones(n), "fresh": np.arange(n) + 7,
+                   "reseed": np.ones(n, np.bool_)})
+
+    def one():
+        with torch.inference_mode(), matmul_precision(loop.device):
+            loop._step_fn(loop._state, loop._params, d["tokens"], d["pos"],
+                          d["temp"], d["top_k"], d["top_p"], d["fresh"],
+                          d["reseed"])
+    return step_launches(one)
+
+
+def mp_ssd(seed, card, files, pool, problems):
+    """(a) and (b). Returns (B2 launches of the main path, the sharded
+    and single engines)."""
+    import torch
+    import mxnet_tpu_torch as mt
+    from mxnet_tpu_torch.ops import contrib, multibox_nms as mnms
+    from mxnet_tpu_torch.parallel import mesh as pm
+    from mxnet_tpu_torch.serving import ServingEngine
+    from mxnet_tpu_torch.serving import quantize as tq
+
+    def engine(positions=None, params=files[1], **kw):
+        return ServingEngine(files[0], params, {"data": SSD_INPUT},
+                             buckets=BUCKETS, device=MP_DEVICE,
+                             contexts=positions, **kw)
+    single, sharded = engine(), engine(MP_POSITIONS)
+    heads1 = engine(output_names=MP_HEADS)
+    heads = engine(MP_POSITIONS, output_names=MP_HEADS)
+    net = mt.symbol.load(files[0])
+    attrs = contrib._mbd_attrs([n for n in _nodes(net)
+                                if n.name == "detection"][0].attrs)
+    xs = {b: {"data": pool[:b]} for b in BUCKETS}
+    # the main path: counts at 0 just before, read just after
+    torch.cuda.synchronize()
+    mnms.reset_launches()
+    pm.reset_counters()
+    d0 = sharded.health.batches
+    got = {b: sharded.infer(x)[0] for b, x in xs.items()}
+    torch.cuda.synchronize()
+    launches, routes = mnms.LAUNCHES, dict(mnms.LAUNCHES_BY_ROUTE)
+    disp = sharded.health.batches - d0
+    gathers = dict(pm.COUNTERS)
+    if launches != disp or routes != {"smem": disp, "l2": 0}:
+        problems.append("(a) multibox_nms ran %d times (by route %s) for %d "
+                        "sharded dispatches" % (launches, routes, disp))
+    errs, worst, moved = {}, 0.0, {}
+    for b, x in xs.items():
+        hs = heads.infer(x)
+        row = {name: _mp_rel(a, w)
+               for name, a, w in zip(MP_HEADS, hs, heads1.infer(x))}
+        worst = max([worst] + list(row.values()))
+        want = single.infer(x)[0]
+        row["detections"] = _mp_rel(got[b], want)
+        moved[b] = kept_matched(got[b], want)
+        errs[b] = row
+        cls_prob, loc, anc = (torch.from_numpy(h).to(MP_DEVICE) for h in hs)
+        with torch.inference_mode():
+            plain = contrib.multibox_detection(
+                cls_prob, loc, anc[:1], nms=mnms.nms_alive_reference,
+                **attrs).cpu().numpy()
+        if not np.array_equal(plain, got[b]):
+            problems.append("(a) bucket %d: the sharded detections differ "
+                            "from the plain NMS on the sharded heads" % b)
+    log("mp (a) sharded SSD (%d positions on %s) against the single-device "
+        "engine, largest |difference| over largest |value| by bucket and "
+        "output: %s (tolerance %g on the heads); the single engine's kept "
+        "detections found among the sharded engine's (same class, score and "
+        "box within 1e-5), of the kept rows of each, by bucket: %s "
+        "(MultiBoxDetection sorts the scores and suppresses greedily, so a "
+        "rounding of the heads moves near-tied rows: the detections are "
+        "held instead against MultiBoxDetection with the plain NMS on the "
+        "sharded heads, bit for bit at every bucket: %s) [%s]"
+        % (MP_POSITIONS, MP_DEVICE, json.dumps(errs, sort_keys=True),
+           MP_SSD_TOL, moved,
+           not any(p.startswith("(a) bucket") for p in problems), card))
+    if worst > MP_SSD_TOL:
+        problems.append("(a) sharded SSD heads %g off the single engine's "
+                        "(over %g)" % (worst, MP_SSD_TOL))
+    lat = {b: {"single": [], "sharded": []} for b in BUCKETS}
+    for b, x in xs.items():
+        single.infer(x)
+        sharded.infer(x)
+        for _ in range(MP_TIMED):
+            for name, eng in (("single", single), ("sharded", sharded)):
+                t = time.perf_counter()
+                eng.infer(x)
+                lat[b][name].append(time.perf_counter() - t)
+    p50 = {b: {k: _pct(v, 50) for k, v in row.items()}
+           for b, row in lat.items()}
+    per_pos = [sharded.weight_bytes(r) for r in range(MP_POSITIONS)]
+    log("mp (a) p50 ms by bucket, single against sharded, %d requests "
+        "each in turns (host clock, copies included): %s; B2 launches %d "
+        "for %d dispatches (%s); collectives %s, %.1f gathers a dispatch; "
+        "parameter bytes a position %s of the whole %d (single engine %d) "
+        "[%s]" % (MP_TIMED, json.dumps(p50, sort_keys=True), launches, disp,
+                  routes, gathers, gathers["all_gather"] / max(1, disp),
+                  per_pos, sharded.weight_bytes(), single.weight_bytes(),
+                  card))
+    arg = {k[4:]: v.data for k, v in
+           mt.nd.load(files[1], ctx=mt.cpu()).items()}
+    for mode in ("bf16", "int8"):
+        eng = engine(MP_POSITIONS, quantize=mode)
+        host = {k: tq.dequant_leaf(tq.quantize_array(v, mode))
+                for k, v in arg.items()}
+        deq = engine(MP_POSITIONS, params=host)
+        equal = [np.array_equal(eng.infer({"data": pool[:n]})[0],
+                                deq.infer({"data": pool[:n]})[0])
+                 for n in (1, 5, 8, 32)]
+        scales = {}
+        for name, leaf in eng._state[0].items():
+            if tq.is_quantized_leaf(leaf):
+                q = [tuple(p.shape) for p in leaf["q"].parts]
+                sc = [tuple(p.shape) for p in leaf["s"].parts]
+                scales[name] = (q, sc)
+                if [a[0] for a in q] != [a[0] for a in sc]:
+                    problems.append("(b) %s's scale shards %s do not follow "
+                                    "its payload's %s" % (name, sc, q))
+        first = sorted(scales)[:2]
+        log("mp (b) sharded %s: detections for 1, 5, 8, 32 images equal to "
+            "a sharded f32 engine of the host-dequantized weights: %s; "
+            "weight bytes %d, a position %s; %d int8 leaves, e.g. %s [%s]"
+            % (mode, equal, eng.weight_bytes(),
+               [eng.weight_bytes(r) for r in range(MP_POSITIONS)],
+               len(scales), {n: scales[n] for n in first}, card))
+        if not all(equal):
+            problems.append("(b) sharded %s detections differ from the "
+                            "host-dequantized f32 engine's" % mode)
+        del eng, deq
+    return launches, sharded, single, engine
+
+
+def mp_lm(seed, card, params, draft, problems):
+    """(c). Returns the legs' numbers."""
+    from mxnet_tpu_torch.parallel import mesh as pm
+    shared, prompts, seeds = _dec_requests(seed)
+    legs, out = {}, {}
+    for gen_name, gen in (("greedy", {}), ("sampled", DEC_SAMPLED)):
+        loop = lm_decode_loop(params)
+        legs["single " + gen_name], ref = mp_dec_run(loop, prompts, seeds,
+                                                     gen)
+        loop.close()
+        loop = lm_decode_loop(params, contexts=MP_POSITIONS)
+        pm.reset_counters()
+        legs["sharded " + gen_name], got = mp_dec_run(loop, prompts, seeds,
+                                                      gen)
+        legs["sharded " + gen_name]["gathers_per_step"] = (
+            pm.COUNTERS["all_gather"] / legs["sharded " + gen_name]["steps"])
+        agree = teacher_forced(loop, prompts, ref, seeds, gen)
+        shape = [tuple(p.shape) for p in loop._state["k"].parts]
+        loop.close()
+        exact = sum(a == b for a, b in zip(got, ref)) / len(ref)
+        legs["sharded " + gen_name].update(streams_equal=exact,
+                                           teacher_forced=agree)
+        out[gen_name] = got
+        log("mp (c) %s: %.4f of the %d streams equal to the single-device "
+            "loop's; teacher-forced, the sharded loop picks %.4f of its %d "
+            "tokens again (floor %g); K cache a position %s; %.2f gathers "
+            "a step" % (gen_name, exact, len(ref), agree,
+                        sum(len(r) for r in ref), MP_LM_AGREE, shape[0],
+                        legs["sharded " + gen_name]["gathers_per_step"]))
+        if agree < MP_LM_AGREE:
+            problems.append("(c) %s teacher-forced agreement %.4f under %g"
+                            % (gen_name, agree, MP_LM_AGREE))
+    loop = lm_decode_loop(params, contexts=MP_POSITIONS, prefix_cache=True)
+    legs["sharded prefix"], prefixed = mp_dec_run(
+        loop, prompts, seeds, DEC_SAMPLED, plen=len(shared))
+    h = loop.health.report()
+    legs["sharded prefix"].update(hits=h["prefix_hits"],
+                                  prefills=h["prefix_prefills"])
+    loop.close()
+    if prefixed != out["sampled"]:
+        problems.append("(c) sharded prefix streams differ from the sharded "
+                        "target-only loop's")
+    loop = lm_decode_loop(params, contexts=MP_POSITIONS, spec_k=DEC_SPEC_K,
+                          draft_params=draft, draft_num_layers=1)
+    legs["sharded spec_k%d" % DEC_SPEC_K], spec = mp_dec_run(
+        loop, prompts, seeds, DEC_SAMPLED)
+    h = loop.health.report()
+    legs["sharded spec_k%d" % DEC_SPEC_K].update(
+        accept_rate=h["spec_accepted"] / max(1, h["spec_drafted"]))
+    loop.close()
+    if spec != out["sampled"]:
+        problems.append("(c) sharded speculative streams differ from the "
+                        "sharded target-only loop's")
+    launches = {"single": dec_step_launches(lm_decode_loop(params)),
+                "sharded": dec_step_launches(lm_decode_loop(
+                    params, contexts=MP_POSITIONS))}
+    log("mp (c) prefix and spec_k %d legs token for token with the sharded "
+        "target-only loop: %s; device launches a decode step, single "
+        "against sharded (torch.profiler): %s"
+        % (DEC_SPEC_K, not any(p.startswith("(c) sharded") for p in
+                                problems), launches))
+    for name, leg in legs.items():
+        log("mp (c) %-16s %8.1f tokens/s, %.3f ms a decode step (%d steps, "
+            "%d tokens) [%s]" % (name, leg["tokens_per_s"],
+                                  leg["ms_per_step"], leg["steps"],
+                                  leg["tokens"], card))
+    legs["launches_per_step"] = launches
+    return legs
+
+
+def mp_fleet(card, engine, single, sharded, pool, rng, problems):
+    """(d). Returns B2's launches in the fleet run."""
+    import torch
+    from mxnet_tpu_torch.ops import multibox_nms as mnms
+    from mxnet_tpu_torch.serving import Batcher, FleetRouter
+    refs = {"single": tier_refs(single, pool)[0],
+            "sharded": tier_refs(sharded, pool)[0]}
+    sizes = rng.integers(1, 9, FLEET_REQUESTS)
+    starts = [int(rng.integers(0, TIER_POOL - n + 1)) for n in sizes]
+    classes = ["batch" if i % 3 == 2 else "interactive"
+               for i in range(FLEET_REQUESTS)]
+    freqs = [{"data": pool[s:s + n]} for s, n in zip(starts, sizes)]
+    findex = {id(r): i for i, r in enumerate(freqs)}
+    engines = [single, sharded]
+    router = FleetRouter({"r0": Batcher(single), "r1": Batcher(sharded)})
+    answers, done = {}, [0]
+    progress = threading.Condition(threading.Lock())
+
+    def serve(req):
+        i = findex[id(req)]
+        out = router.infer(req, priority=classes[i])[0]
+        with progress:
+            answers[i] = out
+            done[0] += 1
+            progress.notify_all()
+
+    def join_factory():
+        eng = engine(MP_POSITIONS)
+        engines.append(eng)
+        return Batcher(eng)
+    events = []
+
+    def control():
+        for at, what in ((FLEET_REQUESTS // 3, "drain r1"),
+                         (2 * FLEET_REQUESTS // 3, "join r2")):
+            with progress:
+                progress.wait_for(lambda: done[0] >= at, timeout=60.0)
+            t = time.perf_counter()
+            if what == "drain r1":
+                router.drain("r1", timeout=60.0)
+            else:
+                router.join("r2", join_factory)
+            events.append("%s after %d answers (%.3f s)"
+                          % (what, done[0], time.perf_counter() - t))
+    from mxnet_tpu_torch.autotune.harness import open_loop_run
+    torch.cuda.synchronize()
+    before = [e.health.batches for e in engines]
+    mnms.reset_launches()
+    ctl = threading.Thread(target=control)
+    ctl.start()
+    lat, errs, wall = open_loop_run(serve, lambda i: freqs[i], FLEET_QPS,
+                                    FLEET_REQUESTS, nclients=TIER_CLIENTS)
+    ctl.join(120.0)
+    torch.cuda.synchronize()
+    launches, routes = mnms.LAUNCHES, dict(mnms.LAUNCHES_BY_ROUTE)
+    disp = sum(e.health.batches - b for e, b in zip(engines, before + [0]))
+    expect = disp + len(BUCKETS)     # the joined engine's warm-up
+    rep = router.report()
+    router.close()
+    devices = {n: r["model_devices"] for n, r in rep["replicas"].items()}
+    by = {"single": 0, "sharded": 0, "both": 0}
+    wrong = []
+    for i, a in answers.items():
+        rows = range(starts[i], starts[i] + sizes[i])
+        hit = [all(a[k].tobytes() in refs[w][j] for k, j in enumerate(rows))
+               for w in ("single", "sharded")]
+        if all(hit):
+            by["both"] += 1
+        elif hit[0]:
+            by["single"] += 1
+        elif hit[1]:
+            by["sharded"] += 1
+        else:
+            wrong.append(i)
+    log("mp (d) fleet of a single-device (r0) and a sharded (r1) SSD "
+        "replica, %d requests of 1-8 images at %.0f/s: %s; %d completed, "
+        "%d failed, shed %d, errors %d, expired %d; answers equal to the "
+        "single engine's only %d, the sharded engine's only %d, both %d, "
+        "neither %d; p50 %.3f ms, p99 %.3f ms; model_devices by replica %s; "
+        "multibox_nms launches %d (by route %s) for %d dispatches and %d "
+        "warm-up launches of the joined engine [%s]"
+        % (FLEET_REQUESTS, FLEET_QPS, events, len(lat), len(errs),
+           rep["fleet"]["shed"], rep["fleet"]["errors"],
+           rep["fleet"]["expired"], by["single"], by["sharded"], by["both"],
+           len(wrong), _pct(lat, 50), _pct(lat, 99), devices, launches,
+           routes, disp, len(BUCKETS), card))
+    if (len(lat) != FLEET_REQUESTS or errs or wrong or len(events) != 2
+            or rep["fleet"]["shed"] or rep["fleet"]["errors"]
+            or rep["fleet"]["expired"]):
+        problems.append("(d) fleet: %d of %d completed, errors %s, answers "
+                        "of neither engine %s, events %s"
+                        % (len(lat), FLEET_REQUESTS, errs[:3], wrong[:5],
+                           events))
+    if devices != {"r0": 1, "r1": MP_POSITIONS, "r2": MP_POSITIONS}:
+        problems.append("(d) report()'s model_devices %s" % devices)
+    if launches != expect or routes != {"smem": expect, "l2": 0}:
+        problems.append("(d) multibox_nms ran %d times (by route %s) for %d "
+                        "expected" % (launches, routes, expect))
+    return launches
+
+
+def mp_phase(seed, card, lm):
+    """Phase 21 (see the module docstring). ``lm``: phase 17's trained LM
+    weights and its one-layer draft. Returns B2's launches on the
+    model-parallel path ((a)'s dispatches and (d)'s fleet run)."""
+    problems = []
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(seed + 21)
+    pool = rng.random((TIER_POOL,) + SSD_INPUT, dtype=np.float32)
+    with no_tf32(), deterministic_cudnn(), \
+            tempfile.TemporaryDirectory() as tmp:
+        prefix = os.path.join(tmp, "ssd")
+        ssd_checkpoint(prefix, seed)
+        files = (prefix + "-symbol.json", prefix + "-0000.params")
+        t = time.perf_counter()
+        launches, sharded, single, engine = mp_ssd(seed, card, files, pool,
+                                                   problems)
+        t_ssd = time.perf_counter() - t
+        t = time.perf_counter()
+        legs = mp_lm(seed, card, lm[0], lm[1], problems)
+        t_lm = time.perf_counter() - t
+        t = time.perf_counter()
+        launches += mp_fleet(card, engine, single, sharded, pool, rng,
+                             problems)
+        t_fleet = time.perf_counter() - t
+    log("mp: %s" % json.dumps({"decode": legs}, sort_keys=True))
+    log("mp: the phase took %.1f s ((a)+(b) %.1f, (c) %.1f, (d) %.1f)"
+        % (time.perf_counter() - t_phase, t_ssd, t_lm, t_fleet))
+    if problems:
+        raise SystemExit("model-parallel phase failed: "
+                         + "; ".join(problems))
+    return launches
 
 
 # ---------------------------------------------------------------------------
@@ -6746,9 +7213,10 @@ def main():
     api_launches = training_api_phase(args.seed, card, step_profiles)
     data = data_phase(args.seed, card)
     rnn_phase(args.seed, card)
-    lm_phase(args.seed, card, lm_prof)
+    lm_trained = lm_phase(args.seed, card, lm_prof)
     mesh_launches = mesh_phase(args.seed, card)
     axes_phase(args.seed, card)
+    mp_launches = mp_phase(args.seed, card, lm_trained)
     op_rows, examples = slice_phase(args.seed, args.reps, card)
     # B1 runs on three main paths: the train phase, the training API and
     # the bf16 mesh; its float32 route on the module phase and the f32 mesh
@@ -6759,14 +7227,16 @@ def main():
     b1_f32.update(launches=b1_f32["launches"] + mesh_launches["tf32x3"],
                   launches_module=b1_f32["launches"],
                   launches_mesh=mesh_launches["tf32x3"])
-    # B2 runs on four main paths: serving (phase 5), training (phase 12),
-    # the serving tier (phase 13) and training from JPEG records (phase 15)
+    # B2 runs on five main paths: serving (phase 5), training (phase 12),
+    # the serving tier (phase 13), training from JPEG records (phase 15)
+    # and model-parallel serving (phase 21)
     nms.update(launches=(serve_launches + ssd_train["launches"]
-                         + tier_launches + data["launches"]),
+                         + tier_launches + data["launches"] + mp_launches),
                launches_serve=serve_launches,
                launches_train=ssd_train["launches"],
                launches_serving_tier=tier_launches,
                launches_data=data["launches"],
+               launches_model_parallel=mp_launches,
                train_ms=ssd_train["in_step_ms"],
                train_ms_source="profiler")
     b3 = []

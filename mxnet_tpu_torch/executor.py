@@ -10,9 +10,16 @@ position's shard in lock step: over a 'data' mesh each replica's shard of
 the batch, over a mesh with a 'model', 'seq' or 'pipe' axis each value by
 its partition spec (``spec_plan``). Placement (``ctx_group`` and
 ``group2ctx``, ``parallel.placement``) shards the grouped parameters over
-the mesh and re-lays the grouped nodes' outputs. The serving tier's
-sharding hook (``node_constraint``) and ``shared_exec`` across devices are
-not ported (ROADMAP.md A.7c); the arguments that select them raise.
+the mesh and re-lays the grouped nodes' outputs. ``node_constraint`` is
+the serving tier's hook over every node's outputs: a model-parallel
+``ServingEngine`` re-lays each output replicated, so every
+``FullyConnected`` and ``Convolution`` computes its output slice per
+position from its weight's shard (split along its output dimension) over
+the whole contraction, and the slice is gathered. Outside training, an op
+whose inputs are all replicated runs once a device, its output shared by
+the positions there. ``simple_bind(shared_exec=)`` shares arrays with an
+executor whose context names the same torch device (``cpu(1)`` and
+``cpu(0)`` are the one host device); across torch devices it raises.
 
 The Conv1x1->BatchNorm fusion pass is the JAX package's, under the same
 knob: ``MXTPU_FUSE_CONV_BN`` ``"0"`` (the default) leaves the graph as it
@@ -329,11 +336,15 @@ def _build_graph_runner(symbol, placement=None, node_constraint=None,
     statistics reach BatchNorm's ``mesh_fn`` per position; a pair whose
     weight or data splits along another axis runs unfused, and so does
     every pair under placement, as in the JAX package: the kernel never
-    runs on a weight's shard."""
-    if node_constraint is not None:
-        raise MXNetError("_build_graph_runner: node_constraint (the "
-                         "serving tier's sharding hook) is not ported yet "
-                         "(ROADMAP.md A.7c)")
+    runs on a weight's shard.
+
+    ``node_constraint`` (``(node, outs) -> outs``) runs after every op
+    node, on its outputs (tensors, or MeshArrays over a mesh), before
+    placement re-lays them. Over a mesh and outside training, an op whose
+    inputs are all replicated runs once on each distinct device, and the
+    positions on that device share its outputs; a ``mesh_fn`` op gives way
+    to the plan there when no input splits along an axis it handles (its
+    work across positions is training's)."""
     if remat not in REMAT_MODES:
         raise MXNetError("remat must be one of %s, got %r"
                          % (REMAT_MODES, remat))
@@ -430,7 +441,8 @@ def _build_graph_runner(symbol, placement=None, node_constraint=None,
                    for r in range(len(replica_devs))]
             stats_env[id(node)] = [st for _, st in res]
             result = [MeshArray(mesh, [y for y, _ in res], spec=x.spec)], None
-        elif node.op.mesh_fn is not None:
+        elif node.op.mesh_fn is not None and (is_train or any(
+                a in node.op.mesh_axes for v in ins for a in v.spec)):
             # where it gives way, the plan takes the inputs it gathered
             fused = (stats_env.get(bn_stats_src.get(id(node)))
                      if use_fusion else None)
@@ -448,8 +460,17 @@ def _build_graph_runner(symbol, placement=None, node_constraint=None,
                 for a in axes:
                     v = _mesh.gather_axis(v, a)
                 cols.append(v)
-            per, aux_per = [], []
+            # outside training, an op of replicated inputs runs once a
+            # device: the positions there share its outputs
+            once = not is_train and not any(a is not None for c in cols
+                                            for a in c.spec)
+            per, aux_per, first = [], [], {}
             for r in range(len(replica_devs)):
+                if once and replica_devs[r] in first:
+                    per.append(per[first[replica_devs[r]]])
+                    aux_per.append(aux_per[first[replica_devs[r]]])
+                    continue
+                first[replica_devs[r]] = r
                 gen = None
                 if node.op.needs_rng and rng is not None:
                     gen = node_generator(rng, k, replica_devs[r])
@@ -468,6 +489,8 @@ def _build_graph_runner(symbol, placement=None, node_constraint=None,
             aux_up = (None if aux_per[0] is None else
                       [MeshArray(mesh, [a[j] for a in aux_per], None)
                        for j in range(len(aux_per[0]))])
+        if node_constraint is not None:
+            outs = node_constraint(node, outs)
         g = node_groups.get(id(node))
         if node.op.loss_head:
             # a loss head's backward ignores its output's cotangent: only
@@ -517,6 +540,8 @@ def _build_graph_runner(symbol, placement=None, node_constraint=None,
             op_ctx = OpContext(is_train=is_train, rng=gen,
                                fused_stats=fused_stats, device=device)
             outs, aux_up = node.op.apply(op_ctx, node.attrs, ins, aux_in)
+        if node_constraint is not None:
+            outs = node_constraint(node, outs)
         for i, o in enumerate(outs):
             env[(id(node), i)] = o
         if monitor is not None:
@@ -1059,18 +1084,24 @@ def simple_bind(symbol, ctx, grad_req="write", type_dict=None, group2ctx=None,
     """Allocate every array (zeros) on ``ctx`` from the shapes and dtypes
     inferred from ``kwargs`` and ``type_dict``, then bind (ref:
     python/mxnet/symbol.py simple_bind). With ``shared_exec``, arrays of
-    the same name, shape and dtype are that executor's. ``mesh``,
-    ``batch_names`` and ``batch_axes``: see :class:`Executor`."""
+    the same name, shape and dtype are that executor's, wherever its
+    context names the same torch device as ``ctx`` (as the JAX package
+    shares them whatever the two contexts are); across torch devices one
+    tensor cannot serve both, and it raises. ``mesh``, ``batch_names`` and
+    ``batch_axes``: see :class:`Executor`."""
     from .parallel import placement as _placement
     gp = _placement.resolve(group2ctx, mesh)
     if gp is not None and not batch_names:
         # the inputs whose shapes are given stay unsharded
         batch_names = list(kwargs)
     ctx = ctx if isinstance(ctx, Context) else Context(ctx)
-    if shared_exec is not None and shared_exec._ctx != ctx:
-        raise MXNetError("simple_bind: shared_exec on %s cannot share "
-                         "arrays with an executor on %s (not ported)"
-                         % (shared_exec._ctx, ctx))
+    if (shared_exec is not None
+            and shared_exec._device != ctx.to_device()):
+        raise MXNetError(
+            "simple_bind: shared_exec's arrays live on %s (%s) and cannot "
+            "be shared with an executor on %s (%s): one tensor lives on one "
+            "torch device" % (shared_exec._device, shared_exec._ctx,
+                              ctx.to_device(), ctx))
     device = resolve_device(ctx, "simple_bind")
     arg_shapes, _, aux_shapes = symbol.infer_shape(**kwargs)
     arg_names = symbol.list_arguments()

@@ -29,7 +29,7 @@ import numpy as np
 
 from ..base import MXNetError
 from ..context import Context
-from .mesh import NamedSharding, P
+from .mesh import AXIS_MODEL, NamedSharding, P
 
 
 def _axis_size(mesh, names):
@@ -76,6 +76,15 @@ def auto_spec(axis, shape, mesh, prefer_first=False):
     dimension, the output dimension of an (out, in) weight, so contraction
     dimensions never split). None when no dimension divides."""
     return _auto_spec(axis, shape, mesh, prefer_first=prefer_first)
+
+
+def model_spec(shape, mesh):
+    """The serving tier's layout of a parameter over a 'model' mesh: the
+    parameter rule of :func:`auto_spec` (the output dimension of an
+    ``(out, in)`` weight), replicated (``P()``) where no dimension
+    divides."""
+    return auto_spec(AXIS_MODEL, tuple(shape), mesh, prefer_first=True) \
+        or P()
 
 
 def _spec_axes(rule):

@@ -59,9 +59,28 @@ Fault sites: ``serve.decode_die`` at the top of every loop iteration,
 the loop thread, which sheds every sequence in flight and queued with
 :class:`ServingClosedError`.
 
-Not ported: ``contexts=`` with more than one device (a model-parallel
-loop, ROADMAP.md A.7c) and the static audits ``memory_report``,
-``comms_report`` and ``check`` (ROADMAP.md A.12); they raise.
+``contexts=`` makes a model-parallel loop over a 'model' mesh of positions,
+resolved as ``ServingEngine`` resolves it (an int N puts N positions on
+``device``, a list one on each entry's torch device; positions may share
+one). ``num_heads`` (and ``draft_num_heads``) must divide over the
+positions. Each parameter leaf is laid out by the placement rule
+(``quantize.place_leaf``: the first dimension the positions divide, an int8
+scale along its payload's split); the KV caches split over heads, so each
+position holds ``(layers, slots, heads / N, max_len + 1, head_dim)`` of K
+and of V; the seeds are replicated, one copy a device. The token pass keeps
+the residual stream replicated: each matrix product computes its output
+slice per position from its weight's shard over the whole contraction,
+and the slices are gathered; the qkv product's output is gathered whole,
+each position takes its heads of Q, K and V, attends over its cache shard,
+and the heads' outputs are gathered before ``attn_out``. No reduction
+spans positions. Embedding rows are taken from the position holding them.
+Layer norms, sampling and the other elementwise work of replicated values
+run once a device. Prefix slabs are ``(layers, heads, rows, head_dim)``
+split over heads, taken out and put back per position, and the
+speculative verify body and the draft run sharded the same way.
+
+Not ported: the static audits ``memory_report``, ``comms_report`` and
+``check`` (ROADMAP.md A.12); they raise.
 """
 from __future__ import annotations
 
@@ -75,17 +94,17 @@ import numpy as np
 import torch
 
 from ..base import MXNetError, env_int, env_str
-from ..context import resolve_device
 from ..obs import trace as _obs
 from ..ops.attention import layer_norm
 from ..ops.nn import matmul_precision
+from ..parallel import mesh as _mesh
 from ..tracecheck import unique_name
 from .batcher import REQUEST_IDS, ServingClosedError, Settleable
-from .engine import _not_ported
+from .engine import _model_mesh, _not_ported, _sync
 from .health import ServingHealth, SERVING_HEALTH
 from .quantize import (_as_tensor, dequant_tree, is_quantized_leaf,
-                       quantize_array, quantize_tree, resolve_mode,
-                       tree_bytes)
+                       place_leaf, quantize_array, quantize_tree,
+                       resolve_mode, tree_bytes)
 from .sampling import position_uniforms, sample_rows, validate_sampling
 
 
@@ -148,10 +167,161 @@ def _build_token_pass(num_layers, num_heads):
     return token_pass
 
 
-def _build_decode_fn(num_layers, num_heads):
+class _Positions(object):
+    """The positions of a 'model' mesh as the sharded bodies use them. A
+    value is a :class:`~mxnet_tpu_torch.parallel.mesh.MeshArray`:
+    replicated (one tensor a device, shared by the positions there) or
+    split along 'model'. :meth:`rep` runs a function of replicated values
+    once a device; :meth:`linear` and :meth:`rows` are the sharded
+    weight's products and lookups."""
+
+    def __init__(self, mesh):
+        self.mesh = mesh
+        self.devs = mesh.replica_devices()
+
+    def index(self, r):
+        """Position ``r``'s index along 'model'."""
+        return self.mesh.coords(r)[_mesh.AXIS_MODEL]
+
+    def rep(self, fn, *vals):
+        """``fn`` of replicated values (MeshArrays, or constants passed as
+        they are) once on each device: a replicated MeshArray."""
+        done, parts = {}, []
+        for r, d in enumerate(self.devs):
+            if d not in done:
+                done[d] = fn(*[v.parts[r] if isinstance(v, _mesh.MeshArray)
+                               else v for v in vals])
+            parts.append(done[d])
+        return _mesh.MeshArray(self.mesh, parts)
+
+    def whole(self, v):
+        """``v`` gathered whole on every position (counted)."""
+        return _mesh.reshard(v, ())
+
+    def linear(self, x, w, b):
+        """``x @ w.T + b`` for replicated ``x``: with ``w`` split along its
+        output dimension each position computes its slice over the whole
+        contraction and the slices are gathered; otherwise ``w`` is
+        gathered whole and the product runs once a device."""
+        if w.spec[0] != _mesh.AXIS_MODEL or b.spec[0] != _mesh.AXIS_MODEL:
+            return self.rep(lambda x_, w_, b_: x_ @ w_.t() + b_, x,
+                            self.whole(w), self.whole(b))
+        parts = [x.parts[r] @ w.parts[r].t() + b.parts[r]
+                 for r in range(len(self.devs))]
+        return self.whole(_mesh.MeshArray(self.mesh, parts,
+                                          spec=(None, _mesh.AXIS_MODEL)))
+
+    def rows(self, table, idx):
+        """``table[idx]`` for replicated indices: where the table splits
+        along its rows, each index takes its row from the position holding
+        it (a select, no arithmetic; counted as one gather)."""
+        if table.spec[0] != _mesh.AXIS_MODEL:
+            return self.rep(lambda t, i: t[i], self.whole(table), idx)
+        _mesh._count("all_gather")
+        n = table.parts[0].shape[0]
+        done, parts = {}, []
+        for r, d in enumerate(self.devs):
+            if d not in done:
+                i = idx.parts[r]
+                out = None
+                for q, dq in enumerate(self.devs):
+                    lo = self.index(q) * n
+                    got = table.parts[q][torch.clamp(i.to(dq) - lo, 0, n - 1)]
+                    got = got.to(d)
+                    out = got if out is None else torch.where(
+                        ((i >= lo) & (i < lo + n))[:, None], got, out)
+                done[d] = out
+            parts.append(done[d])
+        return _mesh.MeshArray(self.mesh, parts)
+
+
+def _build_sharded_token_pass(num_layers, num_heads, mesh):
+    """The token pass of :func:`_build_token_pass` over a 'model' mesh
+    (see the module's note), op for op the same on each value: ``ck`` and
+    ``cv`` are MeshArrays split over heads, ``params`` MeshArrays laid out
+    by the placement rule, ``tokens`` and ``pos`` replicated; returns the
+    replicated logits."""
+    ps = _Positions(mesh)
+    hn = num_heads // len(ps.devs)
+
+    def token_pass(ck, cv, params, tokens, pos):
+        nslots = tokens.parts[0].shape[0]
+        rows = ck.parts[0].shape[3]
+        wpos = ps.rep(lambda p: torch.clamp_max(p, rows - 1), pos)
+        pos_table = params["pos_embed_weight"]
+        x = ps.rep(torch.add, ps.rows(params["tok_embed_weight"], tokens),
+                   ps.rows(pos_table, ps.rep(
+                       lambda w: torch.clamp_max(w, pos_table.shape[0] - 1),
+                       wpos)))
+        embed = x.parts[0].shape[1]
+        d = embed // num_heads
+        scale = 1.0 / float(np.sqrt(d))
+        sidx = ps.rep(lambda t: torch.arange(nslots, device=t.device), x)
+        tmask = ps.rep(lambda p: torch.arange(rows, device=p.device)[
+            None, None, :] <= p[:, None, None], pos)
+        neg = ps.rep(lambda t: torch.tensor(-1e30, dtype=torch.float32,
+                                            device=t.device), x)
+
+        def norm(v, pre):
+            return ps.rep(layer_norm, v, ps.whole(params[pre + "_gamma"]),
+                          ps.whole(params[pre + "_beta"]))
+
+        for i in range(num_layers):
+            pre = "layer%d" % i
+            a = norm(x, pre + "_ln1")
+            qkv = ps.linear(a, params[pre + "_attn_qkv_weight"],
+                            params[pre + "_attn_qkv_bias"])
+            heads = []
+            for r in range(len(ps.devs)):
+                hs = slice(ps.index(r) * hn, (ps.index(r) + 1) * hn)
+                q5 = qkv.parts[r].reshape(nslots, 3, num_heads, d)
+                q, k, v = q5[:, 0, hs], q5[:, 1, hs], q5[:, 2, hs]
+                ck.parts[r][i][sidx.parts[r], :, wpos.parts[r], :] = k
+                cv.parts[r][i][sidx.parts[r], :, wpos.parts[r], :] = v
+                s_ = torch.einsum("shd,shtd->sht", q, ck.parts[r][i]) * scale
+                s_ = torch.where(tmask.parts[r], s_, neg.parts[r])
+                w = torch.softmax(s_, dim=-1)
+                heads.append(torch.einsum("sht,shtd->shd", w,
+                                          cv.parts[r][i]))
+            o = ps.whole(_mesh.MeshArray(mesh, heads,
+                                         spec=(None, _mesh.AXIS_MODEL)))
+            o = ps.linear(ps.rep(lambda t: t.reshape(nslots, embed), o),
+                          params[pre + "_attn_out_weight"],
+                          params[pre + "_attn_out_bias"])
+            x = ps.rep(torch.add, x, o)
+            f = norm(x, pre + "_ln2")
+            f = ps.rep(lambda t: torch.clamp_min(t, 0.0), ps.linear(
+                f, params[pre + "_ffn_fc1_weight"],
+                params[pre + "_ffn_fc1_bias"]))
+            f = ps.linear(f, params[pre + "_ffn_fc2_weight"],
+                          params[pre + "_ffn_fc2_bias"])
+            x = ps.rep(torch.add, x, f)
+        x = norm(x, "final_ln")
+        return ps.linear(x, params["lm_head_weight"], params["lm_head_bias"])
+
+    return ps, token_pass
+
+
+def _build_decode_fn(num_layers, num_heads, mesh=None):
     """The single-token decode body: one position a slot, sampled on the
     device. Updates ``state`` in place and returns the ``(slots,)`` int32
-    next tokens."""
+    next tokens (position 0's, over a mesh, where the arguments are
+    replicated MeshArrays)."""
+    if mesh is not None:
+        ps, token_pass = _build_sharded_token_pass(num_layers, num_heads,
+                                                   mesh)
+
+        def sharded_decode_fn(state, params, tokens, pos, temp, top_k,
+                              top_p, fresh_seed, reseed):
+            seeds = ps.rep(torch.where, reseed, fresh_seed, state["seed"])
+            ps.rep(lambda cur, new: cur.copy_(new), state["seed"], seeds)
+            logits = token_pass(state["k"], state["v"],
+                                dequant_tree(params), tokens, pos)
+            u = ps.rep(position_uniforms, seeds, pos)
+            return ps.rep(sample_rows, logits, u, temp, top_k,
+                          top_p).parts[0]
+
+        return sharded_decode_fn
     token_pass = _build_token_pass(num_layers, num_heads)
 
     def decode_fn(state, params, tokens, pos, temp, top_k, top_p,
@@ -166,12 +336,32 @@ def _build_decode_fn(num_layers, num_heads):
     return decode_fn
 
 
-def _build_verify_fn(num_layers, num_heads, window):
+def _build_verify_fn(num_layers, num_heads, window, mesh=None):
     """The speculative verify body: ``window`` positions a slot through
     the same per-position pass as the single-token body, one after the
     other (position j attends the rows the positions before it wrote),
     each sampled with its own (seed, position) uniform. Returns the
     ``(slots, window)`` samples."""
+    if mesh is not None:
+        ps, token_pass = _build_sharded_token_pass(num_layers, num_heads,
+                                                   mesh)
+
+        def sharded_verify_fn(state, params, tokens_w, pos0, temp, top_k,
+                              top_p, fresh_seed, reseed):
+            seeds = ps.rep(torch.where, reseed, fresh_seed, state["seed"])
+            ps.rep(lambda cur, new: cur.copy_(new), state["seed"], seeds)
+            p = dequant_tree(params)
+            outs = []
+            for j in range(window):
+                pos_j = ps.rep(lambda t, j=j: t + j, pos0)
+                logits = token_pass(state["k"], state["v"], p, ps.rep(
+                    lambda t, j=j: t[:, j], tokens_w), pos_j)
+                u = ps.rep(position_uniforms, seeds, pos_j)
+                outs.append(ps.rep(sample_rows, logits, u, temp, top_k,
+                                   top_p).parts[0])
+            return torch.stack(outs, dim=1)
+
+        return sharded_verify_fn
     token_pass = _build_token_pass(num_layers, num_heads)
 
     def verify_fn(state, params, tokens_w, pos0, temp, top_k, top_p,
@@ -194,8 +384,13 @@ def _build_verify_fn(num_layers, num_heads, window):
 def _build_extract_fn():
     """Prefix harvest: a copy of one slot's full KV slab (the rows past
     the prefix ride along; every consumer rewrites them before a query
-    can attend them)."""
+    can attend them). Over a mesh each position copies its heads: the
+    slab is ``(layers, heads, rows, head_dim)`` split over heads."""
     def extract_fn(state, slot):
+        if isinstance(state["k"], _mesh.MeshArray):
+            return {n: _mesh.MeshArray(
+                state[n].mesh, [p[:, slot].clone() for p in state[n].parts],
+                spec=(None, _mesh.AXIS_MODEL)) for n in ("k", "v")}
         return {"k": state["k"][:, slot].clone(),
                 "v": state["v"][:, slot].clone()}
 
@@ -203,9 +398,14 @@ def _build_extract_fn():
 
 
 def _build_implant_fn():
-    """Prefix reuse: copy a cached KV slab into one slot, in place; the
-    seeds stay as they are."""
+    """Prefix reuse: copy a cached KV slab into one slot, in place (each
+    position its heads, over a mesh); the seeds stay as they are."""
     def implant_fn(state, slot, pk, pv):
+        if isinstance(state["k"], _mesh.MeshArray):
+            for n, slab in (("k", pk), ("v", pv)):
+                for p, src in zip(state[n].parts, slab.parts):
+                    p[:, slot].copy_(src)
+            return
         state["k"][:, slot].copy_(pk)
         state["v"][:, slot].copy_(pv)
 
@@ -304,15 +504,12 @@ class DecodeLoop(object):
                  quantize=None, prefix_cache=None, spec_k=None,
                  draft_params=None, draft_num_layers=None,
                  draft_num_heads=None, device=None):
-        ncontexts = (contexts if isinstance(contexts, int)
-                     else len(contexts or ()))
-        if ncontexts > 1:
-            raise MXNetError("DecodeLoop: contexts= (a model-parallel loop "
-                             "across cards) is not ported yet (ROADMAP.md "
-                             "A.7c)")
-        self.device = resolve_device(device, "DecodeLoop")
+        #: the 'model' mesh the loop spans (None: one device)
+        self._mesh, self.device = _model_mesh(contexts, device,
+                                              "DecodeLoop")
         self.num_layers = int(num_layers)
         self.num_heads = int(num_heads)
+        self._check_heads(self.num_heads, "num_heads")
         self.max_len = int(max_len)
         self.slots = int(slots)
         self.eos_id = eos_id
@@ -357,6 +554,7 @@ class DecodeLoop(object):
                 draft_num_layers = max(ids) + 1 if ids else 0
             self.draft_num_layers = int(draft_num_layers)
             self.draft_num_heads = int(draft_num_heads or self.num_heads)
+            self._check_heads(self.draft_num_heads, "draft_num_heads")
             if self.draft_num_layers <= 0:
                 raise MXNetError(
                     "DecodeLoop: draft_params has no layer{i}_* entries")
@@ -397,12 +595,14 @@ class DecodeLoop(object):
         self.name = unique_name(name or "serving-decode")
         if self.spec_k:
             self._verify_fn = _build_verify_fn(
-                self.num_layers, self.num_heads, self.spec_k + 1)
+                self.num_layers, self.num_heads, self.spec_k + 1,
+                self._mesh)
             self._draft_fn = _build_decode_fn(self.draft_num_layers,
-                                              self.draft_num_heads)
+                                              self.draft_num_heads,
+                                              self._mesh)
         else:
             self._step_fn = _build_decode_fn(self.num_layers,
-                                             self.num_heads)
+                                             self.num_heads, self._mesh)
         self._extract_fn = _build_extract_fn()
         self._implant_fn = _build_implant_fn()
 
@@ -473,14 +673,35 @@ class DecodeLoop(object):
         else:
             self.prefix_enabled = True
 
+    def _check_heads(self, heads, what):
+        """A sharded loop splits the KV cache over heads: ``heads`` must
+        divide over the positions."""
+        n = 1 if self._mesh is None else len(self._mesh.replica_devices())
+        if heads % n:
+            raise MXNetError(
+                "DecodeLoop: %s %d %% %d model positions != 0 — the KV "
+                "cache shards over heads" % (what, heads, n))
+
     def _place(self, tree):
         """A stored parameter tree (tensors or int8 ``{"q","s"}`` pairs)
-        moved to the loop's device."""
+        moved to the loop's device, or laid out over its mesh by the
+        placement rule."""
+        if self._mesh is not None:
+            return {k: place_leaf(v, self._mesh) for k, v in tree.items()}
         return {k: ({n: t.to(self.device) for n, t in v.items()}
                     if is_quantized_leaf(v) else v.to(self.device))
                 for k, v in tree.items()}
 
     def _init_state(self, layers, heads, head_dim):
+        if self._mesh is not None:
+            devs = self._mesh.replica_devices()
+            local = (layers, self.slots, heads // len(devs), self._rows,
+                     head_dim)
+            return {n: _mesh.MeshArray(
+                self._mesh, [torch.zeros(local, dtype=torch.float32,
+                                         device=d) for d in devs],
+                spec=(None, None, _mesh.AXIS_MODEL)) for n in ("k", "v")} \
+                | {"seed": self._vec(np.zeros(self.slots), torch.int64)}
         cache_shape = (layers, self.slots, heads, self._rows, head_dim)
         return {"k": torch.zeros(cache_shape, dtype=torch.float32,
                                  device=self.device),
@@ -488,6 +709,14 @@ class DecodeLoop(object):
                                  device=self.device),
                 "seed": torch.zeros((self.slots,), dtype=torch.int64,
                                     device=self.device)}
+
+    def _vec(self, arr, dtype):
+        """A host array on the device, or replicated over the mesh (one
+        copy a device)."""
+        t = torch.as_tensor(np.asarray(arr), dtype=dtype)
+        if self._mesh is not None:
+            return _mesh.split_spec(t, self._mesh, ())
+        return t.to(self.device)
 
     def _dev(self, a):
         """The step's host-side slot vectors on the device: ids, positions
@@ -497,14 +726,13 @@ class DecodeLoop(object):
               "temp": torch.float32, "top_k": torch.int64,
               "top_p": torch.float32, "fresh": torch.int64,
               "reseed": torch.bool}
-        return {k: torch.as_tensor(np.asarray(v), dtype=dt[k],
-                                   device=self.device)
-                for k, v in a.items()}
+        return {k: self._vec(v, dt[k]) for k, v in a.items()}
 
     # ------------------------------------------------------------------
     def weight_bytes(self):
         """Resident device bytes of the (possibly quantized) parameter
-        set(s), target plus draft, from dtypes and shapes."""
+        set(s), target plus draft, from dtypes and shapes (global across a
+        sharded loop's positions)."""
         total = tree_bytes(self._params)
         if self._draft_params is not None:
             total += tree_bytes(self._draft_params)
@@ -544,8 +772,7 @@ class DecodeLoop(object):
         new = self._place(new)
         # land the copies before the swap: a step dispatched the instant
         # after it must never read a half-copied weight
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+        _sync(self._mesh, self.device)
         self._params = new
         from ..obs import REGISTRY
         REGISTRY.counter(
@@ -791,11 +1018,19 @@ class DecodeLoop(object):
                  for s in self._slots]
         _faults.fire("serve.sample")
         d = self._dev(a)
-        no_reseed = torch.zeros_like(d["reseed"])
+        if self._mesh is None:
+            no_reseed = torch.zeros_like(d["reseed"])
+        else:
+            no_reseed = self._vec(np.zeros(self.slots, np.bool_),
+                                  torch.bool)
         for j in range(window):
+            if self._mesh is None:
+                pos_j = d["pos"] + j
+            else:
+                pos_j = self._vec(a["pos"] + j, torch.int64)
             d_toks = self._draft_fn(
                 self._draft_state, self._draft_params,
-                torch.as_tensor(w[:, j], device=self.device), d["pos"] + j,
+                self._vec(w[:, j], torch.int64), pos_j,
                 d["temp"], d["top_k"], d["top_p"], d["fresh"],
                 d["reseed"] if j == 0 else no_reseed)
             if j + 1 >= window:
@@ -812,7 +1047,7 @@ class DecodeLoop(object):
         _faults.fire("serve.spec_verify")
         samples = self._verify_fn(
             self._state, self._params,
-            torch.as_tensor(w, device=self.device), d["pos"], d["temp"],
+            self._vec(w, torch.int64), d["pos"], d["temp"],
             d["top_k"], d["top_p"], d["fresh"], d["reseed"])
         s = samples.cpu().numpy()        # (slots, window) int32
         self.health.record_decode_step()

@@ -37,9 +37,28 @@ serialize), and ``executables=path`` does what the JAX engine does with a
 file it cannot import: it logs a warning naming the file and the reason,
 and warms up afresh.
 
-Not ported: ``contexts=`` (model-parallel engines over several cards,
-ROADMAP.md A.7c) and the static audits (``memory_report``,
-``comms_report``, ``check``), which walk XLA programs; they raise.
+``contexts=`` makes a model-parallel engine: one replica over a 'model'
+mesh of positions. ``contexts=N`` (an int above 1) puts N positions on the
+engine's ``device``; a list puts one position on each entry's torch device
+(``[mt.cpu(i) for i in range(4)]`` gives four on the host CPU,
+``[mt.gpu(0)] * 2`` two on ``cuda:0``); 0, 1 or a one-entry list builds no
+mesh. Positions may share a device, where the JAX package asks for a chip
+each: one card or the host CPU then holds every shard, and its times are
+that device's own cost, not a scaling figure. Each parameter is laid out
+by the placement rule (``parallel.placement.model_spec``: the first
+dimension the positions divide, the output dimension of an ``(out, in)``
+weight), an int8 leaf's scale along its payload's split of axis 0; aux
+states and inputs are replicated, one copy a device. The forward is the
+executor's mesh walk with a hook that re-lays every node's outputs
+replicated: each ``FullyConnected`` and ``Convolution`` computes its
+output slice per position over the whole contraction and the slices are
+gathered (Megatron's column-parallel layer plus a gather), so no
+reduction spans positions; an op of replicated inputs runs once a device
+(MultiBoxDetection, and its NMS kernel, once a dispatch on one card).
+:data:`~mxnet_tpu_torch.parallel.mesh.COUNTERS` counts the gathers.
+
+Not ported: the static audits (``memory_report``, ``comms_report``,
+``check``), which walk XLA programs; they raise (ROADMAP.md A.12).
 """
 from __future__ import annotations
 
@@ -52,6 +71,7 @@ from ..base import MXNetError, env_str
 from ..context import resolve_device
 from ..executor import _build_graph_runner
 from ..ops.nn import conv_precision
+from ..parallel import mesh as _mesh
 from ..predictor import (_strip_loss_heads, load_symbol, load_param_dict,
                          pick_partial_outputs, check_missing_params)
 from ..tracecheck import unique_name
@@ -87,6 +107,39 @@ def _host_array(v):
     return torch.from_numpy(np.array(data))
 
 
+def _model_mesh(contexts, device, who):
+    """``(mesh, device)`` of ``contexts=``: a one-axis 'model' mesh of
+    positions (None below two) and the device that takes the inputs and
+    gives the outputs (the first position's). An int N puts N positions on
+    ``device`` (default ``cuda:0``); a list puts one on each entry's torch
+    device, and ``device``, where given, must be the first's."""
+    if isinstance(contexts, int) or not contexts:
+        dev = resolve_device(device, who)
+        if not contexts or contexts <= 1:
+            return None, dev
+        return _mesh.model_parallel_mesh(contexts, [dev] * contexts), dev
+    devs = [resolve_device(c, who) for c in contexts]
+    if device is not None and resolve_device(device, who) != devs[0]:
+        raise MXNetError("%s: device=%s is not the first of contexts %s"
+                         % (who, device, list(contexts)))
+    if len(devs) == 1:
+        return None, devs[0]
+    return _mesh.make_mesh({_mesh.AXIS_MODEL: len(devs)}, devs), devs[0]
+
+
+def _sync(mesh, device):
+    """Wait for every card a (possibly sharded) engine or loop uses."""
+    for d in ({device} if mesh is None else set(mesh.replica_devices())):
+        if d.type == "cuda":
+            torch.cuda.synchronize(d)
+
+
+def _replicated(node, outs):
+    """The sharded engine's ``node_constraint``: every output re-laid
+    whole on every position (gathered where an op left it split)."""
+    return [_mesh.reshard(o, ()) for o in outs]
+
+
 def _not_ported(what, who="ServingEngine"):
     return MXNetError(
         "%s.%s walks XLA programs and is not ported yet "
@@ -106,7 +159,8 @@ class ServingEngine(object):
     ``"bf16"`` or ``"int8"`` weight storage (default
     ``MXTPU_SERVE_QUANT``, else ``"none"``). ``executables``: accepted for
     the JAX package's signature; the file cannot be imported here, so the
-    engine warns and warms up afresh.
+    engine warns and warms up afresh. ``contexts``: a model-parallel
+    engine (see the module's note).
     """
 
     def __init__(self, symbol_json_or_file, param_file_or_dict, input_shapes,
@@ -116,13 +170,9 @@ class ServingEngine(object):
         self.quant_mode = _quant.resolve_mode(
             quantize if quantize is not None
             else env_str("MXTPU_SERVE_QUANT", "none"))
-        ncontexts = (contexts if isinstance(contexts, int)
-                     else len(contexts or ()))
-        if ncontexts > 1:
-            raise MXNetError("ServingEngine: contexts= (a model-parallel "
-                             "engine across cards) is not ported yet "
-                             "(ROADMAP.md A.7c)")
-        self.device = resolve_device(device, "ServingEngine")
+        #: the 'model' mesh one replica spans (None: one device)
+        self._mesh, self.device = _model_mesh(contexts, device,
+                                              "ServingEngine")
         self._symbol = _strip_loss_heads(load_symbol(symbol_json_or_file))
         if output_names:
             self._symbol = pick_partial_outputs(self._symbol, output_names)
@@ -175,13 +225,17 @@ class ServingEngine(object):
             for n in self._symbol.list_arguments()
             if n not in self._input_names}
         aux = {
-            n: (host(aux_params[n], aux_shape_of[n]) if n in aux_params
-                else zeros(aux_shape_of[n])).to(self.device)
+            n: self._whole(host(aux_params[n], aux_shape_of[n])
+                           if n in aux_params else zeros(aux_shape_of[n]))
             for n in self._symbol.list_auxiliary_states()}
         #: the served (params, aux) pair: ``infer`` reads it once, and
         #: ``update_params`` replaces it with one assignment
         self._state = (params, aux)
-        self._run, _ = _build_graph_runner(self._symbol)
+        if self._mesh is None:
+            self._run, _ = _build_graph_runner(self._symbol)
+        else:
+            self._run, _ = _build_graph_runner(
+                self._symbol, mesh=self._mesh, node_constraint=_replicated)
         # per-output row factor: outputs whose leading dim is a multiple of
         # the batch (e.g. an LM's (batch*seq, vocab) head) slice by it
         self._out_row_factor = []
@@ -200,8 +254,7 @@ class ServingEngine(object):
             self._forward({n: np.zeros((b,) + self._input_shapes[n],
                                        self._input_dtypes[n])
                            for n in self._input_names})
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+        _sync(self._mesh, self.device)
 
     # ------------------------------------------------------------------
     def _db_buckets(self):
@@ -227,11 +280,25 @@ class ServingEngine(object):
 
     def _store(self, host_tensor):
         """Quantize one host parameter per ``quant_mode`` and move it to
-        the device: a tensor, or an int8 ``{"q", "s"}`` pair."""
-        stored = _quant.quantize_array(host_tensor, self.quant_mode)
+        the device: a tensor, or an int8 ``{"q", "s"}`` pair; over a mesh
+        laid out by the placement rule (``quantize.place_leaf``)."""
+        return self._place(_quant.quantize_array(host_tensor,
+                                                 self.quant_mode))
+
+    def _place(self, stored):
+        """A stored parameter leaf on the device, or over the mesh."""
+        if self._mesh is not None:
+            return _quant.place_leaf(stored, self._mesh)
         if _quant.is_quantized_leaf(stored):
             return {k: v.to(self.device) for k, v in stored.items()}
         return stored.to(self.device)
+
+    def _whole(self, t):
+        """A tensor (aux state, input) on the device, or replicated over
+        the mesh with one copy a device."""
+        if self._mesh is None:
+            return t.to(self.device)
+        return _mesh.split_spec(t, self._mesh, ())
 
     def _full_shapes(self, b):
         return {n: (b,) + self._input_shapes[n] for n in self._input_names}
@@ -242,9 +309,10 @@ class ServingEngine(object):
 
     @property
     def model_devices(self):
-        """Number of cards one replica of this engine spans (always 1:
-        ``contexts=`` is not ported)."""
-        return 1
+        """Number of mesh positions one replica of this engine spans (1
+        without ``contexts=``; positions may share a device)."""
+        return 1 if self._mesh is None else len(
+            self._mesh.replica_devices())
 
     def bucket_for(self, n):
         """Smallest bucket covering ``n`` examples."""
@@ -267,10 +335,11 @@ class ServingEngine(object):
         the graph's exact shape; extra keys (stripped loss heads, optimizer
         state) are ignored. A float checkpoint narrows or widens to the
         resident dtype (an f32 checkpoint into a bf16 engine), and a
-        quantized engine re-quantizes it on the host. The copies land on
-        the device before one assignment swaps the ``(params, aux)`` pair,
-        so a concurrent ``infer`` serves the old set or the new one, never
-        a mix."""
+        quantized engine re-quantizes it on the host. A sharded engine
+        lays the new set out by the same rule. The copies land on the
+        device before one assignment swaps the ``(params, aux)`` pair
+        (every position's shards in it), so a concurrent ``infer`` serves
+        the old set or the new one, never a mix."""
         if isinstance(arg_params, (str, bytes)) or hasattr(arg_params,
                                                            "read"):
             arg_params, file_aux = load_param_dict(arg_params)
@@ -301,10 +370,8 @@ class ServingEngine(object):
                         % (kind, n, tuple(t.shape), tuple(lead.shape)))
                 if _quant.is_quantized_leaf(resident):
                     # re-quantize the incoming checkpoint on the host
-                    stored = _quant.quantize_array(t.to(torch.float32),
-                                                   self.quant_mode)
-                    out[n] = {k: v.to(self.device)
-                              for k, v in stored.items()}
+                    out[n] = self._place(_quant.quantize_array(
+                        t.to(torch.float32), self.quant_mode))
                     continue
                 if t.dtype != resident.dtype:
                     if not t.is_floating_point():
@@ -313,7 +380,8 @@ class ServingEngine(object):
                             "the resident %s" % (kind, n, t.dtype,
                                                  resident.dtype))
                     t = t.to(resident.dtype)
-                out[n] = t.to(self.device)
+                out[n] = (self._place(t) if kind == "parameter"
+                          else self._whole(t))
             return out
 
         if cur_aux and aux_params is None:
@@ -325,8 +393,7 @@ class ServingEngine(object):
                    if cur_aux else {})
         # land the copies before the swap: a request dispatched the
         # instant after it must never read a half-copied weight
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+        _sync(self._mesh, self.device)
         self._state = (new_params, new_aux)
         from ..obs import REGISTRY
         REGISTRY.counter(
@@ -381,9 +448,11 @@ class ServingEngine(object):
         with torch.inference_mode(), conv_precision(self.device):
             args = (dict(params) if self.quant_mode == "none"
                     else _quant.dequant_tree(params))
-            args.update({k: torch.from_numpy(np.ascontiguousarray(v))
-                         .to(self.device) for k, v in batch.items()})
+            args.update({k: self._whole(torch.from_numpy(
+                np.ascontiguousarray(v))) for k, v in batch.items()})
             outs, _ = self._run(args, aux)
+            if self._mesh is not None:
+                outs = [o.parts[0] for o in outs]
             return [(o[:n * f] if f and n is not None else o).cpu().numpy()
                     for o, f in zip(outs, self._out_row_factor)]
 
@@ -398,11 +467,14 @@ class ServingEngine(object):
             "executables (PyTorch runs the forward eagerly; cuDNN plans and "
             "built kernels live in the process) — not written to %s" % path)
 
-    def weight_bytes(self):
+    def weight_bytes(self, position=None):
         """Resident device bytes of the engine's (possibly quantized)
-        parameters and aux states, from dtypes and shapes."""
+        parameters and aux states, from dtypes and shapes: global across a
+        sharded engine's positions, or with ``position=r`` what position
+        ``r`` holds."""
         params, aux = self._state
-        return _quant.tree_bytes(params) + _quant.tree_bytes(aux)
+        return (_quant.tree_bytes(params, position)
+                + _quant.tree_bytes(aux, position))
 
     def quality_report(self, reference, probe_inputs):
         """Quantization quality gate, step 1: run the SAME probe batch

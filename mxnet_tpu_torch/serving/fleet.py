@@ -4,7 +4,9 @@ The port's copy of ``mxnet_tpu/serving/fleet.py``. One
 :class:`~mxnet_tpu_torch.serving.engine.ServingEngine` is ONE replica with
 one queue; the fleet is N of them behind a router. On one card, N
 replicas are N engines on ``cuda:0``, each with its own batching thread;
-their dispatches share the card.
+their dispatches share the card. A replica may be a model-parallel engine
+(``ServingEngine(contexts=)``) beside single-device ones; each replica's
+report names the mesh positions its engine spans (``model_devices``).
 
 * **least-loaded dispatch** — every request goes to the ACTIVE replica
   with the fewest requests in flight (assigned minus resolved: queued at
@@ -151,6 +153,8 @@ class _Replica(object):
                 # engine, and engine-level counters must not be
                 # double-counted across such replicas
                 "engine": self.batcher.engine.name,
+                # mesh positions one replica's engine spans
+                "model_devices": int(self.batcher.engine.model_devices),
                 "health": self.batcher.health.report(),
                 "engine_health": self.batcher.engine.health.report()}
 
@@ -675,9 +679,8 @@ class FleetRouter(object):
     def weight_report(self):
         """Resident weight bytes across the fleet's engines, AS STORED
         (int8/bf16 after quantization, not f32 equivalents), with the
-        per-card share (the whole, since every port engine is on one
-        card). Replicas sharing one engine (warm rejoin) are counted
-        once."""
+        share of one mesh position (the whole for a single-device engine).
+        Replicas sharing one engine (warm rejoin) are counted once."""
         out = {}
         with self._lock:
             reps = [r for r in self._replicas.values()
@@ -692,7 +695,8 @@ class FleetRouter(object):
             ndev = int(eng.model_devices)
             out[eng.name] = {"weight_bytes": total,
                              "model_devices": ndev,
-                             "bytes_per_chip": total // max(1, ndev),
+                             "bytes_per_chip": (int(eng.weight_bytes(0))
+                                                if ndev > 1 else total),
                              "quantize": eng.quant_mode}
         return out
 

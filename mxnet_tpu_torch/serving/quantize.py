@@ -31,6 +31,7 @@ import numpy as np
 import torch
 
 from ..base import MXNetError, env_float
+from ..parallel.mesh import MeshArray, split_spec
 
 QUANT_MODES = ("none", "bf16", "int8")
 _INT8_LEAF_KEYS = frozenset(("q", "s"))
@@ -87,17 +88,59 @@ def quantize_tree(params, mode):
     return {k: quantize_array(v, mode) for k, v in params.items()}
 
 
+def _widen(q, s):
+    return q.to(torch.float32) * s.reshape((-1,) + (1,) * (q.dim() - 1))
+
+
+def _widen_float(t):
+    if t.is_floating_point() and t.dtype != torch.float32:
+        return t.to(torch.float32)
+    return t
+
+
+def _per_shard(fn, first, *rest):
+    """``fn`` over a MeshArray's parts (with the matching parts of
+    ``rest``), once for each distinct part: positions sharing a shard on
+    one device share its result."""
+    done, parts = {}, []
+    for r, p in enumerate(first.parts):
+        key = (id(p),) + tuple(id(a.parts[r]) for a in rest)
+        if key not in done:
+            done[key] = fn(p, *(a.parts[r] for a in rest))
+        parts.append(done[key])
+    return MeshArray(first.mesh, parts, spec=first.spec)
+
+
 def dequant_leaf(leaf):
     """The f32 view of one stored leaf. An f32 (or non-float) leaf passes
     through untouched, so an unquantized engine's weights are used as
-    they lie."""
+    they lie. A leaf laid out over a mesh (MeshArrays) widens each
+    position's own shard."""
     if is_quantized_leaf(leaf):
-        q = leaf["q"]
-        return q.to(torch.float32) * leaf["s"].reshape(
-            (-1,) + (1,) * (q.dim() - 1))
-    if leaf.is_floating_point() and leaf.dtype != torch.float32:
-        return leaf.to(torch.float32)
-    return leaf
+        if isinstance(leaf["q"], MeshArray):
+            return _per_shard(_widen, leaf["q"], leaf["s"])
+        return _widen(leaf["q"], leaf["s"])
+    if isinstance(leaf, MeshArray):
+        return (_per_shard(_widen_float, leaf)
+                if leaf.dtype.is_floating_point
+                and leaf.dtype != torch.float32 else leaf)
+    return _widen_float(leaf)
+
+
+def place_leaf(stored, mesh):
+    """A stored leaf (a host tensor, or an int8 ``{"q", "s"}`` pair) laid
+    out over a 'model' mesh by ``parallel.placement.model_spec``: the
+    int8 payload by the rule, its per-channel scale along the same split
+    of axis 0 (replicated where the payload's axis 0 is whole), so each
+    position holds its rows' bytes beside their scales (positions on one
+    device share a shard, and a replicated leaf one copy a device)."""
+    from ..parallel.placement import model_spec
+    if not is_quantized_leaf(stored):
+        return split_spec(stored, mesh, model_spec(stored.shape, mesh))
+    spec = model_spec(stored["q"].shape, mesh)
+    s_spec = spec[:1] if len(spec) and spec[0] is not None else ()
+    return {"q": split_spec(stored["q"], mesh, spec),
+            "s": split_spec(stored["s"], mesh, s_spec)}
 
 
 def dequant_tree(params):
@@ -113,10 +156,21 @@ def _leaf_arrays(tree):
             yield v
 
 
-def tree_bytes(tree):
+def _nbytes(a, position):
+    if not isinstance(a, MeshArray):
+        return a.element_size() * a.numel()
+    if position is None:        # the whole array, once
+        return a.parts[0].element_size() * int(np.prod(a.shape))
+    p = a.parts[position]
+    return p.element_size() * p.numel()
+
+
+def tree_bytes(tree, position=None):
     """Resident weight bytes of a (possibly quantized) param tree, from
-    dtype and shape metadata only (nothing is read back from the card)."""
-    return int(sum(a.element_size() * a.numel() for a in _leaf_arrays(tree)))
+    dtype and shape metadata only (nothing is read back from the card).
+    A tree laid out over a mesh counts each array whole (global across
+    the positions), or with ``position=r`` what position ``r`` holds."""
+    return int(sum(_nbytes(a, position) for a in _leaf_arrays(tree)))
 
 
 def quality_report(ref_logits, quant_logits):

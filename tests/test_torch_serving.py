@@ -193,19 +193,25 @@ def test_no_cpu_fallback_without_cuda(ckpt, monkeypatch):
     (dict(executables="x.bin"), "executables"),
 ])
 def test_unported_options_raise(ckpt, served, kwargs, what, caplog):
-    """``contexts=`` (several cards) still raises. ``quantize="int8"``
-    serves: its detections equal, bit for bit, an f32 engine loaded with
-    the int8 weights dequantized on the host, and its weights take under
-    0.3 of the f32 bytes. ``executables=`` warns naming the file and
-    serves, equal to the engine without it."""
+    """Each option the first slice left out now serves. ``contexts=2`` (a
+    model-parallel engine of two positions on the CPU) gives the f32
+    engine's detections bit for bit, with its weights split over the
+    positions. ``quantize="int8"`` serves: its detections equal, bit for
+    bit, an f32 engine loaded with the int8 weights dequantized on the
+    host, and its weights take under 0.3 of the f32 bytes.
+    ``executables=`` warns naming the file and serves, equal to the engine
+    without it."""
     prefix, _, images = ckpt
     x = {"data": images[:3]}
-    if what == "contexts":
-        with pytest.raises(MXNetError, match=what):
-            ServingEngine(*_files(prefix), {"data": SHAPE}, device="cpu",
-                          **kwargs)
-        return
     out, f32 = served
+    if what == "contexts":
+        eng = ServingEngine(*_files(prefix), {"data": SHAPE},
+                            buckets=BUCKETS, device="cpu", **kwargs)
+        assert eng.model_devices == 2
+        assert eng.weight_bytes(0) < eng.weight_bytes() \
+            == f32.weight_bytes()
+        np.testing.assert_array_equal(eng.infer(x)[0], f32.infer(x)[0])
+        return
     with caplog.at_level("WARNING"):
         eng = ServingEngine(*_files(prefix), {"data": SHAPE},
                             buckets=BUCKETS, device="cpu", **kwargs)

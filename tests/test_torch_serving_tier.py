@@ -350,10 +350,18 @@ def test_executables_warns_and_serves_export_raises(tmp_path, caplog):
 
 
 def test_contexts_still_raises(tmp_path):
+    """``contexts=2`` no longer raises: it serves the checkpoint over two
+    positions within rtol 1e-6 of one device (the per-position products
+    of half the output width), and ``contexts=1`` builds no mesh."""
     files, _, _ = _checkpoint(tmp_path, "mlp")
-    with pytest.raises(MXNetError, match="contexts"):
-        serving.ServingEngine(*files, {"data": (6,)}, contexts=2,
-                              device="cpu")
+    x = {"data": _images("mlp", 3)}
+    sharded = serving.ServingEngine(*files, {"data": (6,)}, contexts=2,
+                                    buckets=(4,), device="cpu")
+    assert sharded.model_devices == 2
+    one = serving.ServingEngine(*files, {"data": (6,)}, buckets=(4,),
+                                device="cpu")
+    np.testing.assert_allclose(sharded.infer(x)[0], one.infer(x)[0],
+                               rtol=1e-6, atol=0)
     eng = serving.ServingEngine(*files, {"data": (6,)}, contexts=1,
                                 buckets=(1,), device="cpu")
     assert eng.model_devices == 1
