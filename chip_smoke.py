@@ -187,7 +187,7 @@ non-zero):
    the route follows it: "native" (libjpeg's header and library present:
    the native library must build), "pillow" (no libjpeg: the native build
    must fail with the compiler's message; decoding falls back to Pillow as
-   in the reference) or "none". (b) an indexed .rec of 4096 classification
+   in the reference) or "none". (b) an indexed .rec of 2048 classification
    JPEGs at 257x257 (quality 90, 8 classes; bench.py's realdata textures)
    and one of 256 detection JPEGs at 300x300 with 1-4 boxes, written with
    Pillow from --seed. (c) ResNet-50 NCHW, 8 classes, bf16 compute, b=128,
@@ -390,11 +390,37 @@ non-zero):
    and position, nothing shed, report() naming each replica's
    model_devices, B2 once a dispatch.
 
+22. dist: distributed training and chaos, every rank on cuda:0 (the
+   machine has one card: the figures are the card's own cost of a dist
+   step, not a scaling figure). Ranks start through the port's launcher
+   (python -m mxnet_tpu_torch.tools.launch, a free port) into this
+   script's hidden modes (--dist-sync-child, --dist-async-child); a rank
+   that fails fails the phase. (a) bench.py main()'s ResNet-50 (NHWC,
+   bf16 compute, MXTPU_FUSE_CONV_BN=1, SGD lr 0.1, momentum 0.9, wd 1e-4)
+   through Module.fit(kvstore="dist_sync") over 2 ranks of batch 64
+   (global 128), each on its shard of synthetic data from --seed, 8 steps
+   at k=1: the parameters equal bit for bit across the ranks, step 1's
+   reduced gradient vector equal bit for bit to the member-order sum of
+   the ranks' own, B1 on its wgmma route 33 times a step a rank; ms a
+   step, the exchange's ms and bytes a step, and global images/s against
+   phase 6's one-device step. (b) tests/chaos_plans/
+   dist_worker_die_slow_leader_s13.json through the port's chaos runner:
+   3 ranks, rank 2 SIGKILLed at its 18th ring collective, a slow re-form
+   leader; every invariant green, the survivors' parameter hashes equal,
+   one re-form, and the seconds from the kill (the survivors' last step of
+   generation 0) to their first step of generation 1. (c) dist_async at
+   MXTPU_KV_STALENESS=4 over 2 ranks on the chaos dist scenario's MLP:
+   the largest staleness lag at most 4 and the training accuracy at least
+   0.95. (d) serve_composed_deaths_s1.json and
+   train_torn_ckpt_midrun_raise_s7.json through the runner on the card:
+   every invariant green.
+
 The line before the ops line is the card's name and power limit; then
 {"ops": [...], "examples": {...}} (phase 20's figures); then
 {"kernels": [...]} (per kernel: launches on
 its main path (phase 16's LSTM path and phase 17's LM path launch none;
-B1's include phase 18's mesh dispatches, bf16 and f32),
+B1's include phase 18's mesh dispatches, bf16 and f32, and phase 22's
+dist ranks, launches_dist),
 max error against the plain version, times and bound; the
 NMS kernel's launches also by path: serving, training, the serving tier,
 training from JPEG records and model-parallel serving (phase 21); the
@@ -1256,6 +1282,7 @@ def train_phase(seed, card):
     for what, n, t in timings:
         log("train: %s %.3f ms, %.1f images/s (host clock, median of %d) "
             "[%s]" % (what, 1e3 * t, bsz / t, n, card))
+    STEP_FIGURES["fused_ips"] = bsz / timings[0][2]
     log("train: peak device memory %.2f GiB"
         % (torch.cuda.max_memory_allocated() / 2 ** 30))
     profiles = {"unguarded": profile_step(lambda: fused.step(state, b1),
@@ -3500,7 +3527,7 @@ def training_api_phase(seed, card, step_profiles):
 
 #: phase 15 (b): classification records as bench.py's realdata run packs
 #: them (int(224 * 1.15) px, quality 90, 8 classes), and detection records
-DATA_IMAGES = 4096
+DATA_IMAGES = 2048
 DATA_SIZE = int(224 * 1.15)
 DATA_QUALITY = 90
 DATA_CLASSES = 8
@@ -7148,6 +7175,340 @@ def slice_phase(seed, reps, card):
     return rows, ex
 
 
+# ---------------------------------------------------------------------------
+# phase 22: distributed training and chaos
+# ---------------------------------------------------------------------------
+
+#: (a): bench.py main()'s global batch of 128 over DIST_RANKS ranks, 8 steps
+DIST_RANKS = 2
+DIST_BATCH = RESNET_BATCH // DIST_RANKS
+DIST_STEPS = 8
+#: the card's context for the dist ranks ("gpu": cuda:0; a rehearsal on the
+#: CPU sets "cpu")
+DIST_CTX = "gpu"
+#: (b) and (d): the committed chaos plans replayed on the card
+DIST_PLANS = "tests/chaos_plans"
+DIST_ELASTIC_PLAN = "dist_worker_die_slow_leader_s13.json"
+DIST_CARD_PLANS = ("serve_composed_deaths_s1.json",
+                   "train_torn_ckpt_midrun_raise_s7.json")
+#: a replay that outlives this many seconds is a hang (a violation)
+DIST_DEADLINE = 150.0
+#: (c): dist_async's staleness window and the accuracy bar of
+#: tests/dist_worker.py run_lenet
+DIST_ASYNC_STALENESS = 4
+DIST_ASYNC_ACC = 0.95
+#: phase 6's one-device figures, for (a)'s global images/s
+STEP_FIGURES = {}
+
+
+def _dist_ctx(mt):
+    return mt.gpu(0) if DIST_CTX == "gpu" else mt.cpu()
+
+
+def dist_sync_child(out_dir, seed):
+    """(a), one rank (MXTPU_RANK from the launcher): ResNet-50 NHWC bf16
+    through Module.fit(kvstore=dist_sync) on this rank's shard, DIST_STEPS
+    steps at k=1; writes its figures, its parameters' hash, step 1's local
+    gradient vector and the hash of step 1's reduced vector."""
+    import hashlib
+    import torch
+    import mxnet_tpu_torch as mt
+    from mxnet_tpu_torch import kvstore_server, models
+    from mxnet_tpu_torch.ops import matmul_stats as ms
+    assert mt.tools_init_distributed(), "the launcher's environment is missing"
+    rank = kvstore_server.plane()["rank"]
+    os.environ["MXTPU_FUSE_CONV_BN"] = "1"
+    img = RESNET_IMAGE
+    dshape = (DIST_BATCH, img, img, 3)
+    with mt.symbol.NameManager():
+        sym = models.resnet(num_classes=RESNET_CLASSES, num_layers=50,
+                            image_shape="3,%d,%d" % (img, img),
+                            layout="NHWC")
+    # this rank's shard of the synthetic data, from --seed
+    rng = np.random.default_rng([seed, 22, rank])
+    images = rng.standard_normal((DIST_STEPS * DIST_BATCH,) + dshape[1:],
+                                 dtype=np.float32)
+    labels = rng.integers(0, RESNET_CLASSES,
+                          DIST_STEPS * DIST_BATCH).astype(np.float32)
+    arg_params = xavier_params(sym, dshape, seed + rank)  # rank 0's wins
+    kv = mt.kv.create("dist_sync")
+    reduce_ = kv.grad_reduce
+    first = {}
+
+    def grad_reduce(vec):
+        out = reduce_(vec)
+        if not first:
+            first.update(local=vec.copy(), reduced=out.copy())
+        return out
+    kv.grad_reduce = grad_reduce
+    stamps = []
+
+    def on_batch(p):
+        stamps.append(time.perf_counter())
+    mod = mt.mod.Module(sym, context=_dist_ctx(mt), compute_dtype="bfloat16")
+    ms.reset_launches()
+    t0 = time.perf_counter()
+    mod.fit(mt.io.NDArrayIter(images, labels, batch_size=DIST_BATCH),
+            num_epoch=1, kvstore=kv, optimizer="sgd",
+            optimizer_params=MODULE_OPT, arg_params=arg_params,
+            steps_per_dispatch=1, batch_end_callback=on_batch)
+    if DIST_CTX == "gpu":
+        torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    routes = dict(ms.LAUNCHES_BY_ROUTE)
+    h = hashlib.sha256()
+    arg, _ = mod.get_params()
+    for n in sorted(arg):
+        h.update(n.encode() + arg[n].asnumpy().tobytes())
+    np.save(os.path.join(out_dir, "local%d.npy" % rank), first["local"])
+    ex = dict(mod._fused.dist_exchange)
+    steps = np.diff(stamps)           # steps 2..DIST_STEPS
+    res = {"rank": rank, "routes": routes, "fit_s": fit_s,
+           "steps": len(stamps), "step_ms": [1e3 * x for x in steps],
+           "exchange": ex, "params_sha": h.hexdigest(),
+           "reduced_sha": hashlib.sha256(
+               first["reduced"].tobytes()).hexdigest(),
+           "workers": kv.num_workers, "b1_per_step": sum(
+               B1_STEP_SHAPES.values())}
+    with open(os.path.join(out_dir, "rank%d.json" % rank), "w") as f:
+        json.dump(res, f)
+    return 0
+
+
+def dist_async_child(out_dir, seed):
+    """(c), one rank: the chaos dist scenario's MLP through
+    Module.fit(kvstore=dist_async) at MXTPU_KV_STALENESS; writes the
+    largest staleness lag a pull saw and the training accuracy."""
+    import mxnet_tpu_torch as mt
+    from mxnet_tpu_torch import kvstore_server
+    assert mt.tools_init_distributed(), "the launcher's environment is missing"
+    rank = kvstore_server.plane()["rank"]
+    nproc = kvstore_server.plane()["size"]
+    n_class, dim, n_per, bs = 4, 16, 96, 32
+    rng = np.random.RandomState(7)          # the chaos scenario's data
+    templates = rng.randn(n_class, dim).astype(np.float32) * 3
+    y = (np.arange(n_class * n_per) % n_class).astype(np.float32)
+    x = templates[y.astype(int)] + rng.randn(len(y), dim).astype(
+        np.float32) * 0.5
+    # every rank's shard holds every class (x[rank::2] of the scenario's
+    # order would give each rank two of the four)
+    order = np.random.RandomState(seed).permutation(len(y))
+    x, y = x[order], y[order]
+    data = mt.sym.Variable("data")
+    h = mt.sym.FullyConnected(data, name="fc1", num_hidden=32)
+    h = mt.sym.Activation(h, name="relu1", act_type="relu")
+    h = mt.sym.FullyConnected(h, name="fc2", num_hidden=n_class)
+    net = mt.sym.SoftmaxOutput(h, name="softmax")
+    lags = []
+    mod = mt.mod.Module(net, context=_dist_ctx(mt))
+    mt.random.seed(seed)
+    t0 = time.perf_counter()
+    mod.fit(mt.io.NDArrayIter(x[rank::nproc], y[rank::nproc],
+                              batch_size=bs),
+            num_epoch=6, kvstore="dist_async",
+            optimizer_params={"learning_rate": 0.1, "momentum": 0.9},
+            initializer=mt.initializer.Xavier(),
+            batch_end_callback=lambda p: lags.append(
+                int(mod._kvstore.staleness_lag)))
+    fit_s = time.perf_counter() - t0
+    acc = dict(mod.score(mt.io.NDArrayIter(x, y, batch_size=bs), "acc"))
+    res = {"rank": rank, "max_lag": max(lags), "steps": len(lags),
+           "accuracy": acc["accuracy"], "fit_s": fit_s,
+           "staleness": mod._kvstore.staleness}
+    with open(os.path.join(out_dir, "rank%d.json" % rank), "w") as f:
+        json.dump(res, f)
+    return 0
+
+
+def _launch_ranks(mode, n, out_dir, seed, env=None, timeout=300):
+    """``n`` ranks of ``chip_smoke.py --MODE DIR`` through the port's
+    launcher on a free port; raises with their output if any fails."""
+    from mxnet_tpu_torch.chaos.runner import _free_port
+    root = os.path.dirname(os.path.abspath(__file__))
+    e = dict(os.environ)
+    e["PYTHONPATH"] = os.pathsep.join(
+        [root] + [p for p in e.get("PYTHONPATH", "").split(os.pathsep) if p])
+    e.update(env or {})
+    cmd = [sys.executable, "-m", "mxnet_tpu_torch.tools.launch", "-n", str(n),
+           "--coord-port", str(_free_port()),
+           "%s %s --%s %s --seed %d" % (sys.executable,
+                                        os.path.abspath(__file__), mode,
+                                        out_dir, seed)]
+    t0 = time.perf_counter()
+    r = subprocess.run(cmd, env=e, capture_output=True, text=True,
+                       timeout=timeout, cwd=root)
+    took = time.perf_counter() - t0
+    if r.returncode != 0:
+        raise SystemExit("dist: %s ranks failed (exit %d):\n%s\n%s"
+                         % (mode, r.returncode, r.stdout[-4000:],
+                            r.stderr[-6000:]))
+    return [json.load(open(os.path.join(out_dir, "rank%d.json" % k)))
+            for k in range(n)], took
+
+
+def dist_phase(seed, card):
+    """Phase 22 (see the module docstring). Returns B1's launches on the
+    dist path (every rank's)."""
+    import hashlib
+    import torch
+    from mxnet_tpu_torch import chaos
+    t_phase = time.perf_counter()
+    problems = []
+    if DIST_CTX == "gpu":
+        torch.cuda.empty_cache()       # the ranks share the card with us
+    root = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory() as tmp:
+        # (a) dist_sync: ResNet-50 over two ranks on cuda:0
+        res, took = _launch_ranks("dist-sync-child", DIST_RANKS, tmp, seed,
+                                  env={"MXTPU_FUSE_CONV_BN": "1"})
+        per_step = res[0]["b1_per_step"]
+        launches = 0
+        for r in res:
+            want = {"wgmma": per_step * DIST_STEPS, "wmma": 0, "tf32x3": 0,
+                    "f32": 0}
+            if DIST_CTX == "gpu" and r["routes"] != want:
+                problems.append("rank %d: matmul_stats routes %s, expected "
+                                "%s" % (r["rank"], r["routes"], want))
+            launches += r["routes"]["wgmma"]
+        if len({r["params_sha"] for r in res}) != 1:
+            problems.append("the ranks' parameters differ: %s"
+                            % [r["params_sha"][:12] for r in res])
+        total = None
+        for k in range(DIST_RANKS):     # the ring's member order
+            v = np.load(os.path.join(tmp, "local%d.npy" % k))
+            total = v.copy() if total is None else total + v
+        want_sha = hashlib.sha256(total.tobytes()).hexdigest()
+        same = all(r["reduced_sha"] == want_sha for r in res)
+        if not same:
+            problems.append("step 1's reduced vector is not the member-order "
+                            "sum of the ranks' gradients")
+        step_ms = float(np.median([m for r in res for m in r["step_ms"]]))
+        ex = res[0]["exchange"]
+        ex_ms = 1e3 * ex["seconds"] / max(ex["count"], 1)
+        ex_bytes = ex["bytes"] / max(ex["count"], 1)
+        ips = RESNET_BATCH * 1e3 / step_ms
+        one = STEP_FIGURES.get("fused_ips")
+        log("dist (a) ResNet-50 NHWC bf16, MXTPU_FUSE_CONV_BN=1, "
+            "Module.fit(kvstore='dist_sync'), %d ranks x batch %d on %s, %d "
+            "steps at k=1 (%.1f s, launch to exit): parameters %s across "
+            "ranks; step 1's reduced vector %s the member-order sum of the "
+            "ranks' gradients (%d floats); matmul_stats %s launches a rank "
+            "(%d a step)"
+            % (DIST_RANKS, DIST_BATCH, DIST_CTX, DIST_STEPS, took,
+               "equal bit for bit" if len({r["params_sha"] for r in res}) == 1
+               else "DIFFER", "equals bit for bit" if same else "DIFFERS FROM",
+               total.size, [r["routes"]["wgmma"] for r in res], per_step))
+        log("dist (a) %.3f ms a step (host clock, median of steps 2-%d over "
+            "both ranks), exchange %.3f ms and %d bytes sent a step a rank "
+            "(%d exchanges: D2H, encode, store writes, the peer's reads, "
+            "the sum, H2D); %.1f global images/s against %s one-device "
+            "images/s (phase 6's fused step): %.3fx [%s]"
+            % (step_ms, DIST_STEPS, ex_ms, ex_bytes, ex["count"], ips,
+               "%.1f" % one if one else "n/a",
+               ips / one if one else float("nan"), card))
+        for r in res:
+            log("  rank %d: fit %.2f s, steps ms %s, exchange %s"
+                % (r["rank"], r["fit_s"],
+                   " ".join("%.1f" % m for m in r["step_ms"]),
+                   r["exchange"]))
+
+        # (b) elastic re-form: the committed plan through the port's runner
+        os.environ["MXTPU_CHAOS_DEVICE"] = DIST_CTX
+        plan = chaos.ChaosPlan.load(os.path.join(root, DIST_PLANS,
+                                                 DIST_ELASTIC_PLAN))
+        wd = os.path.join(tmp, "elastic")
+        outcome = chaos.run_plan(plan, wd, deadline=DIST_DEADLINE)
+        viols = chaos.check_scenario(plan, outcome)
+        ranks = outcome["rank_results"]
+        alive = {k: v for k, v in ranks.items() if v is not None}
+        hashes = {v.get("final_hash") for v in alive.values()}
+        reforms = sorted({v.get("reforms") for v in alive.values()})
+        recovery = [v["generation_steps_s"]["1"][0]
+                    - v["generation_steps_s"]["0"][1]
+                    for v in alive.values()
+                    if "1" in v.get("generation_steps_s", {})]
+        log("dist (b) plan %s (%s): %.1f s, rc %s, survivors %s, hashes "
+            "%s, reforms %s, invariants %s; kill to the survivors' first "
+            "step of generation 1: %s s (the last step of generation 0 to "
+            "the first of generation 1) [%s]"
+            % (DIST_ELASTIC_PLAN, plan.describe(), outcome["wall_s"],
+               outcome["rc"], sorted(alive),
+               "equal" if len(hashes) == 1 else "DIFFER", reforms,
+               [v.to_dict() for v in viols] or "all green",
+               " ".join("%.3f" % x for x in recovery), card))
+        if viols:
+            problems.append("(b) invariants: %s" % [v.to_dict()
+                                                   for v in viols])
+        if len(hashes) != 1 or reforms != [1] or sorted(alive) != [0, 1] \
+                or len(recovery) != 2:
+            problems.append("(b) survivors %s, hashes %d, reforms %s"
+                            % (sorted(alive), len(hashes), reforms))
+
+        # (c) dist_async at MXTPU_KV_STALENESS=4, and (d) the serving and
+        # training plans on the card, side by side: none of them is timed
+        adir = os.path.join(tmp, "async")
+        os.makedirs(adir)
+        out = {}
+
+        def run_async():
+            out["c"] = _launch_ranks(
+                "dist-async-child", DIST_RANKS, adir, seed,
+                env={"MXTPU_KV_STALENESS": str(DIST_ASYNC_STALENESS)})
+
+        def run_plan(name):
+            plan = chaos.ChaosPlan.load(os.path.join(root, DIST_PLANS, name))
+            outcome = chaos.run_plan(plan, os.path.join(tmp, name),
+                                     deadline=DIST_DEADLINE)
+            out[name] = (plan, outcome, chaos.check_scenario(plan, outcome))
+
+        def guarded(fn, *a):
+            try:
+                fn(*a)
+            except BaseException as e:      # reported below, never lost
+                out.setdefault("errors", []).append(repr(e)[:4000])
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=guarded, args=(run_async,))] + [
+            threading.Thread(target=guarded, args=(run_plan, name))
+            for name in DIST_CARD_PLANS]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(DIST_DEADLINE + 60)
+            if t.is_alive():
+                raise SystemExit("dist (c)/(d): a run outlived its deadline")
+        if out.get("errors"):
+            raise SystemExit("dist (c)/(d) failed: %s" % out["errors"])
+        ares, atook = out["c"]
+        lag = max(r["max_lag"] for r in ares)
+        acc = min(r["accuracy"] for r in ares)
+        log("dist (c) dist_async, MXTPU_KV_STALENESS=%d, %d ranks on %s, the "
+            "chaos scenario's MLP, 6 epochs (%.1f s): largest staleness lag "
+            "%d (bound %d), training accuracy %s (bar %.2f), steps %s"
+            % (DIST_ASYNC_STALENESS, DIST_RANKS, DIST_CTX, atook, lag,
+               DIST_ASYNC_STALENESS, [round(r["accuracy"], 4) for r in ares],
+               DIST_ASYNC_ACC, [r["steps"] for r in ares]))
+        if lag > DIST_ASYNC_STALENESS or acc < DIST_ASYNC_ACC:
+            problems.append("(c) lag %d, accuracy %.4f" % (lag, acc))
+        for name in DIST_CARD_PLANS:
+            plan, outcome, viols = out[name]
+            res_d = outcome["result"] or {}
+            log("dist (d) plan %s (%s) on %s: %.1f s, rc %s, outcome %s, "
+                "fired %s, invariants %s"
+                % (name, plan.describe(), DIST_CTX, outcome["wall_s"],
+                   outcome["rc"], res_d.get("outcome"),
+                   res_d.get("fault_fired"),
+                   [v.to_dict() for v in viols] or "all green"))
+            if viols:
+                problems.append("(d) %s: %s" % (name, [v.to_dict()
+                                                      for v in viols]))
+        log("dist (c) and (d) side by side: %.1f s" % (time.perf_counter()
+                                                     - t0))
+    log("dist: the phase took %.1f s" % (time.perf_counter() - t_phase))
+    if problems:
+        raise SystemExit("dist phase failed: " + "; ".join(problems))
+    return launches
+
+
 def _nodes(sym):
     from mxnet_tpu_torch.symbol import _topo
     return _topo(sym._out_nodes())
@@ -7159,6 +7520,10 @@ def main():
     ap.add_argument("--reps", type=int, default=20,
                     help="timed repetitions per measurement")
     ap.add_argument("--lstm-profile-child", metavar="DIR",
+                    help=argparse.SUPPRESS)
+    ap.add_argument("--dist-sync-child", metavar="DIR",
+                    help=argparse.SUPPRESS)
+    ap.add_argument("--dist-async-child", metavar="DIR",
                     help=argparse.SUPPRESS)
     args = ap.parse_args()
     try:
@@ -7174,6 +7539,11 @@ def main():
     if args.lstm_profile_child:
         # phase 16 (e) runs this in a fresh process
         return lstm_profile_child(args.lstm_profile_child, args.seed)
+    if args.dist_sync_child:
+        # phase 22 (a) runs this once a rank, through the port's launcher
+        return dist_sync_child(args.dist_sync_child, args.seed)
+    if args.dist_async_child:
+        return dist_async_child(args.dist_async_child, args.seed)
     from mxnet_tpu_torch import cuda_build
     from mxnet_tpu_torch.ops import nn as _nn
 
@@ -7218,12 +7588,15 @@ def main():
     axes_phase(args.seed, card)
     mp_launches = mp_phase(args.seed, card, lm_trained)
     op_rows, examples = slice_phase(args.seed, args.reps, card)
+    dist_launches = dist_phase(args.seed, card)
     # B1 runs on three main paths: the train phase, the training API and
     # the bf16 mesh; its float32 route on the module phase and the f32 mesh
-    b1.update(launches=b1["launches"] + api_launches + mesh_launches["wgmma"],
+    b1.update(launches=(b1["launches"] + api_launches + mesh_launches["wgmma"]
+                        + dist_launches),
               launches_train=b1["launches"],
               launches_training_api=api_launches,
-              launches_mesh=mesh_launches["wgmma"])
+              launches_mesh=mesh_launches["wgmma"],
+              launches_dist=dist_launches)
     b1_f32.update(launches=b1_f32["launches"] + mesh_launches["tf32x3"],
                   launches_module=b1_f32["launches"],
                   launches_mesh=mesh_launches["tf32x3"])

@@ -74,6 +74,9 @@ from . import io
 from . import data
 from . import kvstore
 from . import kvstore as kv
+from . import dist_ring
+from . import kvstore_server
+from .kvstore_server import _init_distributed as tools_init_distributed
 from . import callback
 from . import model
 from .model import FeedForward

@@ -139,6 +139,19 @@ class Speedometer(object):
         return ("\tData: stall=%.3fs q=%s"
                 % (d, "%.1f" % q if q is not None else "n/a"))
 
+    @staticmethod
+    def _dist_suffix(param):
+        """``Dist: workers=N stale=S`` whenever the run trains through a
+        dist kvstore: N is the current ring size (it shrinks in the log
+        when a re-form drops a dead worker) and S the bounded-staleness
+        lag at the last pull (0 under dist_sync), both read from this
+        run's module."""
+        kv = getattr(_local(param, "self"), "_kvstore", None)
+        if kv is None or "dist" not in getattr(kv, "type", ""):
+            return ""
+        return ("\tDist: workers=%d stale=%d"
+                % (kv.num_workers, int(getattr(kv, "staleness_lag", 0))))
+
     def __call__(self, param):
         count = param.nbatch
         if self.last_count > count:
@@ -157,7 +170,8 @@ class Speedometer(object):
                 tok = (" (%.1f tokens/sec)" % (speed * tps)
                        if tps > 1 else "")
                 suffix = self._pipeline_suffix(param) \
-                    + self._data_suffix(param) + self._health_suffix(param)
+                    + self._data_suffix(param) + self._dist_suffix(param) \
+                    + self._health_suffix(param)
                 if param.eval_metric is not None:
                     name_value = param.eval_metric.get_name_value()
                     param.eval_metric.reset()
@@ -187,6 +201,19 @@ class ProgressBar(object):
     def __init__(self, total, length=80):
         self.bar_len = length
         self.total = total
+
+    @staticmethod
+    def _dist_suffix(param):
+        """``Dist: workers=N stale=S`` whenever the run trains through a
+        dist kvstore: N is the current ring size (it shrinks in the log
+        when a re-form drops a dead worker) and S the bounded-staleness
+        lag at the last pull (0 under dist_sync), both read from this
+        run's module."""
+        kv = getattr(_local(param, "self"), "_kvstore", None)
+        if kv is None or "dist" not in getattr(kv, "type", ""):
+            return ""
+        return ("\tDist: workers=%d stale=%d"
+                % (kv.num_workers, int(getattr(kv, "staleness_lag", 0))))
 
     def __call__(self, param):
         count = param.nbatch

@@ -5,9 +5,8 @@ imports nothing of the JAX package). A named call site counts its
 invocations and an armed rule fires on exactly the nth call, so every
 recovery path is tested without sleeps, races or flaky timing.
 
-Sites the port instruments (the static registry :data:`SITES`; the JAX
-package's other sites come with the modules that fire them: the kvstore
-and the distributed ring):
+Sites the port instruments (the static registry :data:`SITES`, the JAX
+package's registry name for name):
 
 ===========================  ==============================================
 site                         where it fires
@@ -70,6 +69,22 @@ site                         where it fires
                              surviving replicas (no hang, no silent shed;
                              only requests whose engine dispatch had
                              already started fail)
+``kvstore.push``             before a ``KVStore`` push (``"transient"`` and
+                             ``"drop"`` are retried per the fault policy)
+``kvstore.pull``             before a ``KVStore`` pull
+``kvstore.barrier``          before a ``KVStore`` barrier
+``kvstore.dead_node``        inside ``KVStore.check_health`` — ``"dead:N"``
+                             reports N dead workers (a drill; the dist
+                             chaos scenario kills real processes instead)
+``kv.worker_die``            top of every ``dist_ring.Ring`` collective —
+                             ``"die"`` SIGKILLs this process
+``kv.push_delay``            before a dist push (sync and async) — makes
+                             this worker a straggler
+``kv.partition``             per peer-key poll inside a ring fetch —
+                             ``"drop"`` requeues the read; a persistent
+                             partition ends in ``KVStoreTimeoutError``
+``kv.reform_delay``          before the re-form leader publishes a
+                             membership proposal — a slow leader
 ===========================  ==============================================
 
 Rule kinds:
@@ -78,8 +93,9 @@ Rule kinds:
 - ``"transient"``  raise :class:`InjectedTransientFault` (retry-eligible)
 - ``"delay"``      ``time.sleep(delay)`` then continue (timeout testing)
 - any other string is returned from :func:`fire` for the site to interpret
-  (``"drop"`` at ``serve.enqueue_drop``, ``"die"`` at
-  ``fleet.replica_die``)
+  (``"drop"`` at ``serve.enqueue_drop`` and ``kv.partition``, ``"die"``
+  at ``fleet.replica_die`` and ``kv.worker_die``, ``"dead:N"`` at
+  ``kvstore.dead_node``)
 
 Arming is programmatic (``faults.inject(site, nth=3, kind="drop")``, the
 :func:`scoped` context manager, or :func:`arm` with a list of rule dicts
@@ -202,6 +218,25 @@ _register("guard.loss_spike", ("poison",), ("train",),
           flag=True)
 _register("guard.param_nan", ("poison",), ("train",),
           "at checkpoint save — forces the known-good bit off", flag=True)
+_register("kvstore.push", ("transient", "delay"), ("dist",),
+          "before a KVStore push")
+_register("kvstore.pull", ("transient", "delay"), ("dist",),
+          "before a KVStore pull")
+_register("kvstore.barrier", ("transient", "delay"), ("dist",),
+          "before a KVStore barrier")
+_register("kvstore.dead_node", ("dead:1",), (),
+          "inside KVStore.check_health (simulated-dead-worker drill; not "
+          "chaos-sampled — the dist scenario kills REAL processes via "
+          "kv.worker_die instead)")
+_register("kv.worker_die", ("die",), ("dist",),
+          "top of every dist_ring.Ring collective — SIGKILLs this process")
+_register("kv.push_delay", ("delay",), ("dist",),
+          "before a dist push — makes this worker a straggler")
+_register("kv.partition", ("drop",), ("dist",),
+          "per peer-key poll inside a ring fetch — drops that poll")
+_register("kv.reform_delay", ("delay",), ("dist",),
+          "before the re-form leader publishes a membership proposal — a "
+          "slow leader; survivors converge late or raise in bounded time")
 _register("serve.enqueue_drop", ("drop",), ("serve",),
           "per serving.Batcher.submit — back-pressure shed at the edge")
 _register("serve.decode_die", ("die",), ("serve",),

@@ -24,7 +24,15 @@ JAX package's dispatch structure:
 - the training guard (``guard=``, ``MXTPU_GUARD``): guarded steps skip
   non-finite batches on the device, and a diverging loss rolls back to the
   newest known-good checkpoint with the learning rate scaled down
-  (:mod:`~mxnet_tpu_torch.guard`).
+  (:mod:`~mxnet_tpu_torch.guard`);
+- elastic distributed training (a dist kvstore): every dispatch runs
+  eagerly (no deferred read-back), each batch feeds the kvstore's
+  dead-node health check (warn, emergency checkpoint, then
+  :class:`~mxnet_tpu_torch.kvstore.WorkerLostError`), and a lost worker
+  makes the survivors seal an emergency checkpoint, re-form the ring at
+  N-1, adopt the leader's newest checkpoint, re-derive the gradient
+  rescale and their data shards (``train_data.reshard_workers(index,
+  size)``) and resume; a late worker is admitted at an epoch boundary.
 
 Knobs resolve as explicit argument, then environment, then the committed
 tuning DB (:func:`mxnet_tpu_torch.autotune.resolve_fit_knobs`, matched on
@@ -371,6 +379,11 @@ class BaseModule(object):
                 k = 1
         if k <= 1 or fused_dispatch is None:
             pl_depth = 0    # per-step training reads its outputs anyway
+        if getattr(self, "_is_dist_kvstore", lambda: False)():
+            # every dist dispatch already waits on the cross-process sum,
+            # so a peer's failure surfaces at its dispatch; deferred
+            # read-backs would only widen the state a re-form discards
+            pl_depth = 0
         pipeline = _DispatchPipeline(pl_depth)
         if k > 1:
             from .. import data as _data
@@ -415,6 +428,7 @@ class BaseModule(object):
                     for callback in _as_list(batch_end_callback):
                         callback(cb_params)
 
+        from ..kvstore import WorkerLostError as _WorkerLost
         _flight.note("fit_start", epoch=begin_epoch)
         # graceful preemption: SIGTERM only sets a flag, checked once a loop
         # iteration (never mid-dispatch), and starts a hard deadline after
@@ -537,6 +551,11 @@ class BaseModule(object):
                                     ckpt_mgr.save(self, epoch, nbatch + 1,
                                                   metric=eval_metric)
                                 since_ckpt = 0
+                        self._check_worker_health(
+                            ckpt_mgr, eval_metric, epoch, nbatch,
+                            drain_pipeline=lambda e=epoch: _consume(
+                                pipeline.drain(), e),
+                            guard=guard)
                         if preempt is not None and preempt["flag"]:
                             _consume(pipeline.drain(), epoch)
                             self._graceful_preempt(preempt, ckpt_mgr, guard,
@@ -562,6 +581,21 @@ class BaseModule(object):
                                        reason=guard.diverged_reason)
                     pipeline.discard()
                     resume_state = self._guard_rollback(guard, ckpt_mgr)
+                    epoch = resume_state.epoch
+                    train_iter.reset()
+                    if iter_set_epoch is not None:
+                        iter_set_epoch(epoch)
+                    continue
+                except _WorkerLost as wle:
+                    # a peer died mid-epoch: drop the dispatches in flight
+                    # (their cross-worker sums never completed), re-form
+                    # and re-enter the epoch loop as a resume
+                    _obs_trace.instant("worker_lost", epoch=epoch,
+                                       nbatch=nbatch)
+                    pipeline.discard()
+                    resume_state = self._elastic_reform(
+                        wle, ckpt_mgr, guard, eval_metric, epoch, nbatch,
+                        train_data)
                     epoch = resume_state.epoch
                     train_iter.reset()
                     if iter_set_epoch is not None:
@@ -606,6 +640,10 @@ class BaseModule(object):
                                          nbatch=0):
                         ckpt_mgr.save(self, epoch + 1, 0)
                     ckpt_mgr.drain()
+                # the epoch boundary is the only admission point for late
+                # workers: a mid-epoch join would change the gradient's
+                # denominator between checkpoints
+                self._admit_dist_joiners(ckpt_mgr, train_data)
                 if train_iter is train_data or epoch < num_epoch - 1:
                     train_iter.reset()
                 else:
@@ -734,6 +772,168 @@ class BaseModule(object):
                             "rollback_epoch": st.epoch})
         guard.note_rollback(st.tag)
         return st
+
+    def _elastic_reform(self, err, ckpt_mgr, guard, eval_metric, epoch,
+                        nbatch, train_data=None):
+        """Worker-loss recovery: the survivors seal a durable emergency
+        checkpoint, re-form the control-plane ring at N-1, adopt one
+        authoritative state (the leader's newest checkpoint: survivors
+        can be one step apart at the failure), re-derive the gradient
+        rescale and this worker's data shard, and hand ``fit`` a resume
+        cursor. Raises :class:`~mxnet_tpu_torch.kvstore.WorkerLostError`
+        (with a flight dump) when the re-form budget
+        (``MXTPU_KV_MAX_REFORMS``) is spent or the store cannot re-form."""
+        from ..kvstore import WorkerLostError
+        kv = getattr(self, "_kvstore", None)
+        if kv is None or getattr(kv, "reform", None) is None \
+                or ckpt_mgr is None:
+            why = ("fit() has no checkpoint_prefix to recover through"
+                   if kv is not None and ckpt_mgr is None
+                   else "kvstore has no elastic re-form support")
+            _flight.dump("WorkerLostError: %s" % err, extra={"elastic": why})
+            raise err
+        max_reforms = int(getattr(kv, "max_reforms", 0))
+        if int(getattr(kv, "reforms", 0)) >= max_reforms:
+            _flight.dump("WorkerLostError: re-form budget exhausted",
+                         extra={"reforms": int(kv.reforms),
+                                "max_reforms": max_reforms,
+                                "liveness": kv.liveness_table()})
+            raise WorkerLostError(
+                "worker lost and the re-form budget is exhausted (%d "
+                "re-form(s) this run, MXTPU_KV_MAX_REFORMS=%d): %s"
+                % (kv.reforms, max_reforms, err)) from err
+        self.logger.warning(
+            "worker lost (%s): re-forming the ring (re-form %d/%d)",
+            err, int(kv.reforms) + 1, max_reforms)
+        # 1. this survivor's own durable emergency checkpoint before any
+        # more ring traffic: if the re-form fails, the run stays resumable
+        ckpt_mgr.drain()
+        if guard is None or guard.ok_to_checkpoint():
+            ckpt_mgr.save(self, epoch, nbatch + 1, metric=eval_metric)
+        ckpt_mgr.drain()
+        # 2. re-form at N-1 (plus any joiners already waiting)
+        kv.reform()
+        # 3. one authoritative state for the new ring
+        st = self._adopt_leader_checkpoint(kv, ckpt_mgr)
+        self.init_params(initializer=None, arg_params=st.arg_params,
+                         aux_params=st.aux_params, allow_missing=False,
+                         force_init=True)
+        self._drop_fused_state()
+        # the rescale before the optimizer states: set_optimizer makes a
+        # fresh kvstore updater, which the resume state then fills
+        self._refresh_dist_scale()
+        self._apply_resume_state(st)
+        self._reshard_train_data(kv, train_data)
+        _flight.dump(
+            "ring re-formed at %d worker(s), resuming from %s"
+            % (kv.num_workers, st.tag),
+            extra={"liveness": kv.liveness_table(),
+                   "reforms": int(kv.reforms), "resume_tag": st.tag,
+                   "resume_epoch": st.epoch,
+                   "batches_done": st.batches_done})
+        self.logger.warning(
+            "ring re-formed: %d worker(s) (this rank now index %d), "
+            "resuming from %s (epoch %d, %d batches done)",
+            kv.num_workers, kv.worker_index, st.tag, st.epoch,
+            st.batches_done)
+        return st
+
+    def _adopt_leader_checkpoint(self, kv, ckpt_mgr):
+        """Broadcast the leader's newest checkpoint bytes over the ring
+        and install and load them on every member, so the re-formed
+        replicas are bitwise identical (and a fresh resume from the same
+        prefix reproduces this state)."""
+        payload = b""
+        if kv.worker_index == 0:
+            payload = ckpt_mgr.export_latest()
+        blob = kv.broadcast_bytes(payload)
+        if kv.worker_index != 0 and blob:
+            ckpt_mgr.import_blob(blob)
+        st = ckpt_mgr.load_latest()
+        if st is None:
+            raise MXNetError(
+                "ring re-form: no loadable checkpoint after the leader "
+                "broadcast (prefix %r)" % (ckpt_mgr.prefix,))
+        return st
+
+    def _reshard_train_data(self, kv, train_data):
+        """This worker's data shard from its new (index, size) after a
+        membership change, through ``train_data.reshard_workers``; other
+        iterators keep their shard (correct but overlapping, so the run
+        says so)."""
+        if train_data is None:
+            return
+        reshard = getattr(train_data, "reshard_workers", None)
+        if reshard is not None:
+            reshard(kv.worker_index, kv.num_workers)
+        else:
+            self.logger.warning(
+                "train_data has no reshard_workers(index, size): keeping "
+                "the pre-reform shard (the dead worker's shard is not "
+                "redistributed this run)")
+
+    def _admit_dist_joiners(self, ckpt_mgr, train_data):
+        """Epoch-boundary admission: when a late worker has asked to
+        join, re-form the ring to include it and broadcast the leader's
+        epoch-boundary checkpoint as its warm start; incumbents re-derive
+        shards and rescale as after a loss. The decision rides a leader
+        broadcast, so every incumbent reaches the same verdict."""
+        kv = getattr(self, "_kvstore", None)
+        if kv is None or "dist" not in getattr(kv, "type", ""):
+            return
+        poll = getattr(kv, "pending_joiners", None)
+        bcast = getattr(kv, "broadcast_bytes", None)
+        if poll is None or bcast is None or ckpt_mgr is None \
+                or kv.num_workers <= 0:
+            return
+        import pickle
+        payload = b""
+        if kv.worker_index == 0:
+            payload = pickle.dumps(sorted(poll()))
+        blob = bcast(payload)
+        if not blob:
+            return  # no elastic transport: broadcast_bytes is identity
+        pending = pickle.loads(blob)
+        if not pending:
+            return
+        self.logger.info("admitting joining worker(s) %s at the epoch "
+                         "boundary", list(pending))
+        kv.reform()
+        self._adopt_leader_checkpoint(kv, ckpt_mgr)
+        self._drop_fused_state()
+        self._refresh_dist_scale()
+        self._reshard_train_data(kv, train_data)
+
+    def _check_worker_health(self, ckpt_mgr, eval_metric, epoch, nbatch,
+                             drain_pipeline=None, guard=None):
+        """The dist kvstore's degradation policy, once a batch boundary:
+        ``num_dead_node`` feeds warn, emergency checkpoint, then
+        :class:`~mxnet_tpu_torch.kvstore.WorkerLostError`
+        (``KVStore.check_health`` throttles the heartbeat scan). No-op for
+        local stores."""
+        kv = getattr(self, "_kvstore", None)
+        if kv is None or "dist" not in getattr(kv, "type", ""):
+            return
+        on_degraded = None
+        if ckpt_mgr is not None:
+            def on_degraded():
+                # sealing needs every dispatch in flight retired first,
+                # and a diverged state is never sealed
+                if drain_pipeline is not None:
+                    drain_pipeline()
+                if guard is not None and not guard.ok_to_checkpoint():
+                    self.logger.warning(
+                        "worker-loss emergency checkpoint skipped: the "
+                        "guard reports the current state unsafe to seal")
+                    return
+                ckpt_mgr.drain()
+                ckpt_mgr.save(self, epoch, nbatch + 1, metric=eval_metric)
+                ckpt_mgr.drain()
+        kv.check_health(on_degraded=on_degraded)
+
+    def _refresh_dist_scale(self):
+        """Hook: re-derive the gradient rescale (1 / global batch) after
+        a dist membership change."""
 
     def _drop_fused_state(self):
         """Hook: discard any fused device state unwritten, so the next

@@ -32,6 +32,14 @@ puts four positions on one card) and else over every visible device;
 ``param_shardings`` maps parameter names to partition specs for it
 (e.g. the stacked layer weights onto ``P('pipe')``). A dist kvstore
 refuses it, as in the JAX package.
+
+Under a dist kvstore (``fit(kvstore="dist_sync")`` in processes started
+by ``mxnet_tpu_torch.tools.launch``) each process trains its shard of the
+global batch: ``rescale_grad`` is ``1/(batch * num_workers)``, the
+kvstore's init broadcasts rank 0's parameters, and the fused step sums
+the gradients across the processes through the kvstore's ring once a
+step (``TrainStep.dist_reduce``). The legacy ``MXTPU_DIST_TRANSPORT=mesh``
+trains through the executor, its kvstore summing over gloo.
 """
 from __future__ import annotations
 
@@ -396,7 +404,11 @@ class Module(BaseModule):
         self._sync_fused_to_executor()
         (kvstore, update_on_kvstore) = _create_kvstore(
             kvstore, len(self._context), self._arg_params)
-        rescale_grad = 1.0 / self._exec_group.batch_size
+        batch_size = self._exec_group.batch_size
+        if kvstore and "dist" in kvstore.type:
+            # each worker's batch is its shard of the global batch
+            batch_size *= kvstore.num_workers
+        rescale_grad = 1.0 / batch_size
         if isinstance(optimizer, str):
             idx2name = dict(enumerate(self._exec_group.param_names))
             optimizer_params = dict(optimizer_params)
@@ -410,8 +422,9 @@ class Module(BaseModule):
             if optimizer.rescale_grad != rescale_grad:
                 self.logger.warning(
                     "Optimizer created manually outside Module but "
-                    "rescale_grad is not normalized to 1.0/batch_size "
-                    "(%s vs. %s).", optimizer.rescale_grad, rescale_grad)
+                    "rescale_grad is not normalized to 1.0/batch_size/"
+                    "num_workers (%s vs. %s).", optimizer.rescale_grad,
+                    rescale_grad)
         self._optimizer = optimizer
         self._kvstore = kvstore
         self._update_on_kvstore = update_on_kvstore
@@ -451,6 +464,28 @@ class Module(BaseModule):
         self._fused_outputs = None
         self._fused_dirty = False
         self._fused_params_stale = False
+
+    def _refresh_dist_scale(self):
+        """Re-form hook: the live worker count changed, and with it the
+        global batch behind ``rescale_grad``. Re-derives the scale into
+        every optimizer copy (the kvstore's pickled one included) and drops
+        the fused TrainStep, built with the old one. Runs before the
+        checkpoint's optimizer states are re-applied: ``set_optimizer``
+        makes a fresh kvstore updater."""
+        kv = self._kvstore
+        if kv is None or "dist" not in kv.type:
+            return
+        rescale = 1.0 / (self._exec_group.batch_size
+                         * max(1, kv.num_workers))
+        if self._optimizer is not None:
+            self._optimizer.rescale_grad = rescale
+        upd_opt = getattr(self._resolve_updater(), "optimizer", None)
+        if upd_opt is not None and upd_opt is not self._optimizer:
+            upd_opt.rescale_grad = rescale
+        if self._update_on_kvstore and self._optimizer is not None:
+            kv.set_optimizer(self._optimizer)
+        self._fused = None
+        self._drop_fused_state()
 
     def _scale_lr(self, factor):
         """Rollback hook: scale the learning rate everywhere the next step
@@ -518,6 +553,11 @@ class Module(BaseModule):
             return False
         if not getattr(self._optimizer, "fused_supported", False):
             return False
+        if (self._is_dist_kvstore()
+                and getattr(self._kvstore, "_ring", None) is None):
+            # the legacy mesh transport sums through the kvstore's push
+            # (gloo): the executor path, step by step
+            return False
         eg = self._exec_group
         return all(eg.grad_req.get(n, "null") in ("write", "null")
                    for n in eg.param_names)
@@ -574,6 +614,11 @@ class Module(BaseModule):
             batch_axes=eg.batch_axes,
             param_shardings=(self._param_shardings or None)
             if mesh is not None else None)
+        if self._is_dist_kvstore():
+            # each process runs its own step; the cross-process gradient
+            # sum is the ring's, once a step (a ring error leaves the
+            # pre-dispatch state for the re-form)
+            self._fused.dist_reduce = self._kvstore.grad_reduce
         self._fused_state = self._seed_fused_state()
         self._fused_params_stale = False
         self._fused_metrics_ok = self._infer_fused_metrics_ok()
@@ -613,9 +658,11 @@ class Module(BaseModule):
 
     def _global_batch_scale(self):
         """Factor from this process's samples a second to the global rate:
-        1, since the port's meshes live in one process whose iterator
-        yields the whole batch (multi-process data parallelism is
-        ROADMAP.md A.11b)."""
+        the live worker count under a dist kvstore, whose workers each
+        iterate their shard of the global batch; else 1 (the port's meshes
+        live in one process, whose iterator yields the whole batch)."""
+        if self._is_dist_kvstore():
+            return int(self._kvstore.num_workers)
         return 1
 
     def _speed_tokens_per_sample(self):

@@ -11,10 +11,11 @@ port imports nothing of the JAX package):
 - **Views**: a named callable returning a flat ``{key: value}`` dict. The
   process-global counter objects are registered as views:
   ``io.DATA_HEALTH`` (``data_health``), ``guard.TRAINING_HEALTH``
-  (``training_health``), ``serving.SERVING_HEALTH`` (``serving_health``)
-  and ``data.PIPELINE_STATS`` (``pipeline_stats``). The JAX package's
-  ``retrace_events`` and ``dist_health`` views come with the retrace watch
-  and the distributed ring, which the port does not have yet.
+  (``training_health``), ``serving.SERVING_HEALTH`` (``serving_health``),
+  ``data.PIPELINE_STATS`` (``pipeline_stats``) and
+  ``dist_ring.DIST_HEALTH`` (``dist_health``). The JAX package's
+  ``retrace_events`` view comes with the retrace watch, which the port
+  does not have yet.
 - **Snapshots**: :meth:`Registry.snapshot` flattens everything to
   ``{"view.key": value}`` (the flight recorder's dump carries one);
   :meth:`Registry.to_prometheus` renders the same snapshot as a
@@ -354,10 +355,15 @@ def register_default_views(registry=None):
         from ..data import stats as _st
         return _st.PIPELINE_STATS.report()
 
+    def dist_health():
+        from .. import dist_ring as _dr
+        return _dr.DIST_HEALTH.report()
+
     reg.register_view("data_health", data_health)
     reg.register_view("training_health", training_health)
     reg.register_view("serving_health", serving_health)
     reg.register_view("pipeline_stats", pipeline_stats)
+    reg.register_view("dist_health", dist_health)
     if registry is None:
         _default_views_done = True
     return reg

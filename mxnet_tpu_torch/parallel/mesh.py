@@ -21,9 +21,11 @@ per-device function whose collectives are implicit in the mesh axis
 names, and the port's single controller holds every position's tensor
 itself. The port's ``ring.ring_attention``, ``ring.ulysses_attention`` and
 ``pipeline.pipeline_apply`` take the mesh and the per-position tensors
-explicitly instead. ``global_data_mesh``, ``host_to_global``,
-``host_broadcast0`` and ``local_view`` wait for multi-process training
-(ROADMAP.md A.11b), and ``is_multiprocess`` is always False.
+explicitly instead. Across worker processes (the launcher's ranks),
+:func:`global_data_mesh` gives a :class:`ProcessMesh` and
+:func:`host_to_global`, :func:`host_broadcast0`, :func:`local_view` and
+:func:`grad_sync` move host tensors over the launcher's gloo process
+group.
 """
 from __future__ import annotations
 
@@ -68,10 +70,6 @@ def reset_counters():
     with _COUNT_LOCK:
         for k in COUNTERS:
             COUNTERS[k] = 0
-
-
-def _not_ported(what, item):
-    raise MXNetError("%s is not ported yet (ROADMAP.md %s)" % (what, item))
 
 
 class P(tuple):
@@ -340,25 +338,129 @@ def superbatch_sharding(mesh, axis=AXIS_DATA, seq=False):
     return NamedSharding(mesh, P(None, axis))
 
 
+def _process_group():
+    """The launcher's gloo process group, None in one process."""
+    import torch.distributed as dist
+    if dist.is_available() and dist.is_initialized() \
+            and dist.get_world_size() > 1:
+        return dist
+    return None
+
+
+class ProcessMesh(object):
+    """The multi-process 'data' mesh: one position per worker process
+    (``nproc`` of them, this one at ``rank``), each holding its
+    ``local_devices``. Its collectives run over the launcher's gloo
+    process group on host tensors (the legacy
+    ``MXTPU_DIST_TRANSPORT=mesh`` path); it cannot re-form when a worker
+    dies."""
+
+    def __init__(self, axis_name, rank, nproc, local_devices):
+        self.axis_names = (axis_name,)
+        self.rank = int(rank)
+        self.nproc = int(nproc)
+        self.local_devices = list(local_devices)
+
+    @property
+    def shape(self):
+        return collections.OrderedDict([(self.axis_names[0], self.nproc)])
+
+    def size(self, axis):
+        return self.nproc if axis in self.axis_names else 1
+
+    def __repr__(self):
+        return "ProcessMesh(%s=%d, rank=%d, local=%s)" % (
+            self.axis_names[0], self.nproc, self.rank,
+            [str(d) for d in self.local_devices])
+
+
+class GlobalArray(object):
+    """A value over a :class:`ProcessMesh`: ``data`` is the whole (global)
+    host tensor, which every process holds, and ``spec`` the partition
+    spec it was built with; ``local`` is this process's part of it."""
+
+    def __init__(self, mesh, spec, data, local):
+        self.mesh = mesh
+        self.spec = P(*spec) if spec is not None else P()
+        self.data = data
+        self.local = local
+
+    @property
+    def shape(self):
+        return tuple(self.data.shape)
+
+    @property
+    def is_fully_replicated(self):
+        return all(a is None for a in self.spec)
+
+
 def is_multiprocess(mesh):
-    """Always False: the port's meshes live in one process."""
-    return False
+    """True when the mesh spans more than one worker process (a
+    :class:`ProcessMesh` of several); the port's other meshes live in one
+    process."""
+    return isinstance(mesh, ProcessMesh) and mesh.nproc > 1
 
 
 def global_data_mesh(axis_name=AXIS_DATA, local_devices=None):
-    _not_ported("global_data_mesh (multi-process data parallelism)", "A.11b")
+    """The mesh over every worker process along one data axis, the
+    multi-process counterpart of the JAX package's global device mesh:
+    batch shards ride the axis across processes, and the gradient sum is
+    a gloo all-reduce (:func:`grad_sync`). ``local_devices`` are this
+    process's devices (default: the first visible device); workers are
+    assumed symmetric, as in the reference."""
+    pg = _process_group()
+    rank, nproc = (pg.get_rank(), pg.get_world_size()) if pg else (0, 1)
+    if local_devices is None:
+        local_devices = devices()[:1]
+    return ProcessMesh(axis_name, rank, nproc, local_devices)
+
+
+def _as_host(value):
+    if isinstance(value, torch.Tensor):
+        return value.detach().cpu()
+    return torch.from_numpy(np.ascontiguousarray(np.asarray(value)))
 
 
 def host_to_global(mesh, spec, local_value):
-    _not_ported("host_to_global (multi-process data parallelism)", "A.11b")
+    """A :class:`GlobalArray` from per-process host data: along a
+    dimension whose spec names the mesh axis ``local_value`` is this
+    process's portion (its batch shard) and the global value concatenates
+    every process's in rank order; for a replicated spec every process
+    passes the same whole value."""
+    local = _as_host(local_value)
+    spec = P(*(spec or ()))
+    dims = [d for d, a in enumerate(spec) if a in mesh.axis_names]
+    pg = _process_group()
+    if not dims or pg is None or mesh.nproc == 1:
+        return GlobalArray(mesh, spec, local, local)
+    _count("all_gather")
+    parts = [torch.empty_like(local) for _ in range(mesh.nproc)]
+    pg.all_gather(parts, local.contiguous())
+    return GlobalArray(mesh, spec, torch.cat(parts, dims[0]), local)
 
 
 def host_broadcast0(mesh, value):
-    _not_ported("host_broadcast0 (multi-process data parallelism)", "A.11b")
+    """Rank 0's host value on every process, as a numpy array: the dist
+    kvstore's init semantics (one authoritative copy, like the reference
+    server's single stored weight)."""
+    t = _as_host(value).clone()
+    pg = _process_group()
+    if pg is not None and getattr(mesh, "nproc", 1) > 1:
+        _count("all_reduce")
+        pg.broadcast(t, src=0)
+    return t.numpy()
 
 
 def local_view(arr):
-    _not_ported("local_view (multi-process data parallelism)", "A.11b")
+    """This process's part of a :class:`GlobalArray` (the per-worker view
+    of batch-split outputs: each worker computes metrics on its own
+    shard, as the reference's per-worker eval does); a replicated one
+    whole; anything else as it is."""
+    if not isinstance(arr, GlobalArray):
+        return arr
+    if arr.is_fully_replicated:
+        return arr.data
+    return arr.local
 
 
 # ---------------------------------------------------------------------------
@@ -711,9 +813,19 @@ def all_to_all(parts, devices, split_dim, concat_dim):
 
 def grad_sync(grads, axis_name=AXIS_DATA):
     """Explicit gradient all-reduce: every :class:`MeshArray` of ``grads``
-    (a dict) becomes the replicated sum of its parts."""
+    (a dict) becomes the replicated sum of its parts; every host value (a
+    numpy array or tensor) becomes its sum over the worker processes, a
+    gloo all-reduce (itself in one process), in its own type."""
     out = {}
+    pg = _process_group()
     for k, g in grads.items():
-        devs = g.mesh.replica_devices()
-        out[k] = MeshArray(g.mesh, all_reduce(g.parts, devs), None)
+        if isinstance(g, MeshArray):
+            devs = g.mesh.replica_devices()
+            out[k] = MeshArray(g.mesh, all_reduce(g.parts, devs), None)
+            continue
+        t = _as_host(g).clone()
+        if pg is not None:
+            _count("all_reduce")
+            pg.all_reduce(t)
+        out[k] = t if isinstance(g, torch.Tensor) else t.numpy()
     return out

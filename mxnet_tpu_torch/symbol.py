@@ -187,6 +187,16 @@ class Symbol(object):
     def __deepcopy__(self, memo):
         return load_json(self.tojson())
 
+    # pickle through the JSON graph, as the JAX package does: the node
+    # objects hold op functions pickle cannot name, and a deep net's
+    # recursive inputs would pass the recursion limit (a dist kvstore's
+    # set_optimizer pickles the optimizer, which holds the symbol)
+    def __getstate__(self):
+        return {"json": self.tojson()}
+
+    def __setstate__(self, state):
+        self._outputs = load_json(state["json"])._outputs
+
     # -- arithmetic composition (ref: python/mxnet/symbol.py) -----------
     def _binary(self, opname, other, reverse=False):
         if isinstance(other, Symbol):

@@ -75,11 +75,23 @@ that are neither in ``label_names`` nor an ``Embedding``'s indices.
   ``MeshScope``, so sequence-parallel attention and the pipelined layer
   stack see it. A mesh step equals the one-device step at the same
   global batch.
+
+- ``dist_reduce`` (a dist kvstore's ``grad_reduce``, which ``Module``
+  attaches) sums the update set's gradients across worker processes once
+  a step: flattened into one float32 vector, copied to the host, summed
+  over the control-plane ring in member order, copied back. It runs after
+  the ``guard.grad_nan`` poison (a poisoned worker poisons every replica)
+  and before the clip and the guard, which read the global gradient. An
+  error from the ring ends the dispatch before that step's update and is
+  raised after the pre-dispatch state is put back, so a re-form starts
+  from the state every survivor had (the JAX package gets there by not
+  donating the state and re-raising after its dispatch).
 """
 from __future__ import annotations
 
 import functools
 import logging
+import time
 
 import numpy as np
 import torch
@@ -307,6 +319,35 @@ def _copy_state(dst, src):
         dst.copy_(src)
 
 
+def _clone_tree(s):
+    """A copy of a state tree (dicts, lists, tuples of tensors)."""
+    if isinstance(s, dict):
+        return {k: _clone_tree(v) for k, v in s.items()}
+    if isinstance(s, (list, tuple)):
+        return type(s)(_clone_tree(v) for v in s)
+    return s.clone() if isinstance(s, torch.Tensor) else s
+
+
+def _copy_tree(dst, src):
+    """Copy a state tree's tensors into ``dst``'s, in place."""
+    if isinstance(dst, dict):
+        for k in dst:
+            _copy_tree(dst[k], src[k])
+    elif isinstance(dst, (list, tuple)):
+        for d, x in zip(dst, src):
+            _copy_tree(d, x)
+    elif isinstance(dst, torch.Tensor):
+        dst.copy_(src)
+
+
+class _RingFailed(Exception):
+    """A cross-process gradient sum failed; ``error`` is the ring's."""
+
+    def __init__(self, error):
+        super().__init__(str(error))
+        self.error = error
+
+
 def _select_state(ok, new, old):
     """``new`` where ``ok`` else ``old``, into ``new``'s tensors."""
     if isinstance(new, tuple):
@@ -435,6 +476,11 @@ class TrainStep(object):
                               for n in self._nodes) or getattr(
                                   self._opt, "fused_needs_key", False)
         self._base_key = None
+        # the cross-process gradient sum (Module attaches a dist kvstore's
+        # grad_reduce); dist_exchange counts the exchanges, the bytes each
+        # worker sends and their host seconds
+        self.dist_reduce = None
+        self.dist_exchange = {"count": 0, "bytes": 0, "seconds": 0.0}
 
     # ------------------------------------------------------------------
     def init(self, data_shapes, label_shapes=None, initializer=None, seed=0):
@@ -755,6 +801,11 @@ class TrainStep(object):
                                          [g[r] for g in summed], batch_size,
                                          poison)
                       for r, rep in enumerate(reps)]
+            if self.dist_reduce is not None and scaled[0]:
+                # every replica holds the same local sum: one exchange
+                red = self._cross_grad_reduce(scaled[0])
+                scaled = [[g.to(devs[r]) for g in red]
+                          for r in range(n_rep)]
             if scaled[0] and (guard or self._opt.clip_global_norm
                               is not None):
                 gnorm, others = self._global_norm(updated, scaled, specs)
@@ -772,6 +823,48 @@ class TrainStep(object):
                             None if ok is None else ok.to(devs[r]))
         return ([_like(o, [p.detach() for p in _parts(o)]) for o in outs],
                 (ok, gnorm) if guard else None)
+
+    def _cross_grad_reduce(self, gs):
+        """The gradients ``gs`` summed across worker processes: one float32
+        vector a step through ``dist_reduce``, split back into each
+        gradient's shape and dtype. An error from the ring is raised as
+        :class:`_RingFailed` for :meth:`_dist_sync_result`."""
+        t0 = time.perf_counter()
+        flat = torch.cat([g.float().reshape(-1) for g in gs])
+        host = flat.cpu().numpy()
+        try:
+            out = self.dist_reduce(host)
+        except Exception as e:
+            raise _RingFailed(e)
+        red = torch.from_numpy(np.ascontiguousarray(
+            out, dtype=np.float32)).to(flat.device)
+        ex = self.dist_exchange
+        ex["count"] += 1
+        ex["bytes"] += host.nbytes
+        ex["seconds"] += time.perf_counter() - t0
+        parts, off = [], 0
+        for g in gs:
+            n = g.numel()
+            parts.append(red[off:off + n].reshape(g.shape).to(g.dtype))
+            off += n
+        return parts
+
+    def _dist_sync_result(self, state, snapshot, err):
+        """The dispatch epilogue of a ring error: the pre-dispatch state
+        put back (``snapshot``, taken when a dispatch runs several steps;
+        a one-step dispatch fails before its update) and the ring's error
+        raised."""
+        if snapshot is not None:
+            with torch.no_grad():
+                _copy_tree(state, snapshot)
+        raise err.error
+
+    def _dist_snapshot(self, state, k):
+        """A copy of ``state`` to put back if a dist dispatch of ``k``
+        steps fails part-way; None when it cannot (one step, no dist)."""
+        if self.dist_reduce is None or k <= 1:
+            return None
+        return _clone_tree(state)
 
     def _scaled_grads(self, params, updated, grads, batch_size, poison):
         """The gradients in the parameters' dtype times ``rescale_grad``
@@ -878,8 +971,11 @@ class TrainStep(object):
         step)."""
         batch = self.shard_batch(batch)
         bs = next(iter(batch.values())).shape[0]
-        outs, sentinels = self._step(state, batch, self._next_lr(), bs,
-                                     guard=guard)
+        try:
+            outs, sentinels = self._step(state, batch, self._next_lr(), bs,
+                                         guard=guard)
+        except _RingFailed as e:
+            self._dist_sync_result(state, None, e)
         labels = [batch.get(n) for n in self.label_names]
         if self.mesh is not None:
             # the outputs merged in batch order on replica 0's device
@@ -951,10 +1047,14 @@ class TrainStep(object):
         accs = [torch.zeros(nslots, dtype=torch.float32, device=d)
                 for d in devs]
         skipped = gnorm = None
+        snapshot = self._dist_snapshot(state, k)
         for i in range(k):
             batch = {n: _index(v, i) for n, v in superbatch.items()}
-            outs, sentinels = self._step(state, batch, lrs[i], bs,
-                                         guard=guard)
+            try:
+                outs, sentinels = self._step(state, batch, lrs[i], bs,
+                                             guard=guard)
+            except _RingFailed as e:
+                self._dist_sync_result(state, snapshot, e)
             with torch.no_grad():
                 # the sums are tensors on the device (a spec fills its
                 # constants there): nothing here waits for the card

@@ -98,7 +98,13 @@ def test_arm_validates_sites_and_delay_sleeps():
              "serve.sample", "serve.spec_verify"]
     both = ["io.batch_read", "io.h2d", "superbatch.producer"]
     data = ["data.decode_delay", "data.worker_die", "io.record_read"]
-    assert sorted(tfaults.sites()) == sorted(train + serve + both + data)
+    dist = ["kv.partition", "kv.push_delay", "kv.reform_delay",
+            "kv.worker_die", "kvstore.barrier", "kvstore.pull",
+            "kvstore.push"]
+    assert sorted(tfaults.sites()) == sorted(train + serve + both + data
+                                             + dist + ["kvstore.dead_node"])
+    assert sorted(tfaults.sites()) == sorted(jfaults.sites())
+    assert sorted(tfaults.sites("dist")) == dist
     assert sorted(tfaults.sites("serve")) == serve
     assert sorted(tfaults.sites("train")) == sorted(train + both)
     assert sorted(tfaults.sites("data")) == sorted(both + data)
@@ -107,7 +113,7 @@ def test_arm_validates_sites_and_delay_sleeps():
         ref = jfaults.SITES[name]
         assert (info.kinds, info.flag) == (ref.kinds, ref.flag), name
     with pytest.raises(MXNetError, match="unregistered fault site"):
-        tfaults.arm([{"site": "kvstore.push", "kind": "transient"}])
+        tfaults.arm([{"site": "kvstore.pushed", "kind": "transient"}])
     tfaults.arm([{"site": "fleet.replica_die", "kind": "die", "nth": 2}])
     assert [tfaults.fire("fleet.replica_die") for _ in range(3)] == \
         [None, "die", None]

@@ -271,17 +271,37 @@ def test_fit_logs_each_knob_source(caplog, monkeypatch):
 
 
 
-@pytest.mark.parametrize("what,call", [
-    ("dist_sync", lambda m, it: m.fit(it, num_epoch=1,
-                                      kvstore="dist_sync")),
-    ("dist_async", lambda m, it: mt.kv.create("dist_async")),
-])
-def test_options_not_ported_raise(what, call):
-    _, tsym = _symbols("mlp")
+@pytest.mark.parametrize("what", ["dist_sync", "dist_async"])
+def test_dist_kvstore_without_a_launcher_matches_the_local_fit(
+        what, monkeypatch):
+    """A dist kvstore with no launcher environment is a one-worker store,
+    in both packages: ``fit(kvstore=...)`` gives the parameters of the
+    local fit of its own package (``rtol=1e-5``), and the port's the JAX
+    package's (the fit tolerance)."""
+    for v in ("MXTPU_COORD", "MXTPU_RANK", "MXTPU_NPROC"):
+        monkeypatch.delenv(v, raising=False)
+    jsym, tsym = _symbols("mlp")
     x, y = _data("mlp", "opts")
-    mod = mt.mod.Module(tsym, context=mt.cpu())
-    with pytest.raises(MXNetError, match=what):
-        call(mod, mt.io.NDArrayIter(x, y, batch_size=BATCH))
+    params = _arg_params(jsym, x, "opts")
+    got = {}
+    for pkg, sym, ctx in ((mx, jsym, mx.cpu()), (mt, tsym, mt.cpu())):
+        for kv in ("local", what):
+            mod = pkg.mod.Module(sym, context=ctx)
+            mod.fit(pkg.io.NDArrayIter(x, y, batch_size=BATCH), num_epoch=1,
+                    kvstore=kv, optimizer="sgd", optimizer_params=OPT,
+                    arg_params={n: pkg.nd.array(v, ctx=ctx)
+                                for n, v in params.items()})
+            if kv != "local":
+                assert mod._kvstore.type == what
+                assert mod._kvstore.num_workers == 1
+            got[(pkg.__name__, kv)] = _host(mod.get_params()[0])
+    for pkg in ("mxnet_tpu", "mxnet_tpu_torch"):
+        for n, v in got[(pkg, what)].items():
+            np.testing.assert_allclose(v, got[(pkg, "local")][n],
+                                       rtol=1e-5, atol=1e-6, err_msg=n)
+    for n, v in got[("mxnet_tpu_torch", what)].items():
+        np.testing.assert_allclose(v, got[("mxnet_tpu", what)][n],
+                                   err_msg=n, **TOL)
 
 
 @pytest.mark.parametrize("what,env,kw", [

@@ -133,17 +133,48 @@ def test_all_reduce_is_the_same_on_every_replica_and_differentiable():
 @pytest.mark.parametrize("what,call", [
     ("no counterpart", lambda: tmesh.shard_map_compat(None)),
     ("no counterpart", lambda: tmesh.axis_size("seq")),
-    ("A.11b", lambda: tmesh.global_data_mesh()),
-    ("A.11b", lambda: tmesh.host_to_global(None, None, None)),
-    ("A.11b", lambda: tmesh.host_broadcast0(None, None)),
-    ("A.11b", lambda: tmesh.local_view(None)),
 ])
 def test_axes_still_to_port_raise_naming_their_item(what, call):
-    """Multi-process data parallelism still raises naming its roadmap item;
-    ``shard_map_compat`` and ``axis_size`` raise for good, naming the
+    """``shard_map_compat`` and ``axis_size`` raise for good, naming the
     explicit functions that replace them."""
     with pytest.raises(MXNetError, match=what):
         call()
+
+
+@pytest.mark.parametrize("helper", ["global_data_mesh", "host_to_global",
+                                    "host_broadcast0", "local_view"])
+def test_multiprocess_helpers_match_jax_in_one_process(helper):
+    """The multi-process helpers in one process, against the JAX package's
+    on the conftest's devices: the mesh spans one process, a value built
+    over it is the local value, rank 0's broadcast is the value itself,
+    and the local view of a global value is the value (exact). Across two
+    processes over gloo: ``tests/test_torch_kvstore_dist.py``."""
+    x = np.arange(24, dtype=np.float32).reshape(8, 3)
+    jm, tm = jmesh.global_data_mesh(), tmesh.global_data_mesh()
+    if helper == "global_data_mesh":
+        assert jmesh.is_multiprocess(jm) is tmesh.is_multiprocess(tm) \
+            is False
+        assert jm.axis_names == tm.axis_names == ("data",)
+        assert tm.nproc == 1 and tm.rank == 0
+        assert tmesh.global_data_mesh("worker").axis_names == ("worker",)
+    elif helper == "host_to_global":
+        for spec in (jmesh.P("data"), jmesh.P()):
+            j = np.asarray(jmesh.host_to_global(jm, spec, x))
+            t = tmesh.host_to_global(tm, tmesh.P(*spec), x)
+            np.testing.assert_array_equal(t.data.numpy(), j)
+            assert t.shape == j.shape
+    elif helper == "host_broadcast0":
+        for v in (x, np.array([3, -4], np.int32)):
+            j = jmesh.host_broadcast0(jm, v)
+            t = tmesh.host_broadcast0(tm, v)
+            np.testing.assert_array_equal(t, j)
+            assert t.dtype == j.dtype
+    else:
+        j = np.asarray(jmesh.local_view(
+            jmesh.host_to_global(jm, jmesh.P("data"), x)))
+        t = tmesh.local_view(tmesh.host_to_global(tm, tmesh.P("data"), x))
+        np.testing.assert_array_equal(t.numpy(), j)
+        assert tmesh.local_view(x) is x
 
 
 def _ported_case(case):
