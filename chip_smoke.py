@@ -415,12 +415,37 @@ non-zero):
    train_torn_ckpt_midrun_raise_s7.json through the runner on the card:
    every invariant green.
 
+23. capi: the C ABI on the card (last). Builds libmxnet_tpu_torch.so and
+   the pure-C card_client (mxnet_tpu_torch/csrc/capi/) with cc from the
+   checkout, then runs the client in this process through ctypes, the
+   launches counted: (a) MXSymbolCreateFromJSON of bench.py main()'s
+   ResNet-50 (NHWC, float32, batch 32, MXTPU_FUSE_CONV_BN=1),
+   MXExecutorBind with dev_type 2, one training forward and backward and
+   an SGD-momentum update through MXKVStoreCreate("local") with a C
+   updater (MXKVStoreSetUpdater calling sgd_mom_update): B1 on its tf32x3
+   route once for each fused pair; (b) MXPredCreate of the SSD of phase 5
+   at bucket 8 from two C threads at once: B2 once a forward; (c)
+   MXRtcCreate of a CUDA SGD-momentum body and one MXRtcPush for each of
+   (a)'s 161 parameter arrays: B3. Holds (a)'s loss (METRIC_CE_RTOL) and
+   updated parameters (MODULE_RTOL, MODULE_ATOL) against the same step
+   through the Python API, B1 against its plain version at the step's
+   shapes, (b)'s detections bit for bit against the Python API's
+   Predictor and against the plain NMS on the same heads, (c) against
+   nd.sgd_mom_update (update_excess's bound); runs card_client gpu as a
+   child process (its own embedded interpreter), both with cuDNN's
+   deterministic algorithms (MXNET_ENFORCE_DETERMINISM=1 in the child),
+   whose sums and dumped arrays must equal the in-process run's bit for
+   bit; prints the ABI's host cost a call beside the
+   Python API's for MXNDArraySyncCopyFromCPU of (a)'s batch and
+   MXExecutorForward, and the host's libpython and python3-config.
+
 The line before the ops line is the card's name and power limit; then
 {"ops": [...], "examples": {...}} (phase 20's figures); then
 {"kernels": [...]} (per kernel: launches on
 its main path (phase 16's LSTM path and phase 17's LM path launch none;
 B1's include phase 18's mesh dispatches, bf16 and f32, and phase 22's
-dist ranks, launches_dist),
+dist ranks, launches_dist; every kernel's include phase 23's through the
+C ABI, launches_capi),
 max error against the plain version, times and bound; the
 NMS kernel's launches also by path: serving, training, the serving tier,
 training from JPEG records and model-parallel serving (phase 21); the
@@ -953,14 +978,16 @@ def b1_phase(seed, reps, card):
 # serve phase
 # ---------------------------------------------------------------------------
 
-def ssd_checkpoint(prefix, seed):
-    """Full-width SSD inference symbol + random weights from ``seed``,
-    written through the port as prefix-symbol.json / prefix-0000.params."""
+def ssd_checkpoint(prefix, seed, ssd_input=None, **ssd_kw):
+    """Full-width SSD inference symbol (``get_symbol(**ssd_kw)``, by
+    default its defaults) + random weights from ``seed``, written through
+    the port as prefix-symbol.json / prefix-0000.params."""
     import mxnet_tpu_torch as mt
     from mxnet_tpu_torch.models import ssd
     with mt.symbol.NameManager():
-        net = ssd.get_symbol()
-    arg_shapes, out_shapes, _ = net.infer_shape(data=(1,) + SSD_INPUT)
+        net = ssd.get_symbol(**ssd_kw)
+    arg_shapes, out_shapes, _ = net.infer_shape(
+        data=(1,) + tuple(ssd_input or SSD_INPUT))
     rng = np.random.default_rng(seed)
     params = {}
     for name, shape in zip(net.list_arguments(), arg_shapes):
@@ -7509,6 +7536,439 @@ def dist_phase(seed, card):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# capi phase: the C ABI (libmxnet_tpu_torch.so) and its pure-C client
+# ---------------------------------------------------------------------------
+
+#: (a) bench.py main()'s ResNet-50, NHWC, float32, at this batch
+CAPI_BATCH = 32
+CAPI_LAYERS = 50
+#: (b) the SSD (get_symbol() defaults) at this bucket
+CAPI_SSD_BATCH = 8
+#: host cost: calls timed each round, rounds in turns
+CAPI_HOST_CALLS = 20
+CAPI_HOST_ROUNDS = 4
+#: the arrays card_client dumps, held bit for bit between the in-process
+#: run and the child (both with cuDNN's deterministic algorithms)
+CAPI_DUMPED = ("a_grads", "a_params", "b_det", "c_w", "c_mom")
+CAPI_CHILD_TIMEOUT = 300
+
+
+def capi_inputs(in_dir, seed, batch, image, classes, layers, ssd_batch,
+                ssd_input, ssd_kw=None):
+    """Write card_client's inputs from ``seed`` into ``in_dir`` (see
+    ``mxnet_tpu_torch/csrc/capi/card_client.c``): a ResNet NHWC classifier
+    with Xavier weights, zero moving means and unit moving variances, one
+    batch of data and labels; an SSD inference symbol with random weights
+    (``ssd_checkpoint``) and one batch of images. Returns the host arrays
+    and symbols."""
+    import mxnet_tpu_torch as mt
+    from mxnet_tpu_torch import models
+    os.makedirs(in_dir, exist_ok=True)
+    dshape = (batch, image, image, 3)
+    with mt.symbol.NameManager():
+        net = models.resnet(num_classes=classes, num_layers=layers,
+                            image_shape="3,%d,%d" % (image, image),
+                            layout="NHWC")
+    params = {n: v.asnumpy() for n, v in
+              xavier_params(net, dshape, seed).items()}
+    _, _, aux_shapes = net.infer_shape(data=dshape,
+                                       softmax_label=(batch,))
+    aux = {}
+    for n, s in zip(net.list_auxiliary_states(), aux_shapes):
+        aux[n] = (np.ones(s, np.float32) if n.endswith("moving_var")
+                  else np.zeros(s, np.float32))
+    rng = np.random.default_rng(seed + 23)
+    data = rng.standard_normal(dshape, dtype=np.float32)
+    label = rng.integers(0, classes, batch).astype(np.float32)
+    snet = ssd_checkpoint(os.path.join(in_dir, "ssd"), seed, ssd_input,
+                          **(ssd_kw or {}))[0]
+    images = rng.random((ssd_batch,) + tuple(ssd_input), dtype=np.float32)
+    files = {"resnet.json": net.tojson().encode(),
+             "resnet_data.bin": data.tobytes(),
+             "resnet_label.bin": label.tobytes(),
+             "resnet_params.bin": b"".join(
+                 params[n].tobytes() for n in net.list_arguments()
+                 if n in params),
+             "resnet_aux.bin": b"".join(
+                 aux[n].tobytes() for n in net.list_auxiliary_states()),
+             "ssd_data.bin": images.tobytes(),
+             "meta.txt": ("resnet %d %d %d 3\nssd %d %d %d %d\n"
+                          "sgd %r %r %r %r\n"
+                          % ((batch, image, image, ssd_batch)
+                             + tuple(ssd_input)
+                             + (SGD["lr"], SGD["momentum"], SGD["wd"],
+                                SGD["rescale_grad"]))).encode()}
+    for name, blob in files.items():
+        with open(os.path.join(in_dir, name), "wb") as f:
+            f.write(blob)
+    return {"sym": net, "params": params, "aux": aux, "data": data,
+            "label": label, "ssd": snet, "ssd_images": images,
+            "ssd_json": os.path.join(in_dir, "ssd-symbol.json"),
+            "ssd_params": os.path.join(in_dir, "ssd-0000.params")}
+
+
+def capi_results(out_dir):
+    """card_client's results.txt: name -> (count, sum, sum of |x|)."""
+    got = {}
+    with open(os.path.join(out_dir, "results.txt")) as f:
+        for line in f:
+            name, n, s, a = line.split()
+            got[name] = (int(n), float(s), float(a))
+    return got
+
+
+def capi_dumped(out_dir, name):
+    return np.fromfile(os.path.join(out_dir, name + ".bin"), np.float32)
+
+
+def capi_python_step(inputs, dev):
+    """(a) through the port's Python API on ``dev``: bind, one training
+    forward and backward, the update through a local KVStore whose updater
+    runs nd.sgd_mom_update. Returns (loss, updated parameters in argument
+    order, concatenated)."""
+    import mxnet_tpu_torch as mt
+    net, params = inputs["sym"], inputs["params"]
+    ctx = mt.cpu() if dev == "cpu" else mt.gpu(0)
+    names = [n for n in net.list_arguments() if n in params]
+    args = {n: mt.nd.array(v, ctx=ctx) for n, v in params.items()}
+    args["data"] = mt.nd.array(inputs["data"], ctx=ctx)
+    args["softmax_label"] = mt.nd.array(inputs["label"], ctx=ctx)
+    grads = {n: mt.nd.zeros(params[n].shape, ctx=ctx) for n in names}
+    aux = {n: mt.nd.array(v, ctx=ctx) for n, v in inputs["aux"].items()}
+    ex = net.bind(ctx, args, args_grad=grads, aux_states=aux)
+    ex.forward(is_train=True)
+    ex.backward()
+    prob = ex.outputs[0].asnumpy().astype(np.float64)
+    lab = inputs["label"].astype(np.int64)
+    loss = -float(np.mean(np.log(np.maximum(
+        prob[np.arange(len(lab)), lab], 1e-30))))
+    moms = [mt.nd.zeros(params[n].shape, ctx=ctx) for n in names]
+
+    def updater(key, recv, local):
+        mt.nd.sgd_mom_update(local, recv, moms[key], out=[local, moms[key]],
+                             **SGD)
+    kv = mt.kv.create("local")
+    kv._set_updater(updater)
+    weights = [args[n] for n in names]
+    keys = list(range(len(names)))
+    kv.init(keys, weights)
+    kv.push(keys, [grads[n] for n in names])
+    kv.pull(keys, out=weights)
+    return loss, np.concatenate([w.asnumpy().ravel() for w in weights])
+
+
+def _abi_call(lib, fn_name, *args):
+    import ctypes
+    if getattr(lib, fn_name)(*args) != 0:
+        raise SystemExit("capi: %s failed: %s" % (
+            fn_name, ctypes.string_at(lib.MXGetLastError()).decode()))
+
+
+def capi_host_costs(lib, inputs, card):
+    """The ABI's host microseconds a call beside the Python API's, for
+    MXNDArraySyncCopyFromCPU of (a)'s data batch and MXExecutorForward of
+    its executor (inference), in turns; each call starts on an idle card
+    and is timed to its return (the copy is synchronous, the forward
+    returns once enqueued)."""
+    import ctypes
+    import torch
+    from mxnet_tpu_torch import c_api
+    lib.MXGetLastError.restype = ctypes.c_void_p
+    net, params = inputs["sym"], inputs["params"]
+    batch = np.ascontiguousarray(inputs["data"])
+    st, hx = c_api.MXNDArrayCreate(batch.shape, 2, 0)
+    handles = []
+    for n in net.list_arguments():
+        v = (batch if n == "data" else inputs["label"] if n ==
+             "softmax_label" else params[n])
+        handles.append(c_api.MXNDArrayCreateFromNumpy(v)[1])
+    auxh = [c_api.MXNDArrayCreateFromNumpy(inputs["aux"][n])[1]
+            for n in net.list_auxiliary_states()]
+    sh = c_api.MXSymbolCreateFromJSON(net.tojson())[1]
+    st, eh = c_api.MXExecutorBind(sh, 2, 0, handles, None, "null", auxh)
+    if st != 0:
+        raise SystemExit("capi: bind for the host costs: %s"
+                         % c_api.MXGetLastError())
+    arr, ex = c_api._get(hx), c_api._get(eh)
+    ptr = batch.ctypes.data_as(ctypes.c_void_p)
+    calls = {
+        "MXNDArraySyncCopyFromCPU (ABI)": lambda: _abi_call(
+            lib, "MXNDArraySyncCopyFromCPU", ctypes.c_uint64(hx), ptr,
+            ctypes.c_size_t(batch.size)),
+        "NDArray[:] = batch (Python)": lambda: arr.__setitem__(
+            slice(None), batch),
+        "MXExecutorForward (ABI)": lambda: _abi_call(
+            lib, "MXExecutorForward", ctypes.c_uint64(eh), 0),
+        "Executor.forward (Python)": lambda: ex.forward(is_train=False)}
+    got = {name: [] for name in calls}
+    for r in range(CAPI_HOST_ROUNDS):
+        for name in (list(calls) if r % 2 == 0 else list(calls)[::-1]):
+            calls[name]()
+            for _ in range(CAPI_HOST_CALLS):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                calls[name]()
+                got[name].append(time.perf_counter() - t)
+    torch.cuda.synchronize()
+    us = {name: 1e6 * float(np.median(v)) for name, v in got.items()}
+    for name, v in us.items():
+        log("capi host cost: %s %.1f us a call (median of %d) [%s]"
+            % (name, v, CAPI_HOST_ROUNDS * CAPI_HOST_CALLS, card))
+    c_api.MXExecutorFree(eh)
+    for h in [hx, sh] + handles + auxh:
+        c_api._free(h)
+    return us
+
+
+def capi_checks(inputs, out_in, res_in, seed, problems):
+    """Phase 23's in-process results against the Python API on cuda:0 and
+    each kernel against its plain version: (a) the loss and updated
+    parameters, B1 at the step's shapes; (b) the detections against the
+    Predictor and the plain NMS; (c) the Rtc update against
+    nd.sgd_mom_update. Appends what is off to ``problems``; returns the
+    three kernels' largest errors."""
+    import torch
+    import mxnet_tpu_torch as mt
+    from mxnet_tpu_torch.ops import contrib, matmul_stats as ms
+    from mxnet_tpu_torch.ops import multibox_nms as mnms
+    dshape = inputs["data"].shape
+    nparam = len(inputs["params"])
+    # -- (a) against the Python API; B1 against its plain version
+    t0 = time.perf_counter()
+    with no_tf32():
+        loss, want = capi_python_step(inputs, "cuda")
+    got = capi_dumped(out_in, "a_params")
+    abi_loss = res_in["a_loss"][1]
+    rel, excess = max_excess({"w": torch.from_numpy(got)},
+                             {"w": torch.from_numpy(want)})
+    loss_off = abs(abi_loss - loss) / abs(loss)
+    log("capi (a): loss through the ABI %.9f, Python API %.9f (rel "
+        "%.3g, bound %g); updated parameters: largest relative "
+        "difference %.3g, excess over rtol %g atol %g %.3g (%.2f s)"
+        % (abi_loss, loss, loss_off, METRIC_CE_RTOL, rel, MODULE_RTOL,
+           MODULE_ATOL, excess, time.perf_counter() - t0))
+    if not (loss_off <= METRIC_CE_RTOL and excess <= 0):
+        problems.append("capi (a): the ABI's step is off the Python "
+                        "API's")
+    x_rng = torch.Generator(device="cuda").manual_seed(seed)
+    b1_err = 0.0
+    for (m, k, n) in fused_shapes(inputs["sym"], dshape):
+        x = torch.randn(m, k, device="cuda", generator=x_rng)
+        w = torch.randn(n, k, device="cuda", generator=x_rng)
+        err, _, _ = b1_check(ms, x, w, "tf32x3")
+        b1_err = max(b1_err, err)
+    log("capi (a): B1 tf32x3 against its plain version at the %d "
+        "shapes of the step: max |y - y_plain| %.3g, within tolerance"
+        % (len(fused_shapes(inputs["sym"], dshape)), b1_err))
+
+    # -- (b) against the Python API's Predictor and the plain NMS
+    det = capi_dumped(out_in, "b_det")
+    shape = (CAPI_SSD_BATCH,) + tuple(SSD_INPUT)
+    pred = mt.Predictor(inputs["ssd_json"], inputs["ssd_params"],
+                        {"data": shape}, ctx=mt.gpu(0))
+    pred.forward(data=inputs["ssd_images"])
+    want = pred.get_output(0).asnumpy()
+    heads = mt.Predictor(inputs["ssd_json"], inputs["ssd_params"],
+                         {"data": shape}, ctx=mt.gpu(0),
+                         output_names=["cls_prob", "multibox_loc_pred",
+                                       "multibox_anchors"])
+    heads.forward(data=inputs["ssd_images"])
+    cls_prob, loc, anc = (heads.get_output(i).data for i in range(3))
+    det_node = [n for n in _nodes(inputs["ssd"])
+                if n.name == "detection"][0]
+    with torch.inference_mode():
+        plain = contrib.multibox_detection(
+            cls_prob, loc, anc[:1], nms=mnms.nms_alive_reference,
+            **contrib._mbd_attrs(det_node.attrs)).cpu().numpy()
+    det = det.reshape(plain.shape)
+    kept = int((det[:, :, 0] >= 0).sum())
+    b2_err = float(np.abs(det - plain).max())
+    log("capi (b): detections %s through the ABI, %d rows kept: equal "
+        "to the Python API's Predictor %s, to the plain NMS on the same "
+        "heads %s" % (det.shape, kept, np.array_equal(det, want),
+                      np.array_equal(det, plain)))
+    if not (np.array_equal(det, want) and np.array_equal(det, plain)
+            and kept > 0):
+        problems.append("capi (b): detections through the ABI differ")
+
+    # -- (c) against nd.sgd_mom_update
+    names = [n for n in inputs["sym"].list_arguments()
+             if n in inputs["params"]]
+    w0 = torch.from_numpy(np.concatenate(
+        [inputs["params"][n].ravel() for n in names])).cuda()
+    g = torch.from_numpy(capi_dumped(out_in, "a_grads")).cuda()
+    w = torch.from_numpy(capi_dumped(out_in, "c_w")).cuda()
+    m = torch.from_numpy(capi_dumped(out_in, "c_mom")).cuda()
+    b3_excess, b3_err = update_excess(w, m, w0, g, torch.zeros_like(w0))
+    log("capi (c): the Rtc update over %d arrays against "
+        "nd.sgd_mom_update: max |diff| %.3g, excess over the bound %.3g"
+        % (nparam, b3_err, b3_excess))
+    if b3_excess > 0:
+        problems.append("capi (c): the Rtc update exceeds its bound")
+    del w0, g, w, m
+    return b1_err, b2_err, b3_err
+
+
+def capi_phase(seed, card):
+    """Phase 23: the C ABI on the card. Builds libmxnet_tpu_torch.so and
+    card_client from the checkout, runs the client's three paths in this
+    process through ctypes (B1 through MXExecutorBind, B2 through
+    MXPredCreate from two C threads, B3 through MXRtcPush) with the
+    launches counted, holds each against the same work through the Python
+    API and each kernel against its plain version, runs ``card_client
+    gpu`` as a child process against the in-process run, and times the
+    ABI's host cost a call."""
+    import ctypes
+    import sysconfig
+    import torch
+    from mxnet_tpu_torch import capi_build, rtc
+    from mxnet_tpu_torch.ops import matmul_stats as ms
+    from mxnet_tpu_torch.ops import multibox_nms as mnms
+    t_phase = time.perf_counter()
+    flags = capi_build.python_flags()
+    with open("/proc/self/maps") as f:
+        mapped = sorted({ln.split()[-1] for ln in f if "libpython" in ln})
+    log("capi: python3-config %s: --ldflags --embed %s; Py_ENABLE_SHARED "
+        "%s, LDLIBRARY %s in %s; libpython mapped in this process before "
+        "the library loads: %s" % (
+            capi_build._config_script(), " ".join(flags[1]),
+            sysconfig.get_config_var("Py_ENABLE_SHARED"),
+            sysconfig.get_config_var("LDLIBRARY"),
+            sysconfig.get_config_var("LIBDIR"), mapped or "none"))
+    t0 = time.perf_counter()
+    built = capi_build.build()
+    log("capi: built %s (library, card_client, libcard_client.so) in "
+        "%.2f s" % (built["dir"], time.perf_counter() - t0))
+    problems = []
+    os.environ["MXTPU_FUSE_CONV_BN"] = "1"
+    with tempfile.TemporaryDirectory() as tmp:
+        in_dir = os.path.join(tmp, "in")
+        t0 = time.perf_counter()
+        inputs = capi_inputs(in_dir, seed, CAPI_BATCH, RESNET_IMAGE,
+                             RESNET_CLASSES, CAPI_LAYERS, CAPI_SSD_BATCH,
+                             SSD_INPUT)
+        nparam = len(inputs["params"])
+        dshape = inputs["data"].shape
+        expected_b1 = sum(fused_shapes(inputs["sym"], dshape).values())
+        log("capi: inputs from the seed in %.2f s: resnet-%d NHWC %s "
+            "float32, %d parameter arrays (%d values), %d fused "
+            "Conv1x1->BatchNorm pairs; SSD %s at bucket %d"
+            % (time.perf_counter() - t0, CAPI_LAYERS, dshape, nparam,
+               sum(v.size for v in inputs["params"].values()), expected_b1,
+               SSD_INPUT, CAPI_SSD_BATCH))
+
+        # -- in process: the client's code through ctypes, launches counted
+        out_in = os.path.join(tmp, "inproc")
+        os.makedirs(out_in)
+        run = ctypes.CDLL(built["client_lib"]).card_client_run
+        run.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_char_p)]
+        run.restype = ctypes.c_int
+        argv = [a.encode() for a in
+                ("card_client", "gpu", in_dir, out_in, "dump")]
+        argv_c = (ctypes.c_char_p * len(argv))(*argv)
+        sys.stdout.flush()
+        torch.cuda.synchronize()
+        # the main path: counts at 0 just before, read just after
+        ms.reset_launches()
+        mnms.reset_launches()
+        rtc.RTC_LAUNCHES = 0
+        tf32x3 = ms.LAUNCHES_BY_ROUTE["tf32x3"]
+        t0 = time.perf_counter()
+        with deterministic_cudnn():
+            rc = run(len(argv), argv_c)
+            torch.cuda.synchronize()
+        dt_in = time.perf_counter() - t0
+        launches = {"B1": ms.LAUNCHES,
+                    "B1 tf32x3": ms.LAUNCHES_BY_ROUTE["tf32x3"] - tf32x3,
+                    "B2": mnms.LAUNCHES, "B3": rtc.RTC_LAUNCHES}
+        sys.stdout.flush()
+        if rc != 0:
+            raise SystemExit("capi: card_client_run in process returned %d"
+                             % rc)
+        log("capi: in process, card_client_run(gpu) took %.2f s; launches "
+            "B1 %d (tf32x3 %d, expected %d), B2 %d (expected 2), B3 %d "
+            "(expected %d)" % (dt_in, launches["B1"], launches["B1 tf32x3"],
+                               expected_b1, launches["B2"], launches["B3"],
+                               nparam))
+        if (launches["B1"] != expected_b1
+                or launches["B1 tf32x3"] != expected_b1
+                or launches["B2"] != 2 or launches["B3"] != nparam):
+            problems.append("capi: launches through the ABI %s, expected "
+                            "B1 %d on tf32x3, B2 2, B3 %d"
+                            % (launches, expected_b1, nparam))
+        res_in = capi_results(out_in)
+
+        # -- the child process: the same client, its own interpreter, with
+        # cuDNN's deterministic algorithms as in process
+        out_child = os.path.join(tmp, "child")
+        os.makedirs(out_child)
+        t_child = time.perf_counter()
+        child = subprocess.Popen(
+            [built["client"], "gpu", in_dir, out_child, "dump"],
+            env=capi_build.client_env(MXTPU_FUSE_CONV_BN="1",
+                                      MXNET_ENFORCE_DETERMINISM="1"),
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+
+        # the checks run while the child starts up; it is stopped if
+        # they fail
+        try:
+            b1_err, b2_err, b3_err = capi_checks(
+                inputs, out_in, res_in, seed, problems)
+        except BaseException:
+            child.kill()
+            child.communicate()
+            raise
+
+        # -- the child, started above, against the in-process run
+        try:
+            child_out, _ = child.communicate(timeout=CAPI_CHILD_TIMEOUT)
+        except subprocess.TimeoutExpired:
+            child.kill()
+            child.communicate()
+            raise SystemExit("capi: card_client gpu did not end within %d s"
+                             % CAPI_CHILD_TIMEOUT)
+        dt_child = time.perf_counter() - t_child
+        for line in child_out.splitlines()[-8:]:
+            log("capi child: %s" % line)
+        if child.returncode != 0 or "CARD CLIENT PASS (gpu)" not in child_out:
+            raise SystemExit("capi: card_client gpu exited %d"
+                             % child.returncode)
+        res_child = capi_results(out_child)
+        log("capi: card_client gpu as a child process took %.2f s "
+            "(interpreter start, imports, CUDA and NVRTC included; started "
+            "before this process's checks and run beside them)" % dt_child)
+        for name, (n, s, a) in res_in.items():
+            got = res_child.get(name)
+            log("capi: %-8s in process n=%d sum %.17g |sum| %.17g; child %s"
+                % (name, n, s, a, "equal" if got == (n, s, a) else
+                   "%r: OFF" % (got,)))
+            if got != (n, s, a):
+                problems.append("capi: the child's %s sums differ from the "
+                                "in-process run's" % name)
+        for name in CAPI_DUMPED:
+            x, y = capi_dumped(out_in, name), capi_dumped(out_child, name)
+            same = x.shape == y.shape and np.array_equal(x, y)
+            off = (float(np.abs(x - y).max()) / max(float(np.abs(x).max()),
+                                                    1e-30)
+                   if x.shape == y.shape else float("inf"))
+            log("capi: %-8s %d values: the child's %s (largest difference "
+                "%.3g of the largest |value|)"
+                % (name, x.size, "equal bit for bit" if same else "DIFFER",
+                   off))
+            if not same:
+                problems.append("capi: the child's %s differs from the "
+                                "in-process run's" % name)
+
+        host = capi_host_costs(ctypes.CDLL(built["library"]), inputs, card)
+    if problems:
+        raise SystemExit("\n".join(problems))
+    log("capi phase: %.1f s [%s]" % (time.perf_counter() - t_phase, card))
+    return {"launches": launches, "b1_err": b1_err, "b2_err": b2_err,
+            "b3_err": b3_err, "host_us": host, "in_process_s": dt_in,
+            "child_s": dt_child}
+
+
 def _nodes(sym):
     from mxnet_tpu_torch.symbol import _topo
     return _topo(sym._out_nodes())
@@ -7589,6 +8049,8 @@ def main():
     mp_launches = mp_phase(args.seed, card, lm_trained)
     op_rows, examples = slice_phase(args.seed, args.reps, card)
     dist_launches = dist_phase(args.seed, card)
+    capi_run = capi_phase(args.seed, card)
+    capi = capi_run["launches"]
     # B1 runs on three main paths: the train phase, the training API and
     # the bf16 mesh; its float32 route on the module phase and the f32 mesh
     b1.update(launches=(b1["launches"] + api_launches + mesh_launches["wgmma"]
@@ -7597,14 +8059,23 @@ def main():
               launches_training_api=api_launches,
               launches_mesh=mesh_launches["wgmma"],
               launches_dist=dist_launches)
-    b1_f32.update(launches=b1_f32["launches"] + mesh_launches["tf32x3"],
+    b1["launches_capi"] = 0
+    b1_f32.update(launches=(b1_f32["launches"] + mesh_launches["tf32x3"]
+                            + capi["B1"]),
                   launches_module=b1_f32["launches"],
-                  launches_mesh=mesh_launches["tf32x3"])
-    # B2 runs on five main paths: serving (phase 5), training (phase 12),
-    # the serving tier (phase 13), training from JPEG records (phase 15)
-    # and model-parallel serving (phase 21)
+                  launches_mesh=mesh_launches["tf32x3"],
+                  launches_capi=capi["B1"],
+                  max_abs_err=max(b1_f32["max_abs_err"],
+                                  capi_run["b1_err"]))
+    # B2 runs on six main paths: serving (phase 5), training (phase 12),
+    # the serving tier (phase 13), training from JPEG records (phase 15),
+    # model-parallel serving (phase 21) and the C ABI (phase 23); B1's
+    # float32 route and B3's Rtc run through the C ABI too
     nms.update(launches=(serve_launches + ssd_train["launches"]
-                         + tier_launches + data["launches"] + mp_launches),
+                         + tier_launches + data["launches"] + mp_launches
+                         + capi["B2"]),
+               launches_capi=capi["B2"],
+               max_abs_err=max(nms["max_abs_err"], capi_run["b2_err"]),
                launches_serve=serve_launches,
                launches_train=ssd_train["launches"],
                launches_serving_tier=tier_launches,
@@ -7619,8 +8090,12 @@ def main():
         b3.append({"name": "rtc_%s" % route, "route": route,
                    "source": "mxnet_tpu_torch/rtc.py",
                    "replaces": "mxnet_tpu/rtc.py:83",
-                   "launches": launches[route],
-                   "max_abs_err": max(rtc_err[route], upd_err[route]),
+                   "launches": launches[route] + (
+                       capi["B3"] if route == "cuda" else 0),
+                   "launches_capi": capi["B3"] if route == "cuda" else 0,
+                   "max_abs_err": max(rtc_err[route], upd_err[route],
+                                      capi_run["b3_err"] if route == "cuda"
+                                      else 0.0),
                    "ms": upd[wrapper], "ms_source": upd_source,
                    "plain_ms": upd["plain nd.sgd_mom_update"],
                    "bound_ms": bound, "bound_by": "bytes",

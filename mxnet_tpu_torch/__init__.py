@@ -45,7 +45,11 @@ operator of the JAX package's registry, the last of them ``ops/spatial.py``
 Deconvolution, InstanceNorm and the regression outputs; ``viz``,
 ``test_utils``, ``metric.Torch``/``Caffe``, the crash dump of
 ``initialize``, and ``tpu(i)``, the JAX package's accelerator name, which
-places on ``cuda:i`` as ``gpu(i)`` does.
+places on ``cuda:i`` as ``gpu(i)`` does; and the bindings: ``c_api``, the
+``MX*`` functions of the reference's C API, exported as C symbols by
+``libmxnet_tpu_torch.so`` (``csrc/capi/``, built by ``capi_build``), and
+``plugin.torch_module``'s ``TorchModule`` and ``TorchCriterion`` on the
+op's own device tensors.
 """
 from .base import MXNetError, TrainingPreemptedError, __version__
 from . import base
@@ -104,6 +108,7 @@ from . import convert
 from . import test_utils
 from . import operator   # registers the Custom op type
 from . import rtc
+from . import c_api
 
 # refresh the op namespaces so late registrations (Custom) appear
 ndarray._init_ndarray_module()

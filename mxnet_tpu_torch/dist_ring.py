@@ -165,11 +165,14 @@ class StoreClient(object):
     and its deletion writes a tombstone (a peer may be between ``check``
     and ``get``); an unlisted key (the ring's exchange payloads, read only
     after they land and deleted only once every peer has read them) is
-    deleted outright. Values above :data:`CHUNK_BYTES` travel as chunks
-    under a per-write tag, the head written last, so a reader that sees a
-    head sees all its chunks (each key has one writer, which drops its
-    earlier chunks). ``set(overwrite=False)`` is the store's
-    ``compare_set`` against absence.
+    deleted outright. A listed write is visible to every connection once
+    the call returns, as in :class:`LocalClient`; an unlisted one is not
+    waited for, since its readers poll until it lands (an exchange makes
+    no round trip for its own writes). Values above :data:`CHUNK_BYTES`
+    travel as chunks under a per-write tag, the head written last, so a
+    reader that sees a head sees all its chunks (each key has one writer,
+    which drops its earlier chunks). ``set(overwrite=False)`` is the
+    store's ``compare_set`` against absence.
 
     Liveness: a rank is alive while its ``mxtpu_hb/<rank>`` stamp is
     fresher than ``dead_for`` seconds (``kvstore._Heartbeat`` publishes
@@ -249,7 +252,17 @@ class StoreClient(object):
             self._s.append(self._index(parent + "/"),
                            (name + "\n").encode())
             self._listed.add(key)
+        if listed:
+            self._applied(key)
         return ok
+
+    def _applied(self, key):
+        """Wait until the store has applied this connection's writes.
+        Its ``set`` and ``append`` send no reply, and the server reads its
+        connections in no fixed order, so a write is not yet visible to a
+        peer's connection when the call returns. A request that is
+        answered (``check``) on the same connection is served after them."""
+        self._s.check([key])
 
     def _drop_chunks(self, key, head):
         tag, n = head[1:].decode().rsplit(":", 1)
@@ -298,6 +311,7 @@ class StoreClient(object):
         parent = key.rsplit("/", 1)[0] + "/" if "/" in key else None
         if parent is not None and self._has(self._index(parent)):
             self._s.set(key, _TOMB)      # a listed key: a peer may read it
+            self._applied(key)
         else:
             self._s.delete_key(key)
 

@@ -972,7 +972,11 @@ class Executor(object):
                 g = g + by_name[n]
             if self._grad_req[group[0]] == "add":
                 g = buf.data + g
-            buf._set_data(g)
+            # the caller's gradient array stays row-major, as the
+            # reference's gradient buffers are (a convolution's weight
+            # gradient may come back in another memory format), so a
+            # kernel given its pointer (rtc.Rtc) reads it as such
+            buf._set_data(g.contiguous())
 
     def _merge_grads(self, name, parts):
         """One argument's whole gradient on the executor's device from its

@@ -350,6 +350,54 @@ def test_store_client_matches_local_client_semantics(store):
     assert answers[1][-1] == [("d/y", b"small")]
 
 
+def test_store_client_write_is_visible_to_another_connection(store):
+    """Once ``set`` (and the tombstone of ``delete``) returns, a read on
+    another connection sees it. The store sends no reply to a set or an
+    append and serves its connections in no fixed order, so without the
+    client's acknowledged round trip most of these reads of a 200 KB
+    value miss it (and the joiner test's incumbents can miss the join
+    request the test wrote just before them)."""
+    a, b = store(), store()
+    value = b"v" * 200_000
+    missed = []
+    for i in range(300):
+        a.set("vis/%d" % i, value)
+        if b.get("vis/%d" % i) is None:
+            missed.append(i)
+        a.delete("vis/%d" % i)
+        if b.get("vis/%d" % i) is not None:
+            missed.append(-i - 1)
+    assert missed == []
+
+
+def test_store_client_acknowledges_listed_writes_only(store):
+    """A listed write ends with an answered ``check`` on its connection; an
+    unlisted one (a ring payload, polled for by its readers) sends its
+    chunks and head and nothing more."""
+    class Recording(object):
+        def __init__(self, inner):
+            self.inner, self.calls = inner, []
+
+        def __getattr__(self, name):
+            fn = getattr(self.inner, name)
+
+            def call(*a, **kw):
+                self.calls.append(name)
+                return fn(*a, **kw)
+            return call
+
+    rec = Recording(store()._s)
+    c = tring.StoreClient(rec, grace=60.0)
+    c.set("d/x", b"1")
+    assert rec.calls == ["set", "append", "check"]
+    rec.calls[:] = []
+    c.set("d/x", b"2")
+    assert rec.calls == ["set", "check"]
+    rec.calls[:] = []
+    c.set("mxring/g0/ar/0/0", b"p" * (tring.CHUNK_BYTES + 1), listed=False)
+    assert rec.calls == ["set", "set", "set"]
+
+
 def test_ring_over_tcpstore_bitwise_equal_to_jax(store):
     vals = _arrays("float32", shape=(3, tring.CHUNK_BYTES // 8))
     jr = _rings(jring, jring.LocalClient(), [0, 1, 2])

@@ -165,6 +165,26 @@ def test_resnet18_step_against_jax(binder):
     assert len(tex.aux_names) == len(aux) and tex.aux_names
 
 
+def test_nhwc_gradients_stay_row_major_against_jax():
+    """An NHWC ResNet-18's convolution weight gradients come back from
+    autograd in another memory format: the arrays given to ``bind`` keep
+    their row-major layout (``rtc.Rtc`` and C callers take their
+    pointers), with the JAX package's values."""
+    shapes = dict(data=(2, 16, 16, 3), softmax_label=(2,))
+    syms = {}
+    for pkg, models in ((mx, jmodels), (mt, tmodels)):
+        with pkg.symbol.NameManager():
+            syms[pkg] = models.resnet(num_classes=4, num_layers=18,
+                                      image_shape="3,16,16", layout="NHWC")
+    args, aux = _values(syms[mx], shapes, "nhwc", ints={"softmax_label": 4})
+    j = _step(_bind(mx, mx.cpu(), syms[mx], args, aux,
+                    no_grad=("softmax_label",)))
+    tex = _bind(mt, mt.cpu(), syms[mt], args, aux,
+                no_grad=("softmax_label",))
+    _close(_step(tex), j, NET)
+    assert all(g.data.is_contiguous() for g in tex.grad_dict.values())
+
+
 def test_head_gradients_against_jax():
     shapes = dict(data=(4, 5))
     args, _ = _values(_mlp(mx, head=False), shapes, "heads")
