@@ -439,13 +439,34 @@ non-zero):
    Python API's for MXNDArraySyncCopyFromCPU of (a)'s batch and
    MXExecutorForward, and the host's libpython and python3-config.
 
+24. memcheck: the tuner and the memory analyzer on the card (last).
+   (a) bench.py main()'s ResNet-50 step (NHWC, b=128, bf16 compute,
+   MXTPU_FUSE_CONV_BN=1, SGD momentum) priced by memcheck.analyze, a
+   shape-only dry run on fake cuda:0 tensors: B1 on its shape-only route
+   33 times and no launch, torch.cuda.max_memory_allocated unmoved; then
+   one real step of the same configuration from a fresh state, its
+   allocator peak above the memory allocated before it: the static peak
+   within MEMCHECK_BAND of it, B1 on its wgmma route 33 times. The same
+   step at b=1024 priced: flagged hbm-budget against the card's memory,
+   the allocator's peak unmoved. (b) the SSD (get_symbol() defaults,
+   3x300x300, buckets 1, 8, 32) through ServingEngine: memory_report()
+   per bucket (B2 on its shape-only route once a bucket, no launch) next
+   to each bucket's allocator peak over one real forward (B2 once a
+   bucket, and once a bucket at load). (c) autotune.tune on the card:
+   img_per_sec on the zoo's mlp (budget 4), serve_p99 on mlp (budget 3,
+   100 requests), decode_tokens_per_sec (budget 2), each printing its
+   winner and speedup_vs_default; then img_per_sec on mlp under
+   MXTPU_AUTOTUNE_BUDGET=4K, every candidate pruned and the allocator's
+   peak unmoved.
+
 The line before the ops line is the card's name and power limit; then
 {"ops": [...], "examples": {...}} (phase 20's figures); then
 {"kernels": [...]} (per kernel: launches on
 its main path (phase 16's LSTM path and phase 17's LM path launch none;
 B1's include phase 18's mesh dispatches, bf16 and f32, and phase 22's
 dist ranks, launches_dist; every kernel's include phase 23's through the
-C ABI, launches_capi),
+C ABI, launches_capi; B1's bf16 and B2's include phase 24's real step and
+forwards, launches_memcheck),
 max error against the plain version, times and bound; the
 NMS kernel's launches also by path: serving, training, the serving tier,
 training from JPEG records and model-parallel serving (phase 21); the
@@ -468,13 +489,18 @@ import time
 
 import numpy as np
 
+# the port's devspec table holds the card's peaks, so a bound here and the
+# analyzers' rooflines cannot drift apart (fails outside a checkout)
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+from mxnet_tpu_torch import devspec as _devspec  # noqa: E402
+
 #: H100 SXM peaks (NVIDIA data sheet, at the 700 W limit): HBM bytes/s,
 #: float32 operations/s outside the tensor cores, dense bf16 and TF32
 #: tensor-core operations/s
-HBM_BYTES_PER_S = 3.35e12
-FP32_OPS_PER_S = 67e12
-BF16_OPS_PER_S = 989e12
-TF32_OPS_PER_S = 495e12
+HBM_BYTES_PER_S = _devspec.DEVICE_SPECS["NVIDIA H100"].hbm_bytes_per_s
+FP32_OPS_PER_S = _devspec.PEAK_BY_DTYPE["NVIDIA H100"]["float32"]
+BF16_OPS_PER_S = _devspec.PEAK_BY_DTYPE["NVIDIA H100"]["bfloat16"]
+TF32_OPS_PER_S = _devspec.PEAK_BY_DTYPE["NVIDIA H100"]["tf32"]
 
 #: the training configuration bench.py main() runs (ResNet-50, NHWC)
 RESNET_BATCH = 128
@@ -7969,6 +7995,263 @@ def capi_phase(seed, card):
             "child_s": dt_child}
 
 
+# ---------------------------------------------------------------------------
+# phase 24: the tuner and the memory analyzer on the card
+# ---------------------------------------------------------------------------
+
+#: (a) the static peak of the ResNet-50 step against the allocator's
+#: measured peak of one real step: within this fraction of the latter
+MEMCHECK_BAND = 0.25
+#: (a) the batch whose step cannot fit the card
+MEMCHECK_BIG_BATCH = 1024
+#: (c) the sweeps: (label, tune() arguments)
+MEMCHECK_SWEEPS = (
+    ("img_per_sec mlp", dict(model="mlp", objective="img_per_sec",
+                             budget=4)),
+    ("serve_p99 mlp", dict(model="mlp", objective="serve_p99", budget=3,
+                           nreq=100)),
+    ("decode_tokens_per_sec lm", dict(model="lm",
+                                      objective="decode_tokens_per_sec",
+                                      budget=2)))
+
+
+def _unmoved_peak(fn):
+    """``(fn(), bytes the allocator's peak rose above the memory allocated
+    when fn started)``: 0 when fn allocated nothing on the card."""
+    import torch
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.max_memory_allocated()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, torch.cuda.max_memory_allocated() - before
+
+
+def largest_allocs(fn, n=3):
+    """Run ``fn()`` under the caching allocator's history and return the
+    ``n`` largest allocations it made: ``(bytes, frames)``, the frames
+    those of its C++ and Python stack that name cuDNN, cuBLAS, a
+    workspace or a convolution (else the first two)."""
+    import torch
+    torch.cuda.memory._record_memory_history(max_entries=200000)
+    try:
+        fn()
+        torch.cuda.synchronize()
+        snap = torch.cuda.memory._snapshot()
+    finally:
+        torch.cuda.memory._record_memory_history(enabled=None)
+    dev = torch.cuda.current_device()
+    allocs = [e for e in snap["device_traces"][dev] if e["action"] == "alloc"]
+    out = []
+    for e in sorted(allocs, key=lambda e: -e["size"])[:n]:
+        names = [f.get("name", "") for f in e.get("frames", [])]
+        keep = [x for x in names if re.search(
+            "cudnn|cublas|[Ww]orkspace|conv", x)] or names[:2]
+        out.append((e["size"], keep[:2]))
+    return out
+
+
+def memcheck_resnet(seed, card, problems):
+    """(a): the ResNet-50 step priced shape-only against one real step,
+    and the b=1024 step flagged. Returns B1's launches in the real step."""
+    import torch
+    import mxnet_tpu_torch as mt
+    from mxnet_tpu_torch import memcheck as mc, models
+    from mxnet_tpu_torch.ops import matmul_stats as ms
+    from mxnet_tpu_torch.tracecheck import train_step_programs
+    from mxnet_tpu_torch.train_step import TrainStep
+    os.environ["MXTPU_FUSE_CONV_BN"] = "1"
+    bsz, img = RESNET_BATCH, RESNET_IMAGE
+    with mt.symbol.NameManager():
+        sym = models.resnet(num_classes=RESNET_CLASSES, num_layers=50,
+                            image_shape="3,%d,%d" % (img, img),
+                            layout="NHWC")
+    ts = TrainStep(sym, optimizer="sgd", learning_rate=0.1, momentum=0.9,
+                   wd=1e-4, compute_dtype="bfloat16")
+    expected = sum(B1_STEP_SHAPES.values())
+
+    def priced(batch):
+        def run():
+            (name, fn, args), = train_step_programs(
+                ts, {"data": (batch, img, img, 3)},
+                {"softmax_label": (batch,)}, k=1, guard=False,
+                name="resnet50-nhwc-bf16-b%d" % batch)[:1]
+            ms.reset_launches()
+            t0 = time.perf_counter()
+            rep = mc.analyze(fn, args, donate_argnums=(0,), name=name)
+            return rep, time.perf_counter() - t0
+        (rep, dt), moved = _unmoved_peak(run)
+        log("memcheck (a) static %s in %.2f s: B1 shape-only %d times, %d "
+            "launches; the allocator's peak moved %d bytes [%s]"
+            % (rep.format(), dt, ms.SHAPE_ONLY_CALLS, ms.LAUNCHES, moved,
+               card))
+        for line in rep.breakdown(top=6):
+            log("memcheck (a)   " + line)
+        if ms.SHAPE_ONLY_CALLS != expected or ms.LAUNCHES or moved:
+            problems.append("memcheck (a) b=%d: %d shape-only calls "
+                            "(expected %d), %d launches, peak moved %d "
+                            "bytes" % (batch, ms.SHAPE_ONLY_CALLS, expected,
+                                       ms.LAUNCHES, moved))
+        return rep
+
+    # the first fake CUDA tensor a process makes from a real one runs
+    # FakeTensor's CUDA-context check, a 4-byte tensor on the card: done
+    # here, outside the windows that must not move the allocator's peak
+    with mc.fake_mode() as mode:
+        mode.from_tensor(torch.zeros(1, device=ts.device))
+    static = priced(bsz)
+    # one real step from a fresh state: the allocator's peak above what
+    # was allocated before its state, batch and step
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    dev = ts.device
+    state = ts.init({"data": (bsz, img, img, 3)}, {"softmax_label": (bsz,)},
+                    seed=seed)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed + 24)
+    batch = {"data": torch.randn((bsz, img, img, 3), generator=gen,
+                                 device=dev),
+             "softmax_label": torch.randint(
+                 0, RESNET_CLASSES, (bsz,), generator=gen,
+                 device=dev).float()}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ms.reset_launches()
+    state, outs = ts.step(state, batch)
+    torch.cuda.synchronize()
+    measured = torch.cuda.max_memory_allocated() - base
+    launches, routes = ms.LAUNCHES, dict(ms.LAUNCHES_BY_ROUTE)
+    ratio = static.peak_bytes / measured
+    log("memcheck (a) b=%d: static peak %d bytes (%.3f GiB), measured %d "
+        "bytes (%.3f GiB, torch.cuda.max_memory_allocated over one real "
+        "step, above the %d bytes allocated before it): static/measured "
+        "%.4f (band 1 +- %.2f); B1 %d launches by route %s [%s]"
+        % (bsz, static.peak_bytes, static.peak_bytes / 2 ** 30, measured,
+           measured / 2 ** 30, base, ratio, MEMCHECK_BAND, launches, routes,
+           card))
+    if abs(ratio - 1.0) > MEMCHECK_BAND:
+        problems.append("memcheck (a): static peak %d is %.4f of the "
+                        "measured %d (band %.2f)"
+                        % (static.peak_bytes, ratio, measured,
+                           MEMCHECK_BAND))
+    if launches != expected or routes["wgmma"] != expected:
+        problems.append("memcheck (a): the real step launched B1 %d times "
+                        "(%s), expected %d on wgmma"
+                        % (launches, routes, expected))
+    del state, outs, batch
+    torch.cuda.empty_cache()
+    big = priced(MEMCHECK_BIG_BATCH)
+    budget = mc.budget_bytes(dev)
+    lints = sorted({f.lint for f in mc.lint_report(big, budget=budget)})
+    log("memcheck (a) b=%d: static peak %.3f GiB against the card's %.3f "
+        "GiB: lints %s [%s]" % (MEMCHECK_BIG_BATCH,
+                                big.peak_bytes / 2 ** 30,
+                                budget / 2 ** 30, lints, card))
+    if "hbm-budget" not in lints:
+        problems.append("memcheck (a): the b=%d step is not flagged "
+                        "hbm-budget" % MEMCHECK_BIG_BATCH)
+    return launches
+
+
+def memcheck_ssd(seed, card, problems):
+    """(b): the SSD engine's memory_report against each bucket's measured
+    peak. Returns B2's launches (the warm-up and one forward a bucket)."""
+    import torch
+    from mxnet_tpu_torch.ops import multibox_nms as mnms
+    from mxnet_tpu_torch.serving import ServingEngine
+    with tempfile.TemporaryDirectory() as tmp:
+        prefix = os.path.join(tmp, "ssd")
+        ssd_checkpoint(prefix, seed)
+        mnms.reset_launches()
+        eng = ServingEngine(prefix + "-symbol.json", prefix + "-0000.params",
+                            {"data": SSD_INPUT}, buckets=BUCKETS)
+    load_launches = mnms.LAUNCHES
+    t0 = time.perf_counter()
+    reports, moved = _unmoved_peak(eng.memory_report)
+    dt = time.perf_counter() - t0
+    if (mnms.SHAPE_ONLY_CALLS != len(BUCKETS)
+            or mnms.LAUNCHES != load_launches or moved):
+        problems.append("memcheck (b): memory_report took the shape-only "
+                        "route %d times (expected %d), launched %d, moved "
+                        "the peak %d bytes"
+                        % (mnms.SHAPE_ONLY_CALLS, len(BUCKETS),
+                           mnms.LAUNCHES - load_launches, moved))
+    log("memcheck (b) ssd memory_report of %d buckets in %.2f s, B2 "
+        "shape-only %d times [%s]"
+        % (len(BUCKETS), dt, mnms.SHAPE_ONLY_CALLS, card))
+    rng = np.random.default_rng(seed + 24)
+    weights = eng.weight_bytes()
+    for b in BUCKETS:
+        x = rng.random((b,) + SSD_INPUT, dtype=np.float32)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        biggest = largest_allocs(lambda: eng.infer({"data": x}))
+        measured = torch.cuda.max_memory_allocated() - base + weights
+        rep = reports[b]
+        log("memcheck (b) %s; measured %d bytes (the forward's allocator "
+            "peak above what was allocated before it, plus the %d bytes of "
+            "weights): static %d, static/measured %.4f [%s]"
+            % (rep.format(), measured, weights, rep.peak_bytes,
+               rep.peak_bytes / measured, card))
+        for size, frames in biggest:
+            log("memcheck (b)   the forward's allocation of %d bytes: %s"
+                % (size, " < ".join(f[:120] for f in frames)))
+        log("memcheck (b)   the dry run's largest: %s"
+            % "; ".join("%d %s %s" % (t["bytes"], t["opcode"], t["op_path"])
+                        for t in rep.top_buffers[:3]))
+    return mnms.LAUNCHES
+
+
+def memcheck_sweeps(card, problems):
+    """(c): three sweeps on the card, then one whose every candidate is
+    pruned with the allocator's peak unmoved."""
+    from mxnet_tpu_torch import autotune
+    for label, kw in MEMCHECK_SWEEPS:
+        t0 = time.perf_counter()
+        r = autotune.tune(**kw)
+        best = r["best"]
+        log("memcheck (c) %s: %d trials %s, default %s, best %s score %s "
+            "%s, speedup_vs_default %s, %.1f s [%s]"
+            % (label, len(r["trials"]), r["counts"],
+               r["default"] and r["default"]["score"],
+               best and best["knobs"], best and best["score"], r["unit"],
+               r.get("speedup_vs_default"), time.perf_counter() - t0, card))
+        if best is None:
+            problems.append("memcheck (c): the %s sweep ended without a "
+                            "best (%s)" % (label, r["counts"]))
+    os.environ["MXTPU_AUTOTUNE_BUDGET"] = "4K"
+    try:
+        r, moved = _unmoved_peak(lambda: autotune.tune(
+            model="mlp", objective="img_per_sec", budget=4))
+    finally:
+        del os.environ["MXTPU_AUTOTUNE_BUDGET"]
+    log("memcheck (c) img_per_sec mlp under MXTPU_AUTOTUNE_BUDGET=4K: %s, "
+        "best %s, the allocator's peak moved %d bytes; first: %s [%s]"
+        % (r["counts"], r["best"], moved,
+           (r["trials"][0]["detail"] or "").split("\n")[0], card))
+    if (r["best"] is not None or r["counts"]["pruned"] != len(r["trials"])
+            or moved):
+        problems.append("memcheck (c): the 4K sweep ran a candidate (%s) "
+                        "or moved the peak %d bytes" % (r["counts"], moved))
+
+
+def memcheck_phase(seed, card):
+    """Phase 24 (last): the tuner and the memory analyzer on the card.
+    Returns ``{"B1": n, "B2": n}``, the kernels' real launches."""
+    t_phase = time.perf_counter()
+    problems = []
+    b1 = memcheck_resnet(seed, card, problems)
+    b2 = memcheck_ssd(seed, card, problems)
+    memcheck_sweeps(card, problems)
+    log("memcheck phase: %.1f s [%s]" % (time.perf_counter() - t_phase,
+                                         card))
+    if problems:
+        raise SystemExit("\n".join(problems))
+    return {"B1": b1, "B2": b2}
+
+
 def _nodes(sym):
     from mxnet_tpu_torch.symbol import _topo
     return _topo(sym._out_nodes())
@@ -8051,20 +8334,22 @@ def main():
     dist_launches = dist_phase(args.seed, card)
     capi_run = capi_phase(args.seed, card)
     capi = capi_run["launches"]
+    mem = memcheck_phase(args.seed, card)
     # B1 runs on three main paths: the train phase, the training API and
     # the bf16 mesh; its float32 route on the module phase and the f32 mesh
     b1.update(launches=(b1["launches"] + api_launches + mesh_launches["wgmma"]
-                        + dist_launches),
+                        + dist_launches + mem["B1"]),
               launches_train=b1["launches"],
               launches_training_api=api_launches,
               launches_mesh=mesh_launches["wgmma"],
-              launches_dist=dist_launches)
+              launches_dist=dist_launches,
+              launches_memcheck=mem["B1"])
     b1["launches_capi"] = 0
     b1_f32.update(launches=(b1_f32["launches"] + mesh_launches["tf32x3"]
                             + capi["B1"]),
                   launches_module=b1_f32["launches"],
                   launches_mesh=mesh_launches["tf32x3"],
-                  launches_capi=capi["B1"],
+                  launches_capi=capi["B1"], launches_memcheck=0,
                   max_abs_err=max(b1_f32["max_abs_err"],
                                   capi_run["b1_err"]))
     # B2 runs on six main paths: serving (phase 5), training (phase 12),
@@ -8073,8 +8358,9 @@ def main():
     # float32 route and B3's Rtc run through the C ABI too
     nms.update(launches=(serve_launches + ssd_train["launches"]
                          + tier_launches + data["launches"] + mp_launches
-                         + capi["B2"]),
+                         + capi["B2"] + mem["B2"]),
                launches_capi=capi["B2"],
+               launches_memcheck=mem["B2"],
                max_abs_err=max(nms["max_abs_err"], capi_run["b2_err"]),
                launches_serve=serve_launches,
                launches_train=ssd_train["launches"],
@@ -8093,6 +8379,7 @@ def main():
                    "launches": launches[route] + (
                        capi["B3"] if route == "cuda" else 0),
                    "launches_capi": capi["B3"] if route == "cuda" else 0,
+                   "launches_memcheck": 0,
                    "max_abs_err": max(rtc_err[route], upd_err[route],
                                       capi_run["b3_err"] if route == "cuda"
                                       else 0.0),

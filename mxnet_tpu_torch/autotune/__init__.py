@@ -1,24 +1,34 @@
-"""``mxnet_tpu_torch.autotune``: the tuning-DB tier of knob resolution.
+"""``mxnet_tpu_torch.autotune``: closes the loop between bench and config.
 
-Counterpart of ``mxnet_tpu/autotune`` (the resolution half). The JAX
-package's ``Module.fit`` and ``ServingEngine`` resolve unset knobs with
-the precedence **explicit arg > env > tuning DB > built-in default**,
-from a committed DB (:mod:`.db`, ``AUTOTUNE_db.json``) keyed ``(model,
-device_kind, global_batch, objective)``; the port resolves the same knobs
-from the same file, so a fit or an engine that names no knob dispatches
-alike in both packages on the same device kind. A DB hit is logged once
-and counted in the obs registry (``autotune.db_resolutions``); a
-device-kind mismatch is a note (``autotune.db_mismatches``).
+Counterpart of ``mxnet_tpu/autotune`` (the TVM measured-search
+discipline, arXiv:1802.04799, applied to this system's own knobs):
+
+* a **search driver** (:mod:`.search`): exhaustive grid for small spaces,
+  greedy per-knob hill climb for larger ones, deterministic order, a
+  bounded budget, a per-trial timeout and crash isolation;
+* a **static pruner**: every candidate's program set passes a
+  :mod:`mxnet_tpu_torch.memcheck` budget check before it runs (a
+  shape-only dry run, where the JAX package compiles; nothing is
+  allocated on the device for an over-budget config);
+* the **committed tuning DB** (:mod:`.db`, ``AUTOTUNE_db.json``) keyed
+  ``(model, device_kind, global_batch, objective)``, from which
+  ``Module.fit``, ``ServingEngine`` and ``DecodeLoop`` resolve unset knobs
+  with the precedence **explicit arg > env > tuning DB > built-in
+  default**, as the JAX package's do from the same file. A DB hit is
+  logged once and counted in the obs registry
+  (``autotune.db_resolutions``); a device-kind mismatch is a note
+  (``autotune.db_mismatches``).
 
 The device kind is the one the engine or module runs on (``"cpu"`` or the
 card's name, :func:`~.db.device_kind`), so on an H100 no committed entry
-applies and the built-in defaults do.
+applies and the built-in defaults do until a sweep there writes one.
 
-Not ported: the tuner itself (the search, the knob spaces, the trial
-harnesses and their memcheck pruner, ``python -m ...autotune``) and
-``hotspot_report``, which read XLA programs; :func:`tune` and
-:func:`hotspot_report` raise. :mod:`.harness` holds the open-loop client
-(``open_loop_run``) the serving benchmarks drive the batcher with.
+``python -m mxnet_tpu_torch.autotune --model mlp --objective img_per_sec
+--write-db`` runs a sweep and persists the winner (``--device cpu`` on a
+host without a card). :mod:`.harness` holds the trial harnesses and the
+open-loop client (``open_loop_run``) the serving benchmarks drive the
+batcher with. Not ported: :func:`hotspot_report`, the roofline of the JAX
+package's ``flopcheck`` (ROADMAP.md A.12d); it raises.
 """
 from __future__ import annotations
 
@@ -28,11 +38,15 @@ from ..base import MXNetError, env_str
 from .db import (SCHEMA_VERSION, TuningDB, default_db_path, device_kind,
                  device_platform, load_cached, param_signature,
                  parse_buckets, symbol_signature)
+from .search import Knob, SearchDriver, Trial, NEG_INF
+from .space import decode_space, serve_space, space_for, train_space
 
 __all__ = [
-    "SCHEMA_VERSION", "TuningDB", "default_db_path", "symbol_signature",
-    "param_signature", "parse_buckets", "device_kind", "device_platform",
-    "load_cached", "enabled", "tune", "hotspot_report",
+    "SCHEMA_VERSION", "TuningDB", "SearchDriver", "Trial", "Knob",
+    "NEG_INF", "default_db_path", "symbol_signature", "param_signature",
+    "parse_buckets", "device_kind", "device_platform", "load_cached",
+    "train_space", "serve_space", "decode_space", "space_for",
+    "enabled", "tune", "hotspot_report",
     "resolve_train_knobs", "resolve_serve_knobs", "resolve_fit_knobs",
     "note_db_resolution", "TRAIN_OBJECTIVES", "SERVE_OBJECTIVES",
     "DECODE_OBJECTIVES", "resolve_decode_knobs",
@@ -42,21 +56,13 @@ TRAIN_OBJECTIVES = ("img_per_sec", "tokens_per_sec")
 SERVE_OBJECTIVES = ("serve_p99", "serve_p50")
 DECODE_OBJECTIVES = ("decode_tokens_per_sec",)
 
-_NOT_PORTED = ("is not ported yet: the tuner (the search, knob spaces, "
-               "trial harnesses) and the HLO roofline wait for ROADMAP.md "
-               "A.12; the port resolves knobs from the committed tuning DB "
-               "only")
-
-
-def tune(*args, **kwargs):
-    """The autotuning sweep; not ported (raises)."""
-    raise MXNetError("autotune.tune " + _NOT_PORTED)
-
 
 def hotspot_report(*args, **kwargs):
-    """The roofline hotspot list of one XLA program; not ported
-    (raises)."""
-    raise MXNetError("autotune.hotspot_report " + _NOT_PORTED)
+    """The roofline hotspot list of one XLA program (the JAX package's
+    ``flopcheck``); not ported (raises)."""
+    raise MXNetError("autotune.hotspot_report reads the roofline of "
+                     "flopcheck, which walks XLA programs and is not ported "
+                     "yet (ROADMAP.md A.12d)")
 
 
 def enabled():
@@ -210,3 +216,105 @@ def resolve_fit_knobs(module, train_data, steps_per_dispatch,
         depth = max(0, int(_engine.dispatch_pipeline()))
         src["dispatch_pipeline"] = "default"
     return k, depth, src
+
+
+# ---------------------------------------------------------------------------
+# the sweep
+# ---------------------------------------------------------------------------
+
+def tune(model="mlp", objective="img_per_sec", budget=24, batch=None,
+         db_path=None, write_db=False, space=None, trial_timeout=None,
+         qps=None, nreq=None, rounds=2, logger=None, log=None, device=None):
+    """Run one autotuning sweep on ``device`` (default ``cuda:0``) and
+    (optionally) persist the winner.
+
+    Builds the harness for ``objective`` (training objectives measure
+    ``run_steps`` with fit's pipelined readback discipline; serving
+    objectives drive the batcher with open-loop arrivals; the decode
+    objective a ``DecodeLoop``), prunes each candidate statically through
+    memcheck, searches the space under ``budget`` trials, and returns a
+    JSON-able result dict (``model, objective, kind, global_batch, unit,
+    symbol_sig, counts, trials, default, best``, ``speedup_vs_default``
+    where the default trial succeeded, ``db`` after a write). With
+    ``write_db`` the best trial lands in the tuning DB (atomic write),
+    keyed ``(model, device_kind, global_batch, objective)`` on the
+    harness's device kind.
+    """
+    from .harness import DecodeHarness, ServeHarness, TrainHarness
+    logger = logger or logging
+    if objective in TRAIN_OBJECTIVES:
+        h = TrainHarness(model=model, batch=batch, objective=objective,
+                         rounds=rounds, logger=logger, device=device)
+        sp = space or train_space()
+        global_batch = h.batch
+    elif objective in SERVE_OBJECTIVES:
+        kw = {}
+        if qps is not None:
+            kw["qps"] = qps
+        if nreq is not None:
+            kw["nreq"] = nreq
+        h = ServeHarness(model=model, objective=objective, logger=logger,
+                         device=device, **kw)
+        sp = space or serve_space()
+        global_batch = 0
+    elif objective in DECODE_OBJECTIVES:
+        kw = {}
+        if nreq is not None:
+            kw["nreq"] = nreq
+        h = DecodeHarness(model=model, objective=objective, logger=logger,
+                          device=device, **kw)
+        sp = space or decode_space()
+        global_batch = 0
+    else:
+        raise MXNetError(
+            "autotune: unknown objective %r (training: %s; serving: %s; "
+            "decode: %s)"
+            % (objective, "|".join(TRAIN_OBJECTIVES),
+               "|".join(SERVE_OBJECTIVES), "|".join(DECODE_OBJECTIVES)))
+    driver = SearchDriver(sp, h.evaluate, prune=h.prune,
+                          program_knobs=h.program_knobs, budget=budget,
+                          trial_timeout=trial_timeout, logger=logger,
+                          log=log)
+    try:
+        best, trials = driver.run()
+    finally:
+        if hasattr(h, "close"):
+            h.close()   # decode trials hold live loop threads
+    default = driver.default_trial
+    result = {
+        "model": model,
+        "objective": objective,
+        "kind": h.kind,
+        "global_batch": global_batch,
+        "unit": h.unit,
+        "symbol_sig": h.symbol_sig(),
+        "counts": driver.counts(),
+        "trials": [t.to_dict() for t in trials],
+        "default": default.to_dict() if default is not None else None,
+        "best": best.to_dict() if best is not None else None,
+    }
+    if best is not None and default is not None and default.ok:
+        result["speedup_vs_default"] = (
+            round(best.score / default.score, 4)
+            if default.score > 0 else None)
+    if best is not None and write_db:
+        tdb = TuningDB.load(db_path, logger=logger)
+        if tdb.stale:
+            # a stale file must not survive a deliberate --write-db: the
+            # refresh REPLACES it
+            tdb = TuningDB(db_path)
+        key = tdb.put(
+            model, objective, global_batch, best.knobs, best.score,
+            h.unit, kind=h.kind, symbol=h.symbol.name,
+            symbol_sig=h.symbol_sig(),
+            extra={"default_score": (default.score
+                                     if default is not None and default.ok
+                                     else None),
+                   "trials": len(trials),
+                   "pruned": driver.counts().get("pruned", 0)},
+            device=h.device)
+        tdb.save()
+        result["db"] = {"path": tdb.path, "entry": key}
+        logger.info("autotune: wrote winner %r (score %.6g %s) to %s",
+                    best.knobs, best.score, h.unit, tdb.path)
+    return result

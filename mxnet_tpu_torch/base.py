@@ -136,6 +136,18 @@ def env_str(name, default=""):
 _BF16_NAMES = ("bfloat16",)
 
 
+def shape_only(t):
+    """Whether tensor ``t`` carries a shape but no data: a meta tensor, or
+    a fake one (``FakeTensorMode``, the dry run by which
+    :mod:`mxnet_tpu_torch.memcheck` prices a program). The hand-written
+    kernels' wrappers give such a tensor outputs of the right shape, dtype
+    and device that compute nothing, and count no launch."""
+    if t.is_meta:
+        return True
+    from torch._subclasses.fake_tensor import is_fake
+    return is_fake(t)
+
+
 def torch_dtype(dtype):
     """A dtype given as a ``torch.dtype``, a name, a numpy dtype or a
     numpy type -> the ``torch.dtype`` (``bfloat16`` by name, or as the

@@ -16,10 +16,12 @@ control surface ``Module.fit`` reads:
   imperative op, waits for that op's device before it returns.
 
 ``*_configured`` tell an explicit setting from the default, for the log
-line that names where each of ``fit``'s knobs came from. The HLO analyzer
-modes of the JAX package's engine are not ported. ``dp_devices`` reads
-``MXTPU_DP_DEVICES``, the replica count of a ``Module`` built without a
-context.
+line that names where each of ``fit``'s knobs came from. ``dp_devices``
+reads ``MXTPU_DP_DEVICES``, the replica count of a ``Module`` built
+without a context. ``memcheck_mode``/``set_memcheck`` (env
+``MXTPU_MEMCHECK``) arm the serving tier's load-time memory audit; the
+other analyzer modes of the JAX package's engine (``set_tracecheck``,
+``set_commscheck``, ``set_flopcheck``) wait for ROADMAP.md A.12d.
 """
 from __future__ import annotations
 
@@ -125,6 +127,53 @@ def dp_devices():
         return max(0, int(v))
     except ValueError:
         raise MXNetError("MXTPU_DP_DEVICES must be an integer, got %r" % v)
+
+
+def _mode_from_env(env_name, default):
+    """Shared warn|error|off parser for the analyzers' runtime-policy env
+    knobs; ``default`` is the meaning of unset/empty."""
+    v = os.environ.get(env_name, "").strip().lower()
+    if v == "":
+        return default
+    if v in ("1", "on", "true", "warn", "warning"):
+        return "warn"
+    if v in ("0", "off", "false", "no"):
+        return "off"
+    if v in ("error", "raise"):
+        return "error"
+    raise MXNetError("%s must be warn|error|off, got %r" % (env_name, v))
+
+
+def _validate_mode(mode, who):
+    if mode is not None and mode not in ("warn", "error", "off"):
+        raise MXNetError("%s: mode must be warn|error|off or None, got %r"
+                         % (who, mode))
+
+
+_memcheck_override = None
+
+
+def memcheck_mode():
+    """Memory-audit policy of the serving tier at load: ``"off"``
+    (default) skips the audit, ``"warn"`` logs unsuppressed memory
+    findings when a ``ServingEngine`` or ``DecodeLoop`` is built (priced
+    by :mod:`mxnet_tpu_torch.memcheck`'s shape-only dry run, before any
+    bucket or step runs), ``"error"`` raises :class:`MXNetError`: a deploy
+    that cannot fit its budget fails at load, not at the first full-batch
+    request. Env default: ``MXTPU_MEMCHECK``."""
+    if _memcheck_override is not None:
+        return _memcheck_override
+    return _mode_from_env("MXTPU_MEMCHECK", "off")
+
+
+def set_memcheck(mode):
+    """Override the memcheck mode (None: back to the env/default); returns
+    the previous effective value."""
+    global _memcheck_override
+    prev = memcheck_mode()
+    _validate_mode(mode, "set_memcheck")
+    _memcheck_override = mode
+    return prev
 
 
 def wait_all():

@@ -1,0 +1,948 @@
+"""memcheck: a static memory analyzer for the port's step and serving
+programs.
+
+Counterpart of ``mxnet_tpu/memcheck.py``. The JAX package compiles a
+program without running it and reads XLA's buffer assignment
+(``compiled.memory_analysis()`` and the scheduled HLO). An eager PyTorch
+step has no compiled program to ask, so the port prices a program by
+running it **shape-only**: :func:`analyze` calls it once under
+``torch._subclasses.fake_tensor.FakeTensorMode``, where every tensor
+carries its shape, dtype, device and storage size but no data. Nothing is
+allocated on the device and no kernel launches (the hand-written kernels'
+wrappers take a shape-only route for fake tensors). A dispatch mode above
+the fake one sees every aten op: it records each new output storage once
+(views share their base's storage), releases it when its last tensor dies
+(the storage object outlives its Python wrappers while autograd or a view
+still holds it), and keeps the peak of the live bytes. The figures:
+
+- ``argument_bytes``: the distinct storages of the arguments;
+- ``output_bytes``: the distinct new storages the call returns, plus the
+  donated leaves it kept (the donated state is the program's output, as
+  in the JAX package);
+- ``alias_bytes``: the donated leaves the call kept, the port's donation:
+  updated in place (``TrainStep`` and the decode loop update their state
+  in place), returned as they are, or left alone. A donated leaf is
+  *replaced* (``unaliased_donated``) when the call returns a new storage
+  at its place in the output (the same key path, or the same path under
+  the output's first-level position) and did not write the old one;
+- ``temp_bytes``: the peak of the live bytes less ``argument_bytes +
+  output_bytes - alias_bytes``, so that ``peak_bytes = args + out + temp
+  - alias`` is that peak, as in the JAX package.
+
+On a CUDA device each storage is counted rounded up to the caching
+allocator's 512-byte granule, the size ``torch.cuda.max_memory_allocated``
+counts. What the dry run cannot see: cuDNN's and cuBLAS's workspaces, the
+kernels' own scratch (B1's per-block partial sums, B2's ``l2`` mask), and
+the allocator's free cached blocks. Temp and peak are not comparable with
+the JAX package's: XLA plans and fuses buffers, an eager step frees each
+one when its last reference dies; argument bytes and the state's leaves
+are.
+
+A program that reads a value back to the host (``.item()``, ``int()`` of
+a tensor, ``.cpu().numpy()``) cannot be priced: :func:`analyze` raises
+``MXNetError`` naming the line. Autograd on fake CUDA tensors needs a
+CUDA build of torch (a CPU build ends the process), so a CUDA training
+step is priced on a GPU host.
+
+Memory lint catalog (the JAX package's definitions and knobs):
+
+==================  =====================================================
+lint id             fires when
+==================  =====================================================
+``hbm-budget``      a program's peak exceeds ``MXTPU_MEMCHECK_BUDGET``
+                    (default :func:`device_budget`)
+``donation-waste``  a donated leaf was replaced: the call returned a new
+                    buffer in its place, so the working set carries both
+``temp-blowup``     temp bytes exceed ``MXTPU_MEMCHECK_TEMP_MULT`` (4.0)
+                    times the argument+output bytes
+``resident-set``    the co-resident footprint of a program set (a serving
+                    engine's buckets, a train step's four programs),
+                    max(args+out-alias) + sum(temps), exceeds the budget
+==================  =====================================================
+
+CLI::
+
+    python -m mxnet_tpu_torch.memcheck --models mlp,lenet --json --device cpu
+    python -m mxnet_tpu_torch.memcheck --zoo --write-baseline FILE
+    python -m mxnet_tpu_torch.memcheck --zoo --baseline FILE
+
+``--baseline`` is the regression gate: every program's peak and temp
+bytes against the committed baseline within ``MXTPU_MEMCHECK_TOL``
+(default 10%) plus 64 KiB. The exit status is non-zero iff an unsuppressed
+finding or a baseline regression remains.
+
+Not ported: ``analyze_compiled`` and ``parse_hlo_buffers`` (there is no
+HLO) and ``check_registered`` (it reads the program registry of
+``tracecheck``, ROADMAP.md A.12d); each raises ``MXNetError``.
+"""
+from __future__ import annotations
+
+import contextlib
+import json
+import os
+import re
+import sys
+import threading
+import weakref
+
+import torch
+from torch.utils._python_dispatch import TorchDispatchMode
+from torch.utils._pytree import tree_leaves
+
+from .base import MXNetError, env_float, env_str
+from .tracecheck import (Finding, MEM_LINTS, _is_suppressed, unsuppressed,
+                         ZOO)
+
+__all__ = [
+    "MemoryReport", "analyze", "analyze_compiled", "lint_report",
+    "lint_resident_set", "resident_bytes", "check_program",
+    "check_registered", "check_train_step", "check_zoo",
+    "compare_baseline", "write_baseline", "parse_hlo_buffers",
+    "fake_mode", "new_fake_mode", "fake_tree", "device_budget",
+    "budget_bytes",
+    "temp_multiple", "tolerance", "main", "MEM_LINTS",
+]
+
+#: budget of a device that reports no memory size (the CPU): the JAX
+#: package's figure
+_DEFAULT_BUDGET = 16 << 30
+
+#: ignore donation waste below this (a stray scalar is not worth a red
+#: gate)
+_WASTE_FLOOR = 1024
+
+#: the CUDA caching allocator's granule: every block it hands out is a
+#: multiple of it
+_CUDA_GRANULE = 512
+
+_PKG_DIR = os.path.dirname(os.path.realpath(__file__))
+
+
+def _parse_bytes(v, name):
+    """Parse a byte count: plain number (int/float/scientific) or a
+    K/M/G/T binary suffix (``MXTPU_MEMCHECK_BUDGET=12G``)."""
+    v = str(v).strip()
+    if not v:
+        return None
+    m = re.match(r"^([0-9.eE+\-]+)\s*([kKmMgGtT]?)i?[bB]?$", v)
+    try:
+        num = float(m.group(1)) if m else None
+    except ValueError:
+        num = None
+    if num is None or num < 0:
+        raise MXNetError("%s must be a byte count (optionally suffixed "
+                         "K/M/G/T), got %r" % (name, v))
+    scale = {"": 1, "k": 1 << 10, "m": 1 << 20,
+             "g": 1 << 30, "t": 1 << 40}[m.group(2).lower()]
+    return int(num * scale)
+
+
+def _env_bytes(name):
+    return _parse_bytes(env_str(name), name)
+
+
+def _device(device):
+    """A ``torch.device`` of a device, Context or string; None is
+    ``cuda:0`` where CUDA is available, else the CPU."""
+    from .context import Context
+    if isinstance(device, Context):
+        device = device.to_device()
+    if device is None:
+        device = "cuda:0" if torch.cuda.is_available() else "cpu"
+    return torch.device(device)
+
+
+def device_budget(device=None):
+    """A device's memory budget: ``total_memory`` of a CUDA device (the
+    whole card; the CUDA context's few hundred MiB are not subtracted),
+    16 GiB for the CPU, as the JAX package's fallback."""
+    dev = _device(device)
+    if dev.type == "cuda":
+        return int(torch.cuda.get_device_properties(
+            dev.index or 0).total_memory)
+    return _DEFAULT_BUDGET
+
+
+def budget_bytes(device=None):
+    """Effective peak budget: ``MXTPU_MEMCHECK_BUDGET`` (bytes, K/M/G/T
+    suffixes accepted) or :func:`device_budget`."""
+    env = _env_bytes("MXTPU_MEMCHECK_BUDGET")
+    return env if env is not None else device_budget(device)
+
+
+def temp_multiple():
+    """``temp-blowup`` threshold: temps may be at most this multiple of the
+    argument+output bytes (``MXTPU_MEMCHECK_TEMP_MULT``, default 4.0)."""
+    return env_float("MXTPU_MEMCHECK_TEMP_MULT", 4.0)
+
+
+def tolerance():
+    """Baseline-gate tolerance band (``MXTPU_MEMCHECK_TOL``, default 0.1 =
+    10% growth allowed per program per metric)."""
+    return env_float("MXTPU_MEMCHECK_TOL", 0.1)
+
+
+def _platform(dev):
+    """The platform string of ``autotune.db.device_platform``: ``"gpu"``
+    for a CUDA device, else the device type."""
+    return "gpu" if dev.type == "cuda" else dev.type
+
+
+def analyze_compiled(*args, **kwargs):
+    """Reads an XLA executable's buffer assignment; the port has no
+    compiled program (raises: use :func:`analyze`)."""
+    raise MXNetError("memcheck.analyze_compiled reads an XLA executable, "
+                     "which the port does not have; memcheck.analyze prices "
+                     "a program by a shape-only dry run instead")
+
+
+def parse_hlo_buffers(*args, **kwargs):
+    """Walks scheduled HLO text; the port has none (raises)."""
+    raise MXNetError("memcheck.parse_hlo_buffers walks XLA's scheduled "
+                     "HLO, which the port does not have; memcheck.analyze "
+                     "records the buffers of its dry run instead")
+
+
+def check_registered(*args, **kwargs):
+    """Audits tracecheck's program registry, which waits for ROADMAP.md
+    A.12d (raises)."""
+    raise MXNetError("memcheck.check_registered reads tracecheck's program "
+                     "registry, which is not ported yet (ROADMAP.md A.12d)")
+
+
+# ---------------------------------------------------------------------------
+# the report
+# ---------------------------------------------------------------------------
+
+def _fmt_bytes(n):
+    if n is None:
+        return "?"
+    for unit, div in (("GiB", 1 << 30), ("MiB", 1 << 20), ("KiB", 1 << 10)):
+        if n >= div:
+            return "%.2f %s" % (n / div, unit)
+    return "%d B" % n
+
+
+class MemoryReport(object):
+    """Static memory profile of ONE program.
+
+    ``peak_bytes`` is its high-water estimate: ``argument + output + temp
+    - alias`` (a donated buffer is counted once). ``top_buffers``
+    attributes the largest buffers: dicts of ``bytes``, ``opcode`` (the
+    aten op, ``"parameter"`` for an argument), ``op_path`` (the executor
+    node that issued it, or the argument's label), ``instruction`` (the
+    op and its sequence number in the run) and ``provenance`` (the
+    ``file:line`` of the port's code that issued it)."""
+
+    __slots__ = ("program", "platform", "argument_bytes", "output_bytes",
+                 "temp_bytes", "alias_bytes", "generated_code_bytes",
+                 "top_buffers", "donated", "unaliased_donated")
+
+    def __init__(self, program, platform, argument_bytes, output_bytes,
+                 temp_bytes, alias_bytes, generated_code_bytes=0,
+                 top_buffers=(), donated=(), unaliased_donated=()):
+        self.program = program
+        self.platform = platform
+        self.argument_bytes = int(argument_bytes)
+        self.output_bytes = int(output_bytes)
+        self.temp_bytes = int(temp_bytes)
+        self.alias_bytes = int(alias_bytes)
+        self.generated_code_bytes = int(generated_code_bytes)
+        self.top_buffers = list(top_buffers)
+        #: [(label, bytes)] of donated argument leaves
+        self.donated = list(donated)
+        #: [(label, bytes)] donated leaves the call replaced
+        self.unaliased_donated = list(unaliased_donated)
+
+    @property
+    def peak_bytes(self):
+        return (self.argument_bytes + self.output_bytes + self.temp_bytes
+                - self.alias_bytes)
+
+    @property
+    def donated_bytes(self):
+        return sum(b for _, b in self.donated)
+
+    @property
+    def wasted_donation_bytes(self):
+        return sum(b for _, b in self.unaliased_donated)
+
+    def as_dict(self):
+        return {
+            "program": self.program,
+            "platform": self.platform,
+            "peak_bytes": self.peak_bytes,
+            "argument_bytes": self.argument_bytes,
+            "output_bytes": self.output_bytes,
+            "temp_bytes": self.temp_bytes,
+            "alias_bytes": self.alias_bytes,
+            "generated_code_bytes": self.generated_code_bytes,
+            "donated_bytes": self.donated_bytes,
+            "wasted_donation_bytes": self.wasted_donation_bytes,
+            "top_buffers": self.top_buffers,
+        }
+
+    def breakdown(self, top=5):
+        """Human-readable largest-buffer attribution, one line each."""
+        lines = []
+        for b in self.top_buffers[:top]:
+            where = b["op_path"] or b["instruction"]
+            if b["provenance"]:
+                where += " @ " + b["provenance"]
+            lines.append("%10s  %-16s %s"
+                         % (_fmt_bytes(b["bytes"]), b["opcode"], where))
+        return lines
+
+    def format(self):
+        return ("%s: peak %s (args %s + out %s + temp %s - alias %s)"
+                % (self.program, _fmt_bytes(self.peak_bytes),
+                   _fmt_bytes(self.argument_bytes),
+                   _fmt_bytes(self.output_bytes),
+                   _fmt_bytes(self.temp_bytes),
+                   _fmt_bytes(self.alias_bytes)))
+
+    def __repr__(self):
+        return "MemoryReport(%s)" % self.format()
+
+
+# ---------------------------------------------------------------------------
+# the dry run
+# ---------------------------------------------------------------------------
+
+def _walk(obj, label, fn):
+    """``obj`` with ``fn(label, tensor)`` applied to each tensor leaf of
+    its dicts, lists, tuples and MeshArrays; other leaves as they are.
+    Labels are the JAX package's key strings (``['params']['w']``), a
+    MeshArray's position as ``.parts[r]``."""
+    from .parallel.mesh import MeshArray
+    if isinstance(obj, torch.Tensor):
+        return fn(label, obj)
+    if isinstance(obj, dict):
+        return {k: _walk(v, "%s[%r]" % (label, k), fn)
+                for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        vals = [_walk(v, "%s[%d]" % (label, i), fn)
+                for i, v in enumerate(obj)]
+        if isinstance(obj, list):
+            return vals
+        return type(obj)(*vals) if hasattr(obj, "_fields") else tuple(vals)
+    if isinstance(obj, MeshArray):
+        return MeshArray(obj.mesh, [fn("%s.parts[%d]" % (label, r), p)
+                                    for r, p in enumerate(obj.parts)],
+                         spec=obj.spec)
+    return obj
+
+
+def _leaves(obj, label=""):
+    out = []
+    _walk(obj, label, lambda lab, t: out.append((lab, t)) or t)
+    return out
+
+
+def _storage(t):
+    """``(key, bytes)`` of a tensor's storage: bytes on a CUDA device
+    rounded up to the allocator's granule."""
+    st = t.untyped_storage()
+    nb = int(st.nbytes())
+    if t.device.type == "cuda" and nb:
+        nb = -(-nb // _CUDA_GRANULE) * _CUDA_GRANULE
+    return st, st._cdata, nb
+
+
+def new_fake_mode(**kwargs):
+    """A ``FakeTensorMode`` (``kwargs`` passed on) that never touches a
+    device: on a host with CUDA too, it keeps ``torch.tensor(...,
+    device=...)`` from making its data on the card and does not fold a
+    constant's copy to the card by running it (what ``FakeTensorMode``
+    does by itself only on a host without CUDA)."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    class _DeviceFreeMode(FakeTensorMode):
+        @property
+        def avoid_device_init(self):
+            return True
+
+    return _DeviceFreeMode(**kwargs)
+
+
+@contextlib.contextmanager
+def fake_mode(mode=None, like=None):
+    """Enter ``mode`` (a ``FakeTensorMode``; else the mode of the fake
+    tensors in the tree ``like``; else :func:`new_fake_mode`) for a dry
+    run, with tensor constructors kept on the host before they fake their
+    data. Yields the mode."""
+    if mode is None and like is not None:
+        mode = _fake_mode_of(_leaves(like))
+    mode = new_fake_mode() if mode is None else mode
+    prev = torch._C._only_lift_cpu_tensors()
+    torch._C._set_only_lift_cpu_tensors(True)
+    try:
+        with mode:
+            yield mode
+    finally:
+        torch._C._set_only_lift_cpu_tensors(prev)
+
+
+def fake_tree(tree, mode):
+    """``tree`` with each real tensor leaf replaced by a fake one of
+    ``mode`` (same shape, dtype, device and storage sharing; no data
+    copied); fake leaves pass as they are."""
+    from torch._subclasses.fake_tensor import is_fake
+    return _walk(tree, "", lambda lab, t: t if is_fake(t)
+                 else mode.from_tensor(t, static_shapes=True))
+
+
+def _fake_mode_of(leaves):
+    """The FakeTensorMode the fake leaves belong to (None if none is
+    fake); leaves of two modes raise."""
+    from torch._subclasses.fake_tensor import is_fake
+    modes = {id(t.fake_mode): t.fake_mode for _, t in leaves if is_fake(t)}
+    if len(modes) > 1:
+        raise MXNetError("memcheck.analyze: the arguments are fake tensors "
+                         "of %d different FakeTensorModes" % len(modes))
+    return next(iter(modes.values()), None)
+
+
+#: per code-object file name: ``(normalized name, in the port's package
+#: outside memcheck, the executor)``; a module may have been imported
+#: through a path that is not normalized (``.../tests/../mxnet_tpu_torch``)
+_FILES = {}
+
+
+def _file_kind(fname):
+    kind = _FILES.get(fname)
+    if kind is None:
+        real = os.path.realpath(fname)
+        inside = real.startswith(_PKG_DIR + os.sep)
+        kind = (real, inside and not real.endswith("memcheck.py"),
+                inside and real == os.path.join(_PKG_DIR, "executor.py"))
+        _FILES[fname] = kind
+    return kind
+
+
+def _where():
+    """``(op_path, provenance)`` of the op being dispatched: the executor
+    node whose walk issued it, and the innermost line of the port's code
+    on the stack (memcheck's own frames skipped)."""
+    node = prov = None
+    f = sys._getframe(2)
+    while f is not None and (node is None or prov is None):
+        real, port, executor = _file_kind(f.f_code.co_filename)
+        if prov is None and port:
+            prov = "%s:%d" % (real, f.f_lineno)
+        if node is None and executor \
+                and f.f_code.co_name in ("apply", "apply_mesh"):
+            node = getattr(f.f_locals.get("node"), "name", None)
+        f = f.f_back
+    return node, prov
+
+
+class _Tracker(TorchDispatchMode):
+    """Counts the live bytes of every storage the ops of a dry run make,
+    and the storages they write in place."""
+
+    def __init__(self):
+        super().__init__()
+        self.lock = threading.Lock()
+        self.live = {}
+        self.cur = self.peak = 0
+        self.written = set()
+        self.records = []
+        self.seq = 0
+
+    def add(self, t, record=None):
+        if not isinstance(t, torch.Tensor):
+            return
+        try:
+            st, key, nb = _storage(t)
+        except (RuntimeError, NotImplementedError):
+            return          # a tensor without a storage (sparse)
+        with self.lock:
+            if key in self.live:
+                return
+            self.live[key] = nb
+            self.cur += nb
+            self.peak = max(self.peak, self.cur)
+        weakref.finalize(st, self._release, key)
+        if record is not None and nb:
+            record["bytes"] = nb
+            self.records.append(record)
+
+    def _release(self, key):
+        with self.lock:
+            self.cur -= self.live.pop(key, 0)
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        out = func(*args, **kwargs)
+        for i, a in enumerate(func._schema.arguments):
+            if a.alias_info is not None and a.alias_info.is_write:
+                v = args[i] if i < len(args) else kwargs.get(a.name)
+                for t in tree_leaves(v):
+                    if isinstance(t, torch.Tensor):
+                        self.written.add(t.untyped_storage()._cdata)
+        node, prov = _where()
+        opcode = str(func.overloadpacket)
+        for t in tree_leaves(out):
+            if isinstance(t, torch.Tensor):
+                self.seq += 1
+                self.add(t, {"opcode": opcode, "op_path": node,
+                             "instruction": "%s#%d" % (opcode, self.seq),
+                             "provenance": prov})
+        return out
+
+
+def _host_read_error(name, e):
+    """The error of a priced program that read a value back to the host:
+    names the innermost line of the port's code in the traceback."""
+    tb, prov = e.__traceback__, None
+    while tb is not None:
+        real, port, _ = _file_kind(tb.tb_frame.f_code.co_filename)
+        if port:
+            prov = "%s:%d" % (real, tb.tb_lineno)
+        tb = tb.tb_next
+    return MXNetError(
+        "memcheck: %s reads a value back to the host%s (%s), which a "
+        "shape-only run cannot price" % (name, " at " + prov if prov else "",
+                                         type(e).__name__))
+
+
+def analyze(fn, args=(), kwargs=None, donate_argnums=(), name=None, top=8):
+    """Run ``fn(*args, **kwargs)`` once shape-only and return its
+    :class:`MemoryReport` (see the module's note). Real tensors among the
+    arguments are converted to fake ones and fake ones pass as they are,
+    so nothing is allocated and no kernel launches. The leaves of the
+    positional arguments in ``donate_argnums`` are the donated state."""
+    from torch._subclasses.fake_tensor import (
+        DataDependentOutputException, DynamicOutputShapeException)
+    kwargs = dict(kwargs or {})
+    if name is None:
+        name = getattr(fn, "__name__", None) or repr(fn)
+    args = tuple(args)
+    real = _leaves(args) + _leaves(kwargs)
+    mode = _fake_mode_of(real) or new_fake_mode()
+
+    with fake_mode(mode):
+        fargs = tuple(fake_tree(a, mode) for a in args)
+        fkwargs = fake_tree(kwargs, mode)
+    tracker = _Tracker()
+    arg_leaves = []
+    for i, a in enumerate(fargs):
+        arg_leaves += [(lab, t, i) for lab, t in _leaves(a, "args[%d]" % i)]
+    arg_leaves += [(lab, t, None) for lab, t in _leaves(fkwargs, "kwargs")]
+    arg_bytes, donated = {}, []
+    for lab, t, i in arg_leaves:
+        _, key, nb = _storage(t)
+        if key not in arg_bytes:
+            arg_bytes[key] = nb
+            tracker.add(t, {"opcode": "parameter", "op_path": lab,
+                            "instruction": lab, "provenance": None})
+        if i in (donate_argnums or ()):
+            donated.append((lab, nb, key, lab[len("args[%d]" % i):]))
+    try:
+        with fake_mode(mode), tracker:
+            out = fn(*fargs, **fkwargs)
+    except (DataDependentOutputException,
+            DynamicOutputShapeException) as e:
+        raise _host_read_error(name, e) from e
+    out_leaves = _leaves(out)
+    out_bytes, out_at = {}, {}
+    for lab, t in out_leaves:
+        _, key, nb = _storage(t)
+        out_bytes[key] = nb
+        out_at.setdefault(lab, key)
+        out_at.setdefault(re.sub(r"^\[\d+\]", "", lab), key)
+    replaced = {key for _, _, key, path in donated
+                if key not in tracker.written
+                and out_at.get(path, key) != key}
+    new_out = sum(nb for key, nb in out_bytes.items() if key not in arg_bytes)
+    alias = sum(arg_bytes[key] for key in
+                {key for _, _, key, _ in donated} - replaced)
+    argument = sum(arg_bytes.values())
+    temp = max(0, tracker.peak - (argument + new_out))
+    records = sorted(tracker.records, key=lambda r: r["bytes"],
+                     reverse=True)[:top]
+    dev = next((t.device for _, t, _ in arg_leaves), None) or next(
+        (t.device for _, t in out_leaves), torch.device("cpu"))
+    return MemoryReport(
+        name, _platform(dev), argument_bytes=argument,
+        output_bytes=new_out + alias, temp_bytes=temp, alias_bytes=alias,
+        top_buffers=[{k: r[k] for k in ("bytes", "opcode", "op_path",
+                                        "instruction", "provenance")}
+                     for r in records],
+        donated=[(lab, nb) for lab, nb, _, _ in donated],
+        unaliased_donated=[(lab, nb) for lab, nb, key, _ in donated
+                           if key in replaced])
+
+
+# ---------------------------------------------------------------------------
+# lints
+# ---------------------------------------------------------------------------
+
+def _top_attr(report, skip_params=False):
+    """(op_path, provenance) of the report's largest attributable buffer —
+    the thing a budget/temp finding should point at."""
+    for b in report.top_buffers:
+        if skip_params and b["opcode"] == "parameter":
+            continue
+        return b["op_path"] or b["instruction"], b["provenance"]
+    return None, None
+
+
+def lint_report(report, budget=None, temp_mult=None, waste_floor=None):
+    """Per-program memory lints over one :class:`MemoryReport`:
+    ``hbm-budget``, ``donation-waste``, ``temp-blowup``. Returns findings
+    with suppressions applied."""
+    findings = []
+    budget = budget_bytes() if budget is None else int(budget)
+    temp_mult = temp_multiple() if temp_mult is None else float(temp_mult)
+    waste_floor = _WASTE_FLOOR if waste_floor is None else int(waste_floor)
+    name = report.program
+
+    if report.peak_bytes > budget:
+        op_path, prov = _top_attr(report)
+        findings.append(Finding(
+            "hbm-budget", name,
+            "peak HBM %s exceeds the budget %s (args %s + out %s + temp %s"
+            " - alias %s; MXTPU_MEMCHECK_BUDGET). Largest buffers:\n  %s"
+            % (_fmt_bytes(report.peak_bytes), _fmt_bytes(budget),
+               _fmt_bytes(report.argument_bytes),
+               _fmt_bytes(report.output_bytes),
+               _fmt_bytes(report.temp_bytes),
+               _fmt_bytes(report.alias_bytes),
+               "\n  ".join(report.breakdown())),
+            op_path=op_path, provenance=prov))
+
+    for label, nbytes in report.unaliased_donated:
+        if nbytes < waste_floor:
+            continue
+        findings.append(Finding(
+            "donation-waste", name,
+            "donated argument %s (%s) was replaced, not updated in place "
+            "— the call returned a new buffer in its place, so the working "
+            "set carries both the old and the new one (alias savings "
+            "realized: %s of %s donated)"
+            % (label, _fmt_bytes(nbytes), _fmt_bytes(report.alias_bytes),
+               _fmt_bytes(report.donated_bytes)),
+            op_path=label))
+
+    estimate = report.argument_bytes + report.output_bytes
+    if estimate > 0 and report.temp_bytes > temp_mult * estimate:
+        op_path, prov = _top_attr(report, skip_params=True)
+        findings.append(Finding(
+            "temp-blowup", name,
+            "temp buffers %s are %.1fx the param+activation estimate %s "
+            "(threshold %.1fx, MXTPU_MEMCHECK_TEMP_MULT) — a "
+            "rematerialization/fusion regression. Largest buffers:\n  %s"
+            % (_fmt_bytes(report.temp_bytes),
+               report.temp_bytes / estimate, _fmt_bytes(estimate),
+               temp_mult, "\n  ".join(report.breakdown())),
+            op_path=op_path, provenance=prov))
+
+    for f in findings:
+        f.suppressed = _is_suppressed(f)
+    return findings
+
+
+def resident_bytes(reports):
+    """Co-resident footprint of a program set: arguments and outputs are
+    shared state (the same params and state feed every variant: the max),
+    and every program's temps add up (the JAX package's accounting)."""
+    reports = list(reports)
+    if not reports:
+        return 0
+    return (max(r.argument_bytes + r.output_bytes - r.alias_bytes
+                for r in reports)
+            + sum(r.temp_bytes for r in reports))
+
+
+def lint_resident_set(reports, set_name, budget=None):
+    """``resident-set``: the summed footprint of co-resident programs (all
+    serving buckets of one engine; a train step's four programs) against
+    the budget."""
+    reports = list(reports)
+    budget = budget_bytes() if budget is None else int(budget)
+    total = resident_bytes(reports)
+    findings = []
+    if reports and total > budget:
+        biggest = max(reports, key=lambda r: r.temp_bytes)
+        members = ", ".join(
+            "%s (temp %s)" % (r.program, _fmt_bytes(r.temp_bytes))
+            for r in reports)
+        findings.append(Finding(
+            "resident-set", set_name,
+            "co-resident program set needs %s (> budget %s): "
+            "max(args+out-alias) + sum(temps) over [%s]. Largest temp "
+            "holder: %s\n  %s"
+            % (_fmt_bytes(total), _fmt_bytes(budget), members,
+               biggest.program, "\n  ".join(biggest.breakdown())),
+            op_path=biggest.program))
+    for f in findings:
+        f.suppressed = _is_suppressed(f)
+    return findings
+
+
+def check_program(fn, args=(), kwargs=None, donate_argnums=(), name=None,
+                  budget=None, temp_mult=None):
+    """Analyze + lint ONE program; returns ``(findings, report)``."""
+    report = analyze(fn, args, kwargs, donate_argnums=donate_argnums,
+                     name=name)
+    return lint_report(report, budget=budget, temp_mult=temp_mult), report
+
+
+# ---------------------------------------------------------------------------
+# TrainStep / zoo auditing
+# ---------------------------------------------------------------------------
+
+def check_train_step(ts, data_shapes, label_shapes, k=2, guard=True,
+                     name=None, budget=None, temp_mult=None):
+    """Memory-audit a :class:`~mxnet_tpu_torch.train_step.TrainStep`'s
+    program set (``tracecheck.train_step_programs``: ``step``, ``run_steps``
+    at ``k``, and their guarded variants) plus the ``resident-set`` lint
+    over the set. No step runs on the device. Returns ``(findings,
+    reports)``, ``reports`` mapping program name ->
+    :class:`MemoryReport`."""
+    from .tracecheck import train_step_programs
+    name = name or "TrainStep(%s)" % ts.symbol.name
+    findings = []
+    reports = {}
+    if budget is None:
+        budget = budget_bytes(ts.device)
+    for pname, fn, pargs in train_step_programs(
+            ts, data_shapes, label_shapes, k=k, guard=guard, name=name):
+        fs, rep = check_program(fn, pargs, donate_argnums=(0,),
+                                name=pname, budget=budget,
+                                temp_mult=temp_mult)
+        findings += fs
+        reports[pname] = rep
+    findings += lint_resident_set(reports.values(),
+                                  "%s/resident-set" % name, budget=budget)
+    return findings, reports
+
+
+def check_zoo(names=None, k=2, guard=True, budget=None, temp_mult=None,
+              log=None, device=None):
+    """Memory-audit the model zoo's step programs (``tracecheck.ZOO``) on
+    ``device`` (default ``cuda:0``); returns ``(findings, reports)``."""
+    from .tracecheck import zoo_train_step
+    names = list(names) if names else sorted(ZOO)
+    findings = []
+    reports = {}
+    for mname in names:
+        if mname not in ZOO:
+            raise MXNetError("memcheck: unknown zoo model %r (have %s)"
+                             % (mname, ", ".join(sorted(ZOO))))
+        if log:
+            log("memcheck: analyzing %s ..." % mname)
+        ts, data_shapes, label_shapes = zoo_train_step(mname, device=device)
+        fs, reps = check_train_step(
+            ts, data_shapes, label_shapes,
+            k=k, guard=guard, name=mname, budget=budget,
+            temp_mult=temp_mult)
+        findings += fs
+        reports.update(reps)
+    return findings, reports
+
+
+# ---------------------------------------------------------------------------
+# the baseline regression gate
+# ---------------------------------------------------------------------------
+
+#: metrics the baseline pins per program
+_BASELINE_METRICS = ("peak_bytes", "temp_bytes")
+
+#: absolute slack added to the tolerance band — the zoo programs are tiny
+#: on purpose, and a 10% band around a 40 KiB program is measurement noise
+_BASELINE_SLACK = 64 << 10
+
+
+def _reports_platform(reports):
+    plats = sorted({r.platform for r in reports.values()})
+    return plats[0] if len(plats) == 1 else ",".join(plats)
+
+
+def write_baseline(reports, path, tol=None):
+    """Write the baseline: per-program peak/temp bytes, keyed by the
+    reports' platform (a CPU baseline must not gate a card's run)."""
+    from .model import atomic_write_bytes
+    data = {
+        "platform": _reports_platform(reports),
+        "tolerance": tolerance() if tol is None else float(tol),
+        "programs": {
+            name: {m: getattr(rep, m) for m in _BASELINE_METRICS}
+            for name, rep in sorted(reports.items())},
+    }
+    atomic_write_bytes(path, (json.dumps(data, indent=2, sort_keys=True)
+                              + "\n").encode())
+    return data
+
+
+def compare_baseline(reports, baseline, tol=None):
+    """The regression gate: compare every report against the baseline.
+    Returns ``(failures, notes)``: ``failures`` are gate-red strings (a
+    program grew past the tolerance band, or is missing from the
+    baseline), ``notes`` informational (a program shrank well below its
+    baseline; stale entries). A baseline of another platform gives one
+    note and no failures."""
+    if isinstance(baseline, str):
+        with open(baseline) as f:
+            baseline = json.load(f)
+    if tol is None:
+        # explicit arg > MXTPU_MEMCHECK_TOL > the baseline's band > 0.1
+        tol = env_float("MXTPU_MEMCHECK_TOL",
+                        float(baseline.get("tolerance", 0.1)))
+    else:
+        tol = float(tol)
+    platform = _reports_platform(reports)
+    failures, notes = [], []
+    if baseline.get("platform") != platform:
+        notes.append(
+            "memcheck baseline was written on platform %r but this run is "
+            "%r — skipping the regression gate (re-run --write-baseline on "
+            "this platform to arm it)"
+            % (baseline.get("platform"), platform))
+        return failures, notes
+    base_progs = dict(baseline.get("programs") or {})
+    for name, rep in sorted(reports.items()):
+        base = base_progs.pop(name, None)
+        if base is None:
+            failures.append(
+                "%s: not in the baseline — a new program must be added "
+                "deliberately (run `python -m mxnet_tpu_torch.memcheck "
+                "--zoo --write-baseline FILE` and commit the diff)" % name)
+            continue
+        for metric in _BASELINE_METRICS:
+            b = int(base.get(metric, 0))
+            cur = int(getattr(rep, metric))
+            allowed = b + max(int(b * tol), _BASELINE_SLACK)
+            if cur > allowed:
+                failures.append(
+                    "%s: %s grew %s -> %s (+%.1f%%, tolerance %.0f%% + "
+                    "%s slack, MXTPU_MEMCHECK_TOL). Largest buffers:\n  %s"
+                    % (name, metric, _fmt_bytes(b), _fmt_bytes(cur),
+                       100.0 * (cur - b) / max(1, b), 100.0 * tol,
+                       _fmt_bytes(_BASELINE_SLACK),
+                       "\n  ".join(rep.breakdown())))
+            elif b > _BASELINE_SLACK and cur < b - max(int(b * tol),
+                                                       _BASELINE_SLACK):
+                notes.append(
+                    "%s: %s shrank %s -> %s — refresh the baseline to lock "
+                    "the win in"
+                    % (name, metric, _fmt_bytes(b), _fmt_bytes(cur)))
+    for name in sorted(base_progs):
+        notes.append("baseline entry %r matches no audited program "
+                     "(stale — refresh the baseline)" % name)
+    return failures, notes
+
+
+# ---------------------------------------------------------------------------
+# CLI
+# ---------------------------------------------------------------------------
+
+def report_table(reports, out=None):
+    out = out or sys.stdout
+    w = max([len(n) for n in reports] + [8])
+    out.write("%-*s  %10s %10s %10s %10s %10s\n"
+              % (w, "program", "peak", "args", "out", "temp", "alias"))
+    for name in sorted(reports):
+        r = reports[name]
+        out.write("%-*s  %10s %10s %10s %10s %10s\n"
+                  % (w, name, _fmt_bytes(r.peak_bytes),
+                     _fmt_bytes(r.argument_bytes),
+                     _fmt_bytes(r.output_bytes), _fmt_bytes(r.temp_bytes),
+                     _fmt_bytes(r.alias_bytes)))
+
+
+def main(argv=None):
+    import argparse
+    from . import tracecheck as _tc
+    p = argparse.ArgumentParser(
+        prog="python -m mxnet_tpu_torch.memcheck",
+        description="Static memory analyzer for the port's step programs, "
+                    "priced by a shape-only dry run: peak/argument/temp/"
+                    "alias accounting, donation-waste and budget lints, "
+                    "and the baseline regression gate.")
+    p.add_argument("--zoo", action="store_true",
+                   help="analyze every shipped model's step/scan programs")
+    p.add_argument("--models", default=None,
+                   help="comma-separated zoo subset (implies --zoo)")
+    p.add_argument("--k", type=int, default=2,
+                   help="scan depth for the K-step programs (default 2)")
+    p.add_argument("--no-guard", action="store_true",
+                   help="skip the guarded program variants")
+    p.add_argument("--budget", default=None,
+                   help="peak budget in bytes (K/M/G/T suffixes ok; "
+                        "default MXTPU_MEMCHECK_BUDGET or the device)")
+    p.add_argument("--temp-mult", type=float, default=None,
+                   help="temp-blowup multiple (default "
+                        "MXTPU_MEMCHECK_TEMP_MULT or 4.0)")
+    p.add_argument("--baseline", default=None, metavar="FILE",
+                   help="compare against a baseline (the regression gate); "
+                        "exit non-zero on growth past tolerance")
+    p.add_argument("--write-baseline", default=None, metavar="FILE",
+                   help="write the per-program baseline JSON and exit 0")
+    p.add_argument("--tol", type=float, default=None,
+                   help="baseline tolerance band (default "
+                        "MXTPU_MEMCHECK_TOL, the baseline's own, or 0.1)")
+    p.add_argument("--json", action="store_true", help="JSON output")
+    p.add_argument("--list", action="store_true",
+                   help="list zoo models and exit")
+    p.add_argument("--quiet", action="store_true",
+                   help="suppress progress lines")
+    p.add_argument("--device", default=None,
+                   help="the device the programs are priced for (default "
+                        "cuda:0; 'cpu' on a host without a card)")
+    args = p.parse_args(argv)
+    if args.list:
+        for n in sorted(ZOO):
+            print(n)
+        return 0
+    if not (args.zoo or args.models):
+        p.error("nothing to check: pass --zoo or --models")
+    names = ([s.strip() for s in args.models.split(",") if s.strip()]
+             if args.models else None)
+    log = (lambda m: None) if (args.quiet or args.json) \
+        else (lambda m: print(m, file=sys.stderr))
+    budget = (None if args.budget is None
+              else _parse_bytes(args.budget, "--budget"))
+    findings, reports = check_zoo(names=names, k=args.k,
+                                  guard=not args.no_guard, budget=budget,
+                                  temp_mult=args.temp_mult, log=log,
+                                  device=args.device)
+    if args.write_baseline:
+        write_baseline(reports, args.write_baseline, tol=args.tol)
+        log("memcheck: baseline written to %s (%d programs)"
+            % (args.write_baseline, len(reports)))
+        return 0
+    failures, notes = [], []
+    if args.baseline:
+        failures, notes = compare_baseline(reports, args.baseline,
+                                           tol=args.tol)
+    bad = unsuppressed(findings)
+    if args.json:
+        print(json.dumps({
+            "platform": _reports_platform(reports),
+            "budget_bytes": (budget if budget is not None
+                             else budget_bytes(args.device)),
+            "programs": {n: r.as_dict() for n, r in sorted(reports.items())},
+            "findings": [f.as_dict() for f in findings],
+            "suppressed": len(findings) - len(bad),
+            "baseline_failures": failures,
+            "baseline_notes": notes,
+        }, indent=2))
+    else:
+        report_table(reports)
+        _tc.report(findings)
+        for n in notes:
+            print("note: %s" % n)
+        for f in failures:
+            print("BASELINE REGRESSION: %s" % f)
+        print("memcheck: %d finding(s) (%d suppressed), %d baseline "
+              "regression(s) over %d program(s)"
+              % (len(findings), len(findings) - len(bad), len(failures),
+                 len(reports)))
+    return 1 if (bad or failures) else 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -520,8 +520,8 @@ class BucketingModule(BaseModule):
         return self._curr_module.save_optimizer_states(fname)
 
     def check(self, memory=False, budget=None, temp_mult=None):
-        raise MXNetError("BucketingModule.check (the tracecheck/memcheck "
-                         "analyzers) is not ported yet (ROADMAP A.12)")
+        raise MXNetError("BucketingModule.check (the tracecheck and memcheck "
+                         "analyzers) is not ported yet (ROADMAP A.12d)")
 
     # -- computation ----------------------------------------------------
     def forward(self, data_batch, is_train=None):

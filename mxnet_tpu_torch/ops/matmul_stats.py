@@ -17,6 +17,10 @@ the f32 accumulator ``acc``:
   the output's (``dy + ds1 + 2 y ds2``) and two ``torch.matmul`` products,
   as the JAX package leaves them to XLA outside its kernel.
 - :func:`matmul_stats_reference` is the plain version.
+- A fake or meta tensor (``base.shape_only``: memcheck's dry run) off the
+  CPU takes the shape-only route: outputs of the right shape, dtype and
+  device, nothing computed, no launch counted (it counts in
+  :data:`SHAPE_ONLY_CALLS`). A real CUDA tensor never takes it.
 
 :data:`LAUNCHES` counts the kernel launches of :func:`matmul_stats` (one per
 call on the card) and :data:`LAUNCHES_BY_ROUTE` the same by route;
@@ -32,7 +36,8 @@ import threading
 
 import torch
 
-from ..base import MXNetError, attr_bool, attr_int, attr_str, attr_tuple
+from ..base import (MXNetError, attr_bool, attr_int, attr_str, attr_tuple,
+                    shape_only)
 
 #: kernel launches by :func:`matmul_stats` (one per call that ran on the card)
 LAUNCHES = 0
@@ -42,6 +47,10 @@ LAUNCHES_BY_ROUTE = {"wgmma": 0, "wmma": 0, "tf32x3": 0, "f32": 0}
 
 #: activations :func:`apply_conv1x1_stats` copied to make them contiguous
 LAYOUT_COPIES = 0
+
+#: calls on fake or meta CUDA tensors (memcheck's dry run), which took the
+#: shape-only route: no kernel, no launch counted
+SHAPE_ONLY_CALLS = 0
 
 _COUNT_LOCK = threading.Lock()
 
@@ -162,14 +171,14 @@ def _check(x, w):
         raise MXNetError("matmul_stats: x is %s, w is %s" % (x.dtype, w.dtype))
 
 
-def _launch(x, w, route=None):
-    """The kernel on CUDA tensors; returns ``(y, s1, s2)``. ``route`` forces
-    a kernel the shape qualifies for (``"wmma"`` takes every bfloat16
-    shape, ``"f32"`` every float32 one), for comparisons; None takes
-    :func:`kernel_route`'s."""
-    dev = x.device
-    if w.device != dev:
-        raise MXNetError("matmul_stats: w is on %s, x on %s" % (w.device, dev))
+def _check_operands(x, w):
+    """What a launch requires of its operands beyond :func:`_check`: one
+    device, contiguous, not empty, within 32-bit element counts. The
+    shape-only route checks it too, so a dry run refuses what the launch
+    would."""
+    if w.device != x.device:
+        raise MXNetError("matmul_stats: w is on %s, x on %s"
+                         % (w.device, x.device))
     for name, t in (("x", x), ("w", w)):
         if not t.is_contiguous():
             raise MXNetError("matmul_stats: %s must be contiguous" % name)
@@ -181,6 +190,17 @@ def _launch(x, w, route=None):
     if max(m * k, n * k, m * n) >= 2 ** 31:
         raise MXNetError("matmul_stats: operands of %d x %d x %d exceed the "
                          "kernel's 32-bit element counts" % (m, k, n))
+
+
+def _launch(x, w, route=None):
+    """The kernel on CUDA tensors; returns ``(y, s1, s2)``. ``route`` forces
+    a kernel the shape qualifies for (``"wmma"`` takes every bfloat16
+    shape, ``"f32"`` every float32 one), for comparisons; None takes
+    :func:`kernel_route`'s."""
+    _check_operands(x, w)
+    dev = x.device
+    m, k = x.shape
+    n = w.shape[0]
     aligned = x.data_ptr() % 16 == 0 and w.data_ptr() % 16 == 0
     best = kernel_route(m, k, n, x.dtype, aligned)
     if route is None:
@@ -244,19 +264,38 @@ def _count_launch(route):
 
 
 def reset_launches():
-    """Set :data:`LAUNCHES`, :data:`LAUNCHES_BY_ROUTE` and
-    :data:`LAYOUT_COPIES` to 0."""
-    global LAUNCHES, LAYOUT_COPIES
+    """Set :data:`LAUNCHES`, :data:`LAUNCHES_BY_ROUTE`,
+    :data:`LAYOUT_COPIES` and :data:`SHAPE_ONLY_CALLS` to 0."""
+    global LAUNCHES, LAYOUT_COPIES, SHAPE_ONLY_CALLS
     with _COUNT_LOCK:
-        LAUNCHES = LAYOUT_COPIES = 0
+        LAUNCHES = LAYOUT_COPIES = SHAPE_ONLY_CALLS = 0
         for route in LAUNCHES_BY_ROUTE:
             LAUNCHES_BY_ROUTE[route] = 0
+
+
+def _shape_only(x, w):
+    """What a launch returns, shapes only: ``y`` (M, N) in x's dtype and
+    the (2, N) statistics the kernel writes, uninitialized. The kernel's
+    own scratch (its per-block partial sums, tf32x3's split of w) is not
+    made."""
+    global SHAPE_ONLY_CALLS
+    _check_operands(x, w)
+    kernel_route(x.shape[0], x.shape[1], w.shape[0], x.dtype, True)
+    with _COUNT_LOCK:
+        SHAPE_ONLY_CALLS += 1
+    n = w.shape[0]
+    y = torch.empty((x.shape[0], n), dtype=x.dtype, device=x.device)
+    stats = torch.empty((2, n), dtype=_acc_dtype(x.dtype), device=x.device)
+    s1, s2 = stats.unbind(0)
+    return y, s1, s2
 
 
 def _forward(x, w):
     _check(x, w)
     if x.device.type == "cpu":
         return matmul_stats_reference(x, w)
+    if shape_only(x):
+        return _shape_only(x, w)
     if x.device.type != "cuda":
         raise MXNetError("matmul_stats: no kernel for device %s" % x.device)
     return _launch(x, w)

@@ -12,6 +12,11 @@ score-sorted boxes and return the float32 (B, k) survival mask, 1.0/0.0:
 - :func:`nms_alive_reference` is the plain version, batched over B with a
   Python loop over the k steps, as ``ops/contrib.py:238-247`` of the JAX
   package writes it.
+- A fake or meta tensor (``base.shape_only``: memcheck's dry run) off the
+  CPU takes the shape-only route: the (B, k) mask uninitialized, and the
+  ``l2`` route's scratch made and dropped, nothing computed, no launch
+  counted (it counts in :data:`SHAPE_ONLY_CALLS`). A real CUDA tensor
+  never takes it.
 
 The kernel has two routes, picked from k by :func:`kernel_route`: ``"smem"``
 (one launch of a thread-block cluster per image, the suppression mask in
@@ -33,7 +38,7 @@ import threading
 import numpy as np
 import torch
 
-from ..base import MXNetError
+from ..base import MXNetError, shape_only
 from ..context import raw_stream
 
 #: calls that launched the kernel on the card (one per call, either route)
@@ -41,6 +46,10 @@ LAUNCHES = 0
 
 #: the same by route
 LAUNCHES_BY_ROUTE = {"smem": 0, "l2": 0}
+
+#: calls on fake or meta CUDA tensors (memcheck's dry run), which took the
+#: shape-only route: no kernel, no launch counted
+SHAPE_ONLY_CALLS = 0
 
 _COUNT_LOCK = threading.Lock()
 
@@ -184,15 +193,33 @@ def nms_alive(sboxes, sscore, scls, thresh, force=False):
     _check(sboxes, sscore, scls)
     if sboxes.device.type == "cpu":
         return nms_alive_reference(sboxes, sscore, scls, thresh, force)
+    if shape_only(sboxes):
+        return _shape_only(sboxes, sscore, scls)
     return _launch(sboxes, sscore, scls, thresh, force)
 
 
-def _launch(sboxes, sscore, scls, thresh, force, route=None):
-    """Launch the kernel on ``route`` (by default :func:`kernel_route`'s;
-    ``chip_smoke.py`` times both routes on the same tensors)."""
+def _shape_only(sboxes, sscore, scls):
+    """What a launch returns, shapes only: the float32 (B, k) mask,
+    uninitialized; the ``l2`` route's scratch is made and dropped as the
+    launch makes it."""
+    global SHAPE_ONLY_CALLS
+    _check_operands(sboxes, sscore, scls)
+    with _COUNT_LOCK:
+        SHAPE_ONLY_CALLS += 1
+    b, k = sboxes.shape[:2]
+    out = torch.empty(sscore.shape, dtype=torch.float32,
+                      device=sscore.device)
+    if b and k and kernel_route(b, k) == "l2":
+        torch.empty((b * k * ((k + 63) // 64),), dtype=torch.int64,
+                    device=sboxes.device)
+    return out
+
+
+def _check_operands(sboxes, sscore, scls):
+    """What a launch requires beyond :func:`_check`: one device, float32,
+    contiguous, k within :data:`MAX_K`. The shape-only route checks it
+    too, so a dry run refuses what the launch would."""
     dev = sboxes.device
-    if dev.type != "cuda":
-        raise MXNetError("nms_alive: no kernel for device %s" % dev)
     for name, t in (("sboxes", sboxes), ("sscore", sscore), ("scls", scls)):
         if t.device != dev:
             raise MXNetError("nms_alive: %s is on %s, sboxes on %s"
@@ -202,12 +229,22 @@ def _launch(sboxes, sscore, scls, thresh, force, route=None):
                              % (name, t.dtype))
         if not t.is_contiguous():
             raise MXNetError("nms_alive: %s must be contiguous" % name)
-    if sboxes.data_ptr() % 16:
-        raise MXNetError("nms_alive: sboxes must be 16-byte aligned")
-    b, k = sboxes.shape[:2]
+    k = sboxes.shape[1]
     if k > MAX_K:
         raise MXNetError("nms_alive: k=%d exceeds the kernel's %d"
                          % (k, MAX_K))
+
+
+def _launch(sboxes, sscore, scls, thresh, force, route=None):
+    """Launch the kernel on ``route`` (by default :func:`kernel_route`'s;
+    ``chip_smoke.py`` times both routes on the same tensors)."""
+    dev = sboxes.device
+    if dev.type != "cuda":
+        raise MXNetError("nms_alive: no kernel for device %s" % dev)
+    _check_operands(sboxes, sscore, scls)
+    if sboxes.data_ptr() % 16:
+        raise MXNetError("nms_alive: sboxes must be 16-byte aligned")
+    b, k = sboxes.shape[:2]
     route = route or kernel_route(b, k)
     if route not in LAUNCHES_BY_ROUTE:
         raise MXNetError("nms_alive: no route %r" % (route,))
@@ -249,9 +286,10 @@ def _count_launch(route):
 
 
 def reset_launches():
-    """Set :data:`LAUNCHES` and :data:`LAUNCHES_BY_ROUTE` to 0."""
-    global LAUNCHES
+    """Set :data:`LAUNCHES`, :data:`LAUNCHES_BY_ROUTE` and
+    :data:`SHAPE_ONLY_CALLS` to 0."""
+    global LAUNCHES, SHAPE_ONLY_CALLS
     with _COUNT_LOCK:
-        LAUNCHES = 0
+        LAUNCHES = SHAPE_ONLY_CALLS = 0
         for route in LAUNCHES_BY_ROUTE:
             LAUNCHES_BY_ROUTE[route] = 0

@@ -79,8 +79,18 @@ run once a device. Prefix slabs are ``(layers, heads, rows, head_dim)``
 split over heads, taken out and put back per position, and the
 speculative verify body and the draft run sharded the same way.
 
-Not ported: the static audits ``memory_report``, ``comms_report`` and
-``check`` (ROADMAP.md A.12); they raise.
+:meth:`DecodeLoop.memory_report` prices the loop's programs under the JAX
+package's names (the token pass ``step[slots=S,len=L]``, or with
+speculation ``verify[slots=S,win=W]`` and ``draft[slots=S,len=L]``, and
+with the prefix cache ``prefix_get[...]``/``prefix_put[...]`` for the
+target and the draft) by :mod:`mxnet_tpu_torch.memcheck`'s shape-only dry
+run over fake copies of the parameters, the slot vectors and the KV
+caches; the live cache is never touched. ``MXTPU_MEMCHECK=warn|error``
+audits them at construction, before the loop's thread starts, and
+:meth:`DecodeLoop.priced` prices a loop without building it.
+
+Not ported: the static audits ``comms_report`` and ``check`` (ROADMAP.md
+A.12d); they raise.
 """
 from __future__ import annotations
 
@@ -100,7 +110,8 @@ from ..ops.nn import matmul_precision
 from ..parallel import mesh as _mesh
 from ..tracecheck import unique_name
 from .batcher import REQUEST_IDS, ServingClosedError, Settleable
-from .engine import _model_mesh, _not_ported, _sync
+from .engine import (_audit_load_memory, _dry_run, _model_mesh,
+                     _not_ported, _sync)
 from .health import ServingHealth, SERVING_HEALTH
 from .quantize import (_as_tensor, dequant_tree, is_quantized_leaf,
                        place_leaf, quantize_array, quantize_tree,
@@ -605,6 +616,10 @@ class DecodeLoop(object):
                                              self.num_heads, self._mesh)
         self._extract_fn = _build_extract_fn()
         self._implant_fn = _build_implant_fn()
+        if _dry_run():
+            return
+        # MXTPU_MEMCHECK: price the program set before the thread starts
+        _audit_load_memory(self, "DecodeLoop")
 
         #: device-resident prefix registry: key (the prefix token tuple)
         #: -> {"len", "target": {k,v}, "draft": {k,v}|None}, LRU-bounded
@@ -619,6 +634,18 @@ class DecodeLoop(object):
                                         name="mxtpu-serve-decode",
                                         daemon=True)
         self._thread.start()
+
+    @classmethod
+    def priced(cls, *args, top=8, **kwargs):
+        """:meth:`memory_report` of the loop ``DecodeLoop(*args,
+        **kwargs)`` would build, without building it: the constructor runs
+        inside a ``FakeTensorMode`` (parameters and caches fake, nothing
+        allocated on the device), and a loop built there skips its load
+        audit and never starts its thread."""
+        from ..memcheck import fake_mode, new_fake_mode
+        with fake_mode(new_fake_mode(allow_non_fake_inputs=True)):
+            loop = cls(*args, **kwargs)
+        return loop.memory_report(top=top)
 
     # ------------------------------------------------------------------
     def _resolve_knobs(self, host_params, quantize, prefix_cache, spec_k,
@@ -1101,7 +1128,61 @@ class DecodeLoop(object):
 
     # ------------------------------------------------------------------
     def memory_report(self, top=8):
-        raise _not_ported("memory_report", "DecodeLoop")
+        """Static memory profile of every program of the loop:
+        ``{program_name: MemoryReport}`` (see the module's note), each
+        priced by ``memcheck.analyze`` over fake copies of the parameters,
+        the caches (donated: updated in place) and a step's slot vectors.
+        Nothing runs on the device and the live cache is never touched; a
+        sharded loop's reports count every position's bytes."""
+        from .. import memcheck as _mc
+        with _mc.fake_mode(like=self._params) as mode:
+            state = _mc.fake_tree(self._state, mode)
+            params = _mc.fake_tree(self._params, mode)
+            n = self.slots
+            samp = tuple(self._vec(np.zeros(n), dt) for dt in (
+                torch.int64, torch.int64, torch.float32, torch.int64,
+                torch.float32, torch.int64, torch.bool))
+            if self.spec_k:
+                dstate = _mc.fake_tree(self._draft_state, mode)
+                dparams = _mc.fake_tree(self._draft_params, mode)
+                window = self.spec_k + 1
+                tokw = self._vec(np.zeros((n, window)), torch.int64)
+            slabs = {"target": self._extract_fn(state, 0)}
+            if self.spec_k:
+                slabs["draft"] = self._extract_fn(dstate, 0)
+
+        def in_loop(fn):
+            def run(*a):
+                with torch.inference_mode(), matmul_precision(self.device):
+                    return fn(*a)
+            return run
+
+        programs = []
+        if self.spec_k:
+            programs += [
+                ("verify[slots=%d,win=%d]" % (n, window), self._verify_fn,
+                 (state, params, tokw) + samp[1:], (0,)),
+                ("draft[slots=%d,len=%d]" % (n, self.max_len),
+                 self._draft_fn, (dstate, dparams) + samp, (0,))]
+        else:
+            programs.append(("step[slots=%d,len=%d]" % (n, self.max_len),
+                             self._step_fn, (state, params) + samp, (0,)))
+        if self.prefix_enabled:
+            for which, st in (("target", state),) + (
+                    (("draft", dstate),) if self.spec_k else ()):
+                slab = slabs[which]
+                programs += [
+                    ("prefix_get[%s]" % which, self._extract_fn, (st, 0),
+                     ()),
+                    ("prefix_put[%s]" % which, self._implant_fn,
+                     (st, 0, slab["k"], slab["v"]), (0,))]
+        reports = {}
+        for tag, fn, args, donate in programs:
+            pname = "%s/%s" % (self.name, tag)
+            reports[pname] = _mc.analyze(in_loop(fn), args,
+                                         donate_argnums=donate, name=pname,
+                                         top=top)
+        return dict(sorted(reports.items()))
 
     def comms_report(self):
         raise _not_ported("comms_report", "DecodeLoop")

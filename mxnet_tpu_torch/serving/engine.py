@@ -57,8 +57,19 @@ reduction spans positions; an op of replicated inputs runs once a device
 (MultiBoxDetection, and its NMS kernel, once a dispatch on one card).
 :data:`~mxnet_tpu_torch.parallel.mesh.COUNTERS` counts the gathers.
 
-Not ported: the static audits (``memory_report``, ``comms_report``,
-``check``), which walk XLA programs; they raise (ROADMAP.md A.12).
+:meth:`ServingEngine.memory_report` prices every bucket's forward by
+:mod:`mxnet_tpu_torch.memcheck`'s shape-only dry run over fake copies of
+the parameters, aux states and a bucket of inputs (the live ones are never
+touched, nothing is allocated on the device), under the JAX package's
+program names (``<engine>/bucket[b=N]``). With ``MXTPU_MEMCHECK=warn`` or
+``error`` (``engine.memcheck_mode``) the engine audits its bucket set at
+load, before the warm-up runs any bucket, so an over-budget deploy raises
+before it touches the card's memory beyond its parameters.
+:meth:`ServingEngine.priced` prices the engine a set of arguments would
+build without building it (the autotuner's pruner).
+
+Not ported: ``comms_report`` and ``check`` (and ``FleetRouter.check``),
+which walk XLA programs; they raise (ROADMAP.md A.12d).
 """
 from __future__ import annotations
 
@@ -67,7 +78,7 @@ import logging
 import numpy as np
 import torch
 
-from ..base import MXNetError, env_str
+from ..base import MXNetError, env_str, shape_only
 from ..context import resolve_device
 from ..executor import _build_graph_runner
 from ..ops.nn import conv_precision
@@ -143,7 +154,54 @@ def _replicated(node, outs):
 def _not_ported(what, who="ServingEngine"):
     return MXNetError(
         "%s.%s walks XLA programs and is not ported yet "
-        "(ROADMAP.md A.12)" % (who, what))
+        "(ROADMAP.md A.12d)" % (who, what))
+
+
+def _dry_run():
+    """Whether a ``FakeTensorMode`` is active (the constructor runs inside
+    :meth:`ServingEngine.priced` or ``DecodeLoop.priced``): an engine or
+    loop built there holds fake tensors, and skips its warm-up, its load
+    audit and its thread."""
+    return shape_only(torch.empty(0))
+
+
+def _audit_load_memory(obj, who):
+    """The ``MXTPU_MEMCHECK`` load-time hook of :class:`ServingEngine` and
+    ``DecodeLoop``: run the memory lints over the program set
+    (``obj.memory_report()``, a shape-only dry run) and warn, or raise
+    under ``error``, on any unsuppressed finding. The budget and the temp
+    multiple are read before the analyzer's guard: a malformed knob is an
+    operator error that propagates; an analyzer failure is logged and the
+    audit skipped, never the deploy."""
+    from ..engine import memcheck_mode
+    mode = memcheck_mode()
+    if mode == "off":
+        return
+    from .. import memcheck as _mc
+    budget = _mc.budget_bytes(obj.device)
+    temp_mult = _mc.temp_multiple()
+    try:
+        reports = obj.memory_report()
+        findings = []
+        for rep in reports.values():
+            findings += _mc.lint_report(rep, budget=budget,
+                                        temp_mult=temp_mult)
+        findings += _mc.lint_resident_set(
+            reports.values(), "%s/resident-set" % obj.name, budget=budget)
+        bad = _mc.unsuppressed(findings)
+    except Exception as e:
+        logging.warning("%s(%s): memory audit could not run (%r) — "
+                        "skipped", who, obj.name, e)
+        return
+    if not bad:
+        return
+    msg = ("%s(%s): memory audit found %d problem(s) at load "
+           "(MXTPU_MEMCHECK=%s):\n%s"
+           % (who, obj.name, len(bad), mode,
+              "\n".join(f.format() for f in bad)))
+    if mode == "error":
+        raise MXNetError(msg)
+    logging.warning(msg)
 
 
 class ServingEngine(object):
@@ -244,6 +302,10 @@ class ServingEngine(object):
             self._out_row_factor.append(
                 lead // self.buckets[0]
                 if lead and lead % self.buckets[0] == 0 else None)
+        if _dry_run():
+            return
+        # MXTPU_MEMCHECK: price the bucket set before the warm-up runs it
+        _audit_load_memory(self, "ServingEngine")
         if executables is not None:
             logging.warning(
                 "ServingEngine: could not import executables from %s (a "
@@ -255,6 +317,18 @@ class ServingEngine(object):
                                        self._input_dtypes[n])
                            for n in self._input_names})
         _sync(self._mesh, self.device)
+
+    @classmethod
+    def priced(cls, *args, top=8, **kwargs):
+        """:meth:`memory_report` of the engine ``ServingEngine(*args,
+        **kwargs)`` would build, without building it: the constructor runs
+        inside a ``FakeTensorMode``, so the parameters land as fake tensors
+        (nothing allocated on the device), and an engine built there skips
+        its load audit and its warm-up. No bucket runs."""
+        from ..memcheck import fake_mode, new_fake_mode
+        with fake_mode(new_fake_mode(allow_non_fake_inputs=True)):
+            eng = cls(*args, **kwargs)
+        return eng.memory_report(top=top)
 
     # ------------------------------------------------------------------
     def _db_buckets(self):
@@ -445,16 +519,26 @@ class ServingEngine(object):
         """One bucket's forward over the host ``batch`` (already padded);
         returns the outputs' first ``n`` rows as numpy. Records nothing."""
         params, aux = self._state
+        with torch.inference_mode():
+            inputs = {k: self._whole(torch.from_numpy(
+                np.ascontiguousarray(v))) for k, v in batch.items()}
+            outs = self._device_forward(params, aux, inputs)
+            return [(o[:n * f] if f and n is not None else o).cpu().numpy()
+                    for o, f in zip(outs, self._out_row_factor)]
+
+    def _device_forward(self, params, aux, inputs):
+        """The bucket program: the forward over device ``inputs`` (tensors,
+        or replicated MeshArrays over a mesh), returning the outputs on the
+        device (position 0's over a mesh). What :meth:`memory_report`
+        prices."""
         with torch.inference_mode(), conv_precision(self.device):
             args = (dict(params) if self.quant_mode == "none"
                     else _quant.dequant_tree(params))
-            args.update({k: self._whole(torch.from_numpy(
-                np.ascontiguousarray(v))) for k, v in batch.items()})
+            args.update(inputs)
             outs, _ = self._run(args, aux)
             if self._mesh is not None:
                 outs = [o.parts[0] for o in outs]
-            return [(o[:n * f] if f and n is not None else o).cpu().numpy()
-                    for o, f in zip(outs, self._out_row_factor)]
+            return outs
 
     # ------------------------------------------------------------------
     def export_compiled(self, path):
@@ -488,7 +572,28 @@ class ServingEngine(object):
         return _quant.quality_report(ref, got)
 
     def memory_report(self, top=8):
-        raise _not_ported("memory_report")
+        """Static memory profile of every bucket: ``{bucket:
+        MemoryReport}``, each named ``<engine>/bucket[b=N]`` (the JAX
+        package's keys and names), priced by ``memcheck.analyze``'s
+        shape-only dry run of the bucket's forward over fake copies of the
+        served parameters and aux states and a bucket of fake inputs. The
+        live arrays are never touched and nothing runs on the device. A
+        sharded engine's report counts the bytes of every position, on
+        every device it touches."""
+        from .. import memcheck as _mc
+        from ..base import torch_dtype
+        params, aux = self._state
+        reports = {}
+        for b in self.buckets:
+            with _mc.fake_mode(like=self._state):
+                inputs = {n: self._whole(torch.empty(
+                    (b,) + self._input_shapes[n],
+                    dtype=torch_dtype(self._input_dtypes[n])))
+                    for n in self._input_names}
+            reports[b] = _mc.analyze(
+                self._device_forward, (params, aux, inputs),
+                name="%s/bucket[b=%d]" % (self.name, b), top=top)
+        return reports
 
     def comms_report(self):
         raise _not_ported("comms_report")

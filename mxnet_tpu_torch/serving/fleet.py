@@ -704,7 +704,7 @@ class FleetRouter(object):
         """The static audits of every replica's programs; not ported (they
         walk XLA programs), so this raises."""
         raise MXNetError("FleetRouter.check walks XLA programs and is not "
-                         "ported yet (ROADMAP.md A.12)")
+                         "ported yet (ROADMAP.md A.12d)")
 
 
 class _SettleHook(object):

@@ -9,7 +9,7 @@ Every array is made on the context the caller names (by default the
 current one, which is ``gpu(0)`` unless a ``with cpu():`` block is open).
 
 :class:`assert_no_retrace` is built on the JAX package's retrace watch,
-which goes with ``tracecheck`` under ROADMAP item A.12 and is not ported:
+which goes with ``tracecheck`` under ROADMAP item A.12d and is not ported:
 it raises ``MXNetError``.
 """
 from __future__ import annotations
@@ -295,10 +295,10 @@ def check_consistency(sym, ctx_list, scale=1.0, grad_req="write",
 class assert_no_retrace(object):
     """The JAX package's guard that no jitted entry re-traces inside a
     block. It reads ``tracecheck``'s retrace events, which belong to
-    ROADMAP item A.12 and are not ported: constructing it raises
+    ROADMAP item A.12d and are not ported: constructing it raises
     ``MXNetError``."""
 
     def __init__(self, *jitfns, msg=None):
         raise MXNetError(
             "test_utils.assert_no_retrace is not ported yet: it reads the "
-            "retrace events of tracecheck (ROADMAP.md A.12)")
+            "retrace events of tracecheck (ROADMAP.md A.12d)")

@@ -96,7 +96,7 @@ import time
 import numpy as np
 import torch
 
-from .base import MXNetError, env_str, torch_dtype
+from .base import MXNetError, env_str, shape_only, torch_dtype
 from . import faults as _faults
 from .context import resolve_device
 from .executor import _build_graph_runner, node_generator, shard_grad_sums
@@ -724,9 +724,13 @@ class TrainStep(object):
     def _step_key(self, state):
         """The run's rng key: a base drawn once from the random module,
         offset by the state's own step counter (read from the device only
-        for graphs with a random op, or an optimizer that draws noise)."""
+        for graphs with a random op, or an optimizer that draws noise). A
+        shape-only dry run (memcheck) has no counter to read and takes key
+        0, drawing nothing from the random module."""
         if not self._needs_rng:
             return None
+        if shape_only(state["step"]):
+            return 0
         if self._base_key is None:
             self._base_key = _random.randint63()
         return self._base_key + int(state["step"])

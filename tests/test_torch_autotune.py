@@ -10,7 +10,14 @@
   objective preference, each with the same outcome in both packages on
   the same DB file;
 - the signatures (``symbol_signature``, ``param_signature``) are equal in
-  both packages, ``TuningDB`` round-trips, and the parts not ported raise.
+  both packages, ``TuningDB`` round-trips, and the part not ported
+  (``hotspot_report``) raises;
+- ``tune`` on the CPU: its result dict has the JAX package's keys, and
+  with ``write_db`` it writes an entry that the port's
+  ``resolve_train_knobs`` resolves and the JAX package's ``TuningDB.load``
+  reads; each harness's pruner under ``MXTPU_AUTOTUNE_BUDGET=4K`` returns
+  only ``hbm-budget``/``resident-set`` findings and runs no forward on a
+  real tensor (counted), and a sweep there prunes every candidate.
 
 Tolerance: none (knobs, sources and signatures are exact).
 """
@@ -216,7 +223,7 @@ def test_db_round_trip_and_parse_buckets(tmp_path):
 
 
 def test_unported_parts_raise():
-    for fn in (autotune.tune, autotune.hotspot_report):
+    for fn in (autotune.hotspot_report,):
         with pytest.raises(MXNetError, match="A.12"):
             fn()
 
@@ -239,3 +246,123 @@ def test_open_loop_run_serves_every_request_in_order_of_arrival():
     lat, errs, _ = open_loop_run(fails, {"data": 0}, qps=2000.0, nreq=5,
                                  nclients=2)
     assert not lat and len(errs) == 5 and "no" in errs[0]
+
+
+# ---------------------------------------------------------------------------
+# the tuner
+# ---------------------------------------------------------------------------
+
+TUNE_KEYS = {"model", "objective", "kind", "global_batch", "unit",
+             "symbol_sig", "counts", "trials", "default", "best",
+             "speedup_vs_default", "db"}
+
+
+def test_tune_writes_a_db_entry_both_packages_read(tmp_path, monkeypatch):
+    # short and long runs six dispatches apart, best of three rounds: a
+    # loaded host cannot invert every round's timing
+    monkeypatch.setenv("MXTPU_AUTOTUNE_MEASURE", "4,24")
+    path = str(tmp_path / "db.json")
+    res = autotune.tune("mlp", "img_per_sec", budget=2, batch=16,
+                        db_path=path, write_db=True, rounds=3, device="cpu")
+    assert set(res) == TUNE_KEYS
+    assert res["counts"] == {"ok": 2, "pruned": 0, "error": 0,
+                             "timeout": 0}
+    assert [t["knobs"] for t in res["trials"]] == [
+        {"steps_per_dispatch": 1, "dispatch_pipeline": 1},
+        {"steps_per_dispatch": 2, "dispatch_pipeline": 1}]
+    assert res["db"]["entry"] == "mlp|cpu|b16|img_per_sec"
+    # the port resolves the winner on the CPU
+    monkeypatch.setenv("MXTPU_AUTOTUNE_DB", path)
+    key, knobs = autotune.resolve_train_knobs(
+        tmodels.mlp(**ZOO_MLP), 16, device="cpu")
+    assert key == res["db"]["entry"] and knobs == res["best"]["knobs"]
+    # the JAX package reads the same file and signature
+    jdb = jat.TuningDB.load(path)
+    assert not jdb.stale
+    entry = jdb.entries[key]
+    assert entry["symbol_sig"] == jat.symbol_signature(
+        jmodels.mlp(**ZOO_MLP)) == res["symbol_sig"]
+    assert entry["knobs"] == res["best"]["knobs"]
+    assert entry["device_kind"] == "cpu" and entry["platform"] == "cpu"
+
+
+def _fake_args(args, kw):
+    from torch._subclasses.fake_tensor import is_fake
+    vals = list(args) + list(kw.values())
+    flat = []
+    for v in vals:
+        flat += list(v.values()) if isinstance(v, dict) else [v]
+    return any(is_fake(t) for t in flat if hasattr(t, "shape"))
+
+
+def _count_real_runs(monkeypatch):
+    """Count graph-runner calls on real tensors (training and serving
+    forwards) and decode-body calls on real tensors."""
+    from mxnet_tpu_torch import executor, train_step
+    from mxnet_tpu_torch.serving import decode, engine
+    real = []
+    build = executor._build_graph_runner
+
+    def counting(*a, **kw):
+        run, nodes = build(*a, **kw)
+
+        def counted(*ra, **rk):
+            if not _fake_args(ra[:2], rk):
+                real.append("forward")
+            return run(*ra, **rk)
+        return counted, nodes
+    for mod in (train_step, engine):
+        monkeypatch.setattr(mod, "_build_graph_runner", counting)
+    for name in ("_build_decode_fn", "_build_verify_fn"):
+        orig = getattr(decode, name)
+
+        def wrap(*a, _orig=orig, **kw):
+            fn = _orig(*a, **kw)
+
+            def counted(state, *r):
+                from torch._subclasses.fake_tensor import is_fake
+                if not is_fake(state["seed"]):
+                    real.append("decode")
+                return fn(state, *r)
+            return counted
+        monkeypatch.setattr(decode, name, wrap)
+    return real
+
+
+@pytest.mark.parametrize("objective,knobs", [
+    ("img_per_sec", {"steps_per_dispatch": 4, "dispatch_pipeline": 1}),
+    ("serve_p99", {"buckets": "1,8", "max_latency_ms": 5.0}),
+    ("decode_tokens_per_sec", {"spec_k": 2, "prefix_cache": 1})])
+def test_pruned_candidate_runs_no_forward(monkeypatch, objective, knobs):
+    from mxnet_tpu_torch.autotune import harness
+    real = _count_real_runs(monkeypatch)
+    monkeypatch.setenv("MXTPU_AUTOTUNE_BUDGET", "4K")
+    h = {"img_per_sec": lambda: harness.TrainHarness("mlp", device="cpu"),
+         "serve_p99": lambda: harness.ServeHarness("mlp", device="cpu"),
+         "decode_tokens_per_sec": lambda: harness.DecodeHarness(
+             device="cpu")}[objective]()
+    findings = h.prune(knobs)
+    assert findings and {f.lint for f in findings} <= {"hbm-budget",
+                                                      "resident-set"}
+    assert real == []
+    monkeypatch.delenv("MXTPU_AUTOTUNE_BUDGET")
+    assert h.prune(knobs) == [] and real == []
+    monkeypatch.setenv("MXTPU_AUTOTUNE_BUDGET", "4K")
+    res = autotune.tune("mlp" if objective != "decode_tokens_per_sec"
+                        else "lm", objective, budget=2, device="cpu")
+    assert res["best"] is None and res["counts"]["pruned"] == 2
+    assert real == []
+
+
+def test_cli_prints_one_json_line_and_exits_2_without_a_success(
+        monkeypatch, capsys):
+    from mxnet_tpu_torch.autotune.__main__ import main
+    monkeypatch.setenv("MXTPU_AUTOTUNE_BUDGET", "4K")
+    assert main(["--budget", "3", "--device", "cpu", "--quiet",
+                 "--spd", "1,2", "--pipeline", "1"]) == 2
+    out = capsys.readouterr().out.strip().splitlines()
+    assert len(out) == 1
+    res = json.loads(out[0])
+    assert res["counts"]["pruned"] == 2 and res["best"] is None
+    assert [t["knobs"]["steps_per_dispatch"] for t in res["trials"]] == [
+        1, 2]

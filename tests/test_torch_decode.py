@@ -470,13 +470,23 @@ def test_construction_errors_and_unported_options():
     # a model-parallel loop splits the KV cache over heads
     with pytest.raises(MXNetError, match="num_heads 4 % 3"):
         _loop(serving, contexts=[mt.cpu(i) for i in range(3)])
-    loop = _loop(serving)
+    loop, jloop = _loop(serving), _loop(jserving)
     try:
-        for call in (loop.check, loop.memory_report, loop.comms_report):
+        for call in (loop.check, loop.comms_report):
             with pytest.raises(MXNetError, match="A.12"):
                 call()
+        # memory_report is ported: the JAX package's program names, the
+        # KV caches donated and updated in place
+        reps, jreps = loop.memory_report(), jloop.memory_report()
+        tags = sorted(n.split("/", 1)[1] for n in reps)
+        assert tags == sorted(n.split("/", 1)[1] for n in jreps) == [
+            "step[slots=%d,len=%d]" % (SLOTS, MAXLEN)]
+        (rep,) = reps.values()
+        assert rep.alias_bytes == rep.donated_bytes > 0
+        assert not rep.unaliased_donated
     finally:
         loop.close()
+        jloop.close()
     with pytest.raises(serving.ServingClosedError):
         loop.generate([1], 1)
 

@@ -195,12 +195,19 @@ def test_batcher_take_queued_returns_without_failing():
 
 def test_single_card_engine_and_the_audits_that_raise():
     """The JAX single-chip engine reports no collectives; the port's engine
-    is on one card, and the audits that walk XLA programs raise."""
+    is on one card, and the audits that walk XLA programs raise;
+    ``memory_report`` is ported (a shape-only dry run): each bucket's
+    arguments are the weights plus a bucket of inputs."""
     eng = _engine()
     assert eng.model_devices == 1
-    for call in (eng.comms_report, eng.memory_report, eng.check):
+    for call in (eng.comms_report, eng.check):
         with pytest.raises(MXNetError, match="not ported"):
             call()
+    reps = eng.memory_report()
+    assert sorted(reps) == [4, 8]
+    for b, rep in reps.items():
+        assert rep.program == "%s/bucket[b=%d]" % (eng.name, b)
+        assert rep.argument_bytes == eng.weight_bytes() + b * 6 * 4
     router = serving.FleetRouter([serving.Batcher(eng, max_latency_ms=1.0)])
     try:
         with pytest.raises(MXNetError, match="not ported"):

@@ -234,6 +234,19 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(bad):
     elif bad == "dtype":
         w = w.double()
     else:
-        x, w = x.to("meta"), w.to("meta")
+        # a device the launch refuses: w off x's device
+        x = x.to("meta")
     with pytest.raises(MXNetError):
         ms.matmul_stats(x, w)
+    if bad == "device":
+        # a meta pair on one device takes the shape-only route: outputs of
+        # the right shape, dtype and device, nothing computed, no launch
+        before = (ms.LAUNCHES, ms.SHAPE_ONLY_CALLS)
+        y, s1, s2 = ms.matmul_stats(x, w.to("meta"))
+        assert y.shape == (4, 5) and s1.shape == s2.shape == (5,)
+        assert y.dtype == s1.dtype == torch.float32
+        assert y.device.type == s1.device.type == "meta"
+        assert (ms.LAUNCHES, ms.SHAPE_ONLY_CALLS) == (before[0],
+                                                      before[1] + 1)
+        with pytest.raises(MXNetError, match="float32 and bfloat16"):
+            ms.matmul_stats(x.double(), w.to("meta").double())

@@ -329,9 +329,18 @@ def test_sharded_ssd_matches_single_and_jax_with_one_nms_a_dispatch(
 
 def test_unported_audits_still_raise_on_a_sharded_engine():
     eng = _engine(contexts=2)
-    for call in (eng.check, eng.memory_report, eng.comms_report):
+    for call in (eng.check, eng.comms_report):
         with pytest.raises(MXNetError, match="A.12"):
             call()
+    # memory_report is ported: every position's bytes on the one host
+    # device, where the positions' shards and the replicated inputs share
+    # their storage (the whole mesh's footprint), as one engine's
+    reps, one = eng.memory_report(), _engine().memory_report()
+    assert sorted(reps) == [4, 8]
+    for b, rep in reps.items():
+        assert rep.program == "%s/bucket[b=%d]" % (eng.name, b)
+        assert rep.argument_bytes == eng.weight_bytes() + b * 6 * 4 \
+            == one[b].argument_bytes
 
 
 # ---------------------------------------------------------------------------

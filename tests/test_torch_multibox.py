@@ -128,6 +128,19 @@ def test_nms_wrapper_rejects_bad_shapes():
     with pytest.raises(MXNetError, match="sboxes"):
         tnms.nms_alive(torch.zeros(2, 5, 3), torch.zeros(2, 5),
                        torch.zeros(2, 5), THRESH)
-    with pytest.raises(MXNetError, match="no kernel"):
+    # meta tensors take the shape-only route (no kernel, no launch), and
+    # it refuses what a launch would
+    before = (tnms.LAUNCHES, tnms.SHAPE_ONLY_CALLS)
+    mask = tnms.nms_alive(boxes.to("meta"), torch.zeros(2, 5, device="meta"),
+                          torch.zeros(2, 5, device="meta"), THRESH)
+    assert mask.shape == (2, 5) and mask.dtype == torch.float32
+    assert mask.device.type == "meta"
+    assert (tnms.LAUNCHES, tnms.SHAPE_ONLY_CALLS) == (before[0],
+                                                      before[1] + 1)
+    with pytest.raises(MXNetError, match="float32"):
         tnms.nms_alive(boxes.to("meta"), torch.zeros(2, 5, device="meta"),
+                       torch.zeros(2, 5, device="meta",
+                                   dtype=torch.float64), THRESH)
+    with pytest.raises(MXNetError, match="sscore is on cpu"):
+        tnms.nms_alive(boxes.to("meta"), torch.zeros(2, 5),
                        torch.zeros(2, 5, device="meta"), THRESH)
