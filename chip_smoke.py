@@ -187,7 +187,7 @@ non-zero):
    the route follows it: "native" (libjpeg's header and library present:
    the native library must build), "pillow" (no libjpeg: the native build
    must fail with the compiler's message; decoding falls back to Pillow as
-   in the reference) or "none". (b) an indexed .rec of 2048 classification
+   in the reference) or "none". (b) an indexed .rec of 1024 classification
    JPEGs at 257x257 (quality 90, 8 classes; bench.py's realdata textures)
    and one of 256 detection JPEGs at 300x300 with 1-4 boxes, written with
    Pillow from --seed. (c) ResNet-50 NCHW, 8 classes, bf16 compute, b=128,
@@ -215,7 +215,7 @@ non-zero):
    model at its published widths (a 2-layer, 200-unit FusedRNNCell LSTM
    over a 200-wide embedding, vocabulary 10000, batch 32, buckets 10, 20,
    30, 40 and 60, Adam at lr 0.01, Perplexity(ignore_label=0), float32)
-   on 3200 synthetic sentences from --seed (next token = token + 1). (a)
+   on 1600 synthetic sentences from --seed (next token = token + 1). (a)
    the RNN op (LSTM and GRU) at bucket 60 on the card against the same op
    on the CPU, outputs within 2e-5 and gradients within 1e-4 of the
    largest; its time beside torch._VF.lstm (cuDNN, TF32 off and on) on
@@ -252,7 +252,7 @@ non-zero):
    CUDA events; stack_layers=True over the trained weights stacked
    against the per-layer build (float32, within 1e-5 of the largest
    value); a one-layer draft trained the same way. (b) DecodeLoop over the
-   trained float32 weights, max_len 128, 8 slots, 32 requests of an
+   trained float32 weights, max_len 128, 8 slots, 16 requests of an
    8-token shared prefix plus a 2-4 token tail, 96 new tokens each, each
    leg warmed once and then timed: greedy (every token the argmax of the
    full forward at its position, teacher-forced on the stream, but where
@@ -450,14 +450,38 @@ non-zero):
    step at b=1024 priced: flagged hbm-budget against the card's memory,
    the allocator's peak unmoved. (b) the SSD (get_symbol() defaults,
    3x300x300, buckets 1, 8, 32) through ServingEngine: memory_report()
-   per bucket (B2 on its shape-only route once a bucket, no launch) next
-   to each bucket's allocator peak over one real forward (B2 once a
-   bucket, and once a bucket at load). (c) autotune.tune on the card:
-   img_per_sec on the zoo's mlp (budget 4), serve_p99 on mlp (budget 3,
-   100 requests), decode_tokens_per_sec (budget 2), each printing its
+   per bucket (B2 on its shape-only route once a bucket, no launch, each
+   convolution's cuDNN workspace priced as the engine's warm-up took it)
+   within MEMCHECK_BAND of each bucket's allocator peak over one real
+   forward (B2 once a bucket, and once a bucket at load). (c)
+   autotune.tune on the card: img_per_sec on the zoo's mlp (budget 4),
+   serve_p99 on mlp (budget 3, 100 requests), decode_tokens_per_sec
+   (budget 2), each printing its
    winner and speedup_vs_default; then img_per_sec on mlp under
    MXTPU_AUTOTUNE_BUDGET=4K, every candidate pruned and the allocator's
    peak unmoved.
+25. tracecheck: the program registry, the retrace watch and the
+   analyzers' check methods on the card (last). (a) phase 24 (a)'s
+   ResNet-50 TrainStep dispatches step and run_steps (K=2), guarded and
+   unguarded (B1 on its wgmma route 33 times a step): its four registered
+   programs audit with no unsuppressed finding (tracecheck.check_registered,
+   its seconds logged); a float32 -> float16 flip of data on the next step
+   is one retrace event at .../step[bs=128] naming data; under
+   set_tracecheck("error") the same flip on the guarded step raises
+   RetraceError, whose result's step counter advanced. (b) the hook's host
+   cost: MXTPU_TRACECHECK off against warn in turns (off, warn, warn, off)
+   on the zoo's mlp at batch 32 and on (a)'s step, microseconds a dispatch,
+   and a call of the hook on the same arguments (2000 back to back a
+   turn): at most 50 us on the mlp under warn, under 1% of the ResNet-50
+   step's host time. (c) the SSD engine at buckets 8 and 32
+   (B2 in its warm-up and forwards): check(memory=True) with no
+   hbm-budget finding, each bucket's static peak within MEMCHECK_BAND of
+   its real forward's; DecodeLoop.check(memory=True) on phase 17's LM
+   widths and BucketingModule.check(memory=True) over the LSTM's bucket
+   set after a short fit, every finding logged. (d) python -m
+   mxnet_tpu_torch.tracecheck --zoo --json --device cuda:0 in a child
+   process started with the phase and running beside (a)-(c): exit 0,
+   its programs, findings and seconds.
 
 The line before the ops line is the card's name and power limit; then
 {"ops": [...], "examples": {...}} (phase 20's figures); then
@@ -466,7 +490,7 @@ its main path (phase 16's LSTM path and phase 17's LM path launch none;
 B1's include phase 18's mesh dispatches, bf16 and f32, and phase 22's
 dist ranks, launches_dist; every kernel's include phase 23's through the
 C ABI, launches_capi; B1's bf16 and B2's include phase 24's real step and
-forwards, launches_memcheck),
+forwards, launches_memcheck, and phase 25's, launches_tracecheck),
 max error against the plain version, times and bound; the
 NMS kernel's launches also by path: serving, training, the serving tier,
 training from JPEG records and model-parallel serving (phase 21); the
@@ -3580,7 +3604,8 @@ def training_api_phase(seed, card, step_profiles):
 
 #: phase 15 (b): classification records as bench.py's realdata run packs
 #: them (int(224 * 1.15) px, quality 90, 8 classes), and detection records
-DATA_IMAGES = 2048
+#: (cut from 4096 to keep the script inside its time limit)
+DATA_IMAGES = 1024
 DATA_SIZE = int(224 * 1.15)
 DATA_QUALITY = 90
 DATA_CLASSES = 8
@@ -4091,7 +4116,7 @@ LSTM_EMBED = 200
 LSTM_LAYERS = 2
 LSTM_BATCH = 32
 LSTM_BUCKETS = (10, 20, 30, 40, 60)
-LSTM_SENTENCES = 3200
+LSTM_SENTENCES = 1600    # cut from 3200: the script's time limit
 LSTM_LR = 0.01
 LSTM_EPOCHS = 2
 LSTM_K = 4
@@ -4777,7 +4802,7 @@ LM_STACK_RTOL = 1e-5
 #: new tokens a request, the speculative window's draft length
 DEC_MAXLEN = 128
 DEC_SLOTS = 8
-DEC_REQUESTS = 32
+DEC_REQUESTS = 16    # cut from 32: the script's time limit
 DEC_NEW = 96
 DEC_SPEC_K = 2
 DEC_SAMPLED = {"temperature": 0.8, "top_k": 50, "top_p": 0.95}
@@ -8190,11 +8215,18 @@ def memcheck_ssd(seed, card, problems):
         biggest = largest_allocs(lambda: eng.infer({"data": x}))
         measured = torch.cuda.max_memory_allocated() - base + weights
         rep = reports[b]
+        ratio = rep.peak_bytes / measured
         log("memcheck (b) %s; measured %d bytes (the forward's allocator "
             "peak above what was allocated before it, plus the %d bytes of "
-            "weights): static %d, static/measured %.4f [%s]"
-            % (rep.format(), measured, weights, rep.peak_bytes,
-               rep.peak_bytes / measured, card))
+            "weights): static %d, static/measured %.4f (band 1 +- %.2f) "
+            "[%s]" % (rep.format(), measured, weights, rep.peak_bytes,
+                      ratio, MEMCHECK_BAND, card))
+        if abs(ratio - 1.0) > MEMCHECK_BAND or rep.unpriced_workspaces:
+            problems.append("memcheck (b) bucket %d: static peak %d is %.4f "
+                            "of the measured %d (band %.2f), %d convolution "
+                            "workspaces not priced"
+                            % (b, rep.peak_bytes, ratio, measured,
+                               MEMCHECK_BAND, rep.unpriced_workspaces))
         for size, frames in biggest:
             log("memcheck (b)   the forward's allocation of %d bytes: %s"
                 % (size, " < ".join(f[:120] for f in frames)))
@@ -8247,6 +8279,326 @@ def memcheck_phase(seed, card):
     memcheck_sweeps(card, problems)
     log("memcheck phase: %.1f s [%s]" % (time.perf_counter() - t_phase,
                                          card))
+    if problems:
+        raise SystemExit("\n".join(problems))
+    return {"B1": b1, "B2": b2}
+
+
+# ---------------------------------------------------------------------------
+# phase 25: tracecheck's registry, the retrace watch and the check methods
+# ---------------------------------------------------------------------------
+
+#: (b) dispatches a turn, in turns off, warn, warn, off: the mlp, ResNet-50
+TRACECHECK_TURN = {"mlp": 50, "resnet": 10}
+#: (b) the mlp's batch, and the hook's back-to-back calls a turn
+TRACECHECK_MLP_BATCH = 32
+TRACECHECK_HOOK_CALLS = 2000
+#: (b) the hook's budget: microseconds a dispatch on the mlp, and its share
+#: of the ResNet-50 step's host time
+TRACECHECK_MLP_US = 50.0
+TRACECHECK_RESNET_SHARE = 0.01
+#: (c) the SSD engine's buckets, and the LSTM batches of the bucketed fit
+TRACECHECK_BUCKETS = (8, 32)
+TRACECHECK_LSTM_BATCHES = 12
+#: (d) the zoo CLI's time limit, seconds
+TRACECHECK_CLI_TIMEOUT = 600
+
+
+def _resnet_step(seed):
+    """(a)'s ResNet-50 TrainStep (phase 24 (a)'s configuration), a fresh
+    state from ``seed`` and one batch made on the card."""
+    import torch
+    import mxnet_tpu_torch as mt
+    from mxnet_tpu_torch import models
+    from mxnet_tpu_torch.train_step import TrainStep
+    os.environ["MXTPU_FUSE_CONV_BN"] = "1"
+    bsz, img = RESNET_BATCH, RESNET_IMAGE
+    with mt.symbol.NameManager():
+        sym = models.resnet(num_classes=RESNET_CLASSES, num_layers=50,
+                            image_shape="3,%d,%d" % (img, img),
+                            layout="NHWC")
+    ts = TrainStep(sym, optimizer="sgd", learning_rate=0.1, momentum=0.9,
+                   wd=1e-4, compute_dtype="bfloat16")
+    state = ts.init({"data": (bsz, img, img, 3)}, {"softmax_label": (bsz,)},
+                    seed=seed)
+    gen = torch.Generator(device=ts.device)
+    gen.manual_seed(seed + 25)
+    batch = {"data": torch.randn((bsz, img, img, 3), generator=gen,
+                                 device=ts.device),
+             "softmax_label": torch.randint(
+                 0, RESNET_CLASSES, (bsz,), generator=gen,
+                 device=ts.device).float()}
+    return ts, state, batch
+
+
+def tracecheck_resnet(ts, state, batch, card, problems):
+    """(a): step and run_steps (K=2), guarded and unguarded, register four
+    programs that audit clean; a float32 -> float16 flip of ``data`` is
+    one retrace event, and under ``error`` a RetraceError whose result
+    carries the advanced state."""
+    import torch
+    from mxnet_tpu_torch import engine, tracecheck as tc
+    n0 = tc.retrace_count()
+    sb = {k: torch.stack([v, v]) for k, v in batch.items()}
+    state, _ = ts.step(state, batch)
+    state, _, _ = ts.step(state, batch, guard=True)
+    state, m = ts.run_steps(state, sb)
+    m.fetch()
+    state, m = ts.run_steps(state, sb, guard=True)
+    m.fetch()
+    name = ts._watcher.name
+    names = sorted(r.name[len(name) + 1:] for r in tc.registered_programs()
+                   if r.name.startswith(name + "/"))
+    bs = RESNET_BATCH
+    want = sorted(["step[bs=%d]" % bs, "guard-step[bs=%d]" % bs,
+                   "scan[bs=%d,k=2]" % bs, "guard-scan[bs=%d,k=2]" % bs])
+    t0 = time.perf_counter()
+    findings = tc.check_registered(match=name + "/")
+    dt = time.perf_counter() - t0
+    bad = tc.unsuppressed(findings)
+    log("tracecheck (a) %s: %d programs %s, check_registered %.2f s, %d "
+        "findings (%d unsuppressed) [%s]"
+        % (name, len(names), names, dt, len(findings), len(bad), card))
+    for f in findings:
+        log("tracecheck (a)   " + f.format())
+    if names != want or bad:
+        problems.append("tracecheck (a): programs %s (expected %s), %d "
+                        "unsuppressed findings" % (names, want, len(bad)))
+    half = dict(batch, data=batch["data"].half())
+    state, _ = ts.step(state, half)
+    events = tc.RETRACE_EVENTS[n0:]
+    log("tracecheck (a) the float16 flip: %d event(s) %s"
+        % (len(events), [tuple(e) for e in events]))
+    if (len(events) != 1 or not events[0].site.endswith(
+            "/step[bs=%d]" % bs)
+            or not any("['data']" in d and "float32 -> float16" in d
+                       for d in events[0].diff)):
+        problems.append("tracecheck (a): the flip recorded %s" % (events,))
+    engine.set_tracecheck("error")
+    try:
+        step0 = int(state["step"])
+        ts.step(state, half, guard=True)
+        problems.append("tracecheck (a): the flip under error did not raise")
+    except tc.RetraceError as e:
+        got = int(e.result[0]["step"])
+        log("tracecheck (a) under error: RetraceError at %s, the result's "
+            "step %d after %d" % (tc.RETRACE_EVENTS[-1].site, got, step0))
+        if got != step0 + 1:
+            problems.append("tracecheck (a): the result's step is %d, not "
+                            "%d" % (got, step0 + 1))
+    finally:
+        engine.set_tracecheck(None)
+    return state
+
+
+def _hook_cost(ts, state, batch, n, calls=TRACECHECK_HOOK_CALLS):
+    """The host cost of ``ts``'s tracecheck hook, in turns with
+    ``MXTPU_TRACECHECK`` off, warn, warn, off: each turn's ``n`` dispatches'
+    host seconds (``ts.step``), and the seconds a call of the hook takes
+    on the same arguments, over ``calls`` back-to-back calls (no clock read
+    between them). Returns ``{mode: (dispatch seconds, [hook seconds a
+    call, one a turn])}``."""
+    import torch
+    args = (state, ts.shard_batch(batch))
+    bs = next(iter(args[1].values())).shape[0]
+    out = {"off": ([], []), "warn": ([], [])}
+    try:
+        for mode in ("off", "warn", "warn", "off"):
+            os.environ["MXTPU_TRACECHECK"] = mode
+            torch.cuda.synchronize()
+            for _ in range(n):
+                t = time.perf_counter()
+                ts.step(state, batch)
+                out[mode][0].append(time.perf_counter() - t)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            for _ in range(calls):
+                ts._tc_after("step", bs, args, None)
+            out[mode][1].append((time.perf_counter() - t) / calls)
+    finally:
+        del os.environ["MXTPU_TRACECHECK"]
+    return out
+
+
+def tracecheck_host_cost(seed, ts, state, batch, card, problems):
+    """(b): the hook's host cost a dispatch, off against warn in turns, on
+    the zoo's mlp at batch 32 and on (a)'s ResNet-50 step."""
+    import torch
+    from mxnet_tpu_torch import models
+    from mxnet_tpu_torch.tracecheck import ZOO
+    from mxnet_tpu_torch.train_step import TrainStep
+    mb = TRACECHECK_MLP_BATCH
+    mlp = TrainStep(models.get_symbol("mlp", **ZOO["mlp"]["kwargs"]),
+                    optimizer="sgd", learning_rate=0.1)
+    mst = mlp.init({"data": (mb, 64)}, {"softmax_label": (mb,)}, seed=seed)
+    gen = torch.Generator(device=mlp.device)
+    gen.manual_seed(seed + 26)
+    mbatch = {"data": torch.randn((mb, 64), generator=gen,
+                                  device=mlp.device),
+              "softmax_label": torch.randint(0, 4, (mb,), generator=gen,
+                                             device=mlp.device).float()}
+    figures = {}
+    for label, t, st, b in (("mlp", mlp, mst, mbatch),
+                            ("resnet", ts, state, batch)):
+        t.step(st, b)
+        cost = _hook_cost(t, st, b, TRACECHECK_TURN[label])
+        med = {m: (1e6 * float(np.median(c[0])), 1e6 * float(np.median(c[1])))
+               for m, c in cost.items()}
+        figures[label] = med
+        log("tracecheck (b) %s: host us a dispatch off %.1f, warn %.1f "
+            "(medians of %d each); the hook %.2f us a call off, %.2f warn "
+            "(%d calls a turn, medians of 2 turns) [%s]"
+            % (label, med["off"][0], med["warn"][0], len(cost["off"][0]),
+               med["off"][1], med["warn"][1], TRACECHECK_HOOK_CALLS, card))
+    hook_mlp = figures["mlp"]["warn"][1]
+    share = figures["resnet"]["warn"][1] / figures["resnet"]["off"][0]
+    log("tracecheck (b) the hook: %.2f us a dispatch on the mlp (budget "
+        "%.0f), %.4f%% of the ResNet-50 step's host time (budget %.0f%%) "
+        "[%s]" % (hook_mlp, TRACECHECK_MLP_US, 100 * share,
+                  100 * TRACECHECK_RESNET_SHARE, card))
+    if hook_mlp > TRACECHECK_MLP_US or share >= TRACECHECK_RESNET_SHARE:
+        problems.append("tracecheck (b): the hook costs %.2f us on the mlp, "
+                        "%.4f of the ResNet-50 step" % (hook_mlp, share))
+    return figures
+
+
+def tracecheck_serving(seed, card, problems):
+    """(c): the SSD engine's check(memory=True) beside each bucket's real
+    forward, the LM's DecodeLoop and the LSTM's BucketingModule. Returns
+    B2's launches."""
+    import torch
+    import mxnet_tpu_torch as mt
+    from mxnet_tpu_torch.ops import multibox_nms as mnms
+    from mxnet_tpu_torch.serving import ServingEngine
+    n0 = mnms.LAUNCHES
+    with tempfile.TemporaryDirectory() as tmp:
+        prefix = os.path.join(tmp, "ssd")
+        ssd_checkpoint(prefix, seed)
+        eng = ServingEngine(prefix + "-symbol.json", prefix + "-0000.params",
+                            {"data": SSD_INPUT}, buckets=TRACECHECK_BUCKETS)
+    t0 = time.perf_counter()
+    findings = eng.check(memory=True)
+    dt = time.perf_counter() - t0
+    lints = sorted({f.lint for f in findings})
+    log("tracecheck (c) %s check(memory=True) in %.2f s: %d findings %s [%s]"
+        % (eng.name, dt, len(findings), lints, card))
+    for f in findings:
+        log("tracecheck (c)   " + f.format().split("\n")[0])
+    if "hbm-budget" in lints:
+        problems.append("tracecheck (c): the SSD engine is flagged "
+                        "hbm-budget")
+    reports = eng.memory_report()
+    rng = np.random.default_rng(seed + 25)
+    for b in TRACECHECK_BUCKETS:
+        x = rng.random((b,) + SSD_INPUT, dtype=np.float32)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        eng.infer({"data": x})
+        torch.cuda.synchronize()
+        measured = torch.cuda.max_memory_allocated() - base \
+            + eng.weight_bytes()
+        ratio = reports[b].peak_bytes / measured
+        log("tracecheck (c) bucket %d: static %d, measured %d, %.4f (band "
+            "1 +- %.2f) [%s]" % (b, reports[b].peak_bytes, measured, ratio,
+                                 MEMCHECK_BAND, card))
+        if abs(ratio - 1.0) > MEMCHECK_BAND:
+            problems.append("tracecheck (c) bucket %d: static/measured "
+                            "%.4f" % (b, ratio))
+    launches = mnms.LAUNCHES - n0
+    del eng
+    loop = lm_decode_loop(lm_params(seed), prefix_cache=True)
+    try:
+        t0 = time.perf_counter()
+        findings = loop.check(memory=True)
+        log("tracecheck (c) %s check(memory=True) over %d programs in %.2f "
+            "s: %d findings [%s]" % (loop.name, len(loop.memory_report()),
+                                     time.perf_counter() - t0,
+                                     len(findings), card))
+        for f in findings:
+            log("tracecheck (c)   " + f.format().split("\n")[0])
+    finally:
+        loop.close()
+    it = lstm_iter(seed, lstm_sentences(seed),
+                   max_batches=TRACECHECK_LSTM_BATCHES)
+    mod = lstm_module(it)
+    mod.fit(it, num_epoch=1, arg_params=lstm_params(seed),
+            optimizer="adam", optimizer_params={"learning_rate": LSTM_LR},
+            eval_metric=mt.metric.Perplexity(ignore_label=0))
+    t0 = time.perf_counter()
+    findings = mod.check(memory=True)
+    log("tracecheck (c) BucketingModule over buckets %s: check(memory=True) "
+        "in %.2f s, %d findings [%s]"
+        % (sorted(mod._bucket_fused), time.perf_counter() - t0,
+           len(findings), card))
+    for f in findings:
+        log("tracecheck (c)   " + f.format().split("\n")[0])
+    return launches
+
+
+def tracecheck_cli_start():
+    """(d): start the zoo CLI on the card in a child process, which runs
+    beside (a)-(c); returns it and its start time."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=root)
+    return subprocess.Popen(
+        [sys.executable, "-m", "mxnet_tpu_torch.tracecheck", "--zoo",
+         "--json", "--device", "cuda:0"], cwd=root, env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True), time.perf_counter()
+
+
+def tracecheck_cli(started, card, problems):
+    """(d): the zoo CLI's exit, programs, findings and seconds."""
+    proc, t0 = started
+    try:
+        out, err = proc.communicate(timeout=TRACECHECK_CLI_TIMEOUT)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        out, err = proc.communicate()
+    dt = time.perf_counter() - t0
+    try:
+        data = json.loads(out)
+    except ValueError:
+        data = None
+    if proc.returncode or data is None:
+        problems.append("tracecheck (d): the zoo CLI exited %s\n%s"
+                        % (proc.returncode, err[-3000:]))
+        return
+    log("tracecheck (d) python -m mxnet_tpu_torch.tracecheck --zoo --json "
+        "--device cuda:0: exit %d, %d programs, %d findings (%d suppressed) "
+        "in %.1f s [%s]" % (proc.returncode, data["programs"], data["total"],
+                            data["suppressed"], dt, card))
+    for f in data["findings"]:
+        log("tracecheck (d)   [%s] %s: %s (%s)"
+            % (f["lint"], f["program"], f["message"].split("\n")[0],
+               f["provenance"]))
+
+
+def tracecheck_phase(seed, card):
+    """Phase 25 (last): tracecheck's program registry, the retrace watch
+    and the analyzers' check methods on the card. Returns ``{"B1": n,
+    "B2": n}``, the kernels' launches in the phase."""
+    from mxnet_tpu_torch.ops import matmul_stats as ms
+    from mxnet_tpu_torch.ops import multibox_nms as mnms
+    t_phase = time.perf_counter()
+    problems = []
+    cli = tracecheck_cli_start()
+    ms.reset_launches()
+    mnms.reset_launches()
+    ts, state, batch = _resnet_step(seed)
+    state = tracecheck_resnet(ts, state, batch, card, problems)
+    tracecheck_host_cost(seed, ts, state, batch, card, problems)
+    b1 = ms.LAUNCHES
+    routes = dict(ms.LAUNCHES_BY_ROUTE)
+    del ts, state, batch
+    if routes.get("wgmma", 0) != b1 or b1 % sum(B1_STEP_SHAPES.values()):
+        problems.append("tracecheck: B1 launched %d times by route %s"
+                        % (b1, routes))
+    b2 = tracecheck_serving(seed, card, problems)
+    tracecheck_cli(cli, card, problems)
+    log("tracecheck phase: B1 %d launches (%s), B2 %d; %.1f s [%s]"
+        % (b1, routes, b2, time.perf_counter() - t_phase, card))
     if problems:
         raise SystemExit("\n".join(problems))
     return {"B1": b1, "B2": b2}
@@ -8335,21 +8687,24 @@ def main():
     capi_run = capi_phase(args.seed, card)
     capi = capi_run["launches"]
     mem = memcheck_phase(args.seed, card)
+    tc25 = tracecheck_phase(args.seed, card)
     # B1 runs on three main paths: the train phase, the training API and
     # the bf16 mesh; its float32 route on the module phase and the f32 mesh
     b1.update(launches=(b1["launches"] + api_launches + mesh_launches["wgmma"]
-                        + dist_launches + mem["B1"]),
+                        + dist_launches + mem["B1"] + tc25["B1"]),
               launches_train=b1["launches"],
               launches_training_api=api_launches,
               launches_mesh=mesh_launches["wgmma"],
               launches_dist=dist_launches,
-              launches_memcheck=mem["B1"])
+              launches_memcheck=mem["B1"],
+              launches_tracecheck=tc25["B1"])
     b1["launches_capi"] = 0
     b1_f32.update(launches=(b1_f32["launches"] + mesh_launches["tf32x3"]
                             + capi["B1"]),
                   launches_module=b1_f32["launches"],
                   launches_mesh=mesh_launches["tf32x3"],
                   launches_capi=capi["B1"], launches_memcheck=0,
+                  launches_tracecheck=0,
                   max_abs_err=max(b1_f32["max_abs_err"],
                                   capi_run["b1_err"]))
     # B2 runs on six main paths: serving (phase 5), training (phase 12),
@@ -8358,9 +8713,10 @@ def main():
     # float32 route and B3's Rtc run through the C ABI too
     nms.update(launches=(serve_launches + ssd_train["launches"]
                          + tier_launches + data["launches"] + mp_launches
-                         + capi["B2"] + mem["B2"]),
+                         + capi["B2"] + mem["B2"] + tc25["B2"]),
                launches_capi=capi["B2"],
                launches_memcheck=mem["B2"],
+               launches_tracecheck=tc25["B2"],
                max_abs_err=max(nms["max_abs_err"], capi_run["b2_err"]),
                launches_serve=serve_launches,
                launches_train=ssd_train["launches"],
@@ -8379,7 +8735,7 @@ def main():
                    "launches": launches[route] + (
                        capi["B3"] if route == "cuda" else 0),
                    "launches_capi": capi["B3"] if route == "cuda" else 0,
-                   "launches_memcheck": 0,
+                   "launches_memcheck": 0, "launches_tracecheck": 0,
                    "max_abs_err": max(rtc_err[route], upd_err[route],
                                       capi_run["b3_err"] if route == "cuda"
                                       else 0.0),

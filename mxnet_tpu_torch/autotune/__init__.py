@@ -28,7 +28,7 @@ applies and the built-in defaults do until a sweep there writes one.
 host without a card). :mod:`.harness` holds the trial harnesses and the
 open-loop client (``open_loop_run``) the serving benchmarks drive the
 batcher with. Not ported: :func:`hotspot_report`, the roofline of the JAX
-package's ``flopcheck`` (ROADMAP.md A.12d); it raises.
+package's ``flopcheck`` (ROADMAP.md A.12d-2); it raises.
 """
 from __future__ import annotations
 
@@ -62,7 +62,7 @@ def hotspot_report(*args, **kwargs):
     ``flopcheck``); not ported (raises)."""
     raise MXNetError("autotune.hotspot_report reads the roofline of "
                      "flopcheck, which walks XLA programs and is not ported "
-                     "yet (ROADMAP.md A.12d)")
+                     "yet (ROADMAP.md A.12d-2)")
 
 
 def enabled():

@@ -13,6 +13,10 @@ import torch
 
 __version__ = "0.1.0"
 
+MXNET_TPU_MAJOR = 0
+MXNET_TPU_MINOR = 1
+MXNET_TPU_PATCH = 0
+
 
 class MXNetError(Exception):
     """Error raised by mxnet_tpu_torch (parity: dmlc error -> Python)."""
@@ -30,6 +34,13 @@ class TrainingPreemptedError(MXNetError):
         self.batches_done = batches_done
         self.tag = tag
         super().__init__(msg)
+
+
+class NotImplementedForTPU(MXNetError):
+    """A reference feature intentionally absent from the package (the JAX
+    package's name, kept so that code catching it works with either):
+    raised rather than silently skipped, so users discover documented
+    gaps."""
 
 
 _NULL = object()  # sentinel for "unset" attr values

@@ -7,8 +7,9 @@ dispatch with ``nbatch`` advanced by K, so the periodic callbacks fire on
 crossing each period boundary. The ``Speedometer`` appends, from the
 ``fit`` that calls it, a sequence model's tokens/sec, the dispatch
 pipeline's depth and read-back stall and the input tier's data stall since
-its last line, and a guarded run's training-health counters (its dist and
-retrace suffixes wait for the ports of those layers).
+its last line, a dist run's ring size and staleness, a guarded run's
+training-health counters, and ``Retraces: N``, the retraces the analyzer's
+watch recorded since the Speedometer's (re-)init.
 """
 from __future__ import annotations
 
@@ -75,6 +76,7 @@ class Speedometer(object):
         self.last_count = 0
         self._fired = 0
         self._base = {}     # suffix -> (source object, last reading)
+        self._retraces0 = 0  # tracecheck.retrace_count() at the (re-)init
 
     def _delta(self, name, source, reading):
         """``reading`` less the last one taken from ``source`` for this
@@ -152,6 +154,19 @@ class Speedometer(object):
         return ("\tDist: workers=%d stale=%d"
                 % (kv.num_workers, int(getattr(kv, "staleness_lag", 0))))
 
+    def _retrace_suffix(self, init=False):
+        """``Retraces: N`` once any watched dispatch key has been
+        dispatched with a new argument signature since this Speedometer's
+        (re-)init, which baselines the count: a reused Speedometer never
+        reports another run's retraces, and a clean window stays quiet."""
+        from . import tracecheck
+        n = tracecheck.retrace_count()
+        if init:
+            self._retraces0 = n
+            return ""
+        n -= self._retraces0
+        return "\tRetraces: %d" % n if n else ""
+
     def __call__(self, param):
         count = param.nbatch
         if self.last_count > count:
@@ -171,7 +186,7 @@ class Speedometer(object):
                        if tps > 1 else "")
                 suffix = self._pipeline_suffix(param) \
                     + self._data_suffix(param) + self._dist_suffix(param) \
-                    + self._health_suffix(param)
+                    + self._health_suffix(param) + self._retrace_suffix()
                 if param.eval_metric is not None:
                     name_value = param.eval_metric.get_name_value()
                     param.eval_metric.reset()
@@ -193,6 +208,7 @@ class Speedometer(object):
             # baseline the stall windows at the (re-)init
             self._pipeline_suffix(param)
             self._data_suffix(param)
+            self._retrace_suffix(init=True)
 
 
 class ProgressBar(object):

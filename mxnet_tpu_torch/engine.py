@@ -18,10 +18,13 @@ control surface ``Module.fit`` reads:
 ``*_configured`` tell an explicit setting from the default, for the log
 line that names where each of ``fit``'s knobs came from. ``dp_devices``
 reads ``MXTPU_DP_DEVICES``, the replica count of a ``Module`` built
-without a context. ``memcheck_mode``/``set_memcheck`` (env
-``MXTPU_MEMCHECK``) arm the serving tier's load-time memory audit; the
-other analyzer modes of the JAX package's engine (``set_tracecheck``,
-``set_commscheck``, ``set_flopcheck``) wait for ROADMAP.md A.12d.
+without a context. ``tracecheck_mode``/``set_tracecheck`` (env
+``MXTPU_TRACECHECK``, default ``"warn"``) set what ``TrainStep``'s retrace
+watch does with a dispatch whose argument signature changed under an
+already-seen key; ``memcheck_mode``/``set_memcheck`` (env
+``MXTPU_MEMCHECK``) arm the serving tier's load-time memory audit. The
+JAX package's ``set_commscheck`` and ``set_flopcheck`` wait for
+ROADMAP.md A.12d-3 and A.12d-2.
 """
 from __future__ import annotations
 
@@ -132,7 +135,8 @@ def dp_devices():
 def _mode_from_env(env_name, default):
     """Shared warn|error|off parser for the analyzers' runtime-policy env
     knobs; ``default`` is the meaning of unset/empty."""
-    v = os.environ.get(env_name, "").strip().lower()
+    v = os.environ.get(env_name)
+    v = v.strip().lower() if v else ""
     if v == "":
         return default
     if v in ("1", "on", "true", "warn", "warning"):
@@ -148,6 +152,30 @@ def _validate_mode(mode, who):
     if mode is not None and mode not in ("warn", "error", "off"):
         raise MXNetError("%s: mode must be warn|error|off or None, got %r"
                          % (who, mode))
+
+
+_tracecheck_override = None
+
+
+def tracecheck_mode():
+    """Retrace-policy mode of the analyzer's runtime hook: ``"warn"``
+    (default) logs the argument diff when a watched dispatch key is
+    dispatched with a new signature, ``"error"`` raises
+    :class:`~mxnet_tpu_torch.tracecheck.RetraceError`, ``"off"`` skips
+    signature capture. Env default: ``MXTPU_TRACECHECK``."""
+    if _tracecheck_override is not None:
+        return _tracecheck_override
+    return _mode_from_env("MXTPU_TRACECHECK", "warn")
+
+
+def set_tracecheck(mode):
+    """Override the tracecheck mode (None: back to the env/default);
+    returns the previous effective value."""
+    global _tracecheck_override
+    prev = tracecheck_mode()
+    _validate_mode(mode, "set_tracecheck")
+    _tracecheck_override = mode
+    return prev
 
 
 _memcheck_override = None

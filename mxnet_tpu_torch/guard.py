@@ -69,9 +69,21 @@ class TrainingHealth(object):
         self.divergences = 0
         self.rollbacks = 0
         self.ckpt_skipped = 0
+        self.retraces = 0
         self.last_grad_norm = None
         self.last_loss = None
         self.last_event = None
+
+    def record_retrace(self, site):
+        """A watched dispatch key was dispatched with a new argument
+        signature (``tracecheck.TraceWatcher`` names the offending argument
+        in its log line or error). Counted here so a storm of them shows up
+        in Speedometer lines and the epoch health report."""
+        with self._lock:
+            self.retraces += 1
+            self.last_event = "unexpected retrace at %s" % (site,)
+        if self._parent is not None:
+            self._parent.record_retrace(site)
 
     def record_ckpt_skip(self):
         """An async checkpoint save was shed under back-pressure (the
@@ -123,6 +135,7 @@ class TrainingHealth(object):
                     "divergences": self.divergences,
                     "rollbacks": self.rollbacks,
                     "ckpt_skipped": self.ckpt_skipped,
+                    "retraces": self.retraces,
                     "last_grad_norm": self.last_grad_norm,
                     "last_loss": self.last_loss,
                     "last_event": self.last_event}
@@ -134,6 +147,7 @@ class TrainingHealth(object):
             self.divergences = 0
             self.rollbacks = 0
             self.ckpt_skipped = 0
+            self.retraces = 0
             self.last_grad_norm = None
             self.last_loss = None
             self.last_event = None

@@ -31,12 +31,18 @@ still holds it), and keeps the peak of the live bytes. The figures:
 
 On a CUDA device each storage is counted rounded up to the caching
 allocator's 512-byte granule, the size ``torch.cuda.max_memory_allocated``
-counts. What the dry run cannot see: cuDNN's and cuBLAS's workspaces, the
-kernels' own scratch (B1's per-block partial sums, B2's ``l2`` mask), and
-the allocator's free cached blocks. Temp and peak are not comparable with
-the JAX package's: XLA plans and fuses buffers, an eager step frees each
-one when its last reference dies; argument bytes and the state's leaves
-are.
+counts. A convolution on a card adds cuDNN's workspace while it runs:
+cuDNN picks the algorithm, and so the workspace, only when the
+convolution first runs for real (on torch's cuDNN v8 path no environment
+cap bounds it, ``PERF.md``), so the dry run prices the workspace the
+process saw that convolution take under :func:`learn_workspaces` (each
+``ServingEngine`` warms its buckets up under it) and counts the others in
+``MemoryReport.unpriced_workspaces``. What the dry run cannot see:
+cuBLAS's workspace, the kernels' own scratch (B1's per-block partial
+sums, B2's ``l2`` mask), and the allocator's free cached blocks. Temp and
+peak are not comparable with the JAX package's: XLA plans and fuses
+buffers, an eager step frees each one when its last reference dies;
+argument bytes and the state's leaves are.
 
 A program that reads a value back to the host (``.item()``, ``int()`` of
 a tensor, ``.cpu().numpy()``) cannot be priced: :func:`analyze` raises
@@ -71,9 +77,10 @@ bytes against the committed baseline within ``MXTPU_MEMCHECK_TOL``
 (default 10%) plus 64 KiB. The exit status is non-zero iff an unsuppressed
 finding or a baseline regression remains.
 
-Not ported: ``analyze_compiled`` and ``parse_hlo_buffers`` (there is no
-HLO) and ``check_registered`` (it reads the program registry of
-``tracecheck``, ROADMAP.md A.12d); each raises ``MXNetError``.
+:func:`check_registered` prices the programs of ``tracecheck``'s registry
+(a TrainStep's dispatched keys, an engine's buckets, a decode loop's
+programs). Not ported: ``analyze_compiled`` and ``parse_hlo_buffers``
+(there is no XLA executable or HLO); each raises ``MXNetError``.
 """
 from __future__ import annotations
 
@@ -87,9 +94,9 @@ import weakref
 
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
-from torch.utils._pytree import tree_leaves
+from torch.utils._pytree import tree_flatten, tree_leaves, tree_unflatten
 
-from .base import MXNetError, env_float, env_str
+from .base import MXNetError, env_float, env_str, shape_only
 from .tracecheck import (Finding, MEM_LINTS, _is_suppressed, unsuppressed,
                          ZOO)
 
@@ -99,7 +106,7 @@ __all__ = [
     "check_registered", "check_train_step", "check_zoo",
     "compare_baseline", "write_baseline", "parse_hlo_buffers",
     "fake_mode", "new_fake_mode", "fake_tree", "device_budget",
-    "budget_bytes",
+    "budget_bytes", "learn_workspaces", "CONV_WORKSPACES",
     "temp_multiple", "tolerance", "main", "MEM_LINTS",
 ]
 
@@ -203,13 +210,6 @@ def parse_hlo_buffers(*args, **kwargs):
                      "records the buffers of its dry run instead")
 
 
-def check_registered(*args, **kwargs):
-    """Audits tracecheck's program registry, which waits for ROADMAP.md
-    A.12d (raises)."""
-    raise MXNetError("memcheck.check_registered reads tracecheck's program "
-                     "registry, which is not ported yet (ROADMAP.md A.12d)")
-
-
 # ---------------------------------------------------------------------------
 # the report
 # ---------------------------------------------------------------------------
@@ -236,11 +236,13 @@ class MemoryReport(object):
 
     __slots__ = ("program", "platform", "argument_bytes", "output_bytes",
                  "temp_bytes", "alias_bytes", "generated_code_bytes",
-                 "top_buffers", "donated", "unaliased_donated")
+                 "top_buffers", "donated", "unaliased_donated",
+                 "unpriced_workspaces")
 
     def __init__(self, program, platform, argument_bytes, output_bytes,
                  temp_bytes, alias_bytes, generated_code_bytes=0,
-                 top_buffers=(), donated=(), unaliased_donated=()):
+                 top_buffers=(), donated=(), unaliased_donated=(),
+                 unpriced_workspaces=0):
         self.program = program
         self.platform = platform
         self.argument_bytes = int(argument_bytes)
@@ -253,6 +255,9 @@ class MemoryReport(object):
         self.donated = list(donated)
         #: [(label, bytes)] donated leaves the call replaced
         self.unaliased_donated = list(unaliased_donated)
+        #: convolutions on a card whose cuDNN workspace is not priced: the
+        #: process has not run them under ``learn_workspaces``
+        self.unpriced_workspaces = int(unpriced_workspaces)
 
     @property
     def peak_bytes(self):
@@ -280,6 +285,7 @@ class MemoryReport(object):
             "donated_bytes": self.donated_bytes,
             "wasted_donation_bytes": self.wasted_donation_bytes,
             "top_buffers": self.top_buffers,
+            "unpriced_workspaces": self.unpriced_workspaces,
         }
 
     def breakdown(self, top=5):
@@ -294,12 +300,16 @@ class MemoryReport(object):
         return lines
 
     def format(self):
-        return ("%s: peak %s (args %s + out %s + temp %s - alias %s)"
-                % (self.program, _fmt_bytes(self.peak_bytes),
-                   _fmt_bytes(self.argument_bytes),
-                   _fmt_bytes(self.output_bytes),
-                   _fmt_bytes(self.temp_bytes),
-                   _fmt_bytes(self.alias_bytes)))
+        s = ("%s: peak %s (args %s + out %s + temp %s - alias %s)"
+             % (self.program, _fmt_bytes(self.peak_bytes),
+                _fmt_bytes(self.argument_bytes),
+                _fmt_bytes(self.output_bytes),
+                _fmt_bytes(self.temp_bytes),
+                _fmt_bytes(self.alias_bytes)))
+        if self.unpriced_workspaces:
+            s += "; %d convolution workspace(s) not priced" % (
+                self.unpriced_workspaces)
+        return s
 
     def __repr__(self):
         return "MemoryReport(%s)" % self.format()
@@ -404,9 +414,15 @@ def _fake_mode_of(leaves):
 
 
 #: per code-object file name: ``(normalized name, in the port's package
-#: outside memcheck, the executor)``; a module may have been imported
+#: outside the analyzers, the executor)``; a module may have been imported
 #: through a path that is not normalized (``.../tests/../mxnet_tpu_torch``)
 _FILES = {}
+
+#: torch's own package: frames there are never a program's provenance
+_TORCH_DIR = os.path.dirname(os.path.realpath(torch.__file__))
+
+#: the analyzers, whose frames are never a program's provenance
+_ANALYZERS = ("memcheck.py", "tracecheck.py")
 
 
 def _file_kind(fname):
@@ -414,34 +430,158 @@ def _file_kind(fname):
     if kind is None:
         real = os.path.realpath(fname)
         inside = real.startswith(_PKG_DIR + os.sep)
-        kind = (real, inside and not real.endswith("memcheck.py"),
+        kind = (real, inside and not real.endswith(_ANALYZERS),
                 inside and real == os.path.join(_PKG_DIR, "executor.py"))
         _FILES[fname] = kind
     return kind
 
 
+def _foreign(real):
+    """Whether ``real`` (a normalized file name) is code outside both the
+    port's package and torch's: a caller's own program."""
+    return not (real.startswith(_PKG_DIR + os.sep)
+                or real.startswith(_TORCH_DIR + os.sep))
+
+
+def _frame_line(frames):
+    """The provenance ``file:line`` of an op from its stack, innermost
+    frame first (``(code, line)`` pairs): the innermost line of the port's
+    code outside the analyzers, else the innermost line outside the port
+    and torch (a caller's own program), else None."""
+    other = None
+    for code, line in frames:
+        real, port, _ = _file_kind(code.co_filename)
+        if port:
+            return "%s:%d" % (real, line)
+        if other is None and _foreign(real):
+            other = "%s:%d" % (real, line)
+    return other
+
+
+def _stack(f):
+    while f is not None:
+        yield f.f_code, f.f_lineno
+        f = f.f_back
+
+
 def _where():
     """``(op_path, provenance)`` of the op being dispatched: the executor
-    node whose walk issued it, and the innermost line of the port's code
-    on the stack (memcheck's own frames skipped)."""
-    node = prov = None
+    node whose walk issued it, and :func:`_frame_line` of the stack."""
+    node = None
     f = sys._getframe(2)
-    while f is not None and (node is None or prov is None):
-        real, port, executor = _file_kind(f.f_code.co_filename)
-        if prov is None and port:
-            prov = "%s:%d" % (real, f.f_lineno)
-        if node is None and executor \
-                and f.f_code.co_name in ("apply", "apply_mesh"):
-            node = getattr(f.f_locals.get("node"), "name", None)
-        f = f.f_back
-    return node, prov
+    g = f
+    while g is not None:
+        executor = _file_kind(g.f_code.co_filename)[2]
+        if executor and g.f_code.co_name in ("apply", "apply_mesh"):
+            node = getattr(g.f_locals.get("node"), "name", None)
+            break
+        g = g.f_back
+    return node, _frame_line(_stack(f))
+
+
+def _tb_line(e):
+    """:func:`_frame_line` of an exception's traceback."""
+    frames, tb = [], e.__traceback__
+    while tb is not None:
+        frames.append((tb.tb_frame.f_code, tb.tb_lineno))
+        tb = tb.tb_next
+    return _frame_line(reversed(frames))
+
+
+_F64 = (torch.float64, torch.complex128)
+#: the aten ops a convolution reaches a dispatch mode as: the
+#: ``torch.nn.functional`` ones under ``inference_mode``, ``convolution``
+#: and its backward under autograd, the cuDNN ones called by name
+_CONV_OPS = frozenset((
+    "conv1d", "conv2d", "conv3d", "conv_transpose1d", "conv_transpose2d",
+    "conv_transpose3d", "convolution", "_convolution",
+    "convolution_backward", "cudnn_convolution",
+    "cudnn_convolution_transpose"))
+
+#: cuDNN's workspace of each convolution this process ran on a card under
+#: :func:`learn_workspaces`: :func:`_conv_key` -> bytes
+CONV_WORKSPACES = {}
+
+
+def _conv_key(func, args, kwargs):
+    """What cuDNN picks a convolution's plan by: the op, each tensor
+    argument's shape, dtype, device and memory format, the other
+    arguments, and cuDNN's switches (TF32, deterministic, benchmark).
+    The same for a real call and its shape-only twin."""
+    def part(a):
+        if isinstance(a, torch.Tensor):
+            return (tuple(a.shape), str(a.dtype), str(a.device),
+                    a.is_contiguous(),
+                    a.dim() == 4
+                    and a.is_contiguous(memory_format=torch.channels_last))
+        return tuple(a) if isinstance(a, list) else a
+    flags = torch.backends.cudnn
+    return ((str(func),) + tuple(map(part, tree_leaves((args, kwargs))))
+            + (flags.allow_tf32, flags.deterministic, flags.benchmark))
+
+
+def _cuda_conv(func, args):
+    """The device of a convolution op's first tensor argument when the op
+    is a convolution on a card, else None."""
+    if func.overloadpacket.__name__ not in _CONV_OPS:
+        return None
+    dev = next((t.device for t in tree_leaves(args)
+                if isinstance(t, torch.Tensor)), None)
+    return dev if dev is not None and dev.type == "cuda" else None
+
+
+class _WorkspaceProbe(TorchDispatchMode):
+    """Records what each real convolution on a card allocates beyond its
+    outputs (cuDNN's workspace, and any copy the op makes of an argument),
+    from the caching allocator's count of bytes allocated: a host counter,
+    read with no wait for the device."""
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        dev = _cuda_conv(func, args)
+        if dev is None or any(shape_only(t) for t in tree_leaves(args)
+                              if isinstance(t, torch.Tensor)):
+            return func(*args, **kwargs)
+        stat = "allocated_bytes.all.allocated"
+        before = torch.cuda.memory_stats(dev)[stat]
+        out = func(*args, **kwargs)
+        made = torch.cuda.memory_stats(dev)[stat] - before
+        made -= sum(_storage(t)[2] for t in tree_leaves(out)
+                    if isinstance(t, torch.Tensor))
+        key = _conv_key(func, args, kwargs)
+        ws = max(0, made)
+        # another thread's allocation can only add to a reading
+        CONV_WORKSPACES[key] = min(ws, CONV_WORKSPACES.get(key, ws))
+        return out
+
+
+@contextlib.contextmanager
+def learn_workspaces():
+    """Run the block's real convolutions on a card under a probe that
+    records each one's cuDNN workspace in :data:`CONV_WORKSPACES`, which
+    the dry run then prices for the same convolution. ``ServingEngine``
+    warms its buckets up under it. cuDNN picks a convolution's algorithm,
+    and so its workspace, when the convolution first runs; neither a
+    shape-only run nor an environment cap can bound it on torch's cuDNN
+    v8 path (``PERF.md``), so the price is what the card took."""
+    with _WorkspaceProbe():
+        yield
 
 
 class _Tracker(TorchDispatchMode):
     """Counts the live bytes of every storage the ops of a dry run make,
-    and the storages they write in place."""
+    and the storages they write in place. Each convolution on a card adds
+    its cuDNN workspace (:data:`CONV_WORKSPACES`) to the live bytes while
+    it runs, or counts in ``unpriced`` when the process has not run it
+    under :func:`learn_workspaces`.
 
-    def __init__(self):
+    With ``lint`` (the static pass of :mod:`.tracecheck`) it also records
+    ``events``: a value read back to the host (answered with a zero, so
+    the run goes on), a copy from the card to the host, an op's float64
+    or complex128 output, and every real tensor the program reads that is
+    not an argument (faked for the op, so the run goes on)."""
+
+    def __init__(self, mode=None, lint=False):
         super().__init__()
         self.lock = threading.Lock()
         self.live = {}
@@ -449,6 +589,12 @@ class _Tracker(TorchDispatchMode):
         self.written = set()
         self.records = []
         self.seq = 0
+        self.mode = mode
+        self.lint = lint
+        self.events = []
+        self.made_by = {}       # storage key -> (op_path, provenance)
+        self.unpriced = 0
+        self._consts = set()
 
     def add(self, t, record=None):
         if not isinstance(t, torch.Tensor):
@@ -467,13 +613,58 @@ class _Tracker(TorchDispatchMode):
         if record is not None and nb:
             record["bytes"] = nb
             self.records.append(record)
+            self.made_by[key] = (record["op_path"], record["provenance"])
 
     def _release(self, key):
         with self.lock:
             self.cur -= self.live.pop(key, 0)
 
+    def _read_back(self, func, args, kwargs, node, prov):
+        """A copy from the card to the host, as a lint event."""
+        if func is torch.ops.aten._to_copy.default:
+            src, dst = args[0], kwargs.get("device")
+        elif func is torch.ops.aten.copy_.default:
+            src, dst = args[1], args[0].device
+        else:
+            return
+        if (isinstance(src, torch.Tensor) and src.device.type == "cuda"
+                and dst is not None and torch.device(dst).type == "cpu"):
+            self.events.append(("host-sync", "a copy from the card to the "
+                                "host (.cpu(), .to('cpu'))", node, prov))
+
+    def _lift_consts(self, args, kwargs, node, prov):
+        """``(args, kwargs)`` with each real tensor among them (a tensor
+        the program reads but was not given) recorded once and faked."""
+        from torch._subclasses.fake_tensor import is_fake
+        leaves, spec = tree_flatten((args, kwargs))
+        if not any(isinstance(t, torch.Tensor) and not t.is_meta
+                   and not is_fake(t) for t in leaves):
+            return args, kwargs
+        out = []
+        for t in leaves:
+            if isinstance(t, torch.Tensor) and not t.is_meta \
+                    and not is_fake(t):
+                st = t.untyped_storage()
+                if st._cdata not in self._consts:
+                    self._consts.add(st._cdata)
+                    self.events.append(("const", t, node, prov))
+                t = self.mode.from_tensor(t, static_shapes=True)
+            out.append(t)
+        return tree_unflatten(out, spec)
+
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
+        node, prov = _where()
+        if self.lint:
+            if func is torch.ops.aten._local_scalar_dense.default:
+                self.events.append((
+                    "host-sync", "a value read back to the host (.item(), "
+                    "int(), float(), bool(), .tolist())", node, prov))
+                dt = args[0].dtype
+                return (False if dt == torch.bool else
+                        0.0 if dt.is_floating_point else 0)
+            args, kwargs = self._lift_consts(args, kwargs, node, prov)
+            self._read_back(func, args, kwargs, node, prov)
         out = func(*args, **kwargs)
         for i, a in enumerate(func._schema.arguments):
             if a.alias_info is not None and a.alias_info.is_write:
@@ -481,30 +672,57 @@ class _Tracker(TorchDispatchMode):
                 for t in tree_leaves(v):
                     if isinstance(t, torch.Tensor):
                         self.written.add(t.untyped_storage()._cdata)
-        node, prov = _where()
         opcode = str(func.overloadpacket)
+        f64 = None
         for t in tree_leaves(out):
             if isinstance(t, torch.Tensor):
                 self.seq += 1
                 self.add(t, {"opcode": opcode, "op_path": node,
                              "instruction": "%s#%d" % (opcode, self.seq),
                              "provenance": prov})
+                if self.lint and f64 is None and t.dtype in _F64:
+                    f64 = t
+        if f64 is not None:
+            self.events.append(("dtype-f64", (opcode, f64), node, prov))
+        if _cuda_conv(func, args) is not None:
+            ws = CONV_WORKSPACES.get(_conv_key(func, args, kwargs))
+            if ws is None:
+                self.unpriced += 1
+            elif ws:
+                with self.lock:
+                    self.peak = max(self.peak, self.cur + ws)
+                self.records.append({
+                    "bytes": ws, "opcode": "workspace", "op_path": node,
+                    "instruction": "%s#%d workspace" % (opcode, self.seq),
+                    "provenance": prov})
         return out
 
 
 def _host_read_error(name, e):
     """The error of a priced program that read a value back to the host:
-    names the innermost line of the port's code in the traceback."""
-    tb, prov = e.__traceback__, None
-    while tb is not None:
-        real, port, _ = _file_kind(tb.tb_frame.f_code.co_filename)
-        if port:
-            prov = "%s:%d" % (real, tb.tb_lineno)
-        tb = tb.tb_next
+    names the line (:func:`_tb_line`) that read it."""
+    prov = _tb_line(e)
     return MXNetError(
         "memcheck: %s reads a value back to the host%s (%s), which a "
         "shape-only run cannot price" % (name, " at " + prov if prov else "",
                                          type(e).__name__))
+
+
+class _DryRun(object):
+    """What :func:`_dry_run` saw: the ``report``, the ``tracker`` (its
+    lint events), the argument leaves ``(label, tensor)``, where each
+    replaced donated leaf's new storage was made (``{label: (op_path,
+    provenance)}``), and the error that ended a lint run early (None when
+    the program ran to its end)."""
+
+    __slots__ = ("report", "tracker", "arg_leaves", "replaced_by", "stopped")
+
+    def __init__(self, report, tracker, arg_leaves, replaced_by, stopped):
+        self.report = report
+        self.tracker = tracker
+        self.arg_leaves = arg_leaves
+        self.replaced_by = replaced_by
+        self.stopped = stopped
 
 
 def analyze(fn, args=(), kwargs=None, donate_argnums=(), name=None, top=8):
@@ -513,6 +731,16 @@ def analyze(fn, args=(), kwargs=None, donate_argnums=(), name=None, top=8):
     arguments are converted to fake ones and fake ones pass as they are,
     so nothing is allocated and no kernel launches. The leaves of the
     positional arguments in ``donate_argnums`` are the donated state."""
+    return _dry_run(fn, args, kwargs, donate_argnums, name, top).report
+
+
+def _dry_run(fn, args=(), kwargs=None, donate_argnums=(), name=None, top=8,
+             lint=False):
+    """:func:`analyze`'s run, returning a :class:`_DryRun`. With ``lint``
+    the tracker records the static pass's events, and a program whose op
+    has an output shape that depends on the data (``nonzero``, a boolean
+    mask) or that reads a tensor's data (``.numpy()``) ends the run there
+    (``stopped``) instead of raising."""
     from torch._subclasses.fake_tensor import (
         DataDependentOutputException, DynamicOutputShapeException)
     kwargs = dict(kwargs or {})
@@ -525,7 +753,7 @@ def analyze(fn, args=(), kwargs=None, donate_argnums=(), name=None, top=8):
     with fake_mode(mode):
         fargs = tuple(fake_tree(a, mode) for a in args)
         fkwargs = fake_tree(kwargs, mode)
-    tracker = _Tracker()
+    tracker = _Tracker(mode, lint=lint)
     arg_leaves = []
     for i, a in enumerate(fargs):
         arg_leaves += [(lab, t, i) for lab, t in _leaves(a, "args[%d]" % i)]
@@ -539,12 +767,20 @@ def analyze(fn, args=(), kwargs=None, donate_argnums=(), name=None, top=8):
                             "instruction": lab, "provenance": None})
         if i in (donate_argnums or ()):
             donated.append((lab, nb, key, lab[len("args[%d]" % i):]))
+    stopped = out = None
     try:
         with fake_mode(mode), tracker:
             out = fn(*fargs, **fkwargs)
     except (DataDependentOutputException,
             DynamicOutputShapeException) as e:
-        raise _host_read_error(name, e) from e
+        if not lint:
+            raise _host_read_error(name, e) from e
+        stopped = e
+    except RuntimeError as e:
+        # FakeTensor refuses a data pointer (``.numpy()``) this way
+        if not (lint and "tensor subclasses" in str(e)):
+            raise
+        stopped = e
     out_leaves = _leaves(out)
     out_bytes, out_at = {}, {}
     for lab, t in out_leaves:
@@ -564,7 +800,7 @@ def analyze(fn, args=(), kwargs=None, donate_argnums=(), name=None, top=8):
                      reverse=True)[:top]
     dev = next((t.device for _, t, _ in arg_leaves), None) or next(
         (t.device for _, t in out_leaves), torch.device("cpu"))
-    return MemoryReport(
+    report = MemoryReport(
         name, _platform(dev), argument_bytes=argument,
         output_bytes=new_out + alias, temp_bytes=temp, alias_bytes=alias,
         top_buffers=[{k: r[k] for k in ("bytes", "opcode", "op_path",
@@ -572,7 +808,12 @@ def analyze(fn, args=(), kwargs=None, donate_argnums=(), name=None, top=8):
                      for r in records],
         donated=[(lab, nb) for lab, nb, _, _ in donated],
         unaliased_donated=[(lab, nb) for lab, nb, key, _ in donated
-                           if key in replaced])
+                           if key in replaced],
+        unpriced_workspaces=tracker.unpriced)
+    replaced_by = {lab: tracker.made_by.get(out_at.get(path), (None, None))
+                   for lab, _, key, path in donated if key in replaced}
+    return _DryRun(report, tracker, [(lab, t) for lab, t, _ in arg_leaves],
+                   replaced_by, stopped)
 
 
 # ---------------------------------------------------------------------------
@@ -688,6 +929,44 @@ def check_program(fn, args=(), kwargs=None, donate_argnums=(), name=None,
     report = analyze(fn, args, kwargs, donate_argnums=donate_argnums,
                      name=name)
     return lint_report(report, budget=budget, temp_mult=temp_mult), report
+
+
+def check_registered(match=None, budget=None, temp_mult=None,
+                     resident_name=None):
+    """Memory-audit the live programs of tracecheck's registry whose name
+    contains ``match`` (a string, or a tuple: contains any): per-program
+    lints plus one ``resident-set`` lint over the whole matched set (a
+    ``BucketingModule``'s bucket steps, an engine's buckets: they are all
+    kept, so their co-resident footprint is what the budget must cover).
+    An explicitly empty tuple audits nothing. Returns ``(findings,
+    reports)``."""
+    from .tracecheck import registered_programs
+    if match is None:
+        matches = None
+    else:
+        matches = (match,) if isinstance(match, str) else tuple(match)
+        if not matches:
+            # a BucketingModule that never dispatched must not sweep (and
+            # attribute a resident set over) unrelated programs
+            return [], {}
+    findings = []
+    reports = {}
+    for rec in registered_programs():
+        if matches is not None and not any(m in rec.name for m in matches):
+            continue
+        fn = rec.fn_ref()
+        if fn is None:
+            continue
+        fs, rep = check_program(fn, rec.arg_structs,
+                                donate_argnums=rec.donate_argnums,
+                                name=rec.name, budget=budget,
+                                temp_mult=temp_mult)
+        findings += fs
+        reports[rec.name] = rep
+    findings += lint_resident_set(
+        reports.values(), "%s/resident-set" % (resident_name or "registered"),
+        budget=budget)
+    return findings, reports
 
 
 # ---------------------------------------------------------------------------

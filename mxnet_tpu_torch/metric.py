@@ -70,8 +70,10 @@ class DeviceSumSpec(object):
     ``signature`` is a hashable tuple naming the layout and its constants
     (CrossEntropy eps, TopK k, an axis). ``loss_slots`` optionally names a
     ``(loss_sum_slot, sample_count_slot)`` pair whose ratio is a watchable
-    mean loss (what the JAX package's training guard watches; not ported
-    yet). ``tag`` is a short human-readable token for logs.
+    mean loss, what the training guard watches (a spec without one gains
+    two hidden slots for it under ``run_steps(guard=True)``,
+    ``train_step._with_guard_loss``). ``tag`` is a short human-readable
+    token for logs.
     """
 
     __slots__ = ("slots", "step_sums", "fold", "signature", "loss_slots",

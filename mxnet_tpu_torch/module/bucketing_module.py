@@ -21,8 +21,8 @@ shares) first. An installed monitor, ``inputs_need_grad``, ``state_names``,
 a ``grad_req`` other than ``write``/``null`` or an optimizer without a
 fused update keep the executor path. Over several contexts every bucket's
 module and TrainStep share the default bucket's 'data' mesh of replicas,
-and superbatches land split per replica. ``check`` (the static analyzers)
-raises: it is not ported yet.
+and superbatches land split per replica. ``check`` audits every bucket
+step's registered programs with the static analyzers as a unit.
 """
 from __future__ import annotations
 
@@ -30,9 +30,9 @@ import logging
 
 import torch
 
-from ..base import MXNetError
 from .. import metric as _metric
 from ..ndarray import NDArray
+from ..tracecheck import RetraceError
 from .base_module import BaseModule
 from .module import Module, _seed_opt_state
 
@@ -406,9 +406,14 @@ class BucketingModule(BaseModule):
                                                super_batch.data)}
         feed.update((n, _tensor(v)) for n, v in zip(
             ts.label_names, super_batch.label or []))
-        self._fused_state, sums = ts.run_steps(
-            self._fused_state, feed, guard=guard is not None,
-            metric_spec=spec)
+        ts.health = guard.health if guard is not None else None
+        try:
+            self._fused_state, sums = ts.run_steps(
+                self._fused_state, feed, guard=guard is not None,
+                metric_spec=spec)
+        except RetraceError:
+            self._adopt_retrace()
+            raise
         self._fused_outputs = None
         self._fused_dirty = True
         self._params_dirty = True
@@ -428,19 +433,32 @@ class BucketingModule(BaseModule):
                                                 data_batch.data)}
         batch.update((n, _tensor(v)) for n, v in zip(
             ts.label_names, data_batch.label or []))
-        if guard is not None:
-            guard.last_step_skipped = False
-            self._fused_state, outs, packed = ts.step(
-                self._fused_state, batch, guard=True)
-        else:
-            self._fused_state, outs = ts.step(self._fused_state, batch)
-            self._fused_host_step += 1
+        ts.health = guard.health if guard is not None else None
+        try:
+            if guard is not None:
+                guard.last_step_skipped = False
+                self._fused_state, outs, packed = ts.step(
+                    self._fused_state, batch, guard=True)
+            else:
+                self._fused_state, outs = ts.step(self._fused_state, batch)
+                self._fused_host_step += 1
+        except RetraceError:
+            self._adopt_retrace()
+            raise
         self._fused_outputs = [NDArray(o) for o in outs]
         self._fused_dirty = True
         self._params_dirty = True
         if guard is not None:
             self._feed_guard_sentinels(guard, packed.cpu().numpy())
         return True
+
+    def _adopt_retrace(self):
+        """A RetraceError is raised after the dispatch updated the shared
+        state in place: mark it ahead of the executors before
+        re-raising."""
+        self._fused_outputs = None
+        self._fused_dirty = True
+        self._params_dirty = True
 
     # -- rollback and resume hooks --------------------------------------
     def _drop_fused_state(self):
@@ -520,8 +538,28 @@ class BucketingModule(BaseModule):
         return self._curr_module.save_optimizer_states(fname)
 
     def check(self, memory=False, budget=None, temp_mult=None):
-        raise MXNetError("BucketingModule.check (the tracecheck and memcheck "
-                         "analyzers) is not ported yet (ROADMAP A.12d)")
+        """Static audit of the bucket steps' programs as a unit:
+        ``tracecheck``'s lints over every program each bucket's TrainStep
+        registered (its watcher's prefix), plus with ``memory=True`` the
+        memory lints per program and one ``resident-set`` finding over
+        every bucket's programs (the bucket steps are all kept, so their
+        footprints co-reside). A module that never dispatched audits
+        nothing."""
+        from .. import tracecheck as _tc
+        prefixes = [ts._watcher.name + "/"
+                    for ts in self._bucket_fused.values()
+                    if ts._watcher is not None]
+        findings = []
+        for p in prefixes:
+            findings += _tc.check_registered(match=p)
+        if memory:
+            from .. import memcheck as _mc
+            fs, _reports = _mc.check_registered(
+                match=tuple(prefixes), budget=budget, temp_mult=temp_mult,
+                resident_name="BucketingModule(%s)"
+                % self._default_bucket_key)
+            findings += fs
+        return findings
 
     # -- computation ----------------------------------------------------
     def forward(self, data_batch, is_train=None):

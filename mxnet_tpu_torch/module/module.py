@@ -835,6 +835,9 @@ class Module(BaseModule):
         if not self._fused_ready():
             return False
         batch = self._batch_dict(data_batch)
+        # retrace events count in this run's health when guarded (the
+        # process-wide TRAINING_HEALTH mirrors it)
+        self._fused.health = guard.health if guard is not None else None
         try:
             if guard is None:
                 self._fused_state, outs = self._fused.step(
@@ -869,6 +872,7 @@ class Module(BaseModule):
         spec = self._fused_metric_spec
         if spec is None and not self._fused_metrics_ok:
             return None
+        self._fused.health = guard.health if guard is not None else None
         try:
             self._fused_state, sums = self._fused.run_steps(
                 self._fused_state, self._batch_dict(super_batch),

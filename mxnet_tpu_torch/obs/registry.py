@@ -12,10 +12,9 @@ port imports nothing of the JAX package):
   process-global counter objects are registered as views:
   ``io.DATA_HEALTH`` (``data_health``), ``guard.TRAINING_HEALTH``
   (``training_health``), ``serving.SERVING_HEALTH`` (``serving_health``),
-  ``data.PIPELINE_STATS`` (``pipeline_stats``) and
-  ``dist_ring.DIST_HEALTH`` (``dist_health``). The JAX package's
-  ``retrace_events`` view comes with the retrace watch, which the port
-  does not have yet.
+  ``data.PIPELINE_STATS`` (``pipeline_stats``),
+  ``tracecheck.retrace_count()`` (``retrace_events``) and
+  ``dist_ring.DIST_HEALTH`` (``dist_health``).
 - **Snapshots**: :meth:`Registry.snapshot` flattens everything to
   ``{"view.key": value}`` (the flight recorder's dump carries one);
   :meth:`Registry.to_prometheus` renders the same snapshot as a
@@ -331,7 +330,7 @@ _default_views_done = False
 def register_default_views(registry=None):
     """Register the process-global counter objects as views
     (``data_health``, ``training_health``, ``serving_health``,
-    ``pipeline_stats``). Each view imports its owner when it is read (obs
+    ``pipeline_stats``, ``retrace_events``, ``dist_health``). Each view imports its owner when it is read (obs
     must stay importable before io, the guard and the serving tier); the
     call is idempotent. Called from the ``mxnet_tpu_torch.obs`` import."""
     global _default_views_done
@@ -355,6 +354,10 @@ def register_default_views(registry=None):
         from ..data import stats as _st
         return _st.PIPELINE_STATS.report()
 
+    def retrace_events():
+        from .. import tracecheck as _tc
+        return {"count": _tc.retrace_count()}
+
     def dist_health():
         from .. import dist_ring as _dr
         return _dr.DIST_HEALTH.report()
@@ -363,6 +366,7 @@ def register_default_views(registry=None):
     reg.register_view("training_health", training_health)
     reg.register_view("serving_health", serving_health)
     reg.register_view("pipeline_stats", pipeline_stats)
+    reg.register_view("retrace_events", retrace_events)
     reg.register_view("dist_health", dist_health)
     if registry is None:
         _default_views_done = True

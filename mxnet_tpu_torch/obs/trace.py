@@ -1,8 +1,9 @@
 """Host-span tracer: one Chrome-trace-event timeline across train/data/serve.
 
 The port's own copy of ``mxnet_tpu/obs/trace.py`` (pure Python; the port
-imports nothing of the JAX package), without ``nest_check``. The reference MXNet ships a Chrome-trace engine profiler
-spanning compute/copy/IO (src/engine/profiler.{h,cc}); ``torch.profiler`` covers the
+imports nothing of the JAX package). The reference MXNet ships a
+Chrome-trace engine profiler spanning compute/copy/IO
+(src/engine/profiler.{h,cc}); ``torch.profiler`` covers the
 DEVICE side of that story (CUPTI traces of the CUDA kernels) but says nothing
 about the host threads that feed it — the data producer's stack/H2D, the
 dispatch pipeline's deferred readbacks, the checkpoint writer, the serving
@@ -284,3 +285,30 @@ def _parse_env():
 
 _parse_env()
 
+
+def nest_check(evs):
+    """Validate span nesting per (pid, tid): complete events on one thread
+    must nest like a call stack (Perfetto renders overlap-but-not-nested
+    spans as a corrupt track). Returns a list of violation strings, empty
+    for a well-formed trace; tests and trace gates share this checker."""
+    bad = []
+    by_thread = {}
+    for ev in evs:
+        if ev.get("ph") != "X":
+            continue
+        by_thread.setdefault((ev["pid"], ev["tid"]), []).append(ev)
+    for key, track in by_thread.items():
+        track.sort(key=lambda e: (e["ts"], -e["dur"]))
+        stack = []
+        for ev in track:
+            end = ev["ts"] + ev["dur"]
+            while stack and ev["ts"] >= stack[-1][1]:
+                stack.pop()
+            if stack and end > stack[-1][1]:
+                bad.append(
+                    "span %r [%d,%d) overlaps %r [%d,%d) on tid %s"
+                    % (ev["name"], ev["ts"], end, stack[-1][0],
+                       stack[-1][2], stack[-1][1], key[1]))
+                continue
+            stack.append((ev["name"], end, ev["ts"]))
+    return bad

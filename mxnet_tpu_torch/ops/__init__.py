@@ -13,3 +13,11 @@ from . import multibox_nms  # noqa: F401  (the NMS kernel and its plain version)
 from . import matmul_stats  # noqa: F401  (the matmul+stats kernel)
 from . import dtype_rules   # noqa: F401  (attaches per-op InferType rules)
 
+
+get = registry.get
+exists = registry.exists
+list_ops = registry.list_ops
+OpContext = registry.OpContext
+OpDef = registry.OpDef
+register = registry.register
+register_def = registry.register_def

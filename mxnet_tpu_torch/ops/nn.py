@@ -21,6 +21,7 @@ from __future__ import annotations
 
 import contextlib
 import math
+import struct
 import threading
 
 import numpy as np
@@ -142,8 +143,13 @@ def _fc(op_ctx, attrs, inputs, aux):
     flatten = attr_bool(attrs.get("flatten", True), True)
     data = inputs[0]
     x = data.reshape(data.shape[0], -1) if flatten else data
+    w = inputs[1]
+    if x.dtype != w.dtype:
+        # mixed dtypes compute in their promotion, as jnp.dot does
+        dt = torch.promote_types(x.dtype, w.dtype)
+        x, w = x.to(dt), w.to(dt)
     # product, then bias: rounded in two steps as the JAX package does
-    y = x @ inputs[1].t()
+    y = x @ w.t()
     if not no_bias:
         y = y + inputs[2]
     return (y,)
@@ -254,12 +260,29 @@ def _bn_outputs(attrs):
     return ["output"]
 
 
+_NP_FLOATS = {torch.float16: np.float16, torch.float32: np.float32,
+              torch.float64: np.float64}
+
+
+def _in_dtype(v, dtype):
+    """Python float ``v`` rounded to ``dtype`` as ``torch.tensor(v,
+    dtype=dtype)`` rounds it (a 16-bit type through float32, nearest, ties
+    to even), on the host: no tensor is made, and nothing is read back."""
+    if dtype == torch.float16:
+        return float(np.float16(np.float32(v)))
+    if dtype == torch.bfloat16:
+        bits = struct.unpack("<I", struct.pack("<f", v))[0]
+        bits = (bits + 0x7FFF + ((bits >> 16) & 1)) & 0xFFFF0000
+        return struct.unpack("<f", struct.pack("<I", bits))[0]
+    return float(_NP_FLOATS[dtype](v))
+
+
 def _moving(moving, batch_stat, momentum):
     # the two factors take the moving statistic's dtype, as the JAX
     # package's weak-typed Python floats do: in bfloat16 (MXTPU_BF16_STATS)
     # 0.9 is 0.8984375, and the update rounds after each operation
-    m = float(torch.tensor(momentum, dtype=moving.dtype))
-    m1 = float(torch.tensor(1 - momentum, dtype=moving.dtype))
+    m = _in_dtype(momentum, moving.dtype)
+    m1 = _in_dtype(1 - momentum, moving.dtype)
     return m * moving + m1 * batch_stat.detach().to(moving.dtype)
 
 

@@ -89,8 +89,13 @@ caches; the live cache is never touched. ``MXTPU_MEMCHECK=warn|error``
 audits them at construction, before the loop's thread starts, and
 :meth:`DecodeLoop.priced` prices a loop without building it.
 
-Not ported: the static audits ``comms_report`` and ``check`` (ROADMAP.md
-A.12d); they raise.
+Each of those programs is registered with ``tracecheck`` under the same
+name when the loop is built, and :meth:`DecodeLoop.check` audits them:
+``tracecheck``'s static lints and, with ``memory=True``, the memory lints
+over :meth:`memory_report` plus a ``resident-set`` lint over the set (the
+draft and target co-residency under speculation). Not ported:
+``comms_report`` and ``check(comms=True)``, which read the communication
+analyzer's collective inventory (ROADMAP.md A.12d-3); they raise.
 """
 from __future__ import annotations
 
@@ -110,7 +115,7 @@ from ..ops.nn import matmul_precision
 from ..parallel import mesh as _mesh
 from ..tracecheck import unique_name
 from .batcher import REQUEST_IDS, ServingClosedError, Settleable
-from .engine import (_audit_load_memory, _dry_run, _model_mesh,
+from .engine import (_audit_load_memory, _check, _dry_run, _model_mesh,
                      _not_ported, _sync)
 from .health import ServingHealth, SERVING_HEALTH
 from .quantize import (_as_tensor, dequant_tree, is_quantized_leaf,
@@ -620,6 +625,13 @@ class DecodeLoop(object):
             return
         # MXTPU_MEMCHECK: price the program set before the thread starts
         _audit_load_memory(self, "DecodeLoop")
+        # the static analyzer's registry holds each program weakly: the
+        # loop keeps them
+        from .. import tracecheck as _tc
+        self._tc_programs = []
+        for pname, fn, args, donate in self._program_set():
+            self._tc_programs.append(fn)
+            _tc.register_program(pname, fn, args, donate_argnums=donate)
 
         #: device-resident prefix registry: key (the prefix token tuple)
         #: -> {"len", "target": {k,v}, "draft": {k,v}|None}, LRU-bounded
@@ -1135,6 +1147,16 @@ class DecodeLoop(object):
         Nothing runs on the device and the live cache is never touched; a
         sharded loop's reports count every position's bytes."""
         from .. import memcheck as _mc
+        return dict(sorted(
+            (pname, _mc.analyze(fn, args, donate_argnums=donate, name=pname,
+                                top=top))
+            for pname, fn, args, donate in self._program_set()))
+
+    def _program_set(self):
+        """``(name, fn, args, donate_argnums)`` of every program of the
+        loop (the JAX package's names), ``args`` fake copies of the
+        parameters and caches and a step's slot vectors."""
+        from .. import memcheck as _mc
         with _mc.fake_mode(like=self._params) as mode:
             state = _mc.fake_tree(self._state, mode)
             params = _mc.fake_tree(self._params, mode)
@@ -1176,17 +1198,18 @@ class DecodeLoop(object):
                      ()),
                     ("prefix_put[%s]" % which, self._implant_fn,
                      (st, 0, slab["k"], slab["v"]), (0,))]
-        reports = {}
-        for tag, fn, args, donate in programs:
-            pname = "%s/%s" % (self.name, tag)
-            reports[pname] = _mc.analyze(in_loop(fn), args,
-                                         donate_argnums=donate, name=pname,
-                                         top=top)
-        return dict(sorted(reports.items()))
+        return [("%s/%s" % (self.name, tag), in_loop(fn), args, donate)
+                for tag, fn, args, donate in programs]
 
     def comms_report(self):
         raise _not_ported("comms_report", "DecodeLoop")
 
     def check(self, const_bytes=None, memory=False, budget=None,
               comms=False, min_eff=0.0):
-        raise _not_ported("check", "DecodeLoop")
+        """Static-analyze the loop's registered programs; returns the
+        findings: ``tracecheck``'s lints and, with ``memory=True``, the
+        memory lints over every program plus the ``resident-set`` lint
+        over the set (with speculation, the draft and target
+        co-residency). ``comms=True`` raises: not ported. ``min_eff`` is
+        the JAX package's comms floor, unused here."""
+        return _check(self, const_bytes, memory, budget, comms)

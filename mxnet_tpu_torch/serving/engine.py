@@ -68,8 +68,14 @@ before it touches the card's memory beyond its parameters.
 :meth:`ServingEngine.priced` prices the engine a set of arguments would
 build without building it (the autotuner's pruner).
 
-Not ported: ``comms_report`` and ``check`` (and ``FleetRouter.check``),
-which walk XLA programs; they raise (ROADMAP.md A.12d).
+Each bucket's forward is registered with ``tracecheck`` as
+``<engine>/bucket[b=N]`` after the warm-up, and :meth:`ServingEngine.check`
+audits the engine: ``tracecheck``'s static lints over every bucket and,
+with ``memory=True``, the memory lints over :meth:`memory_report` plus a
+``resident-set`` lint over the bucket set. Not ported: ``comms_report``,
+``check(comms=True)`` and ``FleetRouter.check``, which read the
+communication analyzer's collective inventory; they raise (ROADMAP.md
+A.12d-3).
 """
 from __future__ import annotations
 
@@ -153,8 +159,29 @@ def _replicated(node, outs):
 
 def _not_ported(what, who="ServingEngine"):
     return MXNetError(
-        "%s.%s walks XLA programs and is not ported yet "
-        "(ROADMAP.md A.12d)" % (who, what))
+        "%s.%s reads the communication analyzer's collective inventory, "
+        "which is not ported yet (ROADMAP.md A.12d-3)" % (who, what))
+
+
+def _check(obj, const_bytes, memory, budget, comms):
+    """``check`` of :class:`ServingEngine` and ``DecodeLoop``: the static
+    lints over the programs ``obj`` registered (``<name>/...``) and, with
+    ``memory``, the memory lints over ``obj.memory_report()`` and one
+    ``resident-set`` lint over them all (they are all kept, so their
+    footprints co-reside)."""
+    if comms:
+        raise _not_ported("check(comms=True)", type(obj).__name__)
+    from .. import tracecheck as _tc
+    findings = _tc.check_registered(const_bytes=const_bytes,
+                                    match=obj.name + "/")
+    if memory:
+        from .. import memcheck as _mc
+        reports = obj.memory_report()
+        for rep in reports.values():
+            findings += _mc.lint_report(rep, budget=budget)
+        findings += _mc.lint_resident_set(
+            reports.values(), "%s/resident-set" % obj.name, budget=budget)
+    return findings
 
 
 def _dry_run():
@@ -312,11 +339,21 @@ class ServingEngine(object):
                 "PyTorch engine runs its forward eagerly, and cannot "
                 "serialize it or its CUDA state) — warming up afresh",
                 executables)
-        for b in self.buckets:
-            self._forward({n: np.zeros((b,) + self._input_shapes[n],
-                                       self._input_dtypes[n])
-                           for n in self._input_names})
+        from .. import memcheck as _mc
+        # the warm-up shows memcheck what cuDNN's workspace of each
+        # convolution is, which memory_report then prices
+        with _mc.learn_workspaces():
+            for b in self.buckets:
+                self._forward({n: np.zeros((b,) + self._input_shapes[n],
+                                           self._input_dtypes[n])
+                               for n in self._input_names})
         _sync(self._mesh, self.device)
+        # every bucket goes to the static analyzer's registry, audited as
+        # the train step's programs are (``check``)
+        from .. import tracecheck as _tc
+        for b in self.buckets:
+            _tc.register_program("%s/bucket[b=%d]" % (self.name, b),
+                                 self._device_forward, self._bucket_args(b))
 
     @classmethod
     def priced(cls, *args, top=8, **kwargs):
@@ -581,23 +618,34 @@ class ServingEngine(object):
         sharded engine's report counts the bytes of every position, on
         every device it touches."""
         from .. import memcheck as _mc
+        return {b: _mc.analyze(self._device_forward, self._bucket_args(b),
+                               name="%s/bucket[b=%d]" % (self.name, b),
+                               top=top)
+                for b in self.buckets}
+
+    def _bucket_args(self, b):
+        """The bucket program's arguments: the served parameters and aux
+        states and a bucket of fake inputs (nothing allocated)."""
+        from .. import memcheck as _mc
         from ..base import torch_dtype
         params, aux = self._state
-        reports = {}
-        for b in self.buckets:
-            with _mc.fake_mode(like=self._state):
-                inputs = {n: self._whole(torch.empty(
-                    (b,) + self._input_shapes[n],
-                    dtype=torch_dtype(self._input_dtypes[n])))
-                    for n in self._input_names}
-            reports[b] = _mc.analyze(
-                self._device_forward, (params, aux, inputs),
-                name="%s/bucket[b=%d]" % (self.name, b), top=top)
-        return reports
+        with _mc.fake_mode(like=self._state):
+            inputs = {n: self._whole(torch.empty(
+                (b,) + self._input_shapes[n],
+                dtype=torch_dtype(self._input_dtypes[n])))
+                for n in self._input_names}
+        return params, aux, inputs
 
     def comms_report(self):
         raise _not_ported("comms_report")
 
     def check(self, const_bytes=None, memory=False, budget=None,
               comms=False, min_eff=0.0):
-        raise _not_ported("check")
+        """Static-analyze this engine's bucket programs; returns the
+        findings: ``tracecheck``'s lints over every registered bucket, and
+        with ``memory=True`` the memory lints over every bucket
+        (``hbm-budget``, ``temp-blowup``) plus the ``resident-set`` lint
+        over the bucket set. ``comms=True`` (the communication lints)
+        raises: not ported. ``min_eff`` is the JAX package's comms
+        floor, unused here."""
+        return _check(self, const_bytes, memory, budget, comms)

@@ -701,10 +701,11 @@ class FleetRouter(object):
         return out
 
     def check(self, memory=False, comms=False):
-        """The static audits of every replica's programs; not ported (they
-        walk XLA programs), so this raises."""
-        raise MXNetError("FleetRouter.check walks XLA programs and is not "
-                         "ported yet (ROADMAP.md A.12d)")
+        """The static audits of every replica's programs with the
+        communication analyzer's inventory; not ported, so this raises."""
+        raise MXNetError("FleetRouter.check reads the communication "
+                         "analyzer's collective inventory, which is not "
+                         "ported yet (ROADMAP.md A.12d-3)")
 
 
 class _SettleHook(object):

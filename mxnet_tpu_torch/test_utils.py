@@ -8,15 +8,13 @@ on several contexts (the CPU and ``cuda:0`` on a card) and compares them.
 Every array is made on the context the caller names (by default the
 current one, which is ``gpu(0)`` unless a ``with cpu():`` block is open).
 
-:class:`assert_no_retrace` is built on the JAX package's retrace watch,
-which goes with ``tracecheck`` under ROADMAP item A.12d and is not ported:
-it raises ``MXNetError``.
+:class:`assert_no_retrace` fails a block in which ``tracecheck``'s watch
+recorded a retrace.
 """
 from __future__ import annotations
 
 import numpy as np
 
-from .base import MXNetError
 from .context import Context, current_context
 from .ndarray import NDArray, array, zeros
 from .symbol import Symbol
@@ -293,12 +291,61 @@ def check_consistency(sym, ctx_list, scale=1.0, grad_req="write",
 
 
 class assert_no_retrace(object):
-    """The JAX package's guard that no jitted entry re-traces inside a
-    block. It reads ``tracecheck``'s retrace events, which belong to
-    ROADMAP item A.12d and are not ported: constructing it raises
-    ``MXNetError``."""
+    """Context manager asserting that no watched dispatch key retraces
+    inside the block: runs with ``MXTPU_TRACECHECK`` forced on (the
+    caller's mode is restored on exit), snapshots the process-global
+    ``tracecheck.RETRACE_EVENTS`` on entry, and fails with the differ's
+    lines (the argument and the property that changed) for any event
+    appended in the block.
 
-    def __init__(self, *jitfns, msg=None):
-        raise MXNetError(
-            "test_utils.assert_no_retrace is not ported yet: it reads the "
-            "retrace events of tracecheck (ROADMAP.md A.12d)")
+    Objects passed in that count their seen signatures (a
+    ``tracecheck.TraceWatcher``, ``ts._watcher``) are also pinned by that
+    count, which grows at a new key too::
+
+        with assert_no_retrace(ts._watcher):
+            for epoch in range(3):
+                state, _ = ts.run_steps(state, superbatch)
+    """
+
+    def __init__(self, *watched, msg=None):
+        self._watched = watched
+        self._msg = msg
+        self._events0 = 0
+        self._sizes0 = ()
+        self._prev_mode = None
+
+    def __enter__(self):
+        from . import engine, tracecheck
+        # signature capture must be live for the differ to have anything to
+        # report
+        if engine.tracecheck_mode() == "off":
+            self._prev_mode = engine.set_tracecheck("warn")
+        self._events0 = len(tracecheck.RETRACE_EVENTS)
+        self._sizes0 = tuple(self._cache_size(w) for w in self._watched)
+        return self
+
+    def __exit__(self, exc_type, exc, tb):
+        from . import engine, tracecheck
+        if self._prev_mode is not None:
+            engine.set_tracecheck(self._prev_mode)
+        if exc_type is not None:
+            return False
+        lines = []
+        for ev in tracecheck.RETRACE_EVENTS[self._events0:]:
+            lines.append("retrace at %s: %s" % (ev.site, "; ".join(ev.diff)))
+        for w, s0 in zip(self._watched, self._sizes0):
+            s1 = self._cache_size(w)
+            if s0 is not None and s1 is not None and s1 > s0:
+                lines.append("signatures of %r grew %d -> %d (re-traced)"
+                             % (getattr(w, "name", w), s0, s1))
+        if lines:
+            prefix = (self._msg + ": ") if self._msg else ""
+            raise AssertionError(prefix + "unexpected retrace inside "
+                                 "assert_no_retrace block\n  "
+                                 + "\n  ".join(lines))
+        return False
+
+    @staticmethod
+    def _cache_size(w):
+        size = getattr(w, "_cache_size", None)
+        return size() if callable(size) else None

@@ -76,6 +76,14 @@ that are neither in ``label_names`` nor an ``Embedding``'s indices.
   stack see it. A mesh step equals the one-device step at the same
   global batch.
 
+- every ``step`` and ``run_steps`` dispatch goes through the analyzer's
+  runtime hook (:meth:`TrainStep._tc_after`, ``MXTPU_TRACECHECK``): the
+  key's program (``step[bs=N]``, ``guard-scan[bs=N,k=K]``, ... the JAX
+  package's names) is registered with ``tracecheck`` at its first
+  dispatch, and a key dispatched with a new argument signature is a
+  retrace, logged or raised as ``tracecheck.RetraceError`` (whose
+  ``result`` is the dispatch's) naming the argument that changed.
+
 - ``dist_reduce`` (a dist kvstore's ``grad_reduce``, which ``Module``
   attaches) sums the update set's gradients across worker processes once
   a step: flattened into one float32 vector, copied to the host, summed
@@ -97,7 +105,9 @@ import numpy as np
 import torch
 
 from .base import MXNetError, env_str, shape_only, torch_dtype
+from . import engine as _engine
 from . import faults as _faults
+from . import tracecheck as _tc
 from .context import resolve_device
 from .executor import _build_graph_runner, node_generator, shard_grad_sums
 from .initializer import Xavier, InitDesc
@@ -481,6 +491,13 @@ class TrainStep(object):
         # worker sends and their host seconds
         self.dist_reduce = None
         self.dist_exchange = {"count": 0, "bytes": 0, "seconds": 0.0}
+        # the retrace watch (tracecheck): its watcher, made at the first
+        # watched dispatch, (kind, cache key) -> (key, program name,
+        # program) of what it registered (the registry holds the programs
+        # weakly), and the per-run TrainingHealth a Module attaches
+        self._watcher = None
+        self._programs = {}
+        self.health = None
 
     # ------------------------------------------------------------------
     def init(self, data_shapes, label_shapes=None, initializer=None, seed=0):
@@ -966,6 +983,49 @@ class TrainStep(object):
         # noise streams keyed by it) does not advance either
         state["step"].add_(ok.to(torch.int32) if guard else 1)
 
+    def _tc_after(self, kind, cache_key, call_args, result, guard=False,
+                  spec=None, metric_spec=None):
+        """The analyzer's runtime hook (``tracecheck``), called after each
+        ``step`` and ``run_steps`` dispatch: registers the dispatch key's
+        program at its first dispatch (the guarded and unguarded step and
+        scan programs are then auditable as a unit through
+        ``tracecheck.check_registered``) and feeds the call's signature to
+        this TrainStep's watcher, so a key dispatched with a new argument
+        signature logs, or under ``MXTPU_TRACECHECK=error`` raises, a diff
+        naming the argument. ``call_args`` is ``(state, batch)``; the
+        signature is metadata only, taken after the in-place update.
+        ``spec`` names a scan's key (the guard's augmented spec under
+        guard) and ``metric_spec`` is what its program passes to
+        ``run_steps``. A shape-only dry run of a program (fake state) is
+        not watched."""
+        step = call_args[0]["step"]
+        if (_engine.tracecheck_mode() == "off" or step.is_meta
+                or (type(step) is not torch.Tensor and shape_only(step))):
+            return
+        if self._watcher is None:
+            # process-unique: two TrainSteps over same-named symbols
+            # register their own programs
+            self._watcher = _tc.make_watcher(
+                "TrainStep(%s)" % (self.symbol.name,))
+        got = self._programs.get((kind, cache_key))
+        if got is None:
+            key = _tc.dispatch_key(kind, cache_key, spec)
+            got = self._programs[(kind, cache_key)] = (
+                key, "%s/%s" % (self._watcher.name, key),
+                _tc.StepProgram(self, scan=kind.endswith("scan"),
+                                guard=guard, spec=metric_spec))
+        key, name, prog = got
+        if name not in _tc.PROGRAMS:
+            _tc.register_program(name, prog, call_args, donate_argnums=(0,))
+        try:
+            self._watcher.after_call(key, prog, _tc.signature(call_args),
+                                     health=self.health)
+        except _tc.RetraceError as e:
+            # the dispatch already updated the state: hand the caller the
+            # result through the exception
+            e.result = result
+            raise
+
     def step(self, state, batch, guard=False):
         """One training step. ``batch``: dict name -> array or tensor.
         Returns ``(state, outputs)``; the state's tensors are updated in
@@ -987,6 +1047,7 @@ class TrainStep(object):
             labels = [None if v is None else v.gather(self.device)
                       for v in labels]
         if not guard:
+            self._tc_after("step", bs, (state, batch), (state, outs))
             return state, outs
         ok, gnorm = sentinels
         zero = torch.zeros((), dtype=torch.float32, device=self.device)
@@ -995,6 +1056,8 @@ class TrainStep(object):
         packed = torch.stack([torch.where(ok, loss, zero),
                               torch.where(ok, correct, zero),
                               okf * float(bs), 1.0 - okf, gnorm.float()])
+        self._tc_after("guard-step", bs, (state, batch),
+                       (state, outs, packed), guard=True)
         return state, outs, packed
 
     def run_steps(self, state, superbatch, k=None, guard=False,
@@ -1085,7 +1148,15 @@ class TrainStep(object):
             acc = accs[0]
         if guard:
             acc = torch.cat([acc, torch.stack([skipped, gnorm.float()])])
-        return state, StepMetrics(acc, specs[0], guarded=guard)
+        metrics = StepMetrics(acc, specs[0], guarded=guard)
+        # the JAX package's cache key: (batch, k), with a metric spec its
+        # signature (the guard's augmented one under guard)
+        ckey = (bs, k) if metric_spec is None else (bs, k,
+                                                    specs[0].signature)
+        self._tc_after("guard-scan" if guard else "scan", ckey,
+                       (state, superbatch), (state, metrics), guard=guard,
+                       spec=specs[0], metric_spec=metric_spec)
+        return state, metrics
 
 
 def data_parallel_spec(mesh_shape, n_devices=None, devices=None):

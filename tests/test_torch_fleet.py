@@ -195,12 +195,14 @@ def test_batcher_take_queued_returns_without_failing():
 
 def test_single_card_engine_and_the_audits_that_raise():
     """The JAX single-chip engine reports no collectives; the port's engine
-    is on one card, and the audits that walk XLA programs raise;
-    ``memory_report`` is ported (a shape-only dry run): each bucket's
-    arguments are the weights plus a bucket of inputs."""
+    is on one card, and the audits that read the communication analyzer's
+    inventory raise (``comms_report``, ``check(comms=True)``,
+    ``FleetRouter.check``); ``memory_report`` is ported (a shape-only dry
+    run): each bucket's arguments are the weights plus a bucket of
+    inputs."""
     eng = _engine()
     assert eng.model_devices == 1
-    for call in (eng.comms_report, eng.check):
+    for call in (eng.comms_report, lambda: eng.check(comms=True)):
         with pytest.raises(MXNetError, match="not ported"):
             call()
     reps = eng.memory_report()

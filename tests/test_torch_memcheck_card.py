@@ -10,7 +10,12 @@
   ``torch.cuda.max_memory_allocated`` over one real step from a fresh
   state (B1 launched 33 times): within 25% (the band of
   ``chip_smoke.py`` phase 24); the dry run moves the allocator's peak by
-  nothing.
+  nothing;
+- an SSD bucket (``models/ssd.py`` ``get_symbol()`` defaults, 3x300x300,
+  bucket 8, float32 convolutions, whose cuDNN plans take gigabytes of
+  workspace): ``ServingEngine.memory_report()``, every convolution's
+  workspace priced as the engine's warm-up took it, against the
+  allocator's peak over one real forward plus the weights: within 25%.
 
 This file imports neither JAX nor the JAX package, so it runs on a GPU
 machine without them (``tests/conftest.py`` imports JAX; skip it):
@@ -23,6 +28,7 @@ of sum |x||w| and the statistics within 1e-5 of their magnitude sums
 """
 import os
 
+import numpy as np
 import pytest
 import torch
 
@@ -144,3 +150,43 @@ def test_small_resnet_static_peak_against_the_allocator():
     assert ms.LAUNCHES_BY_ROUTE["wgmma"] == 33
     assert abs(static.peak_bytes / measured - 1.0) <= 0.25, (
         static.format(), measured)
+
+
+def _ssd_engine(buckets):
+    """The full-width SSD (``get_symbol()`` defaults) with random weights,
+    served from a checkpoint dict on cuda:0."""
+    from mxnet_tpu_torch.models import ssd
+    from mxnet_tpu_torch.serving import ServingEngine
+    with mt.symbol.NameManager():
+        net = ssd.get_symbol()
+    shapes, _, _ = net.infer_shape(data=(1, 3, 300, 300))
+    rng = np.random.default_rng(0)
+    params = {}
+    for name, shape in zip(net.list_arguments(), shapes):
+        if name == "data":
+            continue
+        scale = (np.sqrt(2.0 / np.prod(shape[1:]))
+                 if name.endswith("_weight") else 0.1)
+        params["arg:" + name] = mt.nd.array(
+            (rng.standard_normal(shape) * scale).astype(np.float32),
+            ctx=mt.cpu())
+    return ServingEngine(net.tojson(), params, {"data": (3, 300, 300)},
+                         buckets=buckets)
+
+
+def test_ssd_bucket_static_peak_prices_the_conv_workspace():
+    _need_card()
+    _warm_fake_cuda()
+    eng = _ssd_engine((8,))
+    rep, moved = _unmoved(lambda: eng.memory_report()[8])
+    assert moved == 0 and rep.unpriced_workspaces == 0, rep.format()
+    assert any(b["opcode"] == "workspace" for b in rep.top_buffers)
+    x = np.random.default_rng(1).random((8, 3, 300, 300), dtype=np.float32)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    eng.infer({"data": x})
+    torch.cuda.synchronize()
+    measured = torch.cuda.max_memory_allocated() - base + eng.weight_bytes()
+    assert abs(rep.peak_bytes / measured - 1.0) <= 0.25, (rep.format(),
+                                                          measured)

@@ -1,11 +1,11 @@
-"""Three gaps of the port against the JAX package, each held here on the CPU.
+"""Gaps of the port against the JAX package, each held here on the CPU.
 
 - The metrics registry carries the ``training_health`` view (with
   ``data_health`` and ``pipeline_stats``): after the same poisoned guarded
   step in both packages, every ``training_health.*`` key of the port's
   ``REGISTRY.snapshot()`` is in the JAX package's with the same value
-  (exact; a NaN gradient norm equals a NaN). The JAX package's one more key,
-  ``retraces``, counts its retrace watch, which the port does not have.
+  (exact; a NaN gradient norm equals a NaN), and the two key sets are the
+  same (``retraces`` included, the count of the retrace watch).
 - The top-level names ``TrainingGuard``, ``TrainingHealth``,
   ``TrainingDivergedError``, ``FeedForward``, ``num_devices``, ``tpu``, the
   modules ``image``, ``recordio``, ``viz`` and ``test_utils``, and
@@ -13,6 +13,12 @@
   and ``base.string_types`` resolve in both packages, each to its own
   package's object of the same kind; ``mt.tpu(i)`` places on the card as
   ``mt.gpu(i)`` does.
+- The shared submodules' names (``ops.get``/``exists``/``list_ops``/
+  ``OpContext``/``OpDef``/``register``/``register_def``,
+  ``obs.trace.nest_check``, ``base.MXNET_TPU_MAJOR``/``MINOR``/``PATCH``
+  and ``base.NotImplementedForTPU``) resolve in both packages to the same
+  kind of object, and ``nest_check`` gives the JAX package's list on the
+  same events, an overlap violation among them (exact).
 - ``MXNET_ENGINE_TYPE=NaiveEngine`` and ``engine.set_engine_type``: naive
   mode in both packages, each imperative op passes its result through
   ``engine.maybe_sync``, and the values equal the JAX package's (exact:
@@ -87,7 +93,7 @@ def test_training_health_view_matches_reference():
         mt.guard.TRAINING_HEALTH.reset()
     got, want = snaps[mt], snaps[mx]
     assert got["skipped"] == 1 and got["steps"] == 1
-    assert set(got) == set(want) - {"retraces"}
+    assert set(got) == set(want)
     for k in got:
         assert _same(got[k], want[k]), (k, got[k], want[k])
     assert {"data_health", "pipeline_stats", "serving_health"} <= {
@@ -136,6 +142,65 @@ def test_top_level_names_resolve_in_both(name):
             assert str(pkg.tpu(1)) == "tpu(1)"
     if name == "base.string_types":
         assert mt.base.string_types() == mx.base.string_types()
+
+
+@pytest.mark.parametrize("name", [
+    "ops.get", "ops.exists", "ops.list_ops", "ops.OpContext", "ops.OpDef",
+    "ops.register", "ops.register_def", "obs.trace.nest_check",
+    "base.MXNET_TPU_MAJOR", "base.MXNET_TPU_MINOR", "base.MXNET_TPU_PATCH",
+    "base.NotImplementedForTPU"])
+def test_shared_submodule_names_resolve_in_both(name):
+    """The names of shared submodules the port lacked: each resolves in
+    both packages to the same kind of object (the version numbers to the
+    same value, the error to a subclass of each package's MXNetError)."""
+    objs = []
+    for pkg in (mx, mt):
+        obj = pkg
+        for part in name.split("."):
+            obj = getattr(obj, part)
+        objs.append(obj)
+        if callable(obj):
+            assert obj.__module__.startswith(pkg.__name__ + ".")
+    j, t = objs
+    if isinstance(j, int):
+        assert t == j
+    elif isinstance(j, type):
+        assert isinstance(t, type)
+        if name == "base.NotImplementedForTPU":
+            assert issubclass(t, mt.base.MXNetError)
+            assert issubclass(j, mx.base.MXNetError)
+    else:
+        assert type(t) is type(j)
+    if name == "ops.list_ops":
+        assert mt.ops.list_ops() == mx.ops.list_ops()
+    if name == "ops.exists":
+        assert mt.ops.exists("Convolution") and not mt.ops.exists("nope")
+        assert mt.ops.get("Convolution") is mt.ops.registry.get(
+            "Convolution")
+
+
+def test_nest_check_matches_jax_on_the_same_events():
+    """Span nesting per (pid, tid), one overlap violation among nested,
+    disjoint and instant events: the JAX package's list, exact."""
+    evs = [
+        {"ph": "X", "name": "step", "ts": 0, "dur": 100, "pid": 1,
+         "tid": 7},
+        {"ph": "X", "name": "fwd", "ts": 10, "dur": 30, "pid": 1, "tid": 7},
+        {"ph": "X", "name": "bwd", "ts": 40, "dur": 50, "pid": 1, "tid": 7},
+        {"ph": "X", "name": "leak", "ts": 80, "dur": 40, "pid": 1,
+         "tid": 7},
+        {"ph": "X", "name": "other", "ts": 85, "dur": 40, "pid": 1,
+         "tid": 8},
+        {"ph": "i", "name": "mark", "ts": 50, "pid": 1, "tid": 7},
+        {"ph": "X", "name": "after", "ts": 100, "dur": 5, "pid": 1,
+         "tid": 7},
+    ]
+    import copy
+    got = mt.obs.trace.nest_check(copy.deepcopy(evs))
+    want = mx.obs.trace.nest_check(copy.deepcopy(evs))
+    assert got == want
+    assert got == ["span 'leak' [80,120) overlaps 'bwd' [40,90) on tid 7"]
+    assert mt.obs.trace.nest_check(evs[:3]) == []
 
 
 def test_symbol_prefix_names_as_in_jax():

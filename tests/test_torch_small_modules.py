@@ -11,7 +11,8 @@
   ``rtol=1e-5, atol=1e-6`` where they compute; the checkers must pass on a
   right gradient and fail on a wrong one). ``check_consistency`` compares
   two CPU contexts here (the card test compares the CPU with ``cuda:0``).
-  ``assert_no_retrace`` raises ``MXNetError`` naming ROADMAP A.12.
+  ``assert_no_retrace`` passes a clean block and fails a block with a
+  retrace in both packages, with the same message text.
 - ``initialize``: the faulthandler dump is on after import, and
   ``MXNET_USE_SIGNAL_HANDLER=0`` leaves it off.
 - ``metric.Torch`` and ``metric.Caffe`` average the raw outputs under
@@ -25,6 +26,7 @@ import io
 
 import numpy as np
 import pytest
+import torch
 
 import mxnet_tpu as mx
 import mxnet_tpu_torch as mt
@@ -183,9 +185,41 @@ def test_check_consistency_over_two_contexts():
 
 
 def test_assert_no_retrace_names_its_roadmap_item():
-    with pytest.raises(mt.MXNetError, match="A.12"):
-        with ttu.assert_no_retrace():
-            pass
+    """Once a stub that raised naming ROADMAP A.12 (the name is kept): the
+    ported helper passes a clean block, and fails a block in which a
+    watcher recorded a retrace with the JAX package's message text,
+    character for character."""
+    import jax
+    import jax.numpy as jnp
+    from mxnet_tpu import test_utils as jtu, tracecheck as jtc
+    from mxnet_tpu_torch import tracecheck as ttc
+    x4 = np.ones((4,), np.float32)
+    x7 = np.ones((7,), np.float32)
+    msgs = {}
+    f = jax.jit(lambda x: x * 2.0)
+    for pkg, tu, tc, arr, fn in ((mx, jtu, jtc, jnp.asarray, f),
+                                 (mt, ttu, ttc, torch.from_numpy, None)):
+        w = tc.TraceWatcher("toy")
+        n0 = len(tc.RETRACE_EVENTS)
+
+        def dispatch(x):
+            x = arr(x)
+            if fn is not None:
+                fn(x)          # the JAX package watches its jit cache
+            w.after_call("k", fn, tc.signature((x,)))
+        try:
+            dispatch(x4)
+            with tu.assert_no_retrace():
+                dispatch(x4)
+            with pytest.raises(AssertionError) as ei:
+                with tu.assert_no_retrace(msg="toy"):
+                    dispatch(x7)
+            msgs[pkg] = str(ei.value)
+        finally:
+            del tc.RETRACE_EVENTS[n0:]
+            pkg.guard.TRAINING_HEALTH.reset()
+    assert msgs[mt] == msgs[mx]
+    assert "shape (4,) -> (7,)" in msgs[mt]
 
 
 def test_initialize_installs_the_crash_dump(monkeypatch):
