@@ -461,7 +461,7 @@ non-zero):
    MXTPU_AUTOTUNE_BUDGET=4K, every candidate pruned and the allocator's
    peak unmoved.
 25. tracecheck: the program registry, the retrace watch and the
-   analyzers' check methods on the card (last). (a) phase 24 (a)'s
+   analyzers' check methods on the card. (a) phase 24 (a)'s
    ResNet-50 TrainStep dispatches step and run_steps (K=2), guarded and
    unguarded (B1 on its wgmma route 33 times a step): its four registered
    programs audit with no unsuppressed finding (tracecheck.check_registered,
@@ -482,6 +482,26 @@ non-zero):
    mxnet_tpu_torch.tracecheck --zoo --json --device cuda:0 in a child
    process started with the phase and running beside (a)-(c): exit 0,
    its programs, findings and seconds.
+26. flopcheck: the roofline analyzer on the card (last). (a) phase 25
+   (a)'s ResNet-50 bf16 TrainStep at b=128: flopcheck.check_train_step
+   over its four programs (kernel count, predicted step ms and MFU, top
+   hotspot, findings, seconds), then 10 real steps on CUDA events after 3
+   warm-ups (B1 wgmma 33 times a step): the step program's B1 entries
+   are the 33 launches of B1_STEP_SHAPES, their summed predicted time
+   the 33 priced by ops/matmul_stats.bound_seconds within 1e-9 relative,
+   and the predicted step at most the measured one. (b) the SSD engine
+   at buckets 8 and 32: each bucket program of tracecheck's registry
+   priced by flopcheck.analyze (B2 one entry priced by
+   ops/multibox_nms.bound_seconds), its predicted forward beside the
+   bucket program's measured on CUDA events; at 32 the prediction at
+   most the measurement. (c) phase 17's LM bf16 training step:
+   autotune.hotspot_report(top=10), predicted against measured ms. (d)
+   the audit hook on the zoo's mlp: under set_flopcheck("warn") each of
+   four dispatch keys audited once (seconds logged), under "error" with
+   MXTPU_FLOPCHECK_TINY_COUNT=1 the first dispatch raises MXNetError,
+   under "off" no dry run runs. (e) python -m mxnet_tpu_torch.flopcheck
+   --zoo --json --hotspots 5 --device cuda:0 in a child beside (a)-(d):
+   exit 0, its programs, findings and seconds.
 
 The line before the ops line is the card's name and power limit; then
 {"ops": [...], "examples": {...}} (phase 20's figures); then
@@ -490,7 +510,8 @@ its main path (phase 16's LSTM path and phase 17's LM path launch none;
 B1's include phase 18's mesh dispatches, bf16 and f32, and phase 22's
 dist ranks, launches_dist; every kernel's include phase 23's through the
 C ABI, launches_capi; B1's bf16 and B2's include phase 24's real step and
-forwards, launches_memcheck, and phase 25's, launches_tracecheck),
+forwards, launches_memcheck, phase 25's, launches_tracecheck, and phase
+26's, launches_flopcheck),
 max error against the plain version, times and bound; the
 NMS kernel's launches also by path: serving, training, the serving tier,
 training from JPEG records and model-parallel serving (phase 21); the
@@ -519,11 +540,10 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 from mxnet_tpu_torch import devspec as _devspec  # noqa: E402
 
 #: H100 SXM peaks (NVIDIA data sheet, at the 700 W limit): HBM bytes/s,
-#: float32 operations/s outside the tensor cores, dense bf16 and TF32
-#: tensor-core operations/s
+#: float32 operations/s outside the tensor cores, dense TF32 tensor-core
+#: operations/s (B1's and B2's bounds: their modules' ``bound_seconds``)
 HBM_BYTES_PER_S = _devspec.DEVICE_SPECS["NVIDIA H100"].hbm_bytes_per_s
 FP32_OPS_PER_S = _devspec.PEAK_BY_DTYPE["NVIDIA H100"]["float32"]
-BF16_OPS_PER_S = _devspec.PEAK_BY_DTYPE["NVIDIA H100"]["bfloat16"]
 TF32_OPS_PER_S = _devspec.PEAK_BY_DTYPE["NVIDIA H100"]["tf32"]
 
 #: the training configuration bench.py main() runs (ResNet-50, NHWC)
@@ -549,11 +569,6 @@ B1_WGMMA_EDGE_SHAPES = [(m, k, n) for m in (1, 17, 1000, 100003)
 #: N-tile and more than one N-tile (N)
 B1_F32_TMA_EDGE_SHAPES = [(m, k, n) for m in (1, 17, 1000, 100003)
                           for k in (4, 36) for n in (4, 132, 260)]
-#: B1's arithmetic -> (products of 2MNK it issues, the peak that bounds
-#: them): bf16 wgmma/wmma, FP32 SIMT (the f32 route), 3xTF32 (tf32x3)
-B1_ARITH = {"bf16": (1, BF16_OPS_PER_S), "f32": (1, FP32_OPS_PER_S),
-            "tf32x3": (3, TF32_OPS_PER_S)}
-
 SSD_INPUT = (3, 300, 300)
 BUCKETS = (1, 8, 32)
 REQUESTS = (1, 5, 8, 32, 40)
@@ -611,14 +626,13 @@ def nms_inputs(rng, b, k, dup=0, zeros=0, ncls=3):
 
 
 def nms_bound_ms(b, k):
-    """Least time for the mask: each input read once, the output written
-    once, and ~15 FP32 operations for each of the k(k-1)/2 pairs."""
-    nbytes = b * k * (16 + 4 + 4) + b * k * 4
-    ops = 15 * b * k * (k - 1) / 2
-    t_bytes = nbytes / HBM_BYTES_PER_S
-    t_ops = ops / FP32_OPS_PER_S
-    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes > t_ops
-                                       else "operations")
+    """Least time for the mask, in ms, and what bounds it: each input read
+    once, the output written once, and ~15 FP32 operations for each of the
+    k(k-1)/2 pairs (``ops/multibox_nms.bound_seconds``, the formula
+    flopcheck prices a launch by)."""
+    from mxnet_tpu_torch.ops import multibox_nms
+    t, by = multibox_nms.bound_seconds(b, k)
+    return 1e3 * t, by
 
 
 def profiled_kernels(fn, reps):
@@ -833,18 +847,15 @@ def deterministic_cudnn():
 
 
 def b1_bound_ms(m, k, n, arith):
-    """Least time for one launch: x, w read once, y and the (2, N) f32
-    statistics written once; the operations of ``arith`` (B1_ARITH) at
-    their peak: 2MNK at the bf16 tensor-core peak (bf16), at the FP32 peak
-    (f32), 3 x 2MNK at the TF32 peak (tf32x3)."""
-    itemsize = 2 if arith == "bf16" else 4
-    passes, peak = B1_ARITH[arith]
-    nbytes = (m * k + n * k + m * n) * itemsize + 2 * n * 4
-    ops = passes * 2.0 * m * n * k
-    t_bytes = nbytes / HBM_BYTES_PER_S
-    t_ops = ops / peak
-    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes > t_ops
-                                       else "operations")
+    """Least time for one launch, in ms, and what bounds it: x, w read
+    once, y and the (2, N) f32 statistics written once; the operations of
+    ``arith`` (``ops/matmul_stats.ARITH``) at their peak: 2MNK at the bf16
+    tensor-core peak (bf16), at the FP32 peak (f32), 3 x 2MNK at the TF32
+    peak (tf32x3). ``ops/matmul_stats.bound_seconds``, the formula
+    flopcheck prices a launch by."""
+    from mxnet_tpu_torch.ops import matmul_stats
+    t, by = matmul_stats.bound_seconds(m, k, n, arith)
+    return 1e3 * t, by
 
 
 def b1_check(ms, x, w, route=None):
@@ -8604,6 +8615,333 @@ def tracecheck_phase(seed, card):
     return {"B1": b1, "B2": b2}
 
 
+# ---------------------------------------------------------------------------
+# phase 26: flopcheck, the roofline analyzer
+# ---------------------------------------------------------------------------
+
+#: (a) real steps timed on CUDA events, after FLOPCHECK_WARMUP
+FLOPCHECK_STEPS = 10
+FLOPCHECK_WARMUP = 3
+#: (a) B1's summed predicted time against its 33 launches priced by the
+#: shared formula, relative
+FLOPCHECK_REL = 1e-9
+#: (b) the SSD engine's buckets, and the bucket program's timed calls
+FLOPCHECK_BUCKETS = (8, 32)
+FLOPCHECK_FORWARDS = 10
+#: (e) the zoo CLI's time limit, seconds
+FLOPCHECK_CLI_TIMEOUT = 600
+
+
+def _b1_shapes(rep):
+    """``{(M, K, N): launches}`` of a report's B1 entries."""
+    got = {}
+    for k in rep.kernels:
+        if k.opcode == "matmul_stats":
+            ((m, kk), _), ((n, _), _) = k.inputs
+            got[(m, kk, n)] = got.get((m, kk, n), 0) + k.multiplier
+    return got
+
+
+def flopcheck_resnet(seed, card, problems):
+    """(a): the ResNet-50 bf16 step's four programs priced, then real
+    steps timed. Returns B1's launches."""
+    import torch
+    from mxnet_tpu_torch import flopcheck as fc
+    from mxnet_tpu_torch.ops import matmul_stats as ms
+    ts, state, batch = _resnet_step(seed)
+    bsz, img = RESNET_BATCH, RESNET_IMAGE
+    name = "resnet50-nhwc-bf16-b%d" % bsz
+    t0 = time.perf_counter()
+    findings, reports = fc.check_train_step(
+        ts, {"data": (bsz, img, img, 3)}, {"softmax_label": (bsz,)}, k=2,
+        guard=True, name=name)
+    dt = time.perf_counter() - t0
+    for pname, rep in sorted(reports.items()):
+        log("flopcheck (a) %s: %d kernels a dispatch, predicted %.4f ms, "
+            "MFU %.4f, top hotspot %s [%s]"
+            % (pname, rep.kernel_count, rep.predicted_step_ms,
+               rep.predicted_mfu, rep.top_hotspot, card))
+        for line in rep.breakdown(top=3):
+            log("flopcheck (a)   " + line)
+    log("flopcheck (a) check_train_step: %d programs in %.2f s, %d findings "
+        "(%d unsuppressed) [%s]" % (len(reports), dt, len(findings),
+                                    len(fc.unsuppressed(findings)), card))
+    for f in findings:
+        log("flopcheck (a)   " + f.format().split("\n")[0])
+    rep = reports[name + "/step"]
+    b1 = [k for k in rep.kernels if k.opcode == "matmul_stats"]
+    got = sum(k.total_seconds for k in b1)
+    want = sum(count * ms.bound_seconds(m, k, n, "bf16")[0]
+               for (m, k, n), count in B1_STEP_SHAPES.items())
+    log("flopcheck (a) the step's B1: %d entries, multiplier %d, predicted "
+        "%.6f ms against %.6f ms for its %d launches priced by "
+        "ops/matmul_stats.bound_seconds (relative %.3g) [%s]"
+        % (len(b1), sum(k.multiplier for k in b1), 1e3 * got, 1e3 * want,
+           sum(B1_STEP_SHAPES.values()), abs(got - want) / want, card))
+    if _b1_shapes(rep) != B1_STEP_SHAPES \
+            or abs(got - want) > FLOPCHECK_REL * want:
+        problems.append("flopcheck (a): B1 entries %s, predicted %.9g s "
+                        "against %.9g" % (_b1_shapes(rep), got, want))
+    ms.reset_launches()
+    measured = cuda_time_ms(lambda: ts.step(state, batch), FLOPCHECK_STEPS,
+                            warmup=FLOPCHECK_WARMUP)
+    launches = ms.LAUNCHES
+    pred = rep.predicted_step_ms
+    log("flopcheck (a) %s: predicted %.4f ms, measured %.4f ms a step (%d "
+        "steps on CUDA events after %d warm-ups): predicted/measured %.4f; "
+        "predicted MFU %.4f, measured %.4f; B1 %d launches by route %s "
+        "[%s]" % (name, pred, measured, FLOPCHECK_STEPS, FLOPCHECK_WARMUP,
+                  pred / measured, rep.predicted_mfu,
+                  rep.flops_per_dispatch / (1e-3 * measured
+                                            * rep.peak_flops_per_s),
+                  launches, dict(ms.LAUNCHES_BY_ROUTE), card))
+    steps = FLOPCHECK_STEPS + FLOPCHECK_WARMUP
+    if pred > measured:
+        problems.append("flopcheck (a): predicted %.4f ms above the "
+                        "measured %.4f" % (pred, measured))
+    if launches != steps * sum(B1_STEP_SHAPES.values()):
+        problems.append("flopcheck (a): B1 launched %d times in %d steps"
+                        % (launches, steps))
+    return launches
+
+
+def flopcheck_serving(seed, card, problems):
+    """(b): the SSD engine's bucket programs priced from tracecheck's
+    registry beside each one's measured forward. Returns B2's launches
+    (the engine's warm-up and the timed forwards)."""
+    import torch
+    from mxnet_tpu_torch import flopcheck as fc, tracecheck as tc
+    from mxnet_tpu_torch.ops import multibox_nms as mnms
+    from mxnet_tpu_torch.serving import ServingEngine
+    n0 = mnms.LAUNCHES
+    with tempfile.TemporaryDirectory() as tmp:
+        prefix = os.path.join(tmp, "ssd")
+        ssd_checkpoint(prefix, seed)
+        eng = ServingEngine(prefix + "-symbol.json", prefix + "-0000.params",
+                            {"data": SSD_INPUT}, buckets=FLOPCHECK_BUCKETS)
+    recs = {r.name: r for r in tc.registered_programs()
+            if r.name.startswith(eng.name + "/bucket[")}
+    params, aux = eng._state
+    gen = torch.Generator(device=eng.device)
+    gen.manual_seed(seed + 26)
+    for b in FLOPCHECK_BUCKETS:
+        rec = recs["%s/bucket[b=%d]" % (eng.name, b)]
+        t0 = time.perf_counter()
+        rep = fc.analyze(rec.fn_ref(), rec.arg_structs, name=rec.name)
+        dt = time.perf_counter() - t0
+        b2 = [k for k in rep.kernels if k.opcode == "multibox_nms"]
+        x = torch.rand((b,) + SSD_INPUT, generator=gen, device=eng.device)
+        measured = cuda_time_ms(
+            lambda: eng._device_forward(params, aux, {"data": x}),
+            FLOPCHECK_FORWARDS)
+        pred = rep.predicted_step_ms
+        log("flopcheck (b) %s: %d kernels, predicted %.4f ms, measured "
+            "%.4f ms a forward (CUDA events): predicted/measured %.4f, "
+            "MFU %.4f, top hotspot %s; priced in %.2f s [%s]"
+            % (rec.name, rep.kernel_count, pred, measured, pred / measured,
+               rep.predicted_mfu, rep.top_hotspot, dt, card))
+        for line in rep.breakdown(top=3):
+            log("flopcheck (b)   " + line)
+        if len(b2) != 1 or b2[0].multiplier != 1:
+            problems.append("flopcheck (b) bucket %d: B2 entries %s"
+                            % (b, b2))
+            continue
+        (bb, k), _ = b2[0].inputs[1]
+        want = mnms.bound_seconds(bb, k)[0]
+        log("flopcheck (b) bucket %d: B2 at B=%d, k=%d priced %.6f ms, "
+            "ops/multibox_nms.bound_seconds %.6f ms [%s]"
+            % (b, bb, k, 1e3 * b2[0].seconds, 1e3 * want, card))
+        if abs(b2[0].seconds - want) > FLOPCHECK_REL * want:
+            problems.append("flopcheck (b) bucket %d: B2 priced %.9g s, "
+                            "its formula %.9g" % (b, b2[0].seconds, want))
+        if b == FLOPCHECK_BUCKETS[-1] and pred > measured:
+            problems.append("flopcheck (b) bucket %d: predicted %.4f ms "
+                            "above the measured %.4f" % (b, pred, measured))
+    launches = mnms.LAUNCHES - n0
+    del eng, params, aux
+    return launches
+
+
+def flopcheck_lm(seed, card, problems):
+    """(c): phase 17's LM bf16 training step: its hot spots, and its
+    predicted against its measured time."""
+    import torch
+    from mxnet_tpu_torch import autotune, flopcheck as fc
+    from mxnet_tpu_torch.tracecheck import train_step_programs
+    from mxnet_tpu_torch.train_step import TrainStep
+    dev = torch.device(_lm_dev())
+    step = TrainStep(lm_symbol(), optimizer="sgd", compute_dtype=LM_DTYPE,
+                     device=dev, **LM_OPT)
+    shapes = ({"data": (LM_BATCH, LM_SEQ)},
+              {"softmax_label": (LM_BATCH, LM_SEQ)})
+    (pname, fn, args), = train_step_programs(step, *shapes, k=1,
+                                             guard=False, name="lm")[:1]
+    hot = autotune.hotspot_report(fn, args, name=pname, top=10)
+    rep = fc.analyze(fn, args, name=pname)
+    state = step.init(*shapes, seed=seed)
+    for n, v in lm_params(seed).items():
+        state["params"][n].copy_(torch.from_numpy(v))
+    x, y = lm_tokens(seed, LM_BATCH)
+    batch = {"data": torch.from_numpy(x).to(dev),
+             "softmax_label": torch.from_numpy(y).to(dev)}
+    measured = cuda_time_ms(lambda: step.step(state, batch), 10)
+    log("flopcheck (c) %s (%s, b=%d, seq %d, %dx%d): %d kernels, predicted "
+        "%.4f ms, measured %.4f ms a step (CUDA events): predicted/"
+        "measured %.4f, MFU %.4f [%s]"
+        % (pname, LM_DTYPE, LM_BATCH, LM_SEQ, LM_LAYERS, LM_EMBED,
+           rep.kernel_count, rep.predicted_step_ms, measured,
+           rep.predicted_step_ms / measured, rep.predicted_mfu, card))
+    log("flopcheck (c) autotune.hotspot_report(top=10), memory-bound:")
+    for e in hot:
+        log("flopcheck (c)   %5.1f%% %8.2f us x%d %s %s @ %s"
+            % (100 * e["step_time_frac"], e["predicted_us"],
+               e["multiplier"], e["opcode"], e["op_path"],
+               e["provenance"]))
+    if not hot:
+        problems.append("flopcheck (c): the LM step has no hot spot")
+
+
+def flopcheck_hook(seed, card, problems):
+    """(d): the audit hook on fresh zoo mlp TrainSteps under warn, error
+    (MXTPU_FLOPCHECK_TINY_COUNT=1) and off."""
+    import torch
+    from mxnet_tpu_torch import engine, flopcheck as fc
+    from mxnet_tpu_torch.base import MXNetError
+    from mxnet_tpu_torch.tracecheck import zoo_train_step
+    calls, runs = [], []
+    audit, check = fc.maybe_audit_dispatch, fc.check_program
+
+    def timed_audit(name, *a, **kw):
+        t = time.perf_counter()
+        rep = audit(name, *a, **kw)
+        calls.append((name, time.perf_counter() - t, rep is not None))
+        return rep
+
+    def counted_check(*a, **kw):
+        runs.append(kw.get("name"))
+        return check(*a, **kw)
+
+    def mlp():
+        ts, data, label = zoo_train_step("mlp", device="cuda:0")
+        state = ts.init(data, label, seed=seed)
+        gen = torch.Generator(device=ts.device)
+        gen.manual_seed(seed + 26)
+        batch = {"data": torch.randn(data["data"], generator=gen,
+                                     device=ts.device),
+                 "softmax_label": torch.randint(
+                     0, 4, label["softmax_label"], generator=gen,
+                     device=ts.device).float()}
+        return ts, state, batch, {k: torch.stack([v, v])
+                                  for k, v in batch.items()}
+
+    def dispatch_all(ts, state, batch, sb):
+        ts.step(state, batch)
+        ts.step(state, batch, guard=True)
+        ts.run_steps(state, sb)[1].fetch()
+        ts.run_steps(state, sb, guard=True)[1].fetch()
+
+    fc.maybe_audit_dispatch, fc.check_program = timed_audit, counted_check
+    try:
+        engine.set_flopcheck("warn")
+        args = mlp()
+        dispatch_all(*args)
+        dispatch_all(*args)
+        audited = [(n, dt) for n, dt, ran in calls if ran]
+        log("flopcheck (d) warn: 8 dispatches over four keys, %d audits: "
+            "%s [%s]" % (len(audited), ", ".join("%s %.3f s" % a
+                                                 for a in audited), card))
+        if len(audited) != 4 or len({n for n, _ in audited}) != 4:
+            problems.append("flopcheck (d): warn audited %s" % audited)
+        os.environ["MXTPU_FLOPCHECK_TINY_COUNT"] = "1"
+        engine.set_flopcheck("error")
+        ts, state, batch, _ = mlp()
+        try:
+            ts.step(state, batch)
+            problems.append("flopcheck (d): the first dispatch under error "
+                            "did not raise")
+        except MXNetError as e:
+            log("flopcheck (d) error: the first dispatch raised %s [%s]"
+                % (str(e).split("\n")[0], card))
+        engine.set_flopcheck("off")
+        del runs[:]
+        dispatch_all(*mlp())
+        log("flopcheck (d) off: %d dry runs over four dispatch keys [%s]"
+            % (len(runs), card))
+        if runs:
+            problems.append("flopcheck (d): off ran %d dry runs" % len(runs))
+    finally:
+        fc.maybe_audit_dispatch, fc.check_program = audit, check
+        engine.set_flopcheck(None)
+        os.environ.pop("MXTPU_FLOPCHECK_TINY_COUNT", None)
+
+
+def flopcheck_cli_start():
+    """(e): start the zoo CLI on the card in a child process, which runs
+    beside (a)-(d); returns it and its start time."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=root)
+    return subprocess.Popen(
+        [sys.executable, "-m", "mxnet_tpu_torch.flopcheck", "--zoo",
+         "--json", "--hotspots", "5", "--device", "cuda:0"], cwd=root,
+        env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True), time.perf_counter()
+
+
+def flopcheck_cli(started, card, problems):
+    """(e): the zoo CLI's exit, programs, findings and seconds."""
+    proc, t0 = started
+    try:
+        out, err = proc.communicate(timeout=FLOPCHECK_CLI_TIMEOUT)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        out, err = proc.communicate()
+    dt = time.perf_counter() - t0
+    try:
+        data = json.loads(out)
+    except ValueError:
+        data = None
+    if proc.returncode or data is None:
+        problems.append("flopcheck (e): the zoo CLI exited %s\n%s%s"
+                        % (proc.returncode, out[-2000:], err[-3000:]))
+        return
+    progs = data["programs"]
+    log("flopcheck (e) python -m mxnet_tpu_torch.flopcheck --zoo --json "
+        "--hotspots 5 --device cuda:0: exit %d, %d programs, %d findings "
+        "(%d suppressed), dry runs %.1f s, %.1f s in all [%s]"
+        % (proc.returncode, len(progs), len(data["findings"]),
+           data["suppressed"], data["dry_run_seconds"], dt, card))
+    for f in data["findings"]:
+        log("flopcheck (e)   [%s] %s%s: %s (%s)"
+            % (f["lint"], f["program"],
+               " [suppressed]" if f["suppressed"] else "",
+               f["message"].split("\n")[0][:160], f["provenance"]))
+    for pname in sorted(progs):
+        if pname.endswith("/step"):
+            r = progs[pname]
+            log("flopcheck (e)   %s: %d kernels, predicted %.4f ms, MFU "
+                "%s, top %s" % (pname, r["kernel_count"],
+                                r["predicted_step_ms"], r["predicted_mfu"],
+                                r["top_hotspot"]))
+
+
+def flopcheck_phase(seed, card):
+    """Phase 26 (last): flopcheck, the roofline analyzer, on the card.
+    Returns ``{"B1": n, "B2": n}``, the kernels' launches in the phase."""
+    t_phase = time.perf_counter()
+    problems = []
+    cli = flopcheck_cli_start()
+    b1 = flopcheck_resnet(seed, card, problems)
+    b2 = flopcheck_serving(seed, card, problems)
+    flopcheck_lm(seed, card, problems)
+    flopcheck_hook(seed, card, problems)
+    flopcheck_cli(cli, card, problems)
+    log("flopcheck phase: B1 %d launches, B2 %d; %.1f s [%s]"
+        % (b1, b2, time.perf_counter() - t_phase, card))
+    if problems:
+        raise SystemExit("\n".join(problems))
+    return {"B1": b1, "B2": b2}
+
+
 def _nodes(sym):
     from mxnet_tpu_torch.symbol import _topo
     return _topo(sym._out_nodes())
@@ -8657,54 +8995,69 @@ def main():
         for line in text.splitlines():
             log("  nvcc %s: %s" % (name, line))
 
+    seconds = {}
+
+    def timed(fn, *a):
+        """``fn(*a)``, its seconds kept under its name."""
+        t = time.perf_counter()
+        out = fn(*a)
+        seconds[fn.__name__] = round(time.perf_counter() - t, 1)
+        return out
+
     rng = np.random.default_rng(args.seed)
-    nms = kernel_phase(rng, max(20, 10 * args.reps), card)
-    b1 = b1_phase(args.seed, args.reps, card)
-    serve_launches = serve_phase(args.seed, args.reps, card)
-    b1["launches"], step_profiles = train_phase(args.seed, card)
-    ssd_profile = ssd_train_profile(args.seed, card)
-    lm_prof = lm_profile(args.seed, card)
-    rtc_err, rtc_host = rtc_phase(args.seed, args.reps, card)
-    launches, upd_err, upd, event, bound = bind_phase(args.seed, 3, card)
+    nms = timed(kernel_phase, rng, max(20, 10 * args.reps), card)
+    b1 = timed(b1_phase, args.seed, args.reps, card)
+    serve_launches = timed(serve_phase, args.seed, args.reps, card)
+    b1["launches"], step_profiles = timed(train_phase, args.seed, card)
+    ssd_profile = timed(ssd_train_profile, args.seed, card)
+    lm_prof = timed(lm_profile, args.seed, card)
+    rtc_err, rtc_host = timed(rtc_phase, args.seed, args.reps, card)
+    launches, upd_err, upd, event, bound = timed(bind_phase, args.seed, 3,
+                                                 card)
     upd_source = "cuda_events" if upd is event else "profiler"
-    imperative_phase(args.seed, card)
-    b1_f32 = module_phase(args.seed, card)
-    resnet_serve_phase(args.seed, args.reps, card)
+    timed(imperative_phase, args.seed, card)
+    b1_f32 = timed(module_phase, args.seed, card)
+    timed(resnet_serve_phase, args.seed, args.reps, card)
     with tempfile.TemporaryDirectory() as tmp:
-        ssd_train = ssd_train_phase(args.seed, card, ssd_profile,
-                                    os.path.join(tmp, "ssd_fit"))
-        tier_launches = serving_tier_phase(args.seed, card,
-                                           ssd_train["checkpoint"])
-    api_launches = training_api_phase(args.seed, card, step_profiles)
-    data = data_phase(args.seed, card)
-    rnn_phase(args.seed, card)
-    lm_trained = lm_phase(args.seed, card, lm_prof)
-    mesh_launches = mesh_phase(args.seed, card)
-    axes_phase(args.seed, card)
-    mp_launches = mp_phase(args.seed, card, lm_trained)
-    op_rows, examples = slice_phase(args.seed, args.reps, card)
-    dist_launches = dist_phase(args.seed, card)
-    capi_run = capi_phase(args.seed, card)
+        ssd_train = timed(ssd_train_phase, args.seed, card, ssd_profile,
+                          os.path.join(tmp, "ssd_fit"))
+        tier_launches = timed(serving_tier_phase, args.seed, card,
+                              ssd_train["checkpoint"])
+    api_launches = timed(training_api_phase, args.seed, card, step_profiles)
+    data = timed(data_phase, args.seed, card)
+    timed(rnn_phase, args.seed, card)
+    lm_trained = timed(lm_phase, args.seed, card, lm_prof)
+    mesh_launches = timed(mesh_phase, args.seed, card)
+    timed(axes_phase, args.seed, card)
+    mp_launches = timed(mp_phase, args.seed, card, lm_trained)
+    op_rows, examples = timed(slice_phase, args.seed, args.reps, card)
+    dist_launches = timed(dist_phase, args.seed, card)
+    capi_run = timed(capi_phase, args.seed, card)
     capi = capi_run["launches"]
-    mem = memcheck_phase(args.seed, card)
-    tc25 = tracecheck_phase(args.seed, card)
+    mem = timed(memcheck_phase, args.seed, card)
+    tc25 = timed(tracecheck_phase, args.seed, card)
+    fc26 = timed(flopcheck_phase, args.seed, card)
+    log("seconds by phase (%.1f s in all from the build) %s [%s]"
+        % (time.perf_counter() - t0, json.dumps(seconds), card))
     # B1 runs on three main paths: the train phase, the training API and
     # the bf16 mesh; its float32 route on the module phase and the f32 mesh
     b1.update(launches=(b1["launches"] + api_launches + mesh_launches["wgmma"]
-                        + dist_launches + mem["B1"] + tc25["B1"]),
+                        + dist_launches + mem["B1"] + tc25["B1"]
+                        + fc26["B1"]),
               launches_train=b1["launches"],
               launches_training_api=api_launches,
               launches_mesh=mesh_launches["wgmma"],
               launches_dist=dist_launches,
               launches_memcheck=mem["B1"],
-              launches_tracecheck=tc25["B1"])
+              launches_tracecheck=tc25["B1"],
+              launches_flopcheck=fc26["B1"])
     b1["launches_capi"] = 0
     b1_f32.update(launches=(b1_f32["launches"] + mesh_launches["tf32x3"]
                             + capi["B1"]),
                   launches_module=b1_f32["launches"],
                   launches_mesh=mesh_launches["tf32x3"],
                   launches_capi=capi["B1"], launches_memcheck=0,
-                  launches_tracecheck=0,
+                  launches_tracecheck=0, launches_flopcheck=0,
                   max_abs_err=max(b1_f32["max_abs_err"],
                                   capi_run["b1_err"]))
     # B2 runs on six main paths: serving (phase 5), training (phase 12),
@@ -8713,10 +9066,12 @@ def main():
     # float32 route and B3's Rtc run through the C ABI too
     nms.update(launches=(serve_launches + ssd_train["launches"]
                          + tier_launches + data["launches"] + mp_launches
-                         + capi["B2"] + mem["B2"] + tc25["B2"]),
+                         + capi["B2"] + mem["B2"] + tc25["B2"]
+                         + fc26["B2"]),
                launches_capi=capi["B2"],
                launches_memcheck=mem["B2"],
                launches_tracecheck=tc25["B2"],
+               launches_flopcheck=fc26["B2"],
                max_abs_err=max(nms["max_abs_err"], capi_run["b2_err"]),
                launches_serve=serve_launches,
                launches_train=ssd_train["launches"],
@@ -8736,6 +9091,7 @@ def main():
                        capi["B3"] if route == "cuda" else 0),
                    "launches_capi": capi["B3"] if route == "cuda" else 0,
                    "launches_memcheck": 0, "launches_tracecheck": 0,
+                   "launches_flopcheck": 0,
                    "max_abs_err": max(rtc_err[route], upd_err[route],
                                       capi_run["b3_err"] if route == "cuda"
                                       else 0.0),

@@ -27,8 +27,9 @@ applies and the built-in defaults do until a sweep there writes one.
 --write-db`` runs a sweep and persists the winner (``--device cpu`` on a
 host without a card). :mod:`.harness` holds the trial harnesses and the
 open-loop client (``open_loop_run``) the serving benchmarks drive the
-batcher with. Not ported: :func:`hotspot_report`, the roofline of the JAX
-package's ``flopcheck`` (ROADMAP.md A.12d-2); it raises.
+batcher with. :func:`hotspot_report` is the roofline's ranked hot spots
+of one program, from :mod:`mxnet_tpu_torch.flopcheck`: where a hand
+kernel starts once the knob search stops.
 """
 from __future__ import annotations
 
@@ -57,12 +58,16 @@ SERVE_OBJECTIVES = ("serve_p99", "serve_p50")
 DECODE_OBJECTIVES = ("decode_tokens_per_sec",)
 
 
-def hotspot_report(*args, **kwargs):
-    """The roofline hotspot list of one XLA program (the JAX package's
-    ``flopcheck``); not ported (raises)."""
-    raise MXNetError("autotune.hotspot_report reads the roofline of "
-                     "flopcheck, which walks XLA programs and is not ported "
-                     "yet (ROADMAP.md A.12d-2)")
+def hotspot_report(fn, args=(), kwargs=None, name=None, device=None,
+                   loop_trips=1, top=10, memory_only=True):
+    """The hand-kernel shopping list of ONE program: the roofline's ranked
+    hot spots (dicts, each with its ``step_time_frac``), from one
+    shape-only dry run. Delegates to
+    :func:`mxnet_tpu_torch.flopcheck.hotspot_report`."""
+    from .. import flopcheck
+    return flopcheck.hotspot_report(
+        fn, args, kwargs=kwargs, name=name, device=device,
+        loop_trips=loop_trips, top=top, memory_only=memory_only)
 
 
 def enabled():

@@ -159,6 +159,21 @@ def shape_only(t):
     return is_fake(t)
 
 
+def note_kernel(name, flops, nbytes, compute, passes=1, inputs=()):
+    """Called by a hand-written kernel's shape-only route in place of a
+    launch: every dispatch mode running that has a ``hand_kernel`` method
+    (``memcheck``'s dry run, recording the kernels ``flopcheck`` prices)
+    gets the launch it stands for: ``flops`` operations issued ``passes``
+    times at the peak of ``compute`` (a ``devspec.PEAK_BY_DTYPE`` key) and
+    ``nbytes`` moved, with the shapes and dtypes of its ``inputs``, from the
+    kernel module's own cost formula."""
+    from torch.utils._python_dispatch import _get_current_dispatch_mode_stack
+    for mode in _get_current_dispatch_mode_stack():
+        hook = getattr(mode, "hand_kernel", None)
+        if hook is not None:
+            hook(name, flops, nbytes, compute, passes, inputs)
+
+
 def torch_dtype(dtype):
     """A dtype given as a ``torch.dtype``, a name, a numpy dtype or a
     numpy type -> the ``torch.dtype`` (``bfloat16`` by name, or as the

@@ -33,8 +33,8 @@ from collections import namedtuple
 
 __all__ = [
     "DeviceSpec", "DEVICE_SPECS", "DEFAULT_SPEC", "PEAK_BY_DTYPE",
-    "device_kind", "lookup", "peak_flops", "hbm_bandwidth",
-    "link_bandwidth", "ridge_intensity", "peak_source",
+    "device_kind", "lookup", "kind_spec", "compute_peak", "peak_flops",
+    "hbm_bandwidth", "link_bandwidth", "ridge_intensity", "peak_source",
 ]
 
 #: one device kind's capability row (all rates are per card):
@@ -50,9 +50,9 @@ DEVICE_SPECS = {
     "NVIDIA H100": DeviceSpec(989e12, 3.35e12, 450e9),
 }
 
-#: peak operations/s by compute type (the kernels' bounds in
-#: ``chip_smoke.py``): dense bf16 and TF32 on the tensor cores, FP32 on
-#: the CUDA cores
+#: peak operations/s by compute type (:func:`compute_peak`: the kernels'
+#: bounds and ``flopcheck``'s per-kernel time): dense bf16 and TF32 on the
+#: tensor cores, FP32 on the CUDA cores
 PEAK_BY_DTYPE = {
     "NVIDIA H100": {"bfloat16": 989e12, "tf32": 495e12, "float32": 67e12},
 }
@@ -66,29 +66,48 @@ DEFAULT_SPEC = DeviceSpec(5.0e10, 5.0e9, 1.0e10)
 def device_kind(device=None):
     """The device-kind string of a ``torch.device``, Context or string:
     ``torch.cuda.get_device_name`` for a CUDA device, ``"cpu"`` for the
-    CPU, else the device type. ``device=None`` asks about the backend's
-    first device: ``cuda:0`` where CUDA is available, else the CPU."""
+    CPU, else the device type. ``device=None`` is ``cuda:0``
+    (``context.resolve_device``: without CUDA it raises; the CPU's row is
+    read only where a caller asks for it)."""
     import torch
-    from .context import Context
+    from .context import Context, resolve_device
     if isinstance(device, Context):
         device = device.to_device()
-    if device is None:
-        device = "cuda:0" if torch.cuda.is_available() else "cpu"
-    dev = torch.device(device)
+    dev = (resolve_device(None, "devspec") if device is None
+           else torch.device(device))
     if dev.type == "cuda":
         return torch.cuda.get_device_name(dev.index or 0)
     return dev.type
 
 
-def lookup(device=None):
-    """``(DeviceSpec, peak_source)`` for a device: the data-sheet row
-    matched by device-kind prefix (``"spec"``), or the nominal fallback
+def kind_spec(kind):
+    """``(DeviceSpec, peak_source)`` of a device-kind string: the
+    data-sheet row matched by prefix (``"spec"``), or the nominal fallback
     (``"nominal-fallback"``)."""
-    kind = device_kind(device)
     for k, spec in DEVICE_SPECS.items():
         if kind.startswith(k):
             return spec, "spec"
     return DEFAULT_SPEC, "nominal-fallback"
+
+
+def lookup(device=None):
+    """``(DeviceSpec, peak_source)`` for a device (:func:`kind_spec` of its
+    :func:`device_kind`)."""
+    return kind_spec(device_kind(device))
+
+
+def compute_peak(kind, compute):
+    """Peak operations/s of a compute type (``"bfloat16"``, ``"float16"``,
+    ``"tf32"``, ``"float32"``) on a device kind, from
+    :data:`PEAK_BY_DTYPE` (float16 at the bf16 tensor-core rate); a kind
+    without a row there, or a type its row lacks, takes the kind's
+    :func:`kind_spec` peak."""
+    for k, row in PEAK_BY_DTYPE.items():
+        if kind.startswith(k):
+            rate = row.get("bfloat16" if compute == "float16" else compute)
+            if rate is not None:
+                return rate
+    return kind_spec(kind)[0].peak_flops_per_s
 
 
 def peak_flops(device=None):

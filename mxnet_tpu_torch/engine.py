@@ -22,9 +22,11 @@ without a context. ``tracecheck_mode``/``set_tracecheck`` (env
 ``MXTPU_TRACECHECK``, default ``"warn"``) set what ``TrainStep``'s retrace
 watch does with a dispatch whose argument signature changed under an
 already-seen key; ``memcheck_mode``/``set_memcheck`` (env
-``MXTPU_MEMCHECK``) arm the serving tier's load-time memory audit. The
-JAX package's ``set_commscheck`` and ``set_flopcheck`` wait for
-ROADMAP.md A.12d-3 and A.12d-2.
+``MXTPU_MEMCHECK``) arm the serving tier's load-time memory audit;
+``flopcheck_mode``/``set_flopcheck`` (env ``MXTPU_FLOPCHECK``, default
+``"off"``) arm ``TrainStep``'s one-time roofline audit of each dispatch
+key's program. The JAX package's ``set_commscheck`` waits for ROADMAP.md
+A.12d-3.
 """
 from __future__ import annotations
 
@@ -201,6 +203,33 @@ def set_memcheck(mode):
     prev = memcheck_mode()
     _validate_mode(mode, "set_memcheck")
     _memcheck_override = mode
+    return prev
+
+
+_flopcheck_override = None
+
+
+def flopcheck_mode():
+    """Roofline-audit policy of the dispatch programs: ``"off"`` (default)
+    skips the audit; ``"warn"`` makes ``TrainStep`` run the roofline lints
+    of :mod:`mxnet_tpu_torch.flopcheck` ONCE per dispatch key's program at
+    its first dispatch (one shape-only dry run, the arguments faked first)
+    and log unsuppressed findings; ``"error"`` raises
+    :class:`~mxnet_tpu_torch.base.MXNetError`: a step shattered into tiny
+    launches fails at the first dispatch, not after a slow profiling
+    session. Env default: ``MXTPU_FLOPCHECK``."""
+    if _flopcheck_override is not None:
+        return _flopcheck_override
+    return _mode_from_env("MXTPU_FLOPCHECK", "off")
+
+
+def set_flopcheck(mode):
+    """Override the flopcheck mode (None: back to the env/default); returns
+    the previous effective value."""
+    global _flopcheck_override
+    prev = flopcheck_mode()
+    _validate_mode(mode, "set_flopcheck")
+    _flopcheck_override = mode
     return prev
 
 

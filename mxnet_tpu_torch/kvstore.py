@@ -573,8 +573,9 @@ class KVStoreDistSync(KVStore):
             arr = self._ring.broadcast(value.asnumpy(), root_index=0)
         else:
             from .parallel.mesh import global_data_mesh, host_broadcast0
-            arr = host_broadcast0(global_data_mesh("worker"),
-                                  value.asnumpy())
+            arr = host_broadcast0(global_data_mesh(
+                "worker", local_devices=[value._data.device]),
+                value.asnumpy())
         value._set_data(torch.from_numpy(np.ascontiguousarray(arr)))
         return value
 

@@ -150,12 +150,13 @@ def _env_bytes(name):
 
 def _device(device):
     """A ``torch.device`` of a device, Context or string; None is
-    ``cuda:0`` where CUDA is available, else the CPU."""
-    from .context import Context
+    ``cuda:0`` (``context.resolve_device``: without CUDA it raises, and
+    the CPU is priced only where a caller asks for it)."""
+    from .context import Context, resolve_device
     if isinstance(device, Context):
         device = device.to_device()
     if device is None:
-        device = "cuda:0" if torch.cuda.is_available() else "cpu"
+        return resolve_device(None, "memcheck")
     return torch.device(device)
 
 
@@ -227,7 +228,9 @@ class MemoryReport(object):
     """Static memory profile of ONE program.
 
     ``peak_bytes`` is its high-water estimate: ``argument + output + temp
-    - alias`` (a donated buffer is counted once). ``top_buffers``
+    - alias`` (a donated buffer is counted once). ``device`` is the device
+    the program was priced on (a string; its budget is the lints'
+    default). ``top_buffers``
     attributes the largest buffers: dicts of ``bytes``, ``opcode`` (the
     aten op, ``"parameter"`` for an argument), ``op_path`` (the executor
     node that issued it, or the argument's label), ``instruction`` (the
@@ -237,14 +240,17 @@ class MemoryReport(object):
     __slots__ = ("program", "platform", "argument_bytes", "output_bytes",
                  "temp_bytes", "alias_bytes", "generated_code_bytes",
                  "top_buffers", "donated", "unaliased_donated",
-                 "unpriced_workspaces")
+                 "unpriced_workspaces", "device")
 
     def __init__(self, program, platform, argument_bytes, output_bytes,
                  temp_bytes, alias_bytes, generated_code_bytes=0,
                  top_buffers=(), donated=(), unaliased_donated=(),
-                 unpriced_workspaces=0):
+                 unpriced_workspaces=0, device=None):
         self.program = program
         self.platform = platform
+        if device is None:
+            device = "cuda:0" if platform == "gpu" else "cpu"
+        self.device = str(device)
         self.argument_bytes = int(argument_bytes)
         self.output_bytes = int(output_bytes)
         self.temp_bytes = int(temp_bytes)
@@ -276,6 +282,7 @@ class MemoryReport(object):
         return {
             "program": self.program,
             "platform": self.platform,
+            "device": self.device,
             "peak_bytes": self.peak_bytes,
             "argument_bytes": self.argument_bytes,
             "output_bytes": self.output_bytes,
@@ -421,8 +428,10 @@ _FILES = {}
 #: torch's own package: frames there are never a program's provenance
 _TORCH_DIR = os.path.dirname(os.path.realpath(torch.__file__))
 
-#: the analyzers, whose frames are never a program's provenance
-_ANALYZERS = ("memcheck.py", "tracecheck.py")
+#: the analyzers (and ``autotune.hotspot_report``'s delegation to one),
+#: whose frames are never a program's provenance
+_ANALYZERS = ("memcheck.py", "tracecheck.py", "flopcheck.py",
+              os.path.join("autotune", "__init__.py"))
 
 
 def _file_kind(fname):
@@ -464,11 +473,12 @@ def _stack(f):
         f = f.f_back
 
 
-def _where():
+def _where(depth=2):
     """``(op_path, provenance)`` of the op being dispatched: the executor
-    node whose walk issued it, and :func:`_frame_line` of the stack."""
+    node whose walk issued it, and :func:`_frame_line` of the stack from
+    ``depth`` frames up (the frame that called the caller)."""
     node = None
-    f = sys._getframe(2)
+    f = sys._getframe(depth)
     g = f
     while g is not None:
         executor = _file_kind(g.f_code.co_filename)[2]
@@ -568,6 +578,128 @@ def learn_workspaces():
         yield
 
 
+# ---------------------------------------------------------------------------
+# kernel records (flopcheck's inventory, from the same dry run)
+# ---------------------------------------------------------------------------
+
+#: ops that launch nothing on the device: allocation and metadata (their
+#: in-place forms included)
+_META_OPS = frozenset((
+    "empty", "empty_like", "empty_strided", "empty_permuted", "new_empty",
+    "new_empty_strided", "resize_", "resize_as_", "set_", "detach_", "t_",
+    "transpose_", "squeeze_", "unsqueeze_", "as_strided_", "swapdims_",
+    "swapaxes_"))
+
+#: reductions: one operation per element of the larger of their first
+#: input and their output, as the JAX package's ``_estimate_flops`` counts
+#: a reduce
+_REDUCTIONS = frozenset((
+    "sum", "mean", "prod", "amax", "amin", "max", "min", "aminmax",
+    "argmax", "argmin", "var", "std", "var_mean", "std_mean", "norm",
+    "linalg_vector_norm", "logsumexp", "any", "all", "count_nonzero",
+    "nansum", "topk", "median", "mode"))
+
+#: pure data motion (``is_layout``) when the dtype is kept: a copy between
+#: layouts or devices; a cast computes
+_LAYOUT_OPS = frozenset(("clone", "contiguous", "copy", "copy_", "_to_copy",
+                         "to", "lift_fresh_copy"))
+
+#: composite ops that reach a dispatch mode undecomposed under
+#: ``inference_mode``, which ``torch.utils.flop_counter.flop_registry``
+#: does not hold: priced by their decomposition's formula. A convolution's
+#: value is whether it is transposed
+_CONV_COMPOSITES = {"conv1d": False, "conv2d": False, "conv3d": False,
+                    "conv_transpose1d": True, "conv_transpose2d": True,
+                    "conv_transpose3d": True}
+_MM_COMPOSITES = frozenset(("linear", "matmul"))
+
+_CONV_FAMILY = frozenset(_CONV_COMPOSITES) | frozenset((
+    "convolution", "_convolution", "cudnn_convolution",
+    "convolution_overrideable", "_slow_conv2d_forward",
+    "convolution_backward"))
+
+
+def _op_flops(func, name, args, kwargs, out, outs):
+    """``(FLOPs, matmul-like)`` of one aten op: the matmul, convolution and
+    attention families by ``flop_registry`` (the composites above by their
+    decomposition's formula), reductions by :data:`_REDUCTIONS`' rule,
+    everything else one operation per output element."""
+    from torch.utils.flop_counter import conv_flop_count, flop_registry
+    fn = flop_registry.get(func.overloadpacket)
+    if fn is not None:
+        return float(fn(*args, **kwargs, out_val=out)), True
+    if name in _CONV_COMPOSITES:
+        return float(conv_flop_count(list(args[0].shape),
+                                     list(args[1].shape),
+                                     list(outs[0].shape),
+                                     _CONV_COMPOSITES[name])), True
+    if name in _MM_COMPOSITES:
+        k = args[0].shape[-1] if args[0].dim() else 1
+        return 2.0 * outs[0].numel() * k, True
+    n_out = sum(t.numel() for t in outs)
+    if name in _REDUCTIONS:
+        first = next((a for a in tree_leaves(args)
+                      if isinstance(a, torch.Tensor)), None)
+        return float(max(n_out, 0 if first is None else first.numel())), \
+            False
+    return float(n_out), False
+
+
+def _compute_type(name, dtype, mm):
+    """The compute type whose peak bounds an op (a ``devspec.PEAK_BY_DTYPE``
+    key): bf16 and f16 at the tensor-core rate; a float32 matmul or
+    convolution at the TF32 rate while torch's TF32 switch of its family
+    is on; everything else at FP32."""
+    if dtype == torch.bfloat16:
+        return "bfloat16"
+    if dtype == torch.float16:
+        return "float16"
+    if mm and dtype == torch.float32:
+        tf32 = (torch.backends.cudnn.allow_tf32 if name in _CONV_FAMILY
+                else torch.backends.cuda.matmul.allow_tf32)
+        if tf32:
+            return "tf32"
+    return "float32"
+
+
+def _viewed_bytes(t):
+    return t.numel() * t.element_size()
+
+
+def _kernel_record(func, args, kwargs, out, new):
+    """One aten op as a kernel record (None for an op that launches
+    nothing: allocation and metadata, and a view, whose outputs all alias
+    an input and which writes nothing). ``new``: the keys of the output
+    storages the op made. Bytes: each tensor argument's viewed bytes read
+    and each output written (a new storage at its size as memcheck counts
+    it, the allocator's granule on a card); an op that writes in place
+    counts its written tensor once, as the JAX package's
+    ``output_to_operand_aliasing`` rule does."""
+    name = func.overloadpacket.__name__
+    if name in _META_OPS:
+        return None
+    outs = [t for t in tree_leaves(out) if isinstance(t, torch.Tensor)]
+    mutable = func._schema.is_mutable
+    if not outs or (not new and not mutable):
+        return None
+    ins = [t for t in tree_leaves((args, kwargs))
+           if isinstance(t, torch.Tensor)]
+    in_bytes = sum(_viewed_bytes(t) for t in ins)
+    out_bytes = 0
+    for t in outs:
+        st, key, nb = _storage(t)
+        out_bytes += nb if key in new else _viewed_bytes(t)
+    nbytes = max(in_bytes, out_bytes) if mutable else in_bytes + out_bytes
+    flops, mm = _op_flops(func, name, args, kwargs, out, outs)
+    dtype = outs[0].dtype
+    layout = (name in _LAYOUT_OPS and bool(ins)
+              and ins[-1 if name.startswith("copy") else 0].dtype == dtype)
+    return {"opcode": str(func.overloadpacket), "flops": flops,
+            "bytes": int(nbytes), "is_layout": layout,
+            "compute": _compute_type(name, dtype, mm), "passes": 1,
+            "inputs": tuple((tuple(t.shape), str(t.dtype)) for t in ins)}
+
+
 class _Tracker(TorchDispatchMode):
     """Counts the live bytes of every storage the ops of a dry run make,
     and the storages they write in place. Each convolution on a card adds
@@ -579,9 +711,14 @@ class _Tracker(TorchDispatchMode):
     ``events``: a value read back to the host (answered with a zero, so
     the run goes on), a copy from the card to the host, an op's float64
     or complex128 output, and every real tensor the program reads that is
-    not an argument (faked for the op, so the run goes on)."""
+    not an argument (faked for the op, so the run goes on).
 
-    def __init__(self, mode=None, lint=False):
+    With ``kernels`` (:mod:`.flopcheck`'s inventory) it also records
+    ``kernels``: each op that launches a kernel (:func:`_kernel_record`),
+    and each launch a hand-written kernel's shape-only route stands for
+    (:meth:`hand_kernel`), with its ``op_path`` and ``provenance``."""
+
+    def __init__(self, mode=None, lint=False, kernels=False):
         super().__init__()
         self.lock = threading.Lock()
         self.live = {}
@@ -595,17 +732,36 @@ class _Tracker(TorchDispatchMode):
         self.made_by = {}       # storage key -> (op_path, provenance)
         self.unpriced = 0
         self._consts = set()
+        self.kernels = [] if kernels else None
+
+    def hand_kernel(self, name, flops, nbytes, compute, passes, inputs):
+        """``base.note_kernel``'s hook: record the launch a hand-written
+        kernel's shape-only route stands for, priced by its own formula."""
+        if self.kernels is None:
+            return
+        # from the kernel module's frame, past base.note_kernel
+        node, prov = _where(3)
+        self.seq += 1
+        self.kernels.append({
+            "opcode": name.split("[")[0], "flops": float(flops),
+            "bytes": int(nbytes), "is_layout": False, "compute": compute,
+            "passes": int(passes),
+            "inputs": tuple((tuple(t.shape), str(t.dtype)) for t in inputs),
+            "instruction": "%s#%d" % (name, self.seq), "op_path": node,
+            "provenance": prov})
 
     def add(self, t, record=None):
+        """Count ``t``'s storage live (once); returns its key when it is
+        new, else None."""
         if not isinstance(t, torch.Tensor):
-            return
+            return None
         try:
             st, key, nb = _storage(t)
         except (RuntimeError, NotImplementedError):
-            return          # a tensor without a storage (sparse)
+            return None     # a tensor without a storage (sparse)
         with self.lock:
             if key in self.live:
-                return
+                return None
             self.live[key] = nb
             self.cur += nb
             self.peak = max(self.peak, self.cur)
@@ -614,6 +770,7 @@ class _Tracker(TorchDispatchMode):
             record["bytes"] = nb
             self.records.append(record)
             self.made_by[key] = (record["op_path"], record["provenance"])
+        return key
 
     def _release(self, key):
         with self.lock:
@@ -674,14 +831,24 @@ class _Tracker(TorchDispatchMode):
                         self.written.add(t.untyped_storage()._cdata)
         opcode = str(func.overloadpacket)
         f64 = None
+        new = set()
         for t in tree_leaves(out):
             if isinstance(t, torch.Tensor):
                 self.seq += 1
-                self.add(t, {"opcode": opcode, "op_path": node,
-                             "instruction": "%s#%d" % (opcode, self.seq),
-                             "provenance": prov})
+                key = self.add(t, {"opcode": opcode, "op_path": node,
+                                   "instruction": "%s#%d" % (opcode,
+                                                             self.seq),
+                                   "provenance": prov})
+                if key is not None:
+                    new.add(key)
                 if self.lint and f64 is None and t.dtype in _F64:
                     f64 = t
+        if self.kernels is not None:
+            rec = _kernel_record(func, args, kwargs, out, new)
+            if rec is not None:
+                rec.update(instruction="%s#%d" % (opcode, self.seq),
+                           op_path=node, provenance=prov)
+                self.kernels.append(rec)
         if f64 is not None:
             self.events.append(("dtype-f64", (opcode, f64), node, prov))
         if _cuda_conv(func, args) is not None:
@@ -715,14 +882,18 @@ class _DryRun(object):
     provenance)}``), and the error that ended a lint run early (None when
     the program ran to its end)."""
 
-    __slots__ = ("report", "tracker", "arg_leaves", "replaced_by", "stopped")
+    __slots__ = ("report", "tracker", "arg_leaves", "replaced_by", "stopped",
+                 "device")
 
-    def __init__(self, report, tracker, arg_leaves, replaced_by, stopped):
+    def __init__(self, report, tracker, arg_leaves, replaced_by, stopped,
+                 device):
         self.report = report
         self.tracker = tracker
         self.arg_leaves = arg_leaves
         self.replaced_by = replaced_by
         self.stopped = stopped
+        #: the program's device (its arguments', else its outputs')
+        self.device = device
 
 
 def analyze(fn, args=(), kwargs=None, donate_argnums=(), name=None, top=8):
@@ -735,12 +906,13 @@ def analyze(fn, args=(), kwargs=None, donate_argnums=(), name=None, top=8):
 
 
 def _dry_run(fn, args=(), kwargs=None, donate_argnums=(), name=None, top=8,
-             lint=False):
+             lint=False, kernels=False):
     """:func:`analyze`'s run, returning a :class:`_DryRun`. With ``lint``
     the tracker records the static pass's events, and a program whose op
     has an output shape that depends on the data (``nonzero``, a boolean
     mask) or that reads a tensor's data (``.numpy()``) ends the run there
-    (``stopped``) instead of raising."""
+    (``stopped``) instead of raising. With ``kernels`` it records the
+    kernel records ``flopcheck`` prices (``tracker.kernels``)."""
     from torch._subclasses.fake_tensor import (
         DataDependentOutputException, DynamicOutputShapeException)
     kwargs = dict(kwargs or {})
@@ -753,7 +925,7 @@ def _dry_run(fn, args=(), kwargs=None, donate_argnums=(), name=None, top=8,
     with fake_mode(mode):
         fargs = tuple(fake_tree(a, mode) for a in args)
         fkwargs = fake_tree(kwargs, mode)
-    tracker = _Tracker(mode, lint=lint)
+    tracker = _Tracker(mode, lint=lint, kernels=kernels)
     arg_leaves = []
     for i, a in enumerate(fargs):
         arg_leaves += [(lab, t, i) for lab, t in _leaves(a, "args[%d]" % i)]
@@ -809,11 +981,11 @@ def _dry_run(fn, args=(), kwargs=None, donate_argnums=(), name=None, top=8,
         donated=[(lab, nb) for lab, nb, _, _ in donated],
         unaliased_donated=[(lab, nb) for lab, nb, key, _ in donated
                            if key in replaced],
-        unpriced_workspaces=tracker.unpriced)
+        unpriced_workspaces=tracker.unpriced, device=dev)
     replaced_by = {lab: tracker.made_by.get(out_at.get(path), (None, None))
                    for lab, _, key, path in donated if key in replaced}
     return _DryRun(report, tracker, [(lab, t) for lab, t, _ in arg_leaves],
-                   replaced_by, stopped)
+                   replaced_by, stopped, dev)
 
 
 # ---------------------------------------------------------------------------
@@ -832,10 +1004,11 @@ def _top_attr(report, skip_params=False):
 
 def lint_report(report, budget=None, temp_mult=None, waste_floor=None):
     """Per-program memory lints over one :class:`MemoryReport`:
-    ``hbm-budget``, ``donation-waste``, ``temp-blowup``. Returns findings
-    with suppressions applied."""
+    ``hbm-budget``, ``donation-waste``, ``temp-blowup``. The default budget
+    is that of the device the report priced (``report.device``). Returns
+    findings with suppressions applied."""
     findings = []
-    budget = budget_bytes() if budget is None else int(budget)
+    budget = budget_bytes(report.device) if budget is None else int(budget)
     temp_mult = temp_multiple() if temp_mult is None else float(temp_mult)
     waste_floor = _WASTE_FLOOR if waste_floor is None else int(waste_floor)
     name = report.program
@@ -900,9 +1073,11 @@ def resident_bytes(reports):
 def lint_resident_set(reports, set_name, budget=None):
     """``resident-set``: the summed footprint of co-resident programs (all
     serving buckets of one engine; a train step's four programs) against
-    the budget."""
+    the budget (default: that of the device the first report priced)."""
     reports = list(reports)
-    budget = budget_bytes() if budget is None else int(budget)
+    if budget is None:
+        budget = budget_bytes(reports[0].device) if reports else 0
+    budget = int(budget)
     total = resident_bytes(reports)
     findings = []
     if reports and total > budget:

@@ -569,8 +569,9 @@ class Module(BaseModule):
 
     def _override_mesh(self):
         """The multi-axis mesh ``mesh_axes``/``MXTPU_LM_MESH`` asks for,
-        built once over the module's contexts (where it has several) or
-        every visible device; None without a spec."""
+        built once over the module's contexts (where it has several), every
+        visible card (one card context), or, for one CPU context, every
+        position on the CPU; None without a spec."""
         if self._mesh_axes is None:
             return None
         if self._override_mesh_cache is None:
@@ -578,6 +579,9 @@ class Module(BaseModule):
             devs = None
             if len(self._context) > 1:
                 devs = [resolve_device(c, "Module") for c in self._context]
+            elif self._device.type != "cuda":
+                devs = [self._device] * math.prod(
+                    self._mesh_axes.values())
             self._override_mesh_cache = mesh_from_spec(self._mesh_axes,
                                                        devs)
         return self._override_mesh_cache

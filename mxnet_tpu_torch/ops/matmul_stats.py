@@ -20,7 +20,13 @@ the f32 accumulator ``acc``:
 - A fake or meta tensor (``base.shape_only``: memcheck's dry run) off the
   CPU takes the shape-only route: outputs of the right shape, dtype and
   device, nothing computed, no launch counted (it counts in
-  :data:`SHAPE_ONLY_CALLS`). A real CUDA tensor never takes it.
+  :data:`SHAPE_ONLY_CALLS`), and the launch it stands for handed to the
+  dry run (``base.note_kernel``) at :func:`launch_cost`. A real CUDA
+  tensor never takes it.
+- :func:`launch_cost` and :func:`bound_seconds` are the kernel's cost: the
+  bytes of one launch and its operations at its route's arithmetic
+  (:data:`ARITH`). ``flopcheck`` prices a launch and ``chip_smoke.py``
+  bounds one by them, so the two cannot drift apart.
 
 :data:`LAUNCHES` counts the kernel launches of :func:`matmul_stats` (one per
 call on the card) and :data:`LAUNCHES_BY_ROUTE` the same by route;
@@ -36,8 +42,9 @@ import threading
 
 import torch
 
+from .. import devspec
 from ..base import (MXNetError, attr_bool, attr_int, attr_str, attr_tuple,
-                    shape_only)
+                    note_kernel, shape_only)
 
 #: kernel launches by :func:`matmul_stats` (one per call that ran on the card)
 LAUNCHES = 0
@@ -59,6 +66,41 @@ _SM_COUNT = {}
 
 #: rows of x per tile of the wgmma kernel (two warpgroups of 64)
 WGMMA_BM = 128
+
+
+#: the arithmetic of the kernel's routes -> (passes of the 2MNK products it
+#: issues, the compute type whose peak bounds them, a
+#: ``devspec.PEAK_BY_DTYPE`` key): bf16 on the tensor cores (``wgmma``,
+#: ``wmma``), FP32 SIMT (``f32``), three TF32 products (``tf32x3``)
+ARITH = {"bf16": (1, "bfloat16"), "f32": (1, "float32"),
+         "tf32x3": (3, "tf32")}
+
+#: each route's arithmetic
+ROUTE_ARITH = {"wgmma": "bf16", "wmma": "bf16", "tf32x3": "tf32x3",
+               "f32": "f32"}
+
+
+def launch_cost(m, k, n, arith):
+    """``(flops, bytes, compute, passes)`` of one launch at (M, K, N) on
+    the arithmetic ``arith`` (:data:`ARITH`): 2MNK FLOPs, issued
+    ``passes`` times at the peak of ``compute``; x and w read once, y and
+    the (2, N) f32 statistics written once."""
+    passes, compute = ARITH[arith]
+    itemsize = 2 if arith == "bf16" else 4
+    nbytes = (m * k + n * k + m * n) * itemsize + 2 * n * 4
+    return 2.0 * m * n * k, nbytes, compute, passes
+
+
+def bound_seconds(m, k, n, arith, kind="NVIDIA H100"):
+    """``(seconds, "bytes" or "operations")``: the least time one launch
+    can take on a device kind, the larger of :func:`launch_cost`'s bytes
+    over its memory rate and its operations over the peak of their type
+    (``devspec``)."""
+    flops, nbytes, compute, passes = launch_cost(m, k, n, arith)
+    t_bytes = nbytes / devspec.kind_spec(kind)[0].hbm_bytes_per_s
+    t_ops = passes * flops / devspec.compute_peak(kind, compute)
+    return max(t_bytes, t_ops), ("bytes" if t_bytes > t_ops
+                                 else "operations")
 
 
 def _acc_dtype(dt):
@@ -280,10 +322,12 @@ def _shape_only(x, w):
     made."""
     global SHAPE_ONLY_CALLS
     _check_operands(x, w)
-    kernel_route(x.shape[0], x.shape[1], w.shape[0], x.dtype, True)
+    m, k, n = x.shape[0], x.shape[1], w.shape[0]
+    route = kernel_route(m, k, n, x.dtype, True)
     with _COUNT_LOCK:
         SHAPE_ONLY_CALLS += 1
-    n = w.shape[0]
+    note_kernel("matmul_stats[%s]" % route,
+                *launch_cost(m, k, n, ROUTE_ARITH[route]), inputs=(x, w))
     y = torch.empty((x.shape[0], n), dtype=x.dtype, device=x.device)
     stats = torch.empty((2, n), dtype=_acc_dtype(x.dtype), device=x.device)
     s1, s2 = stats.unbind(0)

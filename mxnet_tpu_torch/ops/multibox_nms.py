@@ -15,8 +15,12 @@ score-sorted boxes and return the float32 (B, k) survival mask, 1.0/0.0:
 - A fake or meta tensor (``base.shape_only``: memcheck's dry run) off the
   CPU takes the shape-only route: the (B, k) mask uninitialized, and the
   ``l2`` route's scratch made and dropped, nothing computed, no launch
-  counted (it counts in :data:`SHAPE_ONLY_CALLS`). A real CUDA tensor
-  never takes it.
+  counted (it counts in :data:`SHAPE_ONLY_CALLS`), and the launch it
+  stands for handed to the dry run (``base.note_kernel``) at
+  :func:`launch_cost`. A real CUDA tensor never takes it.
+- :func:`launch_cost` and :func:`bound_seconds` are the kernel's cost,
+  which ``flopcheck`` prices a launch by and ``chip_smoke.py`` bounds one
+  by.
 
 The kernel has two routes, picked from k by :func:`kernel_route`: ``"smem"``
 (one launch of a thread-block cluster per image, the suppression mask in
@@ -38,7 +42,8 @@ import threading
 import numpy as np
 import torch
 
-from ..base import MXNetError, shape_only
+from .. import devspec
+from ..base import MXNetError, note_kernel, shape_only
 from ..context import raw_stream
 
 #: calls that launched the kernel on the card (one per call, either route)
@@ -170,6 +175,26 @@ def _sm_count(index):
     return n
 
 
+def launch_cost(b, k):
+    """``(operations, bytes)`` of one launch over B images of k boxes:
+    some 15 FP32 operations for each of the k(k-1)/2 pairs of an image
+    (the IoU test), the corners (16 bytes a box), scores and classes read
+    once and the float32 mask written once."""
+    return 15.0 * b * k * (k - 1) / 2, b * k * (16 + 4 + 4) + b * k * 4
+
+
+def bound_seconds(b, k, kind="NVIDIA H100"):
+    """``(seconds, "bytes" or "operations")``: the least time one launch
+    can take on a device kind, the larger of :func:`launch_cost`'s bytes
+    over its memory rate and its operations over its FP32 peak
+    (``devspec``)."""
+    ops, nbytes = launch_cost(b, k)
+    t_bytes = nbytes / devspec.kind_spec(kind)[0].hbm_bytes_per_s
+    t_ops = ops / devspec.compute_peak(kind, "float32")
+    return max(t_bytes, t_ops), ("bytes" if t_bytes > t_ops
+                                 else "operations")
+
+
 def _check(sboxes, sscore, scls):
     if sboxes.dim() != 3 or sboxes.shape[2] != 4:
         raise MXNetError("nms_alive: sboxes must be (B, k, 4), got %s"
@@ -207,6 +232,10 @@ def _shape_only(sboxes, sscore, scls):
     with _COUNT_LOCK:
         SHAPE_ONLY_CALLS += 1
     b, k = sboxes.shape[:2]
+    if b and k:
+        note_kernel("multibox_nms[%s]" % kernel_route(b, k),
+                    *launch_cost(b, k), "float32",
+                    inputs=(sboxes, sscore, scls))
     out = torch.empty(sscore.shape, dtype=torch.float32,
                       device=sscore.device)
     if b and k and kernel_route(b, k) == "l2":

@@ -30,7 +30,6 @@ group.
 from __future__ import annotations
 
 import collections
-import os
 import threading
 
 import numpy as np
@@ -138,12 +137,17 @@ class NamedSharding(object):
 
 def devices():
     """The devices a mesh is built over by default: every visible CUDA
-    device, else the host CPU once per core (CPU positions share the host
+    device. Without CUDA it raises, as ``context.resolve_device`` refuses
+    a CUDA default there: a mesh on the CPU is asked for by passing its
+    positions, ``devices=["cpu"] * n`` (CPU positions share the host
     device, as the JAX package's virtual CPU devices share the host)."""
-    if torch.cuda.is_available():
-        return [torch.device("cuda", i)
-                for i in range(torch.cuda.device_count())]
-    return [torch.device("cpu")] * (os.cpu_count() or 1)
+    if not torch.cuda.is_available():
+        raise MXNetError(
+            "parallel.mesh.devices: CUDA is not available, so a mesh has no "
+            "default devices; pass devices=[\"cpu\"] * n to place n "
+            "positions on the CPU")
+    return [torch.device("cuda", i)
+            for i in range(torch.cuda.device_count())]
 
 
 def make_mesh(axis_shapes, devices=None):

@@ -27,7 +27,12 @@ tests run; ``chip_smoke.py`` times the wrapper's host cost per call beside
 a direct launch.
 
 :data:`TRITON_LAUNCHES` and :data:`RTC_LAUNCHES` count the launches on the
-card (one per call that launched).
+card (one per call that launched). :func:`launch_cost` is a user kernel's
+cost as the JAX package's roofline prices a custom call: ``flopcheck``
+prices a ``TritonKernel`` call of a shape-only dry run by it (fake card
+inputs: the outputs made, no launch), and ``chip_smoke.py``
+bounds a launch by it. ``Rtc.push`` writes into outputs it is given and
+takes real card arrays only.
 """
 from __future__ import annotations
 
@@ -41,7 +46,7 @@ import threading
 import numpy as np
 import torch
 
-from .base import MXNetError, torch_dtype
+from .base import MXNetError, note_kernel, shape_only, torch_dtype
 from .context import raw_stream
 from .ndarray import NDArray
 
@@ -62,6 +67,17 @@ class PallasKernel(object):
             "Write the kernel with Triton and wrap it with "
             "mx.rtc.TritonKernel (same out_like and grid contract), or "
             "write it in CUDA for mx.rtc.Rtc.")
+
+
+def launch_cost(inputs, outputs):
+    """``(operations, bytes)`` of one user-kernel launch, as the JAX
+    package prices a custom call: one operation per output element, and
+    each input and output array's bytes once (Python scalars are free)."""
+    ts = [getattr(a, "_data", a) for a in list(inputs) + list(outputs)]
+    ts = [t for t in ts if isinstance(t, torch.Tensor)]
+    outs = [getattr(a, "_data", a) for a in outputs]
+    return (float(sum(t.numel() for t in outs)),
+            sum(t.numel() * t.element_size() for t in ts))
 
 
 def _is_spec(spec):
@@ -167,7 +183,15 @@ class TritonKernel(object):
             outs = [torch.empty_like(s) if isinstance(s, torch.Tensor)
                     else torch.empty(s[0], dtype=s[1], device=dev)
                     for s in specs]
-            self._launch(vals, outs, dev)
+            first = next(v for v in vals if isinstance(v, torch.Tensor))
+            if shape_only(first):
+                # a dry run: the launch it stands for, priced, not run
+                note_kernel("rtc.TritonKernel",
+                            *launch_cost(vals, outs), "float32",
+                            inputs=[v for v in vals
+                                    if isinstance(v, torch.Tensor)])
+            else:
+                self._launch(vals, outs, dev)
         elif self.reference is None:
             raise MXNetError(
                 "TritonKernel: the inputs are on %s; a Triton kernel runs on "

@@ -82,7 +82,9 @@ that are neither in ``label_names`` nor an ``Embedding``'s indices.
   package's names) is registered with ``tracecheck`` at its first
   dispatch, and a key dispatched with a new argument signature is a
   retrace, logged or raised as ``tracecheck.RetraceError`` (whose
-  ``result`` is the dispatch's) naming the argument that changed.
+  ``result`` is the dispatch's) naming the argument that changed. Under
+  ``MXTPU_FLOPCHECK=warn|error`` the key's program is also audited once
+  there by ``flopcheck``'s roofline lints (``loop_trips=K`` for a scan).
 
 - ``dist_reduce`` (a dist kvstore's ``grad_reduce``, which ``Module``
   attaches) sums the update set's gradients across worker processes once
@@ -1017,6 +1019,13 @@ class TrainStep(object):
         key, name, prog = got
         if name not in _tc.PROGRAMS:
             _tc.register_program(name, prog, call_args, donate_argnums=(0,))
+            # MXTPU_FLOPCHECK: one roofline audit of the key's program, on
+            # fakes of the call's arguments (off by default)
+            from . import flopcheck as _fc
+            _fc.maybe_audit_dispatch(
+                name, prog, call_args,
+                loop_trips=(cache_key[1] if isinstance(cache_key, tuple)
+                            else 1))
         try:
             self._watcher.after_call(key, prog, _tc.signature(call_args),
                                      health=self.health)

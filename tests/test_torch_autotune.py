@@ -10,8 +10,8 @@
   objective preference, each with the same outcome in both packages on
   the same DB file;
 - the signatures (``symbol_signature``, ``param_signature``) are equal in
-  both packages, ``TuningDB`` round-trips, and the part not ported
-  (``hotspot_report``) raises;
+  both packages, ``TuningDB`` round-trips, and ``hotspot_report`` ranks
+  a program's kernels by their roofline time;
 - ``tune`` on the CPU: its result dict has the JAX package's keys, and
   with ``write_db`` it writes an entry that the port's
   ``resolve_train_knobs`` resolves and the JAX package's ``TuningDB.load``
@@ -23,9 +23,11 @@ Tolerance: none (knobs, sources and signatures are exact).
 """
 import json
 import logging
+import os
 
 import numpy as np
 import pytest
+import torch
 
 import mxnet_tpu as mx
 from mxnet_tpu import autotune as jat
@@ -223,9 +225,22 @@ def test_db_round_trip_and_parse_buckets(tmp_path):
 
 
 def test_unported_parts_raise():
-    for fn in (autotune.hotspot_report,):
-        with pytest.raises(MXNetError, match="A.12"):
-            fn()
+    """Nothing of the tuner raises as unported any more: ``hotspot_report``
+    (the roofline's ranked hot spots, ``flopcheck``) prices a program by
+    its dry run. Here ``x @ w + b``: the matmul's 2*128**3 FLOPs first
+    (compute bound at the CPU's nominal ridge of 10 FLOP/B), then the
+    add, each with its share of the predicted time; memory-bound only,
+    the add alone."""
+    x, w, b = torch.zeros(128, 128), torch.zeros(128, 128), torch.zeros(128)
+    entries = autotune.hotspot_report(lambda x, w, b: x @ w + b, (x, w, b),
+                                      name="tune/fn", memory_only=False)
+    assert [(e["opcode"], e["bound"]) for e in entries] == [
+        ("aten.mm", "compute"), ("aten.add", "memory")]
+    assert entries[0]["flops"] == 2.0 * 128 ** 3
+    assert sum(e["step_time_frac"] for e in entries) == pytest.approx(1.0)
+    (add,) = autotune.hotspot_report(lambda x, w, b: x @ w + b, (x, w, b))
+    assert add["opcode"] == "aten.add" and add["provenance"].startswith(
+        os.path.realpath(__file__) + ":")
 
 
 def test_open_loop_run_serves_every_request_in_order_of_arrival():

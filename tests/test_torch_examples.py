@@ -1,14 +1,29 @@
-"""The three examples that wait on this slice's ops, rebuilt in the port:
-``example/autograd/mnist_autograd.py`` (``nd.log_softmax``),
-``example/nce-loss/nce_lm.py`` (``sym.LogisticRegressionOutput``) and
-``example/recommenders/matrix_fact.py`` (``sym.LinearRegressionOutput``).
+"""The eight examples the JAX package's tests run
+(``tests/test_examples_r5.py`` and the autograd example), rebuilt in the
+port: ``example/autograd/mnist_autograd.py`` (``nd.log_softmax``),
+``example/nce-loss/nce_lm.py`` (``sym.LogisticRegressionOutput``),
+``example/recommenders/matrix_fact.py`` (``sym.LinearRegressionOutput``),
+``example/numpy-ops/numpy_softmax.py`` (a ``sym.Custom`` softmax loss
+written in numpy through ``operator.CustomOp``),
+``example/multi-task/multi_task.py`` (``sym.Group`` of two heads, a
+custom iterator and ``EvalMetric``, the ``bind``/``forward``/``backward``/
+``update`` loop), ``example/cnn_text_classification/text_cnn.py``,
+``example/adversary/fgsm.py`` (an executor bound with a gradient array on
+its input) and ``example/reinforcement-learning/reinforce.py``
+(``autograd.train_section``, ``mark_variables``, ``compute_gradient``).
+Each example's JAX run passes here.
 
 Each example's graph and loop are rebuilt here with ``pkg`` standing for
 either package, at the example's own sizes, and run through both on the
-CPU from the same data and initial parameters: per-epoch losses are held
-against the JAX package's run, and each run must pass the example's own
-check (accuracy above 0.95; ranking accuracy of at least 0.95; holdout
-RMSE below 0.35 of the label spread).
+CPU from the same data and initial parameters: per-epoch losses (the
+REINFORCE loop's per-iteration losses) are held against the JAX package's
+run, and each run must pass the example's own check (accuracy above 0.95;
+ranking accuracy of at least 0.95; holdout RMSE below 0.35 of the label
+spread; text-cnn's holdout accuracy and REINFORCE's greedy accuracy of at
+least 0.9; FGSM's clean accuracy of at least 0.95 falling by 0.3 or
+more). text-cnn's dropout draws its masks from each package's generator,
+so its losses are held with dropout 0 and the example as it is must pass
+its check in both packages.
 
 The JAX package's trained matrix-factorization parameters, carried across
 by ``convert``, score the holdout in the port's module as in the JAX
@@ -18,12 +33,16 @@ Two things are fixed that the examples leave to each package's generator:
 the iterators' one shuffle (``NDArrayIter(shuffle=True)`` draws from the
 package's ``random.np_rng``, which differs between them) is taken as a
 seeded permutation of the data, and the initial parameters (the examples'
-``Normal(0.1)``) are drawn with numpy from a seed and given to both fits.
+``Normal(0.1)`` and ``Xavier()``) are drawn with numpy from a seed
+(normal, biases 0) and given to both fits. A fit's epoch loss is the
+cross-entropy of a forward over the training set at that epoch's
+parameters.
 
 Tolerance: each epoch's loss (and the holdout RMSE) within
 ``rtol=1e-5``, the float32 bound of ``tests/test_torch_ops.py`` less the
 atol: after 80 SGD steps and 750-768 Adam steps the two packages' losses
-differ by at most 3.3e-7 of their value on this CPU.
+differ by at most 3.3e-7 of their value on this CPU, and by at most 3.1e-6
+over REINFORCE's 300 iterations (whose sampled actions agree exactly).
 """
 import numpy as np
 
@@ -244,3 +263,428 @@ def test_matrix_fact_matches_jax_and_passes():
     tval.reset()
     np.testing.assert_allclose(tmod.score(tval, mt.metric.RMSE())[0][1],
                                jrmse, **TOL)
+
+
+# ---------------------------------------------------------------------------
+# the five examples of ROADMAP A.13: the same data, seeded permutations for
+# the examples' shuffles and numpy-drawn initial parameters for their
+# Xavier draws
+# ---------------------------------------------------------------------------
+
+def _on_cpu(example):
+    """Run ``example(pkg, ...)`` with the CPU as ``pkg``'s default context
+    (the port's default is the card), as the examples run on a host."""
+    def run(pkg, *args, **kwargs):
+        with pkg.cpu():
+            return example(pkg, *args, **kwargs)
+    run.__name__ = example.__name__
+    return run
+
+
+def _normal_params(pkg, shapes, seed, scale=0.1):
+    """Initial parameters drawn with numpy from ``seed`` (weights
+    ``normal(0, scale)``, biases 0), the same for both packages."""
+    rng = np.random.RandomState(seed)
+    out = {}
+    for name in sorted(shapes):
+        shape = shapes[name]
+        v = (np.zeros(shape, np.float32) if name.endswith("_bias") else
+             rng.normal(0, scale, shape).astype(np.float32))
+        out[name] = pkg.nd.array(v, ctx=pkg.cpu())
+    return out
+
+
+def _param_shapes(sym, **shapes):
+    arg_shapes, _, _ = sym.infer_shape(**shapes)
+    return {n: s for n, s in zip(sym.list_arguments(), arg_shapes)
+            if n not in shapes}
+
+
+def _train_ce(pkg, sym, args, aux, X, y):
+    """The mean cross-entropy of the first output's class probabilities
+    over ``X`` at ``args`` (a forward at inference, so dropout is off): one
+    epoch's training loss."""
+    exe = sym.simple_bind(pkg.cpu(), grad_req="null", data=X.shape,
+                          softmax_label=y.shape)
+    for k, v in args.items():
+        if k in exe.arg_dict:
+            exe.arg_dict[k][:] = v.asnumpy()
+    for k, v in (aux or {}).items():
+        exe.aux_dict[k][:] = v.asnumpy()
+    exe.forward(is_train=False, data=pkg.nd.array(X),
+                softmax_label=pkg.nd.array(y))
+    p = exe.outputs[0].asnumpy()
+    return float(-np.log(np.maximum(p[np.arange(len(y)), y.astype(int)],
+                                    1e-30)).mean())
+
+
+# example/numpy-ops/numpy_softmax.py ----------------------------------------
+
+_CUSTOM = set()
+
+
+def _register_numpy_softmax(pkg):
+    """The example's softmax loss as a CustomOp written in numpy, under a
+    name of this test's (the example registers ``numpy_softmax``)."""
+    op = pkg.operator
+    if pkg in _CUSTOM:
+        return
+    _CUSTOM.add(pkg)
+
+    class NumpySoftmax(op.CustomOp):
+        def forward(self, is_train, req, in_data, out_data, aux):
+            x = in_data[0].asnumpy()
+            y = np.exp(x - x.max(axis=1, keepdims=True))
+            y /= y.sum(axis=1, keepdims=True)
+            self.assign(out_data[0], req[0], y)
+
+        def backward(self, req, out_grad, in_data, out_data, in_grad, aux):
+            lab = in_data[1].asnumpy().astype(np.int32)
+            y = out_data[0].asnumpy().copy()
+            y[np.arange(lab.shape[0]), lab] -= 1.0
+            self.assign(in_grad[0], req[0], y / lab.shape[0])
+
+    @op.register("examples_numpy_softmax")
+    class NumpySoftmaxProp(op.CustomOpProp):
+        def __init__(self):
+            super().__init__(need_top_grad=False)
+
+        def list_arguments(self):
+            return ["data", "label"]
+
+        def list_outputs(self):
+            return ["output"]
+
+        def infer_shape(self, in_shape):
+            return [in_shape[0], (in_shape[0][0],)], [in_shape[0]], []
+
+        def create_operator(self, ctx, shapes, dtypes):
+            return NumpySoftmax()
+
+
+@_on_cpu
+def numpy_softmax(pkg, num_epoch=10, batch=32):
+    """The example's fit; returns each epoch's training loss and the
+    training accuracy the example checks."""
+    _register_numpy_softmax(pkg)
+    rng = np.random.RandomState(0)
+    n_class, dim = 6, 20
+    templates = rng.randn(n_class, dim).astype(np.float32) * 2
+    labels = np.arange(n_class * 64) % n_class
+    X = templates[labels] + rng.randn(len(labels), dim).astype(
+        np.float32) * .4
+    y = labels.astype(np.float32)
+    sym = pkg.sym
+    net = sym.Custom(data=sym.FullyConnected(sym.Variable("data"),
+                                             num_hidden=n_class, name="fc"),
+                     label=sym.Variable("softmax_label"),
+                     op_type="examples_numpy_softmax", name="softmax")
+    params = _normal_params(pkg, _param_shapes(
+        net, data=(batch, dim), softmax_label=(batch,)), 10)
+    perm = np.random.RandomState(11).permutation(len(X))
+    losses = []
+    mod = pkg.mod.Module(net, label_names=("softmax_label",),
+                         context=pkg.cpu())
+    mod.fit(pkg.io.NDArrayIter(X[perm], y[perm], batch_size=batch,
+                               label_name="softmax_label"),
+            num_epoch=num_epoch, optimizer="sgd",
+            optimizer_params={"learning_rate": 0.5}, arg_params=params,
+            epoch_end_callback=lambda e, s, a, x: losses.append(
+                _train_ce(pkg, net, a, x, X, y)))
+    acc = mod.score(pkg.io.NDArrayIter(X, y, batch_size=batch,
+                                       label_name="softmax_label"),
+                    pkg.metric.Accuracy())[0][1]
+    return losses, acc
+
+
+# example/multi-task/multi_task.py ------------------------------------------
+
+@_on_cpu
+def multi_task(pkg, num_epoch=12, batch=32):
+    """The example's bind/forward/backward/update loop over two heads
+    (``sym.Group``) with its per-head ``EvalMetric``; returns each epoch's
+    summed cross-entropy of the two heads and the accuracies it checks."""
+    rng = np.random.RandomState(0)
+    n_class, dim = 6, 24
+    templates = rng.randn(n_class, dim).astype(np.float32) * 2
+    labels = np.arange(n_class * 64) % n_class
+    X = templates[labels] + rng.randn(len(labels), dim).astype(
+        np.float32) * .4
+    y = labels.astype(np.float32)
+    sym, io = pkg.sym, pkg.io
+
+    class MultiTaskIter(io.DataIter):
+        def __init__(self):
+            super().__init__(batch)
+            self._it = io.NDArrayIter(X, y, batch_size=batch)
+
+        @property
+        def provide_data(self):
+            return self._it.provide_data
+
+        @property
+        def provide_label(self):
+            (_, shape), = self._it.provide_label
+            return [("softmax1_label", shape), ("softmax2_label", shape)]
+
+        def reset(self):
+            self._it.reset()
+
+        def next(self):
+            b = self._it.next()
+            cls = b.label[0]
+            return io.DataBatch(data=b.data, label=[
+                cls, pkg.nd.array(cls.asnumpy() % 2)], pad=b.pad,
+                index=b.index)
+
+    class MultiAccuracy(pkg.metric.EvalMetric):
+        def __init__(self, num=2):
+            super().__init__("multi-accuracy", num=num)
+
+        def update(self, labels, preds):
+            for i in range(self.num):
+                pred = preds[i].asnumpy().argmax(axis=1)
+                lab = labels[i].asnumpy().astype(np.int64)
+                self.sum_metric[i] += float((pred == lab).sum())
+                self.num_inst[i] += len(lab)
+
+    body = sym.Activation(sym.FullyConnected(
+        sym.Variable("data"), num_hidden=64, name="fc_body"),
+        act_type="relu")
+    net = sym.Group([
+        sym.SoftmaxOutput(sym.FullyConnected(body, num_hidden=n_class,
+                                             name="fc1"), name="softmax1"),
+        sym.SoftmaxOutput(sym.FullyConnected(body, num_hidden=2,
+                                             name="fc2"), name="softmax2")])
+    mod = pkg.mod.Module(net, label_names=("softmax1_label",
+                                           "softmax2_label"),
+                         context=pkg.cpu())
+    it = MultiTaskIter()
+    mod.bind(data_shapes=it.provide_data, label_shapes=it.provide_label)
+    mod.init_params(arg_params=_normal_params(
+        pkg, _param_shapes(net, data=(batch, dim)), 20))
+    mod.init_optimizer(optimizer="sgd",
+                       optimizer_params={"learning_rate": 0.2})
+    metric = MultiAccuracy()
+    losses = []
+    for _ in range(num_epoch):
+        it.reset()
+        metric.reset()
+        ce = 0.0
+        for b in it:
+            mod.forward(b, is_train=True)
+            mod.backward()
+            mod.update()
+            outs = mod.get_outputs()
+            metric.update(b.label, outs)
+            for o, lab in zip(outs, b.label):
+                p = o.asnumpy()
+                ce -= np.log(p[np.arange(len(p)),
+                               lab.asnumpy().astype(int)]).sum()
+        losses.append(ce / len(X))
+    return losses, metric.get()[1]
+
+
+# example/cnn_text_classification/text_cnn.py -------------------------------
+
+def text_cnn_net(pkg, vocab_size, num_embed, seq_len, filter_widths,
+                 num_filter, n_class, dropout):
+    sym = pkg.sym
+    embed = sym.Embedding(sym.Variable("data"), input_dim=vocab_size,
+                          output_dim=num_embed, name="embed")
+    conv_in = sym.Reshape(embed, shape=(-1, 1, seq_len, num_embed))
+    pooled = []
+    for w in filter_widths:
+        act = sym.Activation(sym.Convolution(
+            conv_in, kernel=(w, num_embed), num_filter=num_filter,
+            name="conv%d" % w), act_type="relu")
+        pooled.append(sym.Pooling(act, kernel=(seq_len - w + 1, 1),
+                                  pool_type="max", name="pool%d" % w))
+    flat = sym.Flatten(sym.Concat(*pooled, dim=1))
+    drop = sym.Dropout(flat, p=dropout)
+    return sym.SoftmaxOutput(sym.FullyConnected(drop, num_hidden=n_class,
+                                                name="fc"), name="softmax")
+
+
+def text_cnn_corpus(n_sent, seq_len, vocab_size, n_class, rng):
+    X = rng.randint(10, vocab_size, size=(n_sent, seq_len))
+    y = rng.randint(0, n_class, size=n_sent)
+    for i in range(n_sent):
+        pos = rng.randint(0, seq_len - 3)
+        X[i, pos:pos + 3] = [y[i] + 1, y[i] + 2, y[i] + 3]
+    return X.astype(np.float32), y.astype(np.float32)
+
+
+@_on_cpu
+def text_cnn(pkg, dropout=0.25, num_epoch=8, batch=32):
+    """The example's fit; returns each epoch's training loss and the
+    holdout accuracy it checks."""
+    rng = np.random.RandomState(3)
+    vocab_size, num_embed, seq_len, n_class = 40, 16, 12, 4
+    X, y = text_cnn_corpus(640, seq_len, vocab_size, n_class, rng)
+    Xv, yv = text_cnn_corpus(160, seq_len, vocab_size, n_class, rng)
+    net = text_cnn_net(pkg, vocab_size, num_embed, seq_len, (3, 4), 16,
+                       n_class, dropout)
+    params = _normal_params(pkg, _param_shapes(net, data=(batch, seq_len)),
+                            30)
+    perm = np.random.RandomState(31).permutation(len(X))
+    losses = []
+    mod = pkg.mod.Module(net, context=pkg.cpu())
+    mod.fit(pkg.io.NDArrayIter(X[perm], y[perm], batch_size=batch),
+            num_epoch=num_epoch, optimizer="adam",
+            optimizer_params={"learning_rate": 0.005}, arg_params=params,
+            epoch_end_callback=lambda e, s, a, x: losses.append(
+                _train_ce(pkg, net, a, x, X, y)))
+    acc = mod.score(pkg.io.NDArrayIter(Xv, yv, batch_size=batch),
+                    pkg.metric.Accuracy())[0][1]
+    return losses, acc
+
+
+# example/adversary/fgsm.py -------------------------------------------------
+
+@_on_cpu
+def fgsm(pkg, num_epoch=4, batch=64, eps=1.0):
+    """The example: train, bind an executor with a gradient array on
+    ``data``, perturb each batch by ``eps * sign(dL/dx)``; returns each
+    epoch's training loss and the clean and adversarial accuracies it
+    checks."""
+    nd, sym = pkg.nd, pkg.sym
+    rng = np.random.RandomState(0)
+    n_class, dim = 5, 16
+    templates = rng.randn(n_class, dim).astype(np.float32) * 1.2
+    labels = np.arange(n_class * 80) % n_class
+    X = templates[labels] + rng.randn(len(labels), dim).astype(
+        np.float32) * .3
+    y = labels.astype(np.float32)
+    h = sym.Activation(sym.FullyConnected(sym.Variable("data"),
+                                          num_hidden=48, name="fc1"),
+                       act_type="relu")
+    net = sym.SoftmaxOutput(sym.FullyConnected(h, num_hidden=n_class,
+                                               name="fc2"), name="softmax")
+    params = _normal_params(pkg, _param_shapes(net, data=(batch, dim)), 40,
+                            scale=0.3)
+    perm = np.random.RandomState(41).permutation(len(X))
+    losses = []
+    mod = pkg.mod.Module(net, context=pkg.cpu())
+    mod.fit(pkg.io.NDArrayIter(X[perm], y[perm], batch_size=batch),
+            num_epoch=num_epoch, optimizer="sgd",
+            optimizer_params={"learning_rate": 0.1}, arg_params=params,
+            epoch_end_callback=lambda e, s, a, x: losses.append(
+                _train_ce(pkg, net, a, x, X, y)))
+    arg_params, aux_params = mod.get_params()
+    args = {"data": nd.array(X[:batch]), "softmax_label": nd.array(y[:batch])}
+    args.update(arg_params)
+    exe = net.bind(pkg.cpu(), args, args_grad={"data": nd.zeros(
+        (batch, dim))}, grad_req="write", aux_states=aux_params)
+
+    def batch_acc(xb, yb):
+        exe.arg_dict["data"][:] = xb
+        exe.forward(is_train=False)
+        return float((exe.outputs[0].asnumpy().argmax(axis=1) == yb).mean())
+
+    clean = adv = 0.0
+    n = 0
+    for s in range(0, len(X) - batch + 1, batch):
+        xb, yb = X[s:s + batch], y[s:s + batch]
+        exe.arg_dict["data"][:] = xb
+        exe.arg_dict["softmax_label"][:] = yb
+        exe.forward(is_train=True)
+        exe.backward()
+        gsign = np.sign(exe.grad_dict["data"].asnumpy())
+        clean += batch_acc(xb, yb)
+        adv += batch_acc(xb + eps * gsign, yb)
+        n += 1
+    return losses, clean / n, adv / n
+
+
+# example/reinforcement-learning/reinforce.py -------------------------------
+
+@_on_cpu
+def reinforce(pkg, iters=300, batch=128, lr=0.5, seed=0):
+    """The example's imperative REINFORCE loop (``train_section``,
+    ``mark_variables``, ``compute_gradient``, actions sampled on the host
+    from the policy's probabilities); returns each iteration's loss, the
+    last batch's mean reward and the greedy policy's accuracy it checks."""
+    nd, autograd = pkg.nd, pkg.autograd
+    rng = np.random.RandomState(seed)
+    n_state, n_arm, hidden = 16, 4, 32
+    W1 = nd.array(rng.randn(n_state, hidden).astype(np.float32) * 0.3)
+    W2 = nd.array(rng.randn(hidden, n_arm).astype(np.float32) * 0.3)
+    G1, G2 = nd.zeros(W1.shape), nd.zeros(W2.shape)
+    autograd.mark_variables([W1, W2], [G1, G2])
+
+    def one_hot(idx, n):
+        out = np.zeros((len(idx), n), np.float32)
+        out[np.arange(len(idx)), idx] = 1.0
+        return out
+
+    baseline, losses = 0.0, []
+    for _ in range(iters):
+        states = rng.randint(0, n_state, batch)
+        X = nd.array(one_hot(states, n_state))
+        with autograd.train_section():
+            h = nd.maximum(nd.dot(X, W1), nd.zeros((batch, hidden)))
+            probs = nd.softmax(nd.dot(h, W2))
+            p = probs.asnumpy()
+            actions = np.array([rng.choice(n_arm, p=pi / pi.sum())
+                                for pi in p])
+            rewards = (actions == (states % n_arm)).astype(np.float32)
+            adv = rewards - baseline
+            picked = nd.sum(probs * nd.array(one_hot(actions, n_arm)),
+                            axis=1)
+            loss = nd.sum(nd.log(picked + 1e-8) * nd.array(-adv / batch))
+        autograd.compute_gradient([loss])
+        W1[:] = W1.asnumpy() - lr * G1.asnumpy()
+        W2[:] = W2.asnumpy() - lr * G2.asnumpy()
+        baseline = 0.9 * baseline + 0.1 * rewards.mean()
+        losses.append(float(loss.asnumpy()))
+    states = np.arange(n_state).repeat(8)
+    X = nd.array(one_hot(states, n_state))
+    h = nd.maximum(nd.dot(X, W1), nd.zeros((len(states), hidden)))
+    greedy = nd.dot(h, W2).asnumpy().argmax(1)
+    return (losses, float(rewards.mean()),
+            float((greedy == (states % n_arm)).mean()))
+
+
+def test_numpy_softmax_matches_jax_and_passes():
+    (jl, jacc), (tl, tacc) = numpy_softmax(mx), numpy_softmax(mt)
+    assert len(tl) == len(jl) == 10
+    np.testing.assert_allclose(tl, jl, **TOL)
+    assert tacc >= 0.95 and jacc >= 0.95
+
+
+def test_multi_task_matches_jax_and_passes():
+    (jl, jaccs), (tl, taccs) = multi_task(mx), multi_task(mt)
+    assert len(tl) == len(jl) == 12
+    np.testing.assert_allclose(tl, jl, **TOL)
+    assert min(taccs) >= 0.95 and min(jaccs) >= 0.95
+
+
+def test_text_cnn_matches_jax_and_passes():
+    """Dropout draws its masks from each package's generator, so the
+    losses are held with the example's dropout at 0 (its graph otherwise
+    as it is); the example itself (dropout 0.25) must pass its check in
+    both packages."""
+    (jl, _), (tl, _) = text_cnn(mx, dropout=0.0), text_cnn(mt, dropout=0.0)
+    assert len(tl) == len(jl) == 8
+    np.testing.assert_allclose(tl, jl, **TOL)
+    (jl, jacc), (tl, tacc) = text_cnn(mx), text_cnn(mt)
+    assert tl[-1] < tl[0] and jl[-1] < jl[0]
+    assert tacc >= 0.9 and jacc >= 0.9
+
+
+def test_fgsm_matches_jax_and_passes():
+    (jl, jclean, jadv), (tl, tclean, tadv) = fgsm(mx), fgsm(mt)
+    assert len(tl) == len(jl) == 4
+    np.testing.assert_allclose(tl, jl, **TOL)
+    assert tclean >= 0.95 and tadv <= tclean - 0.3
+    assert jclean >= 0.95 and jadv <= jclean - 0.3
+    assert (tclean, tadv) == (jclean, jadv)
+
+
+def test_reinforce_matches_jax_and_passes():
+    (jl, jr, jacc), (tl, tr, tacc) = reinforce(mx), reinforce(mt)
+    assert len(tl) == len(jl) == 300
+    np.testing.assert_allclose(tl, jl, **TOL)
+    assert tr == jr
+    assert tacc >= 0.9 and jacc >= 0.9

@@ -67,7 +67,7 @@ def _worker(out_dir):
         akv.pull(5, out=(o := mt.nd.zeros((2,))))
         res["async_pull"] = o.asnumpy().tolist()       # 1 + 2
 
-        mesh = tmesh.global_data_mesh()
+        mesh = tmesh.global_data_mesh(local_devices=["cpu"])
         res["mesh"] = [tmesh.is_multiprocess(mesh), mesh.nproc, mesh.rank]
         g = tmesh.host_to_global(mesh, tmesh.P("data"),
                                  np.full((2, 2), float(rank), np.float32))

@@ -66,6 +66,12 @@ def _rng(name):
     return np.random.default_rng(zlib.crc32(name.encode()))
 
 
+def _cpu_mesh(n):
+    """A 'data' mesh of ``n`` positions on the CPU (without CUDA a mesh
+    has no default devices)."""
+    return data_parallel_mesh(n, devices=["cpu"] * n)
+
+
 # ---------------------------------------------------------------------------
 # the MLP of tests/test_multichip.py through Module.fit
 # ---------------------------------------------------------------------------
@@ -155,7 +161,7 @@ def test_sharded_fit_engages_mesh_and_superbatch_sharding():
 def test_superbatch_iter_lands_split():
     """With ``sharding=``, each stacked slot comes split per replica and
     the step over that mesh takes it as it is."""
-    mesh = data_parallel_mesh(8)
+    mesh = _cpu_mesh(8)
     sh = tmesh.superbatch_sharding(mesh)
     X, y = _fit_data()
     it = mt.io.NDArrayIter(X, y, batch_size=32)
@@ -314,7 +320,7 @@ def _rn_steps(monkeypatch, compute_dtype=None, lr=0.01, n=4):
     jst = jstep.init({"data": (B, HW, HW, 3)}, {"softmax_label": (B,)},
                      seed=3)
     monkeypatch.setenv("MXTPU_FUSE_CONV_BN", "1")
-    tstep = TrainStep(_narrow_resnet(mt), mesh=data_parallel_mesh(n),
+    tstep = TrainStep(_narrow_resnet(mt), mesh=_cpu_mesh(n),
                       device="cpu", **kw)
     tst = tstep.replicate_state(convert.from_reference_state(jst, "cpu"))
     monkeypatch.setenv("MXTPU_FUSE_CONV_BN", "interpret")
@@ -417,7 +423,7 @@ def test_mesh_k2_equals_k1(monkeypatch):
     sb = _rn_batch(k=2, seed=4)
     states = []
     for k in (2, 1):
-        ts = TrainStep(_narrow_resnet(mt), mesh=data_parallel_mesh(4),
+        ts = TrainStep(_narrow_resnet(mt), mesh=_cpu_mesh(4),
                        learning_rate=0.01, device="cpu")
         st = ts.init({"data": (B, HW, HW, 3)}, {"softmax_label": (B,)})
         if k == 2:
@@ -439,7 +445,7 @@ def test_dropout_on_mesh_matches_single_device():
     X, y = _fit_data(16)
     batch = {"data": X, "softmax_label": y}
     res = []
-    for mesh in (None, data_parallel_mesh(4)):
+    for mesh in (None, _cpu_mesh(4)):
         mt.random.seed(11)
         ts = TrainStep(_mlp(mt, dropout=0.5), mesh=mesh, learning_rate=0.1,
                        device="cpu")
@@ -458,7 +464,7 @@ def test_guard_on_mesh_takes_one_decision():
     """guard.grad_nan at 8 replicas: the poisoned step is a no-op on every
     replica (one decision, from the summed gradients), the skip rides the
     packed sums, and the replicas stay identical."""
-    mesh = data_parallel_mesh(8)
+    mesh = _cpu_mesh(8)
     ts = TrainStep(_mlp(mt), optimizer="sgd", learning_rate=0.1,
                    momentum=0.9, mesh=mesh, device="cpu")
     K, bs = 4, 16
@@ -493,7 +499,7 @@ def test_sharded_checkpoint_resume_bitwise(tmp_path):
 
 def test_shard_batch_rejects_indivisible_batch():
     """The JAX package's messages (tests/test_multichip.py)."""
-    ts = TrainStep(_mlp(mt), optimizer="sgd", mesh=data_parallel_mesh(8))
+    ts = TrainStep(_mlp(mt), optimizer="sgd", mesh=_cpu_mesh(8))
     with pytest.raises(MXNetError, match="does not divide"):
         ts.shard_batch({"data": np.zeros((6, 10), np.float32)})
     with pytest.raises(MXNetError, match="does not divide"):
@@ -693,7 +699,7 @@ def test_tn_superbatch_and_shard_batch_split_along_the_layouts_n():
     """A TN input whose time and batch sizes are equal splits along dim 1
     (its layout's 'N'), in ``SuperBatchIter(sharding=)``, in
     ``TrainStep.shard_batch`` with ``batch_axes`` and on the bind path."""
-    mesh = data_parallel_mesh(2, devices=["cpu"] * 2)
+    mesh = _cpu_mesh(2)
     x = np.arange(16, dtype=np.float32).reshape(4, 4)
     desc = mt.io.DataDesc("data", (4, 4), layout="TN")
 
@@ -818,7 +824,7 @@ def _precision_study(image, batch, replicas=2, seed=0):
     sb = {"data": torch.rand((1, batch, image, image, 3), generator=gen),
           "softmax_label": torch.randint(0, 1000, (1, batch),
                                          generator=gen).float()}
-    mesh = data_parallel_mesh(replicas, devices=["cpu"] * replicas)
+    mesh = _cpu_mesh(replicas)
 
     def update(on_mesh, dtype):
         ts = TrainStep(sym, mesh=mesh if on_mesh else None,

@@ -22,28 +22,50 @@ from mxnet_tpu_torch.parallel import mesh as tmesh
 from mxnet_tpu_torch.parallel.mesh import P
 
 TOL = dict(rtol=1e-5, atol=1e-6)
+#: the CPU positions a mesh of the port is built over here (without CUDA a
+#: mesh has no default devices)
+CPUS = ["cpu"] * 8
 
 
 def test_mesh_helpers_match_jax():
-    for pkg in (jmesh, tmesh):
-        mesh = pkg.data_parallel_mesh(8)
+    for pkg, devs in ((jmesh, {}), (tmesh, {"devices": CPUS})):
+        mesh = pkg.data_parallel_mesh(8, **devs)
         assert pkg.data_axis_size(mesh) == 8
         assert pkg.data_axis_size(None) == 1
         assert tuple(pkg.superbatch_sharding(mesh).spec) == (None, "data")
         assert pkg.superbatch_sharding(None) is None
-        assert dict(pkg.make_mesh({"data": 4, "model": 2}).shape) == {
-            "data": 4, "model": 2}
+        assert dict(pkg.make_mesh({"data": 4, "model": 2}, **devs).shape) \
+            == {"data": 4, "model": 2}
         with pkg.MeshScope(mesh):
             assert pkg.current_mesh() is mesh
         assert pkg.current_mesh() is None
         assert pkg.is_multiprocess(mesh) is False
     from mxnet_tpu.train_step import data_parallel_spec as jspec
     from mxnet_tpu_torch.train_step import data_parallel_spec as tspec
-    assert dict(tspec({"data": 4}).shape) == dict(jspec({"data": 4}).shape)
+    assert dict(tspec({"data": 4}, devices=CPUS).shape) == dict(
+        jspec({"data": 4}).shape)
     with pytest.raises(mx.MXNetError):
         jmesh.make_mesh({"data": 16})
     with pytest.raises(MXNetError, match="needs 16 devices, have 8"):
-        tmesh.make_mesh({"data": 16}, tmesh.devices()[:8])
+        tmesh.make_mesh({"data": 16}, CPUS)
+
+
+def test_default_devices_raise_without_cuda(monkeypatch):
+    """Without CUDA a mesh has no default devices: ``devices()`` and the
+    builders that default to it raise, naming ``devices=["cpu"] * n``, as
+    ``context.resolve_device`` refuses a CUDA default (no quiet CPU
+    fallback); with CPU positions passed they build."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for call in (tmesh.devices, lambda: tmesh.make_mesh({"data": 2}),
+                 lambda: tmesh.data_parallel_mesh(2),
+                 lambda: tmesh.model_parallel_mesh(2),
+                 lambda: tmesh.mesh_from_spec("data=2"),
+                 tmesh.global_data_mesh):
+        with pytest.raises(MXNetError, match=r'devices=\["cpu"\] \* n'):
+            call()
+    mesh = tmesh.data_parallel_mesh(2, devices=CPUS)
+    assert mesh.replica_devices() == [torch.device("cpu")] * 2
+    assert tmesh.global_data_mesh(local_devices=["cpu"]).nproc == 1
 
 
 @pytest.mark.parametrize("value,n", [(32, 8), (36, 8), (6, 4), (5, 1)])
@@ -54,7 +76,7 @@ def test_check_axis_divides_matches_jax(value, n):
             return None
         except Exception as e:      # noqa: BLE001 -- the message compared
             return str(e)
-    assert call(tmesh, tmesh.data_parallel_mesh(n)) == \
+    assert call(tmesh, tmesh.data_parallel_mesh(n, devices=CPUS)) == \
         call(jmesh, jmesh.data_parallel_mesh(n))
 
 
@@ -67,14 +89,15 @@ def test_grad_sync_matches_jax_psum():
                    mesh=dp, in_specs=jax.sharding.PartitionSpec("data"),
                    out_specs=jax.sharding.PartitionSpec("data"))
     want = np.asarray(fn(jnp.arange(8.0)))
-    g = tmesh.shard_batch(torch.arange(8.0), tmesh.data_parallel_mesh(4))
+    g = tmesh.shard_batch(torch.arange(8.0),
+                          tmesh.data_parallel_mesh(4, devices=CPUS))
     got = tmesh.grad_sync({"w": g})["w"]
     assert got.axis is None
     np.testing.assert_array_equal(torch.cat(got.parts).numpy(), want)
 
 
 def test_mesh_array_split_replicate_gather():
-    mesh = tmesh.data_parallel_mesh(4)
+    mesh = tmesh.data_parallel_mesh(4, devices=CPUS)
     t = torch.arange(24.0).reshape(2, 4, 3)
     a = tmesh.split(t, mesh, 1)
     assert a.shape == (2, 4, 3) and a.axis == 1
@@ -111,13 +134,13 @@ def test_batch_axes_follow_the_layouts_n():
     assert tmesh.batch_axes({"data": (4, 4)}, {"data": 1}) == (
         4, {"data": 1})
     assert tmesh.batch_axes({"data": (5, 4)}) == (5, {"data": 0})
-    mesh = tmesh.data_parallel_mesh(2)
+    mesh = tmesh.data_parallel_mesh(2, devices=CPUS)
     assert tmesh.shard_shape((5, 4), mesh, 1) == (5, 2)
     assert tmesh.shard_shape((5, 4), mesh, None) == (5, 4)
 
 
 def test_all_reduce_is_the_same_on_every_replica_and_differentiable():
-    mesh = tmesh.data_parallel_mesh(4)
+    mesh = tmesh.data_parallel_mesh(4, devices=CPUS)
     devs = mesh.replica_devices()
     xs = [torch.full((3,), float(i + 1), requires_grad=True)
           for i in range(4)]
@@ -150,13 +173,15 @@ def test_multiprocess_helpers_match_jax_in_one_process(helper):
     and the local view of a global value is the value (exact). Across two
     processes over gloo: ``tests/test_torch_kvstore_dist.py``."""
     x = np.arange(24, dtype=np.float32).reshape(8, 3)
-    jm, tm = jmesh.global_data_mesh(), tmesh.global_data_mesh()
+    jm = jmesh.global_data_mesh()
+    tm = tmesh.global_data_mesh(local_devices=["cpu"])
     if helper == "global_data_mesh":
         assert jmesh.is_multiprocess(jm) is tmesh.is_multiprocess(tm) \
             is False
         assert jm.axis_names == tm.axis_names == ("data",)
         assert tm.nproc == 1 and tm.rank == 0
-        assert tmesh.global_data_mesh("worker").axis_names == ("worker",)
+        assert tmesh.global_data_mesh("worker", ["cpu"]).axis_names == (
+            "worker",)
     elif helper == "host_to_global":
         for spec in (jmesh.P("data"), jmesh.P()):
             j = np.asarray(jmesh.host_to_global(jm, spec, x))
@@ -181,7 +206,7 @@ def _ported_case(case):
     """One formerly-raising multi-axis surface, as the port runs it and as
     the JAX package does: ``(port result, JAX result)``."""
     if case == "model_parallel_mesh":
-        return ({k: v for k, v in tmesh.model_parallel_mesh(2).shape.items()},
+        return (dict(tmesh.model_parallel_mesh(2, CPUS).shape),
                 {k: v for k, v in zip(
                     jmesh.model_parallel_mesh(2).axis_names,
                     jmesh.model_parallel_mesh(2).devices.shape)})
@@ -189,12 +214,12 @@ def _ported_case(case):
         return (tmesh.parse_mesh_axes("data=2,seq=2"),
                 jmesh.parse_mesh_axes("data=2,seq=2"))
     if case == "mesh_from_spec":
-        t, j = tmesh.mesh_from_spec("data=2,pipe=4"), \
+        t, j = tmesh.mesh_from_spec("data=2,pipe=4", CPUS), \
             jmesh.mesh_from_spec("data=2,pipe=4")
         return dict(t.shape), dict(zip(j.axis_names, j.devices.shape))
     if case == "superbatch_seq":
-        t = tmesh.superbatch_sharding(tmesh.make_mesh({"data": 2, "seq": 2}),
-                                      seq=True)
+        t = tmesh.superbatch_sharding(
+            tmesh.make_mesh({"data": 2, "seq": 2}, CPUS), seq=True)
         j = jmesh.superbatch_sharding(jmesh.make_mesh({"data": 2, "seq": 2}),
                                       seq=True)
         return tuple(t.spec), tuple(j.spec)
@@ -267,7 +292,7 @@ def test_module_model_axis_options_raise_citing_a7b(monkeypatch):
 def _plan(net, shapes, n=4):
     """mesh_plan of every op node of ``net`` with its inputs split along
     their batch axis (``shapes``: the whole batch's, dim 0 the batch)."""
-    mesh = tmesh.data_parallel_mesh(n)
+    mesh = tmesh.data_parallel_mesh(n, devices=CPUS)
     ex = simple_bind(net, mt.cpu(), grad_req="null", mesh=mesh,
                      batch_names=list(shapes), **shapes)
     vals, _ = ex._to_mesh({k: v.data for k, v in ex.arg_dict.items()}, {})
@@ -317,7 +342,7 @@ def test_mesh_plan_whole_batch_shapes_and_inference_errors():
     shard's: it runs on the whole batch. Shape inference that fails at the
     whole batch's shapes raises, naming the node, instead of running it on
     the gathered batch."""
-    mesh = tmesh.data_parallel_mesh(4)
+    mesh = tmesh.data_parallel_mesh(4, devices=CPUS)
     ins = [tmesh.split(torch.zeros(8, 4), mesh, 0)]
     x = mt.sym.Variable("data")
     fixed = mt.sym.Reshape(x, shape=(8, 4), name="fixed")._out_nodes()[0]
@@ -331,7 +356,7 @@ def _walk_both(net, feeds, heads_scale=1.0):
     """Outputs and gradients of one training forward and backward, on one
     device and over a 4-replica mesh."""
     res = []
-    for mesh in (None, tmesh.data_parallel_mesh(4)):
+    for mesh in (None, tmesh.data_parallel_mesh(4, devices=CPUS)):
         ex = simple_bind(net, mt.cpu(), mesh=mesh, batch_names=["data"],
                          data=feeds["data"].shape)
         rng = np.random.default_rng(5)
@@ -376,7 +401,7 @@ def test_softmax_output_normalisation_over_the_whole_batch(norm):
     data = np.random.default_rng(3).normal(size=(8, 5)).astype(np.float32)
     label = np.array([0, 1, 2, 3, 0, 0, 1, 2], np.float32)
     res = []
-    for mesh in (None, tmesh.data_parallel_mesh(4)):
+    for mesh in (None, tmesh.data_parallel_mesh(4, devices=CPUS)):
         ex = simple_bind(net, mt.cpu(), mesh=mesh,
                          batch_names=["data", "softmax_label"],
                          data=(8, 5), softmax_label=(8,))

@@ -19,6 +19,13 @@
   and ``base.NotImplementedForTPU``) resolve in both packages to the same
   kind of object, and ``nest_check`` gives the JAX package's list on the
   same events, an overlap violation among them (exact).
+- The device defaults of the analyzers do not fall back to the CPU on a
+  host without CUDA: ``memcheck._device(None)`` and
+  ``devspec.device_kind(None)`` raise ``MXNetError`` as
+  ``context.resolve_device`` does (``parallel.mesh.devices()``: in
+  ``tests/test_torch_parallel.py``), and ``memcheck``'s lints budget a
+  report by the device it priced: a CPU report on a card host gets the
+  CPU's 16 GiB, not the card's memory (exact).
 - ``MXNET_ENGINE_TYPE=NaiveEngine`` and ``engine.set_engine_type``: naive
   mode in both packages, each imperative op passes its result through
   ``engine.maybe_sync``, and the values equal the JAX package's (exact:
@@ -31,6 +38,7 @@ import sys
 
 import numpy as np
 import pytest
+import torch
 
 import mxnet_tpu as mx
 from mxnet_tpu import faults as jfaults
@@ -38,6 +46,7 @@ from mxnet_tpu.obs.registry import REGISTRY as JREGISTRY
 from mxnet_tpu.train_step import TrainStep as JTrainStep
 import mxnet_tpu_torch as mt
 from mxnet_tpu_torch import convert, faults as tfaults
+from mxnet_tpu_torch.base import MXNetError
 from mxnet_tpu_torch.obs.registry import REGISTRY
 from mxnet_tpu_torch.train_step import TrainStep
 
@@ -256,3 +265,43 @@ def test_engine_type_is_read_from_the_environment():
         env=env, capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "True"
+
+
+def test_analyzer_device_defaults_raise_without_cuda(monkeypatch):
+    from mxnet_tpu_torch import devspec, memcheck
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for call in (lambda: memcheck._device(None), memcheck.device_budget,
+                 memcheck.budget_bytes, lambda: devspec.device_kind(None),
+                 devspec.lookup, devspec.peak_flops):
+        with pytest.raises(MXNetError, match="device='cpu'"):
+            call()
+    assert memcheck._device("cpu") == torch.device("cpu")
+    assert devspec.device_kind("cpu") == "cpu"
+
+
+def test_memcheck_lints_budget_by_the_reports_device(monkeypatch):
+    """On a card host (CUDA monkeypatched in, an 80 GB card) a report
+    priced on the CPU is budgeted at the CPU's 16 GiB, and one priced on
+    the card at the card's memory, with no budget passed."""
+    from mxnet_tpu_torch import memcheck
+
+    class Props:
+        total_memory = 80 * 10 ** 9
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
+    monkeypatch.setattr(torch.cuda, "get_device_properties",
+                        lambda i=0: Props)
+    monkeypatch.delenv("MXTPU_MEMCHECK_BUDGET", raising=False)
+    rep = memcheck.analyze(lambda x: x * 2.0, (torch.zeros(4),),
+                           name="cpu/step")
+    assert rep.device == "cpu" and rep.as_dict()["device"] == "cpu"
+    peak = 20 << 30      # between the CPU's 16 GiB and the card's 80 GB
+    for device, fires in (("cpu", True), ("cuda:0", False)):
+        r = memcheck.MemoryReport("p/step", "cpu", peak, 0, 0, 0,
+                                  device=device)
+        got = [f.lint for f in memcheck.lint_report(r)]
+        assert got == (["hbm-budget"] if fires else []), device
+        got = memcheck.lint_resident_set([r], "p/resident-set")
+        assert bool(got) is fires, device
+    assert memcheck.MemoryReport("p", "gpu", 0, 0, 0, 0).device == "cuda:0"
