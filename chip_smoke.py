@@ -502,6 +502,34 @@ non-zero):
    under "off" no dry run runs. (e) python -m mxnet_tpu_torch.flopcheck
    --zoo --json --hotspots 5 --device cuda:0 in a child beside (a)-(d):
    exit 0, its programs, findings and seconds.
+27. commscheck: the communication analyzer on the card (last). (a) phase
+   18's two-position 'data' mesh on cuda:0, ResNet-50 NHWC bf16 at
+   global batch 128: commscheck.check_train_step(k=1) on fake cuda:0
+   tensors, then one real dispatch of the step: the inventory's forward
+   collectives by kind equal the dispatch's parallel.mesh.COUNTERS by
+   kind, B1 launched 66 times (33 a position), the gradient all-reduces
+   102,228,128 bytes (phase 22's per-rank bytes; a difference is named by
+   entry), and the step's collective count, bytes, wire bytes,
+   comm_seconds and predicted efficiency at the card's devspec row. (b)
+   phase 21's model-parallel SSD engine (two positions on cuda:0, B2 once
+   a dispatch) and the LM's sharded DecodeLoop at phase 17's widths:
+   each comms_report, a real dispatch of each bucket counting what its
+   inventory holds, check(comms=True) with every finding of an expected
+   kind (replicated-large on the engine's gathered convolution outputs,
+   resharding-copy on the loop's LayerNorm parameters, which the
+   placement rule splits and the loop gathers whole), and
+   FleetRouter.check(comms=True) over a fleet of the sharded engine.
+   (c) the audit hook on a 'data' mesh: under set_commscheck("warn") one
+   audit of the first dispatch key and none on its second dispatch, under
+   "error" the first K-step dispatch of a step whose batch sum gathers
+   along 'data' in the loop raises naming the node, under "off" no dry
+   run. (d) python -m mxnet_tpu_torch.commscheck --sharded --device cuda:0
+   --json and python -m mxnet_tpu_torch.flopcheck --sharded --device
+   cuda:0 --json in children started with the phase: each sharded
+   program's comm_seconds, non-zero, and no unsuppressed finding but the
+   expected ones (COMMSCHECK_SHARDED_EXPECTED: the flat-head transformer
+   step's resharding-copy of its label, comms-bound on the gate's tiny
+   programs at the H100's peak, flopcheck's tiny-dispatch).
 
 The line before the ops line is the card's name and power limit; then
 {"ops": [...], "examples": {...}} (phase 20's figures); then
@@ -510,8 +538,8 @@ its main path (phase 16's LSTM path and phase 17's LM path launch none;
 B1's include phase 18's mesh dispatches, bf16 and f32, and phase 22's
 dist ranks, launches_dist; every kernel's include phase 23's through the
 C ABI, launches_capi; B1's bf16 and B2's include phase 24's real step and
-forwards, launches_memcheck, phase 25's, launches_tracecheck, and phase
-26's, launches_flopcheck),
+forwards, launches_memcheck, phase 25's, launches_tracecheck, phase
+26's, launches_flopcheck, and phase 27's, launches_commscheck),
 max error against the plain version, times and bound; the
 NMS kernel's launches also by path: serving, training, the serving tier,
 training from JPEG records and model-parallel serving (phase 21); the
@@ -8942,6 +8970,378 @@ def flopcheck_phase(seed, card):
     return {"B1": b1, "B2": b2}
 
 
+# ---------------------------------------------------------------------------
+# phase 27: commscheck, the communication analyzer
+# ---------------------------------------------------------------------------
+
+#: (a) the f32 gradients of ResNet-50 (1000 classes), one position's: the
+#: bytes a rank sent a step through the TCPStore in phase 22
+COMMSCHECK_GRAD_BYTES = 102228128
+#: (b) the sharded engine's buckets (phase 21's)
+COMMSCHECK_BUCKETS = BUCKETS
+#: (b) the findings each sharded serving program may carry, by lint, with
+#: the reason: the engine gathers each convolution's output slices whole
+#: on every position (column-parallel, then a gather), which passes 1 MiB
+#: at 300x300; the placement rule splits the LM's 1-D LayerNorm gamma and
+#: beta along the model axis and the loop gathers them whole each token
+COMMSCHECK_EXPECTED = {"ServingEngine": {"replicated-large"},
+                       "DecodeLoop": {"resharding-copy"}}
+#: (d) the sharded set's expected findings by tool. commscheck's: the
+#: flat-head transformer step gathers its label argument along 'seq'
+#: before its Reshape (where GSPMD gathers the Reshape's output), and
+#: ``comms-bound`` on any of the four: the gate's programs are tiny (a
+#: position computes microseconds at the H100's bf16 peak) while their
+#: gradients keep every parameter's bytes. flopcheck's: ``tiny-dispatch``
+#: (the eager port launches every op on its own, eight positions' worth on
+#: one card: tracecheck.ZOO's reason)
+COMMSCHECK_SHARDED_EXPECTED = {
+    "commscheck": lambda f: f["lint"] == "comms-bound" or (
+        f["lint"], f["program"]) == ("resharding-copy",
+                                     "dp4xsp2/transformer-ring/step"),
+    "flopcheck": lambda f: f["lint"] == "tiny-dispatch"}
+#: (d) the children's time limit, seconds
+COMMSCHECK_CLI_TIMEOUT = 600
+#: ``parallel.mesh.COUNTERS``' keys as the inventory's kinds
+COUNTER_KINDS = {"all_reduce": "all-reduce", "all_gather": "all-gather",
+                 "broadcast": "collective-broadcast",
+                 "ppermute": "collective-permute",
+                 "all_to_all": "all-to-all"}
+
+
+def _forward_kinds(rep):
+    """A CommsReport's forward collectives by kind (the transposes the
+    backward runs are not counted in COUNTERS)."""
+    out = {}
+    for e in rep.entries:
+        if not e.transpose:
+            out[e.kind] = out.get(e.kind, 0) + e.multiplier
+    return out
+
+
+def _counted():
+    from mxnet_tpu_torch.parallel import mesh as pm
+    return {COUNTER_KINDS[k]: v for k, v in pm.COUNTERS.items() if v}
+
+
+def commscheck_resnet(seed, card, problems):
+    """(a). Returns B1's launches."""
+    import torch
+    import mxnet_tpu_torch as mt
+    from mxnet_tpu_torch import commscheck as cc, models
+    from mxnet_tpu_torch.ops import matmul_stats as ms
+    from mxnet_tpu_torch.parallel import mesh as pm
+    from mxnet_tpu_torch.train_step import TrainStep
+    os.environ["MXTPU_FUSE_CONV_BN"] = "1"
+    bsz, img = RESNET_BATCH, RESNET_IMAGE
+    with mt.symbol.NameManager():
+        sym = models.resnet(num_classes=RESNET_CLASSES, num_layers=50,
+                            image_shape="3,%d,%d" % (img, img),
+                            layout="NHWC")
+    mesh = pm.make_mesh({"data": MESH_REPLICAS},
+                        [MESH_DEVICE] * MESH_REPLICAS)
+    ts = TrainStep(sym, mesh=mesh, optimizer="sgd", learning_rate=0.1,
+                   momentum=0.9, wd=1e-4, compute_dtype="bfloat16")
+    shapes = ({"data": (bsz, img, img, 3)}, {"softmax_label": (bsz,)})
+    name = "dp%d-resnet50-nhwc-bf16-b%d" % (MESH_REPLICAS, bsz)
+    t0 = time.perf_counter()
+    findings, reports = cc.check_train_step(ts, *shapes, k=1, guard=False,
+                                            name=name)
+    dt = time.perf_counter() - t0
+    rep = reports[name + "/step"]
+    log("commscheck (a) %s: %d collectives a dispatch (%s), %d B payload, "
+        "%d B on the wire, comm_seconds %.6g, compute_seconds %.6g (%.6g "
+        "FLOP a position, peak %.4g FLOP/s, link %.4g B/s), predicted "
+        "efficiency %.6f; check_train_step(k=1) %d programs in %.2f s, %d "
+        "findings (%d unsuppressed) [%s]"
+        % (rep.program, rep.collective_count, rep.counts_by_kind(),
+           rep.collective_bytes, rep.wire_bytes, rep.comm_seconds,
+           rep.compute_seconds, rep.flops, rep.peak_flops_per_s,
+           rep.link_bytes_per_s, rep.predicted_efficiency, len(reports),
+           dt, len(findings), len(cc.unsuppressed(findings)), card))
+    for line in rep.breakdown(top=4):
+        log("commscheck (a)   " + line)
+    for f in findings:
+        log("commscheck (a)   " + f.format().split("\n")[0])
+    if cc.unsuppressed(findings) or rep.hlo_unavailable:
+        problems.append("commscheck (a): %d unsuppressed findings, dry run "
+                        "failed: %s" % (len(cc.unsuppressed(findings)),
+                                        rep.hlo_unavailable))
+    grads = [e for e in rep.entries
+             if (e.op_path or "").startswith("gradient/")]
+    got = sum(e.bytes for e in grads)
+    log("commscheck (a) the gradient all-reduces: %d entries (%s), %d B "
+        "against phase 22's %d B a rank [%s]"
+        % (len(grads), sorted({(e.kind, e.axes, e.group_size)
+                               for e in grads}), got, COMMSCHECK_GRAD_BYTES,
+           card))
+    if got != COMMSCHECK_GRAD_BYTES:
+        named = ["%s %d B" % (e.op_path, e.bytes) for e in grads]
+        problems.append("commscheck (a): gradient all-reduces %d B, not %d "
+                        "(%+d): %s" % (got, COMMSCHECK_GRAD_BYTES,
+                                       got - COMMSCHECK_GRAD_BYTES, named))
+    state = ts.init(*shapes, seed=seed)
+    gen = torch.Generator(device=MESH_DEVICE)
+    gen.manual_seed(seed + 27)
+    batch = {"data": torch.randn((bsz, img, img, 3), generator=gen,
+                                 device=MESH_DEVICE),
+             "softmax_label": torch.randint(
+                 0, RESNET_CLASSES, (bsz,), generator=gen,
+                 device=MESH_DEVICE).float()}
+    torch.cuda.synchronize()
+    # the main path: counts at 0 just before, read just after
+    pm.reset_counters()
+    ms.reset_launches()
+    ts.step(state, batch)
+    torch.cuda.synchronize()
+    b1, counted = ms.LAUNCHES, _counted()
+    log("commscheck (a) one real dispatch: COUNTERS %s, the inventory's "
+        "forward collectives %s; B1 %d launches by route %s [%s]"
+        % (counted, _forward_kinds(rep), b1, dict(ms.LAUNCHES_BY_ROUTE),
+           card))
+    if counted != _forward_kinds(rep):
+        problems.append("commscheck (a): COUNTERS %s, inventory %s"
+                        % (counted, _forward_kinds(rep)))
+    if b1 != MESH_REPLICAS * sum(B1_STEP_SHAPES.values()):
+        problems.append("commscheck (a): B1 launched %d times a step" % b1)
+    del ts, state, batch
+    return b1
+
+
+def _unexpected(findings, lints):
+    """The unsuppressed findings whose lint is not in ``lints``."""
+    return [f for f in findings if not f.suppressed and f.lint not in lints]
+
+
+def commscheck_serving(seed, card, problems):
+    """(b). Returns B2's launches (the engine's warm-up and one dispatch a
+    bucket)."""
+    import torch
+    from mxnet_tpu_torch.ops import multibox_nms as mnms
+    from mxnet_tpu_torch.serving import Batcher, FleetRouter, ServingEngine
+    from mxnet_tpu_torch.parallel import mesh as pm
+    n0 = mnms.LAUNCHES
+    with tempfile.TemporaryDirectory() as tmp:
+        prefix = os.path.join(tmp, "ssd")
+        ssd_checkpoint(prefix, seed)
+        eng = ServingEngine(prefix + "-symbol.json", prefix + "-0000.params",
+                            {"data": SSD_INPUT}, buckets=COMMSCHECK_BUCKETS,
+                            device=MP_DEVICE, contexts=MP_POSITIONS)
+    t0 = time.perf_counter()
+    reps = eng.comms_report()
+    dt = time.perf_counter() - t0
+    rng = np.random.default_rng(seed + 27)
+    for b in COMMSCHECK_BUCKETS:
+        rep = reps["%s/bucket[b=%d]" % (eng.name, b)]
+        x = {"data": rng.random((b,) + SSD_INPUT, dtype=np.float32)}
+        torch.cuda.synchronize()
+        pm.reset_counters()
+        launched = mnms.LAUNCHES
+        eng.infer(x)
+        torch.cuda.synchronize()
+        counted, b2 = _counted(), mnms.LAUNCHES - launched
+        log("commscheck (b) %s: %d collectives (%s), %d B payload, "
+            "comm_seconds %.6g, predicted efficiency %.6f; a real dispatch "
+            "counted %s, B2 %d [%s]"
+            % (rep.program, rep.collective_count, rep.counts_by_kind(),
+               rep.collective_bytes, rep.comm_seconds,
+               rep.predicted_efficiency, counted, b2, card))
+        if counted != _forward_kinds(rep) or b2 != 1 or rep.hlo_unavailable:
+            problems.append("commscheck (b) bucket %d: COUNTERS %s, "
+                            "inventory %s, B2 %d" % (
+                                b, counted, _forward_kinds(rep), b2))
+    log("commscheck (b) the engine's comms_report: %d buckets in %.2f s [%s]"
+        % (len(reps), dt, card))
+    findings = eng.check(comms=True)
+    router = FleetRouter({"sharded": Batcher(eng)})
+    try:
+        fleet = router.check(comms=True)
+    finally:
+        router.close()
+    lm = lm_decode_loop(lm_params(seed), contexts=MP_POSITIONS)
+    try:
+        lreps = lm.comms_report()
+        lfindings = lm.check(comms=True)
+    finally:
+        lm.close()
+    for rep in lreps.values():
+        log("commscheck (b) %s: %d collectives a token (%s), %d B payload, "
+            "comm_seconds %.6g, predicted efficiency %.6f [%s]"
+            % (rep.program, rep.collective_count, rep.counts_by_kind(),
+               rep.collective_bytes, rep.comm_seconds,
+               rep.predicted_efficiency, card))
+    for who, fs in (("ServingEngine", findings), ("FleetRouter", fleet),
+                    ("DecodeLoop", lfindings)):
+        lints = COMMSCHECK_EXPECTED["DecodeLoop" if who == "DecodeLoop"
+                                    else "ServingEngine"]
+        by = {}
+        for f in fs:
+            by.setdefault(f.lint, []).append(f.op_path)
+        log("commscheck (b) %s.check(comms=True): %d findings %s; "
+            "expected kinds %s [%s]"
+            % (who, len(fs), {k: sorted(v) for k, v in by.items()},
+               sorted(lints), card))
+        bad = _unexpected(fs, lints)
+        if bad:
+            problems.append("commscheck (b) %s: %s" % (
+                who, [f.format().split("\n")[0] for f in bad]))
+    launches = mnms.LAUNCHES - n0
+    del eng
+    return launches
+
+
+def commscheck_hook(seed, card, problems):
+    """(c): the audit hook on a 'data' mesh under warn, error and off."""
+    import torch
+    import mxnet_tpu_torch as mt
+    from mxnet_tpu_torch import commscheck as cc, engine
+    from mxnet_tpu_torch.base import MXNetError
+    from mxnet_tpu_torch.parallel import mesh as pm
+    from mxnet_tpu_torch.train_step import TrainStep
+    runs = []
+    check = cc.check_program
+
+    def counted_check(*a, **kw):
+        runs.append(kw.get("name"))
+        return check(*a, **kw)
+
+    def step(seeded=False):
+        data = mt.sym.Variable("data")
+        h = mt.sym.FullyConnected(data, num_hidden=64, name="fc1")
+        if seeded:
+            s = mt.sym.sum(h, axis=0, keepdims=True, name="batch_sum")
+            h = mt.sym.broadcast_add(h, s, name="add_sum")
+        h = mt.sym.FullyConnected(h, num_hidden=4, name="fc2")
+        ts = TrainStep(mt.sym.SoftmaxOutput(h, name="softmax"),
+                       optimizer="sgd", learning_rate=0.1,
+                       mesh=pm.make_mesh({"data": MESH_REPLICAS},
+                                         [MESH_DEVICE] * MESH_REPLICAS))
+        state = ts.init({"data": (32, 16)}, {"softmax_label": (32,)},
+                        seed=seed)
+        gen = torch.Generator(device=MESH_DEVICE)
+        gen.manual_seed(seed + 27)
+        sb = {"data": torch.randn((2, 32, 16), generator=gen,
+                                  device=MESH_DEVICE),
+              "softmax_label": torch.randint(0, 4, (2, 32), generator=gen,
+                                             device=MESH_DEVICE).float()}
+        return ts, state, sb
+
+    cc.check_program = counted_check
+    try:
+        engine.set_commscheck("warn")
+        ts, state, sb = step()
+        t = time.perf_counter()
+        ts.run_steps(state, sb)[1].fetch()
+        first = time.perf_counter() - t
+        audited = list(runs)
+        ts.run_steps(state, sb)[1].fetch()
+        log("commscheck (c) warn: the first dispatch audited %s (%.3f s "
+            "with the dispatch), the second %d more [%s]"
+            % (audited, first, len(runs) - len(audited), card))
+        if len(audited) != 1 or len(runs) != 1:
+            problems.append("commscheck (c): warn ran %s" % runs)
+        engine.set_commscheck("error")
+        ts, state, sb = step(seeded=True)
+        try:
+            ts.run_steps(state, sb)
+            problems.append("commscheck (c): the first dispatch of the "
+                            "seeded gather under error did not raise")
+        except MXNetError as e:
+            msg = str(e)
+            log("commscheck (c) error: the first dispatch raised: %s [%s]"
+                % (" | ".join(msg.split("\n")[:3]), card))
+            if "[gather-in-loop]" not in msg or "batch_sum" not in msg:
+                problems.append("commscheck (c): error raised %r" % msg[:300])
+        engine.set_commscheck("off")
+        del runs[:]
+        ts, state, sb = step()
+        ts.run_steps(state, sb)[1].fetch()
+        log("commscheck (c) off: %d dry runs [%s]" % (len(runs), card))
+        if runs:
+            problems.append("commscheck (c): off ran %d dry runs"
+                            % len(runs))
+    finally:
+        cc.check_program = check
+        engine.set_commscheck(None)
+
+
+def commscheck_cli_start():
+    """(d): start the commscheck and flopcheck sharded CLIs on the card in
+    children, which run beside (a)-(c); returns them and their start
+    time."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=root)
+    return [subprocess.Popen(
+        [sys.executable, "-m", "mxnet_tpu_torch.%s" % tool, "--sharded",
+         "--device", "cuda:0", "--json"], cwd=root, env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for tool in ("commscheck", "flopcheck")], time.perf_counter()
+
+
+def commscheck_cli(started, card, problems):
+    """(d): each sharded program's comm_seconds from both CLIs, and their
+    findings."""
+    procs, t0 = started
+    for tool, proc in zip(("commscheck", "flopcheck"), procs):
+        try:
+            out, err = proc.communicate(timeout=COMMSCHECK_CLI_TIMEOUT)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            out, err = proc.communicate()
+        dt = time.perf_counter() - t0
+        try:
+            data = json.loads(out)
+        except ValueError:
+            problems.append("commscheck (d): %s --sharded exited %s\n%s%s"
+                            % (tool, proc.returncode, out[-2000:],
+                               err[-3000:]))
+            continue
+        bad = {(f["lint"], f["program"]) for f in data["findings"]
+               if not f["suppressed"]}
+        odd = sorted((f["lint"], f["program"]) for f in data["findings"]
+                     if not f["suppressed"]
+                     and not COMMSCHECK_SHARDED_EXPECTED[tool](f))
+        log("commscheck (d) python -m mxnet_tpu_torch.%s --sharded --device "
+            "cuda:0 --json: exit %d, %d programs, %d findings (%s), %.1f s "
+            "[%s]" % (tool, proc.returncode, len(data["programs"]),
+                      len(data["findings"]), sorted(bad), dt, card))
+        for pname, r in sorted(data["programs"].items()):
+            secs = (data["comm_seconds"][pname] if tool == "commscheck"
+                    else r["comm_seconds"])
+            log("commscheck (d)   %s: comm_seconds %.6g%s"
+                % (pname, secs, (", %d collectives, predicted efficiency %s"
+                                 % (r["collective_count"],
+                                    r["predicted_efficiency"])
+                                 if tool == "commscheck" else
+                                 ", predicted step %.4f ms"
+                                 % r["predicted_step_ms"])))
+            if not secs > 0:
+                problems.append("commscheck (d): %s %s comm_seconds %r"
+                                % (tool, pname, secs))
+        if len(data["programs"]) != 4 or data["baseline_failures"] or odd:
+            problems.append("commscheck (d): %s: %d programs, unexpected "
+                            "findings %s, failures %s"
+                            % (tool, len(data["programs"]), odd,
+                               data["baseline_failures"]))
+
+
+def commscheck_phase(seed, card):
+    """Phase 27 (last): commscheck, the communication analyzer, on the
+    card. Returns ``{"B1": n, "B2": n}``, the kernels' launches in the
+    phase."""
+    t_phase = time.perf_counter()
+    problems = []
+    cli = commscheck_cli_start()
+    b1 = commscheck_resnet(seed, card, problems)
+    b2 = commscheck_serving(seed, card, problems)
+    commscheck_hook(seed, card, problems)
+    commscheck_cli(cli, card, problems)
+    log("commscheck phase: B1 %d launches, B2 %d; %.1f s [%s]"
+        % (b1, b2, time.perf_counter() - t_phase, card))
+    if problems:
+        raise SystemExit("\n".join(problems))
+    return {"B1": b1, "B2": b2}
+
+
 def _nodes(sym):
     from mxnet_tpu_torch.symbol import _topo
     return _topo(sym._out_nodes())
@@ -9037,20 +9437,22 @@ def main():
     mem = timed(memcheck_phase, args.seed, card)
     tc25 = timed(tracecheck_phase, args.seed, card)
     fc26 = timed(flopcheck_phase, args.seed, card)
+    cc27 = timed(commscheck_phase, args.seed, card)
     log("seconds by phase (%.1f s in all from the build) %s [%s]"
         % (time.perf_counter() - t0, json.dumps(seconds), card))
     # B1 runs on three main paths: the train phase, the training API and
     # the bf16 mesh; its float32 route on the module phase and the f32 mesh
     b1.update(launches=(b1["launches"] + api_launches + mesh_launches["wgmma"]
                         + dist_launches + mem["B1"] + tc25["B1"]
-                        + fc26["B1"]),
+                        + fc26["B1"] + cc27["B1"]),
               launches_train=b1["launches"],
               launches_training_api=api_launches,
               launches_mesh=mesh_launches["wgmma"],
               launches_dist=dist_launches,
               launches_memcheck=mem["B1"],
               launches_tracecheck=tc25["B1"],
-              launches_flopcheck=fc26["B1"])
+              launches_flopcheck=fc26["B1"],
+              launches_commscheck=cc27["B1"])
     b1["launches_capi"] = 0
     b1_f32.update(launches=(b1_f32["launches"] + mesh_launches["tf32x3"]
                             + capi["B1"]),
@@ -9058,6 +9460,7 @@ def main():
                   launches_mesh=mesh_launches["tf32x3"],
                   launches_capi=capi["B1"], launches_memcheck=0,
                   launches_tracecheck=0, launches_flopcheck=0,
+                  launches_commscheck=0,
                   max_abs_err=max(b1_f32["max_abs_err"],
                                   capi_run["b1_err"]))
     # B2 runs on six main paths: serving (phase 5), training (phase 12),
@@ -9067,11 +9470,12 @@ def main():
     nms.update(launches=(serve_launches + ssd_train["launches"]
                          + tier_launches + data["launches"] + mp_launches
                          + capi["B2"] + mem["B2"] + tc25["B2"]
-                         + fc26["B2"]),
+                         + fc26["B2"] + cc27["B2"]),
                launches_capi=capi["B2"],
                launches_memcheck=mem["B2"],
                launches_tracecheck=tc25["B2"],
                launches_flopcheck=fc26["B2"],
+               launches_commscheck=cc27["B2"],
                max_abs_err=max(nms["max_abs_err"], capi_run["b2_err"]),
                launches_serve=serve_launches,
                launches_train=ssd_train["launches"],
@@ -9091,7 +9495,7 @@ def main():
                        capi["B3"] if route == "cuda" else 0),
                    "launches_capi": capi["B3"] if route == "cuda" else 0,
                    "launches_memcheck": 0, "launches_tracecheck": 0,
-                   "launches_flopcheck": 0,
+                   "launches_flopcheck": 0, "launches_commscheck": 0,
                    "max_abs_err": max(rtc_err[route], upd_err[route],
                                       capi_run["b3_err"] if route == "cuda"
                                       else 0.0),

@@ -174,6 +174,41 @@ def note_kernel(name, flops, nbytes, compute, passes=1, inputs=()):
             hook(name, flops, nbytes, compute, passes, inputs)
 
 
+def note_collective(kind, nbytes, group_size, axes, operands=(),
+                    op_path=None):
+    """Called by each collective of ``parallel/mesh.py``: every dispatch
+    mode running that has a ``collective`` method (``memcheck``'s dry run,
+    whose records ``commscheck`` reads) gets the collective as it would
+    run over separate cards: its ``kind`` (the JAX package's names:
+    ``all-reduce``, ``all-gather``, ``reduce-scatter``, ``all-to-all``,
+    ``collective-permute``, ``collective-broadcast``), its payload
+    ``nbytes`` by the JAX package's conventions (an all-gather's gathered
+    result, a reduce-scatter's scattered one, every other kind one
+    position's tensor), its ``group_size``, the mesh ``axes`` it runs over
+    and the tensors it reads (``operands``). ``op_path`` names it
+    (``mesh.collective_name``) in place of the executor node that issued
+    it. Returns a callable that records the collective's transpose
+    (``kind``, ``nbytes``) with the same op path and provenance to the
+    same modes, for the backward; None outside a dry run, where nothing is
+    recorded."""
+    from torch.utils._python_dispatch import _get_current_dispatch_mode_stack
+    modes = [m for m in _get_current_dispatch_mode_stack()
+             if getattr(m, "collective", None) is not None]
+    if not modes:
+        return None
+    from .memcheck import _collective_where
+    where = _collective_where(op_path)
+    axes = None if axes is None else tuple(axes)
+    for m in modes:
+        m.collective(kind, nbytes, group_size, axes, operands, where)
+
+    def transpose(tkind, tbytes):
+        for m in modes:
+            m.collective(tkind, tbytes, group_size, axes, (), where,
+                         transpose=True)
+    return transpose
+
+
 def torch_dtype(dtype):
     """A dtype given as a ``torch.dtype``, a name, a numpy dtype or a
     numpy type -> the ``torch.dtype`` (``bfloat16`` by name, or as the

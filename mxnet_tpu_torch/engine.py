@@ -25,8 +25,10 @@ already-seen key; ``memcheck_mode``/``set_memcheck`` (env
 ``MXTPU_MEMCHECK``) arm the serving tier's load-time memory audit;
 ``flopcheck_mode``/``set_flopcheck`` (env ``MXTPU_FLOPCHECK``, default
 ``"off"``) arm ``TrainStep``'s one-time roofline audit of each dispatch
-key's program. The JAX package's ``set_commscheck`` waits for ROADMAP.md
-A.12d-3.
+key's program; ``commscheck_mode``/``set_commscheck`` (env
+``MXTPU_COMMSCHECK``, default ``"off"``) arm the one-time communication
+audit of a mesh ``TrainStep``'s dispatch keys and of a sharded serving
+engine or decode loop at load.
 """
 from __future__ import annotations
 
@@ -203,6 +205,36 @@ def set_memcheck(mode):
     prev = memcheck_mode()
     _validate_mode(mode, "set_memcheck")
     _memcheck_override = mode
+    return prev
+
+
+_commscheck_override = None
+
+
+def commscheck_mode():
+    """Collective-communication audit policy of the mesh programs:
+    ``"off"`` (default) skips the audit; ``"warn"`` makes a ``TrainStep``
+    over a mesh run the communication lints of
+    :mod:`mxnet_tpu_torch.commscheck` ONCE per dispatch key's program at
+    its first dispatch (one shape-only dry run, the arguments faked first),
+    and a ``ServingEngine`` or ``DecodeLoop`` over a 'model' mesh at load,
+    and log unsuppressed findings; ``"error"`` raises
+    :class:`~mxnet_tpu_torch.base.MXNetError`, as it does when the dry run
+    fails: a gather in the K-step loop fails at the first dispatch, not
+    after a slow run over several cards. Env default:
+    ``MXTPU_COMMSCHECK``."""
+    if _commscheck_override is not None:
+        return _commscheck_override
+    return _mode_from_env("MXTPU_COMMSCHECK", "off")
+
+
+def set_commscheck(mode):
+    """Override the commscheck mode (None: back to the env/default);
+    returns the previous effective value."""
+    global _commscheck_override
+    prev = commscheck_mode()
+    _validate_mode(mode, "set_commscheck")
+    _commscheck_override = mode
     return prev
 
 

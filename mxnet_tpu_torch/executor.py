@@ -672,6 +672,7 @@ def shard_grad_sums(grads, mesh, spec, devices=None):
     along."""
     from .parallel import mesh as _mesh
     devs = mesh.replica_devices() if devices is None else list(devices)
+    axes = tuple(a for a in mesh.split_axes() if a not in spec)
     groups = {}
     for r in range(len(devs)):
         groups.setdefault(_mesh.shard_index(mesh, spec, r), []).append(r)
@@ -681,7 +682,7 @@ def shard_grad_sums(grads, mesh, spec, devices=None):
         if len(grp) == 1:
             out[grp[0]] = parts[0]
             continue
-        summed = _mesh.all_reduce(parts, [devs[r] for r in grp])
+        summed = _mesh.all_reduce(parts, [devs[r] for r in grp], axes)
         for r, g in zip(grp, summed):
             out[r] = g
     return out
@@ -995,8 +996,9 @@ class Executor(object):
                               m.size(_mesh.AXIS_DATA))
                   if name in self._batch_names else None)
             spec = _mesh._spec_from_axis(len(shape), ax)
-        summed = shard_grad_sums(parts, m, spec,
-                                 [self._device] * len(parts))
+        with _mesh.collective_name("gradient/%s" % name):
+            summed = shard_grad_sums(parts, m, spec,
+                                     [self._device] * len(parts))
         return _mesh.MeshArray(m, summed, spec=spec).gather(self._device)
 
     # ------------------------------------------------------------------

@@ -83,18 +83,19 @@ overlap, no launch cost. CLI::
 
 ``--baseline`` is the drift gate: per program, kernel count, predicted
 step ms, predicted MFU and top-hotspot identity against a baseline within
-``MXTPU_FLOPCHECK_TOL`` (10%). ``--memcheck-baseline`` runs memcheck's
-gate from the same dry runs (one per program feeds both analyzers).
-``MXTPU_FLOPCHECK=warn|error`` (``engine.flopcheck_mode``) arms a
-one-time audit of each ``TrainStep`` dispatch key's program
-(:func:`maybe_audit_dispatch`).
+``MXTPU_FLOPCHECK_TOL`` (10%). ``--memcheck-baseline`` and
+``--commscheck-baseline`` run memcheck's and commscheck's gates from the
+same dry runs (one per program feeds the three analyzers). ``--sharded``
+adds ``commscheck``'s sharded gate set (:func:`compiled_sharded_programs`,
+:func:`check_sharded`: eight positions on ``--device``), whose reports
+carry the collectives' wire time: ``RooflineReport.comm_seconds`` is the
+``CommsReport`` of the same dry run (``comms``), and zero for a program
+without collectives. ``MXTPU_FLOPCHECK=warn|error``
+(``engine.flopcheck_mode``) arms a one-time audit of each ``TrainStep``
+dispatch key's program (:func:`maybe_audit_dispatch`).
 
 Not ported: ``analyze_compiled`` and ``parse_kernels`` (there is no XLA
-executable or HLO; each raises ``MXNetError``). Waiting for ROADMAP.md
-A.12d-3 (the communication analyzer): ``--sharded``,
-``--commscheck-baseline``, :func:`check_sharded` and
-:func:`compiled_sharded_programs` raise naming it, and
-``RooflineReport.comm_seconds`` is 0 until a ``CommsReport`` is given.
+executable or HLO; each raises ``MXNetError``).
 """
 from __future__ import annotations
 
@@ -118,10 +119,6 @@ __all__ = [
     "min_mfu", "tolerance", "maybe_audit_dispatch", "main",
     "ROOFLINE_LINTS",
 ]
-
-_SHARDED = ("the communication analyzer (commscheck), ROADMAP.md A.12d-3, "
-            "is not ported yet")
-
 
 # ---------------------------------------------------------------------------
 # knobs
@@ -314,7 +311,7 @@ class RooflineReport(object):
     ``kernel_count`` is the kernel executions a dispatch (multipliers
     summed); ``predicted_step_seconds`` the zero-overlap roofline time of
     one dispatch (every kernel's time, plus the collectives' wire time of
-    an embedded ``CommsReport``: none until ROADMAP.md A.12d-3). The peaks
+    the embedded ``CommsReport`` of the same dry run, ``comms``). The peaks
     are ``devspec``'s row of ``device`` (the program's device; None:
     ``cuda:0``) unless given; each kernel is priced at the peak of its
     compute type, or at ``peak_flops_per_s`` for every kernel when it is
@@ -465,27 +462,35 @@ class RooflineReport(object):
 
 
 def _analyze(fn, args=(), kwargs=None, name=None, device=None,
-             loop_trips=1, donate_argnums=()):
-    """One dry run of ``fn``: ``(RooflineReport, MemoryReport)``."""
+             loop_trips=1, donate_argnums=(), mesh=None):
+    """One dry run of ``fn``: ``(RooflineReport, MemoryReport)``, the
+    roofline report carrying the run's ``CommsReport`` (``comms``; its
+    positions are ``mesh``'s, else the first MeshArray argument's)."""
     import torch
+    from .commscheck import _infer_mesh, _report
     from .memcheck import _dry_run, _platform
     if name is None:
         name = getattr(fn, "__name__", None) or repr(fn)
     run = _dry_run(fn, args, kwargs, donate_argnums, name, kernels=True)
     dev = run.device if device is None else device
+    if mesh is None:
+        mesh = _infer_mesh(args, kwargs)
     report = RooflineReport(
         name, _platform(torch.device(dev)),
         _inventory(run.tracker.kernels, loop_trips), loop_trips=loop_trips,
-        device=dev)
+        comms=_report(run, name, mesh, loop_trips, dev), device=dev)
     return report, run.report
 
 
-def analyze(fn, args=(), kwargs=None, name=None, device=None, loop_trips=1):
+def analyze(fn, args=(), kwargs=None, name=None, device=None, loop_trips=1,
+            mesh=None):
     """Run ``fn(*args, **kwargs)`` once shape-only (memcheck's dry run:
     real tensor arguments become fake ones, nothing is allocated and no
     kernel launches) and return its :class:`RooflineReport`, priced for
-    ``device`` (default: the program's own device)."""
-    return _analyze(fn, args, kwargs, name, device, loop_trips)[0]
+    ``device`` (default: the program's own device), with the collectives
+    of the same run (``comms``) over ``mesh``'s positions."""
+    return _analyze(fn, args, kwargs, name, device, loop_trips,
+                    mesh=mesh)[0]
 
 
 # ---------------------------------------------------------------------------
@@ -584,10 +589,10 @@ def lint_report(report, hot_threshold=None, hot_floor=None,
 
 
 def check_program(fn, args=(), kwargs=None, name=None, device=None,
-                  loop_trips=1, **lint_kw):
+                  loop_trips=1, mesh=None, **lint_kw):
     """Analyze + lint ONE program; returns ``(findings, report)``."""
     report = analyze(fn, args, kwargs=kwargs, name=name, device=device,
-                     loop_trips=loop_trips)
+                     loop_trips=loop_trips, mesh=mesh)
     return lint_report(report, **lint_kw), report
 
 
@@ -675,7 +680,7 @@ def check_train_step(ts, data_shapes, label_shapes, k=2, guard=True,
     findings, reports = [], {}
     for pname, fn, pargs in train_step_programs(
             ts, data_shapes, label_shapes, k=k, guard=guard, name=name):
-        fs, rep = check_program(fn, pargs, name=pname,
+        fs, rep = check_program(fn, pargs, name=pname, mesh=ts.mesh,
                                 loop_trips=_trips(pname, k), **lint_kw)
         findings += fs
         reports[pname] = rep
@@ -703,7 +708,7 @@ def zoo_programs(names=None, k=2, guard=True, log=None, device=None,
                 name=mname):
             rep, mem = _analyze(fn, pargs, name=pname,
                                 loop_trips=_trips(pname, k),
-                                donate_argnums=(0,))
+                                donate_argnums=(0,), mesh=ts.mesh)
             yield mname, pname, rep, (mem if memory else None)
 
 
@@ -726,16 +731,34 @@ def check_zoo(names=None, k=2, guard=True, log=None, programs=None,
     return findings, reports
 
 
-def check_sharded(*args, **kwargs):
-    """The JAX package's sharded gate set; raises: it needs the
-    communication analyzer."""
-    raise MXNetError("flopcheck.check_sharded: %s" % _SHARDED)
+def compiled_sharded_programs(n_devices=8, k=2, log=None, device=None):
+    """The sharded gate set (``commscheck.sharded_programs``: ``n_devices``
+    positions on ``device``, default ``cuda:0``), dry-run once each: yields
+    ``(name, RooflineReport, MemoryReport)``, the roofline report carrying
+    the run's ``CommsReport``. (The JAX package's name: there it compiles
+    each program once for the three analyzers.)"""
+    from .commscheck import sharded_programs
+    for name, fn, args, trips, mesh, _scope in sharded_programs(
+            n_devices=n_devices, k=k, device=device):
+        if log:
+            log("flopcheck: analyzing %s ..." % name)
+        rep, mem = _analyze(fn, args, name=name, loop_trips=trips,
+                            donate_argnums=(0,), mesh=mesh)
+        yield name, rep, mem
 
 
-def compiled_sharded_programs(*args, **kwargs):
-    """The JAX package's sharded gate set; raises: it needs the
-    communication analyzer."""
-    raise MXNetError("flopcheck.compiled_sharded_programs: %s" % _SHARDED)
+def check_sharded(n_devices=8, k=2, log=None, programs=None, device=None,
+                  **lint_kw):
+    """Roofline-audit the sharded gate set; returns ``(findings,
+    reports)``. ``programs``: an iterable from
+    :func:`compiled_sharded_programs` to audit instead of running it."""
+    findings, reports = [], {}
+    progs = programs if programs is not None else compiled_sharded_programs(
+        n_devices=n_devices, k=k, log=log, device=device)
+    for pname, rep, _mem in progs:
+        findings += lint_report(rep, **lint_kw)
+        reports[pname] = rep
+    return findings, reports
 
 
 # ---------------------------------------------------------------------------
@@ -920,6 +943,19 @@ def _combined_memcheck(mem_by_model, baseline, tol):
     return findings, failures, notes
 
 
+def _combined_commscheck(reports, baseline, tol):
+    """The commscheck leg of the combined gate, from the same dry runs:
+    the communication lints and commscheck's baseline over every report's
+    ``CommsReport``."""
+    from . import commscheck
+    findings, comms = [], {}
+    for pname, rep in sorted(reports.items()):
+        findings += commscheck.lint_report(rep.comms)
+        comms[pname] = rep.comms
+    failures, notes = commscheck.compare_baseline(comms, baseline, tol=tol)
+    return findings, failures, notes
+
+
 def main(argv=None):
     import argparse
     import time
@@ -936,10 +972,10 @@ def main(argv=None):
     p.add_argument("--models", default=None,
                    help="comma-separated zoo subset (implies --zoo)")
     p.add_argument("--sharded", action="store_true",
-                   help="the sharded gate set (needs the communication "
-                        "analyzer, ROADMAP.md A.12d-3: raises)")
+                   help="also analyze the sharded gate set (commscheck's: "
+                        "--devices positions on --device)")
     p.add_argument("--devices", type=int, default=8,
-                   help="device count for --sharded")
+                   help="positions for --sharded (default 8)")
     p.add_argument("--k", type=int, default=2,
                    help="scan depth for the K-step programs (default 2)")
     p.add_argument("--no-guard", action="store_true",
@@ -965,9 +1001,7 @@ def main(argv=None):
     p.add_argument("--memcheck-baseline", default=None, metavar="FILE",
                    help="also run memcheck's gate from the same dry runs")
     p.add_argument("--commscheck-baseline", default=None, metavar="FILE",
-                   help="also run commscheck's gate (needs the "
-                        "communication analyzer, ROADMAP.md A.12d-3: "
-                        "raises)")
+                   help="also run commscheck's gate from the same dry runs")
     p.add_argument("--json", action="store_true", help="JSON output")
     p.add_argument("--list", action="store_true",
                    help="list zoo models and exit")
@@ -981,26 +1015,28 @@ def main(argv=None):
         for n in sorted(ZOO):
             print(n)
         return 0
-    if args.sharded:
-        raise MXNetError("flopcheck --sharded: %s" % _SHARDED)
-    if args.commscheck_baseline:
-        raise MXNetError("flopcheck --commscheck-baseline: %s" % _SHARDED)
-    if not (args.zoo or args.models):
-        p.error("nothing to check: pass --zoo or --models")
+    if not (args.zoo or args.models or args.sharded):
+        p.error("nothing to check: pass --zoo, --models or --sharded")
     names = ([s.strip() for s in args.models.split(",") if s.strip()]
              if args.models else None)
     log = (lambda m: None) if (args.quiet or args.json) \
         else (lambda m: print(m, file=sys.stderr))
-    n_analyzers = 1 + bool(args.memcheck_baseline)
+    n_analyzers = (1 + bool(args.memcheck_baseline)
+                   + bool(args.commscheck_baseline))
 
     t0 = time.time()
-    progs = list(zoo_programs(names=names, k=args.k,
-                              guard=not args.no_guard, log=log,
-                              device=args.device,
-                              memory=bool(args.memcheck_baseline)))
+    progs, sharded = [], []
+    if args.zoo or args.models:
+        progs = list(zoo_programs(names=names, k=args.k,
+                                  guard=not args.no_guard, log=log,
+                                  device=args.device,
+                                  memory=bool(args.memcheck_baseline)))
+    if args.sharded:
+        sharded = list(compiled_sharded_programs(
+            n_devices=args.devices, k=args.k, log=log, device=args.device))
     dry_s = time.time() - t0
     log("flopcheck: %d dry run(s) in %.1fs — %d analyzer(s) share them"
-        % (len(progs), dry_s, n_analyzers))
+        % (len(progs) + len(sharded), dry_s, n_analyzers))
 
     lint_kw = {}
     if args.hot_frac is not None:
@@ -1008,6 +1044,9 @@ def main(argv=None):
     if args.min_mfu is not None:
         lint_kw["mfu_floor"] = args.min_mfu
     findings, reports = check_zoo(programs=progs, **lint_kw)
+    fs, reps = check_sharded(programs=sharded, **lint_kw)
+    findings += fs
+    reports.update(reps)
 
     if args.write_baseline:
         write_baseline(reports, args.write_baseline, tol=args.tol)
@@ -1034,6 +1073,12 @@ def main(argv=None):
         findings += mfs
         failures += ["[memcheck] " + f for f in mfail]
         notes += ["[memcheck] " + n for n in mnotes]
+    if args.commscheck_baseline:
+        cfs, cfail, cnotes = _combined_commscheck(
+            reports, args.commscheck_baseline, args.tol)
+        findings += cfs
+        failures += ["[commscheck] " + f for f in cfail]
+        notes += ["[commscheck] " + n for n in cnotes]
 
     bad = unsuppressed(findings)
     if args.json:

@@ -431,7 +431,7 @@ _TORCH_DIR = os.path.dirname(os.path.realpath(torch.__file__))
 #: the analyzers (and ``autotune.hotspot_report``'s delegation to one),
 #: whose frames are never a program's provenance
 _ANALYZERS = ("memcheck.py", "tracecheck.py", "flopcheck.py",
-              os.path.join("autotune", "__init__.py"))
+              "commscheck.py", os.path.join("autotune", "__init__.py"))
 
 
 def _file_kind(fname):
@@ -487,6 +487,60 @@ def _where(depth=2):
             break
         g = g.f_back
     return node, _frame_line(_stack(f))
+
+
+#: the collectives' own plumbing, whose frames are never a collective's
+#: provenance (its caller's line is)
+_PLUMBING = (os.path.join(_PKG_DIR, "base.py"),
+             os.path.join(_PKG_DIR, "parallel", "mesh.py"))
+
+
+def _collective_where(op_path=None):
+    """``(op_path, provenance)`` of a collective being recorded
+    (``base.note_collective``): the executor node whose walk issued it
+    (``op_path`` where its caller names one), and :func:`_frame_line` of
+    the stack from its caller outside ``parallel/mesh.py``."""
+    f = sys._getframe(1)
+    while f is not None and _file_kind(f.f_code.co_filename)[0] \
+            in _PLUMBING:
+        f = f.f_back
+    node = None
+    g = f
+    while g is not None:
+        if _file_kind(g.f_code.co_filename)[2] \
+                and g.f_code.co_name in ("apply", "apply_mesh"):
+            node = getattr(g.f_locals.get("node"), "name", None)
+            break
+        g = g.f_back
+    return op_path or node, _frame_line(_stack(f))
+
+
+def record_collective(mode, kind, nbytes, group_size, axes, operands, where,
+                      transpose=False):
+    """A recording mode's ``collective`` method (``base.note_collective``'s
+    hook): append the collective to ``mode.collectives``, with the labels
+    of the argument storages among its ``operands`` (``mode.arg_keys``:
+    storage key -> label; one label per argument, whichever position's
+    copy or shard it reads) and ``where`` its ``(op_path, provenance)``."""
+    params = []
+    for t in operands:
+        if not isinstance(t, torch.Tensor):
+            continue
+        try:
+            lab = mode.arg_keys.get(t.untyped_storage()._cdata)
+        except (RuntimeError, NotImplementedError):
+            continue
+        if lab is not None:
+            lab = re.sub(r"\['replicas'\]\[\d+\]|\.parts\[\d+\]", "", lab)
+            if lab not in params:
+                params.append(lab)
+    with mode.lock:
+        mode.seq += 1
+        mode.collectives.append({
+            "kind": kind, "bytes": int(nbytes), "group_size": group_size,
+            "axes": axes, "op_path": where[0], "provenance": where[1],
+            "transpose": bool(transpose), "operand_params": tuple(params),
+            "seq": mode.seq})
 
 
 def _tb_line(e):
@@ -716,7 +770,12 @@ class _Tracker(TorchDispatchMode):
     With ``kernels`` (:mod:`.flopcheck`'s inventory) it also records
     ``kernels``: each op that launches a kernel (:func:`_kernel_record`),
     and each launch a hand-written kernel's shape-only route stands for
-    (:meth:`hand_kernel`), with its ``op_path`` and ``provenance``."""
+    (:meth:`hand_kernel`), with its ``op_path`` and ``provenance``.
+
+    It always records ``collectives`` (:mod:`.commscheck`'s inventory):
+    each collective of ``parallel/mesh.py`` the run calls, and each
+    transpose its backward runs (:func:`record_collective`), with the
+    labels of the arguments it reads (``arg_keys``, set by the dry run)."""
 
     def __init__(self, mode=None, lint=False, kernels=False):
         super().__init__()
@@ -733,6 +792,10 @@ class _Tracker(TorchDispatchMode):
         self.unpriced = 0
         self._consts = set()
         self.kernels = [] if kernels else None
+        self.collectives = []
+        self.arg_keys = {}
+
+    collective = record_collective
 
     def hand_kernel(self, name, flops, nbytes, compute, passes, inputs):
         """``base.note_kernel``'s hook: record the launch a hand-written
@@ -933,6 +996,7 @@ def _dry_run(fn, args=(), kwargs=None, donate_argnums=(), name=None, top=8,
     arg_bytes, donated = {}, []
     for lab, t, i in arg_leaves:
         _, key, nb = _storage(t)
+        tracker.arg_keys.setdefault(key, lab)
         if key not in arg_bytes:
             arg_bytes[key] = nb
             tracker.add(t, {"opcode": "parameter", "op_path": lab,

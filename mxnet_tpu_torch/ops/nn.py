@@ -367,10 +367,12 @@ def _batch_norm_mesh(op_ctx, attrs, ins, aux, devices):
     n = float(np.prod([gshape[i] for i in red]))
     parts = x.parts
     dt = x.dtype
+    # the sums run along the axes the batch splits over
+    axes = tuple(a for _, a in x.split_dims())
     fused = op_ctx.fused_stats
     if fused is not None:
-        s1 = all_reduce([f[0] for f in fused], devices)
-        s2 = all_reduce([f[1] for f in fused], devices)
+        s1 = all_reduce([f[0] for f in fused], devices, axes)
+        s2 = all_reduce([f[1] for f in fused], devices, axes)
         count = float(sum(f[2] for f in fused))
         mean32 = [a / count for a in s1]
         var32 = [torch.clamp_min(b / count - m.square(), 0.0)
@@ -379,8 +381,8 @@ def _batch_norm_mesh(op_ctx, attrs, ins, aux, devices):
         var = [v.to(dt) for v in var32]
     elif dt in (torch.bfloat16, torch.float16):
         x32 = [p.float() for p in parts]
-        s1 = all_reduce([p.sum(red) for p in x32], devices)
-        s2 = all_reduce([p.square().sum(red) for p in x32], devices)
+        s1 = all_reduce([p.sum(red) for p in x32], devices, axes)
+        s2 = all_reduce([p.square().sum(red) for p in x32], devices, axes)
         mean32 = [a / n for a in s1]
         var32 = [torch.clamp_min(b / n - m.square(), 0.0)
                  for b, m in zip(s2, mean32)]
@@ -390,9 +392,9 @@ def _batch_norm_mesh(op_ctx, attrs, ins, aux, devices):
         # two passes, two reductions: the global mean, then the global sum
         # of squared deviations from it
         mean = [a / n for a in all_reduce([p.sum(red) for p in parts],
-                                          devices)]
+                                          devices, axes)]
         dev2 = all_reduce([(p - m.reshape(bshape)).square().sum(red)
-                           for p, m in zip(parts, mean)], devices)
+                           for p, m in zip(parts, mean)], devices, axes)
         var = [d / n for d in dev2]
         mean32, var32 = mean, var
     ys, mm, mv = [], [], []
@@ -572,8 +574,8 @@ def _softmax_output_mesh(op_ctx, attrs, ins, aux, devices):
                        else torch.tensor(lab.numel(), device=lab.device)
                        ).to(data.dtype)
                       for lab in (label.parts[r] for r in pos)]
-            denoms = [torch.clamp_min(c, 1.0)
-                      for c in _mesh.all_reduce(counts, devices)]
+            denoms = [torch.clamp_min(c, 1.0) for c in _mesh.all_reduce(
+                counts, devices, tuple(a for _, a in label.split_dims()))]
     outs = [_SoftmaxOutput.apply(d, lab, cfg[:6] + (dn,))
             for d, lab, dn in zip(data.parts, label.parts, denoms)]
     return [_mesh.MeshArray(mesh, outs, spec=data.spec)], None

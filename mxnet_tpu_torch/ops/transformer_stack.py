@@ -160,12 +160,17 @@ def _transformer_stack_mesh(op_ctx, attrs, ins, aux, devices):
         xb = x.parts[grp[0]]
         bl = xb.shape[0]
         mbs = xb.reshape((M, bl // M) + tuple(xb.shape[1:]))
-        y = torch.cat(pipeline_spmd(run, stages, mbs, devs), 0)
+        y = torch.cat(pipeline_spmd(run, stages, mbs, devs,
+                                    _mesh.AXIS_PIPE), 0)
         done = {}
         for r in grp:
             if devices[r] not in done:
                 done[devices[r]] = y.to(devices[r])
             parts[r] = done[devices[r]]
+        # the last stage's output copied to every position of the group
+        # (the inventory's; not counted in COUNTERS)
+        _mesh._note("collective-broadcast", _mesh._nbytes(y), len(grp),
+                    (_mesh.AXIS_PIPE,), (y,), [parts[r] for r in grp])
     return [_mesh.MeshArray(mesh, parts, spec=x.spec)], None
 
 

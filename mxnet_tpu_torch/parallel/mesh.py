@@ -14,7 +14,10 @@ between positions (:func:`all_reduce`, :func:`all_gather`,
 :func:`gather_axis`, :func:`ppermute`, :func:`all_to_all`) are
 ``.to(device)`` copies, sums and concatenations, one code path whether two
 positions share a card or not, and differentiable, so autograd carries the
-gradient reductions. :data:`COUNTERS` counts each kind.
+gradient reductions. :data:`COUNTERS` counts each kind. Each also hands
+itself to a dry run's recorders (``base.note_collective``: ``commscheck``'s
+inventory) as it would run over separate cards, with the mesh axes its
+caller names, and its transpose when the backward reaches its outputs.
 
 ``shard_map_compat`` and ``axis_size`` have no counterpart: they run a
 per-device function whose collectives are implicit in the mesh axis
@@ -30,12 +33,13 @@ group.
 from __future__ import annotations
 
 import collections
+import contextlib
 import threading
 
 import numpy as np
 import torch
 
-from ..base import MXNetError
+from ..base import MXNetError, note_collective
 
 _scope = threading.local()
 
@@ -69,6 +73,63 @@ def reset_counters():
     with _COUNT_LOCK:
         for k in COUNTERS:
             COUNTERS[k] = 0
+
+
+#: the kind each collective's gradient runs as (autograd carries it
+#: without calling this module): an all-gather's is a reduce-scatter, a
+#: broadcast's an all-reduce, every other kind's its own
+_TRANSPOSE = {"all-reduce": "all-reduce", "all-gather": "reduce-scatter",
+              "collective-broadcast": "all-reduce",
+              "collective-permute": "collective-permute",
+              "all-to-all": "all-to-all"}
+
+
+def _nbytes(t):
+    return t.numel() * t.element_size()
+
+
+@contextlib.contextmanager
+def collective_name(op_path):
+    """``with collective_name("gradient/w"):`` names the collectives the
+    block calls (their op path in a dry run's inventory) where no executor
+    node issues them."""
+    old = getattr(_scope, "op_path", None)
+    _scope.op_path = op_path
+    try:
+        yield
+    finally:
+        _scope.op_path = old
+
+
+def _note(kind, nbytes, group_size, axes, operands, outs, tbytes=None):
+    """Hand one collective to a dry run's recorders
+    (``base.note_collective``), named by :func:`collective_name` where a
+    block names it. Where one took it, the collective's
+    transpose (``tbytes``, default ``nbytes``) is recorded once, when the
+    backward first reaches one of its outputs: a gradient hook, which adds
+    no node to the graph, so every value and gradient stays bit for bit.
+    A group of one position moves nothing and is not recorded (XLA drops
+    such a collective too). Outside a dry run nothing happens."""
+    if group_size <= 1:
+        return
+    transpose = note_collective(kind, nbytes, group_size, axes, operands,
+                                getattr(_scope, "op_path", None))
+    if transpose is None:
+        return
+    seen, grad_outs = set(), []
+    for t in outs:
+        if isinstance(t, torch.Tensor) and t.requires_grad \
+                and id(t) not in seen:
+            seen.add(id(t))
+            grad_outs.append(t)
+    fired = []
+
+    def hook(grad):
+        if not fired:
+            fired.append(True)
+            transpose(_TRANSPOSE[kind], nbytes if tbytes is None else tbytes)
+    for t in grad_outs:
+        t.register_hook(hook)
 
 
 class P(tuple):
@@ -438,6 +499,8 @@ def host_to_global(mesh, spec, local_value):
     if not dims or pg is None or mesh.nproc == 1:
         return GlobalArray(mesh, spec, local, local)
     _count("all_gather")
+    _note("all-gather", _nbytes(local) * mesh.nproc, mesh.nproc,
+          mesh.axis_names, (local,), ())
     parts = [torch.empty_like(local) for _ in range(mesh.nproc)]
     pg.all_gather(parts, local.contiguous())
     return GlobalArray(mesh, spec, torch.cat(parts, dims[0]), local)
@@ -683,9 +746,11 @@ def replicate(tree, mesh):
     if isinstance(tree, dict):
         return {k: replicate(v, mesh) for k, v in tree.items()}
     _count("broadcast")
-    return MeshArray(mesh, [tree.to(d, copy=r > 0)
-                            for r, d in enumerate(mesh.replica_devices())],
-                     None)
+    parts = [tree.to(d, copy=r > 0)
+             for r, d in enumerate(mesh.replica_devices())]
+    _note("collective-broadcast", _nbytes(tree), len(parts),
+          mesh.split_axes() or None, (tree,), parts)
+    return MeshArray(mesh, parts, None)
 
 
 def shard_batch(tree, mesh, axis=AXIS_DATA):
@@ -700,10 +765,11 @@ def shard_batch(tree, mesh, axis=AXIS_DATA):
     return split_spec(tree, mesh, (axis,))
 
 
-def all_reduce(parts, devices):
+def all_reduce(parts, devices, axes=None):
     """The sum of ``parts`` (one tensor per position), summed in position
     order and placed on each position's device: bitwise the same
-    everywhere. Positions on one device share the one sum.
+    everywhere. Positions on one device share the one sum. ``axes``: the
+    mesh axes the positions run along (the inventory's; None: not named).
     Differentiable."""
     _count("all_reduce")
     out, done = [], {}
@@ -714,18 +780,22 @@ def all_reduce(parts, devices):
                 acc = acc + p.to(d)
             done[d] = acc
         out.append(done[d])
+    _note("all-reduce", _nbytes(parts[0]), len(parts), axes, parts, out)
     return out
 
 
-def all_gather(parts, axis, devices):
+def all_gather(parts, axis, devices, axes=None):
     """The shards ``parts`` concatenated along ``axis`` on each position's
-    device (shared where positions share a device). Differentiable."""
+    device (shared where positions share a device); ``axes`` as
+    :func:`all_reduce`'s. Differentiable."""
     _count("all_gather")
     out, done = [], {}
     for d in devices:
         if d not in done:
             done[d] = torch.cat([p.to(d) for p in parts], axis)
         out.append(done[d])
+    _note("all-gather", sum(_nbytes(p) for p in parts), len(parts), axes,
+          parts, out, tbytes=_nbytes(parts[0]))
     return out
 
 
@@ -760,6 +830,9 @@ def gather_axis(arr, axis):
             if d not in done:
                 done[d] = torch.cat([arr.parts[q].to(d) for q in grp], dim)
             parts[r] = done[d]
+    n = arr.mesh.size(axis)
+    _note("all-gather", n * _nbytes(arr.parts[0]), n, (axis,), arr.parts,
+          parts, tbytes=_nbytes(arr.parts[0]))
     spec = tuple(None if a == axis else a for a in arr.spec)
     return MeshArray(arr.mesh, parts, spec=spec)
 
@@ -792,27 +865,32 @@ def reshard(arr, spec):
     return arr
 
 
-def ppermute(parts, devices, shift=1):
+def ppermute(parts, devices, shift=1, axes=None):
     """A rotation along one mesh axis: ``parts`` (one tensor per position
     of the axis, in order) moved ``shift`` positions on, so position ``j``
     receives position ``j - shift``'s tensor on its device (the JAX
-    package's ``ppermute`` with ``perm=[(j, j + shift)]``).
-    Differentiable."""
+    package's ``ppermute`` with ``perm=[(j, j + shift)]``); ``axes`` as
+    :func:`all_reduce`'s. Differentiable."""
     _count("ppermute")
     n = len(parts)
-    return [parts[(j - shift) % n].to(devices[j]) for j in range(n)]
+    out = [parts[(j - shift) % n].to(devices[j]) for j in range(n)]
+    _note("collective-permute", _nbytes(parts[0]), n, axes, parts, out)
+    return out
 
 
-def all_to_all(parts, devices, split_dim, concat_dim):
+def all_to_all(parts, devices, split_dim, concat_dim, axes=None):
     """The tiled all-to-all along one mesh axis: position ``j`` receives
     chunk ``j`` (along ``split_dim``) of every position's tensor,
     concatenated along ``concat_dim`` in position order (the JAX package's
-    ``lax.all_to_all(..., tiled=True)``). Differentiable."""
+    ``lax.all_to_all(..., tiled=True)``); ``axes`` as :func:`all_reduce`'s.
+    Differentiable."""
     _count("all_to_all")
     n = len(parts)
     chunks = [torch.chunk(p, n, dim=split_dim) for p in parts]
-    return [torch.cat([chunks[i][j].to(devices[j]) for i in range(n)],
-                      concat_dim) for j in range(n)]
+    out = [torch.cat([chunks[i][j].to(devices[j]) for i in range(n)],
+                     concat_dim) for j in range(n)]
+    _note("all-to-all", _nbytes(parts[0]), n, axes, parts, out)
+    return out
 
 
 def grad_sync(grads, axis_name=AXIS_DATA):
@@ -825,11 +903,14 @@ def grad_sync(grads, axis_name=AXIS_DATA):
     for k, g in grads.items():
         if isinstance(g, MeshArray):
             devs = g.mesh.replica_devices()
-            out[k] = MeshArray(g.mesh, all_reduce(g.parts, devs), None)
+            out[k] = MeshArray(g.mesh, all_reduce(g.parts, devs,
+                                                  (axis_name,)), None)
             continue
         t = _as_host(g).clone()
         if pg is not None:
             _count("all_reduce")
+            _note("all-reduce", _nbytes(t), pg.get_world_size(),
+                  (axis_name,), (t,), ())
             pg.all_reduce(t)
         out[k] = t if isinstance(g, torch.Tensor) else t.numpy()
     return out

@@ -12,6 +12,13 @@ activation hops to the next stage's device (counted as a ``ppermute`` in
 come back to the caller. The JAX schedule also computes its bubble ticks
 on data it never reads; the port skips them, which changes no value. The
 schedule is plain PyTorch and differentiable through autograd.
+
+A dry run's collective inventory (``commscheck``) records each tick's hop
+as a ``collective-permute`` along the axis, and the last stage's outputs
+reaching the caller's device as one more (not counted in ``COUNTERS``):
+the JAX package combines them by an all-reduce across 'pipe' (each stage
+adds its masked share), where the port's single controller moves them
+once, from the last stage.
 """
 from __future__ import annotations
 
@@ -35,12 +42,14 @@ def _leaves(tree):
     return [tree]
 
 
-def pipeline_spmd(stage_fn, stage_params, microbatches, devices):
+def pipeline_spmd(stage_fn, stage_params, microbatches, devices,
+                  axis_name=None):
     """The GPipe schedule over explicit stages.
 
     ``stage_fn(params, x) -> y`` is one stage (``y.shape == x.shape``);
     ``stage_params`` a list of S pytrees, stage ``s``'s on ``devices[s]``;
-    ``microbatches`` a sequence of M tensors (or an (M, ...) tensor).
+    ``microbatches`` a sequence of M tensors (or an (M, ...) tensor);
+    ``axis_name`` the mesh axis the stages run along (the inventory's).
     Returns the M outputs of the last stage, on ``devices[-1]``, in
     order."""
     S = len(stage_params)
@@ -61,7 +70,15 @@ def pipeline_spmd(stage_fn, stage_params, microbatches, devices):
             _mesh._count("ppermute")
             held = [None] + [None if y is None else y.to(devices[s + 1])
                              for s, y in enumerate(ys[:-1])]
+            moved = [y for y in ys[:-1] if y is not None]
+            _mesh._note("collective-permute", _mesh._nbytes(moved[0]), S,
+                        _axes(axis_name), moved,
+                        [h for h in held if h is not None])
     return outs
+
+
+def _axes(axis_name):
+    return None if axis_name is None else (axis_name,)
 
 
 def _stage_devices(mesh, axis_name, batch_axis):
@@ -134,7 +151,11 @@ def pipeline_apply(stage_fn, stacked_params, batch, mesh, axis_name="pipe",
         params = [_tree_map(lambda p, s=s, d=d: p[s].to(d), stacked_params)
                   for s, d in enumerate(devs)]
         mbs = [micro[j, i * step:(i + 1) * step] for j in range(M)]
-        outs = pipeline_spmd(stage_fn, params, mbs, devs)
+        outs = pipeline_spmd(stage_fn, params, mbs, devs, axis_name)
         shards.append(torch.stack([o.to(batch.device) for o in outs]))
+        # the last stage's outputs reach the caller's device
+        _mesh._note("collective-permute",
+                    sum(_mesh._nbytes(o) for o in outs), S, (axis_name,),
+                    outs, [shards[-1]])
     out = shards[0] if dp == 1 else torch.cat(shards, 1)
     return out.reshape((B,) + tuple(out.shape[2:]))

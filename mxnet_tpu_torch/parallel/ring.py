@@ -92,9 +92,9 @@ def blockwise_attention(q, k, v, block_size=None, causal=False):
     return acc / torch.clamp_min(l, 1e-20)[..., None]
 
 
-def _ring(qs, ks, vs, causal):
+def _ring(qs, ks, vs, causal, axis=None):
     """Ring attention over the shards ``qs``/``ks``/``vs`` (one per
-    position along the axis, in order)."""
+    position along the mesh axis ``axis``, in order)."""
     n = len(qs)
     devs = [q.device for q in qs]
     _, _, sq, d = qs[0].shape
@@ -131,22 +131,25 @@ def _ring(qs, ks, vs, causal):
         if i < n - 1:
             # rotate K/V to the next position around the ring (the JAX
             # package's last rotation feeds nothing and is left out)
-            kr = _mesh.ppermute(kr, devs)
-            vr = _mesh.ppermute(vr, devs)
+            axes = None if axis is None else (axis,)
+            kr = _mesh.ppermute(kr, devs, axes=axes)
+            vr = _mesh.ppermute(vr, devs, axes=axes)
     return [a / torch.clamp_min(s_, 1e-20)[..., None]
             for a, s_ in zip(acc, l)]
 
 
-def _ulysses(qs, ks, vs, attn_fn):
-    """Ulysses attention over the shards (one per position, in order)."""
+def _ulysses(qs, ks, vs, attn_fn, axis=None):
+    """Ulysses attention over the shards (one per position along the mesh
+    axis ``axis``, in order)."""
     devs = [q.device for q in qs]
+    axes = None if axis is None else (axis,)
     # (b, h, s/n, d) -> (b, h/n, s, d)
-    qh = _mesh.all_to_all(qs, devs, 1, 2)
-    kh = _mesh.all_to_all(ks, devs, 1, 2)
-    vh = _mesh.all_to_all(vs, devs, 1, 2)
+    qh = _mesh.all_to_all(qs, devs, 1, 2, axes)
+    kh = _mesh.all_to_all(ks, devs, 1, 2, axes)
+    vh = _mesh.all_to_all(vs, devs, 1, 2, axes)
     out = [attn_fn(a, b, c) for a, b, c in zip(qh, kh, vh)]
     # back to sequence shards
-    return _mesh.all_to_all(out, devs, 2, 1)
+    return _mesh.all_to_all(out, devs, 2, 1, axes)
 
 
 def _over_axis(fn, axis_name, q, k, v):
@@ -168,8 +171,8 @@ def ring_attention(q, k, v, axis_name="seq", causal=False):
     seq/n, dim) each): lists with one shard per position along the axis,
     or MeshArrays split along ``axis_name`` at dim 2. Returns the output
     shards the same way."""
-    return _over_axis(functools.partial(_ring, causal=causal), axis_name,
-                      q, k, v)
+    return _over_axis(functools.partial(_ring, causal=causal,
+                                        axis=axis_name), axis_name, q, k, v)
 
 
 def ulysses_attention(q, k, v, axis_name="seq", attn_fn=None):
@@ -179,5 +182,5 @@ def ulysses_attention(q, k, v, axis_name="seq", attn_fn=None):
     shard, and exchanged back."""
     if attn_fn is None:
         attn_fn = blockwise_attention
-    return _over_axis(functools.partial(_ulysses, attn_fn=attn_fn),
-                      axis_name, q, k, v)
+    return _over_axis(functools.partial(_ulysses, attn_fn=attn_fn,
+                                        axis=axis_name), axis_name, q, k, v)

@@ -93,9 +93,11 @@ Each of those programs is registered with ``tracecheck`` under the same
 name when the loop is built, and :meth:`DecodeLoop.check` audits them:
 ``tracecheck``'s static lints and, with ``memory=True``, the memory lints
 over :meth:`memory_report` plus a ``resident-set`` lint over the set (the
-draft and target co-residency under speculation). Not ported:
-``comms_report`` and ``check(comms=True)``, which read the communication
-analyzer's collective inventory (ROADMAP.md A.12d-3); they raise.
+draft and target co-residency under speculation), and with ``comms=True``
+the communication lints over :meth:`DecodeLoop.comms_report` (each
+program's collective inventory from ``commscheck``'s dry run: a sharded
+loop's gathers along 'model' each token, none on one device).
+``MXTPU_COMMSCHECK=warn|error`` audits those at construction too.
 """
 from __future__ import annotations
 
@@ -115,8 +117,8 @@ from ..ops.nn import matmul_precision
 from ..parallel import mesh as _mesh
 from ..tracecheck import unique_name
 from .batcher import REQUEST_IDS, ServingClosedError, Settleable
-from .engine import (_audit_load_memory, _check, _dry_run, _model_mesh,
-                     _not_ported, _sync)
+from .engine import (_audit_load_comms, _audit_load_memory, _check,
+                     _comms_reports, _dry_run, _model_mesh, _sync)
 from .health import ServingHealth, SERVING_HEALTH
 from .quantize import (_as_tensor, dequant_tree, is_quantized_leaf,
                        place_leaf, quantize_array, quantize_tree,
@@ -248,6 +250,10 @@ class _Positions(object):
                         ((i >= lo) & (i < lo + n))[:, None], got, out)
                 done[d] = out
             parts.append(done[d])
+        # what moves is each index's row from the position holding it, not
+        # the table
+        _mesh._note("all-gather", _mesh._nbytes(parts[0]), len(self.devs),
+                    (_mesh.AXIS_MODEL,), (), parts)
         return _mesh.MeshArray(self.mesh, parts)
 
 
@@ -623,8 +629,10 @@ class DecodeLoop(object):
         self._implant_fn = _build_implant_fn()
         if _dry_run():
             return
-        # MXTPU_MEMCHECK: price the program set before the thread starts
+        # MXTPU_MEMCHECK: price the program set before the thread starts;
+        # MXTPU_COMMSCHECK: audit its collectives (a sharded loop's)
         _audit_load_memory(self, "DecodeLoop")
+        _audit_load_comms(self, "DecodeLoop")
         # the static analyzer's registry holds each program weakly: the
         # loop keeps them
         from .. import tracecheck as _tc
@@ -1202,14 +1210,21 @@ class DecodeLoop(object):
                 for tag, fn, args, donate in programs]
 
     def comms_report(self):
-        raise _not_ported("comms_report", "DecodeLoop")
+        """Static collective inventory of every program of the loop
+        (``{program_name: CommsReport}``, the names of
+        :meth:`memory_report`): a sharded loop's bill a token along
+        'model' over separate cards; zero collectives on one device. Each
+        from one shape-only dry run over fake copies of the parameters and
+        caches; nothing runs on the device."""
+        return _comms_reports(self, [(pname, fn, args) for pname, fn, args,
+                                     _ in self._program_set()])
 
     def check(self, const_bytes=None, memory=False, budget=None,
               comms=False, min_eff=0.0):
         """Static-analyze the loop's registered programs; returns the
-        findings: ``tracecheck``'s lints and, with ``memory=True``, the
-        memory lints over every program plus the ``resident-set`` lint
-        over the set (with speculation, the draft and target
-        co-residency). ``comms=True`` raises: not ported. ``min_eff`` is
-        the JAX package's comms floor, unused here."""
-        return _check(self, const_bytes, memory, budget, comms)
+        findings: ``tracecheck``'s lints; with ``memory=True`` the memory
+        lints over every program plus the ``resident-set`` lint over the
+        set (with speculation, the draft and target co-residency); with
+        ``comms=True`` the communication lints over :meth:`comms_report`
+        at the ``min_eff`` floor (0 by default, as the engine's)."""
+        return _check(self, const_bytes, memory, budget, comms, min_eff)

@@ -72,10 +72,14 @@ Each bucket's forward is registered with ``tracecheck`` as
 ``<engine>/bucket[b=N]`` after the warm-up, and :meth:`ServingEngine.check`
 audits the engine: ``tracecheck``'s static lints over every bucket and,
 with ``memory=True``, the memory lints over :meth:`memory_report` plus a
-``resident-set`` lint over the bucket set. Not ported: ``comms_report``,
-``check(comms=True)`` and ``FleetRouter.check``, which read the
-communication analyzer's collective inventory; they raise (ROADMAP.md
-A.12d-3).
+``resident-set`` lint over the bucket set, and with ``comms=True`` the
+communication lints over :meth:`ServingEngine.comms_report`: each bucket's
+collective inventory from :mod:`mxnet_tpu_torch.commscheck`'s view of the
+same kind of dry run (a sharded engine's gathers along 'model', as they
+would run over separate cards; none on one device). With
+``MXTPU_COMMSCHECK=warn`` or ``error`` the engine audits those at load
+too, after the memory audit (the ``comms-bound`` floor is not applied:
+model-parallel serving trades efficiency for fitting the model).
 """
 from __future__ import annotations
 
@@ -157,20 +161,33 @@ def _replicated(node, outs):
     return [_mesh.reshard(o, ()) for o in outs]
 
 
-def _not_ported(what, who="ServingEngine"):
-    return MXNetError(
-        "%s.%s reads the communication analyzer's collective inventory, "
-        "which is not ported yet (ROADMAP.md A.12d-3)" % (who, what))
+def _comms_reports(obj, programs):
+    """``comms_report`` of :class:`ServingEngine` and ``DecodeLoop``:
+    ``{name: CommsReport}`` of each ``(name, fn, args)`` program, by one
+    shape-only dry run each. A program whose dry run fails is reported
+    without evidence (``hlo_unavailable``), never as collective-free."""
+    from .. import commscheck as _cc
+    reports = {}
+    for name, fn, args in programs:
+        try:
+            reports[name] = _cc.analyze(fn, args, name=name, mesh=obj._mesh,
+                                        device=obj.device)
+        except Exception as e:  # noqa: BLE001 -- reported as no evidence
+            logging.warning("%s: the dry run of %s failed (%r) — its "
+                            "collective inventory is no evidence",
+                            type(obj).__name__, name, e)
+            reports[name] = _cc._blind(name, obj.device, obj._mesh)
+    return reports
 
 
-def _check(obj, const_bytes, memory, budget, comms):
+def _check(obj, const_bytes, memory, budget, comms, min_eff=0.0):
     """``check`` of :class:`ServingEngine` and ``DecodeLoop``: the static
-    lints over the programs ``obj`` registered (``<name>/...``) and, with
+    lints over the programs ``obj`` registered (``<name>/...``); with
     ``memory``, the memory lints over ``obj.memory_report()`` and one
     ``resident-set`` lint over them all (they are all kept, so their
-    footprints co-reside)."""
-    if comms:
-        raise _not_ported("check(comms=True)", type(obj).__name__)
+    footprints co-reside); with ``comms``, the communication lints over
+    ``obj.comms_report()`` at the ``min_eff`` floor (a program whose dry
+    run failed raises: no evidence is not a clean audit)."""
     from .. import tracecheck as _tc
     findings = _tc.check_registered(const_bytes=const_bytes,
                                     match=obj.name + "/")
@@ -181,7 +198,50 @@ def _check(obj, const_bytes, memory, budget, comms):
             findings += _mc.lint_report(rep, budget=budget)
         findings += _mc.lint_resident_set(
             reports.values(), "%s/resident-set" % obj.name, budget=budget)
+    if comms:
+        from .. import commscheck as _cc
+        for rep in obj.comms_report().values():
+            if rep.hlo_unavailable:
+                raise MXNetError(
+                    "%s.check(comms=True): the dry run of %s failed — its "
+                    "collectives could not be audited"
+                    % (type(obj).__name__, rep.program))
+            findings += _cc.lint_report(rep, min_eff=min_eff)
     return findings
+
+
+def _audit_load_comms(obj, who):
+    """The ``MXTPU_COMMSCHECK`` load-time hook of :class:`ServingEngine`
+    and ``DecodeLoop``: the communication lints over ``obj.comms_report()``
+    (a sharded program set's collectives; none on one device), logged
+    under ``warn``, raised under ``error``, a failed dry run included (no
+    evidence is not a clean audit). The ``comms-bound`` floor is not
+    applied (``min_eff=0``): it gates training scale-out, while a
+    model-parallel serving program trades efficiency for fitting the model
+    at all. The knob resolves before the audit: a malformed one raises."""
+    from ..engine import commscheck_mode
+    mode = commscheck_mode()
+    if mode == "off":
+        return
+    from .. import commscheck as _cc
+    repl = _cc.repl_bytes()
+    bad = []
+    for rep in obj.comms_report().values():
+        if rep.hlo_unavailable:
+            bad.append("%s: the dry run failed — nothing was audited"
+                       % rep.program)
+            continue
+        bad += [f.format() for f in _cc.lint_report(rep, repl_threshold=repl,
+                                                    min_eff=0.0)
+                if not f.suppressed]
+    if not bad:
+        return
+    msg = ("%s(%s): comms audit found %d problem(s) at load "
+           "(MXTPU_COMMSCHECK=%s):\n%s"
+           % (who, obj.name, len(bad), mode, "\n".join(bad)))
+    if mode == "error":
+        raise MXNetError(msg)
+    logging.warning(msg)
 
 
 def _dry_run():
@@ -331,8 +391,10 @@ class ServingEngine(object):
                 if lead and lead % self.buckets[0] == 0 else None)
         if _dry_run():
             return
-        # MXTPU_MEMCHECK: price the bucket set before the warm-up runs it
+        # MXTPU_MEMCHECK: price the bucket set before the warm-up runs it;
+        # MXTPU_COMMSCHECK: audit its collectives (a sharded engine's)
         _audit_load_memory(self, "ServingEngine")
+        _audit_load_comms(self, "ServingEngine")
         if executables is not None:
             logging.warning(
                 "ServingEngine: could not import executables from %s (a "
@@ -637,15 +699,26 @@ class ServingEngine(object):
         return params, aux, inputs
 
     def comms_report(self):
-        raise _not_ported("comms_report")
+        """Static collective inventory of every bucket: ``{program_name:
+        CommsReport}`` (``<engine>/bucket[b=N]``, the JAX package's keys),
+        each from ``commscheck.analyze``'s shape-only dry run of the
+        bucket's forward over the arguments :meth:`memory_report` prices.
+        A one-device engine reports zero collectives; a model-parallel
+        engine's inventory is the bill a request pays along 'model' over
+        separate cards. Nothing runs on the device."""
+        return _comms_reports(self, [
+            ("%s/bucket[b=%d]" % (self.name, b), self._device_forward,
+             self._bucket_args(b)) for b in self.buckets])
 
     def check(self, const_bytes=None, memory=False, budget=None,
               comms=False, min_eff=0.0):
         """Static-analyze this engine's bucket programs; returns the
-        findings: ``tracecheck``'s lints over every registered bucket, and
+        findings: ``tracecheck``'s lints over every registered bucket;
         with ``memory=True`` the memory lints over every bucket
         (``hbm-budget``, ``temp-blowup``) plus the ``resident-set`` lint
-        over the bucket set. ``comms=True`` (the communication lints)
-        raises: not ported. ``min_eff`` is the JAX package's comms
-        floor, unused here."""
-        return _check(self, const_bytes, memory, budget, comms)
+        over the bucket set; with ``comms=True`` the communication lints
+        over :meth:`comms_report`. ``min_eff`` is the ``comms-bound``
+        floor, 0 by default (unlike the training gate: model-parallel
+        serving trades scale-out efficiency for fitting the model; pass a
+        floor to opt in)."""
+        return _check(self, const_bytes, memory, budget, comms, min_eff)

@@ -34,8 +34,9 @@ report names the mesh positions its engine spans (``model_devices``).
 Per-class and per-replica :class:`~mxnet_tpu_torch.serving.health.ServingHealth`
 rollups hang off the router (``class_health`` / ``replica_report``), all
 mirroring up into the fleet-level ``health`` and the process-global
-``serving.SERVING_HEALTH``. :meth:`FleetRouter.check` (the static audits
-of every replica's programs) is not ported and raises.
+``serving.SERVING_HEALTH``. :meth:`FleetRouter.check` runs the static
+audits of every in-rotation replica's engine (``tracecheck``, and with
+``memory=``/``comms=`` the memory and communication lints).
 """
 from __future__ import annotations
 
@@ -701,11 +702,25 @@ class FleetRouter(object):
         return out
 
     def check(self, memory=False, comms=False):
-        """The static audits of every replica's programs with the
-        communication analyzer's inventory; not ported, so this raises."""
-        raise MXNetError("FleetRouter.check reads the communication "
-                         "analyzer's collective inventory, which is not "
-                         "ported yet (ROADMAP.md A.12d-3)")
+        """Static-analyze every in-rotation replica's program set
+        (``tracecheck``, plus the memory and communication lints):
+        ``engine.check(memory=, comms=)`` of each. Replicas sharing one
+        engine (a warm rejoin) are audited once, and retired or dead
+        replicas are not. Returns the findings."""
+        findings = []
+        with self._lock:
+            engines = []
+            seen = set()
+            for r in self._replicas.values():
+                if r.state in (DEAD, RETIRED):
+                    continue
+                eng = r.batcher.engine
+                if id(eng) not in seen:
+                    seen.add(id(eng))
+                    engines.append(eng)
+        for eng in engines:
+            findings += eng.check(memory=memory, comms=comms)
+        return findings
 
 
 class _SettleHook(object):

@@ -35,15 +35,20 @@ lint id                   fires when
                           (default 1 MiB): pass it as an argument
 ``dtype-f64``             an argument, or an aten op's output, is float64
                           or complex128
+``collective-in-scan``    a gather-type collective (anything but an
+                          all-reduce or a permute) runs in a K-step
+                          ``run_steps`` program's loop: it pays its
+                          bandwidth K times a dispatch. The collectives are
+                          ``parallel/mesh.py``'s, recorded by the same dry
+                          run (``commscheck``'s inventory); the lint is a
+                          thin alias over ``commscheck.loop_findings``, and
+                          :func:`check_collectives` runs it alone
 ========================  ==================================================
 
-Two JAX lints are never emitted here. ``dtype-weak`` flags a weak-typed
+One JAX lint is never emitted here. ``dtype-weak`` flags a weak-typed
 program input, a bare Python scalar that reached a trace: torch has no
 weak types (a Python scalar keeps the tensor's dtype, and a dispatch
 builds no trace to re-key), so no input of the port can be one.
-``collective-in-scan`` flags a gather-type collective inside a scan body;
-the port's collectives are the functions of ``parallel/mesh.py``, which
-ROADMAP.md A.12d-3 records with the rest of the communication analyzer.
 
 **Retraces.** The port is eager: there is no jit cache to watch grow. A
 *retrace* is a dispatch under an already-seen key whose argument
@@ -103,7 +108,7 @@ LINTS = ("host-sync", "retrace", "donation", "const-capture", "dtype-f64",
 #: here so one suppression registry covers every analyzer
 MEM_LINTS = ("hbm-budget", "donation-waste", "temp-blowup", "resident-set")
 
-#: communication lints (the JAX package's ``commscheck``; A.12d-3)
+#: communication lints (implemented in :mod:`mxnet_tpu_torch.commscheck`)
 COMM_LINTS = ("resharding-copy", "replicated-large", "gather-in-loop",
               "comms-bound")
 
@@ -743,6 +748,11 @@ def check_program(fn, args=(), kwargs=None, donate_argnums=(), name=None,
                    _dtype_name(what.dtype), list(what.shape),
                    _fmt_bytes(nbytes), _fmt_bytes(threshold)),
                 op_path=node, provenance=prov))
+    trips = _loop_trips(fn, args)
+    if trips > 1:
+        from .commscheck import _entries, loop_findings
+        findings += loop_findings(_entries(run.tracker.collectives, trips),
+                                  name, lint="collective-in-scan")
     if run.stopped is not None:
         from torch._subclasses.fake_tensor import DynamicOutputShapeException
         what = ("an op whose output shape depends on the data (%s)"
@@ -760,6 +770,40 @@ def check_program(fn, args=(), kwargs=None, donate_argnums=(), name=None,
             "storage, not updated in place — the working set carries both"
             % (lab, _fmt_bytes(nbytes)), op_path=node or lab,
             provenance=prov))
+    for f in findings:
+        f.suppressed = _is_suppressed(f)
+    return findings
+
+
+def _loop_trips(fn, args):
+    """The trip count K of a K-step program: a scan :class:`StepProgram`'s
+    superbatch depth (its second argument's leading dimension); 1 for any
+    other program."""
+    fn = getattr(fn, "__self__", fn)
+    if not (isinstance(fn, StepProgram) and fn.scan and len(args) > 1
+            and isinstance(args[1], dict) and args[1]):
+        return 1
+    return int(next(iter(args[1].values())).shape[0])
+
+
+def check_collectives(fn, args=(), kwargs=None, name=None,
+                      allow=("all-reduce", "collective-permute"),
+                      loop_trips=None):
+    """``collective-in-scan`` alone: run the program once shape-only and
+    flag every collective of ``parallel/mesh.py`` in its K-step loop whose
+    kind is not in ``allow`` (default: the all-reduce, the expected
+    gradient and metric sum, and the permute, the ring and pipeline
+    schedule). ``loop_trips`` is K (None: a scan :class:`StepProgram`'s
+    depth, else 1). A thin alias over ``commscheck``'s inventory (one
+    collective record for both analyzers); the findings keep this lint's
+    id. Returns findings with suppressions applied, like
+    :func:`check_program`."""
+    from . import commscheck as _cc
+    trips = _loop_trips(fn, args) if loop_trips is None else loop_trips
+    report = _cc.analyze(fn, args, kwargs=kwargs, name=name,
+                         loop_trips=trips)
+    findings = _cc.loop_findings(report, report.program,
+                                 lint="collective-in-scan", allow=allow)
     for f in findings:
         f.suppressed = _is_suppressed(f)
     return findings

@@ -84,7 +84,9 @@ that are neither in ``label_names`` nor an ``Embedding``'s indices.
   retrace, logged or raised as ``tracecheck.RetraceError`` (whose
   ``result`` is the dispatch's) naming the argument that changed. Under
   ``MXTPU_FLOPCHECK=warn|error`` the key's program is also audited once
-  there by ``flopcheck``'s roofline lints (``loop_trips=K`` for a scan).
+  there by ``flopcheck``'s roofline lints (``loop_trips=K`` for a scan),
+  and over a mesh under ``MXTPU_COMMSCHECK=warn|error`` by
+  ``commscheck``'s communication lints.
 
 - ``dist_reduce`` (a dist kvstore's ``grad_reduce``, which ``Module``
   attaches) sums the update set's gradients across worker processes once
@@ -812,10 +814,12 @@ class TrainStep(object):
                 parts = grads[i * n_rep:(i + 1) * n_rep]
                 if self.mesh is not None:
                     # the sum over every position holding the same shard
-                    parts = shard_grad_sums(
-                        [torch.zeros_like(t) if g is None else g
-                         for t, g in zip(leaves[n], parts)], self.mesh,
-                        specs[n])
+                    # (named so in a dry run's collective inventory)
+                    with _mesh.collective_name("gradient/%s" % n):
+                        parts = shard_grad_sums(
+                            [torch.zeros_like(t) if g is None else g
+                             for t, g in zip(leaves[n], parts)], self.mesh,
+                            specs[n])
                 summed.append(parts)
             poison = guard and _faults.fire_flag("guard.grad_nan")
             every_out = [p for o in outs for p in _parts(o)]
@@ -1019,13 +1023,19 @@ class TrainStep(object):
         key, name, prog = got
         if name not in _tc.PROGRAMS:
             _tc.register_program(name, prog, call_args, donate_argnums=(0,))
+            trips = cache_key[1] if isinstance(cache_key, tuple) else 1
+            if self.mesh is not None:
+                # MXTPU_COMMSCHECK: one communication audit of the key's
+                # mesh program, on fakes of the call's arguments (off by
+                # default)
+                from . import commscheck as _cc
+                _cc.maybe_audit_dispatch(name, prog, call_args,
+                                         loop_trips=trips, mesh=self.mesh)
             # MXTPU_FLOPCHECK: one roofline audit of the key's program, on
             # fakes of the call's arguments (off by default)
             from . import flopcheck as _fc
-            _fc.maybe_audit_dispatch(
-                name, prog, call_args,
-                loop_trips=(cache_key[1] if isinstance(cache_key, tuple)
-                            else 1))
+            _fc.maybe_audit_dispatch(name, prog, call_args,
+                                     loop_trips=trips)
         try:
             self._watcher.after_call(key, prog, _tc.signature(call_args),
                                      health=self.health)
@@ -1152,7 +1162,8 @@ class TrainStep(object):
                     skip = 1.0 - ok.float()
                     skipped = skip if skipped is None else skipped + skip
         if len(devs) > 1:
-            acc = _mesh.all_reduce(accs, [self.device])[0]
+            acc = _mesh.all_reduce(accs, [self.device],
+                                   (_mesh.AXIS_DATA,))[0]
         else:
             acc = accs[0]
         if guard:

@@ -500,15 +500,52 @@ def test_cli_smoke_json_mlp(capsys):
     assert data["analyzers_sharing_dry_run"] == 1
 
 
-def test_not_ported_and_sharded_entry_points_raise():
+def test_not_ported_and_sharded_entry_points_raise(tmp_path, monkeypatch,
+                                                   capsys):
+    """The HLO entry points raise: there is no HLO. The sharded half runs
+    (the name predates it, when it raised): ``compiled_sharded_programs``
+    dry-runs ``commscheck``'s sharded set once each (two CPU positions
+    here), each report carrying the ``CommsReport`` of its own dry run, so
+    ``comm_seconds`` is the collectives' wire time (non-zero) in the
+    predicted step; ``check_sharded`` lints those reports, and the CLI's
+    ``--sharded`` and ``--commscheck-baseline`` run commscheck's gate from
+    the same dry runs. A report without collectives prices none."""
+    from mxnet_tpu_torch import commscheck as cc
     for fn in (fc.analyze_compiled, fc.parse_kernels):
         with pytest.raises(MXNetError, match="HLO"):
             fn()
-    for fn in (fc.check_sharded, fc.compiled_sharded_programs,
-               lambda: fc.main(["--sharded"]),
-               lambda: fc.main(["--zoo", "--commscheck-baseline", "b.json"])):
-        with pytest.raises(MXNetError, match="A.12d-3"):
-            fn()
+    progs = list(fc.compiled_sharded_programs(n_devices=2, device="cpu"))
+    names = [n for n, _, _ in progs]
+    assert names == ["dp2/lenet/scan[k=2]", "dp1xtp2/resnet18/step",
+                     "dp1xsp2/transformer-ring/step",
+                     "dp1xsp2/transformer-ring/scan[k=2]"]
+    findings, reports = fc.check_sharded(programs=progs)
+    for name, rep, mem in progs:
+        assert reports[name] is rep and mem.program == name
+        assert rep.comms.collective_count > 0 and rep.comm_seconds > 0
+        assert rep.comm_seconds == rep.comms.comm_seconds * rep.loop_trips
+        assert rep.predicted_step_seconds == (rep.kernel_seconds
+                                              + rep.comm_seconds)
+    path = str(tmp_path / "comms.json")
+    cc.write_baseline({n: r.comms for n, r in reports.items()}, path)
+    monkeypatch.setattr(fc, "compiled_sharded_programs",
+                        lambda **kw: iter(progs))
+    rc = fc.main(["--sharded", "--devices", "2", "--device", "cpu",
+                  "--json", "--commscheck-baseline", path])
+    data = json.loads(capsys.readouterr().out)
+    assert sorted(data["programs"]) == sorted(names)
+    assert data["analyzers_sharing_dry_run"] == 2
+    assert data["baseline_failures"] == []
+    for n in names:
+        assert data["programs"][n]["comm_seconds"] > 0
+    bad = [f for f in data["findings"] if not f["suppressed"]]
+    assert rc == (1 if bad else 0)
+    # the flat head's label: gathered along 'seq' before its Reshape (a
+    # kept divergence: GSPMD gathers the Reshape's output)
+    assert [(f["lint"], f["program"]) for f in bad] == [
+        ("resharding-copy", "dp1xsp2/transformer-ring/step")]
+    assert "['softmax_label']" in bad[0]["message"]
+    assert bad[0]["op_path"].startswith("reshape")
     rep = _report(fc, "p/step", [])
     assert rep.comm_seconds == 0.0
 
