@@ -183,22 +183,26 @@ non-zero):
    4096x4096 tensor on the card keeps 0.5 +- 0.005 of it, and equal seeds
    give equal masks.
 15. data: the data tier from JPEG records. (a) a probe, printed on its
-   own line: Pillow, <jpeglib.h>, libjpeg in ldconfig, g++ and the cores;
-   the route follows it: "native" (libjpeg's header and library present:
-   the native library must build), "pillow" (no libjpeg: the native build
-   must fail with the compiler's message; decoding falls back to Pillow as
-   in the reference) or "none". (b) an indexed .rec of 1024 classification
+   own line: Pillow, <jpeglib.h>, libjpeg in ldconfig, g++ and the cores,
+   nvjpeg.h, libnvjpeg and whether nvJPEG's hardware backend initialises;
+   the native reader library (no libjpeg) must build; the host route
+   follows the probe: "native" (libjpeg's header and library present:
+   the native decoder library must build), "pillow" (no libjpeg: the
+   decoder's build must fail with the compiler's message; decoding falls
+   back to Pillow as in the reference) or "none". (b) an indexed .rec of 1024 classification
    JPEGs at 257x257 (quality 90, 8 classes; bench.py's realdata textures)
    and one of 256 detection JPEGs at 300x300 with 1-4 boxes, written with
    Pillow from --seed. (c) ResNet-50 NCHW, 8 classes, bf16 compute, b=128,
-   k=4 through Module.fit: 1 warm-up and 2 timed epochs from the records
-   through ImageRecordIter (native route) or ImageIter with the Python
-   augmenters (pillow route), with bench.py's augmentation (random crop
-   of 224 after a resize to 246, mirror, mean/std) on min(4, cores)
-   decode workers, against the same fit over a device-resident
-   NDArrayIter of the same shapes (images/s, their ratio, PipelineStats,
-   DataHealth), the workers decoding alone, and the NDArrayIter fit again
-   (half the images, 2 epochs) with the workers decoding beside it; the
+   k=4 through Module.fit: 1 warm-up and 1 timed epoch (2 before phase
+   28) from the records
+   through ImageRecordIter's host route (native route) or ImageIter with
+   the Python augmenters (pillow route), with bench.py's augmentation
+   (random crop of 224 after a resize to 246, mirror, mean/std) on
+   min(4, cores) decode workers, against the same fit over a
+   device-resident NDArrayIter of the same shapes (images/s, their ratio,
+   PipelineStats, DataHealth), the workers decoding alone, and the
+   NDArrayIter fit again (a quarter of the images, cut from half for
+   phase 28; 2 epochs) with the workers decoding beside it; the
    first two superbatches that reached the card must equal a 1-worker
    pass bit for bit. (d) drills: data.worker_die makes
    next() raise naming the site within 5 s; io.record_read@3=transient*2
@@ -253,7 +257,8 @@ non-zero):
    against the per-layer build (float32, within 1e-5 of the largest
    value); a one-layer draft trained the same way. (b) DecodeLoop over the
    trained float32 weights, max_len 128, 8 slots, 16 requests of an
-   8-token shared prefix plus a 2-4 token tail, 96 new tokens each, each
+   8-token shared prefix plus a 2-4 token tail, 48 new tokens each (96
+   before phase 28), each
    leg warmed once and then timed: greedy (every token the argmax of the
    full forward at its position, teacher-forced on the stream, but where
    its two probabilities are within 1e-5; the loop built on other
@@ -530,6 +535,31 @@ non-zero):
    expected ones (COMMSCHECK_SHARDED_EXPECTED: the flat-head transformer
    step's resharding-copy of its label, comms-bound on the gate's tiny
    programs at the H100's peak, flopcheck's tiny-dispatch).
+28. imagenet: ImageRecordIter on the card (last), with
+   example/image-classification/train_imagenet.py's data settings. (a)
+   1024 JPEG records from --seed (896 baseline 4:2:0 at 500x375 or
+   375x500, 64 at 1024x768, 32 progressive, 32 grayscale; quality 90),
+   their MB and seconds to write. (b) two batches decoded by nvJPEG:
+   image_augment against its plain version on the same CUDA tensors
+   (max_abs_err 0), the descriptors from nvJPEG's header sizes against
+   the Python draws on Pillow's; the kernel's ms on CUDA events beside its
+   bound, the plain version's and F.interpolate + flip + normalize's
+   (composite_ms; no single library call does the stage); nvJPEG's decode
+   ms a image by route. (c) nvJPEG's pixels against Pillow's decode of the
+   same bytes by route, and the denom-2 images' box average against
+   libjpeg's 1/2 decode, held to NVJPEG_BOUNDS. (d) 4 workers decoding
+   one epoch alone; ResNet-50 NCHW bf16 b=128 k=4, 1000 classes,
+   Xavier(gaussian, in, 2), SGD lr 0.1 momentum 0.9 wd 1e-4 through
+   Module.fit from ImageRecordIter(resize 256, random crop and mirror,
+   the example's mean/std, 4 workers) on cuda:0 over 1 warm-up and 2
+   timed epochs against a device-resident NDArrayIter of the same shapes;
+   PipelineStats; image_augment launched once a batch and nvJPEG's calls
+   by route (counts at 0 just before the fit). (e) the first 2
+   superbatches that reached the card equal a 1-worker pass bit for bit;
+   set_epoch(1) equals the uninterrupted epoch 1; four threads decoding
+   beside a busy card equal one thread's decode. (f) a record cut inside
+   its header raises the corrupt-image error; the io.record_read retry
+   drill on the card route.
 
 The line before the ops line is the card's name and power limit; then
 {"ops": [...], "examples": {...}} (phase 20's figures); then
@@ -544,8 +574,9 @@ max error against the plain version, times and bound; the
 NMS kernel's launches also by path: serving, training, the serving tier,
 training from JPEG records and model-parallel serving (phase 21); the
 matmul_stats kernel's by path: the
-train phase and the training API); the last line is {"ok": true,
-"device": {...}}.
+train phase and the training API; image_augment's from phase 28's fit,
+with its composite_ms and nvJPEG's decode ms a image by route); the last
+line is {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
@@ -3657,8 +3688,13 @@ DATA_RESIZE = 246
 DATA_K = 4
 DATA_MEAN = (123.68, 116.28, 103.53)
 DATA_STD = (58.4, 57.1, 57.4)
-#: warm-up and timed epochs of each ResNet-50 fit
-DATA_EPOCHS = (1, 2)
+#: warm-up and timed epochs of each ResNet-50 fit (2 timed before phase 28:
+#: the script's time limit)
+DATA_EPOCHS = (1, 1)
+#: phase 15 (c): the device-resident fit with the decode workers busy beside
+#: it trains on this share of the records (1/4, cut from 1/2: the script's
+#: time limit, phase 28)
+DATA_BUSY_SHARE = 4
 #: phase 15 (e): SSD at phase 12's batch over the detection records
 DET_BATCH = 32
 #: how long a dead decode worker may take to fail the consumer
@@ -3696,17 +3732,19 @@ def _det_image(seed, i, size):
 
 def write_records(path, n, make, quality):
     """An indexed .rec of ``n`` JPEGs: ``make(i)`` gives image ``i`` and
-    its label; images are made and encoded on 8 threads (numpy and
-    Pillow release the GIL), written in index order."""
+    its label, and may give Pillow's save options for it third (a 2-D
+    image is saved grayscale); images are made and encoded on 8 threads
+    (numpy and Pillow release the GIL), written in index order."""
     import io as _bio
     from concurrent.futures import ThreadPoolExecutor
     from PIL import Image
     from mxnet_tpu_torch import recordio
 
     def encode(i):
-        img, label = make(i)
+        img, label, *opts = make(i)
         buf = _bio.BytesIO()
-        Image.fromarray(img).save(buf, format="JPEG", quality=quality)
+        Image.fromarray(img).save(buf, format="JPEG", quality=quality,
+                                  **(opts[0] if opts else {}))
         return label, buf.getvalue()
     rec = recordio.MXIndexedRecordIO(os.path.splitext(path)[0] + ".idx",
                                      path, "w")
@@ -3721,17 +3759,35 @@ def write_records(path, n, make, quality):
 
 
 def data_probe():
-    """Phase 15 (a): what the machine offers the data tier."""
-    from mxnet_tpu_torch import native_build
+    """Phase 15 (a): what the machine offers the data tier, the card's JPEG
+    route included (nvJPEG's header and library, and whether its hardware
+    backend initialises)."""
+    import torch
+    from mxnet_tpu_torch import jpeg_decode, native_build
     p = native_build.probe()
     route = "native" if p["native"] else ("pillow" if p["pillow"]
                                           else "none")
+    hw = None
+    if p["libnvjpeg"]:
+        try:
+            jpeg_decode.release(jpeg_decode.acquire(torch.device("cuda", 0)))
+            hw = jpeg_decode.hardware_status()
+        except Exception as e:             # reported; phase 28 fails on it
+            hw = "nvJPEG did not initialise: %s" % e
+    p["nvjpeg_hardware"] = hw
     log("data probe: Pillow %s; <jpeglib.h> %s; ldconfig libjpeg %s; %s; "
-        "os.cpu_count() %s -> the JPEG route is %r"
+        "os.cpu_count() %s -> the host JPEG route is %r; nvjpeg.h %s; "
+        "libnvjpeg %s; nvJPEG's hardware backend %s"
         % (p["pillow"] or "absent",
            "found" if p["jpeglib_h"] else "absent",
            p["libjpeg"] or "absent", p["cxx"] or "no C++ compiler",
-           p["cpu_count"], route))
+           p["cpu_count"], route, p["nvjpeg_h"] or "absent",
+           p["libnvjpeg"] or "absent",
+           ("initialised (status 0), %d engines, %d cores each"
+            % (hw["engines"], hw["cores"]) if isinstance(hw, dict)
+            and hw["status"] == 0 else
+            "did not initialise (nvjpegCreateEx status %s)" % hw["status"]
+            if isinstance(hw, dict) else hw)))
     return p, route
 
 
@@ -3751,7 +3807,7 @@ def _cls_iter(route, rec, num_workers, seed, shape=None, batch=None,
             shuffle=True, rand_crop=True, rand_mirror=True, resize=resize,
             mean_r=DATA_MEAN[0], mean_g=DATA_MEAN[1], mean_b=DATA_MEAN[2],
             std_r=DATA_STD[0], std_g=DATA_STD[1], std_b=DATA_STD[2],
-            num_workers=num_workers, seed=seed)
+            num_workers=num_workers, seed=seed, device="cpu")
     augs = mt.image.CreateAugmenter(
         shape, resize=resize, rand_crop=True, rand_mirror=True,
         mean=np.array(DATA_MEAN), std=np.array(DATA_STD))
@@ -3924,11 +3980,11 @@ def data_resnet(route, rec, seed, card, problems):
                               batch_size=DATA_BATCH)
     _, sends, _ = _resnet_fit(mt, sym, synth, seed, warm + timed)
     synth_ips = timed * n / (sends[-1] - sends[warm])
-    # the synthetic fit again, over half the images (one warm-up and one
-    # timed epoch), with the decode workers busy beside it (a thread
+    # the synthetic fit again, over a share of the images (one warm-up and
+    # one timed epoch), with the decode workers busy beside it (a thread
     # draining the records epoch after epoch): what the workers' threads
     # cost the training loop's own host time
-    half = n // 2
+    half = n // DATA_BUSY_SHARE
     synth = mt.io.NDArrayIter(mt.nd.NDArray(x[:half]),
                               mt.nd.NDArray(y[:half].float()),
                               batch_size=DATA_BATCH)
@@ -4104,32 +4160,36 @@ def data_phase(seed, card):
                    DATA_CLASSES, nb / 1e6, DET_IMAGES, SSD_INPUT[1],
                    SSD_INPUT[2], DET_OBJECTS, nd_ / 1e6,
                    time.perf_counter() - t0))
+        from mxnet_tpu_torch import native_build
+        t0 = time.perf_counter()
+        native_build.load("reader")
+        log("data: the native reader library (no libjpeg) built in %.2f s: "
+            "%s" % (time.perf_counter() - t0, native_build.build("reader")))
         if route != "native":
-            from mxnet_tpu_torch import native_build
             try:
-                native_build.load()
+                native_build.load("decoder")
                 problems.append("the probe found no libjpeg, yet the native "
-                                "library built")
+                                "decoder library built")
             except Exception as e:
                 msg = str(e)
-                log("data: the native library does not build here, as the "
-                    "probe said: %s" % " ".join(msg.split())[:300])
+                log("data: the native decoder library does not build here, "
+                    "as the probe said: %s" % " ".join(msg.split())[:300])
                 if "g++ failed" not in msg and "compiler" not in msg:
                     problems.append("the failed build's error does not "
                                     "carry the compiler's message")
             log("data: libjpeg's headers and library are absent on this "
-                "machine, so ImageRecordIter (the native fused decode) "
-                "cannot run here%s" % (
+                "machine, so ImageRecordIter's host route (device='cpu', "
+                "the native fused decode) cannot run here; its card route "
+                "(nvJPEG) runs in phase 28%s" % (
                     "; (c) trains from the same records through ImageIter "
                     "(Pillow decode, the reference's fallback) and (e)'s "
                     "imdecode decodes with Pillow" if route == "pillow"
                     else ""))
         else:
-            from mxnet_tpu_torch import native_build
             t0 = time.perf_counter()
-            native_build.load()
-            log("data: the native library built in %.2f s: %s"
-                % (time.perf_counter() - t0, native_build.build()))
+            native_build.load("decoder")
+            log("data: the native decoder library built in %.2f s: %s"
+                % (time.perf_counter() - t0, native_build.build("decoder")))
         if route != "none":
             out.update(data_resnet(route, cls_rec, seed, card, problems))
         data_drills(route, cls_rec, seed, problems)
@@ -4842,7 +4902,7 @@ LM_STACK_RTOL = 1e-5
 DEC_MAXLEN = 128
 DEC_SLOTS = 8
 DEC_REQUESTS = 16    # cut from 32: the script's time limit
-DEC_NEW = 96
+DEC_NEW = 48         # cut from 96: the script's time limit (phase 28)
 DEC_SPEC_K = 2
 DEC_SAMPLED = {"temperature": 0.8, "top_k": 50, "top_p": 0.95}
 #: a greedy token may differ from the full forward's argmax only where
@@ -9342,6 +9402,606 @@ def commscheck_phase(seed, card):
     return {"B1": b1, "B2": b2}
 
 
+# ---------------------------------------------------------------------------
+# phase 28: ImageRecordIter on the card (nvJPEG and the image_augment kernel)
+# ---------------------------------------------------------------------------
+
+#: example/image-classification/train_imagenet.py:99-154 and 171-178:
+#: ResNet-50, 1000 classes, 3x224x224, batch 128, ImageRecordIter(resize
+#: 256, random crop and mirror, shuffle) with the example's mean and std,
+#: SGD lr 0.1 momentum 0.9 wd 1e-4, Xavier(gaussian, in, 2)
+IMNET_LAYERS = 50
+IMNET_CLASSES = 1000
+IMNET_SHAPE = (3, 224, 224)
+IMNET_BATCH = 128
+IMNET_RESIZE = 256
+IMNET_MEAN = (123.68, 116.78, 103.94)
+IMNET_STD = (58.395, 57.12, 57.375)
+IMNET_OPT = (("learning_rate", 0.1), ("momentum", 0.9), ("wd", 1e-4))
+#: phase 15 (c)'s fastest step: bf16 compute, 4 steps a dispatch
+IMNET_K = 4
+IMNET_WORKERS = 4
+#: warm-up and timed epochs of each fit
+IMNET_EPOCHS = (1, 2)
+#: the records (1024): 896 baseline 4:2:0 at 500x375 or 375x500, 64 at
+#: 1024x768 (libjpeg's DCT scale 1/2 at resize 256), 32 progressive, 32
+#: grayscale, quality 90
+IMNET_IMAGES = 1024
+IMNET_QUALITY = 90
+#: (c) nvJPEG's pixels against Pillow's decode of the same bytes, by group:
+#: (mean |difference| at most, largest |difference| at most, share of
+#: values more than 2 levels apart at most). The IDCT and the chroma
+#: upsampling differ between the decoders; the denom-2 group compares the
+#: kernel's box average of nvJPEG's full-size decode with libjpeg's scaled
+#: IDCT. The dev runs' figures (NVIDIA H100 80GB HBM3, 700.00 W; 256
+#: images on the hybrid route, 16 at denom 2; the phase_depths run):
+#: hybrid mean 1.288, largest 19, share 0.1294; denom 2 mean 0.517,
+#: largest 4, share 0.00058. The hardware route's bounds are the hybrid's:
+#: its backend did not initialise on that machine (nvjpegCreateEx status
+#: 7), so it is not measured.
+NVJPEG_BOUNDS = {"hardware": (2.0, 40, 0.25), "hybrid": (2.0, 40, 0.25),
+                 "denom2": (1.5, 16, 0.05)}
+
+
+def _imnet_kind(i):
+    """Record ``i``'s kind and size (w, h)."""
+    if i % 32 == 0:
+        return "progressive", (500, 375)
+    if i % 32 == 1:
+        return "gray", (375, 500)
+    if i % 16 == 2:
+        return "large", (1024, 768)
+    return "baseline", ((500, 375) if (i // 3) % 2 else (375, 500))
+
+
+def smooth_field(rng, w, h):
+    """A uint8 HWC image: a random field on a 40-pixel grid, bilinearly
+    smoothed, with uniform noise of +-17 levels (10 levels' deviation)."""
+    from PIL import Image
+    coarse = rng.integers(20, 236, (h // 40 + 2, w // 40 + 2, 3),
+                          dtype=np.uint8)
+    field = np.asarray(Image.fromarray(coarse).resize((w, h),
+                                                      Image.BILINEAR),
+                       np.int16)
+    noise = rng.integers(-17, 18, (h, w, 3), dtype=np.int16)
+    return np.clip(field + noise, 0, 255).astype(np.uint8)
+
+
+def _imnet_image(seed, i):
+    """Image ``i`` of the records (:func:`smooth_field`), its label
+    ``i % 1000`` and its save options."""
+    kind, (w, h) = _imnet_kind(i)
+    img = smooth_field(np.random.default_rng([seed, 28, i]), w, h)
+    opts = {"subsampling": 2}                     # 4:2:0
+    if kind == "progressive":
+        opts["progressive"] = True
+    if kind == "gray":
+        img = img.mean(axis=2).astype(np.uint8)
+        opts = {}
+    return img, float(i % IMNET_CLASSES), opts
+
+
+def _imnet_iter(rec, seed, workers, **kw):
+    """train_imagenet.py's training iterator, on the card."""
+    import mxnet_tpu_torch as mt
+    args = dict(path_imgrec=rec, data_shape=IMNET_SHAPE,
+                batch_size=IMNET_BATCH, shuffle=True, rand_crop=True,
+                rand_mirror=True, resize=IMNET_RESIZE,
+                mean_r=IMNET_MEAN[0], mean_g=IMNET_MEAN[1],
+                mean_b=IMNET_MEAN[2], std_r=IMNET_STD[0],
+                std_g=IMNET_STD[1], std_b=IMNET_STD[2],
+                num_workers=workers, seed=seed)
+    args.update(kw)
+    return mt.image.ImageRecordIter(**args)
+
+
+def _read_bufs(rec, keys):
+    from mxnet_tpu_torch import recordio
+    r = recordio.MXIndexedRecordIO(os.path.splitext(rec)[0] + ".idx", rec,
+                                   "r")
+    try:
+        return [recordio.unpack(r.read_idx(k))[1] for k in keys]
+    finally:
+        r.close()
+
+
+def _composite(pixels, desc, m, s):
+    """What PyTorch's library calls do in the kernel's place, image by
+    image: F.interpolate (bilinear) for the resize-short and the second
+    resize, the crop, torch.flip and the normalisation."""
+    import torch
+    import torch.nn.functional as F
+    from mxnet_tpu_torch.ops import image_augment as ia
+    oh, ow = IMNET_SHAPE[1:]
+    out = torch.empty((len(desc), 3, oh, ow), device=pixels.device)
+    mt_ = torch.as_tensor(m, device=pixels.device).view(3, 1, 1)
+    st = torch.as_tensor(s, device=pixels.device).view(3, 1, 1)
+    for i, r in enumerate(desc):
+        W, H = int(r[ia.D_W]), int(r[ia.D_H])
+        off = int(r[ia.D_OFFSET])
+        img = pixels[off:off + 3 * W * H].view(1, H, W, 3).permute(
+            0, 3, 1, 2).float()
+        img = F.interpolate(img, size=(int(r[ia.D_NH]), int(r[ia.D_NW])),
+                            mode="bilinear", align_corners=False)
+        x0, y0 = int(r[ia.D_X0]), int(r[ia.D_Y0])
+        cw, ch = int(r[ia.D_CW]), int(r[ia.D_CH])
+        img = img[:, :, y0:y0 + ch, x0:x0 + cw]
+        if (cw, ch) != (ow, oh):
+            img = F.interpolate(img, size=(oh, ow), mode="bilinear",
+                                align_corners=False)
+        if r[ia.D_MIRROR]:
+            img = torch.flip(img, dims=(3,))
+        out[i] = (img[0] - mt_) * st
+    return out
+
+
+def imnet_kernel(rec, seed, reps, card, problems):
+    """(b) the kernel against its plain version on two batches' decoded
+    pixels, geometry against the Python draws on Pillow's header sizes;
+    times; nvJPEG's decode time by route. (c) nvJPEG against Pillow."""
+    import io as _bio
+    import torch
+    from PIL import Image
+    from mxnet_tpu_torch import jpeg_decode
+    from mxnet_tpu_torch.image import _pure_batch_seed
+    from mxnet_tpu_torch.ops import image_augment as ia
+    dev = torch.device("cuda", 0)
+    oh, ow = IMNET_SHAPE[1:]
+    m, s = ia.normalization(IMNET_MEAN, IMNET_STD, True, True)
+    dec = jpeg_decode.acquire(dev)
+    worst, geo_diffs, routes_seen = 0.0, 0, {"hardware": 0, "hybrid": 0}
+    kept = None
+    diffs = {k: [] for k in NVJPEG_BOUNDS}
+    try:
+        for b in range(2):
+            keys = list(range(b * IMNET_BATCH, (b + 1) * IMNET_BATCH))
+            bufs = _read_bufs(rec, keys)
+            w, h, routes, st = dec.info(bufs)
+            if np.count_nonzero(st):
+                problems.append("nvJPEG rejected %d headers of batch %d"
+                                % (np.count_nonzero(st), b))
+                return None
+            pil = [Image.open(_bio.BytesIO(x)).size for x in bufs]
+            bseed = _pure_batch_seed(seed, 0, b)
+            desc = ia.plan(w, h, IMNET_RESIZE, (oh, ow), True, True, bseed)
+            want_desc = ia.plan([p[0] for p in pil], [p[1] for p in pil],
+                                IMNET_RESIZE, (oh, ow), True, True, bseed)
+            geo_diffs += int(np.sum(np.any(desc != want_desc, axis=1)))
+            pixels, offs, st = dec.decode(bufs, w, h, routes)
+            dec.finish()
+            if np.count_nonzero(st):
+                problems.append("nvJPEG failed %d images of batch %d"
+                                % (np.count_nonzero(st), b))
+                return None
+            desc[:, ia.D_OFFSET] = offs
+            desc[:, ia.D_PITCH] = 3 * w.astype(np.int64)
+            d = torch.from_numpy(desc).to(dev)
+            got = ia.image_augment(pixels, d, oh, ow, m, s)
+            want = ia.image_augment_reference(
+                pixels, d, oh, ow, torch.as_tensor(m), torch.as_tensor(s))
+            torch.cuda.synchronize()
+            worst = max(worst, float((got - want).abs().max()))
+            for k, name in enumerate(jpeg_decode.ROUTES):
+                routes_seen[name] += int(np.sum(routes == k))
+            # (c): every image of the two batches against Pillow's decode,
+            # by route, and the denom-2 ones' box average against libjpeg's
+            # scaled decode
+            host = pixels.cpu().numpy()
+            for i, x in enumerate(bufs):
+                W, H = int(w[i]), int(h[i])
+                nv = host[offs[i]:offs[i] + 3 * W * H].reshape(H, W, 3)
+                ref = np.asarray(Image.open(_bio.BytesIO(x)).convert("RGB"))
+                diffs[jpeg_decode.ROUTES[routes[i]]].append(
+                    np.abs(nv.astype(np.int16) - ref).ravel())
+                if desc[i, ia.D_DENOM] == 2:
+                    w1, h1 = int(desc[i, ia.D_W1]), int(desc[i, ia.D_H1])
+                    box = ia._box_average(torch.from_numpy(nv), 2, w1,
+                                          h1).numpy()
+                    im = Image.open(_bio.BytesIO(x))
+                    im.draft("RGB", (w1, h1))
+                    sc = np.asarray(im.convert("RGB"))
+                    if sc.shape != box.shape:
+                        problems.append("Pillow's 1/2 decode is %s, the box "
+                                        "average %s" % (sc.shape, box.shape))
+                        continue
+                    diffs["denom2"].append(
+                        np.abs(box.astype(np.int16) - sc).ravel())
+            if b == 0:
+                kept = (pixels, d, desc, bufs, w, h, routes)
+        pixels, d, desc, bufs, w, h, routes = kept
+        ms = cuda_time_ms(lambda: ia._launch(pixels, d, oh, ow,
+                                             torch.as_tensor(m),
+                                             torch.as_tensor(s)), reps)
+        plain_ms = cuda_time_ms(lambda: ia.image_augment_reference(
+            pixels, d, oh, ow, torch.as_tensor(m), torch.as_tensor(s)), 2,
+            warmup=1)
+        comp_ms = cuda_time_ms(lambda: _composite(pixels, desc, m, s), 3,
+                               warmup=1)
+        bound_s, bound_by = ia.bound_seconds(desc, oh, ow)
+        nbytes = ia.launch_bytes(desc, oh, ow)
+
+        # nvJPEG's decode time a image by route on batch 0's records (host
+        # clock around the call and a wait on the decoder's stream)
+        def t_decode(idx, route):
+            sub = [bufs[i] for i in idx]
+            best = None
+            for _ in range(3):
+                t0 = time.perf_counter()
+                _, _, st = dec.decode(sub, w[idx], h[idx],
+                                      np.full(len(idx), route, np.int32))
+                dec.finish()
+                dt = time.perf_counter() - t0
+                best = dt if best is None else min(best, dt)
+                if np.count_nonzero(st):
+                    problems.append("nvJPEG failed on the %s route" % route)
+            return 1e3 * best / max(len(idx), 1)
+        hw = np.flatnonzero(routes == 0)
+        hy = np.flatnonzero(routes == 1)
+        dec_ms = {"hardware": t_decode(hw, 0) if len(hw) else None,
+                  "hybrid": t_decode(hy, 1) if len(hy) else None,
+                  "hardware_images_through_hybrid":
+                      t_decode(hw, 1) if len(hw) else None,
+                  "images": {"hardware": int(len(hw)),
+                             "hybrid": int(len(hy))}}
+    finally:
+        jpeg_decode.release(dec)
+    hwstat = jpeg_decode.hardware_status()
+    log("imagenet (b) image_augment against its plain version on the "
+        "decoded pixels of 2 batches of %d (%s by route): max |difference| "
+        "%.3g; descriptors from nvJPEG's header sizes against the Python "
+        "draws on Pillow's header sizes: %d images differ"
+        % (IMNET_BATCH, routes_seen, worst, geo_diffs))
+    log("imagenet (b) image_augment at b=%d 3x%dx%d: %.4f ms a launch "
+        "(CUDA events, %d launches back to back), plain version %.2f ms, "
+        "F.interpolate + flip + normalize image by image %.2f ms; bound "
+        "%.4f ms (%s: %d B, the float32 batch written and the source "
+        "pixels the taps read, at 3.35 TB/s) [%s]"
+        % (IMNET_BATCH, oh, ow, ms, reps, plain_ms, comp_ms, 1e3 * bound_s,
+           bound_by, nbytes, card))
+    log("imagenet (b) nvJPEG decode ms a image by route: %s; hardware "
+        "backend status %s [%s]" % (json.dumps(dec_ms), hwstat, card))
+    stats = {}
+    for k, parts in diffs.items():
+        if not parts:
+            stats[k] = None
+            continue
+        a = np.concatenate(parts)
+        stats[k] = {"images": len(parts), "mean": float(a.mean()),
+                    "max": int(a.max()), "over2": float(np.mean(a > 2))}
+        lim = NVJPEG_BOUNDS[k]
+        if (stats[k]["mean"] > lim[0] or stats[k]["max"] > lim[1]
+                or stats[k]["over2"] > lim[2]):
+            problems.append("nvJPEG against Pillow (%s): %s past %s"
+                            % (k, stats[k], lim))
+    log("imagenet (c) nvJPEG against Pillow on the same bytes (mean and "
+        "largest |difference|, share of values more than 2 levels apart), "
+        "by route, and the denom-2 images' box average against libjpeg's "
+        "1/2 decode: %s; bounds %s" % (json.dumps(stats),
+                                       json.dumps(NVJPEG_BOUNDS)))
+    if worst != 0.0:
+        problems.append("image_augment differs from its plain version by "
+                        "%g" % worst)
+    if geo_diffs:
+        problems.append("%d images' geometry differs from the Python draws "
+                        "on Pillow's sizes" % geo_diffs)
+    return {"name": "image_augment", "route": "cuda",
+            "source": "mxnet_tpu_torch/csrc/image_augment.cu",
+            "replaces": "src/io/image_decode.cc:131",
+            "replaces_note": "no TPU kernel: ProcessOne, the host C++ "
+                             "stage after libjpeg",
+            "max_abs_err": worst, "ms": ms, "ms_source": "cuda_events",
+            "plain_ms": plain_ms, "bound_ms": 1e3 * bound_s,
+            "bound_by": bound_by, "library_ms": None,
+            "composite_ms": comp_ms, "nvjpeg_ms_per_image": dec_ms,
+            "nvjpeg_vs_pillow": stats}
+
+
+def _imnet_fit(mt, sym, it, seed, epochs):
+    """Module(compute_dtype="bfloat16").fit over ``it`` at K=IMNET_K with
+    the example's optimizer and initializer; returns (epoch end times,
+    samples in the last epoch's metric, parameters finite)."""
+    import torch
+    ends = []
+    metric = mt.metric.Accuracy()
+
+    def on_epoch(*_):
+        torch.cuda.synchronize()
+        ends.append(time.perf_counter())
+    mt.random.seed(seed)
+    mod = mt.mod.Module(sym, context=mt.gpu(0), compute_dtype="bfloat16")
+    torch.cuda.synchronize()
+    ends.append(time.perf_counter())
+    mod.fit(it, num_epoch=epochs, eval_metric=metric, optimizer="sgd",
+            optimizer_params=IMNET_OPT,
+            initializer=mt.initializer.Xavier(
+                rnd_type="gaussian", factor_type="in", magnitude=2),
+            steps_per_dispatch=IMNET_K, epoch_end_callback=on_epoch)
+    finite = all(bool(torch.isfinite(v.data).all())
+                 for v in mod.get_params()[0].values())
+    return ends, metric.num_inst, finite
+
+
+def imnet_fit(rec, seed, card, problems):
+    """(d) decode alone, the fit from the records against a
+    device-resident NDArrayIter, PipelineStats, launches by route; (e)
+    the first superbatches against a 1-worker pass, set_epoch resume."""
+    import torch
+    import mxnet_tpu_torch as mt
+    from mxnet_tpu_torch import data as tdata, jpeg_decode, models
+    from mxnet_tpu_torch.ops import image_augment as ia
+    warm, timed = IMNET_EPOCHS
+    nb = IMNET_IMAGES // IMNET_BATCH
+    n = nb * IMNET_BATCH
+    sym = models.resnet(num_layers=IMNET_LAYERS, num_classes=IMNET_CLASSES,
+                        image_shape=",".join(map(str, IMNET_SHAPE)))
+
+    it = _imnet_iter(rec, seed, IMNET_WORKERS)
+    t0 = time.perf_counter()
+    nbatch = _drain(it)
+    torch.cuda.synchronize()
+    alone_ips = nbatch * IMNET_BATCH / (time.perf_counter() - t0)
+    it.close()
+
+    landed = []
+    real_next = tdata.DevicePrefetcher.next
+
+    def recording(self):
+        sb = real_next(self)
+        if len(landed) < 2:
+            landed.append([a.data.clone() for a in sb.data + sb.label])
+        return sb
+    it = _imnet_iter(rec, seed, IMNET_WORKERS)
+    tdata.DevicePrefetcher.next = recording
+    # the main path: counts at 0 just before, read just after
+    jpeg_decode.reset_launches()
+    ia.reset_launches()
+    try:
+        ends, count, finite = _imnet_fit(mt, sym, it, seed, warm + timed)
+    finally:
+        tdata.DevicePrefetcher.next = real_next
+    launches = ia.LAUNCHES
+    by_route = dict(jpeg_decode.LAUNCHES_BY_ROUTE)
+    images = dict(jpeg_decode.IMAGES_BY_ROUTE)
+    stats, health = it.data_stats.report(), it.data_health.report()
+    it.close()
+    real_ips = timed * n / (ends[-1] - ends[warm])
+
+    ref = _imnet_iter(rec, seed, 1)
+    want = []
+    for _ in range(2):
+        parts = [ref.next_host() for _ in range(IMNET_K)]
+        want.append([torch.stack([p.data[0] for p in parts]),
+                     torch.stack([p.label[0] for p in parts])])
+    ref.close()
+    same = len(landed) == 2 and all(
+        a.device.type == "cuda" and b.device.type == "cuda"
+        and torch.equal(a, b)
+        for got, exp in zip(landed, want) for a, b in zip(got, exp))
+
+    # set_epoch: a resumed launch positioned on epoch 1 against the
+    # uninterrupted run's epoch 1
+    full = _imnet_iter(rec, seed, IMNET_WORKERS)
+    _drain(full)
+    full.reset()
+    epoch1 = [full.next_host().data[0].clone() for _ in range(nb)]
+    full.close()
+    resumed = _imnet_iter(rec, seed, IMNET_WORKERS)
+    resumed.next_host()
+    resumed.set_epoch(1)
+    resume_same = all(torch.equal(resumed.next_host().data[0], e)
+                      for e in epoch1)
+    resumed.close()
+    del epoch1, landed, want
+
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(dev).manual_seed(seed)
+    x = torch.randn((n,) + IMNET_SHAPE, generator=gen, device=dev)
+    y = torch.randint(0, IMNET_CLASSES, (n,), generator=gen, device=dev)
+    synth = mt.io.NDArrayIter(mt.nd.NDArray(x), mt.nd.NDArray(y.float()),
+                              batch_size=IMNET_BATCH)
+    sends, _, _ = _imnet_fit(mt, sym, synth, seed, warm + timed)
+    del x, y, synth
+    synth_ips = timed * n / (sends[-1] - sends[warm])
+    log("imagenet (d) %d workers decoding one epoch on the card with no "
+        "training beside them: %.1f images/s [%s]"
+        % (IMNET_WORKERS, alone_ips, card))
+    log("imagenet (d) ResNet-50 NCHW bf16 b=%d k=%d, 1000 classes, from %d "
+        "JPEG records through ImageRecordIter(num_workers=%d) on the card: "
+        "%.1f images/s over %d timed epochs (host clock, each epoch ended "
+        "by a synchronize; warm-up epoch %.2f s); over a device-resident "
+        "NDArrayIter of the same shapes %.1f images/s; real/synthetic "
+        "%.3f; %d samples in the last epoch's metric, parameters finite "
+        "%s [%s]" % (IMNET_BATCH, IMNET_K, n, IMNET_WORKERS, real_ips, timed,
+                     ends[warm] - ends[0], synth_ips, real_ips / synth_ips,
+                     count, finite, card))
+    log("imagenet (d) PipelineStats %s; DataHealth %s" % (stats, health))
+    log("imagenet (d) the fit's launches: image_augment %d (%d batches), "
+        "nvJPEG calls by route %s, images by route %s"
+        % (launches, (warm + timed) * nb, by_route, images))
+    log("imagenet (e) the first 2 superbatches that reached the card equal "
+        "a 1-worker pass bit for bit: %s; set_epoch(1) after a batch of "
+        "epoch 0 equals the uninterrupted epoch 1 bit for bit: %s"
+        % (same, resume_same))
+    if launches != (warm + timed) * nb:
+        problems.append("image_augment launched %d times in the fit, not "
+                        "%d" % (launches, (warm + timed) * nb))
+    if sum(images.values()) != (warm + timed) * n:
+        problems.append("nvJPEG decoded %s images in the fit" % images)
+    if not same or not resume_same:
+        problems.append("card batches differ across worker counts (%s) or "
+                        "on resume (%s)" % (same, resume_same))
+    if not finite or count != n:
+        problems.append("ResNet-50 from JPEG on the card: finite %s, %d "
+                        "samples" % (finite, count))
+    return {"launches": launches, "launches_by_route": by_route,
+            "real_ips": real_ips, "synthetic_ips": synth_ips,
+            "decode_alone_ips": alone_ips,
+            "stall_frac": stats.get("stall_frac")}
+
+
+def imnet_threads(rec, card, problems):
+    """(e) four threads, each on its own decoder, decode two batches of the
+    records again and again beside a busy card (a matmul loop on another
+    stream); every decode must equal one thread's decode on an idle card
+    bit for bit (nvjpegDecode's state must not be reused while the card
+    still reads it: csrc/jpeg_decode.cu)."""
+    import torch
+    from mxnet_tpu_torch import jpeg_decode
+    dev = torch.device("cuda", 0)
+    batches = [_read_bufs(rec, range(k * 64, (k + 1) * 64)) for k in (0, 1)]
+
+    def decode(dec, bufs):
+        # the images alone: the buffer's alignment gaps are not written
+        w, h, r, _ = dec.info(bufs)
+        px, offs, st = dec.decode(bufs, w, h, r)
+        dec.finish()
+        return torch.cat([px[o:o + 3 * int(a) * int(b)]
+                          for o, a, b in zip(offs, w, h)]), \
+            int(np.count_nonzero(st))
+    dec = jpeg_decode.acquire(dev)
+    try:
+        ref = [decode(dec, b)[0] for b in batches]
+    finally:
+        jpeg_decode.release(dec)
+    stop = threading.Event()
+
+    def load():
+        a = torch.randn(8192, 8192, device=dev)
+        s = torch.cuda.Stream()
+        with torch.cuda.stream(s):
+            while not stop.is_set():
+                for _ in range(4):
+                    a = (a @ a).clamp_(-1, 1)
+                s.synchronize()
+    bad, lock = [0, 0], threading.Lock()
+
+    def work(t):
+        for it in range(4):
+            k = (t + it) % 2
+            dec = jpeg_decode.acquire(dev)
+            try:
+                px, failed = decode(dec, batches[k])
+            finally:
+                jpeg_decode.release(dec)
+            with lock:
+                bad[0] += int(not torch.equal(px, ref[k]))
+                bad[1] += failed
+    t0 = time.perf_counter()
+    loader = threading.Thread(target=load)
+    loader.start()
+    workers = [threading.Thread(target=work, args=(t,)) for t in range(4)]
+    for w in workers:
+        w.start()
+    for w in workers:
+        w.join()
+    stop.set()
+    loader.join()
+    log("imagenet (e) 4 threads x 4 decodes of a 64-image batch beside a "
+        "busy card: %d of 16 differ from one thread's decode, %d images "
+        "failed (%.1f s) [%s]" % (bad[0], bad[1], time.perf_counter() - t0,
+                                  card))
+    if bad != [0, 0]:
+        problems.append("concurrent decodes beside a busy card differ (%d) "
+                        "or fail (%d)" % tuple(bad))
+
+
+def imnet_faults(rec, seed, tmp, problems):
+    """(f) a truncated record raises the corrupt-image error on the card
+    route; the io.record_read retry drill counts as on the host route."""
+    import mxnet_tpu_torch as mt
+    from mxnet_tpu_torch import faults, recordio
+    bufs = _read_bufs(rec, range(8))
+    bad = os.path.join(tmp, "corrupt.rec")
+    w = recordio.MXIndexedRecordIO(os.path.join(tmp, "corrupt.idx"), bad,
+                                   "w")
+    for i, x in enumerate(bufs):
+        w.write_idx(i, recordio.pack(recordio.IRHeader(0, 0.0, i, 0),
+                                     x[:100] if i == 3 else x))
+    w.close()
+    err = None
+    it = _imnet_iter(bad, seed, 0, batch_size=8, shuffle=False)
+    try:
+        it.next()
+    except mt.MXNetError as e:
+        err = str(e)
+    it.close()
+    log("imagenet (f) a record cut to its first 100 bytes (inside the "
+        "header): next() raised %r" % err)
+    if err is None or "1 corrupt image(s) in batch" not in err:
+        problems.append("the truncated record raised %r" % err)
+
+    def first(nw):
+        it = _imnet_iter(rec, seed, nw, data_shape=(3, 64, 64),
+                         batch_size=16, resize=72)
+        try:
+            return [it.next_host().data[0].cpu().numpy() for _ in range(4)]
+        finally:
+            it.close()
+    clean = first(2)
+    mt.io.DATA_HEALTH.reset()
+    faults.clear()
+    faults.inject("io.record_read", nth=3, kind="transient", times=2)
+    got = first(2)
+    faults.clear()
+    retries = mt.io.DATA_HEALTH.report()["retries"]
+    same = all(np.array_equal(a, b) for a, b in zip(got, clean))
+    log("imagenet (f) drill io.record_read@3=transient*2 on the card route: "
+        "DATA_HEALTH.retries %d, the 4 batches equal the clean pass's %s"
+        % (retries, same))
+    if retries != 2 or not same:
+        problems.append("card io.record_read drill: retries %d, same %s"
+                        % (retries, same))
+
+
+def imagenet_phase(seed, reps, card):
+    """Phase 28 (see the module docstring): the image_augment kernel's
+    line for the kernels JSON."""
+    import tempfile as _tempfile
+    from mxnet_tpu_torch import native_build
+    t_phase = time.perf_counter()
+    problems = []
+    p = native_build.probe()
+    log("imagenet: nvjpeg.h %s; libnvjpeg %s" % (p["nvjpeg_h"],
+                                                 p["libnvjpeg"]))
+    with _tempfile.TemporaryDirectory() as tmp:
+        rec = os.path.join(tmp, "imagenet.rec")
+        t0 = time.perf_counter()
+        nbytes = write_records(rec, IMNET_IMAGES,
+                               lambda i: _imnet_image(seed, i),
+                               IMNET_QUALITY)
+        kinds = {}
+        for i in range(IMNET_IMAGES):
+            kinds[_imnet_kind(i)[0]] = kinds.get(_imnet_kind(i)[0], 0) + 1
+        log("imagenet (a) records: %d JPEGs %s (quality %d, labels i %% "
+            "1000), %.1f MB, written in %.2f s"
+            % (IMNET_IMAGES, kinds, IMNET_QUALITY, nbytes / 1e6,
+               time.perf_counter() - t0))
+        parts = {"(a)": time.perf_counter() - t0}
+        t0 = time.perf_counter()
+        line = imnet_kernel(rec, seed, reps, card, problems)
+        parts["(b)+(c)"] = time.perf_counter() - t0
+        if line is not None:
+            t0 = time.perf_counter()
+            fit = imnet_fit(rec, seed, card, problems)
+            parts["(d)+(e)"] = time.perf_counter() - t0
+            line.update(launches=fit["launches"],
+                        nvjpeg_launches_by_route=fit["launches_by_route"],
+                        real_ips=fit["real_ips"],
+                        synthetic_ips=fit["synthetic_ips"],
+                        decode_alone_ips=fit["decode_alone_ips"],
+                        stall_frac=fit["stall_frac"])
+            t0 = time.perf_counter()
+            imnet_threads(rec, card, problems)
+            imnet_faults(rec, seed, tmp, problems)
+            parts["(e) threads, (f)"] = time.perf_counter() - t0
+    log("imagenet: the phase took %.1f s (%s)" % (
+        time.perf_counter() - t_phase,
+        ", ".join("%s %.1f" % kv for kv in parts.items())))
+    if problems:
+        raise SystemExit("imagenet phase failed: " + "; ".join(problems))
+    return line
+
+
 def _nodes(sym):
     from mxnet_tpu_torch.symbol import _topo
     return _topo(sym._out_nodes())
@@ -9389,7 +10049,8 @@ def main():
            torch.backends.cudnn.allow_tf32))
 
     t0 = time.perf_counter()
-    cuda_build.build(["multibox_nms", "matmul_stats", "rtc_launch"])
+    cuda_build.build(["multibox_nms", "matmul_stats", "rtc_launch",
+                      "image_augment", "jpeg_decode"])
     log("build: %.2f s" % (time.perf_counter() - t0))
     for name, text in cuda_build.BUILD_LOG.items():
         for line in text.splitlines():
@@ -9438,6 +10099,7 @@ def main():
     tc25 = timed(tracecheck_phase, args.seed, card)
     fc26 = timed(flopcheck_phase, args.seed, card)
     cc27 = timed(commscheck_phase, args.seed, card)
+    d1 = timed(imagenet_phase, args.seed, args.reps, card)
     log("seconds by phase (%.1f s in all from the build) %s [%s]"
         % (time.perf_counter() - t0, json.dumps(seconds), card))
     # B1 runs on three main paths: the train phase, the training API and
@@ -9508,7 +10170,7 @@ def main():
 
     log(card)
     log(json.dumps({"ops": op_rows, "examples": examples}))
-    log(json.dumps({"kernels": [nms, b1, b1_f32] + b3}))
+    log(json.dumps({"kernels": [nms, b1, b1_f32] + b3 + [d1]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

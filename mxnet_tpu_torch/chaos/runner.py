@@ -401,7 +401,8 @@ def _stream_hash(mx, rec, batches=None):
     import hashlib as _h
     it = mx.image.ImageRecordIter(path_imgrec=rec, data_shape=(3, 32, 32),
                                   batch_size=16, resize=36, shuffle=False,
-                                  num_workers=2)
+                                  num_workers=2,
+                                  device=_context(mx).to_device())
     h = _h.sha256()
     n = 0
     try:

@@ -2,20 +2,25 @@
 src/io/iter_image_recordio*.cc and iter_image_det_recordio.cc).
 
 Counterpart of ``mxnet_tpu/image.py``. :func:`imdecode` decodes JPEGs with
-the native libjpeg path (``src/io/image_decode.cc``, built by
-:mod:`native_build`) and anything else with Pillow; the augmenters are
-numpy transforms on the host. :class:`ImageRecordIter` decodes, augments
-and batches a whole batch in one native call; :class:`ImageIter` runs the
-augmenter list in Python; :class:`ImageDetIter` carries detection labels
-through mirror and crop.
+the native libjpeg path (``src/io/image_decode.cc``, the decoder library
+:mod:`native_build` builds) and anything else with Pillow; the augmenters
+are numpy transforms on the host. :class:`ImageRecordIter` decodes,
+augments and batches a whole batch at once: on the card by default
+(nvJPEG, :mod:`jpeg_decode`, then one launch of the
+:mod:`~mxnet_tpu_torch.ops.image_augment` kernel), or with
+``device="cpu"`` in one native libjpeg call on the host; :class:`ImageIter`
+runs the augmenter list in Python; :class:`ImageDetIter` carries detection
+labels through mirror and crop. ``ImageIter``, ``ImageDetIter`` and
+``imdecode`` decode on the host on every machine.
 
 ``num_workers=`` on :class:`ImageIter` and :class:`ImageRecordIter` routes
 decoding through the :mod:`~mxnet_tpu_torch.data` worker pool: N
 decode/augment workers over a shard-aware reader with pure-function epoch
 shuffling and batch order, so the sample stream is the same for any worker
-count, which keeps resume bit for bit. Batches are host arrays
-(``next_host()`` gives numpy, ``next()`` CPU NDArrays); the module or the
-superbatch prefetcher copies them to the card.
+count, which keeps resume bit for bit. Host batches are host arrays
+(``next_host()`` gives numpy, ``next()`` CPU NDArrays) that the module or
+the superbatch prefetcher copies to the card; the card route's batches are
+already there.
 """
 from __future__ import annotations
 
@@ -27,15 +32,15 @@ import numpy as np
 
 from .base import MXNetError
 from .context import cpu
-from .ndarray import array
+from .ndarray import NDArray, array
 from . import io as mxio
 from . import random as _random
 from . import recordio
 
 
 def _native_lib():
-    from .recordio import _load_native
-    return _load_native()
+    from . import native_build
+    return native_build.load("decoder")
 
 
 def _open_sharded_record(path_imgrec, part_index=0, num_parts=1):
@@ -603,12 +608,21 @@ class ImageIter(mxio.DataIter):
 class ImageRecordIter(mxio.DataIter):
     """ImageNet-rate RecordIO image iterator.
 
-    One native call per batch decodes every JPEG on a C++ thread pool
-    (libjpeg, GIL released), applies resize-short -> crop -> resize ->
-    mirror, and writes the float32 NCHW batch with mean/std folded in —
-    pixels never become Python objects. A background Python thread keeps one
-    batch in flight so decode overlaps the training step (the
-    iter_prefetcher.h role).
+    On the card (the default, ``device=None`` -> ``cuda:0``) each batch's
+    JPEGs are decoded by nvJPEG (:mod:`~mxnet_tpu_torch.jpeg_decode`: the
+    card's JPEG engines where an image's header allows, else nvJPEG's
+    hybrid backend) and one launch of the
+    :mod:`~mxnet_tpu_torch.ops.image_augment` kernel applies resize-short
+    -> crop -> resize -> mirror and writes the float32 NCHW batch with
+    mean/std folded in, on the card; sizes and random draws are computed on
+    the host from the JPEG headers exactly as the native stage draws them.
+    With ``device="cpu"`` one native call per batch decodes every JPEG on a
+    C++ thread pool (libjpeg, GIL released) and does the same on the host.
+    Without CUDA a missing ``device`` raises. Both routes give the same
+    sizes, crops and mirror flags; the card's pixels differ from libjpeg's
+    by the decoders' rounding. A background Python thread keeps one batch
+    in flight so decode overlaps the training step (the iter_prefetcher.h
+    role).
 
     Parameters mirror the reference's ImageRecordIter: path_imgrec,
     data_shape (C,H,W), batch_size, shuffle, rand_crop, rand_mirror,
@@ -620,9 +634,10 @@ class ImageRecordIter(mxio.DataIter):
     ``mxnet_tpu_torch.data`` pool, shard-aware reads with thread-local handles,
     PURE-function epoch shuffling (epoch order and per-batch augmentation
     seeds depend only on (seed, epoch, batch index) — resumable and
-    identical for every worker count), host-numpy batches via
-    ``next_host()`` so the superbatch prefetcher lands one copy a slot per
-    dispatch, and per-stage ``PipelineStats`` in ``data_stats``.
+    identical for every worker count), batches via ``next_host()`` (host
+    numpy on the host route, which the superbatch prefetcher lands with one
+    copy a slot; tensors already on the card on the card route, which it
+    stacks there), and per-stage ``PipelineStats`` in ``data_stats``.
     ``sub_index/sub_parts`` sub-shard within the host shard (per-device
     loading for a data mesh).
     """
@@ -635,11 +650,18 @@ class ImageRecordIter(mxio.DataIter):
                  prefetch=True, seed=0, round_batch=True,
                  data_name="data", label_name="softmax_label",
                  num_workers=None, sub_index=0, sub_parts=1,
-                 retry_policy=None, data_health=None, **kwargs):
+                 retry_policy=None, data_health=None, device=None,
+                 **kwargs):
         super().__init__(batch_size)
-        # the native library is required: a failed build raises with the
-        # compiler's output
-        self._lib = _native_lib()
+        from .context import resolve_device
+        self.device = resolve_device(device, "ImageRecordIter")
+        if self.device.type not in ("cpu", "cuda"):
+            raise MXNetError("ImageRecordIter: no decode route for device "
+                             "%s (cuda or cpu)" % self.device)
+        self._card = self.device.type == "cuda"
+        # the host route needs the native decoder: a failed build raises
+        # with the compiler's output; the card route decodes with nvJPEG
+        self._lib = None if self._card else _native_lib()
         assert len(data_shape) == 3 and data_shape[0] == 3, \
             "data_shape must be (3, H, W)"
         self.data_shape = tuple(data_shape)
@@ -782,17 +804,20 @@ class ImageRecordIter(mxio.DataIter):
 
     # -- decode ---------------------------------------------------------
     def decode_batch_numpy(self, keys, batch_seed):
-        """Read + fused native decode/augment for the given record keys;
-        returns host numpy (data, labels). This is the stage that scales
-        with cores — the unit the input-pipeline benchmark measures."""
+        """Read + fused decode/augment for the given record keys; returns
+        (data, labels): host numpy on the host route, tensors on the card
+        on the card route. This is the stage that scales with cores — the
+        unit the input-pipeline benchmark measures."""
         return self._decode_batch_np(keys, batch_seed)
 
     def _decode_batch(self, keys, batch_seed):
         out, labels = self._decode_batch_np(keys, batch_seed)
-        # the host NDArrays are made here, so with prefetch=True it runs on
-        # the background thread, overlapped with the training step (the
-        # iter_prefetcher.h role); the module copies them to the device
+        # the NDArrays are made here, so with prefetch=True it runs on the
+        # background thread, overlapped with the training step (the
+        # iter_prefetcher.h role); the module copies host ones to the device
         label_arr = labels[:, 0] if self.label_width == 1 else labels
+        if self._card:
+            return NDArray(out), NDArray(label_arr)
         return array(out, ctx=cpu()), array(label_arr, ctx=cpu())
 
     def _decode_batch_np(self, keys, batch_seed):
@@ -802,21 +827,29 @@ class ImageRecordIter(mxio.DataIter):
         self.data_stats.add("read", time.perf_counter() - t0, n=len(keys))
         return self._decode_records(recs, batch_seed)
 
+    def _labels(self, recs):
+        labels = np.zeros((len(recs), self.label_width), np.float32)
+        for i, (header, _) in enumerate(recs):
+            lab = np.asarray(header.label, np.float32).reshape(-1)
+            labels[i, :] = lab[:self.label_width]
+        return labels
+
     def _decode_records(self, recs, batch_seed):
-        """Fused native decode/augment over already-read (header, bytes)
-        pairs — the shared decode stage for the legacy path (which reads
-        through the iterator's own handle) and the worker pool (which
-        reads through the shard reader's thread-local handles)."""
+        """Fused decode/augment over already-read (header, bytes) pairs —
+        the shared decode stage for the legacy path (which reads through
+        the iterator's own handle) and the worker pool (which reads through
+        the shard reader's thread-local handles): on the card where the
+        iterator's device is, else in one native call on the host."""
+        if self._card:
+            return self._decode_records_card(recs, batch_seed)
         import ctypes
         t_dec = time.perf_counter()
         n = len(recs)
-        labels = np.zeros((n, self.label_width), np.float32)
+        labels = self._labels(recs)
         bufs = (ctypes.POINTER(ctypes.c_uint8) * n)()
         sizes = (ctypes.c_uint64 * n)()
         holders = []
         for i, (header, img) in enumerate(recs):
-            lab = np.asarray(header.label, np.float32).reshape(-1)
-            labels[i, :] = lab[:self.label_width]
             holder = np.frombuffer(img, np.uint8)
             holders.append(holder)  # keep alive through the C call
             bufs[i] = holder.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8))
@@ -840,6 +873,59 @@ class ImageRecordIter(mxio.DataIter):
                              % bad)
         self.data_stats.add("decode", time.perf_counter() - t_dec, n=n)
         return out, labels
+
+    def _decode_records_card(self, recs, batch_seed):
+        """The card route of :meth:`_decode_records`: the JPEG headers give
+        each image's size, the host draws its geometry (``image_augment.
+        plan``), nvJPEG decodes the batch into one buffer on a decoder's
+        own stream, and one ``image_augment`` launch writes the float32
+        batch there. The stream is synchronized before the batch is
+        returned: (data, labels) on the card."""
+        import torch
+        from . import jpeg_decode
+        from .ops import image_augment as ia
+        t_dec = time.perf_counter()
+        labels = self._labels(recs)
+        bufs = [bytes(img) for _, img in recs]
+        _, h, w = self.data_shape
+        m, sc = ia.normalization(self._mean, self._std, self._use_mean,
+                                 self._use_std)
+        dec = jpeg_decode.acquire(self.device)
+        try:
+            widths, heights, routes, status = dec.info(bufs)
+            bad = int(np.count_nonzero(status))
+            if not bad:
+                desc = ia.plan(widths, heights, self.resize, (h, w),
+                               self.rand_crop, self.rand_mirror, batch_seed)
+                pixels, offsets, status = dec.decode(bufs, widths, heights,
+                                                     routes)
+                bad = int(np.count_nonzero(status))
+            if bad:
+                raise MXNetError("ImageRecordIter: %d corrupt image(s) in "
+                                 "batch" % bad)
+            desc[:, ia.D_OFFSET] = offsets
+            desc[:, ia.D_PITCH] = 3 * widths.astype(np.int64)
+            with torch.cuda.stream(dec.stream):
+                out = ia.image_augment(
+                    pixels, torch.from_numpy(desc).to(self.device), h, w,
+                    m, sc)
+                lab = torch.from_numpy(labels).to(self.device)
+            dec.finish()
+        finally:
+            jpeg_decode.release(dec)
+        self.data_stats.add("decode", time.perf_counter() - t_dec,
+                            n=len(recs))
+        return out, lab
+
+    def _adopt(self, tensors):
+        """Hand card batches to the caller's current stream: they were made
+        on a decoder's stream, so the allocator must not reuse their memory
+        there while the caller's stream still reads it."""
+        for t in tensors:
+            t = t.data if isinstance(t, NDArray) else t
+            if getattr(getattr(t, "device", None), "type", None) == "cuda":
+                import torch
+                t.record_stream(torch.cuda.current_stream(t.device))
 
     def _next_keys(self):
         """Advance the legacy cursor one batch: (keys, batch_seed, pad) or
@@ -872,13 +958,14 @@ class ImageRecordIter(mxio.DataIter):
         return (keys, batch_seed, pad)
 
     def next_host(self):
-        """One batch as host numpy (no device transfer) — the superbatch
-        hook: ``DevicePrefetcher``/``SuperBatchIter`` stacks K of these on
-        the producer thread and lands the whole (k, batch, ...) stack with
-        one copy a slot."""
+        """One batch with no device transfer — the superbatch hook:
+        ``DevicePrefetcher``/``SuperBatchIter`` stacks K of these on the
+        producer thread. Host numpy on the host route, landed as one copy a
+        slot; tensors on the card on the card route, stacked there."""
         if self._runner is not None:
             (out, labels), pad = self._runner.next()
             label_arr = labels[:, 0] if self.label_width == 1 else labels
+            self._adopt((out, label_arr))
             return mxio.DataBatch(data=[out], label=[label_arr],
                                   pad=pad, index=None)
         if self._pending is not None:
@@ -891,15 +978,18 @@ class ImageRecordIter(mxio.DataIter):
         keys, batch_seed, pad = task
         out, labels = self._decode_batch_np(keys, batch_seed)
         label_arr = labels[:, 0] if self.label_width == 1 else labels
+        self._adopt((out, label_arr))
         return mxio.DataBatch(data=[out], label=[label_arr],
                               pad=pad, index=None)
 
     def next(self):
         if self._runner is not None:
             batch = self.next_host()
+            wrap = (NDArray if self._card
+                    else (lambda a: array(a, ctx=cpu())))
             return mxio.DataBatch(
-                data=[array(a, ctx=cpu()) for a in batch.data],
-                label=[array(a, ctx=cpu()) for a in batch.label],
+                data=[wrap(a) for a in batch.data],
+                label=[wrap(a) for a in batch.label],
                 pad=batch.pad, index=None)
         if self._pending is None:
             self._pending = self._submit()
@@ -914,6 +1004,7 @@ class ImageRecordIter(mxio.DataIter):
             data_nd, label_nd = self._decode_batch(keys, batch_seed)
         # keep the next batch decoding while the consumer trains
         self._pending = self._submit()
+        self._adopt((data_nd, label_nd))
         return mxio.DataBatch(data=[data_nd], label=[label_nd],
                               pad=pad, index=None)
 

@@ -1,17 +1,27 @@
-"""Build and load the data tier's native host library.
+"""Build and load the data tier's native host libraries.
 
 The RecordIO reader (``src/io/recordio_reader.cc``) and the fused JPEG
 decode/augment stage (``src/io/image_decode.cc``) are plain C++ with a C
-interface that ``ctypes`` loads. The JAX package builds them into
+interface that ``ctypes`` loads. The JAX package builds both into
 ``lib/libmxtpu_io.so`` with ``make -C src``; the port compiles the same
-two sources with ``g++`` and the Makefile's flags, linking libjpeg, into
-``_build/`` beside this file under a name that is a digest of the sources
-and the flags (a changed source builds anew), as :mod:`cuda_build` names
-the kernels' libraries.
+sources with ``g++`` and the Makefile's flags into two libraries
+(:data:`LIBRARIES`) under ``_build/`` beside this file, each named by a
+digest of its sources and flags (a changed source builds anew), as
+:mod:`cuda_build` names the kernels' libraries:
 
-The build runs at first use, never at import. A failed build raises
-:class:`MXNetError` carrying the compiler's output, and every later call in
-the process raises the same error.
+- ``"reader"``: ``recordio_reader.cc`` alone, with no ``-ljpeg``. It builds
+  wherever a C++ compiler does, the card machine included (which has no
+  libjpeg); :class:`~mxnet_tpu_torch.recordio.NativeRecordIOReader` loads
+  only it.
+- ``"decoder"``: ``image_decode.cc``, linked with ``-ljpeg``. The host
+  route of :class:`~mxnet_tpu_torch.image.ImageRecordIter`
+  (``device="cpu"``) and :func:`~mxnet_tpu_torch.image.imdecode` load it;
+  the card route decodes with nvJPEG instead
+  (:mod:`~mxnet_tpu_torch.jpeg_decode`).
+
+A build runs at first use of its library, never at import. A failed build
+raises :class:`MXNetError` carrying the compiler's output, and every later
+call for that library in the process raises the same error.
 """
 from __future__ import annotations
 
@@ -27,13 +37,17 @@ from .base import MXNetError
 _PKG = os.path.dirname(os.path.abspath(__file__))
 SRC_DIR = os.path.join(os.path.dirname(_PKG), "src", "io")
 BUILD_DIR = os.path.join(_PKG, "_build")
+#: library name -> (sources, libraries it links)
+LIBRARIES = {"reader": (("recordio_reader.cc",), ()),
+             "decoder": (("image_decode.cc",), ("-ljpeg",))}
+#: every source of the two libraries
 SOURCES = ("recordio_reader.cc", "image_decode.cc")
 #: ``src/Makefile``'s flags
 CXXFLAGS = ("-O2", "-std=c++17", "-fPIC", "-Wall", "-pthread", "-shared")
-LIBS = ("-ljpeg",)
 
-_LIB = None
-_ERROR = None
+#: library name -> its ``ctypes.CDLL``, and -> the error of a failed build
+_LIB = {}
+_ERROR = {}
 _LOCK = threading.Lock()
 
 
@@ -46,50 +60,58 @@ def _cxx():
     return cxx
 
 
-def _target():
-    """(source paths, library path) of the native library."""
-    srcs = [os.path.join(SRC_DIR, s) for s in SOURCES]
+def _target(name):
+    """(source paths, link flags, library path) of library ``name``."""
+    if name not in LIBRARIES:
+        raise MXNetError("no native library %r (one of %s)"
+                         % (name, ", ".join(sorted(LIBRARIES))))
+    sources, libs = LIBRARIES[name]
+    srcs = [os.path.join(SRC_DIR, s) for s in sources]
     h = hashlib.sha256()
     for s in srcs:
         if not os.path.exists(s):
             raise MXNetError("no native source %s" % s)
         with open(s, "rb") as f:
             h.update(f.read())
-    h.update(" ".join(CXXFLAGS + LIBS).encode())
-    return srcs, os.path.join(BUILD_DIR,
-                              "libmxtpu_io-%s.so" % h.hexdigest()[:16])
+    h.update(" ".join(CXXFLAGS + libs).encode())
+    return srcs, libs, os.path.join(
+        BUILD_DIR, "libmxtpu_io-%s-%s.so" % (name, h.hexdigest()[:16]))
 
 
-def build():
-    """Compile the library if it is missing; returns its path. Raises
+def build(name="decoder"):
+    """Compile library ``name`` if it is missing; returns its path. Raises
     :class:`MXNetError` with the compiler's output on a failed build."""
-    srcs, lib = _target()
+    srcs, libs, lib = _target(name)
     if os.path.exists(lib):
         return lib
     os.makedirs(BUILD_DIR, exist_ok=True)
     # compile to a private name, then rename: a concurrent process never
     # loads a half-written library
     tmp = "%s.tmp%d" % (lib, os.getpid())
-    cmd = [_cxx(), *CXXFLAGS, "-o", tmp, *srcs, *LIBS]
+    cmd = [_cxx(), *CXXFLAGS, "-o", tmp, *srcs, *libs]
     p = subprocess.run(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                        text=True)
     if p.returncode != 0:
         if os.path.exists(tmp):
             os.remove(tmp)
-        raise MXNetError("g++ failed building the native IO library "
+        raise MXNetError("g++ failed building the native IO %s library "
                          "(exit %d): %s\n%s"
-                         % (p.returncode, " ".join(cmd), p.stdout))
+                         % (name, p.returncode, " ".join(cmd), p.stdout))
     os.replace(tmp, lib)
     return lib
 
 
 def probe():
-    """What this host offers the native build, found without building it:
-    ``{"pillow": version or None, "jpeglib_h": the C++ preprocessor finds
-    <jpeglib.h>, "libjpeg": libjpeg's lines of ``ldconfig -p``, "cxx": the
-    compiler's first ``--version`` line or None, "cpu_count": n}``;
-    ``"native"`` is True where both libjpeg's header and library are
-    present (the build needs both)."""
+    """What this host offers the data tier, found without building
+    anything: ``{"pillow": version or None, "jpeglib_h": the C++
+    preprocessor finds <jpeglib.h>, "libjpeg": libjpeg's lines of
+    ``ldconfig -p``, "cxx": the compiler's first ``--version`` line or
+    None, "cpu_count": n}``; ``"native"`` is True where both libjpeg's
+    header and library are present (the decoder library needs both).
+    For the card route: ``"nvjpeg_h"`` (the path of the CUDA toolkit's
+    ``nvjpeg.h`` or None) and ``"libnvjpeg"`` (the library
+    :func:`~mxnet_tpu_torch.jpeg_decode.find_library` would open, or
+    None)."""
     out = {"pillow": None, "jpeglib_h": False, "libjpeg": [], "cxx": None,
            "cpu_count": os.cpu_count()}
     try:
@@ -117,10 +139,13 @@ def probe():
     except OSError:
         pass
     out["native"] = bool(out["jpeglib_h"] and out["libjpeg"])
+    from . import jpeg_decode
+    out["nvjpeg_h"] = jpeg_decode.find_header()
+    out["libnvjpeg"] = jpeg_decode.find_library()[0]
     return out
 
 
-def _declare(lib):
+def _declare_reader(lib):
     lib.mxtpu_rio_open.restype = ctypes.c_void_p
     lib.mxtpu_rio_open.argtypes = [ctypes.c_char_p]
     lib.mxtpu_rio_next.restype = ctypes.POINTER(ctypes.c_char)
@@ -137,6 +162,10 @@ def _declare(lib):
     lib.mxtpu_rio_prefetch_next.restype = ctypes.c_int64
     lib.mxtpu_rio_prefetch_next.argtypes = [ctypes.c_void_p, ctypes.c_char_p,
                                             ctypes.c_uint64]
+    return lib
+
+
+def _declare_decoder(lib):
     u8p = ctypes.POINTER(ctypes.c_uint8)
     f32p = ctypes.POINTER(ctypes.c_float)
     lib.mxtpu_img_decode_batch.restype = ctypes.c_int
@@ -152,17 +181,24 @@ def _declare(lib):
     return lib
 
 
-def load():
-    """The ``ctypes.CDLL`` of the native library, built at first use."""
-    global _LIB, _ERROR
+_DECLARE = {"reader": _declare_reader, "decoder": _declare_decoder}
+
+
+def load(name="decoder"):
+    """The ``ctypes.CDLL`` of library ``name`` (``"reader"`` or
+    ``"decoder"``), built at first use."""
+    if name not in LIBRARIES:
+        raise MXNetError("no native library %r (one of %s)"
+                         % (name, ", ".join(sorted(LIBRARIES))))
     with _LOCK:
-        if _LIB is not None:
-            return _LIB
-        if _ERROR is not None:
-            raise MXNetError(_ERROR)
+        lib = _LIB.get(name)
+        if lib is not None:
+            return lib
+        if name in _ERROR:
+            raise MXNetError(_ERROR[name])
         try:
-            _LIB = _declare(ctypes.CDLL(build()))
+            lib = _LIB[name] = _DECLARE[name](ctypes.CDLL(build(name)))
         except (MXNetError, OSError, AttributeError) as e:
-            _ERROR = str(e)
-            raise MXNetError(_ERROR) from e
-        return _LIB
+            _ERROR[name] = str(e)
+            raise MXNetError(_ERROR[name]) from e
+        return lib

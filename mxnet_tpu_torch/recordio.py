@@ -6,8 +6,9 @@ Counterpart of ``mxnet_tpu/recordio.py``: the dmlc framing (magic
 0xced7230a, the length-or-marker word, 4-byte alignment) and the image
 IRHeader (flag, label, id, id2), so a ``.rec``/``.idx`` pair written by
 either package reads in the other. :class:`NativeRecordIOReader` rides the
-native library (``src/io/recordio_reader.cc``) that :mod:`native_build`
-compiles at first use; a failed build raises with the compiler's output.
+native reader library (``src/io/recordio_reader.cc`` alone, no libjpeg)
+that :mod:`native_build` compiles at first use; a failed build raises with
+the compiler's output.
 ``pack_img``/``unpack_img`` encode and decode with Pillow, as the
 reference does.
 """
@@ -24,10 +25,10 @@ from . import native_build
 
 
 def _load_native():
-    """The native IO library (built at first use; raises
+    """The native reader library (built at first use; raises
     :class:`MXNetError` with the compiler's output when it cannot be
     built)."""
-    return native_build.load()
+    return native_build.load("reader")
 
 
 class NativeRecordIOReader(object):

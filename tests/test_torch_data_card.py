@@ -1,11 +1,12 @@
 """The data tier on a GPU machine: the native build there, and host batches
 landing on ``cuda:0`` from pinned memory.
 
-- The native library (``src/io``, ``-ljpeg``): where ``native_build.probe``
-  finds libjpeg's header and library it builds and decodes a JPEG exactly
-  as Pillow does; where it does not, ``native_build.load`` raises
+- The native libraries (``src/io``): the reader (no libjpeg) builds
+  everywhere; where ``native_build.probe`` finds libjpeg's header and
+  library the decoder (``-ljpeg``) builds and decodes a JPEG exactly as
+  Pillow does; where it does not, ``native_build.load("decoder")`` raises
   ``MXNetError`` carrying the compiler's message.
-- One superbatch of ``ImageRecordIter`` (native route) or ``ImageIter``
+- One superbatch of ``ImageRecordIter`` (host route) or ``ImageIter``
   (Pillow decode) through the ``DevicePrefetcher``: every slot is stacked
   into a pinned host buffer, lands on ``cuda:0`` and equals the iterator's
   host batches (exact: a copy).
@@ -70,15 +71,16 @@ def test_native_build_follows_the_probe():
     _need_pillow()
     probe = native_build.probe()
     jpg = _jpegs(1)[0]
+    assert hasattr(native_build.load("reader"), "mxtpu_rio_open")
     if probe["native"]:
-        lib = native_build.load()
+        lib = native_build.load("decoder")
         assert hasattr(lib, "mxtpu_img_decode_batch")
         from PIL import Image
         want = np.asarray(Image.open(_bio.BytesIO(jpg)).convert("RGB"))
         np.testing.assert_array_equal(mt.image._decode_numpy(jpg), want)
     else:
         with pytest.raises(MXNetError, match="g\\+\\+ failed") as e:
-            native_build.load()
+            native_build.load("decoder")
         assert "jpeg" in str(e.value)
 
 
@@ -92,7 +94,8 @@ def test_superbatch_lands_on_the_card_from_pinned_memory(tmp_path,
         def make():
             return mt.image.ImageRecordIter(
                 path_imgrec=rec, data_shape=(3, 32, 32), batch_size=4,
-                shuffle=True, rand_crop=True, num_workers=2, seed=1)
+                shuffle=True, rand_crop=True, num_workers=2, seed=1,
+                device="cpu")
     else:
         def make():
             augs = mt.image.CreateAugmenter((3, 32, 32), rand_crop=True)

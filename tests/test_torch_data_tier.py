@@ -85,6 +85,8 @@ def _record_iter(pkg, rec, num_workers, **kw):
     kw.setdefault("data_shape", (3, 28, 28))
     kw.setdefault("batch_size", 8)
     kw.setdefault("resize", 30)
+    if pkg is mt:
+        kw.setdefault("device", "cpu")
     return pkg.image.ImageRecordIter(path_imgrec=rec, num_workers=num_workers,
                                      **kw)
 

@@ -29,6 +29,11 @@ The JAX package's trained matrix-factorization parameters, carried across
 by ``convert``, score the holdout in the port's module as in the JAX
 package's.
 
+``example/image-classification/train_imagenet.py``'s loop (records
+written here, ``ImageRecordIter`` on the host route into a small resnet
+through ``Module.fit``) is held at its own, wider tolerance: see
+``test_train_imagenet_matches_jax_and_passes``.
+
 Two things are fixed that the examples leave to each package's generator:
 the iterators' one shuffle (``NDArrayIter(shuffle=True)`` draws from the
 package's ``random.np_rng``, which differs between them) is taken as a
@@ -51,6 +56,8 @@ import mxnet_tpu_torch as mt
 from mxnet_tpu_torch import convert
 
 TOL = dict(rtol=1e-5, atol=0)
+#: train_imagenet's losses (see its test)
+IMNET_TOL = dict(rtol=5e-2, atol=0)
 
 
 # ---------------------------------------------------------------------------
@@ -688,3 +695,145 @@ def test_reinforce_matches_jax_and_passes():
     np.testing.assert_allclose(tl, jl, **TOL)
     assert tr == jr
     assert tacc >= 0.9 and jacc >= 0.9
+
+
+# example/image-classification/train_imagenet.py ---------------------------
+
+_IMNET_NORM = dict(mean_r=123.68, mean_g=116.78, mean_b=103.94,
+                   std_r=58.395, std_g=57.12, std_b=57.375)
+
+
+def imagenet_records(path, n=24, classes=4, h=40, w=48):
+    """An indexed .rec of ``n`` JPEGs, written with Pillow from a numpy
+    seed (the example reads tools/im2rec.py's records): a smooth random
+    field on an 8-pixel grid whose mean colour is the class's."""
+    import io as _bio
+    from PIL import Image
+    rng = np.random.RandomState(11)
+    colors = rng.uniform(70, 185, (classes, 3))
+    rec = mt.recordio.MXIndexedRecordIO(path[:-4] + ".idx", path, "w")
+    for i in range(n):
+        coarse = np.clip(colors[i % classes] + rng.normal(
+            0, 50, (h // 8 + 2, w // 8 + 2, 3)), 0, 255).astype(np.uint8)
+        img = Image.fromarray(coarse).resize((w, h), Image.BILINEAR)
+        buf = _bio.BytesIO()
+        img.save(buf, format="JPEG", quality=90)
+        rec.write_idx(i, mt.recordio.pack(
+            mt.recordio.IRHeader(0, float(i % classes), i, 0),
+            buf.getvalue()))
+    rec.close()
+    return path
+
+
+def _he_params(pkg, sym, dshape, seed):
+    """The example's Xavier(rnd_type="gaussian", factor_type="in",
+    magnitude=2) drawn with numpy from ``seed`` (BatchNorm gamma 1, beta
+    and biases 0, moving mean 0 and variance 1), the same for both
+    packages."""
+    arg_shapes, _, aux_shapes = sym.infer_shape(data=dshape)
+    rng = np.random.RandomState(seed)
+    args = {}
+    for name, shape in zip(sym.list_arguments(), arg_shapes):
+        if name in ("data", "softmax_label"):
+            continue
+        if name.endswith("_gamma"):
+            v = np.ones(shape, np.float32)
+        elif name.endswith(("_beta", "_bias")):
+            v = np.zeros(shape, np.float32)
+        else:
+            fan_in = int(np.prod(shape[1:]))
+            v = rng.normal(0, np.sqrt(2.0 / fan_in), shape).astype(
+                np.float32)
+        args[name] = pkg.nd.array(v, ctx=pkg.cpu())
+    aux = {name: pkg.nd.array(np.ones(shape, np.float32) if
+                              name.endswith("_var") else
+                              np.zeros(shape, np.float32), ctx=pkg.cpu())
+           for name, shape in zip(sym.list_auxiliary_states(), aux_shapes)}
+    return args, aux
+
+
+@_on_cpu
+def train_imagenet(pkg, rec, num_epochs=3, batch=8, epoch_size=3):
+    """The example's training loop at a small size: resnet (18 layers,
+    3x32x32, 4 classes) from ``ImageRecordIter(shuffle, rand_crop,
+    rand_mirror, resize)`` with its mean/std, SGD with momentum 0.9, wd
+    1e-4 and a MultiFactorScheduler, metrics acc and top-2, Speedometer;
+    returns each epoch's training loss over the records' center crops and
+    the bytes of every batch the fit took."""
+    image_shape = (3, 32, 32)
+    net = pkg.models.get_symbol("resnet", num_classes=4, num_layers=18,
+                                image_shape="3,32,32")
+    kvstore = pkg.kv.create("local")
+    host = {"device": "cpu"} if pkg is mt else {}
+    train = pkg.image.ImageRecordIter(
+        path_imgrec=rec, data_shape=image_shape, batch_size=batch,
+        shuffle=True, rand_crop=True, rand_mirror=True, resize=36,
+        part_index=kvstore.rank, num_parts=kvstore.num_workers, seed=3,
+        **_IMNET_NORM, **host)
+    fed = []
+    take = train.next
+
+    def next_batch():
+        b = take()
+        fed.append(b.data[0].asnumpy().tobytes()
+                   + b.label[0].asnumpy().tobytes())
+        return b
+    train.next = next_batch
+    evals = pkg.image.ImageRecordIter(
+        path_imgrec=rec, data_shape=image_shape, batch_size=24, resize=36,
+        **_IMNET_NORM, **host)
+    b = evals.next()
+    X, y = b.data[0].asnumpy(), b.label[0].asnumpy()
+    evals.close()
+    steps = [int(e) * epoch_size for e in "2,4".split(",")]
+    lr_sched = pkg.lr_scheduler.MultiFactorScheduler(step=steps, factor=0.1)
+    args, aux = _he_params(pkg, net, (batch,) + image_shape, 17)
+    losses = []
+    mod = pkg.mod.Module(net, context=pkg.cpu())
+    mod.fit(train, num_epoch=num_epochs,
+            eval_metric=["acc", pkg.metric.TopKAccuracy(top_k=2)],
+            initializer=pkg.initializer.Xavier(
+                rnd_type="gaussian", factor_type="in", magnitude=2),
+            arg_params=args, aux_params=aux, optimizer="sgd",
+            optimizer_params={"learning_rate": 0.1, "momentum": 0.9,
+                              "wd": 1e-4, "lr_scheduler": lr_sched},
+            kvstore=kvstore,
+            batch_end_callback=pkg.callback.Speedometer(batch, 20),
+            epoch_end_callback=lambda e, s, a, x: losses.append(
+                _batch_stats_ce(pkg, net, a, x, X, y)))
+    train.close()
+    return losses, fed
+
+
+def _batch_stats_ce(pkg, net, args, aux, X, y):
+    """The mean cross-entropy over ``X`` at ``args`` with BatchNorm on the
+    batch's own statistics (a few steps leave the moving statistics near
+    their initial values)."""
+    exe = net.simple_bind(pkg.cpu(), grad_req="null", data=X.shape,
+                          softmax_label=y.shape)
+    exe.copy_params_from(args, aux)
+    exe.forward(is_train=True, data=pkg.nd.array(X),
+                softmax_label=pkg.nd.array(y))
+    p = exe.outputs[0].asnumpy()
+    return float(-np.log(np.maximum(p[np.arange(len(y)), y.astype(int)],
+                                    1e-30)).mean())
+
+
+def test_train_imagenet_matches_jax_and_passes(tmp_path):
+    """Both fits take the same batches, bit for bit (the port's host route
+    of ImageRecordIter; tests/test_torch_image.py holds it across
+    options), from the same initial parameters. The epoch losses are held
+    within ``IMNET_TOL``: on such JPEG batches a ReLU input rounds to the
+    other side of 0 in one package's float32 and not in the other's (on a
+    batch of 8 of these records: one element of stage4_unit2_1's
+    BatchNorm output, which moves that unit's conv-weight gradient by 17%
+    of its largest value in the port, while the JAX package flips others
+    in stage1; each package's gradients are otherwise within 1e-5 of a
+    float64 run), and nine steps at lr 0.1 with momentum carry that on: the
+    losses measured here differ by at most 1.0%."""
+    rec = imagenet_records(str(tmp_path / "train.rec"))
+    (jl, jfed), (tl, tfed) = train_imagenet(mx, rec), train_imagenet(mt, rec)
+    assert len(tfed) == len(jfed) == 9 and tfed == jfed
+    assert len(tl) == len(jl) == 3
+    np.testing.assert_allclose(tl, jl, **IMNET_TOL)
+    assert tl[-1] < tl[0] and jl[-1] < jl[0]

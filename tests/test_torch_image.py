@@ -169,7 +169,7 @@ def test_image_record_iter_matches_reference(nw, extra, tmp_path):
               mean_r=123.68, mean_g=116.28, mean_b=103.53, std_r=58.395,
               std_g=57.12, std_b=57.375, seed=11, num_workers=nw, **extra)
     jit = mx.image.ImageRecordIter(**kw)
-    tit = mt.image.ImageRecordIter(**kw)
+    tit = mt.image.ImageRecordIter(device="cpu", **kw)
     assert [tuple(d) for d in tit.provide_data] == \
         [tuple(d) for d in jit.provide_data]
     assert [tuple(d) for d in tit.provide_label] == \
@@ -186,7 +186,7 @@ def test_image_record_iter_matches_reference(nw, extra, tmp_path):
 def test_image_record_iter_batches_stay_on_the_host(tmp_path):
     rec = _make_rec(str(tmp_path / "h.rec"), n=12, name="host")
     it = mt.image.ImageRecordIter(path_imgrec=rec, data_shape=(3, 24, 24),
-                                  batch_size=4, num_workers=2)
+                                  batch_size=4, num_workers=2, device="cpu")
     b = it.next()
     assert b.data[0].context == mt.cpu() and b.label[0].context == mt.cpu()
     h = it.next_host()
@@ -200,7 +200,7 @@ def test_image_record_iter_transient_faults_match_reference(tmp_path):
     rec = _make_rec(str(tmp_path / "f.rec"), name="faults")
     kw = dict(path_imgrec=rec, data_shape=(3, 32, 32), batch_size=6,
               shuffle=True, rand_crop=True, seed=2, num_workers=2)
-    clean = mt.image.ImageRecordIter(**kw)
+    clean = mt.image.ImageRecordIter(device="cpu", **kw)
     want = _batches(clean, epochs=1)
     clean.close()
     out = {}
@@ -210,7 +210,8 @@ def test_image_record_iter_transient_faults_match_reference(tmp_path):
         f.inject("io.record_read", nth=3, kind="transient", times=2)
         f.inject("io.record_read", nth=17, kind="transient")
         it = pkg.image.ImageRecordIter(
-            retry_policy=pkg.io.RetryPolicy(base_delay=0.0), **kw)
+            retry_policy=pkg.io.RetryPolicy(base_delay=0.0),
+            **dict(kw, device="cpu") if pkg is mt else kw)
         out[pkg] = (_batches(it, epochs=1), it.data_health.report(),
                     pkg.io.DATA_HEALTH.report())
         it.close()

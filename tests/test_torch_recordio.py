@@ -198,8 +198,8 @@ def test_failed_native_build_raises_with_the_compiler_output(
         (src / name).write_text("this is not C++ (%s)\n" % name)
     monkeypatch.setattr(native_build, "SRC_DIR", str(src))
     monkeypatch.setattr(native_build, "BUILD_DIR", str(tmp_path / "build"))
-    monkeypatch.setattr(native_build, "_LIB", None)
-    monkeypatch.setattr(native_build, "_ERROR", None)
+    monkeypatch.setattr(native_build, "_LIB", {})
+    monkeypatch.setattr(native_build, "_ERROR", {})
     with pytest.raises(MXNetError, match="g\\+\\+ failed") as e:
         native_build.load()
     assert "this is not C++" in str(e.value) or "error" in str(e.value)
@@ -210,5 +210,5 @@ def test_failed_native_build_raises_with_the_compiler_output(
     path, _ = _write(mt, str(tmp_path / "a.rec"), recs)
     with pytest.raises(MXNetError, match="g\\+\\+ failed"):
         mt.image.ImageRecordIter(path_imgrec=path, data_shape=(3, 16, 16),
-                                 batch_size=2)
+                                 batch_size=2, device="cpu")
     assert not os.listdir(str(tmp_path / "build"))  # no half-written .so
