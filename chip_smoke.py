@@ -541,9 +541,11 @@ non-zero):
    375x500, 64 at 1024x768, 32 progressive, 32 grayscale; quality 90),
    their MB and seconds to write. (b) two batches decoded by nvJPEG:
    image_augment against its plain version on the same CUDA tensors
-   (max_abs_err 0), the descriptors from nvJPEG's header sizes against
-   the Python draws on Pillow's; the kernel's ms on CUDA events beside its
-   bound, the plain version's and F.interpolate + flip + normalize's
+   (max_abs_err 0), and on an extra descriptor mix (D1_EXTRA: denom 8, a
+   3.1x shrink, crops under a 227x227 output), the descriptors from
+   nvJPEG's header sizes against the Python draws on Pillow's; the
+   kernel's ms on CUDA events beside its bound and its share of it, the
+   plain version's and F.interpolate + flip + normalize's
    (composite_ms; no single library call does the stage); nvJPEG's decode
    ms a image by route. (c) nvJPEG's pixels against Pillow's decode of the
    same bytes by route, and the denom-2 images' box average against
@@ -9535,6 +9537,66 @@ def _composite(pixels, desc, m, s):
     return out
 
 
+#: (b)'s extra descriptor mix for image_augment, (image sizes (w, h),
+#: resize, output (h, w)): the script's own, after the kinds of case in
+#: tests/test_torch_image_decode_card.py: libjpeg's 1/8 cap with a 3.1x
+#: resize-short shrink (listed windows) and at a small resize, crops
+#: smaller than a 227x227 output (the second resize), odd pitches and
+#: images one pixel wide or high
+D1_EXTRA = (
+    (((1200, 1000), (1000, 1300), (170, 130)), 40, (40, 36)),
+    (((170, 130),) * 3 + ((48, 40), (33, 95)), 10, (9, 10)),
+    (((48, 40), (37, 61), (90, 83), (170, 130), (1, 7), (7, 1)), 0,
+     (227, 227)),
+    (((48, 40), (37, 61), (90, 83), (170, 130)), 100, (227, 227)),
+)
+
+
+def exact_diff(got, want):
+    """max |got - want|: 0.0 only where the two are equal, inf where
+    either holds a NaN the other does not (max() skips a NaN)."""
+    import torch
+    if got.shape == want.shape and torch.equal(got, want):
+        return 0.0
+    if got.shape != want.shape:
+        return float("inf")
+    d = (got - want).abs()
+    return float("inf") if bool(torch.isnan(d).any()) else float(d.max())
+
+
+def d1_extra_mix(seed, m, s):
+    """image_augment against its plain version on :data:`D1_EXTRA`'s
+    descriptors (random pixels from ``seed``, packed after 5 bytes so no
+    row starts aligned, the last image flush with the buffer's end):
+    ``(max |difference|, images, tiles with listed windows)``, the last
+    counted by the kernel."""
+    import torch
+    from mxnet_tpu_torch.ops import image_augment as ia
+    dev = torch.device("cuda", 0)
+    worst, images = 0.0, 0
+    listed = torch.zeros(1, dtype=torch.int32, device=dev)
+    for k, (sizes, resize, (oh, ow)) in enumerate(D1_EXTRA):
+        rng = np.random.default_rng([seed, 28, 2, k])
+        desc = ia.plan([w for w, _ in sizes], [h for _, h in sizes], resize,
+                       (oh, ow), True, True, seed + k)
+        host, off = [np.zeros(5, np.uint8)], 0
+        for i, (w, h) in enumerate(sizes):
+            host.append(rng.integers(0, 256, 3 * w * h, dtype=np.uint8))
+            desc[i, ia.D_OFFSET], desc[i, ia.D_PITCH] = off, 3 * w
+            off += 3 * w * h
+        pixels = torch.from_numpy(np.concatenate(host)).to(dev)[5:]
+        d = torch.from_numpy(desc).to(dev)
+        got = ia._launch(pixels, d, oh, ow, torch.as_tensor(m),
+                         torch.as_tensor(s), listed=listed)
+        want = ia.image_augment_reference(pixels, d, oh, ow,
+                                          torch.as_tensor(m),
+                                          torch.as_tensor(s))
+        torch.cuda.synchronize()
+        worst = max(worst, exact_diff(got, want))
+        images += len(sizes)
+    return worst, images, int(listed)
+
+
 def imnet_kernel(rec, seed, reps, card, problems):
     """(b) the kernel against its plain version on two batches' decoded
     pixels, geometry against the Python draws on Pillow's header sizes;
@@ -9580,7 +9642,7 @@ def imnet_kernel(rec, seed, reps, card, problems):
             want = ia.image_augment_reference(
                 pixels, d, oh, ow, torch.as_tensor(m), torch.as_tensor(s))
             torch.cuda.synchronize()
-            worst = max(worst, float((got - want).abs().max()))
+            worst = max(worst, exact_diff(got, want))
             for k, name in enumerate(jpeg_decode.ROUTES):
                 routes_seen[name] += int(np.sum(routes == k))
             # (c): every image of the two batches against Pillow's decode,
@@ -9619,6 +9681,9 @@ def imnet_kernel(rec, seed, reps, card, problems):
                                warmup=1)
         bound_s, bound_by = ia.bound_seconds(desc, oh, ow)
         nbytes = ia.launch_bytes(desc, oh, ow)
+        t0 = time.perf_counter()
+        extra_worst, extra_images, extra_listed = d1_extra_mix(seed, m, s)
+        extra_s = time.perf_counter() - t0
 
         # nvJPEG's decode time a image by route on batch 0's records (host
         # clock around the call and a wait on the decoder's stream)
@@ -9655,9 +9720,14 @@ def imnet_kernel(rec, seed, reps, card, problems):
         "(CUDA events, %d launches back to back), plain version %.2f ms, "
         "F.interpolate + flip + normalize image by image %.2f ms; bound "
         "%.4f ms (%s: %d B, the float32 batch written and the source "
-        "pixels the taps read, at 3.35 TB/s) [%s]"
+        "pixels the taps read, at 3.35 TB/s), %.4f of it reached [%s]"
         % (IMNET_BATCH, oh, ow, ms, reps, plain_ms, comp_ms, 1e3 * bound_s,
-           bound_by, nbytes, card))
+           bound_by, nbytes, 1e3 * bound_s / ms, card))
+    log("imagenet (b) image_augment against its plain version on the extra "
+        "descriptor mix (denom 8 with a 3.1x shrink, denom 8 at resize 10, "
+        "crops under a 227x227 output, odd pitches, 1-pixel edges): %d "
+        "images, %d tiles with listed windows (the kernel's count), max "
+        "|difference| %.3g, %.2f s" % (extra_images, extra_listed, extra_worst, extra_s))
     log("imagenet (b) nvJPEG decode ms a image by route: %s; hardware "
         "backend status %s [%s]" % (json.dumps(dec_ms), hwstat, card))
     stats = {}
@@ -9681,6 +9751,10 @@ def imnet_kernel(rec, seed, reps, card, problems):
     if worst != 0.0:
         problems.append("image_augment differs from its plain version by "
                         "%g" % worst)
+    if extra_worst != 0.0 or not extra_listed:
+        problems.append("image_augment on the extra descriptor mix: max "
+                        "|difference| %g, %d tiles with listed windows"
+                        % (extra_worst, extra_listed))
     if geo_diffs:
         problems.append("%d images' geometry differs from the Python draws "
                         "on Pillow's sizes" % geo_diffs)
@@ -9689,9 +9763,16 @@ def imnet_kernel(rec, seed, reps, card, problems):
             "replaces": "src/io/image_decode.cc:131",
             "replaces_note": "no TPU kernel: ProcessOne, the host C++ "
                              "stage after libjpeg",
-            "max_abs_err": worst, "ms": ms, "ms_source": "cuda_events",
+            "redesigned": "32x32 output tiles, taps once a tile, windows "
+                          "staged in shared memory",
+            "max_abs_err": max(worst, extra_worst), "ms": ms,
+            "ms_source": "cuda_events",
             "plain_ms": plain_ms, "bound_ms": 1e3 * bound_s,
-            "bound_by": bound_by, "library_ms": None,
+            "bound_by": bound_by, "bound_share": 1e3 * bound_s / ms,
+            "library_ms": None,
+            "extra_mix": {"images": extra_images,
+                          "listed_tiles": extra_listed,
+                          "max_abs_err": extra_worst},
             "composite_ms": comp_ms, "nvjpeg_ms_per_image": dec_ms,
             "nvjpeg_vs_pillow": stats}
 

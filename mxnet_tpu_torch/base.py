@@ -155,6 +155,12 @@ def shape_only(t):
     and device that compute nothing, and count no launch."""
     if t.is_meta:
         return True
+    # a plain tensor that no functionalization or functorch transform wraps
+    # is never fake: answered here, since is_fake costs microseconds a call
+    # on every launch
+    if (type(t) is torch.Tensor and not torch._is_functional_tensor(t)
+            and not torch._C._functorch.is_functorch_wrapped_tensor(t)):
+        return False
     from torch._subclasses.fake_tensor import is_fake
     return is_fake(t)
 

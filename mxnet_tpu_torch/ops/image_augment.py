@@ -37,7 +37,13 @@ bit, and both equal the host C++ (g++ on x86-64 contracts nothing).
   then ``y0`` only when ``h > ch``, then the mirror bit ``rng() & 1``.
 - :func:`image_augment` launches the kernel for CUDA tensors and takes
   :func:`image_augment_reference` for CPU tensors; on the card it launches
-  or raises, with no fallback.
+  or raises, with no fallback. The kernel cuts the output into
+  ``TILE x TILE`` tiles, one image each, and stages for each tile, in
+  shared memory, the scaled pixels and resize-short values its taps reach
+  (each tap's pair listed where resize-short shrinks past 2x). An image
+  whose descriptor :func:`plan` cannot make, or whose pixels reach outside
+  ``pixels``, comes out as NaN: the kernel reads nothing outside
+  ``pixels`` and cannot raise without a wait.
 - :data:`LAUNCHES` counts the launches (one a batch), under a lock, since
   decode workers launch from several threads; :func:`reset_launches` sets
   it to 0.
@@ -74,6 +80,11 @@ _COUNT_LOCK = threading.Lock()
 (D_OFFSET, D_W, D_H, D_PITCH, D_DENOM, D_W1, D_H1, D_NW, D_NH, D_X0, D_Y0,
  D_CW, D_CH, D_MIRROR) = range(14)
 NDESC = 14
+
+#: the kernel's output tile edge
+TILE = 32
+#: output sizes the kernel takes: below 2^23 (its windows' bound holds)
+OUT_MAX = 1 << 23
 
 _MASK64 = (1 << 64) - 1
 _GOLDEN = 0x9e3779b97f4a7c15
@@ -294,7 +305,8 @@ def _kernel():
         lib = cuda_build.load("image_augment")
         vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         fn = lib.image_augment_launch
-        fn.argtypes = [vp, vp, ci, ci, ci, cf, cf, cf, cf, cf, cf, ci, vp]
+        fn.argtypes = [vp, ctypes.c_longlong, vp, ci, ci, ci, cf, cf, cf,
+                       cf, cf, cf, ci, vp, vp, vp]
         fn.restype = ci
         lib.image_augment_error_string.argtypes = [ci]
         lib.image_augment_error_string.restype = ctypes.c_char_p
@@ -336,7 +348,10 @@ def image_augment(pixels, desc, out_h, out_w, mean, scale):
     return _launch(pixels, desc, out_h, out_w, mean, scale)
 
 
-def _launch(pixels, desc, out_h, out_w, mean, scale):
+def _launch(pixels, desc, out_h, out_w, mean, scale, listed=None):
+    """The kernel's launch; ``listed``, None or an int32 tensor of one
+    element on the card, gains the number of tiles whose resize-short
+    window the kernel listed (a shrink past 2x)."""
     dev = pixels.device
     if dev.type != "cuda":
         raise MXNetError("image_augment: no kernel for device %s" % dev)
@@ -345,18 +360,28 @@ def _launch(pixels, desc, out_h, out_w, mean, scale):
                          % (desc.device, dev))
     if not desc.is_contiguous():
         raise MXNetError("image_augment: desc must be contiguous")
+    if listed is not None and (listed.device != dev or listed.numel() != 1
+                               or listed.dtype != torch.int32):
+        raise MXNetError("image_augment: listed must be one int32 on %s"
+                         % dev)
+    if out_h >= OUT_MAX or out_w >= OUT_MAX:
+        raise MXNetError("image_augment: output size %dx%d, past %d"
+                         % (out_h, out_w, OUT_MAX - 1))
     n = desc.shape[0]
+    blocks = n * -(-out_h // TILE) * -(-out_w // TILE)
+    if blocks >= 1 << 31:
+        raise MXNetError("image_augment: %d images of %dx%d are %d tiles "
+                         "in one launch, past 2^31 - 1"
+                         % (n, out_h, out_w, blocks))
     out = torch.empty((n, 3, out_h, out_w), dtype=torch.float32, device=dev)
     if n == 0:
         return out
-    if n > 65535:
-        raise MXNetError("image_augment: %d images in one launch, past "
-                         "65535" % n)
     fn, err_str = _kernel()
     m, s = mean.tolist(), scale.tolist()
-    err = fn(pixels.data_ptr(), desc.data_ptr(), n, out_h, out_w,
-             m[0], m[1], m[2], s[0], s[1], s[2], dev.index,
-             out.data_ptr(), raw_stream(dev.index))
+    err = fn(pixels.data_ptr(), pixels.numel(), desc.data_ptr(), n, out_h,
+             out_w, m[0], m[1], m[2], s[0], s[1], s[2], dev.index,
+             out.data_ptr(), raw_stream(dev.index),
+             None if listed is None else listed.data_ptr())
     if err:
         raise MXNetError("image_augment: launch failed: %s (cudaError %d)"
                          % (err_str(err).decode(), err))

@@ -151,7 +151,7 @@ class TritonKernel(object):
 
     def __call__(self, *args):
         vals = []
-        dev = None
+        first = dev = None  # the first tensor input, and its device
         several = False
         loose = None        # the first input that is not contiguous
         for i, a in enumerate(args):
@@ -160,14 +160,14 @@ class TritonKernel(object):
             elif isinstance(a, np.ndarray):
                 a = torch.from_numpy(np.ascontiguousarray(a))
             if isinstance(a, torch.Tensor):
-                if dev is None:
-                    dev = a.device
+                if first is None:
+                    first, dev = a, a.device
                 elif a.device != dev:
                     several = True
                 if loose is None and not a.is_contiguous():
                     loose = i
             vals.append(a)
-        if dev is None:
+        if first is None:
             raise MXNetError("TritonKernel: no array input")
         if several:
             raise MXNetError("TritonKernel: inputs on several devices %s"
@@ -183,7 +183,6 @@ class TritonKernel(object):
             outs = [torch.empty_like(s) if isinstance(s, torch.Tensor)
                     else torch.empty(s[0], dtype=s[1], device=dev)
                     for s in specs]
-            first = next(v for v in vals if isinstance(v, torch.Tensor))
             if shape_only(first):
                 # a dry run: the launch it stands for, priced, not run
                 note_kernel("rtc.TritonKernel",

@@ -40,6 +40,7 @@ import mxnet_tpu_torch as mt
 from mxnet_tpu_torch import jpeg_decode, native_build
 from mxnet_tpu_torch.base import MXNetError
 from mxnet_tpu_torch.ops import image_augment as ia
+from test_torch_image_decode_card import RCAP, SCAP, tile_window
 
 PIL = pytest.importorskip("PIL.Image")
 
@@ -401,3 +402,113 @@ def test_reader_library_links_no_libjpeg(tmp_path, monkeypatch):
                                          "native IO decoder library"):
         native_build.load("decoder")
     assert native_build.load("reader") is r._lib
+
+
+def _reference_taps(src_len, dst_len):
+    """The source indices ``_resize`` reads for each output: its own index
+    arithmetic (float32 tensors), ``(i0, i1)`` lists."""
+    f32 = torch.float32
+    s = torch.tensor(src_len, dtype=f32) / torch.tensor(dst_len, dtype=f32)
+    f = (torch.arange(dst_len, dtype=f32) + 0.5) * s - 0.5
+    i0 = torch.clamp(torch.floor(f).to(torch.int64), min=0)
+    i1 = torch.clamp(i0 + 1, max=src_len - 1)
+    return i0.tolist(), i1.tolist()
+
+
+def _window_descriptors():
+    """Descriptors from ``plan`` over denom 1 to 8, mirror, upscales,
+    extreme aspect ratios and a 2.9x resize-short shrink at libjpeg's 1/8
+    cap: ``(desc row, out_h, out_w)``."""
+    rng = np.random.default_rng(25)
+    groups = [
+        ([(500, 375), (375, 500), (1024, 768)], 256, (224, 224)),
+        ([(8000, 6000)], 256, (224, 224)),          # denom 8, 2.93x
+        ([(1200, 1000), (170, 130)], 40, (32, 32)),  # denom 8, 3.1x
+        ([(170, 130), (33, 95)], 10, (27, 29)),      # denom 8 and 2
+        ([(48, 40), (37, 61), (1, 40), (40, 1)], 0, (227, 227)),  # upscale
+        ([(3000, 2), (2, 3000), (4000, 90)], 24, (20, 36)),       # aspect
+        ([(90, 83), (64, 64)], 50, (48, 40)),
+        ([(700, 520), (640, 480)], 0, (96, 100)),    # no resize, crops
+    ]
+    for i in range(12):                               # random sizes
+        w, h = (int(v) for v in rng.integers(1, 2500, 2))
+        groups.append(([(w, h)], int(rng.choice([0, 16, 37, 120, 256])),
+                       tuple(int(v) for v in rng.integers(1, 260, 2))))
+    out = []
+    for k, (sizes, resize, (oh, ow)) in enumerate(groups):
+        desc = ia.plan([s[0] for s in sizes], [s[1] for s in sizes], resize,
+                       (oh, ow), True, True, 100 + k)
+        out += [(r, oh, ow) for r in desc]
+    return out
+
+
+def test_tile_windows_cover_the_plain_versions_taps():
+    # tile_window models the kernel's windows (the card test holds the
+    # kernel's count of listed tiles to it): they reach every row and
+    # column the plain version's taps read, within the kernel's caps
+    seen = {"denoms": set(), "upscale": 0, "listed": 0, "mirror": 0}
+    for r, oh, ow in _window_descriptors():
+        d = [int(v) for v in r]
+        stage_d = (d[ia.D_CW], d[ia.D_CH]) != (ow, oh)
+        stage_b = (d[ia.D_NW], d[ia.D_NH]) != (d[ia.D_W1], d[ia.D_H1])
+        seen["denoms"].add(d[ia.D_DENOM])
+        seen["upscale"] += stage_d
+        seen["mirror"] += d[ia.D_MIRROR]
+        # per axis: the plain version's taps of each stage
+        taps = []
+        for out_len, c_len, off, s_len, r_len in (
+                (ow, d[ia.D_CW], d[ia.D_X0], d[ia.D_W1], d[ia.D_NW]),
+                (oh, d[ia.D_CH], d[ia.D_Y0], d[ia.D_H1], d[ia.D_NH])):
+            taps.append((_reference_taps(c_len, out_len) if stage_d
+                         else None,
+                         _reference_taps(s_len, r_len) if stage_b
+                         else None, off, s_len))
+        for ty in range(-(-oh // ia.TILE)):
+            for tx in range(-(-ow // ia.TILE)):
+                win = tile_window(r, oh, ow, ty, tx)
+                for axis, (t0, out_len) in enumerate(((tx, ow), (ty, oh))):
+                    dt, bt, off, s_len = taps[axis]
+                    outs = range(t0 * ia.TILE,
+                                 min(out_len, (t0 + 1) * ia.TILE))
+                    if axis == 0 and d[ia.D_MIRROR]:
+                        outs = [out_len - 1 - x for x in outs]
+                    crop = ({i for o in outs for i in (dt[0][o], dt[1][o])}
+                            if dt else set(outs))
+                    short = {c + off for c in crop}
+                    scaled = ({i for v in short for i in (bt[0][v], bt[1][v])}
+                              if bt else short)
+                    w = win[axis]
+                    assert w["nC"] <= RCAP and len(w["sidx"]) <= SCAP
+                    assert scaled <= set(w["sidx"]), (d, oh, ow, ty, tx)
+                    assert min(w["sidx"]) >= 0 and max(w["sidx"]) < s_len
+                    seen["listed"] += not w["contiguous"]
+                    if dt:
+                        assert len(crop) <= w["nC"]
+    assert seen["denoms"] == {1, 2, 4, 8}
+    assert seen["upscale"] and seen["listed"] and seen["mirror"]
+
+
+def test_wrapper_refuses_what_the_kernel_cannot_take():
+    from mxnet_tpu_torch.memcheck import fake_mode
+    m, s = np.zeros(3, np.float32), np.ones(3, np.float32)
+    i64 = torch.int64
+    px = torch.zeros(64, dtype=torch.uint8)
+    with pytest.raises(MXNetError, match="int64 \\(n, 14\\)"):
+        ia.image_augment(px, torch.zeros((2, 14), dtype=torch.int32), 8, 8,
+                         m, s)
+    with fake_mode():
+        px = torch.empty(64, dtype=torch.uint8, device="cuda")
+        desc = torch.zeros((2, ia.NDESC), dtype=i64, device="cuda")
+        with pytest.raises(MXNetError, match="int64 \\(n, 14\\)"):
+            ia.image_augment(px, desc.to(torch.int32), 8, 8, m, s)
+        with pytest.raises(MXNetError, match="int64 \\(n, 14\\)"):
+            ia.image_augment(px, torch.zeros((2, 13), dtype=i64,
+                                             device="cuda"), 8, 8, m, s)
+        with pytest.raises(MXNetError, match="contiguous"):
+            ia.image_augment(px, torch.empty_strided(
+                (2, ia.NDESC), (1, 2), dtype=i64, device="cuda"), 8, 8, m, s)
+        with pytest.raises(MXNetError, match="past 8388607"):
+            ia.image_augment(px, desc, ia.OUT_MAX, 8, m, s)
+        many = torch.zeros((1 << 21, ia.NDESC), dtype=i64, device="cuda")
+        with pytest.raises(MXNetError, match="past 2\\^31 - 1"):
+            ia.image_augment(px, many, 1024, 1024, m, s)

@@ -423,6 +423,39 @@ def test_nms_on_fake_cuda_takes_the_shape_only_route():
     assert out.tolist() == [[1.0, 0.0]] and mnms.SHAPE_ONLY_CALLS == 2
 
 
+@pytest.mark.parametrize("wrap", ["none", "vmap", "functionalize"])
+@pytest.mark.parametrize("kind", ["real", "meta", "fake"])
+def test_shape_only_agrees_with_is_fake(kind, wrap):
+    # shape_only answers a plain tensor without is_fake; a tensor that a
+    # functorch transform or functionalization wraps is still looked through
+    from torch._subclasses.fake_tensor import is_fake
+    from mxnet_tpu_torch.base import shape_only
+    if kind == "fake":
+        x, m = _fake((3, 4), "cpu")
+    else:
+        x, m = torch.ones((3, 4), device=kind if kind == "meta" else "cpu"), None
+    seen = []
+
+    def probe(t):
+        seen.append((shape_only(t), t.is_meta or is_fake(t)))
+        return t * 2
+
+    def run():
+        if wrap == "vmap":
+            torch.func.vmap(probe)(x)
+        elif wrap == "functionalize":
+            torch.func.functionalize(probe)(x)
+        else:
+            probe(x)
+
+    if m is None:
+        run()
+    else:
+        with m:
+            run()
+    assert seen == [(kind != "real", kind != "real")]
+
+
 def test_resnet50_step_on_meta_takes_the_shape_only_route(monkeypatch):
     monkeypatch.setenv("MXTPU_FUSE_CONV_BN", "1")
     sym = tmodels.resnet(num_classes=4, num_layers=50,
